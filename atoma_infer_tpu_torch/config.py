@@ -10,7 +10,7 @@ pools from free accelerator memory (:590-643) via ``torch.cuda.mem_get_info``
 The PyTorch port's copy of ``atoma_infer_tpu/config.py``: the dataclasses are
 identical; only the free-device-memory probe differs. The TPU-only fields
 (``num_hosts``, ``tensor_parallel_size`` > 1, ``pipeline_parallel_size`` > 1,
-``quantization``, ``kv_cache_dtype``) are parsed but rejected by the port's
+``kv_cache_dtype``) are parsed but rejected by the port's
 ``LlmService.start`` until their ROADMAP items land.
 """
 

@@ -9,9 +9,10 @@ weights are resident (SURVEY.md §3.1), from ``torch.cuda.mem_get_info``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): multi-host serving, tensor and pipeline parallelism, async
-scheduling, speculative decoding, prefix caching, weight and KV-cache
-quantization, and the native (C++) block manager — the port always uses
-the Python one.
+scheduling, speculative decoding, prefix caching, KV-cache quantization,
+and the native (C++) block manager — the port always uses the Python one.
+Weight quantization (``quantization`` "int8" or "int4", and W8A8 under
+``ATOMA_W8A8=1``) is ported: the loader quantizes on load.
 """
 
 from __future__ import annotations
@@ -62,7 +63,6 @@ def _reject_unported(config: EngineConfig) -> None:
         (s.async_scheduling, "async scheduling", "async scheduling depth 2"),
         (s.num_speculative_tokens > 0, "speculative decoding", "speculative decoding"),
         (c.enable_prefix_caching, "prefix caching", "prefix caching"),
-        (m.quantization is not None, "weight quantization", "quantization"),
         (m.kv_cache_dtype is not None, "KV-cache quantization", "KV-cache dtypes"),
     ]
     for on, what, item in unported:
@@ -140,7 +140,10 @@ class LlmService:
                 model = get_model_cls(model_cfg.architecture or "llama")(
                     model_cfg, dtype=dtype, device=device
                 )
-                params = load_llama_params(model_dir, model_cfg, dtype=dtype, device=device)
+                params = load_llama_params(
+                    model_dir, model_cfg, dtype=dtype, device=device,
+                    quantization=config.model.quantization,
+                )
                 tokenizer = _load_tokenizer(model_dir)
             logger.info("model loaded in %.1fs", time.monotonic() - t0)
         if model.device != device:

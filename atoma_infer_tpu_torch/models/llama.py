@@ -9,10 +9,13 @@ decodes in one batch).
 Parameters are a plain dict of tensors with the JAX package's pytree layout
 (per-layer weights stacked on axis 0, projections stored ``[in, out]``), so
 checkpoints and JAX parameters carry across one to one
-(``weights.params_from_numpy``). The KV caches are a list of per-layer
-``[num_pages, block_size, 2·Hk·D]`` tensors that the forward updates IN
-PLACE (the JAX forward returns new caches instead). Tensor parallelism
-(``kv_repeat``) and the TPU-only page-map prologue are not ported.
+(``weights.params_from_numpy``). A weight-quantized model holds its seven
+projections (and an untied LM head) as ``ops.quant.QuantizedTensor``
+objects, multiplied through the quantized-matmul kernels. The KV caches are
+a list of per-layer ``[num_pages, block_size, 2·Hk·D]`` tensors that the
+forward updates IN PLACE (the JAX forward returns new caches instead).
+Tensor parallelism (``kv_repeat``) and the TPU-only page-map prologue are
+not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops.attention import AttentionMetadata, alibi_slopes, paged_attention_layer
+from ..ops.quant import QuantizedTensor, quantized_matmul
 from ..ops.rope import RopeScalingConfig, apply_rope, compute_cos_sin_cache
 from ..utils.device import resolve_device
 
@@ -113,6 +117,21 @@ def matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
         return torch.mm(x, w, out_dtype=torch.float32)
     return torch.matmul(x.float(), w.float())
+
+
+def _linear(x: torch.Tensor, w) -> torch.Tensor:
+    """Matmul against a dense or quantized weight."""
+    if isinstance(w, QuantizedTensor):
+        return quantized_matmul(x, w)
+    return x @ w
+
+
+def _layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer i's parameters: views into the stacked tensors."""
+    return {
+        key: value.layer(i) if isinstance(value, QuantizedTensor) else value[i]
+        for key, value in layers.items()
+    }
 
 
 class Llama:
@@ -215,12 +234,12 @@ class Llama:
         if len(kv_cache) != num_layers:
             raise ValueError(f"{len(kv_cache)} caches for {num_layers} layers")
         for i in range(num_layers):
-            lp = {key: value[i] for key, value in layers.items()}
+            lp = _layer_params(layers, i)
             # Attention block (ref: llama.rs:218-320).
             normed = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
-            q = normed @ lp["q_proj"]
-            kk = normed @ lp["k_proj"]
-            vv = normed @ lp["v_proj"]
+            q = _linear(normed, lp["q_proj"])
+            kk = _linear(normed, lp["k_proj"])
+            vv = _linear(normed, lp["v_proj"])
             if "q_bias" in lp:
                 q = q + lp["q_bias"].to(q.dtype)
                 kk = kk + lp["k_bias"].to(kk.dtype)
@@ -244,12 +263,12 @@ class Llama:
                 alibi_slopes=self.alibi,
             )
             attn = attn.reshape(-1, cfg.num_attention_heads * cfg.head_dim)
-            h = h + attn @ lp["o_proj"]
+            h = h + _linear(attn, lp["o_proj"])
             # SwiGLU MLP block (ref: llama.rs:362-366).
             normed = rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
-            gate = normed @ lp["gate_proj"]
-            up = normed @ lp["up_proj"]
-            h = h + (torch.nn.functional.silu(gate) * up) @ lp["down_proj"]
+            gate = _linear(normed, lp["gate_proj"])
+            up = _linear(normed, lp["up_proj"])
+            h = h + _linear(torch.nn.functional.silu(gate) * up, lp["down_proj"])
         return h
 
     def compute_logits(
@@ -263,7 +282,13 @@ class Llama:
         hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
         if cfg.tie_word_embeddings and "lm_head" not in params:
             return matmul_f32_out(hidden, params["embed"].t())
-        return matmul_f32_out(hidden, params["lm_head"])
+        w = params["lm_head"]
+        if isinstance(w, QuantizedTensor):
+            # Weight-only even under W8A8, as on the TPU: there the head's
+            # 128256 columns are no multiple of the Pallas kernel's 512-column
+            # block, so it takes the XLA branch, which has no W8A8.
+            return quantized_matmul(hidden, w, allow_w8a8=False).float()
+        return matmul_f32_out(hidden, w)
 
     # -- cache shape contract ---------------------------------------------------
     def kv_cache_shape(self, num_blocks: int, block_size: int) -> Tuple[int, int, int, int]:

@@ -5,7 +5,9 @@ Counterpart of ``atoma_infer_tpu/models/weights.py`` for dense bf16/f32
 Llama checkpoints: per-layer tensors are stacked on axis 0 and projections
 transposed to ``[in, out]``, the JAX package's layout, so both packages hold
 the same numbers in the same places. ``safetensors`` is imported only when a
-checkpoint is loaded. Quantize-on-load waits for the quantization ROADMAP item.
+checkpoint is loaded. With ``quantization`` ("int8" or "int4") the seven
+projections are quantized on load, layer by layer from f32, and an untied
+LM head to INT8 with one scale per column (JAX ``weights.py:184-248``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..ops.quant import QuantizedTensor, quantize_weight
 from .llama import LlamaConfig
 
 logger = logging.getLogger(__name__)
@@ -63,6 +66,47 @@ _LAYER_MAP = {
     "mlp.down_proj.weight": ("down_proj", True),
 }
 _OPTIONAL_KEYS = frozenset({"q_bias", "k_bias", "v_bias"})
+_QUANTIZED_KEYS = frozenset(
+    {"q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"}
+)
+_BITS = {None: None, "int8": 8, "int4": 4}
+
+
+def _quantize_layers(tensors, bits: int, device) -> QuantizedTensor:
+    """Quantize per-layer ``[in, out]`` weights one at a time from f32 on
+    ``device`` (no f32 copy of the whole stack), then stack."""
+    per_layer = [quantize_weight(torch.as_tensor(t).to(device, torch.float32), bits)
+                 for t in tensors]
+    return QuantizedTensor(
+        qweight=torch.stack([q.qweight for q in per_layer]),
+        scales=torch.stack([q.scales for q in per_layer]),
+        bits=bits,
+        group_size=per_layer[0].group_size,
+    )
+
+
+def _quantize_lm_head(lm_head) -> QuantizedTensor:
+    """INT8 with per-channel scales (one group = the whole contraction): the
+    head is read whole every step."""
+    lm = lm_head.float()
+    return quantize_weight(lm, 8, group_size=lm.shape[0])
+
+
+def quantize_params(params: Dict[str, Any], quantization: Optional[str]) -> Dict[str, Any]:
+    """A dense parameter dict with its projections quantized layer by layer
+    and an untied LM head quantized per channel, as the loader does. The
+    dense input is left as it is."""
+    bits = _BITS[quantization]
+    if bits is None:
+        return params
+    layers = dict(params["layers"])
+    for key in _QUANTIZED_KEYS:
+        stacked = layers[key]
+        layers[key] = _quantize_layers(list(stacked.unbind(0)), bits, stacked.device)
+    out = dict(params, layers=layers)
+    if "lm_head" in params:
+        out["lm_head"] = _quantize_lm_head(params["lm_head"])
+    return out
 
 
 def _to_tensor(arr: Any, dtype: torch.dtype, device) -> torch.Tensor:
@@ -82,9 +126,13 @@ def load_llama_params(
     config: LlamaConfig,
     dtype: torch.dtype = torch.bfloat16,
     device=None,
+    quantization: Optional[str] = None,  # None | "int8" | "int4"
 ) -> Dict[str, Any]:
-    """Load and stack Llama weights from safetensors onto ``device``."""
+    """Load and stack Llama weights from safetensors onto ``device``;
+    optionally quantize the linears on load."""
     from safetensors import safe_open
+
+    bits = _BITS[quantization]
 
     L = config.num_layers
     per_layer: Dict[str, List[Optional[torch.Tensor]]] = {
@@ -119,7 +167,10 @@ def load_llama_params(
             continue
         if missing:
             raise ValueError(f"missing layer tensors for {key}: {missing}")
-        layers[key] = _to_tensor(torch.stack(tensors), dtype, device)
+        if bits and key in _QUANTIZED_KEYS:
+            layers[key] = _quantize_layers(tensors, bits, device)
+        else:
+            layers[key] = _to_tensor(torch.stack(tensors), dtype, device)
 
     params: Dict[str, Any] = {
         "embed": _to_tensor(top["embed"], dtype, device),
@@ -127,7 +178,10 @@ def load_llama_params(
         "final_norm": _to_tensor(top["final_norm"], dtype, device),
     }
     if "lm_head" in top:
-        params["lm_head"] = _to_tensor(top["lm_head"], dtype, device)
+        if bits:
+            params["lm_head"] = _quantize_lm_head(top["lm_head"].to(device))
+        else:
+            params["lm_head"] = _to_tensor(top["lm_head"], dtype, device)
     elif not config.tie_word_embeddings:
         raise ValueError("checkpoint lacks lm_head but embeddings are not tied")
     return params
@@ -136,13 +190,33 @@ def load_llama_params(
 def params_from_numpy(
     params: Dict[str, Any], dtype: torch.dtype = torch.float32, device="cpu"
 ) -> Dict[str, Any]:
-    """The JAX package's (dense) parameter pytree, as numpy arrays or
-    anything ``np.asarray`` takes, with layers stacked on axis 0 → the
-    port's parameter dict on ``device``. Same keys, same layout."""
+    """The JAX package's parameter pytree, as numpy arrays or anything
+    ``np.asarray`` takes, with layers stacked on axis 0 → the port's
+    parameter dict on ``device``. Same keys, same layout. Dense arrays take
+    ``dtype``; a quantized weight (any object with ``qweight``, ``scales``,
+    ``bits`` and ``group_size``, such as the JAX ``QuantizedTensor``) keeps
+    its int8 ``qweight`` and bf16 ``scales`` bytes unconverted."""
     out: Dict[str, Any] = {}
     for key, value in params.items():
         if isinstance(value, dict):
             out[key] = params_from_numpy(value, dtype, device)
+        elif all(hasattr(value, a) for a in ("qweight", "scales", "bits", "group_size")):
+            out[key] = QuantizedTensor(
+                qweight=_to_tensor(value.qweight, torch.int8, device),
+                scales=_bf16_tensor(value.scales, device),
+                bits=int(value.bits),
+                group_size=int(value.group_size),
+            )
         else:
             out[key] = _to_tensor(value, dtype, device)
     return out
+
+
+def _bf16_tensor(arr: Any, device) -> torch.Tensor:
+    """A bf16 array (numpy's ml_dtypes bfloat16, as JAX hands it over) → a
+    bf16 tensor with the same bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.name != "bfloat16":
+        raise ValueError(f"scales must be bfloat16, not {arr.dtype}")
+    bits = np.ascontiguousarray(arr).view(np.int16).copy()
+    return torch.from_numpy(bits).view(torch.bfloat16).to(device)

@@ -1,0 +1,246 @@
+"""Grouped dequantize-matmuls: CUDA kernels F, G and H and their plain versions.
+
+Replace the TPU kernels of ``atoma_infer_tpu/ops/quant_kernels.py``
+(``quantized_matmul_pallas``): F is ``_kernel_i8`` (INT8 weights), G is
+``_kernel_i4`` (INT4 weights, two per byte), H is the ``ATOMA_W8A8`` branch
+(int8 activations against either). All compute
+``y[M,N] = Σ_g (x[:, g] @ q[g, :]) · s[g, :]`` with each group's dot
+accumulated on its own (f32, or exact int32 for H) and scaled before the
+sum over groups. Layout and design notes: ``csrc/quant_matmul.cu``.
+
+Dispatch: CUDA tensors launch the kernels (or raise); CPU tensors take the
+plain versions, which follow the XLA branch of
+``atoma_infer_tpu/ops/quant.py:quantized_matmul`` (f32 operands, one einsum
+per group, scales on the f32 partials).
+
+Not ported (TPU workarounds, ROADMAP.md): ``ATOMA_I4_SINGLEDOT`` (one bf16
+dot per K block, a v5e throughput trade that changes the numbers) and
+``ATOMA_INT8_MATMUL=xla`` (an opt-out to XLA's own fusion).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+import torch
+
+from . import cuda_lib
+from .cuda_lib import INT, PTR
+from .quant import _unpack_int4, true_divide
+
+# W8A8: quantize activations per token to int8 and take exact integer dots
+# (kernel H). Adds activation-quantization noise on top of the weights';
+# read once at import, as the JAX package does.
+_W8A8 = os.environ.get("ATOMA_W8A8", "0") not in ("", "0")
+
+_REPLACES = "atoma_infer_tpu/ops/quant_kernels.py:249 (quantized_matmul_pallas, call :366)"
+_FLOAT_ARGS = [PTR] * 5 + [INT] * 9 + [PTR]
+
+QMM_I8 = cuda_lib.register(
+    cuda_lib.CudaKernel(
+        name="quantized_matmul_int8",
+        source="quant_matmul.cu",
+        symbol="atoma_qmm_i8",
+        argtypes=_FLOAT_ARGS,
+        replaces=f"{_REPLACES} -> _kernel_i8 :84",
+    )
+)
+QMM_I4 = cuda_lib.register(
+    cuda_lib.CudaKernel(
+        name="quantized_matmul_int4",
+        source="quant_matmul.cu",
+        symbol="atoma_qmm_i4",
+        argtypes=_FLOAT_ARGS,
+        replaces=f"{_REPLACES} -> _kernel_i4 :112",
+    )
+)
+QMM_W8A8 = cuda_lib.register(
+    cuda_lib.CudaKernel(
+        name="quantized_matmul_w8a8",
+        source="quant_matmul.cu",
+        symbol="atoma_qmm_w8a8",
+        argtypes=[PTR] * 6 + [INT] * 10 + [PTR],
+        replaces=f"{_REPLACES} with ATOMA_W8A8 :35 -> _scaled_dot integer branch :65-76",
+    )
+)
+
+# Launch geometry, mirrored from csrc/quant_matmul.cu: 8 warps a block,
+# 4 activation rows a block.
+_WARPS = 8
+_BLOCK_ROWS = 4
+# Split K across blocks until a grid has this many (two blocks per SM of an
+# H100's 132).
+_TARGET_BLOCKS = 264
+# Below this many (M tile, column slice, group) chains of loads, a warp's
+# lanes split each group's rows 4 ways (measured on the H100: the small
+# decode shapes gain, the others lose; PERF.md).
+_ROW_SPLIT_BELOW = 65536
+
+
+def plan(M: int, N: int, groups: int, vec: int) -> Tuple[int, int, int, int]:
+    """(row slices per warp, group slices per block, groups per K split, K
+    splits) for one call. Few chains of loads: 4 row slices and at most 2
+    group slices. Otherwise up to 8 group slices share a block's groups.
+    Then a grid smaller than ``_TARGET_BLOCKS`` is split over K into whole
+    rounds of a group per slice."""
+    pow2 = 1 << (groups.bit_length() - 1)
+    chains = -(-M // _BLOCK_ROWS) * -(-N // vec) * groups
+    rsplit, ks = (4, min(2, pow2)) if chains < _ROW_SPLIT_BELOW else (1, min(8, pow2))
+    bn = (_WARPS // ks) * (32 // rsplit) * vec
+    blocks = -(-M // _BLOCK_ROWS) * -(-N // bn)
+    splits = max(1, min(-(-_TARGET_BLOCKS // blocks), groups // ks))
+    gps = ks * -(-groups // (ks * splits))
+    return rsplit, ks, gps, -(-groups // gps)
+
+
+def _check(name, tensors, qweight, scales, *, bits, group_size, M, K) -> int:
+    """Validate the weight side against an [M, K] activation, then that
+    every tensor lies on one CUDA device (last, so that CPU tensors reach
+    every other check); returns N."""
+    if bits not in (8, 4):
+        raise ValueError(f"{name}: bits must be 8 or 4, not {bits}")
+    if qweight.dtype != torch.int8 or scales.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: qweight must be int8 and scales bfloat16")
+    if qweight.dim() != 2 or scales.dim() != 2:
+        raise ValueError(f"{name}: one layer's 2-D qweight and scales")
+    rows, N = qweight.shape
+    if group_size <= 0 or K % group_size or rows * (2 if bits == 4 else 1) != K:
+        raise ValueError(
+            f"{name}: qweight {tuple(qweight.shape)} ({bits}-bit) does not fit K={K} "
+            f"in groups of {group_size}"
+        )
+    if scales.shape != (K // group_size, N):
+        raise ValueError(f"{name}: scales {tuple(scales.shape)}, want {(K // group_size, N)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if M == 0:
+        raise ValueError(f"{name}: no activation rows")
+    device = tensors[0].device
+    if not all(t.is_cuda and t.device == device for t in tensors):
+        raise ValueError(f"{name}: every tensor must be on one CUDA device")
+    return N
+
+
+def _geometry(M, N, K, group_size, qweight, out):
+    vec = 8 if N % 8 == 0 and qweight.data_ptr() % 8 == 0 else 1
+    rsplit, ks, gps, splits = plan(M, N, K // group_size, vec)
+    ws = (
+        torch.empty((splits, M, N), dtype=torch.float32, device=out.device)
+        if splits > 1 else None
+    )
+    return vec, ks, rsplit, gps, ws
+
+
+def quantized_matmul_cuda(
+    x: torch.Tensor,        # [M, K] bf16/f32, contiguous
+    qweight: torch.Tensor,  # int8 [K, N] | int4-packed [K/2, N]
+    scales: torch.Tensor,   # bf16 [K/group_size, N]
+    *,
+    bits: int,
+    group_size: int,
+) -> torch.Tensor:
+    """Launch kernel F (``bits=8``) or G (``bits=4``); output in x's dtype."""
+    name = "quantized_matmul"
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: x must be bfloat16 or float32, not {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be an [M, K] matrix")
+    if bits == 4 and group_size % 2:
+        raise ValueError(f"{name}: int4 needs an even group size, not {group_size}")
+    M, K = x.shape
+    N = _check(name, (x, qweight, scales), qweight, scales, bits=bits,
+               group_size=group_size, M=M, K=K)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    vec, ks, rsplit, gps, ws = _geometry(M, N, K, group_size, qweight, out)
+    kernel = QMM_I8 if bits == 8 else QMM_I4
+    kernel(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
+        M, N, K, group_size, int(x.dtype == torch.bfloat16), vec, ks, rsplit, gps,
+        cuda_lib.current_stream_handle(x.device),
+    )
+    return out
+
+
+def w8a8_matmul_cuda(
+    xq: torch.Tensor,         # int8 [M, K], contiguous
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    act_scale: torch.Tensor,  # f32 [M, 1] (or [M]) per-token scales
+    *,
+    bits: int,
+    group_size: int,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """Launch kernel H: exact int32 group dots, × group scale, × token scale."""
+    name = "w8a8_matmul"
+    if xq.dtype != torch.int8 or xq.dim() != 2:
+        raise ValueError(f"{name}: xq must be an int8 [M, K] matrix")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: out_dtype must be bfloat16 or float32, not {out_dtype}")
+    if group_size % (4 if bits == 8 else 8):
+        raise ValueError(
+            f"{name}: the integer dots take 4 rows at a time: group size {group_size} "
+            f"must be a multiple of {4 if bits == 8 else 8} for {bits}-bit weights"
+        )
+    M, K = xq.shape
+    act = act_scale.reshape(-1)
+    if act.dtype != torch.float32 or act.shape != (M,):
+        raise ValueError(f"{name}: act_scale must be f32 with one scale per row")
+    N = _check(name, (xq, qweight, scales, act), qweight, scales, bits=bits,
+               group_size=group_size, M=M, K=K)
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    vec, ks, rsplit, gps, ws = _geometry(M, N, K, group_size, qweight, out)
+    QMM_W8A8(
+        xq.data_ptr(), qweight.data_ptr(), scales.data_ptr(), act.data_ptr(),
+        out.data_ptr(), ws.data_ptr() if ws is not None else None,
+        M, N, K, group_size, bits, int(out_dtype == torch.bfloat16), vec, ks, rsplit, gps,
+        cuda_lib.current_stream_handle(xq.device),
+    )
+    return out
+
+
+# ------------------------------------------------------------ plain versions
+def _grouped_weights(qweight, bits, group_size, dtype):
+    q = _unpack_int4(qweight, group_size) if bits == 4 else qweight
+    K, N = q.shape
+    return q.to(dtype).reshape(K // group_size, group_size, N)
+
+
+def quantized_matmul_plain(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, *, bits: int,
+    group_size: int,
+) -> torch.Tensor:
+    """Plain version of F and G: the XLA branch of the JAX package (f32
+    operands, one dot per group, f32 partials × scales, summed over groups),
+    cast to x's dtype."""
+    qg = _grouped_weights(qweight, bits, group_size, torch.float32)
+    xg = x.float().reshape(x.shape[0], qg.shape[0], group_size)
+    partial = torch.einsum("mgk,gkn->mgn", xg, qg)
+    return (partial * scales.float()).sum(dim=-2).to(x.dtype)
+
+
+def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric per-token int8 quantization of ``x: [M, K]``
+    (``quant_kernels.py:294-297``, plain ops as XLA runs them there):
+    returns (int8 [M, K], f32 scales [M, 1])."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=1, keepdim=True)
+    act_scale = true_divide(torch.clamp_min(amax, 1e-8), 127.0)
+    xq = torch.clamp(torch.round(xf / act_scale), -127.0, 127.0).to(torch.int8)
+    return xq, act_scale
+
+
+def w8a8_matmul_plain(
+    xq: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+    act_scale: torch.Tensor, *, bits: int, group_size: int, out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """Plain version of H: each group's dot in f64 (exact for int8 × int8
+    over any group this side of 2^37 rows), rounded to f32 as an int32 is,
+    × group scale, summed over groups, × token scale, cast once."""
+    qg = _grouped_weights(qweight, bits, group_size, torch.float64)
+    xg = xq.to(torch.float64).reshape(xq.shape[0], qg.shape[0], group_size)
+    dots = torch.einsum("mgk,gkn->mgn", xg, qg).float()
+    out = (dots * scales.float()).sum(dim=-2) * act_scale.reshape(-1, 1).float()
+    return out.to(out_dtype)

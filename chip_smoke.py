@@ -7,29 +7,41 @@ raises on failure; nothing is caught):
 1. The card's name and power limit (``nvidia-smi``), then the kernels'
    build: every ``atoma_infer_tpu_torch/csrc/*.cu`` compiled by ``nvcc`` for
    ``sm_90a``, all sources in parallel.
-2. Every kernel against its plain PyTorch version on the card: first every
-   compiled instantiation at small sizes (head_dim × block size × GQA group,
-   bf16 and f32), then Llama-3.2-1B attention shapes (Hq=32, Hk=8, D=64,
-   block 16) with a mixed prefill+decode batch and a pure-decode batch: the
-   KV write bit-exact, the attention kernels within the tolerances below
-   (plus one case each with a sliding window, a soft cap and ALiBi). Times
-   with CUDA events: kernel, plain version and, where one PyTorch call
-   computes the same function, that call.
-3. The port's ``Llama`` at full 1B width with 2 layers: prefill plus 3
+2. Every kernel against its plain PyTorch version on the card.
+   Attention and KV write: first every compiled instantiation at small sizes
+   (head_dim × block size × GQA group, bf16 and f32), then Llama-3.2-1B
+   attention shapes (Hq=32, Hk=8, D=64, block 16) with a mixed
+   prefill+decode batch and a pure-decode batch: the KV write bit-exact, the
+   attention kernels within the tolerances below (plus one case each with a
+   sliding window, a soft cap and ALiBi). Quantized matmuls: a sweep at
+   small sizes (8/4-bit weights × group 128 and one group × bf16/f32 × M in
+   1, 8, 64, 300, plus ragged N), W8A8's integer dots checked exact,
+   ``quantize_weight`` on the card byte-identical to the CPU, then the
+   Llama-3.1-8B projection and LM-head shapes at decode (M = 8, 64) and one
+   prefill chunk (M = 256). Times with CUDA events: kernel, plain version
+   and, where one PyTorch call computes the same function, that call.
+3. The port's ``Llama`` with 2 layers at full width: Llama-3.2-1B dense and
+   Llama-3.1-8B quantized (INT8, INT4), prefill plus 3
    decode steps on the card (kernels) against the same f32 weights on the
-   CPU (plain versions). Then the service with the tiny random model on the
-   card against the same on the CPU, with a pool tight enough that groups
-   are swapped out and back: greedy tokens identical.
-4. The service: ``LlmService.start`` with the full-width bf16 Llama-3.2-1B
-   (16 layers, random weights from a ``torch.Generator``), the KV pool
-   sized from ``torch.cuda.mem_get_info``, chunked prefill, 8 requests (one
-   seeded sampled, half submitted while the others decode). Every request
-   must finish at its length or on EOS, every block must return to the
-   pool, and every kernel must have been launched during this run. Prints
-   the worker's step wall times and one pure-decode step's device time by
-   kernel (``torch.profiler``).
-5. A ``{"kernels": [...]}`` JSON line, then as the last line
-   ``{"ok": true, "device": {...}}``.
+   CPU (plain versions). Then two services on the card against the same on
+   the CPU, greedy tokens identical: the tiny random model with a pool tight
+   enough that groups are swapped out and back, and ``tiny_trained``
+   quantized to INT8 on load.
+4. Services through ``LlmService.start``, each with 8 requests (chunked
+   prefill, one seeded sampled, half submitted while the others decode):
+   the full-width bf16 Llama-3.2-1B (16 layers, KV pool sized from
+   ``torch.cuda.mem_get_info``), then the full-width Llama-3.1-8B (32
+   layers, bf16 activations and KV, llama3 rope scaling, untied per-channel
+   INT8 LM head) with INT8 weights, INT4 weights and INT8 weights under
+   W8A8; random weights from a ``torch.Generator``, quantized with the
+   port's ``quantize_weight``. Every request must finish at its length or on
+   EOS, every block must return to the pool, and every kernel of the path
+   must have been launched during that service's run (launch counts are set
+   to 0 just before it and read just after). Prints the worker's step wall
+   times and one pure-decode step's device time by kernel
+   (``torch.profiler``).
+5. A ``{"kernels": [...]}`` JSON line (each kernel's launches from its own
+   path's service), then as the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
 repository.
@@ -38,6 +50,7 @@ repository.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import re
@@ -53,15 +66,37 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # order only.
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # Model check: f32 weights on both sides; logits differ by summation order
-# through 2 layers and a 2048-wide LM head.
+# through 2 layers and a 2048- or 4096-wide LM head.
 MODEL_TOL = 1e-3
+# Quantized matmuls against their plain versions: max |err| over the
+# output's largest magnitude. bf16: one rounding of the output to bf16 on
+# both sides (half an ulp each, up to 2^-8 of a value) after f32 sums in
+# another order; f32: summation order only.
+QMM_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the roofline bounds.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # Llama-3.2-1B (the configuration bench.py runs), attention shapes.
 HQ, HK, D, BS = 32, 8, 64, 16
+
+# Llama-3.1-8B widths (meta-llama/Llama-3.1-8B config.json) and its
+# quantized matmul shapes: name -> (K, N, group size).
+LLAMA_8B = dict(
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+    rope_theta=500000.0, max_position_embeddings=131072, tie_word_embeddings=False,
+)
+QMM_SHAPES = {
+    "q_proj/o_proj": (4096, 4096, 128),
+    "k_proj/v_proj": (4096, 1024, 128),
+    "gate_proj/up_proj": (4096, 14336, 128),
+    "down_proj": (14336, 4096, 128),
+    "lm_head": (4096, 128256, 4096),
+}
+# The shape and row count whose numbers go into the kernels line.
+QMM_LINE_SHAPE, QMM_LINE_M = "gate_proj/up_proj", 8
 
 # The service's pure-decode step (0-based, among pure-decode steps) that
 # runs under torch.profiler: past the first wave's warm-up, with the second
@@ -87,6 +122,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` in ms, its launches captured in a CUDA
+    graph and replayed, so the host's launch cost is not in the number."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * iters)
+    del graph
+    return ms
 
 
 def profile_device(torch, fn):
@@ -386,30 +447,199 @@ def check_kernels(torch):
     return rows
 
 
+# ----------------------------------------------- phase 2: quantized matmuls
+def rel_err(got, want):
+    """(max |got − want| over max |want|, max |got − want|)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    return err / max(want.abs().max().item(), 1e-30), err
+
+
+def check_quant_variants(torch):
+    """Kernels F, G and H against their plain versions at small sizes
+    (8/4-bit weights × grouped, one group and ragged-N shapes × bf16/f32 ×
+    M in 1, 8, 64, 300); H's group dots exact against an int64 product on
+    the CPU (unit scales, f32 output); ``quantize_weight`` on the card
+    byte-identical to the CPU."""
+    from atoma_infer_tpu_torch.ops import quant
+    from atoma_infer_tpu_torch.ops import quant_kernels as qk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    # (K, N, group): groups of 128, one group, ragged N (1-column path), and
+    # one with enough load chains at M = 300 for the unsplit lanes.
+    shapes = [(384, 256, 128), (384, 256, 384), (256, 250, 128), (512, 72, 512),
+              (1024, 2048, 128)]
+    worst, cases, exact = {}, 0, 0
+    for bits in (8, 4):
+        for K, N, group in shapes:
+            qt = quant.quantize_weight(torch.randn(K, N, generator=gen, device=dev) * 0.05,
+                                       bits, group)
+            q_full = (quant._unpack_int4(qt.qweight, group) if bits == 4 else qt.qweight)
+            q_full = q_full.cpu().long()
+            for dtype_name in ("bfloat16", "float32"):
+                dtype, tol = getattr(torch, dtype_name), QMM_TOL[dtype_name]
+                for M in (1, 8, 64, 300):
+                    label = f"{bits}-bit K={K} N={N} group={group} {dtype_name} M={M}"
+                    x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+                    xq, act = qk.quantize_activations(x)
+                    pairs = {
+                        "weight-only": (
+                            qk.quantized_matmul_cuda(x, qt.qweight, qt.scales, bits=bits,
+                                                     group_size=group),
+                            qk.quantized_matmul_plain(x, qt.qweight, qt.scales, bits=bits,
+                                                      group_size=group)),
+                        "w8a8": (
+                            qk.w8a8_matmul_cuda(xq, qt.qweight, qt.scales, act, bits=bits,
+                                                group_size=group, out_dtype=dtype),
+                            qk.w8a8_matmul_plain(xq, qt.qweight, qt.scales, act, bits=bits,
+                                                 group_size=group, out_dtype=dtype)),
+                    }
+                    for kind, (got, want) in pairs.items():
+                        if got.dtype != dtype or got.shape != (M, N):
+                            raise AssertionError(f"quantized matmul {kind} {label}: "
+                                                 f"{got.dtype} {tuple(got.shape)}")
+                        rel, _ = rel_err(got, want)
+                        key = (kind, bits, dtype_name)
+                        worst[key] = max(worst.get(key, 0.0), rel)
+                        if not rel <= tol:
+                            raise AssertionError(
+                                f"quantized matmul {kind} {label}: rel err {rel:.3e} > {tol}")
+                    dots = qk.w8a8_matmul_cuda(
+                        xq, qt.qweight, torch.ones_like(qt.scales), torch.ones_like(act),
+                        bits=bits, group_size=group, out_dtype=torch.float32)
+                    if not torch.equal(dots.cpu(), (xq.cpu().long() @ q_full).float()):
+                        raise AssertionError(f"W8A8 {label}: integer dots are not exact")
+                    cases += 1
+                    exact += 1
+    for (kind, bits, dtype_name), rel in sorted(worst.items()):
+        log(f"quantized matmul {kind} {bits}-bit {dtype_name}: worst rel err {rel:.3e} "
+            f"(tol {QMM_TOL[dtype_name]})")
+    log(f"quantized matmul variants: {cases} cases × 2 kernels agree; W8A8 group dots "
+        f"exact in {exact} cases")
+
+    cpu_gen = torch.Generator().manual_seed(12)
+    for shape, bits, group in (((4096, 4096), 8, 128), ((4096, 4096), 4, 128),
+                               ((4096, 1024), 8, 4096), ((2, 512, 384), 4, 128)):
+        w = torch.randn(shape, generator=cpu_gen)
+        on_cpu = quant.quantize_weight(w, bits, group)
+        on_card = quant.quantize_weight(w.to(dev), bits, group)
+        if not (torch.equal(on_card.qweight.cpu(), on_cpu.qweight)
+                and torch.equal(on_card.scales.cpu().view(torch.int16),
+                                on_cpu.scales.view(torch.int16))):
+            raise AssertionError(f"quantize_weight {shape} {bits}-bit differs on the card")
+    log("quantize_weight: byte-identical on the card and the CPU (4 shapes)")
+
+
+def qmm_work(M, K, N, group, *, bits, x_bytes, w8a8=False):
+    """(bytes, flops) of one quantized matmul: weights, scales, activations
+    (plus per-token scales for W8A8) read once, a bf16 output written once;
+    2·M·K·N operations."""
+    nbytes = K * N * bits // 8 + (K // group) * N * 2 + M * K * x_bytes + M * N * 2
+    if w8a8:
+        nbytes += M * 4
+    return nbytes, 2 * M * K * N
+
+
+def check_quant_kernels(torch):
+    """F, G and H at the Llama-3.1-8B shapes, bf16 activations, M = 8 and
+    64 (decode) and 256 (a prefill chunk): each against its plain version,
+    then timed (CUDA graphs; each timed launch reads weights that are not in
+    L2, as in a decode step where every layer's weights are new). Returns
+    the kernels line's rows."""
+    from atoma_infer_tpu_torch.ops import quant
+    from atoma_infer_tpu_torch.ops import quant_kernels as qk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = {}
+    for shape, (K, N, group) in QMM_SHAPES.items():
+        w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+        for bits in (8, 4):
+            if shape == "lm_head" and bits == 4:
+                continue  # the LM head is always INT8 per channel
+            qt = quant.quantize_weight(w, bits, group)
+            w_bytes = qt.qweight.numel() + qt.scales.numel() * 2
+            # Enough copies that one pass over them does not fit in L2 (50 MB).
+            copies = [qt] + [quant.QuantizedTensor(qt.qweight.clone(), qt.scales.clone(),
+                                                   bits, group)
+                             for _ in range(-(-128_000_000 // w_bytes) - 1)]
+            dense = [quant.dequantize_weight(c, torch.bfloat16) for c in copies]
+            kinds = [("quantized_matmul_int8" if bits == 8 else "quantized_matmul_int4", False)]
+            if shape != "lm_head":
+                kinds.append(("quantized_matmul_w8a8", True))
+            for M in (8, 64, 256):
+                x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+                xq, act = qk.quantize_activations(x)
+                for name, w8a8 in kinds:
+                    if w8a8:
+                        def run(c, xq=xq, act=act):
+                            return qk.w8a8_matmul_cuda(xq, c.qweight, c.scales, act, bits=bits,
+                                                       group_size=group,
+                                                       out_dtype=torch.bfloat16)
+
+                        def plain(xq=xq, act=act):
+                            return qk.w8a8_matmul_plain(xq, qt.qweight, qt.scales, act,
+                                                        bits=bits, group_size=group,
+                                                        out_dtype=torch.bfloat16)
+                    else:
+                        def run(c, x=x):
+                            return qk.quantized_matmul_cuda(x, c.qweight, c.scales, bits=bits,
+                                                            group_size=group)
+
+                        def plain(x=x):
+                            return qk.quantized_matmul_plain(x, qt.qweight, qt.scales,
+                                                             bits=bits, group_size=group)
+                    rel, err = rel_err(run(qt), plain())
+                    if not rel <= QMM_TOL["bfloat16"]:
+                        raise AssertionError(f"{name} {shape} M={M}: rel err {rel:.3e}")
+                    ms = graph_ms(torch, lambda: [run(c) for c in copies],
+                                  iters=max(2, 20 // len(copies))) / len(copies)
+                    plain_ms = graph_ms(torch, plain, iters=2)
+                    library_ms = None
+                    if not w8a8:
+                        library_ms = graph_ms(
+                            torch, lambda x=x: [torch.mm(x, d) for d in dense],
+                            iters=max(2, 20 // len(copies))) / len(copies)
+                    nbytes, flops = qmm_work(M, K, N, group, bits=bits,
+                                             x_bytes=1 if w8a8 else 2, w8a8=w8a8)
+                    bound_ms, bound_by = bound(nbytes, flops, "int8" if w8a8 else "bfloat16")
+                    lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
+                    log(f"{name} {bits}-bit {shape} K={K} N={N} M={M}: {ms:.4f} ms (plain "
+                        f"{plain_ms:.4f} ms, library {lib}), bound {bound_ms:.4f} ms by "
+                        f"{bound_by}, max |err| {err:.3e} (rel {rel:.2e})")
+                    # The line's W8A8 row is the main path's: INT8 weights.
+                    if (shape, M) == (QMM_LINE_SHAPE, QMM_LINE_M) and not (w8a8 and bits == 4):
+                        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                          library_ms=library_ms, bound_ms=bound_ms,
+                                          bound_by=bound_by)
+            del copies, dense
+        del w
+        torch.cuda.empty_cache()
+    return rows
+
+
 # --------------------------------------------------------------- phase 3
 def params_to(params, device):
-    """A copy of a parameter dict (one level of nesting) on ``device``."""
+    """A copy of a parameter dict (one level of nesting) on ``device``;
+    quantized weights move with their ``to``."""
     return {
         k: ({kk: vv.to(device) for kk, vv in v.items()} if isinstance(v, dict) else v.to(device))
         for k, v in params.items()
     }
 
 
-def check_model(torch):
-    """2-layer full-width Llama: card (kernels) vs CPU (plain versions)."""
+def model_parity(torch, cfg, params_cpu, label, tol):
+    """A 2-layer ``Llama`` on the card (kernels) against the same f32
+    weights on the CPU (plain versions): a prefill and 3 decode steps of two
+    sequences; logits and KV caches within ``tol``."""
     import numpy as np
 
-    from atoma_infer_tpu_torch.models.llama import Llama, LlamaConfig
+    from atoma_infer_tpu_torch.models.llama import Llama
     from atoma_infer_tpu_torch.ops.attention import AttentionMetadata
 
-    cfg = LlamaConfig(
-        vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_hidden_layers=2,
-        num_attention_heads=HQ, num_key_value_heads=HK, head_dim=D,
-        max_position_embeddings=4096, tie_word_embeddings=True,
-    )
     cpu = Llama(cfg, dtype=torch.float32, device="cpu")
     gpu = Llama(cfg, dtype=torch.float32, device="cuda")
-    params_cpu = cpu.init_params(torch.Generator().manual_seed(1))
     params_gpu = params_to(params_cpu, gpu.device)
     caches = {"cpu": cpu.alloc_kv_cache(64, BS), "cuda": gpu.alloc_kv_cache(64, BS)}
     tables = [list(range(0, 20, 2)), list(range(1, 21, 2))]
@@ -454,15 +684,60 @@ def check_model(torch):
                 logits[name] = model.compute_logits(params, hidden[ints(sel).long()]).float().cpu()
         err = (logits["cpu"] - logits["cuda"]).abs().max().item()
         worst = max(worst, err)
-        log(f"model step {step} ({'decode' if decode else 'prefill'}): "
-            f"max |logit err| {err:.3e} (tol {MODEL_TOL})")
-        if not torch.allclose(logits["cuda"], logits["cpu"], atol=MODEL_TOL, rtol=MODEL_TOL):
-            raise AssertionError(f"model logits disagree at step {step}")
+        log(f"model {label} step {step} ({'decode' if decode else 'prefill'}): "
+            f"max |logit err| {err:.3e} (tol {tol})")
+        if not torch.allclose(logits["cuda"], logits["cpu"], atol=tol, rtol=tol):
+            raise AssertionError(f"model {label}: logits disagree at step {step}")
     for layer, (c, g) in enumerate(zip(caches["cpu"], caches["cuda"])):
         err = (c - g.cpu()).abs().max().item()
-        if err > MODEL_TOL:
-            raise AssertionError(f"layer {layer} KV cache differs by {err}")
+        if err > tol:
+            raise AssertionError(f"model {label}: layer {layer} KV cache differs by {err}")
     return worst
+
+
+def check_model(torch):
+    """2-layer full-width Llama-3.2-1B, dense f32: card vs CPU."""
+    from atoma_infer_tpu_torch.models.llama import Llama, LlamaConfig
+
+    cfg = LlamaConfig(
+        vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_hidden_layers=2,
+        num_attention_heads=HQ, num_key_value_heads=HK, head_dim=D,
+        max_position_embeddings=4096, tie_word_embeddings=True,
+    )
+    params = Llama(cfg, dtype=torch.float32, device="cpu").init_params(
+        torch.Generator().manual_seed(1))
+    return model_parity(torch, cfg, params, "1B dense", MODEL_TOL)
+
+
+def llama_8b_config(num_layers):
+    from atoma_infer_tpu_torch.models.llama import LlamaConfig
+    from atoma_infer_tpu_torch.ops.rope import RopeScalingConfig
+
+    return LlamaConfig(
+        num_hidden_layers=num_layers,
+        rope_scaling=RopeScalingConfig(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                                       original_max_position_embeddings=8192),
+        **LLAMA_8B,
+    )
+
+
+def check_quant_model(torch):
+    """2-layer full-width Llama-3.1-8B, f32 activations, weights quantized
+    with the port's quantize_weight (INT8 and INT4, with the untied
+    per-channel INT8 LM head): card vs CPU. W8A8 is held to its plain
+    version kernel by kernel (phase 2) and not here: with these random
+    weights its logits move by a tenth when one activation in a row rounds
+    to the other int8 (the residual stream is small against the layers'
+    outputs, so the next RMSNorm magnifies the change), and the card's and
+    the CPU's f32 sums make such a rounding differ in some rows."""
+    from atoma_infer_tpu_torch.models.llama import Llama
+    from atoma_infer_tpu_torch.models.weights import quantize_params
+
+    cfg = llama_8b_config(2)
+    dense = Llama(cfg, dtype=torch.float32, device="cpu").init_params(
+        torch.Generator().manual_seed(2))
+    model_parity(torch, cfg, quantize_params(dense, "int8"), "8B INT8", MODEL_TOL)
+    model_parity(torch, cfg, quantize_params(dense, "int4"), "8B INT4", MODEL_TOL)
 
 
 def check_service_parity(torch):
@@ -542,41 +817,91 @@ def check_service_parity(torch):
         f"identical on the card and the CPU, with swaps on both")
 
 
-# --------------------------------------------------------------- phase 4
-def run_service(torch):
+def check_quant_service_parity(torch):
+    """``tiny_trained`` through ``LlmService.start`` from its directory with
+    INT8 quantization on load, on the card (kernel F) against the CPU (plain
+    version), with a pool of 5 blocks so that requests are preempted by
+    recompute: greedy tokens identical, every block back in the pool."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.server import metrics
+    from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
+
+    fixture = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
+    prompts = [f"prompt number {i} " * (1 + i % 4) for i in range(6)]
+    blocks = 5
+    runs = {}
+    for device in ("cpu", "cuda"):
+        config = EngineConfig(
+            model=ModelConfig(model_name=fixture, dtype="float32", quantization="int8"),
+            cache=CacheConfig(
+                block_size=16, num_device_blocks_override=blocks, num_host_blocks_override=64,
+            ),
+            scheduler=SchedulerConfig(
+                max_num_batched_tokens=256, max_num_sequences=8, max_model_len=256,
+            ),
+            validation=ValidationConfig(max_input_tokens=128, max_total_tokens=256),
+        )
+        service = LlmService.start(config, model_dir=fixture, device=device)
+        preempt0 = metrics.PREEMPTIONS.value
+        launches0 = cuda_lib.KERNELS["quantized_matmul_int8"].launches
+
+        async def drive(service=service):
+            task = asyncio.create_task(service.engine.run())
+            futs = [
+                await service.handle_request(GenerateRequest(
+                    request_id=f"quant-parity-{i}", inputs=prompt,
+                    parameters=GenerateParameters(max_new_tokens=16),
+                ))
+                for i, prompt in enumerate(prompts)
+            ]
+            results = await asyncio.wait_for(asyncio.gather(*futs), timeout=300)
+            service.stop()
+            task.cancel()
+            return results
+
+        results = asyncio.run(drive())
+        free = service.engine.scheduler.block_manager.get_num_free_device_blocks()
+        if free != blocks:
+            raise AssertionError(f"quantized service parity ({device}): "
+                                 f"{blocks - free} blocks leaked")
+        if metrics.PREEMPTIONS.value == preempt0:
+            raise AssertionError(f"quantized service parity ({device}): no preemption")
+        launched = cuda_lib.KERNELS["quantized_matmul_int8"].launches - launches0
+        if (device == "cuda") != (launched > 0):
+            raise AssertionError(f"quantized service parity ({device}): {launched} launches")
+        runs[device] = [tuple(r.outputs[0].token_ids) for r in results]
+    if runs["cuda"] != runs["cpu"]:
+        raise AssertionError("quantized service parity: greedy tokens differ between card and CPU")
+    n = sum(len(t) for t in runs["cuda"])
+    log(f"quantized service parity: tiny_trained INT8, {len(prompts)} requests, {n} greedy "
+        f"tokens identical on the card and the CPU, with preemption by recompute on both")
+
+
+# --------------------------------------------------------------- phase 4
+ATTENTION_PATH = ("reshape_and_cache", "ragged_paged_attention", "fused_decode_attention")
+
+
+def serve(torch, label, model, params, config, path):
+    """Drive one service: 8 requests with chunked prefill in two waves,
+    one decode step profiled. Every request must finish, every block return,
+    and every kernel of ``path`` launch. Returns the launch counts of this
+    run (all set to 0 just before it)."""
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
     from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
-    from atoma_infer_tpu_torch.models.llama import Llama, LlamaConfig
     from atoma_infer_tpu_torch.ops import cuda_lib
     from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
 
-    cfg = LlamaConfig(
-        vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_hidden_layers=16,
-        num_attention_heads=HQ, num_key_value_heads=HK, head_dim=D,
-        max_position_embeddings=4096, tie_word_embeddings=True,
-    )
-    model = Llama(cfg, dtype=torch.bfloat16, device="cuda")
-    params = model.init_params(torch.Generator(device=model.device).manual_seed(0))
-    config = EngineConfig(
-        model=ModelConfig(model_name="llama-3.2-1b-random", dtype="bfloat16"),
-        cache=CacheConfig(block_size=BS, hbm_memory_utilization=0.5, num_host_blocks_override=64),
-        # Chunked prefill (256-token budget): prompts arriving while others
-        # decode share steps with them, so mixed prefill+decode steps run.
-        scheduler=SchedulerConfig(
-            max_num_batched_tokens=256, max_num_sequences=64, max_model_len=2048,
-            enable_chunked_prefill=True,
-        ),
-        validation=ValidationConfig(max_input_tokens=1024, max_total_tokens=2048),
-    )
+    cfg = model.config
     service = LlmService.start(
         config, model=model, params=params, tokenizer=ByteTokenizer(cfg.vocab_size),
         device=model.device,
     )
     pool = config.cache.num_device_blocks
-    log(f"service: KV pool {pool} blocks of {BS} tokens (sized from mem_get_info)")
+    log(f"service {label}: KV pool {pool} blocks of {BS} tokens")
 
     # Per step: (prefill groups, decode groups, wall seconds of the worker
     # call, which ends when the sampled tokens are on the host, whether it
@@ -619,13 +944,6 @@ def run_service(torch):
             ),
         )
 
-    # The profiler's first start sets up device tracing, which takes
-    # seconds: do it here, outside the service's run.
-    profile_device(torch, lambda: torch.ones(1, device=model.device) + 1)
-    # Every kernel module of the path registers its kernels on import; the
-    # attention dispatch imports its module lazily, so import it here.
-    from atoma_infer_tpu_torch.ops import kv_write, paged_attention  # noqa: F401
-
     for kernel in cuda_lib.KERNELS.values():
         kernel.launches = 0
 
@@ -656,34 +974,120 @@ def run_service(torch):
         at_eos = out.finish_reason == "stopped" and out.token_ids[-1] in eos
         if not (at_length or at_eos):
             raise AssertionError(
-                f"{r.request_id}: {len(out.token_ids)} tokens, finish {out.finish_reason}"
+                f"{label} {r.request_id}: {len(out.token_ids)} tokens, finish {out.finish_reason}"
             )
     free = service.engine.scheduler.block_manager.get_num_free_device_blocks()
     if free != pool:
-        raise AssertionError(f"{pool - free} KV blocks leaked")
+        raise AssertionError(f"service {label}: {pool - free} KV blocks leaked")
     mixed = sum(1 for p, d, _, _ in steps if p and d)
     traced_s = sum(t for _, _, t, traced in steps if traced)
-    log(f"service: {len(results)} requests, {generated} tokens, {len(steps)} steps "
+    log(f"service {label}: {len(results)} requests, {generated} tokens, {len(steps)} steps "
         f"({mixed} mixed prefill+decode) in {seconds:.2f} s ({traced_s:.2f} s of it "
         f"in the profiled step); launches {launches}")
     if mixed == 0:
-        raise AssertionError("no mixed prefill+decode step ran")
+        raise AssertionError(f"service {label}: no mixed prefill+decode step ran")
     for kind, pick in (("pure-decode", lambda p, d: d and not p),
                        ("mixed", lambda p, d: p and d)):
         ms = sorted(t * 1e3 for p, d, t, traced in steps if pick(p, d) and not traced)
-        log(f"service: {kind} worker step wall p50 {ms[len(ms) // 2]:.2f} ms, "
+        log(f"service {label}: {kind} worker step wall p50 {ms[len(ms) // 2]:.2f} ms, "
             f"max {ms[-1]:.2f} ms over {len(ms)} steps")
     if profiled.get("kernels"):
         top = ", ".join(f"{name[:48]} {t:.3f}" for name, t in profiled["kernels"][:6])
-        log(f"service: profiled pure-decode step ({profiled['seqs']} seqs): device busy "
-            f"{profiled['busy_ms']:.3f} ms of {profiled['wall_ms']:.2f} ms wall under "
+        log(f"service {label}: profiled pure-decode step ({profiled['seqs']} seqs): device "
+            f"busy {profiled['busy_ms']:.3f} ms of {profiled['wall_ms']:.2f} ms wall under "
             f"the profiler; top device time (ms): {top}")
     else:
-        log("service: device time of a decode step not measured (the profiler "
+        log(f"service {label}: device time of a decode step not measured (the profiler "
             "recorded no device events)")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    for name in path:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
+    return launches
+
+
+def run_service(torch):
+    """The bf16 Llama-3.2-1B service (16 layers), KV pool sized from
+    ``torch.cuda.mem_get_info``."""
+    from atoma_infer_tpu_torch.config import (
+        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
+    )
+    from atoma_infer_tpu_torch.models.llama import Llama, LlamaConfig
+
+    cfg = LlamaConfig(
+        vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_hidden_layers=16,
+        num_attention_heads=HQ, num_key_value_heads=HK, head_dim=D,
+        max_position_embeddings=4096, tie_word_embeddings=True,
+    )
+    model = Llama(cfg, dtype=torch.bfloat16, device="cuda")
+    params = model.init_params(torch.Generator(device=model.device).manual_seed(0))
+    config = EngineConfig(
+        model=ModelConfig(model_name="llama-3.2-1b-random", dtype="bfloat16"),
+        cache=CacheConfig(block_size=BS, hbm_memory_utilization=0.5, num_host_blocks_override=64),
+        # Chunked prefill (256-token budget): prompts arriving while others
+        # decode share steps with them, so mixed prefill+decode steps run.
+        scheduler=SchedulerConfig(
+            max_num_batched_tokens=256, max_num_sequences=64, max_model_len=2048,
+            enable_chunked_prefill=True,
+        ),
+        validation=ValidationConfig(max_input_tokens=1024, max_total_tokens=2048),
+    )
+    return serve(torch, "1B bf16", model, params, config, ATTENTION_PATH)
+
+
+def run_quant_services(torch):
+    """Llama-3.1-8B at full width (32 layers) with INT8 weights, INT4
+    weights, and INT8 weights under W8A8: random bf16 weights from a seeded
+    generator, quantized on the card with the port's quantize_weight (an
+    untied per-channel INT8 LM head in all three). Returns each quantized
+    kernel's launches from its own path's service."""
+    from atoma_infer_tpu_torch.config import (
+        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
+    )
+    from atoma_infer_tpu_torch.models.llama import Llama
+    from atoma_infer_tpu_torch.models.weights import quantize_params
+    from atoma_infer_tpu_torch.ops import quant_kernels
+
+    model = Llama(llama_8b_config(32), dtype=torch.bfloat16, device="cuda")
+    t0 = time.monotonic()
+    dense = model.init_params(torch.Generator(device=model.device).manual_seed(8))
+    params = {q: quantize_params(dense, q) for q in ("int8", "int4")}
+    del dense
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"8B weights: drawn and quantized on the card in {time.monotonic() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+
+    def config(quantization):
+        return EngineConfig(
+            model=ModelConfig(model_name="llama-3.1-8b-random", dtype="bfloat16",
+                              quantization=quantization),
+            cache=CacheConfig(block_size=BS, num_device_blocks_override=2048,
+                              num_host_blocks_override=64),
+            scheduler=SchedulerConfig(
+                max_num_batched_tokens=256, max_num_sequences=64, max_model_len=2048,
+                enable_chunked_prefill=True,
+            ),
+            validation=ValidationConfig(max_input_tokens=1024, max_total_tokens=2048),
+        )
+
+    launches = {}
+    runs = (
+        ("8B INT8", "int8", False, "quantized_matmul_int8"),
+        ("8B INT4", "int4", False, "quantized_matmul_int4"),
+        ("8B INT8 W8A8", "int8", True, "quantized_matmul_w8a8"),
+    )
+    for label, quantization, w8a8, kernel in runs:
+        saved = quant_kernels._W8A8
+        quant_kernels._W8A8 = w8a8
+        try:
+            # The LM head is INT8 per channel and weight-only in all three.
+            path = ATTENTION_PATH + (kernel, "quantized_matmul_int8")
+            counts = serve(torch, label, model, params[quantization], config(quantization), path)
+        finally:
+            quant_kernels._W8A8 = saved
+        launches[kernel] = counts[kernel]
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -703,14 +1107,25 @@ def main() -> int:
     log(card_line())
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on "
         f"{torch.cuda.get_device_name(0)}")
+    # Every kernel module registers its kernels on import.
+    from atoma_infer_tpu_torch.ops import cuda_lib, kv_write, paged_attention, quant_kernels  # noqa: F401
+
     build_kernels()
     check_kernel_variants(torch)
     rows = check_kernels(torch)
+    check_quant_variants(torch)
+    rows.update(check_quant_kernels(torch))
     check_model(torch)
+    check_quant_model(torch)
     check_service_parity(torch)
+    check_quant_service_parity(torch)
+    # The profiler's first start sets up device tracing, which takes
+    # seconds: do it here, outside the services' runs.
+    profile_device(torch, lambda: torch.ones(1, device="cuda") + 1)
     launches = run_service(torch)
-
-    from atoma_infer_tpu_torch.ops import cuda_lib
+    gc.collect()  # the finished service's KV pool
+    torch.cuda.empty_cache()
+    launches.update(run_quant_services(torch))
 
     line = []
     for name, kernel in cuda_lib.KERNELS.items():
