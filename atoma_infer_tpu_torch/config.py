@@ -8,10 +8,12 @@ pools from free accelerator memory (:590-643) via ``torch.cuda.mem_get_info``
 (the reference's ``cudaMemGetInfo``).
 
 The PyTorch port's copy of ``atoma_infer_tpu/config.py``: the dataclasses are
-identical; only the free-device-memory probe differs. The TPU-only fields
-(``num_hosts``, ``tensor_parallel_size`` > 1, ``pipeline_parallel_size`` > 1,
-``kv_cache_dtype``) are parsed but rejected by the port's
-``LlmService.start`` until their ROADMAP items land.
+identical; the free-device-memory probe differs, and so does the INT8 KV
+scale storage that ``CacheConfig.block_bytes`` counts (two bf16 per slot,
+not the TPU's 128-lane page). The fields not ported yet (``num_hosts``,
+``tensor_parallel_size`` > 1, ``pipeline_parallel_size`` > 1) are parsed
+but rejected by the port's ``LlmService.start`` until their ROADMAP items
+land.
 """
 
 from __future__ import annotations
@@ -158,17 +160,18 @@ class CacheConfig:
         num_kv_heads: int,
         head_dim: int,
         kv_dtype_size: int,
-        scale_pages: Optional[bool] = None,
+        scale_pages: bool = False,
     ) -> int:
         """Bytes of one KV block across all layers: K+V (ref: config.rs:708-718).
 
-        INT8 KV additionally carries one bf16 scale page per block per layer
-        ([block_size, 128] — the minimum lane-aligned DMA-able layout, see
-        ops/kv_cache.py SCALE_LANES). ``scale_pages`` defaults to "any 1-byte
-        kv dtype" (FP8 callers pass False — e4m3 stores scale-free)."""
+        With ``scale_pages`` (INT8 KV) a block also carries its scales: two
+        bf16 per slot per layer (K and V, ``ops/kv_cache.py``
+        ``alloc_kv_scales``), the bytes the port allocates. FP8 stores e4m3
+        scale-free. (The JAX package counts a 128-lane bf16 scale page per
+        slot, its Mosaic DMA layout, and counts it for FP8 too.)"""
         kv = 2 * self.block_size * num_layers * num_kv_heads * head_dim * kv_dtype_size
-        if scale_pages if scale_pages is not None else kv_dtype_size == 1:
-            kv += self.block_size * 128 * 2 * num_layers
+        if scale_pages:
+            kv += self.block_size * 2 * 2 * num_layers
         return kv
 
     def profile(
@@ -178,16 +181,20 @@ class CacheConfig:
         head_dim: int,
         kv_dtype_size: int,
         devices: Optional[list] = None,
+        scale_pages: bool = False,
     ) -> None:
         """Size the device/host block pools from live memory stats.
 
         The reference's per-device ``cudaMemGetInfo`` scan
         (config.rs:590-643), through ``torch.cuda.mem_get_info``: takes the
         minimum free device memory across devices × ``hbm_memory_utilization``
-        ÷ per-block bytes. Must run AFTER weights are loaded so "free"
+        ÷ per-block bytes (an INT8 cache's scales counted when
+        ``scale_pages``). Must run AFTER weights are loaded so "free"
         reflects weight residency.
         """
-        per_block = self.block_bytes(num_layers, num_kv_heads, head_dim, kv_dtype_size)
+        per_block = self.block_bytes(
+            num_layers, num_kv_heads, head_dim, kv_dtype_size, scale_pages
+        )
 
         if self.num_device_blocks is None:
             free = _min_free_device_memory(devices)

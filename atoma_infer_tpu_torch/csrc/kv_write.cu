@@ -13,9 +13,19 @@
 // threads on neighbouring addresses. The TPU kernel's page read-modify-write
 // (it could only DMA whole pages) is not needed: a GPU stores rows directly.
 // A pure copy, so the result is bit-identical to the plain version.
+//
+// The same scatter into a 1-byte cache (kv_write_fp8 / kv_write_int8 below)
+// converts on the way: e4m3 clipped to +-448 (TPU kernel C on e4m3 bytes,
+// kv_write.py:131-136,181), or INT8 with each token's K and V scales computed
+// from the absmax of its whole K and V rows, then stored beside the row
+// (write_kv_cache_quant, ops/kv_cache.py:165-186, XLA in the JAX package).
+// Still bound by bytes: the inputs in, half as many bytes out per element.
+// The conversions (kv_quant.cuh) give the plain versions' bytes exactly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kv_quant.cuh"
 
 template <typename V>
 __global__ void kv_write_kernel(const V* __restrict__ k_new,
@@ -71,4 +81,90 @@ extern "C" int atoma_kv_write(const void* k_new, const void* v_new,
                     head_bytes, num_slots, s);
   }
   return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------- 1-byte caches
+namespace {
+
+// One block per token. Element i of the cache row is head i / (2D), K half
+// if i % (2D) < D; ``scales`` ([num_slots, 2] bf16) is written for INT8 only.
+template <typename T, typename C>
+__global__ void kv_write_convert_kernel(const T* __restrict__ k_new,
+                                        const T* __restrict__ v_new,
+                                        const int* __restrict__ slot_mapping,
+                                        C* __restrict__ cache,
+                                        __nv_bfloat16* __restrict__ scales,
+                                        int num_kv_heads, int head_dim,
+                                        long long num_slots) {
+  __shared__ float red[64];
+  const int t = blockIdx.x;
+  const long long slot = slot_mapping[t];
+  if (slot < 0 || slot >= num_slots) return;  // uniform over the block
+  const int n = num_kv_heads * head_dim;
+  const T* k = k_new + (long long)t * n;
+  const T* v = v_new + (long long)t * n;
+  float inv_k = 1.f, inv_v = 1.f;
+  if constexpr (atoma::kScaled<C>) {
+    float mk, mv;
+    atoma::row_absmax(k, v, n, red, mk, mv);
+    const __nv_bfloat16 sk = atoma::kv_scale(mk), sv = atoma::kv_scale(mv);
+    inv_k = 1.f / __bfloat162float(sk);
+    inv_v = 1.f / __bfloat162float(sv);
+    if (threadIdx.x == 0) {
+      scales[2 * slot] = sk;
+      scales[2 * slot + 1] = sv;
+    }
+  }
+  C* dst = cache + slot * 2 * n;
+  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
+    const int h = i / (2 * head_dim), r = i - h * 2 * head_dim;
+    dst[i] = r < head_dim
+                 ? atoma::encode<C>(atoma::to_float(k[h * head_dim + r]), inv_k)
+                 : atoma::encode<C>(atoma::to_float(v[h * head_dim + r - head_dim]), inv_v);
+  }
+}
+
+template <typename C>
+int launch_convert(int dtype, const void* k, const void* v, const void* slots,
+                   void* cache, void* scales, int num_tokens, int num_kv_heads,
+                   int head_dim, long long num_slots, void* stream) {
+  if (num_tokens <= 0) return 0;
+  int threads = 2 * num_kv_heads * head_dim;
+  threads = threads < 32 ? 32 : (threads > 256 ? 256 : (threads + 31) / 32 * 32);
+  cudaStream_t s = (cudaStream_t)stream;
+#define ATOMA_CONVERT(T)                                                      \
+  kv_write_convert_kernel<T, C><<<num_tokens, threads, 0, s>>>(               \
+      (const T*)k, (const T*)v, (const int*)slots, (C*)cache,                 \
+      (__nv_bfloat16*)scales, num_kv_heads, head_dim, num_slots)
+  if (dtype == 0) {
+    ATOMA_CONVERT(float);
+  } else if (dtype == 1) {
+    ATOMA_CONVERT(__nv_bfloat16);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef ATOMA_CONVERT
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype of k_new/v_new: 0 = float32, 1 = bfloat16. cache: [num_slots,
+// 2*Hk*D] float8_e4m3fn.
+extern "C" int atoma_kv_write_fp8(int dtype, const void* k_new, const void* v_new,
+                                  const void* slot_mapping, void* cache,
+                                  int num_tokens, int num_kv_heads, int head_dim,
+                                  long long num_slots, void* stream) {
+  return launch_convert<__nv_fp8_e4m3>(dtype, k_new, v_new, slot_mapping, cache,
+                                       nullptr, num_tokens, num_kv_heads, head_dim,
+                                       num_slots, stream);
+}
+
+// As above into an int8 cache, plus scales [num_slots, 2] bf16 (K, V).
+extern "C" int atoma_kv_write_int8(int dtype, const void* k_new, const void* v_new,
+                                   const void* slot_mapping, void* cache,
+                                   void* scales, int num_tokens, int num_kv_heads,
+                                   int head_dim, long long num_slots, void* stream) {
+  return launch_convert<int8_t>(dtype, k_new, v_new, slot_mapping, cache, scales,
+                                num_tokens, num_kv_heads, head_dim, num_slots, stream);
 }

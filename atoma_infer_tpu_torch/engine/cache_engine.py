@@ -6,19 +6,27 @@ the device and a host swap tier, and executes the scheduler's
 swap-out / swap-in / copy decisions each step, IN PLACE on the preallocated
 tensors.
 
-The host tier is one ``[L, host_blocks, bs, 2·Hk·D]`` tensor in the SAME
-dtype as the device cache (pinned when the cache is on CUDA), so a swap round
-trip is bit-exact.
+The cache dtype is the model's, ``torch.int8`` (INT8 KV: one
+``[pages, bs, 2]`` bf16 scales tensor per layer beside it, ``kv_scales``) or
+``torch.float8_e4m3fn`` (scale-free). The host tier is one
+``[L, host_blocks, bs, 2·Hk·D]`` tensor in the SAME dtype as the device cache
+(plus ``host_scales`` for INT8; pinned when the cache is on CUDA), and swaps
+and copies move scales with their pages, so a swap round trip is bit-exact.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
-from ..ops.kv_cache import copy_blocks_layer, gather_blocks_layer, scatter_blocks_layer
+from ..ops.kv_cache import (
+    alloc_kv_scales,
+    copy_blocks_layer,
+    gather_blocks_layer,
+    scatter_blocks_layer,
+)
 from ..utils.tracing import instrument
 
 logger = logging.getLogger(__name__)
@@ -49,19 +57,32 @@ class CacheEngine:
         self.device = torch.device(device)
 
         row = 2 * num_kv_heads * head_dim
+        pin = self.device.type == "cuda"
         # One tensor per layer: the model walks them by identity and the
         # kernels write into them in place.
         self.kv_cache: List[torch.Tensor] = [
             torch.zeros((num_device_blocks, block_size, row), dtype=dtype, device=self.device)
             for _ in range(num_layers)
         ]
+        # INT8 KV: per-(slot, K/V) dequantization scales, one tensor per layer.
+        self.kv_scales: Optional[List[torch.Tensor]] = (
+            [alloc_kv_scales(num_device_blocks, block_size, self.device) for _ in range(num_layers)]
+            if dtype == torch.int8
+            else None
+        )
         self.host_cache = (
             torch.zeros(
-                (num_layers, num_host_blocks, block_size, row),
-                dtype=dtype,
-                pin_memory=self.device.type == "cuda",
+                (num_layers, num_host_blocks, block_size, row), dtype=dtype, pin_memory=pin
             )
             if num_host_blocks > 0
+            else None
+        )
+        self.host_scales = (
+            torch.zeros(
+                (num_layers, num_host_blocks, block_size, 2),
+                dtype=self.kv_scales[0].dtype, pin_memory=pin,
+            )
+            if num_host_blocks > 0 and self.kv_scales is not None
             else None
         )
 
@@ -69,19 +90,29 @@ class CacheEngine:
     def num_slots(self) -> int:
         return self.num_device_blocks * self.block_size
 
+    @property
+    def quantized(self) -> bool:
+        return self.kv_scales is not None
+
+    def _tiers(self):
+        """(device layers, host tier) pairs: the caches, then the scales."""
+        yield self.kv_cache, self.host_cache
+        if self.kv_scales is not None:
+            yield self.kv_scales, self.host_scales
+
     # ------------------------------------------------------------------ swaps
     @instrument("cache.swap_out")
     def swap_out(self, mapping: List[Tuple[int, int]]) -> None:
         """Device→host block copies, (device_block, host_block) pairs
         (ref: worker.rs:600-614). Synchronous: the host tier holds the pages
-        when this returns."""
+        (and their scales) when this returns."""
         if not mapping or self.host_cache is None:
             return
         dev_ids = [src for src, _ in mapping]
         dst_ids = torch.tensor([dst for _, dst in mapping], dtype=torch.long)
-        for layer in range(self.num_layers):
-            pages = gather_blocks_layer(self.kv_cache[layer], dev_ids)
-            self.host_cache[layer, dst_ids] = pages.cpu()
+        for device_layers, host in self._tiers():
+            for layer, cache in enumerate(device_layers):
+                host[layer, dst_ids] = gather_blocks_layer(cache, dev_ids).cpu()
 
     @instrument("cache.swap_in")
     def swap_in(self, mapping: List[Tuple[int, int]]) -> None:
@@ -91,17 +122,18 @@ class CacheEngine:
             return
         src_ids = torch.tensor([src for src, _ in mapping], dtype=torch.long)
         dev_ids = [dst for _, dst in mapping]
-        for layer in range(self.num_layers):
-            scatter_blocks_layer(
-                self.kv_cache[layer], dev_ids, self.host_cache[layer, src_ids]
-            )
+        for device_layers, host in self._tiers():
+            for layer, cache in enumerate(device_layers):
+                scatter_blocks_layer(cache, dev_ids, host[layer, src_ids])
 
     def copy(self, pairs: List[Tuple[int, int]]) -> None:
-        """Copy-on-write block duplication (ref: worker.rs:632-642)."""
+        """Copy-on-write block duplication (ref: worker.rs:632-642), scales
+        with their pages."""
         if not pairs:
             return
-        for cache in self.kv_cache:
-            copy_blocks_layer(cache, pairs)
+        for device_layers, _ in self._tiers():
+            for cache in device_layers:
+                copy_blocks_layer(cache, pairs)
 
     def execute(
         self,

@@ -9,10 +9,12 @@ weights are resident (SURVEY.md §3.1), from ``torch.cuda.mem_get_info``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): multi-host serving, tensor and pipeline parallelism, async
-scheduling, speculative decoding, prefix caching, KV-cache quantization,
-and the native (C++) block manager — the port always uses the Python one.
-Weight quantization (``quantization`` "int8" or "int4", and W8A8 under
-``ATOMA_W8A8=1``) is ported: the loader quantizes on load.
+scheduling, speculative decoding, prefix caching, and the native (C++)
+block manager — the port always uses the Python one. Weight quantization
+(``quantization`` "int8" or "int4", and W8A8 under ``ATOMA_W8A8=1``) is
+ported: the loader quantizes on load. So are the KV-cache dtypes
+(``kv_cache_dtype`` "int8": an int8 cache with per-(slot, K/V) bf16 scales;
+"fp8": an e4m3 cache), chosen as the JAX service chooses them.
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ _SEQ_COUNTER = itertools.count()
 
 # The dtypes the port's kernels take.
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# KV-cache dtypes by ``kv_cache_dtype``; None keeps the model's dtype.
+_KV_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
 def _load_tokenizer(model_dir: str):
@@ -63,7 +67,6 @@ def _reject_unported(config: EngineConfig) -> None:
         (s.async_scheduling, "async scheduling", "async scheduling depth 2"),
         (s.num_speculative_tokens > 0, "speculative decoding", "speculative decoding"),
         (c.enable_prefix_caching, "prefix caching", "prefix caching"),
-        (m.kv_cache_dtype is not None, "KV-cache quantization", "KV-cache dtypes"),
     ]
     for on, what, item in unported:
         if on:
@@ -150,14 +153,19 @@ class LlmService:
             raise ValueError(f"model is on {model.device}, service on {device}")
 
         cfg = model.config
+        # The KV cache's dtype, as the JAX service picks it: int8 (with
+        # scales), e4m3, or the model's own.
+        kv_dtype = _KV_DTYPES.get(config.model.kv_cache_dtype, model.dtype)
         # Profile the KV pools AFTER the weights are resident
-        # (ref: config.rs:624-625): free device memory ÷ bytes per block.
+        # (ref: config.rs:624-625): free device memory ÷ bytes per block,
+        # an INT8 cache's scales counted.
         config.cache.profile(
             cfg.num_layers,
             cfg.num_kv_heads,
             cfg.head_dim,
             config.model.kv_dtype_size,
             devices=[device],
+            scale_pages=kv_dtype == torch.int8,
         )
         cache_engine = CacheEngine(
             num_layers=cfg.num_layers,
@@ -166,7 +174,7 @@ class LlmService:
             block_size=config.cache.block_size,
             num_device_blocks=config.cache.num_device_blocks,
             num_host_blocks=config.cache.num_host_blocks or 0,
-            dtype=model.dtype,
+            dtype=kv_dtype,
             device=device,
         )
         worker = ModelWorker(model, params, cache_engine, config.scheduler, config.cache)

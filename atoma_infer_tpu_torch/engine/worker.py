@@ -155,7 +155,8 @@ class ModelWorker:
         top_n: int,
     ):
         """Forward + logits + sampling for one bucketed batch. The caches in
-        ``self.cache_engine.kv_cache`` are updated in place."""
+        ``self.cache_engine.kv_cache`` (and an int8 cache's scales) are
+        updated in place."""
         off = 0
 
         def take(n):
@@ -184,7 +185,8 @@ class ModelWorker:
             max_q_len=max_q_len,
         )
         hidden = self.model.forward(
-            self.params, token_ids, positions, self.cache_engine.kv_cache, attn_meta
+            self.params, token_ids, positions, self.cache_engine.kv_cache, attn_meta,
+            kv_scales=self.cache_engine.kv_scales,
         )
         # Last-token rows only, before the LM head (ref: llama.rs:474-477).
         sel = hidden[selected_token_indices.long()]

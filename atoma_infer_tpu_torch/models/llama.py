@@ -12,8 +12,10 @@ checkpoints and JAX parameters carry across one to one
 (``weights.params_from_numpy``). A weight-quantized model holds its seven
 projections (and an untied LM head) as ``ops.quant.QuantizedTensor``
 objects, multiplied through the quantized-matmul kernels. The KV caches are
-a list of per-layer ``[num_pages, block_size, 2·Hk·D]`` tensors that the
-forward updates IN PLACE (the JAX forward returns new caches instead).
+a list of per-layer ``[num_pages, block_size, 2·Hk·D]`` tensors (the model's
+dtype, int8 or e4m3; an int8 cache with a list of per-layer
+``[num_pages, block_size, 2]`` bf16 scales) that the forward updates IN
+PLACE (the JAX forward returns new caches and scales instead).
 Tensor parallelism (``kv_repeat``) and the TPU-only page-map prologue are
 not ported.
 """
@@ -211,11 +213,13 @@ class Llama:
         positions: torch.Tensor,   # [T] int per-token positions
         kv_cache: Sequence[torch.Tensor],  # L × [num_pages, bs, 2·Hk·D]
         attn_meta: AttentionMetadata,
+        kv_scales: Optional[Sequence[torch.Tensor]] = None,  # L × [pages, bs, 2] (int8)
     ) -> torch.Tensor:
         """Hidden states [T, H]; this step's K/V are written into
-        ``kv_cache`` in place."""
+        ``kv_cache`` (and an int8 cache's scales into ``kv_scales``) in
+        place."""
         h = self.embed_tokens(params, token_ids)
-        return self.forward_hidden(params, h, positions, kv_cache, attn_meta)
+        return self.forward_hidden(params, h, positions, kv_cache, attn_meta, kv_scales)
 
     def forward_hidden(
         self,
@@ -224,15 +228,18 @@ class Llama:
         positions: torch.Tensor,
         kv_cache: Sequence[torch.Tensor],
         attn_meta: AttentionMetadata,
+        kv_scales: Optional[Sequence[torch.Tensor]] = None,
     ) -> torch.Tensor:
-        """Transformer layers over the hidden states, one paged cache per
-        layer, updated in place."""
+        """Transformer layers over the hidden states, one paged cache (and,
+        for an int8 cache, one scales tensor) per layer, updated in place."""
         cfg = self.config
         scale = cfg.head_dim**-0.5
         layers = params["layers"]
         num_layers = layers["input_norm"].shape[0]
         if len(kv_cache) != num_layers:
             raise ValueError(f"{len(kv_cache)} caches for {num_layers} layers")
+        if kv_scales is not None and len(kv_scales) != num_layers:
+            raise ValueError(f"{len(kv_scales)} scales for {num_layers} layers")
         for i in range(num_layers):
             lp = _layer_params(layers, i)
             # Attention block (ref: llama.rs:218-320).
@@ -261,6 +268,7 @@ class Llama:
                 scale=scale,
                 sliding_window=cfg.sliding_window,
                 alibi_slopes=self.alibi,
+                kv_scales=None if kv_scales is None else kv_scales[i],
             )
             attn = attn.reshape(-1, cfg.num_attention_heads * cfg.head_dim)
             h = h + _linear(attn, lp["o_proj"])
@@ -297,9 +305,13 @@ class Llama:
         cfg = self.config
         return (cfg.num_layers, num_blocks, block_size, 2 * cfg.num_kv_heads * cfg.head_dim)
 
-    def alloc_kv_cache(self, num_blocks: int, block_size: int) -> List[torch.Tensor]:
-        """Zeroed per-layer caches on the model's device."""
+    def alloc_kv_cache(
+        self, num_blocks: int, block_size: int, dtype: Optional[torch.dtype] = None
+    ) -> List[torch.Tensor]:
+        """Zeroed per-layer caches on the model's device, in ``dtype``
+        (default: the model's; or int8, float8_e4m3fn)."""
         L, *shape = self.kv_cache_shape(num_blocks, block_size)
         return [
-            torch.zeros(shape, dtype=self.dtype, device=self.device) for _ in range(L)
+            torch.zeros(shape, dtype=dtype or self.dtype, device=self.device)
+            for _ in range(L)
         ]

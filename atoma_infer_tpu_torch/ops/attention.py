@@ -8,8 +8,9 @@ chunked prefill and decode: every query token attends causally to its
 sequence's paged cache prefix.
 
 Dispatch is by device, with no gates: a CPU tensor takes the plain version
-(``reference.py``); a CUDA tensor takes the kernels — the fused decode
-write+attend kernel when ``meta.decode_only``, else the ``reshape_and_cache``
+(``reference.py``); a CUDA tensor takes the kernels of its cache's dtype
+(bf16/f32, INT8 with ``kv_scales``, or e4m3) — the fused decode write+attend
+kernel when ``meta.decode_only``, else the matching ``reshape_and_cache``
 write followed by the ragged kernel. A kernel that cannot take its inputs
 raises; nothing falls back. The TPU package's Mosaic alignment gates have no
 counterpart here.
@@ -23,8 +24,7 @@ from typing import Optional
 
 import torch
 
-from .kv_cache import kv_cache_view, write_kv_cache
-from .reference import ragged_paged_attention_plain
+from .kv_cache import write_kv_cache, write_kv_cache_quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,35 +79,22 @@ def ragged_paged_attention(
     sliding_window: Optional[int] = None,
     soft_cap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,  # [Hq] f32
+    kv_scales: Optional[torch.Tensor] = None,     # [num_pages, bs, 2] bf16 (int8 cache)
 ) -> torch.Tensor:
     """Unified prefill+decode attention over the paged cache → [T, Hq, D].
     The cache must already hold this step's K/V."""
-    if q.is_cuda:
-        from .paged_attention import ragged_paged_attention_cuda
+    from .paged_attention import ragged_paged_attention_cuda, ragged_paged_attention_paged_plain
 
-        return ragged_paged_attention_cuda(
-            q,
-            kv_cache,
-            meta,
-            scale=scale,
-            sliding_window=sliding_window,
-            soft_cap=soft_cap,
-            alibi_slopes=alibi_slopes,
-        )
-    D = q.shape[2]
-    k_view, v_view = kv_cache_view(kv_cache, kv_cache.shape[2] // (2 * D), D)
-    return ragged_paged_attention_plain(
+    attend = ragged_paged_attention_cuda if q.is_cuda else ragged_paged_attention_paged_plain
+    return attend(
         q,
-        k_view,
-        v_view,
-        meta.block_tables,
-        meta.seq_lens,
-        meta.query_start_loc,
+        kv_cache,
+        meta,
         scale=scale,
-        block_size=meta.block_size,
         sliding_window=sliding_window,
         soft_cap=soft_cap,
         alibi_slopes=alibi_slopes,
+        kv_scales=kv_scales,
     )
 
 
@@ -122,9 +109,11 @@ def paged_attention_layer(
     sliding_window: Optional[int] = None,
     soft_cap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,  # [Hq] f32
+    kv_scales: Optional[torch.Tensor] = None,     # [num_pages, bs, 2] bf16, in place
 ) -> torch.Tensor:
     """One layer's attention block: write this step's K/V into the paged
-    cache (in place), then attend over it (ref write-then-attend order:
+    cache (in place; an INT8 cache quantizes them and stores their scales in
+    ``kv_scales``), then attend over it (ref write-then-attend order:
     flash_attention.rs:360-361). Returns attn [T, Hq, D].
 
     On CUDA a pure-decode step runs ONE fused kernel that writes and
@@ -143,8 +132,12 @@ def paged_attention_layer(
             sliding_window=sliding_window,
             soft_cap=soft_cap,
             alibi_slopes=alibi_slopes,
+            kv_scales=kv_scales,
         )
-    write_kv_cache(kv_cache, k_new, v_new, meta.slot_mapping)
+    if kv_scales is not None:
+        write_kv_cache_quant(kv_cache, kv_scales, k_new, v_new, meta.slot_mapping)
+    else:
+        write_kv_cache(kv_cache, k_new, v_new, meta.slot_mapping)
     return ragged_paged_attention(
         q,
         kv_cache,
@@ -153,4 +146,5 @@ def paged_attention_layer(
         sliding_window=sliding_window,
         soft_cap=soft_cap,
         alibi_slopes=alibi_slopes,
+        kv_scales=kv_scales,
     )

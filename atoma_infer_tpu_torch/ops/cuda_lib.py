@@ -4,8 +4,8 @@ Every ``atoma_infer_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, and loaded
 with ``ctypes``. Nothing here includes PyTorch's headers, so one source
 builds in seconds. Builds go to ``csrc/build/`` (ignored by git), named by a
-hash of the source and flags, so an edited source is never served a stale
-library. A build happens at a kernel's first launch, or up front (all sources
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is never served a stale library. A build happens at a kernel's first launch, or up front (all sources
 in parallel, one ``nvcc`` each) through :func:`build_all`.
 
 Each kernel is a :class:`CudaKernel`: its C symbol, the library it lives in,
@@ -54,7 +54,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
+    """The library's path, named by a hash of the source, every header in
+    ``csrc/`` (a source may include any of them) and the flags."""
     src = (CSRC_DIR / source).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 

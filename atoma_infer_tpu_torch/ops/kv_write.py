@@ -1,16 +1,24 @@
-"""KV-cache write: the ``reshape_and_cache`` CUDA kernel and its plain version.
+"""KV-cache write: the ``reshape_and_cache`` CUDA kernels and their plain versions.
 
 Replaces the TPU kernel ``atoma_infer_tpu/ops/kv_write.py:_kernel`` (called
 through ``write_kv_cache_pallas``), a page read-modify-write that existed
-because Mosaic could only DMA whole pages. The CUDA kernel
-(``csrc/kv_write.cu``) stores each valid token's head-interleaved row straight
-into ``cache[slot // bs, slot % bs]``. It is bound by bytes moved (K and V in,
-one cache row out per token, at 3.35 TB/s); one block per token copies
-16-byte vectors with neighbouring threads on neighbouring addresses.
+because Mosaic could only DMA whole pages. The CUDA kernels
+(``csrc/kv_write.cu``) store each valid token's head-interleaved row straight
+into ``cache[slot // bs, slot % bs]``, one block per token:
 
-Dispatch: a CUDA cache launches the kernel (or raises); a CPU cache takes
-:func:`write_kv_cache_plain`. Both write in place, and give bit-identical
-caches: the kernel is a pure copy.
+* ``reshape_and_cache``: a bf16/f32 cache, a pure copy of 16-byte vectors;
+* ``reshape_and_cache_fp8``: an e4m3 cache (the TPU kernel on e4m3 bytes,
+  ``kv_write.py:131-136,181``): clipped to ±448, rounded to nearest even;
+* ``reshape_and_cache_int8``: an INT8 cache with its scales, which the JAX
+  package writes with XLA ops (``write_kv_cache_quant``,
+  ``ops/kv_cache.py:165-186``): each token's K and V scales from the absmax
+  of its whole K and V rows, the quantized row and the scale pair stored in
+  its slot. One launch instead of some eight eager ops per layer.
+
+All are bound by bytes moved (K and V in, one cache row out per token, at
+3.35 TB/s). Dispatch: a CUDA cache launches the kernel of its dtype (or
+raises); a CPU cache takes the plain version. Both write in place, and give
+bit-identical caches and scales.
 """
 
 from __future__ import annotations
@@ -19,7 +27,10 @@ import torch
 
 from . import cuda_lib
 from .cuda_lib import INT, LONG, PTR
-from .kv_cache import kv_rows
+from .kv_cache import kv_quant_scales, kv_rows, quantize_kv_rows
+
+# dtype codes of k_new/v_new for the converting kernels.
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 KV_WRITE = cuda_lib.register(
     cuda_lib.CudaKernel(
@@ -30,6 +41,38 @@ KV_WRITE = cuda_lib.register(
         replaces="atoma_infer_tpu/ops/kv_write.py:120 (write_kv_cache_pallas -> _kernel :60)",
     )
 )
+KV_WRITE_FP8 = cuda_lib.register(
+    cuda_lib.CudaKernel(
+        name="reshape_and_cache_fp8",
+        source="kv_write.cu",
+        symbol="atoma_kv_write_fp8",
+        argtypes=[INT, PTR, PTR, PTR, PTR, INT, INT, INT, LONG, PTR],
+        replaces=(
+            "atoma_infer_tpu/ops/kv_write.py:120 (write_kv_cache_pallas -> _kernel :60 "
+            "on e4m3 bytes, :131-136,181)"
+        ),
+    )
+)
+KV_WRITE_INT8 = cuda_lib.register(
+    cuda_lib.CudaKernel(
+        name="reshape_and_cache_int8",
+        source="kv_write.cu",
+        symbol="atoma_kv_write_int8",
+        argtypes=[INT, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, LONG, PTR],
+        replaces=(
+            "atoma_infer_tpu/ops/kv_cache.py:165 (write_kv_cache_quant, XLA ops; "
+            "no Pallas kernel)"
+        ),
+    )
+)
+
+
+def _keep(slot_mapping: torch.Tensor, num_slots: int):
+    """(the slots in range, the mask of their rows): out-of-range slots are
+    dropped (JAX ``mode="drop"``)."""
+    slots = slot_mapping.long()
+    keep = (slots >= 0) & (slots < num_slots)
+    return slots[keep], keep
 
 
 def write_kv_cache_plain(
@@ -38,31 +81,36 @@ def write_kv_cache_plain(
     v_new: torch.Tensor,
     slot_mapping: torch.Tensor,  # [T] int32, < 0 = padding
 ) -> None:
-    """Plain PyTorch version: drop out-of-range slots (JAX ``mode="drop"``),
-    then one indexed store of the fused rows."""
+    """Plain PyTorch version: drop out-of-range slots, then one indexed
+    store of the fused rows (converted to the cache's dtype)."""
     num_pages, bs, row = kv_cache.shape
     rows = kv_rows(k_new, v_new, kv_cache.dtype)
-    slots = slot_mapping.long()
-    keep = (slots >= 0) & (slots < num_pages * bs)
-    kv_cache.view(num_pages * bs, row)[slots[keep]] = rows[keep]
+    slots, keep = _keep(slot_mapping, num_pages * bs)
+    kv_cache.view(num_pages * bs, row)[slots] = rows[keep]
 
 
-def write_kv_cache_cuda(
-    kv_cache: torch.Tensor,
-    k_new: torch.Tensor,
+def write_kv_cache_quant_plain(
+    kv_cache: torch.Tensor,      # [num_pages, bs, 2·Hk·D] int8, in place
+    kv_scales: torch.Tensor,     # [num_pages, bs, 2] bf16, in place
+    k_new: torch.Tensor,         # [T, Hk, D] float
     v_new: torch.Tensor,
     slot_mapping: torch.Tensor,
 ) -> None:
-    """Launch ``reshape_and_cache`` on the current stream (in place)."""
+    """Plain version of the INT8 write (``write_kv_cache_quant``)."""
+    num_pages, bs, row = kv_cache.shape
+    scale_t = kv_quant_scales(k_new, v_new)
+    slots, keep = _keep(slot_mapping, num_pages * bs)
+    kv_cache.view(num_pages * bs, row)[slots] = quantize_kv_rows(k_new, v_new, scale_t)[keep]
+    kv_scales.view(num_pages * bs, 2)[slots] = scale_t[keep].to(kv_scales.dtype)
+
+
+def _check(kv_cache, k_new, v_new, slot_mapping, extra=()) -> None:
+    """What every write kernel takes; raises otherwise."""
     num_pages, bs, row = kv_cache.shape
     T, hk, d = k_new.shape
-    tensors = (kv_cache, k_new, v_new, slot_mapping)
+    tensors = (kv_cache, k_new, v_new, slot_mapping) + tuple(extra)
     if not all(t.is_cuda and t.device == kv_cache.device for t in tensors):
         raise ValueError("reshape_and_cache: every tensor must be on the cache's CUDA device")
-    if kv_cache.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"reshape_and_cache: unsupported cache dtype {kv_cache.dtype}")
-    if k_new.dtype != kv_cache.dtype or v_new.dtype != kv_cache.dtype:
-        raise ValueError("reshape_and_cache: k_new/v_new must have the cache's dtype")
     if v_new.shape != k_new.shape or row != 2 * hk * d:
         raise ValueError(
             f"reshape_and_cache: k {tuple(k_new.shape)} / v {tuple(v_new.shape)} "
@@ -72,14 +120,58 @@ def write_kv_cache_cuda(
         raise ValueError("reshape_and_cache: slot_mapping must be int32 [T]")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("reshape_and_cache: tensors must be contiguous")
+
+
+def write_kv_cache_cuda(
+    kv_cache: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    slot_mapping: torch.Tensor,
+) -> None:
+    """Launch ``reshape_and_cache`` (bf16/f32 cache) or
+    ``reshape_and_cache_fp8`` (e4m3 cache) on the current stream, in place.
+    An INT8 cache takes :func:`write_kv_cache_quant_cuda`."""
+    _check(kv_cache, k_new, v_new, slot_mapping)
+    num_pages, bs, _ = kv_cache.shape
+    T, hk, d = k_new.shape
+    stream = cuda_lib.current_stream_handle(kv_cache.device)
+    if kv_cache.dtype == torch.float8_e4m3fn:
+        if k_new.dtype not in _DTYPES or v_new.dtype != k_new.dtype:
+            raise ValueError("reshape_and_cache_fp8: k_new/v_new must be bfloat16 or float32")
+        KV_WRITE_FP8(
+            _DTYPES[k_new.dtype], k_new.data_ptr(), v_new.data_ptr(),
+            slot_mapping.data_ptr(), kv_cache.data_ptr(), T, hk, d, num_pages * bs, stream,
+        )
+        return
+    if kv_cache.dtype not in _DTYPES:
+        raise ValueError(f"reshape_and_cache: unsupported cache dtype {kv_cache.dtype}")
+    if k_new.dtype != kv_cache.dtype or v_new.dtype != kv_cache.dtype:
+        raise ValueError("reshape_and_cache: k_new/v_new must have the cache's dtype")
     KV_WRITE(
-        k_new.data_ptr(),
-        v_new.data_ptr(),
-        slot_mapping.data_ptr(),
-        kv_cache.data_ptr(),
-        T,
-        hk,
-        d * kv_cache.element_size(),
-        num_pages * bs,
+        k_new.data_ptr(), v_new.data_ptr(), slot_mapping.data_ptr(), kv_cache.data_ptr(),
+        T, hk, d * kv_cache.element_size(), num_pages * bs, stream,
+    )
+
+
+def write_kv_cache_quant_cuda(
+    kv_cache: torch.Tensor,
+    kv_scales: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    slot_mapping: torch.Tensor,
+) -> None:
+    """Launch ``reshape_and_cache_int8`` on the current stream, in place."""
+    _check(kv_cache, k_new, v_new, slot_mapping, extra=(kv_scales,))
+    num_pages, bs, _ = kv_cache.shape
+    T, hk, d = k_new.shape
+    if kv_cache.dtype != torch.int8:
+        raise ValueError(f"reshape_and_cache_int8: cache must be int8, not {kv_cache.dtype}")
+    if kv_scales.dtype != torch.bfloat16 or kv_scales.shape != (num_pages, bs, 2):
+        raise ValueError("reshape_and_cache_int8: kv_scales must be bfloat16 [pages, block_size, 2]")
+    if k_new.dtype not in _DTYPES or v_new.dtype != k_new.dtype:
+        raise ValueError("reshape_and_cache_int8: k_new/v_new must be bfloat16 or float32")
+    KV_WRITE_INT8(
+        _DTYPES[k_new.dtype], k_new.data_ptr(), v_new.data_ptr(), slot_mapping.data_ptr(),
+        kv_cache.data_ptr(), kv_scales.data_ptr(), T, hk, d, num_pages * bs,
         cuda_lib.current_stream_handle(kv_cache.device),
     )

@@ -30,8 +30,12 @@ def ragged_paged_attention_plain(
     sliding_window: Optional[int] = None,
     soft_cap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,  # [Hq] f32 per-q-head slopes
+    k_scale: Optional[torch.Tensor] = None,  # [num_slots] per-slot dequant scales
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Masked paged attention over the whole ragged batch → [T, Hq, D]."""
+    """Masked paged attention over the whole ragged batch → [T, Hq, D].
+    An INT8 cache comes with ``k_scale``/``v_scale`` and is dequantized to
+    f32 before the dots; an e4m3 cache is widened to f32."""
     num_tokens, num_q_heads, head_dim = q.shape
     num_seqs = seq_lens.shape[0]
     max_pages = block_tables.shape[1]
@@ -60,6 +64,10 @@ def ragged_paged_attention_plain(
     tok_rows = seq_rows[token_seq].clamp(0, num_slots - 1)   # [T, ctx]
     k = k_cache[tok_rows].float()                            # [T, ctx, Hk, D]
     v = v_cache[tok_rows].float()
+    if k_scale is not None:
+        k = k * k_scale[tok_rows][..., None, None]
+    if v_scale is not None:
+        v = v * v_scale[tok_rows][..., None, None]
 
     qf = q.float().reshape(num_tokens, num_kv_heads, group, head_dim)
     scores = torch.einsum("tkgd,tjkd->tkgj", qf, k) * scale  # [T, Hk, G, ctx]

@@ -18,23 +18,31 @@ raises on failure; nothing is caught):
    1, 8, 64, 300, plus ragged N), W8A8's integer dots checked exact,
    ``quantize_weight`` on the card byte-identical to the CPU, then the
    Llama-3.1-8B projection and LM-head shapes at decode (M = 8, 64) and one
-   prefill chunk (M = 256). Times with CUDA events: kernel, plain version
-   and, where one PyTorch call computes the same function, that call.
+   prefill chunk (M = 256). INT8 and e4m3 KV caches (kernels D, E and their
+   writes): every instantiation at small sizes on a mixed and a decode
+   batch, then the Llama-3.1-8B attention shapes (Hq=32, Hk=8, D=128, block
+   16); the writes and the fused kernels' caches and scales bit-exact, the
+   attention within the tolerances below. Times with CUDA events: kernel,
+   plain version and, where one PyTorch call computes the same function,
+   that call.
 3. The port's ``Llama`` with 2 layers at full width: Llama-3.2-1B dense and
-   Llama-3.1-8B quantized (INT8, INT4), prefill plus 3
-   decode steps on the card (kernels) against the same f32 weights on the
-   CPU (plain versions). Then two services on the card against the same on
-   the CPU, greedy tokens identical: the tiny random model with a pool tight
-   enough that groups are swapped out and back, and ``tiny_trained``
-   quantized to INT8 on load.
+   Llama-3.1-8B quantized (INT8, INT4, and INT8 over an INT8 and an e4m3
+   KV cache), prefill plus 3 decode steps on the card (kernels) against the
+   same f32 weights on the CPU (plain versions). Then services on the card
+   against the same on the CPU, greedy tokens identical: the tiny random
+   model with a pool tight enough that groups are swapped out and back,
+   ``tiny_trained`` quantized to INT8 on load, and ``tiny_trained`` over an
+   INT8 KV cache (INT8 weights) and an e4m3 one, swapped out and back.
 4. Services through ``LlmService.start``, each with 8 requests (chunked
    prefill, one seeded sampled, half submitted while the others decode):
    the full-width bf16 Llama-3.2-1B (16 layers, KV pool sized from
    ``torch.cuda.mem_get_info``), then the full-width Llama-3.1-8B (32
-   layers, bf16 activations and KV, llama3 rope scaling, untied per-channel
-   INT8 LM head) with INT8 weights, INT4 weights and INT8 weights under
-   W8A8; random weights from a ``torch.Generator``, quantized with the
-   port's ``quantize_weight``. Every request must finish at its length or on
+   layers, bf16 activations, llama3 rope scaling, untied per-channel INT8
+   LM head) with INT8 weights, INT4 weights and INT8 weights under W8A8
+   over a bf16 KV cache, and INT8 weights over an INT8 KV cache (pool sized
+   from free memory) and an e4m3 one; random weights from a
+   ``torch.Generator``, quantized with the port's ``quantize_weight``.
+   Every request must finish at its length or on
    EOS, every block must return to the pool, and every kernel of the path
    must have been launched during that service's run (launch counts are set
    to 0 just before it and read just after). Prints the worker's step wall
@@ -301,22 +309,25 @@ def check_kernel_variants(torch):
             f"max |err| {worst:.3e} (tol {tol})")
 
 
-def attention_work(specs, window, elt, *, fused):
+def attention_work(specs, window, elt, *, fused, kv_elt=None, slot_extra=0,
+                   hq=HQ, hk=HK, d=D):
     """(bytes, flops) the attention needs for these sequences: each needed
-    K/V row read once, q read and out written once; 4·D flops per (query
-    head, key) pair. ``fused`` adds the new rows' read and cache write."""
-    row = 2 * HK * D * elt
+    K/V row read once (``kv_elt`` bytes an element, default ``elt``, plus
+    ``slot_extra`` bytes of scales a slot), q read and out written once
+    (``elt`` bytes an element); 4·D flops per (query head, key) pair.
+    ``fused`` adds the new rows' read and the cache row's write."""
+    row = 2 * hk * d * (kv_elt or elt) + slot_extra
     nbytes = flops = 0
     for q_len, kv in specs:
         first = kv - q_len
         lo = max(0, first - window + 1) if window else 0
         kv_read = kv - lo - (1 if fused else 0)
-        nbytes += kv_read * row + 2 * q_len * HQ * D * elt
+        nbytes += kv_read * row + 2 * q_len * hq * d * elt
         if fused:
-            nbytes += 2 * row  # k_new/v_new in, the new row out
+            nbytes += 2 * hk * d * elt + row  # k_new/v_new in, the new row out
         for pos in range(first, kv):
             keys = min(pos + 1, window) if window else pos + 1
-            flops += keys * HQ * 4 * D
+            flops += keys * hq * 4 * d
     return nbytes, flops
 
 
@@ -444,6 +455,187 @@ def check_kernels(torch):
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"), "bfloat16")
         log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']}), bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    return rows
+
+
+# ------------------------------------- phase 2: INT8 and FP8 KV caches (D, E)
+KV8_DTYPES = ("int8", "fp8")
+
+
+def same_bytes(torch, a, b) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def kv8_cache(torch, cache, kv, d):
+    """A 1-byte cache from a random ``make_batch`` cache: each slot's K and V
+    halves quantized to INT8 with their scales by the port's plain
+    quantization (returns (cache, scales)), or rounded to e4m3 (scales
+    None)."""
+    from atoma_infer_tpu_torch.ops.kv_cache import FP8_MAX, kv_quant_scales, quantize_kv_rows
+
+    if kv == "fp8":
+        return cache.float().clamp(-FP8_MAX, FP8_MAX).to(torch.float8_e4m3fn), None
+    nb, bs, row = cache.shape
+    flat = cache.view(nb * bs, row // (2 * d), 2, d)
+    k, v = flat[:, :, 0], flat[:, :, 1]
+    scales = kv_quant_scales(k, v)
+    q = quantize_kv_rows(k, v, scales).view(nb, bs, row)
+    return q, scales.to(torch.bfloat16).view(nb, bs, 2)
+
+
+def kv8_write(cache, scales, k, v, slots, *, cuda):
+    """The KV write of a 1-byte cache, kernel or plain version, in place."""
+    from atoma_infer_tpu_torch.ops import kv_write
+
+    if scales is not None:
+        fn = kv_write.write_kv_cache_quant_cuda if cuda else kv_write.write_kv_cache_quant_plain
+        fn(cache, scales, k, v, slots)
+    else:
+        fn = kv_write.write_kv_cache_cuda if cuda else kv_write.write_kv_cache_plain
+        fn(cache, k, v, slots)
+
+
+def clone(t):
+    return None if t is None else t.clone()
+
+
+def check_kv8(torch, b, kv, label, tol, *, decode):
+    """One batch through the kernels of a 1-byte cache against their plain
+    versions. Mixed: the write kernel (cache and scales bit-exact), then
+    ragged attention over the written cache. Decode: the fused kernel (cache
+    and scales bit-exact with write-then-plain-attention, so the current
+    token is attended in the cache's type). Returns (max |err|, the
+    post-write cache and scales)."""
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    m, n, d = b["meta"], b["rows"], b["q"].shape[2]
+    scale = d ** -0.5
+    cache, scales = kv8_cache(torch, b["cache"], kv, d)
+    got_c, got_s, want_c, want_s = cache, scales, clone(cache), clone(scales)
+    if decode:
+        out = pa.ragged_paged_attention_fused_cuda(
+            b["q"], got_c, b["k"], b["v"], m, scale=scale, kv_scales=got_s)
+        ref = pa.fused_decode_attention_plain(
+            b["q"], want_c, b["k"], b["v"], m, scale=scale, kv_scales=want_s)
+        what = f"fused_decode_attention_{kv}"
+    else:
+        kv8_write(got_c, got_s, b["k"], b["v"], m.slot_mapping, cuda=True)
+        kv8_write(want_c, want_s, b["k"], b["v"], m.slot_mapping, cuda=False)
+        what = f"reshape_and_cache_{kv}"
+    if not same_bytes(torch, got_c, want_c) or (
+            scales is not None and not same_bytes(torch, got_s, want_s)):
+        raise AssertionError(f"{what} {label}: cache or scales not bit-exact")
+    if not decode:
+        out = pa.ragged_paged_attention_cuda(b["q"], got_c, m, scale=scale, kv_scales=got_s)
+        ref = pa.ragged_paged_attention_paged_plain(b["q"], got_c, m, scale=scale, kv_scales=got_s)
+        what = f"ragged_paged_attention_{kv}"
+    err = (out[:n].float() - ref[:n].float()).abs().max().item()
+    if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{what} {label} disagrees: max |err| {err:.3e}")
+    return err, got_c, got_s
+
+
+def check_kv8_variants(torch):
+    """Every compiled INT8/e4m3 instantiation against its plain version at
+    small sizes: head_dim 32/64/128 × block size 8/16/32 × 1/2/4/8 query
+    heads per kv head × bf16/f32 queries, on a mixed and a pure-decode
+    batch."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    mixed_specs = [(20, 45), (1, 30), (7, 7), (1, 1), (33, 70)]
+    decode_specs = [(1, 45), (1, 17), (1, 1), (1, 64), (1, 100)]
+    for kv in KV8_DTYPES:
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            tol = ATTN_TOL[dtype_name]
+            worst, cases = 0.0, 0
+            for d in (32, 64, 128):
+                for bs in (8, 16, 32):
+                    for group in (1, 2, 4, 8):
+                        shape = dict(hq=2 * group, hk=2, d=d, bs=bs, dtype=dtype,
+                                     num_blocks=64, device=dev)
+                        label = f"{dtype_name} D={d} bs={bs} G={group}"
+                        for decode, specs in ((False, mixed_specs), (True, decode_specs)):
+                            b = make_batch(rng, specs, decode_only=decode, **shape)
+                            err, _, _ = check_kv8(torch, b, kv, label, tol, decode=decode)
+                            worst = max(worst, err)
+                        cases += 1
+            log(f"{kv} KV variants {dtype_name}: {cases} shapes × 3 kernels agree, writes "
+                f"and fused caches bit-exact, max |err| {worst:.3e} (tol {tol})")
+
+
+def check_kv8_kernels(torch):
+    """D and E (and the 1-byte writes) at the Llama-3.1-8B attention shapes
+    (Hq=32, Hk=8, D=128, block 16), bf16 queries: a mixed batch and 64
+    decode sequences, each kernel against its plain version, then timed
+    (CUDA events). Returns the kernels line's rows."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
+        (1, int(k)) for k in rng.integers(16, 2048, size=29)
+    ]
+    decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    shape = dict(hq=32, hk=8, d=128, bs=16, dtype=torch.bfloat16, device=dev)
+    mixed = make_batch(rng, mixed_specs, num_blocks=4096, decode_only=False, **shape)
+    decode = make_batch(rng, decode_specs, num_blocks=8192, decode_only=True, **shape)
+    tol, scale = ATTN_TOL["bfloat16"], 128 ** -0.5
+    rows = {}
+    for kv in KV8_DTYPES:
+        extra = 4 if kv == "int8" else 0  # bytes of scales a slot
+        work = dict(kv_elt=1, slot_extra=extra, hq=32, hk=8, d=128)
+        m, dm = mixed["meta"], decode["meta"]
+        err, cache, scales = check_kv8(torch, mixed, kv, "8B mixed", tol, decode=False)
+        n = mixed["rows"]
+        log(f"reshape_and_cache_{kv} 8B: bit-exact on {n} rows; ragged_paged_attention_{kv} "
+            f"8B mixed: max |err| {err:.3e} (tol {tol})")
+        row_in, row_out = 2 * 8 * 128 * 2, 2 * 8 * 128 + extra
+        rows[f"reshape_and_cache_{kv}"] = dict(
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: kv8_write(cache, scales, mixed["k"], mixed["v"],
+                                         m.slot_mapping, cuda=True)),
+            plain_ms=cuda_ms(lambda: kv8_write(cache, scales, mixed["k"], mixed["v"],
+                                               m.slot_mapping, cuda=False)),
+            library_ms=None, bytes=n * (row_in + row_out) + m.slot_mapping.numel() * 4, flops=0,
+        )
+        nbytes, flops = attention_work(mixed_specs, None, 2, fused=False, **work)
+        rows[f"ragged_paged_attention_{kv}"] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: pa.ragged_paged_attention_cuda(
+                mixed["q"], cache, m, scale=scale, kv_scales=scales)),
+            plain_ms=cuda_ms(lambda: pa.ragged_paged_attention_paged_plain(
+                mixed["q"], cache, m, scale=scale, kv_scales=scales), iters=5, warmup=1),
+            library_ms=None, bytes=nbytes, flops=flops,
+        )
+        err, dcache, dscales = check_kv8(torch, decode, kv, "8B decode", tol, decode=True)
+        log(f"fused_decode_attention_{kv} 8B decode: max |err| {err:.3e} (tol {tol}), "
+            "cache and scales bit-exact")
+        nbytes, flops = attention_work(decode_specs, None, 2, fused=True, **work)
+        rows[f"fused_decode_attention_{kv}"] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+                decode["q"], dcache, decode["k"], decode["v"], dm, scale=scale,
+                kv_scales=dscales)),
+            plain_ms=cuda_ms(lambda: pa.fused_decode_attention_plain(
+                decode["q"], dcache, decode["k"], decode["v"], dm, scale=scale,
+                kv_scales=dscales), iters=5, warmup=1),
+            library_ms=None, bytes=nbytes, flops=flops,
+        )
+        del cache, scales, dcache, dscales
+    # The bf16 cache at the same shapes, for the bytes a 1-byte cache saves.
+    bf16_ms = cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+        decode["q"], decode["cache"], decode["k"], decode["v"], decode["meta"], scale=scale))
+    log(f"fused_decode_attention (bf16 cache) 8B decode: {bf16_ms:.4f} ms")
+    del mixed, decode
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"), "bfloat16")
+        log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library none), "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
     return rows
 
 
@@ -629,19 +821,43 @@ def params_to(params, device):
     }
 
 
-def model_parity(torch, cfg, params_cpu, label, tol):
+def code_steps(torch, a, b):
+    """Per element, how many representable values apart two tensors of one
+    dtype are: int8 steps, or e4m3/bf16 codes of the same sign (a change of
+    sign counts as far apart)."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.int8:
+        return (a.int() - b.int()).abs()
+    bits = 8 * a.element_size()
+    view = torch.uint8 if bits == 8 else torch.int16
+    ai, bi = (x.view(view).int() & ((1 << bits) - 1) for x in (a, b))
+    sign = 1 << (bits - 1)
+    return torch.where((ai & sign) == (bi & sign), (ai - bi).abs(), 1 << 30)
+
+
+def model_parity(torch, cfg, params_cpu, label, tol, kv_dtype=None):
     """A 2-layer ``Llama`` on the card (kernels) against the same f32
     weights on the CPU (plain versions): a prefill and 3 decode steps of two
-    sequences; logits and KV caches within ``tol``."""
+    sequences; logits within ``tol``. KV caches in f32 within ``tol``; a
+    1-byte cache (``kv_dtype`` int8 or fp8) and its scales equal except in
+    at most 1% of the values, each one step or code apart: the card's and
+    the CPU's f32 projections differ in the last bits, and a value within
+    that of a rounding boundary lands on the neighbouring step."""
     import numpy as np
 
     from atoma_infer_tpu_torch.models.llama import Llama
     from atoma_infer_tpu_torch.ops.attention import AttentionMetadata
+    from atoma_infer_tpu_torch.ops.kv_cache import alloc_kv_scales
 
     cpu = Llama(cfg, dtype=torch.float32, device="cpu")
     gpu = Llama(cfg, dtype=torch.float32, device="cuda")
     params_gpu = params_to(params_cpu, gpu.device)
-    caches = {"cpu": cpu.alloc_kv_cache(64, BS), "cuda": gpu.alloc_kv_cache(64, BS)}
+    cache_dtype = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(kv_dtype)
+    caches = {name: m.alloc_kv_cache(64, BS, dtype=cache_dtype)
+              for name, m in (("cpu", cpu), ("cuda", gpu))}
+    scales = {name: ([alloc_kv_scales(64, BS, m.device) for _ in range(cfg.num_layers)]
+                     if kv_dtype == "int8" else None)
+              for name, m in (("cpu", cpu), ("cuda", gpu))}
     tables = [list(range(0, 20, 2)), list(range(1, 21, 2))]
     rng = np.random.default_rng(3)
     prompts = [rng.integers(3, 259, size=n).tolist() for n in (37, 70)]
@@ -680,7 +896,8 @@ def model_parity(torch, cfg, params_cpu, label, tol):
                 decode_only=decode, max_q_len=max(q_lens),
             )
             with torch.inference_mode():
-                hidden = model.forward(params, ints(toks), ints(pos), caches[name], meta)
+                hidden = model.forward(params, ints(toks), ints(pos), caches[name], meta,
+                                       kv_scales=scales[name])
                 logits[name] = model.compute_logits(params, hidden[ints(sel).long()]).float().cpu()
         err = (logits["cpu"] - logits["cuda"]).abs().max().item()
         worst = max(worst, err)
@@ -688,10 +905,21 @@ def model_parity(torch, cfg, params_cpu, label, tol):
             f"max |logit err| {err:.3e} (tol {tol})")
         if not torch.allclose(logits["cuda"], logits["cpu"], atol=tol, rtol=tol):
             raise AssertionError(f"model {label}: logits disagree at step {step}")
-    for layer, (c, g) in enumerate(zip(caches["cpu"], caches["cuda"])):
-        err = (c - g.cpu()).abs().max().item()
-        if err > tol:
-            raise AssertionError(f"model {label}: layer {layer} KV cache differs by {err}")
+    tiers = [("cache", caches)] + ([("scales", scales)] if kv_dtype == "int8" else [])
+    for what, tier in tiers:
+        for layer, (c, g) in enumerate(zip(tier["cpu"], tier["cuda"])):
+            if kv_dtype is None:
+                err = (c - g.cpu()).abs().max().item()
+                if err > tol:
+                    raise AssertionError(f"model {label}: layer {layer} KV cache differs by {err}")
+                continue
+            steps = code_steps(torch, c, g)
+            moved = (steps > 0).float().mean().item()
+            log(f"model {label}: layer {layer} {what}: {int((steps > 0).sum())} of "
+                f"{steps.numel()} values one step apart")
+            if steps.max().item() > 1 or moved > 0.01:
+                raise AssertionError(f"model {label}: layer {layer} {what} differs "
+                                     f"(max {steps.max().item()} steps, {moved:.2%} moved)")
     return worst
 
 
@@ -738,6 +966,29 @@ def check_quant_model(torch):
         torch.Generator().manual_seed(2))
     model_parity(torch, cfg, quantize_params(dense, "int8"), "8B INT8", MODEL_TOL)
     model_parity(torch, cfg, quantize_params(dense, "int4"), "8B INT4", MODEL_TOL)
+
+
+# Logits over a 1-byte KV cache, card against CPU: a value that lands on the
+# neighbouring int8 step (1/127 of its row's absmax) or e4m3 code (up to 1/8
+# of the value) moves the logits by far less than a wrong scale or row would
+# (order 1).
+KV8_MODEL_TOL = {"int8": 1e-2, "fp8": 5e-2}
+
+
+def check_kv8_model(torch):
+    """2-layer full-width Llama-3.1-8B with INT8 weights (quantized with the
+    port's quantize_weight), f32 activations, over an INT8 KV cache and then
+    an e4m3 one: card vs CPU."""
+    from atoma_infer_tpu_torch.models.llama import Llama
+    from atoma_infer_tpu_torch.models.weights import quantize_params
+
+    cfg = llama_8b_config(2)
+    dense = Llama(cfg, dtype=torch.float32, device="cpu").init_params(
+        torch.Generator().manual_seed(2))
+    params = quantize_params(dense, "int8")
+    for kv in KV8_DTYPES:
+        worst = model_parity(torch, cfg, params, f"8B INT8 + {kv} KV", KV8_MODEL_TOL[kv], kv)
+        log(f"model 8B INT8 + {kv} KV: worst |logit err| {worst:.3e} (tol {KV8_MODEL_TOL[kv]})")
 
 
 def check_service_parity(torch):
@@ -879,6 +1130,90 @@ def check_quant_service_parity(torch):
     n = sum(len(t) for t in runs["cuda"])
     log(f"quantized service parity: tiny_trained INT8, {len(prompts)} requests, {n} greedy "
         f"tokens identical on the card and the CPU, with preemption by recompute on both")
+
+
+def kv8_path(kv):
+    return (f"reshape_and_cache_{kv}", f"ragged_paged_attention_{kv}",
+            f"fused_decode_attention_{kv}")
+
+
+def check_kv8_service_parity(torch):
+    """``tiny_trained`` from its directory with an INT8 KV cache (and INT8
+    weights) and with an e4m3 one, on the card (kernels) against the CPU
+    (plain versions): 2-sequence greedy groups on a pool of 12 blocks, so
+    that groups are swapped to the host tier (INT8 scales with their pages)
+    and back. Greedy tokens identical, swaps on both, every block back, and
+    on the card every kernel of the path launched."""
+    from atoma_infer_tpu_torch.config import (
+        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
+    )
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
+
+    fixture = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
+    prompts = [f"prompt number {i} " * (1 + i % 4) for i in range(6)]
+    blocks = 12
+    for kv, quantization in (("int8", "int8"), ("fp8", None)):
+        runs = {}
+        for device in ("cpu", "cuda"):
+            config = EngineConfig(
+                model=ModelConfig(model_name=fixture, dtype="float32",
+                                  quantization=quantization, kv_cache_dtype=kv),
+                cache=CacheConfig(block_size=16, num_device_blocks_override=blocks,
+                                  num_host_blocks_override=64),
+                scheduler=SchedulerConfig(
+                    max_num_batched_tokens=256, max_num_sequences=8, max_model_len=256,
+                ),
+                validation=ValidationConfig(best_of=2, max_input_tokens=128,
+                                            max_total_tokens=256),
+            )
+            service = LlmService.start(config, model_dir=fixture, device=device)
+            cache_engine = service.engine.worker.cache_engine
+            swapped = []
+            swap_out = cache_engine.swap_out
+
+            def counting_swap_out(mapping, swap_out=swap_out, swapped=swapped):
+                swapped.append(len(mapping))
+                return swap_out(mapping)
+
+            cache_engine.swap_out = counting_swap_out
+            before = {k: cuda_lib.KERNELS[k].launches for k in kv8_path(kv)}
+
+            async def drive(service=service):
+                task = asyncio.create_task(service.engine.run())
+                futs = [
+                    await service.handle_request(GenerateRequest(
+                        request_id=f"kv-parity-{i}", inputs=prompt,
+                        parameters=GenerateParameters(
+                            max_new_tokens=16, best_of=2, do_sample=True, top_k=1, seed=i,
+                        ),
+                    ))
+                    for i, prompt in enumerate(prompts)
+                ]
+                results = await asyncio.wait_for(asyncio.gather(*futs), timeout=300)
+                service.stop()
+                task.cancel()
+                return results
+
+            results = asyncio.run(drive())
+            label = f"{kv} KV service parity ({device})"
+            free = service.engine.scheduler.block_manager.get_num_free_device_blocks()
+            if free != blocks:
+                raise AssertionError(f"{label}: {blocks - free} blocks leaked")
+            if not sum(swapped):
+                raise AssertionError(f"{label}: no group was swapped out")
+            launched = {k: cuda_lib.KERNELS[k].launches - n for k, n in before.items()}
+            if any((device == "cuda") != (n > 0) for n in launched.values()):
+                raise AssertionError(f"{label}: launches {launched}")
+            runs[device] = [[tuple(o.token_ids) for o in r.outputs] for r in results]
+        if runs["cuda"] != runs["cpu"]:
+            raise AssertionError(f"{kv} KV service parity: greedy tokens differ "
+                                 "between card and CPU")
+        n = sum(len(t) for r in runs["cuda"] for t in r)
+        log(f"{kv} KV service parity: tiny_trained{' INT8' if quantization else ''}, "
+            f"{len(prompts)} requests × 2 sequences, {n} greedy tokens identical on the "
+            f"card and the CPU, with swaps on both")
 
 
 # --------------------------------------------------------------- phase 4
@@ -1036,9 +1371,10 @@ def run_service(torch):
 
 def run_quant_services(torch):
     """Llama-3.1-8B at full width (32 layers) with INT8 weights, INT4
-    weights, and INT8 weights under W8A8: random bf16 weights from a seeded
-    generator, quantized on the card with the port's quantize_weight (an
-    untied per-channel INT8 LM head in all three). Returns each quantized
+    weights, and INT8 weights under W8A8, then INT8 weights over an INT8
+    and an e4m3 KV cache: random bf16 weights from a seeded generator,
+    quantized on the card with the port's quantize_weight (an untied
+    per-channel INT8 LM head in all). Returns each quantized and 1-byte-KV
     kernel's launches from its own path's service."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
@@ -1057,12 +1393,12 @@ def run_quant_services(torch):
     log(f"8B weights: drawn and quantized on the card in {time.monotonic() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
 
-    def config(quantization):
+    def config(quantization, kv_cache_dtype=None, **cache):
+        cache = cache or dict(num_device_blocks_override=2048)
         return EngineConfig(
             model=ModelConfig(model_name="llama-3.1-8b-random", dtype="bfloat16",
-                              quantization=quantization),
-            cache=CacheConfig(block_size=BS, num_device_blocks_override=2048,
-                              num_host_blocks_override=64),
+                              quantization=quantization, kv_cache_dtype=kv_cache_dtype),
+            cache=CacheConfig(block_size=BS, num_host_blocks_override=64, **cache),
             scheduler=SchedulerConfig(
                 max_num_batched_tokens=256, max_num_sequences=64, max_model_len=2048,
                 enable_chunked_prefill=True,
@@ -1088,6 +1424,24 @@ def run_quant_services(torch):
         launches[kernel] = counts[kernel]
         gc.collect()
         torch.cuda.empty_cache()
+
+    # INT8 weights over an INT8 KV cache (BASELINE config #3; the pool sized
+    # from free memory, so the scales' bytes per block are exercised), then
+    # over an e4m3 cache.
+    for kv, cache in (("int8", dict(hbm_memory_utilization=0.5)),
+                      ("fp8", dict(num_device_blocks_override=2048))):
+        cfg = config("int8", kv, **cache)
+        label = f"8B INT8 + {kv.upper()} KV"
+        path = kv8_path(kv) + ("quantized_matmul_int8",)
+        counts = serve(torch, label, model, params["int8"], cfg, path)
+        per_block = cfg.cache.block_bytes(
+            model.config.num_layers, model.config.num_kv_heads, model.config.head_dim, 1,
+            scale_pages=kv == "int8")
+        log(f"service {label}: {cfg.cache.num_device_blocks} KV blocks × {per_block} bytes "
+            f"= {cfg.cache.num_device_blocks * per_block / 2**30:.2f} GiB")
+        launches.update({k: counts[k] for k in kv8_path(kv)})
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1110,22 +1464,33 @@ def main() -> int:
     # Every kernel module registers its kernels on import.
     from atoma_infer_tpu_torch.ops import cuda_lib, kv_write, paged_attention, quant_kernels  # noqa: F401
 
+    t0 = time.monotonic()
+
+    def phase(fn):
+        out = fn(torch)
+        log(f"[{time.monotonic() - t0:.0f} s] {fn.__name__} done")
+        return out
+
     build_kernels()
-    check_kernel_variants(torch)
-    rows = check_kernels(torch)
-    check_quant_variants(torch)
-    rows.update(check_quant_kernels(torch))
-    check_model(torch)
-    check_quant_model(torch)
-    check_service_parity(torch)
-    check_quant_service_parity(torch)
+    phase(check_kernel_variants)
+    rows = phase(check_kernels)
+    phase(check_quant_variants)
+    rows.update(phase(check_quant_kernels))
+    phase(check_kv8_variants)
+    rows.update(phase(check_kv8_kernels))
+    phase(check_model)
+    phase(check_quant_model)
+    phase(check_kv8_model)
+    phase(check_service_parity)
+    phase(check_quant_service_parity)
+    phase(check_kv8_service_parity)
     # The profiler's first start sets up device tracing, which takes
     # seconds: do it here, outside the services' runs.
     profile_device(torch, lambda: torch.ones(1, device="cuda") + 1)
-    launches = run_service(torch)
+    launches = phase(run_service)
     gc.collect()  # the finished service's KV pool
     torch.cuda.empty_cache()
-    launches.update(run_quant_services(torch))
+    launches.update(phase(run_quant_services))
 
     line = []
     for name, kernel in cuda_lib.KERNELS.items():

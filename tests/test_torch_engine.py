@@ -385,8 +385,6 @@ def test_service_rejects_unported_features():
         {"inference": {"num_hosts": 2}},
         {"scheduler": {"async_scheduling": True}},
         {"cache": {"enable_prefix_caching": True}},
-        {"inference": {"kv_cache_dtype": "int8"}},
-        {"inference": {"kv_cache_dtype": "fp8", "quantization": "int8"}},
     ):
         raw.setdefault("inference", {})["model_name"] = "tiny-random"
         raw.setdefault("scheduler", {})["max_model_len"] = 2048

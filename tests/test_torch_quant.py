@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from torch_parity import FIXTURE_TINY_TRAINED as FIXTURE
-from torch_parity import jax_meta, torch_meta
+from torch_parity import jax_meta, model_step, torch_meta
 
 from atoma_infer_tpu.ops import quant as jquant
 from atoma_infer_tpu_torch.ops import quant, quant_kernels
@@ -357,7 +357,7 @@ def test_quantized_logits_match_jax(tmp_path, quantization, untied):
     jcache = jnp.zeros(jmodel.kv_cache_shape(16, 16), jnp.float32)
     tcache = model.alloc_kv_cache(16, 16)
     for seq_lens, q_lens in (((21, 30), (21, 30)), ((22, 31), (1, 1)), ((40, 32), (18, 1))):
-        case, positions, toks = _step(seq_lens, q_lens, tables, stream)
+        case, positions, toks = model_step(seq_lens, q_lens, tables, stream)
         hidden_j, jcache = jmodel.forward(
             jparams, jnp.asarray(toks), jnp.asarray(positions), jcache, jax_meta(case))
         logits_j = np.asarray(jmodel.compute_logits(jparams, hidden_j))
@@ -367,30 +367,6 @@ def test_quantized_logits_match_jax(tmp_path, quantization, untied):
         assert logits_t.dtype == torch.float32
         n = int(case["query_start_loc"][-1])
         np.testing.assert_allclose(logits_t.numpy()[:n], logits_j[:n], atol=1e-4, rtol=1e-4)
-
-
-def _step(seq_lens, q_lens, tables, stream, bs=16):
-    S = len(seq_lens)
-    T = -(-sum(q_lens) // 8) * 8
-    bt = np.zeros((S, max(len(t) for t in tables)), np.int32)
-    qsl = np.zeros(S + 1, np.int32)
-    slots = np.full(T, -1, np.int32)
-    positions = np.zeros(T, np.int32)
-    toks = np.zeros(T, np.int32)
-    for s, (kv, q, t) in enumerate(zip(seq_lens, q_lens, tables)):
-        bt[s, : len(t)] = t
-        qsl[s + 1] = qsl[s] + q
-        for i in range(q):
-            pos = kv - q + i
-            slots[qsl[s] + i] = t[pos // bs] * bs + pos % bs
-            positions[qsl[s] + i] = pos
-            toks[qsl[s] + i] = stream[s][pos]
-    case = dict(
-        block_tables=bt, seq_lens=np.asarray(seq_lens, np.int32), query_start_loc=qsl,
-        slot_mapping=slots, num_seqs=S, block_size=bs, max_q_len=max(q_lens),
-        decode_only=all(q == 1 for q in q_lens),
-    )
-    return case, positions, toks
 
 
 # ---------------------------------------------------------------------- (h)
