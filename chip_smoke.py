@@ -22,9 +22,11 @@ raises on failure; nothing is caught):
    writes): every instantiation at small sizes on a mixed and a decode
    batch, then the Llama-3.1-8B attention shapes (Hq=32, Hk=8, D=128, block
    16); the writes and the fused kernels' caches and scales bit-exact, the
-   attention within the tolerances below. Times with CUDA events: kernel,
-   plain version and, where one PyTorch call computes the same function,
-   that call.
+   attention within the tolerances below. Kernel I (the W8A8 rate probe's
+   matmul, both forms) at small shapes and at the probe's (184 × 4096 ×
+   14336): int8 bit-exact, mixed within its tolerance. Times with CUDA
+   events: kernel, plain version and, where one PyTorch call computes the
+   same function, that call.
 3. The port's ``Llama`` with 2 layers at full width: Llama-3.2-1B dense and
    Llama-3.1-8B quantized (INT8, INT4, and INT8 over an INT8 and an e4m3
    KV cache), prefill plus 3 decode steps on the card (kernels) against the
@@ -33,6 +35,9 @@ raises on failure; nothing is caught):
    model with a pool tight enough that groups are swapped out and back,
    ``tiny_trained`` quantized to INT8 on load, and ``tiny_trained`` over an
    INT8 KV cache (INT8 weights) and an e4m3 one, swapped out and back.
+   Then the quality ladder on ``tiny_trained`` in f32 at reduced sizes on
+   the card against the CPU: greedy agreements identical, drifts within
+   ``LADDER_CARD_TOL``.
 4. Services through ``LlmService.start``, each with 8 requests (chunked
    prefill, one seeded sampled, half submitted while the others decode):
    the full-width bf16 Llama-3.2-1B (16 layers, KV pool sized from
@@ -48,8 +53,14 @@ raises on failure; nothing is caught):
    to 0 just before it and read just after). Prints the worker's step wall
    times and one pure-decode step's device time by kernel
    (``torch.profiler``).
-5. A ``{"kernels": [...]}`` JSON line (each kernel's launches from its own
-   path's service), then as the last line ``{"ok": true, "device": {...}}``.
+5. The quantization decision tools (``atoma_infer_tpu_torch/tools``): the
+   W8A8 rate probe's ``main()`` (its path through kernel I, both forms
+   launched, int8 exact), then the W8A8 and INT8-KV gates at their card
+   defaults and the quality ladder on ``tiny_trained`` in bf16, each
+   printing its JSON; every number finite, every agreement in [0, 1], and
+   each tool's kernels launched in its own run (F and H; D; A to H).
+6. A ``{"kernels": [...]}`` JSON line (each kernel's launches from its own
+   path's run), then as the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
 repository.
@@ -811,6 +822,196 @@ def check_quant_kernels(torch):
     return rows
 
 
+# ------------------------------------- phase 2: the W8A8 rate probe (kernel I)
+# Kernel I's mixed form against its plain version: max |err| over the
+# output's largest magnitude. Every bf16 × int8 product is exact in f32 on
+# both sides, and the sums differ in order; the tensor cores also align each
+# k16 step's addends to the largest before adding, cutting the low bits of
+# the smaller ones (up to about 2^-23 of the running sum a step, 256 steps
+# at K = 4096). The int8 form is exact on both sides and must be equal.
+PROBE_MIXED_TOL = 1e-4
+
+
+def check_probe_kernels(torch):
+    """Kernel I, both forms, against its plain version at small shapes
+    (M = 1 to 200, K = 64 to 1024, N = 128 to 640) and at the probe's
+    (184 × 4096 × 14336), then timed there with CUDA events per matmul over
+    16 distinct weights (58.7 MB each, so none is in L2): the kernel, its
+    plain version, and one PyTorch call for the same product, its weights
+    converted beforehand (``torch._int_mm`` on column-major int8 weights,
+    int32 out; ``torch.mm`` on bf16 weights, f32 out), itself checked
+    against the plain version. Returns the kernels line's rows."""
+    from atoma_infer_tpu_torch.tools import w8a8_probe as probe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def int8(*shape):
+        return torch.randint(-127, 127, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def check(xq, xb, w, label):
+        got, want = probe.probe_matmul_cuda(xq, w), probe.probe_matmul_plain(xq, w)
+        if got.dtype != torch.float32 or not torch.equal(got, want):
+            raise AssertionError(f"probe_matmul_int8 {label}: not bit-exact")
+        got, want = probe.probe_matmul_cuda(xb, w), probe.probe_matmul_plain(xb, w)
+        rel, err = rel_err(got, want)
+        if got.dtype != torch.float32 or not rel <= PROBE_MIXED_TOL:
+            raise AssertionError(f"probe_matmul_mixed {label}: rel err {rel:.3e}")
+        return rel, err
+
+    worst, cases = 0.0, 0
+    for k, n in ((64, 128), (256, 384), (1024, 640)):
+        for m in (1, 16, 24, 37, 64, 130, 200):
+            w = int8(k, n)
+            xb = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            worst = max(worst, check(int8(m, k), xb, w, f"M={m} K={k} N={n}")[0])
+            cases += 1
+    log(f"probe_matmul: {cases} small shapes, int8 bit-exact, mixed worst rel err "
+        f"{worst:.3e} (tol {PROBE_MIXED_TOL})")
+
+    m, k, n = probe.M, probe.K, probe.N
+    ws = [int8(k, n) for _ in range(probe.R)]
+    xq = int8(m, k)
+    xb = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    _, err_mixed = check(xq, xb, ws[0], "probe shape")
+    rows = {}
+    for name, kind, x, err in (("probe_matmul_mixed", "mixed", xb, err_mixed),
+                               ("probe_matmul_int8", "int8", xq, 0.0)):
+        call, lib_ws = probe.library_call(kind, ws)
+        rel, _ = rel_err(call(x, lib_ws[0]).float(), probe.probe_matmul_plain(x, ws[0]))
+        if not rel <= PROBE_MIXED_TOL:
+            raise AssertionError(f"{name}: the library call disagrees (rel err {rel:.3e})")
+        us = probe.time_per_call_us(lambda w, x=x: probe.probe_matmul_cuda(x, w), ws)
+        plain_us = probe.time_per_call_us(lambda w, x=x: probe.probe_matmul_plain(x, w), ws, 1)
+        lib_us = probe.time_per_call_us(lambda w, x=x: call(x, w), lib_ws)
+        del lib_ws
+        nbytes, ops = probe.work(m, k, n, kind)
+        bound_ms, bound_by = bound(nbytes, ops, "int8" if kind == "int8" else "bfloat16")
+        rows[name] = dict(max_abs_err=err, ms=us / 1e3, plain_ms=plain_us / 1e3,
+                          library_ms=lib_us / 1e3, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"{name} [{m}x{k}]x[{k}x{n}]: {us / 1e3:.4f} ms ({ops / us * 1e-6:.1f} T/s, "
+            f"{nbytes / us * 1e-6:.3f} TB/s; plain {plain_us / 1e3:.4f} ms, library "
+            f"{lib_us / 1e3:.4f} ms), bound {bound_ms:.4f} ms by {bound_by}, max |err| {err:.3e}")
+    del ws
+    torch.cuda.empty_cache()
+    return rows
+
+
+PROBE_PATH = ("probe_matmul_mixed", "probe_matmul_int8")
+
+
+def run_probe(torch):
+    """The probe's ``main()`` on the card, the path through kernel I (the
+    JAX tool's inputs from ``numpy.random.default_rng(0)``, its lines
+    printed): both forms must launch and the int8 one be exact. Returns the
+    launch counts of this run (all set to 0 just before it)."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.tools import w8a8_probe
+
+    for kernel in cuda_lib.KERNELS.values():
+        kernel.launches = 0
+    report = w8a8_probe.main([])
+    launches = {name: cuda_lib.KERNELS[name].launches for name in PROBE_PATH}
+    log(f"probe: launches {launches}")
+    if not (report["exact"] and report["bit_exact"]):
+        raise AssertionError("probe: int8 x int8 is not exact against integer math")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} was not launched on the probe's path")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------- the quantization gates and the ladder
+def finite_report(report, label):
+    """Every number in a tool's report finite, every agreement in [0, 1]."""
+    def walk(obj, key=""):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(v, k)
+        elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+            if obj != obj or obj in (float("inf"), float("-inf")):
+                raise AssertionError(f"{label}: {key} is {obj}")
+            if "agreement" in key and not 0 <= obj <= 1:
+                raise AssertionError(f"{label}: {key} = {obj} lies outside [0, 1]")
+    walk(report)
+
+
+def run_tools(torch):
+    """The W8A8 and INT8-KV gates at their card defaults (Llama-3.2-1B
+    widths, 16 layers, blocks of 32, 16 sequences at 512 keys, 24 steps;
+    random bf16 weights from a seeded generator) and the quality ladder on
+    ``tiny_trained`` in bf16 (16 prompts of 96 corpus tokens, 32 steps).
+    Each prints its JSON on a line of its own; every number must be finite,
+    every agreement in [0, 1], and each tool's kernels launched in its run
+    (counts set to 0 just before it)."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.tools import kv_quant_gate, quality_ladder, w8a8_gate
+
+    def ladder():
+        report = quality_ladder.ladder(device="cuda")
+        log(json.dumps(report))
+        return report
+
+    # F and H for the W8A8 gate, D for the INT8-KV gate, A to H for the
+    # ladder.
+    runs = (
+        ("w8a8_gate", lambda: w8a8_gate.main([]),
+         ("quantized_matmul_int8", "quantized_matmul_w8a8")),
+        ("kv_quant_gate", lambda: kv_quant_gate.main([]), ("fused_decode_attention_int8",)),
+        ("quality_ladder", ladder,
+         ATTENTION_PATH + kv8_path("int8") + kv8_path("fp8")
+         + ("quantized_matmul_int8", "quantized_matmul_int4", "quantized_matmul_w8a8")),
+    )
+    for name, run, path in runs:
+        for kernel in cuda_lib.KERNELS.values():
+            kernel.launches = 0
+        t0 = time.monotonic()
+        report = run()
+        launches = {k: cuda_lib.KERNELS[k].launches for k in path}
+        log(f"{name}: {time.monotonic() - t0:.1f} s on the card; launches {launches}")
+        finite_report(report, name)
+        for kernel, count in launches.items():
+            if count == 0:
+                raise AssertionError(f"kernel {kernel} was not launched in the {name} run")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# The ladder in f32, card (kernels) against CPU (plain versions): the sums
+# differ in the last bits, and where a KV value or a W8A8 activation lies
+# that close to an int8 step or e4m3 code it lands on the neighbouring one
+# (under 0.02% of INT8 KV values in the 8B model check above); on this peaked
+# model that moves a chosen token's logprob by far less than 1e-3.
+LADDER_CARD_TOL = 1e-3
+
+
+def check_ladder_parity(torch):
+    """The quality ladder on ``tiny_trained`` in f32 at reduced sizes (4
+    prompts of 32 tokens, 4 steps) on the card and on the CPU: greedy
+    agreements identical, peakedness and drifts within
+    ``LADDER_CARD_TOL``."""
+    from atoma_infer_tpu_torch.tools import quality_ladder
+
+    sizes = dict(steps=4, seqs=4, prompt_len=32)
+    card = quality_ladder.ladder(device="cuda", dtype=torch.float32, **sizes)
+    cpu = quality_ladder.ladder(device="cpu", **sizes)
+    pairs = [(f"peakedness {k}", card["reference_peakedness"][k], v)
+             for k, v in cpu["reference_peakedness"].items()]
+    for name, ref in cpu["variants"].items():
+        got = card["variants"][name]
+        if got["greedy_agreement"] != ref["greedy_agreement"]:
+            raise AssertionError(f"ladder {name}: greedy agreement {got['greedy_agreement']} on "
+                                 f"the card, {ref['greedy_agreement']} on the CPU")
+        pairs += [(f"{name} {k}", got[k], ref[k]) for k in ("mean_abs_dlogprob", "max_abs_dlogprob")]
+    worst = max(abs(a - b) for _, a, b in pairs)
+    log(f"ladder f32 card vs CPU: greedy agreements identical, worst |diff| {worst:.2e} "
+        f"(tol {LADDER_CARD_TOL}); card {json.dumps(card['variants'])}")
+    for label, a, b in pairs:
+        if abs(a - b) > LADDER_CARD_TOL:
+            raise AssertionError(f"ladder {label}: {a} on the card, {b} on the CPU")
+
+
 # --------------------------------------------------------------- phase 3
 def params_to(params, device):
     """A copy of a parameter dict (one level of nesting) on ``device``;
@@ -1463,6 +1664,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     # Every kernel module registers its kernels on import.
     from atoma_infer_tpu_torch.ops import cuda_lib, kv_write, paged_attention, quant_kernels  # noqa: F401
+    from atoma_infer_tpu_torch.tools import w8a8_probe  # noqa: F401
 
     t0 = time.monotonic()
 
@@ -1478,12 +1680,14 @@ def main() -> int:
     rows.update(phase(check_quant_kernels))
     phase(check_kv8_variants)
     rows.update(phase(check_kv8_kernels))
+    rows.update(phase(check_probe_kernels))
     phase(check_model)
     phase(check_quant_model)
     phase(check_kv8_model)
     phase(check_service_parity)
     phase(check_quant_service_parity)
     phase(check_kv8_service_parity)
+    phase(check_ladder_parity)
     # The profiler's first start sets up device tracing, which takes
     # seconds: do it here, outside the services' runs.
     profile_device(torch, lambda: torch.ones(1, device="cuda") + 1)
@@ -1491,6 +1695,10 @@ def main() -> int:
     gc.collect()  # the finished service's KV pool
     torch.cuda.empty_cache()
     launches.update(phase(run_quant_services))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase(run_probe))
+    phase(run_tools)
 
     line = []
     for name, kernel in cuda_lib.KERNELS.items():

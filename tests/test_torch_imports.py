@@ -58,6 +58,14 @@ def test_no_jax_or_reference_package_imports():
     assert not offenders, offenders
 
 
+def test_the_tools_subpackage_is_walked():
+    walked = {os.path.relpath(p, PORT_DIR) for p in _port_files()}
+    tools = {os.path.join("tools", f"{name}.py") for name in (
+        "__init__", "w8a8_probe", "w8a8_gate", "kv_quant_gate", "quality_ladder",
+        "tiny_corpus", "decode_harness")}
+    assert tools <= walked
+
+
 def test_importing_every_module_leaves_jax_out():
     modules = []
     for path in _port_files():
