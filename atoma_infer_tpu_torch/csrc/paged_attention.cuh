@@ -26,12 +26,14 @@
 // a few times more; both sit far below the H100's 295 flops/byte balance
 // point, so the floor is the K/V bytes over 3.35 TB/s, and a 1-byte cache
 // halves it. What the designs do about it:
-//  * A stages one page of its kv head's K and V in shared memory (widened to
-//    f32 once; INT8 multiplied by its slot's scale there, which is exact and
-//    is the plain version's dequantization) and reuses it for every query
-//    of its tile and all G query heads of the group (GQA), so each page is
-//    read from device memory once per (tile, kv head) instead of once per
-//    query row.
+//  * A stages a tile of gcd(block_size, 32) keys of one page, its kv head's
+//    K and V, in shared memory (widened to f32 once; INT8 multiplied by its
+//    slot's scale there, which is exact and is the plain version's
+//    dequantization) and reuses it for every query of its tile and all G
+//    query heads of the group (GQA), so each page is read from device
+//    memory once per (tile, kv head) instead of once per query row. Any
+//    block size that is a multiple of 8 runs.
+//  * B is instantiated for G = 1 to 8 query heads per kv head.
 //  * B splits one (sequence, kv head)'s keys over 4 warps, one key per lane,
 //    so a decode token's G query heads share every K/V load, and combines
 //    the warps' partial softmax states at the end (split-KV inside a block).
@@ -106,23 +108,26 @@ __device__ __forceinline__ float slot_scale(const __nv_bfloat16* scales,
 // Kernel A: one block per (query tile of block_q tokens, sequence, kv head).
 // Thread layout: TPR = D/32 consecutive threads own one query row (token,
 // q head of the group), 32 dims each; rows are token-major within the tile.
+// Keys are staged KT at a time, KT = gcd(block_size, 32): a key tile never
+// straddles a page, any block size that is a multiple of 8 runs, and shared
+// memory stays at the KT = 32 figure (2 * 32 * (D/32) * 33 floats).
 // ---------------------------------------------------------------------------
-template <typename T, typename C, int D, int BS>
+template <typename T, typename C, int D, int KT>
 __global__ void __launch_bounds__(256) rpa_kernel(
     const T* __restrict__ q, const C* __restrict__ cache,
     const __nv_bfloat16* __restrict__ scales,
     const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
     const int* __restrict__ query_start_loc, const int* __restrict__ num_seqs,
     const float* __restrict__ alibi, T* __restrict__ out, int num_q_heads,
-    int num_kv_heads, int max_pages, int group, int block_q, float scale,
-    int window, float soft_cap) {
+    int num_kv_heads, int max_pages, int block_size, int group, int block_q,
+    float scale, int window, float soft_cap) {
   constexpr int TPR = D / 32;
   constexpr int KS = TPR * 33;  // smem floats per key row; +1 pad per 32 dims
   constexpr int VN = Vec<C>::N;
-  constexpr int CHUNKS = BS * 2 * D / VN;  // 16-byte vectors in one page (K|V)
+  constexpr int CHUNKS = KT * 2 * D / VN;  // 16-byte vectors in one key tile (K|V)
   constexpr int QN = Vec<T>::N;
-  __shared__ float ks[BS * KS];
-  __shared__ float vs[BS * KS];
+  __shared__ float ks[KT * KS];
+  __shared__ float vs[KT * KS];
 
   const int s = blockIdx.y;
   if (s >= num_seqs[0]) return;
@@ -162,13 +167,16 @@ __global__ void __launch_bounds__(256) rpa_kernel(
 
   const int last_pos = ctx0 + tok0 + ntok - 1;
   const int kv_begin = window > 0 ? max(0, ctx0 + tok0 - window + 1) : 0;
-  const int p_end = min((last_pos + BS) / BS, max_pages);
+  const int tiles_per_page = block_size / KT;
+  const int t_end = min((last_pos + KT) / KT, max_pages * tiles_per_page);
   const long long row_stride = 2LL * num_kv_heads * D;
 
-  for (int p = kv_begin / BS; p < p_end; ++p) {
-    const long long page = block_tables[(long long)s * max_pages + p];
-    const C* base = cache + page * BS * row_stride + (long long)h * 2 * D;
-    __syncthreads();  // the previous page is fully consumed
+  for (int t = kv_begin / KT; t < t_end; ++t) {
+    const int p = t / tiles_per_page;
+    const long long slot0 = (long long)block_tables[(long long)s * max_pages + p] * block_size +
+                            (t - p * tiles_per_page) * KT;
+    const C* base = cache + slot0 * row_stride + (long long)h * 2 * D;
+    __syncthreads();  // the previous key tile is fully consumed
     for (int c = tid; c < CHUNKS; c += blockDim.x) {
       const int e = c * VN;
       const int r = e / (2 * D), col = e - r * 2 * D;
@@ -176,7 +184,7 @@ __global__ void __launch_bounds__(256) rpa_kernel(
       load16(base + r * row_stride + col, tmp);
       const bool is_v = col >= D;
       if constexpr (kScaled<C>) {
-        const float sc = slot_scale(scales, page * BS + r, is_v);
+        const float sc = slot_scale(scales, slot0 + r, is_v);
 #pragma unroll
         for (int k = 0; k < VN; ++k) tmp[k] *= sc;
       }
@@ -187,17 +195,17 @@ __global__ void __launch_bounds__(256) rpa_kernel(
     }
     __syncthreads();
 
-    float sc[BS];
+    float sc[KT];
     float mx = kNegInf;
 #pragma unroll
-    for (int j = 0; j < BS; ++j) {
+    for (int j = 0; j < KT; ++j) {
       const float* kr = ks + j * KS + part * 33;
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < 32; ++i) dot = fmaf(qr[i], kr[i], dot);
 #pragma unroll
       for (int o = 1; o < TPR; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      const int kpos = p * BS + j;
+      const int kpos = t * KT + j;
       const bool ok = kpos <= qpos && (window <= 0 || kpos > qpos - window);
       sc[j] = ok ? score_mod(dot, scale, soft_cap, slope, kpos, qpos) : kNegInf;
       mx = fmaxf(mx, sc[j]);
@@ -209,7 +217,7 @@ __global__ void __launch_bounds__(256) rpa_kernel(
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[i] *= alpha;
 #pragma unroll
-      for (int j = 0; j < BS; ++j) {
+      for (int j = 0; j < KT; ++j) {
         const float pj = expf(sc[j] - m_new);
         l += pj;
         const float* vr = vs + j * KS + part * 33;
@@ -424,16 +432,19 @@ int launch_rpa(int block_size, dim3 grid, int threads, cudaStream_t stream,
                const int* bt, const int* sl, const int* qsl, const int* ns,
                const float* alibi, void* out, int hq, int hk, int max_pages,
                int group, int block_q, float scale, int window, float soft_cap) {
-#define ATOMA_RPA(BS)                                                          \
-  rpa_kernel<T, C, D, BS><<<grid, threads, 0, stream>>>(                       \
+#define ATOMA_RPA(KT)                                                          \
+  rpa_kernel<T, C, D, KT><<<grid, threads, 0, stream>>>(                       \
       (const T*)q, (const C*)cache, (const __nv_bfloat16*)scales, bt, sl, qsl, \
-      ns, alibi, (T*)out, hq, hk, max_pages, group, block_q, scale, window,    \
-      soft_cap)
-  switch (block_size) {
-    case 8: ATOMA_RPA(8); break;
-    case 16: ATOMA_RPA(16); break;
-    case 32: ATOMA_RPA(32); break;
-    default: return (int)cudaErrorInvalidValue;
+      ns, alibi, (T*)out, hq, hk, max_pages, block_size, group, block_q,       \
+      scale, window, soft_cap)
+  // The key tile: gcd(block_size, 32).
+  if (block_size <= 0 || block_size % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (block_size % 32 == 0) {
+    ATOMA_RPA(32);
+  } else if (block_size % 16 == 0) {
+    ATOMA_RPA(16);
+  } else {
+    ATOMA_RPA(8);
   }
 #undef ATOMA_RPA
   return (int)cudaGetLastError();
@@ -454,7 +465,11 @@ int launch_fused(int group, dim3 grid, cudaStream_t stream, const void* q,
   switch (group) {
     case 1: ATOMA_FUSED(1); break;
     case 2: ATOMA_FUSED(2); break;
+    case 3: ATOMA_FUSED(3); break;
     case 4: ATOMA_FUSED(4); break;
+    case 5: ATOMA_FUSED(5); break;
+    case 6: ATOMA_FUSED(6); break;
+    case 7: ATOMA_FUSED(7); break;
     case 8: ATOMA_FUSED(8); break;
     default: return (int)cudaErrorInvalidValue;
   }

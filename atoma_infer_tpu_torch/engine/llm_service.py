@@ -9,8 +9,9 @@ weights are resident (SURVEY.md §3.1), from ``torch.cuda.mem_get_info``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): multi-host serving, tensor and pipeline parallelism, async
-scheduling, speculative decoding, prefix caching, and the native (C++)
-block manager — the port always uses the Python one. Weight quantization
+scheduling, speculative decoding, prefix caching, float16 (no kernel takes
+fp16 yet), and the native (C++) block manager — the port always uses the
+Python one. Weight quantization
 (``quantization`` "int8" or "int4", and W8A8 under ``ATOMA_W8A8=1``) is
 ported: the loader quantizes on load. So are the KV-cache dtypes
 (``kv_cache_dtype`` "int8": an int8 cache with per-(slot, K/V) bf16 scales;
@@ -67,6 +68,7 @@ def _reject_unported(config: EngineConfig) -> None:
         (s.async_scheduling, "async scheduling", "async scheduling depth 2"),
         (s.num_speculative_tokens > 0, "speculative decoding", "speculative decoding"),
         (c.enable_prefix_caching, "prefix caching", "prefix caching"),
+        (m.dtype == "float16", "float16", "float16 instantiations of A–H"),
     ]
     for on, what, item in unported:
         if on:

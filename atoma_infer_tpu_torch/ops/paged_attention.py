@@ -4,8 +4,10 @@ Replaces the TPU kernel ``atoma_infer_tpu/ops/paged_attention.py:_kernel``:
 
 * **A** ``ragged_paged_attention`` ← ``ragged_paged_attention_pallas`` (:1058,
   ``fuse_write=False``): one block per (query tile, sequence, kv head) stages
-  one page of the head's K and V in shared memory and reuses it for every
-  query of the tile and all G query heads of the group; f32 online softmax;
+  the head's K and V in shared memory, gcd(block_size, 32) slots of a page at
+  a time (so any block size that is a multiple of 8 runs), and reuses them
+  for every query of the tile and all G query heads of the group; f32 online
+  softmax;
   writes the token-major ``[T, Hq, D]`` output directly (the TPU kernel's
   entry-major windows and their reassembly have no counterpart).
 * **B** ``fused_decode_attention`` ← ``ragged_paged_attention_fused`` (:1093,
@@ -13,7 +15,8 @@ Replaces the TPU kernel ``atoma_infer_tpu/ops/paged_attention.py:_kernel``:
   batch; it writes its head's slice of the new K/V row into the slot, then
   attends over the cache, the new position read back from it; its 4 warps
   split the keys and merge their softmax states at the end, and each warp
-  keeps 8 V-row loads in flight in its P·V loop.
+  keeps 8 V-row loads in flight in its P·V loop. It is instantiated for 1
+  to 8 query heads per kv head.
 * **D** ``*_int8``: A and B over an INT8 cache with one bf16 scale per
   (slot, K/V) (``quant=True``: ``ragged_paged_attention_pallas(kv_scales=…)``
   and ``ragged_paged_attention_fused_quant`` :1132). The fused kernel
@@ -49,8 +52,7 @@ from .reference import ragged_paged_attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
-_BLOCK_SIZES = (8, 16, 32)
-_GROUPS = (1, 2, 4, 8)
+MAX_FUSED_GROUP = 8  # fused_decode_kernel is instantiated for G = 1..8
 _RAGGED_ARGS = [INT] + [PTR] * 9 + [INT] * 7 + [FLOAT, INT, FLOAT, PTR]
 _FUSED_ARGS = [INT] + [PTR] * 12 + [INT] * 6 + [LONG, FLOAT, INT, FLOAT, PTR]
 _A = "atoma_infer_tpu/ops/paged_attention.py:1058 (ragged_paged_attention_pallas"
@@ -129,6 +131,22 @@ def fused_decode_attention_plain(
 
 
 # ------------------------------------------------------------------ wrappers
+def check_kernel_shape(*, group: int, block_size: int, fused: bool) -> None:
+    """Raise ``ValueError`` for a block size or GQA group the kernels do not
+    take: the ragged kernel (A, D, E) takes any block size that is a
+    multiple of 8, as the configuration does; the fused decode kernel (B and
+    D's and E's fused variants) also takes 1 to ``MAX_FUSED_GROUP`` query
+    heads per kv head."""
+    if block_size <= 0 or block_size % 8:
+        raise ValueError(f"paged attention: block_size {block_size} is not a positive "
+                         "multiple of 8")
+    if fused and not 1 <= group <= MAX_FUSED_GROUP:
+        raise ValueError(
+            f"fused_decode_attention: {group} q heads per kv head unsupported (1 to "
+            f"{MAX_FUSED_GROUP}; larger groups wait for ROADMAP.md, Queue 1: model families)"
+        )
+
+
 def _check(q, kv_cache, meta, alibi_slopes, kv_scales, extra=()) -> tuple:
     """Validate what the kernels take; return (Hk, D, S, P, cache kind)."""
     T, Hq, D = q.shape
@@ -201,8 +219,7 @@ def ragged_paged_attention_cuda(
     """Kernel A (D on an int8 cache, E on an e4m3 one) → [T, Hq, D]. Rows
     past ``query_start_loc[num_seqs]`` are padding and left unwritten."""
     Hk, D, S, P, kind = _check(q, kv_cache, meta, alibi_slopes, kv_scales)
-    if meta.block_size not in _BLOCK_SIZES:
-        raise ValueError(f"ragged_paged_attention: block_size {meta.block_size} unsupported")
+    check_kernel_shape(group=q.shape[1] // Hk, block_size=meta.block_size, fused=False)
     out = torch.empty_like(q)
     RAGGED_ATTENTION[kind](
         _DTYPES[q.dtype],
@@ -241,8 +258,7 @@ def ragged_paged_attention_fused_cuda(
     T, Hq, _ = q.shape
     if not meta.decode_only:
         raise ValueError("fused_decode_attention: meta.decode_only must be set")
-    if Hq // Hk not in _GROUPS:
-        raise ValueError(f"fused_decode_attention: {Hq // Hk} q heads per kv head unsupported")
+    check_kernel_shape(group=Hq // Hk, block_size=meta.block_size, fused=True)
     if k_new.shape != (T, Hk, D) or v_new.shape != (T, Hk, D):
         raise ValueError("fused_decode_attention: k_new/v_new must be [T, Hk, D]")
     if k_new.dtype != q.dtype or v_new.dtype != q.dtype:

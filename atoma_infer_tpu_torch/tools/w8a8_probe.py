@@ -6,7 +6,8 @@ with no scales, at the Llama-3.1-8B gate-projection shape, in two forms:
 (b) int8 x int8 with an exact int32 sum (the W8A8 candidate),
 both written out as f32, each over R = 16 distinct weights so that no weight
 is in L2 when it is read. The matmul is kernel I (``csrc/w8a8_probe.cu``), on
-the tensor cores through ``mma.sync``; its plain version sits beside it.
+the tensor cores through ``mma.sync``, one block per 128 columns over all of
+M fed by a four-stage ``cp.async`` ring; its plain version sits beside it.
 
 Usage:
     python -m atoma_infer_tpu_torch.tools.w8a8_probe                  # the card
@@ -91,6 +92,8 @@ def probe_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("probe_matmul: x and w must be contiguous")
     if not (x.is_cuda and w.device == x.device):
         raise ValueError("probe_matmul: x and w must be on one CUDA device")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("probe_matmul: x and w must be 16-byte aligned (cp.async copies)")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     kernel = PROBE_INT8 if x.dtype == torch.int8 else PROBE_MIXED
     kernel(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,

@@ -9,7 +9,8 @@ raises on failure; nothing is caught):
    ``sm_90a``, all sources in parallel.
 2. Every kernel against its plain PyTorch version on the card.
    Attention and KV write: first every compiled instantiation at small sizes
-   (head_dim × block size × GQA group, bf16 and f32), then Llama-3.2-1B
+   (head_dim 32/64/128 × block size 8/16/32/48/64/128 × GQA group 1 to 8,
+   bf16 and f32), then Llama-3.2-1B
    attention shapes (Hq=32, Hk=8, D=64, block 16) with a mixed
    prefill+decode batch and a pure-decode batch: the KV write bit-exact, the
    attention kernels within the tolerances below (plus one case each with a
@@ -22,12 +23,15 @@ raises on failure; nothing is caught):
    writes): every instantiation at small sizes on a mixed and a decode
    batch, then the Llama-3.1-8B attention shapes (Hq=32, Hk=8, D=128, block
    16); the writes and the fused kernels' caches and scales bit-exact, the
-   attention within the tolerances below. Kernel I (the W8A8 rate probe's
-   matmul, both forms) at small shapes and at the probe's (184 × 4096 ×
-   14336): int8 bit-exact, mixed within its tolerance. Times with CUDA
-   events: kernel, plain version and, where one PyTorch call computes the
-   same function, that call.
-3. The port's ``Llama`` with 2 layers at full width: Llama-3.2-1B dense and
+   attention within the tolerances below. A, B, D and E at the
+   Llama-3.2-3B attention shapes (3 query heads per kv head), the ragged
+   kernels at blocks of 16 and of 64. Kernel I (the W8A8 rate probe's
+   matmul, both forms) at small shapes (M = 1 to 400) and at the probe's
+   (184 × 4096 × 14336): int8 bit-exact, mixed within its tolerance. Times
+   with CUDA events: kernel, plain version and, where one PyTorch call
+   computes the same function, that call.
+3. The port's ``Llama`` with 2 layers at full width: Llama-3.2-1B and
+   Llama-3.2-3B dense, and
    Llama-3.1-8B quantized (INT8, INT4, and INT8 over an INT8 and an e4m3
    KV cache), prefill plus 3 decode steps on the card (kernels) against the
    same f32 weights on the CPU (plain versions). Then services on the card
@@ -41,7 +45,9 @@ raises on failure; nothing is caught):
 4. Services through ``LlmService.start``, each with 8 requests (chunked
    prefill, one seeded sampled, half submitted while the others decode):
    the full-width bf16 Llama-3.2-1B (16 layers, KV pool sized from
-   ``torch.cuda.mem_get_info``), then the full-width Llama-3.1-8B (32
+   ``torch.cuda.mem_get_info``), the full-width bf16 Llama-3.2-3B (28
+   layers, 3 query heads per kv head) and the 1B again with blocks of 64,
+   then the full-width Llama-3.1-8B (32
    layers, bf16 activations, llama3 rope scaling, untied per-channel INT8
    LM head) with INT8 weights, INT4 weights and INT8 weights under W8A8
    over a bf16 KV cache, and INT8 weights over an INT8 KV cache (pool sized
@@ -114,6 +120,14 @@ QMM_SHAPES = {
     "down_proj": (14336, 4096, 128),
     "lm_head": (4096, 128256, 4096),
 }
+# Llama-3.2-3B widths (meta-llama/Llama-3.2-3B config.json; BASELINE.json
+# config #2): 24 q heads over 8 kv heads (3 a group), tied embeddings, llama3
+# rope scaling with factor 32.
+LLAMA_3B = dict(
+    vocab_size=128256, hidden_size=3072, intermediate_size=8192,
+    num_attention_heads=24, num_key_value_heads=8, head_dim=128,
+    rope_theta=500000.0, max_position_embeddings=131072, tie_word_embeddings=True,
+)
 # The shape and row count whose numbers go into the kernels line.
 QMM_LINE_SHAPE, QMM_LINE_M = "gate_proj/up_proj", 8
 
@@ -266,11 +280,18 @@ def make_batch(rng, specs, *, dtype, num_blocks, decode_only, device,
     )
 
 
+# The attention kernels' shape grid at small sizes: block sizes (8, 16, 32
+# stage a whole page; 48, 64, 128 stage it in key tiles of gcd(bs, 32)) and
+# GQA groups (the fused kernel is instantiated for 1 to 8).
+VARIANT_BLOCK_SIZES = (8, 16, 32, 48, 64, 128)
+VARIANT_GROUPS = tuple(range(1, 9))
+
+
 def check_kernel_variants(torch):
     """Every compiled instantiation against its plain version at small
-    sizes: head_dim 32/64/128 × block size 8/16/32 × 1/2/4/8 query heads
-    per kv head, bf16 and f32 (the main-path shapes are checked at full
-    size in :func:`check_kernels`)."""
+    sizes: head_dim 32/64/128 × block size 8/16/32/48/64/128 × 1 to 8 query
+    heads per kv head, bf16 and f32 (the main-path shapes are checked at
+    full size in :func:`check_kernels`)."""
     import numpy as np
 
     from atoma_infer_tpu_torch.ops import kv_write, paged_attention
@@ -283,8 +304,8 @@ def check_kernel_variants(torch):
         tol = ATTN_TOL[dtype_name]
         worst, cases = 0.0, 0
         for d in (32, 64, 128):
-            for bs in (8, 16, 32):
-                for group in (1, 2, 4, 8):
+            for bs in VARIANT_BLOCK_SIZES:
+                for group in VARIANT_GROUPS:
                     shape = dict(hq=2 * group, hk=2, d=d, bs=bs, dtype=dtype,
                                  num_blocks=64, device=dev)
                     label = f"{dtype_name} D={d} bs={bs} G={group}"
@@ -548,9 +569,9 @@ def check_kv8(torch, b, kv, label, tol, *, decode):
 
 def check_kv8_variants(torch):
     """Every compiled INT8/e4m3 instantiation against its plain version at
-    small sizes: head_dim 32/64/128 × block size 8/16/32 × 1/2/4/8 query
-    heads per kv head × bf16/f32 queries, on a mixed and a pure-decode
-    batch."""
+    small sizes: head_dim 32/64/128 × block size 8/16/32/48/64/128 × 1 to 8
+    query heads per kv head × bf16/f32 queries, on a mixed and a
+    pure-decode batch."""
     import numpy as np
 
     dev = torch.device("cuda")
@@ -562,8 +583,8 @@ def check_kv8_variants(torch):
             tol = ATTN_TOL[dtype_name]
             worst, cases = 0.0, 0
             for d in (32, 64, 128):
-                for bs in (8, 16, 32):
-                    for group in (1, 2, 4, 8):
+                for bs in VARIANT_BLOCK_SIZES:
+                    for group in VARIANT_GROUPS:
                         shape = dict(hq=2 * group, hk=2, d=d, bs=bs, dtype=dtype,
                                      num_blocks=64, device=dev)
                         label = f"{dtype_name} D={d} bs={bs} G={group}"
@@ -648,6 +669,86 @@ def check_kv8_kernels(torch):
         log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library none), "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
     return rows
+
+
+# Llama-3.2-3B's attention shapes, in make_batch's names.
+LLAMA_3B_HEADS = dict(hq=LLAMA_3B["num_attention_heads"], hk=LLAMA_3B["num_key_value_heads"],
+                      d=LLAMA_3B["head_dim"])
+
+
+def check_gqa_block_kernels(torch):
+    """A, B, D and E at the Llama-3.2-3B attention shapes (3 query heads per
+    kv head), bf16 queries, over a bf16, an INT8 and an e4m3 cache: the
+    fused kernels on 64 decode sequences at block 16, the ragged ones on a
+    mixed batch at block 16 and at block 64 (key tiles of 32 keys), each
+    against its plain version (fused caches and scales bit-exact), then
+    timed with CUDA events beside their bounds."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    tol, scale = ATTN_TOL["bfloat16"], 128 ** -0.5
+    for bs in (16, 64):
+        rng = np.random.default_rng(2)  # the same sequences at both block sizes
+        mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
+            (1, int(k)) for k in rng.integers(16, 2048, size=29)
+        ]
+        decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+        shape = dict(LLAMA_3B_HEADS, bs=bs, dtype=torch.bfloat16, device=dev)
+        mixed = make_batch(rng, mixed_specs, num_blocks=65536 // bs, decode_only=False, **shape)
+        decode = make_batch(rng, decode_specs, num_blocks=131072 // bs, decode_only=True,
+                            **shape)
+        m, n = mixed["meta"], mixed["rows"]
+        for kv in (None,) + KV8_DTYPES:
+            suffix = f"_{kv}" if kv else ""
+            extra = 4 if kv == "int8" else 0
+            work = dict(kv_elt=1 if kv else 2, slot_extra=extra, **LLAMA_3B_HEADS)
+            if kv:
+                cache, scales = kv8_cache(torch, mixed["cache"], kv, 128)
+            else:
+                cache, scales = mixed["cache"], None
+            out = pa.ragged_paged_attention_cuda(mixed["q"], cache, m, scale=scale,
+                                                 kv_scales=scales)
+            ref = pa.ragged_paged_attention_paged_plain(mixed["q"], cache, m, scale=scale,
+                                                        kv_scales=scales)
+            err = (out[:n].float() - ref[:n].float()).abs().max().item()
+            if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
+                raise AssertionError(f"ragged_paged_attention{suffix} 3B bs={bs} disagrees: "
+                                     f"max |err| {err:.3e}")
+            ms = cuda_ms(lambda: pa.ragged_paged_attention_cuda(
+                mixed["q"], cache, m, scale=scale, kv_scales=scales))
+            bound_ms, by = bound(*attention_work(mixed_specs, None, 2, fused=False, **work),
+                                 "bfloat16")
+            log(f"ragged_paged_attention{suffix} 3B mixed bs={bs}: {ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms by {by}, max |err| {err:.3e} (tol {tol})")
+            if bs != 16:
+                continue
+            if kv:
+                err, dcache, dscales = check_kv8(torch, decode, kv, "3B decode G=3", tol,
+                                                 decode=True)
+            else:
+                dcache, dscales = decode["cache"].clone(), None
+                want = decode["cache"].clone()
+                out = pa.ragged_paged_attention_fused_cuda(
+                    decode["q"], dcache, decode["k"], decode["v"], decode["meta"], scale=scale)
+                ref = pa.fused_decode_attention_plain(
+                    decode["q"], want, decode["k"], decode["v"], decode["meta"], scale=scale)
+                dn = decode["rows"]
+                err = (out[:dn].float() - ref[:dn].float()).abs().max().item()
+                if not (torch.equal(dcache, want) and torch.allclose(
+                        out[:dn].float(), ref[:dn].float(), atol=tol, rtol=tol)):
+                    raise AssertionError(f"fused_decode_attention 3B G=3 disagrees: max |err| "
+                                         f"{err:.3e}")
+            ms = cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+                decode["q"], dcache, decode["k"], decode["v"], decode["meta"], scale=scale,
+                kv_scales=dscales))
+            bound_ms, by = bound(*attention_work(decode_specs, None, 2, fused=True, **work),
+                                 "bfloat16")
+            log(f"fused_decode_attention{suffix} 3B decode G=3 bs={bs}: {ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms by {by}, max |err| {err:.3e} (tol {tol}), cache bit-exact")
+        del mixed, decode, cache, scales
+        torch.cuda.empty_cache()
 
 
 # ----------------------------------------------- phase 2: quantized matmuls
@@ -834,9 +935,11 @@ PROBE_MIXED_TOL = 1e-4
 
 def check_probe_kernels(torch):
     """Kernel I, both forms, against its plain version at small shapes
-    (M = 1 to 200, K = 64 to 1024, N = 128 to 640) and at the probe's
+    (M = 1 to 400, K = 64 to 1024, N = 128 to 640) and at the probe's
     (184 × 4096 × 14336), then timed there with CUDA events per matmul over
-    16 distinct weights (58.7 MB each, so none is in L2): the kernel, its
+    16 distinct weights (58.7 MB each, so none is in L2), and over one
+    weight 16 times (in L2) for what the kernel takes when device memory
+    is not its limit: the kernel, its
     plain version, and one PyTorch call for the same product, its weights
     converted beforehand (``torch._int_mm`` on column-major int8 weights,
     int32 out; ``torch.mm`` on bf16 weights, f32 out), itself checked
@@ -859,9 +962,11 @@ def check_probe_kernels(torch):
             raise AssertionError(f"probe_matmul_mixed {label}: rel err {rel:.3e}")
         return rel, err
 
+    # M past one block's 192 rows (193, 200, 400) takes more blocks along y;
+    # K = 64 and 320 end on half an int8 tile of 128 k.
     worst, cases = 0.0, 0
-    for k, n in ((64, 128), (256, 384), (1024, 640)):
-        for m in (1, 16, 24, 37, 64, 130, 200):
+    for k, n in ((64, 128), (320, 256), (256, 384), (1024, 640)):
+        for m in (1, 16, 24, 37, 64, 130, 192, 193, 200, 400):
             w = int8(k, n)
             xb = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
             worst = max(worst, check(int8(m, k), xb, w, f"M={m} K={k} N={n}")[0])
@@ -887,11 +992,15 @@ def check_probe_kernels(torch):
         del lib_ws
         nbytes, ops = probe.work(m, k, n, kind)
         bound_ms, bound_by = bound(nbytes, ops, "int8" if kind == "int8" else "bfloat16")
+        # The same call with one weight for every launch, so that it is read
+        # from L2: what the kernel takes when device memory is not its limit.
+        l2_us = probe.time_per_call_us(lambda w, x=x: probe.probe_matmul_cuda(x, w), ws[:1] * 16)
         rows[name] = dict(max_abs_err=err, ms=us / 1e3, plain_ms=plain_us / 1e3,
                           library_ms=lib_us / 1e3, bound_ms=bound_ms, bound_by=bound_by)
-        log(f"{name} [{m}x{k}]x[{k}x{n}]: {us / 1e3:.4f} ms ({ops / us * 1e-6:.1f} T/s, "
-            f"{nbytes / us * 1e-6:.3f} TB/s; plain {plain_us / 1e3:.4f} ms, library "
-            f"{lib_us / 1e3:.4f} ms), bound {bound_ms:.4f} ms by {bound_by}, max |err| {err:.3e}")
+        log(f"{name} [{m}x{k}]x[{k}x{n}]: {us:.2f} us ({ops / us * 1e-6:.1f} T/s, "
+            f"{nbytes / us * 1e-6:.3f} TB/s), bound {bound_ms * 1e3:.2f} us by {bound_by}: "
+            f"{bound_ms * 1e3 / us:.1%} of the bound; plain {plain_us:.2f} us, library "
+            f"{lib_us:.2f} us; weight in L2 {l2_us:.2f} us; max |err| {err:.3e}")
     del ws
     torch.cuda.empty_cache()
     return rows
@@ -1125,7 +1234,8 @@ def model_parity(torch, cfg, params_cpu, label, tol, kv_dtype=None):
 
 
 def check_model(torch):
-    """2-layer full-width Llama-3.2-1B, dense f32: card vs CPU."""
+    """2-layer full-width Llama-3.2-1B and Llama-3.2-3B (3 query heads per
+    kv head), dense f32: card vs CPU."""
     from atoma_infer_tpu_torch.models.llama import Llama, LlamaConfig
 
     cfg = LlamaConfig(
@@ -1135,7 +1245,24 @@ def check_model(torch):
     )
     params = Llama(cfg, dtype=torch.float32, device="cpu").init_params(
         torch.Generator().manual_seed(1))
-    return model_parity(torch, cfg, params, "1B dense", MODEL_TOL)
+    model_parity(torch, cfg, params, "1B dense", MODEL_TOL)
+    cfg = llama_3b_config(2)
+    params = Llama(cfg, dtype=torch.float32, device="cpu").init_params(
+        torch.Generator().manual_seed(3))
+    model_parity(torch, cfg, params, "3B dense", MODEL_TOL)
+
+
+
+def llama_3b_config(num_layers):
+    from atoma_infer_tpu_torch.models.llama import LlamaConfig
+    from atoma_infer_tpu_torch.ops.rope import RopeScalingConfig
+
+    return LlamaConfig(
+        num_hidden_layers=num_layers,
+        rope_scaling=RopeScalingConfig(factor=32.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                                       original_max_position_embeddings=8192),
+        **LLAMA_3B,
+    )
 
 
 def llama_8b_config(num_layers):
@@ -1437,7 +1564,7 @@ def serve(torch, label, model, params, config, path):
         device=model.device,
     )
     pool = config.cache.num_device_blocks
-    log(f"service {label}: KV pool {pool} blocks of {BS} tokens")
+    log(f"service {label}: KV pool {pool} blocks of {config.cache.block_size} tokens")
 
     # Per step: (prefill groups, decode groups, wall seconds of the worker
     # call, which ends when the sampled tokens are on the host, whether it
@@ -1541,12 +1668,29 @@ def serve(torch, label, model, params, config, path):
     return launches
 
 
-def run_service(torch):
-    """The bf16 Llama-3.2-1B service (16 layers), KV pool sized from
-    ``torch.cuda.mem_get_info``."""
+def bf16_config(name, block_size):
+    """A bf16 service's configuration: KV pool sized from
+    ``torch.cuda.mem_get_info``, chunked prefill with a 256-token budget
+    (prompts arriving while others decode share steps with them, so mixed
+    prefill+decode steps run)."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
+
+    return EngineConfig(
+        model=ModelConfig(model_name=name, dtype="bfloat16"),
+        cache=CacheConfig(block_size=block_size, hbm_memory_utilization=0.5,
+                          num_host_blocks_override=64),
+        scheduler=SchedulerConfig(
+            max_num_batched_tokens=256, max_num_sequences=64, max_model_len=2048,
+            enable_chunked_prefill=True,
+        ),
+        validation=ValidationConfig(max_input_tokens=1024, max_total_tokens=2048),
+    )
+
+
+def llama_1b_model(torch):
+    """Llama-3.2-1B at full width, 16 layers, random bf16 weights."""
     from atoma_infer_tpu_torch.models.llama import Llama, LlamaConfig
 
     cfg = LlamaConfig(
@@ -1555,19 +1699,34 @@ def run_service(torch):
         max_position_embeddings=4096, tie_word_embeddings=True,
     )
     model = Llama(cfg, dtype=torch.bfloat16, device="cuda")
-    params = model.init_params(torch.Generator(device=model.device).manual_seed(0))
-    config = EngineConfig(
-        model=ModelConfig(model_name="llama-3.2-1b-random", dtype="bfloat16"),
-        cache=CacheConfig(block_size=BS, hbm_memory_utilization=0.5, num_host_blocks_override=64),
-        # Chunked prefill (256-token budget): prompts arriving while others
-        # decode share steps with them, so mixed prefill+decode steps run.
-        scheduler=SchedulerConfig(
-            max_num_batched_tokens=256, max_num_sequences=64, max_model_len=2048,
-            enable_chunked_prefill=True,
-        ),
-        validation=ValidationConfig(max_input_tokens=1024, max_total_tokens=2048),
-    )
-    return serve(torch, "1B bf16", model, params, config, ATTENTION_PATH)
+    return model, model.init_params(torch.Generator(device=model.device).manual_seed(0))
+
+
+def run_service(torch):
+    """The bf16 Llama-3.2-1B service (16 layers), blocks of 16."""
+    model, params = llama_1b_model(torch)
+    return serve(torch, "1B bf16", model, params, bf16_config("llama-3.2-1b-random", BS),
+                 ATTENTION_PATH)
+
+
+def run_shape_services(torch):
+    """Services at the shapes the kernels first refused: the bf16
+    Llama-3.2-3B at full width (28 layers, 3 query heads per kv head,
+    blocks of 16 as ``BASELINE.json`` config #2 says), whose decode steps
+    must go through the fused kernel at G = 3, then the 16-layer
+    Llama-3.2-1B with blocks of 64 (the ragged kernel in key tiles)."""
+    from atoma_infer_tpu_torch.models.llama import Llama
+
+    model = Llama(llama_3b_config(28), dtype=torch.bfloat16, device="cuda")
+    params = model.init_params(torch.Generator(device=model.device).manual_seed(3))
+    serve(torch, "3B bf16", model, params, bf16_config("llama-3.2-3b-random", BS),
+          ATTENTION_PATH)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = llama_1b_model(torch)
+    serve(torch, "1B bf16 block 64", model, params, bf16_config("llama-3.2-1b-random", 64),
+          ATTENTION_PATH)
 
 
 def run_quant_services(torch):
@@ -1680,6 +1839,7 @@ def main() -> int:
     rows.update(phase(check_quant_kernels))
     phase(check_kv8_variants)
     rows.update(phase(check_kv8_kernels))
+    phase(check_gqa_block_kernels)
     rows.update(phase(check_probe_kernels))
     phase(check_model)
     phase(check_quant_model)
@@ -1693,6 +1853,9 @@ def main() -> int:
     profile_device(torch, lambda: torch.ones(1, device="cuda") + 1)
     launches = phase(run_service)
     gc.collect()  # the finished service's KV pool
+    torch.cuda.empty_cache()
+    phase(run_shape_services)
+    gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase(run_quant_services))
     gc.collect()

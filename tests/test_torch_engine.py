@@ -258,12 +258,12 @@ def test_swap_round_trip_is_bit_exact():
 
 
 # ----------------------------------------------------------------- services
-def _service(pkg, model, params, tokenizer, *, blocks, best_of):
+def _service(pkg, model, params, tokenizer, *, blocks, best_of, block_size=16):
     cfg = mod(pkg, "config")
     config = cfg.EngineConfig(
         model=cfg.ModelConfig(model_name="injected", dtype="float32"),
         cache=cfg.CacheConfig(
-            block_size=16, num_device_blocks_override=blocks, num_host_blocks_override=64
+            block_size=block_size, num_device_blocks_override=blocks, num_host_blocks_override=64
         ),
         scheduler=cfg.SchedulerConfig(
             max_num_batched_tokens=256, max_num_sequences=8, max_model_len=256,
@@ -276,9 +276,11 @@ def _service(pkg, model, params, tokenizer, *, blocks, best_of):
     return service_mod.LlmService.start(config, model=model, params=params, tokenizer=tokenizer, **kw)
 
 
-def _serve(pkg, model, params, tokenizer, prompts, *, blocks, best_of=1, max_new=20):
+def _serve(pkg, model, params, tokenizer, prompts, *, blocks, best_of=1, max_new=20,
+           block_size=16):
     types = mod(pkg, "types")
-    service = _service(pkg, model, params, tokenizer, blocks=blocks, best_of=best_of)
+    service = _service(pkg, model, params, tokenizer, blocks=blocks, best_of=best_of,
+                       block_size=block_size)
     ce = service.engine.worker.cache_engine
     swaps = {"out": 0}
     orig_out = ce.swap_out
@@ -349,14 +351,43 @@ def _tiny_random():
     return (jmodel, jparams, jtok), (pmodel, ptok)
 
 
+def _group3_random():
+    """A random 2-layer Llama with 3 query heads per kv head (Hq 6, Hk 2,
+    D 32), Llama-3.2-3B's grouping at a tiny width; JAX's weights are
+    carried across to the port."""
+    import jax
+
+    from atoma_infer_tpu.entrypoints.offline import ByteTokenizer as JaxByteTokenizer
+    from atoma_infer_tpu.models.llama import Llama as JaxLlama
+    from atoma_infer_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+    from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+    from atoma_infer_tpu_torch.models.llama import Llama, LlamaConfig
+
+    widths = dict(
+        vocab_size=512, hidden_size=192, intermediate_size=384, num_hidden_layers=2,
+        num_attention_heads=6, num_key_value_heads=2, head_dim=32,
+        max_position_embeddings=2048, rope_theta=10000.0, rope_scaling=None,
+        tie_word_embeddings=True, eos_token_ids=(1,), bos_token_id=0,
+    )
+    jmodel = JaxLlama(JaxLlamaConfig(**widths), dtype=jnp.float32)
+    jparams = jmodel.init_params(jax.random.PRNGKey(3))
+    pmodel = Llama(LlamaConfig(**widths), dtype=torch.float32, device="cpu")
+    return (jmodel, jparams, JaxByteTokenizer(512)), (pmodel, ByteTokenizer(512))
+
+
 PROMPTS = [f"prompt number {i} " * (1 + i % 4) for i in range(6)]
 
 SERVICE_CASES = {
-    # name: (model builder, device blocks, best_of, expect swap, expect recompute)
-    "tiny_trained": (_tiny_trained, 128, 1, False, False),
-    "tiny_trained_recompute": (_tiny_trained, 9, 1, False, True),
-    "tiny_random": (_tiny_random, 128, 1, False, False),
-    "tiny_random_swap": (_tiny_random, 12, 2, True, True),
+    # name: (model builder, device blocks, best_of, expect swap, expect
+    # recompute, block size)
+    "tiny_trained": (_tiny_trained, 128, 1, False, False, 16),
+    "tiny_trained_recompute": (_tiny_trained, 9, 1, False, True, 16),
+    "tiny_random": (_tiny_random, 128, 1, False, False, 16),
+    "tiny_random_swap": (_tiny_random, 12, 2, True, True, 16),
+    # Pages of 64 slots: the ragged kernel stages them in key tiles.
+    "tiny_trained_block64": (_tiny_trained, 32, 1, False, False, 64),
+    # 3 query heads per kv head: the fused decode kernel's G = 3.
+    "group3_random": (_group3_random, 128, 1, False, False, 16),
 }
 
 
@@ -364,29 +395,48 @@ SERVICE_CASES = {
 def test_service_greedy_tokens_match_jax(name):
     from atoma_infer_tpu_torch.models.weights import params_from_numpy
 
-    build, blocks, best_of, want_swap, want_preempt = SERVICE_CASES[name]
+    build, blocks, best_of, want_swap, want_preempt, block_size = SERVICE_CASES[name]
     (jmodel, jparams, jtok), (pmodel, ptok) = build()
-    want, _, _ = _serve(JAX, jmodel, jparams, jtok, PROMPTS, blocks=blocks, best_of=best_of)
+    kw = dict(blocks=blocks, best_of=best_of, block_size=block_size)
+    want, _, _ = _serve(JAX, jmodel, jparams, jtok, PROMPTS, **kw)
     got, swapped, preempted = _serve(
-        PORT, pmodel, params_from_numpy(jparams), ptok, PROMPTS, blocks=blocks, best_of=best_of
+        PORT, pmodel, params_from_numpy(jparams), ptok, PROMPTS, **kw
     )
     assert got == want
     assert (swapped > 0) == want_swap
     assert (preempted > 0) == want_preempt
 
 
-def test_service_rejects_unported_features():
+@pytest.mark.parametrize("raw, item", [
+    ({"inference": {"tensor_parallel_size": 2}}, "parallelism"),
+    ({"inference": {"pipeline_parallel_size": 2}}, "parallelism"),
+    ({"inference": {"num_hosts": 2}}, "parallelism"),
+    ({"scheduler": {"async_scheduling": True}}, "async scheduling"),
+    ({"cache": {"enable_prefix_caching": True}}, "prefix caching"),
+    # No kernel takes fp16: refused at start, not a KeyError in the loader.
+    ({"inference": {"dtype": "float16"}}, "float16 instantiations of A–H"),
+], ids=["tp", "pp", "multihost", "async", "prefix_caching", "float16"])
+def test_service_rejects_unported_features(raw, item):
     from atoma_infer_tpu_torch.config import EngineConfig
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
 
-    for raw in (
-        {"inference": {"tensor_parallel_size": 2}},
-        {"inference": {"pipeline_parallel_size": 2}},
-        {"inference": {"num_hosts": 2}},
-        {"scheduler": {"async_scheduling": True}},
-        {"cache": {"enable_prefix_caching": True}},
-    ):
-        raw.setdefault("inference", {})["model_name"] = "tiny-random"
-        raw.setdefault("scheduler", {})["max_model_len"] = 2048
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LlmService.start(EngineConfig.from_dict(raw), device="cpu")
+    raw = {key: dict(section) for key, section in raw.items()}
+    raw.setdefault("inference", {})["model_name"] = "tiny-random"
+    raw.setdefault("scheduler", {})["max_model_len"] = 2048
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1: {item}"):
+        LlmService.start(EngineConfig.from_dict(raw), device="cpu")
+
+
+def test_float16_model_directory_is_refused_before_loading():
+    """A float16 service from a model directory (the loader's path, where
+    the dtype table has no fp16 entry) raises NotImplementedError naming
+    the ROADMAP item before any weight is read."""
+    from atoma_infer_tpu_torch.config import EngineConfig
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+
+    config = EngineConfig.from_dict({
+        "inference": {"model_name": FIXTURE, "dtype": "float16"},
+        "scheduler": {"max_model_len": 256},
+    })
+    with pytest.raises(NotImplementedError, match="float16 instantiations of A–H"):
+        LlmService.start(config, model_dir=FIXTURE, device="cpu")

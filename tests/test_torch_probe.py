@@ -132,9 +132,11 @@ def test_kernels_are_registered_from_their_source():
     source = (cuda_lib.CSRC_DIR / "w8a8_probe.cu").read_text()
     for symbol in ("atoma_probe_mixed", "atoma_probe_int8"):
         assert f'extern "C" int {symbol}(' in source
-    # The product runs on the tensor cores: int8 and bf16 mma.sync.
+    # The product runs on the tensor cores: int8 and bf16 mma.sync, fed by
+    # a cp.async ring and ldmatrix.
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in source
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in source
+    assert "cp.async.cg.shared.global" in source and "ldmatrix.sync.aligned" in source
 
 
 @pytest.mark.parametrize("x_dtype,w_dtype,shape_x,shape_w,message", [
@@ -170,3 +172,25 @@ def test_probe_without_device_raises_here():
         pytest.skip("a CUDA device is present: the default is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         probe.run_probe()
+
+
+def test_ablation_tool_builds_hooks_the_source_has():
+    from atoma_infer_tpu_torch.tools import probe_ablation
+
+    source = probe_ablation.SOURCE.read_text()
+    assert probe_ablation.VARIANTS["port"] == ()
+    for flags in probe_ablation.VARIANTS.values():
+        for flag in flags:
+            assert flag.startswith("-D")
+            assert flag[2:].split("=")[0] in source
+    # The port's own build defines none of them.
+    assert not any(flag.startswith("-DATOMA_PROBE") for flag in cuda_lib.NVCC_FLAGS)
+
+
+def test_ablation_tool_needs_a_card():
+    from atoma_infer_tpu_torch.tools import probe_ablation
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the tool would run")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        probe_ablation.run()
