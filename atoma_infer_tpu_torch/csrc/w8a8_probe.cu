@@ -77,6 +77,8 @@
 
 #include <type_traits>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // 8 warps: 2 along M x 4 along N
@@ -110,78 +112,12 @@ struct Form {
   static constexpr int kSwzShift = INT8 ? 2 : 1;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes if !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
-  return v;
-}
-
-// Transpose a 4 x 4 block of bytes: r[i] holds row i (bytes = columns 0..3);
-// t[j] receives column j (bytes = rows 0..3), lowest row in the lowest byte.
-__device__ __forceinline__ void transpose4x4(const uint32_t* r, uint32_t (&t)[4]) {
-  const uint32_t x0 = __byte_perm(r[0], r[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
-  const uint32_t x1 = __byte_perm(r[0], r[1], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
-  const uint32_t y0 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t y1 = __byte_perm(r[2], r[3], 0x7362);
-  t[0] = __byte_perm(x0, y0, 0x5410);
-  t[1] = __byte_perm(x0, y0, 0x7632);
-  t[2] = __byte_perm(x1, y1, 0x5410);
-  t[3] = __byte_perm(x1, y1, 0x7632);
-}
-
-// Byte j of `lo` and byte j of `hi` as a bf16 pair (lo in the low half),
-// exactly: 128 + (v & 127) minus 128 + (v & 128), both built by bit
-// operations (0x4300 is bf16 128; the sign bit 0x80 is the exponent's low
-// bit, making 256), subtracted by one bf16x2 fma (exact: v has at most 8
-// significant bits).
-__device__ __forceinline__ uint32_t widen_pair(uint32_t lo, uint32_t hi, int j) {
+// Kernel I's widening, or under ATOMA_PROBE_NO_WIDEN a raw word.
+__device__ __forceinline__ uint32_t probe_widen(uint32_t lo, uint32_t hi, int j) {
 #ifdef ATOMA_PROBE_NO_WIDEN
   return j & 1 ? hi : lo;
 #endif
-  const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
-  const uint32_t p = __byte_perm(lo, hi, sel);  // byte 0 = lo.bj, byte 2 = hi.bj
-  const uint32_t pos = (p & 0x007F007Fu) | 0x43004300u;
-  const uint32_t neg = (p & 0x00800080u) | 0x43004300u;
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(neg), "r"(0xBF80BF80u), "r"(pos));
-  return d;
-}
-
-__device__ __forceinline__ void mma_int8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  return widen_pair(lo, hi, j);
 }
 
 // One thread's share of a stage's cp.async copies, its addresses computed
@@ -321,8 +257,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     } else {
 #pragma unroll
       for (int j = 0; j < kNTiles; ++j) {
-        b[j][0] = widen_pair(bw[0], bw[1], j);
-        b[j][1] = widen_pair(bw[2], bw[3], j);
+        b[j][0] = probe_widen(bw[0], bw[1], j);
+        b[j][1] = probe_widen(bw[2], bw[3], j);
       }
     }
   };

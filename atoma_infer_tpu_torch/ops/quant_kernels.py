@@ -8,6 +8,12 @@ Replace the TPU kernels of ``atoma_infer_tpu/ops/quant_kernels.py``
 accumulated on its own (f32, or exact int32 for H) and scaled before the
 sum over groups. Layout and design notes: ``csrc/quant_matmul.cu``.
 
+F and G have two routes, each a hand-written kernel with its own launch
+counter: the tensor cores (``quantized_matmul_int8_mma``,
+``quantized_matmul_int4_mma``) for bf16 activations at the shapes
+:func:`mma_route_takes` admits, and the CUDA cores
+(``quantized_matmul_int8``, ``quantized_matmul_int4``) for the rest.
+
 Dispatch: CUDA tensors launch the kernels (or raise); CPU tensors take the
 plain versions, which follow the XLA branch of
 ``atoma_infer_tpu/ops/quant.py:quantized_matmul`` (f32 operands, one einsum
@@ -20,8 +26,10 @@ dot per K block, a v5e throughput trade that changes the numbers) and
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -52,6 +60,25 @@ QMM_I4 = cuda_lib.register(
         source="quant_matmul.cu",
         symbol="atoma_qmm_i4",
         argtypes=_FLOAT_ARGS,
+        replaces=f"{_REPLACES} -> _kernel_i4 :112",
+    )
+)
+_MMA_ARGS = [PTR] * 5 + [INT] * 6 + [PTR]
+QMM_I8_MMA = cuda_lib.register(
+    cuda_lib.CudaKernel(
+        name="quantized_matmul_int8_mma",
+        source="quant_matmul.cu",
+        symbol="atoma_qmm_i8_mma",
+        argtypes=_MMA_ARGS,
+        replaces=f"{_REPLACES} -> _kernel_i8 :84",
+    )
+)
+QMM_I4_MMA = cuda_lib.register(
+    cuda_lib.CudaKernel(
+        name="quantized_matmul_int4_mma",
+        source="quant_matmul.cu",
+        symbol="atoma_qmm_i4_mma",
+        argtypes=_MMA_ARGS,
         replaces=f"{_REPLACES} -> _kernel_i4 :112",
     )
 )
@@ -94,6 +121,85 @@ def plan(M: int, N: int, groups: int, vec: int) -> Tuple[int, int, int, int]:
     return rsplit, ks, gps, -(-groups // gps)
 
 
+# The tensor-core route's block: 128 columns (csrc/quant_matmul.cu).
+_MMA_BLOCK_COLS = 128
+
+
+def mma_block_rows(M: int) -> int:
+    """The activation rows of a tensor-core block, which follow M: the
+    smallest of 16, 32, 64 that holds it, else 128."""
+    return next((b for b in (16, 32, 64) if M <= b), 128)
+
+
+def mma_plan(M: int, N: int, groups: int, slots: int) -> Tuple[int, int, int]:
+    """(activation rows a block, groups per K split, K splits) of one call
+    on the tensor-core route: K is split, in whole groups, into as many
+    splits as keep the grid within ``slots``, the blocks of this
+    instantiation the card holds at once (:func:`_mma_slots`). One wave,
+    with as many weight copies in flight as the card takes."""
+    block_rows = mma_block_rows(M)
+    blocks = -(-N // _MMA_BLOCK_COLS) * -(-M // block_rows)
+    gps = -(-groups // max(1, slots // blocks))
+    return block_rows, gps, -(-groups // gps)
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_slots(bits: int, block_rows: int, device: int) -> int:
+    """The blocks of one tensor-core instantiation the card holds at once:
+    the occupancy calculator's blocks an SM times the card's SMs."""
+    fn = cuda_lib.load(QMM_I8_MMA.source).atoma_qmm_mma_blocks_per_sm
+    fn.argtypes, fn.restype = [INT, INT], INT
+    per_sm = fn(bits, block_rows)
+    if per_sm < 1:
+        raise RuntimeError(f"quantized_matmul: no occupancy for {bits}-bit, {block_rows} rows")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def mma_route_takes(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, *,
+                    bits: int, group_size: int) -> bool:
+    """Whether the tensor-core route takes a call: bf16 activations, N a
+    multiple of 16, whole k16 steps in a group (``group_size`` a multiple of
+    16 for int8 and of 32 for int4, whose packed rows hold half a group's),
+    and x, the weight and the scales 16-byte aligned (``cp.async``; a layer
+    of stacked weights is a view at an offset)."""
+    return (
+        x.dtype == torch.bfloat16
+        and qweight.shape[-1] % 16 == 0
+        and group_size % (16 if bits == 8 else 32) == 0
+        and all(t.data_ptr() % 16 == 0 for t in (x, qweight, scales))
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class QmmLaunch:
+    """How one F or G call launches: the kernel (route), its geometry
+    arguments after the shapes, and the f32 workspace's shape when K is
+    split over blocks."""
+
+    kernel: cuda_lib.CudaKernel
+    geometry: Tuple[int, ...]
+    workspace: Optional[Tuple[int, int, int]]
+
+
+def qmm_launch(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, *, bits: int,
+               group_size: int) -> QmmLaunch:
+    """The route and launch plan of ``x @ dequant(q)`` (shapes already
+    checked): the tensor cores where :func:`mma_route_takes` admits the
+    call, else the CUDA cores."""
+    M, K = x.shape
+    N = qweight.shape[1]
+    groups = K // group_size
+    if mma_route_takes(x, qweight, scales, bits=bits, group_size=group_size):
+        slots = _mma_slots(bits, mma_block_rows(M), x.device.index or 0)
+        block_rows, gps, splits = mma_plan(M, N, groups, slots)
+        return QmmLaunch(QMM_I8_MMA if bits == 8 else QMM_I4_MMA, (block_rows, gps),
+                         (splits, M, N) if splits > 1 else None)
+    vec, ks, rsplit, gps, splits = _cuda_core_geometry(M, N, groups, qweight)
+    return QmmLaunch(QMM_I8 if bits == 8 else QMM_I4,
+                     (int(x.dtype == torch.bfloat16), vec, ks, rsplit, gps),
+                     (splits, M, N) if splits > 1 else None)
+
+
 def _check(name, tensors, qweight, scales, *, bits, group_size, M, K) -> int:
     """Validate the weight side against an [M, K] activation, then that
     every tensor lies on one CUDA device (last, so that CPU tensors reach
@@ -122,14 +228,16 @@ def _check(name, tensors, qweight, scales, *, bits, group_size, M, K) -> int:
     return N
 
 
-def _geometry(M, N, K, group_size, qweight, out):
+def _cuda_core_geometry(M, N, groups, qweight):
+    """(vec, ks, rsplit, gps, splits) of a CUDA-core launch (F, G or H)."""
     vec = 8 if N % 8 == 0 and qweight.data_ptr() % 8 == 0 else 1
-    rsplit, ks, gps, splits = plan(M, N, K // group_size, vec)
-    ws = (
-        torch.empty((splits, M, N), dtype=torch.float32, device=out.device)
-        if splits > 1 else None
-    )
-    return vec, ks, rsplit, gps, ws
+    rsplit, ks, gps, splits = plan(M, N, groups, vec)
+    return vec, ks, rsplit, gps, splits
+
+
+def _workspace(shape, device):
+    """The f32 partials of a call split over K, or None."""
+    return torch.empty(shape, dtype=torch.float32, device=device) if shape else None
 
 
 def quantized_matmul_cuda(
@@ -140,7 +248,14 @@ def quantized_matmul_cuda(
     bits: int,
     group_size: int,
 ) -> torch.Tensor:
-    """Launch kernel F (``bits=8``) or G (``bits=4``); output in x's dtype."""
+    """Launch kernel F (``bits=8``) or G (``bits=4``); output in x's dtype.
+
+    bf16 activations take the tensor cores where :func:`mma_route_takes`
+    admits the shape. f32 activations, and the shapes it does not admit,
+    take the CUDA-core kernel (``qmm_float_kernel``): on the tensor cores an
+    f32 activation would be rounded to bf16, while the CUDA-core kernel's
+    f32 instantiation is the exact f32 function. Both routes are kernels;
+    nothing here falls back to the plain version."""
     name = "quantized_matmul"
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: x must be bfloat16 or float32, not {x.dtype}")
@@ -152,13 +267,12 @@ def quantized_matmul_cuda(
     N = _check(name, (x, qweight, scales), qweight, scales, bits=bits,
                group_size=group_size, M=M, K=K)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    vec, ks, rsplit, gps, ws = _geometry(M, N, K, group_size, qweight, out)
-    kernel = QMM_I8 if bits == 8 else QMM_I4
-    kernel(
+    launch = qmm_launch(x, qweight, scales, bits=bits, group_size=group_size)
+    ws = _workspace(launch.workspace, x.device)
+    launch.kernel(
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None,
-        M, N, K, group_size, int(x.dtype == torch.bfloat16), vec, ks, rsplit, gps,
-        cuda_lib.current_stream_handle(x.device),
+        M, N, K, group_size, *launch.geometry, cuda_lib.current_stream_handle(x.device),
     )
     return out
 
@@ -191,7 +305,8 @@ def w8a8_matmul_cuda(
     N = _check(name, (xq, qweight, scales, act), qweight, scales, bits=bits,
                group_size=group_size, M=M, K=K)
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    vec, ks, rsplit, gps, ws = _geometry(M, N, K, group_size, qweight, out)
+    vec, ks, rsplit, gps, splits = _cuda_core_geometry(M, N, K // group_size, qweight)
+    ws = _workspace((splits, M, N) if splits > 1 else None, xq.device)
     QMM_W8A8(
         xq.data_ptr(), qweight.data_ptr(), scales.data_ptr(), act.data_ptr(),
         out.data_ptr(), ws.data_ptr() if ws is not None else None,

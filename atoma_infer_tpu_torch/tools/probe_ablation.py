@@ -47,9 +47,10 @@ ROWS = (probe.M, 16)
 
 def build(name: str) -> ctypes.CDLL:
     """One variant's library under ``csrc/build/``, named by a hash of the
-    source and the flags."""
+    source, the shared header it includes and the flags."""
     flags = list(cuda_lib.NVCC_FLAGS) + list(VARIANTS[name])
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    text = SOURCE.read_bytes() + (cuda_lib.CSRC_DIR / "mma_sm90.cuh").read_bytes()
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:12]
     out = cuda_lib.BUILD_DIR / f"libw8a8_probe_{name}-{digest}.so"
     if not out.exists():
         cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -14,12 +14,20 @@ raises on failure; nothing is caught):
    attention shapes (Hq=32, Hk=8, D=64, block 16) with a mixed
    prefill+decode batch and a pure-decode batch: the KV write bit-exact, the
    attention kernels within the tolerances below (plus one case each with a
-   sliding window, a soft cap and ALiBi). Quantized matmuls: a sweep at
-   small sizes (8/4-bit weights × group 128 and one group × bf16/f32 × M in
-   1, 8, 64, 300, plus ragged N), W8A8's integer dots checked exact,
-   ``quantize_weight`` on the card byte-identical to the CPU, then the
-   Llama-3.1-8B projection and LM-head shapes at decode (M = 8, 64) and one
-   prefill chunk (M = 256). INT8 and e4m3 KV caches (kernels D, E and their
+   sliding window, a soft cap and ALiBi); the KV writes timed in CUDA
+   graphs beside ``index_copy_`` (their eager, host-inclusive times on an
+   earlier line). Quantized matmuls: a sweep at small sizes (8/4-bit
+   weights × group 128 and one group × bf16/f32 × M in 1, 8, 64, 300, plus
+   ragged N; F and G on their route and on the CUDA cores), W8A8's integer
+   dots checked exact, F and G's tensor-core route over groups of 32, 64,
+   128 and one × M from 1 to 300 × N in 72, 144, 200, 2048, 14336 (each
+   call's route checked by the launch counters; misaligned and f32 inputs
+   on the CUDA cores), ``quantize_weight`` on the card byte-identical to
+   the CPU, then the Llama-3.1-8B projection and LM-head shapes at decode
+   (M = 8, 64) and one prefill chunk (M = 256), F and G on both routes, and
+   the CUDA-core route on its own traffic (f32, ``tiny_trained``'s gate
+   projection, 8 rows).
+   INT8 and e4m3 KV caches (kernels D, E and their
    writes): every instantiation at small sizes on a mixed and a decode
    batch, then the Llama-3.1-8B attention shapes (Hq=32, Hk=8, D=128, block
    16); the writes and the fused kernels' caches and scales bit-exact, the
@@ -37,8 +45,11 @@ raises on failure; nothing is caught):
    same f32 weights on the CPU (plain versions). Then services on the card
    against the same on the CPU, greedy tokens identical: the tiny random
    model with a pool tight enough that groups are swapped out and back,
-   ``tiny_trained`` quantized to INT8 on load, and ``tiny_trained`` over an
+   ``tiny_trained`` quantized to INT8 and to INT4 on load, and ``tiny_trained`` over an
    INT8 KV cache (INT8 weights) and an e4m3 one, swapped out and back.
+   ``tiny_trained`` is served in f32, so its quantized services (INT8 and
+   INT4) are F and G's CUDA-core route: their launches in the kernels line
+   come from those runs, their times from that model's shape (phase 2).
    Then the quality ladder on ``tiny_trained`` in f32 at reduced sizes on
    the card against the CPU: greedy agreements identical, drifts within
    ``LADDER_CARD_TOL``.
@@ -411,14 +422,23 @@ def check_kernels(torch):
             flat = cache.view(-1, cache.shape[-1])
             n = mixed["rows"]
             c_bytes = n * 2 * (2 * HK * D * elt) + m.slot_mapping.numel() * 4
+
+            def write():
+                kv_write.write_kv_cache_cuda(cache, mixed["k"], mixed["v"], m.slot_mapping)
+
+            def copy():
+                flat.index_copy_(0, slots, fused_rows)
+
+            log(f"reshape_and_cache: eager, host-inclusive {cuda_ms(write):.4f} ms "
+                f"(index_copy_ {cuda_ms(copy):.4f} ms)")
+            # The kernel and index_copy_ in CUDA graphs (device time); the
+            # plain version selects rows by a boolean mask, which waits on
+            # the host, so it cannot be captured and is timed eagerly.
             rows["reshape_and_cache"] = dict(
-                max_abs_err=0.0,
-                ms=cuda_ms(lambda: kv_write.write_kv_cache_cuda(
-                    cache, mixed["k"], mixed["v"], m.slot_mapping)),
+                max_abs_err=0.0, ms=graph_ms(torch, write),
                 plain_ms=cuda_ms(lambda: kv_write.write_kv_cache_plain(
                     cache, mixed["k"], mixed["v"], m.slot_mapping)),
-                library_ms=cuda_ms(lambda: flat.index_copy_(0, slots, fused_rows)),
-                bytes=c_bytes, flops=0,
+                library_ms=graph_ms(torch, copy), bytes=c_bytes, flops=0,
             )
 
         # A: ragged paged attention on the mixed batch.
@@ -626,10 +646,13 @@ def check_kv8_kernels(torch):
         log(f"reshape_and_cache_{kv} 8B: bit-exact on {n} rows; ragged_paged_attention_{kv} "
             f"8B mixed: max |err| {err:.3e} (tol {tol})")
         row_in, row_out = 2 * 8 * 128 * 2, 2 * 8 * 128 + extra
+
+        def write(cache=cache, scales=scales):
+            kv8_write(cache, scales, mixed["k"], mixed["v"], m.slot_mapping, cuda=True)
+
+        log(f"reshape_and_cache_{kv} 8B: eager, host-inclusive {cuda_ms(write):.4f} ms")
         rows[f"reshape_and_cache_{kv}"] = dict(
-            max_abs_err=0.0,
-            ms=cuda_ms(lambda: kv8_write(cache, scales, mixed["k"], mixed["v"],
-                                         m.slot_mapping, cuda=True)),
+            max_abs_err=0.0, ms=graph_ms(torch, write),  # device time, as C's
             plain_ms=cuda_ms(lambda: kv8_write(cache, scales, mixed["k"], mixed["v"],
                                                m.slot_mapping, cuda=False)),
             library_ms=None, bytes=n * (row_in + row_out) + m.slot_mapping.numel() * 4, flops=0,
@@ -787,12 +810,16 @@ def check_quant_variants(torch):
                     label = f"{bits}-bit K={K} N={N} group={group} {dtype_name} M={M}"
                     x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
                     xq, act = qk.quantize_activations(x)
+                    want = qk.quantized_matmul_plain(x, qt.qweight, qt.scales, bits=bits,
+                                                     group_size=group)
                     pairs = {
                         "weight-only": (
                             qk.quantized_matmul_cuda(x, qt.qweight, qt.scales, bits=bits,
-                                                     group_size=group),
-                            qk.quantized_matmul_plain(x, qt.qweight, qt.scales, bits=bits,
-                                                      group_size=group)),
+                                                     group_size=group), want),
+                        # The CUDA-core kernel on every shape, whatever the route.
+                        "weight-only CUDA cores": (
+                            cuda_core_matmul(torch, x, qt.qweight, qt.scales, bits=bits,
+                                             group=group), want),
                         "w8a8": (
                             qk.w8a8_matmul_cuda(xq, qt.qweight, qt.scales, act, bits=bits,
                                                 group_size=group, out_dtype=dtype),
@@ -819,8 +846,9 @@ def check_quant_variants(torch):
     for (kind, bits, dtype_name), rel in sorted(worst.items()):
         log(f"quantized matmul {kind} {bits}-bit {dtype_name}: worst rel err {rel:.3e} "
             f"(tol {QMM_TOL[dtype_name]})")
-    log(f"quantized matmul variants: {cases} cases × 2 kernels agree; W8A8 group dots "
+    log(f"quantized matmul variants: {cases} cases × 3 kernels agree; W8A8 group dots "
         f"exact in {exact} cases")
+    check_mma_route(torch)
 
     cpu_gen = torch.Generator().manual_seed(12)
     for shape, bits, group in (((4096, 4096), 8, 128), ((4096, 4096), 4, 128),
@@ -835,11 +863,124 @@ def check_quant_variants(torch):
     log("quantize_weight: byte-identical on the card and the CPU (4 shapes)")
 
 
-def qmm_work(M, K, N, group, *, bits, x_bytes, w8a8=False):
+def cuda_core_matmul(torch, x, qweight, scales, *, bits, group):
+    """F or G on the CUDA cores (``qmm_float_kernel``) by a direct launch,
+    with the geometry ``quantized_matmul_cuda`` gives that route, whatever
+    route the call's shape would take there."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.ops import quant_kernels as qk
+
+    M, K = x.shape
+    N = qweight.shape[1]
+    vec, ks, rsplit, gps, splits = qk._cuda_core_geometry(M, N, K // group, qweight)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    (qk.QMM_I8 if bits == 8 else qk.QMM_I4)(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, M, N, K, group,
+        int(x.dtype == torch.bfloat16), vec, ks, rsplit, gps,
+        cuda_lib.current_stream_handle(x.device))
+    return out
+
+
+def routed(bits, fn):
+    """Run ``fn``; returns (its result, the one F or G kernel it launched)."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+
+    names = [f"quantized_matmul_int{bits}", f"quantized_matmul_int{bits}_mma"]
+    before = {k: cuda_lib.KERNELS[k].launches for k in names}
+    out = fn()
+    launched = [k for k in names if cuda_lib.KERNELS[k].launches > before[k]]
+    if len(launched) != 1:
+        raise AssertionError(f"quantized matmul: launched {launched}")
+    return out, launched[0]
+
+
+# The tensor-core route's grid at small sizes: K = 512 in groups of 16, 32,
+# 64, 128 and one group; M across one, two and several m16 tiles and blocks
+# of 16 to 128 rows; N = 144 ends on a partial column block, 72 and 200 are
+# no multiple of 16 and take the CUDA cores, as do INT4 groups of 16 (half a
+# k16 step of packed rows).
+MMA_GROUPS = (16, 32, 64, 128, 512)
+MMA_ROWS = (1, 8, 15, 16, 17, 64, 255, 256, 300)
+MMA_COLS = (72, 144, 200, 2048, 14336)
+
+
+def check_mma_route(torch):
+    """F and G's routes against their plain versions within
+    ``QMM_TOL["bfloat16"]``: bf16 activations over the grid above, each call
+    shown by the launch counters to take the route the shape asks for; then
+    misaligned weights, activations and scales and f32 activations, each
+    shown to take the CUDA cores."""
+    from atoma_infer_tpu_torch.ops import quant
+    from atoma_infer_tpu_torch.ops import quant_kernels as qk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    K = 512
+    worst, cases = {}, 0
+    for bits in (8, 4):
+        w = torch.randn(K, max(MMA_COLS), generator=gen, device=dev) * 0.05
+        for group in MMA_GROUPS:
+            for N in MMA_COLS:
+                qt = quant.quantize_weight(w[:, :N].contiguous(), bits, group)
+                for M in MMA_ROWS:
+                    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+                    got, kernel = routed(bits, lambda: qk.quantized_matmul_cuda(
+                        x, qt.qweight, qt.scales, bits=bits, group_size=group))
+                    label = f"{bits}-bit group={group} N={N} M={M}"
+                    takes_mma = N % 16 == 0 and group % (16 if bits == 8 else 32) == 0
+                    if kernel.endswith("_mma") != takes_mma:
+                        raise AssertionError(f"quantized matmul {label} took {kernel}")
+                    rel, _ = rel_err(got, qk.quantized_matmul_plain(
+                        x, qt.qweight, qt.scales, bits=bits, group_size=group))
+                    if got.dtype != torch.bfloat16 or got.shape != (M, N) or not (
+                            rel <= QMM_TOL["bfloat16"]):
+                        raise AssertionError(f"{kernel} {label}: rel err {rel:.3e}")
+                    worst[kernel] = max(worst.get(kernel, 0.0), rel)
+                    cases += 1
+    for kernel, rel in sorted(worst.items()):
+        log(f"{kernel}: worst rel err {rel:.3e} over the route grid (tol "
+            f"{QMM_TOL['bfloat16']})")
+    log(f"quantized matmul route grid: {cases} cases agree, each on the route its shape asks for")
+
+    # Off 16-byte alignment (a view 8 bytes into a larger tensor) and f32
+    # activations: the CUDA cores, and the same numbers.
+    M, N, group = 8, 2048, 128
+    w = torch.randn(K, N, generator=gen, device=dev) * 0.05
+    for bits in (8, 4):
+        qt = quant.quantize_weight(w, bits, group)
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+
+        def shifted(t):
+            step = 8 // t.element_size()
+            buf = torch.empty(t.numel() + step, dtype=t.dtype, device=dev)
+            view = buf[step:].view(t.shape)
+            view.copy_(t)
+            return view
+
+        for what, (xx, q, sc) in {
+            "misaligned weight": (x, shifted(qt.qweight), qt.scales),
+            "misaligned activations": (shifted(x), qt.qweight, qt.scales),
+            "misaligned scales": (x, qt.qweight, shifted(qt.scales)),
+            "f32 activations": (x.float(), qt.qweight, qt.scales),
+        }.items():
+            got, kernel = routed(bits, lambda: qk.quantized_matmul_cuda(
+                xx, q, sc, bits=bits, group_size=group))
+            rel, _ = rel_err(got, qk.quantized_matmul_plain(xx, q, sc, bits=bits,
+                                                            group_size=group))
+            tol = QMM_TOL["float32" if xx.dtype == torch.float32 else "bfloat16"]
+            if kernel.endswith("_mma") or not rel <= tol:
+                raise AssertionError(f"{bits}-bit {what}: {kernel}, rel err {rel:.3e}")
+            log(f"{bits}-bit {what}: {kernel}, rel err {rel:.3e} (tol {tol})")
+
+
+def qmm_work(M, K, N, group, *, bits, x_bytes, w8a8=False, out_bytes=2):
     """(bytes, flops) of one quantized matmul: weights, scales, activations
-    (plus per-token scales for W8A8) read once, a bf16 output written once;
-    2·M·K·N operations."""
-    nbytes = K * N * bits // 8 + (K // group) * N * 2 + M * K * x_bytes + M * N * 2
+    (plus per-token scales for W8A8) read once, the output (bf16 unless
+    said) written once; 2·M·K·N operations."""
+    nbytes = K * N * bits // 8 + (K // group) * N * 2 + M * K * x_bytes + M * N * out_bytes
     if w8a8:
         nbytes += M * 4
     return nbytes, 2 * M * K * N
@@ -847,10 +988,14 @@ def qmm_work(M, K, N, group, *, bits, x_bytes, w8a8=False):
 
 def check_quant_kernels(torch):
     """F, G and H at the Llama-3.1-8B shapes, bf16 activations, M = 8 and
-    64 (decode) and 256 (a prefill chunk): each against its plain version,
-    then timed (CUDA graphs; each timed launch reads weights that are not in
-    L2, as in a decode step where every layer's weights are new). Returns
-    the kernels line's rows."""
+    64 (decode) and 256 (a prefill chunk): F and G on both routes (the
+    tensor cores, which these shapes take, and the CUDA cores by a direct
+    launch), each against its plain version, then timed (CUDA graphs; each
+    timed launch reads weights that are not in L2, as in a decode step where
+    every layer's weights are new). Then the CUDA-core route on the traffic
+    that reaches it (:func:`check_cuda_core_rows`). Returns the kernels
+    line's rows: the tensor cores' and H's at the 8B gate projection, M = 8;
+    the CUDA cores' from the f32 service's shape."""
     from atoma_infer_tpu_torch.ops import quant
     from atoma_infer_tpu_torch.ops import quant_kernels as qk
 
@@ -869,14 +1014,19 @@ def check_quant_kernels(torch):
                                                    bits, group)
                              for _ in range(-(-128_000_000 // w_bytes) - 1)]
             dense = [quant.dequantize_weight(c, torch.bfloat16) for c in copies]
-            kinds = [("quantized_matmul_int8" if bits == 8 else "quantized_matmul_int4", False)]
+            iters = max(2, 20 // len(copies))
+            # (kernel, route): the tensor cores, the CUDA cores, W8A8 (H).
+            kinds = [(f"quantized_matmul_int{bits}_mma", "mma"),
+                     (f"quantized_matmul_int{bits}", "cuda_cores")]
             if shape != "lm_head":
-                kinds.append(("quantized_matmul_w8a8", True))
+                kinds.append(("quantized_matmul_w8a8", "w8a8"))
             for M in (8, 64, 256):
                 x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
                 xq, act = qk.quantize_activations(x)
-                for name, w8a8 in kinds:
-                    if w8a8:
+                library_ms = graph_ms(torch, lambda x=x: [torch.mm(x, d) for d in dense],
+                                      iters=iters) / len(copies)
+                for name, route in kinds:
+                    if route == "w8a8":
                         def run(c, xq=xq, act=act):
                             return qk.w8a8_matmul_cuda(xq, c.qweight, c.scales, act, bits=bits,
                                                        group_size=group,
@@ -886,6 +1036,10 @@ def check_quant_kernels(torch):
                             return qk.w8a8_matmul_plain(xq, qt.qweight, qt.scales, act,
                                                         bits=bits, group_size=group,
                                                         out_dtype=torch.bfloat16)
+                    elif route == "cuda_cores":
+                        def run(c, x=x):
+                            return cuda_core_matmul(torch, x, c.qweight, c.scales, bits=bits,
+                                                    group=group)
                     else:
                         def run(c, x=x):
                             return qk.quantized_matmul_cuda(x, c.qweight, c.scales, bits=bits,
@@ -894,32 +1048,86 @@ def check_quant_kernels(torch):
                         def plain(x=x):
                             return qk.quantized_matmul_plain(x, qt.qweight, qt.scales,
                                                              bits=bits, group_size=group)
-                    rel, err = rel_err(run(qt), plain())
+                    got = run(qt)
+                    if route != "w8a8" and routed(bits, lambda: run(qt))[1] != name:
+                        raise AssertionError(f"{name} {shape} M={M}: another route ran")
+                    rel, err = rel_err(got, plain())
                     if not rel <= QMM_TOL["bfloat16"]:
                         raise AssertionError(f"{name} {shape} M={M}: rel err {rel:.3e}")
                     ms = graph_ms(torch, lambda: [run(c) for c in copies],
-                                  iters=max(2, 20 // len(copies))) / len(copies)
+                                  iters=iters) / len(copies)
                     plain_ms = graph_ms(torch, plain, iters=2)
-                    library_ms = None
-                    if not w8a8:
-                        library_ms = graph_ms(
-                            torch, lambda x=x: [torch.mm(x, d) for d in dense],
-                            iters=max(2, 20 // len(copies))) / len(copies)
+                    lib = library_ms if route != "w8a8" else None
                     nbytes, flops = qmm_work(M, K, N, group, bits=bits,
-                                             x_bytes=1 if w8a8 else 2, w8a8=w8a8)
-                    bound_ms, bound_by = bound(nbytes, flops, "int8" if w8a8 else "bfloat16")
-                    lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
-                    log(f"{name} {bits}-bit {shape} K={K} N={N} M={M}: {ms:.4f} ms (plain "
-                        f"{plain_ms:.4f} ms, library {lib}), bound {bound_ms:.4f} ms by "
+                                             x_bytes=1 if route == "w8a8" else 2,
+                                             w8a8=route == "w8a8")
+                    bound_ms, bound_by = bound(nbytes, flops,
+                                               "int8" if route == "w8a8" else "bfloat16")
+                    lib_text = f"{lib:.4f} ms" if lib is not None else "none"
+                    how = " bf16 (direct launch)" if route == "cuda_cores" else ""
+                    log(f"{name}{how} {bits}-bit {shape} K={K} N={N} M={M}: {ms:.4f} ms (plain "
+                        f"{plain_ms:.4f} ms, library {lib_text}), bound {bound_ms:.4f} ms by "
                         f"{bound_by}, max |err| {err:.3e} (rel {rel:.2e})")
                     # The line's W8A8 row is the main path's: INT8 weights.
-                    if (shape, M) == (QMM_LINE_SHAPE, QMM_LINE_M) and not (w8a8 and bits == 4):
+                    # The CUDA cores' row comes from the traffic they serve.
+                    if (shape, M) == (QMM_LINE_SHAPE, QMM_LINE_M) and route != "cuda_cores" and \
+                            not (route == "w8a8" and bits == 4):
                         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                          library_ms=library_ms, bound_ms=bound_ms,
+                                          library_ms=lib, bound_ms=bound_ms,
                                           bound_by=bound_by)
             del copies, dense
         del w
         torch.cuda.empty_cache()
+    rows.update(check_cuda_core_rows(torch))
+    return rows
+
+
+def check_cuda_core_rows(torch):
+    """F and G's CUDA-core route timed on the traffic that reaches it in
+    the smoke: the f32 ``tiny_trained`` services' gate projection (hidden ×
+    intermediate from the fixture's config, groups of 128) at their decode
+    batch of 8 rows, f32 activations through ``quantized_matmul_cuda`` (the
+    launch counters show the route), in CUDA graphs with the weight in L2
+    as the whole model is there; against the plain version and ``torch.mm``
+    on the dequantized f32 weight. Returns their kernels line rows."""
+    from atoma_infer_tpu_torch.ops import quant
+    from atoma_infer_tpu_torch.ops import quant_kernels as qk
+
+    with open(os.path.join(REPO, "tests", "fixtures", "tiny_trained", "config.json")) as f:
+        cfg = json.load(f)
+    K, N, group, M = cfg["hidden_size"], cfg["intermediate_size"], quant.DEFAULT_GROUP_SIZE, 8
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    w = torch.randn(K, N, generator=gen, device=dev) * 0.05
+    x = torch.randn(M, K, generator=gen, device=dev)
+    rows = {}
+    for bits in (8, 4):
+        qt = quant.quantize_weight(w, bits, group)
+        dense = quant.dequantize_weight(qt, torch.float32)
+
+        def run():
+            return qk.quantized_matmul_cuda(x, qt.qweight, qt.scales, bits=bits,
+                                            group_size=group)
+
+        def plain():
+            return qk.quantized_matmul_plain(x, qt.qweight, qt.scales, bits=bits,
+                                             group_size=group)
+
+        got, name = routed(bits, run)
+        if name != f"quantized_matmul_int{bits}":
+            raise AssertionError(f"f32 tiny_trained gate_proj {bits}-bit took {name}")
+        rel, err = rel_err(got, plain())
+        if got.dtype != torch.float32 or not rel <= QMM_TOL["float32"]:
+            raise AssertionError(f"{name} f32 tiny_trained gate_proj: rel err {rel:.3e}")
+        ms, plain_ms = graph_ms(torch, run), graph_ms(torch, plain)
+        library_ms = graph_ms(torch, lambda: torch.mm(x, dense))
+        bound_ms, bound_by = bound(*qmm_work(M, K, N, group, bits=bits, x_bytes=4, out_bytes=4),
+                                   "float32")
+        log(f"{name} f32 {bits}-bit tiny_trained gate_proj K={K} N={N} M={M}: {ms:.4f} ms "
+            f"(plain {plain_ms:.4f} ms, library {library_ms:.4f} ms), bound {bound_ms:.4f} ms "
+            f"by {bound_by}, max |err| {err:.3e} (rel {rel:.2e})")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
     return rows
 
 
@@ -1063,14 +1271,14 @@ def run_tools(torch):
         return report
 
     # F and H for the W8A8 gate, D for the INT8-KV gate, A to H for the
-    # ladder.
+    # ladder (F and G on the tensor cores: bf16 activations).
     runs = (
         ("w8a8_gate", lambda: w8a8_gate.main([]),
-         ("quantized_matmul_int8", "quantized_matmul_w8a8")),
+         ("quantized_matmul_int8_mma", "quantized_matmul_w8a8")),
         ("kv_quant_gate", lambda: kv_quant_gate.main([]), ("fused_decode_attention_int8",)),
         ("quality_ladder", ladder,
          ATTENTION_PATH + kv8_path("int8") + kv8_path("fp8")
-         + ("quantized_matmul_int8", "quantized_matmul_int4", "quantized_matmul_w8a8")),
+         + ("quantized_matmul_int8_mma", "quantized_matmul_int4_mma", "quantized_matmul_w8a8")),
     )
     for name, run, path in runs:
         for kernel in cuda_lib.KERNELS.values():
@@ -1398,9 +1606,12 @@ def check_service_parity(torch):
 
 def check_quant_service_parity(torch):
     """``tiny_trained`` through ``LlmService.start`` from its directory with
-    INT8 quantization on load, on the card (kernel F) against the CPU (plain
-    version), with a pool of 5 blocks so that requests are preempted by
-    recompute: greedy tokens identical, every block back in the pool."""
+    INT8 and then INT4 quantization on load, in f32, on the card (F and G on
+    the CUDA cores: f32 activations) against the CPU (plain versions), with
+    a pool of 5 blocks so that requests are preempted by recompute: greedy
+    tokens identical, every block back in the pool. Returns the CUDA-core
+    kernels' launches, each from its own card run (counts set to 0 just
+    before it)."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
@@ -1412,52 +1623,61 @@ def check_quant_service_parity(torch):
     fixture = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
     prompts = [f"prompt number {i} " * (1 + i % 4) for i in range(6)]
     blocks = 5
-    runs = {}
-    for device in ("cpu", "cuda"):
-        config = EngineConfig(
-            model=ModelConfig(model_name=fixture, dtype="float32", quantization="int8"),
-            cache=CacheConfig(
-                block_size=16, num_device_blocks_override=blocks, num_host_blocks_override=64,
-            ),
-            scheduler=SchedulerConfig(
-                max_num_batched_tokens=256, max_num_sequences=8, max_model_len=256,
-            ),
-            validation=ValidationConfig(max_input_tokens=128, max_total_tokens=256),
-        )
-        service = LlmService.start(config, model_dir=fixture, device=device)
-        preempt0 = metrics.PREEMPTIONS.value
-        launches0 = cuda_lib.KERNELS["quantized_matmul_int8"].launches
+    launches = {}
+    for quantization in ("int8", "int4"):
+        kernel = f"quantized_matmul_{quantization}"
+        runs = {}
+        for device in ("cpu", "cuda"):
+            config = EngineConfig(
+                model=ModelConfig(model_name=fixture, dtype="float32", quantization=quantization),
+                cache=CacheConfig(
+                    block_size=16, num_device_blocks_override=blocks, num_host_blocks_override=64,
+                ),
+                scheduler=SchedulerConfig(
+                    max_num_batched_tokens=256, max_num_sequences=8, max_model_len=256,
+                ),
+                validation=ValidationConfig(max_input_tokens=128, max_total_tokens=256),
+            )
+            service = LlmService.start(config, model_dir=fixture, device=device)
+            preempt0 = metrics.PREEMPTIONS.value
+            for k in cuda_lib.KERNELS.values():
+                k.launches = 0
 
-        async def drive(service=service):
-            task = asyncio.create_task(service.engine.run())
-            futs = [
-                await service.handle_request(GenerateRequest(
-                    request_id=f"quant-parity-{i}", inputs=prompt,
-                    parameters=GenerateParameters(max_new_tokens=16),
-                ))
-                for i, prompt in enumerate(prompts)
-            ]
-            results = await asyncio.wait_for(asyncio.gather(*futs), timeout=300)
-            service.stop()
-            task.cancel()
-            return results
+            async def drive(service=service):
+                task = asyncio.create_task(service.engine.run())
+                futs = [
+                    await service.handle_request(GenerateRequest(
+                        request_id=f"quant-parity-{i}", inputs=prompt,
+                        parameters=GenerateParameters(max_new_tokens=16),
+                    ))
+                    for i, prompt in enumerate(prompts)
+                ]
+                results = await asyncio.wait_for(asyncio.gather(*futs), timeout=300)
+                service.stop()
+                task.cancel()
+                return results
 
-        results = asyncio.run(drive())
-        free = service.engine.scheduler.block_manager.get_num_free_device_blocks()
-        if free != blocks:
-            raise AssertionError(f"quantized service parity ({device}): "
-                                 f"{blocks - free} blocks leaked")
-        if metrics.PREEMPTIONS.value == preempt0:
-            raise AssertionError(f"quantized service parity ({device}): no preemption")
-        launched = cuda_lib.KERNELS["quantized_matmul_int8"].launches - launches0
-        if (device == "cuda") != (launched > 0):
-            raise AssertionError(f"quantized service parity ({device}): {launched} launches")
-        runs[device] = [tuple(r.outputs[0].token_ids) for r in results]
-    if runs["cuda"] != runs["cpu"]:
-        raise AssertionError("quantized service parity: greedy tokens differ between card and CPU")
-    n = sum(len(t) for t in runs["cuda"])
-    log(f"quantized service parity: tiny_trained INT8, {len(prompts)} requests, {n} greedy "
-        f"tokens identical on the card and the CPU, with preemption by recompute on both")
+            results = asyncio.run(drive())
+            launched = cuda_lib.KERNELS[kernel].launches
+            label = f"quantized service parity {quantization} ({device})"
+            free = service.engine.scheduler.block_manager.get_num_free_device_blocks()
+            if free != blocks:
+                raise AssertionError(f"{label}: {blocks - free} blocks leaked")
+            if metrics.PREEMPTIONS.value == preempt0:
+                raise AssertionError(f"{label}: no preemption")
+            if (device == "cuda") != (launched > 0):
+                raise AssertionError(f"{label}: {launched} launches of {kernel}")
+            if device == "cuda":
+                launches[kernel] = launched
+            runs[device] = [tuple(r.outputs[0].token_ids) for r in results]
+        if runs["cuda"] != runs["cpu"]:
+            raise AssertionError(f"quantized service parity {quantization}: greedy tokens "
+                                 "differ between card and CPU")
+        n = sum(len(t) for t in runs["cuda"])
+        log(f"quantized service parity: tiny_trained {quantization.upper()} f32, {len(prompts)} "
+            f"requests, {n} greedy tokens identical on the card and the CPU, with preemption "
+            f"by recompute on both; {kernel} launched {launches[kernel]} times")
+    return launches
 
 
 def kv8_path(kv):
@@ -1656,9 +1876,12 @@ def serve(torch, label, model, params, config, path):
             f"max {ms[-1]:.2f} ms over {len(ms)} steps")
     if profiled.get("kernels"):
         top = ", ".join(f"{name[:48]} {t:.3f}" for name, t in profiled["kernels"][:6])
+        # The quantized linears' share: kernels F, G, H and their K-split sums.
+        qmm = sum(t for name, t in profiled["kernels"]
+                  if "qmm_" in name or "split_reduce" in name)
         log(f"service {label}: profiled pure-decode step ({profiled['seqs']} seqs): device "
             f"busy {profiled['busy_ms']:.3f} ms of {profiled['wall_ms']:.2f} ms wall under "
-            f"the profiler; top device time (ms): {top}")
+            f"the profiler, quantized matmuls {qmm:.3f} ms; top device time (ms): {top}")
     else:
         log(f"service {label}: device time of a decode step not measured (the profiler "
             "recorded no device events)")
@@ -1767,9 +1990,10 @@ def run_quant_services(torch):
         )
 
     launches = {}
+    # bf16 activations at these shapes take F and G's tensor-core route.
     runs = (
-        ("8B INT8", "int8", False, "quantized_matmul_int8"),
-        ("8B INT4", "int4", False, "quantized_matmul_int4"),
+        ("8B INT8", "int8", False, "quantized_matmul_int8_mma"),
+        ("8B INT4", "int4", False, "quantized_matmul_int4_mma"),
         ("8B INT8 W8A8", "int8", True, "quantized_matmul_w8a8"),
     )
     for label, quantization, w8a8, kernel in runs:
@@ -1777,7 +2001,7 @@ def run_quant_services(torch):
         quant_kernels._W8A8 = w8a8
         try:
             # The LM head is INT8 per channel and weight-only in all three.
-            path = ATTENTION_PATH + (kernel, "quantized_matmul_int8")
+            path = ATTENTION_PATH + (kernel, "quantized_matmul_int8_mma")
             counts = serve(torch, label, model, params[quantization], config(quantization), path)
         finally:
             quant_kernels._W8A8 = saved
@@ -1792,7 +2016,7 @@ def run_quant_services(torch):
                       ("fp8", dict(num_device_blocks_override=2048))):
         cfg = config("int8", kv, **cache)
         label = f"8B INT8 + {kv.upper()} KV"
-        path = kv8_path(kv) + ("quantized_matmul_int8",)
+        path = kv8_path(kv) + ("quantized_matmul_int8_mma",)
         counts = serve(torch, label, model, params["int8"], cfg, path)
         per_block = cfg.cache.block_bytes(
             model.config.num_layers, model.config.num_kv_heads, model.config.head_dim, 1,
@@ -1845,7 +2069,7 @@ def main() -> int:
     phase(check_quant_model)
     phase(check_kv8_model)
     phase(check_service_parity)
-    phase(check_quant_service_parity)
+    launches_cuda_cores = phase(check_quant_service_parity)
     phase(check_kv8_service_parity)
     phase(check_ladder_parity)
     # The profiler's first start sets up device tracing, which takes
@@ -1861,6 +2085,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase(run_probe))
+    launches.update(launches_cuda_cores)
     phase(run_tools)
 
     line = []

@@ -133,7 +133,10 @@ def test_kernels_are_registered_from_their_source():
     for symbol in ("atoma_probe_mixed", "atoma_probe_int8"):
         assert f'extern "C" int {symbol}(' in source
     # The product runs on the tensor cores: int8 and bf16 mma.sync, fed by
-    # a cp.async ring and ldmatrix.
+    # a cp.async ring and ldmatrix (device helpers shared with F and G's
+    # tensor-core route in the header the source includes).
+    assert '#include "mma_sm90.cuh"' in source
+    source += (cuda_lib.CSRC_DIR / "mma_sm90.cuh").read_text()
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in source
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in source
     assert "cp.async.cg.shared.global" in source and "ldmatrix.sync.aligned" in source
