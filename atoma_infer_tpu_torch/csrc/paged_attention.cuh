@@ -22,10 +22,13 @@
 // plain version's order: dot * scale, then soft cap, then the ALiBi bias, then
 // the mask; f32 online softmax (running max, sum, accumulator).
 //
-// Bound: bytes. A decode step does ~2 flops per cache byte read, a mixed step
-// a few times more; both sit far below the H100's 295 flops/byte balance
-// point, so the floor is the K/V bytes over 3.35 TB/s, and a 1-byte cache
-// halves it. What the designs do about it:
+// Bound: a decode row does ~2 flops per cache byte read, far below the
+// H100's 295 flops/byte balance point, so the fused kernel's floor is the
+// K/V bytes over 3.35 TB/s (a 1-byte cache halves it); a prefill chunk reuses
+// each key for a whole query tile and is bound by operations. bf16 queries
+// take the tensor-core ragged kernel of paged_attention_mma.cuh (mma.sync,
+// a cp.async page ring, split-KV across blocks); rpa_kernel here is the f32
+// queries' route. What the designs here do:
 //  * A stages a tile of gcd(block_size, 32) keys of one page, its kv head's
 //    K and V, in shared memory (widened to f32 once; INT8 multiplied by its
 //    slot's scale there, which is exact and is the plain version's
@@ -44,8 +47,8 @@
 // The page loops stop at the last position a tile can see: block_tables rows
 // hold garbage past a sequence's length.
 //
-// Not done yet (later work): tensor-core MMA, TMA/cp.async double buffering,
-// split-KV across blocks for occupancy on long contexts.
+// Not done yet (later work): B on the tensor cores with split-KV across
+// blocks (the ragged kernel's split and combine).
 
 #pragma once
 

@@ -1,8 +1,12 @@
 // Kernel D: A and B over an INT8 KV cache with one bf16 scale per (slot,
 // K/V) (ragged_paged_attention_pallas(kv_scales=...) and
 // ragged_paged_attention_fused_quant, atoma_infer_tpu/ops/paged_attention.py
-// :1058,1132). The kernels and their notes are in paged_attention.cuh.
+// :1058,1132). The kernels and their notes are in paged_attention.cuh; for
+// bf16 queries the ragged kernel is the tensor-core one of
+// paged_attention_mma.cuh.
 
 #include "paged_attention.cuh"
+#include "paged_attention_mma.cuh"
 
 ATOMA_PAGED_ATTENTION_ENTRIES(_int8, atoma::Int8Cache)
+ATOMA_RPA_MMA_ENTRIES(_int8, int8_t)

@@ -1,0 +1,636 @@
+// Kernels A, D and E for bf16 queries on the tensor cores: ragged paged
+// attention over a bf16, INT8 (+ per-slot scales) or e4m3 cache, the same
+// function as rpa_kernel (paged_attention.cuh) and as the plain version
+// (ops/paged_attention.py: ragged_paged_attention_paged_plain).
+//
+// Replaces the TPU kernel atoma_infer_tpu/ops/paged_attention.py:_kernel
+// (:139) with fuse_write=False, reached through ragged_paged_attention_pallas
+// (:1058); quant=True (INT8, scale_rows :409) and fp8=True (_e4m3_decode
+// :66-85) on the 1-byte caches. Its numerics are the TPU kernel's
+// (attend_chunk_fused :435-508): bf16 dots with f32 sums for Q·Kᵀ and P·V,
+// raw 1-byte K and V widened to bf16 before the dots (exact for int8 and
+// e4m3), an INT8 score multiplied by its key's slot scale, l summed before
+// the V scale, and P times V's slot scale rounded to bf16 for P·V.
+//
+// Bound. A decode row reads its keys once for 4·D flops a (query head, key):
+// far below the H100's 295 flops a byte, so bytes. A prefill chunk reuses
+// every key for up to 128 query rows of a block: at the 8B shapes a
+// 256-token chunk over 2,048 keys does ≈ 8 GFLOP on 8 MB, operations. The
+// design:
+//  * One block per (query tile, kv head, KV split). The query tile packs
+//    (token, q head of the group) rows token-major into m16 row tiles, one a
+//    warp: 16·NW rows (64 or 128), 16·NW / G tokens; the host picks NW from
+//    (G, max_q_len). Padding rows compute but never store. The query tiles
+//    of all sequences are laid end to end on grid x (sequence s starts at
+//    query_start_loc[s] / tokens + s), so a batch of one long chunk and many
+//    decode rows launches no grid of empty tiles.
+//  * S = Q·Kᵀ and O += P·V on mma.sync m16n8k16 bf16 with f32 sums
+//    (rpa_warp_step). Q's A fragments stay in registers for the whole key
+//    loop; S and O stay in registers in the accumulator layout; the online
+//    softmax (running max, sum, rescale) works on the S fragments, rows
+//    reduced over the lane quad by shuffles, in f32 (exponentials by the
+//    special-function unit's ex2); P is rounded to bf16 as the A fragments
+//    of P·V. K's B fragments by ldmatrix, V's by ldmatrix.trans.
+//  * Keys come in tiles of kRpaKT = 64 (any block size that is a multiple of
+//    8; a tile may span pages), gathered slot by slot through the block
+//    table into a kRpaStages-deep cp.async ring in shared memory, each
+//    (slot, kv head) K|V slice copied in 16-byte pieces, rows padded by 16
+//    bytes so ldmatrix meets no bank conflict. A tile's slots are read
+//    from the block table two key tiles before its copies are issued. Keys
+//    outside the rows' range are zero-filled.
+//  * 1-byte caches stage raw bytes (half the ring and the bytes read). All
+//    the block's threads widen each landed tile once into a bf16 tile
+//    (widen2: int8 by widen_pair, a prmt, two lop3 and one bf16x2 fma;
+//    e4m3 by the card's e4m3x2 → f16x2 conversion, then to bf16; both
+//    exact), which the bf16 path reads. Widening inside each
+//    warp's fragment loads instead cost a lone warp 3.6-4.3 µs a key tile
+//    against bf16's 1.7 µs on an H100 (tools/rpa_ablation.py), and every
+//    warp of a prefill tile repeated it.
+//  * Split-KV across blocks for long rows: the host picks an upper bound on
+//    splits from shapes alone (ops/paged_attention.py: rpa_mma_plan); a block
+//    takes min(splits, ceil(its key tiles / min_tiles)) splits of its own key
+//    range, so short rows stay whole. A block of a row cut in several splits
+//    stores its unnormalized O and (m, l) in an f32 workspace, and
+//    rpa_combine_kernel merges them by log-sum-exp in split order (no
+//    atomics: deterministic); a split past its row's key tiles exits at
+//    once. A row with no visible key gives 0. No host sync: the launch is
+//    CUDA-graph capturable.
+// Score order, as rpa_kernel's: dot (× the INT8 key scale) × scale, soft
+// cap, ALiBi slope × (kpos − qpos), then the causal / sliding-window mask.
+
+#pragma once
+
+#include "mma_sm90.cuh"
+#include "paged_attention.cuh"
+
+namespace atoma {
+
+constexpr int kRpaKT = 64;     // keys a tile
+constexpr int kRpaStages = 3;  // tiles in the cp.async ring
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Bytes j and j + 1 (j = 0 or 2) of a word as a bf16 pair, byte j in the
+// low half.
+template <typename C>
+__device__ __forceinline__ uint32_t widen2(uint32_t w, int j);
+
+// int8: widen_pair on byte j of w and of w >> 8 (exact).
+template <>
+__device__ __forceinline__ uint32_t widen2<int8_t>(uint32_t w, int j) {
+  return widen_pair(w, w >> 8, j);
+}
+
+// e4m3: the card's e4m3x2 → f16x2, then each half to bf16 (exact: every
+// e4m3 value is a bf16 value).
+template <>
+__device__ __forceinline__ uint32_t widen2<__nv_fp8_e4m3>(uint32_t w, int j) {
+  const __nv_fp8x2_storage_t two = (__nv_fp8x2_storage_t)(w >> (8 * j));
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3);
+  const float2 f = __half22float2(__half2(h));
+  const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the special-function unit (2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                       uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c),
+               "r"(d));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// The key tiles a query tile sees: [t_lo, t_lo + n_tiles), from the
+// window's first key to the tile's last query position.
+__device__ __forceinline__ void rpa_tile_keys(int first_pos, int last_pos, int window,
+                                              int& t_lo, int& n_tiles) {
+  const int lo = window > 0 ? max(0, first_pos - window + 1) : 0;
+  t_lo = lo / kRpaKT;
+  n_tiles = last_pos / kRpaKT + 1 - t_lo;
+}
+
+// The splits a query tile's keys take: at most ``splits``, at least
+// ``min_tiles`` key tiles each (one split for a short row).
+__device__ __forceinline__ int rpa_split_count(int n_tiles, int splits, int min_tiles) {
+  return max(1, min(splits, (n_tiles + min_tiles - 1) / min_tiles));
+}
+
+template <typename C, int D, int NW>
+struct RpaTile {
+  static constexpr int kThreads = NW * 32;
+  static constexpr bool kBytes = sizeof(C) == 1;
+  static constexpr int kRawRow = D * (int)sizeof(C) + 16;  // padded ring row, bytes
+  static constexpr int kRow = 2 * D + 16;                  // padded bf16 row, bytes
+  static constexpr int kChunks = D * (int)sizeof(C) / 16;  // 16-byte pieces of a K (or V) row
+  static constexpr int kStageBytes = 2 * kRpaKT * kRawRow;  // K rows, then V rows
+  static constexpr int kWideBytes = kBytes ? 2 * kRpaKT * kRow : 0;
+  static constexpr int kScaleBytes = kScaled<C> ? kRpaStages * kRpaKT * 4 : 0;
+  static constexpr int kSmem =
+      kRpaStages * kStageBytes + kWideBytes + kScaleBytes + (kRpaStages + 1) * kRpaKT * 4;
+};
+
+// One warp's work on a key tile: kRpaKT keys whose bf16 K and V rows start
+// at shared addresses ks and vs, rows row_bytes apart, the first at position
+// kpos0; their INT8 scale pairs at sc. Updates the warp's running (m, l, O)
+// for its two rows a lane.
+template <int D, bool SCALED>
+__device__ __forceinline__ void rpa_warp_step(
+    const uint32_t (&qf)[D / 16][4], uint32_t ks, uint32_t vs, int row_bytes, uint32_t sc,
+    int kpos0, const int (&qpos)[2], const float (&slope)[2], bool alibi, bool masked,
+    float scale, int window, float soft_cap, float (&o)[D / 8][4], float (&m)[2],
+    float (&l)[2]) {
+  constexpr int NK = kRpaKT;
+  const int lane = threadIdx.x % 32, c4 = lane % 4;
+  // S = Q·Kᵀ: n tile j holds keys 8j .. 8j+7; lane (g8, c4) holds keys
+  // 8j + 2c4 + {0, 1} of rows g8 (e = 0, 1) and g8 + 8 (e = 2, 3).
+  float s[NK / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int p = 0; p < NK / 16; ++p) {
+      uint32_t b[4];
+      ldmatrix_x4(b, ks + (16 * p + (lane / 16) * 8 + lane % 8) * row_bytes +
+                         (kk * 16 + ((lane / 8) % 2) * 8) * 2);
+      if (kk == 0) {
+        mma_bf16_fresh(s[2 * p], qf[kk], b[0], b[1]);
+        mma_bf16_fresh(s[2 * p + 1], qf[kk], b[2], b[3]);
+      } else {
+        mma_bf16(s[2 * p], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * p + 1], qf[kk], b[2], b[3]);
+      }
+    }
+  }
+  // Scores in the plain version's order, each modifier a uniform pass.
+  float vsc[NK / 8][2];
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float ksc = 1.f;
+      vsc[j][e] = 1.f;
+      if constexpr (SCALED) {
+        const uint32_t pair = lds32(sc + (j * 8 + 2 * c4 + e) * 4);
+        ksc = __uint_as_float(pair << 16);
+        vsc[j][e] = __uint_as_float(pair & 0xFFFF0000u);
+      }
+      s[j][e] = s[j][e] * ksc * scale;
+      s[j][2 + e] = s[j][2 + e] * ksc * scale;
+    }
+  if (soft_cap > 0.f) {
+    const float inv_cap = 1.f / soft_cap;
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = soft_cap * tanhf(s[j][e] * inv_cap);
+  }
+  if (alibi) {
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] += slope[e >> 1] * (float)(kpos0 + j * 8 + 2 * c4 + (e & 1) - qpos[e >> 1]);
+  }
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = kpos0 + j * 8 + 2 * c4 + (e & 1), qp = qpos[e >> 1];
+        if (kpos > qp || (window > 0 && kpos <= qp - window)) s[j][e] = kNegInf;
+      }
+  }
+  // Online softmax, rows reduced over the lane quad.
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * rr], s[j][2 * rr + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[rr], mx);
+    const float mb = (m_new == kNegInf ? 0.f : m_new) * kLog2e;
+    const float alpha = exp2_approx(m[rr] * kLog2e - mb);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2_approx(fmaf(s[j][2 * rr + e], kLog2e, -mb));
+        sum += p;
+        s[j][2 * rr + e] = p * vsc[j][e];  // INT8: V's scale folds into P
+      }
+    l[rr] = l[rr] * alpha + sum;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][2 * rr] *= alpha;
+      o[n][2 * rr + 1] *= alpha;
+    }
+    m[rr] = m_new;
+  }
+  // O += P·V, k step qq covering keys 16qq .. 16qq+15; P's A fragments are
+  // the score accumulators of n tiles 2qq and 2qq+1, rounded to bf16.
+#pragma unroll
+  for (int qq = 0; qq < NK / 16; ++qq) {
+    const uint32_t a[4] = {pack_bf16(s[2 * qq][0], s[2 * qq][1]),
+                           pack_bf16(s[2 * qq][2], s[2 * qq][3]),
+                           pack_bf16(s[2 * qq + 1][0], s[2 * qq + 1][1]),
+                           pack_bf16(s[2 * qq + 1][2], s[2 * qq + 1][3])};
+#pragma unroll
+    for (int mm = 0; mm < D / 16; ++mm) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vs + (16 * qq + ((lane / 8) % 2) * 8 + lane % 8) * row_bytes +
+                               (16 * mm + (lane / 16) * 8) * 2);
+      mma_bf16(o[2 * mm], a, b[0], b[1]);
+      mma_bf16(o[2 * mm + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <typename C, int D, int NW>
+__global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const C* __restrict__ cache,
+    const __nv_bfloat16* __restrict__ scales, const int* __restrict__ block_tables,
+    const int* __restrict__ seq_lens, const int* __restrict__ query_start_loc,
+    const int* __restrict__ num_seqs, const float* __restrict__ alibi,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
+    int num_tokens, int num_q_heads, int num_kv_heads, int max_pages, int block_size,
+    int group, int splits, int min_tiles, float scale, int window, float soft_cap) {
+  using L = RpaTile<C, D, NW>;
+  constexpr int KT = kRpaKT, ST = kRpaStages, NT = L::kThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int seq_s;
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t wide = ring + ST * L::kStageBytes;
+  const uint32_t sc_base = wide + L::kWideBytes;
+  int* slot_ring = reinterpret_cast<int*>(smem + ST * L::kStageBytes + L::kWideBytes +
+                                          L::kScaleBytes);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, c4 = lane % 4;
+  const int bq = NW * 16 / group;  // tokens a tile
+  const int x = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+
+  // Which sequence's query tile this block is.
+  if (tid == 0) seq_s = -1;
+  __syncthreads();
+  const int n_seqs = num_seqs[0];
+  for (int i = tid; i < n_seqs; i += NT) {
+    const int a = query_start_loc[i], b = query_start_loc[i + 1];
+    if (a / bq + i <= x && x < b / bq + i + 1) seq_s = i;
+  }
+  __syncthreads();
+  const int s = seq_s;
+  if (s < 0) return;
+  const int q_start = query_start_loc[s];
+  const int q_len = query_start_loc[s + 1] - q_start;
+  const int tok0 = (x - (q_start / bq + s)) * bq;
+  if (tok0 >= q_len) return;
+  const int ntok = min(bq, q_len - tok0);
+  const int ctx0 = seq_lens[s] - q_len;
+  const int first_pos = ctx0 + tok0, last_pos = first_pos + ntok - 1;
+  int t_lo, n_tiles;
+  rpa_tile_keys(first_pos, last_pos, window, t_lo, n_tiles);
+  const int nsplit = rpa_split_count(n_tiles, splits, min_tiles);
+  if (split >= nsplit) return;
+  const int tb = t_lo + (int)((long long)n_tiles * split / nsplit);
+  const int te = t_lo + (int)((long long)n_tiles * (split + 1) / nsplit);
+  const int key_lo = window > 0 ? max(0, first_pos - window + 1) : 0;
+  const long long row_stride = 2LL * num_kv_heads * D;
+  const int* bt = block_tables + (long long)s * max_pages;
+
+  auto slot_of = [&](int t) {
+    const int key = t * KT + tid;
+    if (key < key_lo || key > last_pos) return -1;
+    return bt[key / block_size] * block_size + key % block_size;
+  };
+  // Each thread copies one 16-byte piece of a (slot, kv head) K|V slice
+  // for every kPass-th key of a tile.
+  constexpr int kPieces = 2 * L::kChunks, kPass = NT / kPieces;
+  const int part = tid % kPieces, key0 = tid / kPieces;
+  const uint32_t dst0 =
+      (part < L::kChunks ? part * 16 : KT * L::kRawRow + (part - L::kChunks) * 16) +
+      key0 * L::kRawRow;
+  const char* src0 = reinterpret_cast<const char*>(cache + (long long)h * 2 * D) + part * 16;
+  auto issue = [&](int t, int stage) {
+    const int* slots = slot_ring + ((t - tb) % (ST + 1)) * KT;
+#pragma unroll
+    for (int i = 0; i < KT / kPass; ++i) {
+      const int slot = slots[key0 + i * kPass];
+      cp_async16(ring + stage * L::kStageBytes + dst0 + i * kPass * L::kRawRow,
+                 src0 + (long long)max(slot, 0) * row_stride * (long long)sizeof(C), slot >= 0);
+    }
+    if constexpr (kScaled<C>) {
+      if (tid < KT) {
+        const int slot = slots[tid];
+        cp_async4(sc_base + (stage * KT + tid) * 4, scales + 2LL * (slot >= 0 ? slot : 0),
+                  slot >= 0);
+      }
+    }
+  };
+
+  // This lane's two rows, g8 and g8 + 8 of its warp's m16 tile; a warp with
+  // no real row only copies.
+  const int nrows = ntok * group;
+  const int row0 = warp * 16;
+  const bool warp_active = row0 < nrows;
+  int qpos[2];
+  float slope[2];
+  long long orow[2];
+  bool rvalid[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + g8 + rr * 8;
+    const int ti = r / group, gg = r - ti * group;
+    rvalid[rr] = r < nrows;
+    qpos[rr] = first_pos + ti;
+    slope[rr] = (alibi != nullptr && rvalid[rr]) ? alibi[h * group + gg] : 0.f;
+    orow[rr] = (long long)(q_start + tok0 + ti) * num_q_heads + h * group + gg;
+  }
+  // Q's A fragments, in registers for the whole key loop.
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const __nv_bfloat16* qr = q + orow[rr] * D + kk * 16;
+      qf[kk][rr] = rvalid[rr] ? *reinterpret_cast<const uint32_t*>(qr + 2 * c4) : 0u;
+      qf[kk][2 + rr] = rvalid[rr] ? *reinterpret_cast<const uint32_t*>(qr + 8 + 2 * c4) : 0u;
+    }
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // Prologue: the slots of the first ST tiles, then ST - 1 tiles in flight.
+  // A tile's slots are read from the block table two iterations before its
+  // copies are issued, so the load is done by the time it is stored.
+  if (tid < KT) {
+#pragma unroll
+    for (int j = 0; j < ST; ++j)
+      if (tb + j < te) slot_ring[j * KT + tid] = slot_of(tb + j);
+  }
+  int pending = tid < KT && tb + ST < te ? slot_of(tb + ST) : -1;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < ST - 1; ++j) {
+    if (tb + j < te) issue(tb + j, j);
+    cp_async_commit();
+  }
+
+  for (int t = tb; t < te; ++t) {
+    const int it = t - tb, stage = it % ST;
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t + ST - 1 < te) issue(t + ST - 1, (it + ST - 1) % ST);
+    cp_async_commit();
+    if (tid < KT && t + ST < te) slot_ring[((it + ST) % (ST + 1)) * KT + tid] = pending;
+    pending = tid < KT && t + ST + 1 < te ? slot_of(t + ST + 1) : -1;
+
+    uint32_t kv = ring + stage * L::kStageBytes;
+    int row_bytes = L::kRawRow;
+    if constexpr (L::kBytes) {
+      // Widen the tile's raw K and V rows to bf16 once, all threads: int8
+      // and e4m3 are exact in bf16.
+      for (int c = tid; c < 2 * KT * L::kChunks; c += NT) {
+        const int r = c / L::kChunks, piece = c - r * L::kChunks;
+        const uint4 w = lds128(kv + r * L::kRawRow + piece * 16);
+        const uint32_t dst = wide + r * L::kRow + piece * 32;
+        sts128(dst, widen2<C>(w.x, 0), widen2<C>(w.x, 2), widen2<C>(w.y, 0), widen2<C>(w.y, 2));
+        sts128(dst + 16, widen2<C>(w.z, 0), widen2<C>(w.z, 2), widen2<C>(w.w, 0),
+               widen2<C>(w.w, 2));
+      }
+      __syncthreads();
+      kv = wide;
+      row_bytes = L::kRow;
+    }
+    const int kbase = t * KT;
+    // A tile at or before the block's first query, and past its window, is
+    // visible to every row: no mask.
+    const bool masked =
+        !(kbase + KT - 1 <= first_pos && (window <= 0 || kbase > last_pos - window));
+    const uint32_t sc = sc_base + stage * KT * 4;
+    if (warp_active)
+      rpa_warp_step<D, kScaled<C>>(qf, kv, kv + KT * row_bytes, row_bytes, sc, kbase, qpos, slope,
+                                   alibi != nullptr, masked, scale, window, soft_cap, o, m, l);
+  }
+  cp_async_wait<0>();
+  if (!warp_active) return;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (!rvalid[rr]) continue;
+    if (nsplit == 1) {
+      const float inv = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + orow[rr] * D + 8 * n + 2 * c4) =
+            pack_bf16(o[n][2 * rr] * inv, o[n][2 * rr + 1] * inv);
+    } else {  // unnormalized, with (m, l), for rpa_combine_kernel
+      const long long wrow = (long long)split * num_tokens * num_q_heads + orow[rr];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(ws_o + wrow * D + 8 * n + 2 * c4) =
+            make_float2(o[n][2 * rr], o[n][2 * rr + 1]);
+      if (c4 == 0) {
+        ws_ml[2 * wrow] = m[rr];
+        ws_ml[2 * wrow + 1] = l[rr];
+      }
+    }
+  }
+}
+
+// Merges the splits of the rows whose query tile took more than one: one
+// block per (token, kv head), its G·D outputs. Each split's weight is
+// exp(m_i − max m) (0 for a split in which the row saw no key); splits are
+// summed in order.
+template <int D>
+__global__ void __launch_bounds__(128) rpa_combine_kernel(
+    const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
+    __nv_bfloat16* __restrict__ out, const int* __restrict__ seq_lens,
+    const int* __restrict__ query_start_loc, const int* __restrict__ num_seqs,
+    int num_tokens, int num_q_heads, int group, int bq, int splits, int min_tiles,
+    int window) {
+  const int t = blockIdx.x, h = blockIdx.y;
+  const int n = num_seqs[0];
+  if (t >= query_start_loc[n]) return;
+  int lo = 0, hi = n - 1;  // the last sequence starting at or before t
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (query_start_loc[mid] <= t) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const int q_start = query_start_loc[lo];
+  const int q_len = query_start_loc[lo + 1] - q_start;
+  const int tok0 = (t - q_start) / bq * bq;
+  const int first_pos = seq_lens[lo] - q_len + tok0;
+  const int last_pos = first_pos + min(bq, q_len - tok0) - 1;
+  int t_lo, n_tiles;
+  rpa_tile_keys(first_pos, last_pos, window, t_lo, n_tiles);
+  const int nsplit = rpa_split_count(n_tiles, splits, min_tiles);
+  if (nsplit <= 1) return;  // the attention block stored this row itself
+  const long long split_rows = (long long)num_tokens * num_q_heads;
+  for (int i = threadIdx.x; i < group * D; i += blockDim.x) {
+    const int gg = i / D, d = i - gg * D;
+    const long long row = (long long)t * num_q_heads + h * group + gg;
+    float mmax = kNegInf;
+    for (int sp = 0; sp < nsplit; ++sp) mmax = fmaxf(mmax, ws_ml[2 * (sp * split_rows + row)]);
+    float sum = 0.f, acc = 0.f;
+    for (int sp = 0; sp < nsplit; ++sp) {
+      const long long wrow = sp * split_rows + row;
+      const float mi = ws_ml[2 * wrow];
+      const float w = mi == kNegInf ? 0.f : expf(mi - mmax);
+      sum += w * ws_ml[2 * wrow + 1];
+      acc += w * ws_o[wrow * D + d];
+    }
+    out[row * D + d] = __float2bfloat16_rn(sum > 0.f ? acc / sum : 0.f);
+  }
+}
+
+// Above 48 KB of dynamic shared memory a kernel must opt in, once.
+template <typename C, int D, int NW>
+cudaError_t rpa_mma_attributes() {
+  static const cudaError_t err = [] {
+    return cudaFuncSetAttribute(rpa_mma_kernel<C, D, NW>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                RpaTile<C, D, NW>::kSmem);
+  }();
+  return err;
+}
+
+template <typename C, int D, int NW>
+int rpa_mma_blocks_per_sm() {
+  using L = RpaTile<C, D, NW>;
+  if (rpa_mma_attributes<C, D, NW>() != cudaSuccess) return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rpa_mma_kernel<C, D, NW>, L::kThreads,
+                                                    L::kSmem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <typename C, int D, int NW>
+int launch_rpa_mma(const void* q, const void* cache, const void* scales, const int* bt,
+                   const int* sl, const int* qsl, const int* ns, const float* alibi, void* out,
+                   void* ws_o, void* ws_ml, int num_tokens, int num_seq_slots, int hq, int hk,
+                   int max_pages, int block_size, int splits, int min_tiles, float scale,
+                   int window, float soft_cap, cudaStream_t stream) {
+  using L = RpaTile<C, D, NW>;
+  const cudaError_t opt_in = rpa_mma_attributes<C, D, NW>();
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const int group = hq / hk;
+  const int bq = NW * 16 / group;
+  if (bq < 1 || block_size <= 0 || block_size % 8 != 0 || splits < 1 || min_tiles < 1 ||
+      (splits > 1 && (ws_o == nullptr || ws_ml == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(num_tokens / bq + num_seq_slots, hk, splits);
+  rpa_mma_kernel<C, D, NW><<<grid, L::kThreads, L::kSmem, stream>>>(
+      (const __nv_bfloat16*)q, (const C*)cache, (const __nv_bfloat16*)scales, bt, sl, qsl, ns,
+      alibi, (__nv_bfloat16*)out, (float*)ws_o, (float*)ws_ml, num_tokens, hq, hk, max_pages,
+      block_size, group, splits, min_tiles, scale, window, soft_cap);
+  if (splits > 1) {
+    rpa_combine_kernel<D><<<dim3(num_tokens, hk), 128, 0, stream>>>(
+        (const float*)ws_o, (const float*)ws_ml, (__nv_bfloat16*)out, sl, qsl, ns, num_tokens,
+        hq, group, bq, splits, min_tiles, window);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename C>
+int rpa_mma_entry(const void* q, const void* cache, const void* scales, const void* block_tables,
+                  const void* seq_lens, const void* query_start_loc, const void* num_seqs,
+                  const void* alibi, void* out, void* ws_o, void* ws_ml, int num_tokens,
+                  int num_seq_slots, int num_q_heads, int num_kv_heads, int head_dim,
+                  int max_pages, int block_size, int warps, int splits, int min_tiles,
+                  float scale, int window, float soft_cap, void* stream) {
+  if (num_tokens <= 0 || num_seq_slots <= 0) return 0;
+  const int* bt = (const int*)block_tables;
+  const int* sl = (const int*)seq_lens;
+  const int* qsl = (const int*)query_start_loc;
+  const int* ns = (const int*)num_seqs;
+  const float* al = (const float*)alibi;
+  cudaStream_t st = (cudaStream_t)stream;
+#define ATOMA_RPA_MMA(D, NW)                                                                  \
+  if (head_dim == D && warps == NW)                                                           \
+  return launch_rpa_mma<C, D, NW>(q, cache, scales, bt, sl, qsl, ns, al, out, ws_o, ws_ml,    \
+                                  num_tokens, num_seq_slots, num_q_heads, num_kv_heads,       \
+                                  max_pages, block_size, splits, min_tiles, scale, window,    \
+                                  soft_cap, st)
+  ATOMA_RPA_MMA(32, 4);
+  ATOMA_RPA_MMA(64, 4);
+  ATOMA_RPA_MMA(128, 4);
+  ATOMA_RPA_MMA(32, 8);
+  ATOMA_RPA_MMA(64, 8);
+  ATOMA_RPA_MMA(128, 8);
+#undef ATOMA_RPA_MMA
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename C>
+int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
+#define ATOMA_RPA_OCC(D, NW) \
+  if (head_dim == D && warps == NW) return rpa_mma_blocks_per_sm<C, D, NW>()
+  ATOMA_RPA_OCC(32, 4);
+  ATOMA_RPA_OCC(64, 4);
+  ATOMA_RPA_OCC(128, 4);
+  ATOMA_RPA_OCC(32, 8);
+  ATOMA_RPA_OCC(64, 8);
+  ATOMA_RPA_OCC(128, 8);
+#undef ATOMA_RPA_OCC
+  return -1;
+}
+
+}  // namespace atoma
+
+// The tensor-core entry points of one cache kind (C its element type):
+// q and out bf16 [T, Hq, D]; cache, scales, block tables and lengths as the
+// ragged entry's; ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq,
+// 2] when splits > 1 (else null); warps 4 or 8 (64 or 128 rows a tile).
+#define ATOMA_RPA_MMA_ENTRIES(SUFFIX, C)                                                      \
+  extern "C" int atoma_ragged_paged_attention_mma##SUFFIX(                                    \
+      const void* q, const void* cache, const void* scales, const void* block_tables,        \
+      const void* seq_lens, const void* query_start_loc, const void* num_seqs,               \
+      const void* alibi, void* out, void* ws_o, void* ws_ml, int num_tokens,                 \
+      int num_seq_slots, int num_q_heads, int num_kv_heads, int head_dim, int max_pages,     \
+      int block_size, int warps, int splits, int min_tiles, float scale, int window,         \
+      float soft_cap, void* stream) {                                                        \
+    return atoma::rpa_mma_entry<C>(q, cache, scales, block_tables, seq_lens,                 \
+                                   query_start_loc, num_seqs, alibi, out, ws_o, ws_ml,       \
+                                   num_tokens, num_seq_slots, num_q_heads, num_kv_heads,     \
+                                   head_dim, max_pages, block_size, warps, splits,           \
+                                   min_tiles, scale, window, soft_cap, stream);              \
+  }                                                                                          \
+  extern "C" int atoma_rpa_mma_blocks_per_sm##SUFFIX(int head_dim, int warps) {              \
+    return atoma::rpa_mma_blocks_per_sm_entry<C>(head_dim, warps);                          \
+  }

@@ -3,11 +3,16 @@
 Replaces the TPU kernel ``atoma_infer_tpu/ops/paged_attention.py:_kernel``:
 
 * **A** ``ragged_paged_attention`` ← ``ragged_paged_attention_pallas`` (:1058,
-  ``fuse_write=False``): one block per (query tile, sequence, kv head) stages
-  the head's K and V in shared memory, gcd(block_size, 32) slots of a page at
-  a time (so any block size that is a multiple of 8 runs), and reuses them
-  for every query of the tile and all G query heads of the group; f32 online
-  softmax;
+  ``fuse_write=False``), two routes by the queries' dtype:
+  - bf16 queries: the tensor cores (``*_mma``, ``csrc/paged_attention_mma.cuh``):
+    ``mma.sync`` bf16 Q·Kᵀ and P·V with f32 sums, query tiles of 64 or 128
+    (token, q head) rows laid end to end over the batch, 64-key tiles
+    gathered across pages through a 3-stage ``cp.async`` ring, KV split
+    across blocks for long rows (:func:`rpa_mma_plan`, from shapes alone)
+    and merged by log-sum-exp;
+  - f32 queries: the CUDA cores (``rpa_kernel``, ``csrc/paged_attention.cuh``),
+    f32 FMAs on K/V staged gcd(block_size, 32) slots at a time: a bf16
+    ``mma`` would round f32 queries;
   writes the token-major ``[T, Hq, D]`` output directly (the TPU kernel's
   entry-major windows and their reassembly have no counterpart).
 * **B** ``fused_decode_attention`` ← ``ragged_paged_attention_fused`` (:1093,
@@ -26,20 +31,25 @@ Replaces the TPU kernel ``atoma_infer_tpu/ops/paged_attention.py:_kernel``:
 * **E** ``*_fp8``: A and B over an e4m3 cache (``fp8=True``, ``_e4m3_decode``
   :66-85), widened by the card's own e4m3 conversion.
 
-All are bound by the K/V bytes they must read (at 3.35 TB/s), far below the
-card's flops-per-byte balance point; the designs spend their effort on
-reading each page once per (tile, kv head), and a 1-byte cache halves the
-bytes. Sources and notes: ``csrc/paged_attention.cuh``, instantiated by
+What bounds them: a decode row does about 2 flops per cache byte, so the
+fused kernels and a decode-heavy ragged batch are bound by the K/V bytes
+(at 3.35 TB/s; a 1-byte cache halves them); a prefill chunk reuses each key
+for a whole query tile and is bound by the tensor cores' operations, which
+the ``*_mma`` kernels run on. Sources and notes: ``csrc/paged_attention.cuh``
+and ``csrc/paged_attention_mma.cuh``, instantiated by
 ``paged_attention{,_int8,_fp8}.cu``.
 
-Dispatch: CUDA tensors launch the kernels of their cache's dtype (or raise:
-an int8 or e4m3 cache never takes a bf16 kernel or a plain version); the
-plain versions below are what CPU tensors take, and what the kernels are
-held against.
+Dispatch: CUDA tensors launch the kernels of their cache's dtype and their
+queries' route (or raise: an int8 or e4m3 cache never takes a bf16 kernel
+or a plain version); the plain versions below are what CPU tensors take,
+and what the kernels are held against.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -94,6 +104,129 @@ FUSED_DECODE = {
         "atoma_fused_decode_attention_fp8", _FUSED_ARGS,
         f"{_B} on e4m3 -> _kernel :139, fuse_write=True, fp8=True)"),
 }
+
+# The tensor-core ragged kernel (bf16 queries), by cache kind.
+_MMA_ARGS = [PTR] * 11 + [INT] * 10 + [FLOAT, INT, FLOAT, PTR]
+RAGGED_ATTENTION_MMA = {
+    kind: _register(
+        f"{RAGGED_ATTENTION[kind].name}_mma", RAGGED_ATTENTION[kind].source,
+        f"atoma_ragged_paged_attention_mma{suffix}", _MMA_ARGS,
+        RAGGED_ATTENTION[kind].replaces)
+    for kind, suffix in ((None, ""), (torch.int8, "_int8"), (torch.float8_e4m3fn, "_fp8"))
+}
+
+# The tensor-core kernel's geometry, mirrored from csrc/paged_attention_mma.cuh:
+# keys a tile (kRpaKT) and the rows of a warp's m16 tile.
+RPA_KEY_TILE = 64
+RPA_WARP_ROWS = 16
+# A split takes at least this many key tiles, and a call at most this many
+# splits (the reference FA2's num_splits_heuristic caps at 128; 16 keeps the
+# f32 workspace of a 256-token step small).
+RPA_MIN_TILES = 2
+RPA_MAX_SPLITS = 16
+
+
+def num_splits_heuristic(blocks: int, slots: int, n_blocks: int, max_splits: int) -> int:
+    """The reference FA2's ``num_splits_heuristic`` (SURVEY.md §2.4): no
+    split when the grid already fills 80% of ``slots``; else the fewest
+    splits whose waves are within 85% of the best efficiency, counting only
+    split counts that change the blocks a split takes."""
+    if blocks >= 0.8 * slots:
+        return 1
+    max_splits = min(max_splits, slots, n_blocks)
+    eligible = [1] + [n for n in range(2, max_splits + 1)
+                      if -(-n_blocks // n) != -(-n_blocks // (n - 1))]
+
+    def efficiency(n):
+        waves = blocks * n / slots
+        return waves / math.ceil(waves)
+
+    best = max(efficiency(n) for n in eligible)
+    return next(n for n in eligible if efficiency(n) >= 0.85 * best)
+
+
+@dataclasses.dataclass(frozen=True)
+class RpaPlan:
+    """How one tensor-core ragged call launches: warps a block (4 or 8, 16
+    rows each), query tokens a tile, and the most KV splits a row takes."""
+
+    warps: int
+    tokens: int
+    splits: int
+
+
+# Up to this many sequence slots (the engine's smallest bucket), a step
+# with a long chunk is mostly that chunk's tiles.
+RPA_FEW_SEQS = 8
+
+
+def rpa_warps(group: int, max_q_len: int, num_seq_slots: int) -> int:
+    """Warps a block: 8 (128 rows) when a GQA group needs them, or when a
+    query chunk fills several such tiles in a step of few sequences; else 4
+    (64 rows). With many sequences most tiles hold one decode row, which a
+    128-row tile leaves 7 of 8 warps idle over (measured on an H100:
+    ``tools/rpa_ablation.py``, PERF.md)."""
+    if group > 8 * RPA_WARP_ROWS:
+        raise ValueError(f"ragged_paged_attention: {group} q heads per kv head exceed one "
+                         f"tile of {8 * RPA_WARP_ROWS} rows")
+    long_chunk = max_q_len * group >= 4 * 8 * RPA_WARP_ROWS
+    return 8 if group > 4 * RPA_WARP_ROWS or (long_chunk and num_seq_slots <= RPA_FEW_SEQS) else 4
+
+
+def rpa_mma_plan(*, num_seq_slots: int, num_tokens: int, max_q_len: int, max_keys: int,
+                 group: int, num_kv_heads: int, slots: int) -> RpaPlan:
+    """The launch plan from what the host knows: S sequence slots, T query
+    rows, the longest chunk, the block table's width in keys (P × block
+    size), the GQA group and kv heads, and ``slots``, the blocks of this
+    instantiation the card holds at once (:func:`_rpa_slots`). Never the
+    device's ``seq_lens``. The query tiles that hold a token number about
+    max(ceil(T / tokens), min(S, T)): the tokens packed, or one tile a
+    sequence; with one block per (tile, kv head) that is the grid FA2's
+    heuristic sizes against the card, with the key tiles counted in whole
+    splits of ``RPA_MIN_TILES``."""
+    warps = rpa_warps(group, max_q_len, num_seq_slots)
+    tokens = warps * RPA_WARP_ROWS // group
+    tiles = max(-(-num_tokens // tokens), min(num_seq_slots, num_tokens))
+    key_tiles = -(-max_keys // RPA_KEY_TILE)
+    splits = num_splits_heuristic(tiles * num_kv_heads, slots,
+                                  -(-key_tiles // RPA_MIN_TILES), RPA_MAX_SPLITS)
+    return RpaPlan(warps, tokens, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _rpa_slots(kind, head_dim: int, warps: int, device: int) -> int:
+    """The blocks of one tensor-core instantiation the card holds at once:
+    the occupancy calculator's blocks an SM times the card's SMs."""
+    kernel = RAGGED_ATTENTION_MMA[kind]
+    suffix = kernel.symbol[len("atoma_ragged_paged_attention_mma"):]
+    fn = getattr(cuda_lib.load(kernel.source), f"atoma_rpa_mma_blocks_per_sm{suffix}")
+    fn.argtypes, fn.restype = [INT, INT], INT
+    per_sm = fn(head_dim, warps)
+    if per_sm < 1:
+        raise RuntimeError(f"ragged_paged_attention: no occupancy for D={head_dim}, "
+                           f"{warps} warps")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def rpa_plan_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> RpaPlan:
+    """The plan a bf16 call of :func:`ragged_paged_attention_cuda` launches
+    with: :func:`rpa_mma_plan` on the call's shapes and this card's
+    occupancy."""
+    T, Hq, D = q.shape
+    S, P = meta.block_tables.shape
+    group = Hq // num_kv_heads
+    max_q_len = int(meta.max_q_len)
+    return rpa_mma_plan(
+        num_seq_slots=S, num_tokens=T, max_q_len=max_q_len, max_keys=P * meta.block_size,
+        group=group, num_kv_heads=num_kv_heads,
+        slots=_rpa_slots(kind, D, rpa_warps(group, max_q_len, S), q.device.index or 0))
+
+
+def ragged_route(q: torch.Tensor, kind) -> cuda_lib.CudaKernel:
+    """The ragged kernel a CUDA call takes: bf16 queries the tensor cores
+    (``*_mma``) over every cache kind; f32 queries the CUDA cores
+    (``rpa_kernel``), whose f32 sums a bf16 ``mma`` would round."""
+    return RAGGED_ATTENTION_MMA[kind] if q.dtype == torch.bfloat16 else RAGGED_ATTENTION[kind]
 
 
 # ------------------------------------------------------------ plain versions
@@ -216,11 +349,18 @@ def ragged_paged_attention_cuda(
     alibi_slopes: Optional[torch.Tensor] = None,
     kv_scales: Optional[torch.Tensor] = None,  # [num_pages, bs, 2] bf16 (int8 cache)
 ) -> torch.Tensor:
-    """Kernel A (D on an int8 cache, E on an e4m3 one) → [T, Hq, D]. Rows
-    past ``query_start_loc[num_seqs]`` are padding and left unwritten."""
+    """Kernel A (D on an int8 cache, E on an e4m3 one) → [T, Hq, D]: bf16
+    queries on the tensor cores, f32 on the CUDA cores (:func:`ragged_route`).
+    Rows past ``query_start_loc[num_seqs]`` are padding and left
+    unwritten."""
     Hk, D, S, P, kind = _check(q, kv_cache, meta, alibi_slopes, kv_scales)
     check_kernel_shape(group=q.shape[1] // Hk, block_size=meta.block_size, fused=False)
     out = torch.empty_like(q)
+    if ragged_route(q, kind) is RAGGED_ATTENTION_MMA[kind]:
+        return ragged_paged_attention_mma_launch(
+            q, kv_cache, meta, rpa_plan_for(q, meta, Hk, kind), out, kind=kind, scale=scale,
+            sliding_window=sliding_window, soft_cap=soft_cap, alibi_slopes=alibi_slopes,
+            kv_scales=kv_scales)
     RAGGED_ATTENTION[kind](
         _DTYPES[q.dtype],
         q.data_ptr(), kv_cache.data_ptr(),
@@ -231,6 +371,37 @@ def ragged_paged_attention_cuda(
         None if alibi_slopes is None else alibi_slopes.data_ptr(),
         out.data_ptr(),
         S, q.shape[1], Hk, D, P, meta.block_size, int(meta.max_q_len),
+        float(scale), _window(sliding_window), _cap(soft_cap),
+        cuda_lib.current_stream_handle(q.device),
+    )
+    return out
+
+
+def ragged_paged_attention_mma_launch(
+    q, kv_cache, meta, plan: RpaPlan, out, *, kind, scale, sliding_window=None,
+    soft_cap=None, alibi_slopes=None, kv_scales=None,
+) -> torch.Tensor:
+    """Launch the tensor-core ragged kernel of ``kind`` with ``plan`` (inputs
+    already checked): the f32 split workspace comes from PyTorch's caching
+    allocator per call, so the launch needs no host sync and is
+    CUDA-graph capturable."""
+    T, Hq, D = q.shape
+    S, P = meta.block_tables.shape
+    Hk = kv_cache.shape[2] // (2 * D)
+    ws_o = ws_ml = None
+    if plan.splits > 1:
+        ws_o = torch.empty((plan.splits, T, Hq, D), dtype=torch.float32, device=q.device)
+        ws_ml = torch.empty((plan.splits, T, Hq, 2), dtype=torch.float32, device=q.device)
+    RAGGED_ATTENTION_MMA[kind](
+        q.data_ptr(), kv_cache.data_ptr(),
+        None if kv_scales is None else kv_scales.data_ptr(),
+        meta.block_tables.data_ptr(), meta.seq_lens.data_ptr(),
+        meta.query_start_loc.data_ptr(), meta.num_seqs.data_ptr(),
+        None if alibi_slopes is None else alibi_slopes.data_ptr(),
+        out.data_ptr(),
+        None if ws_o is None else ws_o.data_ptr(),
+        None if ws_ml is None else ws_ml.data_ptr(),
+        T, S, Hq, Hk, D, P, meta.block_size, plan.warps, plan.splits, RPA_MIN_TILES,
         float(scale), _window(sliding_window), _cap(soft_cap),
         cuda_lib.current_stream_handle(q.device),
     )

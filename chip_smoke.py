@@ -10,13 +10,20 @@ raises on failure; nothing is caught):
 2. Every kernel against its plain PyTorch version on the card.
    Attention and KV write: first every compiled instantiation at small sizes
    (head_dim 32/64/128 × block size 8/16/32/48/64/128 × GQA group 1 to 8,
-   bf16 and f32), then Llama-3.2-1B
+   bf16 and f32; a 1,600-key row cut into several KV splits, short rows
+   leaving splits empty), then Llama-3.2-1B
    attention shapes (Hq=32, Hk=8, D=64, block 16) with a mixed
    prefill+decode batch and a pure-decode batch: the KV write bit-exact, the
    attention kernels within the tolerances below (plus one case each with a
    sliding window, a soft cap and ALiBi); the KV writes timed in CUDA
    graphs beside ``index_copy_`` (their eager, host-inclusive times on an
-   earlier line). Quantized matmuls: a sweep at small sizes (8/4-bit
+   earlier line). The ragged kernel takes the tensor cores for bf16 queries
+   and the CUDA cores for f32 ones: the mixed batches time the tensor-core
+   kernel beside the CUDA-core one by a direct launch, and the CUDA-core one
+   on f32 queries; a 256-query prefill chunk at positions 1,792-2,047 (8B
+   shapes, bf16/INT8/e4m3 caches) is timed eagerly and in a CUDA graph
+   beside its bound, the CUDA-core kernel and flash SDPA over the same keys
+   gathered contiguous. Quantized matmuls: a sweep at small sizes (8/4-bit
    weights × group 128 and one group × bf16/f32 × M in 1, 8, 64, 300, plus
    ragged N; F and G on their route and on the CUDA cores), W8A8's integer
    dots checked exact, F and G's tensor-core route over groups of 32, 64,
@@ -67,9 +74,11 @@ raises on failure; nothing is caught):
    Every request must finish at its length or on
    EOS, every block must return to the pool, and every kernel of the path
    must have been launched during that service's run (launch counts are set
-   to 0 just before it and read just after). Prints the worker's step wall
-   times and one pure-decode step's device time by kernel
-   (``torch.profiler``).
+   to 0 just before it and read just after), every ragged launch on the
+   tensor cores (the f32 services of phase 3 on the CUDA cores). Prints the
+   worker's step wall times and one pure-decode and one mixed step's device
+   time by kernel (``torch.profiler``), the mixed step's ragged attention
+   share.
 5. The quantization decision tools (``atoma_infer_tpu_torch/tools``): the
    W8A8 rate probe's ``main()`` (its path through kernel I, both forms
    launched, int8 exact), then the W8A8 and INT8-KV gates at their card
@@ -291,17 +300,99 @@ def make_batch(rng, specs, *, dtype, num_blocks, decode_only, device,
     )
 
 
-# The attention kernels' shape grid at small sizes: block sizes (8, 16, 32
-# stage a whole page; 48, 64, 128 stage it in key tiles of gcd(bs, 32)) and
-# GQA groups (the fused kernel is instantiated for 1 to 8).
+# The attention kernels' shape grid at small sizes: block sizes (the
+# CUDA-core ragged kernel stages 8, 16, 32 a whole page and 48, 64, 128 in key
+# tiles of gcd(bs, 32); the tensor-core one gathers 64-key tiles across
+# pages) and GQA groups (the fused kernel is instantiated for 1 to 8).
 VARIANT_BLOCK_SIZES = (8, 16, 32, 48, 64, 128)
 VARIANT_GROUPS = tuple(range(1, 9))
+# The ragged batches of the grids: chunks, decode rows, and one decode row of
+# 1,600 keys, which the tensor-core route cuts into several KV splits while
+# the short rows leave splits empty.
+VARIANT_MIXED = [(20, 45), (1, 30), (7, 7), (1, 1), (33, 70), (1, 1600)]
+VARIANT_DECODE = [(1, 45), (1, 17), (1, 1), (1, 64), (1, 100)]
+
+
+def variant_blocks(specs, bs):
+    """Pages enough for ``specs`` at block size ``bs``, and a few spare."""
+    return sum(-(-kv // bs) for _, kv in specs) + 8
+
+
+class SplitCount:
+    """Counts, over the bf16 calls of a variant grid, those whose plan cut a
+    decode row into several KV splits and those that left a split empty
+    (the kernel's rule: min(splits, ceil(key tiles / RPA_MIN_TILES)))."""
+
+    def __init__(self):
+        self.multi = self.empty = 0
+
+    def add(self, b):
+        from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+        q, meta = b["q"], b["meta"]
+        if q.element_size() != 2:  # f32 queries take the CUDA cores
+            return
+        hk = b["cache"].shape[2] // (2 * q.shape[2])
+        kind = None if b["cache"].dtype == q.dtype else b["cache"].dtype
+        plan = pa.rpa_plan_for(q, meta, hk, kind)
+        for q_len, kv in b["specs"]:
+            if q_len != 1:
+                continue
+            tiles = (kv - 1) // pa.RPA_KEY_TILE + 1
+            nsplit = max(1, min(plan.splits, -(-tiles // pa.RPA_MIN_TILES)))
+            self.multi += nsplit > 1
+            self.empty += nsplit < plan.splits
+
+    def check(self, label):
+        log(f"{label}: {self.multi} decode rows in several KV splits, {self.empty} with "
+            "empty splits")
+        if not (self.multi and self.empty):
+            raise AssertionError(f"{label}: no multi-split or no empty-split case")
+
+
+def cuda_core_attention(q, cache, meta, *, scale, kv_scales=None):
+    """The CUDA-core ragged kernel (``rpa_kernel``, A, D or E by the cache's
+    dtype) by a direct launch, whatever the queries' dtype: the route sends
+    bf16 queries to the tensor cores, so this is how the old kernel is
+    timed beside the new one."""
+    import torch
+
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    T, Hq, D = q.shape
+    S, P = meta.block_tables.shape
+    out = torch.empty_like(q)
+    kind = None if cache.dtype == q.dtype else cache.dtype
+    pa.RAGGED_ATTENTION[kind](
+        int(q.dtype == torch.bfloat16), q.data_ptr(), cache.data_ptr(),
+        None if kv_scales is None else kv_scales.data_ptr(), meta.block_tables.data_ptr(),
+        meta.seq_lens.data_ptr(), meta.query_start_loc.data_ptr(), meta.num_seqs.data_ptr(),
+        None, out.data_ptr(), S, Hq, cache.shape[2] // (2 * D), D, P, meta.block_size,
+        int(meta.max_q_len), float(scale), 0, 0.0, cuda_lib.current_stream_handle(q.device))
+    return out
+
+
+def old_vs_new(torch, label, new_ms, old_fn, ref, n):
+    """The CUDA-core kernel by a direct launch on the same inputs as a
+    tensor-core row: checked against the plain version, timed, and the
+    speed-up logged. Returns the old kernel's ms."""
+    got = old_fn()
+    tol = ATTN_TOL["bfloat16"]
+    if not torch.allclose(got[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{label}: the CUDA-core kernel disagrees")
+    old_ms = cuda_ms(old_fn)
+    log(f"{label}: tensor cores {new_ms:.4f} ms, CUDA-core rpa_kernel by a direct launch "
+        f"{old_ms:.4f} ms ({old_ms / new_ms:.1f}x)")
+    return old_ms
 
 
 def check_kernel_variants(torch):
     """Every compiled instantiation against its plain version at small
     sizes: head_dim 32/64/128 × block size 8/16/32/48/64/128 × 1 to 8 query
-    heads per kv head, bf16 and f32 (the main-path shapes are checked at
+    heads per kv head, bf16 (the ragged kernel on the tensor cores) and f32
+    (on the CUDA cores), with a 1,600-key decode row that the tensor-core
+    route cuts into several KV splits (the main-path shapes are checked at
     full size in :func:`check_kernels`)."""
     import numpy as np
 
@@ -309,8 +400,8 @@ def check_kernel_variants(torch):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    mixed_specs = [(20, 45), (1, 30), (7, 7), (1, 1), (33, 70)]
-    decode_specs = [(1, 45), (1, 17), (1, 1), (1, 64), (1, 100)]
+    mixed_specs, decode_specs = VARIANT_MIXED, VARIANT_DECODE
+    splits = SplitCount()
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         tol = ATTN_TOL[dtype_name]
         worst, cases = 0.0, 0
@@ -318,9 +409,10 @@ def check_kernel_variants(torch):
             for bs in VARIANT_BLOCK_SIZES:
                 for group in VARIANT_GROUPS:
                     shape = dict(hq=2 * group, hk=2, d=d, bs=bs, dtype=dtype,
-                                 num_blocks=64, device=dev)
+                                 num_blocks=variant_blocks(mixed_specs, bs), device=dev)
                     label = f"{dtype_name} D={d} bs={bs} G={group}"
                     b = make_batch(rng, mixed_specs, decode_only=False, **shape)
+                    splits.add(b)
                     m, n = b["meta"], b["rows"]
                     got, want = b["cache"].clone(), b["cache"].clone()
                     kv_write.write_kv_cache_cuda(got, b["k"], b["v"], m.slot_mapping)
@@ -349,7 +441,9 @@ def check_kernel_variants(torch):
                     worst = max(worst, (out[:n].float() - ref[:n].float()).abs().max().item())
                     cases += 1
         log(f"kernel variants {dtype_name}: {cases} shapes × 3 kernels agree, "
-            f"max |err| {worst:.3e} (tol {tol})")
+            f"max |err| {worst:.3e} (tol {tol}); the ragged kernel on "
+            f"{'the tensor cores' if dtype_name == 'bfloat16' else 'the CUDA cores'}")
+    splits.check("kernel variants, tensor-core route")
 
 
 def attention_work(specs, window, elt, *, fused, kv_elt=None, slot_extra=0,
@@ -462,16 +556,25 @@ def check_kernels(torch):
                 f"(tol {tol})")
             if not ok:
                 raise AssertionError(f"ragged_paged_attention {dtype_name} {label} disagrees")
-            if dtype_name == "bfloat16" and label == "base":
+            if label == "base":
+                # bf16 queries take the tensor cores (the main path's
+                # kernel); f32 queries the CUDA cores, whose launches come
+                # from the f32 services.
                 nbytes, flops = attention_work(mixed_specs, None, elt, fused=False)
-                rows["ragged_paged_attention"] = dict(
+                name = ("ragged_paged_attention_mma" if dtype_name == "bfloat16"
+                        else "ragged_paged_attention")
+                rows[name] = dict(
                     max_abs_err=err,
                     ms=cuda_ms(lambda: paged_attention.ragged_paged_attention_cuda(
                         mixed["q"], cache, m, scale=scale)),
                     plain_ms=cuda_ms(lambda: paged_attention.ragged_paged_attention_paged_plain(
                         mixed["q"], cache, m, scale=scale), iters=5, warmup=1),
-                    library_ms=None, bytes=nbytes, flops=flops,
+                    library_ms=None, bytes=nbytes, flops=flops, dtype=dtype_name,
                 )
+                if dtype_name == "bfloat16":
+                    old_vs_new(torch, "ragged_paged_attention 1B mixed", rows[name]["ms"],
+                               lambda: cuda_core_attention(mixed["q"], cache, m, scale=scale),
+                               ref, n)
 
         # B: fused decode write + attention on the pure-decode batch.
         dm = decode["meta"]
@@ -504,7 +607,8 @@ def check_kernels(torch):
         del mixed, decode, cache
         torch.cuda.empty_cache()
     for name, r in rows.items():
-        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"), "bfloat16")
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"),
+                                             r.pop("dtype", "bfloat16"))
         log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']}), bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
     return rows
@@ -590,15 +694,16 @@ def check_kv8(torch, b, kv, label, tol, *, decode):
 def check_kv8_variants(torch):
     """Every compiled INT8/e4m3 instantiation against its plain version at
     small sizes: head_dim 32/64/128 × block size 8/16/32/48/64/128 × 1 to 8
-    query heads per kv head × bf16/f32 queries, on a mixed and a
+    query heads per kv head × bf16 (tensor cores) / f32 (CUDA cores)
+    queries, on a mixed batch with a row cut into several KV splits and on a
     pure-decode batch."""
     import numpy as np
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(17)
-    mixed_specs = [(20, 45), (1, 30), (7, 7), (1, 1), (33, 70)]
-    decode_specs = [(1, 45), (1, 17), (1, 1), (1, 64), (1, 100)]
+    mixed_specs, decode_specs = VARIANT_MIXED, VARIANT_DECODE
     for kv in KV8_DTYPES:
+        splits = SplitCount()
         for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             tol = ATTN_TOL[dtype_name]
             worst, cases = 0.0, 0
@@ -606,22 +711,27 @@ def check_kv8_variants(torch):
                 for bs in VARIANT_BLOCK_SIZES:
                     for group in VARIANT_GROUPS:
                         shape = dict(hq=2 * group, hk=2, d=d, bs=bs, dtype=dtype,
-                                     num_blocks=64, device=dev)
+                                     num_blocks=variant_blocks(mixed_specs, bs), device=dev)
                         label = f"{dtype_name} D={d} bs={bs} G={group}"
                         for decode, specs in ((False, mixed_specs), (True, decode_specs)):
                             b = make_batch(rng, specs, decode_only=decode, **shape)
-                            err, _, _ = check_kv8(torch, b, kv, label, tol, decode=decode)
+                            err, cache, _ = check_kv8(torch, b, kv, label, tol, decode=decode)
+                            if not decode:
+                                splits.add(dict(b, cache=cache))
                             worst = max(worst, err)
                         cases += 1
             log(f"{kv} KV variants {dtype_name}: {cases} shapes × 3 kernels agree, writes "
                 f"and fused caches bit-exact, max |err| {worst:.3e} (tol {tol})")
+        splits.check(f"{kv} KV variants, tensor-core route")
 
 
 def check_kv8_kernels(torch):
     """D and E (and the 1-byte writes) at the Llama-3.1-8B attention shapes
     (Hq=32, Hk=8, D=128, block 16), bf16 queries: a mixed batch and 64
     decode sequences, each kernel against its plain version, then timed
-    (CUDA events). Returns the kernels line's rows."""
+    (CUDA events); the ragged kernel on the tensor cores beside the
+    CUDA-core one by a direct launch, and the CUDA-core one on f32 queries
+    (its own traffic). Returns the kernels line's rows."""
     import numpy as np
 
     from atoma_infer_tpu_torch.ops import paged_attention as pa
@@ -657,8 +767,12 @@ def check_kv8_kernels(torch):
                                                m.slot_mapping, cuda=False)),
             library_ms=None, bytes=n * (row_in + row_out) + m.slot_mapping.numel() * 4, flops=0,
         )
+        # bf16 queries: the tensor cores, the main path's kernel, beside the
+        # CUDA-core kernel by a direct launch.
         nbytes, flops = attention_work(mixed_specs, None, 2, fused=False, **work)
-        rows[f"ragged_paged_attention_{kv}"] = dict(
+        ref = pa.ragged_paged_attention_paged_plain(mixed["q"], cache, m, scale=scale,
+                                                    kv_scales=scales)
+        rows[f"ragged_paged_attention_{kv}_mma"] = row = dict(
             max_abs_err=err,
             ms=cuda_ms(lambda: pa.ragged_paged_attention_cuda(
                 mixed["q"], cache, m, scale=scale, kv_scales=scales)),
@@ -666,6 +780,28 @@ def check_kv8_kernels(torch):
                 mixed["q"], cache, m, scale=scale, kv_scales=scales), iters=5, warmup=1),
             library_ms=None, bytes=nbytes, flops=flops,
         )
+        old_vs_new(torch, f"ragged_paged_attention_{kv} 8B mixed", row["ms"],
+                   lambda: cuda_core_attention(mixed["q"], cache, m, scale=scale,
+                                               kv_scales=scales), ref, n)
+        # f32 queries: the CUDA cores, whose launches come from the f32
+        # services.
+        q32 = mixed["q"].float()
+        got = pa.ragged_paged_attention_cuda(q32, cache, m, scale=scale, kv_scales=scales)
+        want = pa.ragged_paged_attention_paged_plain(q32, cache, m, scale=scale, kv_scales=scales)
+        err32 = (got[:n] - want[:n]).abs().max().item()
+        tol32 = ATTN_TOL["float32"]
+        if not torch.allclose(got[:n], want[:n], atol=tol32, rtol=tol32):
+            raise AssertionError(f"ragged_paged_attention_{kv} 8B mixed f32 disagrees: {err32:.3e}")
+        nbytes, flops = attention_work(mixed_specs, None, 4, fused=False, **work)
+        rows[f"ragged_paged_attention_{kv}"] = dict(
+            max_abs_err=err32,
+            ms=cuda_ms(lambda: pa.ragged_paged_attention_cuda(
+                q32, cache, m, scale=scale, kv_scales=scales)),
+            plain_ms=cuda_ms(lambda: pa.ragged_paged_attention_paged_plain(
+                q32, cache, m, scale=scale, kv_scales=scales), iters=5, warmup=1),
+            library_ms=None, bytes=nbytes, flops=flops, dtype="float32",
+        )
+        del ref, want, got, q32
         err, dcache, dscales = check_kv8(torch, decode, kv, "8B decode", tol, decode=True)
         log(f"fused_decode_attention_{kv} 8B decode: max |err| {err:.3e} (tol {tol}), "
             "cache and scales bit-exact")
@@ -688,10 +824,82 @@ def check_kv8_kernels(torch):
     del mixed, decode
     torch.cuda.empty_cache()
     for name, r in rows.items():
-        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"), "bfloat16")
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"),
+                                             r.pop("dtype", "bfloat16"))
         log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library none), "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
     return rows
+
+
+def check_prefill_chunk(torch):
+    """A 256-query prefill chunk at positions 1,792-2,047 of a 2,048-token
+    prompt at the Llama-3.1-8B attention shapes (Hq=32, Hk=8, D=128, block
+    16), bf16 queries over a bf16, an INT8 and an e4m3 cache: the tensor-core
+    kernel against its plain version (timed once, at bf16), then timed
+    eagerly and in a CUDA graph (which also shows the launch capturable)
+    beside its bound, the CUDA-core kernel by a direct launch, and flash
+    SDPA over the same keys gathered contiguous and widened to bf16 — not
+    the same function: no paging, and all 2,048 keys for every query
+    (flash's causal mask is top-left aligned; the chunk's is bottom-right)."""
+    import numpy as np
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+    from atoma_infer_tpu_torch.ops.kv_cache import kv_cache_view, scales_flat
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    specs = [(256, 2048)]
+    shape = dict(hq=32, hk=8, d=128, bs=16, dtype=torch.bfloat16, device=dev)
+    b = make_batch(rng, specs, num_blocks=256, decode_only=False, **shape)
+    m, n, scale = b["meta"], b["rows"], 128 ** -0.5
+    tol = ATTN_TOL["bfloat16"]
+    pos = torch.arange(2048, device=dev)
+    slots = m.block_tables[0, pos // 16].long() * 16 + pos % 16
+    for kv in (None,) + KV8_DTYPES:
+        name = "ragged_paged_attention" + (f"_{kv}" if kv else "") + "_mma"
+        cache, scales = kv8_cache(torch, b["cache"], kv, 128) if kv else (b["cache"], None)
+        plan = pa.rpa_plan_for(b["q"], m, 8, None if kv is None else cache.dtype)
+
+        def run(cache=cache, scales=scales):
+            return pa.ragged_paged_attention_cuda(b["q"], cache, m, scale=scale, kv_scales=scales)
+
+        out = run()
+        t0 = time.monotonic()
+        ref = pa.ragged_paged_attention_paged_plain(b["q"], cache, m, scale=scale,
+                                                    kv_scales=scales)
+        torch.cuda.synchronize()
+        plain_s = time.monotonic() - t0
+        err = (out[:n].float() - ref[:n].float()).abs().max().item()
+        if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
+            raise AssertionError(f"{name} prefill chunk disagrees: max |err| {err:.3e}")
+        ms, g_ms = cuda_ms(run), graph_ms(torch, run)
+        old_ms = old_vs_new(torch, f"{name[:-4]} 8B prefill chunk", ms, lambda: cuda_core_attention(
+            b["q"], cache, m, scale=scale, kv_scales=scales), ref, n)
+        # Flash SDPA over the sequence's keys, gathered and widened beforehand.
+        k_view, v_view = kv_cache_view(cache, 8, 128)
+        k, v = k_view[slots].float(), v_view[slots].float()
+        if scales is not None:
+            ks, vs = scales_flat(scales)
+            k, v = k * ks[slots].float()[:, None, None], v * vs[slots].float()[:, None, None]
+        k, v = (t.to(torch.bfloat16).repeat_interleave(4, dim=1).transpose(0, 1)[None]
+                for t in (k, v))
+        qs = b["q"][:n].transpose(0, 1)[None]
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            sdpa_ms = graph_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, k, v, scale=scale))
+        bound_ms, by = bound(*attention_work(
+            specs, None, 2, fused=False, kv_elt=1 if kv else 2, slot_extra=4 if kv == "int8" else 0,
+            hq=32, hk=8, d=128), "bfloat16")
+        log(f"{name} 8B prefill chunk (256 queries at 1,792-2,047, plan {plan.warps} warps, "
+            f"{plan.splits} splits): {ms:.4f} ms eager, {g_ms:.4f} ms in a CUDA graph, bound "
+            f"{bound_ms:.4f} ms by {by}; CUDA-core rpa_kernel {old_ms:.4f} ms; flash SDPA on "
+            f"the keys gathered contiguous {sdpa_ms:.4f} ms (not the same function: no paging, "
+            f"no causal mask); max |err| {err:.3e} (tol {tol})"
+            + (f"; plain version {plain_s * 1e3:.1f} ms (once)" if kv is None else ""))
+        del cache, scales, ref, out, k, v
+    del b
+    torch.cuda.empty_cache()
 
 
 # Llama-3.2-3B's attention shapes, in make_batch's names.
@@ -1533,7 +1741,9 @@ def check_service_parity(torch):
     its weights drawn once on the CPU, and a pool of 12 blocks, so that
     2-sequence groups are preempted by swap. Greedy tokens must be identical
     (``top_k=1`` makes the sampled groups greedy whatever the noise), swaps
-    must have happened on both, and every block must come back."""
+    must have happened on both, every block must come back, and the ragged
+    launches must be the CUDA cores' (f32 queries). Returns A's CUDA-core
+    launches from the card run (counts set to 0 just before it)."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
@@ -1542,11 +1752,15 @@ def check_service_parity(torch):
     from atoma_infer_tpu_torch.models.llama import Llama
     from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
 
+    from atoma_infer_tpu_torch.ops import cuda_lib
+
     cpu_model, cpu_params, tokenizer = build_tiny_random("cpu")
     gpu_model = Llama(cpu_model.config, dtype=torch.float32, device="cuda")
     prompts = [f"prompt number {i} " * (1 + i % 4) for i in range(6)]
     blocks = 12
     runs = {}
+    for k in cuda_lib.KERNELS.values():
+        k.launches = 0
     for name, model, params in (
         ("cpu", cpu_model, cpu_params),
         ("cuda", gpu_model, params_to(cpu_params, gpu_model.device)),
@@ -1599,9 +1813,15 @@ def check_service_parity(torch):
         runs[name] = [[tuple(o.token_ids) for o in r.outputs] for r in results]
     if runs["cuda"] != runs["cpu"]:
         raise AssertionError("service parity: greedy tokens differ between card and CPU")
+    counts = {k: c.launches for k, c in cuda_lib.KERNELS.items()}
+    check_route("service parity (f32)", counts, bf16=False)
+    if not counts["ragged_paged_attention"]:
+        raise AssertionError("service parity: the CUDA-core ragged kernel was not launched")
     n = sum(len(t) for r in runs["cuda"] for t in r)
     log(f"service parity: {len(prompts)} requests × 2 sequences, {n} greedy tokens "
-        f"identical on the card and the CPU, with swaps on both")
+        f"identical on the card and the CPU, with swaps on both; f32 queries: the CUDA-core "
+        f"ragged kernel launched {counts['ragged_paged_attention']} times")
+    return {"ragged_paged_attention": counts["ragged_paged_attention"]}
 
 
 def check_quant_service_parity(torch):
@@ -1669,6 +1889,8 @@ def check_quant_service_parity(torch):
                 raise AssertionError(f"{label}: {launched} launches of {kernel}")
             if device == "cuda":
                 launches[kernel] = launched
+                check_route(label, {k: c.launches for k, c in cuda_lib.KERNELS.items()},
+                            bf16=False)
             runs[device] = [tuple(r.outputs[0].token_ids) for r in results]
         if runs["cuda"] != runs["cpu"]:
             raise AssertionError(f"quantized service parity {quantization}: greedy tokens "
@@ -1680,9 +1902,27 @@ def check_quant_service_parity(torch):
     return launches
 
 
-def kv8_path(kv):
-    return (f"reshape_and_cache_{kv}", f"ragged_paged_attention_{kv}",
+def kv8_path(kv, *, mma=True):
+    """The kernels of a path over a 1-byte cache: bf16 queries take the
+    tensor-core ragged kernel, f32 queries (``mma=False``) the CUDA cores."""
+    return (f"reshape_and_cache_{kv}", f"ragged_paged_attention_{kv}{'_mma' if mma else ''}",
             f"fused_decode_attention_{kv}")
+
+
+# The ragged kernels by route: bf16 queries must never launch the CUDA-core
+# kernels, nor f32 queries the tensor-core ones.
+CUDA_CORE_RAGGED = ("ragged_paged_attention", "ragged_paged_attention_int8",
+                    "ragged_paged_attention_fp8")
+TENSOR_CORE_RAGGED = tuple(f"{k}_mma" for k in CUDA_CORE_RAGGED)
+
+
+def check_route(label, launches, *, bf16):
+    """Every ragged launch of a run on the route its queries' dtype asks for."""
+    wrong = {k: launches[k] for k in (CUDA_CORE_RAGGED if bf16 else TENSOR_CORE_RAGGED)
+             if launches[k]}
+    if wrong:
+        raise AssertionError(f"{label}: ragged launches off the {'bf16' if bf16 else 'f32'} "
+                             f"route: {wrong}")
 
 
 def check_kv8_service_parity(torch):
@@ -1691,7 +1931,9 @@ def check_kv8_service_parity(torch):
     (plain versions): 2-sequence greedy groups on a pool of 12 blocks, so
     that groups are swapped to the host tier (INT8 scales with their pages)
     and back. Greedy tokens identical, swaps on both, every block back, and
-    on the card every kernel of the path launched."""
+    on the card every kernel of the path launched, the ragged one on the CUDA
+    cores (f32 queries). Returns D's and E's CUDA-core ragged launches, each
+    from its own card run (counts set to 0 just before it)."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
@@ -1702,6 +1944,7 @@ def check_kv8_service_parity(torch):
     fixture = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
     prompts = [f"prompt number {i} " * (1 + i % 4) for i in range(6)]
     blocks = 12
+    launches = {}
     for kv, quantization in (("int8", "int8"), ("fp8", None)):
         runs = {}
         for device in ("cpu", "cuda"):
@@ -1726,7 +1969,10 @@ def check_kv8_service_parity(torch):
                 return swap_out(mapping)
 
             cache_engine.swap_out = counting_swap_out
-            before = {k: cuda_lib.KERNELS[k].launches for k in kv8_path(kv)}
+            if device == "cuda":
+                for k in cuda_lib.KERNELS.values():
+                    k.launches = 0
+            before = {k: cuda_lib.KERNELS[k].launches for k in kv8_path(kv, mma=False)}
 
             async def drive(service=service):
                 task = asyncio.create_task(service.engine.run())
@@ -1754,6 +2000,10 @@ def check_kv8_service_parity(torch):
             launched = {k: cuda_lib.KERNELS[k].launches - n for k, n in before.items()}
             if any((device == "cuda") != (n > 0) for n in launched.values()):
                 raise AssertionError(f"{label}: launches {launched}")
+            if device == "cuda":
+                counts = {k: c.launches for k, c in cuda_lib.KERNELS.items()}
+                check_route(label, counts, bf16=False)
+                launches[f"ragged_paged_attention_{kv}"] = counts[f"ragged_paged_attention_{kv}"]
             runs[device] = [[tuple(o.token_ids) for o in r.outputs] for r in results]
         if runs["cuda"] != runs["cpu"]:
             raise AssertionError(f"{kv} KV service parity: greedy tokens differ "
@@ -1761,11 +2011,17 @@ def check_kv8_service_parity(torch):
         n = sum(len(t) for r in runs["cuda"] for t in r)
         log(f"{kv} KV service parity: tiny_trained{' INT8' if quantization else ''}, "
             f"{len(prompts)} requests × 2 sequences, {n} greedy tokens identical on the "
-            f"card and the CPU, with swaps on both")
+            f"card and the CPU, with swaps on both; f32 queries: the CUDA-core ragged "
+            f"kernel launched {launches[f'ragged_paged_attention_{kv}']} times")
+    return launches
 
 
 # --------------------------------------------------------------- phase 4
-ATTENTION_PATH = ("reshape_and_cache", "ragged_paged_attention", "fused_decode_attention")
+# The bf16 attention path: the ragged kernel on the tensor cores.
+ATTENTION_PATH = ("reshape_and_cache", "ragged_paged_attention_mma", "fused_decode_attention")
+# The services' mixed prefill+decode step (0-based, among mixed steps) that
+# runs under torch.profiler.
+PROFILED_MIXED_STEP = 0
 
 
 def serve(torch, label, model, params, config, path):
@@ -1775,7 +2031,7 @@ def serve(torch, label, model, params, config, path):
     run (all set to 0 just before it)."""
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
     from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
-    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.ops import cuda_lib, paged_attention
     from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
 
     cfg = model.config
@@ -1800,15 +2056,38 @@ def serve(torch, label, model, params, config, path):
         decodes = len(metas) - prefills
         t0 = time.monotonic()
         pure_decode = [s for s in steps if s[1] and not s[0]]
-        traced = not prefills and len(pure_decode) == PROFILED_DECODE_STEP
+        mixed_steps = [s for s in steps if s[1] and s[0]]
+        kind = None
+        if not prefills and len(pure_decode) == PROFILED_DECODE_STEP:
+            kind = "decode"
+        elif prefills and decodes and len(mixed_steps) == PROFILED_MIXED_STEP:
+            kind = "mixed"
+        traced = kind is not None
         if traced:
-            out, profiled["wall_ms"], profiled["busy_ms"], profiled["kernels"] = \
-                profile_device(torch, lambda: execute(request))
-            profiled["seqs"] = decodes
+            prof = profiled.setdefault(kind, {})
+            # The mixed step's ragged calls are kept to be replayed after the
+            # run through the CUDA-core kernel, for its device time on the
+            # same inputs.
+            if kind == "mixed":
+                paged_attention.ragged_paged_attention_cuda = recording
+            try:
+                out, prof["wall_ms"], prof["busy_ms"], prof["kernels"] = \
+                    profile_device(torch, lambda: execute(request))
+            finally:
+                paged_attention.ragged_paged_attention_cuda = ragged
+            prof["seqs"] = decodes
+            prof["prefills"] = prefills
         else:
             out = execute(request)
         steps.append((prefills, decodes, time.monotonic() - t0, traced))
         return out
+
+    ragged = paged_attention.ragged_paged_attention_cuda
+    ragged_calls = []
+
+    def recording(q, kv_cache, meta, **kw):
+        ragged_calls.append((q, kv_cache, meta, kw))
+        return ragged(q, kv_cache, meta, **kw)
 
     worker.execute_model = timed_execute
     new_tokens = 32
@@ -1866,28 +2145,55 @@ def serve(torch, label, model, params, config, path):
     traced_s = sum(t for _, _, t, traced in steps if traced)
     log(f"service {label}: {len(results)} requests, {generated} tokens, {len(steps)} steps "
         f"({mixed} mixed prefill+decode) in {seconds:.2f} s ({traced_s:.2f} s of it "
-        f"in the profiled step); launches {launches}")
+        f"in the profiled steps); launches {launches}")
     if mixed == 0:
         raise AssertionError(f"service {label}: no mixed prefill+decode step ran")
     for kind, pick in (("pure-decode", lambda p, d: d and not p),
                        ("mixed", lambda p, d: p and d)):
         ms = sorted(t * 1e3 for p, d, t, traced in steps if pick(p, d) and not traced)
-        log(f"service {label}: {kind} worker step wall p50 {ms[len(ms) // 2]:.2f} ms, "
-            f"max {ms[-1]:.2f} ms over {len(ms)} steps")
-    if profiled.get("kernels"):
-        top = ", ".join(f"{name[:48]} {t:.3f}" for name, t in profiled["kernels"][:6])
+        if ms:
+            log(f"service {label}: {kind} worker step wall p50 {ms[len(ms) // 2]:.2f} ms, "
+                f"max {ms[-1]:.2f} ms over {len(ms)} steps")
+    decode_prof = profiled.get("decode", {})
+    if decode_prof.get("kernels"):
+        top = ", ".join(f"{name[:48]} {t:.3f}" for name, t in decode_prof["kernels"][:6])
         # The quantized linears' share: kernels F, G, H and their K-split sums.
-        qmm = sum(t for name, t in profiled["kernels"]
+        qmm = sum(t for name, t in decode_prof["kernels"]
                   if "qmm_" in name or "split_reduce" in name)
-        log(f"service {label}: profiled pure-decode step ({profiled['seqs']} seqs): device "
-            f"busy {profiled['busy_ms']:.3f} ms of {profiled['wall_ms']:.2f} ms wall under "
+        log(f"service {label}: profiled pure-decode step ({decode_prof['seqs']} seqs): device "
+            f"busy {decode_prof['busy_ms']:.3f} ms of {decode_prof['wall_ms']:.2f} ms wall under "
             f"the profiler, quantized matmuls {qmm:.3f} ms; top device time (ms): {top}")
     else:
         log(f"service {label}: device time of a decode step not measured (the profiler "
             "recorded no device events)")
+    mixed_prof = profiled.get("mixed", {})
+    if mixed_prof.get("kernels"):
+        top = ", ".join(f"{name[:48]} {t:.3f}" for name, t in mixed_prof["kernels"][:6])
+        # The ragged attention's share: the tensor-core kernel and its split merge.
+        ragged_ms = sum(t for name, t in mixed_prof["kernels"] if "rpa_" in name)
+        log(f"service {label}: profiled mixed step ({mixed_prof['prefills']} prefill + "
+            f"{mixed_prof['seqs']} decode groups): device busy {mixed_prof['busy_ms']:.3f} ms of "
+            f"{mixed_prof['wall_ms']:.2f} ms wall under the profiler, ragged attention "
+            f"{ragged_ms:.3f} ms ({ragged_ms / max(mixed_prof['busy_ms'], 1e-9):.1%} of busy); top "
+            f"device time (ms): {top}")
+        # The same calls again, each through the route and through the
+        # CUDA-core kernel by a direct launch (device time in CUDA graphs,
+        # summed).
+        new_ms = sum(graph_ms(torch, lambda c=c: ragged(c[0], c[1], c[2], **c[3]))
+                     for c in ragged_calls)
+        old_ms = sum(graph_ms(torch, lambda c=c: cuda_core_attention(
+            c[0], c[1], c[2], scale=c[3]["scale"], kv_scales=c[3].get("kv_scales")))
+            for c in ragged_calls)
+        log(f"service {label}: the profiled mixed step's {len(ragged_calls)} ragged calls "
+            f"replayed in CUDA graphs: tensor cores {new_ms:.3f} ms, CUDA-core rpa_kernel on "
+            f"the same inputs {old_ms:.3f} ms")
+    else:
+        log(f"service {label}: device time of a mixed step not measured (the profiler "
+            "recorded no device events)")
     for name in path:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the {label} path")
+    check_route(f"service {label}", launches, bf16=True)
     return launches
 
 
@@ -2063,14 +2369,17 @@ def main() -> int:
     rows.update(phase(check_quant_kernels))
     phase(check_kv8_variants)
     rows.update(phase(check_kv8_kernels))
+    phase(check_prefill_chunk)
     phase(check_gqa_block_kernels)
     rows.update(phase(check_probe_kernels))
     phase(check_model)
     phase(check_quant_model)
     phase(check_kv8_model)
-    phase(check_service_parity)
-    launches_cuda_cores = phase(check_quant_service_parity)
-    phase(check_kv8_service_parity)
+    # The f32 services are the CUDA-core kernels' path: F and G's CUDA-core
+    # route and the CUDA-core ragged kernels (A, D, E on f32 queries).
+    launches_cuda_cores = phase(check_service_parity)
+    launches_cuda_cores.update(phase(check_quant_service_parity))
+    launches_cuda_cores.update(phase(check_kv8_service_parity))
     phase(check_ladder_parity)
     # The profiler's first start sets up device tracing, which takes
     # seconds: do it here, outside the services' runs.
