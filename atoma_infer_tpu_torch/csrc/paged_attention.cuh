@@ -45,10 +45,9 @@
 //    bandwidth, is what a block waits on. INT8 folds the scales as the TPU
 //    kernel does: scores dot * k_scale, and p * v_scale before P·V.
 // The page loops stop at the last position a tile can see: block_tables rows
-// hold garbage past a sequence's length.
-//
-// Not done yet (later work): B on the tensor cores with split-KV across
-// blocks (the ragged kernel's split and combine).
+// hold garbage past a sequence's length. B here is the f32 queries' route:
+// bf16 queries take fused_split_kernel (fused_decode_split.cuh: split-KV
+// across blocks, Q·Kᵀ and P·V on the tensor cores).
 
 #pragma once
 

@@ -3,7 +3,8 @@
 // ragged_paged_attention_fused_quant, atoma_infer_tpu/ops/paged_attention.py
 // :1058,1132). The kernels and their notes are in paged_attention.cuh; for
 // bf16 queries the ragged kernel is the tensor-core one of
-// paged_attention_mma.cuh.
+// paged_attention_mma.cuh and the fused one the split kernel of
+// fused_decode_split.cuh (built from fused_decode_split*.cu).
 
 #include "paged_attention.cuh"
 #include "paged_attention_mma.cuh"

@@ -51,10 +51,10 @@
 //    takes min(splits, ceil(its key tiles / min_tiles)) splits of its own key
 //    range, so short rows stay whole. A block of a row cut in several splits
 //    stores its unnormalized O and (m, l) in an f32 workspace, and
-//    rpa_combine_kernel merges them by log-sum-exp in split order (no
-//    atomics: deterministic); a split past its row's key tiles exits at
-//    once. A row with no visible key gives 0. No host sync: the launch is
-//    CUDA-graph capturable.
+//    rpa_combine_kernel (its own launch, after the attention's) merges
+//    them by log-sum-exp in split order (no atomics: deterministic); a
+//    split past its row's key tiles exits at once. A row with no visible
+//    key gives 0. No host sync: the launch is CUDA-graph capturable.
 // Score order, as rpa_kernel's: dot (× the INT8 key scale) × scale, soft
 // cap, ALiBi slope × (kpos − qpos), then the causal / sliding-window mask.
 
@@ -559,12 +559,35 @@ int launch_rpa_mma(const void* q, const void* cache, const void* scales, const i
       (const __nv_bfloat16*)q, (const C*)cache, (const __nv_bfloat16*)scales, bt, sl, qsl, ns,
       alibi, (__nv_bfloat16*)out, (float*)ws_o, (float*)ws_ml, num_tokens, hq, hk, max_pages,
       block_size, group, splits, min_tiles, scale, window, soft_cap);
-  if (splits > 1) {
-    rpa_combine_kernel<D><<<dim3(num_tokens, hk), 128, 0, stream>>>(
-        (const float*)ws_o, (const float*)ws_ml, (__nv_bfloat16*)out, sl, qsl, ns, num_tokens,
-        hq, group, bq, splits, min_tiles, window);
-  }
   return (int)cudaGetLastError();
+}
+
+// The merge of split rows (rpa_combine_kernel), launched after a split
+// attention kernel (this file's, or fused_split_kernel with bq = 1).
+inline int rpa_combine_entry(const void* ws_o, const void* ws_ml, void* out, const void* seq_lens,
+                             const void* query_start_loc, const void* num_seqs, int num_tokens,
+                             int num_q_heads, int num_kv_heads, int head_dim, int bq, int splits,
+                             int min_tiles, int window, void* stream) {
+  if (num_tokens <= 0) return 0;
+  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0 || bq < 1 || splits < 2 ||
+      min_tiles < 1 || ws_o == nullptr || ws_ml == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(num_tokens, num_kv_heads);
+  const int group = num_q_heads / num_kv_heads;
+  cudaStream_t st = (cudaStream_t)stream;
+#define ATOMA_COMBINE(D)                                                                      \
+  if (head_dim == D) {                                                                        \
+    rpa_combine_kernel<D><<<grid, 128, 0, st>>>(                                              \
+        (const float*)ws_o, (const float*)ws_ml, (__nv_bfloat16*)out, (const int*)seq_lens,  \
+        (const int*)query_start_loc, (const int*)num_seqs, num_tokens, num_q_heads, group,   \
+        bq, splits, min_tiles, window);                                                       \
+    return (int)cudaGetLastError();                                                           \
+  }
+  ATOMA_COMBINE(32)
+  ATOMA_COMBINE(64)
+  ATOMA_COMBINE(128)
+#undef ATOMA_COMBINE
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename C>
@@ -613,10 +636,26 @@ int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
 
 }  // namespace atoma
 
+// The merge of a split attention launch's rows: ws_o f32 [splits, T, Hq, D],
+// ws_ml f32 [splits, T, Hq, 2] (splits > 1), out bf16 [T, Hq, D]; bq the
+// query tokens a tile (1 for the fused decode kernel), min_tiles and window
+// as the attention launch's. One library defines it (paged_attention.cu).
+#define ATOMA_SPLIT_COMBINE_ENTRY                                                             \
+  extern "C" int atoma_paged_attention_split_combine(                                         \
+      const void* ws_o, const void* ws_ml, void* out, const void* seq_lens,                   \
+      const void* query_start_loc, const void* num_seqs, int num_tokens, int num_q_heads,     \
+      int num_kv_heads, int head_dim, int bq, int splits, int min_tiles, int window,          \
+      void* stream) {                                                                         \
+    return atoma::rpa_combine_entry(ws_o, ws_ml, out, seq_lens, query_start_loc, num_seqs,    \
+                                    num_tokens, num_q_heads, num_kv_heads, head_dim, bq,      \
+                                    splits, min_tiles, window, stream);                       \
+  }
+
 // The tensor-core entry points of one cache kind (C its element type):
 // q and out bf16 [T, Hq, D]; cache, scales, block tables and lengths as the
 // ragged entry's; ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq,
-// 2] when splits > 1 (else null); warps 4 or 8 (64 or 128 rows a tile).
+// 2] when splits > 1 (else null); warps 4 or 8 (64 or 128 rows a tile). A
+// launch with splits > 1 is followed by atoma_paged_attention_split_combine.
 #define ATOMA_RPA_MMA_ENTRIES(SUFFIX, C)                                                      \
   extern "C" int atoma_ragged_paged_attention_mma##SUFFIX(                                    \
       const void* q, const void* cache, const void* scales, const void* block_tables,        \

@@ -11,10 +11,13 @@
 //     group-local halves (rows g*G + r in the low nibble, rows g*G + G/2 + r
 //     in the high nibble), each stored as q + 8: qmm_mma_kernel<4, ...> or
 //     qmm_float_kernel<T, 4>, by the same rule;
-//   * kernel H (qmm_w8a8_kernel<T, BITS>): the ATOMA_W8A8 branch, int8
-//     activations (quantized per token by the caller) against int8 or int4
-//     weights, each group's dot an exact int32 (__dp4a), times the group's
-//     scale in f32, times the token's scale on the output.
+//   * kernel H: the ATOMA_W8A8 branch, int8 activations (quantized per
+//     token by the caller) against int8 or int4 weights, each group's dot an
+//     exact int32, times the group's scale in f32, times the token's scale
+//     on the output. On the int8 tensor cores (qmm_w8a8_mma_kernel, mma.sync
+//     m16n8k32 s8) where the shape allows (N % 16 == 0, groups of whole k32
+//     steps: G % 32 == 0 for int8, G % 64 == 0 for int4, 16-byte aligned
+//     operands); other shapes on the CUDA cores (qmm_w8a8_kernel, __dp4a).
 // Scales s are bf16 [K/G, N]. Every group's dot is accumulated on its own
 // (f32 for F and G, int32 for H) and multiplied by that group's scale before
 // it is added into the f32 output sum: the rounding structure of _scaled_dot
@@ -76,8 +79,9 @@
 // Its products run on the CUDA cores, one int-to-float conversion and one
 // fma per weight per row, and prefill rows re-read the weight slab from L2
 // once per 4-row tile: decode takes 3-10x its bytes bound and a prefill
-// chunk far more (PERF.md). H's integer dots on the tensor cores are later
-// work.
+// chunk far more (PERF.md). Kernel H's tensor-core route (qmm_w8a8_mma_kernel,
+// below qmm_mma_kernel) reuses MmaTile's tile, ring and K splits with int8
+// x and exact int32 group dots.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -815,6 +819,359 @@ __global__ void __launch_bounds__(128 * WM)
     }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel H on the int8 tensor cores (int8 activations, see the note at the
+// top). The tile, grid and ring are MmaTile's; what differs:
+//  * x is int8, so a 128-byte row chunk of the x tile holds 128 k, and an
+//    int8 m16n8k32 A fragment has the byte layout of a bf16 m16n8k16 one:
+//    the same ldmatrix_x4 over two 16-byte chunks gives it;
+//  * a weight step is 32 rows (one k32 mma). A k tile is 128 weight rows
+//    (16 KB): INT8 128 k, 4 passes against one x sub-tile; INT4 128 packed
+//    rows (256 k), each step read twice (low nibbles against the x columns
+//    of the group's first half, high nibbles against its second half), 8
+//    passes against two x sub-tiles;
+//  * B fragments come from the raw tile as kernel I's int8 form takes them:
+//    lane (gid, tig) loads the words of columns wn + 4 gid .. + 3 at rows
+//    32 s + 4 tig + i and + 16 (i = 0..3), and transpose4x4 turns each four
+//    into the B registers of four n8 tiles. INT4 nibbles are unbiased by 8
+//    per byte (__vsub4). No widening: the products are exact integers;
+//  * the group's dots accumulate in int32 (exact: |x|, |q| <= 127 over at
+//    most 2^17 rows, the wrapper checks), converted once (cvt.rn.f32.s32)
+//    and scaled into the f32 totals by fmaf when the group ends, as the
+//    CUDA-core H does; the token's scale multiplies the output in the
+//    epilogue, or in split_reduce_kernel when K is split.
+// ---------------------------------------------------------------------------
+template <int BITS, int MT, int WM>
+struct W8a8Tile {
+  static constexpr int kThreads = 128 * WM;
+  static constexpr int kBM = 16 * MT * WM;              // activation rows a block
+  static constexpr int kWRows = 128;                    // weight rows a tile (16 KB)
+  static constexpr int kWSteps = kWRows / 32;           // k32 weight steps a tile
+  static constexpr int kXSubs = BITS == 8 ? 1 : 2;      // x sub-tiles, 128 bytes a row each
+  static constexpr int kPasses = kWSteps * kXSubs;      // mma passes a tile
+  static constexpr int kXTile = kXSubs * kBM * 128;
+  static constexpr int kWTile = kWRows * kMmaBN;
+  static constexpr int kStage = kXTile + kWTile + kWSteps * kScaleRow;
+#ifdef ATOMA_QMM_STAGES
+  static constexpr int kStages = ATOMA_QMM_STAGES;
+#else
+  static constexpr int kStages = 3;                     // k tiles in the cp.async ring
+#endif
+  static constexpr int kSmem = kStages * kStage;
+  static constexpr int kRowStep = kThreads / 8;
+  // Pass u's weight step (and x chunk pair) and x sub-tile; whether it is
+  // the first or last pass of its weight step.
+  __host__ __device__ static constexpr int wstep(int u) { return BITS == 8 ? u : u >> 1; }
+  __host__ __device__ static constexpr int xsub(int u) { return BITS == 8 ? 0 : u & 1; }
+  __host__ __device__ static constexpr bool first(int u) { return BITS == 8 || !(u & 1); }
+  __host__ __device__ static constexpr bool last(int u) { return BITS == 8 || (u & 1); }
+};
+
+
+// Four bytes of packed int4 (stored as q + 8), their low (high == 0) or high
+// nibbles as four int8 values q.
+__device__ __forceinline__ uint32_t unbias_nibbles(uint32_t w, int high) {
+  return __vsub4((high ? w >> 4 : w) & 0x0F0F0F0Fu, 0x08080808u);
+}
+
+template <int MT>
+struct W8a8Frags {
+  uint32_t a[MT][4];
+  uint32_t b[4][2];
+  uint4 sc;
+};
+
+// xq: int8 [M, K]; q: int8 [K, N] or packed int4 [K/2, N]; scales: bf16
+// [K/G, N]; act: f32 [M]; out: OutT [M, N]; ws: f32 [splits, M, N] or null
+// (one split). All 16-byte aligned, N % 16 == 0, G % 32 == 0 (int8) or
+// G % 64 == 0 (int4): the wrapper and the entry point check.
+template <int BITS, int MT, int WM, typename OutT>
+__global__ void __launch_bounds__(128 * WM)
+    qmm_w8a8_mma_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ scales, const float* __restrict__ act,
+                        OutT* __restrict__ out, float* __restrict__ ws, int M, int N, int K,
+                        int G, int gps) {
+  using T = W8a8Tile<BITS, MT, WM>;
+  constexpr int kStages = T::kStages;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * kMmaBN, m0 = blockIdx.y * T::kBM;
+  const int wn = (warp & 3) * 32, wm = (warp >> 2) * 16 * MT;
+  const int rg = BITS == 8 ? G : G / 2;  // weight rows a group
+  const int g_begin = blockIdx.z * gps;
+  const int g_end = min(K / G, g_begin + gps);
+  const int r_begin = g_begin * rg, r_end = g_end * rg;
+  const int num_tiles = (r_end - r_begin + T::kWRows - 1) / T::kWRows;
+  const uint32_t smem0 = smem_addr(smem);
+
+  // The ring's copies (see qmm_mma_kernel). Thread tid copies 16-byte chunk
+  // cc = tid % 8 of rows tid / 8 + kRowStep i. Weights: chunks swizzled by
+  // the row's bits 2-3 (the rows one B load reads, 4 tig + i, differ there).
+  // x: chunk cc of sub-tile h holds 16 x columns of weight step cc / 2:
+  // int8 columns k0 + 16 cc of the tile starting at k0; int4 packed rows
+  // R .. R + 15 (R = r0 + 16 cc) of group gr pair with x columns R + gr rg
+  // (low, h = 0) and R + (gr + 1) rg (high, h = 1). Chunks swizzled by the
+  // row's low 3 bits. Rows past M and steps past the split are zero (a zero
+  // int4 byte is -8, so x must be). Scales: weight step s's group row in
+  // slot s, copied only where the step ends its group.
+  const int cc = tid & 7, cr = tid >> 3;
+  const int xs = cc >> 1;    // the weight step of this thread's x chunk
+  const int ss = tid >> 4;   // the weight step of its scale chunk (tid < 16 kWSteps)
+  const int sc = tid & 15;   // ... and the chunk
+  const int8_t* wsrc = q + (long long)(r_begin + cr) * N + n0 + 16 * cc;
+  const long long wstep = (long long)T::kRowStep * N;
+  const uint32_t wdst = T::kXTile + cr * 128 + ((cc ^ (((cr >> 2) & 3) << 1)) << 4);
+  const bool wcol_ok = n0 + 16 * cc < N;
+  const int8_t* xsrc = xq + (long long)(m0 + cr) * K + 16 * cc;
+  const long long xstep = (long long)T::kRowStep * K;
+  const uint32_t xdst = cr * 128 + ((cc ^ (cr & 7)) << 4);
+  uint32_t xrows_ok = 0;
+#pragma unroll
+  for (int i = 0; i < T::kBM / T::kRowStep; ++i)
+    xrows_ok |= (uint32_t)(m0 + cr + i * T::kRowStep < M) << i;
+  const bool scol_ok = n0 + 8 * sc < N;
+  int load_r = r_begin, load_g = g_begin, load_left = rg;  // at the next tile to load
+  auto load_tile = [&](uint32_t st) {
+#ifdef ATOMA_QMM_MMA_ONLY
+    return;
+#endif
+    const int rows_left = r_end - load_r;
+#pragma unroll
+    for (int i = 0; i < T::kWRows / T::kRowStep; ++i) {
+      const bool ok = wcol_ok && cr + i * T::kRowStep < rows_left;
+      cp_async16(st + wdst + i * T::kRowStep * 128, ok ? wsrc + i * wstep : q, ok);
+    }
+    wsrc += (long long)T::kWRows * N;
+    int g = load_g, left = load_left, x_g = 0, s_g = 0;
+    bool s_end = false;
+#pragma unroll
+    for (int s = 0; s < T::kWSteps; ++s) {
+      if (s == xs) x_g = g;
+      if (s == ss) s_g = g, s_end = left == 32;
+      left -= 32;
+      if (left == 0) ++g, left = rg;
+    }
+    load_g = g;
+    load_left = left;
+    const bool step_ok = 32 * xs < rows_left;
+#pragma unroll
+    for (int h = 0; h < T::kXSubs; ++h) {
+      const int xk = BITS == 8 ? load_r : load_r + (x_g + h) * rg;
+#pragma unroll
+      for (int i = 0; i < T::kBM / T::kRowStep; ++i) {
+        const bool ok = step_ok && ((xrows_ok >> i) & 1);
+        cp_async16(st + xdst + (h * T::kBM + i * T::kRowStep) * 128,
+                   ok ? xsrc + i * xstep + xk : xq, ok);
+      }
+    }
+    if (tid < T::kWSteps * 16 && s_end && 32 * ss < rows_left)
+      cp_async16(st + T::kXTile + T::kWTile + ss * kScaleRow + 16 * sc,
+                 scol_ok ? scales + (long long)s_g * N + n0 + 8 * sc : scales, scol_ok);
+    load_r += T::kWRows;
+  };
+  // How many of the next tile's weight steps hold rows, and which of them
+  // start a group (bit s of starts) or end one (bit s of ends); called for
+  // the tiles in order.
+  int use_r = r_begin, use_left = rg;
+  auto steps_of = [&](int& valid, uint32_t& starts, uint32_t& ends) {
+    valid = min(T::kWSteps, (r_end - use_r) / 32);
+    starts = ends = 0;
+#pragma unroll
+    for (int s = 0; s < T::kWSteps; ++s) {
+      if (s < valid) {
+        if (use_left == rg) starts |= 1u << s;
+        use_left -= 32;
+        if (use_left == 0) ends |= 1u << s, use_left = rg;
+      }
+    }
+    use_r += T::kWRows;
+  };
+
+  // Fragment addresses. A: lane l gives row l % 16 of an m16 tile and chunk
+  // l / 16 of the step's pair; its swizzle is l % 8. B: lane (gid, tig)
+  // reads the word of columns wn + 4 gid .. + 3 (chunk wn / 16 + gid / 4,
+  // word gid % 4) at rows 32 s + 4 tig + i and 32 s + 16 + 4 tig + i, whose
+  // swizzle is tig << 1.
+  const uint32_t a_off = (wm + (lane & 15)) * 128;
+  const uint32_t b_off = T::kXTile + 4 * tig * 128 +
+                         (((wn / 16 + (gid >> 2)) ^ (tig << 1)) << 4) + 4 * (gid & 3);
+  const uint32_t s_off = T::kXTile + T::kWTile + 2 * (wn + 8 * tig);
+  auto load_a = [&](uint32_t st, int u, uint32_t (&a)[MT][4]) {
+#ifdef ATOMA_QMM_MMA_ONLY
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[mi][r] = st + 16 * (4 * mi + r) + u;
+    return;
+#endif
+    const uint32_t chunk = ((2 * T::wstep(u) + (lane >> 4)) ^ (lane & 7)) << 4;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+      ldmatrix_x4(a[mi], st + T::xsub(u) * T::kBM * 128 + a_off + mi * 16 * 128 + chunk);
+  };
+  auto load_b = [&](uint32_t st, int s, uint32_t (&bw)[8]) {
+#ifdef ATOMA_QMM_MMA_ONLY
+#pragma unroll
+    for (int i = 0; i < 8; ++i) bw[i] = st + i + s;
+    return;
+#endif
+    const uint32_t base = st + b_off + 32 * s * 128;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      bw[i] = lds32(base + i * 128);
+      bw[4 + i] = lds32(base + (16 + i) * 128);
+    }
+  };
+  // B fragments of pass u from its weight step's raw words.
+  auto convert = [&](const uint32_t (&bw)[8], int u, uint32_t (&b)[4][2]) {
+    uint32_t t0[4], t1[4];
+    transpose4x4(bw, t0);
+    transpose4x4(bw + 4, t1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (BITS == 8) {
+        b[j][0] = t0[j];
+        b[j][1] = t1[j];
+      } else {
+        b[j][0] = unbias_nibbles(t0[j], u & 1);
+        b[j][1] = unbias_nibbles(t1[j], u & 1);
+      }
+    }
+  };
+
+  // acc: the current group's exact dots (written afresh by its first
+  // pass); tot: the scaled sum over groups.
+  int acc[MT][4][4];
+  float tot[MT][4][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0, tot[mi][j][r] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < num_tiles) load_tile(smem0 + s * T::kStage);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+
+  int valid = 0, next_valid = 0;
+  uint32_t starts = 0, ends = 0, next_starts = 0, next_ends = 0;
+  steps_of(valid, starts, ends);
+  W8a8Frags<MT> frag[2];
+  uint32_t bw[8];
+  load_a(smem0, 0, frag[0].a);
+  load_b(smem0, 0, bw);
+  convert(bw, 0, frag[0].b);
+  if (T::last(0) && (ends & 1)) frag[0].sc = lds128(smem0 + s_off);
+  for (int kt = 0; kt < num_tiles; ++kt) {
+    const uint32_t stage = smem0 + (kt % kStages) * T::kStage;
+    if (kt + kStages - 1 < num_tiles) load_tile(smem0 + ((kt + kStages - 1) % kStages) * T::kStage);
+    cp_async_commit();
+#pragma unroll
+    for (int u = 0; u < T::kPasses; ++u) {
+      const int s = T::wstep(u);
+      W8a8Frags<MT>& cur = frag[u & 1];
+      W8a8Frags<MT>& nxt = frag[(u + 1) & 1];
+      bool more = true;
+      if (u + 1 < T::kPasses) {
+        const int ns = T::wstep(u + 1);
+        load_a(stage, u + 1, nxt.a);
+        if (ns != s) load_b(stage, ns, bw);
+        if (T::last(u + 1) && ((ends >> ns) & 1)) nxt.sc = lds128(stage + s_off + ns * kScaleRow);
+      } else {
+        cp_async_wait<kStages - 2>();  // tile kt + 1 has landed
+        __syncthreads();
+        more = kt + 1 < num_tiles;
+        if (more) {
+          const uint32_t next = smem0 + ((kt + 1) % kStages) * T::kStage;
+          steps_of(next_valid, next_starts, next_ends);
+          load_a(next, 0, nxt.a);
+          load_b(next, 0, bw);
+          if (T::last(0) && (next_ends & 1)) nxt.sc = lds128(next + s_off);
+        }
+      }
+      const bool fresh = T::first(u) && ((starts >> s) & 1);
+      if (s < valid) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#ifdef ATOMA_QMM_NO_MMA
+            asm volatile("" ::"r"(cur.a[mi][0]), "r"(cur.a[mi][1]), "r"(cur.a[mi][2]),
+                         "r"(cur.a[mi][3]), "r"(cur.b[j][0]), "r"(cur.b[j][1]));
+#else
+            if (fresh)
+              mma_int8_fresh(acc[mi][j], cur.a[mi], cur.b[j][0], cur.b[j][1]);
+            else
+              mma_int8(acc[mi][j], cur.a[mi], cur.b[j][0], cur.b[j][1]);
+#endif
+          }
+      }
+      if (more) convert(bw, (u + 1) % T::kPasses, nxt.b);
+      if (T::last(u) && ((ends >> s) & 1)) {
+        // The group's dots are complete and exact: convert, scale into the
+        // total. Accumulator r of n8 tile j holds column 4 (r % 2) + j of
+        // the thread's 8.
+        const uint32_t words[4] = {cur.sc.x, cur.sc.y, cur.sc.z, cur.sc.w};
+        float scale[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          scale[c] = __uint_as_float(c & 1 ? words[c >> 1] & 0xFFFF0000u : words[c >> 1] << 16);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              tot[mi][j][r] = fmaf(__int2float_rn(acc[mi][j][r]), scale[4 * (r & 1) + j],
+                                   tot[mi][j][r]);
+      }
+    }
+    valid = next_valid;
+    starts = next_starts;
+    ends = next_ends;
+  }
+
+  // The epilogue as qmm_mma_kernel's: a row's 8 values are adjacent; the
+  // token's scale multiplies them unless K is split.
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + wm + 16 * mi + gid + 8 * half;
+      const int col = n0 + wn + 8 * tig;
+      if (row >= M || col >= N) continue;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) v[4 * c + j] = tot[mi][j][2 * half + c];
+      if (ws != nullptr) {
+        float4* dst = reinterpret_cast<float4*>(ws + ((long long)blockIdx.z * M + row) * N + col);
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+        continue;
+      }
+      const float a = act[row];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) v[c] *= a;
+      if constexpr (sizeof(OutT) == 2) {
+        *reinterpret_cast<uint4*>(out + (long long)row * N + col) =
+            make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                       pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+      } else {
+        float4* dst = reinterpret_cast<float4*>(out + (long long)row * N + col);
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+}
+
 struct Plan {
   dim3 grid;
   int rc;
@@ -994,6 +1351,72 @@ int qmm_mma_entry(const void* x, const void* q, const void* scales, void* out, v
   }
 }
 
+template <int BITS, int MT, int WM, typename OutT>
+cudaError_t w8a8_mma_attributes() {
+  static const cudaError_t err = [] {
+    return cudaFuncSetAttribute(qmm_w8a8_mma_kernel<BITS, MT, WM, OutT>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                W8a8Tile<BITS, MT, WM>::kSmem);
+  }();
+  return err;
+}
+
+template <int BITS, int MT, int WM>
+int w8a8_mma_blocks_per_sm() {
+  using T = W8a8Tile<BITS, MT, WM>;
+  if (w8a8_mma_attributes<BITS, MT, WM, __nv_bfloat16>() != cudaSuccess) return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, qmm_w8a8_mma_kernel<BITS, MT, WM, __nv_bfloat16>, T::kThreads, T::kSmem) !=
+      cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <int BITS, int MT, int WM, typename OutT>
+int launch_w8a8_mma(const void* xq, const void* q, const void* scales, const void* act, void* out,
+                    void* ws, int M, int N, int K, int G, int gps, int splits,
+                    cudaStream_t stream) {
+  using T = W8a8Tile<BITS, MT, WM>;
+  const cudaError_t opt_in = w8a8_mma_attributes<BITS, MT, WM, OutT>();
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  float* w = splits > 1 ? (float*)ws : nullptr;
+  const dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + T::kBM - 1) / T::kBM, splits);
+  qmm_w8a8_mma_kernel<BITS, MT, WM, OutT><<<grid, T::kThreads, T::kSmem, stream>>>(
+      (const int8_t*)xq, (const int8_t*)q, (const __nv_bfloat16*)scales, (const float*)act,
+      (OutT*)out, w, M, N, K, G, gps);
+  if (splits > 1) {
+    const long long mn = (long long)M * N;
+    split_reduce_kernel<OutT><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
+        w, (const float*)act, (OutT*)out, M, N, splits);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, typename OutT>
+int w8a8_mma_rows(const void* xq, const void* q, const void* scales, const void* act, void* out,
+                  void* ws, int M, int N, int K, int G, int block_rows, int gps, int splits,
+                  cudaStream_t st) {
+  switch (block_rows) {
+    case 16:
+      return launch_w8a8_mma<BITS, 1, 1, OutT>(xq, q, scales, act, out, ws, M, N, K, G, gps,
+                                               splits, st);
+    case 32:
+      return launch_w8a8_mma<BITS, 2, 1, OutT>(xq, q, scales, act, out, ws, M, N, K, G, gps,
+                                               splits, st);
+    case 64:
+      return launch_w8a8_mma<BITS, 4, 1, OutT>(xq, q, scales, act, out, ws, M, N, K, G, gps,
+                                               splits, st);
+    case 128:
+      return launch_w8a8_mma<BITS, 4, 2, OutT>(xq, q, scales, act, out, ws, M, N, K, G, gps,
+                                               splits, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Largest group the int32 dots take: 127 * 127 * 2^17 < 2^31.
+constexpr int kW8a8MaxGroup = 1 << 17;
+
 }  // namespace
 
 // x: [M, K] bf16 (x_is_bf16 = 1) or f32, contiguous; q: int8 [K, N]
@@ -1065,6 +1488,51 @@ extern "C" int atoma_qmm_i4_mma(const void* x, const void* q, const void* scales
                                 void* ws, int M, int N, int K, int G, int block_rows, int gps,
                                 void* stream) {
   return qmm_mma_entry<4>(x, q, scales, out, ws, M, N, K, G, block_rows, gps, stream);
+}
+
+// Kernel H on the int8 tensor cores. xq: int8 [M, K]; q: int8 [K, N] (bits
+// 8, G % 32 == 0) or int4-packed [K/2, N] (bits 4, G % 64 == 0), G at most
+// 2^17; scales: bf16 [K/G, N]; act: f32 [M]; out: [M, N] bf16 (out_is_bf16
+// = 1) or f32; xq, q, scales and out contiguous and 16-byte aligned, N % 16
+// == 0. block_rows, gps and ws as for atoma_qmm_i8_mma.
+extern "C" int atoma_qmm_w8a8_mma(const void* xq, const void* q, const void* scales,
+                                  const void* act, void* out, void* ws, int M, int N, int K,
+                                  int G, int bits, int out_is_bf16, int block_rows, int gps,
+                                  void* stream) {
+  if (M < 1 || N < 16 || N % 16 != 0 || G <= 0 || G > kW8a8MaxGroup || K < G || K % G != 0 ||
+      (bits != 8 && bits != 4) || G % (bits == 8 ? 32 : 64) != 0 || gps < 1 || act == nullptr)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {xq, q, scales, (const void*)out})
+    if ((uintptr_t)p % 16 != 0) return (int)cudaErrorInvalidValue;
+  const int splits = (K / G + gps - 1) / gps;
+  if (splits > 1 && (ws == nullptr || (uintptr_t)ws % 16 != 0)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bits == 8)
+    return out_is_bf16 ? w8a8_mma_rows<8, __nv_bfloat16>(xq, q, scales, act, out, ws, M, N, K, G,
+                                                         block_rows, gps, splits, st)
+                       : w8a8_mma_rows<8, float>(xq, q, scales, act, out, ws, M, N, K, G,
+                                                 block_rows, gps, splits, st);
+  return out_is_bf16 ? w8a8_mma_rows<4, __nv_bfloat16>(xq, q, scales, act, out, ws, M, N, K, G,
+                                                       block_rows, gps, splits, st)
+                     : w8a8_mma_rows<4, float>(xq, q, scales, act, out, ws, M, N, K, G,
+                                               block_rows, gps, splits, st);
+}
+
+// Resident blocks an SM of one kernel H tensor-core instantiation (bits 8
+// or 4, block_rows 16, 32, 64 or 128; bf16 output), or -1.
+extern "C" int atoma_qmm_w8a8_mma_blocks_per_sm(int bits, int block_rows) {
+  const int b = bits == 8 ? 0 : 1;
+  switch (block_rows * 2 + b) {
+    case 32: return w8a8_mma_blocks_per_sm<8, 1, 1>();
+    case 33: return w8a8_mma_blocks_per_sm<4, 1, 1>();
+    case 64: return w8a8_mma_blocks_per_sm<8, 2, 1>();
+    case 65: return w8a8_mma_blocks_per_sm<4, 2, 1>();
+    case 128: return w8a8_mma_blocks_per_sm<8, 4, 1>();
+    case 129: return w8a8_mma_blocks_per_sm<4, 4, 1>();
+    case 256: return w8a8_mma_blocks_per_sm<8, 4, 2>();
+    case 257: return w8a8_mma_blocks_per_sm<4, 4, 2>();
+    default: return -1;
+  }
 }
 
 // Resident blocks an SM of one tensor-core instantiation (bits 8 or 4,

@@ -16,12 +16,18 @@ Replaces the TPU kernel ``atoma_infer_tpu/ops/paged_attention.py:_kernel``:
   writes the token-major ``[T, Hq, D]`` output directly (the TPU kernel's
   entry-major windows and their reassembly have no counterpart).
 * **B** ``fused_decode_attention`` ← ``ragged_paged_attention_fused`` (:1093,
-  ``fuse_write=True``): one block per (sequence, kv head) for a pure-decode
-  batch; it writes its head's slice of the new K/V row into the slot, then
-  attends over the cache, the new position read back from it; its 4 warps
-  split the keys and merge their softmax states at the end, and each warp
-  keeps 8 V-row loads in flight in its P·V loop. It is instantiated for 1
-  to 8 query heads per kv head.
+  ``fuse_write=True``) for a pure-decode batch: each row writes its head's
+  slice of the new K/V row into the slot, then attends over the cache, the
+  new position read back from it. Two routes by the queries' dtype, each
+  instantiated for 1 to 8 query heads per kv head:
+  - bf16 queries (``*_split``, ``csrc/fused_decode_split.cuh``): blocks of
+    (kv head, sequence, KV split), the splits from shapes alone
+    (:func:`fused_split_plan`), only the split holding the new key writing
+    it; K through a ``cp.async`` ring, Q·Kᵀ and P·V on ``mma.sync``; split
+    rows merged by ``paged_attention_split_combine`` (the ragged kernel's
+    log-sum-exp merge, its own launch);
+  - f32 queries (``fused_decode_kernel``, ``csrc/paged_attention.cuh``): one
+    block per (sequence, kv head), its 4 warps splitting the keys.
 * **D** ``*_int8``: A and B over an INT8 cache with one bf16 scale per
   (slot, K/V) (``quant=True``: ``ragged_paged_attention_pallas(kv_scales=…)``
   and ``ragged_paged_attention_fused_quant`` :1132). The fused kernel
@@ -115,6 +121,23 @@ RAGGED_ATTENTION_MMA = {
     for kind, suffix in ((None, ""), (torch.int8, "_int8"), (torch.float8_e4m3fn, "_fp8"))
 }
 
+# The fused decode kernel for bf16 queries, split across blocks
+# (csrc/fused_decode_split.cuh), by cache kind.
+_SPLIT_ARGS = [PTR] * 14 + [INT] * 7 + [LONG, INT, INT, FLOAT, INT, FLOAT, PTR]
+FUSED_DECODE_SPLIT = {
+    kind: _register(
+        f"{FUSED_DECODE[kind].name}_split", f"fused_decode_split{suffix}.cu",
+        f"atoma_fused_decode_attention_split{suffix}", _SPLIT_ARGS, FUSED_DECODE[kind].replaces)
+    for kind, suffix in ((None, ""), (torch.int8, "_int8"), (torch.float8_e4m3fn, "_fp8"))
+}
+# The merge of split rows (rpa_combine_kernel), after a split ragged or
+# fused launch: the online softmax's merge, across blocks.
+SPLIT_COMBINE = _register(
+    "paged_attention_split_combine", "paged_attention.cu", "atoma_paged_attention_split_combine",
+    [PTR] * 6 + [INT] * 8 + [PTR],
+    "atoma_infer_tpu/ops/paged_attention.py:139 (_kernel: the online softmax over a row's "
+    "key blocks, merged across the blocks of a KV split)")
+
 # The tensor-core kernel's geometry, mirrored from csrc/paged_attention_mma.cuh:
 # keys a tile (kRpaKT) and the rows of a warp's m16 tile.
 RPA_KEY_TILE = 64
@@ -124,6 +147,11 @@ RPA_WARP_ROWS = 16
 # f32 workspace of a 256-token step small).
 RPA_MIN_TILES = 2
 RPA_MAX_SPLITS = 16
+# The split fused decode kernel's splits take at least this many key tiles
+# (512 keys): below that the merge's launch costs more than the split saves
+# (a decode step of 8 rows of 50-330 keys on an H100: 1.5-2.5 µs more with
+# any split; tools/rpa_ablation.py --mode fused).
+FUSED_MIN_TILES = 8
 
 
 def num_splits_heuristic(blocks: int, slots: int, n_blocks: int, max_splits: int) -> int:
@@ -222,6 +250,65 @@ def rpa_plan_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> RpaPlan:
         slots=_rpa_slots(kind, D, rpa_warps(group, max_q_len, S), q.device.index or 0))
 
 
+def split_key_ranges(pos: int, window: Optional[int], splits: int, min_tiles: int):
+    """The key ranges [lo, hi) the splits of one decode row (its query at
+    ``pos``) take, as the kernels cut them (``rpa_tile_keys`` and
+    ``rpa_split_count``): whole 64-key tiles from the window's first key to
+    ``pos``, at most ``splits`` ranges of at least ``min_tiles`` tiles (the
+    split fused kernel's: ``FUSED_MIN_TILES``)."""
+    lo = max(0, pos - window + 1) if window else 0
+    t_lo = lo // RPA_KEY_TILE
+    n_tiles = pos // RPA_KEY_TILE + 1 - t_lo
+    nsplit = max(1, min(splits, -(-n_tiles // min_tiles)))
+    return [(max(lo, (t_lo + n_tiles * i // nsplit) * RPA_KEY_TILE),
+             min(pos + 1, (t_lo + n_tiles * (i + 1) // nsplit) * RPA_KEY_TILE))
+            for i in range(nsplit)]
+
+
+@functools.lru_cache(maxsize=None)
+def fused_split_plan(*, num_seq_slots: int, max_keys: int, num_kv_heads: int,
+                     slots: int) -> int:
+    """The most KV splits a decode row of the split fused kernel takes,
+    from shapes alone: FA2's heuristic on the grid of (kv head, sequence
+    slot) blocks against ``slots``, the blocks the card holds at once
+    (:func:`_fused_slots`), counting the block table's width (P × block
+    size) in splits of ``FUSED_MIN_TILES`` key tiles. Never ``seq_lens``."""
+    key_tiles = -(-max_keys // RPA_KEY_TILE)
+    return num_splits_heuristic(num_seq_slots * num_kv_heads, slots,
+                                -(-key_tiles // FUSED_MIN_TILES), RPA_MAX_SPLITS)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_slots(kind, head_dim: int, group: int, device: int) -> int:
+    """The blocks of one split fused instantiation the card holds at once."""
+    kernel = FUSED_DECODE_SPLIT[kind]
+    suffix = kernel.symbol[len("atoma_fused_decode_attention_split"):]
+    fn = getattr(cuda_lib.load(kernel.source), f"atoma_fused_split_blocks_per_sm{suffix}")
+    fn.argtypes, fn.restype = [INT, INT], INT
+    per_sm = fn(head_dim, group)
+    if per_sm < 1:
+        raise RuntimeError(f"fused_decode_attention: no occupancy for D={head_dim}, G={group}")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fused_splits_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> int:
+    """The splits a bf16 call of :func:`ragged_paged_attention_fused_cuda`
+    launches with: :func:`fused_split_plan` on the call's shapes and this
+    card's occupancy."""
+    T, Hq, D = q.shape
+    S, P = meta.block_tables.shape
+    return fused_split_plan(
+        num_seq_slots=S, max_keys=P * meta.block_size, num_kv_heads=num_kv_heads,
+        slots=_fused_slots(kind, D, Hq // num_kv_heads, q.device.index or 0))
+
+
+def fused_route(q: torch.Tensor, kind) -> cuda_lib.CudaKernel:
+    """The fused decode kernel a CUDA call takes: bf16 queries the split
+    kernel (``*_split``) over every cache kind; f32 queries
+    ``fused_decode_kernel``, the f32 test-size services' traffic."""
+    return FUSED_DECODE_SPLIT[kind] if q.dtype == torch.bfloat16 else FUSED_DECODE[kind]
+
+
 def ragged_route(q: torch.Tensor, kind) -> cuda_lib.CudaKernel:
     """The ragged kernel a CUDA call takes: bf16 queries the tensor cores
     (``*_mma``) over every cache kind; f32 queries the CUDA cores
@@ -261,6 +348,33 @@ def fused_decode_attention_plain(
         q, kv_cache, meta, scale=scale, sliding_window=sliding_window,
         soft_cap=soft_cap, alibi_slopes=alibi_slopes, kv_scales=kv_scales,
     )
+
+
+def split_combine_plain(ws_o, ws_ml, out, meta, *, bq, splits, min_tiles,
+                        window=None) -> torch.Tensor:
+    """Plain version of the split merge (``rpa_combine_kernel``): each
+    token row whose query tile took several splits becomes the log-sum-exp
+    merge of its splits' unnormalized (O, m, l), summed in split order; the
+    other rows are left as they are. ``out`` is written in place."""
+    qsl = meta.query_start_loc.tolist()
+    seq_lens = meta.seq_lens.tolist()
+    for s in range(int(meta.num_seqs.reshape(-1)[0])):
+        q_start, q_len = qsl[s], qsl[s + 1] - qsl[s]
+        for tok0 in range(0, q_len, bq):
+            first = seq_lens[s] - q_len + tok0
+            last = first + min(bq, q_len - tok0) - 1
+            lo = max(0, first - window + 1) if window else 0
+            n_tiles = last // RPA_KEY_TILE + 1 - lo // RPA_KEY_TILE
+            nsplit = max(1, min(splits, -(-n_tiles // min_tiles)))
+            if nsplit == 1:
+                continue
+            rows = slice(q_start + tok0, q_start + min(q_len, tok0 + bq))
+            m, l = ws_ml[:nsplit, rows, :, 0], ws_ml[:nsplit, rows, :, 1]
+            w = torch.where(m == float("-inf"), torch.zeros_like(m), torch.exp(m - m.amax(0)))
+            acc = (w[..., None] * ws_o[:nsplit, rows]).sum(0)
+            total = (w * l).sum(0)[..., None]
+            out[rows] = torch.where(total > 0, acc / total, torch.zeros_like(acc)).to(out.dtype)
+    return out
 
 
 # ------------------------------------------------------------------ wrappers
@@ -405,7 +519,23 @@ def ragged_paged_attention_mma_launch(
         float(scale), _window(sliding_window), _cap(soft_cap),
         cuda_lib.current_stream_handle(q.device),
     )
+    if plan.splits > 1:
+        split_combine(ws_o, ws_ml, out, meta, num_kv_heads=Hk, bq=plan.tokens,
+                      splits=plan.splits, min_tiles=RPA_MIN_TILES, window=sliding_window)
     return out
+
+
+def split_combine(ws_o, ws_ml, out, meta, *, num_kv_heads, bq, splits, min_tiles,
+                  window=None) -> None:
+    """Launch the merge of a split attention launch's rows (inputs, split
+    count and minimum split from that launch) into ``out``."""
+    T, Hq, D = out.shape
+    SPLIT_COMBINE(
+        ws_o.data_ptr(), ws_ml.data_ptr(), out.data_ptr(), meta.seq_lens.data_ptr(),
+        meta.query_start_loc.data_ptr(), meta.num_seqs.data_ptr(),
+        T, Hq, num_kv_heads, D, bq, splits, min_tiles, _window(window),
+        cuda_lib.current_stream_handle(out.device),
+    )
 
 
 def ragged_paged_attention_fused_cuda(
@@ -424,7 +554,9 @@ def ragged_paged_attention_fused_cuda(
     """Kernel B (D's fused variant on an int8 cache, E's on an e4m3 one;
     pure-decode batch: one query token per active sequence) → [T, Hq, D];
     the new K/V rows (and an int8 cache's scales) land in the cache as the
-    matching ``reshape_and_cache`` kernel would write them."""
+    matching ``reshape_and_cache`` kernel would write them. bf16 queries
+    take the split kernel (:func:`fused_route`, :func:`fused_splits_for`),
+    f32 queries ``fused_decode_kernel``."""
     Hk, D, S, P, kind = _check(q, kv_cache, meta, alibi_slopes, kv_scales, extra=(k_new, v_new))
     T, Hq, _ = q.shape
     if not meta.decode_only:
@@ -438,6 +570,11 @@ def ragged_paged_attention_fused_cuda(
         raise ValueError("fused_decode_attention: slot_mapping must be int32 [T] on the device")
     num_pages, bs, _ = kv_cache.shape
     out = torch.empty_like(q)
+    if fused_route(q, kind) is FUSED_DECODE_SPLIT[kind]:
+        return fused_split_launch(
+            q, kv_cache, k_new, v_new, meta, fused_splits_for(q, meta, Hk, kind), out,
+            kind=kind, scale=scale, sliding_window=sliding_window, soft_cap=soft_cap,
+            alibi_slopes=alibi_slopes, kv_scales=kv_scales)
     FUSED_DECODE[kind](
         _DTYPES[q.dtype],
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kv_cache.data_ptr(),
@@ -451,4 +588,40 @@ def ragged_paged_attention_fused_cuda(
         float(scale), _window(sliding_window), _cap(soft_cap),
         cuda_lib.current_stream_handle(q.device),
     )
+    return out
+
+
+def fused_split_launch(
+    q, kv_cache, k_new, v_new, meta, splits: int, out, *, kind, scale, sliding_window=None,
+    soft_cap=None, alibi_slopes=None, kv_scales=None, min_tiles: int = FUSED_MIN_TILES,
+) -> torch.Tensor:
+    """Launch the split fused kernel of ``kind`` with at most ``splits``
+    splits a row of at least ``min_tiles`` key tiles each (inputs already
+    checked), then the merge of split rows: the f32 workspace comes from
+    PyTorch's caching allocator per call, so the launch needs no host sync
+    and is CUDA-graph capturable."""
+    T, Hq, D = q.shape
+    S, P = meta.block_tables.shape
+    num_pages, bs, row = kv_cache.shape
+    Hk = row // (2 * D)
+    ws_o = ws_ml = None
+    if splits > 1:
+        ws_o = torch.empty((splits, T, Hq, D), dtype=torch.float32, device=q.device)
+        ws_ml = torch.empty((splits, T, Hq, 2), dtype=torch.float32, device=q.device)
+    FUSED_DECODE_SPLIT[kind](
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kv_cache.data_ptr(),
+        None if kv_scales is None else kv_scales.data_ptr(),
+        meta.slot_mapping.data_ptr(), meta.block_tables.data_ptr(),
+        meta.seq_lens.data_ptr(), meta.query_start_loc.data_ptr(), meta.num_seqs.data_ptr(),
+        None if alibi_slopes is None else alibi_slopes.data_ptr(),
+        out.data_ptr(),
+        None if ws_o is None else ws_o.data_ptr(),
+        None if ws_ml is None else ws_ml.data_ptr(),
+        T, S, Hq, Hk, D, P, bs, num_pages * bs, splits, min_tiles,
+        float(scale), _window(sliding_window), _cap(soft_cap),
+        cuda_lib.current_stream_handle(q.device),
+    )
+    if splits > 1:
+        split_combine(ws_o, ws_ml, out, meta, num_kv_heads=Hk, bq=1, splits=splits,
+                      min_tiles=min_tiles, window=sliding_window)
     return out

@@ -12,7 +12,10 @@ F and G have two routes, each a hand-written kernel with its own launch
 counter: the tensor cores (``quantized_matmul_int8_mma``,
 ``quantized_matmul_int4_mma``) for bf16 activations at the shapes
 :func:`mma_route_takes` admits, and the CUDA cores
-(``quantized_matmul_int8``, ``quantized_matmul_int4``) for the rest.
+(``quantized_matmul_int8``, ``quantized_matmul_int4``) for the rest. H
+likewise: the int8 tensor cores (``quantized_matmul_w8a8_mma``) at the
+shapes :func:`w8a8_mma_takes` admits, the CUDA cores
+(``quantized_matmul_w8a8``) for the rest (:func:`w8a8_launch`).
 
 Dispatch: CUDA tensors launch the kernels (or raise); CPU tensors take the
 plain versions, which follow the XLA branch of
@@ -82,15 +85,28 @@ QMM_I4_MMA = cuda_lib.register(
         replaces=f"{_REPLACES} -> _kernel_i4 :112",
     )
 )
+_W8A8_REPLACES = f"{_REPLACES} with ATOMA_W8A8 :35 -> _scaled_dot integer branch :65-76"
 QMM_W8A8 = cuda_lib.register(
     cuda_lib.CudaKernel(
         name="quantized_matmul_w8a8",
         source="quant_matmul.cu",
         symbol="atoma_qmm_w8a8",
         argtypes=[PTR] * 6 + [INT] * 10 + [PTR],
-        replaces=f"{_REPLACES} with ATOMA_W8A8 :35 -> _scaled_dot integer branch :65-76",
+        replaces=_W8A8_REPLACES,
     )
 )
+QMM_W8A8_MMA = cuda_lib.register(
+    cuda_lib.CudaKernel(
+        name="quantized_matmul_w8a8_mma",
+        source="quant_matmul.cu",
+        symbol="atoma_qmm_w8a8_mma",
+        argtypes=[PTR] * 6 + [INT] * 8 + [PTR],
+        replaces=_W8A8_REPLACES,
+    )
+)
+# The int32 group dots are exact up to this many rows a group: 127 · 127 · 2^17
+# < 2^31 (both routes of kernel H).
+W8A8_MAX_GROUP = 1 << 17
 
 # Launch geometry, mirrored from csrc/quant_matmul.cu: 8 warps a block,
 # 4 activation rows a block.
@@ -170,6 +186,32 @@ def mma_route_takes(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor
     )
 
 
+def w8a8_mma_takes(xq: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, *,
+                   bits: int, group_size: int) -> bool:
+    """Whether kernel H's tensor-core route takes a call: N a multiple of 16,
+    whole k32 steps in a group (``group_size`` a multiple of 32 for int8 and
+    of 64 for int4, whose packed rows hold half a group's), and the int8
+    activations, the weight and the scales 16-byte aligned. Any output
+    dtype."""
+    return (
+        qweight.shape[-1] % 16 == 0
+        and group_size % (32 if bits == 8 else 64) == 0
+        and all(t.data_ptr() % 16 == 0 for t in (xq, qweight, scales))
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _w8a8_mma_slots(bits: int, block_rows: int, device: int) -> int:
+    """The blocks of one kernel H tensor-core instantiation the card holds
+    at once (as :func:`_mma_slots`)."""
+    fn = cuda_lib.load(QMM_W8A8_MMA.source).atoma_qmm_w8a8_mma_blocks_per_sm
+    fn.argtypes, fn.restype = [INT, INT], INT
+    per_sm = fn(bits, block_rows)
+    if per_sm < 1:
+        raise RuntimeError(f"w8a8_matmul: no occupancy for {bits}-bit, {block_rows} rows")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @dataclasses.dataclass(frozen=True)
 class QmmLaunch:
     """How one F or G call launches: the kernel (route), its geometry
@@ -198,6 +240,23 @@ def qmm_launch(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, *, 
     return QmmLaunch(QMM_I8 if bits == 8 else QMM_I4,
                      (int(x.dtype == torch.bfloat16), vec, ks, rsplit, gps),
                      (splits, M, N) if splits > 1 else None)
+
+
+def w8a8_launch(xq: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, *, bits: int,
+                group_size: int) -> QmmLaunch:
+    """The route and launch plan of one kernel H call (shapes already
+    checked): the int8 tensor cores where :func:`w8a8_mma_takes` admits it,
+    with F and G's plan (:func:`mma_plan`) against H's own occupancy; else
+    the CUDA cores (``__dp4a``). A route by shape: both are kernels."""
+    M, K = xq.shape
+    N = qweight.shape[1]
+    groups = K // group_size
+    if w8a8_mma_takes(xq, qweight, scales, bits=bits, group_size=group_size):
+        slots = _w8a8_mma_slots(bits, mma_block_rows(M), xq.device.index or 0)
+        block_rows, gps, splits = mma_plan(M, N, groups, slots)
+        return QmmLaunch(QMM_W8A8_MMA, (block_rows, gps), (splits, M, N) if splits > 1 else None)
+    vec, ks, rsplit, gps, splits = _cuda_core_geometry(M, N, groups, qweight)
+    return QmmLaunch(QMM_W8A8, (vec, ks, rsplit, gps), (splits, M, N) if splits > 1 else None)
 
 
 def _check(name, tensors, qweight, scales, *, bits, group_size, M, K) -> int:
@@ -287,7 +346,8 @@ def w8a8_matmul_cuda(
     group_size: int,
     out_dtype: torch.dtype,
 ) -> torch.Tensor:
-    """Launch kernel H: exact int32 group dots, × group scale, × token scale."""
+    """Launch kernel H: exact int32 group dots, × group scale, × token scale,
+    on the int8 tensor cores or the CUDA cores by :func:`w8a8_launch`."""
     name = "w8a8_matmul"
     if xq.dtype != torch.int8 or xq.dim() != 2:
         raise ValueError(f"{name}: xq must be an int8 [M, K] matrix")
@@ -298,6 +358,9 @@ def w8a8_matmul_cuda(
             f"{name}: the integer dots take 4 rows at a time: group size {group_size} "
             f"must be a multiple of {4 if bits == 8 else 8} for {bits}-bit weights"
         )
+    if group_size > W8A8_MAX_GROUP:
+        raise ValueError(f"{name}: group size {group_size} exceeds {W8A8_MAX_GROUP} rows, past "
+                         "which an int32 group dot can overflow")
     M, K = xq.shape
     act = act_scale.reshape(-1)
     if act.dtype != torch.float32 or act.shape != (M,):
@@ -305,12 +368,12 @@ def w8a8_matmul_cuda(
     N = _check(name, (xq, qweight, scales, act), qweight, scales, bits=bits,
                group_size=group_size, M=M, K=K)
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    vec, ks, rsplit, gps, splits = _cuda_core_geometry(M, N, K // group_size, qweight)
-    ws = _workspace((splits, M, N) if splits > 1 else None, xq.device)
-    QMM_W8A8(
+    launch = w8a8_launch(xq, qweight, scales, bits=bits, group_size=group_size)
+    ws = _workspace(launch.workspace, xq.device)
+    launch.kernel(
         xq.data_ptr(), qweight.data_ptr(), scales.data_ptr(), act.data_ptr(),
         out.data_ptr(), ws.data_ptr() if ws is not None else None,
-        M, N, K, group_size, bits, int(out_dtype == torch.bfloat16), vec, ks, rsplit, gps,
+        M, N, K, group_size, bits, int(out_dtype == torch.bfloat16), *launch.geometry,
         cuda_lib.current_stream_handle(xq.device),
     )
     return out

@@ -14,12 +14,19 @@ first build's results are right (checked against the plain version); the
 others are for time only. A variant whose ring does not fit in shared
 memory is reported as refused.
 
+With ``--mode w8a8`` it times kernel H's tensor-core route instead
+(``qmm_w8a8_mma_kernel``, the port's build only) at the same shape, INT8 and
+INT4 weights, M = 8 and 256, under every plan of activation rows a block
+(16, 32, 64, 128) × K splits (1, 2, 4, 8, 16 and the 32 groups one a
+split), beside the plan ``w8a8_launch`` picks and the CUDA-core H by a
+direct launch; every plan is checked against the plain version first.
+
 Usage (on the card only):
-    python -m atoma_infer_tpu_torch.tools.qmm_ablation
+    python -m atoma_infer_tpu_torch.tools.qmm_ablation [--mode fg|w8a8]
 
 Prints the card's name and power limit, the resident blocks an SM of each
-instantiation, one line a variant, and a JSON object of the mean µs by
-form, variant and M.
+instantiation, one line a variant (or plan), and a JSON object of the mean
+µs by form, variant and M.
 """
 
 from __future__ import annotations
@@ -160,23 +167,104 @@ def run(rounds: int = 2) -> Dict[str, object]:
     return {"blocks_per_sm": occupancy, "us": means}
 
 
+H_BLOCK_ROWS = (16, 32, 64, 128)
+H_SPLITS = (1, 2, 4, 8, 16, 32)
+
+
+def run_w8a8(rounds: int = 2) -> Dict[str, object]:
+    """Kernel H's tensor-core route at the gate projection under every plan
+    of block rows × K splits, the plan the route picks, and the CUDA-core H
+    (``"cuda_cores"``), in CUDA graphs over weights that are not in L2."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("qmm_ablation times kernel H on a CUDA device; none is available")
+    lib = cuda_lib.load(qk.QMM_W8A8_MMA.source)
+    occ = lib.atoma_qmm_w8a8_mma_blocks_per_sm
+    occ.argtypes, occ.restype = [cuda_lib.INT, cuda_lib.INT], ctypes.c_int
+    occupancy = {f"int{bits} rows {rows}": occ(bits, rows) for bits in (8, 4)
+                 for rows in H_BLOCK_ROWS}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+    groups = K // GROUP
+    times: Dict[str, Dict[str, Dict[int, list]]] = {}
+    for bits in (8, 4):
+        qt = quant.quantize_weight(w, bits, GROUP)
+        w_bytes = qt.qweight.numel() + qt.scales.numel() * 2
+        copies = [qt] + [quant.QuantizedTensor(qt.qweight.clone(), qt.scales.clone(), bits, GROUP)
+                         for _ in range(-(-128_000_000 // w_bytes) - 1)]
+        kind = f"int{bits}"
+        times[kind] = {}
+        for m in ROWS:
+            x = torch.randn(m, K, generator=gen, device=dev).to(torch.bfloat16)
+            xq, act = qk.quantize_activations(x)
+            out = torch.empty((m, N), dtype=torch.bfloat16, device=dev)
+            ws = torch.empty((max(H_SPLITS), m, N), dtype=torch.float32, device=dev)
+            want = qk.w8a8_matmul_plain(xq, qt.qweight, qt.scales, act, bits=bits,
+                                        group_size=GROUP, out_dtype=torch.bfloat16).float()
+            picked = qk.w8a8_launch(xq, qt.qweight, qt.scales, bits=bits, group_size=GROUP)
+            plans = {f"rows {r} splits {z}": (r, -(-groups // z)) for r in H_BLOCK_ROWS
+                     for z in H_SPLITS}
+            plans["route"] = picked.geometry
+
+            def calls(plan, xq=xq, act=act, out=out, ws=ws):
+                for c in copies:
+                    qk.QMM_W8A8_MMA(
+                        xq.data_ptr(), c.qweight.data_ptr(), c.scales.data_ptr(), act.data_ptr(),
+                        out.data_ptr(), ws.data_ptr(), m, N, K, GROUP, bits, 1, *plan,
+                        cuda_lib.current_stream_handle(dev))
+
+            def cuda_cores(xq=xq, act=act, out=out, ws=ws):
+                vec, ks, rsplit, gps, _ = qk._cuda_core_geometry(m, N, groups, qt.qweight)
+                for c in copies:
+                    qk.QMM_W8A8(
+                        xq.data_ptr(), c.qweight.data_ptr(), c.scales.data_ptr(), act.data_ptr(),
+                        out.data_ptr(), ws.data_ptr(), m, N, K, GROUP, bits, 1, vec, ks, rsplit,
+                        gps, cuda_lib.current_stream_handle(dev))
+
+            runs = {name: (lambda plan=plan: calls(plan)) for name, plan in plans.items()}
+            runs["cuda_cores"] = cuda_cores
+            for name, fn in runs.items():
+                out.zero_()
+                fn()
+                torch.cuda.synchronize()
+                rel = (out.float() - want).abs().max().item() / want.abs().max().item()
+                if not rel <= 1e-2:
+                    raise AssertionError(f"H {name} disagrees at {kind} M={m}: rel {rel:.3e}")
+            order = list(runs) + list(runs)[::-1]
+            samples = {name: [] for name in runs}
+            for _ in range(rounds):
+                for name in order:
+                    samples[name].append(graph_us(runs[name], len(copies)))
+            for name, v in samples.items():
+                times[kind].setdefault(name, {})[m] = sum(v) / len(v)
+            times[kind].setdefault("route plan", {})[m] = list(picked.geometry)
+    return {"blocks_per_sm": occupancy, "us": times}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--rounds", type=int, default=2,
                         help="forward-and-backward passes over the variants (default 2)")
+    parser.add_argument("--mode", choices=("fg", "w8a8"), default="fg",
+                        help="fg: F and G's builds with the hooks (default); w8a8: kernel H's "
+                             "tensor-core plans")
     args = parser.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    result = run(args.rounds)
-    for name, occ in result["blocks_per_sm"].items():
-        print(f"{name:10s} blocks an SM: {occ}", flush=True)
+    result = (run if args.mode == "fg" else run_w8a8)(args.rounds)
+    if args.mode == "w8a8":
+        print(f"blocks an SM: {result['blocks_per_sm']}", flush=True)
+    else:
+        for name, occ in result["blocks_per_sm"].items():
+            print(f"{name:10s} blocks an SM: {occ}", flush=True)
     for kind, by_name in result["us"].items():
         for name, by_m in by_name.items():
-            cols = ", ".join(f"M={m}: " + ("refused" if us is None else f"{us:.2f} us")
+            cols = ", ".join(f"M={m}: " + ("refused" if us is None else
+                                           f"{us}" if isinstance(us, list) else f"{us:.2f} us")
                              for m, us in by_m.items())
-            print(f"{kind} {name:10s} {cols}", flush=True)
+            print(f"{kind} {name:18s} {cols}", flush=True)
     print(json.dumps({"card": card, **result}))
     return result
 

@@ -14,6 +14,21 @@ at positions 1,792-2,047, each cache kind, under every plan of 4 or 8 warps
 rows apart, and one query tile over 1 and over 32 key tiles (a block's
 latency a key tile): CUDA graphs of 20 launches, mean of 3 replays. One
 JSON line per batch and cache kind.
+
+``--mode fused`` times the fused decode kernels instead (B, D and E's fused
+variants; ``csrc/fused_decode_split.cuh``): after a check against the plain
+version (caches and scales bit-exact), the split kernel on phase 2's
+64-row decode batch of 16-2,047 keys and on an 8-row batch of 50-330 keys
+(the services' decode steps), at the Llama-3.1-8B, Llama-3.2-1B and
+Llama-3.2-3B attention shapes, under 1, 2, 3, 4, 6, 8 and 16 splits at most
+(of at least 128 keys each) beside the route's plan (splits of at least
+``FUSED_MIN_TILES`` key tiles) and the unsplit ``fused_decode_kernel`` by a
+direct call, in CUDA graphs of 20 launches. Then the split kernel's measurement
+hooks (``csrc/fused_decode_split.cuh``: register caps, the grid's
+sequence-major order), each a
+small build of the split kernel alone at D = 64 and 128, G = 4, timed on
+the 64-row batch at the 8B and 1B shapes beside the same build without
+hooks, in turns.
 """
 
 from __future__ import annotations
@@ -27,17 +42,21 @@ import numpy as np
 import torch
 
 from ..ops import cuda_lib, paged_attention as pa
+from ..ops.cuda_lib import INT as ctypes_int
 from ..ops.attention import AttentionMetadata
 from ..ops.kv_cache import FP8_MAX, kv_quant_scales, quantize_kv_rows
 
 SOURCES = ("paged_attention.cu", "paged_attention_int8.cu", "paged_attention_fp8.cu")
+FUSED_SOURCES = ("fused_decode_split.cu", "fused_decode_split_int8.cu",
+                 "fused_decode_split_fp8.cu")
 TOL = 2e-2
 KINDS = (None, torch.int8, torch.float8_e4m3fn)
 
 
-def make_batch(rng, specs, *, hq, hk, d, bs, kind, device):
+def make_batch(rng, specs, *, hq, hk, d, bs, kind, device, decode=False):
     """A ragged batch of (q_len, kv_len) sequences on random disjoint pages:
-    bf16 queries over a cache of ``kind`` (INT8 with its scales)."""
+    bf16 queries over a cache of ``kind`` (INT8 with its scales). ``decode``:
+    one query a sequence, with its new K and V rows and its slot."""
     S, T = len(specs), -(-sum(q for q, _ in specs) // 8) * 8
     P = max(-(-kv // bs) for _, kv in specs)
     num_blocks = sum(-(-kv // bs) for _, kv in specs) + 4
@@ -68,14 +87,22 @@ def make_batch(rng, specs, *, hq, hk, d, bs, kind, device):
     def ints(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
+    slots = np.full(T, -1)
+    if decode:
+        T = S
+        slots = np.array([tables[s, (kv - 1) // bs] * bs + (kv - 1) % bs
+                          for s, (_, kv) in enumerate(specs)])
     meta = AttentionMetadata(
-        slot_mapping=ints(np.full(T, -1)), block_tables=ints(tables),
+        slot_mapping=ints(slots), block_tables=ints(tables),
         seq_lens=ints([kv for _, kv in specs]), query_start_loc=ints(qsl),
-        num_seqs=ints([S]), block_size=bs, decode_only=False,
+        num_seqs=ints([S]), block_size=bs, decode_only=decode,
         max_q_len=max(q for q, _ in specs),
     )
     q = torch.randn((T, hq, d), generator=gen, device=device).to(torch.bfloat16)
-    return dict(q=q, cache=cache, scales=scales, meta=meta, rows=int(qsl[S]), kind=kind)
+    k, v = (torch.randn((T, hk, d), generator=gen, device=device).to(torch.bfloat16)
+            for _ in range(2))
+    return dict(q=q, k=k, v=v, cache=cache, scales=scales, meta=meta, rows=int(qsl[S]),
+                kind=kind)
 
 
 def run_plan(b, plan, **kw):
@@ -197,19 +224,203 @@ def timed_rows(device):
             print(json.dumps(row), flush=True)
 
 
+def run_fused_old(b):
+    """The unsplit ``fused_decode_kernel`` on bf16 queries, by a direct launch."""
+    q, m, cache, scales = b["q"], b["meta"], b["cache"], b["scales"]
+    T, Hq, D = q.shape
+    S, P = m.block_tables.shape
+    nb, bs, row = cache.shape
+    out = torch.empty_like(q)
+    pa.FUSED_DECODE[b["kind"]](
+        1, q.data_ptr(), b["k"].data_ptr(), b["v"].data_ptr(), cache.data_ptr(),
+        None if scales is None else scales.data_ptr(), m.slot_mapping.data_ptr(),
+        m.block_tables.data_ptr(), m.seq_lens.data_ptr(), m.query_start_loc.data_ptr(),
+        m.num_seqs.data_ptr(), None, out.data_ptr(), S, Hq, row // (2 * D), D, P, bs, nb * bs,
+        float(D ** -0.5), 0, 0.0, cuda_lib.current_stream_handle(q.device))
+    return out
+
+
+def run_fused_split(b, splits):
+    """The split fused kernel (and the merge) with at most ``splits`` splits
+    of at least ``RPA_MIN_TILES`` key tiles (128 keys), the sweep's grain."""
+    q = b["q"]
+    return pa.fused_split_launch(q, b["cache"], b["k"], b["v"], b["meta"], splits,
+                                 torch.empty_like(q), kind=b["kind"], scale=q.shape[2] ** -0.5,
+                                 kv_scales=b["scales"], min_tiles=pa.RPA_MIN_TILES)
+
+
+FS_VARIANTS = {
+    "port": (),
+    "minb2": ("-DATOMA_FS_MINB=2",),
+    "minb3": ("-DATOMA_FS_MINB=3",),
+    "minb4": ("-DATOMA_FS_MINB=4",),
+    "seq_major": ("-DATOMA_FS_SEQ_MAJOR",),
+}
+FS_ENTRIES = """#include "fused_decode_split.cuh"
+ATOMA_FUSED_SPLIT_ENTRIES(, __nv_bfloat16)
+ATOMA_FUSED_SPLIT_ENTRIES(_int8, int8_t)
+ATOMA_FUSED_SPLIT_ENTRIES(_fp8, __nv_fp8_e4m3)
+"""
+
+
+def build_fs_variant(name: str):
+    """The split kernel alone (D = 64 and 128 at G = 4, every cache kind)
+    with one variant's hooks, in a library under ``csrc/build/``."""
+    import ctypes
+    import hashlib
+
+    flags = list(cuda_lib.NVCC_FLAGS) + ["-DATOMA_FS_SHAPES_D128_G4", *FS_VARIANTS[name]]
+    headers = b"".join(p.read_bytes() for p in sorted(cuda_lib.CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(FS_ENTRIES.encode() + headers + " ".join(flags).encode()).hexdigest()
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = cuda_lib.BUILD_DIR / f"fs_ablation_{digest[:12]}.cu"
+    out = cuda_lib.BUILD_DIR / f"libfs_{name}-{digest[:12]}.so"
+    if not out.exists():
+        src.write_text(FS_ENTRIES)
+        done = subprocess.run([cuda_lib._nvcc(), *flags, "-I", str(cuda_lib.CSRC_DIR), "-o",
+                               str(out), str(src)], capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {name} variant:\n{done.stdout}{done.stderr}")
+    return ctypes.CDLL(str(out))
+
+
+def fused_variants(device, rounds=2):
+    """Every hook variant of the split kernel on the 64-row batch at the 8B
+    (each cache kind) and 1B (bf16) shapes, 1 and 4 splits at most."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(len(FS_VARIANTS)) as pool:
+        libs = dict(zip(FS_VARIANTS, pool.map(build_fs_variant, FS_VARIANTS)))
+    rng = np.random.default_rng(1)
+    rng.integers(16, 2048, size=29)
+    specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    suffix = {None: "", torch.int8: "_int8", torch.float8_e4m3fn: "_fp8"}
+    for model, shape, kinds in (("8B", dict(hq=32, hk=8, d=128), KINDS),
+                                ("1B", dict(hq=32, hk=8, d=64), (None,))):
+        for kind in kinds:
+            b = make_batch(np.random.default_rng(3), specs, bs=16, kind=kind, device=device,
+                           decode=True, **shape)
+            q, m, cache, scales = b["q"], b["meta"], b["cache"], b["scales"]
+            T, Hq, D = q.shape
+            S, P = m.block_tables.shape
+            nb, bs, row = cache.shape
+            ref = pa.fused_decode_attention_plain(q, cache.clone(), b["k"], b["v"], m,
+                                                  scale=D ** -0.5,
+                                                  kv_scales=None if scales is None
+                                                  else scales.clone())
+
+            def run(lib, splits):
+                fn = getattr(lib, f"atoma_fused_decode_attention_split{suffix[kind]}")
+                fn.argtypes, fn.restype = pa.FUSED_DECODE_SPLIT[kind].argtypes, ctypes_int
+                out = torch.empty_like(q)
+                ws_o = torch.empty((splits, T, Hq, D), dtype=torch.float32, device=device)
+                ws_ml = torch.empty((splits, T, Hq, 2), dtype=torch.float32, device=device)
+                err = fn(q.data_ptr(), b["k"].data_ptr(), b["v"].data_ptr(), cache.data_ptr(),
+                         None if scales is None else scales.data_ptr(),
+                         m.slot_mapping.data_ptr(), m.block_tables.data_ptr(),
+                         m.seq_lens.data_ptr(), m.query_start_loc.data_ptr(),
+                         m.num_seqs.data_ptr(), None, out.data_ptr(), ws_o.data_ptr(),
+                         ws_ml.data_ptr(), T, S, Hq, row // (2 * D), D, P, bs, nb * bs, splits,
+                         pa.RPA_MIN_TILES, float(D ** -0.5), 0, 0.0,
+                         cuda_lib.current_stream_handle(device))
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
+                if splits > 1:
+                    pa.split_combine(ws_o, ws_ml, out, m, num_kv_heads=row // (2 * D), bq=1,
+                                     splits=splits, min_tiles=pa.RPA_MIN_TILES)
+                return out
+
+            ok = {}
+            for name, lib in libs.items():
+                try:
+                    got = run(lib, 4)
+                except RuntimeError as e:  # reported, and the variant left out
+                    print(f"fused variant {name} {model} {kind}: {e}", flush=True)
+                    continue
+                err = (got.float() - ref.float()).abs().max().item()
+                if err > TOL * (1 + ref.float().abs().max().item()):
+                    raise AssertionError(f"fused variant {name} {model} {kind}: err {err:.3e}")
+                ok[name] = lib
+            libs_ok = ok
+            times = {name: {1: [], 4: []} for name in libs_ok}
+            order = list(libs_ok) + list(libs_ok)[::-1]
+            for _ in range(rounds):
+                for name in order:
+                    for splits in (1, 4):
+                        times[name][splits].append(graph_ms(lambda: run(libs_ok[name], splits)))
+            row = dict(batch="64 rows variants", shape=model,
+                       kernel=pa.FUSED_DECODE_SPLIT[kind].name)
+            for name, by in times.items():
+                for splits, v in by.items():
+                    row[f"{name} s{splits}"] = sum(v) / len(v)
+            print(json.dumps(row), flush=True)
+
+
+def fused_rows(device):
+    """The fused decode batches: check once, then every split count."""
+    rng = np.random.default_rng(1)  # phase 2's 8B decode batch (check_kv8_kernels)
+    rng.integers(16, 2048, size=29)
+    long_rows = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    short_rows = [(1, int(k)) for k in np.random.default_rng(8).integers(50, 331, size=8)]
+    shapes = {"8B": dict(hq=32, hk=8, d=128), "1B": dict(hq=32, hk=8, d=64),
+              "3B": dict(hq=24, hk=8, d=128)}
+    for label, specs in (("64 rows", long_rows), ("8 rows", short_rows)):
+        for model, shape in shapes.items():
+            for kind in KINDS:
+                b = make_batch(np.random.default_rng(3), specs, bs=16, kind=kind, device=device,
+                               decode=True, **shape)
+                cache0, scales0 = b["cache"].clone(), (None if b["scales"] is None
+                                                       else b["scales"].clone())
+                ref = pa.fused_decode_attention_plain(
+                    b["q"], b["cache"], b["k"], b["v"], b["meta"], scale=shape["d"] ** -0.5,
+                    kv_scales=b["scales"])
+                want_cache, want_scales = b["cache"].clone(), b["scales"]
+                b["cache"], b["scales"] = cache0, scales0
+                got = pa.ragged_paged_attention_fused_cuda(
+                    b["q"], b["cache"], b["k"], b["v"], b["meta"], scale=shape["d"] ** -0.5,
+                    kv_scales=b["scales"])
+                err = (got.float() - ref.float()).abs().max().item()
+                same = torch.equal(b["cache"].view(torch.uint8), want_cache.view(torch.uint8)) and (
+                    want_scales is None or torch.equal(b["scales"].view(torch.int16),
+                                                       want_scales.view(torch.int16)))
+                if not (same and err <= TOL * (1 + ref.float().abs().max().item())):
+                    raise AssertionError(f"fused {model} {label} {kind}: err {err:.3e}, "
+                                         f"cache {'equal' if same else 'differs'}")
+                row = dict(batch=label, shape=model, kernel=pa.FUSED_DECODE_SPLIT[kind].name)
+                for splits in (1, 2, 3, 4, 6, 8, 16):
+                    row[f"s{splits}"] = graph_ms(lambda: run_fused_split(b, splits))
+                row["route_splits"] = pa.fused_splits_for(b["q"], b["meta"], shape["hk"], kind)
+                row["route_ms"] = graph_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+                    b["q"], b["cache"], b["k"], b["v"], b["meta"], scale=shape["d"] ** -0.5,
+                    kv_scales=b["scales"]))
+                row["unsplit_ms"] = graph_ms(lambda: run_fused_old(b))
+                row["slots"] = pa._fused_slots(kind, shape["d"], shape["hq"] // shape["hk"], 0)
+                print(json.dumps(row), flush=True)
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__).parse_args(argv)
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--mode", choices=("ragged", "fused"), default="ragged",
+                        help="ragged: the tensor-core ragged kernel's plans (default); fused: "
+                             "the split fused decode kernel's split counts")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("rpa_ablation needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    for source, log in cuda_lib.build_all(SOURCES).items():
+    pattern = "rpa_" if args.mode == "ragged" else "fused_split"
+    for source, log in cuda_lib.build_all(
+            SOURCES + (FUSED_SOURCES if args.mode == "fused" else ())).items():
         for kernel, spill, regs in re.findall(
-                r"Compiling entry function '(\w*rpa_\w*)'.*?(\d+) bytes spill stores.*?"
-                r"Used (\d+) registers", log, re.S):
+                r"Compiling entry function '(\w*" + pattern + r"\w*)'.*?(\d+) bytes spill "
+                r"stores.*?Used (\d+) registers", log, re.S):
             print(f"{source}: {kernel[:60]} {regs} registers, {spill} bytes spilled")
     device = torch.device("cuda")
+    if args.mode == "fused":
+        fused_rows(device)
+        fused_variants(device)
+        return 0
     print(f"small shapes agree, max |err| {check_small(device):.3e} (tol {TOL})", flush=True)
     timed_rows(device)
     return 0

@@ -23,16 +23,22 @@ raises on failure; nothing is caught):
    on f32 queries; a 256-query prefill chunk at positions 1,792-2,047 (8B
    shapes, bf16/INT8/e4m3 caches) is timed eagerly and in a CUDA graph
    beside its bound, the CUDA-core kernel and flash SDPA over the same keys
-   gathered contiguous. Quantized matmuls: a sweep at small sizes (8/4-bit
-   weights × group 128 and one group × bf16/f32 × M in 1, 8, 64, 300, plus
-   ragged N; F and G on their route and on the CUDA cores), W8A8's integer
-   dots checked exact, F and G's tensor-core route over groups of 32, 64,
-   128 and one × M from 1 to 300 × N in 72, 144, 200, 2048, 14336 (each
-   call's route checked by the launch counters; misaligned and f32 inputs
-   on the CUDA cores), ``quantize_weight`` on the card byte-identical to
-   the CPU, then the Llama-3.1-8B projection and LM-head shapes at decode
-   (M = 8, 64) and one prefill chunk (M = 256), F and G on both routes, and
-   the CUDA-core route on its own traffic (f32, ``tiny_trained``'s gate
+   gathered contiguous. The fused decode kernel takes the split kernel for
+   bf16 queries (a 1,600-key row of the variant grids cut into KV splits,
+   short rows whole, caches and scales bit-exact) and the unsplit one for
+   f32 queries; the decode batches time the split kernel beside the
+   unsplit one by a direct launch, and the merge of split rows is checked
+   and timed at the services' 8-row decode shape. Quantized matmuls: a
+   sweep at small sizes (8/4-bit weights × group 128 and one group ×
+   bf16/f32 × M in 1, 8, 64, 300, plus ragged N; F, G and H on their route
+   and on the CUDA cores), W8A8's integer dots checked exact on both of
+   H's routes, F, G and H's tensor-core routes over groups of 16 to 512 × M
+   from 1 to 300 × N in 72, 144, 200, 2048, 14336 (each call's route
+   checked by the launch counters; misaligned and f32 inputs on the CUDA
+   cores), ``quantize_weight`` on the card byte-identical to the CPU, then
+   the Llama-3.1-8B projection and LM-head shapes at decode (M = 8, 64) and
+   one prefill chunk (M = 256), F, G and H on both routes, and F and G's
+   CUDA-core route on its own traffic (f32, ``tiny_trained``'s gate
    projection, 8 rows).
    INT8 and e4m3 KV caches (kernels D, E and their
    writes): every instantiation at small sizes on a mixed and a decode
@@ -75,10 +81,12 @@ raises on failure; nothing is caught):
    EOS, every block must return to the pool, and every kernel of the path
    must have been launched during that service's run (launch counts are set
    to 0 just before it and read just after), every ragged launch on the
-   tensor cores (the f32 services of phase 3 on the CUDA cores). Prints the
-   worker's step wall times and one pure-decode and one mixed step's device
-   time by kernel (``torch.profiler``), the mixed step's ragged attention
-   share.
+   tensor cores and every fused one on the split kernel (the f32 services
+   of phase 3 on the CUDA-core and unsplit kernels), every W8A8 launch on
+   H's tensor-core route. Prints the worker's step wall times and one
+   pure-decode and one mixed step's device time by kernel
+   (``torch.profiler``), the decode step's fused attention and H time, the
+   mixed step's ragged attention and H share.
 5. The quantization decision tools (``atoma_infer_tpu_torch/tools``): the
    W8A8 rate probe's ``main()`` (its path through kernel I, both forms
    launched, int8 exact), then the W8A8 and INT8-KV gates at their card
@@ -310,7 +318,9 @@ VARIANT_GROUPS = tuple(range(1, 9))
 # 1,600 keys, which the tensor-core route cuts into several KV splits while
 # the short rows leave splits empty.
 VARIANT_MIXED = [(20, 45), (1, 30), (7, 7), (1, 1), (33, 70), (1, 1600)]
-VARIANT_DECODE = [(1, 45), (1, 17), (1, 1), (1, 64), (1, 100)]
+# The decode batches' 1,600-key row is cut into several KV splits by the
+# split fused kernel (bf16 queries); the short rows stay whole.
+VARIANT_DECODE = [(1, 45), (1, 17), (1, 1), (1, 64), (1, 100), (1, 1600)]
 
 
 def variant_blocks(specs, bs):
@@ -348,6 +358,74 @@ class SplitCount:
             "empty splits")
         if not (self.multi and self.empty):
             raise AssertionError(f"{label}: no multi-split or no empty-split case")
+
+
+class FusedSplitCount:
+    """Counts, over the bf16 decode calls of a variant grid, the rows the
+    split fused kernel cut into several KV splits and the rows it left whole
+    (its rule: ``split_key_ranges`` under the call's plan)."""
+
+    def __init__(self):
+        self.multi = self.whole = 0
+
+    def add(self, b):
+        from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+        q, meta = b["q"], b["meta"]
+        if q.element_size() != 2:  # f32 queries take the unsplit kernel
+            return
+        hk = b["cache"].shape[2] // (2 * q.shape[2])
+        kind = None if b["cache"].dtype == q.dtype else b["cache"].dtype
+        splits = pa.fused_splits_for(q, meta, hk, kind)
+        for _, kv in b["specs"]:
+            n = len(pa.split_key_ranges(kv - 1, None, splits, pa.FUSED_MIN_TILES))
+            self.multi += n > 1
+            self.whole += n == 1
+
+    def check(self, label):
+        log(f"{label}: {self.multi} decode rows in several KV splits, {self.whole} whole")
+        if not (self.multi and self.whole):
+            raise AssertionError(f"{label}: no multi-split or no whole row")
+
+
+def cuda_core_fused(q, cache, k, v, meta, *, scale, kv_scales=None):
+    """The unsplit fused kernel (``fused_decode_kernel``, B, D or E by the
+    cache's dtype) by a direct launch, whatever the queries' dtype: the
+    route sends bf16 queries to the split kernel, so this is how the old
+    kernel is timed beside the new one. Writes the cache like the route."""
+    import torch
+
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    T, Hq, D = q.shape
+    S, P = meta.block_tables.shape
+    nb, bs, row = cache.shape
+    out = torch.empty_like(q)
+    kind = None if cache.dtype == q.dtype else cache.dtype
+    pa.FUSED_DECODE[kind](
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        cache.data_ptr(), None if kv_scales is None else kv_scales.data_ptr(),
+        meta.slot_mapping.data_ptr(), meta.block_tables.data_ptr(), meta.seq_lens.data_ptr(),
+        meta.query_start_loc.data_ptr(), meta.num_seqs.data_ptr(), None, out.data_ptr(),
+        S, Hq, row // (2 * D), D, P, bs, nb * bs, float(scale), 0, 0.0,
+        cuda_lib.current_stream_handle(q.device))
+    return out
+
+
+def fused_old_vs_new(torch, label, new_ms, old_fn, ref, n):
+    """The unsplit fused kernel by a direct launch on the same inputs as a
+    split-kernel row (the cache already holds the step's rows, which it
+    rewrites with the same bytes): checked against the plain version,
+    timed, the ratio logged. Returns the old kernel's ms."""
+    got = old_fn()
+    tol = ATTN_TOL["bfloat16"]
+    if not torch.allclose(got[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{label}: the unsplit fused kernel disagrees")
+    old_ms = cuda_ms(old_fn)
+    log(f"{label}: split kernel {new_ms:.4f} ms, unsplit fused_decode_kernel by a direct "
+        f"launch {old_ms:.4f} ms ({old_ms / new_ms:.2f}x)")
+    return old_ms
 
 
 def cuda_core_attention(q, cache, meta, *, scale, kv_scales=None):
@@ -401,7 +479,7 @@ def check_kernel_variants(torch):
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
     mixed_specs, decode_specs = VARIANT_MIXED, VARIANT_DECODE
-    splits = SplitCount()
+    splits, fused_splits = SplitCount(), FusedSplitCount()
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         tol = ATTN_TOL[dtype_name]
         worst, cases = 0.0, 0
@@ -409,7 +487,7 @@ def check_kernel_variants(torch):
             for bs in VARIANT_BLOCK_SIZES:
                 for group in VARIANT_GROUPS:
                     shape = dict(hq=2 * group, hk=2, d=d, bs=bs, dtype=dtype,
-                                 num_blocks=variant_blocks(mixed_specs, bs), device=dev)
+                                 num_blocks=variant_blocks(mixed_specs + decode_specs, bs), device=dev)
                     label = f"{dtype_name} D={d} bs={bs} G={group}"
                     b = make_batch(rng, mixed_specs, decode_only=False, **shape)
                     splits.add(b)
@@ -428,6 +506,7 @@ def check_kernel_variants(torch):
                     worst = max(worst, (out[:n].float() - ref[:n].float()).abs().max().item())
 
                     b = make_batch(rng, decode_specs, decode_only=True, **shape)
+                    fused_splits.add(b)
                     m, n = b["meta"], b["rows"]
                     got, want = b["cache"].clone(), b["cache"].clone()
                     out = paged_attention.ragged_paged_attention_fused_cuda(
@@ -442,8 +521,10 @@ def check_kernel_variants(torch):
                     cases += 1
         log(f"kernel variants {dtype_name}: {cases} shapes × 3 kernels agree, "
             f"max |err| {worst:.3e} (tol {tol}); the ragged kernel on "
-            f"{'the tensor cores' if dtype_name == 'bfloat16' else 'the CUDA cores'}")
+            f"{'the tensor cores' if dtype_name == 'bfloat16' else 'the CUDA cores'}, the "
+            f"fused one {'split' if dtype_name == 'bfloat16' else 'unsplit'}")
     splits.check("kernel variants, tensor-core route")
+    fused_splits.check("kernel variants, split fused route")
 
 
 def attention_work(specs, window, elt, *, fused, kv_elt=None, slot_extra=0,
@@ -592,18 +673,28 @@ def check_kernels(torch):
                 f"(tol {tol}), cache bit-exact {torch.equal(got_cache, want_cache)}")
             if not ok or not torch.equal(got_cache, want_cache):
                 raise AssertionError(f"fused_decode_attention {dtype_name} {label} disagrees")
-            if dtype_name == "bfloat16" and label == "base":
+            if label == "base":
+                # bf16 queries take the split kernel (the main path's), f32
+                # queries the unsplit one, whose launches come from the f32
+                # services.
                 nbytes, flops = attention_work(decode_specs, None, elt, fused=True)
                 c = got_cache
-                rows["fused_decode_attention"] = dict(
+                name = ("fused_decode_attention_split" if dtype_name == "bfloat16"
+                        else "fused_decode_attention")
+                rows[name] = dict(
                     max_abs_err=err,
                     ms=cuda_ms(lambda: paged_attention.ragged_paged_attention_fused_cuda(
                         decode["q"], c, decode["k"], decode["v"], dm, scale=scale)),
                     plain_ms=cuda_ms(lambda: paged_attention.fused_decode_attention_plain(
                         decode["q"], c, decode["k"], decode["v"], dm, scale=scale),
                         iters=5, warmup=1),
-                    library_ms=None, bytes=nbytes, flops=flops,
+                    library_ms=None, bytes=nbytes, flops=flops, dtype=dtype_name,
                 )
+                if dtype_name == "bfloat16":
+                    fused_old_vs_new(torch, "fused_decode_attention 1B decode", rows[name]["ms"],
+                                     lambda: cuda_core_fused(decode["q"], c, decode["k"],
+                                                             decode["v"], dm, scale=scale),
+                                     ref, n)
         del mixed, decode, cache
         torch.cuda.empty_cache()
     for name, r in rows.items():
@@ -703,7 +794,7 @@ def check_kv8_variants(torch):
     rng = np.random.default_rng(17)
     mixed_specs, decode_specs = VARIANT_MIXED, VARIANT_DECODE
     for kv in KV8_DTYPES:
-        splits = SplitCount()
+        splits, fused_splits = SplitCount(), FusedSplitCount()
         for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             tol = ATTN_TOL[dtype_name]
             worst, cases = 0.0, 0
@@ -711,18 +802,18 @@ def check_kv8_variants(torch):
                 for bs in VARIANT_BLOCK_SIZES:
                     for group in VARIANT_GROUPS:
                         shape = dict(hq=2 * group, hk=2, d=d, bs=bs, dtype=dtype,
-                                     num_blocks=variant_blocks(mixed_specs, bs), device=dev)
+                                     num_blocks=variant_blocks(mixed_specs + decode_specs, bs), device=dev)
                         label = f"{dtype_name} D={d} bs={bs} G={group}"
                         for decode, specs in ((False, mixed_specs), (True, decode_specs)):
                             b = make_batch(rng, specs, decode_only=decode, **shape)
                             err, cache, _ = check_kv8(torch, b, kv, label, tol, decode=decode)
-                            if not decode:
-                                splits.add(dict(b, cache=cache))
+                            (fused_splits if decode else splits).add(dict(b, cache=cache))
                             worst = max(worst, err)
                         cases += 1
             log(f"{kv} KV variants {dtype_name}: {cases} shapes × 3 kernels agree, writes "
                 f"and fused caches bit-exact, max |err| {worst:.3e} (tol {tol})")
         splits.check(f"{kv} KV variants, tensor-core route")
+        fused_splits.check(f"{kv} KV variants, split fused route")
 
 
 def check_kv8_kernels(torch):
@@ -803,10 +894,12 @@ def check_kv8_kernels(torch):
         )
         del ref, want, got, q32
         err, dcache, dscales = check_kv8(torch, decode, kv, "8B decode", tol, decode=True)
-        log(f"fused_decode_attention_{kv} 8B decode: max |err| {err:.3e} (tol {tol}), "
-            "cache and scales bit-exact")
+        dn = decode["rows"]
+        log(f"fused_decode_attention_{kv}_split 8B decode: max |err| {err:.3e} (tol {tol}), "
+            f"cache and scales bit-exact, {pa.fused_splits_for(decode['q'], dm, 8, dcache.dtype)} "
+            "splits at most")
         nbytes, flops = attention_work(decode_specs, None, 2, fused=True, **work)
-        rows[f"fused_decode_attention_{kv}"] = dict(
+        rows[f"fused_decode_attention_{kv}_split"] = row = dict(
             max_abs_err=err,
             ms=cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
                 decode["q"], dcache, decode["k"], decode["v"], dm, scale=scale,
@@ -816,19 +909,125 @@ def check_kv8_kernels(torch):
                 kv_scales=dscales), iters=5, warmup=1),
             library_ms=None, bytes=nbytes, flops=flops,
         )
-        del cache, scales, dcache, dscales
-    # The bf16 cache at the same shapes, for the bytes a 1-byte cache saves.
+        ref = pa.fused_decode_attention_plain(decode["q"], clone(dcache), decode["k"], decode["v"],
+                                              dm, scale=scale, kv_scales=clone(dscales))
+        fused_old_vs_new(torch, f"fused_decode_attention_{kv} 8B decode", row["ms"],
+                         lambda: cuda_core_fused(decode["q"], dcache, decode["k"], decode["v"],
+                                                 dm, scale=scale, kv_scales=dscales), ref, dn)
+        # f32 queries: the unsplit kernel, whose launches come from the f32
+        # services; cache and scales bit-exact, f32 tolerance.
+        q32, k32, v32 = (decode[x].float() for x in ("q", "k", "v"))
+        got_c, got_s, want_c, want_s = clone(dcache), clone(dscales), clone(dcache), clone(dscales)
+        got = pa.ragged_paged_attention_fused_cuda(q32, got_c, k32, v32, dm, scale=scale,
+                                                   kv_scales=got_s)
+        want = pa.fused_decode_attention_plain(q32, want_c, k32, v32, dm, scale=scale,
+                                               kv_scales=want_s)
+        err32 = (got[:dn] - want[:dn]).abs().max().item()
+        tol32 = ATTN_TOL["float32"]
+        if not (same_bytes(torch, got_c, want_c) and (got_s is None or same_bytes(
+                torch, got_s, want_s)) and torch.allclose(got[:dn], want[:dn], atol=tol32,
+                                                         rtol=tol32)):
+            raise AssertionError(f"fused_decode_attention_{kv} 8B decode f32 disagrees: "
+                                 f"{err32:.3e}")
+        nbytes, flops = attention_work(decode_specs, None, 4, fused=True, **work)
+        rows[f"fused_decode_attention_{kv}"] = dict(
+            max_abs_err=err32,
+            ms=cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+                q32, got_c, k32, v32, dm, scale=scale, kv_scales=got_s)),
+            plain_ms=cuda_ms(lambda: pa.fused_decode_attention_plain(
+                q32, got_c, k32, v32, dm, scale=scale, kv_scales=got_s), iters=5, warmup=1),
+            library_ms=None, bytes=nbytes, flops=flops, dtype="float32",
+        )
+        del cache, scales, dcache, dscales, got_c, got_s, want_c, want_s, ref
+    # The bf16 cache at the same shapes, for the bytes a 1-byte cache saves:
+    # the split kernel and the unsplit one by a direct launch.
+    dm = decode["meta"]
+    bf16_cache = decode["cache"].clone()
     bf16_ms = cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
-        decode["q"], decode["cache"], decode["k"], decode["v"], decode["meta"], scale=scale))
-    log(f"fused_decode_attention (bf16 cache) 8B decode: {bf16_ms:.4f} ms")
-    del mixed, decode
+        decode["q"], bf16_cache, decode["k"], decode["v"], dm, scale=scale))
+    old_ms = cuda_ms(lambda: cuda_core_fused(decode["q"], bf16_cache, decode["k"], decode["v"], dm,
+                                             scale=scale))
+    bound_ms, _ = bound(*attention_work(decode_specs, None, 2, fused=True, hq=32, hk=8, d=128),
+                        "bfloat16")
+    log(f"fused_decode_attention_split (bf16 cache) 8B decode: {bf16_ms:.4f} ms, unsplit "
+        f"fused_decode_kernel by a direct launch {old_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    combine_row = check_split_combine(torch)
+    del mixed, decode, bf16_cache
     torch.cuda.empty_cache()
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"),
                                              r.pop("dtype", "bfloat16"))
         log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library none), "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    rows["paged_attention_split_combine"] = combine_row
     return rows
+
+
+def check_split_combine(torch):
+    """The merge of split rows where the main path runs it: after the
+    tensor-core ragged kernel on a 256-query prefill chunk at positions
+    1,792-2,047 (Llama-3.1-8B attention shapes, bf16 cache, the route's plan,
+    which splits its key tiles). The attention by a direct launch for its
+    workspace, then the merge against its plain version on it, timed in a
+    CUDA graph. Returns its kernels line row; the bound counts the split
+    rows' partials read once and their outputs written once."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    b = make_batch(np.random.default_rng(9), [(256, 2048)], hq=32, hk=8, d=128, bs=16,
+                   dtype=torch.bfloat16, num_blocks=256, decode_only=False, device=dev)
+    q, m, cache = b["q"], b["meta"], b["cache"]
+    T, Hq, D = q.shape
+    S, P = m.block_tables.shape
+    Hk = cache.shape[2] // (2 * D)
+    plan = pa.rpa_plan_for(q, m, Hk, None)
+    if plan.splits < 2:
+        raise AssertionError(f"split combine: the prefill chunk's plan takes {plan.splits} split")
+    ws_o = torch.empty((plan.splits, T, Hq, D), dtype=torch.float32, device=dev)
+    ws_ml = torch.empty((plan.splits, T, Hq, 2), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    pa.RAGGED_ATTENTION_MMA[None](
+        q.data_ptr(), cache.data_ptr(), None, m.block_tables.data_ptr(), m.seq_lens.data_ptr(),
+        m.query_start_loc.data_ptr(), m.num_seqs.data_ptr(), None, out.data_ptr(),
+        ws_o.data_ptr(), ws_ml.data_ptr(), T, S, Hq, Hk, D, P, m.block_size, plan.warps,
+        plan.splits, pa.RPA_MIN_TILES, 128 ** -0.5, 0, 0.0, cuda_lib.current_stream_handle(dev))
+    before = out.clone()
+    kw = dict(bq=plan.tokens, splits=plan.splits, min_tiles=pa.RPA_MIN_TILES)
+
+    def run():
+        pa.split_combine(ws_o, ws_ml, out, m, num_kv_heads=Hk, **kw)
+
+    def plain():
+        return pa.split_combine_plain(ws_o, ws_ml, before.clone(), m, **kw)
+
+    run()
+    want = plain()
+    n = b["rows"]
+    err = (out[:n].float() - want[:n].float()).abs().max().item()
+    tol = ATTN_TOL["bfloat16"]
+    if not torch.allclose(out[:n].float(), want[:n].float(), atol=tol, rtol=tol):
+        raise AssertionError(f"paged_attention_split_combine disagrees: max |err| {err:.3e}")
+    # The query tiles' split counts, as the kernels cut them.
+    nbytes = merged = 0
+    for tok0 in range(0, n, plan.tokens):
+        ntok = min(plan.tokens, n - tok0)
+        first = 2048 - n + tok0
+        tiles = (first + ntok - 1) // pa.RPA_KEY_TILE + 1
+        k = max(1, min(plan.splits, -(-tiles // pa.RPA_MIN_TILES)))
+        if k > 1:
+            merged += k
+            nbytes += k * ntok * Hq * (D + 2) * 4 + ntok * Hq * D * 2
+    ms = graph_ms(torch, run)
+    plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    bound_ms, by = bound(nbytes, 0, "float32")
+    log(f"paged_attention_split_combine 8B prefill chunk ({plan.warps} warps, {plan.splits} "
+        f"splits, {merged} partial tiles): {ms:.4f} ms in a CUDA graph (plain {plain_ms:.4f} ms), "
+        f"bound {bound_ms:.4f} ms by {by}, max |err| {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=by)
 
 
 def check_prefill_chunk(torch):
@@ -974,10 +1173,14 @@ def check_gqa_block_kernels(torch):
             ms = cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
                 decode["q"], dcache, decode["k"], decode["v"], decode["meta"], scale=scale,
                 kv_scales=dscales))
+            old_ms = cuda_ms(lambda: cuda_core_fused(decode["q"], dcache, decode["k"], decode["v"],
+                                                     decode["meta"], scale=scale,
+                                                     kv_scales=dscales))
             bound_ms, by = bound(*attention_work(decode_specs, None, 2, fused=True, **work),
                                  "bfloat16")
-            log(f"fused_decode_attention{suffix} 3B decode G=3 bs={bs}: {ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms by {by}, max |err| {err:.3e} (tol {tol}), cache bit-exact")
+            log(f"fused_decode_attention{suffix}_split 3B decode G=3 bs={bs}: {ms:.4f} ms "
+                f"(unsplit kernel by a direct launch {old_ms:.4f} ms), bound {bound_ms:.4f} ms "
+                f"by {by}, max |err| {err:.3e} (tol {tol}), cache bit-exact")
         del mixed, decode, cache, scales
         torch.cuda.empty_cache()
 
@@ -1033,6 +1236,12 @@ def check_quant_variants(torch):
                                                 group_size=group, out_dtype=dtype),
                             qk.w8a8_matmul_plain(xq, qt.qweight, qt.scales, act, bits=bits,
                                                  group_size=group, out_dtype=dtype)),
+                        # H on the CUDA cores on every shape, whatever the route.
+                        "w8a8 CUDA cores": (
+                            cuda_core_w8a8(torch, xq, qt.qweight, qt.scales, act, bits=bits,
+                                           group=group, out_dtype=dtype),
+                            qk.w8a8_matmul_plain(xq, qt.qweight, qt.scales, act, bits=bits,
+                                                 group_size=group, out_dtype=dtype)),
                     }
                     for kind, (got, want) in pairs.items():
                         if got.dtype != dtype or got.shape != (M, N):
@@ -1044,18 +1253,27 @@ def check_quant_variants(torch):
                         if not rel <= tol:
                             raise AssertionError(
                                 f"quantized matmul {kind} {label}: rel err {rel:.3e} > {tol}")
-                    dots = qk.w8a8_matmul_cuda(
-                        xq, qt.qweight, torch.ones_like(qt.scales), torch.ones_like(act),
-                        bits=bits, group_size=group, out_dtype=torch.float32)
-                    if not torch.equal(dots.cpu(), (xq.cpu().long() @ q_full).float()):
-                        raise AssertionError(f"W8A8 {label}: integer dots are not exact")
+                    # H's group dots exact on both routes (the route the
+                    # shape takes, and the CUDA cores by a direct launch).
+                    ones = (torch.ones_like(qt.scales), torch.ones_like(act))
+                    want_dots = (xq.cpu().long() @ q_full).float()
+                    for route, dots in (
+                            ("routed", qk.w8a8_matmul_cuda(xq, qt.qweight, *ones, bits=bits,
+                                                           group_size=group,
+                                                           out_dtype=torch.float32)),
+                            ("CUDA cores", cuda_core_w8a8(torch, xq, qt.qweight, *ones,
+                                                          bits=bits, group=group,
+                                                          out_dtype=torch.float32))):
+                        if not torch.equal(dots.cpu(), want_dots):
+                            raise AssertionError(f"W8A8 {route} {label}: integer dots are not "
+                                                 "exact")
+                        exact += 1
                     cases += 1
-                    exact += 1
     for (kind, bits, dtype_name), rel in sorted(worst.items()):
         log(f"quantized matmul {kind} {bits}-bit {dtype_name}: worst rel err {rel:.3e} "
             f"(tol {QMM_TOL[dtype_name]})")
-    log(f"quantized matmul variants: {cases} cases × 3 kernels agree; W8A8 group dots "
-        f"exact in {exact} cases")
+    log(f"quantized matmul variants: {cases} cases × 4 kernel routes agree; W8A8 group dots "
+        f"exact in {exact} calls (both routes)")
     check_mma_route(torch)
 
     cpu_gen = torch.Generator().manual_seed(12)
@@ -1092,11 +1310,34 @@ def cuda_core_matmul(torch, x, qweight, scales, *, bits, group):
     return out
 
 
-def routed(bits, fn):
-    """Run ``fn``; returns (its result, the one F or G kernel it launched)."""
+def cuda_core_w8a8(torch, xq, qweight, scales, act, *, bits, group, out_dtype):
+    """H on the CUDA cores (``qmm_w8a8_kernel``) by a direct launch, with
+    the geometry ``w8a8_launch`` gives that route, whatever route the
+    call's shape would take there."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.ops import quant_kernels as qk
+
+    M, K = xq.shape
+    N = qweight.shape[1]
+    vec, ks, rsplit, gps, splits = qk._cuda_core_geometry(M, N, K // group, qweight)
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=xq.device)
+          if splits > 1 else None)
+    qk.QMM_W8A8(
+        xq.data_ptr(), qweight.data_ptr(), scales.data_ptr(), act.reshape(-1).data_ptr(),
+        out.data_ptr(), ws.data_ptr() if ws is not None else None, M, N, K, group, bits,
+        int(out_dtype == torch.bfloat16), vec, ks, rsplit, gps,
+        cuda_lib.current_stream_handle(xq.device))
+    return out
+
+
+def routed(bits, fn, *, w8a8=False):
+    """Run ``fn``; returns (its result, the one F or G kernel, or with
+    ``w8a8`` the one H kernel, it launched)."""
     from atoma_infer_tpu_torch.ops import cuda_lib
 
-    names = [f"quantized_matmul_int{bits}", f"quantized_matmul_int{bits}_mma"]
+    names = ([f"quantized_matmul_int{bits}", f"quantized_matmul_int{bits}_mma"] if not w8a8
+             else ["quantized_matmul_w8a8", "quantized_matmul_w8a8_mma"])
     before = {k: cuda_lib.KERNELS[k].launches for k in names}
     out = fn()
     launched = [k for k in names if cuda_lib.KERNELS[k].launches > before[k]]
@@ -1116,11 +1357,12 @@ MMA_COLS = (72, 144, 200, 2048, 14336)
 
 
 def check_mma_route(torch):
-    """F and G's routes against their plain versions within
-    ``QMM_TOL["bfloat16"]``: bf16 activations over the grid above, each call
-    shown by the launch counters to take the route the shape asks for; then
-    misaligned weights, activations and scales and f32 activations, each
-    shown to take the CUDA cores."""
+    """F, G and H's routes against their plain versions within
+    ``QMM_TOL["bfloat16"]``: bf16 activations (H: quantized per token) over
+    the grid above, each call shown by the launch counters to take the
+    route the shape asks for; then misaligned weights, activations and
+    scales (and for F and G f32 activations), each shown to take the CUDA
+    cores."""
     from atoma_infer_tpu_torch.ops import quant
     from atoma_infer_tpu_torch.ops import quant_kernels as qk
 
@@ -1145,6 +1387,20 @@ def check_mma_route(torch):
                         x, qt.qweight, qt.scales, bits=bits, group_size=group))
                     if got.dtype != torch.bfloat16 or got.shape != (M, N) or not (
                             rel <= QMM_TOL["bfloat16"]):
+                        raise AssertionError(f"{kernel} {label}: rel err {rel:.3e}")
+                    worst[kernel] = max(worst.get(kernel, 0.0), rel)
+                    # H on the same shape: its route takes whole k32 steps a group.
+                    xq, act = qk.quantize_activations(x)
+                    got, kernel = routed(bits, lambda: qk.w8a8_matmul_cuda(
+                        xq, qt.qweight, qt.scales, act, bits=bits, group_size=group,
+                        out_dtype=torch.bfloat16), w8a8=True)
+                    takes_mma = N % 16 == 0 and group % (32 if bits == 8 else 64) == 0
+                    if kernel.endswith("_mma") != takes_mma:
+                        raise AssertionError(f"W8A8 {label} took {kernel}")
+                    rel, _ = rel_err(got, qk.w8a8_matmul_plain(
+                        xq, qt.qweight, qt.scales, act, bits=bits, group_size=group,
+                        out_dtype=torch.bfloat16))
+                    if got.shape != (M, N) or not rel <= QMM_TOL["bfloat16"]:
                         raise AssertionError(f"{kernel} {label}: rel err {rel:.3e}")
                     worst[kernel] = max(worst.get(kernel, 0.0), rel)
                     cases += 1
@@ -1182,6 +1438,20 @@ def check_mma_route(torch):
             if kernel.endswith("_mma") or not rel <= tol:
                 raise AssertionError(f"{bits}-bit {what}: {kernel}, rel err {rel:.3e}")
             log(f"{bits}-bit {what}: {kernel}, rel err {rel:.3e} (tol {tol})")
+            if what == "f32 activations":
+                continue  # H takes int8 activations whatever x's dtype
+            # H with the same operand off alignment (int8 activations).
+            xq, act = qk.quantize_activations(xx.float())
+            xq = shifted(xq) if what == "misaligned activations" else xq
+            got, kernel = routed(bits, lambda: qk.w8a8_matmul_cuda(
+                xq, q, sc, act, bits=bits, group_size=group, out_dtype=torch.bfloat16),
+                w8a8=True)
+            rel, _ = rel_err(got, qk.w8a8_matmul_plain(xq, q, sc, act, bits=bits,
+                                                       group_size=group,
+                                                       out_dtype=torch.bfloat16))
+            if kernel.endswith("_mma") or not rel <= QMM_TOL["bfloat16"]:
+                raise AssertionError(f"W8A8 {bits}-bit {what}: {kernel}, rel err {rel:.3e}")
+            log(f"W8A8 {bits}-bit {what}: {kernel}, rel err {rel:.3e}")
 
 
 def qmm_work(M, K, N, group, *, bits, x_bytes, w8a8=False, out_bytes=2):
@@ -1223,19 +1493,25 @@ def check_quant_kernels(torch):
                              for _ in range(-(-128_000_000 // w_bytes) - 1)]
             dense = [quant.dequantize_weight(c, torch.bfloat16) for c in copies]
             iters = max(2, 20 // len(copies))
-            # (kernel, route): the tensor cores, the CUDA cores, W8A8 (H).
+            # (kernel, route): the tensor cores, the CUDA cores, W8A8 (H) on
+            # the int8 tensor cores and on the CUDA cores.
             kinds = [(f"quantized_matmul_int{bits}_mma", "mma"),
                      (f"quantized_matmul_int{bits}", "cuda_cores")]
             if shape != "lm_head":
-                kinds.append(("quantized_matmul_w8a8", "w8a8"))
+                kinds += [("quantized_matmul_w8a8_mma", "w8a8"),
+                          ("quantized_matmul_w8a8", "w8a8_cuda_cores")]
             for M in (8, 64, 256):
                 x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
                 xq, act = qk.quantize_activations(x)
                 library_ms = graph_ms(torch, lambda x=x: [torch.mm(x, d) for d in dense],
                                       iters=iters) / len(copies)
                 for name, route in kinds:
-                    if route == "w8a8":
-                        def run(c, xq=xq, act=act):
+                    if route.startswith("w8a8"):
+                        def run(c, xq=xq, act=act, direct=route == "w8a8_cuda_cores"):
+                            if direct:
+                                return cuda_core_w8a8(torch, xq, c.qweight, c.scales, act,
+                                                      bits=bits, group=group,
+                                                      out_dtype=torch.bfloat16)
                             return qk.w8a8_matmul_cuda(xq, c.qweight, c.scales, act, bits=bits,
                                                        group_size=group,
                                                        out_dtype=torch.bfloat16)
@@ -1257,7 +1533,8 @@ def check_quant_kernels(torch):
                             return qk.quantized_matmul_plain(x, qt.qweight, qt.scales,
                                                              bits=bits, group_size=group)
                     got = run(qt)
-                    if route != "w8a8" and routed(bits, lambda: run(qt))[1] != name:
+                    if route in ("mma", "w8a8") and routed(bits, lambda: run(qt),
+                                                          w8a8=route == "w8a8")[1] != name:
                         raise AssertionError(f"{name} {shape} M={M}: another route ran")
                     rel, err = rel_err(got, plain())
                     if not rel <= QMM_TOL["bfloat16"]:
@@ -1265,21 +1542,22 @@ def check_quant_kernels(torch):
                     ms = graph_ms(torch, lambda: [run(c) for c in copies],
                                   iters=iters) / len(copies)
                     plain_ms = graph_ms(torch, plain, iters=2)
-                    lib = library_ms if route != "w8a8" else None
+                    w8a8 = route.startswith("w8a8")
+                    lib = library_ms if not w8a8 else None
                     nbytes, flops = qmm_work(M, K, N, group, bits=bits,
-                                             x_bytes=1 if route == "w8a8" else 2,
-                                             w8a8=route == "w8a8")
-                    bound_ms, bound_by = bound(nbytes, flops,
-                                               "int8" if route == "w8a8" else "bfloat16")
+                                             x_bytes=1 if w8a8 else 2, w8a8=w8a8)
+                    bound_ms, bound_by = bound(nbytes, flops, "int8" if w8a8 else "bfloat16")
                     lib_text = f"{lib:.4f} ms" if lib is not None else "none"
-                    how = " bf16 (direct launch)" if route == "cuda_cores" else ""
+                    how = {"cuda_cores": " bf16 (direct launch)",
+                           "w8a8_cuda_cores": " (direct launch)"}.get(route, "")
                     log(f"{name}{how} {bits}-bit {shape} K={K} N={N} M={M}: {ms:.4f} ms (plain "
                         f"{plain_ms:.4f} ms, library {lib_text}), bound {bound_ms:.4f} ms by "
                         f"{bound_by}, max |err| {err:.3e} (rel {rel:.2e})")
-                    # The line's W8A8 row is the main path's: INT8 weights.
-                    # The CUDA cores' row comes from the traffic they serve.
+                    # The line's W8A8 rows are the main path's: INT8 weights
+                    # (H's CUDA cores by a direct launch beside its route).
+                    # F and G's CUDA cores' rows come from the traffic they serve.
                     if (shape, M) == (QMM_LINE_SHAPE, QMM_LINE_M) and route != "cuda_cores" and \
-                            not (route == "w8a8" and bits == 4):
+                            not (w8a8 and bits == 4):
                         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                           library_ms=lib, bound_ms=bound_ms,
                                           bound_by=bound_by)
@@ -1482,11 +1760,13 @@ def run_tools(torch):
     # ladder (F and G on the tensor cores: bf16 activations).
     runs = (
         ("w8a8_gate", lambda: w8a8_gate.main([]),
-         ("quantized_matmul_int8_mma", "quantized_matmul_w8a8")),
-        ("kv_quant_gate", lambda: kv_quant_gate.main([]), ("fused_decode_attention_int8",)),
+         ("quantized_matmul_int8_mma", "quantized_matmul_w8a8_mma")),
+        ("kv_quant_gate", lambda: kv_quant_gate.main([]),
+         ("fused_decode_attention_int8_split",)),
         ("quality_ladder", ladder,
          ATTENTION_PATH + kv8_path("int8") + kv8_path("fp8")
-         + ("quantized_matmul_int8_mma", "quantized_matmul_int4_mma", "quantized_matmul_w8a8")),
+         + ("quantized_matmul_int8_mma", "quantized_matmul_int4_mma",
+            "quantized_matmul_w8a8_mma")),
     )
     for name, run, path in runs:
         for kernel in cuda_lib.KERNELS.values():
@@ -1815,13 +2095,15 @@ def check_service_parity(torch):
         raise AssertionError("service parity: greedy tokens differ between card and CPU")
     counts = {k: c.launches for k, c in cuda_lib.KERNELS.items()}
     check_route("service parity (f32)", counts, bf16=False)
-    if not counts["ragged_paged_attention"]:
-        raise AssertionError("service parity: the CUDA-core ragged kernel was not launched")
+    path = ("ragged_paged_attention", "fused_decode_attention")
+    if not all(counts[k] for k in path):
+        raise AssertionError(f"service parity: f32 path not launched: {[counts[k] for k in path]}")
     n = sum(len(t) for r in runs["cuda"] for t in r)
     log(f"service parity: {len(prompts)} requests × 2 sequences, {n} greedy tokens "
         f"identical on the card and the CPU, with swaps on both; f32 queries: the CUDA-core "
-        f"ragged kernel launched {counts['ragged_paged_attention']} times")
-    return {"ragged_paged_attention": counts["ragged_paged_attention"]}
+        f"ragged kernel launched {counts['ragged_paged_attention']} times, the unsplit fused "
+        f"kernel {counts['fused_decode_attention']}")
+    return {k: counts[k] for k in path}
 
 
 def check_quant_service_parity(torch):
@@ -1904,9 +2186,10 @@ def check_quant_service_parity(torch):
 
 def kv8_path(kv, *, mma=True):
     """The kernels of a path over a 1-byte cache: bf16 queries take the
-    tensor-core ragged kernel, f32 queries (``mma=False``) the CUDA cores."""
+    tensor-core ragged kernel and the split fused one, f32 queries
+    (``mma=False``) the CUDA-core ragged kernel and the unsplit fused one."""
     return (f"reshape_and_cache_{kv}", f"ragged_paged_attention_{kv}{'_mma' if mma else ''}",
-            f"fused_decode_attention_{kv}")
+            f"fused_decode_attention_{kv}{'_split' if mma else ''}")
 
 
 # The ragged kernels by route: bf16 queries must never launch the CUDA-core
@@ -1914,14 +2197,20 @@ def kv8_path(kv, *, mma=True):
 CUDA_CORE_RAGGED = ("ragged_paged_attention", "ragged_paged_attention_int8",
                     "ragged_paged_attention_fp8")
 TENSOR_CORE_RAGGED = tuple(f"{k}_mma" for k in CUDA_CORE_RAGGED)
+# Likewise the fused decode kernels: bf16 queries the split kernel, f32
+# queries the unsplit one.
+UNSPLIT_FUSED = ("fused_decode_attention", "fused_decode_attention_int8",
+                 "fused_decode_attention_fp8")
+SPLIT_FUSED = tuple(f"{k}_split" for k in UNSPLIT_FUSED)
 
 
 def check_route(label, launches, *, bf16):
-    """Every ragged launch of a run on the route its queries' dtype asks for."""
-    wrong = {k: launches[k] for k in (CUDA_CORE_RAGGED if bf16 else TENSOR_CORE_RAGGED)
-             if launches[k]}
+    """Every ragged and fused launch of a run on the route its queries'
+    dtype asks for."""
+    off = (CUDA_CORE_RAGGED + UNSPLIT_FUSED) if bf16 else (TENSOR_CORE_RAGGED + SPLIT_FUSED)
+    wrong = {k: launches[k] for k in off if launches[k]}
     if wrong:
-        raise AssertionError(f"{label}: ragged launches off the {'bf16' if bf16 else 'f32'} "
+        raise AssertionError(f"{label}: attention launches off the {'bf16' if bf16 else 'f32'} "
                              f"route: {wrong}")
 
 
@@ -1932,8 +2221,9 @@ def check_kv8_service_parity(torch):
     that groups are swapped to the host tier (INT8 scales with their pages)
     and back. Greedy tokens identical, swaps on both, every block back, and
     on the card every kernel of the path launched, the ragged one on the CUDA
-    cores (f32 queries). Returns D's and E's CUDA-core ragged launches, each
-    from its own card run (counts set to 0 just before it)."""
+    cores and the unsplit fused one (f32 queries). Returns D's and E's
+    CUDA-core ragged and unsplit fused launches, each from its own card run
+    (counts set to 0 just before it)."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
@@ -2003,7 +2293,8 @@ def check_kv8_service_parity(torch):
             if device == "cuda":
                 counts = {k: c.launches for k, c in cuda_lib.KERNELS.items()}
                 check_route(label, counts, bf16=False)
-                launches[f"ragged_paged_attention_{kv}"] = counts[f"ragged_paged_attention_{kv}"]
+                for k in (f"ragged_paged_attention_{kv}", f"fused_decode_attention_{kv}"):
+                    launches[k] = counts[k]
             runs[device] = [[tuple(o.token_ids) for o in r.outputs] for r in results]
         if runs["cuda"] != runs["cpu"]:
             raise AssertionError(f"{kv} KV service parity: greedy tokens differ "
@@ -2017,8 +2308,12 @@ def check_kv8_service_parity(torch):
 
 
 # --------------------------------------------------------------- phase 4
-# The bf16 attention path: the ragged kernel on the tensor cores.
-ATTENTION_PATH = ("reshape_and_cache", "ragged_paged_attention_mma", "fused_decode_attention")
+# The bf16 attention path: the ragged kernel on the tensor cores, the split
+# fused decode kernel. The services' decode steps (8 sequences of up to 330
+# keys) split, so their runs also launch the merge of split rows.
+ATTENTION_PATH = ("reshape_and_cache", "ragged_paged_attention_mma",
+                  "fused_decode_attention_split")
+SERVICE_PATH = ATTENTION_PATH + ("paged_attention_split_combine",)
 # The services' mixed prefill+decode step (0-based, among mixed steps) that
 # runs under torch.profiler.
 PROFILED_MIXED_STEP = 0
@@ -2157,25 +2452,33 @@ def serve(torch, label, model, params, config, path):
     decode_prof = profiled.get("decode", {})
     if decode_prof.get("kernels"):
         top = ", ".join(f"{name[:48]} {t:.3f}" for name, t in decode_prof["kernels"][:6])
-        # The quantized linears' share: kernels F, G, H and their K-split sums.
+        # The quantized linears' share: kernels F, G, H and their K-split
+        # sums; the fused decode attention's: its kernel and the merge of
+        # split rows (a pure-decode step runs no ragged kernel).
         qmm = sum(t for name, t in decode_prof["kernels"]
                   if "qmm_" in name or "split_reduce" in name)
+        h_ms = sum(t for name, t in decode_prof["kernels"] if "qmm_w8a8" in name)
+        fused = sum(t for name, t in decode_prof["kernels"]
+                    if "fused_" in name or "rpa_combine" in name)
         log(f"service {label}: profiled pure-decode step ({decode_prof['seqs']} seqs): device "
             f"busy {decode_prof['busy_ms']:.3f} ms of {decode_prof['wall_ms']:.2f} ms wall under "
-            f"the profiler, quantized matmuls {qmm:.3f} ms; top device time (ms): {top}")
+            f"the profiler, quantized matmuls {qmm:.3f} ms (H {h_ms:.3f}), fused decode "
+            f"attention {fused:.3f} ms; top device time (ms): {top}")
     else:
         log(f"service {label}: device time of a decode step not measured (the profiler "
             "recorded no device events)")
     mixed_prof = profiled.get("mixed", {})
     if mixed_prof.get("kernels"):
         top = ", ".join(f"{name[:48]} {t:.3f}" for name, t in mixed_prof["kernels"][:6])
-        # The ragged attention's share: the tensor-core kernel and its split merge.
+        # The ragged attention's share: the tensor-core kernel and its split
+        # merge; kernel H's (W8A8).
         ragged_ms = sum(t for name, t in mixed_prof["kernels"] if "rpa_" in name)
+        h_ms = sum(t for name, t in mixed_prof["kernels"] if "qmm_w8a8" in name)
         log(f"service {label}: profiled mixed step ({mixed_prof['prefills']} prefill + "
             f"{mixed_prof['seqs']} decode groups): device busy {mixed_prof['busy_ms']:.3f} ms of "
             f"{mixed_prof['wall_ms']:.2f} ms wall under the profiler, ragged attention "
-            f"{ragged_ms:.3f} ms ({ragged_ms / max(mixed_prof['busy_ms'], 1e-9):.1%} of busy); top "
-            f"device time (ms): {top}")
+            f"{ragged_ms:.3f} ms ({ragged_ms / max(mixed_prof['busy_ms'], 1e-9):.1%} of busy), "
+            f"H {h_ms:.3f} ms; top device time (ms): {top}")
         # The same calls again, each through the route and through the
         # CUDA-core kernel by a direct launch (device time in CUDA graphs,
         # summed).
@@ -2235,7 +2538,7 @@ def run_service(torch):
     """The bf16 Llama-3.2-1B service (16 layers), blocks of 16."""
     model, params = llama_1b_model(torch)
     return serve(torch, "1B bf16", model, params, bf16_config("llama-3.2-1b-random", BS),
-                 ATTENTION_PATH)
+                 SERVICE_PATH)
 
 
 def run_shape_services(torch):
@@ -2249,13 +2552,13 @@ def run_shape_services(torch):
     model = Llama(llama_3b_config(28), dtype=torch.bfloat16, device="cuda")
     params = model.init_params(torch.Generator(device=model.device).manual_seed(3))
     serve(torch, "3B bf16", model, params, bf16_config("llama-3.2-3b-random", BS),
-          ATTENTION_PATH)
+          SERVICE_PATH)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     model, params = llama_1b_model(torch)
     serve(torch, "1B bf16 block 64", model, params, bf16_config("llama-3.2-1b-random", 64),
-          ATTENTION_PATH)
+          SERVICE_PATH)
 
 
 def run_quant_services(torch):
@@ -2300,18 +2603,25 @@ def run_quant_services(torch):
     runs = (
         ("8B INT8", "int8", False, "quantized_matmul_int8_mma"),
         ("8B INT4", "int4", False, "quantized_matmul_int4_mma"),
-        ("8B INT8 W8A8", "int8", True, "quantized_matmul_w8a8"),
+        ("8B INT8 W8A8", "int8", True, "quantized_matmul_w8a8_mma"),
     )
     for label, quantization, w8a8, kernel in runs:
         saved = quant_kernels._W8A8
         quant_kernels._W8A8 = w8a8
         try:
             # The LM head is INT8 per channel and weight-only in all three.
-            path = ATTENTION_PATH + (kernel, "quantized_matmul_int8_mma")
+            path = SERVICE_PATH + (kernel, "quantized_matmul_int8_mma")
             counts = serve(torch, label, model, params[quantization], config(quantization), path)
         finally:
             quant_kernels._W8A8 = saved
         launches[kernel] = counts[kernel]
+        if w8a8:
+            # Every H launch of the service on the int8 tensor cores: its
+            # shapes all take them, so the CUDA-core H has no launch here.
+            launches["quantized_matmul_w8a8"] = counts["quantized_matmul_w8a8"]
+            if counts["quantized_matmul_w8a8"]:
+                raise AssertionError(f"service {label}: {counts['quantized_matmul_w8a8']} H "
+                                     "launches on the CUDA cores")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2322,7 +2632,7 @@ def run_quant_services(torch):
                       ("fp8", dict(num_device_blocks_override=2048))):
         cfg = config("int8", kv, **cache)
         label = f"8B INT8 + {kv.upper()} KV"
-        path = kv8_path(kv) + ("quantized_matmul_int8_mma",)
+        path = kv8_path(kv) + ("quantized_matmul_int8_mma", "paged_attention_split_combine")
         counts = serve(torch, label, model, params["int8"], cfg, path)
         per_block = cfg.cache.block_bytes(
             model.config.num_layers, model.config.num_kv_heads, model.config.head_dim, 1,
