@@ -8,7 +8,9 @@ nothing of JAX. Its Pallas kernels are ported as hand-written CUDA C++ for
 tensors take.
 
 Layer map (mirrors the JAX package):
-  engine/  — service admission, continuous batching, worker, sampling
+  server/  — the OpenAI-compatible HTTP server (copies)
+  engine/  — service admission, continuous batching (sync or async), worker,
+             pure-decode CUDA graphs, sampling
   core/    — scheduler + paged-KV block manager (copies)
   models/  — Llama in PyTorch over per-layer paged caches
   ops/     — CUDA kernels + plain versions, attention dispatch

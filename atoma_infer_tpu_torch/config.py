@@ -182,15 +182,17 @@ class CacheConfig:
         kv_dtype_size: int,
         devices: Optional[list] = None,
         scale_pages: bool = False,
+        reserve_bytes: int = 0,
     ) -> None:
         """Size the device/host block pools from live memory stats.
 
         The reference's per-device ``cudaMemGetInfo`` scan
         (config.rs:590-643), through ``torch.cuda.mem_get_info``: takes the
-        minimum free device memory across devices × ``hbm_memory_utilization``
-        ÷ per-block bytes (an INT8 cache's scales counted when
-        ``scale_pages``). Must run AFTER weights are loaded so "free"
-        reflects weight residency.
+        minimum free device memory across devices, less ``reserve_bytes``
+        (what the decode steps' CUDA graphs will hold), ×
+        ``hbm_memory_utilization`` ÷ per-block bytes (an INT8 cache's scales
+        counted when ``scale_pages``). Must run AFTER weights are loaded so
+        "free" reflects weight residency.
         """
         per_block = self.block_bytes(
             num_layers, num_kv_heads, head_dim, kv_dtype_size, scale_pages
@@ -207,7 +209,7 @@ class CacheConfig:
                 self.num_device_blocks = 512
             else:
                 self.num_device_blocks = int(
-                    free * self.hbm_memory_utilization // per_block
+                    max(0, free - reserve_bytes) * self.hbm_memory_utilization // per_block
                 )
         if self.num_host_blocks is None:
             free_ram = _free_host_memory()

@@ -1,0 +1,226 @@
+"""Pure-decode steps captured in CUDA graphs and replayed.
+
+The port's counterpart of the JAX worker's one compiled program per bucket
+(``atoma_infer_tpu/engine/worker.py:207-222``). An eager decode step
+launches a few hundred kernels from Python; a replay launches them all with
+one call. A step replays a graph when it is pure decode (one query token per
+sequence) on a CUDA device and needs no penalties; mixed and prefill steps,
+penalty batches and every CPU step run eagerly.
+
+The graph key is the JAX step's static arguments: ``(T, S, P,
+needs_sampling, needs_typical, top_n, feed)``, ``decode_only`` true.
+Everything else a step reads is the same tensors (weights, the KV caches,
+updated in place) or is copied into the static inputs before each replay,
+on the stream the replay runs on:
+- the packed metadata (token ids, positions, slots, block tables, lengths,
+  the feed's ``prev_map``);
+- the sampling tensors, when the worker's sampling version changed;
+- the Gumbel noise ``[S, V]``, made eagerly (a ``torch.Generator`` per row,
+  reseeded from host integers, cannot be captured);
+- the async feed's previous tokens.
+
+The static inputs are ONE set for every key, each sized for the largest
+bucket: a graph reads the leading rows of each (its S rows, its packed
+length). So their memory does not grow with the number of keys. That is
+safe because graphs replay one at a time on one stream: each fill is
+enqueued after the previous replay's reads.
+
+A key's first step runs eagerly, which also loads every kernel and library
+handle it needs, and the capture follows it; later steps of the key replay.
+Every graph is captured into one memory pool, so the pool holds one step's
+workspaces whatever the number of keys; what stays allocated per key is its
+outputs. A graph's outputs are read only by work enqueued before the next
+replay (the host copy of the step's tokens, the next step's feed copy), so
+the next graph may reuse their memory. Each instantiated graph also holds
+device memory of the driver's, 2–3 MiB at 16–32 layers (measured on an H100
+by ``chip_smoke.py``), and the keys a deployment can reach number in the
+hundreds (sequence buckets × page buckets × sampling flags × top-n × feed:
+720 for 64 sequences of up to 2,048 tokens in blocks of 16, twice that with
+async scheduling): at most ``MAX_GRAPHS`` graphs live, and capturing one
+more drops the least recently used, whose key is captured again at its next
+step. A capture or replay that fails raises; nothing falls back to the eager
+step.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..ops import cuda_lib
+
+
+# The most graphs a worker keeps: the KV pool leaves their memory free
+# (``llm_service.decode_graph_bytes``). Steady traffic reaches far fewer keys
+# (the smoke's services 3–9, warmup included).
+MAX_GRAPHS = 64
+
+
+def decode_graph_key(model_input, sampling, feed: bool) -> Optional[tuple]:
+    """The graph a step replays, or None for a step that runs eagerly: one
+    with a prefill chunk, or with penalties (their recent-token window moves
+    every step)."""
+    if not model_input.decode_only or sampling.needs_penalties:
+        return None
+    S, P = model_input.block_tables.shape
+    return (
+        model_input.token_ids.shape[0], S, P, sampling.needs_sampling,
+        sampling.needs_typical, sampling.top_n, feed,
+    )
+
+
+def page_capacity(max_model_len: int, block_size: int) -> int:
+    """The widest block-table bucket a decode step can have: the pages of
+    ``max_model_len`` tokens, and at least ``input_prep.bucket``'s smallest
+    (8)."""
+    return max(8, -(-max_model_len // block_size))
+
+
+def packed_capacity(max_rows: int, max_pages: int) -> int:
+    """The longest packed metadata of a pure-decode step (``worker._invoke``
+    ``parts``) at ``max_rows`` sequences of ``max_pages`` pages: token ids,
+    positions, slots, ``prev_map`` (T = S rows each), the block tables, the
+    lengths, the query starts (S + 1), the sampling steps, the sequence
+    count and the selected rows."""
+    return 4 * max_rows + max_rows * max_pages + 4 * max_rows + 2
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: object
+    inputs: tuple          # (packed, sampling, noise, feed): views of the static inputs
+    outputs: tuple
+    launches: Dict[str, int]   # each kernel's launches in one replay
+
+
+class DecodeGraphs:
+    """The captured pure-decode graphs of one worker, by key, and the
+    static inputs they share."""
+
+    def __init__(self, max_rows: int, max_pages: int):
+        # The largest sequence bucket a step can have, and the largest page
+        # bucket: every static input is sized for them.
+        self.max_rows = max_rows
+        self.packed_capacity = packed_capacity(max_rows, max_pages)
+        # By last use, the most recent last.
+        self.graphs: "collections.OrderedDict[tuple, _Graph]" = collections.OrderedDict()
+        self.capture_seconds = 0.0
+        self.replays = 0
+        self.evictions = 0
+        # Device bytes the captures took, summed over them: the pool's
+        # growth, what stays allocated in it (the graphs' outputs), and what
+        # the driver took outside the caching allocator (the instantiated
+        # graphs).
+        self.captured_bytes = {"pool": 0, "held": 0, "driver": 0}
+        self._static: Dict[str, torch.Tensor] = {}
+        self._sampling_version = None
+        self._pool = None
+
+    @property
+    def static_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self._static.values())
+
+    def run(self, key: tuple, step: Callable, packed, sampling, sampling_version, gumbel,
+            prev_tokens) -> tuple:
+        """One step of ``key``: ``step(packed, sampling, gumbel,
+        prev_tokens)`` eagerly and then captured at the key's first use, a
+        replay after. ``sampling_version`` changes whenever the worker's
+        sampling tensors do: while it holds, they are not copied again."""
+        entry = self.graphs.get(key)
+        if entry is None:
+            outputs = step(packed, sampling, gumbel, prev_tokens)
+            views = self._views(packed, sampling, gumbel, prev_tokens)
+            # The static inputs always hold the latest graph step's inputs,
+            # so the newest graph replays right even before its next fill.
+            self._fill(views, packed, sampling, sampling_version, gumbel, prev_tokens)
+            self.graphs[key] = self._capture(step, views)
+            if len(self.graphs) > MAX_GRAPHS:
+                # The capture synchronized the device, so no replay of the
+                # least recently used graph is in flight; its outputs live
+                # on while a pending step holds them.
+                self.graphs.popitem(last=False)
+                self.evictions += 1
+            return outputs
+        self.graphs.move_to_end(key)
+        self._fill(entry.inputs, packed, sampling, sampling_version, gumbel, prev_tokens)
+        entry.graph.replay()
+        cuda_lib.count_replay(entry.launches)
+        self.replays += 1
+        return entry.outputs
+
+    def _fill(self, views, packed, sampling, sampling_version, gumbel, prev_tokens) -> None:
+        """Copy one step's inputs into a graph's views, device to device on
+        the current stream, so each copy lands after the previous replay's
+        reads. The previous tokens may be the same graph's output buffer,
+        which the replay overwrites: the copy is enqueued before the replay,
+        so it reads them first."""
+        static_packed, static_sampling, noise, feed = views
+        static_packed.copy_(packed)
+        if sampling_version != self._sampling_version:
+            for name, t in sampling.items():
+                static_sampling[name].copy_(t)
+            self._sampling_version = sampling_version
+        if noise is not None:
+            noise.copy_(gumbel)
+        if feed is not None:
+            feed[: prev_tokens.shape[0]].copy_(prev_tokens)
+
+    def _buffer(self, name: str, like: torch.Tensor, rows: int) -> torch.Tensor:
+        """The static input ``name``: ``rows`` rows shaped like ``like``'s,
+        allocated at its first use; ``like`` must fit in its leading rows."""
+        buf = self._static.get(name)
+        if buf is None:
+            buf = torch.zeros((rows, *like.shape[1:]), dtype=like.dtype, device=like.device)
+            self._static[name] = buf
+        if like.shape[0] > buf.shape[0] or like.shape[1:] != buf.shape[1:] \
+                or like.dtype != buf.dtype:
+            raise ValueError(f"static input {name}: a {tuple(like.shape)} {like.dtype} step "
+                             f"does not fit the {tuple(buf.shape)} {buf.dtype} buffer")
+        return buf
+
+    def _views(self, packed, sampling, gumbel, prev_tokens) -> tuple:
+        """A graph's inputs: the leading rows of each static input."""
+        static_packed = self._buffer("packed", packed, self.packed_capacity)[: packed.shape[0]]
+        static_sampling = {
+            name: self._buffer(f"sampling.{name}", t, self.max_rows)[: t.shape[0]]
+            for name, t in sampling.items()
+        }
+        noise = None
+        if gumbel is not None:
+            noise = self._buffer("noise", gumbel, self.max_rows)[: gumbel.shape[0]]
+        # The feed is the whole buffer: prev_map's rows index the previous
+        # step's tokens, whatever its bucket.
+        feed = None if prev_tokens is None else self._buffer("feed", prev_tokens, self.max_rows)
+        return static_packed, static_sampling, noise, feed
+
+    def _capture(self, step, views) -> _Graph:
+        t0 = time.monotonic()
+        device = views[0].device
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        reserved0 = torch.cuda.memory_reserved(device)
+        free0 = torch.cuda.mem_get_info(device)[0]
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the engine steps on an executor thread; what other
+        # threads do meanwhile cannot invalidate this capture.
+        with cuda_lib.recording_launches() as launches, torch.cuda.graph(
+            graph, pool=self._pool, capture_error_mode="thread_local"
+        ):
+            # Entering the capture empties the allocator's cache: the pool's
+            # growth is counted from here (allocator statistics, no CUDA
+            # call inside the capture).
+            reserved1 = torch.cuda.memory_reserved(device)
+            allocated1 = torch.cuda.memory_allocated(device)
+            outputs = step(views[0], views[1], views[2], views[3])
+        reserved2 = torch.cuda.memory_reserved(device)
+        self.captured_bytes["pool"] += reserved2 - reserved1
+        self.captured_bytes["held"] += torch.cuda.memory_allocated(device) - allocated1
+        self.captured_bytes["driver"] += (
+            free0 - torch.cuda.mem_get_info(device)[0] - (reserved2 - reserved0)
+        )
+        self.capture_seconds += time.monotonic() - t0
+        return _Graph(graph, views, outputs, dict(launches))

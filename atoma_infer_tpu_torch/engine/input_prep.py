@@ -15,6 +15,11 @@ here compares one to one with a JAX worker step. The port adds
 ``max_q_len``: the longest query chunk, which sizes the attention kernel's
 grid without a device read. Speculative-decoding verify rows are not ported
 yet (ROADMAP.md, Queue 1).
+
+``SHAPE_COUNTS`` counts the distinct ``(kind, T, S, P)`` step shapes a
+process dispatches, as the JAX package counts its compiled programs: on the
+card each distinct pure-decode shape is one captured CUDA graph
+(``engine/cuda_graphs.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +31,15 @@ import numpy as np
 
 from ..ops.kv_cache import PAD_SLOT_ID
 from ..sequence import SequenceGroupMetadata
+
+# How many distinct (kind, T, S, P) bucket shapes a serving session
+# dispatches, and how often.
+SHAPE_COUNTS: dict = {}
+
+
+def _record_shape(T: int, S: int, P: int, kind: str) -> None:
+    key = (kind, T, S, P)
+    SHAPE_COUNTS[key] = SHAPE_COUNTS.get(key, 0) + 1
 
 
 def bucket(
@@ -68,6 +82,7 @@ class ModelInput:
     # Sampling side:
     selected_token_indices: np.ndarray  # [S] int32 — last-token row per seq
     sample_mask: np.ndarray      # [S] bool — do_sample per scheduled seq
+    seq_ids: List[int]           # actual seq ids, scheduler order
     num_prefills: int
     max_q_len: int               # longest query chunk (host value)
 
@@ -92,12 +107,14 @@ def _prepare_decode_fast(
         # Sliding-window slot mapping indexes tables modulo their per-seq
         # length; the general path handles it.
         return None
+    seq_ids: List[int] = []
     datas = []
     tables_list = []
     for meta in metadata_list:
         if meta.is_prompt:
             return None
         for seq_id, seq_data in meta.seq_data.items():
+            seq_ids.append(seq_id)
             datas.append(seq_data)
             tables_list.append(meta.block_tables[seq_id])
 
@@ -123,6 +140,7 @@ def _prepare_decode_fast(
     tables = np.zeros((S, P), dtype=np.int32)
     for i, t in enumerate(tables_list):
         tables[i, : min(len(t), P)] = t[:P]
+    _record_shape(T, S, P, "decode")
 
     idx = np.arange(num_seqs)
     page = tables[idx, pos[:num_seqs] // block_size]
@@ -146,6 +164,7 @@ def _prepare_decode_fast(
         num_seqs=np.asarray(num_seqs, dtype=np.int32),
         selected_token_indices=sel,
         sample_mask=smask,
+        seq_ids=seq_ids,
         num_prefills=0,
         max_q_len=1,
     )
@@ -179,6 +198,7 @@ def prepare_model_input(
     seq_lens: List[int] = []
     q_lens: List[int] = []
     sample_mask: List[bool] = []
+    seq_ids: List[int] = []
     num_prefills = 0
 
     for meta in metadata_list:
@@ -208,6 +228,7 @@ def prepare_model_input(
             seq_lens.append(kv_len)
             q_lens.append(len(new_tokens))
             sample_mask.append(meta.do_sample)
+            seq_ids.append(seq_id)
 
     num_tokens = len(token_ids)
     num_seqs = len(seq_lens)
@@ -219,6 +240,7 @@ def prepare_model_input(
     # a few lanes of padding saved.
     max_pages = max((len(t) for t in per_seq_tables), default=1)
     P = bucket(max(max_pages, 1), minimum=8, maximum=max_pages_per_seq)
+    _record_shape(T, S, P, "mixed")
 
     tok = np.zeros(T, dtype=np.int32)
     tok[:num_tokens] = token_ids
@@ -254,6 +276,7 @@ def prepare_model_input(
         num_seqs=np.asarray(num_seqs, dtype=np.int32),
         selected_token_indices=sel,
         sample_mask=smask,
+        seq_ids=seq_ids,
         num_prefills=num_prefills,
         max_q_len=max(q_lens, default=0),
     )

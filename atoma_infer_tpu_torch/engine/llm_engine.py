@@ -10,8 +10,9 @@ Here the loop is asyncio in one process: the worker call runs in a thread
 executor so the event loop keeps admitting requests while the device
 computes — the analog of the reference's engine-thread/model-thread split.
 
-The PyTorch port's copy of ``atoma_infer_tpu/engine/llm_engine.py`` with its
-synchronous, single-cohort path only: async scheduling, pipeline cohorts and
+The PyTorch port's copy of ``atoma_infer_tpu/engine/llm_engine.py``, single
+cohort: the synchronous path and async scheduling (steps dispatched ahead of
+their predecessors' tokens, ``async_depth`` in flight). Pipeline cohorts and
 the multi-host lockstep hook are not ported yet (ROADMAP.md, Queue 1).
 """
 
@@ -33,7 +34,7 @@ from ..sequence import (
     SequenceStatus,
 )
 from ..server import metrics
-from ..utils.tracing import instrument
+from ..utils.tracing import instrument, span
 from .detokenizer import Detokenizer
 from .worker import ModelWorker
 
@@ -94,6 +95,8 @@ class LlmEngine:
         tokenizer,
         eos_token_ids,
         max_model_len: int,
+        async_scheduling: bool = False,
+        async_depth: int = 2,
     ):
         self.scheduler = scheduler
         self.worker = worker
@@ -110,10 +113,30 @@ class LlmEngine:
         self._new_requests: asyncio.Queue = asyncio.Queue()
         self._pending_aborts: queue.SimpleQueue = queue.SimpleQueue()
         self._stopping = False
+        self._patched_tokens = 0
         self._consecutive_failures = 0
         # Captured by run(); step() may execute on a worker thread, so all
         # queue/future completions hop through call_soon_threadsafe.
         self._loop: Optional[asyncio.AbstractEventLoop] = None
+        # ---- async scheduling ---------------------------------------------
+        # Later steps are scheduled and dispatched BEFORE earlier steps'
+        # sampled tokens reach the host: the scheduler runs on placeholder
+        # bookkeeping (each sampled sequence gets a placeholder token
+        # appended, its value patched when its step completes) and each
+        # dispatched step reads continuing rows' input tokens from the
+        # immediately previous step's device-resident output (the worker's
+        # device-token feed). Host work — schedule, input prep, detokenize,
+        # stop checks — overlaps device execution instead of serializing
+        # with it. ``async_depth`` steps stay in flight: depth 1 detects
+        # stop conditions one step late; depth 2 also hides the
+        # device→host fetch behind a full host iteration. Cost: a finishing
+        # sequence wastes ``depth`` sampled-and-discarded tokens.
+        self._async_scheduling = async_scheduling
+        self._async_depth = max(1, async_depth)
+        # In-flight steps, oldest first. Each entry:
+        # (metadata, PendingStep, rows) with rows mapping
+        # seq_id → (group, seq, sampled-row, output-index of placeholder).
+        self._async_queue: List[tuple] = []
     # -------------------------------------------------------------- admission
     def add_request(
         self,
@@ -153,6 +176,14 @@ class LlmEngine:
                 request_id = self._pending_aborts.get_nowait()
             except queue.Empty:
                 return
+            group = self._groups.get(request_id)
+            if group is not None and any(
+                sid in rows for _, _, rows in self._async_queue for sid in group.sequences
+            ):
+                # Resolve the in-flight async steps first so the aborted
+                # response carries real tokens, not unpatched placeholders.
+                self._complete_async_all()
+                self.scheduler.remove_finished_sequences()
             group = self.scheduler.abort_sequence_group(request_id)
             if group is not None:
                 self._finish_group(group)
@@ -235,7 +266,7 @@ class LlmEngine:
         self._new_requests.put_nowait(None)
 
     def _has_unfinished(self) -> bool:
-        return self.scheduler.has_unfinished_seqs()
+        return bool(self._async_queue) or self.scheduler.has_unfinished_seqs()
 
     def _drain_new_requests(self) -> None:
         while True:
@@ -257,8 +288,12 @@ class LlmEngine:
         metrics.WAITING_SEQS.set(len(self.scheduler.waiting))
         for group in outputs.ignored_seq_groups:
             self._finish_group(group)
+        finished: List[GenerateRequestOutput] = []
         if not metadata and outputs.is_empty():
-            return []
+            if self._async_queue:
+                finished += self._complete_async_oldest()
+                self.scheduler.remove_finished_sequences()
+            return finished
 
         request = ExecuteModelRequest(
             sequence_groups_metadata=metadata,
@@ -268,11 +303,197 @@ class LlmEngine:
             running_queue_size=outputs.running_queue_size,
         )
 
-        group_outputs = self.worker.execute_model(request)
-        finished = self._process_outputs(metadata, group_outputs)
+        if self._async_scheduling and self._async_eligible(metadata):
+            # Async stepping: dispatch this step BEFORE fetching in-flight
+            # ones — rows continuing a just-sampled sequence read their
+            # input token on the device (worker feed), so the device never
+            # waits for a host round trip. Then, with up to ``async_depth``
+            # steps in flight, patch the OLDEST step's placeholders
+            # (detokenize/stop checks overlap the newer steps' device
+            # execution).
+            feed = None
+            if self._async_queue:
+                _, newest, rows = self._async_queue[-1]
+                feed = (
+                    newest.tokens_device,
+                    {sid: row for sid, (_, _, row, _) in rows.items()},
+                )
+            elif all(not m.is_prompt for m in metadata):
+                # Null feed: keeps a post-idle decode step on the same graph
+                # key as steady async decode (worker.dispatch).
+                feed = (None, {})
+            pending = self.worker.dispatch(request, feed=feed)
+            if pending is not None:
+                rows = self._book_placeholders(metadata)
+                self._async_queue.append((metadata, pending, rows))
+            while len(self._async_queue) > self._async_depth:
+                finished += self._complete_async_oldest()
+        else:
+            # Synchronous path (penalties, or a step whose input tokens sit
+            # unpatched in an older in-flight step): resolve the in-flight
+            # steps first so input prep reads real token ids, then execute.
+            # Pure-decode fallbacks ride the null feed so they reuse the
+            # steady async decode key.
+            finished += self._complete_async_all()
+            if (
+                self._async_scheduling
+                and all(not m.is_prompt for m in metadata)
+                and self._async_eligible(metadata)  # queue now empty: only
+                # penalties force False here, and those run eagerly anyway
+            ):
+                pending = self.worker.dispatch(request, feed=(None, {}))
+                group_outputs = pending.complete() if pending is not None else {}
+            else:
+                group_outputs = self.worker.execute_model(request)
+            finished += self._process_outputs(metadata, group_outputs)
         self.scheduler.remove_finished_sequences()
         metrics.RUNNING_SEQS.set(len(self.scheduler.running))
         return finished
+
+    # ------------------------------------------------------- async scheduling
+    _PLACEHOLDER = 0  # patched by position, value never read on host
+
+    def _async_eligible(self, metadata) -> bool:
+        """A step can be dispatched ahead of the in-flight one iff nothing in
+        it needs the in-flight step's token VALUES on the host: penalties
+        read the newest token into ``recent_tokens``, and a
+        (recompute-)prefill's input ids must be real. Pure decode — the
+        steady state where host overlap matters — always qualifies."""
+        older: set = set()
+        for _, _, rows in self._async_queue[:-1]:
+            older.update(rows)
+        newest = self._async_queue[-1][2] if self._async_queue else {}
+        for meta in metadata:
+            p = meta.next_token_chooser_params
+            if p.repetition_penalty != 1.0 or p.frequency_penalty != 0.0:
+                return False
+            if meta.is_prompt and self._async_queue:
+                for seq_id in meta.seq_data:
+                    if seq_id in older or seq_id in newest:
+                        return False
+            elif older:
+                # A decode row reads its input token from the device feed
+                # only when its last sample came from the NEWEST in-flight
+                # step; a token still unpatched in an older in-flight step
+                # would be read from the host as a placeholder (depth >1 —
+                # e.g. the first decode after a split prefill wave).
+                for seq_id in meta.seq_data:
+                    if seq_id in older and seq_id not in newest:
+                        return False
+        return True
+
+    def _book_placeholders(self, metadata) -> Dict[int, tuple]:
+        """Advance bookkeeping for a dispatched-but-unfetched step: computed
+        token counts move forward and every sampled sequence appends a
+        placeholder token (so the next schedule() sees correct lengths and
+        block demand). Returns seq_id → (group, seq, row, output-index);
+        values are patched when the step completes."""
+        rows: Dict[int, tuple] = {}
+        row = 0
+        for meta in metadata:
+            group = self._groups.get(meta.request_id)
+            if group is not None:
+                group.update_num_computed_tokens(meta.token_chunk_size)
+            for seq_id in meta.seq_data:
+                r = row
+                row += 1
+                if group is None or not meta.do_sample:
+                    continue
+                seq = group.sequences.get(seq_id)
+                if seq is None or seq.is_finished():
+                    continue
+                seq.append_token_id(self._PLACEHOLDER, 0.0)
+                out_idx = len(seq.sequence_data.output_token_ids) - 1
+                rows[seq_id] = (group, seq, r, out_idx)
+        return rows
+
+    def _complete_async_all(self) -> List[GenerateRequestOutput]:
+        finished: List[GenerateRequestOutput] = []
+        while self._async_queue:
+            finished += self._complete_async_oldest()
+        return finished
+
+    def _complete_async_oldest(self) -> List[GenerateRequestOutput]:
+        """Fetch the oldest in-flight step and patch its placeholder tokens
+        with the real values, then run the usual detokenize/stop/stream path
+        on them."""
+        if not self._async_queue:
+            return []
+        metadata, pending, placeholders = self._async_queue.pop(0)
+        group_outputs = pending.complete()
+        finished: List[GenerateRequestOutput] = []
+        with span("engine.patch_outputs"):
+            now = time.monotonic()
+            for meta in metadata:
+                group = self._groups.get(meta.request_id)
+                if group is None:
+                    continue
+                out = group_outputs.get(meta.request_id)
+                if out is None:
+                    continue
+                # Computed counts already advanced at dispatch time.
+                group.metrics.last_token_time = now
+                if not meta.do_sample:
+                    continue
+                group.maybe_set_first_token_time(now)
+                for seq_id, seq_out in out.outputs.items():
+                    entry = placeholders.get(seq_id)
+                    if entry is None:
+                        continue  # finished/aborted after dispatch: discard
+                    _, seq, _, out_idx = entry
+                    if seq.is_finished():
+                        continue
+                    self._patch_sequence(group, seq, seq_out, out_idx)
+                    self._patched_tokens += 1
+                if group.is_finished():
+                    finished.append(self._finish_group(group))
+            # One locked counter update per step, not per token.
+            if self._patched_tokens:
+                metrics.GENERATED_TOKENS.inc(self._patched_tokens)
+                self._patched_tokens = 0
+        return finished
+
+    def _patch_sequence(self, group: SequenceGroup, seq: Sequence, seq_out, out_idx: int):
+        """Replace the placeholder at ``out_idx`` with the sampled token,
+        then detokenize + stop-check + stream it (the async analog of
+        :meth:`_update_sequence` for exactly one token). With async depth >1
+        the sequence may carry newer, still-unpatched placeholders past
+        ``out_idx``; detokenization and length checks stop at the patched
+        token, and if the sequence finishes here the newer placeholders are
+        discarded."""
+        data = seq.sequence_data
+        data.output_token_ids[out_idx] = seq_out.output_token
+        data.cumulative_logprob += seq_out.logprob
+        lp = seq.output_logprobs[out_idx]
+        lp.token_id = seq_out.output_token
+        lp.logprob = seq_out.logprob
+        lp.top_tokens = seq_out.top_tokens
+        new_text, finish_reason = self._postprocess_token(
+            group, seq, seq_out.output_token, end=out_idx + 1
+        )
+        if seq.is_finished():
+            # Trailing placeholders from newer in-flight steps are bogus
+            # beyond the finish point: truncate, and drop this sequence from
+            # the newer steps' patch maps so their tokens are discarded.
+            del data.output_token_ids[out_idx + 1:]
+            del seq.output_logprobs[out_idx + 1:]
+            for _, _, rows in self._async_queue:
+                rows.pop(seq.seq_id, None)
+            self.scheduler.free_seq(seq)
+        queue = self._stream_queues.get(group.request_id)
+        if queue is not None:
+            self._put_threadsafe(
+                queue,
+                StreamChunk(
+                    request_id=group.request_id,
+                    text=new_text,
+                    full_text=seq.output_text,
+                    token_id=seq_out.output_token,
+                    logprob=seq_out.logprob,
+                    finished=seq.is_finished(),
+                    finish_reason=finish_reason,
+                ),
+            )
 
     # ---------------------------------------------------------------- outputs
     @instrument("engine.process_outputs")
@@ -338,12 +559,14 @@ class LlmEngine:
             )
 
     def _postprocess_token(
-        self, group: SequenceGroup, seq: Sequence, token_id: int
+        self, group: SequenceGroup, seq: Sequence, token_id: int, end: Optional[int] = None
     ) -> tuple:
-        """Detokenize the sequence's newest (appended) token and apply the
-        stop checks (ref: llm_engine.rs:367-521); returns
-        ``(new_text, finish_reason)`` and sets the sequence's finished
-        status/stop_reason."""
+        """Detokenize the sequence's newest token and apply the stop checks
+        (ref: llm_engine.rs:367-521); returns ``(new_text, finish_reason)``
+        and sets the sequence's finished status/stop_reason. The token must
+        already be appended (sync path) or patched in place (async path);
+        ``end`` bounds the output tokens considered — with async depth >1
+        there may be newer unpatched placeholders past it."""
         stopping = group.stopping_criteria
         # Lazy detokenization: per-token incremental decode is only needed
         # for stop-string matching and streaming. Plain requests skip it
@@ -355,7 +578,7 @@ class LlmEngine:
         new_text = (
             ""
             if lazy
-            else self.detokenizer.decode_sequence_inplace(seq)
+            else self.detokenizer.decode_sequence_inplace(seq, end=end)
         )
         finish_reason: Optional[str] = None
 
@@ -377,8 +600,8 @@ class LlmEngine:
                 break
 
         if finish_reason is None:
-            output_len = seq.get_output_len()
-            total_len = seq.get_len()
+            output_len = end if end is not None else seq.get_output_len()
+            total_len = seq.get_len() - (seq.get_output_len() - output_len)
             if (
                 not stopping.ignore_eos_token
                 and token_id in self.eos_token_ids
@@ -397,7 +620,7 @@ class LlmEngine:
             # complete now — flush it (replacement chars), matching what a
             # full re-decode of the finished token list produces. Stop-string
             # finishes skip this: their text was truncated at the match.
-            tail = self.detokenizer.finalize_sequence(seq)
+            tail = self.detokenizer.finalize_sequence(seq, end=end)
             if tail:
                 new_text += tail
         return new_text, finish_reason
@@ -442,6 +665,10 @@ class LlmEngine:
             ],
             metrics=group.metrics,
         )
+        # Forget the group BEFORE resolving its future: step() runs on an
+        # executor thread, and the loop thread may resume the request's
+        # awaiter as soon as the result is scheduled.
+        self._groups.pop(group.request_id, None)
         fut = self._response_futures.pop(group.request_id, None)
         if fut is not None and not fut.done():
             fut.get_loop().call_soon_threadsafe(
@@ -450,7 +677,6 @@ class LlmEngine:
         queue = self._stream_queues.pop(group.request_id, None)
         if queue is not None:
             self._put_threadsafe(queue, None)  # stream terminator
-        self._groups.pop(group.request_id, None)
         return result
 
     def _put_threadsafe(self, queue: asyncio.Queue, item) -> None:

@@ -8,10 +8,12 @@ and shutdown (:404-442), on ONE device. The KV pool is sized after the
 weights are resident (SURVEY.md §3.1), from ``torch.cuda.mem_get_info``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): multi-host serving, tensor and pipeline parallelism, async
-scheduling, speculative decoding, prefix caching, float16 (no kernel takes
-fp16 yet), and the native (C++) block manager — the port always uses the
-Python one. Weight quantization
+item): multi-host serving, tensor and pipeline parallelism, speculative
+decoding, prefix caching, float16 (no kernel takes fp16 yet), and the native
+(C++) block manager — the port always uses the Python one. Async scheduling
+(``async_scheduling``, ``async_depth``) is ported, and so is ``warmup``,
+which on the card captures the decode steps' CUDA graphs of the buckets it
+reaches before traffic (``engine/cuda_graphs.py``). Weight quantization
 (``quantization`` "int8" or "int4", and W8A8 under ``ATOMA_W8A8=1``) is
 ported: the loader quantizes on load. So are the KV-cache dtypes
 (``kv_cache_dtype`` "int8": an int8 cache with per-(slot, K/V) bf16 scales;
@@ -28,17 +30,21 @@ import shutil
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import EngineConfig
 from ..core.scheduler import Scheduler
 from ..sequence import Sequence, SequenceGroup
-from ..types import GenerateRequest
+from ..types import GenerateParameters, GenerateRequest
 from ..utils.device import resolve_device
 from ..utils.tracing import instrument
 from .cache_engine import CacheEngine
+from .cuda_graphs import MAX_GRAPHS, packed_capacity, page_capacity
+from .input_prep import bucket
 from .llm_engine import LlmEngine
 from .tokenizer import TokenizerPool
+from .sampler import PENALTY_WINDOW
 from .validation import Validation
 from .worker import ModelWorker
 
@@ -65,7 +71,6 @@ def _reject_unported(config: EngineConfig) -> None:
         ((m.num_hosts or 1) > 1, "multi-host serving", "parallelism"),
         (m.tensor_parallel_size > 1, "tensor parallelism", "parallelism"),
         (m.pipeline_parallel_size > 1, "pipeline parallelism", "parallelism"),
-        (s.async_scheduling, "async scheduling", "async scheduling depth 2"),
         (s.num_speculative_tokens > 0, "speculative decoding", "speculative decoding"),
         (c.enable_prefix_caching, "prefix caching", "prefix caching"),
         (m.dtype == "float16", "float16", "float16 instantiations of A–H"),
@@ -75,6 +80,35 @@ def _reject_unported(config: EngineConfig) -> None:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue 1: {item})"
             )
+
+
+# The pool of the decode graphs, in [S, V] f32 buffers at the largest
+# sequence bucket S: what one step's sampler and LM head leave allocated at
+# once at the widest key (every sampling option and the most top-n
+# alternatives). Measured on an H100 (chip_smoke.py, V = 128256, S = 64):
+# 572–614 MiB, 18.3–19.6 such buffers, for 1B-, 3B- and 8B-width models.
+GRAPH_POOL_ROWS = 24
+# Device bytes the driver holds for one instantiated decode graph, per
+# model layer (its kernel nodes). Measured likewise: 96–154 KiB.
+GRAPH_BYTES_PER_LAYER = 256 * 1024
+
+
+def decode_graph_bytes(max_num_sequences: int, vocab_size: int, max_pages: int,
+                       num_layers: int) -> int:
+    """Device memory the pure-decode CUDA graphs take, which the KV pool
+    must leave free: their static inputs (``engine/cuda_graphs.py``: one
+    set for every graph, at the largest sequence bucket S — the Gumbel
+    noise [S, V] f32, the packed metadata of S rows of ``max_pages`` pages,
+    the sampling tensors, the feed), their pool, which holds one step's
+    temporaries whatever the number of graphs (``GRAPH_POOL_ROWS``), and
+    the driver's share of each graph, ``MAX_GRAPHS`` of them and the one
+    being captured."""
+    S = bucket(max_num_sequences)
+    static = S * vocab_size + packed_capacity(S, max_pages) + S * (8 + PENALTY_WINDOW)
+    return (
+        4 * (static + GRAPH_POOL_ROWS * S * vocab_size)
+        + (MAX_GRAPHS + 1) * GRAPH_BYTES_PER_LAYER * num_layers
+    )
 
 
 def resolve_model_dir(config) -> str:
@@ -168,6 +202,13 @@ class LlmService:
             config.model.kv_dtype_size,
             devices=[device],
             scale_pages=kv_dtype == torch.int8,
+            reserve_bytes=(
+                decode_graph_bytes(config.scheduler.max_num_sequences, cfg.vocab_size,
+                                   page_capacity(config.scheduler.max_model_len,
+                                                 config.cache.block_size),
+                                   cfg.num_layers)
+                if device.type == "cuda" else 0
+            ),
         )
         cache_engine = CacheEngine(
             num_layers=cfg.num_layers,
@@ -184,7 +225,13 @@ class LlmService:
         tokenizer_pool = TokenizerPool(tokenizer, config.model.num_tokenizer_workers)
         validation = Validation(config.validation, tokenizer_pool)
         engine = LlmEngine(
-            scheduler, worker, tokenizer, cfg.eos_token_ids, config.scheduler.max_model_len
+            scheduler,
+            worker,
+            tokenizer,
+            cfg.eos_token_ids,
+            config.scheduler.max_model_len,
+            async_scheduling=config.scheduler.async_scheduling,
+            async_depth=config.scheduler.async_depth,
         )
         return cls(
             config,
@@ -237,6 +284,54 @@ class LlmService:
         if stream:
             return future, queue
         return future
+
+    # ----------------------------------------------------------------- warmup
+    async def warmup(
+        self,
+        *,
+        num_seqs: Optional[int] = None,
+        prompt_len: int = 64,
+        max_new: Optional[int] = None,
+        waves: int = 2,
+    ) -> float:
+        """Run the serving steps' first uses before traffic (ref:
+        ``atoma_infer_tpu/engine/llm_service.py:458-517``, which compiles
+        one program per bucket there). Drives ``waves`` synthetic request
+        waves through the FULL engine at the configured steady-state
+        shapes: the max-batch prefill and decode buckets, a block-boundary
+        table refresh, sampling and detokenize. On the card those waves'
+        pure-decode steps capture the CUDA graphs of the buckets they reach
+        (``engine/cuda_graphs.py``), so traffic at those buckets replays
+        them from its first step.
+
+        Call with the engine loop running (``asyncio.create_task(
+        service.engine.run())``). Returns the wall seconds spent.
+        """
+        S = num_seqs or self.config.scheduler.max_num_sequences
+        # Cross at least one block boundary, as the JAX warmup does, so
+        # decode steps that take a new block run before traffic too.
+        N = max_new or (self.block_size + 2)
+        rng = np.random.default_rng(0)
+        t0 = time.monotonic()
+        for wave in range(waves):
+            futs = []
+            for i in range(S):
+                body = bytes(
+                    rng.integers(32, 127, size=prompt_len, dtype=np.uint8)
+                ).decode("latin-1")
+                futs.append(
+                    await self.handle_request(
+                        GenerateRequest(
+                            request_id=f"_warmup-{wave}-{i}",
+                            inputs=body,
+                            parameters=GenerateParameters(max_new_tokens=N),
+                        )
+                    )
+                )
+            await asyncio.gather(*futs)
+        dt = time.monotonic() - t0
+        logger.info("warmup: %d waves x %d seqs x %d tokens in %.1fs", waves, S, N, dt)
+        return dt
 
     # ---------------------------------------------------------------- shutdown
     def stop(self) -> None:

@@ -4,12 +4,16 @@ logits and batched sampling on the device.
 Counterpart of ``atoma_infer_tpu/engine/worker.py`` (ref:
 backends/vllm/src/worker.rs:111-191), run eagerly: the JAX ``jit`` with
 donated caches becomes a plain method whose kernels update the per-layer
-caches in place. Per step the host sends ONE packed int32 metadata buffer
-(the JAX worker's layout) and receives ONE packed buffer of sampled tokens
-and logprob bits, copied into pinned host memory without blocking; a CUDA
-event marks when it has landed, and ``PendingStep.complete()`` waits on it.
-Speculative verification and the async-scheduling token feed are not ported
-yet (ROADMAP.md, Queue 1).
+caches in place, and the JAX step's one compiled program per bucket becomes,
+for pure-decode steps on the card, one CUDA graph per bucket
+(``engine/cuda_graphs.py``). Per step the host sends ONE packed int32
+metadata buffer (the JAX worker's layout) and receives ONE packed buffer of
+sampled tokens and logprob bits, copied into pinned host memory without
+blocking; a CUDA event marks when it has landed, and
+``PendingStep.complete()`` waits on it. ``dispatch(request, feed=…)`` takes
+async scheduling's device-token feed: decode rows read their input token
+from the previous, still in-flight step's device output. Speculative
+verification is not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from ..ops.attention import AttentionMetadata
 from ..sequence import ExecuteModelRequest, SequenceGroupOutput, SequenceOutput
 from ..utils.tracing import instrument, span
 from .cache_engine import CacheEngine
-from .input_prep import ModelInput, prepare_model_input
+from .cuda_graphs import DecodeGraphs, decode_graph_key, page_capacity
+from .input_prep import ModelInput, bucket, prepare_model_input
 from .sampler import PENALTY_WINDOW, SamplingTensors, gumbel_noise, sample
 
 logger = logging.getLogger(__name__)
@@ -46,7 +51,10 @@ def _to_host(t: torch.Tensor):
     """Start copying ``t`` to the host: returns (host tensor, event). On
     CUDA the copy is non-blocking into PINNED memory (a pageable target
     would make it synchronous) and the event marks its completion; on the
-    CPU it is the tensor itself and no event."""
+    CPU it is the tensor itself and no event. Each call allocates its own
+    pinned buffer, owned by one ``PendingStep`` until its ``complete()``:
+    with async scheduling two steps are in flight, and neither's buffer is
+    reused while the other's copy may still land in it."""
     if not t.is_cuda:
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -67,10 +75,17 @@ class PendingStep:
 
     def __init__(self, metadata, tokens: torch.Tensor, packed: torch.Tensor, top_out, t0: float):
         self._metadata = metadata
+        self._tokens = tokens          # device tensor, kept for the feed
         self._shape = tuple(tokens.shape)
         # (host tensor, event) for the packed buffer, then top-n ids/logprobs.
         self._copies = [_to_host(t) for t in (packed, *(top_out or ()))]
         self._t0 = t0
+
+    @property
+    def tokens_device(self) -> torch.Tensor:
+        """The sampled tokens on the device ([S] int32): async scheduling's
+        feed for the NEXT dispatched step."""
+        return self._tokens
 
     def complete(self) -> Dict[str, SequenceGroupOutput]:
         with span("worker.fetch"):
@@ -136,6 +151,22 @@ class ModelWorker:
         # sampling parameters (and their transfer) are reused until the
         # batch changes. Penalty batches never cache (recent_tokens moves).
         self._sampling_cache = None
+        # Changes whenever the sampling tensors are rebuilt: a graph replay
+        # copies them in only then.
+        self._sampling_version = 0
+        max_rows = bucket(scheduler_config.max_num_sequences)
+        # The null feed: async decode with nothing in flight reads no
+        # previous token, but keeps the key of steady async decode.
+        self._null_feed = torch.zeros(max_rows, dtype=torch.int32, device=self.device)
+        # Pure-decode steps on the card replay CUDA graphs; the CUDA graph
+        # API has no CPU counterpart, so a CPU worker steps eagerly.
+        self.graphs = (
+            DecodeGraphs(
+                max_rows,
+                page_capacity(scheduler_config.max_model_len, cache_config.block_size),
+            )
+            if self.device.type == "cuda" else None
+        )
 
     # ------------------------------------------------------------------ step
     @torch.inference_mode()
@@ -144,6 +175,7 @@ class ModelWorker:
         packed: torch.Tensor,   # [N] int32 on the device — all step metadata
         sampling: dict,         # per-row sampling tensors on the device
         gumbel: Optional[torch.Tensor],
+        prev_tokens: Optional[torch.Tensor],  # [≥ S_prev] int32: the feed
         *,
         T: int,
         S: int,
@@ -154,7 +186,8 @@ class ModelWorker:
         needs_typical: bool,
         top_n: int,
     ):
-        """Forward + logits + sampling for one bucketed batch. The caches in
+        """Forward + logits + sampling for one bucketed batch →
+        (tokens, logprobs, packed outputs, top-n). The caches in
         ``self.cache_engine.kv_cache`` (and an int8 cache's scales) are
         updated in place."""
         off = 0
@@ -174,6 +207,14 @@ class ModelWorker:
         take(S)  # per-sequence sampling steps (used on the host for the noise)
         num_seqs = take(1)
         selected_token_indices = take(S)
+        if prev_tokens is not None:
+            # Async scheduling: rows continuing a sequence sampled by the
+            # previous, still in-flight step read their input token from
+            # its device output (the host holds a placeholder), so the two
+            # steps chain without a host round trip.
+            prev_map = take(T)
+            gathered = prev_tokens[prev_map.clamp(0, prev_tokens.shape[0] - 1).long()]
+            token_ids = torch.where(prev_map >= 0, gathered, token_ids)
         attn_meta = AttentionMetadata(
             slot_mapping=slot_mapping,
             block_tables=block_tables,
@@ -191,7 +232,7 @@ class ModelWorker:
         # Last-token rows only, before the LM head (ref: llama.rs:474-477).
         sel = hidden[selected_token_indices.long()]
         logits = self.model.compute_logits(self.params, sel)  # [S, V] f32
-        return sample(
+        tokens, logprobs, top_out = sample(
             logits,
             temperature=sampling["temperature"],
             top_k=sampling["top_k"],
@@ -206,6 +247,7 @@ class ModelWorker:
             needs_typical=needs_typical,
             top_n=top_n,
         )
+        return tokens, logprobs, _pack_outputs(tokens, logprobs), top_out
 
     # ---------------------------------------------------------------- public
     @instrument("worker.execute_model")
@@ -216,11 +258,18 @@ class ModelWorker:
         return pending.complete() if pending is not None else {}
 
     @instrument("worker.dispatch")
-    def dispatch(self, request: ExecuteModelRequest) -> Optional[PendingStep]:
+    def dispatch(self, request: ExecuteModelRequest, feed=None) -> Optional[PendingStep]:
         """Enqueue one step on the device without waiting for its results;
         ``PendingStep.complete()`` waits for the sampled tokens.
         Cache-maintenance swaps/copies run first, in the reference's order
-        (worker.rs:111-160)."""
+        (worker.rs:111-160).
+
+        ``feed`` — async scheduling's device-token feed: a
+        ``(prev_tokens_device, {seq_id: prev_row})`` pair from the still
+        in-flight previous step. Decode rows of those sequences read their
+        input token from ``prev_tokens_device`` instead of the host
+        placeholder. ``(None, {})`` is the null feed: nothing is read, and
+        a decode step keeps the key of steady async decode."""
         t0 = time.monotonic()
         self.cache_engine.execute(
             request.blocks_to_swap_in, request.blocks_to_swap_out, request.blocks_to_copy
@@ -239,11 +288,22 @@ class ModelWorker:
             sampling, sampling_arrays, sample_steps = self._sampling_inputs(
                 request, model_input
             )
+        prev = None
+        if feed is not None:
+            prev_tokens, rows_by_seq = feed
+            prev_map = feed_map(model_input, rows_by_seq)
+            # A prefill wave with nothing to override runs as a no-feed
+            # step (the JAX worker forks no feed program for it).
+            if (prev_map >= 0).any() or model_input.num_prefills == 0:
+                if prev_tokens is None:
+                    # Null feed: the map is all −1, so the values are never
+                    # read.
+                    prev_tokens = self._null_feed
+                prev = (prev_tokens, prev_map)
         with span("worker.invoke"):
-            tokens, logprobs, top_out = self._invoke(
-                model_input, sampling_arrays, sample_steps, sampling
+            tokens, logprobs, packed, top_out = self._invoke(
+                model_input, sampling_arrays, sample_steps, sampling, prev
             )
-            packed = _pack_outputs(tokens, logprobs)
         return PendingStep(request.sequence_groups_metadata, tokens, packed, top_out, t0)
 
     def _sampling_inputs(self, request: ExecuteModelRequest, model_input: ModelInput):
@@ -289,30 +349,34 @@ class ModelWorker:
         with span("worker.transfers"):
             arrays = sampling.to_device(self.device, model_input.sample_mask)
         self._sampling_cache = (sig, sampling, arrays)
+        self._sampling_version += 1
         return sampling, arrays, sample_steps
 
-    def _invoke(self, model_input: ModelInput, sampling_arrays, sample_steps, sampling):
+    def _invoke(self, model_input: ModelInput, sampling_arrays, sample_steps, sampling,
+                prev=None):
         """Send the packed metadata (one host→device copy, from pinned
-        memory on CUDA), run the step, return device (tokens, logprobs,
-        top-n)."""
+        memory on CUDA), run the step — a graph replay for a pure-decode
+        step on the card — and return device (tokens, logprobs, packed
+        outputs, top-n)."""
         T = model_input.token_ids.shape[0]
         S, P = model_input.block_tables.shape
         with span("worker.meta_transfer"):
-            host = torch.from_numpy(
-                np.concatenate(
-                    [
-                        model_input.token_ids,
-                        model_input.positions,
-                        model_input.slot_mapping,
-                        model_input.block_tables.ravel(),
-                        model_input.seq_lens,
-                        model_input.query_start_loc,
-                        np.asarray(sample_steps, dtype=np.int32),
-                        np.asarray([model_input.num_seqs], dtype=np.int32),
-                        model_input.selected_token_indices,
-                    ]
-                ).astype(np.int32)
-            )
+            parts = [
+                model_input.token_ids,
+                model_input.positions,
+                model_input.slot_mapping,
+                model_input.block_tables.ravel(),
+                model_input.seq_lens,
+                model_input.query_start_loc,
+                np.asarray(sample_steps, dtype=np.int32),
+                np.asarray([model_input.num_seqs], dtype=np.int32),
+                model_input.selected_token_indices,
+            ]
+            prev_tokens = None
+            if prev is not None:
+                prev_tokens, prev_map = prev
+                parts.append(prev_map)
+            host = torch.from_numpy(np.concatenate(parts).astype(np.int32))
             if self.device.type == "cuda":
                 packed = host.pin_memory().to(self.device, non_blocking=True)
             else:
@@ -324,11 +388,13 @@ class ModelWorker:
                 sampling.seeds, sample_steps, rows,
                 self.model.config.vocab_size, self.device,
             )
-        with span("worker.step_call"):
+
+        def step(packed, sampling_arrays, gumbel, prev_tokens):
             return self._step(
                 packed,
                 sampling_arrays,
                 gumbel,
+                prev_tokens,
                 T=T,
                 S=S,
                 P=P,
@@ -338,3 +404,27 @@ class ModelWorker:
                 needs_typical=sampling.needs_typical,
                 top_n=sampling.top_n,
             )
+
+        key = (
+            decode_graph_key(model_input, sampling, feed=prev is not None)
+            if self.graphs is not None else None
+        )
+        with span("worker.step_call"):
+            if key is None:
+                return step(packed, sampling_arrays, gumbel, prev_tokens)
+            return self.graphs.run(key, step, packed, sampling_arrays, self._sampling_version,
+                                   gumbel, prev_tokens)
+
+
+def feed_map(model_input: ModelInput, rows_by_seq: Dict[int, int]) -> np.ndarray:
+    """``prev_map`` [T] int32: for each token row, the row of the previous
+    step's tokens that holds its input token, or −1 (read the host's). Only
+    decode rows (one query token, the placeholder) of sequences the previous
+    step sampled are mapped (ref worker ``dispatch``)."""
+    qsl = model_input.query_start_loc
+    prev_map = np.full(model_input.token_ids.shape[0], -1, dtype=np.int32)
+    for i, seq_id in enumerate(model_input.seq_ids):
+        row = rows_by_seq.get(seq_id)
+        if row is not None and qsl[i + 1] - qsl[i] == 1:
+            prev_map[qsl[i]] = row
+    return prev_map

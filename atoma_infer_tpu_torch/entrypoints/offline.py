@@ -88,6 +88,7 @@ async def main_async(args) -> None:
             max_num_sequences=args.max_seqs,
             max_model_len=args.max_model_len,
             enable_chunked_prefill=args.chunked_prefill,
+            async_scheduling=args.async_scheduling,
         ),
         validation=ValidationConfig(
             max_input_tokens=args.max_model_len - 1,
@@ -157,6 +158,7 @@ def main() -> None:
     parser.add_argument("--max-seqs", type=int, default=64)
     parser.add_argument("--max-model-len", type=int, default=2048)
     parser.add_argument("--chunked-prefill", action="store_true")
+    parser.add_argument("--async-scheduling", action="store_true")
     parser.add_argument(
         "--device", default="cuda",
         help="torch device to run on (default cuda; 'cpu' takes the plain "

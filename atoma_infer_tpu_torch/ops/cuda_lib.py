@@ -11,11 +11,15 @@ in parallel, one ``nvcc`` each) through :func:`build_all`.
 Each kernel is a :class:`CudaKernel`: its C symbol, the library it lives in,
 its argument types, and a plain-integer launch counter that its wrapper bumps
 once per launch (and nowhere else), so a run can show which kernels the main
-path went through.
+path went through. A call made while a CUDA graph is captured launches
+nothing: it is recorded in the capture's tally (:func:`recording_launches`)
+instead, and every replay of that graph adds the tally
+(:func:`count_replay`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,6 +39,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# Per thread: the launch tally of the CUDA graph this thread is capturing.
+_capture = threading.local()
 
 # ctypes shorthands for kernel signatures.
 PTR = ctypes.c_void_p
@@ -143,7 +149,11 @@ class CudaKernel:
                 f"CUDA kernel {self.name} ({self.symbol}) failed to launch: "
                 f"error {err}"
             )
-        self.launches += 1
+        tally = getattr(_capture, "tally", None)
+        if tally is None:
+            self.launches += 1
+        else:
+            tally[self.name] = tally.get(self.name, 0) + 1
 
 
 KERNELS: Dict[str, CudaKernel] = {}
@@ -152,6 +162,27 @@ KERNELS: Dict[str, CudaKernel] = {}
 def register(kernel: CudaKernel) -> CudaKernel:
     KERNELS[kernel.name] = kernel
     return kernel
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While this thread captures a CUDA graph: the kernels called are
+    recorded in the yielded tally (name → calls) and not counted, since a
+    capture launches nothing."""
+    if getattr(_capture, "tally", None) is not None:
+        raise RuntimeError("a CUDA graph capture is already recording launches")
+    _capture.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
+
+
+def count_replay(tally: Dict[str, int]) -> None:
+    """Count one replay of a captured graph: each of its kernels launched
+    as many times as the capture recorded."""
+    for name, calls in tally.items():
+        KERNELS[name].launches += calls
 
 
 def current_stream_handle(device) -> int:

@@ -1,2 +1,6 @@
-"""Serving-side utilities of the port (Prometheus metrics). The HTTP layer
-has not been ported yet (ROADMAP.md, Queue 1)."""
+"""OpenAI-compatible HTTP serving layer of the PyTorch port.
+
+The port's copies of ``atoma_infer_tpu/server``: aiohttp routes, SSE
+streaming, the JSON-schema validation endpoint, chat-template rendering per
+model family and live Prometheus metrics, over the port's ``LlmService``.
+"""

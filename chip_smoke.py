@@ -66,8 +66,10 @@ raises on failure; nothing is caught):
    Then the quality ladder on ``tiny_trained`` in f32 at reduced sizes on
    the card against the CPU: greedy agreements identical, drifts within
    ``LADDER_CARD_TOL``.
-4. Services through ``LlmService.start``, each with 8 requests (chunked
-   prefill, one seeded sampled, half submitted while the others decode):
+4. Services through ``LlmService.start``, each with 8 requests of 256
+   tokens (128 but for the 1B bf16 and 8B INT8 services; chunked prefill,
+   one seeded sampled, the second half admitted before engine step 7 while
+   the first decodes):
    the full-width bf16 Llama-3.2-1B (16 layers, KV pool sized from
    ``torch.cuda.mem_get_info``), the full-width bf16 Llama-3.2-3B (28
    layers, 3 query heads per kv head) and the 1B again with blocks of 64,
@@ -83,10 +85,30 @@ raises on failure; nothing is caught):
    to 0 just before it and read just after), every ragged launch on the
    tensor cores and every fused one on the split kernel (the f32 services
    of phase 3 on the CUDA-core and unsplit kernels), every W8A8 launch on
-   H's tensor-core route. Prints the worker's step wall times and one
-   pure-decode and one mixed step's device time by kernel
+   H's tensor-core route. Each runs (a) synchronous and eager (the smoke
+   takes the worker's CUDA graphs away), printing the worker's step wall
+   times and one pure-decode and one mixed step's device time by kernel
    (``torch.profiler``), the decode step's fused attention and H time, the
-   mixed step's ragged attention and H share.
+   mixed step's ragged attention and H share; then (b) on its real card
+   path, its pure-decode steps replaying CUDA graphs: the 1B bf16 and the
+   8B INT8 services with async scheduling (depth 2) after ``warmup()``,
+   the others synchronous as ``LlmService.start`` gives them, each graph
+   captured at its key's first step. (b)'s greedy and seeded tokens must be
+   identical to (a)'s, its launches are counted through the replays, and
+   it prints the number of graphs, ``SHAPE_COUNTS``, the capture seconds
+   and the graphs' memory (static inputs, pool, outputs, driver) against
+   the reserve the KV pool left them, which it must not pass. In (b) the
+   widest key a user can reach (every row sampled with every option and
+   the most top-n alternatives) is captured and replayed, and must give
+   its eager step's outputs. Both modes print the steady-decode period
+   p50/p99 (wall between successive pure-decode dispatches), the tokens/s
+   over the whole traffic window, and the device idle share over a window
+   of 8 pure-decode steps (``torch.profiler``).
+   After the 1B services, the port's HTTP server: ``build_app(service,
+   warmup=True)`` over the 1B service with async scheduling, on
+   127.0.0.1, answers one plain and one streamed (SSE)
+   ``POST /v1/chat/completions``; both bodies checked, each request's time
+   to first token and total printed.
 5. The quantization decision tools (``atoma_infer_tpu_torch/tools``): the
    W8A8 rate probe's ``main()`` (its path through kernel I, both forms
    launched, int8 exact), then the W8A8 and INT8-KV gates at their card
@@ -94,7 +116,7 @@ raises on failure; nothing is caught):
    printing its JSON; every number finite, every agreement in [0, 1], and
    each tool's kernels launched in its own run (F and H; D; A to H).
 6. A ``{"kernels": [...]}`` JSON line (each kernel's launches from its own
-   path's run), then as the last line ``{"ok": true, "device": {...}}``.
+   path's run in (b), graph replays counted), then as the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
 repository.
@@ -2317,33 +2339,90 @@ SERVICE_PATH = ATTENTION_PATH + ("paged_attention_split_combine",)
 # The services' mixed prefill+decode step (0-based, among mixed steps) that
 # runs under torch.profiler.
 PROFILED_MIXED_STEP = 0
+# The services' second wave of requests is admitted just before this engine
+# step (1-based; the first wave, admitted together, then decodes), the same
+# step in both modes, so a synchronous and an async run schedule the same
+# batches.
+SECOND_WAVE_STEP = 7
+# The window of pure-decode steps (0-based among them, after the profiled
+# single step) whose device idle share torch.profiler measures in both modes:
+# async steps overlap, so one step alone cannot show it.
+IDLE_WINDOW_START, IDLE_WINDOW_STEPS = 16, 8
+# Tokens each of the services' 8 requests generates. The 1B bf16 and 8B
+# INT8 services, whose periods come first in PERF.md: a few hundred
+# steady-decode intervals a run, so that their p99 is a percentile and not
+# the slowest interval. The others half as many, which keeps the smoke
+# inside half its time limit on a slow host.
+NEW_TOKENS, OTHER_SERVICES_TOKENS = 256, 128
 
 
-def serve(torch, label, model, params, config, path):
-    """Drive one service: 8 requests with chunked prefill in two waves,
-    one decode step profiled. Every request must finish, every block return,
-    and every kernel of ``path`` launch. Returns the launch counts of this
-    run (all set to 0 just before it)."""
+def percentile(values, q):
+    values = sorted(values)
+    return values[min(len(values) - 1, int(q * len(values)))]
+
+
+# The modes a service runs in: synchronous with its CUDA graphs taken away
+# (the eager baseline), synchronous with them (``LlmService.start`` as a
+# user gets it: each graph captured at its key's first step in traffic),
+# and async scheduling (depth 2) after ``service.warmup()``.
+MODES = ("eager", "graphs", "async+graphs")
+
+
+def serve(torch, label, model, params, config, path, *, mode="eager",
+          new_tokens=NEW_TOKENS):
+    """Drive one service: 8 requests of ``new_tokens`` tokens with chunked
+    prefill in two waves (the second admitted before engine step
+    ``SECOND_WAVE_STEP``), in ``mode`` (``MODES``); eager runs profile one
+    pure-decode and one mixed step. In all modes: the steady-decode period
+    (wall between successive pure-decode dispatches, those that captured a
+    graph and the profiled window left out), the tokens/s over the whole
+    traffic window, the device idle share over a window of 8 pure-decode
+    steps, and with graphs their memory. Every request must finish, every
+    block return, and every kernel of ``path`` launch. Returns (the launch
+    counts of the traffic's run, all set to 0 just before it; each
+    request's tokens)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from atoma_infer_tpu_torch.engine import input_prep
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
     from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
     from atoma_infer_tpu_torch.ops import cuda_lib, paged_attention
     from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
+    from atoma_infer_tpu_torch.utils import tracing
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
+    async_graphs = mode == "async+graphs"
+    if mode not in MODES or config.scheduler.async_scheduling != async_graphs:
+        raise ValueError(f"{label}: mode {mode} with async_scheduling "
+                         f"{config.scheduler.async_scheduling}")
     cfg = model.config
+    input_prep.SHAPE_COUNTS.clear()
     service = LlmService.start(
         config, model=model, params=params, tokenizer=ByteTokenizer(cfg.vocab_size),
         device=model.device,
     )
+    label = f"{label} [{mode}]"
     pool = config.cache.num_device_blocks
     log(f"service {label}: KV pool {pool} blocks of {config.cache.block_size} tokens")
+    engine = service.engine
+    worker = engine.worker
+    if worker.graphs is None:
+        raise AssertionError(f"service {label}: a CUDA worker without decode graphs")
+    if mode == "eager":
+        # The eager baseline: without its graphs the worker runs every step
+        # eagerly, as it did before it had them.
+        worker.graphs = None
 
     # Per step: (prefill groups, decode groups, wall seconds of the worker
     # call, which ends when the sampled tokens are on the host, whether it
     # ran under the profiler).
     steps = []
     profiled = {}
-    worker = service.engine.worker
     execute = worker.execute_model
+    # Set while a step runs under a profiler (the single steps, the idle
+    # window): such steps are left out of the wall-clock statistics.
+    traced_now = {"single": False, "window": 0}
 
     def timed_execute(request):
         metas = request.sequence_groups_metadata
@@ -2358,7 +2437,9 @@ def serve(torch, label, model, params, config, path):
         elif prefills and decodes and len(mixed_steps) == PROFILED_MIXED_STEP:
             kind = "mixed"
         traced = kind is not None
+        window_mark = traced_now["window"]
         if traced:
+            traced_now["single"] = True
             prof = profiled.setdefault(kind, {})
             # The mixed step's ragged calls are kept to be replayed after the
             # run through the CUDA-core kernel, for its device time on the
@@ -2370,10 +2451,12 @@ def serve(torch, label, model, params, config, path):
                     profile_device(torch, lambda: execute(request))
             finally:
                 paged_attention.ragged_paged_attention_cuda = ragged
+                traced_now["single"] = False
             prof["seqs"] = decodes
             prof["prefills"] = prefills
         else:
             out = execute(request)
+        traced = traced or window_mark != traced_now["window"] or "prof" in window
         steps.append((prefills, decodes, time.monotonic() - t0, traced))
         return out
 
@@ -2384,8 +2467,49 @@ def serve(torch, label, model, params, config, path):
         ragged_calls.append((q, kv_cache, meta, kw))
         return ragged(q, kv_cache, meta, **kw)
 
-    worker.execute_model = timed_execute
-    new_tokens = 32
+    if mode == "eager":
+        worker.execute_model = timed_execute
+
+    # Every dispatch: host clock at its start, pure decode or not, its
+    # sequences, whether it captured a graph, whether a profiler ran, and
+    # how many steps were in flight when it started.
+    dispatches = []
+    window = {}
+    dispatch = worker.dispatch
+
+    def timed_dispatch(request, feed=None):
+        metas = request.sequence_groups_metadata
+        pure = bool(metas) and not any(m.is_prompt for m in metas)
+        n_pure = sum(1 for d in dispatches if d["pure"])
+        profiled_here = "prof" in window or traced_now["single"]
+        if pure and n_pure == IDLE_WINDOW_START:
+            # Device activity only: recording every host-side op would slow
+            # the host, which is what the idle share is about.
+            t = time.monotonic()
+            window["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            window["prof"].start()
+            window["t0"] = time.monotonic()
+            window["overhead_s"] = window["t0"] - t
+            traced_now["window"] += 1
+        elif pure and n_pure == IDLE_WINDOW_START + IDLE_WINDOW_STEPS and "prof" in window:
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            window["wall_ms"] = (t - window["t0"]) * 1e3
+            window["done"] = window.pop("prof")
+            window["done"].stop()  # its events are read after the traffic
+            window["overhead_s"] += time.monotonic() - t
+            traced_now["window"] += 1
+            profiled_here = True
+        graphs_before = len(worker.graphs.graphs) if worker.graphs is not None else 0
+        in_flight = len(engine._async_queue)
+        t = time.monotonic()
+        out = dispatch(request, feed=feed)
+        captured = worker.graphs is not None and len(worker.graphs.graphs) > graphs_before
+        dispatches.append(dict(t=t, pure=pure, rows=sum(len(m.seq_data) for m in metas),
+                               captured=captured, traced=profiled_here or "prof" in window,
+                               in_flight=in_flight))
+        return out
+
     lengths = [16, 300, 45, 120, 200, 77, 250, 33]
     text = "The quick brown fox jumps over the lazy dog. " * 8
 
@@ -2401,25 +2525,76 @@ def serve(torch, label, model, params, config, path):
             ),
         )
 
-    for kernel in cuda_lib.KERNELS.values():
-        kernel.launches = 0
+    run = {}  # the warmup's and the traffic's figures
 
     async def drive():
-        task = asyncio.create_task(service.engine.run())
+        loop = asyncio.get_running_loop()
+        # One executor thread: the profiled window starts and stops in it.
+        executor = ThreadPoolExecutor(max_workers=1)
+        loop.set_default_executor(executor)
+        task = asyncio.create_task(engine.run())
+        if async_graphs:
+            run["seconds"] = await service.warmup()
+            while engine._has_unfinished():  # the warmup's last in-flight steps
+                await asyncio.sleep(0.01)
+            run["graphs"] = len(worker.graphs.graphs)
+            run["capture_s"] = worker.graphs.capture_seconds
+            run["shapes"] = len(input_prep.SHAPE_COUNTS)
+        worker.dispatch = timed_dispatch
+        # Admission held: every request is validated first, then the first
+        # wave is admitted together and the second just before engine step
+        # SECOND_WAVE_STEP (from the step's own thread: the loop thread is
+        # parked awaiting this burst, and the burst ends after this step
+        # because the queue is no longer empty).
+        held = []
+        engine.add_request = lambda *args: held.append(args)
         fut0, stream0 = await service.handle_request(request(0), stream=True)
-        futs = [fut0] + [await service.handle_request(request(i)) for i in (1, 2, 3)]
-        for _ in range(4):  # the first wave is decoding: admit the second
-            await asyncio.wait_for(stream0.get(), timeout=300)
-        futs += [await service.handle_request(request(i)) for i in (4, 5, 6, 7)]
-        results = await asyncio.wait_for(asyncio.gather(*futs), timeout=600)
+        futs = [fut0] + [await service.handle_request(request(i)) for i in range(1, 8)]
+        del engine.add_request
+        engine_step = engine.step
+        count = [0]
+
+        def counted_step():
+            count[0] += 1
+            if count[0] == SECOND_WAVE_STEP:
+                for args in held[4:]:
+                    engine.add_request(*args)
+            return engine_step()
+
+        engine.step = counted_step
+        for kernel in cuda_lib.KERNELS.values():
+            kernel.launches = 0
+        replays0 = worker.graphs.replays if worker.graphs is not None else 0
+        # The port's host spans (utils/tracing) time the engine's and the
+        # worker's host work through the traffic.
+        tracing.clear()
+        tracing.enable()
+        run["t0"] = time.monotonic()
+        for args in held[:4]:
+            engine.add_request(*args)
+        try:
+            results = await asyncio.wait_for(asyncio.gather(*futs), timeout=600)
+        finally:
+            tracing.disable()
+        torch.cuda.synchronize()
+        run["traffic_s"] = time.monotonic() - run["t0"]
+        if "done" in window:
+            window["events"] = window.pop("done").key_averages()
+        run["replays"] = (worker.graphs.replays if worker.graphs is not None else 0) - replays0
+        streamed = []
+        while not stream0.empty():
+            chunk = stream0.get_nowait()
+            if chunk is not None:
+                streamed.append(chunk.token_id)
+        if streamed != results[0].outputs[0].token_ids:
+            raise AssertionError(f"service {label}: streamed tokens differ from the response")
         service.stop()
         task.cancel()
+        executor.shutdown(wait=False)
         return results
 
-    t0 = time.monotonic()
     results = asyncio.run(drive())
-    torch.cuda.synchronize()
-    seconds = time.monotonic() - t0
+    seconds = run["traffic_s"]
     launches = {name: k.launches for name, k in cuda_lib.KERNELS.items()}
 
     eos = set(cfg.eos_token_ids)
@@ -2433,22 +2608,208 @@ def serve(torch, label, model, params, config, path):
             raise AssertionError(
                 f"{label} {r.request_id}: {len(out.token_ids)} tokens, finish {out.finish_reason}"
             )
-    free = service.engine.scheduler.block_manager.get_num_free_device_blocks()
+    free = engine.scheduler.block_manager.get_num_free_device_blocks()
     if free != pool:
         raise AssertionError(f"service {label}: {pool - free} KV blocks leaked")
-    mixed = sum(1 for p, d, _, _ in steps if p and d)
+    mixed = sum(1 for d in dispatches if not d["pure"])
     traced_s = sum(t for _, _, t, traced in steps if traced)
-    log(f"service {label}: {len(results)} requests, {generated} tokens, {len(steps)} steps "
-        f"({mixed} mixed prefill+decode) in {seconds:.2f} s ({traced_s:.2f} s of it "
-        f"in the profiled steps); launches {launches}")
+    # Throughput over the whole traffic window, from the first admission to
+    # the last response: every generated token, prefill steps and graph
+    # captures included; then the same less what the measurement itself
+    # took (the eager run's profiled single steps, the idle window's
+    # profiler start and stop).
+    measured_s = traced_s + window.get("overhead_s", 0.0)
+    log(f"service {label}: {len(results)} requests, {generated} tokens, {len(dispatches)} "
+        f"dispatches ({mixed} with prefill) in {seconds:.3f} s, {generated / seconds:.1f} "
+        f"tokens/s over the whole window; less the measurement's {measured_s:.3f} s "
+        f"({traced_s:.3f} s profiled single steps, {window.get('overhead_s', 0.0):.3f} s "
+        f"profiler start and stop): {generated / (seconds - measured_s):.1f} tokens/s; "
+        f"launches {launches}")
     if mixed == 0:
         raise AssertionError(f"service {label}: no mixed prefill+decode step ran")
-    for kind, pick in (("pure-decode", lambda p, d: d and not p),
-                       ("mixed", lambda p, d: p and d)):
-        ms = sorted(t * 1e3 for p, d, t, traced in steps if pick(p, d) and not traced)
+    if mode != "eager":
+        graphs = worker.graphs
+        if async_graphs:
+            log(f"service {label}: warmup {run['seconds']:.2f} s ({run['graphs']} graphs, "
+                f"{run['shapes']} step shapes, capture {run['capture_s']:.2f} s)")
+        log(f"service {label}: after traffic {len(graphs.graphs)} graphs, capture "
+            f"{graphs.capture_seconds:.2f} s in all, {run['replays']} replays in the traffic; "
+            f"graph keys {sorted(graphs.graphs)}")
+        if run["replays"] == 0:
+            raise AssertionError(f"service {label}: no pure-decode step replayed a graph")
+        # A decode step's device time: the traffic's last graph replayed
+        # alone, CUDA events around the replays. Its static inputs still
+        # hold its last step (every graph shares them, and each replay's
+        # inputs are copied in first), which it rewrites in place: the same
+        # K/V bytes into the same slots.
+        last = next(reversed(graphs.graphs))
+        replay_ms = cuda_ms(graphs.graphs[last].graph.replay)
+        check_widest_graph(label, worker, config)
+        report_graph_memory(label, graphs, config, cfg)
+    # Host spans: the median step is a pure-decode one (most steps are).
+    spans = []
+    for name in ("engine.step", "worker.dispatch", "worker.input_prep",
+                 "worker.sampling_build", "worker.invoke", "worker.meta_transfer",
+                 "worker.step_call",
+                 "worker.fetch", "engine.patch_outputs", "engine.process_outputs"):
+        ms = [r.duration_ms for r in tracing.recent_spans(name)]
         if ms:
-            log(f"service {label}: {kind} worker step wall p50 {ms[len(ms) // 2]:.2f} ms, "
-                f"max {ms[-1]:.2f} ms over {len(ms)} steps")
+            spans.append(f"{name} {percentile(ms, 0.5):.3f} ({len(ms)})")
+    log(f"service {label}: host spans, p50 ms (count): {', '.join(spans)}")
+    log(f"service {label}: SHAPE_COUNTS {len(input_prep.SHAPE_COUNTS)} shapes "
+        f"{dict(sorted(input_prep.SHAPE_COUNTS.items()))}")
+    # The steady-decode period: successive pure-decode dispatches with the
+    # pipeline full. A capture or a profiler's stop synchronizes the device,
+    # and a synchronous fallback empties the async queue; the next
+    # async_depth dispatches then follow each other at host speed, so the
+    # intervals up to async_depth dispatches after such a drain are left out.
+    depth = config.scheduler.async_depth if async_graphs else 0
+    drained = [d["captured"] or d["traced"] or d["in_flight"] < depth for d in dispatches]
+    periods, rows = [], 0
+    for i, (a, b) in enumerate(zip(dispatches, dispatches[1:])):
+        if a["pure"] and b["pure"] and not any(drained[max(0, i - depth): i + 2]):
+            periods.append((b["t"] - a["t"]) * 1e3)
+            rows += a["rows"]
+    captures = [(b["t"] - a["t"]) * 1e3
+                for a, b in zip(dispatches, dispatches[1:]) if a["captured"]]
+    summary = {}
+    if periods:
+        summary = dict(p50=percentile(periods, 0.5), p99=percentile(periods, 0.99),
+                       tok_s=rows / (sum(periods) / 1e3), n=len(periods))
+        log(f"service {label}: steady-decode period p50 {summary['p50']:.3f} ms, p99 "
+            f"{summary['p99']:.3f} ms over {len(periods)} intervals; steady decode "
+            f"{summary['tok_s']:.1f} tokens/s ({rows} rows over those intervals); "
+            f"first-use capture steps {len(captures)} "
+            f"({', '.join(f'{c:.1f}' for c in captures)} ms)")
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3) for e in window.get("events", ())
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda kv: -kv[1])
+    if kernels:
+        # The window holds what the device ran between its first and last
+        # dispatch, the tails of steps in flight at its start included.
+        busy = sum(t for _, t in kernels)
+        top = ", ".join(f"{name[:40]} {t / IDLE_WINDOW_STEPS:.3f}" for name, t in kernels[:5])
+        log(f"service {label}: {IDLE_WINDOW_STEPS} pure-decode steps under torch.profiler "
+            f"(device activity only): device busy {busy:.3f} ms of {window['wall_ms']:.2f} ms "
+            f"wall, idle {1 - busy / window['wall_ms']:.1%}; top device time over the window "
+            f"÷ {IDLE_WINDOW_STEPS} (ms): {top}")
+    else:
+        log(f"service {label}: idle share over {IDLE_WINDOW_STEPS} decode steps not measured "
+            "(the profiler recorded no device events)")
+    if mode != "eager":
+        idle = (f", idle {1 - replay_ms / summary['p50']:.1%} of the steady-decode period p50"
+                if summary else "")
+        log(f"service {label}: the traffic's last graph {last} replayed alone: "
+            f"{replay_ms:.3f} ms a step (CUDA events){idle}")
+    if mode == "eager":
+        for kind, pick in (("pure-decode", lambda p, d: d and not p),
+                           ("mixed", lambda p, d: p and d)):
+            ms = sorted(t * 1e3 for p, d, t, traced in steps if pick(p, d) and not traced)
+            if ms:
+                log(f"service {label}: {kind} worker step wall p50 {ms[len(ms) // 2]:.2f} ms, "
+                    f"max {ms[-1]:.2f} ms over {len(ms)} steps")
+        report_profiled_steps(torch, label, profiled, ragged, ragged_calls)
+        busy = profiled.get("decode", {}).get("busy_ms")
+        if busy and summary:
+            log(f"service {label}: the profiled decode step's device busy {busy:.3f} ms is "
+                f"{busy / summary['p50']:.1%} of the steady-decode period p50, idle "
+                f"{1 - busy / summary['p50']:.1%}")
+    for name in path:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
+    check_route(f"service {label}", launches, bf16=True)
+    return launches, [tuple(r.outputs[0].token_ids) for r in results]
+
+
+def check_widest_graph(label, worker, config):
+    """The widest graph key a user can reach, which the traffic does not:
+    ``max_num_sequences`` decode rows, each seeded and sampling with top-k,
+    top-p and typical-p and asking the most top-n alternatives, over
+    contexts as long as the KV pool holds for all of them. Stepped twice on
+    the same inputs, the key's first step (eager, then captured) and a
+    replay must give the same tokens, logprobs and alternatives. Its capture
+    is counted in the graphs' memory."""
+    from atoma_infer_tpu_torch.sampling_params import (
+        NextTokenChooserParameters, StoppingCriteriaParameters,
+    )
+    from atoma_infer_tpu_torch.sequence import (
+        ExecuteModelRequest, SequenceData, SequenceGroupMetadata,
+    )
+
+    rows = config.scheduler.max_num_sequences
+    bs = config.cache.block_size
+    pages = min(config.cache.num_device_blocks // rows,
+                -(-(config.scheduler.max_model_len - 1) // bs))
+    context = pages * bs
+    metas = []
+    for i in range(rows):
+        data = SequenceData([(7 * i + j) % 1000 + 3 for j in range(context)])
+        data.update_num_computed_tokens(context - 1)
+        metas.append(SequenceGroupMetadata(
+            request_id=f"wide-{i}", is_prompt=False, seq_data={i: data},
+            next_token_chooser_params=NextTokenChooserParameters(
+                temperature=0.8, top_k=50, top_p=0.9, typical_p=0.95, do_sample=True,
+                seed=11 + i),
+            block_tables={i: list(range(i * pages, (i + 1) * pages))},
+            stopping_criteria=StoppingCriteriaParameters(), do_sample=True,
+            token_chunk_size=1, top_n_tokens=config.validation.max_top_n_tokens,
+        ))
+    graphs = worker.graphs
+    before, replays = set(graphs.graphs), graphs.replays
+    took = dict(graphs.captured_bytes)
+    request = ExecuteModelRequest(sequence_groups_metadata=metas)
+    first = worker.execute_model(request)
+    second = worker.execute_model(request)
+    took = {k: graphs.captured_bytes[k] - took[k] for k in took}
+    (key,) = set(graphs.graphs) - before
+    if graphs.replays != replays + 1:
+        raise AssertionError(f"service {label}: the widest key {key} did not replay")
+
+    def flat(out):
+        return [(o.output_token, o.logprob, o.top_tokens)
+                for g in sorted(out) for o in out[g].outputs.values()]
+
+    if flat(first) != flat(second):
+        raise AssertionError(f"service {label}: the widest key {key}'s replay differs from "
+                             "its eager step")
+    log(f"service {label}: widest key {key} ({rows} sampled rows of {context} tokens, top-n "
+        f"{config.validation.max_top_n_tokens}): replay identical to the eager step; its "
+        f"capture grew the pool by {took['pool'] / 2**20:.2f} MiB, the driver took "
+        f"{took['driver'] / 2**20:.2f} MiB")
+
+
+def report_graph_memory(label, graphs, config, model_config):
+    """Print what the service's graphs hold on the card beside the reserve
+    the KV pool left them (``decode_graph_bytes``): the static inputs, one
+    set for every key; the pool's growth over all captures; what stays
+    allocated in it (the graphs' outputs) and what the driver took for the
+    instantiated graphs, each per graph."""
+    from atoma_infer_tpu_torch.engine.cuda_graphs import MAX_GRAPHS, page_capacity
+    from atoma_infer_tpu_torch.engine.llm_service import decode_graph_bytes
+
+    n = graphs.evictions + len(graphs.graphs)  # captures
+    took = graphs.captured_bytes
+    total = graphs.static_bytes + took["pool"] + took["held"] + took["driver"]
+    reserve = decode_graph_bytes(config.scheduler.max_num_sequences, model_config.vocab_size,
+                                 page_capacity(config.scheduler.max_model_len,
+                                               config.cache.block_size),
+                                 model_config.num_layers)
+    log(f"service {label}: graph memory: static inputs {graphs.static_bytes / 2**20:.2f} MiB "
+        f"(one set), pool growth {took['pool'] / 2**20:.2f} MiB over {n} captures, held in it "
+        f"{took['held'] / 2**10:.1f} KiB ({took['held'] / max(n, 1) / 2**10:.1f} KiB a graph), "
+        f"driver {took['driver'] / 2**20:.2f} MiB ({took['driver'] / max(n, 1) / 2**20:.3f} "
+        f"MiB a graph, {took['driver'] / max(n, 1) / model_config.num_layers / 2**10:.1f} KiB "
+        f"a graph and layer); {total / 2**20:.2f} MiB in all against a reserve of "
+        f"{reserve / 2**20:.2f} MiB for {MAX_GRAPHS} graphs; {graphs.evictions} evicted")
+    if total > reserve:
+        raise AssertionError(f"service {label}: the graphs hold {total} bytes, more than the "
+                             f"{reserve} the KV pool left them")
+
+
+def report_profiled_steps(torch, label, profiled, ragged, ragged_calls):
+    """Print the eager run's profiled pure-decode and mixed steps, and the
+    mixed step's ragged calls replayed through both ragged kernels."""
     decode_prof = profiled.get("decode", {})
     if decode_prof.get("kernels"):
         top = ", ".join(f"{name[:48]} {t:.3f}" for name, t in decode_prof["kernels"][:6])
@@ -2493,14 +2854,35 @@ def serve(torch, label, model, params, config, path):
     else:
         log(f"service {label}: device time of a mixed step not measured (the profiler "
             "recorded no device events)")
-    for name in path:
-        if launches[name] == 0:
-            raise AssertionError(f"kernel {name} was not launched on the {label} path")
-    check_route(f"service {label}", launches, bf16=True)
-    return launches
 
 
-def bf16_config(name, block_size):
+def serve_both(torch, label, model, params, make_config, path, mode,
+               new_tokens=OTHER_SERVICES_TOKENS):
+    """One service (a) synchronous and eager, then (b) in ``mode`` (graphs
+    replayed, synchronous or async after warmup) on the same 8 requests:
+    greedy and seeded tokens identical. ``make_config(async_scheduling)``
+    makes each run's configuration. Returns (b)'s launch counts, the
+    service's own path's."""
+    counts_a, tokens_a = serve(torch, label, model, params, make_config(False), path,
+                               new_tokens=new_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_b, tokens_b = serve(torch, label, model, params,
+                               make_config(mode == "async+graphs"), path, mode=mode,
+                               new_tokens=new_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, (a, b) in enumerate(zip(tokens_a, tokens_b)):
+        if a != b:
+            raise AssertionError(f"service {label}: request {i} tokens differ between the "
+                                 f"eager and the {mode} runs: {a} against {b}")
+    log(f"service {label}: tokens identical in the eager and {mode} runs "
+        f"({len(tokens_a)} requests, request 3 seeded sampling); launches eager → {mode}: "
+        + ", ".join(f"{k} {counts_a[k]} → {counts_b[k]}" for k in path))
+    return counts_b
+
+
+def bf16_config(name, block_size, async_scheduling=False):
     """A bf16 service's configuration: KV pool sized from
     ``torch.cuda.mem_get_info``, chunked prefill with a 256-token budget
     (prompts arriving while others decode share steps with them, so mixed
@@ -2515,7 +2897,7 @@ def bf16_config(name, block_size):
                           num_host_blocks_override=64),
         scheduler=SchedulerConfig(
             max_num_batched_tokens=256, max_num_sequences=64, max_model_len=2048,
-            enable_chunked_prefill=True,
+            enable_chunked_prefill=True, async_scheduling=async_scheduling,
         ),
         validation=ValidationConfig(max_input_tokens=1024, max_total_tokens=2048),
     )
@@ -2534,11 +2916,134 @@ def llama_1b_model(torch):
     return model, model.init_params(torch.Generator(device=model.device).manual_seed(0))
 
 
+def span_cost_us(n: int = 20000) -> float:
+    """Host µs one enabled span of ``utils/tracing`` costs (the services
+    record about ten a step while their traffic runs)."""
+    from atoma_infer_tpu_torch.utils import tracing
+
+    tracing.enable()
+    t0 = time.monotonic()
+    for _ in range(n):
+        with tracing.span("cost"):
+            pass
+    cost = (time.monotonic() - t0) * 1e6 / n
+    tracing.disable()
+    tracing.clear()
+    return cost
+
+
 def run_service(torch):
-    """The bf16 Llama-3.2-1B service (16 layers), blocks of 16."""
+    """The bf16 Llama-3.2-1B service (16 layers), blocks of 16: eager, then
+    async with graphs (whose launches it returns)."""
+    log(f"tracing: an enabled span costs {span_cost_us():.2f} µs on this host")
     model, params = llama_1b_model(torch)
-    return serve(torch, "1B bf16", model, params, bf16_config("llama-3.2-1b-random", BS),
-                 SERVICE_PATH)
+    return serve_both(torch, "1B bf16", model, params,
+                      lambda a: bf16_config("llama-3.2-1b-random", BS, async_scheduling=a),
+                      SERVICE_PATH, "async+graphs", NEW_TOKENS)
+
+
+def run_http_server(torch):
+    """The port's HTTP server, as ``python -m atoma_infer_tpu_torch.server``
+    runs it: ``build_app(service, warmup=True)`` over the 1B bf16 service
+    with async scheduling, listening on 127.0.0.1; one ``POST
+    /v1/chat/completions`` plain and one with ``stream: true`` (SSE). Both
+    bodies are checked (the streamed text must be the plain one's: same
+    prompt, greedy, each request alone), and each request's time to first
+    token and total are printed."""
+    import socket
+
+    import aiohttp
+    from aiohttp import web
+
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+    from atoma_infer_tpu_torch.server import metrics
+    from atoma_infer_tpu_torch.server.app import build_app
+
+    model, params = llama_1b_model(torch)
+    config = bf16_config("llama-3.2-1b-random", BS, async_scheduling=True)
+    service = LlmService.start(config, model=model, params=params,
+                               tokenizer=ByteTokenizer(model.config.vocab_size),
+                               device=model.device)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}/v1/chat/completions"
+    max_tokens = 24
+    body = {
+        "model": config.model.model_name,
+        "messages": [
+            {"role": "system", "content": "You are a helpful assistant."},
+            {"role": "user", "content": "Name three colours of the rainbow."},
+        ],
+        "max_tokens": max_tokens,
+    }
+
+    async def go():
+        runner = web.AppRunner(build_app(service, warmup=True))
+        t0 = time.monotonic()
+        await runner.setup()  # starts the engine and runs the warmup
+        startup_s = time.monotonic() - t0
+        site = web.TCPSite(runner, "127.0.0.1", port)
+        await site.start()
+        try:
+            async with aiohttp.ClientSession() as http:
+                async with http.get(f"http://127.0.0.1:{port}/healthz") as resp:
+                    if resp.status != 200:
+                        raise AssertionError(f"server: /healthz answered {resp.status}")
+                ttft_sum = metrics.TIME_TO_FIRST_TOKEN.sum
+                t = time.monotonic()
+                async with http.post(url, json=body) as resp:
+                    plain = (resp.status, await resp.json())
+                plain_s = time.monotonic() - t
+                plain_ttft = metrics.TIME_TO_FIRST_TOKEN.sum - ttft_sum
+                ttft_sum = metrics.TIME_TO_FIRST_TOKEN.sum
+                t = time.monotonic()
+                first = None
+                lines = []
+                async with http.post(url, json={**body, "stream": True}) as resp:
+                    sse_status, sse_type = resp.status, resp.headers.get("Content-Type", "")
+                    async for line in resp.content:
+                        if first is None and line.startswith(b"data: "):
+                            first = time.monotonic() - t
+                        lines.append(line.decode())
+                sse_s = time.monotonic() - t
+                sse_ttft = metrics.TIME_TO_FIRST_TOKEN.sum - ttft_sum
+        finally:
+            await runner.cleanup()
+        return startup_s, plain, plain_s, plain_ttft, (sse_status, sse_type, lines), sse_s, \
+            first, sse_ttft
+
+    startup_s, (status, data), plain_s, plain_ttft, sse, sse_s, sse_first, sse_ttft = \
+        asyncio.run(go())
+    if status != 200 or data.get("object") != "chat.completion":
+        raise AssertionError(f"server: plain completion {status}: {data}")
+    choice = data["choices"][0]
+    used = data["usage"]["completion_tokens"]
+    if not 1 <= used <= max_tokens or choice["finish_reason"] not in ("length", "stop"):
+        raise AssertionError(f"server: plain completion {used} tokens, {choice['finish_reason']}")
+    if choice["finish_reason"] == "length" and used != max_tokens:
+        raise AssertionError(f"server: capped at length after {used} of {max_tokens} tokens")
+    sse_status, sse_type, lines = sse
+    events = [line[len("data: "):].strip() for line in lines if line.startswith("data: ")]
+    if sse_status != 200 or not sse_type.startswith("text/event-stream") or not events \
+            or events[-1] != "[DONE]":
+        raise AssertionError(f"server: stream {sse_status} {sse_type}, events {events[-3:]}")
+    chunks = [json.loads(e) for e in events[:-1]]
+    if not chunks or any(c["object"] != "chat.completion.chunk" for c in chunks):
+        raise AssertionError("server: the stream carried no completion chunks")
+    streamed = "".join(c["choices"][0]["delta"].get("content") or "" for c in chunks)
+    if streamed != choice["message"]["content"]:
+        raise AssertionError("server: the streamed text differs from the plain completion's")
+    if chunks[-1]["choices"][0]["finish_reason"] != choice["finish_reason"]:
+        raise AssertionError("server: the stream's finish reason differs")
+    graphs = service.engine.worker.graphs
+    log(f"server: build_app(warmup=True) started in {startup_s:.2f} s ({len(graphs.graphs)} "
+        f"graphs after the warmup and the two requests, {graphs.replays} replays); plain "
+        f"POST {used} tokens: total {plain_s * 1e3:.1f} ms, time to first token "
+        f"{plain_ttft * 1e3:.1f} ms (server); SSE POST {len(chunks)} chunks: total "
+        f"{sse_s * 1e3:.1f} ms, first event {sse_first * 1e3:.1f} ms (client), time to "
+        f"first token {sse_ttft * 1e3:.1f} ms (server); text identical")
 
 
 def run_shape_services(torch):
@@ -2551,14 +3056,16 @@ def run_shape_services(torch):
 
     model = Llama(llama_3b_config(28), dtype=torch.bfloat16, device="cuda")
     params = model.init_params(torch.Generator(device=model.device).manual_seed(3))
-    serve(torch, "3B bf16", model, params, bf16_config("llama-3.2-3b-random", BS),
-          SERVICE_PATH)
+    serve_both(torch, "3B bf16", model, params,
+               lambda a: bf16_config("llama-3.2-3b-random", BS, async_scheduling=a),
+               SERVICE_PATH, "graphs")
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     model, params = llama_1b_model(torch)
-    serve(torch, "1B bf16 block 64", model, params, bf16_config("llama-3.2-1b-random", 64),
-          SERVICE_PATH)
+    serve_both(torch, "1B bf16 block 64", model, params,
+               lambda a: bf16_config("llama-3.2-1b-random", 64, async_scheduling=a),
+               SERVICE_PATH, "graphs")
 
 
 def run_quant_services(torch):
@@ -2585,7 +3092,7 @@ def run_quant_services(torch):
     log(f"8B weights: drawn and quantized on the card in {time.monotonic() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
 
-    def config(quantization, kv_cache_dtype=None, **cache):
+    def config(quantization, kv_cache_dtype=None, async_scheduling=False, **cache):
         cache = cache or dict(num_device_blocks_override=2048)
         return EngineConfig(
             model=ModelConfig(model_name="llama-3.1-8b-random", dtype="bfloat16",
@@ -2593,7 +3100,7 @@ def run_quant_services(torch):
             cache=CacheConfig(block_size=BS, num_host_blocks_override=64, **cache),
             scheduler=SchedulerConfig(
                 max_num_batched_tokens=256, max_num_sequences=64, max_model_len=2048,
-                enable_chunked_prefill=True,
+                enable_chunked_prefill=True, async_scheduling=async_scheduling,
             ),
             validation=ValidationConfig(max_input_tokens=1024, max_total_tokens=2048),
         )
@@ -2611,7 +3118,12 @@ def run_quant_services(torch):
         try:
             # The LM head is INT8 per channel and weight-only in all three.
             path = SERVICE_PATH + (kernel, "quantized_matmul_int8_mma")
-            counts = serve(torch, label, model, params[quantization], config(quantization), path)
+            # Eager, then with graphs (whose launches count): async after
+            # warmup for INT8, synchronous for the others.
+            counts = serve_both(
+                torch, label, model, params[quantization],
+                lambda a, q=quantization: config(q, async_scheduling=a), path,
+                *(("async+graphs", NEW_TOKENS) if label == "8B INT8" else ("graphs",)))
         finally:
             quant_kernels._W8A8 = saved
         launches[kernel] = counts[kernel]
@@ -2630,10 +3142,16 @@ def run_quant_services(torch):
     # over an e4m3 cache.
     for kv, cache in (("int8", dict(hbm_memory_utilization=0.5)),
                       ("fp8", dict(num_device_blocks_override=2048))):
-        cfg = config("int8", kv, **cache)
+        made = []
+
+        def make(a, kv=kv, cache=cache):
+            made.append(config("int8", kv, async_scheduling=a, **cache))
+            return made[-1]
+
         label = f"8B INT8 + {kv.upper()} KV"
         path = kv8_path(kv) + ("quantized_matmul_int8_mma", "paged_attention_split_combine")
-        counts = serve(torch, label, model, params["int8"], cfg, path)
+        counts = serve_both(torch, label, model, params["int8"], make, path, "graphs")
+        cfg = made[-1]
         per_block = cfg.cache.block_bytes(
             model.config.num_layers, model.config.num_kv_heads, model.config.head_dim, 1,
             scale_pages=kv == "int8")
@@ -2696,6 +3214,9 @@ def main() -> int:
     profile_device(torch, lambda: torch.ones(1, device="cuda") + 1)
     launches = phase(run_service)
     gc.collect()  # the finished service's KV pool
+    torch.cuda.empty_cache()
+    phase(run_http_server)
+    gc.collect()
     torch.cuda.empty_cache()
     phase(run_shape_services)
     gc.collect()

@@ -411,7 +411,10 @@ def test_service_greedy_tokens_match_jax(name):
     ({"inference": {"tensor_parallel_size": 2}}, "parallelism"),
     ({"inference": {"pipeline_parallel_size": 2}}, "parallelism"),
     ({"inference": {"num_hosts": 2}}, "parallelism"),
-    ({"scheduler": {"async_scheduling": True}}, "async scheduling"),
+    # Async scheduling is ported; beside speculative decoding it is refused
+    # for the drafts.
+    ({"scheduler": {"async_scheduling": True, "num_speculative_tokens": 2}},
+     "speculative decoding"),
     ({"cache": {"enable_prefix_caching": True}}, "prefix caching"),
     # No kernel takes fp16: refused at start, not a KeyError in the loader.
     ({"inference": {"dtype": "float16"}}, "float16 instantiations of A–H"),

@@ -66,6 +66,14 @@ def test_the_tools_subpackage_is_walked():
     assert tools <= walked
 
 
+def test_the_server_subpackage_is_walked():
+    walked = {os.path.relpath(p, PORT_DIR) for p in _port_files()}
+    server = {os.path.join("server", f"{name}.py") for name in (
+        "__init__", "__main__", "api", "app", "chat_templates", "metrics", "schema")}
+    assert server <= walked
+    assert os.path.join("engine", "cuda_graphs.py") in walked
+
+
 def test_importing_every_module_leaves_jax_out():
     modules = []
     for path in _port_files():
