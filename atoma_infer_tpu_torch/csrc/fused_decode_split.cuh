@@ -61,6 +61,16 @@
 // soft cap, ALiBi slope × (kpos − pos); f32 online softmax; INT8 folds the
 // V scale into p before P·V.
 //
+// Head dims 32, 64 and 128 over every cache kind; 96 (Phi-3-mini) and 256
+// (Gemma-2) over a bf16 cache. At D = 96 a K row is 12 16-byte pieces,
+// which do not divide a warp's 32 lanes, so the ring's copies walk the
+// round's pieces key-major; its 192-byte rows already start 64 bytes apart
+// modulo 128, so a load phase's two keys meet no bank conflict unpadded;
+// and a lane's V run of 12 dims (24 bytes, 8-byte aligned) is read 8
+// bytes at a time. At D = 256 the ring is 144 KB a block (one block an SM)
+// and O takes 128 registers a thread, so V's runs of 32 dims are read in two
+// halves; what does not fit spills (the build log counts it).
+//
 // Measurement hooks, all off in the build the port uses (ops/cuda_lib.py);
 // tools/rpa_ablation.py --mode fused builds and times them:
 //   ATOMA_FS_MINB=n    at least n resident blocks an SM in __launch_bounds__;
@@ -123,21 +133,27 @@ struct VRun {
   uint32_t w[kWords];
 };
 
+// Runs of a multiple of 16 bytes are read 16 bytes at a time; of 8 bytes
+// (24 at D = 96 in bf16: a run starts 24 gid bytes into its row, so only 8
+// are aligned), 8 at a time.
 template <typename C, int N>
 __device__ __forceinline__ VRun<C, N> load_run(const C* p, bool valid) {
   VRun<C, N> r;
 #pragma unroll
   for (int i = 0; i < VRun<C, N>::kWords; ++i) r.w[i] = 0u;
   if (!valid) return r;
-  if constexpr (VRun<C, N>::kWords >= 4) {
+  if constexpr (VRun<C, N>::kWords % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < VRun<C, N>::kWords; i += 4) {
       const uint4 v = *reinterpret_cast<const uint4*>(reinterpret_cast<const char*>(p) + 4 * i);
       r.w[i] = v.x, r.w[i + 1] = v.y, r.w[i + 2] = v.z, r.w[i + 3] = v.w;
     }
-  } else if constexpr (VRun<C, N>::kWords == 2) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    r.w[0] = v.x, r.w[1] = v.y;
+  } else if constexpr (VRun<C, N>::kWords % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < VRun<C, N>::kWords; i += 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(reinterpret_cast<const char*>(p) + 4 * i);
+      r.w[i] = v.x, r.w[i + 1] = v.y;
+    }
   } else {
     r.w[0] = *reinterpret_cast<const uint32_t*>(p);
   }
@@ -176,6 +192,7 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
   using L = FsTile<C, D>;
   constexpr int NW = kFsWarps;
   constexpr int NT = D / 8;  // P·V's n8 tiles; a lane's V run is NT dims
+  constexpr int VC = NT > 16 ? 16 : NT;  // dims of a run loaded at once
   constexpr int EPL = L::kPiece / (int)sizeof(C);  // K elements a lane's piece
   constexpr int SPC = EPL / 4;                     // k16 steps a piece feeds
   extern __shared__ __align__(16) unsigned char fs_ring[];
@@ -289,17 +306,30 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
   };
   // The warp's ring: copy c of a round is chunk lane % kChunks of key
   // c * (32 / kChunks) + lane / kChunks, whose slot comes from that key's
-  // lane. Keys past the range are zero-filled.
+  // lane. Keys past the range are zero-filled. At D = 96 a row's 12 chunks
+  // do not divide the lanes: there copy c is piece p = 32 c + lane of the
+  // round's key-major pieces, chunk p % kChunks of key p / kChunks (kWalk).
+  constexpr bool kWalk = 32 % L::kChunks != 0;
   const uint32_t ring = smem_addr(fs_ring) + warp * L::kRing;
-  const char* kbytes = reinterpret_cast<const char*>(kbase) + (lane % L::kChunks) * 16;
+  const char* kbytes =
+      reinterpret_cast<const char*>(kbase) + (kWalk ? 0 : (lane % L::kChunks) * 16);
   auto issue = [&](int base, int kslot, int stage) {
 #pragma unroll
     for (int c = 0; c < L::kChunks; ++c) {
-      const int key = c * (32 / L::kChunks) + lane / L::kChunks;
-      const long long ks = __shfl_sync(0xffffffffu, kslot, key);
-      const bool ok = base + key < key_hi;
-      cp_async16(ring + stage * L::kStage + key * L::kRow + (lane % L::kChunks) * 16,
-                 ok ? kbytes + ks * row_stride * (long long)sizeof(C) : kbytes, ok);
+      if constexpr (!kWalk) {
+        const int key = c * (32 / L::kChunks) + lane / L::kChunks;
+        const long long ks = __shfl_sync(0xffffffffu, kslot, key);
+        const bool ok = base + key < key_hi;
+        cp_async16(ring + stage * L::kStage + key * L::kRow + (lane % L::kChunks) * 16,
+                   ok ? kbytes + ks * row_stride * (long long)sizeof(C) : kbytes, ok);
+      } else {
+        const int p = 32 * c + lane, key = p / L::kChunks, chunk = p % L::kChunks;
+        const long long ks = __shfl_sync(0xffffffffu, kslot, key);
+        const bool ok = base + key < key_hi;
+        cp_async16(ring + stage * L::kStage + key * L::kRow + chunk * 16,
+                   ok ? kbytes + chunk * 16 + ks * row_stride * (long long)sizeof(C) : kbytes,
+                   ok);
+      }
     }
   };
 
@@ -404,20 +434,26 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
     m_row = m_new;
 #pragma unroll
     for (int mt = 0; mt < NT; ++mt) o[mt][0] *= alpha, o[mt][1] *= alpha;
-    // P·V, k16 step q: keys 16 q + 2 tig + {0, 1} (b0) and + {8, 9} (b1).
+    // P·V, k16 step q: keys 16 q + 2 tig + {0, 1} (b0) and + {8, 9} (b1);
+    // at D = 256 the runs in two halves of VC = 16 dims, so that the four
+    // keys' pieces take 32 registers beside O's 128.
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
-      VRun<C, NT> v[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = 16 * q + 2 * tig + (i & 1) + 8 * (i >> 1);
-        const long long vs = __shfl_sync(0xffffffffu, kslot, key);
-        v[i] = load_run<C, NT>(vrun + vs * row_stride, base + key < key_hi);
+      for (int c0 = 0; c0 < NT; c0 += VC) {
+        VRun<C, VC> v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = 16 * q + 2 * tig + (i & 1) + 8 * (i >> 1);
+          const long long vs = __shfl_sync(0xffffffffu, kslot, key);
+          v[i] = load_run<C, VC>(vrun + vs * row_stride + c0, base + key < key_hi);
+        }
+        const uint32_t a[4] = {pa[q][0], 0u, pa[q][1], 0u};
+#pragma unroll
+        for (int mt = 0; mt < VC; ++mt)
+          mma_bf16(o[c0 + mt], a, key_pair<C>(v[0].w, v[1].w, mt),
+                   key_pair<C>(v[2].w, v[3].w, mt));
       }
-      const uint32_t a[4] = {pa[q][0], 0u, pa[q][1], 0u};
-#pragma unroll
-      for (int mt = 0; mt < NT; ++mt)
-        mma_bf16(o[mt], a, key_pair<C>(v[0].w, v[1].w, mt), key_pair<C>(v[2].w, v[3].w, mt));
     }
     __syncwarp();  // this round's stage (and INT8 scales) are read: both may be refilled
     kslot = next_slot;
@@ -536,6 +572,11 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
   ATOMA_FS_D(32)
   ATOMA_FS_D(64)
   ATOMA_FS_D(128)
+  // Phi-3 (96) and Gemma-2 (256) over a bf16 cache only.
+  if constexpr (sizeof(C) == 2) {
+    ATOMA_FS_D(96)
+    ATOMA_FS_D(256)
+  }
 #undef ATOMA_FS_D
 #endif
 #undef ATOMA_FS
@@ -567,6 +608,10 @@ int fused_split_blocks_per_sm_entry(int head_dim, int group) {
   ATOMA_FS_OCC(32)
   ATOMA_FS_OCC(64)
   ATOMA_FS_OCC(128)
+  if constexpr (sizeof(C) == 2) {
+    ATOMA_FS_OCC(96)
+    ATOMA_FS_OCC(256)
+  }
 #undef ATOMA_FS_OCC
   return -1;
 }

@@ -57,6 +57,13 @@
 //    key gives 0. No host sync: the launch is CUDA-graph capturable.
 // Score order, as rpa_kernel's: dot (× the INT8 key scale) × scale, soft
 // cap, ALiBi slope × (kpos − qpos), then the causal / sliding-window mask.
+// Head dims 32, 64 and 128 over every cache kind; 96 (Phi-3-mini) and 256
+// (Gemma-2) over a bf16 cache. At D = 96 a key's K|V slice is 24 16-byte
+// pieces, which do not divide the block's threads, so the copies walk the
+// tile's pieces key-major; 208-byte rows keep ldmatrix free of bank
+// conflicts. At D = 256 the ring is 3 × 66 KB (one block an SM), and a
+// thread holds Q's fragments (64 registers) and O (128) through the key
+// loop: what does not fit spills (the build log counts it).
 
 #pragma once
 
@@ -325,8 +332,12 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
     return bt[key / block_size] * block_size + key % block_size;
   };
   // Each thread copies one 16-byte piece of a (slot, kv head) K|V slice
-  // for every kPass-th key of a tile.
-  constexpr int kPieces = 2 * L::kChunks, kPass = NT / kPieces;
+  // for every kPass-th key of a tile. At D = 96 a slice's 24 pieces do not
+  // divide the threads: there pass i's thread tid copies piece c = i NT +
+  // tid of the tile's key-major pieces instead (kWalk).
+  constexpr int kPieces = 2 * L::kChunks;
+  constexpr bool kWalk = NT % kPieces != 0;
+  static_assert(KT * kPieces % NT == 0, "a tile's pieces split evenly over the threads");
   const int part = tid % kPieces, key0 = tid / kPieces;
   const uint32_t dst0 =
       (part < L::kChunks ? part * 16 : KT * L::kRawRow + (part - L::kChunks) * 16) +
@@ -334,11 +345,27 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
   const char* src0 = reinterpret_cast<const char*>(cache + (long long)h * 2 * D) + part * 16;
   auto issue = [&](int t, int stage) {
     const int* slots = slot_ring + ((t - tb) % (ST + 1)) * KT;
+    if constexpr (!kWalk) {
+      constexpr int kPass = NT / kPieces;
 #pragma unroll
-    for (int i = 0; i < KT / kPass; ++i) {
-      const int slot = slots[key0 + i * kPass];
-      cp_async16(ring + stage * L::kStageBytes + dst0 + i * kPass * L::kRawRow,
-                 src0 + (long long)max(slot, 0) * row_stride * (long long)sizeof(C), slot >= 0);
+      for (int i = 0; i < KT / kPass; ++i) {
+        const int slot = slots[key0 + i * kPass];
+        cp_async16(ring + stage * L::kStageBytes + dst0 + i * kPass * L::kRawRow,
+                   src0 + (long long)max(slot, 0) * row_stride * (long long)sizeof(C), slot >= 0);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < KT * kPieces / NT; ++i) {
+        const int c = i * NT + tid, key = c / kPieces, piece = c % kPieces;
+        const int slot = slots[key];
+        const uint32_t dst =
+            (piece < L::kChunks ? piece * 16 : KT * L::kRawRow + (piece - L::kChunks) * 16) +
+            key * L::kRawRow;
+        cp_async16(ring + stage * L::kStageBytes + dst,
+                   src0 + (piece - part) * 16 +
+                       (long long)max(slot, 0) * row_stride * (long long)sizeof(C),
+                   slot >= 0);
+      }
     }
     if constexpr (kScaled<C>) {
       if (tid < KT) {
@@ -585,7 +612,9 @@ inline int rpa_combine_entry(const void* ws_o, const void* ws_ml, void* out, con
   }
   ATOMA_COMBINE(32)
   ATOMA_COMBINE(64)
+  ATOMA_COMBINE(96)
   ATOMA_COMBINE(128)
+  ATOMA_COMBINE(256)
 #undef ATOMA_COMBINE
   return (int)cudaErrorInvalidValue;
 }
@@ -616,6 +645,13 @@ int rpa_mma_entry(const void* q, const void* cache, const void* scales, const vo
   ATOMA_RPA_MMA(32, 8);
   ATOMA_RPA_MMA(64, 8);
   ATOMA_RPA_MMA(128, 8);
+  // Phi-3 (96) and Gemma-2 (256) over a bf16 cache only.
+  if constexpr (sizeof(C) == 2) {
+    ATOMA_RPA_MMA(96, 4);
+    ATOMA_RPA_MMA(256, 4);
+    ATOMA_RPA_MMA(96, 8);
+    ATOMA_RPA_MMA(256, 8);
+  }
 #undef ATOMA_RPA_MMA
   return (int)cudaErrorInvalidValue;
 }
@@ -630,6 +666,12 @@ int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
   ATOMA_RPA_OCC(32, 8);
   ATOMA_RPA_OCC(64, 8);
   ATOMA_RPA_OCC(128, 8);
+  if constexpr (sizeof(C) == 2) {
+    ATOMA_RPA_OCC(96, 4);
+    ATOMA_RPA_OCC(256, 4);
+    ATOMA_RPA_OCC(96, 8);
+    ATOMA_RPA_OCC(256, 8);
+  }
 #undef ATOMA_RPA_OCC
   return -1;
 }

@@ -17,7 +17,10 @@ reaches before traffic (``engine/cuda_graphs.py``). Weight quantization
 (``quantization`` "int8" or "int4", and W8A8 under ``ATOMA_W8A8=1``) is
 ported: the loader quantizes on load. So are the KV-cache dtypes
 (``kv_cache_dtype`` "int8": an int8 cache with per-(slot, K/V) bf16 scales;
-"fp8": an e4m3 cache), chosen as the JAX service chooses them.
+"fp8": an e4m3 cache), chosen as the JAX service chooses them. Every model
+family of the registry is served; on the card, a shape no attention kernel
+takes (``check_kernel_shapes``: head dim, GQA group, dtype, KV dtype) is
+refused before anything is loaded.
 """
 
 from __future__ import annotations
@@ -80,6 +83,25 @@ def _reject_unported(config: EngineConfig) -> None:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue 1: {item})"
             )
+
+
+def check_kernel_shapes(model_config, config: EngineConfig) -> None:
+    """Raise ``ValueError``, naming the ROADMAP.md item, when the card has
+    no attention kernel for the model's shapes served as ``config`` says:
+    its head dim and GQA group, the activations' dtype and the KV cache's
+    (``ops/paged_attention.py`` ``check_kernel_shape``, which the kernels'
+    wrappers call too), for prefill and mixed steps (the ragged kernel) and
+    for pure-decode steps (the fused one). ``LlmService.start`` calls it on
+    the card before anything is loaded or allocated."""
+    from ..ops.paged_attention import check_kernel_shape
+
+    for fused in (False, True):
+        check_kernel_shape(
+            head_dim=model_config.head_dim, dtype=_DTYPES[config.model.dtype],
+            kind=_KV_DTYPES.get(config.model.kv_cache_dtype),
+            group=model_config.num_attention_heads // model_config.num_key_value_heads,
+            block_size=config.cache.block_size, fused=fused,
+        )
 
 
 # The pool of the decode graphs, in [S, V] f32 buffers at the largest
@@ -175,6 +197,8 @@ class LlmService:
 
                 model_dir = model_dir or resolve_model_dir(config)
                 model_cfg = load_hf_config(model_dir)
+                if device.type == "cuda":
+                    check_kernel_shapes(model_cfg, config)
                 dtype = _DTYPES[config.model.dtype]
                 model = get_model_cls(model_cfg.architecture or "llama")(
                     model_cfg, dtype=dtype, device=device
@@ -189,6 +213,8 @@ class LlmService:
             raise ValueError(f"model is on {model.device}, service on {device}")
 
         cfg = model.config
+        if device.type == "cuda":
+            check_kernel_shapes(cfg, config)
         # The KV cache's dtype, as the JAX service picks it: int8 (with
         # scales), e4m3, or the model's own.
         kv_dtype = _KV_DTYPES.get(config.model.kv_cache_dtype, model.dtype)

@@ -1,6 +1,7 @@
 """Model implementations over the flattened-batch + paged-KV forward contract
-(ref: flash_attention.rs:156-174). Llama only in this port so far."""
+(ref: flash_attention.rs:156-174): Llama and the families built on its
+forward (Mistral, Qwen2, Phi-3, Gemma-2, Mixtral)."""
 
-from .registry import get_model_cls
+from .registry import get_model_cls, list_models
 
-__all__ = ["get_model_cls"]
+__all__ = ["get_model_cls", "list_models"]

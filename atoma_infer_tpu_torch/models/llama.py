@@ -233,51 +233,85 @@ class Llama:
         """Transformer layers over the hidden states, one paged cache (and,
         for an int8 cache, one scales tensor) per layer, updated in place."""
         cfg = self.config
-        scale = cfg.head_dim**-0.5
+        for i, lp in enumerate(self._layers(params, kv_cache, kv_scales)):
+            # Attention block (ref: llama.rs:218-320).
+            normed = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
+            h = h + self._attention(normed, lp, positions, kv_cache[i], attn_meta,
+                                    None if kv_scales is None else kv_scales[i],
+                                    sliding_window=cfg.sliding_window)
+            # MLP block (ref: llama.rs:362-366); Mixtral's is the sparse MoE.
+            normed = rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
+            h = h + self._mlp_block(normed, lp)
+        return h
+
+    @staticmethod
+    def _layers(params: Dict[str, Any], kv_cache, kv_scales):
+        """Each layer's parameters, once the caches (and scales) are checked
+        to be one a layer."""
         layers = params["layers"]
         num_layers = layers["input_norm"].shape[0]
         if len(kv_cache) != num_layers:
             raise ValueError(f"{len(kv_cache)} caches for {num_layers} layers")
         if kv_scales is not None and len(kv_scales) != num_layers:
             raise ValueError(f"{len(kv_scales)} scales for {num_layers} layers")
-        for i in range(num_layers):
-            lp = _layer_params(layers, i)
-            # Attention block (ref: llama.rs:218-320).
-            normed = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
-            q = _linear(normed, lp["q_proj"])
-            kk = _linear(normed, lp["k_proj"])
-            vv = _linear(normed, lp["v_proj"])
-            if "q_bias" in lp:
-                q = q + lp["q_bias"].to(q.dtype)
-                kk = kk + lp["k_bias"].to(kk.dtype)
-                vv = vv + lp["v_bias"].to(vv.dtype)
-            q = q.reshape(-1, cfg.num_attention_heads, cfg.head_dim)
-            kk = kk.reshape(-1, cfg.num_key_value_heads, cfg.head_dim)
-            vv = vv.reshape(-1, cfg.num_key_value_heads, cfg.head_dim)
-            if self.alibi is None:
-                q = apply_rope(q, positions, self.rope_cos, self.rope_sin)
-                kk = apply_rope(kk, positions, self.rope_cos, self.rope_sin)
-            # Write new KV into the paged cache, then attend over it
-            # (ref: flash_attention.rs:360-361 order).
-            attn = paged_attention_layer(
-                q,
-                kv_cache[i],
-                kk,
-                vv,
-                attn_meta,
-                scale=scale,
-                sliding_window=cfg.sliding_window,
-                alibi_slopes=self.alibi,
-                kv_scales=None if kv_scales is None else kv_scales[i],
-            )
-            attn = attn.reshape(-1, cfg.num_attention_heads * cfg.head_dim)
-            h = h + _linear(attn, lp["o_proj"])
-            # SwiGLU MLP block (ref: llama.rs:362-366).
-            normed = rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
-            gate = _linear(normed, lp["gate_proj"])
-            up = _linear(normed, lp["up_proj"])
-            h = h + _linear(torch.nn.functional.silu(gate) * up, lp["down_proj"])
-        return h
+        return (_layer_params(layers, i) for i in range(num_layers))
+
+    @property
+    def attn_scale(self) -> float:
+        """The attention's score scale: head_dim**-0.5 (Gemma-2 overrides)."""
+        return self.config.head_dim**-0.5
+
+    def _attention(
+        self,
+        normed: torch.Tensor,
+        lp: Dict[str, Any],
+        positions: torch.Tensor,
+        kv_cache: torch.Tensor,
+        attn_meta: AttentionMetadata,
+        kv_scales: Optional[torch.Tensor],
+        *,
+        sliding_window: Optional[int],
+        soft_cap: Optional[float] = None,
+    ) -> torch.Tensor:
+        """One layer's attention sublayer on its normed input: q/k/v (with
+        Qwen2's biases), rope, the paged attention (this step's K/V written
+        into ``kv_cache`` in place), the output projection → [T, H]."""
+        cfg = self.config
+        q = _linear(normed, lp["q_proj"])
+        kk = _linear(normed, lp["k_proj"])
+        vv = _linear(normed, lp["v_proj"])
+        if "q_bias" in lp:
+            q = q + lp["q_bias"].to(q.dtype)
+            kk = kk + lp["k_bias"].to(kk.dtype)
+            vv = vv + lp["v_bias"].to(vv.dtype)
+        q = q.reshape(-1, cfg.num_attention_heads, cfg.head_dim)
+        kk = kk.reshape(-1, cfg.num_key_value_heads, cfg.head_dim)
+        vv = vv.reshape(-1, cfg.num_key_value_heads, cfg.head_dim)
+        if self.alibi is None:
+            q = apply_rope(q, positions, self.rope_cos, self.rope_sin)
+            kk = apply_rope(kk, positions, self.rope_cos, self.rope_sin)
+        # Write new KV into the paged cache, then attend over it
+        # (ref: flash_attention.rs:360-361 order).
+        attn = paged_attention_layer(
+            q,
+            kv_cache,
+            kk,
+            vv,
+            attn_meta,
+            scale=self.attn_scale,
+            sliding_window=sliding_window,
+            soft_cap=soft_cap,
+            alibi_slopes=self.alibi,
+            kv_scales=kv_scales,
+        )
+        attn = attn.reshape(-1, cfg.num_attention_heads * cfg.head_dim)
+        return _linear(attn, lp["o_proj"])
+
+    def _mlp_block(self, normed: torch.Tensor, lp: Dict[str, Any]) -> torch.Tensor:
+        """SwiGLU feed-forward on the post-norm activations."""
+        gate = _linear(normed, lp["gate_proj"])
+        up = _linear(normed, lp["up_proj"])
+        return _linear(torch.nn.functional.silu(gate) * up, lp["down_proj"])
 
     def compute_logits(
         self,
@@ -287,16 +321,19 @@ class Llama:
         """Final norm + LM head on the selected rows only, logits in f32
         (ref: llama.rs:474-477)."""
         cfg = self.config
-        hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
-        if cfg.tie_word_embeddings and "lm_head" not in params:
-            return matmul_f32_out(hidden, params["embed"].t())
+        return self._lm_head(params, rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps))
+
+    def _lm_head(self, params: Dict[str, Any], normed: torch.Tensor) -> torch.Tensor:
+        """The LM head (the tied embedding or ``lm_head``) → f32 logits."""
+        if self.config.tie_word_embeddings and "lm_head" not in params:
+            return matmul_f32_out(normed, params["embed"].t())
         w = params["lm_head"]
         if isinstance(w, QuantizedTensor):
             # Weight-only even under W8A8, as on the TPU: there the head's
             # 128256 columns are no multiple of the Pallas kernel's 512-column
             # block, so it takes the XLA branch, which has no W8A8.
-            return quantized_matmul(hidden, w, allow_w8a8=False).float()
-        return matmul_f32_out(hidden, w)
+            return quantized_matmul(normed, w, allow_w8a8=False).float()
+        return matmul_f32_out(normed, w)
 
     # -- cache shape contract ---------------------------------------------------
     def kv_cache_shape(self, num_blocks: int, block_size: int) -> Tuple[int, int, int, int]:

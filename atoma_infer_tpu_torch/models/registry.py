@@ -1,28 +1,36 @@
-"""Model registry: HF ``model_type`` / architecture name → model class.
-
-The port has Llama only. The JAX package's other families (mistral, qwen2,
-phi3, gemma2, mixtral) raise here until their ROADMAP.md item (Queue 1,
-"Model families") is done.
-"""
+"""Model registry: HF ``model_type`` / architecture name → model class
+(counterpart of ``atoma_infer_tpu/models/registry.py``): Llama, Mistral,
+Mixtral, Phi-3, Qwen2 and Gemma-2."""
 
 from __future__ import annotations
 
-_NOT_PORTED = {
-    "mistral", "mixtral", "phi3", "qwen2", "gemma2",
-    "MistralForCausalLM", "MixtralForCausalLM", "Phi3ForCausalLM",
-    "Qwen2ForCausalLM", "Gemma2ForCausalLM",
-}
-
 
 def get_model_cls(model_type: str):
+    from .gemma import Gemma2
     from .llama import Llama
+    from .mistral import Mistral
+    from .mixtral import Mixtral
+    from .phi3 import Phi3
+    from .qwen2 import Qwen2
 
-    if model_type in ("llama", "LlamaForCausalLM"):
-        return Llama
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {model_type!r} is not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1: model families)"
-        )
-    raise ValueError(f"unsupported model type {model_type!r}; known: ['llama']")
+    registry = {
+        "llama": Llama,
+        "mistral": Mistral,
+        "mixtral": Mixtral,
+        "phi3": Phi3,
+        "qwen2": Qwen2,
+        "gemma2": Gemma2,
+        "LlamaForCausalLM": Llama,
+        "MistralForCausalLM": Mistral,
+        "MixtralForCausalLM": Mixtral,
+        "Phi3ForCausalLM": Phi3,
+        "Qwen2ForCausalLM": Qwen2,
+        "Gemma2ForCausalLM": Gemma2,
+    }
+    if model_type not in registry:
+        raise ValueError(f"unsupported model type {model_type!r}; known: {sorted(registry)}")
+    return registry[model_type]
 
+
+def list_models():
+    return ["llama", "mistral", "mixtral", "phi3", "qwen2", "gemma2"]

@@ -2,12 +2,17 @@
 the port's.
 
 Counterpart of ``atoma_infer_tpu/models/weights.py`` for dense bf16/f32
-Llama checkpoints: per-layer tensors are stacked on axis 0 and projections
-transposed to ``[in, out]``, the JAX package's layout, so both packages hold
-the same numbers in the same places. ``safetensors`` is imported only when a
-checkpoint is loaded. With ``quantization`` ("int8" or "int4") the seven
-projections are quantized on load, layer by layer from f32, and an untied
-LM head to INT8 with one scale per column (JAX ``weights.py:184-248``).
+checkpoints of every family the port serves: per-layer tensors are stacked
+on axis 0 and projections transposed to ``[in, out]``, the JAX package's
+layout, so both packages hold the same numbers in the same places. Phi-3's
+fused ``qkv_proj`` and ``gate_up_proj`` are split on load, Gemma-2's
+feed-forward norms and Qwen2's qkv biases are taken where present, and
+Mixtral's router ``[L, H, E]`` and experts ``[L, E, in, out]`` replace the
+dense MLP. ``safetensors`` is imported only when a checkpoint is loaded.
+With ``quantization`` ("int8" or "int4") the seven projections are
+quantized on load, layer by layer from f32, and an untied LM head to INT8
+with one scale per column (JAX ``weights.py:184-248``); Mixtral's router
+and experts stay in the model's dtype, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,14 +44,35 @@ def _weight_files(model_dir: str) -> List[str]:
 
 
 def load_hf_config(model_dir: str) -> LlamaConfig:
-    """Parse ``config.json`` (Llama family only in the port)."""
+    """Parse ``config.json`` into its family's config (JAX
+    ``weights.py:43-68``)."""
     with open(os.path.join(model_dir, "config.json")) as f:
-        d = json.load(f)
-    model_type = d.get("model_type", "llama")
-    if model_type != "llama":
-        from .registry import get_model_cls
+        return config_from_hf_dict(json.load(f))
 
-        get_model_cls(model_type)  # raises: family not ported
+
+def config_from_hf_dict(d: Dict[str, Any]) -> LlamaConfig:
+    """An HF ``config.json`` dict → its family's config, by ``model_type``."""
+    model_type = d.get("model_type", "llama")
+    if model_type == "mistral":
+        from .mistral import MistralConfig
+
+        return MistralConfig.from_hf_dict(d)
+    if model_type == "phi3":
+        from .phi3 import Phi3Config
+
+        return Phi3Config.from_hf_dict(d)
+    if model_type == "qwen2":
+        from .qwen2 import Qwen2Config
+
+        return Qwen2Config.from_hf_dict(d)
+    if model_type == "gemma2":
+        from .gemma import GemmaConfig
+
+        return GemmaConfig.from_hf_dict(d)
+    if model_type == "mixtral":
+        from .mixtral import MixtralConfig
+
+        return MixtralConfig.from_hf_dict(d)
     return LlamaConfig.from_hf_dict(d)
 
 
@@ -61,11 +87,18 @@ _LAYER_MAP = {
     "self_attn.k_proj.bias": ("k_bias", False),
     "self_attn.v_proj.bias": ("v_bias", False),
     "post_attention_layernorm.weight": ("post_norm", False),
+    # Gemma-2's feed-forward norms.
+    "pre_feedforward_layernorm.weight": ("pre_ffw_norm", False),
+    "post_feedforward_layernorm.weight": ("post_ffw_norm", False),
     "mlp.gate_proj.weight": ("gate_proj", True),
     "mlp.up_proj.weight": ("up_proj", True),
     "mlp.down_proj.weight": ("down_proj", True),
 }
-_OPTIONAL_KEYS = frozenset({"q_bias", "k_bias", "v_bias"})
+# Keys a family may lack altogether (Qwen2's biases, Gemma-2's norms).
+_OPTIONAL_KEYS = frozenset({"q_bias", "k_bias", "v_bias", "pre_ffw_norm", "post_ffw_norm"})
+# Mixtral replaces the dense MLP with these (``block_sparse_moe.*``).
+_MOE_REPLACED = frozenset({"gate_proj", "up_proj", "down_proj"})
+_EXPERT_WEIGHTS = ("w1", "w2", "w3")
 _QUANTIZED_KEYS = frozenset(
     {"q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"}
 )
@@ -94,13 +127,14 @@ def _quantize_lm_head(lm_head) -> QuantizedTensor:
 
 def quantize_params(params: Dict[str, Any], quantization: Optional[str]) -> Dict[str, Any]:
     """A dense parameter dict with its projections quantized layer by layer
-    and an untied LM head quantized per channel, as the loader does. The
-    dense input is left as it is."""
+    and an untied LM head quantized per channel, as the loader does (a
+    Mixtral's router and experts stay dense). The dense input is left as it
+    is."""
     bits = _BITS[quantization]
     if bits is None:
         return params
     layers = dict(params["layers"])
-    for key in _QUANTIZED_KEYS:
+    for key in _QUANTIZED_KEYS & layers.keys():  # Mixtral: no dense MLP
         stacked = layers[key]
         layers[key] = _quantize_layers(list(stacked.unbind(0)), bits, stacked.device)
     out = dict(params, layers=layers)
@@ -128,9 +162,12 @@ def load_llama_params(
     device=None,
     quantization: Optional[str] = None,  # None | "int8" | "int4"
 ) -> Dict[str, Any]:
-    """Load and stack Llama weights from safetensors onto ``device``;
-    optionally quantize the linears on load."""
+    """Load and stack a checkpoint's weights from safetensors onto
+    ``device`` (any family of the registry); optionally quantize the
+    linears on load."""
     from safetensors import safe_open
+
+    from .phi3 import split_phi3_tensor
 
     bits = _BITS[quantization]
 
@@ -139,10 +176,42 @@ def load_llama_params(
         key: [None] * L for key, _ in _LAYER_MAP.values()
     }
     top: Dict[str, torch.Tensor] = {}
+    # Mixtral: the router [L, H, E] and each expert's SwiGLU [L][E].
+    E = int(getattr(config, "num_local_experts", 0) or 0)
+    router: List[Optional[torch.Tensor]] = [None] * L
+    experts = {w: [[None] * E for _ in range(L)] for w in _EXPERT_WEIGHTS}
+
+    def take_moe(idx: int, param: str, arr: torch.Tensor) -> bool:
+        """Route a ``block_sparse_moe.*`` tensor; True if it was one."""
+        if not param.startswith("block_sparse_moe."):
+            return False
+        rest = param[len("block_sparse_moe."):]
+        if rest == "gate.weight":
+            router[idx] = arr.T  # [E, H] → [H, E]
+        elif rest.startswith("experts."):
+            e, wname = rest[len("experts."):].split(".", 1)
+            wname = wname.removesuffix(".weight")
+            if wname in experts:
+                experts[wname][idx][int(e)] = arr.T  # [out, in] → [in, out]
+            else:
+                logger.warning("skipping unknown expert tensor %s", rest)
+        else:
+            logger.warning("skipping unknown moe tensor %s", rest)
+        return True
+
+    def tensors_from(f):
+        """(name, tensor) pairs, Phi-3's fused tensors split."""
+        for name in f.keys():
+            arr = f.get_tensor(name)
+            if name.endswith(("qkv_proj.weight", "gate_up_proj.weight")):
+                yield from split_phi3_tensor(name, arr, config.num_attention_heads,
+                                             config.num_key_value_heads, config.head_dim)
+            else:
+                yield name, arr
+
     for path in _weight_files(model_dir):
         with safe_open(path, framework="pt") as f:
-            for name in f.keys():
-                arr = f.get_tensor(name)
+            for name, arr in tensors_from(f):
                 if name == "model.embed_tokens.weight":
                     top["embed"] = arr
                 elif name == "model.norm.weight":
@@ -151,6 +220,8 @@ def load_llama_params(
                     top["lm_head"] = arr.T
                 elif name.startswith("model.layers."):
                     idx_str, param = name[len("model.layers."):].split(".", 1)
+                    if E and take_moe(int(idx_str), param, arr):
+                        continue
                     mapped = _LAYER_MAP.get(param)
                     if mapped is None:
                         logger.warning("skipping unknown tensor %s", name)
@@ -160,10 +231,11 @@ def load_llama_params(
                 else:
                     logger.warning("skipping unknown tensor %s", name)
 
-    layers: Dict[str, torch.Tensor] = {}
+    layers: Dict[str, Any] = {}
     for key, tensors in per_layer.items():
         missing = [i for i, t in enumerate(tensors) if t is None]
-        if key in _OPTIONAL_KEYS and len(missing) == len(tensors):
+        absent_ok = key in _OPTIONAL_KEYS or (E and key in _MOE_REPLACED)
+        if absent_ok and len(missing) == len(tensors):
             continue
         if missing:
             raise ValueError(f"missing layer tensors for {key}: {missing}")
@@ -171,6 +243,18 @@ def load_llama_params(
             layers[key] = _quantize_layers(tensors, bits, device)
         else:
             layers[key] = _to_tensor(torch.stack(tensors), dtype, device)
+    if E:
+        missing = [i for i, t in enumerate(router) if t is None]
+        if missing:
+            raise ValueError(f"missing MoE router tensors: {missing}")
+        layers["router"] = _to_tensor(torch.stack(router), dtype, device)
+        for wname, per_layer_experts in experts.items():
+            missing = [(i, j) for i, row in enumerate(per_layer_experts)
+                       for j, t in enumerate(row) if t is None]
+            if missing:
+                raise ValueError(f"missing MoE expert tensors for {wname}: {missing}")
+            layers[wname] = _to_tensor(
+                torch.stack([torch.stack(row) for row in per_layer_experts]), dtype, device)
 
     params: Dict[str, Any] = {
         "embed": _to_tensor(top["embed"], dtype, device),

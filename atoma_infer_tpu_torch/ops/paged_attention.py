@@ -67,7 +67,12 @@ from .kv_write import write_kv_cache_plain, write_kv_cache_quant_plain
 from .reference import ragged_paged_attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+# Head dims the kernels are instantiated for, by route: bf16 queries over a
+# bf16 cache (the tensor-core ragged kernel, the split fused kernel, the
+# merge) also take Phi-3-mini's 96 and Gemma-2's 256; f32 queries and 1-byte
+# caches 32, 64 and 128.
+HEAD_DIMS_BF16 = (32, 64, 96, 128, 256)
+HEAD_DIMS = (32, 64, 128)
 MAX_FUSED_GROUP = 8  # fused_decode_kernel is instantiated for G = 1..8
 _RAGGED_ARGS = [INT] + [PTR] * 9 + [INT] * 7 + [FLOAT, INT, FLOAT, PTR]
 _FUSED_ARGS = [INT] + [PTR] * 12 + [INT] * 6 + [LONG, FLOAT, INT, FLOAT, PTR]
@@ -378,24 +383,41 @@ def split_combine_plain(ws_o, ws_ml, out, meta, *, bq, splits, min_tiles,
 
 
 # ------------------------------------------------------------------ wrappers
-def check_kernel_shape(*, group: int, block_size: int, fused: bool) -> None:
-    """Raise ``ValueError`` for a block size or GQA group the kernels do not
-    take: the ragged kernel (A, D, E) takes any block size that is a
-    multiple of 8, as the configuration does; the fused decode kernel (B and
-    D's and E's fused variants) also takes 1 to ``MAX_FUSED_GROUP`` query
-    heads per kv head."""
+def check_kernel_shape(*, head_dim: int, dtype: torch.dtype, kind, group: int,
+                       block_size: int, fused: bool) -> None:
+    """Raise ``ValueError`` for a shape no kernel takes, naming the ROADMAP.md
+    item that would add it: ``head_dim`` for queries of ``dtype`` (bf16 or
+    f32) over a cache of ``kind`` (None: the queries' own dtype; or int8,
+    float8_e4m3fn): bf16 over bf16 takes ``HEAD_DIMS_BF16``, the rest
+    ``HEAD_DIMS``; the ragged kernel (A, D, E) takes any block size that is
+    a multiple of 8, as the configuration does; the fused decode kernel (B
+    and D's and E's fused variants) also takes 1 to ``MAX_FUSED_GROUP``
+    query heads per kv head. The wrappers and ``LlmService.start`` call it."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"paged attention: q {dtype} must be bfloat16 or float32")
+    dims = HEAD_DIMS_BF16 if dtype == torch.bfloat16 and kind is None else HEAD_DIMS
+    if head_dim not in dims:
+        item = ""
+        if head_dim in HEAD_DIMS_BF16:  # another route has it
+            item = ("; waits for ROADMAP.md, Queue 1: "
+                    f"{'f32 attention' if kind is None else 'kernels D and E'} at head dims "
+                    "96 and 256")
+        raise ValueError(f"paged attention: unsupported head_dim {head_dim} for {dtype} queries "
+                         f"over a {kind or dtype} cache (head dims {dims}){item}")
     if block_size <= 0 or block_size % 8:
         raise ValueError(f"paged attention: block_size {block_size} is not a positive "
                          "multiple of 8")
     if fused and not 1 <= group <= MAX_FUSED_GROUP:
         raise ValueError(
             f"fused_decode_attention: {group} q heads per kv head unsupported (1 to "
-            f"{MAX_FUSED_GROUP}; larger groups wait for ROADMAP.md, Queue 1: model families)"
+            f"{MAX_FUSED_GROUP}; larger groups wait for ROADMAP.md, Queue 1: fused decode at "
+            "more than 8 q heads per kv head)"
         )
 
 
-def _check(q, kv_cache, meta, alibi_slopes, kv_scales, extra=()) -> tuple:
-    """Validate what the kernels take; return (Hk, D, S, P, cache kind)."""
+def _check(q, kv_cache, meta, alibi_slopes, kv_scales, *, fused, extra=()) -> tuple:
+    """Validate what the kernels take (the fused decode kernel's when
+    ``fused``); return (Hk, D, S, P, cache kind)."""
     T, Hq, D = q.shape
     num_pages, bs, row = kv_cache.shape
     if q.dtype not in _DTYPES:
@@ -415,13 +437,15 @@ def _check(q, kv_cache, meta, alibi_slopes, kv_scales, extra=()) -> tuple:
         if kv_scales.dtype != torch.bfloat16 or kv_scales.shape != (num_pages, bs, 2):
             raise ValueError("paged attention: kv_scales must be bfloat16 [pages, block_size, 2]")
         extra = tuple(extra) + (kv_scales,)
-    if D not in _HEAD_DIMS or row % (2 * D) or Hq % (row // (2 * D)):
+    if row % (2 * D) or Hq % (row // (2 * D)):
         raise ValueError(
-            f"paged attention: unsupported head_dim {D} / cache row {row} / "
-            f"{Hq} q heads"
+            f"paged attention: cache row {row} holds no whole number of kv heads of "
+            f"head_dim {D} dividing {Hq} q heads"
         )
     if bs != meta.block_size:
         raise ValueError("paged attention: cache block size != meta.block_size")
+    check_kernel_shape(head_dim=D, dtype=q.dtype, kind=kind, group=Hq // (row // (2 * D)),
+                       block_size=bs, fused=fused)
     S, P = meta.block_tables.shape
     ints = (meta.block_tables, meta.seq_lens, meta.query_start_loc, meta.num_seqs)
     if any(t.dtype != torch.int32 for t in ints + (meta.slot_mapping,)):
@@ -467,8 +491,7 @@ def ragged_paged_attention_cuda(
     queries on the tensor cores, f32 on the CUDA cores (:func:`ragged_route`).
     Rows past ``query_start_loc[num_seqs]`` are padding and left
     unwritten."""
-    Hk, D, S, P, kind = _check(q, kv_cache, meta, alibi_slopes, kv_scales)
-    check_kernel_shape(group=q.shape[1] // Hk, block_size=meta.block_size, fused=False)
+    Hk, D, S, P, kind = _check(q, kv_cache, meta, alibi_slopes, kv_scales, fused=False)
     out = torch.empty_like(q)
     if ragged_route(q, kind) is RAGGED_ATTENTION_MMA[kind]:
         return ragged_paged_attention_mma_launch(
@@ -557,11 +580,11 @@ def ragged_paged_attention_fused_cuda(
     matching ``reshape_and_cache`` kernel would write them. bf16 queries
     take the split kernel (:func:`fused_route`, :func:`fused_splits_for`),
     f32 queries ``fused_decode_kernel``."""
-    Hk, D, S, P, kind = _check(q, kv_cache, meta, alibi_slopes, kv_scales, extra=(k_new, v_new))
+    Hk, D, S, P, kind = _check(q, kv_cache, meta, alibi_slopes, kv_scales, fused=True,
+                               extra=(k_new, v_new))
     T, Hq, _ = q.shape
     if not meta.decode_only:
         raise ValueError("fused_decode_attention: meta.decode_only must be set")
-    check_kernel_shape(group=Hq // Hk, block_size=meta.block_size, fused=True)
     if k_new.shape != (T, Hk, D) or v_new.shape != (T, Hk, D):
         raise ValueError("fused_decode_attention: k_new/v_new must be [T, Hk, D]")
     if k_new.dtype != q.dtype or v_new.dtype != q.dtype:

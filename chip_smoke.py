@@ -10,8 +10,9 @@ raises on failure; nothing is caught):
 2. Every kernel against its plain PyTorch version on the card.
    Attention and KV write: first every compiled instantiation at small sizes
    (head_dim 32/64/128 × block size 8/16/32/48/64/128 × GQA group 1 to 8,
-   bf16 and f32; a 1,600-key row cut into several KV splits, short rows
-   leaving splits empty), then Llama-3.2-1B
+   bf16 and f32, and head dims 96 and 256 in bf16 with one window and one
+   soft-cap case each; a 1,600-key row cut into several KV splits, short
+   rows leaving splits empty), then Llama-3.2-1B
    attention shapes (Hq=32, Hk=8, D=64, block 16) with a mixed
    prefill+decode batch and a pure-decode batch: the KV write bit-exact, the
    attention kernels within the tolerances below (plus one case each with a
@@ -46,7 +47,11 @@ raises on failure; nothing is caught):
    16); the writes and the fused kernels' caches and scales bit-exact, the
    attention within the tolerances below. A, B, D and E at the
    Llama-3.2-3B attention shapes (3 query heads per kv head), the ragged
-   kernels at blocks of 16 and of 64. Kernel I (the W8A8 rate probe's
+   kernels at blocks of 16 and of 64. A, B, C and the merge at the
+   Phi-3-mini (D = 96, 32 kv heads, window 2,047) and Gemma-2-9B (D = 256,
+   soft cap 50) attention shapes: the write bit-exact, A on a mixed batch
+   and B on 64 decode rows against their plain versions, each timed beside
+   its bound, and the merge after a split launch. Kernel I (the W8A8 rate probe's
    matmul, both forms) at small shapes (M = 1 to 400) and at the probe's
    (184 × 4096 × 14336): int8 bit-exact, mixed within its tolerance. Times
    with CUDA events: kernel, plain version and, where one PyTorch call
@@ -65,7 +70,11 @@ raises on failure; nothing is caught):
    come from those runs, their times from that model's shape (phase 2).
    Then the quality ladder on ``tiny_trained`` in f32 at reduced sizes on
    the card against the CPU: greedy agreements identical, drifts within
-   ``LADDER_CARD_TOL``.
+   ``LADDER_CARD_TOL``. Each model family (Mistral-7B-v0.1, Qwen2-7B,
+   Phi-3-mini-4k-instruct, Gemma-2-9B, Mixtral-8x7B-v0.1) with 2 layers at
+   its published widths, bf16, against the same model attending through
+   the plain versions on the card: logits finite and within
+   ``FAMILY_MODEL_TOL``.
 4. Services through ``LlmService.start``, each with 8 requests of 256
    tokens (128 but for the 1B bf16 and 8B INT8 services; chunked prefill,
    one seeded sampled, the second half admitted before engine step 7 while
@@ -108,15 +117,22 @@ raises on failure; nothing is caught):
    warmup=True)`` over the 1B service with async scheduling, on
    127.0.0.1, answers one plain and one streamed (SSE)
    ``POST /v1/chat/completions``; both bodies checked, each request's time
-   to first token and total printed.
+   to first token and total printed. Last, one bf16 service per model
+   family at its published widths (``FAMILIES``: full depth but
+   Mixtral-8x7B's 8 of 32 layers, which is all that fits the card), eager
+   and then synchronous with graphs, the same checks; Phi-3-mini's second
+   prompt passes its 2,047-key window.
 5. The quantization decision tools (``atoma_infer_tpu_torch/tools``): the
    W8A8 rate probe's ``main()`` (its path through kernel I, both forms
    launched, int8 exact), then the W8A8 and INT8-KV gates at their card
    defaults and the quality ladder on ``tiny_trained`` in bf16, each
    printing its JSON; every number finite, every agreement in [0, 1], and
    each tool's kernels launched in its own run (F and H; D; A to H).
-6. A ``{"kernels": [...]}`` JSON line (each kernel's launches from its own
-   path's run in (b), graph replays counted), then as the last line ``{"ok": true, "device": {...}}``.
+6. The smoke's wall, then a ``{"kernels": [...]}`` JSON line (each
+   kernel's launches from its own path's run in (b), graph replays
+   counted; A, B and the merge at head dims 96 and 256 as rows of their
+   own, their launches from the Phi-3-mini and Gemma-2-9B services), then
+   as the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
 repository.
@@ -336,6 +352,8 @@ def make_batch(rng, specs, *, dtype, num_blocks, decode_only, device,
 # pages) and GQA groups (the fused kernel is instantiated for 1 to 8).
 VARIANT_BLOCK_SIZES = (8, 16, 32, 48, 64, 128)
 VARIANT_GROUPS = tuple(range(1, 9))
+# The head dims of Phi-3-mini (96) and Gemma-2 (256): the bf16 route only.
+WIDE_HEAD_DIMS = (96, 256)
 # The ragged batches of the grids: chunks, decode rows, and one decode row of
 # 1,600 keys, which the tensor-core route cuts into several KV splits while
 # the short rows leave splits empty.
@@ -502,51 +520,66 @@ def check_kernel_variants(torch):
     rng = np.random.default_rng(7)
     mixed_specs, decode_specs = VARIANT_MIXED, VARIANT_DECODE
     splits, fused_splits = SplitCount(), FusedSplitCount()
+    wide_splits, wide_fused_splits = SplitCount(), FusedSplitCount()
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         tol = ATTN_TOL[dtype_name]
         worst, cases = 0.0, 0
-        for d in (32, 64, 128):
+        # Phi-3-mini's 96 and Gemma-2's 256 on the bf16 route only.
+        dims = (32, 64, 128) + (WIDE_HEAD_DIMS if dtype_name == "bfloat16" else ())
+        for d in dims:
             for bs in VARIANT_BLOCK_SIZES:
                 for group in VARIANT_GROUPS:
                     shape = dict(hq=2 * group, hk=2, d=d, bs=bs, dtype=dtype,
                                  num_blocks=variant_blocks(mixed_specs + decode_specs, bs), device=dev)
                     label = f"{dtype_name} D={d} bs={bs} G={group}"
+                    # At the new head dims, one window case and one soft-cap
+                    # case (Phi-3's and Gemma-2's score modifiers).
+                    mods = [{}]
+                    if d in WIDE_HEAD_DIMS and bs == 16 and group == 2:
+                        mods += [dict(sliding_window=40), dict(soft_cap=50.0)]
                     b = make_batch(rng, mixed_specs, decode_only=False, **shape)
-                    splits.add(b)
+                    (wide_splits if d in WIDE_HEAD_DIMS else splits).add(b)
                     m, n = b["meta"], b["rows"]
                     got, want = b["cache"].clone(), b["cache"].clone()
                     kv_write.write_kv_cache_cuda(got, b["k"], b["v"], m.slot_mapping)
                     kv_write.write_kv_cache_plain(want, b["k"], b["v"], m.slot_mapping)
                     if not torch.equal(got, want):
                         raise AssertionError(f"reshape_and_cache {label} is not bit-exact")
-                    out = paged_attention.ragged_paged_attention_cuda(
-                        b["q"], got, m, scale=d ** -0.5)
-                    ref = paged_attention.ragged_paged_attention_paged_plain(
-                        b["q"], got, m, scale=d ** -0.5)
-                    if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
-                        raise AssertionError(f"ragged_paged_attention {label} disagrees")
-                    worst = max(worst, (out[:n].float() - ref[:n].float()).abs().max().item())
+                    for kw in mods:
+                        out = paged_attention.ragged_paged_attention_cuda(
+                            b["q"], got, m, scale=d ** -0.5, **kw)
+                        ref = paged_attention.ragged_paged_attention_paged_plain(
+                            b["q"], got, m, scale=d ** -0.5, **kw)
+                        if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol,
+                                              rtol=tol):
+                            raise AssertionError(f"ragged_paged_attention {label} {kw} disagrees")
+                        worst = max(worst, (out[:n].float() - ref[:n].float()).abs().max().item())
 
                     b = make_batch(rng, decode_specs, decode_only=True, **shape)
-                    fused_splits.add(b)
+                    (wide_fused_splits if d in WIDE_HEAD_DIMS else fused_splits).add(b)
                     m, n = b["meta"], b["rows"]
-                    got, want = b["cache"].clone(), b["cache"].clone()
-                    out = paged_attention.ragged_paged_attention_fused_cuda(
-                        b["q"], got, b["k"], b["v"], m, scale=d ** -0.5)
-                    ref = paged_attention.fused_decode_attention_plain(
-                        b["q"], want, b["k"], b["v"], m, scale=d ** -0.5)
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"fused_decode_attention {label}: cache differs")
-                    if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
-                        raise AssertionError(f"fused_decode_attention {label} disagrees")
-                    worst = max(worst, (out[:n].float() - ref[:n].float()).abs().max().item())
+                    for kw in mods:
+                        got, want = b["cache"].clone(), b["cache"].clone()
+                        out = paged_attention.ragged_paged_attention_fused_cuda(
+                            b["q"], got, b["k"], b["v"], m, scale=d ** -0.5, **kw)
+                        ref = paged_attention.fused_decode_attention_plain(
+                            b["q"], want, b["k"], b["v"], m, scale=d ** -0.5, **kw)
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"fused_decode_attention {label} {kw}: cache "
+                                                 "differs")
+                        if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol,
+                                              rtol=tol):
+                            raise AssertionError(f"fused_decode_attention {label} {kw} disagrees")
+                        worst = max(worst, (out[:n].float() - ref[:n].float()).abs().max().item())
                     cases += 1
-        log(f"kernel variants {dtype_name}: {cases} shapes × 3 kernels agree, "
-            f"max |err| {worst:.3e} (tol {tol}); the ragged kernel on "
+        log(f"kernel variants {dtype_name}: {cases} shapes (head dims {dims}) × 3 kernels "
+            f"agree, max |err| {worst:.3e} (tol {tol}); the ragged kernel on "
             f"{'the tensor cores' if dtype_name == 'bfloat16' else 'the CUDA cores'}, the "
             f"fused one {'split' if dtype_name == 'bfloat16' else 'unsplit'}")
     splits.check("kernel variants, tensor-core route")
     fused_splits.check("kernel variants, split fused route")
+    wide_splits.check(f"kernel variants at D={WIDE_HEAD_DIMS}, tensor-core route")
+    wide_fused_splits.check(f"kernel variants at D={WIDE_HEAD_DIMS}, split fused route")
 
 
 def attention_work(specs, window, elt, *, fused, kv_elt=None, slot_extra=0,
@@ -989,35 +1022,67 @@ def check_split_combine(torch):
     """The merge of split rows where the main path runs it: after the
     tensor-core ragged kernel on a 256-query prefill chunk at positions
     1,792-2,047 (Llama-3.1-8B attention shapes, bf16 cache, the route's plan,
-    which splits its key tiles). The attention by a direct launch for its
-    workspace, then the merge against its plain version on it, timed in a
-    CUDA graph. Returns its kernels line row; the bound counts the split
-    rows' partials read once and their outputs written once."""
+    which splits its key tiles). Returns its kernels line row."""
+    return split_combine_row(torch, "8B", hq=32, hk=8, d=128)
+
+
+def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, decode=False,
+                      splits=None):
+    """A split attention launch by a direct call, for its workspace, then
+    the merge against its plain version on it, timed in a CUDA graph: the
+    ragged kernel on a 256-query prefill chunk at positions 1,792-2,047, or
+    (``decode``) the fused kernel on 8 decode rows of 1,800-2,047 keys (bf16
+    cache, block 16), with the route's plan, which must split, or with
+    ``splits`` where the plan takes none at this shape. Returns its kernels
+    line row; the bound counts the split rows' partials read once and their
+    outputs written once."""
     import numpy as np
 
     from atoma_infer_tpu_torch.ops import cuda_lib
     from atoma_infer_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
-    b = make_batch(np.random.default_rng(9), [(256, 2048)], hq=32, hk=8, d=128, bs=16,
-                   dtype=torch.bfloat16, num_blocks=256, decode_only=False, device=dev)
+    rng = np.random.default_rng(9)
+    specs = ([(1, int(k)) for k in rng.integers(1800, 2048, size=8)] if decode
+             else [(256, 2048)])
+    b = make_batch(rng, specs, hq=hq, hk=hk, d=d, bs=16, dtype=torch.bfloat16,
+                   num_blocks=max(256, variant_blocks(specs, 16)), decode_only=decode, device=dev)
     q, m, cache = b["q"], b["meta"], b["cache"]
     T, Hq, D = q.shape
     S, P = m.block_tables.shape
     Hk = cache.shape[2] // (2 * D)
-    plan = pa.rpa_plan_for(q, m, Hk, None)
-    if plan.splits < 2:
-        raise AssertionError(f"split combine: the prefill chunk's plan takes {plan.splits} split")
-    ws_o = torch.empty((plan.splits, T, Hq, D), dtype=torch.float32, device=dev)
-    ws_ml = torch.empty((plan.splits, T, Hq, 2), dtype=torch.float32, device=dev)
+    stream = cuda_lib.current_stream_handle(dev)
+    if decode:
+        planned, bq, min_tiles = pa.fused_splits_for(q, m, Hk, None), 1, pa.FUSED_MIN_TILES
+        what = f"8 decode rows, fused kernel, the plan's {planned} splits"
+    else:
+        plan = pa.rpa_plan_for(q, m, Hk, None)
+        planned, bq, min_tiles = plan.splits, plan.tokens, pa.RPA_MIN_TILES
+        what = f"prefill chunk, {plan.warps} warps, the plan's {planned} splits"
+    if splits is None:
+        splits = planned
+        if splits < 2:
+            raise AssertionError(f"split combine {label}: the plan takes {splits} split "
+                                 f"({what})")
+    else:
+        what += f", launched with {splits}"
+    ws_o = torch.empty((splits, T, Hq, D), dtype=torch.float32, device=dev)
+    ws_ml = torch.empty((splits, T, Hq, 2), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
-    pa.RAGGED_ATTENTION_MMA[None](
-        q.data_ptr(), cache.data_ptr(), None, m.block_tables.data_ptr(), m.seq_lens.data_ptr(),
-        m.query_start_loc.data_ptr(), m.num_seqs.data_ptr(), None, out.data_ptr(),
-        ws_o.data_ptr(), ws_ml.data_ptr(), T, S, Hq, Hk, D, P, m.block_size, plan.warps,
-        plan.splits, pa.RPA_MIN_TILES, 128 ** -0.5, 0, 0.0, cuda_lib.current_stream_handle(dev))
+    common = (m.block_tables.data_ptr(), m.seq_lens.data_ptr(), m.query_start_loc.data_ptr(),
+              m.num_seqs.data_ptr(), None, out.data_ptr(), ws_o.data_ptr(), ws_ml.data_ptr())
+    if decode:
+        pa.FUSED_DECODE_SPLIT[None](
+            q.data_ptr(), b["k"].data_ptr(), b["v"].data_ptr(), cache.data_ptr(), None,
+            m.slot_mapping.data_ptr(), *common, T, S, Hq, Hk, D, P, m.block_size,
+            cache.shape[0] * m.block_size, splits, min_tiles, D ** -0.5, window or 0,
+            soft_cap or 0.0, stream)
+    else:
+        pa.RAGGED_ATTENTION_MMA[None](
+            q.data_ptr(), cache.data_ptr(), None, *common, T, S, Hq, Hk, D, P, m.block_size,
+            plan.warps, splits, min_tiles, D ** -0.5, window or 0, soft_cap or 0.0, stream)
     before = out.clone()
-    kw = dict(bq=plan.tokens, splits=plan.splits, min_tiles=pa.RPA_MIN_TILES)
+    kw = dict(bq=bq, splits=splits, min_tiles=min_tiles, window=window)
 
     def run():
         pa.split_combine(ws_o, ws_ml, out, m, num_kv_heads=Hk, **kw)
@@ -1031,25 +1096,138 @@ def check_split_combine(torch):
     err = (out[:n].float() - want[:n].float()).abs().max().item()
     tol = ATTN_TOL["bfloat16"]
     if not torch.allclose(out[:n].float(), want[:n].float(), atol=tol, rtol=tol):
-        raise AssertionError(f"paged_attention_split_combine disagrees: max |err| {err:.3e}")
+        raise AssertionError(f"paged_attention_split_combine {label} disagrees: max |err| "
+                             f"{err:.3e}")
     # The query tiles' split counts, as the kernels cut them.
     nbytes = merged = 0
-    for tok0 in range(0, n, plan.tokens):
-        ntok = min(plan.tokens, n - tok0)
-        first = 2048 - n + tok0
-        tiles = (first + ntok - 1) // pa.RPA_KEY_TILE + 1
-        k = max(1, min(plan.splits, -(-tiles // pa.RPA_MIN_TILES)))
+    tiles = ([(kv - 1, kv - 1, 1) for _, kv in specs] if decode else
+             [(2048 - n + t0, 2048 - n + t0 + min(bq, n - t0) - 1, min(bq, n - t0))
+              for t0 in range(0, n, bq)])
+    for first, last, ntok in tiles:
+        lo = max(0, first - window + 1) if window else 0
+        n_tiles = last // pa.RPA_KEY_TILE + 1 - lo // pa.RPA_KEY_TILE
+        k = max(1, min(splits, -(-n_tiles // min_tiles)))
         if k > 1:
             merged += k
             nbytes += k * ntok * Hq * (D + 2) * 4 + ntok * Hq * D * 2
     ms = graph_ms(torch, run)
     plain_ms = cuda_ms(plain, iters=2, warmup=1)
     bound_ms, by = bound(nbytes, 0, "float32")
-    log(f"paged_attention_split_combine 8B prefill chunk ({plan.warps} warps, {plan.splits} "
-        f"splits, {merged} partial tiles): {ms:.4f} ms in a CUDA graph (plain {plain_ms:.4f} ms), "
-        f"bound {bound_ms:.4f} ms by {by}, max |err| {err:.3e}")
+    log(f"paged_attention_split_combine {label} (D={D}, {what}, {merged} partial tiles): "
+        f"{ms:.4f} ms in a CUDA graph (plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms by "
+        f"{by}, max |err| {err:.3e}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                 bound_by=by)
+
+
+# The attention shapes of the families whose head dims only the bf16 route
+# takes, from their public config.json: (label, Hq, Hk, D, the score
+# modifiers their layers pass the kernels, how the merge is timed). At
+# Phi-3-mini's 32 kv heads the routes' plans never split: 8 sequence slots
+# (the smallest bucket) × 32 kv heads is 256 blocks, past 80% of the 264 a
+# card holds of either kernel, so its merge is timed after the fused kernel
+# launched with 4 splits by a direct call, and has no launch on its path.
+WIDE_HEAD_SHAPES = (
+    ("Phi-3-mini", 32, 32, 96, dict(sliding_window=2047), dict(decode=True, splits=4)),
+    ("Gemma-2-9B", 16, 8, 256, dict(soft_cap=50.0), {}),
+)
+
+
+def check_wide_head_kernels(torch):
+    """A, B, C and the merge at the attention shapes of Phi-3-mini (D = 96,
+    32 kv heads, window 2,047) and Gemma-2-9B (D = 256, 2 q heads per kv
+    head, soft cap 50), bf16 over a bf16 cache, block 16: the write
+    bit-exact on a mixed batch (3 chunks and 29 decode rows of 16-1,023
+    keys: the plain version gathers every row's whole context in f32, which
+    2,048 keys of 32 heads of 96 would take past 50 GB for); the ragged
+    kernel on it and the fused kernel on 64 decode rows of 16-2,047 keys
+    within the tolerance (caches bit-exact), each timed with CUDA events
+    beside its bound and its plain version; the merge after a split prefill
+    chunk (Gemma-2-9B) or after the fused kernel on 8 long decode rows
+    launched with 4 splits (Phi-3-mini, whose plans never split:
+    ``WIDE_HEAD_SHAPES``). Returns kernels-line rows keyed ``kernel@D``."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import kv_write
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    tol = ATTN_TOL["bfloat16"]
+    rows = {}
+    for label, hq, hk, d, mods, merge in WIDE_HEAD_SHAPES:
+        rng = np.random.default_rng(d)
+        mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
+            (1, int(k)) for k in rng.integers(16, 1024, size=29)]
+        decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+        shape = dict(hq=hq, hk=hk, d=d, bs=BS, dtype=torch.bfloat16, device=dev)
+        mixed = make_batch(rng, mixed_specs, num_blocks=4096, decode_only=False, **shape)
+        decode = make_batch(rng, decode_specs, num_blocks=8192, decode_only=True, **shape)
+        m, n, scale = mixed["meta"], mixed["rows"], d ** -0.5
+        window = mods.get("sliding_window")
+        work = dict(hq=hq, hk=hk, d=d)
+
+        got, want = mixed["cache"].clone(), mixed["cache"].clone()
+        kv_write.write_kv_cache_cuda(got, mixed["k"], mixed["v"], m.slot_mapping)
+        kv_write.write_kv_cache_plain(want, mixed["k"], mixed["v"], m.slot_mapping)
+        if not torch.equal(got, want):
+            raise AssertionError(f"reshape_and_cache {label} D={d} is not bit-exact")
+        cache = got
+
+        def ragged():
+            return pa.ragged_paged_attention_cuda(mixed["q"], cache, m, scale=scale, **mods)
+
+        def ragged_plain():
+            return pa.ragged_paged_attention_paged_plain(mixed["q"], cache, m, scale=scale,
+                                                         **mods)
+
+        out, ref = ragged(), ragged_plain()
+        err = (out[:n].float() - ref[:n].float()).abs().max().item()
+        if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
+            raise AssertionError(f"ragged_paged_attention {label} D={d} disagrees: max |err| "
+                                 f"{err:.3e}")
+        del out, ref
+        bound_ms, by = bound(*attention_work(mixed_specs, window, 2, fused=False, **work),
+                             "bfloat16")
+        rows[f"ragged_paged_attention_mma@{d}"] = r = dict(
+            max_abs_err=err, ms=cuda_ms(ragged), plain_ms=cuda_ms(ragged_plain, iters=3, warmup=1),
+            library_ms=None, bound_ms=bound_ms, bound_by=by)
+        log(f"ragged_paged_attention_mma {label} mixed (D={d}, {mods}): {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.4f} ms), bound {bound_ms:.4f} ms by {by}, max |err| "
+            f"{err:.3e} (tol {tol}), write bit-exact")
+
+        dm, dn = decode["meta"], decode["rows"]
+        got, want = decode["cache"].clone(), decode["cache"].clone()
+        out = pa.ragged_paged_attention_fused_cuda(decode["q"], got, decode["k"], decode["v"], dm,
+                                                   scale=scale, **mods)
+        ref = pa.fused_decode_attention_plain(decode["q"], want, decode["k"], decode["v"], dm,
+                                              scale=scale, **mods)
+        err = (out[:dn].float() - ref[:dn].float()).abs().max().item()
+        if not (torch.equal(got, want) and torch.allclose(
+                out[:dn].float(), ref[:dn].float(), atol=tol, rtol=tol)):
+            raise AssertionError(f"fused_decode_attention {label} D={d} disagrees: max |err| "
+                                 f"{err:.3e}, cache bit-exact {torch.equal(got, want)}")
+        del out, ref, want
+        splits = pa.fused_splits_for(decode["q"], dm, hk, None)
+        bound_ms, by = bound(*attention_work(decode_specs, window, 2, fused=True, **work),
+                             "bfloat16")
+        rows[f"fused_decode_attention_split@{d}"] = r = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+                decode["q"], got, decode["k"], decode["v"], dm, scale=scale, **mods)),
+            plain_ms=cuda_ms(lambda: pa.fused_decode_attention_plain(
+                decode["q"], got, decode["k"], decode["v"], dm, scale=scale, **mods),
+                iters=3, warmup=1),
+            library_ms=None, bound_ms=bound_ms, bound_by=by)
+        log(f"fused_decode_attention_split {label} 64 decode rows (D={d}, {mods}, up to "
+            f"{splits} splits): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms), bound "
+            f"{bound_ms:.4f} ms by {by}, max |err| {err:.3e} (tol {tol}), cache bit-exact")
+        del mixed, decode, cache, got
+        torch.cuda.empty_cache()
+        rows[f"paged_attention_split_combine@{d}"] = split_combine_row(
+            torch, label, hq=hq, hk=hk, d=d, window=window, soft_cap=mods.get("soft_cap"),
+            **merge)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_prefill_chunk(torch):
@@ -1863,33 +2041,15 @@ def code_steps(torch, a, b):
     return torch.where((ai & sign) == (bi & sign), (ai - bi).abs(), 1 << 30)
 
 
-def model_parity(torch, cfg, params_cpu, label, tol, kv_dtype=None):
-    """A 2-layer ``Llama`` on the card (kernels) against the same f32
-    weights on the CPU (plain versions): a prefill and 3 decode steps of two
-    sequences; logits within ``tol``. KV caches in f32 within ``tol``; a
-    1-byte cache (``kv_dtype`` int8 or fp8) and its scales equal except in
-    at most 1% of the values, each one step or code apart: the card's and
-    the CPU's f32 projections differ in the last bits, and a value within
-    that of a rounding boundary lands on the neighbouring step."""
+def two_sequence_steps():
+    """A prefill of two sequences (37 and 70 tokens, on pages 0-19 of
+    ``BS`` slots, interleaved), then 3 decode steps: yields (step, decode,
+    the step's numpy arrays)."""
     import numpy as np
 
-    from atoma_infer_tpu_torch.models.llama import Llama
-    from atoma_infer_tpu_torch.ops.attention import AttentionMetadata
-    from atoma_infer_tpu_torch.ops.kv_cache import alloc_kv_scales
-
-    cpu = Llama(cfg, dtype=torch.float32, device="cpu")
-    gpu = Llama(cfg, dtype=torch.float32, device="cuda")
-    params_gpu = params_to(params_cpu, gpu.device)
-    cache_dtype = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(kv_dtype)
-    caches = {name: m.alloc_kv_cache(64, BS, dtype=cache_dtype)
-              for name, m in (("cpu", cpu), ("cuda", gpu))}
-    scales = {name: ([alloc_kv_scales(64, BS, m.device) for _ in range(cfg.num_layers)]
-                     if kv_dtype == "int8" else None)
-              for name, m in (("cpu", cpu), ("cuda", gpu))}
     tables = [list(range(0, 20, 2)), list(range(1, 21, 2))]
     rng = np.random.default_rng(3)
     prompts = [rng.integers(3, 259, size=n).tolist() for n in (37, 70)]
-    worst = 0.0
     for step in range(4):
         decode = step > 0
         lens = [len(p) + step for p in prompts]
@@ -1912,21 +2072,57 @@ def model_parity(torch, cfg, params_cpu, label, tol, kv_dtype=None):
                 r += 1
             qsl[s + 1] = r
         qsl[3:] = r
-        sel = qsl[1:3] - 1
+        yield step, decode, dict(toks=toks, pos=pos, slots=slots, qsl=qsl, bt=bt, sl=sl,
+                                 max_q_len=max(q_lens), sel=qsl[1:3] - 1)
+
+
+def step_logits(torch, model, params, batch, caches, kv_scales=None):
+    """One step of :func:`two_sequence_steps` through ``model`` on its
+    device: the two sequences' last rows' logits, f32 on the CPU."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops.attention import AttentionMetadata
+
+    def ints(a, dev=model.device):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    meta = AttentionMetadata(
+        slot_mapping=ints(batch["slots"]), block_tables=ints(batch["bt"]),
+        seq_lens=ints(batch["sl"]), query_start_loc=ints(batch["qsl"]), num_seqs=ints([2]),
+        block_size=BS, decode_only=batch["max_q_len"] == 1, max_q_len=batch["max_q_len"],
+    )
+    with torch.inference_mode():
+        hidden = model.forward(params, ints(batch["toks"]), ints(batch["pos"]), caches, meta,
+                               kv_scales=kv_scales)
+        return model.compute_logits(params, hidden[ints(batch["sel"]).long()]).float().cpu()
+
+
+def model_parity(torch, cfg, params_cpu, label, tol, kv_dtype=None):
+    """A 2-layer ``Llama`` on the card (kernels) against the same f32
+    weights on the CPU (plain versions): a prefill and 3 decode steps of two
+    sequences; logits within ``tol``. KV caches in f32 within ``tol``; a
+    1-byte cache (``kv_dtype`` int8 or fp8) and its scales equal except in
+    at most 1% of the values, each one step or code apart: the card's and
+    the CPU's f32 projections differ in the last bits, and a value within
+    that of a rounding boundary lands on the neighbouring step."""
+    from atoma_infer_tpu_torch.models.llama import Llama
+    from atoma_infer_tpu_torch.ops.kv_cache import alloc_kv_scales
+
+    cpu = Llama(cfg, dtype=torch.float32, device="cpu")
+    gpu = Llama(cfg, dtype=torch.float32, device="cuda")
+    params_gpu = params_to(params_cpu, gpu.device)
+    cache_dtype = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(kv_dtype)
+    caches = {name: m.alloc_kv_cache(64, BS, dtype=cache_dtype)
+              for name, m in (("cpu", cpu), ("cuda", gpu))}
+    scales = {name: ([alloc_kv_scales(64, BS, m.device) for _ in range(cfg.num_layers)]
+                     if kv_dtype == "int8" else None)
+              for name, m in (("cpu", cpu), ("cuda", gpu))}
+    worst = 0.0
+    for step, decode, batch in two_sequence_steps():
         logits = {}
         for name, model, params in (("cpu", cpu, params_cpu), ("cuda", gpu, params_gpu)):
-            def ints(a, dev=model.device):
-                return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-
-            meta = AttentionMetadata(
-                slot_mapping=ints(slots), block_tables=ints(bt), seq_lens=ints(sl),
-                query_start_loc=ints(qsl), num_seqs=ints([2]), block_size=BS,
-                decode_only=decode, max_q_len=max(q_lens),
-            )
-            with torch.inference_mode():
-                hidden = model.forward(params, ints(toks), ints(pos), caches[name], meta,
+            logits[name] = step_logits(torch, model, params, batch, caches[name],
                                        kv_scales=scales[name])
-                logits[name] = model.compute_logits(params, hidden[ints(sel).long()]).float().cpu()
         err = (logits["cpu"] - logits["cuda"]).abs().max().item()
         worst = max(worst, err)
         log(f"model {label} step {step} ({'decode' if decode else 'prefill'}): "
@@ -2035,6 +2231,130 @@ def check_kv8_model(torch):
     for kv in KV8_DTYPES:
         worst = model_parity(torch, cfg, params, f"8B INT8 + {kv} KV", KV8_MODEL_TOL[kv], kv)
         log(f"model 8B INT8 + {kv} KV: worst |logit err| {worst:.3e} (tol {KV8_MODEL_TOL[kv]})")
+
+
+# The families' configurations, from their public config.json (the
+# Hugging Face model repositories of the names): random bf16 weights from a
+# seed at these widths. The services run each at its published depth but
+# Mixtral-8x7B's: 8 of its 32 layers (23.7 GB in bf16; all 32 take about
+# 93 GB, past the card's 80).
+FAMILIES = {
+    "Mistral-7B-v0.1": (dict(
+        model_type="mistral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=32768, rope_theta=10000.0, rms_norm_eps=1e-5,
+        sliding_window=4096, tie_word_embeddings=False, bos_token_id=1, eos_token_id=2), 32),
+    "Qwen2-7B": (dict(
+        model_type="qwen2", vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+        num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+        max_position_embeddings=131072, rope_theta=1000000.0, rms_norm_eps=1e-6,
+        sliding_window=131072, use_sliding_window=False, tie_word_embeddings=False,
+        bos_token_id=151643, eos_token_id=151643), 28),
+    "Phi-3-mini-4k-instruct": (dict(
+        model_type="phi3", vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+        max_position_embeddings=4096, rope_theta=10000.0, rms_norm_eps=1e-5,
+        sliding_window=2047, tie_word_embeddings=False, bos_token_id=1, eos_token_id=32000), 32),
+    "Gemma-2-9B": (dict(
+        model_type="gemma2", vocab_size=256000, hidden_size=3584, intermediate_size=14336,
+        num_hidden_layers=42, num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+        max_position_embeddings=8192, rope_theta=10000.0, rms_norm_eps=1e-6,
+        query_pre_attn_scalar=256, sliding_window=4096, attn_logit_softcapping=50.0,
+        final_logit_softcapping=30.0, hidden_activation="gelu_pytorch_tanh",
+        tie_word_embeddings=True, bos_token_id=2, eos_token_id=1), 42),
+    "Mixtral-8x7B-v0.1": (dict(
+        model_type="mixtral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=32768, rope_theta=1000000.0, rms_norm_eps=1e-5,
+        sliding_window=None, num_local_experts=8, num_experts_per_tok=2,
+        tie_word_embeddings=False, bos_token_id=1, eos_token_id=2), 8),
+}
+# The family models' logits with the attention kernels against the same
+# bf16 model with the plain attention on the card: max |Δ| over the logits'
+# largest magnitude. The two round each attention output to bf16 from f32
+# sums taken in another order (a bf16 step, 2^-8 relative, where a sum
+# straddles a rounding boundary), and 2 layers and the LM head carry that;
+# a wrong scale, window, soft cap or head layout moves logits by their own
+# size.
+FAMILY_MODEL_TOL = 3e-2
+
+
+def family_model(torch, name, num_layers):
+    """The family's model on the card at its published widths and
+    ``num_layers`` layers, bf16, with random weights from a seed."""
+    from atoma_infer_tpu_torch.models.registry import get_model_cls
+    from atoma_infer_tpu_torch.models.weights import config_from_hf_dict
+
+    spec, _ = FAMILIES[name]
+    cfg = config_from_hf_dict(dict(spec, num_hidden_layers=num_layers))
+    model = get_model_cls(cfg.architecture)(cfg, dtype=torch.bfloat16, device="cuda")
+    seed = sorted(FAMILIES).index(name)
+    return model, model.init_params(torch.Generator(device=model.device).manual_seed(seed))
+
+
+class plain_attention:
+    """While open: the attention wrappers' CUDA entries are their plain
+    versions, so a model on the card attends without the kernels (the
+    reference of :func:`check_family_models`; the port itself never does)."""
+
+    def __enter__(self):
+        from atoma_infer_tpu_torch.ops import kv_write
+        from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+        self.saved = (pa.ragged_paged_attention_cuda, pa.ragged_paged_attention_fused_cuda,
+                      kv_write.write_kv_cache_cuda)
+        pa.ragged_paged_attention_cuda = pa.ragged_paged_attention_paged_plain
+        pa.ragged_paged_attention_fused_cuda = pa.fused_decode_attention_plain
+        kv_write.write_kv_cache_cuda = kv_write.write_kv_cache_plain
+
+    def __exit__(self, *exc):
+        from atoma_infer_tpu_torch.ops import kv_write
+        from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+        (pa.ragged_paged_attention_cuda, pa.ragged_paged_attention_fused_cuda,
+         kv_write.write_kv_cache_cuda) = self.saved
+
+
+def check_family_models(torch):
+    """Each family (Mistral-7B, Qwen2-7B, Phi-3-mini, Gemma-2-9B,
+    Mixtral-8x7B) with 2 layers at its published widths, bf16 on the card:
+    a prefill and 3 decode steps of two sequences through the kernels,
+    against the same model attending through the plain versions on the
+    card. Logits finite, of the vocabulary's width, within
+    ``FAMILY_MODEL_TOL``; the KV caches after the steps within it too."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+
+    for name in FAMILIES:
+        model, params = family_model(torch, name, 2)
+        caches = {mode: model.alloc_kv_cache(64, BS) for mode in ("kernels", "plain")}
+        worst = 0.0
+        before = {k: v.launches for k, v in cuda_lib.KERNELS.items()}
+        for step, decode, batch in two_sequence_steps():
+            got = step_logits(torch, model, params, batch, caches["kernels"])
+            with plain_attention():
+                want = step_logits(torch, model, params, batch, caches["plain"])
+            if got.shape != (2, model.config.vocab_size) or not torch.isfinite(got).all():
+                raise AssertionError(f"model {name}: logits {tuple(got.shape)}, finite "
+                                     f"{bool(torch.isfinite(got).all())}")
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            worst = max(worst, err)
+            if err > FAMILY_MODEL_TOL:
+                raise AssertionError(f"model {name} step {step}: logits differ by {err:.3e} "
+                                     f"of their largest (tol {FAMILY_MODEL_TOL})")
+        for layer, (c, p) in enumerate(zip(caches["kernels"], caches["plain"])):
+            err = (c.float() - p.float()).abs().max().item() / p.float().abs().max().item()
+            if err > FAMILY_MODEL_TOL:
+                raise AssertionError(f"model {name}: layer {layer} cache differs by {err:.3e}")
+        ran = [k for k, v in cuda_lib.KERNELS.items() if v.launches > before.get(k, 0)]
+        log(f"model {name} (2 layers, D={model.config.head_dim}): kernels against the plain "
+            f"attention on the card, max |Δ logit| {worst:.3e} of the largest (tol "
+            f"{FAMILY_MODEL_TOL}); kernels launched {ran}")
+        for kernel in ATTENTION_PATH:
+            if kernel not in ran:
+                raise AssertionError(f"model {name}: {kernel} was not launched")
+        del model, params, caches
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def check_service_parity(torch):
@@ -2356,6 +2676,10 @@ IDLE_WINDOW_START, IDLE_WINDOW_STEPS = 16, 8
 NEW_TOKENS, OTHER_SERVICES_TOKENS = 256, 128
 
 
+# The bytes of the services' 8 prompts (one token a byte).
+PROMPT_LENGTHS = (16, 300, 45, 120, 200, 77, 250, 33)
+
+
 def percentile(values, q):
     values = sorted(values)
     return values[min(len(values) - 1, int(q * len(values)))]
@@ -2369,9 +2693,9 @@ MODES = ("eager", "graphs", "async+graphs")
 
 
 def serve(torch, label, model, params, config, path, *, mode="eager",
-          new_tokens=NEW_TOKENS):
-    """Drive one service: 8 requests of ``new_tokens`` tokens with chunked
-    prefill in two waves (the second admitted before engine step
+          new_tokens=NEW_TOKENS, prompt_lengths=PROMPT_LENGTHS):
+    """Drive one service: 8 requests of ``new_tokens`` tokens (prompts of
+    ``prompt_lengths`` bytes) with chunked prefill in two waves (the second admitted before engine step
     ``SECOND_WAVE_STEP``), in ``mode`` (``MODES``); eager runs profile one
     pure-decode and one mixed step. In all modes: the steady-decode period
     (wall between successive pure-decode dispatches, those that captured a
@@ -2510,8 +2834,8 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
                                in_flight=in_flight))
         return out
 
-    lengths = [16, 300, 45, 120, 200, 77, 250, 33]
-    text = "The quick brown fox jumps over the lazy dog. " * 8
+    lengths = prompt_lengths
+    text = "The quick brown fox jumps over the lazy dog. " * (-(-max(lengths) // 45))
 
     def request(i):
         sampled = i == 3
@@ -2842,34 +3166,38 @@ def report_profiled_steps(torch, label, profiled, ragged, ragged_calls):
             f"H {h_ms:.3f} ms; top device time (ms): {top}")
         # The same calls again, each through the route and through the
         # CUDA-core kernel by a direct launch (device time in CUDA graphs,
-        # summed).
+        # summed), where it has the head dim (not Phi-3's or Gemma-2's).
+        from atoma_infer_tpu_torch.ops.paged_attention import HEAD_DIMS
+
         new_ms = sum(graph_ms(torch, lambda c=c: ragged(c[0], c[1], c[2], **c[3]))
                      for c in ragged_calls)
-        old_ms = sum(graph_ms(torch, lambda c=c: cuda_core_attention(
-            c[0], c[1], c[2], scale=c[3]["scale"], kv_scales=c[3].get("kv_scales")))
-            for c in ragged_calls)
+        old = "no CUDA-core kernel at this head dim"
+        if all(c[0].shape[2] in HEAD_DIMS for c in ragged_calls):
+            old_ms = sum(graph_ms(torch, lambda c=c: cuda_core_attention(
+                c[0], c[1], c[2], scale=c[3]["scale"], kv_scales=c[3].get("kv_scales")))
+                for c in ragged_calls)
+            old = f"CUDA-core rpa_kernel on the same inputs {old_ms:.3f} ms"
         log(f"service {label}: the profiled mixed step's {len(ragged_calls)} ragged calls "
-            f"replayed in CUDA graphs: tensor cores {new_ms:.3f} ms, CUDA-core rpa_kernel on "
-            f"the same inputs {old_ms:.3f} ms")
+            f"replayed in CUDA graphs: tensor cores {new_ms:.3f} ms, {old}")
     else:
         log(f"service {label}: device time of a mixed step not measured (the profiler "
             "recorded no device events)")
 
 
 def serve_both(torch, label, model, params, make_config, path, mode,
-               new_tokens=OTHER_SERVICES_TOKENS):
+               new_tokens=OTHER_SERVICES_TOKENS, **kw):
     """One service (a) synchronous and eager, then (b) in ``mode`` (graphs
     replayed, synchronous or async after warmup) on the same 8 requests:
     greedy and seeded tokens identical. ``make_config(async_scheduling)``
     makes each run's configuration. Returns (b)'s launch counts, the
     service's own path's."""
     counts_a, tokens_a = serve(torch, label, model, params, make_config(False), path,
-                               new_tokens=new_tokens)
+                               new_tokens=new_tokens, **kw)
     gc.collect()
     torch.cuda.empty_cache()
     counts_b, tokens_b = serve(torch, label, model, params,
                                make_config(mode == "async+graphs"), path, mode=mode,
-                               new_tokens=new_tokens)
+                               new_tokens=new_tokens, **kw)
     gc.collect()
     torch.cuda.empty_cache()
     for i, (a, b) in enumerate(zip(tokens_a, tokens_b)):
@@ -2882,11 +3210,12 @@ def serve_both(torch, label, model, params, make_config, path, mode,
     return counts_b
 
 
-def bf16_config(name, block_size, async_scheduling=False):
+def bf16_config(name, block_size, async_scheduling=False, max_model_len=2048):
     """A bf16 service's configuration: KV pool sized from
     ``torch.cuda.mem_get_info``, chunked prefill with a 256-token budget
     (prompts arriving while others decode share steps with them, so mixed
-    prefill+decode steps run)."""
+    prefill+decode steps run), prompts of up to ``max_model_len`` − 1,024
+    tokens."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
@@ -2896,10 +3225,11 @@ def bf16_config(name, block_size, async_scheduling=False):
         cache=CacheConfig(block_size=block_size, hbm_memory_utilization=0.5,
                           num_host_blocks_override=64),
         scheduler=SchedulerConfig(
-            max_num_batched_tokens=256, max_num_sequences=64, max_model_len=2048,
+            max_num_batched_tokens=256, max_num_sequences=64, max_model_len=max_model_len,
             enable_chunked_prefill=True, async_scheduling=async_scheduling,
         ),
-        validation=ValidationConfig(max_input_tokens=1024, max_total_tokens=2048),
+        validation=ValidationConfig(max_input_tokens=max_model_len - 1024,
+                                    max_total_tokens=max_model_len),
     )
 
 
@@ -3068,6 +3398,43 @@ def run_shape_services(torch):
                SERVICE_PATH, "graphs")
 
 
+# Phi-3-mini's services: one prompt past its 2,047-key window, so that the
+# window trims keys in prefill chunks and in decode (the model's 4,096
+# positions hold it and 128 new tokens).
+PHI3_PROMPT_LENGTHS = (16, 2100, 45, 120, 200, 77, 250, 33)
+
+
+def run_family_services(torch):
+    """One service per family at its published widths (``FAMILIES``; 8 of
+    Mixtral-8x7B's 32 layers, the rest at full depth), bf16 with random
+    weights from a seed: eager, then synchronous with its decode graphs,
+    tokens identical, every attention kernel of the path launched, the
+    graphs' memory held to the KV pool's reserve. Returns the D = 96 and 256
+    services' launch counts, keyed ``kernel@D``."""
+    launches = {}
+    for name, (spec, layers) in FAMILIES.items():
+        model, params = family_model(torch, name, layers)
+        max_len = 4096 if name.startswith("Phi-3") else 2048
+        lengths = PHI3_PROMPT_LENGTHS if name.startswith("Phi-3") else PROMPT_LENGTHS
+        log(f"service {name}: {layers} of {spec['num_hidden_layers']} layers, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB of weights")
+        # Phi-3-mini's 32 kv heads fill the card unsplit: no merge on its
+        # path (WIDE_HEAD_SHAPES).
+        path = ATTENTION_PATH if name.startswith("Phi-3") else SERVICE_PATH
+        counts = serve_both(
+            torch, name, model, params,
+            lambda a, n=name, m=max_len: bf16_config(f"{n.lower()}-random", BS,
+                                                     async_scheduling=a, max_model_len=m),
+            path, "graphs", prompt_lengths=lengths)
+        d = model.config.head_dim
+        if d in WIDE_HEAD_DIMS:
+            launches.update({f"{k}@{d}": counts[k] for k in SERVICE_PATH})
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def run_quant_services(torch):
     """Llama-3.1-8B at full width (32 layers) with INT8 weights, INT4
     weights, and INT8 weights under W8A8, then INT8 weights over an INT8
@@ -3176,6 +3543,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.monotonic()
     log(card_line())
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on "
         f"{torch.cuda.get_device_name(0)}")
@@ -3199,10 +3567,12 @@ def main() -> int:
     rows.update(phase(check_kv8_kernels))
     phase(check_prefill_chunk)
     phase(check_gqa_block_kernels)
+    wide_rows = phase(check_wide_head_kernels)
     rows.update(phase(check_probe_kernels))
     phase(check_model)
     phase(check_quant_model)
     phase(check_kv8_model)
+    phase(check_family_models)
     # The f32 services are the CUDA-core kernels' path: F and G's CUDA-core
     # route and the CUDA-core ragged kernels (A, D, E on f32 queries).
     launches_cuda_cores = phase(check_service_parity)
@@ -3224,19 +3594,29 @@ def main() -> int:
     launches.update(phase(run_quant_services))
     gc.collect()
     torch.cuda.empty_cache()
+    launches.update(phase(run_family_services))
+    gc.collect()
+    torch.cuda.empty_cache()
     launches.update(phase(run_probe))
     launches.update(launches_cuda_cores)
     phase(run_tools)
 
     line = []
-    for name, kernel in cuda_lib.KERNELS.items():
-        r = rows[name]
+    # Every kernel at its main path's shapes; then A, B and the merge at
+    # Phi-3-mini's and Gemma-2-9B's head dims, their launches from those
+    # families' services.
+    named = [(name, name, rows[name]) for name in cuda_lib.KERNELS]
+    named += [(key, f"{key.split('@')[0]} (D={key.split('@')[1]})", r)
+              for key, r in wide_rows.items()]
+    for key, name, r in named:
+        kernel = cuda_lib.KERNELS[key.split("@")[0]]
         line.append(dict(
             name=name, route="cuda", source=f"atoma_infer_tpu_torch/csrc/{kernel.source}",
-            replaces=kernel.replaces, launches=launches[name], max_abs_err=r["max_abs_err"],
+            replaces=kernel.replaces, launches=launches[key], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
+    log(f"smoke wall {time.monotonic() - t_start:.0f} s, the kernels' build included")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

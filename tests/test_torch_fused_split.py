@@ -19,10 +19,17 @@ The CUDA kernel runs only on the card. What can be checked here:
   kernels in interpret mode (``ragged_paged_attention_fused`` and
   ``ragged_paged_attention_fused_quant``) on the same seeded numpy inputs:
   bf16 queries over bf16, INT8 + scales and e4m3 caches, D = 32, 64, 128,
-  groups 1, 3, 4, 8, blocks of 16 and 64, with a sliding window, a soft cap
-  and ALiBi. Tolerance 2e-2 (``ATTN_TOL["bfloat16"]`` of ``chip_smoke.py``:
+  groups 1, 3, 4, 8, blocks of 16 and 64, and over bf16 caches at D = 96
+  and 256 (Phi-3-mini, Gemma-2), with a sliding window, a soft cap and
+  ALiBi. Tolerance 2e-2 (``ATTN_TOL["bfloat16"]`` of ``chip_smoke.py``:
   bf16 inputs, one rounding of the output to bf16, the Pallas kernel's P in
   bf16). The written cache and scales equal JAX's byte for byte;
+- the kernel's geometry at every head dim it is built for: the ring's
+  copies take each 16-byte piece of a round's K rows once (12 pieces a row
+  at D = 96), Q·Kᵀ's reads stay in their row and meet no bank conflict, the
+  k order and P·V's output columns cover the head's dims once, and a
+  lane's V run is read in aligned pieces that never pass it (24 bytes at
+  D = 96: 8-byte pieces);
 - the route: bf16 queries take the ``*_split`` kernels, f32 queries the
   unsplit ``fused_decode_kernel``.
 """
@@ -295,6 +302,109 @@ def test_model_matches_plain_and_jax_fused(kind, D, group, mod):
     np.testing.assert_array_equal(_bytes(cache), _bytes(cache_j))
     if sc is not None:
         np.testing.assert_array_equal(_bytes(sc), _bytes(sc_j))
+
+
+@pytest.mark.parametrize("block_size", [16, 64])
+@pytest.mark.parametrize("D, group", [(96, 1), (256, 2), (96, 8), (256, 8)])
+def test_model_matches_plain_wide_heads(block_size, D, group):
+    """The same at Phi-3-mini's (96) and Gemma-2's (256) head dims over a
+    bf16 cache, the only cache the kernel takes there."""
+    test_model_matches_plain("bf16", block_size, D, group)
+
+
+@pytest.mark.parametrize("D, group", [(96, 1), (256, 2)])
+@pytest.mark.parametrize("mod", ["none", "window", "soft_cap", "alibi"])
+def test_model_matches_plain_and_jax_fused_wide_heads(D, group, mod):
+    """The same at Phi-3-mini's and Gemma-2's shapes (group 1 and 2)."""
+    test_model_matches_plain_and_jax_fused("bf16", D, group, mod)
+
+
+# ------------------------------------------------- the kernel's geometry
+def fs_tile(D, elt):
+    """``FsTile``: (16-byte pieces of a K row, a lane's piece in bytes, the
+    ring's padded row in bytes)."""
+    nbytes = D * elt
+    piece = 16 if nbytes >= 64 else nbytes // 4
+    row = (nbytes + 64 + 127) // 128 * 128 - 64 if piece == 16 else nbytes
+    return nbytes // 16, piece, row
+
+
+GEOMETRIES = [(32, 2), (64, 2), (96, 2), (128, 2), (256, 2), (32, 1), (64, 1), (128, 1)]
+
+
+@pytest.mark.parametrize("D, elt", GEOMETRIES)
+def test_ring_copies_and_loads(D, elt):
+    """A warp's ring copies each of the round's 32 K rows whole and once:
+    copy c of lane l is chunk l % kChunks of key c (32 / kChunks) + l /
+    kChunks where the chunks divide the lanes, else (12 chunks a row at D =
+    96, ``kWalk``) piece 32 c + l of the round's key-major pieces. Q·Kᵀ's
+    reads, lane (gid, tig) kPiece bytes at 4 kPiece c + kPiece tig of key
+    8 j + gid's row: within the row, and a load phase (2 keys of 16-byte
+    pieces, or 4 of 8-byte ones) on disjoint banks."""
+    chunks, piece, row = fs_tile(D, elt)
+    walk = 32 % chunks != 0
+    assert walk == (D * elt == 192)
+    seen = {}
+    for c in range(chunks):
+        for lane in range(32):
+            if walk:
+                key, chunk = (32 * c + lane) // chunks, (32 * c + lane) % chunks
+            else:
+                key, chunk = c * (32 // chunks) + lane // chunks, lane % chunks
+            seen[(key, chunk)] = seen.get((key, chunk), 0) + 1
+    assert seen == {(k, ch): 1 for k in range(32) for ch in range(chunks)}
+    assert row % 16 == 0 and row >= D * elt
+    lanes_a_phase = 128 // piece
+    for c in range(D * elt // (4 * piece)):
+        for first in range(0, 32, lanes_a_phase):
+            words = set()
+            for lane in range(first, first + lanes_a_phase):
+                gid, tig = lane >> 2, lane & 3
+                start = gid * row + 4 * piece * c + piece * tig
+                assert 4 * piece * c + piece * tig + piece <= D * elt
+                words |= {(start // 4 + w) % 32 for w in range(piece // 4)}
+            assert len(words) == 32  # every bank once: no conflict
+
+
+@pytest.mark.parametrize("D, elt", GEOMETRIES)
+def test_qk_k_order_and_pv_columns_cover_the_dims(D, elt):
+    """Q·Kᵀ's k order (step st of lane tig: dims 4 EPL (st / SPC) + EPL tig +
+    4 (st % SPC) + 0..3) and P·V's output map (column n of n8 tile m: dim
+    NT n + m) each take every dim of the head exactly once."""
+    _, piece, _ = fs_tile(D, elt)
+    epl = piece // elt
+    spc = epl // 4
+    dims = [4 * epl * (st // spc) + epl * tig + 4 * (st % spc) + i
+            for st in range(D // 16) for tig in range(4) for i in range(4)]
+    assert sorted(dims) == list(range(D))
+    NT = D // 8
+    assert sorted(NT * n + m for n in range(8) for m in range(NT)) == list(range(D))
+
+
+@pytest.mark.parametrize("D, elt", GEOMETRIES)
+@pytest.mark.parametrize("num_kv_heads", [1, 2, 8, 32])
+def test_v_runs_are_read_in_aligned_pieces(D, elt, num_kv_heads):
+    """A lane's V run (dims NT gid .. NT gid + NT − 1 of its key's V row),
+    read VC dims at a time (the whole run, or 16 dims at D = 256) in
+    ``load_run``'s pieces (16 bytes where a piece's words are a multiple of
+    4, else 8, else 4): the pieces tile the run exactly, never past it (at D
+    = 96 a run is 24 bytes: three 8-byte pieces, not two 16-byte ones), and
+    each is aligned to its size at every kv head, lane and cache row."""
+    NT = D // 8
+    VC = 16 if NT > 16 else NT
+    words = VC * elt // 4
+    size = 16 if words % 4 == 0 else 8 if words % 2 == 0 else 4
+    row_bytes = 2 * num_kv_heads * D * elt
+    for h in range(num_kv_heads):
+        for gid in range(8):
+            run = (h * 2 * D + D + NT * gid) * elt
+            covered = []
+            for c0 in range(0, NT, VC):
+                for off in range(0, VC * elt, size):
+                    start = run + c0 * elt + off
+                    assert start % size == 0 and (start + row_bytes) % size == 0
+                    covered += range(start, start + size)
+            assert covered == list(range(run, run + NT * elt))
 
 
 def test_bf16_jax_fused_at_block_16():

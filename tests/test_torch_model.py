@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from atoma_infer_tpu.models.llama import Llama as JaxLlama
+from atoma_infer_tpu.models.registry import get_model_cls as jax_get_model_cls
+from atoma_infer_tpu.models.registry import list_models as jax_list_models
 from atoma_infer_tpu.models.weights import load_hf_config as jax_load_hf_config
 from atoma_infer_tpu.models.weights import load_llama_params as jax_load_llama_params
 from atoma_infer_tpu_torch.models.llama import Llama, LlamaConfig
@@ -114,8 +116,11 @@ def test_config_and_weights_match_jax(models):
         assert torch.equal(own["layers"][key], params["layers"][key]), key
     assert torch.equal(own["embed"], params["embed"])
     assert get_model_cls("LlamaForCausalLM") is Llama
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_cls("mixtral")
+    # Every family the JAX package registers resolves to the port's class.
+    for name in jax_list_models():
+        cls = get_model_cls(name)
+        assert cls.__module__.startswith("atoma_infer_tpu_torch.models.")
+        assert cls.__name__ == jax_get_model_cls(name).__name__
 
 
 def test_logits_match_jax_prefill_then_decode(models):

@@ -19,13 +19,17 @@ The CUDA kernel runs only on the card. What can be checked here:
   is held against the plain version (``ragged_paged_attention_paged_plain``)
   and against the JAX package's ``ragged_paged_attention_pallas`` in
   interpret mode on the same seeded numpy inputs, bf16 queries over bf16,
-  INT8 + scales and e4m3 caches, D = 32, 64, 128, groups 1, 3, 4, 8, with a
+  INT8 + scales and e4m3 caches, D = 32, 64, 128, groups 1, 3, 4, 8, and
+  over bf16 caches at D = 96 and 256 (Phi-3-mini, Gemma-2), with a
   sliding window, a soft cap and ALiBi. Tolerance 2e-2 (``ATTN_TOL
   ["bfloat16"]`` of ``chip_smoke.py``): bf16 inputs, the model's and the
   Pallas kernel's P in bf16 against the plain version's f32 P, one rounding
   of the output to bf16;
 - the host's split plan (``rpa_mma_plan``): it takes shapes only, every key
   of every row falls in exactly one split, a split can be empty;
+- the tile's geometry at every head dim: the copies cover each 16-byte
+  piece of a key tile once (at D = 96 too, whose 24 pieces a key do not
+  divide the threads), and ``ldmatrix``'s rows meet no bank conflict;
 - the route: bf16 queries take the ``*_mma`` kernels, f32 the CUDA cores.
 """
 
@@ -258,6 +262,58 @@ def test_fragments_assemble_qk_and_pv(kind, D):
     np.testing.assert_allclose(O, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("D", [96, 256])
+def test_fragments_assemble_qk_and_pv_wide_heads(D):
+    """The same at Phi-3-mini's and Gemma-2's head dims (6 and 16 k16
+    steps, 12 and 32 n8 tiles of O), bf16: the kernel's only cache there."""
+    test_fragments_assemble_qk_and_pv("bf16", D)
+
+
+def rpa_tile_geometry(D, elt=2):
+    """``RpaTile``'s bytes: the padded row and the 16-byte pieces of a K
+    (or V) row."""
+    return D * elt + 16, D * elt // 16
+
+
+@pytest.mark.parametrize("D, elt", [(32, 2), (64, 2), (96, 2), (128, 2), (256, 2),
+                                    (32, 1), (64, 1), (128, 1)])
+@pytest.mark.parametrize("warps", [4, 8])
+def test_tile_copies_cover_each_piece_once(D, elt, warps):
+    """The tile's copies take every (key, 16-byte piece) of a 64-key tile's
+    K|V slices exactly once: where a slice's pieces divide the threads,
+    thread tid copies piece tid % kPieces of every (NT / kPieces)-th key
+    from key tid / kPieces; else (24 pieces a key at D = 96, ``kWalk``)
+    pass i's thread tid copies piece c = i·NT + tid of the tile's
+    key-major pieces."""
+    NT = warps * 32
+    _, chunks = rpa_tile_geometry(D, elt)
+    pieces = 2 * chunks
+    assert KT * pieces % NT == 0
+    walk = NT % pieces != 0
+    assert walk == (D == 96)
+    seen = {}
+    if walk:
+        copies = [((i * NT + tid) // pieces, (i * NT + tid) % pieces)
+                  for i in range(KT * pieces // NT) for tid in range(NT)]
+    else:
+        passes = NT // pieces
+        copies = [(tid // pieces + i * passes, tid % pieces)
+                  for i in range(KT // passes) for tid in range(NT)]
+    for key_piece in copies:
+        seen[key_piece] = seen.get(key_piece, 0) + 1
+    assert seen == {(k, p): 1 for k in range(KT) for p in range(pieces)}
+
+
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
+def test_ldmatrix_rows_meet_no_bank_conflict(D):
+    """``ldmatrix``'s 8 rows of one matrix (16 bytes each, ``kRow`` apart:
+    208 bytes at D = 96, 528 at 256) fall on 8 disjoint groups of 4 banks."""
+    row, _ = rpa_tile_geometry(D)
+    assert row % 16 == 0
+    banks = [set(range((r * row // 4) % 32, (r * row // 4) % 32 + 4)) for r in range(8)]
+    assert len(set().union(*banks)) == 32
+
+
 # ---------------------------------------- the kernel's arithmetic, by block
 def tile_keys(first_pos, last_pos, window):
     """``rpa_tile_keys``: the first key tile and the number of key tiles."""
@@ -447,6 +503,14 @@ def test_model_matches_plain_and_pallas(kind, D, group, mod):
         kv_scales=None if scales is None else jnp.asarray(jax_scale_pages(scales)), **jkw,
     )).astype(np.float32)
     np.testing.assert_allclose(got[:n], pallas[:n], atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("D, group", [(96, 1), (96, 2), (256, 2)])
+@pytest.mark.parametrize("mod", ["none", "window", "soft_cap", "alibi"])
+def test_model_matches_plain_and_pallas_wide_heads(D, group, mod):
+    """The same at Phi-3-mini's head dim (group 1, as Phi-3-mini) and
+    Gemma-2's (group 2, as Gemma-2-9B), over a bf16 cache."""
+    test_model_matches_plain_and_pallas("bf16", D, group, mod)
 
 
 # ------------------------------------------------------ the host's split plan

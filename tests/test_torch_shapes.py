@@ -153,24 +153,136 @@ def test_ragged_plain_vs_jax_at_block_size(block_size, dtype):
 
 
 # ------------------------------------------------- the wrappers' own checks
+# The shape check's other arguments where a test varies one: Llama-3.1-8B's
+# head dim, bf16 queries over a bf16 cache.
+BF16 = dict(head_dim=128, dtype=torch.bfloat16, kind=None)
+
+
 @pytest.mark.parametrize("group", range(1, MAX_FUSED_GROUP + 1))
 def test_kernel_shape_check_admits_groups_1_to_8(group):
-    check_kernel_shape(group=group, block_size=16, fused=True)
-    check_kernel_shape(group=group, block_size=16, fused=False)
+    check_kernel_shape(group=group, block_size=16, fused=True, **BF16)
+    check_kernel_shape(group=group, block_size=16, fused=False, **BF16)
 
 
 @pytest.mark.parametrize("block_size", [8, 16, 24, 32, 48, 64, 128, 256])
 def test_kernel_shape_check_admits_every_multiple_of_8(block_size):
-    check_kernel_shape(group=3, block_size=block_size, fused=False)
-    check_kernel_shape(group=3, block_size=block_size, fused=True)
+    check_kernel_shape(group=3, block_size=block_size, fused=False, **BF16)
+    check_kernel_shape(group=3, block_size=block_size, fused=True, **BF16)
 
 
 @pytest.mark.parametrize("group, block_size, fused, message", [
-    (9, 16, True, "9 q heads per kv head unsupported .*model families"),
+    (9, 16, True, "9 q heads per kv head unsupported .*more than 8 q heads per kv head"),
     (4, 12, False, "block_size 12"),
     (4, 12, True, "block_size 12"),
     (4, 0, False, "block_size 0"),
 ])
 def test_kernel_shape_check_refuses(group, block_size, fused, message):
     with pytest.raises(ValueError, match=message):
-        check_kernel_shape(group=group, block_size=block_size, fused=fused)
+        check_kernel_shape(group=group, block_size=block_size, fused=fused, **BF16)
+
+
+KINDS = {"bf16": (torch.bfloat16, None), "f32": (torch.float32, None),
+         "int8": (torch.bfloat16, torch.int8), "fp8": (torch.bfloat16, torch.float8_e4m3fn)}
+
+
+@pytest.mark.parametrize("route", sorted(KINDS))
+@pytest.mark.parametrize("head_dim", [32, 64, 96, 128, 256])
+def test_kernel_shape_check_head_dims_by_route(route, head_dim):
+    """bf16 queries over a bf16 cache take every family's head dim (Phi-3's
+    96 and Gemma-2's 256 too); f32 queries and 1-byte caches 32, 64 and 128,
+    and refuse 96 and 256 naming the ROADMAP item that would add them."""
+    dtype, kind = KINDS[route]
+    shape = dict(head_dim=head_dim, dtype=dtype, kind=kind, group=2, block_size=16)
+    if route == "bf16" or head_dim in (32, 64, 128):
+        for fused in (False, True):
+            check_kernel_shape(fused=fused, **shape)
+        return
+    item = ("f32 attention at head dims 96 and 256" if route == "f32"
+            else "kernels D and E at head dims 96 and 256")
+    for fused in (False, True):
+        with pytest.raises(ValueError, match=f"head_dim {head_dim} .*Queue 1: {item}"):
+            check_kernel_shape(fused=fused, **shape)
+
+
+def test_kernel_shape_check_refuses_other_dims_and_dtypes():
+    with pytest.raises(ValueError, match="unsupported head_dim 80"):
+        check_kernel_shape(head_dim=80, dtype=torch.bfloat16, kind=None, group=1,
+                           block_size=16, fused=False)
+    with pytest.raises(ValueError, match="must be bfloat16 or float32"):
+        check_kernel_shape(head_dim=128, dtype=torch.float16, kind=None, group=1,
+                           block_size=16, fused=False)
+
+
+# ------------------------------------------------ the service's refusal
+def _engine_config(dtype, kv_cache_dtype=None, block_size=16):
+    from atoma_infer_tpu_torch.config import EngineConfig
+
+    return EngineConfig.from_dict({
+        "inference": {"model_name": "served", "dtype": dtype, "kv_cache_dtype": kv_cache_dtype},
+        "cache": {"block_size": block_size},
+        "scheduler": {"max_model_len": 2048},
+    })
+
+
+# (head_dim, Hq, Hk) of the families the port serves on the card.
+FAMILY_SHAPES = {
+    "Llama-3.1-8B": (128, 32, 8), "Mistral-7B": (128, 32, 8), "Qwen2-7B": (128, 28, 4),
+    "Phi-3-mini": (96, 32, 32), "Gemma-2-9B": (256, 16, 8), "Mixtral-8x7B": (128, 32, 8),
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_SHAPES))
+@pytest.mark.parametrize("dtype, kv", [("bfloat16", None), ("float32", None),
+                                       ("bfloat16", "int8"), ("bfloat16", "fp8")])
+def test_service_shape_check(family, dtype, kv):
+    """``check_kernel_shapes`` (what ``LlmService.start`` runs on the card
+    before loading): every family in bf16 over a bf16 cache; f32 and 1-byte
+    caches at head dims 128 only, Phi-3-mini's and Gemma-2-9B's refused with
+    the ROADMAP item named."""
+    from atoma_infer_tpu_torch.engine.llm_service import check_kernel_shapes
+    from atoma_infer_tpu_torch.models.llama import LlamaConfig
+
+    D, hq, hk = FAMILY_SHAPES[family]
+    cfg = LlamaConfig(head_dim=D, num_attention_heads=hq, num_key_value_heads=hk)
+    config = _engine_config(dtype, kv)
+    if D == 128 or (dtype, kv) == ("bfloat16", None):
+        check_kernel_shapes(cfg, config)
+    else:
+        with pytest.raises(ValueError, match="ROADMAP.md, Queue 1: .* head dims 96 and 256"):
+            check_kernel_shapes(cfg, config)
+
+
+def test_service_shape_check_refuses_a_group_the_fused_kernel_lacks():
+    from atoma_infer_tpu_torch.engine.llm_service import check_kernel_shapes
+    from atoma_infer_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(head_dim=128, num_attention_heads=40, num_key_value_heads=4)
+    with pytest.raises(ValueError, match="10 q heads per kv head unsupported"):
+        check_kernel_shapes(cfg, _engine_config("bfloat16"))
+
+
+@pytest.mark.parametrize("dtype, kv, item", [
+    ("float32", None, "f32 attention at head dims 96 and 256"),
+    ("bfloat16", "int8", "kernels D and E at head dims 96 and 256"),
+])
+def test_cuda_service_refuses_before_loading(dtype, kv, item, tmp_path, monkeypatch):
+    """``LlmService.start`` on the card, from a directory holding only a
+    Phi-3-mini-shaped ``config.json`` (no weights, no tokenizer): the
+    refusal comes from the config alone, before anything is read or
+    allocated."""
+    import json
+
+    from atoma_infer_tpu_torch.config import EngineConfig
+    from atoma_infer_tpu_torch.engine import llm_service
+
+    (tmp_path / "config.json").write_text(json.dumps(dict(
+        model_type="phi3", vocab_size=64, hidden_size=192, intermediate_size=256,
+        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=2, sliding_window=2047,
+    )))
+    monkeypatch.setattr(llm_service, "resolve_device", lambda device: torch.device("cuda"))
+    config = EngineConfig.from_dict({
+        "inference": {"model_name": str(tmp_path), "dtype": dtype, "kv_cache_dtype": kv},
+        "scheduler": {"max_model_len": 2048},
+    })
+    with pytest.raises(ValueError, match=f"head_dim 96 .*ROADMAP.md, Queue 1: {item}"):
+        llm_service.LlmService.start(config, model_dir=str(tmp_path))
