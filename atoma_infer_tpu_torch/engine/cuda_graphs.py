@@ -1,19 +1,24 @@
-"""Pure-decode steps captured in CUDA graphs and replayed.
+"""Pure-decode and verify steps captured in CUDA graphs and replayed.
 
 The port's counterpart of the JAX worker's one compiled program per bucket
 (``atoma_infer_tpu/engine/worker.py:207-222``). An eager decode step
 launches a few hundred kernels from Python; a replay launches them all with
-one call. A step replays a graph when it is pure decode (one query token per
-sequence) on a CUDA device and needs no penalties; mixed and prefill steps,
-penalty batches and every CPU step run eagerly.
+one call. A step replays a graph on a CUDA device when it needs no
+penalties and its rows are all decode rows (one query token a sequence) or
+decode and speculative verify rows (1+k query tokens a drafted sequence);
+steps with a prefill chunk, penalty batches and every CPU step run eagerly.
 
-The graph key is the JAX step's static arguments: ``(T, S, P,
-needs_sampling, needs_typical, top_n, feed)``, ``decode_only`` true.
+The graph key is the JAX step's static arguments. A pure-decode step's is
+``(T, S, P, needs_sampling, needs_typical, top_n, feed)``, ``decode_only``
+true. A verify step's is ``(T, S, P, 1+K, needs_sampling, needs_typical,
+top_n, True)``: T is S·(1+K) or a smaller power of two when the drafts fill
+less than half of it, ``max_q_len`` is 1+K (``input_prep``), and it has no
+feed, since a step with drafts runs synchronously.
 Everything else a step reads is the same tensors (weights, the KV caches,
 updated in place) or is copied into the static inputs before each replay,
 on the stream the replay runs on:
 - the packed metadata (token ids, positions, slots, block tables, lengths,
-  the feed's ``prev_map``);
+  the selected or verify rows, the feed's ``prev_map``);
 - the sampling tensors, when the worker's sampling version changed;
 - the Gumbel noise ``[S, V]``, made eagerly (a ``torch.Generator`` per row,
   reseeded from host integers, cannot be captured);
@@ -63,14 +68,18 @@ MAX_GRAPHS = 64
 def decode_graph_key(model_input, sampling, feed: bool) -> Optional[tuple]:
     """The graph a step replays, or None for a step that runs eagerly: one
     with a prefill chunk, or with penalties (their recent-token window moves
-    every step)."""
-    if not model_input.decode_only or sampling.needs_penalties:
+    every step). A verify step (decode rows and drafted rows only) has a key
+    of its own, with ``max_q_len`` = 1+K."""
+    if model_input.num_prefills or sampling.needs_penalties:
         return None
+    T = model_input.token_ids.shape[0]
     S, P = model_input.block_tables.shape
-    return (
-        model_input.token_ids.shape[0], S, P, sampling.needs_sampling,
-        sampling.needs_typical, sampling.top_n, feed,
-    )
+    if model_input.spec_rows is not None:
+        if feed:
+            raise ValueError("a verify step runs synchronously: it takes no feed")
+        return (T, S, P, model_input.max_q_len, sampling.needs_sampling,
+                sampling.needs_typical, sampling.top_n, True)
+    return (T, S, P, sampling.needs_sampling, sampling.needs_typical, sampling.top_n, feed)
 
 
 def page_capacity(max_model_len: int, block_size: int) -> int:
@@ -80,13 +89,16 @@ def page_capacity(max_model_len: int, block_size: int) -> int:
     return max(8, -(-max_model_len // block_size))
 
 
-def packed_capacity(max_rows: int, max_pages: int) -> int:
-    """The longest packed metadata of a pure-decode step (``worker._invoke``
+def packed_capacity(max_rows: int, max_pages: int, num_spec_tokens: int = 0) -> int:
+    """The longest packed metadata of a step with a graph (``worker._invoke``
     ``parts``) at ``max_rows`` sequences of ``max_pages`` pages: token ids,
-    positions, slots, ``prev_map`` (T = S rows each), the block tables, the
-    lengths, the query starts (S + 1), the sampling steps, the sequence
-    count and the selected rows."""
-    return 4 * max_rows + max_rows * max_pages + 4 * max_rows + 2
+    positions, slots and ``prev_map`` (T rows each: S for a pure-decode
+    step, at most S·(1+K) for a verify step with K = ``num_spec_tokens``),
+    the block tables, the lengths, the query starts (S + 1), the sampling
+    steps, the sequence count and the selected rows (S, or the S·(1+K)
+    verify rows)."""
+    rows = max_rows * (1 + num_spec_tokens)
+    return 4 * rows + max_rows * max_pages + 3 * max_rows + rows + 2
 
 
 @dataclasses.dataclass
@@ -98,14 +110,15 @@ class _Graph:
 
 
 class DecodeGraphs:
-    """The captured pure-decode graphs of one worker, by key, and the
+    """The captured decode and verify graphs of one worker, by key, and the
     static inputs they share."""
 
-    def __init__(self, max_rows: int, max_pages: int):
-        # The largest sequence bucket a step can have, and the largest page
-        # bucket: every static input is sized for them.
+    def __init__(self, max_rows: int, max_pages: int, num_spec_tokens: int = 0):
+        # The largest sequence bucket a step can have, the largest page
+        # bucket and the most drafts a sequence carries: every static input
+        # is sized for them.
         self.max_rows = max_rows
-        self.packed_capacity = packed_capacity(max_rows, max_pages)
+        self.packed_capacity = packed_capacity(max_rows, max_pages, num_spec_tokens)
         # By last use, the most recent last.
         self.graphs: "collections.OrderedDict[tuple, _Graph]" = collections.OrderedDict()
         self.capture_seconds = 0.0

@@ -13,8 +13,11 @@ Every array is padded to the JAX package's **bucket shapes** (powers of two
 for the token axis, the sequence axis and the block-table width), so a step
 here compares one to one with a JAX worker step. The port adds
 ``max_q_len``: the longest query chunk, which sizes the attention kernel's
-grid without a device read. Speculative-decoding verify rows are not ported
-yet (ROADMAP.md, Queue 1).
+grid without a device read. Speculative decoding's verify rows
+(``engine/spec_decode.py``) ride the same layout: a drafted sequence's
+decode row becomes a 1+k token chunk, and ``spec_rows`` names the [S, K+1]
+rows the sampler reads; on such a step ``max_q_len`` is 1+K whatever the
+drafts' lengths, so the ragged kernel's plan depends on the step's key only.
 
 ``SHAPE_COUNTS`` counts the distinct ``(kind, T, S, P)`` step shapes a
 process dispatches, as the JAX package counts its compiled programs: on the
@@ -85,11 +88,18 @@ class ModelInput:
     seq_ids: List[int]           # actual seq ids, scheduler order
     num_prefills: int
     max_q_len: int               # longest query chunk (host value)
+    # Speculative decoding (engine/spec_decode.py), present only when at
+    # least one scheduled sequence carries drafts this step:
+    spec_rows: Optional[np.ndarray] = None   # [S, K+1] int32 verify rows
+    spec_draft: Optional[np.ndarray] = None  # [S, K] int32 drafts (-1 pad)
+    spec_k: Optional[np.ndarray] = None      # [S] int32 draft count (0 = none)
 
     @property
     def decode_only(self) -> bool:
-        """Pure decode step: one query token per sequence (fused kernel)."""
-        return self.num_prefills == 0
+        """Pure decode step: one query token per sequence (fused kernel).
+        A verify step carries 1+k token chunks, so it takes the ragged
+        kernel."""
+        return self.num_prefills == 0 and self.spec_rows is None
 
 
 def _prepare_decode_fast(
@@ -111,7 +121,7 @@ def _prepare_decode_fast(
     datas = []
     tables_list = []
     for meta in metadata_list:
-        if meta.is_prompt:
+        if meta.is_prompt or meta.spec_token_ids:
             return None
         for seq_id, seq_data in meta.seq_data.items():
             seq_ids.append(seq_id)
@@ -176,11 +186,15 @@ def prepare_model_input(
     block_size: int,
     max_pages_per_seq: int,
     sliding_window: Optional[int] = None,
+    num_spec_tokens: int = 0,
 ) -> ModelInput:
     """Flatten one step's scheduled groups into bucketed batch arrays.
 
     Layout contract: prefill chunks first, then decode tokens, sequences
     back-to-back (ref: flash_attention.rs:156-174 + scheduler ordering).
+    A drafted sequence's decode row is its last token followed by its
+    drafts, one ragged chunk (``num_spec_tokens`` is K, the most drafts a
+    sequence carries).
     """
     fast = _prepare_decode_fast(
         metadata_list,
@@ -200,6 +214,7 @@ def prepare_model_input(
     sample_mask: List[bool] = []
     seq_ids: List[int] = []
     num_prefills = 0
+    spec_lists: List[List[int]] = []
 
     for meta in metadata_list:
         if meta.is_prompt:
@@ -213,6 +228,16 @@ def prepare_model_input(
                 chunk = 1
             all_tokens = seq_data.get_token_ids()
             new_tokens = all_tokens[computed : computed + chunk]
+            drafts = (
+                list(meta.spec_token_ids)
+                if (not meta.is_prompt and meta.spec_token_ids)
+                else []
+            )
+            if drafts:
+                # Verify chunk: [last_token] + drafts, one ragged chunk
+                # (the chunked-prefill kernel path).
+                new_tokens = list(new_tokens) + drafts
+            spec_lists.append(drafts)
             kv_len = computed + len(new_tokens)
 
             token_ids.extend(new_tokens)
@@ -234,6 +259,15 @@ def prepare_model_input(
     num_seqs = len(seq_lens)
     T = bucket(max(num_tokens, 1), minimum=8, maximum=None)
     S = bucket(max(num_seqs, 1), minimum=8, maximum=None)
+    drafted = any(spec_lists)
+    K = max(1, num_spec_tokens)
+    if drafted:
+        # A verify step carries up to S·(1+K) tokens, an exact bucket (S is
+        # a power of two, so it stays a multiple of 8) where the next power
+        # of two would pad by up to ~60%.
+        t_spec = S * (1 + K)
+        if num_tokens <= t_spec < T:
+            T = t_spec
     # Table-width minimum of 8: a smaller floor makes the decode program
     # recompile mid-serve the moment any context crosses 4 pages (128 tokens
     # at block 32) — a whole-program compile landing in the serving path for
@@ -266,6 +300,31 @@ def prepare_model_input(
     smask = np.zeros(S, dtype=bool)
     smask[:num_seqs] = sample_mask
 
+    # The verify rows (only when a sequence drafted): a drafted sequence's
+    # 1+k chunk rows, the last repeated to K+1 so the gather's shape is the
+    # step's key; an undrafted one (plain decode, or a prefill chunk) its
+    # last row, which is the token the engine appends.
+    spec_rows = spec_draft = spec_k = None
+    max_q_len = max(q_lens, default=0)
+    if drafted:
+        spec_rows = np.zeros((S, K + 1), dtype=np.int32)
+        spec_draft = np.full((S, K), -1, dtype=np.int32)
+        spec_k = np.zeros(S, dtype=np.int32)
+        j = np.arange(K + 1)
+        for i in range(num_seqs):
+            start = qsl[i]
+            q_len = qsl[i + 1] - start
+            k_i = min(len(spec_lists[i]), K)
+            if k_i:
+                spec_rows[i] = start + np.minimum(j, q_len - 1)
+                spec_draft[i, :k_i] = spec_lists[i][:k_i]
+                spec_k[i] = k_i
+            else:
+                spec_rows[i] = start + q_len - 1
+        # The ragged kernel's plan reads max_q_len: fixed at 1+K on a verify
+        # step, so it does not vary with the longest draft.
+        max_q_len = max(max_q_len, 1 + K)
+
     return ModelInput(
         token_ids=tok,
         positions=pos,
@@ -278,5 +337,8 @@ def prepare_model_input(
         sample_mask=smask,
         seq_ids=seq_ids,
         num_prefills=num_prefills,
-        max_q_len=max(q_lens, default=0),
+        max_q_len=max_q_len,
+        spec_rows=spec_rows,
+        spec_draft=spec_draft,
+        spec_k=spec_k,
     )

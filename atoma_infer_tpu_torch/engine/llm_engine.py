@@ -12,7 +12,9 @@ computes — the analog of the reference's engine-thread/model-thread split.
 
 The PyTorch port's copy of ``atoma_infer_tpu/engine/llm_engine.py``, single
 cohort: the synchronous path and async scheduling (steps dispatched ahead of
-their predecessors' tokens, ``async_depth`` in flight). Pipeline cohorts and
+their predecessors' tokens, ``async_depth`` in flight), and speculative
+decoding's multi-token advance (a verify step appends each sequence's
+accepted drafts and the token after them, and runs synchronously). Pipeline cohorts and
 the multi-host lockstep hook are not ported yet (ROADMAP.md, Queue 1).
 """
 
@@ -329,17 +331,18 @@ class LlmEngine:
             while len(self._async_queue) > self._async_depth:
                 finished += self._complete_async_oldest()
         else:
-            # Synchronous path (penalties, or a step whose input tokens sit
-            # unpatched in an older in-flight step): resolve the in-flight
-            # steps first so input prep reads real token ids, then execute.
-            # Pure-decode fallbacks ride the null feed so they reuse the
-            # steady async decode key.
+            # Synchronous path (penalties, speculative drafts, or a step
+            # whose input tokens sit unpatched in an older in-flight step):
+            # resolve the in-flight steps first so input prep reads real
+            # token ids, then execute. Pure-decode fallbacks ride the null
+            # feed so they reuse the steady async decode key.
             finished += self._complete_async_all()
             if (
                 self._async_scheduling
                 and all(not m.is_prompt for m in metadata)
                 and self._async_eligible(metadata)  # queue now empty: only
-                # penalties force False here, and those run eagerly anyway
+                # penalties and drafts force False here, and those have
+                # keys (or eager steps) of their own
             ):
                 pending = self.worker.dispatch(request, feed=(None, {}))
                 group_outputs = pending.complete() if pending is not None else {}
@@ -356,9 +359,11 @@ class LlmEngine:
     def _async_eligible(self, metadata) -> bool:
         """A step can be dispatched ahead of the in-flight one iff nothing in
         it needs the in-flight step's token VALUES on the host: penalties
-        read the newest token into ``recent_tokens``, and a
-        (recompute-)prefill's input ids must be real. Pure decode — the
-        steady state where host overlap matters — always qualifies."""
+        read the newest token into ``recent_tokens``, speculative drafts
+        are verified from real tokens (and advance by a count known only
+        after acceptance), and a (recompute-)prefill's input ids must be
+        real. Pure decode — the steady state where host overlap matters —
+        always qualifies."""
         older: set = set()
         for _, _, rows in self._async_queue[:-1]:
             older.update(rows)
@@ -366,6 +371,8 @@ class LlmEngine:
         for meta in metadata:
             p = meta.next_token_chooser_params
             if p.repetition_penalty != 1.0 or p.frequency_penalty != 0.0:
+                return False
+            if meta.spec_token_ids:
                 return False
             if meta.is_prompt and self._async_queue:
                 for seq_id in meta.seq_data:
@@ -514,7 +521,13 @@ class LlmEngine:
             out = group_outputs.get(meta.request_id)
             if out is None:
                 continue
-            group.update_num_computed_tokens(meta.token_chunk_size)
+            # A verify step advances by the tokens acceptance kept, applied
+            # AFTER the appends below: the group's update clamps to the
+            # sequence's uncomputed count (1 before any append in decode).
+            # Other steps advance by the scheduled chunk here, before them.
+            spec_advance = out.num_computed_advance
+            if spec_advance is None:
+                group.update_num_computed_tokens(meta.token_chunk_size)
             group.metrics.last_token_time = now
 
             if not meta.do_sample:
@@ -526,20 +539,29 @@ class LlmEngine:
                 if seq is None or seq.is_finished():
                     continue
                 self._update_sequence(group, seq, seq_out)
+            if spec_advance is not None:
+                group.update_num_computed_tokens(spec_advance)
 
             if group.is_finished():
                 finished.append(self._finish_group(group))
         return finished
 
     def _update_sequence(self, group: SequenceGroup, seq: Sequence, seq_out) -> None:
-        """Append the token, detokenize, stop checks (ref:
-        llm_engine.rs:367-521)."""
-        token_id, logprob = seq_out.output_token, seq_out.logprob
-        seq.append_token_id(token_id, logprob)
-        if seq_out.top_tokens is not None:
-            seq.output_logprobs[-1].top_tokens = seq_out.top_tokens
-        metrics.GENERATED_TOKENS.inc()
-        new_text, finish_reason = self._postprocess_token(group, seq, token_id)
+        """Append the token(s), detokenize, stop checks (ref:
+        llm_engine.rs:367-521). A verify step gives several tokens at once;
+        each is appended and stop-checked in order, as if decoded on steps
+        of its own, and the first finish drops the rest."""
+        texts = []
+        finish_reason = None
+        for n, (token_id, logprob) in enumerate(seq_out.all_tokens):
+            seq.append_token_id(token_id, logprob)
+            if n == 0 and seq_out.top_tokens is not None:
+                seq.output_logprobs[-1].top_tokens = seq_out.top_tokens
+            new_text, finish_reason = self._postprocess_token(group, seq, token_id)
+            texts.append(new_text)
+            if seq.is_finished():
+                break
+        metrics.GENERATED_TOKENS.inc(len(texts))
         if seq.is_finished():
             self.scheduler.free_seq(seq)
 
@@ -549,7 +571,7 @@ class LlmEngine:
                 queue,
                 StreamChunk(
                     request_id=group.request_id,
-                    text=new_text,
+                    text="".join(texts),
                     full_text=seq.output_text,
                     token_id=token_id,
                     logprob=logprob,

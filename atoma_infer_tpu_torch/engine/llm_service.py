@@ -8,12 +8,14 @@ and shutdown (:404-442), on ONE device. The KV pool is sized after the
 weights are resident (SURVEY.md §3.1), from ``torch.cuda.mem_get_info``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): multi-host serving, tensor and pipeline parallelism, speculative
-decoding, prefix caching, float16 (no kernel takes fp16 yet), and the native
-(C++) block manager — the port always uses the Python one. Async scheduling
-(``async_scheduling``, ``async_depth``) is ported, and so is ``warmup``,
-which on the card captures the decode steps' CUDA graphs of the buckets it
-reaches before traffic (``engine/cuda_graphs.py``). Weight quantization
+item): multi-host serving, tensor and pipeline parallelism, prefix caching,
+float16 (no kernel takes fp16 yet), and the native (C++) block manager —
+the port always uses the Python one. Async scheduling (``async_scheduling``,
+``async_depth``) is ported, and so is ``warmup``, which on the card captures
+the decode and verify steps' CUDA graphs of the buckets it reaches before
+traffic (``engine/cuda_graphs.py``). So is speculative decoding
+(``num_speculative_tokens``: n-gram drafts verified in the same forward,
+greedy acceptance; a step with drafts runs synchronously). Weight quantization
 (``quantization`` "int8" or "int4", and W8A8 under ``ATOMA_W8A8=1``) is
 ported: the loader quantizes on load. So are the KV-cache dtypes
 (``kv_cache_dtype`` "int8": an int8 cache with per-(slot, K/V) bf16 scales;
@@ -69,12 +71,11 @@ def _load_tokenizer(model_dir: str):
 
 def _reject_unported(config: EngineConfig) -> None:
     """Raise for every configured feature the port does not have yet."""
-    m, s, c = config.model, config.scheduler, config.cache
+    m, c = config.model, config.cache
     unported = [
         ((m.num_hosts or 1) > 1, "multi-host serving", "parallelism"),
         (m.tensor_parallel_size > 1, "tensor parallelism", "parallelism"),
         (m.pipeline_parallel_size > 1, "pipeline parallelism", "parallelism"),
-        (s.num_speculative_tokens > 0, "speculative decoding", "speculative decoding"),
         (c.enable_prefix_caching, "prefix caching", "prefix caching"),
         (m.dtype == "float16", "float16", "float16 instantiations of A–H"),
     ]
@@ -116,19 +117,23 @@ GRAPH_BYTES_PER_LAYER = 256 * 1024
 
 
 def decode_graph_bytes(max_num_sequences: int, vocab_size: int, max_pages: int,
-                       num_layers: int) -> int:
-    """Device memory the pure-decode CUDA graphs take, which the KV pool
-    must leave free: their static inputs (``engine/cuda_graphs.py``: one
-    set for every graph, at the largest sequence bucket S — the Gumbel
-    noise [S, V] f32, the packed metadata of S rows of ``max_pages`` pages,
-    the sampling tensors, the feed), their pool, which holds one step's
+                       num_layers: int, num_spec_tokens: int = 0) -> int:
+    """Device memory the decode and verify CUDA graphs take, which the KV
+    pool must leave free: their static inputs (``engine/cuda_graphs.py``:
+    one set for every graph, at the largest sequence bucket S — the Gumbel
+    noise, the packed metadata of S rows of ``max_pages`` pages, the
+    sampling tensors, the feed), their pool, which holds one step's
     temporaries whatever the number of graphs (``GRAPH_POOL_ROWS``), and
     the driver's share of each graph, ``MAX_GRAPHS`` of them and the one
-    being captured."""
+    being captured. The LM head and the sampler run over R rows: S, or
+    S·(1+K) with K = ``num_spec_tokens`` drafts a sequence, so the noise
+    (repeated over the verify rows) and every pool buffer are [R, V] f32."""
     S = bucket(max_num_sequences)
-    static = S * vocab_size + packed_capacity(S, max_pages) + S * (8 + PENALTY_WINDOW)
+    R = S * (1 + num_spec_tokens)
+    static = (R * vocab_size + packed_capacity(S, max_pages, num_spec_tokens)
+              + S * (8 + PENALTY_WINDOW))
     return (
-        4 * (static + GRAPH_POOL_ROWS * S * vocab_size)
+        4 * (static + GRAPH_POOL_ROWS * R * vocab_size)
         + (MAX_GRAPHS + 1) * GRAPH_BYTES_PER_LAYER * num_layers
     )
 
@@ -232,7 +237,7 @@ class LlmService:
                 decode_graph_bytes(config.scheduler.max_num_sequences, cfg.vocab_size,
                                    page_capacity(config.scheduler.max_model_len,
                                                  config.cache.block_size),
-                                   cfg.num_layers)
+                                   cfg.num_layers, config.scheduler.num_speculative_tokens)
                 if device.type == "cuda" else 0
             ),
         )

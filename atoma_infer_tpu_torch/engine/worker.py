@@ -6,14 +6,18 @@ backends/vllm/src/worker.rs:111-191), run eagerly: the JAX ``jit`` with
 donated caches becomes a plain method whose kernels update the per-layer
 caches in place, and the JAX step's one compiled program per bucket becomes,
 for pure-decode steps on the card, one CUDA graph per bucket
-(``engine/cuda_graphs.py``). Per step the host sends ONE packed int32
+(``engine/cuda_graphs.py``), verify steps included. Per step the host sends ONE packed int32
 metadata buffer (the JAX worker's layout) and receives ONE packed buffer of
 sampled tokens and logprob bits, copied into pinned host memory without
 blocking; a CUDA event marks when it has landed, and
 ``PendingStep.complete()`` waits on it. ``dispatch(request, feed=…)`` takes
 async scheduling's device-token feed: decode rows read their input token
-from the previous, still in-flight step's device output. Speculative
-verification is not ported yet (ROADMAP.md, Queue 1).
+from the previous, still in-flight step's device output. A speculative
+verify step (``engine/spec_decode.py``) samples the [S, K+1] verify rows
+with each sequence's parameters, and ``PendingStep.complete()`` accepts
+each drafted sequence's longest run of drafts the model agrees with, plus
+the token after it (greedy acceptance: the output is the greedy one without
+speculation).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from ..config import CacheConfig, SchedulerConfig
 from ..ops.attention import AttentionMetadata
 from ..sequence import ExecuteModelRequest, SequenceGroupOutput, SequenceOutput
+from ..server import metrics
 from ..utils.tracing import instrument, span
 from .cache_engine import CacheEngine
 from .cuda_graphs import DecodeGraphs, decode_graph_key, page_capacity
@@ -73,18 +78,22 @@ class PendingStep:
     builds the per-group outputs.
     """
 
-    def __init__(self, metadata, tokens: torch.Tensor, packed: torch.Tensor, top_out, t0: float):
+    def __init__(self, metadata, tokens: torch.Tensor, packed: torch.Tensor, top_out, t0: float,
+                 spec_draft: Optional[np.ndarray] = None, spec_k: Optional[np.ndarray] = None):
         self._metadata = metadata
         self._tokens = tokens          # device tensor, kept for the feed
         self._shape = tuple(tokens.shape)
         # (host tensor, event) for the packed buffer, then top-n ids/logprobs.
         self._copies = [_to_host(t) for t in (packed, *(top_out or ()))]
         self._t0 = t0
+        self._spec_draft = spec_draft  # [S, K] host drafts (−1 pad), verify steps only
+        self._spec_k = spec_k          # [S] draft counts, verify steps only
 
     @property
     def tokens_device(self) -> torch.Tensor:
         """The sampled tokens on the device ([S] int32): async scheduling's
-        feed for the NEXT dispatched step."""
+        feed for the NEXT dispatched step. A verify step ([S, K+1]) runs
+        synchronously and feeds no step."""
         return self._tokens
 
     def complete(self) -> Dict[str, SequenceGroupOutput]:
@@ -97,13 +106,20 @@ class PendingStep:
         n = packed_np.shape[0] // 2
         tokens_np = packed_np[:n].reshape(self._shape)
         logprobs_np = packed_np[n:].view(np.float32).reshape(self._shape)
+        spec = self._spec_k is not None  # the [S, K+1] layout this step
+        if spec and top_ids_np is not None:
+            # Verify layout [S, K+1, n]: row 0 is the distribution of the
+            # token every sequence appends.
+            top_ids_np, top_lps_np = top_ids_np[:, 0], top_lps_np[:, 0]
         elapsed = time.monotonic() - self._t0
 
         # Package per-group outputs (ref: model_executor.rs:339-354).
         outputs: Dict[str, SequenceGroupOutput] = {}
+        proposed = accepted = 0
         i = 0
         for meta in self._metadata:
             seq_outputs: Dict[int, SequenceOutput] = {}
+            advance = None
             for seq_id in meta.seq_data:
                 top_tokens = None
                 if top_ids_np is not None and meta.top_n_tokens > 0:
@@ -112,17 +128,40 @@ class PendingStep:
                         (int(top_ids_np[i, j]), float(top_lps_np[i, j]))
                         for j in range(k)
                     ]
+                extra = None
+                if spec:
+                    token, logprob = int(tokens_np[i, 0]), float(logprobs_np[i, 0])
+                    k_i = int(self._spec_k[i])
+                    if k_i:
+                        # Greedy acceptance: the model's token at draft
+                        # position j must equal draft j; the first mismatch
+                        # ends the run, and the model's token there is the
+                        # bonus (exactly the greedy output without drafts).
+                        m = 0
+                        while m < k_i and tokens_np[i, m] == self._spec_draft[i, m]:
+                            m += 1
+                        extra = [(int(tokens_np[i, j]), float(logprobs_np[i, j]))
+                                 for j in range(1, m + 1)]
+                        proposed += k_i
+                        accepted += m
+                        advance = 1 + m
+                else:
+                    token, logprob = int(tokens_np[i]), float(logprobs_np[i])
                 seq_outputs[seq_id] = SequenceOutput(
                     parent_seq_id=seq_id,
-                    output_token=int(tokens_np[i]),
-                    logprob=float(logprobs_np[i]),
+                    output_token=token,
+                    logprob=logprob,
                     is_new_token=meta.do_sample,
                     top_tokens=top_tokens,
+                    extra_tokens=extra or None,
                 )
                 i += 1
             outputs[meta.request_id] = SequenceGroupOutput(
-                outputs=seq_outputs, time_to_generate=elapsed
+                outputs=seq_outputs, time_to_generate=elapsed, num_computed_advance=advance
             )
+        if proposed:
+            metrics.SPEC_PROPOSED.inc(proposed)
+            metrics.SPEC_ACCEPTED.inc(accepted)
         return outputs
 
 
@@ -158,12 +197,13 @@ class ModelWorker:
         # The null feed: async decode with nothing in flight reads no
         # previous token, but keeps the key of steady async decode.
         self._null_feed = torch.zeros(max_rows, dtype=torch.int32, device=self.device)
-        # Pure-decode steps on the card replay CUDA graphs; the CUDA graph
+        # Pure-decode and verify steps on the card replay CUDA graphs; the CUDA graph
         # API has no CPU counterpart, so a CPU worker steps eagerly.
         self.graphs = (
             DecodeGraphs(
                 max_rows,
                 page_capacity(scheduler_config.max_model_len, cache_config.block_size),
+                scheduler_config.num_speculative_tokens,
             )
             if self.device.type == "cuda" else None
         )
@@ -185,11 +225,15 @@ class ModelWorker:
         needs_penalties: bool,
         needs_typical: bool,
         top_n: int,
+        spec_width: int = 0,
     ):
         """Forward + logits + sampling for one bucketed batch →
         (tokens, logprobs, packed outputs, top-n). The caches in
         ``self.cache_engine.kv_cache`` (and an int8 cache's scales) are
-        updated in place."""
+        updated in place. ``spec_width`` is K+1 on a verify step, whose
+        packed metadata carries the [S, K+1] verify rows in place of the
+        [S] last-token rows; tokens, logprobs and top-n come back
+        [S, K+1, …]."""
         off = 0
 
         def take(n):
@@ -206,7 +250,7 @@ class ModelWorker:
         query_start_loc = take(S + 1)
         take(S)  # per-sequence sampling steps (used on the host for the noise)
         num_seqs = take(1)
-        selected_token_indices = take(S)
+        selected_token_indices = take(S * spec_width if spec_width else S)
         if prev_tokens is not None:
             # Async scheduling: rows continuing a sequence sampled by the
             # previous, still in-flight step read their input token from
@@ -229,9 +273,17 @@ class ModelWorker:
             self.params, token_ids, positions, self.cache_engine.kv_cache, attn_meta,
             kv_scales=self.cache_engine.kv_scales,
         )
-        # Last-token rows only, before the LM head (ref: llama.rs:474-477).
+        # Last-token rows only, before the LM head (ref: llama.rs:474-477);
+        # on a verify step every verify row, sampled with its sequence's
+        # parameters and noise (a drafted sequence is greedy; an undrafted
+        # one's row 0 draws the noise of a step without drafts).
         sel = hidden[selected_token_indices.long()]
-        logits = self.model.compute_logits(self.params, sel)  # [S, V] f32
+        logits = self.model.compute_logits(self.params, sel)  # [rows, V] f32
+        if spec_width:
+            sampling = {name: t.repeat_interleave(spec_width, dim=0)
+                        for name, t in sampling.items()}
+            if gumbel is not None:
+                gumbel = gumbel.repeat_interleave(spec_width, dim=0)
         tokens, logprobs, top_out = sample(
             logits,
             temperature=sampling["temperature"],
@@ -247,6 +299,11 @@ class ModelWorker:
             needs_typical=needs_typical,
             top_n=top_n,
         )
+        if spec_width:
+            tokens = tokens.reshape(S, spec_width)
+            logprobs = logprobs.reshape(S, spec_width)
+            if top_out is not None:
+                top_out = tuple(t.reshape(S, spec_width, -1) for t in top_out)
         return tokens, logprobs, _pack_outputs(tokens, logprobs), top_out
 
     # ---------------------------------------------------------------- public
@@ -283,6 +340,7 @@ class ModelWorker:
                 block_size=self.cache_config.block_size,
                 max_pages_per_seq=self.max_pages_per_seq,
                 sliding_window=self.cache_config.sliding_window,
+                num_spec_tokens=self.scheduler_config.num_speculative_tokens,
             )
         with span("worker.sampling_build"):
             sampling, sampling_arrays, sample_steps = self._sampling_inputs(
@@ -304,7 +362,8 @@ class ModelWorker:
             tokens, logprobs, packed, top_out = self._invoke(
                 model_input, sampling_arrays, sample_steps, sampling, prev
             )
-        return PendingStep(request.sequence_groups_metadata, tokens, packed, top_out, t0)
+        return PendingStep(request.sequence_groups_metadata, tokens, packed, top_out, t0,
+                           spec_draft=model_input.spec_draft, spec_k=model_input.spec_k)
 
     def _sampling_inputs(self, request: ExecuteModelRequest, model_input: ModelInput):
         """(SamplingTensors, device tensors, per-row step counts) for the
@@ -355,11 +414,13 @@ class ModelWorker:
     def _invoke(self, model_input: ModelInput, sampling_arrays, sample_steps, sampling,
                 prev=None):
         """Send the packed metadata (one host→device copy, from pinned
-        memory on CUDA), run the step — a graph replay for a pure-decode
-        step on the card — and return device (tokens, logprobs, packed
-        outputs, top-n)."""
+        memory on CUDA), run the step — a graph replay for a pure-decode or
+        verify step on the card — and return device (tokens, logprobs,
+        packed outputs, top-n)."""
         T = model_input.token_ids.shape[0]
         S, P = model_input.block_tables.shape
+        spec_rows = model_input.spec_rows
+        spec_width = 0 if spec_rows is None else spec_rows.shape[1]
         with span("worker.meta_transfer"):
             parts = [
                 model_input.token_ids,
@@ -370,7 +431,7 @@ class ModelWorker:
                 model_input.query_start_loc,
                 np.asarray(sample_steps, dtype=np.int32),
                 np.asarray([model_input.num_seqs], dtype=np.int32),
-                model_input.selected_token_indices,
+                model_input.selected_token_indices if spec_rows is None else spec_rows.ravel(),
             ]
             prev_tokens = None
             if prev is not None:
@@ -403,6 +464,7 @@ class ModelWorker:
                 needs_penalties=sampling.needs_penalties,
                 needs_typical=sampling.needs_typical,
                 top_n=sampling.top_n,
+                spec_width=spec_width,
             )
 
         key = (

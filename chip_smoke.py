@@ -53,7 +53,12 @@ raises on failure; nothing is caught):
    and B on 64 decode rows against their plain versions, each timed beside
    its bound, and the merge after a split launch. Kernel I (the W8A8 rate probe's
    matmul, both forms) at small shapes (M = 1 to 400) and at the probe's
-   (184 × 4096 × 14336): int8 bit-exact, mixed within its tolerance. Times
+   (184 × 4096 × 14336): int8 bit-exact, mixed within its tolerance. The
+   kernels of a speculative verify step on a 64-sequence verify batch (K =
+   4 drafts, 5 query rows a sequence, keys 16-2,047, T = 320): C and A at
+   the 1B shapes (B on the same sequences as decode rows beside them), the
+   INT8 write and D at the 8B shapes, F at M = 320, and the merge after A
+   on 8 such sequences of 1,800-2,047 keys. Times
    with CUDA events: kernel, plain version and, where one PyTorch call
    computes the same function, that call.
 3. The port's ``Llama`` with 2 layers at full width: Llama-3.2-1B and
@@ -74,7 +79,12 @@ raises on failure; nothing is caught):
    Phi-3-mini-4k-instruct, Gemma-2-9B, Mixtral-8x7B-v0.1) with 2 layers at
    its published widths, bf16, against the same model attending through
    the plain versions on the card: logits finite and within
-   ``FAMILY_MODEL_TOL``.
+   ``FAMILY_MODEL_TOL``. The verify step: the 1B model (bf16) at 2
+   layers, one verify step of 8 sequences with 4 drafts each against 5
+   decode steps over the same tokens, logits within ``SPEC_VERIFY_TOL``
+   (the same at 16 layers printed). ``tiny_trained`` (f32) with 4 drafts on
+   the card against the same without drafts (all tokens, the seeded
+   request's too) and against the CPU (greedy tokens).
 4. Services through ``LlmService.start``, each with 8 requests of 256
    tokens (128 but for the 1B bf16 and 8B INT8 services; chunked prefill,
    one seeded sampled, the second half admitted before engine step 7 while
@@ -121,7 +131,17 @@ raises on failure; nothing is caught):
    family at its published widths (``FAMILIES``: full depth but
    Mixtral-8x7B's 8 of 32 layers, which is all that fits the card), eager
    and then synchronous with graphs, the same checks; Phi-3-mini's second
-   prompt passes its 2,047-key window.
+   prompt passes its 2,047-key window. Speculative decoding (K = 4, 8
+   sequences, prompts echoing their first half): the 1B bf16 service (a)
+   eager and (b) async with graphs after ``warmup()``, and after the 8B
+   services the INT8 + INT8 KV one synchronous with graphs, each against
+   the same service without drafts whose requests ask the top 2 logprobs:
+   every greedy request identical up to a position where those are closer
+   than ``SPEC_TIE_TOL``, the seeded one identical; drafts proposed and
+   accepted, the verify steps' wall (a) and replay time beside a decode
+   replay at the same S (b), no verify step eager after its key's capture,
+   keys first captured in the traffic listed, the widest verify key's
+   replay identical to its eager step, graph memory under the reserve.
 5. The quantization decision tools (``atoma_infer_tpu_torch/tools``): the
    W8A8 rate probe's ``main()`` (its path through kernel I, both forms
    launched, int8 exact), then the W8A8 and INT8-KV gates at their card
@@ -131,7 +151,9 @@ raises on failure; nothing is caught):
 6. The smoke's wall, then a ``{"kernels": [...]}`` JSON line (each
    kernel's launches from its own path's run in (b), graph replays
    counted; A, B and the merge at head dims 96 and 256 as rows of their
-   own, their launches from the Phi-3-mini and Gemma-2-9B services), then
+   own, their launches from the Phi-3-mini and Gemma-2-9B services; C, A,
+   the INT8 write, D, F and the merge on verify rows as rows of their own,
+   their launches from the spec services' runs with graphs), then
    as the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
@@ -296,9 +318,10 @@ def build_kernels() -> float:
 
 # --------------------------------------------------------------- phase 2
 def make_batch(rng, specs, *, dtype, num_blocks, decode_only, device,
-               hq=HQ, hk=HK, d=D, bs=BS):
+               hq=HQ, hk=HK, d=D, bs=BS, T=None):
     """A ragged batch at the main path's bucketed shapes: ``specs`` is a
-    list of (q_len, kv_len); every sequence on random disjoint pages."""
+    list of (q_len, kv_len); every sequence on random disjoint pages. ``T``
+    overrides the token bucket (a verify step's is S·(1+K))."""
     import numpy as np
     import torch
 
@@ -307,7 +330,7 @@ def make_batch(rng, specs, *, dtype, num_blocks, decode_only, device,
 
     n = len(specs)
     S = bucket(n, dense=decode_only)
-    T = S if decode_only else bucket(sum(q for q, _ in specs))
+    T = S if decode_only else (T or bucket(sum(q for q, _ in specs)))
     P = bucket(max(-(-kv // bs) for _, kv in specs))
     perm = rng.permutation(num_blocks)
     tables = np.zeros((S, P), np.int32)
@@ -1027,12 +1050,13 @@ def check_split_combine(torch):
 
 
 def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, decode=False,
-                      splits=None):
+                      splits=None, specs=None, T=None):
     """A split attention launch by a direct call, for its workspace, then
     the merge against its plain version on it, timed in a CUDA graph: the
-    ragged kernel on a 256-query prefill chunk at positions 1,792-2,047, or
-    (``decode``) the fused kernel on 8 decode rows of 1,800-2,047 keys (bf16
-    cache, block 16), with the route's plan, which must split, or with
+    ragged kernel on a 256-query prefill chunk at positions 1,792-2,047 (or
+    on ``specs``, (q_len, kv_len) a sequence, in a token bucket of ``T``),
+    or (``decode``) the fused kernel on 8 decode rows of 1,800-2,047 keys
+    (bf16 cache, block 16), with the route's plan, which must split, or with
     ``splits`` where the plan takes none at this shape. Returns its kernels
     line row; the bound counts the split rows' partials read once and their
     outputs written once."""
@@ -1043,10 +1067,11 @@ def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, de
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(9)
-    specs = ([(1, int(k)) for k in rng.integers(1800, 2048, size=8)] if decode
-             else [(256, 2048)])
+    specs = specs or ([(1, int(k)) for k in rng.integers(1800, 2048, size=8)] if decode
+                      else [(256, 2048)])
     b = make_batch(rng, specs, hq=hq, hk=hk, d=d, bs=16, dtype=torch.bfloat16,
-                   num_blocks=max(256, variant_blocks(specs, 16)), decode_only=decode, device=dev)
+                   num_blocks=max(256, variant_blocks(specs, 16)), decode_only=decode, device=dev,
+                   T=T)
     q, m, cache = b["q"], b["meta"], b["cache"]
     T, Hq, D = q.shape
     S, P = m.block_tables.shape
@@ -1058,7 +1083,8 @@ def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, de
     else:
         plan = pa.rpa_plan_for(q, m, Hk, None)
         planned, bq, min_tiles = plan.splits, plan.tokens, pa.RPA_MIN_TILES
-        what = f"prefill chunk, {plan.warps} warps, the plan's {planned} splits"
+        what = (f"{'prefill chunk' if len(specs) == 1 else f'{len(specs)} sequences'}, "
+                f"{plan.warps} warps, the plan's {planned} splits")
     if splits is None:
         splits = planned
         if splits < 2:
@@ -1098,11 +1124,11 @@ def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, de
     if not torch.allclose(out[:n].float(), want[:n].float(), atol=tol, rtol=tol):
         raise AssertionError(f"paged_attention_split_combine {label} disagrees: max |err| "
                              f"{err:.3e}")
-    # The query tiles' split counts, as the kernels cut them.
+    # The query tiles' split counts, as the kernels cut them: each
+    # sequence's query rows in tiles of bq.
     nbytes = merged = 0
-    tiles = ([(kv - 1, kv - 1, 1) for _, kv in specs] if decode else
-             [(2048 - n + t0, 2048 - n + t0 + min(bq, n - t0) - 1, min(bq, n - t0))
-              for t0 in range(0, n, bq)])
+    tiles = [(kv - q + t0, kv - q + t0 + min(bq, q - t0) - 1, min(bq, q - t0))
+             for q, kv in specs for t0 in range(0, q, bq)]
     for first, last, ntok in tiles:
         lo = max(0, first - window + 1) if window else 0
         n_tiles = last // pa.RPA_KEY_TILE + 1 - lo // pa.RPA_KEY_TILE
@@ -2678,6 +2704,8 @@ NEW_TOKENS, OTHER_SERVICES_TOKENS = 256, 128
 
 # The bytes of the services' 8 prompts (one token a byte).
 PROMPT_LENGTHS = (16, 300, 45, 120, 200, 77, 250, 33)
+# The services' seeded sampled request (the fourth): its sampling options.
+SEEDED_REQUEST, SEEDED_OPTIONS = 3, dict(temperature=0.8, top_p=0.9, seed=1234)
 
 
 def percentile(values, q):
@@ -2693,29 +2721,37 @@ MODES = ("eager", "graphs", "async+graphs")
 
 
 def serve(torch, label, model, params, config, path, *, mode="eager",
-          new_tokens=NEW_TOKENS, prompt_lengths=PROMPT_LENGTHS):
+          new_tokens=NEW_TOKENS, prompt_lengths=PROMPT_LENGTHS, prompts=None, top_n=0,
+          stats=None):
     """Drive one service: 8 requests of ``new_tokens`` tokens (prompts of
-    ``prompt_lengths`` bytes) with chunked prefill in two waves (the second admitted before engine step
+    ``prompt_lengths`` bytes, or ``prompts``; each asking ``top_n``
+    alternatives) with chunked prefill in two waves (the second admitted before engine step
     ``SECOND_WAVE_STEP``), in ``mode`` (``MODES``); eager runs profile one
     pure-decode and one mixed step. In all modes: the steady-decode period
     (wall between successive pure-decode dispatches, those that captured a
     graph and the profiled window left out), the tokens/s over the whole
     traffic window, the device idle share over a window of 8 pure-decode
-    steps, and with graphs their memory. Every request must finish, every
-    block return, and every kernel of ``path`` launch. Returns (the launch
-    counts of the traffic's run, all set to 0 just before it; each
-    request's tokens)."""
+    steps, and with graphs their memory. With speculative decoding, the
+    drafts proposed and accepted and the verify steps: eager (a)'s step
+    wall, and in (b) each verify key's first capture and replays, none
+    eager after it. Every request must finish, every block return, and
+    every kernel of ``path`` launch. Returns (the launch counts of the
+    traffic's run, all set to 0 just before it; each request's tokens);
+    fills ``stats`` with the run's figures."""
     from concurrent.futures import ThreadPoolExecutor
 
     from atoma_infer_tpu_torch.engine import input_prep
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
     from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
     from atoma_infer_tpu_torch.ops import cuda_lib, paged_attention
+    from atoma_infer_tpu_torch.server import metrics
     from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
     from atoma_infer_tpu_torch.utils import tracing
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    stats = {} if stats is None else stats
+    spec_k = config.scheduler.num_speculative_tokens
     async_graphs = mode == "async+graphs"
     if mode not in MODES or config.scheduler.async_scheduling != async_graphs:
         raise ValueError(f"{label}: mode {mode} with async_scheduling "
@@ -2742,6 +2778,8 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
     # call, which ends when the sampled tokens are on the host, whether it
     # ran under the profiler).
     steps = []
+    # The eager run's verify steps' walls (s).
+    verify_walls = []
     profiled = {}
     execute = worker.execute_model
     # Set while a step runs under a profiler (the single steps, the idle
@@ -2782,6 +2820,8 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
             out = execute(request)
         traced = traced or window_mark != traced_now["window"] or "prof" in window
         steps.append((prefills, decodes, time.monotonic() - t0, traced))
+        if not traced and not prefills and any(m.spec_token_ids for m in metas):
+            verify_walls.append(steps[-1][2])
         return out
 
     ragged = paged_attention.ragged_paged_attention_cuda
@@ -2831,21 +2871,41 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
         captured = worker.graphs is not None and len(worker.graphs.graphs) > graphs_before
         dispatches.append(dict(t=t, pure=pure, rows=sum(len(m.seq_data) for m in metas),
                                captured=captured, traced=profiled_here or "prof" in window,
-                               in_flight=in_flight))
+                               in_flight=in_flight,
+                               verify=any(m.spec_token_ids for m in metas),
+                               drafted=sum(1 for m in metas if m.spec_token_ids)))
         return out
+
+    # With graphs, every run of a key in the traffic: (key, captured
+    # before, replayed); with drafts, each replay's device time too (CUDA
+    # events around the replay alone, after its inputs' copies).
+    graph_runs = []
+    replay_events = {}
+    if mode != "eager":
+        graph_run = worker.graphs.run
+
+        def recorded_run(key, *args):
+            seen, replays = key in worker.graphs.graphs, worker.graphs.replays
+            out = graph_run(key, *args)
+            graph_runs.append((key, seen, worker.graphs.replays > replays))
+            if spec_k and not seen and key in worker.graphs.graphs:
+                entry = worker.graphs.graphs[key]
+                entry.graph = TimedReplay(torch, entry.graph,
+                                          replay_events.setdefault(key, []))
+            return out
 
     lengths = prompt_lengths
     text = "The quick brown fox jumps over the lazy dog. " * (-(-max(lengths) // 45))
+    prompts = prompts or [text[:n] for n in lengths]
 
     def request(i):
-        sampled = i == 3
+        sampled = i == SEEDED_REQUEST
         return GenerateRequest(
             request_id=f"smoke-{i}",
-            inputs=text[: lengths[i]],
+            inputs=prompts[i],
             parameters=GenerateParameters(
-                max_new_tokens=new_tokens, do_sample=sampled,
-                temperature=0.8 if sampled else None, top_p=0.9 if sampled else None,
-                seed=1234 if sampled else None,
+                max_new_tokens=new_tokens, do_sample=sampled, top_n_tokens=top_n or None,
+                **(SEEDED_OPTIONS if sampled else {}),
             ),
         )
 
@@ -2865,6 +2925,8 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
             run["capture_s"] = worker.graphs.capture_seconds
             run["shapes"] = len(input_prep.SHAPE_COUNTS)
         worker.dispatch = timed_dispatch
+        if mode != "eager":
+            worker.graphs.run = recorded_run
         # Admission held: every request is validated first, then the first
         # wave is admitted together and the second just before engine step
         # SECOND_WAVE_STEP (from the step's own thread: the loop thread is
@@ -2889,6 +2951,8 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
         for kernel in cuda_lib.KERNELS.values():
             kernel.launches = 0
         replays0 = worker.graphs.replays if worker.graphs is not None else 0
+        keys0 = set(worker.graphs.graphs) if worker.graphs is not None else set()
+        run["spec0"] = (metrics.SPEC_PROPOSED.value, metrics.SPEC_ACCEPTED.value)
         # The port's host spans (utils/tracing) time the engine's and the
         # worker's host work through the traffic.
         tracing.clear()
@@ -2905,13 +2969,21 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
         if "done" in window:
             window["events"] = window.pop("done").key_averages()
         run["replays"] = (worker.graphs.replays if worker.graphs is not None else 0) - replays0
-        streamed = []
+        run["new_keys"] = sorted(set(worker.graphs.graphs) - keys0) \
+            if worker.graphs is not None else []
+        run["spec"] = (metrics.SPEC_PROPOSED.value - run["spec0"][0],
+                       metrics.SPEC_ACCEPTED.value - run["spec0"][1])
+        chunks = []
         while not stream0.empty():
             chunk = stream0.get_nowait()
             if chunk is not None:
-                streamed.append(chunk.token_id)
-        if streamed != results[0].outputs[0].token_ids:
-            raise AssertionError(f"service {label}: streamed tokens differ from the response")
+                chunks.append(chunk)
+        # A verify step streams its accepted tokens as one chunk: the text
+        # is checked, and without drafts every token too.
+        out0 = results[0].outputs[0]
+        if "".join(c.text for c in chunks) != out0.output_text or (
+                not spec_k and [c.token_id for c in chunks] != out0.token_ids):
+            raise AssertionError(f"service {label}: the stream differs from the response")
         service.stop()
         task.cancel()
         executor.shutdown(wait=False)
@@ -2951,6 +3023,8 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
         f"launches {launches}")
     if mixed == 0:
         raise AssertionError(f"service {label}: no mixed prefill+decode step ran")
+    if spec_k:
+        report_spec_steps(label, run, dispatches, verify_walls, graph_runs, replay_events)
     if mode != "eager":
         graphs = worker.graphs
         if async_graphs:
@@ -3043,7 +3117,76 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the {label} path")
     check_route(f"service {label}", launches, bf16=True)
+    stats.update(
+        tok_s=generated / seconds, period=summary,
+        top=[r.outputs[0].top_logprobs for r in results] if top_n else None)
     return launches, [tuple(r.outputs[0].token_ids) for r in results]
+
+
+class TimedReplay:
+    """A captured graph whose replays record CUDA events around them, into
+    ``events``: each replay's device time, read after the traffic."""
+
+    def __init__(self, torch, graph, events):
+        self.torch, self.inner, self.events = torch, graph, events
+
+    def replay(self):
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.inner.replay()
+        end.record()
+        self.events.append((start, end))
+
+
+def report_spec_steps(label, run, dispatches, verify_walls, graph_runs, replay_events):
+    """Print a speculative run's drafts and verify steps: proposed and
+    accepted drafts and the acceptance rate; the verify steps, the
+    sequences they carried and the tokens each yields (those sequences'
+    tokens plus the accepted drafts); eager (a)'s verify step wall; with
+    graphs, the verify keys' first captures and replays, none eager after a
+    capture (else it raises), each replay's device time beside the
+    pure-decode replays at the same S, and every key first captured inside
+    the timed window."""
+    proposed, accepted = run["spec"]
+    verify = [d for d in dispatches if d["verify"]]
+    rows = sum(d["rows"] for d in verify)
+    drafted = sum(d["drafted"] for d in verify)
+    if not verify or not proposed:
+        raise AssertionError(f"service {label}: no step carried drafts")
+    log(f"service {label}: drafts proposed {proposed:.0f}, accepted {accepted:.0f} "
+        f"(rate {accepted / proposed:.1%}); {len(verify)} verify steps of {len(dispatches)} "
+        f"dispatches, {rows / len(verify):.2f} sequences and {drafted / len(verify):.2f} "
+        f"drafted a verify step; a verify step yields {(rows + accepted) / len(verify):.2f} "
+        f"tokens, a drafted sequence {1 + accepted / max(drafted, 1):.3f}")
+    if verify_walls:
+        walls = sorted(t * 1e3 for t in verify_walls)
+        log(f"service {label}: verify step wall (eager, no prefill) p50 "
+            f"{walls[len(walls) // 2]:.2f} ms, max {walls[-1]:.2f} ms over {len(walls)} steps")
+    if not graph_runs:
+        return
+    keyed = [r for r in graph_runs if len(r[0]) == 8]
+    eager = [key for key, seen, replayed in keyed if seen and not replayed]
+    if eager:
+        raise AssertionError(f"service {label}: {len(eager)} verify steps ran eagerly after "
+                             f"their key's capture: {sorted(set(eager))}")
+    captured = sorted({key for key, seen, _ in keyed if not seen})
+    replays = sum(1 for _, _, replayed in keyed if replayed)
+    log(f"service {label}: verify steps with a graph key {len(keyed)}: {replays} replays, "
+        f"{len(captured)} first captures {captured}, 0 eager after a capture; "
+        f"{len(verify) - len(keyed)} verify steps beside a prefill chunk ran eagerly (no key); "
+        f"keys first captured inside the timed window: {run['new_keys']}")
+    # Each key's replays but its first (CUDA events; the device time of the
+    # replay alone, its inputs' copies enqueued before it).
+    times = {key: sorted(a.elapsed_time(b) for a, b in events[1:])
+             for key, events in replay_events.items() if len(events) > 1}
+    for key in sorted((k for k in times if len(k) == 8), key=lambda k: -len(times[k])):
+        v = times[key]
+        d = sorted(t for k, ts in times.items() if len(k) == 7 and k[1] == key[1] for t in ts)
+        beside = (f"pure-decode replays at S = {key[1]}: p50 {d[len(d) // 2]:.3f} ms over "
+                  f"{len(d)}" if d else f"no pure-decode replay at S = {key[1]}")
+        log(f"service {label}: verify key {key}: replay p50 {v[len(v) // 2]:.3f} ms over "
+            f"{len(v)} (CUDA events); {beside}")
 
 
 def check_widest_graph(label, worker, config):
@@ -3101,6 +3244,35 @@ def check_widest_graph(label, worker, config):
         f"{config.validation.max_top_n_tokens}): replay identical to the eager step; its "
         f"capture grew the pool by {took['pool'] / 2**20:.2f} MiB, the driver took "
         f"{took['driver'] / 2**20:.2f} MiB")
+    K = config.scheduler.num_speculative_tokens
+    if not K:
+        return
+    # The widest verify key: every row drafted K tokens (greedy, as drafted
+    # sequences are), T = S·(1+K), over contexts that leave room for the
+    # drafts' slots.
+    for i, meta in enumerate(metas):
+        data = SequenceData([(7 * i + j) % 1000 + 3 for j in range(context - K)])
+        data.update_num_computed_tokens(context - K - 1)
+        meta.seq_data = {i: data}
+        meta.next_token_chooser_params = NextTokenChooserParameters()
+        meta.top_n_tokens = 0
+        meta.spec_token_ids = [(5 * i + j) % 1000 + 3 for j in range(K)]
+    before, replays = set(graphs.graphs), graphs.replays
+    took = dict(graphs.captured_bytes)
+    first = worker.execute_model(request)
+    second = worker.execute_model(request)
+    took = {k: graphs.captured_bytes[k] - took[k] for k in took}
+    new = set(graphs.graphs) - before
+    if graphs.replays != replays + 1 or not all(len(k) == 8 for k in new):
+        raise AssertionError(f"service {label}: the widest verify key {new} did not replay")
+    if flat(first) != flat(second) or [o.extra_tokens for g in sorted(first)
+                                       for o in first[g].outputs.values()] != \
+            [o.extra_tokens for g in sorted(second) for o in second[g].outputs.values()]:
+        raise AssertionError(f"service {label}: the widest verify key's replay differs from "
+                             "its eager step")
+    log(f"service {label}: widest verify key {sorted(new)} ({rows} rows of {K} drafts): replay "
+        f"identical to the eager step; its capture grew the pool by "
+        f"{took['pool'] / 2**20:.2f} MiB, the driver took {took['driver'] / 2**20:.2f} MiB")
 
 
 def report_graph_memory(label, graphs, config, model_config):
@@ -3118,7 +3290,8 @@ def report_graph_memory(label, graphs, config, model_config):
     reserve = decode_graph_bytes(config.scheduler.max_num_sequences, model_config.vocab_size,
                                  page_capacity(config.scheduler.max_model_len,
                                                config.cache.block_size),
-                                 model_config.num_layers)
+                                 model_config.num_layers,
+                                 config.scheduler.num_speculative_tokens)
     log(f"service {label}: graph memory: static inputs {graphs.static_bytes / 2**20:.2f} MiB "
         f"(one set), pool growth {took['pool'] / 2**20:.2f} MiB over {n} captures, held in it "
         f"{took['held'] / 2**10:.1f} KiB ({took['held'] / max(n, 1) / 2**10:.1f} KiB a graph), "
@@ -3210,12 +3383,13 @@ def serve_both(torch, label, model, params, make_config, path, mode,
     return counts_b
 
 
-def bf16_config(name, block_size, async_scheduling=False, max_model_len=2048):
+def bf16_config(name, block_size, async_scheduling=False, max_model_len=2048,
+                max_num_sequences=64, num_speculative_tokens=0):
     """A bf16 service's configuration: KV pool sized from
     ``torch.cuda.mem_get_info``, chunked prefill with a 256-token budget
     (prompts arriving while others decode share steps with them, so mixed
     prefill+decode steps run), prompts of up to ``max_model_len`` − 1,024
-    tokens."""
+    tokens, n-gram drafts of up to ``num_speculative_tokens``."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
@@ -3225,8 +3399,10 @@ def bf16_config(name, block_size, async_scheduling=False, max_model_len=2048):
         cache=CacheConfig(block_size=block_size, hbm_memory_utilization=0.5,
                           num_host_blocks_override=64),
         scheduler=SchedulerConfig(
-            max_num_batched_tokens=256, max_num_sequences=64, max_model_len=max_model_len,
-            enable_chunked_prefill=True, async_scheduling=async_scheduling,
+            max_num_batched_tokens=256, max_num_sequences=max_num_sequences,
+            max_model_len=max_model_len, enable_chunked_prefill=True,
+            async_scheduling=async_scheduling, num_speculative_tokens=num_speculative_tokens,
+            spec_ngram_min=1,
         ),
         validation=ValidationConfig(max_input_tokens=max_model_len - 1024,
                                     max_total_tokens=max_model_len),
@@ -3441,10 +3617,8 @@ def run_quant_services(torch):
     and an e4m3 KV cache: random bf16 weights from a seeded generator,
     quantized on the card with the port's quantize_weight (an untied
     per-channel INT8 LM head in all). Returns each quantized and 1-byte-KV
-    kernel's launches from its own path's service."""
-    from atoma_infer_tpu_torch.config import (
-        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
-    )
+    kernel's launches from its own path's service, and with drafts (the
+    INT8 KV service again) its verify path's."""
     from atoma_infer_tpu_torch.models.llama import Llama
     from atoma_infer_tpu_torch.models.weights import quantize_params
     from atoma_infer_tpu_torch.ops import quant_kernels
@@ -3459,19 +3633,7 @@ def run_quant_services(torch):
     log(f"8B weights: drawn and quantized on the card in {time.monotonic() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
 
-    def config(quantization, kv_cache_dtype=None, async_scheduling=False, **cache):
-        cache = cache or dict(num_device_blocks_override=2048)
-        return EngineConfig(
-            model=ModelConfig(model_name="llama-3.1-8b-random", dtype="bfloat16",
-                              quantization=quantization, kv_cache_dtype=kv_cache_dtype),
-            cache=CacheConfig(block_size=BS, num_host_blocks_override=64, **cache),
-            scheduler=SchedulerConfig(
-                max_num_batched_tokens=256, max_num_sequences=64, max_model_len=2048,
-                enable_chunked_prefill=True, async_scheduling=async_scheduling,
-            ),
-            validation=ValidationConfig(max_input_tokens=1024, max_total_tokens=2048),
-        )
-
+    config = llama_8b_service_config
     launches = {}
     # bf16 activations at these shapes take F and G's tensor-core route.
     runs = (
@@ -3527,7 +3689,487 @@ def run_quant_services(torch):
         launches.update({k: counts[k] for k in kv8_path(kv)})
         gc.collect()
         torch.cuda.empty_cache()
+
+    launches.update(run_spec_service_8b(torch, model, params["int8"]))
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def llama_8b_service_config(quantization, kv_cache_dtype=None, async_scheduling=False,
+                            max_seqs=64, spec=0, **cache):
+    """A Llama-3.1-8B service's configuration: ``quantization`` on load,
+    the KV cache's dtype, blocks of 16 (2,048 of them unless ``cache`` says
+    otherwise), chunked prefill with a 256-token budget, ``max_seqs``
+    sequences, ``spec`` drafts a sequence."""
+    from atoma_infer_tpu_torch.config import (
+        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
+    )
+
+    cache = cache or dict(num_device_blocks_override=2048)
+    return EngineConfig(
+        model=ModelConfig(model_name="llama-3.1-8b-random", dtype="bfloat16",
+                          quantization=quantization, kv_cache_dtype=kv_cache_dtype),
+        cache=CacheConfig(block_size=BS, num_host_blocks_override=64, **cache),
+        scheduler=SchedulerConfig(
+            max_num_batched_tokens=256, max_num_sequences=max_seqs, max_model_len=2048,
+            enable_chunked_prefill=True, async_scheduling=async_scheduling,
+            num_speculative_tokens=spec, spec_ngram_min=1,
+        ),
+        validation=ValidationConfig(max_input_tokens=1024, max_total_tokens=2048),
+    )
+
+
+def run_spec_service_8b(torch, model, params):
+    """Llama-3.1-8B with INT8 weights (``params``) over an INT8 KV cache
+    (pool sized from free memory) with SPEC_K drafts, 8 sequences,
+    synchronous with graphs: D and F on verify rows, against the same
+    service without drafts. Returns its launches of the verify path, keyed
+    ``kernel@verify``."""
+    counts = serve_spec(
+        torch, "8B INT8 + INT8 KV spec", model, params,
+        lambda a, k: llama_8b_service_config("int8", "int8", async_scheduling=a, max_seqs=8,
+                                             spec=k, hbm_memory_utilization=0.5),
+        SPEC_PATH_8B, kv8_path("int8") + ("quantized_matmul_int8_mma",
+                                          "paged_attention_split_combine"),
+        ("graphs",), "graphs")
+    return {f"{k}@verify": counts[k] for k in SPEC_PATH_8B}
+
+
+# ------------------------------------------- phase 4: speculative decoding
+# Drafts a drafted sequence carries (``scheduler.num_speculative_tokens``).
+SPEC_K = 4
+# The spec services' 8 prompts: each echoes its first half, so that the
+# n-gram proposer finds drafts in it (code, then prose).
+SPEC_SOURCE = ("def fib(n):\n    a, b = 0, 1\n    for _ in range(n):\n        a, b = b, a + b\n"
+               "    return a\n\nThe quick brown fox jumps over the lazy dog. ")
+SPEC_PROMPTS = tuple((SPEC_SOURCE * 4)[: n // 2] * 2 for n in PROMPT_LENGTHS)
+# A verify step's logits against K+1 decode steps over the same tokens, bf16
+# through 2 layers: max |Δ logit| over the largest logit, as
+# FAMILY_MODEL_TOL (the ragged kernel and cuBLAS at S·(1+K) rows against the
+# fused kernel and cuBLAS at S rows, each rounding to bf16 in its own order).
+SPEC_VERIFY_TOL = 3e-2
+# A bf16 spec service may give another token than the same service without
+# drafts only where the latter's top two logprobs are closer than this
+# (nats): there the two paths' logits, which differ by rounding, can rank
+# them either way. After such a position the request is compared no further.
+SPEC_TIE_TOL = 0.1
+# The bf16 spec services' path: verify rows take the write and the ragged
+# kernel, whose plan splits their 8 sequences' key tiles (the merge); their
+# steps without drafts take the fused kernel.
+SPEC_PATH = ("reshape_and_cache", "ragged_paged_attention_mma", "paged_attention_split_combine")
+SPEC_PATH_8B = ("reshape_and_cache_int8", "ragged_paged_attention_int8_mma",
+                "quantized_matmul_int8_mma", "paged_attention_split_combine")
+
+
+def spec_step_logits(torch, model, params, caches, groups, tables):
+    """One step of ``groups`` — (token ids, computed count, drafts or None,
+    prefill) a sequence, on ``tables`` — through the port's input prep and
+    ``model`` on the card: the logits [rows, V] f32 of each sequence's
+    sampled rows (the verify rows of a verify step, the last row else)."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.engine.input_prep import prepare_model_input
+    from atoma_infer_tpu_torch.ops.attention import AttentionMetadata
+    from atoma_infer_tpu_torch.sampling_params import (
+        NextTokenChooserParameters, StoppingCriteriaParameters,
+    )
+    from atoma_infer_tpu_torch.sequence import SequenceData, SequenceGroupMetadata
+
+    metas = []
+    for i, (tokens, computed, drafts, prompt) in enumerate(groups):
+        data = SequenceData(list(tokens))
+        data.update_num_computed_tokens(computed)
+        metas.append(SequenceGroupMetadata(
+            request_id=f"verify-{i}", is_prompt=prompt, seq_data={i: data},
+            block_tables={i: tables[i]}, next_token_chooser_params=NextTokenChooserParameters(),
+            stopping_criteria=StoppingCriteriaParameters(), do_sample=True,
+            token_chunk_size=len(tokens) - computed if prompt else 1, spec_token_ids=drafts))
+    mi = prepare_model_input(metas, block_size=BS, max_pages_per_seq=64, num_spec_tokens=SPEC_K)
+
+    def ints(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(model.device)
+
+    meta = AttentionMetadata(
+        slot_mapping=ints(mi.slot_mapping), block_tables=ints(mi.block_tables),
+        seq_lens=ints(mi.seq_lens), query_start_loc=ints(mi.query_start_loc),
+        num_seqs=ints([mi.num_seqs]), block_size=BS, decode_only=mi.decode_only,
+        max_q_len=mi.max_q_len)
+    n = len(groups)
+    rows = mi.spec_rows[:n].ravel() if mi.spec_rows is not None else mi.selected_token_indices[:n]
+    with torch.inference_mode():
+        hidden = model.forward(params, ints(mi.token_ids), ints(mi.positions), caches, meta)
+        return model.compute_logits(params, hidden[ints(rows).long()]).float()
+
+
+def check_verify_step(torch):
+    """The verify step at the kernel level: the 1B model (bf16, random
+    weights) at 2 layers, 8 sequences of 40-300 tokens prefilled, then one
+    verify step of SPEC_K drafts a sequence (the write and the ragged kernel
+    over 1+K rows each, T = S·(1+K)) against K+1 decode steps over the same
+    tokens from the same cache (the fused kernel, one row each): logits at
+    rows 0..K within SPEC_VERIFY_TOL of the largest. The same at the
+    service's 16 layers is printed, not held to it."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.models.llama import Llama, LlamaConfig
+
+    rng = np.random.default_rng(12)
+    lengths = (40, 75, 110, 150, 190, 230, 270, 300)
+    prompts = [rng.integers(3, 1000, size=n).tolist() for n in lengths]
+    drafts = [rng.integers(3, 1000, size=SPEC_K).tolist() for _ in lengths]
+    tables, used = [], 0
+    for n in lengths:
+        pages = -(-(n + 1 + SPEC_K) // BS)
+        tables.append(list(range(used, used + pages)))
+        used += pages
+    for layers in (2, 16):
+        cfg = LlamaConfig(
+            vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+            num_hidden_layers=layers, num_attention_heads=HQ, num_key_value_heads=HK,
+            head_dim=D, max_position_embeddings=4096, tie_word_embeddings=True)
+        model = Llama(cfg, dtype=torch.bfloat16, device="cuda")
+        params = model.init_params(torch.Generator(device=model.device).manual_seed(0))
+        caches = model.alloc_kv_cache(used, BS)
+        first = spec_step_logits(torch, model, params, caches,
+                                 [(p, 0, None, True) for p in prompts], tables).argmax(-1)
+        seqs = [p + [int(t)] for p, t in zip(prompts, first.tolist())]
+        saved = [c.clone() for c in caches]
+        got = spec_step_logits(torch, model, params, caches,
+                               [(s, len(s) - 1, d, False) for s, d in zip(seqs, drafts)],
+                               tables).view(len(seqs), SPEC_K + 1, -1)
+        for c, c0 in zip(caches, saved):
+            c.copy_(c0)
+        want = torch.stack([spec_step_logits(
+            torch, model, params, caches,
+            [(s + d[:j], len(s) - 1 + j, None, False) for s, d in zip(seqs, drafts)], tables)
+            for j in range(SPEC_K + 1)], dim=1)
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"verify step ({layers} layers): logits {tuple(got.shape)}, "
+                                 f"finite {bool(torch.isfinite(got).all())}")
+        diff = (got - want).abs()
+        err = diff.max().item() / want.abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        log(f"verify step, 1B bf16 at {layers} layers, 8 sequences × {SPEC_K} drafts: logits at "
+            f"rows 0..{SPEC_K} against {SPEC_K + 1} decode steps: max |Δ logit| "
+            f"{diff.max().item():.4f} ({err:.3e} of the largest; tol {SPEC_VERIFY_TOL} at 2 "
+            f"layers), argmax agreement {agree:.1%}")
+        if layers == 2 and err > SPEC_VERIFY_TOL:
+            raise AssertionError(f"verify step: logits differ from the decode steps' by "
+                                 f"{err:.3e} of their largest (tol {SPEC_VERIFY_TOL})")
+        del model, params, caches, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_verify_kernels(torch):
+    """The kernels of a verify step on a 64-sequence verify batch (SPEC_K
+    drafts each, 1+K query rows a sequence, keys 16-2,047, T = S·(1+K) =
+    320), each against its plain version and timed beside its bound: the
+    write C and the ragged kernel A at the 1B attention shapes (bf16 cache),
+    the fused kernel B on the same sequences as one decode row each (a step
+    without drafts), the INT8 write and D at the 8B shapes over an INT8
+    cache, F at M = 320 (the 8B gate projection, INT8), and the merge after
+    A on 8 sequences of 1,800-2,047 keys (the spec services' S). Returns
+    the kernels line's verify rows, keyed ``kernel@verify``."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import kv_write
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+    from atoma_infer_tpu_torch.ops import quant
+    from atoma_infer_tpu_torch.ops import quant_kernels as qk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    keys = rng.integers(16, 2048, size=64)
+    specs = [(1 + SPEC_K, int(k)) for k in keys]
+    T = 64 * (1 + SPEC_K)
+    tol = ATTN_TOL["bfloat16"]
+    rows = {}
+    b = make_batch(rng, specs, dtype=torch.bfloat16, num_blocks=8192, decode_only=False,
+                   device=dev, T=T)
+    m, n = b["meta"], b["rows"]
+    got, want = b["cache"].clone(), b["cache"].clone()
+    kv_write.write_kv_cache_cuda(got, b["k"], b["v"], m.slot_mapping)
+    kv_write.write_kv_cache_plain(want, b["k"], b["v"], m.slot_mapping)
+    if not torch.equal(got, want):
+        raise AssertionError("reshape_and_cache (verify rows) is not bit-exact")
+    cache = got
+
+    def write():
+        kv_write.write_kv_cache_cuda(cache, b["k"], b["v"], m.slot_mapping)
+
+    # The library call: index_copy_ of the rows, K and V side by side, into
+    # the flattened slots (as phase 2 times C's).
+    slots = m.slot_mapping.long()
+    fused_rows = torch.stack([b["k"], b["v"]], 2).reshape(T, -1)
+    flat = cache.view(-1, cache.shape[-1])
+    rows["reshape_and_cache@verify"] = dict(
+        max_abs_err=0.0, ms=graph_ms(torch, write),
+        plain_ms=cuda_ms(lambda: kv_write.write_kv_cache_plain(
+            cache, b["k"], b["v"], m.slot_mapping)),
+        library_ms=graph_ms(torch, lambda: flat.index_copy_(0, slots, fused_rows)),
+        bytes=n * 2 * (2 * HK * D * 2) + T * 4, flops=0)
+    scale = D ** -0.5
+    out = pa.ragged_paged_attention_cuda(b["q"], cache, m, scale=scale)
+    ref = pa.ragged_paged_attention_paged_plain(b["q"], cache, m, scale=scale)
+    err = (out[:n].float() - ref[:n].float()).abs().max().item()
+    if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
+        raise AssertionError(f"ragged_paged_attention (verify rows) disagrees: {err:.3e}")
+    plan = pa.rpa_plan_for(b["q"], m, HK, None)
+    rows["ragged_paged_attention_mma@verify"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: pa.ragged_paged_attention_cuda(
+            b["q"], cache, m, scale=scale)),
+        plain_ms=cuda_ms(lambda: pa.ragged_paged_attention_paged_plain(
+            b["q"], cache, m, scale=scale), iters=3, warmup=1),
+        library_ms=None, **dict(zip(("bytes", "flops"), attention_work(specs, None, 2,
+                                                                      fused=False))))
+    # B on the same sequences, one decode row each (the step without drafts).
+    d = make_batch(rng, [(1, int(k)) for k in keys], dtype=torch.bfloat16, num_blocks=8192,
+                   decode_only=True, device=dev)
+    b_ms = cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+        d["q"], d["cache"], d["k"], d["v"], d["meta"], scale=scale))
+    b_bound, _ = bound(*attention_work([(1, int(k)) for k in keys], None, 2, fused=True),
+                       "bfloat16")
+    log(f"verify batch, 1B shapes (64 sequences × {1 + SPEC_K} rows, keys 16-2,047, plan "
+        f"{plan.warps} warps, {plan.tokens} tokens a tile, {plan.splits} splits at most): "
+        f"ragged (A) {rows['ragged_paged_attention_mma@verify']['ms']:.4f} ms, max |err| "
+        f"{err:.3e}; the fused kernel (B) on the same sequences as decode rows {b_ms:.4f} ms "
+        f"(bound {b_bound:.4f} ms), {1 + SPEC_K} such decode steps {(1 + SPEC_K) * b_ms:.4f} ms")
+    del b, d, cache, got, want, out, ref
+    # D: the INT8 write and the ragged kernel over an INT8 cache, 8B shapes.
+    b = make_batch(rng, specs, hq=32, hk=8, d=128, bs=16, dtype=torch.bfloat16,
+                   num_blocks=8192, decode_only=False, device=dev, T=T)
+    m = b["meta"]
+    err, cache8, scales8 = check_kv8(torch, b, "int8", "8B verify rows", tol, decode=False)
+
+    def write8():
+        kv8_write(cache8, scales8, b["k"], b["v"], m.slot_mapping, cuda=True)
+
+    rows["reshape_and_cache_int8@verify"] = dict(
+        max_abs_err=0.0, ms=graph_ms(torch, write8),
+        plain_ms=cuda_ms(lambda: kv8_write(cache8, scales8, b["k"], b["v"], m.slot_mapping,
+                                           cuda=False)),
+        library_ms=None, bytes=n * (2 * 8 * 128 * 2 + 2 * 8 * 128 + 4) + T * 4, flops=0)
+    s8 = 128 ** -0.5
+    rows["ragged_paged_attention_int8_mma@verify"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: pa.ragged_paged_attention_cuda(
+            b["q"], cache8, m, scale=s8, kv_scales=scales8)),
+        plain_ms=cuda_ms(lambda: pa.ragged_paged_attention_paged_plain(
+            b["q"], cache8, m, scale=s8, kv_scales=scales8), iters=3, warmup=1),
+        library_ms=None, **dict(zip(("bytes", "flops"), attention_work(
+            specs, None, 2, fused=False, kv_elt=1, slot_extra=4, hq=32, hk=8, d=128))))
+    log(f"verify batch, 8B shapes over an INT8 cache: D "
+        f"{rows['ragged_paged_attention_int8_mma@verify']['ms']:.4f} ms, max |err| {err:.3e}")
+    del b, cache8, scales8
+    torch.cuda.empty_cache()
+    # F at M = S·(1+K) rows: the 8B gate projection, INT8, groups of 128,
+    # enough weight copies that one pass does not fit in L2 (as in phase 2).
+    K_, N, group = QMM_SHAPES[QMM_LINE_SHAPE]
+    gen = torch.Generator(device=dev).manual_seed(22)
+    qt = quant.quantize_weight(torch.randn(K_, N, generator=gen, device=dev) * 0.02, 8, group)
+    copies = [qt] + [quant.QuantizedTensor(qt.qweight.clone(), qt.scales.clone(), 8, group)
+                     for _ in range(2)]
+    dense = [quant.dequantize_weight(c, torch.bfloat16) for c in copies]
+    x = torch.randn(T, K_, generator=gen, device=dev).to(torch.bfloat16)
+    got, kernel = routed(8, lambda: qk.quantized_matmul_cuda(x, qt.qweight, qt.scales, bits=8,
+                                                            group_size=group))
+    if kernel != "quantized_matmul_int8_mma":
+        raise AssertionError(f"F at M = {T}: {kernel} ran")
+    rel, err = rel_err(got, qk.quantized_matmul_plain(x, qt.qweight, qt.scales, bits=8,
+                                                      group_size=group))
+    if not rel <= QMM_TOL["bfloat16"]:
+        raise AssertionError(f"quantized_matmul_int8_mma at M = {T}: rel err {rel:.3e}")
+    nbytes, flops = qmm_work(T, K_, N, group, bits=8, x_bytes=2)
+    rows["quantized_matmul_int8_mma@verify"] = dict(
+        max_abs_err=err,
+        ms=graph_ms(torch, lambda: [qk.quantized_matmul_cuda(
+            x, c.qweight, c.scales, bits=8, group_size=group) for c in copies], iters=6) / 3,
+        plain_ms=graph_ms(torch, lambda: qk.quantized_matmul_plain(
+            x, qt.qweight, qt.scales, bits=8, group_size=group), iters=2),
+        library_ms=graph_ms(torch, lambda: [torch.mm(x, w) for w in dense], iters=6) / 3,
+        bytes=nbytes, flops=flops)
+    del copies, dense, qt, x, got
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"), "bfloat16")
+        log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']}), bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    rows["paged_attention_split_combine@verify"] = split_combine_row(
+        torch, "1B verify rows", hq=HQ, hk=HK, d=D,
+        specs=[(1 + SPEC_K, int(k)) for k in rng.integers(1800, 2048, size=8)],
+        T=8 * (1 + SPEC_K))
+    return rows
+
+
+def check_spec_service_parity(torch):
+    """``tiny_trained`` (f32) from its directory with SPEC_K drafts, on the
+    card (the CUDA-core kernels; decode and verify steps replaying graphs)
+    against the same service without drafts on the card and with them on
+    the CPU: greedy tokens identical in all three, the seeded sampled
+    request identical with and without drafts on the card (the card's and
+    the CPU's generators differ), drafts proposed and accepted."""
+    from atoma_infer_tpu_torch.config import (
+        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
+    )
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.server import metrics
+    from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
+
+    fixture = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
+    prompts = ["the cat sat on the mat. the cat sat on the mat. the", "abc abc abc abc abc",
+               "one two three one two three one", "hello world. hello world. hello"]
+    runs, drafts = {}, {}
+    for device, k in (("cuda", SPEC_K), ("cuda", 0), ("cpu", SPEC_K)):
+        config = EngineConfig(
+            model=ModelConfig(model_name=fixture, dtype="float32"),
+            cache=CacheConfig(block_size=16, num_device_blocks_override=64,
+                              num_host_blocks_override=16),
+            scheduler=SchedulerConfig(max_num_batched_tokens=256, max_num_sequences=8,
+                                      max_model_len=256, num_speculative_tokens=k,
+                                      spec_ngram_min=1),
+            validation=ValidationConfig(max_input_tokens=128, max_total_tokens=256),
+        )
+        service = LlmService.start(config, model_dir=fixture, device=device)
+        spec0 = (metrics.SPEC_PROPOSED.value, metrics.SPEC_ACCEPTED.value)
+
+        async def drive(service=service):
+            task = asyncio.create_task(service.engine.run())
+            futs = [await service.handle_request(GenerateRequest(
+                request_id=f"spec-parity-{i}", inputs=p,
+                parameters=GenerateParameters(
+                    max_new_tokens=48, do_sample=i == 3, temperature=0.8 if i == 3 else None,
+                    seed=5 if i == 3 else None)))
+                for i, p in enumerate(prompts)]
+            results = await asyncio.wait_for(asyncio.gather(*futs), timeout=300)
+            service.stop()
+            task.cancel()
+            return results
+
+        results = asyncio.run(drive())
+        runs[device, k] = [tuple(r.outputs[0].token_ids) for r in results]
+        drafts[device, k] = (metrics.SPEC_PROPOSED.value - spec0[0],
+                             metrics.SPEC_ACCEPTED.value - spec0[1])
+        if k and not drafts[device, k][1]:
+            raise AssertionError(f"spec service parity ({device}): no draft accepted")
+    greedy = [0, 1, 2]
+    if runs["cuda", SPEC_K] != runs["cuda", 0]:
+        raise AssertionError("spec service parity: tiny_trained f32 tokens on the card differ "
+                             "with and without drafts")
+    if [runs["cuda", SPEC_K][i] for i in greedy] != [runs["cpu", SPEC_K][i] for i in greedy]:
+        raise AssertionError("spec service parity: greedy tokens differ between card and CPU")
+    proposed, accepted = drafts["cuda", SPEC_K]
+    log(f"spec service parity: tiny_trained f32 with {SPEC_K} drafts, {len(prompts)} requests "
+        f"({sum(len(t) for t in runs['cuda', SPEC_K])} tokens): identical on the card with and "
+        f"without drafts (the seeded sampled one too), greedy identical on the CPU; drafts "
+        f"proposed {proposed:.0f}, accepted {accepted:.0f} on the card (CPU "
+        f"{drafts['cpu', SPEC_K][1]:.0f} of {drafts['cpu', SPEC_K][0]:.0f})")
+
+
+def seeded_score_gap(torch, model, params, prompt, tokens, j, a, b):
+    """How far apart tokens ``a`` and ``b`` are in the seeded request's
+    sampling at output position ``j`` (the scores it takes the argmax of:
+    logits over the temperature, top-p masked, plus the Gumbel noise of
+    (seed, step j)), the logits recomputed by one prefill of the prompt and
+    ``tokens[:j]`` on the card. Infinite where top-p masks either."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.engine.sampler import _top_p_mask, gumbel_noise
+    from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+
+    V = model.config.vocab_size
+    ids = ByteTokenizer(V).encode(prompt).ids + list(tokens[:j])
+    pages = -(-len(ids) // BS)
+    caches = model.alloc_kv_cache(pages, BS)
+    logits = spec_step_logits(torch, model, params, caches, [(ids, 0, None, True)],
+                              [list(range(pages))])
+    scores = _top_p_mask(logits / SEEDED_OPTIONS["temperature"],
+                         torch.tensor([SEEDED_OPTIONS["top_p"]], device=logits.device))[0]
+    scores = scores + gumbel_noise(np.array([SEEDED_OPTIONS["seed"]], np.uint32),
+                                   np.array([j], np.int32), np.array([0]), V, logits.device)[0]
+    return (scores[a] - scores[b]).abs().item()
+
+
+def compare_to_reference(label, got, want, top, seeded_gap):
+    """Hold a bf16 spec run's tokens to the same service's without drafts:
+    each greedy request token for token up to its first difference, which
+    must sit where the reference's top two logprobs are closer than
+    SPEC_TIE_TOL (compared no further). The seeded sampled request likewise:
+    identical up to a first difference where its two tokens' sampling
+    scores (``seeded_gap(j, a, b)``) are closer than SPEC_TIE_TOL over the
+    temperature, twice (the recomputed logits are a third rounding path).
+    Prints each request's common prefix."""
+    prefixes = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        n = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+        seeded = " (seeded)" if i == SEEDED_REQUEST else ""
+        if n == min(len(g), len(w)):
+            prefixes.append(f"{i}: {n}{seeded} (identical)")
+            continue
+        if i == SEEDED_REQUEST:
+            gap, tol = seeded_gap(n, g[n], w[n]), 2 * SPEC_TIE_TOL / SEEDED_OPTIONS["temperature"]
+            what = "sampling scores"
+        else:
+            alts = top[i][n]
+            gap, tol = alts[0][1] - alts[1][1], SPEC_TIE_TOL
+            what = "top two logprobs"
+        if not gap < tol:
+            raise AssertionError(
+                f"service {label}: request {i}{seeded} differs from the run without drafts at "
+                f"token {n} ({g[n]} against {w[n]}), where the reference's {what} are "
+                f"{gap:.4f} apart (near-tie tol {tol:.4f})")
+        prefixes.append(f"{i}: {n}{seeded} (then a near-tie of its {what}, gap {gap:.4f})")
+    log(f"service {label}: common prefix with the run without drafts, by request: "
+        + "; ".join(prefixes))
+
+
+def serve_spec(torch, label, model, params, make_config, path, ref_path, modes, reference,
+               new_tokens=OTHER_SERVICES_TOKENS):
+    """A bf16 service with SPEC_K drafts on SPEC_PROMPTS: first the same
+    service without drafts in ``reference`` mode, its requests asking the
+    top 2 logprobs; then in each of ``modes`` with drafts, held to it by
+    :func:`compare_to_reference`, its period and tokens/s printed beside the
+    reference's. ``make_config(async_scheduling, k)``. Returns the launch
+    counts of the last mode's run."""
+    ref = {}
+    _, want = serve(torch, f"{label} without drafts", model, params,
+                    make_config(reference == "async+graphs", 0), ref_path, mode=reference,
+                    new_tokens=new_tokens, prompts=SPEC_PROMPTS, top_n=2, stats=ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mode in modes:
+        st = {}
+        counts, got = serve(torch, label, model, params,
+                            make_config(mode == "async+graphs", SPEC_K), path, mode=mode,
+                            new_tokens=new_tokens, prompts=SPEC_PROMPTS, stats=st)
+        gc.collect()
+        torch.cuda.empty_cache()
+        compare_to_reference(
+            f"{label} [{mode}]", got, want, ref["top"],
+            lambda j, a, b: seeded_score_gap(torch, model, params,
+                                             SPEC_PROMPTS[SEEDED_REQUEST], want[SEEDED_REQUEST],
+                                             j, a, b))
+        p, rp = st["period"], ref["period"]
+        period = (f"steady period p50/p99 {p['p50']:.3f}/{p['p99']:.3f} ms against "
+                  f"{rp['p50']:.3f}/{rp['p99']:.3f} ms" if p and rp else "no steady period")
+        log(f"service {label} [{mode}] against [{reference}] without drafts: {period}; "
+            f"{st['tok_s']:.1f} against {ref['tok_s']:.1f} tokens/s over the whole window")
+    return counts
+
+
+def run_spec_service(torch):
+    """The bf16 Llama-3.2-1B service (16 layers) with SPEC_K drafts, 8
+    sequences: (a) eager and synchronous, (b) async with graphs after
+    ``warmup()``, each against the same service without drafts (async with
+    graphs). Returns (b)'s launches of the verify path, keyed
+    ``kernel@verify``."""
+    model, params = llama_1b_model(torch)
+    counts = serve_spec(
+        torch, "1B bf16 spec", model, params,
+        lambda a, k: bf16_config("llama-3.2-1b-random", BS, async_scheduling=a,
+                                 max_num_sequences=8, num_speculative_tokens=k),
+        SPEC_PATH, SERVICE_PATH, ("eager", "async+graphs"), "async+graphs")
+    return {f"{k}@verify": counts[k] for k in SPEC_PATH}
 
 
 def main() -> int:
@@ -3568,17 +4210,20 @@ def main() -> int:
     phase(check_prefill_chunk)
     phase(check_gqa_block_kernels)
     wide_rows = phase(check_wide_head_kernels)
+    verify_rows = phase(check_verify_kernels)
     rows.update(phase(check_probe_kernels))
     phase(check_model)
     phase(check_quant_model)
     phase(check_kv8_model)
     phase(check_family_models)
+    phase(check_verify_step)
     # The f32 services are the CUDA-core kernels' path: F and G's CUDA-core
     # route and the CUDA-core ragged kernels (A, D, E on f32 queries).
     launches_cuda_cores = phase(check_service_parity)
     launches_cuda_cores.update(phase(check_quant_service_parity))
     launches_cuda_cores.update(phase(check_kv8_service_parity))
     phase(check_ladder_parity)
+    phase(check_spec_service_parity)
     # The profiler's first start sets up device tracing, which takes
     # seconds: do it here, outside the services' runs.
     profile_device(torch, lambda: torch.ones(1, device="cuda") + 1)
@@ -3586,6 +4231,9 @@ def main() -> int:
     gc.collect()  # the finished service's KV pool
     torch.cuda.empty_cache()
     phase(run_http_server)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_launches = phase(run_spec_service)
     gc.collect()
     torch.cuda.empty_cache()
     phase(run_shape_services)
@@ -3599,6 +4247,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(phase(run_probe))
     launches.update(launches_cuda_cores)
+    # The verify rows' launches: the 1B and the 8B spec services' runs with
+    # graphs (the merge runs in both).
+    for key, n in spec_launches.items():
+        launches[key] = launches.get(key, 0) + n
+    for key in verify_rows:
+        if not launches.get(key):
+            raise AssertionError(f"{key.split('@')[0]} was not launched on a spec service")
     phase(run_tools)
 
     line = []
@@ -3608,6 +4263,7 @@ def main() -> int:
     named = [(name, name, rows[name]) for name in cuda_lib.KERNELS]
     named += [(key, f"{key.split('@')[0]} (D={key.split('@')[1]})", r)
               for key, r in wide_rows.items()]
+    named += [(key, f"{key.split('@')[0]} (verify rows)", r) for key, r in verify_rows.items()]
     for key, name, r in named:
         kernel = cuda_lib.KERNELS[key.split("@")[0]]
         line.append(dict(

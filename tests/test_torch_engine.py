@@ -411,14 +411,10 @@ def test_service_greedy_tokens_match_jax(name):
     ({"inference": {"tensor_parallel_size": 2}}, "parallelism"),
     ({"inference": {"pipeline_parallel_size": 2}}, "parallelism"),
     ({"inference": {"num_hosts": 2}}, "parallelism"),
-    # Async scheduling is ported; beside speculative decoding it is refused
-    # for the drafts.
-    ({"scheduler": {"async_scheduling": True, "num_speculative_tokens": 2}},
-     "speculative decoding"),
     ({"cache": {"enable_prefix_caching": True}}, "prefix caching"),
     # No kernel takes fp16: refused at start, not a KeyError in the loader.
     ({"inference": {"dtype": "float16"}}, "float16 instantiations of A–H"),
-], ids=["tp", "pp", "multihost", "async", "prefix_caching", "float16"])
+], ids=["tp", "pp", "multihost", "prefix_caching", "float16"])
 def test_service_rejects_unported_features(raw, item):
     from atoma_infer_tpu_torch.config import EngineConfig
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
@@ -428,6 +424,63 @@ def test_service_rejects_unported_features(raw, item):
     raw.setdefault("scheduler", {})["max_model_len"] = 2048
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1: {item}"):
         LlmService.start(EngineConfig.from_dict(raw), device="cpu")
+
+
+def test_async_service_with_speculation_serves_like_jax():
+    """Async scheduling beside speculative decoding (K = 3) starts and
+    serves ``tiny_trained`` token-identical to the JAX async service with
+    the same K; every step that carries drafts runs synchronously: nothing
+    is in flight when it is dispatched, and it takes no feed."""
+    from atoma_infer_tpu_torch.models.weights import params_from_numpy
+
+    (jmodel, jparams, jtok), (pmodel, ptok) = _tiny_trained()
+    prompts = ["the cat sat on the mat. the cat sat on the", "one two three one two three"]
+    results, dispatched = {}, []
+    for pkg in (JAX, PORT):
+        cfg, types = mod(pkg, "config"), mod(pkg, "types")
+        config = cfg.EngineConfig(
+            model=cfg.ModelConfig(model_name="injected", dtype="float32"),
+            cache=cfg.CacheConfig(block_size=16, num_device_blocks_override=64,
+                                  num_host_blocks_override=0),
+            scheduler=cfg.SchedulerConfig(
+                max_num_batched_tokens=256, max_num_sequences=8, max_model_len=256,
+                use_native_core=False, async_scheduling=True, num_speculative_tokens=3,
+                spec_ngram_min=1),
+            validation=cfg.ValidationConfig(max_input_tokens=128, max_total_tokens=256),
+        )
+        service_mod = mod(pkg, "engine.llm_service")
+        if pkg == JAX:
+            service = service_mod.LlmService.start(config, model=jmodel, params=jparams,
+                                                   tokenizer=jtok)
+        else:
+            service = service_mod.LlmService.start(
+                config, model=pmodel, params=params_from_numpy(jparams), tokenizer=ptok,
+                device="cpu")
+            engine, dispatch = service.engine, service.engine.worker.dispatch
+
+            def spy(request, feed=None, engine=engine, dispatch=dispatch):
+                drafts = any(m.spec_token_ids for m in request.sequence_groups_metadata)
+                dispatched.append((drafts, feed is not None, len(engine._async_queue)))
+                return dispatch(request, feed=feed)
+
+            engine.worker.dispatch = spy
+
+        async def scenario(service=service, types=types):
+            task = asyncio.create_task(service.engine.run())
+            futs = [await service.handle_request(types.GenerateRequest(
+                request_id=f"req-{i}", inputs=p,
+                parameters=types.GenerateParameters(max_new_tokens=30)))
+                for i, p in enumerate(prompts)]
+            out = await asyncio.wait_for(asyncio.gather(*futs), timeout=120)
+            service.stop()
+            task.cancel()
+            return [(tuple(r.outputs[0].token_ids), r.outputs[0].output_text) for r in out]
+
+        results[pkg] = asyncio.run(scenario())
+    assert results[PORT] == results[JAX]
+    verify = [(feed, in_flight) for drafts, feed, in_flight in dispatched if drafts]
+    assert verify and all(step == (False, 0) for step in verify)
+    assert any(feed for drafts, feed, _ in dispatched if not drafts), "no step ran ahead"
 
 
 def test_float16_model_directory_is_refused_before_loading():
