@@ -10,7 +10,9 @@ tensors take.
 Layer map (mirrors the JAX package):
   server/  — the OpenAI-compatible HTTP server (copies)
   engine/  — service admission, continuous batching (sync or async), worker,
-             pure-decode CUDA graphs, sampling
+             pure-decode CUDA graphs, sampling, the tensor-parallel lockstep
+  parallel/ — tensor parallelism across processes: rank groups and their
+             collectives, sharding rules, the step broadcast
   core/    — scheduler + paged-KV block manager (copies)
   models/  — Llama in PyTorch over per-layer paged caches
   ops/     — CUDA kernels + plain versions, attention dispatch

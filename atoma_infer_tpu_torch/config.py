@@ -10,10 +10,11 @@ pools from free accelerator memory (:590-643) via ``torch.cuda.mem_get_info``
 The PyTorch port's copy of ``atoma_infer_tpu/config.py``: the dataclasses are
 identical; the free-device-memory probe differs, and so does the INT8 KV
 scale storage that ``CacheConfig.block_bytes`` counts (two bf16 per slot,
-not the TPU's 128-lane page). The fields not ported yet (``num_hosts``,
-``tensor_parallel_size`` > 1, ``pipeline_parallel_size`` > 1) are parsed
-but rejected by the port's ``LlmService.start`` until their ROADMAP items
-land.
+not the TPU's 128-lane page). ``tensor_parallel_size`` > 1 runs one
+process per rank (``LlmService.start``), and ``num_hosts``, ``host_id``
+and ``coordinator_address`` spread the ranks over hosts; the field not
+ported yet (``pipeline_parallel_size`` > 1) is parsed but rejected by the
+port's ``LlmService.start`` until its ROADMAP item lands.
 """
 
 from __future__ import annotations
@@ -47,20 +48,24 @@ class ModelConfig:
     api_key: Optional[str] = None
     flush_storage: bool = False
     num_tokenizer_workers: int = 4
-    # TPU replaces the reference's explicit GPU device-id list
-    # (config.rs device_ids) with a mesh shape over jax.devices().
-    num_devices: Optional[int] = None  # None = all local devices
+    # The CUDA devices a host's tensor-parallel ranks use, in order (the
+    # reference's device-id list, config.rs device_ids). None = every
+    # local device; ranks share cards when there are fewer than ranks.
+    num_devices: Optional[int] = None
+    # Tensor parallelism: one process per rank, each holding its shard of
+    # the weights and kv heads (parallel/sharding.py), collectives over
+    # torch.distributed (parallel/group.py: nccl with a card per rank,
+    # gloo through host memory when ranks share a card, gloo on the CPU).
     tensor_parallel_size: int = 1
-    # Pipeline parallelism (beyond the reference, SURVEY.md §2.6): layers
-    # split into contiguous stages, each tensor-parallel over its own
-    # tp-mesh; the engine pipelines per-cohort steps across stages
-    # (parallel/pipeline.py, engine/pp_worker.py). Total devices used =
-    # pipeline_parallel_size × tensor_parallel_size.
+    # Pipeline parallelism (beyond the reference, SURVEY.md §2.6): not
+    # ported yet (ROADMAP.md, Queue 1); LlmService.start refuses it.
     pipeline_parallel_size: int = 1
-    # Multi-host serving (BASELINE config #5): join a cross-host
-    # jax.distributed runtime before any device enumeration; the mesh then
-    # spans all hosts' chips and the scheduler is replicated per host
-    # (parallel/distributed.py). num_hosts None/1 = single-host.
+    # Multi-host serving (BASELINE config #5): each host runs
+    # tensor_parallel_size / num_hosts of the ranks (rank = host_id ·
+    # local + i), all joining the rendezvous at coordinator_address
+    # ("host:port"); the scheduler is replicated on every rank and rank 0
+    # broadcasts each step's admissions (parallel/distributed.py,
+    # engine/multihost.py). num_hosts None/1 = single-host.
     num_hosts: Optional[int] = None
     host_id: Optional[int] = None
     coordinator_address: Optional[str] = None
@@ -183,6 +188,7 @@ class CacheConfig:
         devices: Optional[list] = None,
         scale_pages: bool = False,
         reserve_bytes: int = 0,
+        share: int = 1,
     ) -> None:
         """Size the device/host block pools from live memory stats.
 
@@ -190,9 +196,11 @@ class CacheConfig:
         (config.rs:590-643), through ``torch.cuda.mem_get_info``: takes the
         minimum free device memory across devices, less ``reserve_bytes``
         (what the decode steps' CUDA graphs will hold), ×
-        ``hbm_memory_utilization`` ÷ per-block bytes (an INT8 cache's scales
-        counted when ``scale_pages``). Must run AFTER weights are loaded so
-        "free" reflects weight residency.
+        ``hbm_memory_utilization`` ÷ ``share`` (the tensor-parallel ranks
+        still to size their pools on the same card, this one included) ÷
+        per-block bytes (an INT8 cache's scales counted when
+        ``scale_pages``). Must run AFTER weights are loaded so "free"
+        reflects weight residency.
         """
         per_block = self.block_bytes(
             num_layers, num_kv_heads, head_dim, kv_dtype_size, scale_pages
@@ -209,7 +217,8 @@ class CacheConfig:
                 self.num_device_blocks = 512
             else:
                 self.num_device_blocks = int(
-                    max(0, free - reserve_bytes) * self.hbm_memory_utilization // per_block
+                    max(0, free - reserve_bytes) * self.hbm_memory_utilization / share
+                    // per_block
                 )
         if self.num_host_blocks is None:
             free_ram = _free_host_memory()

@@ -3,9 +3,13 @@
 // blocks. The same function as fused_decode_kernel (paged_attention.cuh) and
 // as the plain version (ops/paged_attention.py: fused_decode_attention_plain):
 // each decode row stores its new K/V slice in its slot (INT8: quantized with
-// the token's per-slot scales from the whole K and V rows; e4m3: clipped to
-// ±448 and rounded), then attends over its cache, the new position read
-// back in the cache's type.
+// the token's per-slot scales from the whole K and V rows, or from
+// scales_new where the caller passes them; e4m3: clipped to ±448 and
+// rounded), then attends over its cache, the new position read back in the
+// cache's type. Under tensor parallelism a rank's K and V rows hold only its
+// kv heads, so the model passes each token's scales taken over every rank's
+// heads in scales_new ([T, 2] f32, rounded through bf16; JAX's scales_new at
+// ops/paged_attention.py:1143,1157).
 //
 // Replaces the TPU kernel atoma_infer_tpu/ops/paged_attention.py:_kernel
 // (:139) with fuse_write=True, reached through ragged_paged_attention_fused
@@ -32,7 +36,8 @@
 //    atomics). No host read of seq_lens: the launch is CUDA-graph capturable.
 //  * The write happens once: only the last split, whose range holds pos =
 //    seq_len - 1, stores the new slice (and, for INT8, computes the row's
-//    absmax; its h = 0 block stores the slot's scales), then attends it from
+//    absmax or reads scales_new; its h = 0 block stores the slot's scales),
+//    then attends it from
 //    the cache after its barrier; the current slot's scales come from its
 //    registers. No other split reads the slot, so blocks never race.
 //  * Each warp takes 32 keys a round. Their K rows come through the warp's
@@ -175,7 +180,8 @@ __device__ __forceinline__ uint32_t key_pair(const uint32_t* lo, const uint32_t*
 }
 
 // q, k_new, v_new: bf16 [T, H, D] (H = Hq or Hk); cache [pages, block_size,
-// 2 Hk D] of C; scales: bf16 [pages, block_size, 2] (INT8) or null; out bf16
+// 2 Hk D] of C; scales: bf16 [pages, block_size, 2] (INT8) or null;
+// scales_new: f32 [T, 2] (INT8, the new tokens' scales) or null; out bf16
 // [T, Hq, D]; ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq, 2]
 // when splits > 1. Grid (Hk, sequence slots, splits), kFsWarps * 32 threads,
 // fs_smem_bytes<C, D, G>() bytes of dynamic shared memory.
@@ -183,8 +189,9 @@ template <typename C, int D, int G>
 __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
     const __nv_bfloat16* __restrict__ v_new, C* cache, __nv_bfloat16* scales,
-    const int* __restrict__ slot_mapping, const int* __restrict__ block_tables,
-    const int* __restrict__ seq_lens, const int* __restrict__ query_start_loc,
+    const float* __restrict__ scales_new, const int* __restrict__ slot_mapping,
+    const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
+    const int* __restrict__ query_start_loc,
     const int* __restrict__ num_seqs, const float* __restrict__ alibi,
     __nv_bfloat16* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
     int num_tokens, int num_kv_heads, int max_pages, int block_size, long long num_slots,
@@ -236,11 +243,18 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
   float k_sc = 1.f, v_sc = 1.f, inv_k = 1.f, inv_v = 1.f;
   if constexpr (kScaled<C>) {
     if (last) {  // block-uniform: row_absmax holds a barrier
-      const __nv_bfloat16* kn_row = k_new + (long long)t * num_kv_heads * D;
-      const __nv_bfloat16* vn_row = v_new + (long long)t * num_kv_heads * D;
-      float mk, mv;
-      row_absmax(kn_row, vn_row, num_kv_heads * D, red_s, mk, mv);
-      const __nv_bfloat16 bk = kv_scale(mk), bv = kv_scale(mv);
+      __nv_bfloat16 bk, bv;
+      if (scales_new != nullptr) {  // grid-uniform
+        bk = __float2bfloat16_rn(scales_new[2 * t]);
+        bv = __float2bfloat16_rn(scales_new[2 * t + 1]);
+      } else {
+        const __nv_bfloat16* kn_row = k_new + (long long)t * num_kv_heads * D;
+        const __nv_bfloat16* vn_row = v_new + (long long)t * num_kv_heads * D;
+        float mk, mv;
+        row_absmax(kn_row, vn_row, num_kv_heads * D, red_s, mk, mv);
+        bk = kv_scale(mk);
+        bv = kv_scale(mv);
+      }
       k_sc = __bfloat162float(bk);
       v_sc = __bfloat162float(bv);
       inv_k = 1.f / k_sc;
@@ -531,8 +545,9 @@ int fused_split_blocks_per_sm() {
 
 template <typename C>
 int fused_split_entry(const void* q, const void* k_new, const void* v_new, void* cache,
-                      void* scales, const void* slot_mapping, const void* block_tables,
-                      const void* seq_lens, const void* query_start_loc, const void* num_seqs,
+                      void* scales, const void* scales_new, const void* slot_mapping,
+                      const void* block_tables, const void* seq_lens,
+                      const void* query_start_loc, const void* num_seqs,
                       const void* alibi, void* out, void* ws_o, void* ws_ml, int num_tokens,
                       int num_seq_slots, int num_q_heads, int num_kv_heads, int head_dim,
                       int max_pages, int block_size, long long num_slots, int splits,
@@ -555,7 +570,8 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
     if (opt_in != cudaSuccess) return (int)opt_in;                                             \
     fused_split_kernel<C, D, G><<<grid, kFsWarps * 32, fs_smem_bytes<C, D, G>(), st>>>(       \
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,     \
-        (C*)cache, (__nv_bfloat16*)scales, (const int*)slot_mapping, (const int*)block_tables, \
+        (C*)cache, (__nv_bfloat16*)scales, (const float*)scales_new, (const int*)slot_mapping,  \
+        (const int*)block_tables,                                                              \
         (const int*)seq_lens, (const int*)query_start_loc, (const int*)num_seqs,               \
         (const float*)alibi, (__nv_bfloat16*)out, (float*)ws_o, (float*)ws_ml, num_tokens,    \
         num_kv_heads, max_pages, block_size, num_slots, splits, min_tiles, scale, window,      \
@@ -619,7 +635,9 @@ int fused_split_blocks_per_sm_entry(int head_dim, int group) {
 }  // namespace atoma
 
 // The split fused-decode entry points of one cache kind (C its element
-// type): q, k_new, v_new and out bf16; the rest as the fused entry's, plus
+// type): q, k_new, v_new and out bf16; scales_new f32 [T, 2] or null (INT8:
+// the new tokens' scales, else taken from their rows); the rest as the fused
+// entry's, plus
 // ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq, 2] when splits
 // > 1 (else null), the most splits a row takes and the fewest 64-key tiles
 // a split holds. The merge of split rows is a separate launch
@@ -627,13 +645,14 @@ int fused_split_blocks_per_sm_entry(int head_dim, int group) {
 #define ATOMA_FUSED_SPLIT_ENTRIES(SUFFIX, C)                                                  \
   extern "C" int atoma_fused_decode_attention_split##SUFFIX(                                  \
       const void* q, const void* k_new, const void* v_new, void* cache, void* scales,        \
-      const void* slot_mapping, const void* block_tables, const void* seq_lens,              \
-      const void* query_start_loc, const void* num_seqs, const void* alibi, void* out,       \
+      const void* scales_new, const void* slot_mapping, const void* block_tables,            \
+      const void* seq_lens, const void* query_start_loc, const void* num_seqs,               \
+      const void* alibi, void* out,                                                          \
       void* ws_o, void* ws_ml, int num_tokens, int num_seq_slots, int num_q_heads,           \
       int num_kv_heads, int head_dim, int max_pages, int block_size, long long num_slots,    \
       int splits, int min_tiles, float scale, int window, float soft_cap, void* stream) {    \
     return atoma::fused_split_entry<C>(                                                      \
-        q, k_new, v_new, cache, scales, slot_mapping, block_tables, seq_lens,                \
+        q, k_new, v_new, cache, scales, scales_new, slot_mapping, block_tables, seq_lens,    \
         query_start_loc, num_seqs, alibi, out, ws_o, ws_ml, num_tokens, num_seq_slots,       \
         num_q_heads, num_kv_heads, head_dim, max_pages, block_size, num_slots, splits,       \
         min_tiles, scale, window, soft_cap, stream);                                         \

@@ -19,6 +19,10 @@
 // kv_write.py:131-136,181), or INT8 with each token's K and V scales computed
 // from the absmax of its whole K and V rows, then stored beside the row
 // (write_kv_cache_quant, ops/kv_cache.py:165-186, XLA in the JAX package).
+// Under tensor parallelism a rank's rows hold only its kv heads, so the
+// caller passes the token's scales, taken over every rank's heads, in
+// scales_new ([T, 2] f32, already rounded through bf16; JAX's scales= at
+// ops/attention.py:377-400), and the kernel stores those instead.
 // Still bound by bytes: the inputs in, half as many bytes out per element.
 // The conversions (kv_quant.cuh) give the plain versions' bytes exactly.
 
@@ -87,13 +91,15 @@ extern "C" int atoma_kv_write(const void* k_new, const void* v_new,
 namespace {
 
 // One block per token. Element i of the cache row is head i / (2D), K half
-// if i % (2D) < D; ``scales`` ([num_slots, 2] bf16) is written for INT8 only.
+// if i % (2D) < D; ``scales`` ([num_slots, 2] bf16) is written for INT8 only,
+// from ``scales_new`` ([T, 2] f32) when it is set, else from the row's absmax.
 template <typename T, typename C>
 __global__ void kv_write_convert_kernel(const T* __restrict__ k_new,
                                         const T* __restrict__ v_new,
                                         const int* __restrict__ slot_mapping,
                                         C* __restrict__ cache,
                                         __nv_bfloat16* __restrict__ scales,
+                                        const float* __restrict__ scales_new,
                                         int num_kv_heads, int head_dim,
                                         long long num_slots) {
   __shared__ float red[64];
@@ -105,9 +111,16 @@ __global__ void kv_write_convert_kernel(const T* __restrict__ k_new,
   const T* v = v_new + (long long)t * n;
   float inv_k = 1.f, inv_v = 1.f;
   if constexpr (atoma::kScaled<C>) {
-    float mk, mv;
-    atoma::row_absmax(k, v, n, red, mk, mv);
-    const __nv_bfloat16 sk = atoma::kv_scale(mk), sv = atoma::kv_scale(mv);
+    __nv_bfloat16 sk, sv;
+    if (scales_new != nullptr) {  // uniform over the grid
+      sk = __float2bfloat16_rn(scales_new[2 * t]);
+      sv = __float2bfloat16_rn(scales_new[2 * t + 1]);
+    } else {
+      float mk, mv;
+      atoma::row_absmax(k, v, n, red, mk, mv);
+      sk = atoma::kv_scale(mk);
+      sv = atoma::kv_scale(mv);
+    }
     inv_k = 1.f / __bfloat162float(sk);
     inv_v = 1.f / __bfloat162float(sv);
     if (threadIdx.x == 0) {
@@ -126,7 +139,8 @@ __global__ void kv_write_convert_kernel(const T* __restrict__ k_new,
 
 template <typename C>
 int launch_convert(int dtype, const void* k, const void* v, const void* slots,
-                   void* cache, void* scales, int num_tokens, int num_kv_heads,
+                   void* cache, void* scales, const void* scales_new,
+                   int num_tokens, int num_kv_heads,
                    int head_dim, long long num_slots, void* stream) {
   if (num_tokens <= 0) return 0;
   int threads = 2 * num_kv_heads * head_dim;
@@ -135,7 +149,8 @@ int launch_convert(int dtype, const void* k, const void* v, const void* slots,
 #define ATOMA_CONVERT(T)                                                      \
   kv_write_convert_kernel<T, C><<<num_tokens, threads, 0, s>>>(               \
       (const T*)k, (const T*)v, (const int*)slots, (C*)cache,                 \
-      (__nv_bfloat16*)scales, num_kv_heads, head_dim, num_slots)
+      (__nv_bfloat16*)scales, (const float*)scales_new, num_kv_heads,         \
+      head_dim, num_slots)
   if (dtype == 0) {
     ATOMA_CONVERT(float);
   } else if (dtype == 1) {
@@ -156,15 +171,19 @@ extern "C" int atoma_kv_write_fp8(int dtype, const void* k_new, const void* v_ne
                                   int num_tokens, int num_kv_heads, int head_dim,
                                   long long num_slots, void* stream) {
   return launch_convert<__nv_fp8_e4m3>(dtype, k_new, v_new, slot_mapping, cache,
-                                       nullptr, num_tokens, num_kv_heads, head_dim,
-                                       num_slots, stream);
+                                       nullptr, nullptr, num_tokens, num_kv_heads,
+                                       head_dim, num_slots, stream);
 }
 
-// As above into an int8 cache, plus scales [num_slots, 2] bf16 (K, V).
+// As above into an int8 cache, plus scales [num_slots, 2] bf16 (K, V);
+// scales_new: null, or the tokens' scales [T, 2] f32 to store instead of the
+// rows' own.
 extern "C" int atoma_kv_write_int8(int dtype, const void* k_new, const void* v_new,
                                    const void* slot_mapping, void* cache,
-                                   void* scales, int num_tokens, int num_kv_heads,
+                                   void* scales, const void* scales_new,
+                                   int num_tokens, int num_kv_heads,
                                    int head_dim, long long num_slots, void* stream) {
   return launch_convert<int8_t>(dtype, k_new, v_new, slot_mapping, cache, scales,
-                                num_tokens, num_kv_heads, head_dim, num_slots, stream);
+                                scales_new, num_tokens, num_kv_heads, head_dim,
+                                num_slots, stream);
 }

@@ -12,6 +12,12 @@ The cache dtype is the model's, ``torch.int8`` (INT8 KV: one
 ``[L, host_blocks, bs, 2·Hk·D]`` tensor in the SAME dtype as the device cache
 (plus ``host_scales`` for INT8; pinned when the cache is on CUDA), and swaps
 and copies move scales with their pages, so a swap round trip is bit-exact.
+
+Under tensor parallelism each rank's engine holds its own kv heads
+(``num_kv_heads`` is the rank's, ``Llama.local_kv_heads``); the INT8 scales
+are the same on every rank, as the JAX package replicates them
+(``atoma_infer_tpu/engine/cache_engine.py:66-85``), because the model takes
+them over every rank's heads.
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ The PyTorch port's copy of ``atoma_infer_tpu/engine/llm_engine.py``, single
 cohort: the synchronous path and async scheduling (steps dispatched ahead of
 their predecessors' tokens, ``async_depth`` in flight), and speculative
 decoding's multi-token advance (a verify step appends each sequence's
-accepted drafts and the token after them, and runs synchronously). Pipeline cohorts and
-the multi-host lockstep hook are not ported yet (ROADMAP.md, Queue 1).
+accepted drafts and the token after them, and runs synchronously), and the
+lockstep hook of tensor parallelism (``pre_step``, set by
+``engine/multihost.py`` on rank 0). Pipeline cohorts are not ported yet
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -114,6 +116,14 @@ class LlmEngine:
         self._stream_queues: Dict[str, asyncio.Queue] = {}
         self._new_requests: asyncio.Queue = asyncio.Queue()
         self._pending_aborts: queue.SimpleQueue = queue.SimpleQueue()
+        # Lockstep (pre_step set): admissions and aborts must be applied
+        # locally at the exact point they are broadcast, or a request
+        # arriving mid-burst is scheduled on followers steps before rank 0
+        # and the replicated schedulers diverge. The run loop defers
+        # admission to pre_step through this backlog, and _drain_aborts
+        # consumes only the abort set pre_step snapshotted and broadcast.
+        self._admit_backlog: List[SequenceGroup] = []
+        self._abort_snapshot: List[str] = []
         self._stopping = False
         self._patched_tokens = 0
         self._consecutive_failures = 0
@@ -172,12 +182,20 @@ class LlmEngine:
     def _drain_aborts(self) -> None:
         """Apply queued aborts at the top of step() — the only place
         scheduler state is mutated for aborts (single-threaded with the
-        rest of step)."""
-        while True:
-            try:
-                request_id = self._pending_aborts.get_nowait()
-            except queue.Empty:
-                return
+        rest of step). Under lockstep (pre_step set) only the snapshot
+        pre_step broadcast this step is applied; anything newer waits for
+        the next step's broadcast so followers abort in the same step."""
+        if self.pre_step is not None:
+            ids = self._abort_snapshot
+            self._abort_snapshot = []
+        else:
+            ids = []
+            while True:
+                try:
+                    ids.append(self._pending_aborts.get_nowait())
+                except queue.Empty:
+                    break
+        for request_id in ids:
             group = self._groups.get(request_id)
             if group is not None and any(
                 sid in rows for _, _, rows in self._async_queue for sid in group.sequences
@@ -200,10 +218,15 @@ class LlmEngine:
                 group = await self._new_requests.get()
                 if group is None:  # shutdown sentinel
                     break
-                self.scheduler.add_sequence_group(group)
+                if self.pre_step is None:
+                    self._scheduler_for(group).add_sequence_group(group)
+                else:
+                    # Lockstep: pre_step admits and broadcasts atomically.
+                    self._admit_backlog.append(group)
                 # Batching delay: let more requests arrive (ref :121-124).
                 await asyncio.sleep(IDLE_BATCHING_DELAY_S)
-            self._drain_new_requests()
+            if self.pre_step is None:
+                self._drain_new_requests()
             try:
                 await loop.run_in_executor(None, self._step_burst)
                 self._consecutive_failures = 0
@@ -268,7 +291,13 @@ class LlmEngine:
         self._new_requests.put_nowait(None)
 
     def _has_unfinished(self) -> bool:
-        return bool(self._async_queue) or self.scheduler.has_unfinished_seqs()
+        return (bool(self._async_queue) or bool(self._admit_backlog)
+                or self.scheduler.has_unfinished_seqs())
+
+    def _scheduler_for(self, group: SequenceGroup):
+        """The scheduler a group is admitted to: the one there is (the JAX
+        engine picks a pipeline cohort's)."""
+        return self.scheduler
 
     def _drain_new_requests(self) -> None:
         while True:
@@ -277,12 +306,19 @@ class LlmEngine:
             except asyncio.QueueEmpty:
                 return
             if group is not None:
-                self.scheduler.add_sequence_group(group)
+                self._scheduler_for(group).add_sequence_group(group)
 
     # ------------------------------------------------------------------- step
+    # The lockstep hook (engine/multihost.py): rank 0's PrimarySync
+    # broadcasts the step's admission delta here, so that every rank's
+    # replicated scheduler sees the identical request stream.
+    pre_step = None
+
     @instrument("engine.step")
     def step(self) -> List[GenerateRequestOutput]:
         """One engine iteration (ref: llm_engine.rs:216-245)."""
+        if self.pre_step is not None:
+            self.pre_step()
         self._drain_aborts()
         metadata, outputs = self.scheduler.schedule()
         metrics.ENGINE_STEPS.inc()

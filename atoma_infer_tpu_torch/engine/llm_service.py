@@ -7,10 +7,17 @@ Sequence/SequenceGroup with per-request sampling params → engine, :318-388)
 and shutdown (:404-442), on ONE device. The KV pool is sized after the
 weights are resident (SURVEY.md §3.1), from ``torch.cuda.mem_get_info``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): multi-host serving, tensor and pipeline parallelism, prefix caching,
-float16 (no kernel takes fp16 yet), and the native (C++) block manager —
-the port always uses the Python one. Async scheduling (``async_scheduling``,
+Tensor parallelism (``tensor_parallel_size`` > 1) runs one process per
+rank: ``start`` spawns the host's other ranks, each building the same
+service on its own device (or sharing a card) with its shard of the weights
+and KV heads, and returns rank 0's service, whose engine broadcasts every
+step's admissions to the followers (``engine/multihost.py``). Multi-host
+(``num_hosts``, ``host_id``, ``coordinator_address``) is the same code with
+the ranks spread over hosts. Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP.md item): pipeline parallelism,
+prefix caching, float16 (no kernel takes fp16 yet), CUDA graphs of
+tensor-parallel steps (``warmup`` under TP), and the native (C++) block
+manager — the port always uses the Python one. Async scheduling (``async_scheduling``,
 ``async_depth``) is ported, and so is ``warmup``, which on the card captures
 the decode and verify steps' CUDA graphs of the buckets it reaches before
 traffic (``engine/cuda_graphs.py``). So is speculative decoding
@@ -28,18 +35,23 @@ refused before anything is loaded.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import itertools
 import logging
 import os
 import shutil
+import socket
 import time
-from typing import Optional
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import EngineConfig
 from ..core.scheduler import Scheduler
+from ..parallel.distributed import init_distributed, rendezvous
+from ..parallel.group import local_device
+from ..parallel.sharding import check_divisibility, kv_repeat, shard_params
 from ..sequence import Sequence, SequenceGroup
 from ..types import GenerateParameters, GenerateRequest
 from ..utils.device import resolve_device
@@ -73,8 +85,6 @@ def _reject_unported(config: EngineConfig) -> None:
     """Raise for every configured feature the port does not have yet."""
     m, c = config.model, config.cache
     unported = [
-        ((m.num_hosts or 1) > 1, "multi-host serving", "parallelism"),
-        (m.tensor_parallel_size > 1, "tensor parallelism", "parallelism"),
         (m.pipeline_parallel_size > 1, "pipeline parallelism", "parallelism"),
         (c.enable_prefix_caching, "prefix caching", "prefix caching"),
         (m.dtype == "float16", "float16", "float16 instantiations of A–H"),
@@ -89,20 +99,85 @@ def _reject_unported(config: EngineConfig) -> None:
 def check_kernel_shapes(model_config, config: EngineConfig) -> None:
     """Raise ``ValueError``, naming the ROADMAP.md item, when the card has
     no attention kernel for the model's shapes served as ``config`` says:
-    its head dim and GQA group, the activations' dtype and the KV cache's
+    its head dim and a rank's GQA group (its q heads over its kv heads,
+    copies of a kv head counted when ``tensor_parallel_size`` is wider than
+    the kv heads), the activations' dtype and the KV cache's
     (``ops/paged_attention.py`` ``check_kernel_shape``, which the kernels'
     wrappers call too), for prefill and mixed steps (the ragged kernel) and
     for pure-decode steps (the fused one). ``LlmService.start`` calls it on
     the card before anything is loaded or allocated."""
     from ..ops.paged_attention import check_kernel_shape
 
+    hq, hk = model_config.num_attention_heads, model_config.num_key_value_heads
+    hk *= kv_repeat(config.model.tensor_parallel_size, hk)
     for fused in (False, True):
         check_kernel_shape(
             head_dim=model_config.head_dim, dtype=_DTYPES[config.model.dtype],
             kind=_KV_DTYPES.get(config.model.kv_cache_dtype),
-            group=model_config.num_attention_heads // model_config.num_key_value_heads,
-            block_size=config.cache.block_size, fused=fused,
+            group=hq // hk, block_size=config.cache.block_size, fused=fused,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelFactory:
+    """A model that every rank of a tensor-parallel service builds for
+    itself: ``build(device, *args)`` → (model, params, tokenizer) with the
+    full, unsharded parameters (the service cuts the rank's shard), and the
+    model's ``config``, which ``LlmService.start`` checks before it starts
+    any rank. ``build`` and ``args`` travel to the spawned ranks by pickle
+    (``build`` by import path)."""
+
+    config: Any
+    build: Callable
+    args: Tuple = ()
+
+    def __call__(self, device):
+        return self.build(device, *self.args)
+
+
+# Seconds ``LlmService.stop`` waits for each follower rank to exit.
+FOLLOWER_JOIN_TIMEOUT_S = 120.0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _local_devices(device: torch.device, config: EngineConfig) -> int:
+    """The CUDA devices one host's ranks may use (``num_devices`` caps
+    them); 1 on the CPU."""
+    if device.type != "cuda":
+        return 1
+    n = torch.cuda.device_count()
+    return min(n, config.model.num_devices) if config.model.num_devices else n
+
+
+def _check_followers(procs) -> None:
+    """Raise when a follower rank has exited with an error."""
+    for p in procs:
+        if p.exitcode not in (None, 0):
+            raise RuntimeError(f"tensor-parallel rank process {p.name} exited with "
+                               f"code {p.exitcode}")
+
+
+def _follower_main(config: EngineConfig, rank: int, local_ranks: int, local_devices: int,
+                   init_method: str, model_factory, model_dir, device_type: str,
+                   num_threads: int) -> None:
+    """A spawned follower rank: join the group, build the same service on
+    this rank's device, and step in lockstep with rank 0 until it stops."""
+    from .multihost import follower_loop
+
+    torch.set_num_threads(num_threads)
+    device = local_device(device_type, rank % local_ranks, local_devices)
+    group = init_distributed(init_method, config.model.tensor_parallel_size, rank,
+                             device=device, local_ranks=local_ranks,
+                             local_devices=local_devices)
+    service = LlmService.start(config, model_factory=model_factory, model_dir=model_dir,
+                               group=group)
+    follower_loop(service)
+    service.tokenizer_pool.shutdown()
 
 
 # The pool of the decode graphs, in [S, V] f32 buffers at the largest
@@ -161,6 +236,7 @@ class LlmService:
         tokenizer_pool: TokenizerPool,
         block_size: int,
         eos_token_ids,
+        group=None,
     ):
         self.config = config
         self.engine = engine
@@ -168,6 +244,11 @@ class LlmService:
         self.tokenizer_pool = tokenizer_pool
         self.block_size = block_size
         self.eos_token_ids = eos_token_ids
+        # Tensor parallelism: this rank's group (None: one rank), the
+        # follower processes rank 0 started, and rank 0's lockstep hook.
+        self.group = group
+        self.followers = []
+        self.lockstep = None
 
     # ----------------------------------------------------------------- startup
     @classmethod
@@ -180,19 +261,36 @@ class LlmService:
         tokenizer=None,
         model_dir: Optional[str] = None,
         device=None,
+        model_factory: Optional[ModelFactory] = None,
+        group=None,
     ) -> "LlmService":
         """Build the full stack (ref: llm_service.rs:102-245) on ``device``
         — the current CUDA device unless the caller asks for another
         (``device="cpu"`` in the tests); without a GPU the default raises.
 
         ``model``/``params``/``tokenizer`` may be injected (tests, the chip
-        smoke); an injected model must live on ``device``.
+        smoke); an injected model must live on ``device``. With
+        ``tensor_parallel_size`` > 1 each rank builds its own model, from
+        ``model_factory``, the checkpoint, or ``tiny-random``: see
+        :meth:`_start_tensor_parallel`. ``group`` is a rank's
+        ``TpGroup``; a rank's own start passes it, callers do not.
         """
         t0 = time.monotonic()
-        device = resolve_device(device)
         _reject_unported(config)
+        tp = config.model.tensor_parallel_size
+        if tp > 1 and group is None:
+            if model is not None or params is not None:
+                raise ValueError(
+                    "tensor_parallel_size > 1: every rank builds its own model; pass "
+                    "model_factory (or a checkpoint), not an injected model")
+            return cls._start_tensor_parallel(config, device=device, model_dir=model_dir,
+                                              model_factory=model_factory)
+        device = group.device if group is not None else resolve_device(device)
+        sharded = False
         if model is None or params is None or tokenizer is None:
-            if config.model.model_name == "tiny-random":
+            if model_factory is not None:
+                model, params, tokenizer = model_factory(device)
+            elif config.model.model_name == "tiny-random":
                 from ..entrypoints.offline import build_tiny_random
 
                 model, params, tokenizer = build_tiny_random(device)
@@ -210,40 +308,34 @@ class LlmService:
                 )
                 params = load_llama_params(
                     model_dir, model_cfg, dtype=dtype, device=device,
-                    quantization=config.model.quantization,
+                    quantization=config.model.quantization, group=group,
                 )
+                sharded = True
                 tokenizer = _load_tokenizer(model_dir)
             logger.info("model loaded in %.1fs", time.monotonic() - t0)
         if model.device != device:
             raise ValueError(f"model is on {model.device}, service on {device}")
 
         cfg = model.config
+        if group is not None and group.tp > 1:
+            # This rank's shard (ref: model_executor.rs:394-545, the NCCL
+            # dispatcher; JAX: shard_params over the mesh).
+            check_divisibility(cfg.num_attention_heads, cfg.num_kv_heads, group.tp)
+            model.group = group
+            if not sharded:
+                params = shard_params(params, group, cfg.num_kv_heads)
         if device.type == "cuda":
             check_kernel_shapes(cfg, config)
         # The KV cache's dtype, as the JAX service picks it: int8 (with
         # scales), e4m3, or the model's own.
         kv_dtype = _KV_DTYPES.get(config.model.kv_cache_dtype, model.dtype)
-        # Profile the KV pools AFTER the weights are resident
-        # (ref: config.rs:624-625): free device memory ÷ bytes per block,
-        # an INT8 cache's scales counted.
-        config.cache.profile(
-            cfg.num_layers,
-            cfg.num_kv_heads,
-            cfg.head_dim,
-            config.model.kv_dtype_size,
-            devices=[device],
-            scale_pages=kv_dtype == torch.int8,
-            reserve_bytes=(
-                decode_graph_bytes(config.scheduler.max_num_sequences, cfg.vocab_size,
-                                   page_capacity(config.scheduler.max_model_len,
-                                                 config.cache.block_size),
-                                   cfg.num_layers, config.scheduler.num_speculative_tokens)
-                if device.type == "cuda" else 0
-            ),
-        )
+        # CUDA graphs capture no collective (ROADMAP.md, Queue 1: CUDA graphs
+        # of TP steps over NCCL): a tensor-parallel rank steps eagerly.
+        graphs = device.type == "cuda" and model.tp == 1
+        cls._profile_kv(config, model, kv_dtype, device, group, graphs)
         cache_engine = CacheEngine(
             num_layers=cfg.num_layers,
-            num_kv_heads=cfg.num_kv_heads,
+            num_kv_heads=model.local_kv_heads,
             head_dim=cfg.head_dim,
             block_size=config.cache.block_size,
             num_device_blocks=config.cache.num_device_blocks,
@@ -251,7 +343,8 @@ class LlmService:
             dtype=kv_dtype,
             device=device,
         )
-        worker = ModelWorker(model, params, cache_engine, config.scheduler, config.cache)
+        worker = ModelWorker(model, params, cache_engine, config.scheduler, config.cache,
+                             cuda_graphs=graphs)
         scheduler = Scheduler(config.scheduler, config.cache)
         tokenizer_pool = TokenizerPool(tokenizer, config.model.num_tokenizer_workers)
         validation = Validation(config.validation, tokenizer_pool)
@@ -271,7 +364,127 @@ class LlmService:
             tokenizer_pool,
             config.cache.block_size,
             cfg.eos_token_ids,
+            group=group,
         )
+
+    @staticmethod
+    def _profile_kv(config: EngineConfig, model, kv_dtype, device, group, graphs: bool) -> None:
+        """Size the KV pools AFTER the weights are resident (ref:
+        config.rs:624-625): free device memory ÷ bytes per block, an INT8
+        cache's scales counted, less the decode graphs' reserve. Under
+        tensor parallelism the replicated schedulers need identical pools:
+        every rank takes the least of the ranks' counts. Ranks that share a
+        card profile one after another, each holding its pool's bytes while
+        the next measures, and each takes its share of what it finds free,
+        so that no rank counts another's pool as free."""
+        cfg = model.config
+        kw = dict(
+            devices=[device],
+            scale_pages=kv_dtype == torch.int8,
+            reserve_bytes=(
+                decode_graph_bytes(config.scheduler.max_num_sequences, cfg.vocab_size,
+                                   page_capacity(config.scheduler.max_model_len,
+                                                 config.cache.block_size),
+                                   cfg.num_layers, config.scheduler.num_speculative_tokens)
+                if graphs else 0
+            ),
+        )
+        shape = (cfg.num_layers, model.local_kv_heads, cfg.head_dim,
+                 config.model.kv_dtype_size)
+        if group is None or group.tp == 1:
+            config.cache.profile(*shape, **kw)
+            return
+        if device.type == "cuda":
+            torch.cuda.empty_cache()  # the load's temporaries: free for every rank
+        held = None
+        index, count = group.device_share
+        for turn in range(group.tp):
+            group.barrier()
+            if turn == group.rank:
+                config.cache.profile(*shape, share=count - index, **kw)
+                if group.stage_on_host and device.type == "cuda":
+                    per_block = config.cache.block_bytes(*shape, kw["scale_pages"])
+                    held = torch.empty(config.cache.num_device_blocks * per_block,
+                                       dtype=torch.uint8, device=device)
+        config.cache.num_device_blocks = group.min_int(config.cache.num_device_blocks)
+        config.cache.num_host_blocks = group.min_int(config.cache.num_host_blocks or 0)
+        if held is not None:
+            del held
+            torch.cuda.empty_cache()
+        logger.info("rank %d of %d: %d KV blocks, the least over the ranks", group.rank,
+                    group.tp, config.cache.num_device_blocks)
+
+    @classmethod
+    def _start_tensor_parallel(cls, config: EngineConfig, *, device, model_dir,
+                               model_factory) -> "LlmService":
+        """Start this host's ranks of a ``tensor_parallel_size`` service
+        (JAX: one SPMD program over a mesh, ``engine/llm_service.py:150-190``).
+
+        The heads must divide (checked before anything starts). Each host
+        runs ``tp / num_hosts`` ranks, ``rank = host_id · local + i``: this
+        process is the host's first, and it spawns the others
+        (``torch.multiprocessing``, ``spawn``), each building the same
+        service on its own device — card ``i % cards``, so ranks share a
+        card when there are fewer cards than ranks — and entering
+        ``follower_loop``. The ranks join at ``coordinator_address``
+        (``host:port``, ``tcp://`` or ``file://``; one host: a free local
+        port when it is unset). Rank 0 attaches the lockstep hook and
+        returns its service; ``stop()`` releases and joins the followers. On
+        another host, the returned service is a follower's: run
+        ``engine.multihost.follower_loop`` on it."""
+        from .multihost import attach_primary
+
+        m = config.model
+        tp, hosts, host_id = m.tensor_parallel_size, m.num_hosts or 1, m.host_id or 0
+        if tp % hosts:
+            raise ValueError(f"tensor_parallel_size {tp} does not divide over {hosts} hosts")
+        if hosts > 1 and not m.coordinator_address:
+            raise ValueError("multi-host serving needs coordinator_address")
+        if model_factory is not None:
+            model_cfg = model_factory.config
+        elif m.model_name == "tiny-random":
+            from ..entrypoints.offline import tiny_random_config
+
+            model_cfg = tiny_random_config()
+        else:
+            from ..models.weights import load_hf_config
+
+            model_dir = model_dir or resolve_model_dir(config)
+            model_cfg = load_hf_config(model_dir)
+        check_divisibility(model_cfg.num_attention_heads, model_cfg.num_key_value_heads, tp)
+        device = resolve_device(device)
+        if device.type == "cuda":
+            check_kernel_shapes(model_cfg, config)
+        local = tp // hosts
+        cards = _local_devices(device, config)
+        init_method = rendezvous(m.coordinator_address or f"127.0.0.1:{_free_port()}")
+        base = host_id * local
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [
+            ctx.Process(
+                target=_follower_main, name=f"atoma-tp-rank{base + i}", daemon=True,
+                args=(config, base + i, local, cards, init_method, model_factory, model_dir,
+                      device.type, torch.get_num_threads()),
+            )
+            for i in range(1, local)
+        ]
+        for p in procs:
+            p.start()
+        try:
+            group = init_distributed(
+                init_method, tp, base, device=local_device(device.type, 0, cards),
+                local_ranks=local, local_devices=cards, watch=lambda: _check_followers(procs))
+            service = cls.start(config, model_factory=model_factory, model_dir=model_dir,
+                                group=group)
+        except BaseException:
+            for p in procs:
+                p.terminate()
+                p.join(FOLLOWER_JOIN_TIMEOUT_S)
+            raise
+        service.followers = procs
+        if group.is_primary:
+            service.lockstep = attach_primary(service)
+        return service
 
     # --------------------------------------------------------------- admission
     @instrument("service.handle_request")
@@ -336,8 +549,14 @@ class LlmService:
         them from its first step.
 
         Call with the engine loop running (``asyncio.create_task(
-        service.engine.run())``). Returns the wall seconds spent.
+        service.engine.run())``). Returns the wall seconds spent. Under
+        tensor parallelism it raises: no CUDA graph of a TP step is
+        captured yet.
         """
+        if self.config.model.tensor_parallel_size > 1:
+            raise NotImplementedError(
+                "warmup captures CUDA graphs, and graphs of tensor-parallel steps are not "
+                "ported yet (ROADMAP.md, Queue 1: CUDA graphs of TP steps over NCCL)")
         S = num_seqs or self.config.scheduler.max_num_sequences
         # Cross at least one block boundary, as the JAX warmup does, so
         # decode steps that take a new block run before traffic too.
@@ -366,8 +585,28 @@ class LlmService:
 
     # ---------------------------------------------------------------- shutdown
     def stop(self) -> None:
-        """Graceful shutdown (ref: llm_service.rs:404-442)."""
+        """Graceful shutdown (ref: llm_service.rs:404-442). Rank 0 of a
+        tensor-parallel service then releases its followers and joins them
+        (each within ``FOLLOWER_JOIN_TIMEOUT_S``); a follower that fails or
+        does not exit raises here."""
+        from .multihost import shutdown
+
         self.engine.stop()
         self.tokenizer_pool.shutdown()
+        if self.lockstep is not None:
+            shutdown(self)
+            self.lockstep = None
+        failed = []
+        for p in self.followers:
+            p.join(FOLLOWER_JOIN_TIMEOUT_S)
+            if p.is_alive():
+                p.terminate()
+                p.join(FOLLOWER_JOIN_TIMEOUT_S)
+                failed.append(f"{p.name} did not exit in {FOLLOWER_JOIN_TIMEOUT_S:.0f} s")
+            elif p.exitcode != 0:
+                failed.append(f"{p.name} exited with code {p.exitcode}")
+        self.followers = []
+        if failed:
+            raise RuntimeError("tensor-parallel ranks failed: " + "; ".join(failed))
         if self.config.model.flush_storage:
             shutil.rmtree(self.config.model.cache_dir, ignore_errors=True)

@@ -175,6 +175,7 @@ class ModelWorker:
         cache_engine: CacheEngine,
         scheduler_config: SchedulerConfig,
         cache_config: CacheConfig,
+        cuda_graphs: bool = True,
     ):
         self.model = model
         self.params = params
@@ -198,14 +199,16 @@ class ModelWorker:
         # previous token, but keeps the key of steady async decode.
         self._null_feed = torch.zeros(max_rows, dtype=torch.int32, device=self.device)
         # Pure-decode and verify steps on the card replay CUDA graphs; the CUDA graph
-        # API has no CPU counterpart, so a CPU worker steps eagerly.
+        # API has no CPU counterpart, so a CPU worker steps eagerly, and so
+        # does a tensor-parallel rank (``cuda_graphs=False``: no collective
+        # is captured).
         self.graphs = (
             DecodeGraphs(
                 max_rows,
                 page_capacity(scheduler_config.max_model_len, cache_config.block_size),
                 scheduler_config.num_speculative_tokens,
             )
-            if self.device.type == "cuda" else None
+            if self.device.type == "cuda" and cuda_graphs else None
         )
 
     # ------------------------------------------------------------------ step

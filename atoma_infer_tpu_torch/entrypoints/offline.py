@@ -8,6 +8,11 @@ Usage:
         --prompt "hello" --max-tokens 16
     python -m atoma_infer_tpu_torch.entrypoints.offline --model tiny-random \
         --device cpu
+    python -m atoma_infer_tpu_torch.entrypoints.offline --model tiny-random \
+        --device cpu --tensor-parallel-size 2
+
+With ``--tensor-parallel-size`` > 1 the service starts one process per rank
+(on the CPU, gloo), and this process, rank 0, drives the requests.
 """
 
 from __future__ import annotations
@@ -50,12 +55,12 @@ class ByteTokenizer:
         return bytes(min(255, i - 3) for i in ids if i >= 3).decode("latin-1")
 
 
-def build_tiny_random(device=None, seed: int = 0):
-    """Random-weight tiny Llama (f32) on ``device`` (default: the GPU),
-    weights drawn from a ``torch.Generator`` seeded with ``seed``."""
-    from ..models.llama import Llama, LlamaConfig
+def tiny_random_config():
+    """The tiny random Llama's configuration (f32, 2 layers, 4 q heads
+    over 2 kv heads)."""
+    from ..models.llama import LlamaConfig
 
-    cfg = LlamaConfig(
+    return LlamaConfig(
         vocab_size=512,
         hidden_size=128,
         intermediate_size=256,
@@ -70,14 +75,22 @@ def build_tiny_random(device=None, seed: int = 0):
         eos_token_ids=(1,),
         bos_token_id=0,
     )
-    model = Llama(cfg, dtype=torch.float32, device=device)
+
+
+def build_tiny_random(device=None, seed: int = 0):
+    """Random-weight tiny Llama (f32) on ``device`` (default: the GPU),
+    weights drawn from a ``torch.Generator`` seeded with ``seed``."""
+    from ..models.llama import Llama
+
+    model = Llama(tiny_random_config(), dtype=torch.float32, device=device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
-    return model, model.init_params(gen), ByteTokenizer(cfg.vocab_size)
+    return model, model.init_params(gen), ByteTokenizer(model.config.vocab_size)
 
 
 async def main_async(args) -> None:
     config = EngineConfig(
-        model=ModelConfig(model_name=args.model, dtype=args.dtype),
+        model=ModelConfig(model_name=args.model, dtype=args.dtype,
+                          tensor_parallel_size=args.tensor_parallel_size),
         cache=CacheConfig(
             block_size=args.block_size,
             num_device_blocks_override=args.num_blocks,
@@ -95,11 +108,13 @@ async def main_async(args) -> None:
             max_total_tokens=args.max_model_len,
         ),
     )
-    if args.model == "tiny-random":
+    if args.model == "tiny-random" and args.tensor_parallel_size == 1:
         model, params, tokenizer = build_tiny_random(args.device)
         service = LlmService.start(
             config, model=model, params=params, tokenizer=tokenizer, device=model.device
         )
+    elif args.model == "tiny-random":  # every rank builds it
+        service = LlmService.start(config, device=args.device)
     else:
         service = LlmService.start(config, model_dir=args.model, device=args.device)
 
@@ -159,6 +174,7 @@ def main() -> None:
     parser.add_argument("--max-model-len", type=int, default=2048)
     parser.add_argument("--chunked-prefill", action="store_true")
     parser.add_argument("--async-scheduling", action="store_true")
+    parser.add_argument("--tensor-parallel-size", type=int, default=1)
     parser.add_argument(
         "--device", default="cuda",
         help="torch device to run on (default cuda; 'cpu' takes the plain "

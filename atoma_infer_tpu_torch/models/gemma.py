@@ -140,7 +140,8 @@ class Gemma2(Llama):
         """GeGLU: the tanh-approximate gelu of the gate times up."""
         gate = _linear(normed, lp["gate_proj"])
         up = _linear(normed, lp["up_proj"])
-        return _linear(torch.nn.functional.gelu(gate, approximate="tanh") * up, lp["down_proj"])
+        return self._sum_over_ranks(
+            _linear(torch.nn.functional.gelu(gate, approximate="tanh") * up, lp["down_proj"]))
 
     def compute_logits(self, params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor:
         """Final zero-centred norm, the (tied) LM head in f32, then the

@@ -16,8 +16,16 @@ a list of per-layer ``[num_pages, block_size, 2·Hk·D]`` tensors (the model's
 dtype, int8 or e4m3; an int8 cache with a list of per-layer
 ``[num_pages, block_size, 2]`` bf16 scales) that the forward updates IN
 PLACE (the JAX forward returns new caches and scales instead).
-Tensor parallelism (``kv_repeat``) and the TPU-only page-map prologue are
-not ported.
+
+Tensor parallelism: with a ``group`` (``parallel/group.py`` ``TpGroup``, set
+by ``LlmService.start`` as the JAX service sets ``model.mesh``) the model
+holds one rank's shard (``parallel/sharding.py``) and runs ``Hq/tp`` query
+heads and ``Hk·kv_repeat/tp`` kv heads, where ``kv_repeat`` copies each kv
+head over ``tp // Hk`` ranks when tp is wider than the kv heads. The
+row-parallel outputs (``o_proj``, ``down_proj``) are summed over the ranks,
+the vocab-sharded logits gathered, and an INT8 cache's scales taken over
+every rank's heads — the collectives XLA inserts for the JAX mesh. The
+TPU-only page-map prologue is not ported.
 """
 
 from __future__ import annotations
@@ -28,8 +36,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops.attention import AttentionMetadata, alibi_slopes, paged_attention_layer
+from ..ops.kv_cache import kv_absmax, kv_scales_from_absmax
 from ..ops.quant import QuantizedTensor, quantized_matmul
 from ..ops.rope import RopeScalingConfig, apply_rope, compute_cos_sin_cache
+from ..parallel.sharding import kv_repeat
 from ..utils.device import resolve_device
 
 
@@ -162,6 +172,39 @@ class Llama:
             if config.use_alibi
             else None
         )
+        # The tensor-parallel group (None: one rank holds the whole model).
+        self.group = None
+
+    # -- tensor parallelism -------------------------------------------------------
+    @property
+    def tp(self) -> int:
+        return 1 if self.group is None else self.group.tp
+
+    @property
+    def kv_repeat(self) -> int:
+        """Copies of each kv head across the ranks when tp is wider than the
+        kv heads (e.g. 70B's 8 kv heads over 16 ranks): every rank then
+        attends with its q heads' kv head locally, at ×repeat KV memory
+        (JAX ``models/llama.py:177-193``)."""
+        return kv_repeat(self.tp, self.config.num_key_value_heads)
+
+    @property
+    def effective_kv_heads(self) -> int:
+        """kv heads over all ranks, copies counted."""
+        return self.config.num_key_value_heads * self.kv_repeat
+
+    @property
+    def local_q_heads(self) -> int:
+        return self.config.num_attention_heads // self.tp
+
+    @property
+    def local_kv_heads(self) -> int:
+        """The kv heads this rank's cache holds."""
+        return self.effective_kv_heads // self.tp
+
+    def _sum_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel output summed over the ranks (in place)."""
+        return x if self.group is None else self.group.all_reduce_sum(x)
 
     # -- parameter construction -------------------------------------------------
     def init_params(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -284,12 +327,20 @@ class Llama:
             q = q + lp["q_bias"].to(q.dtype)
             kk = kk + lp["k_bias"].to(kk.dtype)
             vv = vv + lp["v_bias"].to(vv.dtype)
-        q = q.reshape(-1, cfg.num_attention_heads, cfg.head_dim)
-        kk = kk.reshape(-1, cfg.num_key_value_heads, cfg.head_dim)
-        vv = vv.reshape(-1, cfg.num_key_value_heads, cfg.head_dim)
-        if self.alibi is None:
+        q = q.reshape(-1, self.local_q_heads, cfg.head_dim)
+        kk = kk.reshape(-1, self.local_kv_heads, cfg.head_dim)
+        vv = vv.reshape(-1, self.local_kv_heads, cfg.head_dim)
+        slopes = self.alibi
+        if slopes is None:
             q = apply_rope(q, positions, self.rope_cos, self.rope_sin)
             kk = apply_rope(kk, positions, self.rope_cos, self.rope_sin)
+        elif self.tp > 1:
+            slopes = slopes.chunk(self.tp)[self.group.rank]  # this rank's q heads
+        scales_new = None
+        if kv_scales is not None and self.tp > 1:
+            # INT8 scales over EVERY rank's kv heads, as the JAX mesh takes
+            # them over the full head dim (ops/attention.py:377-380).
+            scales_new = kv_scales_from_absmax(self.group.all_reduce_max(kv_absmax(kk, vv)))
         # Write new KV into the paged cache, then attend over it
         # (ref: flash_attention.rs:360-361 order).
         attn = paged_attention_layer(
@@ -301,17 +352,19 @@ class Llama:
             scale=self.attn_scale,
             sliding_window=sliding_window,
             soft_cap=soft_cap,
-            alibi_slopes=self.alibi,
+            alibi_slopes=slopes,
             kv_scales=kv_scales,
+            scales_new=scales_new,
         )
-        attn = attn.reshape(-1, cfg.num_attention_heads * cfg.head_dim)
-        return _linear(attn, lp["o_proj"])
+        attn = attn.reshape(-1, self.local_q_heads * cfg.head_dim)
+        return self._sum_over_ranks(_linear(attn, lp["o_proj"]))
 
     def _mlp_block(self, normed: torch.Tensor, lp: Dict[str, Any]) -> torch.Tensor:
         """SwiGLU feed-forward on the post-norm activations."""
         gate = _linear(normed, lp["gate_proj"])
         up = _linear(normed, lp["up_proj"])
-        return _linear(torch.nn.functional.silu(gate) * up, lp["down_proj"])
+        return self._sum_over_ranks(_linear(torch.nn.functional.silu(gate) * up,
+                                            lp["down_proj"]))
 
     def compute_logits(
         self,
@@ -324,7 +377,10 @@ class Llama:
         return self._lm_head(params, rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps))
 
     def _lm_head(self, params: Dict[str, Any], normed: torch.Tensor) -> torch.Tensor:
-        """The LM head (the tied embedding or ``lm_head``) → f32 logits."""
+        """The LM head (the tied embedding or ``lm_head``) → f32 logits. An
+        untied head is vocab-sharded under tensor parallelism: each rank's
+        f32 logits are gathered on the vocab dim, so the sampler sees
+        [S, V] on every rank."""
         if self.config.tie_word_embeddings and "lm_head" not in params:
             return matmul_f32_out(normed, params["embed"].t())
         w = params["lm_head"]
@@ -332,15 +388,17 @@ class Llama:
             # Weight-only even under W8A8, as on the TPU: there the head's
             # 128256 columns are no multiple of the Pallas kernel's 512-column
             # block, so it takes the XLA branch, which has no W8A8.
-            return quantized_matmul(normed, w, allow_w8a8=False).float()
-        return matmul_f32_out(normed, w)
+            logits = quantized_matmul(normed, w, allow_w8a8=False).float()
+        else:
+            logits = matmul_f32_out(normed, w)
+        return logits if self.group is None else self.group.all_gather_last(logits)
 
     # -- cache shape contract ---------------------------------------------------
     def kv_cache_shape(self, num_blocks: int, block_size: int) -> Tuple[int, int, int, int]:
         """Page-major fused K/V cache shape [L, pages, bs, 2·Hk·D] (one
-        [pages, bs, 2·Hk·D] tensor per layer)."""
+        [pages, bs, 2·Hk·D] tensor per layer), Hk this rank's kv heads."""
         cfg = self.config
-        return (cfg.num_layers, num_blocks, block_size, 2 * cfg.num_kv_heads * cfg.head_dim)
+        return (cfg.num_layers, num_blocks, block_size, 2 * self.local_kv_heads * cfg.head_dim)
 
     def alloc_kv_cache(
         self, num_blocks: int, block_size: int, dtype: Optional[torch.dtype] = None

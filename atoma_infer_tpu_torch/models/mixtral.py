@@ -9,6 +9,13 @@ every token as dense products over the stacked expert weights ``[E, H, I]``
 and the mix applies the (mostly zero) ``[T, E]`` weights: decode reads each
 expert's weights once a step either way, and the products are plain matrix
 products outside any kernel.
+
+Expert parallelism (``parallel/sharding.py``): under tensor parallelism with
+``E % tp == 0`` each rank holds E/tp whole experts and mixes their outputs by
+its columns of the replicated router's weights; otherwise each rank holds a
+slice of every expert's intermediate dim. Either way the ranks' partial
+mixes are summed (``TpGroup.all_reduce_sum``), as the JAX mesh's psum over
+the sharded axis does (``atoma_infer_tpu/models/mixtral.py:85-110``).
 """
 
 from __future__ import annotations
@@ -75,12 +82,16 @@ class Mixtral(Llama):
         topv = topv / topv.sum(dim=-1, keepdim=True)
         one_hot = torch.nn.functional.one_hot(topi, cfg.num_local_experts).float()
         mix = (topv[..., None] * one_hot).sum(dim=1)                          # [T, E]
+        experts = lp["w1"].shape[0]  # this rank's: E/tp under expert parallelism
+        if experts != cfg.num_local_experts:
+            mix = mix.chunk(self.tp, dim=1)[self.group.rank]
         # The JAX package's einsums as batched products over the experts,
         # which read the stacks [E, H, I] where they lie: torch.einsum of
         # "th,ehi->tei" copies a stack into another layout first (0.94 GB
         # a layer at Mixtral-8x7B's widths).
-        x = normed.unsqueeze(0).expand(cfg.num_local_experts, -1, -1)       # [E, T, H]
+        x = normed.unsqueeze(0).expand(experts, -1, -1)                       # [E, T, H]
         g = torch.bmm(x, lp["w1"])                                           # [E, T, I]
         u = torch.bmm(x, lp["w3"])
         y = torch.bmm(torch.nn.functional.silu(g) * u, lp["w2"])             # [E, T, H]
-        return torch.einsum("te,eth->th", mix.to(y.dtype), y).to(normed.dtype)
+        out = torch.einsum("te,eth->th", mix.to(y.dtype), y)
+        return self._sum_over_ranks(out).to(normed.dtype)

@@ -12,7 +12,10 @@ dense MLP. ``safetensors`` is imported only when a checkpoint is loaded.
 With ``quantization`` ("int8" or "int4") the seven projections are
 quantized on load, layer by layer from f32, and an untied LM head to INT8
 with one scale per column (JAX ``weights.py:184-248``); Mixtral's router
-and experts stay in the model's dtype, as in the JAX package.
+and experts stay in the model's dtype, as in the JAX package. Under tensor
+parallelism (``group``) each layer's tensor is moved to the device,
+quantized and cut to the rank's slice (``parallel/sharding.py``) before the
+next, so a rank's device holds its shard plus one layer.
 """
 
 from __future__ import annotations
@@ -105,17 +108,32 @@ _QUANTIZED_KEYS = frozenset(
 _BITS = {None: None, "int8": 8, "int4": 4}
 
 
-def _quantize_layers(tensors, bits: int, device) -> QuantizedTensor:
+def _quantize_layers(tensors, bits: int, device, cut=None) -> QuantizedTensor:
     """Quantize per-layer ``[in, out]`` weights one at a time from f32 on
-    ``device`` (no f32 copy of the whole stack), then stack."""
-    per_layer = [quantize_weight(torch.as_tensor(t).to(device, torch.float32), bits)
-                 for t in tensors]
+    ``device`` (no f32 copy of the whole stack), each cut to a rank's slice
+    by ``cut`` (a one-layer stack → its slice), then stack."""
+    per_layer = []
+    for t in tensors:
+        q = quantize_weight(torch.as_tensor(t).to(device, torch.float32), bits)
+        q = QuantizedTensor(qweight=q.qweight[None], scales=q.scales[None], bits=q.bits,
+                            group_size=q.group_size)
+        per_layer.append(q if cut is None else cut(q))
     return QuantizedTensor(
-        qweight=torch.stack([q.qweight for q in per_layer]),
-        scales=torch.stack([q.scales for q in per_layer]),
+        qweight=torch.cat([q.qweight for q in per_layer]),
+        scales=torch.cat([q.scales for q in per_layer]),
         bits=bits,
         group_size=per_layer[0].group_size,
     )
+
+
+def _dense_layers(tensors, dtype, device, cut=None) -> torch.Tensor:
+    """Per-layer tensors moved to ``device`` in ``dtype`` one at a time,
+    each cut to a rank's slice by ``cut``, then stacked."""
+    out = []
+    for t in tensors:
+        layer = _to_tensor(t, dtype, device)[None]
+        out.append(layer if cut is None else cut(layer))
+    return torch.cat(out)
 
 
 def _quantize_lm_head(lm_head) -> QuantizedTensor:
@@ -161,15 +179,24 @@ def load_llama_params(
     dtype: torch.dtype = torch.bfloat16,
     device=None,
     quantization: Optional[str] = None,  # None | "int8" | "int4"
+    group=None,
 ) -> Dict[str, Any]:
     """Load and stack a checkpoint's weights from safetensors onto
     ``device`` (any family of the registry); optionally quantize the
-    linears on load."""
+    linears on load. With a tensor-parallel ``group``, the rank's slices
+    only (``parallel/sharding.py``), cut layer by layer."""
     from safetensors import safe_open
 
+    from ..parallel.sharding import shard_layer, shard_lm_head
     from .phi3 import split_phi3_tensor
 
     bits = _BITS[quantization]
+    tp, rank = (1, 0) if group is None else (group.tp, group.rank)
+
+    def cut(key):
+        if tp == 1:
+            return None
+        return lambda value: shard_layer(key, value, tp, rank, config.num_key_value_heads)
 
     L = config.num_layers
     per_layer: Dict[str, List[Optional[torch.Tensor]]] = {
@@ -240,9 +267,9 @@ def load_llama_params(
         if missing:
             raise ValueError(f"missing layer tensors for {key}: {missing}")
         if bits and key in _QUANTIZED_KEYS:
-            layers[key] = _quantize_layers(tensors, bits, device)
+            layers[key] = _quantize_layers(tensors, bits, device, cut(key))
         else:
-            layers[key] = _to_tensor(torch.stack(tensors), dtype, device)
+            layers[key] = _dense_layers(tensors, dtype, device, cut(key))
     if E:
         missing = [i for i, t in enumerate(router) if t is None]
         if missing:
@@ -253,8 +280,8 @@ def load_llama_params(
                        for j, t in enumerate(row) if t is None]
             if missing:
                 raise ValueError(f"missing MoE expert tensors for {wname}: {missing}")
-            layers[wname] = _to_tensor(
-                torch.stack([torch.stack(row) for row in per_layer_experts]), dtype, device)
+            layers[wname] = _dense_layers([torch.stack(row) for row in per_layer_experts],
+                                          dtype, device, cut(wname))
 
     params: Dict[str, Any] = {
         "embed": _to_tensor(top["embed"], dtype, device),
@@ -263,9 +290,10 @@ def load_llama_params(
     }
     if "lm_head" in top:
         if bits:
-            params["lm_head"] = _quantize_lm_head(top["lm_head"].to(device))
+            lm_head = _quantize_lm_head(top["lm_head"].to(device))
         else:
-            params["lm_head"] = _to_tensor(top["lm_head"], dtype, device)
+            lm_head = _to_tensor(top["lm_head"], dtype, device)
+        params["lm_head"] = shard_lm_head(lm_head, tp, rank)
     elif not config.tie_word_embeddings:
         raise ValueError("checkpoint lacks lm_head but embeddings are not tied")
     return params

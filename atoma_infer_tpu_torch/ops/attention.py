@@ -110,11 +110,17 @@ def paged_attention_layer(
     soft_cap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,  # [Hq] f32
     kv_scales: Optional[torch.Tensor] = None,     # [num_pages, bs, 2] bf16, in place
+    scales_new: Optional[torch.Tensor] = None,    # [T, 2] f32 (int8 cache under TP)
 ) -> torch.Tensor:
     """One layer's attention block: write this step's K/V into the paged
     cache (in place; an INT8 cache quantizes them and stores their scales in
     ``kv_scales``), then attend over it (ref write-then-attend order:
     flash_attention.rs:360-361). Returns attn [T, Hq, D].
+
+    ``scales_new``: the new tokens' INT8 scales, where they are not those of
+    ``k_new``/``v_new`` alone — under tensor parallelism a rank holds only
+    its kv heads, and the scales are taken over every rank's (JAX
+    ``ops/attention.py:377-400``). None: the rows' own.
 
     On CUDA a pure-decode step runs ONE fused kernel that writes and
     attends; every other step runs the write kernel, then the ragged kernel.
@@ -133,9 +139,11 @@ def paged_attention_layer(
             soft_cap=soft_cap,
             alibi_slopes=alibi_slopes,
             kv_scales=kv_scales,
+            scales_new=scales_new,
         )
     if kv_scales is not None:
-        write_kv_cache_quant(kv_cache, kv_scales, k_new, v_new, meta.slot_mapping)
+        write_kv_cache_quant(kv_cache, kv_scales, k_new, v_new, meta.slot_mapping,
+                             scales_new=scales_new)
     else:
         write_kv_cache(kv_cache, k_new, v_new, meta.slot_mapping)
     return ragged_paged_attention(

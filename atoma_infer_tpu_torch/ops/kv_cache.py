@@ -21,7 +21,7 @@ in the preallocated cache tensor, and the functions return nothing.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -61,13 +61,27 @@ def kv_rows(k_new: torch.Tensor, v_new: torch.Tensor, dtype) -> torch.Tensor:
     return stacked.reshape(T, 2 * hk * d).to(dtype)
 
 
-def kv_quant_scales(k_new: torch.Tensor, v_new: torch.Tensor) -> torch.Tensor:
-    """Per-(token, K/V) symmetric absmax INT8 scales over ALL kv heads →
-    [T, 2] f32, rounded through bf16 (the stored precision) so that
-    quantization and every dequantization use the identical scale."""
-    absmax = torch.stack([k_new, v_new], dim=2).float().abs().amax(dim=(1, 3))
+def kv_absmax(k_new: torch.Tensor, v_new: torch.Tensor) -> torch.Tensor:
+    """Per-(token, K/V) absmax over the given kv heads → [T, 2] f32. Under
+    tensor parallelism a rank holds only its own heads: the model takes the
+    max of every rank's (``TpGroup.all_reduce_max``), which is exact in any
+    order, and hands :func:`kv_scales_from_absmax` of it to the write as
+    ``scales_new`` (JAX ``ops/attention.py:377-380``)."""
+    return torch.stack([k_new, v_new], dim=2).float().abs().amax(dim=(1, 3))
+
+
+def kv_scales_from_absmax(absmax: torch.Tensor) -> torch.Tensor:
+    """[T, 2] absmax → INT8 scales [T, 2] f32, rounded through bf16 (the
+    stored precision) so that quantization and every dequantization use the
+    identical scale."""
     s = torch.clamp_min(true_divide(absmax, 127.0), 1e-8)
     return s.to(SCALE_DTYPE).float()
+
+
+def kv_quant_scales(k_new: torch.Tensor, v_new: torch.Tensor) -> torch.Tensor:
+    """Per-(token, K/V) symmetric absmax INT8 scales over ALL kv heads →
+    [T, 2] f32 (:func:`kv_absmax`, then :func:`kv_scales_from_absmax`)."""
+    return kv_scales_from_absmax(kv_absmax(k_new, v_new))
 
 
 def quantize_kv_rows(
@@ -123,16 +137,18 @@ def write_kv_cache_quant(
     k_new: torch.Tensor,         # [T, Hk, D] float
     v_new: torch.Tensor,
     slot_mapping: torch.Tensor,  # [T] int32, PAD_SLOT_ID for padding
+    scales_new: Optional[torch.Tensor] = None,  # [T, 2] f32, bf16-rounded
 ) -> None:
     """INT8 KV write: each token's rows quantized with its K and V scales,
-    rows and scales stored in their slots, in place. A CUDA cache takes the
-    ``reshape_and_cache_int8`` kernel; a CPU cache its plain version."""
+    rows and scales stored in their slots, in place. The scales are
+    ``scales_new`` when given (under tensor parallelism: taken over every
+    rank's heads), else those of ``k_new``/``v_new`` themselves. A CUDA
+    cache takes the ``reshape_and_cache_int8`` kernel; a CPU cache its plain
+    version."""
     from .kv_write import write_kv_cache_quant_cuda, write_kv_cache_quant_plain
 
-    if kv_cache.is_cuda:
-        write_kv_cache_quant_cuda(kv_cache, kv_scales, k_new, v_new, slot_mapping)
-    else:
-        write_kv_cache_quant_plain(kv_cache, kv_scales, k_new, v_new, slot_mapping)
+    write = write_kv_cache_quant_cuda if kv_cache.is_cuda else write_kv_cache_quant_plain
+    write(kv_cache, kv_scales, k_new, v_new, slot_mapping, scales_new=scales_new)
 
 
 def copy_blocks_layer(cache: torch.Tensor, copy_pairs: Sequence) -> None:

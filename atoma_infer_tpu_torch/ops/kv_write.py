@@ -12,8 +12,11 @@ into ``cache[slot // bs, slot % bs]``, one block per token:
 * ``reshape_and_cache_int8``: an INT8 cache with its scales, which the JAX
   package writes with XLA ops (``write_kv_cache_quant``,
   ``ops/kv_cache.py:165-186``): each token's K and V scales from the absmax
-  of its whole K and V rows, the quantized row and the scale pair stored in
-  its slot. One launch instead of some eight eager ops per layer.
+  of its whole K and V rows, or from ``scales_new`` [T, 2] when the caller
+  gives them (tensor parallelism: a rank's rows hold only its kv heads, and
+  the scales are taken over every rank's, as JAX's ``scales=`` at
+  ``ops/attention.py:377-400``), the quantized row and the scale pair
+  stored in its slot. One launch instead of some eight eager ops per layer.
 
 All are bound by bytes moved (K and V in, one cache row out per token, at
 3.35 TB/s). Dispatch: a CUDA cache launches the kernel of its dtype (or
@@ -22,6 +25,8 @@ bit-identical caches and scales.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -58,7 +63,7 @@ KV_WRITE_INT8 = cuda_lib.register(
         name="reshape_and_cache_int8",
         source="kv_write.cu",
         symbol="atoma_kv_write_int8",
-        argtypes=[INT, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, LONG, PTR],
+        argtypes=[INT, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, LONG, PTR],
         replaces=(
             "atoma_infer_tpu/ops/kv_cache.py:165 (write_kv_cache_quant, XLA ops; "
             "no Pallas kernel)"
@@ -95,13 +100,23 @@ def write_kv_cache_quant_plain(
     k_new: torch.Tensor,         # [T, Hk, D] float
     v_new: torch.Tensor,
     slot_mapping: torch.Tensor,
+    scales_new: Optional[torch.Tensor] = None,  # [T, 2] f32, bf16-rounded
 ) -> None:
-    """Plain version of the INT8 write (``write_kv_cache_quant``)."""
+    """Plain version of the INT8 write (``write_kv_cache_quant``): the
+    scales are ``scales_new`` when given, else the rows' own."""
     num_pages, bs, row = kv_cache.shape
-    scale_t = kv_quant_scales(k_new, v_new)
+    scale_t = kv_quant_scales(k_new, v_new) if scales_new is None else scales_new
     slots, keep = _keep(slot_mapping, num_pages * bs)
     kv_cache.view(num_pages * bs, row)[slots] = quantize_kv_rows(k_new, v_new, scale_t)[keep]
     kv_scales.view(num_pages * bs, 2)[slots] = scale_t[keep].to(kv_scales.dtype)
+
+
+def check_scales_new(scales_new: Optional[torch.Tensor], T: int, what: str) -> None:
+    """``scales_new``, where given, must be f32 [T, 2] (the kernels read it
+    as such)."""
+    if scales_new is not None and (scales_new.dtype != torch.float32
+                                   or scales_new.shape != (T, 2)):
+        raise ValueError(f"{what}: scales_new must be float32 [T, 2]")
 
 
 def _check(kv_cache, k_new, v_new, slot_mapping, extra=()) -> None:
@@ -159,11 +174,16 @@ def write_kv_cache_quant_cuda(
     k_new: torch.Tensor,
     v_new: torch.Tensor,
     slot_mapping: torch.Tensor,
+    scales_new: Optional[torch.Tensor] = None,  # [T, 2] f32, bf16-rounded
 ) -> None:
-    """Launch ``reshape_and_cache_int8`` on the current stream, in place."""
-    _check(kv_cache, k_new, v_new, slot_mapping, extra=(kv_scales,))
+    """Launch ``reshape_and_cache_int8`` on the current stream, in place;
+    with ``scales_new`` the kernel stores those scales instead of taking
+    the rows' absmax."""
+    extra = (kv_scales,) if scales_new is None else (kv_scales, scales_new)
+    _check(kv_cache, k_new, v_new, slot_mapping, extra=extra)
     num_pages, bs, _ = kv_cache.shape
     T, hk, d = k_new.shape
+    check_scales_new(scales_new, T, "reshape_and_cache_int8")
     if kv_cache.dtype != torch.int8:
         raise ValueError(f"reshape_and_cache_int8: cache must be int8, not {kv_cache.dtype}")
     if kv_scales.dtype != torch.bfloat16 or kv_scales.shape != (num_pages, bs, 2):
@@ -172,6 +192,7 @@ def write_kv_cache_quant_cuda(
         raise ValueError("reshape_and_cache_int8: k_new/v_new must be bfloat16 or float32")
     KV_WRITE_INT8(
         _DTYPES[k_new.dtype], k_new.data_ptr(), v_new.data_ptr(), slot_mapping.data_ptr(),
-        kv_cache.data_ptr(), kv_scales.data_ptr(), T, hk, d, num_pages * bs,
+        kv_cache.data_ptr(), kv_scales.data_ptr(),
+        None if scales_new is None else scales_new.data_ptr(), T, hk, d, num_pages * bs,
         cuda_lib.current_stream_handle(kv_cache.device),
     )

@@ -34,6 +34,10 @@ Replaces the TPU kernel ``atoma_infer_tpu/ops/paged_attention.py:_kernel``:
   quantizes the new row itself: every block reads its token's whole K and V
   rows (the scale is an absmax over all kv heads; max is exact in any
   order, so every block gets the same scale) and block 0 stores the pair.
+  Under tensor parallelism the caller passes the scales instead
+  (``scales_new`` [T, 2] f32, taken over every rank's kv heads; JAX
+  ``ops/paged_attention.py:1143,1157``), and the split kernel and the INT8
+  write store those.
 * **E** ``*_fp8``: A and B over an e4m3 cache (``fp8=True``, ``_e4m3_decode``
   :66-85), widened by the card's own e4m3 conversion.
 
@@ -63,7 +67,12 @@ import torch
 from . import cuda_lib
 from .cuda_lib import FLOAT, INT, LONG, PTR
 from .kv_cache import kv_cache_view, scales_flat
-from .kv_write import write_kv_cache_plain, write_kv_cache_quant_plain
+from .kv_write import (
+    check_scales_new,
+    write_kv_cache_plain,
+    write_kv_cache_quant_cuda,
+    write_kv_cache_quant_plain,
+)
 from .reference import ragged_paged_attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -128,7 +137,7 @@ RAGGED_ATTENTION_MMA = {
 
 # The fused decode kernel for bf16 queries, split across blocks
 # (csrc/fused_decode_split.cuh), by cache kind.
-_SPLIT_ARGS = [PTR] * 14 + [INT] * 7 + [LONG, INT, INT, FLOAT, INT, FLOAT, PTR]
+_SPLIT_ARGS = [PTR] * 15 + [INT] * 7 + [LONG, INT, INT, FLOAT, INT, FLOAT, PTR]
 FUSED_DECODE_SPLIT = {
     kind: _register(
         f"{FUSED_DECODE[kind].name}_split", f"fused_decode_split{suffix}.cu",
@@ -341,12 +350,14 @@ def ragged_paged_attention_paged_plain(
 
 def fused_decode_attention_plain(
     q, kv_cache, k_new, v_new, meta, *, scale, sliding_window=None,
-    soft_cap=None, alibi_slopes=None, kv_scales=None,
+    soft_cap=None, alibi_slopes=None, kv_scales=None, scales_new=None,
 ) -> torch.Tensor:
     """Plain version of kernel B (and of D's and E's fused variants): the
-    KV write, then attention (in place)."""
+    KV write (an INT8 cache's scales from ``scales_new`` where given), then
+    attention (in place)."""
     if kv_scales is not None:
-        write_kv_cache_quant_plain(kv_cache, kv_scales, k_new, v_new, meta.slot_mapping)
+        write_kv_cache_quant_plain(kv_cache, kv_scales, k_new, v_new, meta.slot_mapping,
+                                   scales_new=scales_new)
     else:
         write_kv_cache_plain(kv_cache, k_new, v_new, meta.slot_mapping)
     return ragged_paged_attention_paged_plain(
@@ -573,16 +584,24 @@ def ragged_paged_attention_fused_cuda(
     soft_cap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
     kv_scales: Optional[torch.Tensor] = None,  # [num_pages, bs, 2] bf16 (int8 cache)
+    scales_new: Optional[torch.Tensor] = None,  # [T, 2] f32 (int8 cache under TP)
 ) -> torch.Tensor:
     """Kernel B (D's fused variant on an int8 cache, E's on an e4m3 one;
     pure-decode batch: one query token per active sequence) → [T, Hq, D];
     the new K/V rows (and an int8 cache's scales) land in the cache as the
     matching ``reshape_and_cache`` kernel would write them. bf16 queries
     take the split kernel (:func:`fused_route`, :func:`fused_splits_for`),
-    f32 queries ``fused_decode_kernel``."""
+    f32 queries ``fused_decode_kernel``. ``scales_new`` (an int8 cache
+    only) gives the new tokens' scales: the split kernel stores them; f32
+    queries, whose unsplit kernel takes the rows' own absmax, run the INT8
+    write with them and then the ragged kernel (D) instead."""
+    extra = (k_new, v_new) if scales_new is None else (k_new, v_new, scales_new)
     Hk, D, S, P, kind = _check(q, kv_cache, meta, alibi_slopes, kv_scales, fused=True,
-                               extra=(k_new, v_new))
+                               extra=extra)
     T, Hq, _ = q.shape
+    check_scales_new(scales_new, T, "fused_decode_attention")
+    if scales_new is not None and kind != torch.int8:
+        raise ValueError("fused_decode_attention: scales_new come with an int8 cache only")
     if not meta.decode_only:
         raise ValueError("fused_decode_attention: meta.decode_only must be set")
     if k_new.shape != (T, Hk, D) or v_new.shape != (T, Hk, D):
@@ -597,6 +616,12 @@ def ragged_paged_attention_fused_cuda(
         return fused_split_launch(
             q, kv_cache, k_new, v_new, meta, fused_splits_for(q, meta, Hk, kind), out,
             kind=kind, scale=scale, sliding_window=sliding_window, soft_cap=soft_cap,
+            alibi_slopes=alibi_slopes, kv_scales=kv_scales, scales_new=scales_new)
+    if scales_new is not None:
+        write_kv_cache_quant_cuda(kv_cache, kv_scales, k_new, v_new, meta.slot_mapping,
+                                  scales_new=scales_new)
+        return ragged_paged_attention_cuda(
+            q, kv_cache, meta, scale=scale, sliding_window=sliding_window, soft_cap=soft_cap,
             alibi_slopes=alibi_slopes, kv_scales=kv_scales)
     FUSED_DECODE[kind](
         _DTYPES[q.dtype],
@@ -617,6 +642,7 @@ def ragged_paged_attention_fused_cuda(
 def fused_split_launch(
     q, kv_cache, k_new, v_new, meta, splits: int, out, *, kind, scale, sliding_window=None,
     soft_cap=None, alibi_slopes=None, kv_scales=None, min_tiles: int = FUSED_MIN_TILES,
+    scales_new=None,
 ) -> torch.Tensor:
     """Launch the split fused kernel of ``kind`` with at most ``splits``
     splits a row of at least ``min_tiles`` key tiles each (inputs already
@@ -634,6 +660,7 @@ def fused_split_launch(
     FUSED_DECODE_SPLIT[kind](
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kv_cache.data_ptr(),
         None if kv_scales is None else kv_scales.data_ptr(),
+        None if scales_new is None else scales_new.data_ptr(),
         meta.slot_mapping.data_ptr(), meta.block_tables.data_ptr(),
         meta.seq_lens.data_ptr(), meta.query_start_loc.data_ptr(), meta.num_seqs.data_ptr(),
         None if alibi_slopes is None else alibi_slopes.data_ptr(),

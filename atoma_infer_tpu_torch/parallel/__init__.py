@@ -1,0 +1,15 @@
+"""Parallelism: tensor parallelism across processes (counterpart of
+``atoma_infer_tpu/parallel/``).
+
+JAX runs tensor parallelism as ONE SPMD program over a device mesh; PyTorch
+runs one process per rank. ``group`` holds a rank's process groups and the
+collectives the model calls, ``sharding`` cuts a rank's parameter slices by
+the JAX package's rules, and ``distributed`` joins the ranks and broadcasts
+each engine step's payload from rank 0 (the lockstep of
+``engine/multihost.py``). Tensor parallelism within a host and across hosts
+are the same code with other rank layouts. Pipeline and context parallelism
+are not ported yet (ROADMAP.md, Queue 1).
+"""
+
+from .group import TpGroup, choose_backend, local_device  # noqa: F401
+from .sharding import check_divisibility, kv_repeat, shard_params  # noqa: F401

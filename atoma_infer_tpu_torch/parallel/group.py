@@ -1,0 +1,245 @@
+"""Tensor-parallel process group: one rank's view of the ranks it serves with.
+
+Counterpart of ``atoma_infer_tpu/parallel/mesh.py``. In JAX, tensor
+parallelism is ONE SPMD program jitted over a device mesh in one process, and
+XLA inserts the collectives. In PyTorch every card runs its own process, so
+the collectives are explicit: a :class:`TpGroup` holds the rank's ``tp``,
+``rank`` and ``device``, and the four collectives the model and the lockstep
+engine need:
+
+- ``all_reduce_sum``: the row-parallel outputs (``o_proj``, ``down_proj``)
+  and Mixtral's expert mix, the psum XLA inserts in JAX;
+- ``all_reduce_max``: the INT8 KV absmax [T, 2] over every rank's kv heads;
+- ``all_gather_last``: the vocab-sharded logits, so the sampler sees [S, V]
+  on every rank;
+- ``broadcast_bytes``: the per-step payloads of ``parallel/distributed.py``.
+
+The backend comes from the ranks' layout (:func:`choose_backend`), is logged,
+and never falls back silently: ``nccl`` when every rank on a host owns its own
+CUDA device; ``gloo`` when ranks share a card — then each CUDA tensor is
+copied to pinned host memory, reduced there and copied back, explicitly (NCCL
+refuses two ranks on one device, and gloo's own CUDA support is not relied
+on); ``gloo`` on the CPU. Payloads always travel over a gloo group of their
+own, whose timeout is long: followers wait there while the primary is idle.
+
+The process groups are objects of the group, not PyTorch's default group, so
+several groups (one service after another in a test) never share state. A
+service of one rank has no group at all.
+"""
+
+from __future__ import annotations
+
+import datetime
+import logging
+import time
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
+
+# A collective of a model step waits at most this long for the other ranks.
+COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
+# Followers wait for the primary's next step payload for at most this long:
+# a server may sit idle for hours between requests.
+IDLE_TIMEOUT = datetime.timedelta(days=7)
+# How long rank 0 waits for every rank to join the rendezvous.
+JOIN_TIMEOUT_S = 600.0
+
+
+def choose_backend(device_type: str, local_ranks: int, local_devices: int) -> Tuple[str, bool]:
+    """(backend, shared card) from the layout of one host's ranks:
+    ``local_ranks`` ranks over ``local_devices`` CUDA devices. CPU ranks
+    take gloo; ranks that each own a card take nccl; ranks that share a
+    card take gloo with their tensors staged through host memory."""
+    if device_type == "cpu":
+        return "gloo", False
+    if local_devices >= local_ranks:
+        return "nccl", False
+    return "gloo", True
+
+
+def device_share(device_type: str, local_rank: int, local_ranks: int,
+                 local_devices: int) -> Tuple[int, int]:
+    """(place, count): the host's ``local_rank``-th rank is the place-th of
+    the count ranks on its card (:func:`local_device`); (0, 1) on the CPU."""
+    if device_type == "cpu":
+        return 0, 1
+    card = local_rank % local_devices
+    return local_rank // local_devices, len(range(card, local_ranks, local_devices))
+
+
+def local_device(device_type: str, local_rank: int, local_devices: int) -> torch.device:
+    """The device of the host's ``local_rank``-th rank: the CPU, or card
+    ``local_rank % local_devices`` (ranks share cards when there are fewer
+    cards than ranks)."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", local_rank % local_devices)
+
+
+def make_store(init_method: str, rank: int, world_size: int):
+    """The rendezvous store: ``file://<path>`` (a file every rank can
+    reach) or ``tcp://<host>:<port>`` (rank 0 serves it)."""
+    import torch.distributed as dist
+
+    if init_method.startswith("file://"):
+        return dist.FileStore(init_method[len("file://"):], world_size)
+    if init_method.startswith("tcp://"):
+        host, port = init_method[len("tcp://"):].rsplit(":", 1)
+        return dist.TCPStore(host, int(port), world_size, is_master=rank == 0,
+                             timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S),
+                             wait_for_workers=False)
+    raise ValueError(f"rendezvous {init_method!r}: expected file://<path> or tcp://<host>:<port>")
+
+
+def _process_group(backend: str, store, rank: int, size: int, timeout, device):
+    import torch.distributed as dist
+
+    if backend == "gloo":
+        return dist.ProcessGroupGloo(store, rank, size, timeout)
+    if backend == "nccl":
+        torch.cuda.set_device(device)
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        return dist.ProcessGroupNCCL(store, rank, size, opts)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+class TpGroup:
+    """One rank of a tensor-parallel group (see the module docstring)."""
+
+    def __init__(self, tp: int, rank: int, device, *, backend: Optional[str] = None,
+                 stage_on_host: bool = False, device_share: Tuple[int, int] = (0, 1),
+                 tensor_pg=None, payload_pg=None):
+        self.tp = tp
+        self.rank = rank
+        self.device = torch.device(device)
+        self.backend = backend
+        self.stage_on_host = stage_on_host
+        # (this rank's place among the ranks on its device, their number).
+        self.device_share = device_share
+        self._tensor_pg = tensor_pg
+        self._payload_pg = payload_pg
+        # Collectives this rank has issued (tensor and payload): the smoke
+        # reads it per engine step.
+        self.collectives = 0
+
+    @classmethod
+    def join(cls, *, tp: int, rank: int, device, init_method: str, backend: str,
+             stage_on_host: bool, device_share: Tuple[int, int] = (0, 1),
+             watch: Optional[Callable[[], None]] = None) -> "TpGroup":
+        """Join the rendezvous at ``init_method`` as ``rank`` of ``tp`` and
+        build the group's process groups. Rank 0 waits for every rank to
+        join, calling ``watch`` between polls (it raises when a rank it
+        started has died), so a rank that fails before joining fails the
+        start instead of hanging it."""
+        import torch.distributed as dist
+
+        store = make_store(init_method, rank, tp)
+        store.set(f"atoma/joined/{rank}", "1")
+        if rank == 0:
+            keys = [f"atoma/joined/{r}" for r in range(tp)]
+            deadline = time.monotonic() + JOIN_TIMEOUT_S
+            while not store.check(keys):
+                if watch is not None:
+                    watch()
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"tensor parallelism: not every one of {tp} ranks "
+                                       f"joined {init_method} in {JOIN_TIMEOUT_S:.0f} s")
+                time.sleep(0.05)
+        tensor_pg = _process_group(backend, dist.PrefixStore("atoma/tensor", store), rank, tp,
+                                   COLLECTIVE_TIMEOUT, device)
+        payload_pg = _process_group("gloo", dist.PrefixStore("atoma/payload", store), rank, tp,
+                                    IDLE_TIMEOUT, device)
+        group = cls(tp, rank, device, backend=backend, stage_on_host=stage_on_host,
+                    device_share=device_share, tensor_pg=tensor_pg, payload_pg=payload_pg)
+        logger.info("tensor parallelism: rank %d of %d on %s, backend %s%s", rank, tp,
+                    group.device, backend,
+                    " (a shared card: collectives staged through host memory)"
+                    if stage_on_host else "")
+        return group
+
+    @property
+    def is_primary(self) -> bool:
+        return self.rank == 0
+
+    # ------------------------------------------------------------- tensors
+    def _staged(self, x: torch.Tensor) -> bool:
+        return self.stage_on_host and x.is_cuda
+
+    @staticmethod
+    def _to_host(x: torch.Tensor) -> torch.Tensor:
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)  # waits for the stream: the values are final
+        return host
+
+    def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        import torch.distributed as dist
+
+        self.collectives += 1
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = op
+        staged = self._staged(x)
+        buf = self._to_host(x) if staged else x.contiguous()
+        self._tensor_pg.allreduce([buf], opts).wait()
+        if staged:
+            x.copy_(buf)
+            return x
+        return buf
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of ``x`` over the ranks → the result (``x`` itself, reduced
+        in place, when it is contiguous). Every rank gets the same bits."""
+        import torch.distributed as dist
+
+        return self._all_reduce(x, dist.ReduceOp.SUM)
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise max of ``x`` over the ranks (as :meth:`all_reduce_sum`)."""
+        import torch.distributed as dist
+
+        return self._all_reduce(x, dist.ReduceOp.MAX)
+
+    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` [..., n] concatenated on the last dim in rank
+        order → [..., tp·n]."""
+        self.collectives += 1
+        staged = self._staged(x)
+        src = self._to_host(x) if staged else x.contiguous()
+        parts = [torch.empty_like(src) for _ in range(self.tp)]
+        self._tensor_pg.allgather([parts], [src]).wait()
+        out = torch.cat(parts, dim=-1)
+        return out.to(x.device) if staged else out
+
+    # ------------------------------------------------------------ host data
+    def broadcast_bytes(self, buf: Optional[np.ndarray], size: int, src: int = 0) -> np.ndarray:
+        """``src``'s uint8 buffer of ``size`` bytes → every rank (the others
+        pass None)."""
+        import torch.distributed as dist
+
+        self.collectives += 1
+        if self.rank == src:
+            t = torch.from_numpy(np.ascontiguousarray(buf, dtype=np.uint8).copy())
+            if t.numel() != size:
+                raise ValueError(f"broadcast_bytes: {t.numel()} bytes, {size} announced")
+        else:
+            t = torch.zeros(size, dtype=torch.uint8)
+        opts = dist.BroadcastOptions()
+        opts.rootRank = src
+        self._payload_pg.broadcast([t], opts).wait()
+        return t.numpy()
+
+    def min_int(self, value: int) -> int:
+        """The least of every rank's ``value`` (the KV pools' block counts)."""
+        import torch.distributed as dist
+
+        t = torch.tensor([int(value)], dtype=torch.int64)
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = dist.ReduceOp.MIN
+        self._payload_pg.allreduce([t], opts).wait()
+        return int(t.item())
+
+    def barrier(self) -> None:
+        self._payload_pg.barrier().wait()

@@ -4,7 +4,10 @@
 Ref: server/src/main.rs — clap CLI with ``--config_path`` (:22-27), env-var
 overrides for address/port (:36-39,64-67), tracing init (:31). The service
 runs on the CUDA device, and raises without one; ``--cpu`` serves on the CPU
-(the kernels' plain versions).
+(the kernels' plain versions). With ``tensor_parallel_size`` > 1 in the
+configuration the service starts its other ranks itself and rank 0 runs the
+HTTP app; on a host other than the first (``host_id`` > 0) this process is
+a follower rank and steps in lockstep with rank 0 instead of serving.
 """
 
 from __future__ import annotations
@@ -53,6 +56,12 @@ def main() -> None:
         config.model.model_name = args.model
 
     service = LlmService.start(config, device="cpu" if args.cpu else None)
+    if service.group is not None and not service.group.is_primary:
+        from ..engine.multihost import follower_loop
+
+        follower_loop(service)
+        service.stop()
+        return
     run_server(service, host=args.host, port=args.port, warmup=args.warmup)
 
 

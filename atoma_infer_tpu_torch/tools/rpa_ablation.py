@@ -316,7 +316,7 @@ def fused_variants(device, rounds=2):
                 ws_o = torch.empty((splits, T, Hq, D), dtype=torch.float32, device=device)
                 ws_ml = torch.empty((splits, T, Hq, 2), dtype=torch.float32, device=device)
                 err = fn(q.data_ptr(), b["k"].data_ptr(), b["v"].data_ptr(), cache.data_ptr(),
-                         None if scales is None else scales.data_ptr(),
+                         None if scales is None else scales.data_ptr(), None,
                          m.slot_mapping.data_ptr(), m.block_tables.data_ptr(),
                          m.seq_lens.data_ptr(), m.query_start_loc.data_ptr(),
                          m.num_seqs.data_ptr(), None, out.data_ptr(), ws_o.data_ptr(),

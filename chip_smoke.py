@@ -58,7 +58,13 @@ raises on failure; nothing is caught):
    4 drafts, 5 query rows a sequence, keys 16-2,047, T = 320): C and A at
    the 1B shapes (B on the same sequences as decode rows beside them), the
    INT8 write and D at the 8B shapes, F at M = 320, and the merge after A
-   on 8 such sequences of 1,800-2,047 keys. Times
+   on 8 such sequences of 1,800-2,047 keys. Tensor parallelism's per-rank
+   shapes (``TP_ATTENTION_SHAPES``: Llama-3.1-8B at tp = 2, Llama-3.1-70B
+   at tp = 8): the INT8 write and the split fused D with ``scales_new``
+   (the scales of the model's kv heads, not the rank's), caches and scales
+   bit-exact; F at 70B's per-rank projections at tp = 8 (M = 8); then C
+   alone at 8,192 rows, timed against its bytes bound; a one-rank NCCL
+   group built on the card, its collectives run. Times
    with CUDA events: kernel, plain version and, where one PyTorch call
    computes the same function, that call.
 3. The port's ``Llama`` with 2 layers at full width: Llama-3.2-1B and
@@ -142,6 +148,16 @@ raises on failure; nothing is caught):
    replay at the same S (b), no verify step eager after its key's capture,
    keys first captured in the traffic listed, the widest verify key's
    replay identical to its eager step, graph memory under the reserve.
+   Tensor parallelism (``run_tp_services``): ``LlmService.start`` with
+   ``tensor_parallel_size`` 2, the second rank spawned on this card (gloo,
+   collectives through pinned host memory: not a TP speed): ``tiny_trained``
+   f32 from its directory, each rank loading its shard, tokens identical to
+   tp = 1 on the card and, greedy, on the CPU; then Llama-3.1-8B INT8 + INT8
+   KV at full width and depth, every rank drawing the same seeded weights,
+   the 8 requests at 128 tokens against the same service at tp = 1 (eager)
+   under the near-tie rule; the backend, the ranks' devices, the KV blocks,
+   collectives a step, the period and tokens/s printed; a follower that
+   fails or does not exit fails the run.
 5. The quantization decision tools (``atoma_infer_tpu_torch/tools``): the
    W8A8 rate probe's ``main()`` (its path through kernel I, both forms
    launched, int8 exact), then the W8A8 and INT8-KV gates at their card
@@ -153,7 +169,9 @@ raises on failure; nothing is caught):
    counted; A, B and the merge at head dims 96 and 256 as rows of their
    own, their launches from the Phi-3-mini and Gemma-2-9B services; C, A,
    the INT8 write, D, F and the merge on verify rows as rows of their own,
-   their launches from the spec services' runs with graphs), then
+   their launches from the spec services' runs with graphs; the
+   tensor-parallel shapes' rows, their launches from the 8B tp = 2
+   service's rank 0), then
    as the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
@@ -1099,7 +1117,7 @@ def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, de
               m.num_seqs.data_ptr(), None, out.data_ptr(), ws_o.data_ptr(), ws_ml.data_ptr())
     if decode:
         pa.FUSED_DECODE_SPLIT[None](
-            q.data_ptr(), b["k"].data_ptr(), b["v"].data_ptr(), cache.data_ptr(), None,
+            q.data_ptr(), b["k"].data_ptr(), b["v"].data_ptr(), cache.data_ptr(), None, None,
             m.slot_mapping.data_ptr(), *common, T, S, Hq, Hk, D, P, m.block_size,
             cache.shape[0] * m.block_size, splits, min_tiles, D ** -0.5, window or 0,
             soft_cap or 0.0, stream)
@@ -4090,7 +4108,7 @@ def seeded_score_gap(torch, model, params, prompt, tokens, j, a, b):
     return (scores[a] - scores[b]).abs().item()
 
 
-def compare_to_reference(label, got, want, top, seeded_gap):
+def compare_to_reference(label, got, want, top, seeded_gap, reference="the run without drafts"):
     """Hold a bf16 spec run's tokens to the same service's without drafts:
     each greedy request token for token up to its first difference, which
     must sit where the reference's top two logprobs are closer than
@@ -4115,11 +4133,11 @@ def compare_to_reference(label, got, want, top, seeded_gap):
             what = "top two logprobs"
         if not gap < tol:
             raise AssertionError(
-                f"service {label}: request {i}{seeded} differs from the run without drafts at "
+                f"service {label}: request {i}{seeded} differs from {reference} at "
                 f"token {n} ({g[n]} against {w[n]}), where the reference's {what} are "
                 f"{gap:.4f} apart (near-tie tol {tol:.4f})")
         prefixes.append(f"{i}: {n}{seeded} (then a near-tie of its {what}, gap {gap:.4f})")
-    log(f"service {label}: common prefix with the run without drafts, by request: "
+    log(f"service {label}: common prefix with {reference}, by request: "
         + "; ".join(prefixes))
 
 
@@ -4172,6 +4190,487 @@ def run_spec_service(torch):
     return {f"{k}@verify": counts[k] for k in SPEC_PATH}
 
 
+# ------------------------------------------------- tensor parallelism
+# Per-rank attention shapes of tensor parallelism: (q heads, kv heads) a
+# rank holds, and the model's kv heads, over which an INT8 cache's scales
+# are taken (scales_new). Llama-3.1-8B at tp = 2 (32 q and 8 kv heads over
+# 2 ranks) and Llama-3.1-70B at tp = 8 (64 q and 8 kv heads over 8 ranks:
+# one kv head and its 8 q heads a rank; meta-llama/Llama-3.1-70B
+# config.json), head dim 128, blocks of 16.
+TP_ATTENTION_SHAPES = {"8B tp=2": (16, 4, 8), "70B tp=8": (8, 1, 8)}
+# Llama-3.1-70B's per-rank INT8 matmul shapes at tp = 8 (hidden 8192,
+# intermediate 28672, 64 q heads of 128): name -> (K, N), groups of 128.
+TP_QMM_SHAPES = {
+    "gate_proj/up_proj": (8192, 3584),
+    "down_proj": (3584, 8192),
+    "o_proj": (1024, 8192),
+}
+# C timed where its bytes bound it: 8,192 rows at the 8B shapes (32
+# prefill chunks of 256 tokens), against the services' 514-row write.
+C_BOUND_ROWS = 8192
+# The tensor-parallel services' ranks, all on this card.
+TP_RANKS = 2
+TP_LABEL = (f"{TP_RANKS} processes time-sharing one card, collectives via host memory: "
+            "not a TP speed")
+
+
+def rank_scales(torch, k, v, hk_total, gen):
+    """The scales of a rank's new K/V ([T, hk, D] each) taken over the
+    model's ``hk_total`` kv heads: the other ranks' heads drawn at twice the
+    scale, so that the full-head absmax differs from the rank's own."""
+    from atoma_infer_tpu_torch.ops.kv_cache import kv_quant_scales
+
+    T, hk, d = k.shape
+    others = [2 * torch.randn(T, hk_total - hk, d, generator=gen, device=k.device).to(k.dtype)
+              for _ in range(2)]
+    full = kv_quant_scales(torch.cat([k, others[0]], 1), torch.cat([v, others[1]], 1))
+    if torch.equal(full, kv_quant_scales(k, v)):
+        raise AssertionError("tp kernels: the full-head scales equal the rank's own")
+    return full
+
+
+def check_tp_kernels(torch):
+    """Phase 2, tensor parallelism: the INT8 write and the split fused D
+    with ``scales_new`` (the scales of the model's kv heads, not the
+    rank's) at the per-rank shapes of TP_ATTENTION_SHAPES, against their
+    plain versions with the same scales: caches and scales bit-exact, the
+    attention within ATTN_TOL; F at Llama-3.1-70B's per-rank shapes at tp =
+    8 (TP_QMM_SHAPES, M = 8) beside torch.mm on the dequantized weights;
+    then C alone at C_BOUND_ROWS rows, timed against its bound. Returns the
+    kernels line's rows, keyed ``kernel@tp <shape>``."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import kv_write, paged_attention as pa, quant
+    from atoma_infer_tpu_torch.ops import quant_kernels as qk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
+        (1, int(k)) for k in rng.integers(16, 2048, size=29)]
+    decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    tol, rows = ATTN_TOL["bfloat16"], {}
+    for label, (hq, hk, hk_total) in TP_ATTENTION_SHAPES.items():
+        shape = dict(hq=hq, hk=hk, d=128, bs=16, dtype=torch.bfloat16, device=dev)
+        mixed = make_batch(rng, mixed_specs, num_blocks=4096, decode_only=False, **shape)
+        decode = make_batch(rng, decode_specs, num_blocks=8192, decode_only=True, **shape)
+        # The INT8 write with scales_new: bit-exact.
+        m, n = mixed["meta"], mixed["rows"]
+        sn = rank_scales(torch, mixed["k"], mixed["v"], hk_total, gen)
+        cache, scales = kv8_cache(torch, mixed["cache"], "int8", 128)
+
+        def write(c=cache, s=scales, cuda=True):
+            fn = kv_write.write_kv_cache_quant_cuda if cuda else kv_write.write_kv_cache_quant_plain
+            fn(c, s, mixed["k"], mixed["v"], m.slot_mapping, scales_new=sn)
+
+        got_c, got_s, want_c, want_s = clone(cache), clone(scales), clone(cache), clone(scales)
+        write(got_c, got_s)
+        write(want_c, want_s, cuda=False)
+        stored = got_s.view(-1, 2)[m.slot_mapping[:n].long()].float()
+        if not (same_bytes(torch, got_c, want_c) and same_bytes(torch, got_s, want_s)
+                and torch.equal(stored, sn[:n])):
+            raise AssertionError(f"reshape_and_cache_int8 scales_new {label}: not bit-exact")
+        row_in, row_out = 2 * hk * 128 * 2, 2 * hk * 128 + 4
+        rows[f"reshape_and_cache_int8@tp {label}"] = dict(
+            max_abs_err=0.0, ms=graph_ms(torch, write),
+            plain_ms=cuda_ms(lambda: write(cuda=False)), library_ms=None,
+            bytes=n * (row_in + row_out + 8) + m.slot_mapping.numel() * 4, flops=0)
+        log(f"reshape_and_cache_int8 with scales_new {label} (Hk={hk} of {hk_total}): bit-exact "
+            f"on {n} rows, the stored scales the model's")
+        # The split fused D with scales_new.
+        dm, dn = decode["meta"], decode["rows"]
+        dsn = rank_scales(torch, decode["k"], decode["v"], hk_total, gen)
+        dcache, dscales = kv8_cache(torch, decode["cache"], "int8", 128)
+        got_c, got_s, want_c, want_s = clone(dcache), clone(dscales), clone(dcache), clone(dscales)
+        split = pa.FUSED_DECODE_SPLIT[torch.int8]
+        before = split.launches
+        out = pa.ragged_paged_attention_fused_cuda(
+            decode["q"], got_c, decode["k"], decode["v"], dm, scale=128 ** -0.5,
+            kv_scales=got_s, scales_new=dsn)
+        if split.launches != before + 1:
+            raise AssertionError(f"fused D scales_new {label}: not the split kernel")
+        ref = pa.fused_decode_attention_plain(
+            decode["q"], want_c, decode["k"], decode["v"], dm, scale=128 ** -0.5,
+            kv_scales=want_s, scales_new=dsn)
+        err = (out[:dn].float() - ref[:dn].float()).abs().max().item()
+        if not (same_bytes(torch, got_c, want_c) and same_bytes(torch, got_s, want_s)
+                and torch.allclose(out[:dn].float(), ref[:dn].float(), atol=tol, rtol=tol)):
+            raise AssertionError(f"fused_decode_attention_int8_split scales_new {label}: "
+                                 f"max |err| {err:.3e}")
+        nbytes, flops = attention_work(decode_specs, None, 2, fused=True, kv_elt=1,
+                                       slot_extra=4, hq=hq, hk=hk, d=128)
+        rows[f"fused_decode_attention_int8_split@tp {label}"] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+                decode["q"], dcache, decode["k"], decode["v"], dm, scale=128 ** -0.5,
+                kv_scales=dscales, scales_new=dsn)),
+            plain_ms=cuda_ms(lambda: pa.fused_decode_attention_plain(
+                decode["q"], dcache, decode["k"], decode["v"], dm, scale=128 ** -0.5,
+                kv_scales=dscales, scales_new=dsn), iters=5, warmup=1),
+            library_ms=None, bytes=nbytes + 8 * dn, flops=flops)
+        log(f"fused_decode_attention_int8_split with scales_new {label} (Hq={hq}, Hk={hk}): "
+            f"max |err| {err:.3e} (tol {tol}), cache and scales bit-exact")
+        if label == "8B tp=2":
+            check_f32_scales_new(torch, decode, dcache, dscales, dsn)
+        del mixed, decode, cache, scales, dcache, dscales, got_c, got_s, want_c, want_s
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"), "bfloat16")
+    # F at 70B's per-rank shapes (tp = 8), bf16 activations: the tensor cores.
+    M, group = 8, 128
+    for shape, (K, N) in TP_QMM_SHAPES.items():
+        w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+        qt = quant.quantize_weight(w, 8, group)
+        w_bytes = qt.qweight.numel() + qt.scales.numel() * 2
+        copies = [qt] + [quant.QuantizedTensor(qt.qweight.clone(), qt.scales.clone(), 8, group)
+                         for _ in range(-(-128_000_000 // w_bytes) - 1)]
+        dense = [quant.dequantize_weight(c, torch.bfloat16) for c in copies]
+        iters = max(2, 20 // len(copies))
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        name = "quantized_matmul_int8_mma"
+        if routed(8, lambda: qk.quantized_matmul_cuda(x, qt.qweight, qt.scales, bits=8,
+                                                      group_size=group))[1] != name:
+            raise AssertionError(f"F 70B tp=8 {shape}: another route ran")
+        rel, err = rel_err(qk.quantized_matmul_cuda(x, qt.qweight, qt.scales, bits=8,
+                                                    group_size=group),
+                           qk.quantized_matmul_plain(x, qt.qweight, qt.scales, bits=8,
+                                                     group_size=group))
+        if not rel <= QMM_TOL["bfloat16"]:
+            raise AssertionError(f"F 70B tp=8 {shape}: rel err {rel:.3e}")
+        ms = graph_ms(torch, lambda: [qk.quantized_matmul_cuda(x, c.qweight, c.scales, bits=8,
+                                                               group_size=group)
+                                      for c in copies], iters=iters) / len(copies)
+        library_ms = graph_ms(torch, lambda: [torch.mm(x, d) for d in dense],
+                              iters=iters) / len(copies)
+        plain_ms = graph_ms(torch, lambda: qk.quantized_matmul_plain(
+            x, qt.qweight, qt.scales, bits=8, group_size=group), iters=2)
+        bound_ms, bound_by = bound(*qmm_work(M, K, N, group, bits=8, x_bytes=2), "bfloat16")
+        rows[f"{name}@tp 70B tp=8 {shape}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
+        del copies, dense, w
+        torch.cuda.empty_cache()
+    for name, r in rows.items():
+        lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
+        log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library {lib}), bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, max |err| {r['max_abs_err']:.3e}")
+    check_c_at_its_bound(torch, rng)
+    return rows
+
+
+def check_nccl_group(torch):
+    """The NCCL route's process groups built on this card and every
+    collective of a ``TpGroup`` run over them, on a group of one rank (NCCL
+    refuses two ranks on one device, so the route of a card a rank cannot
+    run here): each returns its input."""
+    import socket
+
+    from atoma_infer_tpu_torch.parallel.group import TpGroup
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    group = TpGroup.join(tp=1, rank=0, device=torch.device("cuda", 0), backend="nccl",
+                         stage_on_host=False, init_method=f"tcp://127.0.0.1:{port}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(8, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+    logits = torch.randn(8, 1024, generator=gen, device="cuda")
+    ok = (torch.equal(group.all_reduce_sum(x.clone()), x)
+          and torch.equal(group.all_reduce_max(logits[:, :2].contiguous()), logits[:, :2])
+          and torch.equal(group.all_gather_last(logits), logits) and group.min_int(3) == 3)
+    group.barrier()
+    if not ok:
+        raise AssertionError("NCCL one-rank group: a collective changed its input")
+    log(f"NCCL one-rank group on {group.device}: the process groups built, sum, max, gather "
+        f"and min run ({group.collectives} tensor collectives), inputs returned; the route of "
+        "a card a rank needs 2 or more cards")
+
+
+def check_f32_scales_new(torch, decode, cache, scales, scales_new):
+    """f32 queries over an INT8 cache with ``scales_new``: the unsplit fused
+    kernel takes its rows' own absmax, so the wrapper runs the INT8 write
+    with the scales, then D's CUDA-core ragged kernel; against the plain
+    fused version with the same scales (cache and scales bit-exact)."""
+    from atoma_infer_tpu_torch.ops import cuda_lib, paged_attention as pa
+
+    m, n = decode["meta"], decode["rows"]
+    q32, k32, v32 = (decode[x].float() for x in ("q", "k", "v"))
+    got_c, got_s, want_c, want_s = clone(cache), clone(scales), clone(cache), clone(scales)
+    names = ("reshape_and_cache_int8", "ragged_paged_attention_int8", "fused_decode_attention_int8")
+    before = [cuda_lib.KERNELS[k].launches for k in names]
+    got = pa.ragged_paged_attention_fused_cuda(q32, got_c, k32, v32, m, scale=128 ** -0.5,
+                                               kv_scales=got_s, scales_new=scales_new)
+    ran = [cuda_lib.KERNELS[k].launches - b for k, b in zip(names, before)]
+    want = pa.fused_decode_attention_plain(q32, want_c, k32, v32, m, scale=128 ** -0.5,
+                                           kv_scales=want_s, scales_new=scales_new)
+    err = (got[:n] - want[:n]).abs().max().item()
+    tol = ATTN_TOL["float32"]
+    if ran != [1, 1, 0] or not (same_bytes(torch, got_c, want_c) and same_bytes(
+            torch, got_s, want_s) and torch.allclose(got[:n], want[:n], atol=tol, rtol=tol)):
+        raise AssertionError(f"f32 fused decode with scales_new: launches {ran}, max |err| "
+                             f"{err:.3e}")
+    log(f"fused decode, f32 queries with scales_new (8B tp=2): the INT8 write, then the "
+        f"CUDA-core ragged D; cache and scales bit-exact, max |err| {err:.3e} (tol {tol})")
+
+
+def check_c_at_its_bound(torch, rng):
+    """C (the bf16 write) at C_BOUND_ROWS rows of the 8B shapes, bit-exact,
+    timed in a CUDA graph beside index_copy_ and its bound."""
+    from atoma_infer_tpu_torch.ops import kv_write
+
+    dev = torch.device("cuda")
+    b = make_batch(rng, [(256, 256)] * (C_BOUND_ROWS // 256), num_blocks=1024,
+                   decode_only=False, hq=32, hk=8, d=128, bs=16, dtype=torch.bfloat16,
+                   device=dev)
+    m, n = b["meta"], b["rows"]
+    got, want = b["cache"].clone(), b["cache"].clone()
+    kv_write.write_kv_cache_cuda(got, b["k"], b["v"], m.slot_mapping)
+    kv_write.write_kv_cache_plain(want, b["k"], b["v"], m.slot_mapping)
+    if not torch.equal(got, want):
+        raise AssertionError(f"reshape_and_cache at {n} rows: not bit-exact")
+    valid = m.slot_mapping >= 0
+    slots = m.slot_mapping[valid].long()
+    fused_rows = torch.stack([b["k"], b["v"]], 2).reshape(b["k"].shape[0], -1)[valid]
+    flat = got.view(-1, got.shape[-1])
+    ms = graph_ms(torch, lambda: kv_write.write_kv_cache_cuda(got, b["k"], b["v"],
+                                                              m.slot_mapping))
+    lib_ms = graph_ms(torch, lambda: flat.index_copy_(0, slots, fused_rows))
+    nbytes = n * 2 * (2 * 8 * 128 * 2) + m.slot_mapping.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 0, "bfloat16")
+    log(f"reshape_and_cache at {n} rows (8B shapes, bf16): {ms:.4f} ms in a CUDA graph "
+        f"(index_copy_ {lib_ms:.4f} ms), bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes / 2**20:.1f} MiB), {bound_ms / ms:.1%} of the bound")
+
+
+def build_8b_int8(device, num_layers):
+    """A rank's copy of the 8B INT8 weights, drawn as run_quant_services
+    draws them (seed 8, quantized on the card): each rank of a
+    tensor-parallel service builds the whole model, and the service cuts
+    its shard. A ``ModelFactory`` build: picklable by import path."""
+    import torch
+
+    from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+    from atoma_infer_tpu_torch.models.llama import Llama
+    from atoma_infer_tpu_torch.models.weights import quantize_params
+
+    model = Llama(llama_8b_config(num_layers), dtype=torch.bfloat16, device=device)
+    dense = model.init_params(torch.Generator(device=model.device).manual_seed(8))
+    params = quantize_params(dense, "int8")
+    del dense
+    torch.cuda.empty_cache()
+    return model, params, ByteTokenizer(model.config.vocab_size)
+
+
+def drive(torch, label, service, prompts, new_tokens, *, top_n=0, waves=True):
+    """Serve ``prompts`` (the fourth seeded and sampled, the rest greedy,
+    ``top_n`` alternatives asked) through a started service, in two waves
+    as ``serve`` admits them (the second before engine step
+    SECOND_WAVE_STEP) when ``waves``. Every request must finish and every
+    block return. Returns (tokens, top logprobs, figures: the traffic's
+    seconds, engine steps, pure-decode dispatch times, generated tokens,
+    the launches of the run, all set to 0 just before it)."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
+
+    engine, worker = service.engine, service.engine.worker
+    pool = service.config.cache.num_device_blocks
+    dispatches, steps = [], [0]
+    dispatch, step = worker.dispatch, engine.step
+
+    def timed_dispatch(request, feed=None):
+        metas = request.sequence_groups_metadata
+        dispatches.append((time.monotonic(), bool(metas) and not any(m.is_prompt for m in metas),
+                           sum(len(m.seq_data) for m in metas)))
+        return dispatch(request, feed=feed)
+
+    def request(i):
+        sampled = i == SEEDED_REQUEST
+        return GenerateRequest(
+            request_id=f"{label}-{i}", inputs=prompts[i],
+            parameters=GenerateParameters(max_new_tokens=new_tokens, do_sample=sampled,
+                                          top_n_tokens=top_n or None,
+                                          **(SEEDED_OPTIONS if sampled else {})))
+
+    async def run():
+        task = asyncio.create_task(engine.run())
+        held = []
+        engine.add_request = lambda *args: held.append(args)
+        futs = [await service.handle_request(request(i)) for i in range(len(prompts))]
+        del engine.add_request
+        first = held[:4] if waves else held
+
+        def counted_step():
+            steps[0] += 1
+            if waves and steps[0] == SECOND_WAVE_STEP:
+                for args in held[4:]:
+                    engine.add_request(*args)
+            return step()
+
+        engine.step = counted_step
+        worker.dispatch = timed_dispatch
+        for k in cuda_lib.KERNELS.values():
+            k.launches = 0
+        t0 = time.monotonic()
+        for args in first:
+            engine.add_request(*args)
+        results = await asyncio.wait_for(asyncio.gather(*futs), timeout=600)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {name: k.launches for name, k in cuda_lib.KERNELS.items()}
+        service.stop()
+        task.cancel()
+        return results, seconds, launches
+
+    results, seconds, launches = asyncio.run(run())
+    eos = set(engine.eos_token_ids)
+    for r in results:
+        out = r.outputs[0]
+        if not ((len(out.token_ids) == new_tokens and out.finish_reason == "length_capped")
+                or (out.finish_reason == "stopped" and out.token_ids[-1] in eos)):
+            raise AssertionError(f"{label} {r.request_id}: {len(out.token_ids)} tokens, "
+                                 f"finish {out.finish_reason}")
+    free = engine.scheduler.block_manager.get_num_free_device_blocks()
+    if free != pool:
+        raise AssertionError(f"service {label}: {pool - free} KV blocks leaked")
+    return ([tuple(r.outputs[0].token_ids) for r in results],
+            [r.outputs[0].top_logprobs for r in results] if top_n else None,
+            dict(seconds=seconds, steps=steps[0], dispatches=dispatches,
+                 generated=sum(len(r.outputs[0].token_ids) for r in results),
+                 launches=launches))
+
+
+def report_tp(label, service, figures, collectives):
+    """The TP run's figures: backend and devices, per-rank KV blocks,
+    collectives per step, the steady-decode period and tokens/s, labelled
+    TP_LABEL."""
+    from atoma_infer_tpu_torch.parallel.group import local_device
+
+    group = service.group
+    devices = [str(local_device(group.device.type, r, 1)) for r in range(group.tp)]
+    log(f"service {label}: backend {group.backend}, staged through host memory "
+        f"{group.stage_on_host}; rank devices {devices}")
+    log(f"service {label}: KV blocks on every rank {service.config.cache.num_device_blocks} "
+        "(the least of the ranks' profiles, taken one after another on the shared card)")
+    log(f"service {label}: {collectives} collectives over {figures['steps']} engine steps, "
+        f"{collectives / max(1, figures['steps']):.1f} a step on rank 0")
+    d = figures["dispatches"]
+    periods = [(b[0] - a[0]) * 1e3 for a, b in zip(d, d[1:]) if a[1] and b[1]]
+    rows = sum(a[2] for a, b in zip(d, d[1:]) if a[1] and b[1])
+    if periods:
+        log(f"service {label} ({TP_LABEL}): steady-decode period p50 "
+            f"{percentile(periods, 0.5):.3f} ms, p99 {percentile(periods, 0.99):.3f} ms over "
+            f"{len(periods)} intervals, {rows / (sum(periods) / 1e3):.1f} tokens/s in steady "
+            f"decode; {figures['generated'] / figures['seconds']:.1f} tokens/s over the "
+            f"whole window ({figures['generated']} tokens in {figures['seconds']:.3f} s)")
+
+
+def run_tp_services(torch):
+    """Tensor parallelism through ``LlmService.start`` with
+    ``tensor_parallel_size`` TP_RANKS, the ranks spawned on this card
+    (gloo, collectives through pinned host memory): (i) ``tiny_trained``
+    from its directory, f32, each rank loading its shard: tokens identical
+    to the same service at tp = 1 on the card, and the greedy ones to the
+    CPU's (the seeded request's noise comes from the device's generator);
+    (ii) Llama-3.1-8B at full width, 32 layers, INT8 weights over an INT8
+    KV cache (pool from free memory), random weights from a seeded
+    generator built on every rank (``build_8b_int8``), the services' 8
+    requests at OTHER_SERVICES_TOKENS tokens, against the same service at
+    tp = 1 (eager) under the near-tie rule of the spec services. Returns
+    (ii)'s launches (counts set to 0 just before its traffic)."""
+    from atoma_infer_tpu_torch.config import (
+        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
+    )
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService, ModelFactory
+
+    # (i) tiny_trained, f32.
+    fixture = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
+    prompts = [f"prompt number {i} " * (1 + i % 4) for i in range(8)]
+
+    def tiny(tp):
+        return EngineConfig(
+            model=ModelConfig(model_name=fixture, dtype="float32", tensor_parallel_size=tp),
+            cache=CacheConfig(block_size=16, num_device_blocks_override=256,
+                              num_host_blocks_override=64),
+            scheduler=SchedulerConfig(max_num_batched_tokens=256, max_num_sequences=8,
+                                      max_model_len=256),
+            validation=ValidationConfig(max_input_tokens=128, max_total_tokens=256),
+        )
+
+    runs = {}
+    for name, tp, device in (("cpu", 1, "cpu"), ("cuda", 1, None), ("cuda tp=2", TP_RANKS, None)):
+        service = LlmService.start(tiny(tp), device=device)
+        group = service.group
+        c0 = group.collectives if group else 0
+        runs[name], _, fig = drive(torch, f"tiny_trained {name}", service, prompts, 24,
+                                   waves=False)
+        if group:
+            report_tp(f"tiny_trained f32 tp={tp}", service, fig, group.collectives - c0)
+    # The seeded request's noise comes from the device's generator: it is
+    # held to the card's tp = 1 run, the greedy ones to the CPU's too.
+    greedy = [i for i in range(len(prompts)) if i != SEEDED_REQUEST]
+    if runs["cuda tp=2"] != runs["cuda"] or any(
+            runs["cuda"][i] != runs["cpu"][i] for i in greedy):
+        first = {name: [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                        for a, b in zip(runs[name], runs["cuda"])] for name in runs}
+        raise AssertionError(f"tiny_trained tp=2: tokens differ from tp=1 (card or CPU); "
+                             f"first difference from the card's tp=1, by request: {first}")
+    log(f"tiny_trained f32 tp={TP_RANKS}: {sum(len(t) for t in runs['cpu'])} tokens identical "
+        "to tp=1 on the card (the seeded request's too) and, greedy, on the CPU")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (ii) Llama-3.1-8B, INT8 weights + INT8 KV, tp = 2 then tp = 1.
+    factory = ModelFactory(config=llama_8b_config(32), build=build_8b_int8, args=(32,))
+    text = "The quick brown fox jumps over the lazy dog. " * (-(-max(PROMPT_LENGTHS) // 45))
+    prompts = [text[:n] for n in PROMPT_LENGTHS]
+
+    def config(tp):
+        return dataclass_replace(
+            llama_8b_service_config("int8", "int8", max_seqs=8, hbm_memory_utilization=0.5),
+            tensor_parallel_size=tp)
+
+    label = f"8B INT8 + INT8 KV tp={TP_RANKS}"
+    t0 = time.monotonic()
+    service = LlmService.start(config(TP_RANKS), model_factory=factory)
+    log(f"service {label}: started in {time.monotonic() - t0:.1f} s ({TP_RANKS} ranks, each "
+        "drawing, quantizing and cutting its shard)")
+    c0 = service.group.collectives
+    got, _, fig = drive(torch, label, service, prompts, OTHER_SERVICES_TOKENS, top_n=2)
+    report_tp(label, service, fig, service.group.collectives - c0)
+    launches = fig["launches"]
+    path = ("reshape_and_cache_int8", "ragged_paged_attention_int8_mma",
+            "fused_decode_attention_int8_split", "quantized_matmul_int8_mma")
+    for name in path:
+        if not launches[name]:
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
+    check_route(f"service {label}", launches, bf16=True)
+    del service
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, tokenizer = build_8b_int8("cuda", 32)
+    ref_service = LlmService.start(config(1), model=model, params=params, tokenizer=tokenizer)
+    ref_service.engine.worker.graphs = None  # eager, as every TP rank steps
+    want, top, ref_fig = drive(torch, "8B INT8 + INT8 KV tp=1", ref_service, prompts,
+                               OTHER_SERVICES_TOKENS, top_n=2)
+    compare_to_reference(
+        label, got, want, top,
+        lambda j, a, b: seeded_score_gap(torch, model, params, prompts[SEEDED_REQUEST],
+                                         want[SEEDED_REQUEST], j, a, b),
+        reference="the same service at tp=1")
+    log(f"service {label}: {fig['generated'] / fig['seconds']:.1f} tokens/s over the window "
+        f"({TP_LABEL}) against {ref_fig['generated'] / ref_fig['seconds']:.1f} at tp=1, eager")
+    del ref_service, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dataclass_replace(config, **model_fields):
+    """``config`` with its ``model`` section's fields replaced."""
+    import dataclasses
+
+    return dataclasses.replace(config, model=dataclasses.replace(config.model, **model_fields))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "atoma_infer_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -4211,6 +4710,8 @@ def main() -> int:
     phase(check_gqa_block_kernels)
     wide_rows = phase(check_wide_head_kernels)
     verify_rows = phase(check_verify_kernels)
+    tp_rows = phase(check_tp_kernels)
+    phase(check_nccl_group)
     rows.update(phase(check_probe_kernels))
     phase(check_model)
     phase(check_quant_model)
@@ -4245,6 +4746,14 @@ def main() -> int:
     launches.update(phase(run_family_services))
     gc.collect()
     torch.cuda.empty_cache()
+    # The TP rows' launches: the 8B INT8 + INT8 KV service at tp = 2.
+    tp_launches = phase(run_tp_services)
+    for key in tp_rows:
+        launches[key] = tp_launches[key.split("@")[0]]
+        if not launches[key]:
+            raise AssertionError(f"{key.split('@')[0]} was not launched on the TP service")
+    gc.collect()
+    torch.cuda.empty_cache()
     launches.update(phase(run_probe))
     launches.update(launches_cuda_cores)
     # The verify rows' launches: the 1B and the 8B spec services' runs with
@@ -4264,6 +4773,9 @@ def main() -> int:
     named += [(key, f"{key.split('@')[0]} (D={key.split('@')[1]})", r)
               for key, r in wide_rows.items()]
     named += [(key, f"{key.split('@')[0]} (verify rows)", r) for key, r in verify_rows.items()]
+    named += [(key, f"{key.split('@')[0]} ({key.split('@tp ')[1]} per-rank shapes"
+               + (", scales_new)" if "int8" in key and "matmul" not in key else ")"), r)
+              for key, r in tp_rows.items()]
     for key, name, r in named:
         kernel = cuda_lib.KERNELS[key.split("@")[0]]
         line.append(dict(

@@ -408,9 +408,11 @@ def test_service_greedy_tokens_match_jax(name):
 
 
 @pytest.mark.parametrize("raw, item", [
-    ({"inference": {"tensor_parallel_size": 2}}, "parallelism"),
+    # Tensor parallelism and multi-host are served (tests/test_torch_tp.py);
+    # with pipeline stages beside them they are still refused.
+    ({"inference": {"tensor_parallel_size": 2, "pipeline_parallel_size": 2}}, "parallelism"),
     ({"inference": {"pipeline_parallel_size": 2}}, "parallelism"),
-    ({"inference": {"num_hosts": 2}}, "parallelism"),
+    ({"inference": {"num_hosts": 2, "pipeline_parallel_size": 2}}, "parallelism"),
     ({"cache": {"enable_prefix_caching": True}}, "prefix caching"),
     # No kernel takes fp16: refused at start, not a KeyError in the loader.
     ({"inference": {"dtype": "float16"}}, "float16 instantiations of A–H"),

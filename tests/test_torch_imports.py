@@ -74,6 +74,14 @@ def test_the_server_subpackage_is_walked():
     assert os.path.join("engine", "cuda_graphs.py") in walked
 
 
+def test_the_parallel_subpackage_is_walked():
+    walked = {os.path.relpath(p, PORT_DIR) for p in _port_files()}
+    parallel = {os.path.join("parallel", f"{name}.py") for name in (
+        "__init__", "group", "sharding", "distributed")}
+    assert parallel <= walked
+    assert os.path.join("engine", "multihost.py") in walked
+
+
 def test_importing_every_module_leaves_jax_out():
     modules = []
     for path in _port_files():

@@ -197,3 +197,280 @@ def jax_scale_pages(kv_scales) -> np.ndarray:
     pages = np.zeros(s.shape[:2] + (SCALE_LANES,), ml_dtypes.bfloat16)
     pages[..., :2] = s
     return pages
+
+
+# ------------------------------------------------- tensor parallelism (spawn)
+# Spawned ranks import this module (not the test files, which import JAX):
+# the functions they run live here.
+
+def flat_params(params, prefix=""):
+    """A parameter tree (JAX arrays, numpy arrays or tensors; layers under
+    ``layers``) → {"embed": a, "layers/q_proj": a, ...} of numpy arrays."""
+    out = {}
+    for key, value in params.items():
+        if isinstance(value, dict):
+            out.update(flat_params(value, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = np.asarray(value)
+    return out
+
+
+def save_params(path, params) -> str:
+    """Dense f32 parameters (the JAX package's tree) → an ``.npz`` file that
+    every rank loads (``npz_model``)."""
+    np.savez(path, **flat_params(params))
+    return str(path)
+
+
+def npz_model(device, path, family, widths):
+    """(model, params, tokenizer) of the port: ``family`` ("llama" or
+    "mixtral") at ``widths`` (config fields), f32, the parameters of the
+    ``.npz`` at ``path``. A ``ModelFactory`` build: picklable by import
+    path, so that spawned ranks run it."""
+    from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+    from atoma_infer_tpu_torch.models.weights import params_from_numpy
+
+    if family == "mixtral":
+        from atoma_infer_tpu_torch.models.mixtral import Mixtral as cls, MixtralConfig as cfg_cls
+    else:
+        from atoma_infer_tpu_torch.models.llama import Llama as cls, LlamaConfig as cfg_cls
+    tree = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    cfg = cfg_cls(**widths)
+    model = cls(cfg, dtype=torch.float32, device=device)
+    return model, params_from_numpy(tree, torch.float32, device), ByteTokenizer(cfg.vocab_size)
+
+
+def npz_factory(path, family, widths):
+    """The ``ModelFactory`` of :func:`npz_model`."""
+    from atoma_infer_tpu_torch.engine.llm_service import ModelFactory
+    from atoma_infer_tpu_torch.models.llama import LlamaConfig
+    from atoma_infer_tpu_torch.models.mixtral import MixtralConfig
+
+    cfg = (MixtralConfig if family == "mixtral" else LlamaConfig)(**widths)
+    return ModelFactory(config=cfg, build=npz_model, args=(str(path), family, dict(widths)))
+
+
+def rendezvous_file(tmp_path, name="rdzv") -> str:
+    """A ``file://`` rendezvous under the test's own directory: xdist
+    workers never meet on a port."""
+    return f"file://{tmp_path}/{name}"
+
+
+# Seconds a spawned rank may take, start to exit.
+RANK_TIMEOUT_S = 120
+
+
+def _rank_main(fn, rank, tp, init, out, args):
+    import pickle
+
+    torch.set_num_threads(1)
+    result = fn(rank, tp, init, *args)
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+
+
+def spawn_ranks(fn, tp, tmp_path, *args, timeout=RANK_TIMEOUT_S):
+    """Run ``fn(rank, tp, init_method, *args)`` in ``tp`` spawned processes
+    (``fn`` from this module), each joined within ``timeout`` seconds; every
+    rank must exit 0. Returns their results in rank order."""
+    import pickle
+    import time
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    init = rendezvous_file(tmp_path, f"ranks-{fn.__name__}")
+    outs = [tmp_path / f"{fn.__name__}-rank{r}.pkl" for r in range(tp)]
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, tp, init, str(outs[r]), args))
+             for r in range(tp)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [p.name for p in procs if p.is_alive()]
+        if hung:
+            raise AssertionError(f"ranks {hung} did not exit in {timeout} s")
+        failed = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+        if failed:
+            raise AssertionError(f"ranks exited with errors: {failed}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    results = []
+    for out in outs:
+        with open(out, "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def tp_engine_config(tp, *, kv_cache_dtype=None, coordinator_address=None, **sched):
+    """The tensor-parallel services' configuration (``tests/test_engine_tp.py``
+    ``make_service``'s, with the Python block manager)."""
+    from atoma_infer_tpu_torch.config import (
+        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
+    )
+
+    kw = dict(max_num_batched_tokens=512, max_num_sequences=16, max_model_len=512,
+              enable_chunked_prefill=False, use_native_core=False)
+    kw.update(sched)
+    return EngineConfig(
+        model=ModelConfig(model_name="injected", dtype="float32", tensor_parallel_size=tp,
+                          kv_cache_dtype=kv_cache_dtype,
+                          coordinator_address=coordinator_address),
+        cache=CacheConfig(block_size=16, num_device_blocks_override=128,
+                          num_host_blocks_override=32),
+        scheduler=SchedulerConfig(**kw),
+        validation=ValidationConfig(max_input_tokens=256, max_total_tokens=512),
+    )
+
+
+def generate(service, prompts, *, max_new_tokens=12, abort_at=None):
+    """Greedy ``prompts`` through a running-loop service → {request id:
+    token ids}. ``abort_at=(step, request id)``: that request is aborted
+    just before the engine's ``step``-th step."""
+    import asyncio
+
+    from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
+
+    async def run():
+        engine = service.engine
+        if abort_at is not None:
+            step, rid = abort_at
+            inner, count = engine.step, [0]
+
+            def counted():
+                count[0] += 1
+                if count[0] == step:
+                    engine.abort_request(rid)
+                return inner()
+
+            engine.step = counted
+        task = asyncio.create_task(engine.run())
+        futs = [await service.handle_request(GenerateRequest(
+            request_id=f"req-{i}", inputs=p,
+            parameters=GenerateParameters(max_new_tokens=max_new_tokens, do_sample=False)))
+            for i, p in enumerate(prompts)]
+        results = await asyncio.wait_for(asyncio.gather(*futs), timeout=RANK_TIMEOUT_S)
+        service.stop()
+        task.cancel()
+        return {r.request_id: list(r.outputs[0].token_ids) for r in results}
+
+    return asyncio.run(run())
+
+
+def lockstep_rank(rank, tp, init, path, family, widths, prompts, sched, kv_cache_dtype,
+                  abort_at=None):
+    """One rank of a tensor-parallel service started by hand (the
+    multi-host form: each rank builds its service on its group; rank 0
+    attaches the lockstep hook and serves ``prompts``, the others run
+    ``follower_loop``). Returns the rank's outputs, the digest of its
+    schedule trace, the steps at which it applied aborts, and its KV caches
+    and scales."""
+    import hashlib
+    import json
+
+    from atoma_infer_tpu_torch.engine import multihost
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.parallel.distributed import init_distributed
+
+    group = init_distributed(init, tp, rank, device=torch.device("cpu"), local_ranks=tp,
+                             local_devices=1)
+    config = tp_engine_config(tp, kv_cache_dtype=kv_cache_dtype, **sched)
+    service = LlmService.start(config, model_factory=npz_factory(path, family, widths),
+                               group=group)
+    engine = service.engine
+    trace, steps, aborted = hashlib.sha256(), [0], []
+    schedule, step, abort = engine.scheduler.schedule, engine.step, \
+        engine.scheduler.abort_sequence_group
+
+    def traced_schedule():
+        metas, outs = schedule()
+        trace.update(json.dumps([(m.request_id, m.token_chunk_size, m.is_prompt,
+                                  sorted(map(tuple, m.block_tables.items()))) for m in metas],
+                                default=list).encode())
+        return metas, outs
+
+    def counted_step():
+        steps[0] += 1
+        return step()
+
+    def traced_abort(rid):
+        aborted.append((rid, steps[0]))
+        return abort(rid)
+
+    engine.scheduler.schedule = traced_schedule
+    engine.step = counted_step
+    engine.scheduler.abort_sequence_group = traced_abort
+    if rank == 0:
+        service.lockstep = multihost.attach_primary(service)
+        outputs = generate(service, prompts, abort_at=abort_at)
+    else:
+        outputs = {r.request_id: list(r.outputs[0].token_ids)
+                   for r in multihost.follower_loop(service)}
+    ce = engine.worker.cache_engine
+    return dict(
+        outputs=outputs, digest=trace.hexdigest(), steps=steps[0], aborted=aborted,
+        kv_cache=[c.numpy().copy() for c in ce.kv_cache],
+        kv_scales=None if ce.kv_scales is None else [to_numpy(s).copy() for s in ce.kv_scales],
+    )
+
+
+def logits_rank(rank, tp, init, path, family, widths, steps, stream, tables):
+    """One rank of a tensor-parallel model run by hand over ``steps``
+    ((seq_lens, q_lens) each, ``model_step``'s): returns each step's gathered
+    logits at the real rows."""
+    from atoma_infer_tpu_torch.parallel.distributed import init_distributed
+    from atoma_infer_tpu_torch.parallel.sharding import shard_params
+
+    group = init_distributed(init, tp, rank, device=torch.device("cpu"), local_ranks=tp,
+                             local_devices=1)
+    model, params, _ = npz_model("cpu", path, family, widths)
+    model.group = group
+    params = shard_params(params, group, model.config.num_kv_heads)
+    cache = model.alloc_kv_cache(16, 16)
+    out = []
+    for seq_lens, q_lens in steps:
+        case, positions, toks = model_step(seq_lens, q_lens, tables[: len(seq_lens)], stream)
+        hidden = model.forward(params, torch.from_numpy(toks), torch.from_numpy(positions),
+                               cache, torch_meta(case))
+        n = int(case["query_start_loc"][-1])
+        out.append(model.compute_logits(params, hidden).numpy()[:n])
+    return out
+
+
+def collectives_rank(rank, tp, init, payloads):
+    """Every collective of a ``TpGroup`` once, and each payload through
+    ``broadcast_step_payload`` (rank 0 sends): returns what the rank got."""
+    from atoma_infer_tpu_torch.parallel.distributed import (
+        broadcast_step_payload, init_distributed,
+    )
+
+    group = init_distributed(init, tp, rank, device=torch.device("cpu"), local_ranks=tp,
+                             local_devices=1)
+    x = torch.full((3, 2), float(rank + 1))
+    got = dict(
+        sum=group.all_reduce_sum(x.clone()).tolist(),
+        max=group.all_reduce_max(torch.tensor([[rank, -rank]], dtype=torch.float32)).tolist(),
+        gather=group.all_gather_last(torch.full((2, 1), float(rank))).tolist(),
+        min=group.min_int(10 + rank),
+        payloads=[broadcast_step_payload(group, p if rank == 0 else None) for p in payloads],
+    )
+    got["collectives"] = group.collectives
+    return got
+
+
+def npz_model_failing_on_followers(device, path, family, widths):
+    """:func:`npz_model` on rank 0; raises in a follower rank's process
+    (named ``atoma-tp-rank<r>`` by ``LlmService.start``)."""
+    if torch.multiprocessing.current_process().name.startswith("atoma-tp-rank"):
+        raise RuntimeError("a follower rank fails to build its model")
+    return npz_model(device, path, family, widths)
