@@ -12,9 +12,9 @@ identical; the free-device-memory probe differs, and so does the INT8 KV
 scale storage that ``CacheConfig.block_bytes`` counts (two bf16 per slot,
 not the TPU's 128-lane page). ``tensor_parallel_size`` > 1 runs one
 process per rank (``LlmService.start``), and ``num_hosts``, ``host_id``
-and ``coordinator_address`` spread the ranks over hosts; the field not
-ported yet (``pipeline_parallel_size`` > 1) is parsed but rejected by the
-port's ``LlmService.start`` until its ROADMAP item lands.
+and ``coordinator_address`` spread the ranks over hosts;
+``pipeline_parallel_size`` > 1 splits the layers into stages, each rank
+holding every stage (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -57,8 +57,11 @@ class ModelConfig:
     # torch.distributed (parallel/group.py: nccl with a card per rank,
     # gloo through host memory when ranks share a card, gloo on the CPU).
     tensor_parallel_size: int = 1
-    # Pipeline parallelism (beyond the reference, SURVEY.md §2.6): not
-    # ported yet (ROADMAP.md, Queue 1); LlmService.start refuses it.
+    # Pipeline parallelism (beyond the reference, SURVEY.md §2.6): layers
+    # split into contiguous stages, each with its own device and KV cache;
+    # the engine pipelines per-cohort steps across stages
+    # (parallel/pipeline.py, engine/pp_worker.py). Under tensor parallelism
+    # each rank holds its shard of every stage.
     pipeline_parallel_size: int = 1
     # Multi-host serving (BASELINE config #5): each host runs
     # tensor_parallel_size / num_hosts of the ranks (rank = host_id ·

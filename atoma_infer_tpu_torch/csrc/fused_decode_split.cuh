@@ -518,17 +518,17 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, once per
-// library: internal linkage, so that another library built from this
-// header (the measurement tools' variants) keeps its own flag.
+// device and library: internal linkage, so that another library built from
+// this header (the measurement tools' variants) keeps its own flags.
 namespace {
 template <typename C, int D, int G>
 cudaError_t fused_split_attributes() {
-  static const cudaError_t err = [] {
+  static atoma::PerDevice state;
+  return atoma::once_per_device(state, [] {
     return cudaFuncSetAttribute(fused_split_kernel<C, D, G>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 fs_smem_bytes<C, D, G>());
-  }();
-  return err;
+  });
 }
 }  // namespace
 

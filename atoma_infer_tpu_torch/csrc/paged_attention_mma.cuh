@@ -67,6 +67,7 @@
 
 #pragma once
 
+#include "device_once.cuh"
 #include "mma_sm90.cuh"
 #include "paged_attention.cuh"
 
@@ -545,15 +546,16 @@ __global__ void __launch_bounds__(128) rpa_combine_kernel(
   }
 }
 
-// Above 48 KB of dynamic shared memory a kernel must opt in, once.
+// Above 48 KB of dynamic shared memory a kernel must opt in, once on each
+// device it runs on.
 template <typename C, int D, int NW>
 cudaError_t rpa_mma_attributes() {
-  static const cudaError_t err = [] {
+  static atoma::PerDevice state;
+  return atoma::once_per_device(state, [] {
     return cudaFuncSetAttribute(rpa_mma_kernel<C, D, NW>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 RpaTile<C, D, NW>::kSmem);
-  }();
-  return err;
+  });
 }
 
 template <typename C, int D, int NW>

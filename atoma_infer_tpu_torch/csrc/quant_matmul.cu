@@ -87,6 +87,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_once.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -1290,15 +1291,16 @@ int qmm_float_entry(const void* x, const void* q, const void* scales, void* out,
   return (int)cudaGetLastError();
 }
 
-// Above 48 KB of dynamic shared memory a kernel must opt in, once.
+// Above 48 KB of dynamic shared memory a kernel must opt in, once on each
+// device it runs on.
 template <int BITS, int MT, int WM>
 cudaError_t mma_attributes() {
-  static const cudaError_t err = [] {
+  static atoma::PerDevice state;
+  return atoma::once_per_device(state, [] {
     return cudaFuncSetAttribute(qmm_mma_kernel<BITS, MT, WM>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 MmaTile<BITS, MT, WM>::kSmem);
-  }();
-  return err;
+  });
 }
 
 template <int BITS, int MT, int WM>
@@ -1353,12 +1355,12 @@ int qmm_mma_entry(const void* x, const void* q, const void* scales, void* out, v
 
 template <int BITS, int MT, int WM, typename OutT>
 cudaError_t w8a8_mma_attributes() {
-  static const cudaError_t err = [] {
+  static atoma::PerDevice state;
+  return atoma::once_per_device(state, [] {
     return cudaFuncSetAttribute(qmm_w8a8_mma_kernel<BITS, MT, WM, OutT>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 W8a8Tile<BITS, MT, WM>::kSmem);
-  }();
-  return err;
+  });
 }
 
 template <int BITS, int MT, int WM>

@@ -77,6 +77,7 @@
 
 #include <type_traits>
 
+#include "device_once.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -373,9 +374,13 @@ int launch(const void* x, const void* w, void* out, int M, int N, int K, void* s
     return (int)cudaErrorInvalidValue;
   if ((uintptr_t)x % 16 != 0 || (uintptr_t)w % 16 != 0 || (uintptr_t)out % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  // Above 48 KB of dynamic shared memory a kernel must opt in, once.
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      probe_mma<INT8>, cudaFuncAttributeMaxDynamicSharedMemorySize, Form<INT8>::kSmem);
+  // Above 48 KB of dynamic shared memory a kernel must opt in, once on each
+  // device it runs on.
+  static atoma::PerDevice state;
+  const cudaError_t opt_in = atoma::once_per_device(state, [] {
+    return cudaFuncSetAttribute(probe_mma<INT8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                Form<INT8>::kSmem);
+  });
   if (opt_in != cudaSuccess) return (int)opt_in;
   const dim3 grid(N / kBN, (M + kBM - 1) / kBM);
   probe_mma<INT8><<<grid, kThreads, Form<INT8>::kSmem, (cudaStream_t)stream>>>(

@@ -141,6 +141,23 @@ class CacheEngine:
             for cache in device_layers:
                 copy_blocks_layer(cache, pairs)
 
+    def swap_blocks_to(self, dst: "CacheEngine", mapping: List[Tuple[int, int]]) -> None:
+        """Copy whole blocks into ANOTHER cache engine's device buffers,
+        (src_block, dst_block) pairs, scales with their pages when both are
+        INT8 (JAX ``swap_blocks_to``; the reference's ``swap_blocks`` with
+        both tensors on devices, ``cache_manager.rs:18-128``): from one
+        stage or device to another. Same-engine moves are :meth:`copy`."""
+        if not mapping:
+            return
+        src_ids = [s for s, _ in mapping]
+        dst_ids = [d for _, d in mapping]
+        pairs = [(self.kv_cache, dst.kv_cache)]
+        if self.kv_scales is not None and dst.kv_scales is not None:
+            pairs.append((self.kv_scales, dst.kv_scales))
+        for src_layers, dst_layers in pairs:
+            for src, out in zip(src_layers, dst_layers):
+                scatter_blocks_layer(out, dst_ids, gather_blocks_layer(src, src_ids))
+
     def execute(
         self,
         blocks_to_swap_in: List[Tuple[int, int]],

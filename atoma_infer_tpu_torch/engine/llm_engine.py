@@ -14,10 +14,13 @@ The PyTorch port's copy of ``atoma_infer_tpu/engine/llm_engine.py``, single
 cohort: the synchronous path and async scheduling (steps dispatched ahead of
 their predecessors' tokens, ``async_depth`` in flight), and speculative
 decoding's multi-token advance (a verify step appends each sequence's
-accepted drafts and the token after them, and runs synchronously), and the
+accepted drafts and the token after them, and runs synchronously), the
 lockstep hook of tensor parallelism (``pre_step``, set by
-``engine/multihost.py`` on rank 0). Pipeline cohorts are not ported yet
-(ROADMAP.md, Queue 1).
+``engine/multihost.py`` on rank 0), and pipeline parallelism's cohorts: one
+scheduler a cohort over one shared block pool, each request in the
+least-loaded cohort, one dispatched step a cohort in flight
+(``_step_pipelined``), so that the stages of ``engine/pp_worker.py``
+overlap across cohorts.
 """
 
 from __future__ import annotations
@@ -99,10 +102,19 @@ class LlmEngine:
         tokenizer,
         eos_token_ids,
         max_model_len: int,
+        extra_schedulers=(),
         async_scheduling: bool = False,
         async_depth: int = 2,
     ):
         self.scheduler = scheduler
+        # Pipeline parallelism: one scheduler a cohort (all sharing one
+        # block manager). A request joins the least-loaded cohort at
+        # admission; step() keeps one dispatched step a cohort in flight, so
+        # that the pipeline stages overlap across cohorts.
+        self.schedulers = [scheduler, *extra_schedulers]
+        self._next_cohort = 0
+        # In-flight pipelined steps, oldest first: (cohort, metadata, PendingStep).
+        self._pending: List[tuple] = []
         self.worker = worker
         self.detokenizer = Detokenizer(tokenizer)
         self.eos_token_ids = set(
@@ -142,8 +154,9 @@ class LlmEngine:
         # with it. ``async_depth`` steps stay in flight: depth 1 detects
         # stop conditions one step late; depth 2 also hides the
         # device→host fetch behind a full host iteration. Cost: a finishing
-        # sequence wastes ``depth`` sampled-and-discarded tokens.
-        self._async_scheduling = async_scheduling
+        # sequence wastes ``depth`` sampled-and-discarded tokens. One cohort
+        # only: cohorts overlap their steps instead.
+        self._async_scheduling = async_scheduling and not extra_schedulers
         self._async_depth = max(1, async_depth)
         # In-flight steps, oldest first. Each entry:
         # (metadata, PendingStep, rows) with rows mapping
@@ -162,6 +175,12 @@ class LlmEngine:
         if stream_queue is not None:
             self._stream_queues[group.request_id] = stream_queue
             group.stream = True
+        if len(self.schedulers) > 1:
+            # Cohort: the least-loaded scheduler (ties: the lowest id).
+            group.cohort = min(
+                range(len(self.schedulers)),
+                key=lambda k: self.schedulers[k].get_num_unfinished_seq_groups(),
+            )
         self._new_requests.put_nowait(group)
 
     def abort_request(self, request_id: str) -> bool:
@@ -204,9 +223,11 @@ class LlmEngine:
                 # response carries real tokens, not unpatched placeholders.
                 self._complete_async_all()
                 self.scheduler.remove_finished_sequences()
-            group = self.scheduler.abort_sequence_group(request_id)
-            if group is not None:
-                self._finish_group(group)
+            for scheduler in self.schedulers:
+                group = scheduler.abort_sequence_group(request_id)
+                if group is not None:
+                    self._finish_group(group)
+                    break
 
     # ------------------------------------------------------------------- loop
     async def run(self) -> None:
@@ -291,13 +312,12 @@ class LlmEngine:
         self._new_requests.put_nowait(None)
 
     def _has_unfinished(self) -> bool:
-        return (bool(self._async_queue) or bool(self._admit_backlog)
-                or self.scheduler.has_unfinished_seqs())
+        return (bool(self._pending) or bool(self._async_queue) or bool(self._admit_backlog)
+                or any(s.has_unfinished_seqs() for s in self.schedulers))
 
     def _scheduler_for(self, group: SequenceGroup):
-        """The scheduler a group is admitted to: the one there is (the JAX
-        engine picks a pipeline cohort's)."""
-        return self.scheduler
+        """The scheduler a group is admitted to: its cohort's."""
+        return self.schedulers[getattr(group, "cohort", 0)]
 
     def _drain_new_requests(self) -> None:
         while True:
@@ -319,6 +339,8 @@ class LlmEngine:
         """One engine iteration (ref: llm_engine.rs:216-245)."""
         if self.pre_step is not None:
             self.pre_step()
+        if len(self.schedulers) > 1:
+            return self._step_pipelined()
         self._drain_aborts()
         metadata, outputs = self.scheduler.schedule()
         metrics.ENGINE_STEPS.inc()
@@ -387,6 +409,57 @@ class LlmEngine:
             finished += self._process_outputs(metadata, group_outputs)
         self.scheduler.remove_finished_sequences()
         metrics.RUNNING_SEQS.set(len(self.scheduler.running))
+        return finished
+
+    # -------------------------------------------------------------- cohorts
+    def _step_pipelined(self) -> List[GenerateRequestOutput]:
+        """One pipelined iteration: complete the active cohort's previous
+        step (its tokens gate its next schedule), then schedule and dispatch
+        its next step, leaving the OTHER cohorts' steps in flight — what
+        keeps every pipeline stage busy (``engine/pp_worker.py``). The
+        rotation is deterministic, so ranks in lockstep step alike."""
+        self._drain_aborts()
+        k = self._next_cohort
+        self._next_cohort = (k + 1) % len(self.schedulers)
+        scheduler = self.schedulers[k]
+
+        finished: List[GenerateRequestOutput] = []
+        for i, (cohort, _, _) in enumerate(self._pending):
+            if cohort == k:
+                finished += self._complete_pending(i)
+                break
+
+        metadata, outputs = scheduler.schedule()
+        metrics.ENGINE_STEPS.inc()
+        metrics.SCHEDULED_TOKENS.inc(outputs.num_batched_tokens)
+        metrics.WAITING_SEQS.set(sum(len(s.waiting) for s in self.schedulers))
+        for group in outputs.ignored_seq_groups:
+            self._finish_group(group)
+        if metadata or not outputs.is_empty():
+            request = ExecuteModelRequest(
+                sequence_groups_metadata=metadata,
+                blocks_to_swap_in=outputs.blocks_to_swap_in,
+                blocks_to_swap_out=outputs.blocks_to_swap_out,
+                blocks_to_copy=outputs.blocks_to_copy,
+                running_queue_size=outputs.running_queue_size,
+            )
+            pending = self.worker.dispatch(request)
+            if pending is not None:
+                self._pending.append((k, metadata, pending))
+        elif not scheduler.has_unfinished_seqs() and self._pending:
+            # This cohort is idle: drain the oldest in-flight step, so that
+            # the other cohorts progress when the rotation stalls.
+            finished += self._complete_pending(0)
+        metrics.RUNNING_SEQS.set(sum(len(s.running) for s in self.schedulers))
+        return finished
+
+    def _complete_pending(self, index: int) -> List[GenerateRequestOutput]:
+        cohort, metadata, pending = self._pending.pop(index)
+        scheduler = self.schedulers[cohort]
+        # The cohorts share one block manager, so the finished sequences'
+        # blocks return to the one pool whichever scheduler frees them.
+        finished = self._process_outputs(metadata, pending.complete())
+        scheduler.remove_finished_sequences()
         return finished
 
     # ------------------------------------------------------- async scheduling

@@ -13,11 +13,15 @@ service on its own device (or sharing a card) with its shard of the weights
 and KV heads, and returns rank 0's service, whose engine broadcasts every
 step's admissions to the followers (``engine/multihost.py``). Multi-host
 (``num_hosts``, ``host_id``, ``coordinator_address``) is the same code with
-the ranks spread over hosts. Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP.md item): pipeline parallelism,
-prefix caching, float16 (no kernel takes fp16 yet), CUDA graphs of
-tensor-parallel steps (``warmup`` under TP), and the native (C++) block
-manager — the port always uses the Python one. Async scheduling (``async_scheduling``,
+the ranks spread over hosts. Pipeline parallelism
+(``pipeline_parallel_size`` > 1, :meth:`LlmService._start_pipelined`) splits
+the layers into stages, each with its cache engine and device, served by
+one scheduler a cohort over one block pool; under tensor parallelism each
+rank holds its shard of every stage. Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP.md item): prefix caching,
+float16 (no kernel takes fp16 yet), CUDA graphs of tensor-parallel steps
+(``warmup`` under TP), and the native (C++) block manager — the port
+always uses the Python one. Async scheduling (``async_scheduling``,
 ``async_depth``) is ported, and so is ``warmup``, which on the card captures
 the decode and verify steps' CUDA graphs of the buckets it reaches before
 traffic (``engine/cuda_graphs.py``). So is speculative decoding
@@ -51,6 +55,7 @@ from ..config import EngineConfig
 from ..core.scheduler import Scheduler
 from ..parallel.distributed import init_distributed, rendezvous
 from ..parallel.group import local_device
+from ..parallel.pipeline import stage_layer_bounds
 from ..parallel.sharding import check_divisibility, kv_repeat, shard_params
 from ..sequence import Sequence, SequenceGroup
 from ..types import GenerateParameters, GenerateRequest
@@ -85,7 +90,6 @@ def _reject_unported(config: EngineConfig) -> None:
     """Raise for every configured feature the port does not have yet."""
     m, c = config.model, config.cache
     unported = [
-        (m.pipeline_parallel_size > 1, "pipeline parallelism", "parallelism"),
         (c.enable_prefix_caching, "prefix caching", "prefix caching"),
         (m.dtype == "float16", "float16", "float16 instantiations of A–H"),
     ]
@@ -315,6 +319,9 @@ class LlmService:
             logger.info("model loaded in %.1fs", time.monotonic() - t0)
         if model.device != device:
             raise ValueError(f"model is on {model.device}, service on {device}")
+        if config.model.pipeline_parallel_size > 1:
+            return cls._start_pipelined(config, model, params, tokenizer, device, group,
+                                        sharded)
 
         cfg = model.config
         if group is not None and group.tp > 1:
@@ -332,7 +339,7 @@ class LlmService:
         # CUDA graphs capture no collective (ROADMAP.md, Queue 1: CUDA graphs
         # of TP steps over NCCL): a tensor-parallel rank steps eagerly.
         graphs = device.type == "cuda" and model.tp == 1
-        cls._profile_kv(config, model, kv_dtype, device, group, graphs)
+        cls._profile_kv(config, model, kv_dtype, [device], group, graphs)
         cache_engine = CacheEngine(
             num_layers=cfg.num_layers,
             num_kv_heads=model.local_kv_heads,
@@ -367,19 +374,96 @@ class LlmService:
             group=group,
         )
 
+    @classmethod
+    def _start_pipelined(cls, config: EngineConfig, model, params, tokenizer, device, group,
+                         sharded: bool) -> "LlmService":
+        """Pipeline-parallel start (JAX ``engine/llm_service.py:259-369``):
+        the layers split into ``pipeline_parallel_size`` stages, each with
+        its parameters (this rank's shard under tensor parallelism), its
+        device (``parallel/pipeline.py`` ``stage_devices``), its cache engine
+        over its layers and, under TP, its group; one scheduler a cohort,
+        all over one block pool (block ids are global over the layers). The
+        pool is sized by the layers on the most crowded device: stages that
+        share a card share its memory. A stage steps eagerly: no CUDA graph
+        (ROADMAP.md, Queue 1: per-stage CUDA graphs of PP decode steps)."""
+        from ..parallel.pipeline import (
+            log_layout, place_stage_params, split_params, stage_devices,
+        )
+        from .pp_worker import PipelinedModelWorker
+
+        cfg = model.config
+        pp = config.model.pipeline_parallel_size
+        tp = 1 if group is None else group.tp
+        check_divisibility(cfg.num_attention_heads, cfg.num_kv_heads, tp)
+        bounds = stage_layer_bounds(cfg.num_layers, pp)
+        devices = stage_devices(pp, device, tp // (config.model.num_hosts or 1),
+                                _local_devices(device, config))
+        log_layout(bounds, devices, 0 if group is None else group.rank)
+        groups = [None] * pp
+        if tp > 1:
+            model.group = group
+            groups = [group.for_stage(s, d) for s, d in enumerate(devices)]
+        stage_models = [model.for_stage(d, g) for d, g in zip(devices, groups)]
+        stage_params = place_stage_params(split_params(params, pp),
+                                          [None] * pp if sharded else groups, devices,
+                                          cfg.num_kv_heads)
+        del params
+        if device.type == "cuda":
+            check_kernel_shapes(cfg, config)
+        kv_dtype = _KV_DTYPES.get(config.model.kv_cache_dtype, model.dtype)
+        layers_on: dict = {}
+        for (lo, hi), d in zip(bounds, devices):
+            layers_on[d] = layers_on.get(d, 0) + hi - lo
+        cls._profile_kv(config, model, kv_dtype, list(layers_on), group, False,
+                        num_layers=max(layers_on.values()))
+        cache_engines = [
+            CacheEngine(
+                num_layers=hi - lo,
+                num_kv_heads=model.local_kv_heads,
+                head_dim=cfg.head_dim,
+                block_size=config.cache.block_size,
+                num_device_blocks=config.cache.num_device_blocks,
+                num_host_blocks=config.cache.num_host_blocks or 0,
+                dtype=kv_dtype,
+                device=d,
+            )
+            for (lo, hi), d in zip(bounds, devices)
+        ]
+        worker = PipelinedModelWorker(stage_models, stage_params, cache_engines, bounds,
+                                      config.scheduler, config.cache)
+        first = Scheduler(config.scheduler, config.cache)
+        others = [Scheduler(config.scheduler, config.cache, block_manager=first.block_manager)
+                  for _ in range(pp - 1)]
+        tokenizer_pool = TokenizerPool(tokenizer, config.model.num_tokenizer_workers)
+        engine = LlmEngine(
+            first,
+            worker,
+            tokenizer,
+            cfg.eos_token_ids,
+            config.scheduler.max_model_len,
+            extra_schedulers=others,
+            async_scheduling=config.scheduler.async_scheduling,
+            async_depth=config.scheduler.async_depth,
+        )
+        return cls(config, engine, Validation(config.validation, tokenizer_pool),
+                   tokenizer_pool, config.cache.block_size, cfg.eos_token_ids, group=group)
+
     @staticmethod
-    def _profile_kv(config: EngineConfig, model, kv_dtype, device, group, graphs: bool) -> None:
+    def _profile_kv(config: EngineConfig, model, kv_dtype, devices, group, graphs: bool,
+                    num_layers: Optional[int] = None) -> None:
         """Size the KV pools AFTER the weights are resident (ref:
-        config.rs:624-625): free device memory ÷ bytes per block, an INT8
-        cache's scales counted, less the decode graphs' reserve. Under
-        tensor parallelism the replicated schedulers need identical pools:
-        every rank takes the least of the ranks' counts. Ranks that share a
-        card profile one after another, each holding its pool's bytes while
-        the next measures, and each takes its share of what it finds free,
-        so that no rank counts another's pool as free."""
+        config.rs:624-625): the least free memory over ``devices`` ÷ bytes
+        per block of ``num_layers`` layers (default: the model's; a
+        pipeline's most crowded device's), an INT8 cache's scales counted,
+        less the decode graphs' reserve. Under tensor parallelism the
+        replicated schedulers need identical pools: every rank takes the
+        least of the ranks' counts. Ranks that share a card profile one
+        after another, each holding its pool's bytes while the next
+        measures, and each takes its share of what it finds free, so that no
+        rank counts another's pool as free."""
         cfg = model.config
         kw = dict(
-            devices=[device],
+            devices=list(devices),
             scale_pages=kv_dtype == torch.int8,
             reserve_bytes=(
                 decode_graph_bytes(config.scheduler.max_num_sequences, cfg.vocab_size,
@@ -389,26 +473,27 @@ class LlmService:
                 if graphs else 0
             ),
         )
-        shape = (cfg.num_layers, model.local_kv_heads, cfg.head_dim,
+        shape = (num_layers or cfg.num_layers, model.local_kv_heads, cfg.head_dim,
                  config.model.kv_dtype_size)
         if group is None or group.tp == 1:
             config.cache.profile(*shape, **kw)
             return
-        if device.type == "cuda":
+        cuda = devices[0].type == "cuda"
+        if cuda:
             torch.cuda.empty_cache()  # the load's temporaries: free for every rank
-        held = None
+        held = []
         index, count = group.device_share
         for turn in range(group.tp):
             group.barrier()
             if turn == group.rank:
                 config.cache.profile(*shape, share=count - index, **kw)
-                if group.stage_on_host and device.type == "cuda":
+                if group.stage_on_host and cuda:
                     per_block = config.cache.block_bytes(*shape, kw["scale_pages"])
-                    held = torch.empty(config.cache.num_device_blocks * per_block,
-                                       dtype=torch.uint8, device=device)
+                    held = [torch.empty(config.cache.num_device_blocks * per_block,
+                                        dtype=torch.uint8, device=d) for d in devices]
         config.cache.num_device_blocks = group.min_int(config.cache.num_device_blocks)
         config.cache.num_host_blocks = group.min_int(config.cache.num_host_blocks or 0)
-        if held is not None:
+        if held:
             del held
             torch.cuda.empty_cache()
         logger.info("rank %d of %d: %d KV blocks, the least over the ranks", group.rank,
@@ -452,6 +537,7 @@ class LlmService:
             model_dir = model_dir or resolve_model_dir(config)
             model_cfg = load_hf_config(model_dir)
         check_divisibility(model_cfg.num_attention_heads, model_cfg.num_key_value_heads, tp)
+        stage_layer_bounds(model_cfg.num_hidden_layers, m.pipeline_parallel_size)
         device = resolve_device(device)
         if device.type == "cuda":
             check_kernel_shapes(model_cfg, config)

@@ -46,8 +46,8 @@ def serialize_group(group: SequenceGroup) -> Dict[str, Any]:
         "best_of": getattr(group, "best_of", 1),
         "top_n": getattr(group, "top_n_tokens", 0),
         "num_return": getattr(group, "num_return", 1),
-        # The JAX package's pipeline cohort, kept so that payloads are the
-        # same bytes; the port has one cohort.
+        # The pipeline cohort rank 0 assigned: every rank schedules the
+        # group in the same cohort.
         "cohort": getattr(group, "cohort", 0),
     }
 

@@ -65,7 +65,9 @@ def _to_host(t: torch.Tensor):
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     event = torch.cuda.Event()
-    event.record()
+    # The copy runs on the stream of t's device, which need not be the
+    # current device's (a pipeline's last stage).
+    event.record(torch.cuda.current_stream(t.device))
     return host, event
 
 
@@ -212,31 +214,14 @@ class ModelWorker:
         )
 
     # ------------------------------------------------------------------ step
-    @torch.inference_mode()
-    def _step(
-        self,
-        packed: torch.Tensor,   # [N] int32 on the device — all step metadata
-        sampling: dict,         # per-row sampling tensors on the device
-        gumbel: Optional[torch.Tensor],
-        prev_tokens: Optional[torch.Tensor],  # [≥ S_prev] int32: the feed
-        *,
-        T: int,
-        S: int,
-        P: int,
-        decode_only: bool,
-        max_q_len: int,
-        needs_penalties: bool,
-        needs_typical: bool,
-        top_n: int,
-        spec_width: int = 0,
-    ):
-        """Forward + logits + sampling for one bucketed batch →
-        (tokens, logprobs, packed outputs, top-n). The caches in
-        ``self.cache_engine.kv_cache`` (and an int8 cache's scales) are
-        updated in place. ``spec_width`` is K+1 on a verify step, whose
-        packed metadata carries the [S, K+1] verify rows in place of the
-        [S] last-token rows; tokens, logprobs and top-n come back
-        [S, K+1, …]."""
+    def _unpack(self, packed: torch.Tensor, prev_tokens: Optional[torch.Tensor], *, T: int,
+                S: int, P: int, decode_only: bool, max_q_len: int, spec_width: int = 0):
+        """The step's inputs from the packed int32 metadata on the device →
+        (token ids [T], positions [T], attention metadata, selected rows).
+        With ``prev_tokens`` (async scheduling's feed) rows continuing a
+        sequence sampled by the previous, still in-flight step read their
+        input token from its device output (the host holds a placeholder),
+        so the two steps chain without a host round trip."""
         off = 0
 
         def take(n):
@@ -253,12 +238,8 @@ class ModelWorker:
         query_start_loc = take(S + 1)
         take(S)  # per-sequence sampling steps (used on the host for the noise)
         num_seqs = take(1)
-        selected_token_indices = take(S * spec_width if spec_width else S)
+        selected = take(S * spec_width if spec_width else S)
         if prev_tokens is not None:
-            # Async scheduling: rows continuing a sequence sampled by the
-            # previous, still in-flight step read their input token from
-            # its device output (the host holds a placeholder), so the two
-            # steps chain without a host round trip.
             prev_map = take(T)
             gathered = prev_tokens[prev_map.clamp(0, prev_tokens.shape[0] - 1).long()]
             token_ids = torch.where(prev_map >= 0, gathered, token_ids)
@@ -272,16 +253,18 @@ class ModelWorker:
             decode_only=decode_only,
             max_q_len=max_q_len,
         )
-        hidden = self.model.forward(
-            self.params, token_ids, positions, self.cache_engine.kv_cache, attn_meta,
-            kv_scales=self.cache_engine.kv_scales,
-        )
-        # Last-token rows only, before the LM head (ref: llama.rs:474-477);
-        # on a verify step every verify row, sampled with its sequence's
-        # parameters and noise (a drafted sequence is greedy; an undrafted
-        # one's row 0 draws the noise of a step without drafts).
-        sel = hidden[selected_token_indices.long()]
-        logits = self.model.compute_logits(self.params, sel)  # [rows, V] f32
+        return token_ids, positions, attn_meta, selected
+
+    def _tail(self, model, params, hidden: torch.Tensor, selected: torch.Tensor,
+              sampling: dict, gumbel: Optional[torch.Tensor], *, S: int,
+              needs_penalties: bool, needs_typical: bool, top_n: int, spec_width: int = 0):
+        """Last-token rows, logits and sampling → (tokens, logprobs, packed
+        outputs, top-n). Only the selected rows reach the LM head (ref:
+        llama.rs:474-477); on a verify step every verify row, sampled with
+        its sequence's parameters and noise (a drafted sequence is greedy;
+        an undrafted one's row 0 draws the noise of a step without drafts)."""
+        sel = hidden[selected.long()]
+        logits = model.compute_logits(params, sel)  # [rows, V] f32
         if spec_width:
             sampling = {name: t.repeat_interleave(spec_width, dim=0)
                         for name, t in sampling.items()}
@@ -309,6 +292,42 @@ class ModelWorker:
                 top_out = tuple(t.reshape(S, spec_width, -1) for t in top_out)
         return tokens, logprobs, _pack_outputs(tokens, logprobs), top_out
 
+    @torch.inference_mode()
+    def _step(
+        self,
+        packed: torch.Tensor,   # [N] int32 on the device — all step metadata
+        sampling: dict,         # per-row sampling tensors on the device
+        gumbel: Optional[torch.Tensor],
+        prev_tokens: Optional[torch.Tensor],  # [≥ S_prev] int32: the feed
+        *,
+        T: int,
+        S: int,
+        P: int,
+        decode_only: bool,
+        max_q_len: int,
+        needs_penalties: bool,
+        needs_typical: bool,
+        top_n: int,
+        spec_width: int = 0,
+    ):
+        """Forward + logits + sampling for one bucketed batch →
+        (tokens, logprobs, packed outputs, top-n). The caches in
+        ``self.cache_engine.kv_cache`` (and an int8 cache's scales) are
+        updated in place. ``spec_width`` is K+1 on a verify step, whose
+        packed metadata carries the [S, K+1] verify rows in place of the
+        [S] last-token rows; tokens, logprobs and top-n come back
+        [S, K+1, …]."""
+        token_ids, positions, attn_meta, selected = self._unpack(
+            packed, prev_tokens, T=T, S=S, P=P, decode_only=decode_only, max_q_len=max_q_len,
+            spec_width=spec_width)
+        hidden = self.model.forward(
+            self.params, token_ids, positions, self.cache_engine.kv_cache, attn_meta,
+            kv_scales=self.cache_engine.kv_scales,
+        )
+        return self._tail(self.model, self.params, hidden, selected, sampling, gumbel, S=S,
+                          needs_penalties=needs_penalties, needs_typical=needs_typical,
+                          top_n=top_n, spec_width=spec_width)
+
     # ---------------------------------------------------------------- public
     @instrument("worker.execute_model")
     def execute_model(self, request: ExecuteModelRequest) -> Dict[str, SequenceGroupOutput]:
@@ -331,9 +350,7 @@ class ModelWorker:
         placeholder. ``(None, {})`` is the null feed: nothing is read, and
         a decode step keeps the key of steady async decode."""
         t0 = time.monotonic()
-        self.cache_engine.execute(
-            request.blocks_to_swap_in, request.blocks_to_swap_out, request.blocks_to_copy
-        )
+        self._cache_execute(request)
         if not request.sequence_groups_metadata:
             return None
 
@@ -367,6 +384,12 @@ class ModelWorker:
             )
         return PendingStep(request.sequence_groups_metadata, tokens, packed, top_out, t0,
                            spec_draft=model_input.spec_draft, spec_k=model_input.spec_k)
+
+    def _cache_execute(self, request: ExecuteModelRequest) -> None:
+        """The step's swaps and copy-on-write copies, before its inputs."""
+        self.cache_engine.execute(
+            request.blocks_to_swap_in, request.blocks_to_swap_out, request.blocks_to_copy
+        )
 
     def _sampling_inputs(self, request: ExecuteModelRequest, model_input: ModelInput):
         """(SamplingTensors, device tensors, per-row step counts) for the
@@ -414,6 +437,43 @@ class ModelWorker:
         self._sampling_version += 1
         return sampling, arrays, sample_steps
 
+    @staticmethod
+    def _pack_metadata(model_input: ModelInput, sample_steps, prev_map=None) -> torch.Tensor:
+        """The step's metadata as ONE host int32 buffer (the JAX worker's
+        layout; ``prev_map`` last, with the feed)."""
+        spec_rows = model_input.spec_rows
+        parts = [
+            model_input.token_ids,
+            model_input.positions,
+            model_input.slot_mapping,
+            model_input.block_tables.ravel(),
+            model_input.seq_lens,
+            model_input.query_start_loc,
+            np.asarray(sample_steps, dtype=np.int32),
+            np.asarray([model_input.num_seqs], dtype=np.int32),
+            model_input.selected_token_indices if spec_rows is None else spec_rows.ravel(),
+        ]
+        if prev_map is not None:
+            parts.append(prev_map)
+        return torch.from_numpy(np.concatenate(parts).astype(np.int32))
+
+    @staticmethod
+    def _send(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """The packed metadata on ``device``: one host→device copy, from
+        pinned memory without blocking on CUDA."""
+        if device.type == "cuda":
+            return host.pin_memory().to(device, non_blocking=True)
+        return host
+
+    def _noise(self, model_input: ModelInput, sampling, sample_steps, device):
+        """The sampled rows' Gumbel noise on ``device``, or None when no row
+        samples."""
+        if not sampling.needs_sampling:
+            return None
+        rows = np.nonzero(sampling.do_sample & model_input.sample_mask)[0]
+        return gumbel_noise(sampling.seeds, sample_steps, rows,
+                            self.model.config.vocab_size, device)
+
     def _invoke(self, model_input: ModelInput, sampling_arrays, sample_steps, sampling,
                 prev=None):
         """Send the packed metadata (one host→device copy, from pinned
@@ -424,34 +484,14 @@ class ModelWorker:
         S, P = model_input.block_tables.shape
         spec_rows = model_input.spec_rows
         spec_width = 0 if spec_rows is None else spec_rows.shape[1]
+        prev_tokens = None
         with span("worker.meta_transfer"):
-            parts = [
-                model_input.token_ids,
-                model_input.positions,
-                model_input.slot_mapping,
-                model_input.block_tables.ravel(),
-                model_input.seq_lens,
-                model_input.query_start_loc,
-                np.asarray(sample_steps, dtype=np.int32),
-                np.asarray([model_input.num_seqs], dtype=np.int32),
-                model_input.selected_token_indices if spec_rows is None else spec_rows.ravel(),
-            ]
-            prev_tokens = None
+            prev_map = None
             if prev is not None:
                 prev_tokens, prev_map = prev
-                parts.append(prev_map)
-            host = torch.from_numpy(np.concatenate(parts).astype(np.int32))
-            if self.device.type == "cuda":
-                packed = host.pin_memory().to(self.device, non_blocking=True)
-            else:
-                packed = host
-        gumbel = None
-        if sampling.needs_sampling:
-            rows = np.nonzero(sampling.do_sample & model_input.sample_mask)[0]
-            gumbel = gumbel_noise(
-                sampling.seeds, sample_steps, rows,
-                self.model.config.vocab_size, self.device,
-            )
+            packed = self._send(self._pack_metadata(model_input, sample_steps, prev_map),
+                                self.device)
+        gumbel = self._noise(model_input, sampling, sample_steps, self.device)
 
         def step(packed, sampling_arrays, gumbel, prev_tokens):
             return self._step(

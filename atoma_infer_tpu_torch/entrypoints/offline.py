@@ -9,10 +9,12 @@ Usage:
     python -m atoma_infer_tpu_torch.entrypoints.offline --model tiny-random \
         --device cpu
     python -m atoma_infer_tpu_torch.entrypoints.offline --model tiny-random \
-        --device cpu --tensor-parallel-size 2
+        --device cpu --tensor-parallel-size 2 --pipeline-parallel-size 2
 
 With ``--tensor-parallel-size`` > 1 the service starts one process per rank
-(on the CPU, gloo), and this process, rank 0, drives the requests.
+(on the CPU, gloo), and this process, rank 0, drives the requests. With
+``--pipeline-parallel-size`` > 1 every rank holds the model's layers in
+that many stages.
 """
 
 from __future__ import annotations
@@ -90,7 +92,8 @@ def build_tiny_random(device=None, seed: int = 0):
 async def main_async(args) -> None:
     config = EngineConfig(
         model=ModelConfig(model_name=args.model, dtype=args.dtype,
-                          tensor_parallel_size=args.tensor_parallel_size),
+                          tensor_parallel_size=args.tensor_parallel_size,
+                          pipeline_parallel_size=args.pipeline_parallel_size),
         cache=CacheConfig(
             block_size=args.block_size,
             num_device_blocks_override=args.num_blocks,
@@ -175,6 +178,7 @@ def main() -> None:
     parser.add_argument("--chunked-prefill", action="store_true")
     parser.add_argument("--async-scheduling", action="store_true")
     parser.add_argument("--tensor-parallel-size", type=int, default=1)
+    parser.add_argument("--pipeline-parallel-size", type=int, default=1)
     parser.add_argument(
         "--device", default="cuda",
         help="torch device to run on (default cuda; 'cpu' takes the plain "

@@ -122,14 +122,18 @@ class Gemma2(Llama):
         kv_cache: Sequence[torch.Tensor],
         attn_meta: AttentionMetadata,
         kv_scales: Optional[Sequence[torch.Tensor]] = None,
+        layer_offset: int = 0,
     ) -> torch.Tensor:
+        """Each layer's window is that of its index in the whole model:
+        ``layer_offset`` plus its index in ``params`` (a pipeline stage's
+        first layer may be odd)."""
         cfg = self.config
         eps = cfg.rms_norm_eps
         for i, lp in enumerate(self._layers(params, kv_cache, kv_scales)):
             attn = self._attention(
                 gemma_rms_norm(h, lp["input_norm"], eps), lp, positions, kv_cache[i], attn_meta,
                 None if kv_scales is None else kv_scales[i],
-                sliding_window=cfg.layer_sliding_window(i), soft_cap=cfg.attn_logit_softcapping)
+                sliding_window=cfg.layer_sliding_window(layer_offset + i), soft_cap=cfg.attn_logit_softcapping)
             # The post-norms act on each sublayer's output, then the residual.
             h = h + gemma_rms_norm(attn, lp["post_norm"], eps)
             mlp = self._mlp_block(gemma_rms_norm(h, lp["pre_ffw_norm"], eps), lp)

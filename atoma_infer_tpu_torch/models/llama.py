@@ -30,6 +30,7 @@ TPU-only page-map prologue is not ported.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -202,6 +203,21 @@ class Llama:
         """The kv heads this rank's cache holds."""
         return self.effective_kv_heads // self.tp
 
+    def for_stage(self, device, group=None) -> "Llama":
+        """This model's math on ``device`` with its own tensor-parallel
+        ``group``: a pipeline stage's model. A shallow copy whose rope table
+        (and ALiBi slopes) live on ``device``; the model itself when both
+        are its own."""
+        device = torch.device(device)
+        if device == self.device and group is self.group:
+            return self
+        stage = copy.copy(self)
+        stage.device = device
+        stage.rope_cos, stage.rope_sin = self.rope_cos.to(device), self.rope_sin.to(device)
+        stage.alibi = None if self.alibi is None else self.alibi.to(device)
+        stage.group = group
+        return stage
+
     def _sum_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
         """A row-parallel output summed over the ranks (in place)."""
         return x if self.group is None else self.group.all_reduce_sum(x)
@@ -272,9 +288,14 @@ class Llama:
         kv_cache: Sequence[torch.Tensor],
         attn_meta: AttentionMetadata,
         kv_scales: Optional[Sequence[torch.Tensor]] = None,
+        layer_offset: int = 0,
     ) -> torch.Tensor:
         """Transformer layers over the hidden states, one paged cache (and,
-        for an int8 cache, one scales tensor) per layer, updated in place."""
+        for an int8 cache, one scales tensor) per layer, updated in place.
+        ``layer_offset`` is the index of ``params``' first layer in the
+        whole model (a pipeline stage's); Llama's layers are alike, Gemma-2's
+        windows depend on it."""
+        del layer_offset
         cfg = self.config
         for i, lp in enumerate(self._layers(params, kv_cache, kv_scales)):
             # Attention block (ref: llama.rs:218-320).

@@ -11,7 +11,11 @@ in parallel, one ``nvcc`` each) through :func:`build_all`.
 Each kernel is a :class:`CudaKernel`: its C symbol, the library it lives in,
 its argument types, and a plain-integer launch counter that its wrapper bumps
 once per launch (and nowhere else), so a run can show which kernels the main
-path went through. A call made while a CUDA graph is captured launches
+path went through. A launch names its device (:func:`launch_device`, from
+the tensors whose pointers it passes) and runs with that device current
+(:func:`call_on_device`): the runtime launches on ``cudaGetDevice()``'s
+device whatever the pointers, so a pipeline stage on ``cuda:1`` must launch
+there. A call made while a CUDA graph is captured launches
 nothing: it is recorded in the capture's tally (:func:`recording_launches`)
 instead, and every replay of that graph adds the tally
 (:func:`count_replay`).
@@ -28,6 +32,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
@@ -135,15 +141,17 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
 
-    def __call__(self, *args) -> None:
-        """Launch (arguments already validated by the wrapper) and count it;
-        raises on a nonzero ``cudaGetLastError`` from the C entry point."""
+    def __call__(self, *args, device) -> None:
+        """Launch on ``device`` (arguments already validated by the wrapper,
+        ``device`` from :func:`launch_device`) with it current, and count
+        it; raises on a nonzero ``cudaGetLastError`` from the C entry
+        point."""
         if self._fn is None:
             fn = getattr(load(self.source), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = self._fn(*args)
+        err = call_on_device(device, self._fn, *args)
         if err != 0:
             raise RuntimeError(
                 f"CUDA kernel {self.name} ({self.symbol}) failed to launch: "
@@ -185,9 +193,41 @@ def count_replay(tally: Dict[str, int]) -> None:
         KERNELS[name].launches += calls
 
 
+def launch_device(*tensors) -> torch.device:
+    """The one CUDA device of a launch's tensors (None entries skipped).
+    Raises ``ValueError`` when they sit on two devices, or on none that is
+    CUDA: a kernel reads its pointers on the device it runs on."""
+    index = None
+    for t in tensors:
+        if t is None:
+            continue
+        i = t.get_device()  # −1 on the CPU; makes no device object
+        if index is None:
+            index = i
+        elif i != index:
+            raise ValueError("a kernel launch takes tensors on one device, not on "
+                             f"{_name(index)} and {_name(i)}")
+    if index is None or index < 0:
+        raise ValueError("a kernel launch takes CUDA tensors, not "
+                         f"{'none' if index is None else 'CPU ones'}")
+    return torch.device("cuda", index)
+
+
+def _name(index: int) -> str:
+    return "cpu" if index < 0 else f"cuda:{index}"
+
+
+def call_on_device(device: torch.device, fn, *args):
+    """``fn(*args)`` with ``device`` current: the runtime launches on
+    ``cudaGetDevice()``'s device whatever the pointers. The current device
+    is switched only when it is another."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
 def current_stream_handle(device) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
-    import torch
-
     return torch.cuda.current_stream(device).cuda_stream
 

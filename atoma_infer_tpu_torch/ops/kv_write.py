@@ -149,13 +149,15 @@ def write_kv_cache_cuda(
     _check(kv_cache, k_new, v_new, slot_mapping)
     num_pages, bs, _ = kv_cache.shape
     T, hk, d = k_new.shape
-    stream = cuda_lib.current_stream_handle(kv_cache.device)
+    dev = cuda_lib.launch_device(kv_cache, k_new, v_new, slot_mapping)
+    stream = cuda_lib.current_stream_handle(dev)
     if kv_cache.dtype == torch.float8_e4m3fn:
         if k_new.dtype not in _DTYPES or v_new.dtype != k_new.dtype:
             raise ValueError("reshape_and_cache_fp8: k_new/v_new must be bfloat16 or float32")
         KV_WRITE_FP8(
             _DTYPES[k_new.dtype], k_new.data_ptr(), v_new.data_ptr(),
             slot_mapping.data_ptr(), kv_cache.data_ptr(), T, hk, d, num_pages * bs, stream,
+            device=dev,
         )
         return
     if kv_cache.dtype not in _DTYPES:
@@ -164,7 +166,7 @@ def write_kv_cache_cuda(
         raise ValueError("reshape_and_cache: k_new/v_new must have the cache's dtype")
     KV_WRITE(
         k_new.data_ptr(), v_new.data_ptr(), slot_mapping.data_ptr(), kv_cache.data_ptr(),
-        T, hk, d * kv_cache.element_size(), num_pages * bs, stream,
+        T, hk, d * kv_cache.element_size(), num_pages * bs, stream, device=dev,
     )
 
 
@@ -190,9 +192,10 @@ def write_kv_cache_quant_cuda(
         raise ValueError("reshape_and_cache_int8: kv_scales must be bfloat16 [pages, block_size, 2]")
     if k_new.dtype not in _DTYPES or v_new.dtype != k_new.dtype:
         raise ValueError("reshape_and_cache_int8: k_new/v_new must be bfloat16 or float32")
+    dev = cuda_lib.launch_device(kv_cache, kv_scales, scales_new, k_new, v_new, slot_mapping)
     KV_WRITE_INT8(
         _DTYPES[k_new.dtype], k_new.data_ptr(), v_new.data_ptr(), slot_mapping.data_ptr(),
         kv_cache.data_ptr(), kv_scales.data_ptr(),
         None if scales_new is None else scales_new.data_ptr(), T, hk, d, num_pages * bs,
-        cuda_lib.current_stream_handle(kv_cache.device),
+        cuda_lib.current_stream_handle(dev), device=dev,
     )

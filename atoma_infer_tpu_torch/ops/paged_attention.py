@@ -509,6 +509,8 @@ def ragged_paged_attention_cuda(
             q, kv_cache, meta, rpa_plan_for(q, meta, Hk, kind), out, kind=kind, scale=scale,
             sliding_window=sliding_window, soft_cap=soft_cap, alibi_slopes=alibi_slopes,
             kv_scales=kv_scales)
+    dev = cuda_lib.launch_device(q, kv_cache, kv_scales, meta.block_tables, meta.seq_lens,
+                                 meta.query_start_loc, meta.num_seqs, alibi_slopes, out)
     RAGGED_ATTENTION[kind](
         _DTYPES[q.dtype],
         q.data_ptr(), kv_cache.data_ptr(),
@@ -520,7 +522,7 @@ def ragged_paged_attention_cuda(
         out.data_ptr(),
         S, q.shape[1], Hk, D, P, meta.block_size, int(meta.max_q_len),
         float(scale), _window(sliding_window), _cap(soft_cap),
-        cuda_lib.current_stream_handle(q.device),
+        cuda_lib.current_stream_handle(dev), device=dev,
     )
     return out
 
@@ -540,6 +542,9 @@ def ragged_paged_attention_mma_launch(
     if plan.splits > 1:
         ws_o = torch.empty((plan.splits, T, Hq, D), dtype=torch.float32, device=q.device)
         ws_ml = torch.empty((plan.splits, T, Hq, 2), dtype=torch.float32, device=q.device)
+    dev = cuda_lib.launch_device(q, kv_cache, kv_scales, meta.block_tables, meta.seq_lens,
+                                 meta.query_start_loc, meta.num_seqs, alibi_slopes, out, ws_o,
+                                 ws_ml)
     RAGGED_ATTENTION_MMA[kind](
         q.data_ptr(), kv_cache.data_ptr(),
         None if kv_scales is None else kv_scales.data_ptr(),
@@ -551,7 +556,7 @@ def ragged_paged_attention_mma_launch(
         None if ws_ml is None else ws_ml.data_ptr(),
         T, S, Hq, Hk, D, P, meta.block_size, plan.warps, plan.splits, RPA_MIN_TILES,
         float(scale), _window(sliding_window), _cap(soft_cap),
-        cuda_lib.current_stream_handle(q.device),
+        cuda_lib.current_stream_handle(dev), device=dev,
     )
     if plan.splits > 1:
         split_combine(ws_o, ws_ml, out, meta, num_kv_heads=Hk, bq=plan.tokens,
@@ -564,11 +569,13 @@ def split_combine(ws_o, ws_ml, out, meta, *, num_kv_heads, bq, splits, min_tiles
     """Launch the merge of a split attention launch's rows (inputs, split
     count and minimum split from that launch) into ``out``."""
     T, Hq, D = out.shape
+    dev = cuda_lib.launch_device(ws_o, ws_ml, out, meta.seq_lens, meta.query_start_loc,
+                                 meta.num_seqs)
     SPLIT_COMBINE(
         ws_o.data_ptr(), ws_ml.data_ptr(), out.data_ptr(), meta.seq_lens.data_ptr(),
         meta.query_start_loc.data_ptr(), meta.num_seqs.data_ptr(),
         T, Hq, num_kv_heads, D, bq, splits, min_tiles, _window(window),
-        cuda_lib.current_stream_handle(out.device),
+        cuda_lib.current_stream_handle(dev), device=dev,
     )
 
 
@@ -623,6 +630,9 @@ def ragged_paged_attention_fused_cuda(
         return ragged_paged_attention_cuda(
             q, kv_cache, meta, scale=scale, sliding_window=sliding_window, soft_cap=soft_cap,
             alibi_slopes=alibi_slopes, kv_scales=kv_scales)
+    dev = cuda_lib.launch_device(q, k_new, v_new, kv_cache, kv_scales, meta.slot_mapping,
+                                 meta.block_tables, meta.seq_lens, meta.query_start_loc,
+                                 meta.num_seqs, alibi_slopes, out)
     FUSED_DECODE[kind](
         _DTYPES[q.dtype],
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kv_cache.data_ptr(),
@@ -634,7 +644,7 @@ def ragged_paged_attention_fused_cuda(
         out.data_ptr(),
         S, Hq, Hk, D, P, bs, num_pages * bs,
         float(scale), _window(sliding_window), _cap(soft_cap),
-        cuda_lib.current_stream_handle(q.device),
+        cuda_lib.current_stream_handle(dev), device=dev,
     )
     return out
 
@@ -657,6 +667,10 @@ def fused_split_launch(
     if splits > 1:
         ws_o = torch.empty((splits, T, Hq, D), dtype=torch.float32, device=q.device)
         ws_ml = torch.empty((splits, T, Hq, 2), dtype=torch.float32, device=q.device)
+    dev = cuda_lib.launch_device(q, k_new, v_new, kv_cache, kv_scales, scales_new,
+                                 meta.slot_mapping, meta.block_tables, meta.seq_lens,
+                                 meta.query_start_loc, meta.num_seqs, alibi_slopes, out, ws_o,
+                                 ws_ml)
     FUSED_DECODE_SPLIT[kind](
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kv_cache.data_ptr(),
         None if kv_scales is None else kv_scales.data_ptr(),
@@ -669,7 +683,7 @@ def fused_split_launch(
         None if ws_ml is None else ws_ml.data_ptr(),
         T, S, Hq, Hk, D, P, bs, num_pages * bs, splits, min_tiles,
         float(scale), _window(sliding_window), _cap(soft_cap),
-        cuda_lib.current_stream_handle(q.device),
+        cuda_lib.current_stream_handle(dev), device=dev,
     )
     if splits > 1:
         split_combine(ws_o, ws_ml, out, meta, num_kv_heads=Hk, bq=1, splits=splits,

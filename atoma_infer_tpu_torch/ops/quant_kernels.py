@@ -328,10 +328,12 @@ def quantized_matmul_cuda(
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     launch = qmm_launch(x, qweight, scales, bits=bits, group_size=group_size)
     ws = _workspace(launch.workspace, x.device)
+    dev = cuda_lib.launch_device(x, qweight, scales, out, ws)
     launch.kernel(
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None,
-        M, N, K, group_size, *launch.geometry, cuda_lib.current_stream_handle(x.device),
+        M, N, K, group_size, *launch.geometry, cuda_lib.current_stream_handle(dev),
+        device=dev,
     )
     return out
 
@@ -370,11 +372,12 @@ def w8a8_matmul_cuda(
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     launch = w8a8_launch(xq, qweight, scales, bits=bits, group_size=group_size)
     ws = _workspace(launch.workspace, xq.device)
+    dev = cuda_lib.launch_device(xq, qweight, scales, act, out, ws)
     launch.kernel(
         xq.data_ptr(), qweight.data_ptr(), scales.data_ptr(), act.data_ptr(),
         out.data_ptr(), ws.data_ptr() if ws is not None else None,
         M, N, K, group_size, bits, int(out_dtype == torch.bfloat16), *launch.geometry,
-        cuda_lib.current_stream_handle(xq.device),
+        cuda_lib.current_stream_handle(dev), device=dev,
     )
     return out
 

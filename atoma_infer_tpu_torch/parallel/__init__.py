@@ -7,8 +7,10 @@ collectives the model calls, ``sharding`` cuts a rank's parameter slices by
 the JAX package's rules, and ``distributed`` joins the ranks and broadcasts
 each engine step's payload from rank 0 (the lockstep of
 ``engine/multihost.py``). Tensor parallelism within a host and across hosts
-are the same code with other rank layouts. Pipeline and context parallelism
-are not ported yet (ROADMAP.md, Queue 1).
+are the same code with other rank layouts. ``pipeline`` splits the layers
+into stages (``engine/pp_worker.py`` runs them), and ``context_parallel``
+splits one layer's KV pages over the ranks and combines their partial
+attention.
 """
 
 from .group import TpGroup, choose_backend, local_device  # noqa: F401

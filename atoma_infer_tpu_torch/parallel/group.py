@@ -25,10 +25,18 @@ own, whose timeout is long: followers wait there while the primary is idle.
 The process groups are objects of the group, not PyTorch's default group, so
 several groups (one service after another in a test) never share state. A
 service of one rank has no group at all.
+
+Under pipeline parallelism a rank holds every stage, each on its own device
+(``parallel/pipeline.py``), and each stage's model collects over
+:meth:`TpGroup.for_stage`: with NCCL a tensor process group of its own, whose
+ranks' tensors sit on that stage's cards; with gloo the rank's one group,
+which stages any device's tensors through host memory. The payload group
+and the collectives count stay one.
 """
 
 from __future__ import annotations
 
+import copy
 import datetime
 import logging
 import time
@@ -122,9 +130,39 @@ class TpGroup:
         self.device_share = device_share
         self._tensor_pg = tensor_pg
         self._payload_pg = payload_pg
-        # Collectives this rank has issued (tensor and payload): the smoke
-        # reads it per engine step.
-        self.collectives = 0
+        # The rendezvous store, for the pipeline stages' NCCL groups.
+        self._store = None
+        # Collectives this rank has issued (tensor and payload), shared
+        # with its stage groups: the smoke reads it per engine step.
+        self._count = [0]
+
+    @property
+    def collectives(self) -> int:
+        return self._count[0]
+
+    @collectives.setter
+    def collectives(self, value: int) -> None:
+        self._count[0] = value
+
+    def for_stage(self, stage: int, device) -> "TpGroup":
+        """This rank's group for pipeline stage ``stage`` on ``device``: the
+        same ranks, payload group and collectives count; under NCCL a
+        tensor process group of its own bound to ``device`` (every rank
+        builds its stages' groups in stage order), else this group's. Stage
+        0 on the rank's own device is the group itself."""
+        device = torch.device(device)
+        if stage == 0 and device == self.device:
+            return self
+        group = copy.copy(self)
+        group.device = device
+        if self.backend == "nccl":
+            import torch.distributed as dist
+
+            group._tensor_pg = _process_group(
+                "nccl", dist.PrefixStore(f"atoma/tensor/stage{stage}", self._store), self.rank,
+                self.tp, COLLECTIVE_TIMEOUT, device)
+            torch.cuda.set_device(self.device)
+        return group
 
     @classmethod
     def join(cls, *, tp: int, rank: int, device, init_method: str, backend: str,
@@ -155,6 +193,7 @@ class TpGroup:
                                     IDLE_TIMEOUT, device)
         group = cls(tp, rank, device, backend=backend, stage_on_host=stage_on_host,
                     device_share=device_share, tensor_pg=tensor_pg, payload_pg=payload_pg)
+        group._store = store
         logger.info("tensor parallelism: rank %d of %d on %s, backend %s%s", rank, tp,
                     group.device, backend,
                     " (a shared card: collectives staged through host memory)"

@@ -211,7 +211,7 @@ def run_w8a8(rounds: int = 2) -> Dict[str, object]:
                     qk.QMM_W8A8_MMA(
                         xq.data_ptr(), c.qweight.data_ptr(), c.scales.data_ptr(), act.data_ptr(),
                         out.data_ptr(), ws.data_ptr(), m, N, K, GROUP, bits, 1, *plan,
-                        cuda_lib.current_stream_handle(dev))
+                        cuda_lib.current_stream_handle(dev), device=dev)
 
             def cuda_cores(xq=xq, act=act, out=out, ws=ws):
                 vec, ks, rsplit, gps, _ = qk._cuda_core_geometry(m, N, groups, qt.qweight)
@@ -219,7 +219,7 @@ def run_w8a8(rounds: int = 2) -> Dict[str, object]:
                     qk.QMM_W8A8(
                         xq.data_ptr(), c.qweight.data_ptr(), c.scales.data_ptr(), act.data_ptr(),
                         out.data_ptr(), ws.data_ptr(), m, N, K, GROUP, bits, 1, vec, ks, rsplit,
-                        gps, cuda_lib.current_stream_handle(dev))
+                        gps, cuda_lib.current_stream_handle(dev), device=dev)
 
             runs = {name: (lambda plan=plan: calls(plan)) for name, plan in plans.items()}
             runs["cuda_cores"] = cuda_cores

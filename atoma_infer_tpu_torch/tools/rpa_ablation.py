@@ -127,7 +127,7 @@ def run_cuda_cores(b, **kw):
         m.num_seqs.data_ptr(), None if alibi is None else alibi.data_ptr(), out.data_ptr(),
         S, Hq, cache.shape[2] // (2 * D), D, P, m.block_size, int(m.max_q_len),
         float(D ** -0.5), 0 if window is None else int(window), 0.0 if cap is None else cap,
-        cuda_lib.current_stream_handle(q.device))
+        cuda_lib.current_stream_handle(q.device), device=q.device)
     return out
 
 
@@ -236,7 +236,7 @@ def run_fused_old(b):
         None if scales is None else scales.data_ptr(), m.slot_mapping.data_ptr(),
         m.block_tables.data_ptr(), m.seq_lens.data_ptr(), m.query_start_loc.data_ptr(),
         m.num_seqs.data_ptr(), None, out.data_ptr(), S, Hq, row // (2 * D), D, P, bs, nb * bs,
-        float(D ** -0.5), 0, 0.0, cuda_lib.current_stream_handle(q.device))
+        float(D ** -0.5), 0, 0.0, cuda_lib.current_stream_handle(q.device), device=q.device)
     return out
 
 

@@ -96,8 +96,9 @@ def probe_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("probe_matmul: x and w must be 16-byte aligned (cp.async copies)")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     kernel = PROBE_INT8 if x.dtype == torch.int8 else PROBE_MIXED
+    dev = cuda_lib.launch_device(x, w, out)
     kernel(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-           cuda_lib.current_stream_handle(x.device))
+           cuda_lib.current_stream_handle(dev), device=dev)
     return out
 
 

@@ -490,7 +490,7 @@ def cuda_core_fused(q, cache, k, v, meta, *, scale, kv_scales=None):
         meta.slot_mapping.data_ptr(), meta.block_tables.data_ptr(), meta.seq_lens.data_ptr(),
         meta.query_start_loc.data_ptr(), meta.num_seqs.data_ptr(), None, out.data_ptr(),
         S, Hq, row // (2 * D), D, P, bs, nb * bs, float(scale), 0, 0.0,
-        cuda_lib.current_stream_handle(q.device))
+        cuda_lib.current_stream_handle(q.device), device=q.device)
     return out
 
 
@@ -528,7 +528,8 @@ def cuda_core_attention(q, cache, meta, *, scale, kv_scales=None):
         None if kv_scales is None else kv_scales.data_ptr(), meta.block_tables.data_ptr(),
         meta.seq_lens.data_ptr(), meta.query_start_loc.data_ptr(), meta.num_seqs.data_ptr(),
         None, out.data_ptr(), S, Hq, cache.shape[2] // (2 * D), D, P, meta.block_size,
-        int(meta.max_q_len), float(scale), 0, 0.0, cuda_lib.current_stream_handle(q.device))
+        int(meta.max_q_len), float(scale), 0, 0.0, cuda_lib.current_stream_handle(q.device),
+        device=q.device)
     return out
 
 
@@ -1120,11 +1121,12 @@ def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, de
             q.data_ptr(), b["k"].data_ptr(), b["v"].data_ptr(), cache.data_ptr(), None, None,
             m.slot_mapping.data_ptr(), *common, T, S, Hq, Hk, D, P, m.block_size,
             cache.shape[0] * m.block_size, splits, min_tiles, D ** -0.5, window or 0,
-            soft_cap or 0.0, stream)
+            soft_cap or 0.0, stream, device=dev)
     else:
         pa.RAGGED_ATTENTION_MMA[None](
             q.data_ptr(), cache.data_ptr(), None, *common, T, S, Hq, Hk, D, P, m.block_size,
-            plan.warps, splits, min_tiles, D ** -0.5, window or 0, soft_cap or 0.0, stream)
+            plan.warps, splits, min_tiles, D ** -0.5, window or 0, soft_cap or 0.0, stream,
+            device=dev)
     before = out.clone()
     kw = dict(bq=bq, splits=splits, min_tiles=min_tiles, window=window)
 
@@ -1550,7 +1552,7 @@ def cuda_core_matmul(torch, x, qweight, scales, *, bits, group):
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, M, N, K, group,
         int(x.dtype == torch.bfloat16), vec, ks, rsplit, gps,
-        cuda_lib.current_stream_handle(x.device))
+        cuda_lib.current_stream_handle(x.device), device=x.device)
     return out
 
 
@@ -1571,7 +1573,7 @@ def cuda_core_w8a8(torch, xq, qweight, scales, act, *, bits, group, out_dtype):
         xq.data_ptr(), qweight.data_ptr(), scales.data_ptr(), act.reshape(-1).data_ptr(),
         out.data_ptr(), ws.data_ptr() if ws is not None else None, M, N, K, group, bits,
         int(out_dtype == torch.bfloat16), vec, ks, rsplit, gps,
-        cuda_lib.current_stream_handle(xq.device))
+        cuda_lib.current_stream_handle(xq.device), device=xq.device)
     return out
 
 
@@ -3456,6 +3458,19 @@ def span_cost_us(n: int = 20000) -> float:
     return cost
 
 
+def device_guard_cost_us(torch, n: int = 20000) -> float:
+    """Host µs the device part of one launch costs: ``launch_device`` over
+    ten tensors (an attention launch's count) and ``call_on_device`` around
+    the call (a ``CudaKernel`` launch on the current device)."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+
+    tensors = [torch.empty(1, device="cuda") for _ in range(10)]
+    t0 = time.monotonic()
+    for _ in range(n):
+        cuda_lib.call_on_device(cuda_lib.launch_device(*tensors), int)
+    return (time.monotonic() - t0) * 1e6 / n
+
+
 def run_service(torch):
     """The bf16 Llama-3.2-1B service (16 layers), blocks of 16: eager, then
     async with graphs (whose launches it returns)."""
@@ -4538,6 +4553,21 @@ def drive(torch, label, service, prompts, new_tokens, *, top_n=0, waves=True):
                  launches=launches))
 
 
+def steady_decode(figures) -> str:
+    """The steady-decode period (p50, p99) and tokens/s of a ``drive`` run,
+    and its tokens/s over the whole window."""
+    d = figures["dispatches"]
+    periods = [(b[0] - a[0]) * 1e3 for a, b in zip(d, d[1:]) if a[1] and b[1]]
+    rows = sum(a[2] for a, b in zip(d, d[1:]) if a[1] and b[1])
+    whole = (f"{figures['generated'] / figures['seconds']:.1f} tokens/s over the whole window "
+             f"({figures['generated']} tokens in {figures['seconds']:.3f} s)")
+    if not periods:
+        return whole
+    return (f"steady-decode period p50 {percentile(periods, 0.5):.3f} ms, p99 "
+            f"{percentile(periods, 0.99):.3f} ms over {len(periods)} intervals, "
+            f"{rows / (sum(periods) / 1e3):.1f} tokens/s in steady decode; {whole}")
+
+
 def report_tp(label, service, figures, collectives):
     """The TP run's figures: backend and devices, per-rank KV blocks,
     collectives per step, the steady-decode period and tokens/s, labelled
@@ -4552,15 +4582,7 @@ def report_tp(label, service, figures, collectives):
         "(the least of the ranks' profiles, taken one after another on the shared card)")
     log(f"service {label}: {collectives} collectives over {figures['steps']} engine steps, "
         f"{collectives / max(1, figures['steps']):.1f} a step on rank 0")
-    d = figures["dispatches"]
-    periods = [(b[0] - a[0]) * 1e3 for a, b in zip(d, d[1:]) if a[1] and b[1]]
-    rows = sum(a[2] for a, b in zip(d, d[1:]) if a[1] and b[1])
-    if periods:
-        log(f"service {label} ({TP_LABEL}): steady-decode period p50 "
-            f"{percentile(periods, 0.5):.3f} ms, p99 {percentile(periods, 0.99):.3f} ms over "
-            f"{len(periods)} intervals, {rows / (sum(periods) / 1e3):.1f} tokens/s in steady "
-            f"decode; {figures['generated'] / figures['seconds']:.1f} tokens/s over the "
-            f"whole window ({figures['generated']} tokens in {figures['seconds']:.3f} s)")
+    log(f"service {label} ({TP_LABEL}): {steady_decode(figures)}")
 
 
 def run_tp_services(torch):
@@ -4664,6 +4686,321 @@ def run_tp_services(torch):
     return launches
 
 
+PP_STAGES = 2
+PP_LABEL = "two stages on one card: not a PP speed"
+# The kernels of the 8B INT8 + INT8 KV service at pp = 2: C's INT8 write,
+# D ragged (prefill), D split fused (decode), the merge, F.
+PP_PATH = ("reshape_and_cache_int8", "ragged_paged_attention_int8_mma",
+           "fused_decode_attention_int8_split", "paged_attention_split_combine",
+           "quantized_matmul_int8_mma")
+# Gemma-2-9B's PP phase: 6 layers split (0, 3), (3, 6), so stage 1 starts on
+# the odd (global) layer 3; one prompt past its 4,096-key local window, so
+# that a stage-local window index would change the output.
+PP_GEMMA_LAYERS = 6
+PP_GEMMA_PROMPT = 4300
+PP_GEMMA_TOKENS = 32
+
+
+def report_pp(label, service, ref_blocks, figures):
+    """A PP run's stages (layer bounds, devices), KV blocks against pp = 1,
+    launches per kernel and decode figures, labelled PP_LABEL."""
+    stages = service.engine.worker.stages
+    bounds = [(s.layer_offset, s.layer_offset + s.cache_engine.num_layers) for s in stages]
+    log(f"service {label}: stages' layer bounds {bounds} on {[str(s.device) for s in stages]}; "
+        f"KV blocks {service.config.cache.num_device_blocks} a stage (pp=1: {ref_blocks}; "
+        "the pool is sized by the layers on the most crowded card, here all of them)")
+    log(f"service {label}: launches {({k: n for k, n in figures['launches'].items() if n})}")
+    log(f"service {label} ({PP_LABEL}): {steady_decode(figures)}")
+
+
+def run_pp_services(torch):
+    """Pipeline parallelism through ``LlmService.start`` with
+    ``pipeline_parallel_size`` PP_STAGES, both stages on this card: (i)
+    Llama-3.1-8B at full width, 32 layers, INT8 weights over an INT8 KV
+    cache, the services' 8 requests at OTHER_SERVICES_TOKENS (one seeded),
+    against the same service at pp = 1 (eager, as a stage steps) under the
+    near-tie rule; (ii) Gemma-2-9B at PP_GEMMA_LAYERS layers, bf16 over bf16
+    KV, one prompt of PP_GEMMA_PROMPT tokens, identical to pp = 1; (iii)
+    ``tiny_trained`` f32 at pp = 2 × tp = TP_RANKS, the ranks spawned on
+    this card (gloo), identical to pp = 1, tp = 1 on the card and, greedy,
+    to the CPU. Returns (i)'s launches (counts set to 0 just before its
+    traffic)."""
+    from atoma_infer_tpu_torch.config import (
+        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
+    )
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+
+    # (i) Llama-3.1-8B, INT8 weights + INT8 KV, pp = 1 then pp = 2.
+    model, params, tokenizer = build_8b_int8("cuda", 32)
+    text = "The quick brown fox jumps over the lazy dog. " * (-(-max(PROMPT_LENGTHS) // 45))
+    prompts = [text[:n] for n in PROMPT_LENGTHS]
+
+    def config(pp):
+        return dataclass_replace(
+            llama_8b_service_config("int8", "int8", max_seqs=8, hbm_memory_utilization=0.5),
+            pipeline_parallel_size=pp)
+
+    ref = LlmService.start(config(1), model=model, params=params, tokenizer=tokenizer)
+    ref.engine.worker.graphs = None  # eager, as every stage steps
+    ref_blocks = ref.config.cache.num_device_blocks
+    want, top, ref_fig = drive(torch, "8B INT8 + INT8 KV pp=1", ref, prompts,
+                               OTHER_SERVICES_TOKENS, top_n=2)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    label = f"8B INT8 + INT8 KV pp={PP_STAGES}"
+    service = LlmService.start(config(PP_STAGES), model=model, params=params,
+                               tokenizer=tokenizer)
+    got, _, fig = drive(torch, label, service, prompts, OTHER_SERVICES_TOKENS, top_n=2)
+    report_pp(label, service, ref_blocks, fig)
+    launches = fig["launches"]
+    for name in PP_PATH:
+        if not launches[name]:
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
+    check_route(f"service {label}", launches, bf16=True)
+    compare_to_reference(
+        label, got, want, top,
+        lambda j, a, b: seeded_score_gap(torch, model, params, prompts[SEEDED_REQUEST],
+                                         want[SEEDED_REQUEST], j, a, b),
+        reference="the same service at pp=1")
+    log(f"service {label}: pp=1 eager {steady_decode(ref_fig)}; launches "
+        f"{({k: ref_fig['launches'][k] for k in PP_PATH})} over {ref_fig['steps']} engine "
+        f"steps (pp={PP_STAGES}: {fig['steps']})")
+    per_step = sum(ref_fig["launches"].values()) / max(1, ref_fig["steps"])
+    guard = device_guard_cost_us(torch)
+    log(f"a launch's device check and guard: {guard:.2f} µs on this host; the pp=1 eager run "
+        f"launched {per_step:.0f} kernels an engine step, {guard * per_step / 1e3:.3f} ms a step")
+    del service, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (ii) Gemma-2-9B, 6 layers, bf16: stage 1 starts on layer 3.
+    name = "Gemma-2-9B"
+    model, params = family_model(torch, name, PP_GEMMA_LAYERS)
+    prompt = [(text * (-(-PP_GEMMA_PROMPT // len(text))))[:PP_GEMMA_PROMPT]]
+    runs = {}
+    for pp in (1, PP_STAGES):
+        cfg = dataclass_replace(bf16_config(f"{name.lower()}-random", BS, max_model_len=6144),
+                                pipeline_parallel_size=pp)
+        service = LlmService.start(cfg, model=model, params=params,
+                                   tokenizer=ByteTokenizer(model.config.vocab_size))
+        service.engine.worker.graphs = None  # eager at pp = 1 too: the same kernels
+        blocks = service.config.cache.num_device_blocks
+        runs[pp], _, fig = drive(torch, f"{name} pp={pp}", service, prompt, PP_GEMMA_TOKENS,
+                                 waves=False)
+        if pp > 1:
+            report_pp(f"{name}, {PP_GEMMA_LAYERS} layers, pp={pp}", service, ref_blocks, fig)
+            for kernel in ("ragged_paged_attention_mma", "fused_decode_attention_split"):
+                if not fig["launches"][kernel]:
+                    raise AssertionError(f"kernel {kernel} (D=256) was not launched at pp={pp}")
+        ref_blocks = blocks
+        del service
+        gc.collect()
+    if runs[PP_STAGES] != runs[1]:
+        raise AssertionError(f"{name} pp={PP_STAGES}: tokens differ from pp=1 "
+                             f"({runs[PP_STAGES]} against {runs[1]})")
+    log(f"{name} pp={PP_STAGES} (layers 0-2 and 3-5, a {PP_GEMMA_PROMPT}-token prompt past the "
+        f"4,096-key window): {len(runs[1][0])} tokens identical to pp=1")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (iii) tiny_trained, f32, pp = 2 × tp = 2.
+    fixture = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
+    prompts = [f"prompt number {i} " * (1 + i % 4) for i in range(8)]
+
+    def tiny(pp, tp):
+        return EngineConfig(
+            model=ModelConfig(model_name=fixture, dtype="float32", tensor_parallel_size=tp,
+                              pipeline_parallel_size=pp),
+            cache=CacheConfig(block_size=16, num_device_blocks_override=256,
+                              num_host_blocks_override=64),
+            scheduler=SchedulerConfig(max_num_batched_tokens=256, max_num_sequences=8,
+                                      max_model_len=256),
+            validation=ValidationConfig(max_input_tokens=128, max_total_tokens=256),
+        )
+
+    runs = {}
+    for name, pp, tp, device in (("cpu", 1, 1, "cpu"), ("cuda", 1, 1, None),
+                                 (f"cuda pp={PP_STAGES} tp={TP_RANKS}", PP_STAGES, TP_RANKS,
+                                  None)):
+        service = LlmService.start(tiny(pp, tp), device=device)
+        group = service.group
+        c0 = group.collectives if group else 0
+        runs[name], _, fig = drive(torch, f"tiny_trained {name}", service, prompts, 24,
+                                   waves=False)
+        if group:
+            log(f"tiny_trained f32 pp={pp} tp={tp}: {group.collectives - c0} collectives over "
+                f"{fig['steps']} engine steps on rank 0 ({TP_LABEL})")
+    greedy = [i for i in range(len(prompts)) if i != SEEDED_REQUEST]
+    both = runs[f"cuda pp={PP_STAGES} tp={TP_RANKS}"]
+    if both != runs["cuda"] or any(runs["cuda"][i] != runs["cpu"][i] for i in greedy):
+        raise AssertionError(f"tiny_trained pp={PP_STAGES} tp={TP_RANKS}: tokens differ from "
+                             "pp=1 tp=1 on the card or, greedy, on the CPU")
+    log(f"tiny_trained f32 pp={PP_STAGES} tp={TP_RANKS}: {sum(len(t) for t in both)} tokens "
+        "identical to pp=1 tp=1 on the card (the seeded request's too) and, greedy, on the CPU")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+CP_RANKS = 2
+# Llama-3.1-8B's attention layer: 32 q heads over 8 kv heads of 128, bf16,
+# blocks of 32; 4 decode rows of 4,096-8,192 keys, their pages shuffled over
+# the ranks.
+CP_SHAPES = dict(hq=32, hk=8, d=128, bs=32)
+CP_KEYS = (4096, 5461, 6827, 8192)
+CP_ITERS = 10
+
+
+def cp_batch(torch, device):
+    """The CP phase's decode batch, drawn from a seed on the CPU then moved
+    to ``device``: (q, k_new, v_new, the whole cache, metadata with global
+    page ids)."""
+    from atoma_infer_tpu_torch.ops.attention import AttentionMetadata
+
+    hq, hk, d, bs = (CP_SHAPES[k] for k in ("hq", "hk", "d", "bs"))
+    gen = torch.Generator().manual_seed(14)
+    pages = [-(-n // bs) for n in CP_KEYS]
+    total = -(-sum(pages) // CP_RANKS) * CP_RANKS
+    order = torch.randperm(total, generator=gen).tolist()
+    tables = torch.zeros((len(CP_KEYS), max(pages)), dtype=torch.int32)
+    slots, used = [], 0
+    for i, (n, p) in enumerate(zip(CP_KEYS, pages)):
+        tables[i, :p] = torch.tensor(order[used:used + p], dtype=torch.int32)
+        used += p
+        slots.append(int(tables[i, (n - 1) // bs]) * bs + (n - 1) % bs)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16).to(device)
+
+    S = len(CP_KEYS)
+    meta = AttentionMetadata(
+        slot_mapping=torch.tensor(slots, dtype=torch.int32, device=device),
+        block_tables=tables.to(device),
+        seq_lens=torch.tensor(CP_KEYS, dtype=torch.int32, device=device),
+        query_start_loc=torch.arange(S + 1, dtype=torch.int32, device=device),
+        num_seqs=torch.tensor([S], dtype=torch.int32, device=device),
+        block_size=bs, decode_only=True, max_q_len=1)
+    return (randn(S, hq, d), randn(S, hk, d), randn(S, hk, d),
+            randn(total, bs, 2 * hk * d), meta)
+
+
+def cp_rank_main(rank, init, out_path):
+    """One CP rank on this card (spawned): its page range of the batch, the
+    layer once (output and cache kept), then CP_ITERS timed runs of the
+    layer and of the combine alone; the launches of the first run."""
+    import torch
+
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.ops.reference import ragged_paged_attention_plain_partial
+    from atoma_infer_tpu_torch.parallel.context_parallel import (
+        combine_partials, cp_decode_attention_layer,
+    )
+    from atoma_infer_tpu_torch.parallel.distributed import init_distributed
+    from atoma_infer_tpu_torch.ops.kv_cache import kv_cache_view
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    group = init_distributed(init, CP_RANKS, rank, device=dev, local_ranks=CP_RANKS,
+                             local_devices=1)
+    q, k, v, cache, meta = cp_batch(torch, dev)
+    pages = cache.shape[0] // CP_RANKS
+    local = cache[rank * pages:(rank + 1) * pages].clone()
+    del cache
+    scale = CP_SHAPES["d"] ** -0.5
+    for kernel in cuda_lib.KERNELS.values():
+        kernel.launches = 0
+    out = cp_decode_attention_layer(q, local, k, v, meta, group, scale=scale)
+    launches = {n: kr.launches for n, kr in cuda_lib.KERNELS.items() if kr.launches}
+    result = dict(out=out.float().cpu(), cache=local.cpu(), launches=launches)
+
+    def timed(fn):
+        times = []
+        for _ in range(CP_ITERS):
+            group.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+
+    result["layer_ms"] = timed(lambda: cp_decode_attention_layer(q, local, k, v, meta, group,
+                                                                  scale=scale))
+    lo = rank * pages
+    mine = (meta.block_tables >= lo) & (meta.block_tables < lo + pages)
+    local_bt = torch.where(mine, meta.block_tables - lo, torch.zeros_like(meta.block_tables))
+    partial = ragged_paged_attention_plain_partial(
+        q, *kv_cache_view(local, CP_SHAPES["hk"], CP_SHAPES["d"]), local_bt, meta.seq_lens,
+        meta.query_start_loc, scale=scale, block_size=meta.block_size, page_valid=mine)
+    result["partial_ms"] = timed(lambda: ragged_paged_attention_plain_partial(
+        q, *kv_cache_view(local, CP_SHAPES["hk"], CP_SHAPES["d"]), local_bt, meta.seq_lens,
+        meta.query_start_loc, scale=scale, block_size=meta.block_size, page_valid=mine))
+    result["combine_ms"] = timed(lambda: combine_partials(*partial, group))
+    torch.save(result, out_path)
+
+
+CP_TOL = ATTN_TOL["bfloat16"]
+
+
+def run_cp_layer(torch):
+    """Context-parallel decode attention (``parallel/context_parallel.py``)
+    over CP_RANKS ranks spawned on this card (gloo through host memory), at
+    the 8B layer's shapes: every rank's output against the plain full
+    attention on the card within CP_TOL (bf16 outputs of f32 sums taken in
+    another order), every rank's cache pages bit for bit against the
+    one-rank write (kernel C), the layer's and the combine's times."""
+    import tempfile
+
+    from atoma_infer_tpu_torch.ops.kv_cache import kv_cache_view, write_kv_cache
+    from atoma_infer_tpu_torch.ops.reference import ragged_paged_attention_plain
+
+    q, k, v, cache, meta = cp_batch(torch, torch.device("cuda", 0))
+    write_kv_cache(cache, k, v, meta.slot_mapping)
+    want = ragged_paged_attention_plain(
+        q, *kv_cache_view(cache, CP_SHAPES["hk"], CP_SHAPES["d"]), meta.block_tables,
+        meta.seq_lens, meta.query_start_loc, scale=CP_SHAPES["d"] ** -0.5,
+        block_size=meta.block_size).float().cpu()
+    cache = cache.cpu()
+    tmp = tempfile.mkdtemp(prefix="atoma-cp-")
+    init = f"file://{tmp}/rdzv"
+    outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(CP_RANKS)]
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=cp_rank_main, args=(r, init, outs[r])) for r in range(CP_RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    failed = [(p.name, p.exitcode) for p in procs if p.exitcode != 0]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    if failed:
+        raise AssertionError(f"context-parallel ranks failed: {failed}")
+    pages = cache.shape[0] // CP_RANKS
+    for r, path in enumerate(outs):
+        got = torch.load(path)
+        err = (got["out"] - want).abs().max().item()
+        if not torch.allclose(got["out"], want, atol=CP_TOL, rtol=CP_TOL):
+            raise AssertionError(f"context-parallel rank {r}: max |Δ| {err:.3e} against the "
+                                 f"plain full attention (tol {CP_TOL})")
+        if not torch.equal(got["cache"].view(torch.int16),
+                           cache[r * pages:(r + 1) * pages].view(torch.int16)):
+            raise AssertionError(f"context-parallel rank {r}: its pages differ from the "
+                                 "one-rank write")
+        if not got["launches"].get("reshape_and_cache"):
+            raise AssertionError(f"context-parallel rank {r}: kernel C was not launched")
+        log(f"context parallel, rank {r} of {CP_RANKS} ({TP_LABEL}): rows of {CP_KEYS} keys "
+            f"(Hq 32, Hk 8, D 128, bf16, blocks of 32), {pages} of {cache.shape[0]} pages; "
+            f"max |Δ| {err:.3e} against the plain full attention (tol {CP_TOL}); cache pages "
+            f"bit-exact; launches {got['launches']}; layer {got['layer_ms']:.3f} ms p50, its "
+            f"plain partial {got['partial_ms']:.3f} ms, the combine (max, then 2 sums) "
+            f"{got['combine_ms']:.3f} ms, over {CP_ITERS} runs")
+
+
 def dataclass_replace(config, **model_fields):
     """``config`` with its ``model`` section's fields replaced."""
     import dataclasses
@@ -4754,6 +5091,13 @@ def main() -> int:
             raise AssertionError(f"{key.split('@')[0]} was not launched on the TP service")
     gc.collect()
     torch.cuda.empty_cache()
+    # The PP rows' launches: the 8B INT8 + INT8 KV service at pp = 2.
+    pp_launches = phase(run_pp_services)
+    for name in PP_PATH:
+        launches[f"{name}@pp"] = pp_launches[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(run_cp_layer)
     launches.update(phase(run_probe))
     launches.update(launches_cuda_cores)
     # The verify rows' launches: the 1B and the 8B spec services' runs with
@@ -4776,6 +5120,9 @@ def main() -> int:
     named += [(key, f"{key.split('@')[0]} ({key.split('@tp ')[1]} per-rank shapes"
                + (", scales_new)" if "int8" in key and "matmul" not in key else ")"), r)
               for key, r in tp_rows.items()]
+    # The PP path's launches beside the times of each kernel's own row.
+    named += [(f"{name}@pp", f"{name} (8B INT8 + INT8 KV pp={PP_STAGES} path; timed as its "
+               "row)", rows[name]) for name in PP_PATH]
     for key, name, r in named:
         kernel = cuda_lib.KERNELS[key.split("@")[0]]
         line.append(dict(

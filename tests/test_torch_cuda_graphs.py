@@ -180,9 +180,16 @@ def test_static_fill_refuses_a_feed_wider_than_its_buffer(S, n_packed, n_prev):
 
 
 # ----------------------------------------------------- launches per replay
+# The device a stub launch names: a launch makes its device current, which
+# the stub fixture turns into a no-op on this CUDA-less torch.
+STUB_DEVICE = torch.device("cuda", 0)
+
+
 @pytest.fixture()
-def stub_kernels():
+def stub_kernels(monkeypatch):
     """Two registered kernels whose C entry point is a Python stub."""
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: STUB_DEVICE.index)
     names = ("stub_attention", "stub_matmul")
     saved = {n: cuda_lib.KERNELS.get(n) for n in names}
     kernels = []
@@ -200,11 +207,11 @@ def stub_kernels():
 
 def test_capture_records_launches_instead_of_counting(stub_kernels):
     attn, mm = stub_kernels
-    attn()
+    attn(device=STUB_DEVICE)
     with cuda_lib.recording_launches() as tally:
-        attn()
-        mm()
-        mm()
+        attn(device=STUB_DEVICE)
+        mm(device=STUB_DEVICE)
+        mm(device=STUB_DEVICE)
         with pytest.raises(RuntimeError, match="already recording"):
             with cuda_lib.recording_launches():
                 pass
@@ -251,9 +258,9 @@ def test_replays_count_the_captured_launches(stub_kernels, monkeypatch):
     attn, mm = stub_kernels
 
     def compute(packed, sampling, gumbel, prev):
-        attn()
-        mm()
-        mm()
+        attn(device=STUB_DEVICE)
+        mm(device=STUB_DEVICE)
+        mm(device=STUB_DEVICE)
         tokens = packed[:4] * sampling["scale"].to(torch.int32) + prev[:4]
         return tokens, (gumbel.argmax(dim=1).to(torch.int32),)
 

@@ -408,24 +408,50 @@ def test_service_greedy_tokens_match_jax(name):
 
 
 @pytest.mark.parametrize("raw, item", [
-    # Tensor parallelism and multi-host are served (tests/test_torch_tp.py);
-    # with pipeline stages beside them they are still refused.
-    ({"inference": {"tensor_parallel_size": 2, "pipeline_parallel_size": 2}}, "parallelism"),
-    ({"inference": {"pipeline_parallel_size": 2}}, "parallelism"),
-    ({"inference": {"num_hosts": 2, "pipeline_parallel_size": 2}}, "parallelism"),
+    # Pipeline parallelism is served: alone, beside tensor parallelism, and
+    # with the ranks spread over hosts, each case starts (item None) and
+    # serves the tokens of the service without stages.
+    ({"inference": {"tensor_parallel_size": 2, "pipeline_parallel_size": 2}}, None),
+    ({"inference": {"pipeline_parallel_size": 2}}, None),
+    ({"inference": {"num_hosts": 2, "tensor_parallel_size": 2, "pipeline_parallel_size": 2}},
+     None),
     ({"cache": {"enable_prefix_caching": True}}, "prefix caching"),
     # No kernel takes fp16: refused at start, not a KeyError in the loader.
     ({"inference": {"dtype": "float16"}}, "float16 instantiations of A–H"),
 ], ids=["tp", "pp", "multihost", "prefix_caching", "float16"])
-def test_service_rejects_unported_features(raw, item):
+def test_service_rejects_unported_features(raw, item, tmp_path):
+    """A feature the port lacks is refused at start, naming its Queue 1
+    item. Pipeline parallelism, refused here until it was ported, starts:
+    its stages cover the layers, and it serves ``tiny-random``'s greedy
+    tokens of the service at pp = 1, tp = 1 (over two hosts, each a spawned
+    process started from its configuration alone)."""
+    import torch_parity as tpar
     from atoma_infer_tpu_torch.config import EngineConfig
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
 
     raw = {key: dict(section) for key, section in raw.items()}
     raw.setdefault("inference", {})["model_name"] = "tiny-random"
     raw.setdefault("scheduler", {})["max_model_len"] = 2048
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1: {item}"):
-        LlmService.start(EngineConfig.from_dict(raw), device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1: {item}"):
+            LlmService.start(EngineConfig.from_dict(raw), device="cpu")
+        return
+    prompts = PROMPTS[:2]
+    m = raw["inference"]
+    if m.get("num_hosts", 1) > 1:
+        ranks = tpar.spawn_ranks(tpar.host_rank, m["num_hosts"], tmp_path, raw, prompts)
+        assert ranks[1]["outputs"] == ranks[0]["outputs"]
+        got, stages = ranks[0]["outputs"], ranks[0]["stages"]
+    else:
+        if m.get("tensor_parallel_size", 1) > 1:
+            m["coordinator_address"] = tpar.rendezvous_file(tmp_path)
+        service = LlmService.start(EngineConfig.from_dict(raw), device="cpu")
+        stages = [ce.num_layers for ce in service.engine.worker.cache_engines]
+        got = tpar.generate(service, prompts)
+    one = {"inference": {"model_name": "tiny-random"}, "scheduler": {"max_model_len": 2048}}
+    assert stages == [1, 1]
+    assert got == tpar.generate(LlmService.start(EngineConfig.from_dict(one), device="cpu"),
+                                prompts)
 
 
 def test_async_service_with_speculation_serves_like_jax():

@@ -14,7 +14,7 @@ parallelism (4 experts) and without it (3 experts: the intermediate dim is
 split), serves the port's tp = 1 tokens. A follower that fails while it
 builds its service fails rank 0's start. Bad head divisibility and
 ``warmup`` under TP are refused (pipeline parallelism beside TP:
-``tests/test_torch_engine.py::test_service_rejects_unported_features``).
+``tests/test_torch_pipeline.py``).
 """
 
 import asyncio

@@ -312,9 +312,11 @@ def spawn_ranks(fn, tp, tmp_path, *args, timeout=RANK_TIMEOUT_S):
     return results
 
 
-def tp_engine_config(tp, *, kv_cache_dtype=None, coordinator_address=None, **sched):
+def tp_engine_config(tp, *, kv_cache_dtype=None, coordinator_address=None,
+                     pipeline_parallel_size=1, **sched):
     """The tensor-parallel services' configuration (``tests/test_engine_tp.py``
-    ``make_service``'s, with the Python block manager)."""
+    ``make_service``'s, with the Python block manager), with
+    ``pipeline_parallel_size`` stages."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
@@ -324,6 +326,7 @@ def tp_engine_config(tp, *, kv_cache_dtype=None, coordinator_address=None, **sch
     kw.update(sched)
     return EngineConfig(
         model=ModelConfig(model_name="injected", dtype="float32", tensor_parallel_size=tp,
+                          pipeline_parallel_size=pipeline_parallel_size,
                           kv_cache_dtype=kv_cache_dtype,
                           coordinator_address=coordinator_address),
         cache=CacheConfig(block_size=16, num_device_blocks_override=128,
@@ -422,6 +425,55 @@ def lockstep_rank(rank, tp, init, path, family, widths, prompts, sched, kv_cache
         kv_cache=[c.numpy().copy() for c in ce.kv_cache],
         kv_scales=None if ce.kv_scales is None else [to_numpy(s).copy() for s in ce.kv_scales],
     )
+
+
+def host_rank(rank, tp, init, raw, prompts):
+    """One host of a multi-host service started from its configuration
+    alone (``raw``, an ``EngineConfig.from_dict`` dict, with this rank's
+    ``host_id`` and the rendezvous filled in): host 0 serves ``prompts``,
+    the others follow. Returns the outputs and each stage's layer count."""
+    from atoma_infer_tpu_torch.config import EngineConfig
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.engine.multihost import follower_loop
+
+    raw = {key: dict(section) for key, section in raw.items()}
+    raw["inference"].update(host_id=rank, coordinator_address=init)
+    service = LlmService.start(EngineConfig.from_dict(raw), device="cpu")
+    stages = [ce.num_layers for ce in service.engine.worker.cache_engines]
+    if rank == 0:
+        outputs = generate(service, prompts)
+    else:
+        outputs = {r.request_id: list(r.outputs[0].token_ids) for r in follower_loop(service)}
+        service.tokenizer_pool.shutdown()
+    return dict(outputs=outputs, stages=stages)
+
+
+def cp_rank(rank, tp, init, batch, kw):
+    """One rank of a context-parallel decode layer: ``batch`` (numpy q,
+    k_new, v_new, the whole cache, and the metadata with GLOBAL page ids)
+    with this rank's page range of the cache, the layer's options ``kw``.
+    Returns the rank's output, its cache pages after the write, and its
+    collectives."""
+    from atoma_infer_tpu_torch.ops.attention import AttentionMetadata
+    from atoma_infer_tpu_torch.parallel.context_parallel import cp_decode_attention_layer
+    from atoma_infer_tpu_torch.parallel.distributed import init_distributed
+
+    group = init_distributed(init, tp, rank, device=torch.device("cpu"), local_ranks=tp,
+                             local_devices=1)
+    pages = batch["cache"].shape[0] // tp
+    cache = torch.from_numpy(batch["cache"][rank * pages:(rank + 1) * pages].copy())
+    S = batch["seq_lens"].shape[0]
+    meta = AttentionMetadata(
+        slot_mapping=torch.from_numpy(batch["slots"]),
+        block_tables=torch.from_numpy(batch["tables"]),
+        seq_lens=torch.from_numpy(batch["seq_lens"]),
+        query_start_loc=torch.arange(S + 1, dtype=torch.int32),
+        num_seqs=torch.tensor([S], dtype=torch.int32), block_size=batch["bs"],
+        decode_only=True)
+    out = cp_decode_attention_layer(
+        torch.from_numpy(batch["q"]), cache, torch.from_numpy(batch["k_new"]),
+        torch.from_numpy(batch["v_new"]), meta, group, scale=batch["q"].shape[2] ** -0.5, **kw)
+    return dict(out=out.numpy(), cache=cache.numpy(), collectives=group.collectives)
 
 
 def logits_rank(rank, tp, init, path, family, widths, steps, stream, tables):
