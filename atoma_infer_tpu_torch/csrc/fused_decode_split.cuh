@@ -1,4 +1,4 @@
-// Kernels B, D and E's fused variants for bf16 queries: pure-decode
+// Kernels B, D and E's fused variants for bf16 and fp16 queries: pure-decode
 // attention with the KV-cache write fused in, each row's keys split across
 // blocks. The same function as fused_decode_kernel (paged_attention.cuh) and
 // as the plain version (ops/paged_attention.py: fused_decode_attention_plain):
@@ -66,8 +66,11 @@
 // soft cap, ALiBi slope × (kpos − pos); f32 online softmax; INT8 folds the
 // V scale into p before P·V.
 //
+// fp16 queries (Q = __half; bf16 is Q = __nv_bfloat16) run the same kernel
+// on mma.sync's f16 form: q, k_new, v_new and out fp16, the 1-byte caches
+// widened to fp16 (exact), P rounded to fp16; INT8 scales stay bf16.
 // Head dims 32, 64 and 128 over every cache kind; 96 (Phi-3-mini) and 256
-// (Gemma-2) over a bf16 cache. At D = 96 a K row is 12 16-byte pieces,
+// (Gemma-2) over a cache in the queries' dtype. At D = 96 a K row is 12 16-byte pieces,
 // which do not divide a warp's 32 lanes, so the ring's copies walk the
 // round's pieces key-major; its 192-byte rows already start 64 bytes apart
 // modulo 128, so a load phase's two keys meet no bank conflict unpadded;
@@ -165,35 +168,35 @@ __device__ __forceinline__ VRun<C, N> load_run(const C* p, bool valid) {
   return r;
 }
 
-// Element m of two runs (two keys' values of one dim) as a bf16 pair, lo in
+// Element m of two runs (two keys' values of one dim) as a Q pair, lo in
 // the low half: the B register of P·V's mma (exact for every cache kind).
-template <typename C>
+template <typename C, typename Q>
 __device__ __forceinline__ uint32_t key_pair(const uint32_t* lo, const uint32_t* hi, int m) {
   if constexpr (sizeof(C) == 2) {
     return __byte_perm(lo[m >> 1], hi[m >> 1], m & 1 ? 0x7632 : 0x5410);
   } else if constexpr (kScaled<C>) {
-    return widen_pair(lo[m >> 2], hi[m >> 2], m & 3);
+    return widen_pair_t<Q>(lo[m >> 2], hi[m >> 2], m & 3);
   } else {
     const int j = m & 3;
-    return widen2<C>(__byte_perm(lo[m >> 2], hi[m >> 2], j | ((4 + j) << 4)), 0);
+    return widen2<C, Q>(__byte_perm(lo[m >> 2], hi[m >> 2], j | ((4 + j) << 4)), 0);
   }
 }
 
-// q, k_new, v_new: bf16 [T, H, D] (H = Hq or Hk); cache [pages, block_size,
+// q, k_new, v_new: Q [T, H, D] (H = Hq or Hk); cache [pages, block_size,
 // 2 Hk D] of C; scales: bf16 [pages, block_size, 2] (INT8) or null;
-// scales_new: f32 [T, 2] (INT8, the new tokens' scales) or null; out bf16
+// scales_new: f32 [T, 2] (INT8, the new tokens' scales) or null; out Q
 // [T, Hq, D]; ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq, 2]
 // when splits > 1. Grid (Hk, sequence slots, splits), kFsWarps * 32 threads,
 // fs_smem_bytes<C, D, G>() bytes of dynamic shared memory.
-template <typename C, int D, int G>
+template <typename Q, typename C, int D, int G>
 __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
-    const __nv_bfloat16* __restrict__ v_new, C* cache, __nv_bfloat16* scales,
+    const Q* __restrict__ q, const Q* __restrict__ k_new,
+    const Q* __restrict__ v_new, C* cache, __nv_bfloat16* scales,
     const float* __restrict__ scales_new, const int* __restrict__ slot_mapping,
     const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
     const int* __restrict__ query_start_loc,
     const int* __restrict__ num_seqs, const float* __restrict__ alibi,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
+    Q* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
     int num_tokens, int num_kv_heads, int max_pages, int block_size, long long num_slots,
     int splits, int min_tiles, float scale, int window, float soft_cap) {
   using L = FsTile<C, D>;
@@ -236,7 +239,7 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long row_stride = 2LL * num_kv_heads * D;
   const long long q_base = ((long long)t * num_q_heads + (long long)h * G) * D;
-  for (int i = tid; i < G * D; i += NW * 32) q_s[i] = __bfloat162float(q[q_base + i]);
+  for (int i = tid; i < G * D; i += NW * 32) q_s[i] = to_float(q[q_base + i]);
 
   const long long slot = slot_mapping[t];
   const bool write = last && slot >= 0 && slot < num_slots;
@@ -248,8 +251,8 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
         bk = __float2bfloat16_rn(scales_new[2 * t]);
         bv = __float2bfloat16_rn(scales_new[2 * t + 1]);
       } else {
-        const __nv_bfloat16* kn_row = k_new + (long long)t * num_kv_heads * D;
-        const __nv_bfloat16* vn_row = v_new + (long long)t * num_kv_heads * D;
+        const Q* kn_row = k_new + (long long)t * num_kv_heads * D;
+        const Q* vn_row = v_new + (long long)t * num_kv_heads * D;
         float mk, mv;
         row_absmax(kn_row, vn_row, num_kv_heads * D, red_s, mk, mv);
         bk = kv_scale(mk);
@@ -266,22 +269,21 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
     }
   }
   if (write) {
-    const __nv_bfloat16* kn = k_new + ((long long)t * num_kv_heads + h) * D;
-    const __nv_bfloat16* vn = v_new + ((long long)t * num_kv_heads + h) * D;
+    const Q* kn = k_new + ((long long)t * num_kv_heads + h) * D;
+    const Q* vn = v_new + ((long long)t * num_kv_heads + h) * D;
     C* dst = cache + slot * row_stride + (long long)h * 2 * D;
     for (int i = tid; i < 2 * D; i += NW * 32)
-      dst[i] = i < D ? encode<C>(__bfloat162float(kn[i]), inv_k)
-                     : encode<C>(__bfloat162float(vn[i - D]), inv_v);
+      dst[i] = i < D ? encode<C>(to_float(kn[i]), inv_k) : encode<C>(to_float(vn[i - D]), inv_v);
   }
   __syncthreads();  // q_s staged; the new slice stored (last split)
 
-  // Q·Kᵀ on the tensor cores (mma.sync m16n8k16 bf16, f32 sums): A holds
+  // Q·Kᵀ on the tensor cores (mma.sync m16n8k16 on Q, f32 sums): A holds
   // the G query heads as rows 0..G-1 of an m16 tile (the rest zero), B a
   // key's K row as a column. k runs over the dims in the order the K
   // fragments read them: lane (gid, tig) reads kPiece bytes of its key's
   // row at byte 4 kPiece c + kPiece tig, EPL elements feeding SPC k16 steps
   // (step c SPC + i: dims d = 4 EPL c + EPL tig + 4 i, b0 = (d, d + 1), b1 =
-  // (d + 2, d + 3), 1-byte values widened to bf16 exactly by widen2);
+  // (d + 2, d + 3), 1-byte values widened to Q exactly by widen2);
   // A's k index follows the same lanes, so the sum is the dot product. The
   // lane's row of the score tile is head gid: its online-softmax state (m,
   // l) is the row's, l a partial sum over the lane's keys.
@@ -290,13 +292,13 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
 #pragma unroll
   for (int st = 0; st < D / 16; ++st) {
     const int d = (st / SPC) * 4 * EPL + tig * EPL + 4 * (st % SPC);
-    qf[st][0] = gid < G ? pack_bf16(q_s[gid * D + d], q_s[gid * D + d + 1]) : 0u;
-    qf[st][1] = gid < G ? pack_bf16(q_s[gid * D + d + 2], q_s[gid * D + d + 3]) : 0u;
+    qf[st][0] = gid < G ? pack2<Q>(q_s[gid * D + d], q_s[gid * D + d + 1]) : 0u;
+    qf[st][1] = gid < G ? pack2<Q>(q_s[gid * D + d + 2], q_s[gid * D + d + 3]) : 0u;
   }
   const float slope = alibi != nullptr && gid < G ? alibi[h * G + gid] : 0.f;
   float m_row = kNegInf, l_row = 0.f;
   // P·V on the tensor cores too: O (rows the heads) += P (A: the score
-  // accumulators, rounded to bf16 after INT8's V scale) · V (B: keys x
+  // accumulators, rounded to Q after INT8's V scale) · V (B: keys x
   // dims). Output column n of n8 tile m is dim NT n + m, so the B column a
   // lane holds, gid, is the contiguous run of dims NT gid .. NT gid + NT - 1
   // of each of its keys: one coalesced load a key, the keys paired into B
@@ -400,14 +402,14 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
             b0 = w[2 * i];
             b1 = w[2 * i + 1];
           } else {
-            b0 = widen2<C>(w[i], 0);
-            b1 = widen2<C>(w[i], 2);
+            b0 = widen2<C, Q>(w[i], 0);
+            b1 = widen2<C, Q>(w[i], 2);
           }
           const uint32_t a[4] = {qf[st][0], 0u, qf[st][1], 0u};
           if (st == 0)
-            mma_bf16_fresh(sc[j], a, b0, b1);
+            mma16_fresh<Q>(sc[j], a, b0, b1);
           else
-            mma_bf16(sc[j], a, b0, b1);
+            mma16<Q>(sc[j], a, b0, b1);
         }
       }
     }
@@ -443,7 +445,7 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
         if constexpr (kScaled<C>) vs = kv_s[warp][8 * j + 2 * tig + e].y;
         pv[e] = p * vs;  // INT8: V's scale folds into p
       }
-      pa[j >> 1][j & 1] = pack_bf16(pv[0], pv[1]);
+      pa[j >> 1][j & 1] = pack2<Q>(pv[0], pv[1]);
     }
     m_row = m_new;
 #pragma unroll
@@ -465,8 +467,8 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
         const uint32_t a[4] = {pa[q][0], 0u, pa[q][1], 0u};
 #pragma unroll
         for (int mt = 0; mt < VC; ++mt)
-          mma_bf16(o[c0 + mt], a, key_pair<C>(v[0].w, v[1].w, mt),
-                   key_pair<C>(v[2].w, v[3].w, mt));
+          mma16<Q>(o[c0 + mt], a, key_pair<C, Q>(v[0].w, v[1].w, mt),
+                   key_pair<C, Q>(v[2].w, v[3].w, mt));
       }
     }
     __syncwarp();  // this round's stage (and INT8 scales) are read: both may be refilled
@@ -505,7 +507,7 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
       ov += acc_s[(w * G + g) * D + d] * c;
     }
     if (nsplit == 1) {
-      out[q_base + i] = __float2bfloat16_rn(sum > 0.f ? ov / sum : 0.f);
+      out[q_base + i] = from_float<Q>(sum > 0.f ? ov / sum : 0.f);
     } else {  // unnormalized, with (m, l), for rpa_combine_kernel
       const long long wrow = (long long)split * num_tokens * num_q_heads + row0 + g;
       ws_o[wrow * D + d] = ov;
@@ -521,29 +523,29 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
 // device and library: internal linkage, so that another library built from
 // this header (the measurement tools' variants) keeps its own flags.
 namespace {
-template <typename C, int D, int G>
+template <typename Q, typename C, int D, int G>
 cudaError_t fused_split_attributes() {
   static atoma::PerDevice state;
   return atoma::once_per_device(state, [] {
-    return cudaFuncSetAttribute(fused_split_kernel<C, D, G>,
+    return cudaFuncSetAttribute(fused_split_kernel<Q, C, D, G>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 fs_smem_bytes<C, D, G>());
   });
 }
 }  // namespace
 
-template <typename C, int D, int G>
+template <typename Q, typename C, int D, int G>
 int fused_split_blocks_per_sm() {
-  if (fused_split_attributes<C, D, G>() != cudaSuccess) return -1;
+  if (fused_split_attributes<Q, C, D, G>() != cudaSuccess) return -1;
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_split_kernel<C, D, G>,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_split_kernel<Q, C, D, G>,
                                                     kFsWarps * 32,
                                                     fs_smem_bytes<C, D, G>()) != cudaSuccess)
     return -1;
   return n;
 }
 
-template <typename C>
+template <typename Q, typename C>
 int fused_split_entry(const void* q, const void* k_new, const void* v_new, void* cache,
                       void* scales, const void* scales_new, const void* slot_mapping,
                       const void* block_tables, const void* seq_lens,
@@ -566,14 +568,14 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
   cudaStream_t st = (cudaStream_t)stream;
 #define ATOMA_FS(D, G)                                                                         \
   if (head_dim == D && group == G) {                                                           \
-    const cudaError_t opt_in = fused_split_attributes<C, D, G>();                              \
+    const cudaError_t opt_in = fused_split_attributes<Q, C, D, G>();                           \
     if (opt_in != cudaSuccess) return (int)opt_in;                                             \
-    fused_split_kernel<C, D, G><<<grid, kFsWarps * 32, fs_smem_bytes<C, D, G>(), st>>>(       \
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,     \
+    fused_split_kernel<Q, C, D, G><<<grid, kFsWarps * 32, fs_smem_bytes<C, D, G>(), st>>>(    \
+        (const Q*)q, (const Q*)k_new, (const Q*)v_new,                                         \
         (C*)cache, (__nv_bfloat16*)scales, (const float*)scales_new, (const int*)slot_mapping,  \
         (const int*)block_tables,                                                              \
         (const int*)seq_lens, (const int*)query_start_loc, (const int*)num_seqs,               \
-        (const float*)alibi, (__nv_bfloat16*)out, (float*)ws_o, (float*)ws_ml, num_tokens,    \
+        (const float*)alibi, (Q*)out, (float*)ws_o, (float*)ws_ml, num_tokens,                \
         num_kv_heads, max_pages, block_size, num_slots, splits, min_tiles, scale, window,      \
         soft_cap);                                                                             \
     return (int)cudaGetLastError();                                                            \
@@ -588,7 +590,7 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
   ATOMA_FS_D(32)
   ATOMA_FS_D(64)
   ATOMA_FS_D(128)
-  // Phi-3 (96) and Gemma-2 (256) over a bf16 cache only.
+  // Phi-3 (96) and Gemma-2 (256) over a cache in the queries' dtype only.
   if constexpr (sizeof(C) == 2) {
     ATOMA_FS_D(96)
     ATOMA_FS_D(256)
@@ -599,25 +601,25 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename C>
+template <typename Q, typename C>
 int fused_split_blocks_per_sm_entry(int head_dim, int group) {
 #ifdef ATOMA_FS_SHAPES_D128_G4
   if ((head_dim == 64 || head_dim == 128) && group == 4)
-    return head_dim == 64 ? fused_split_blocks_per_sm<C, 64, 4>()
-                          : fused_split_blocks_per_sm<C, 128, 4>();
+    return head_dim == 64 ? fused_split_blocks_per_sm<Q, C, 64, 4>()
+                          : fused_split_blocks_per_sm<Q, C, 128, 4>();
   return -1;
 #endif
 #define ATOMA_FS_OCC(D)                                              \
   if (head_dim == D) {                                               \
     switch (group) {                                                 \
-      case 1: return fused_split_blocks_per_sm<C, D, 1>();           \
-      case 2: return fused_split_blocks_per_sm<C, D, 2>();           \
-      case 3: return fused_split_blocks_per_sm<C, D, 3>();           \
-      case 4: return fused_split_blocks_per_sm<C, D, 4>();           \
-      case 5: return fused_split_blocks_per_sm<C, D, 5>();           \
-      case 6: return fused_split_blocks_per_sm<C, D, 6>();           \
-      case 7: return fused_split_blocks_per_sm<C, D, 7>();           \
-      case 8: return fused_split_blocks_per_sm<C, D, 8>();           \
+      case 1: return fused_split_blocks_per_sm<Q, C, D, 1>();        \
+      case 2: return fused_split_blocks_per_sm<Q, C, D, 2>();        \
+      case 3: return fused_split_blocks_per_sm<Q, C, D, 3>();        \
+      case 4: return fused_split_blocks_per_sm<Q, C, D, 4>();        \
+      case 5: return fused_split_blocks_per_sm<Q, C, D, 5>();        \
+      case 6: return fused_split_blocks_per_sm<Q, C, D, 6>();        \
+      case 7: return fused_split_blocks_per_sm<Q, C, D, 7>();        \
+      case 8: return fused_split_blocks_per_sm<Q, C, D, 8>();        \
       default: return -1;                                            \
     }                                                                \
   }
@@ -634,15 +636,15 @@ int fused_split_blocks_per_sm_entry(int head_dim, int group) {
 
 }  // namespace atoma
 
-// The split fused-decode entry points of one cache kind (C its element
-// type): q, k_new, v_new and out bf16; scales_new f32 [T, 2] or null (INT8:
+// The split fused-decode entry points of one (query type Q, cache kind C)
+// pair: q, k_new, v_new and out Q; scales_new f32 [T, 2] or null (INT8:
 // the new tokens' scales, else taken from their rows); the rest as the fused
 // entry's, plus
 // ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq, 2] when splits
 // > 1 (else null), the most splits a row takes and the fewest 64-key tiles
 // a split holds. The merge of split rows is a separate launch
 // (atoma_paged_attention_split_combine).
-#define ATOMA_FUSED_SPLIT_ENTRIES(SUFFIX, C)                                                  \
+#define ATOMA_FUSED_SPLIT_ENTRIES(SUFFIX, Q, C)                                               \
   extern "C" int atoma_fused_decode_attention_split##SUFFIX(                                  \
       const void* q, const void* k_new, const void* v_new, void* cache, void* scales,        \
       const void* scales_new, const void* slot_mapping, const void* block_tables,            \
@@ -651,12 +653,12 @@ int fused_split_blocks_per_sm_entry(int head_dim, int group) {
       void* ws_o, void* ws_ml, int num_tokens, int num_seq_slots, int num_q_heads,           \
       int num_kv_heads, int head_dim, int max_pages, int block_size, long long num_slots,    \
       int splits, int min_tiles, float scale, int window, float soft_cap, void* stream) {    \
-    return atoma::fused_split_entry<C>(                                                      \
+    return atoma::fused_split_entry<Q, C>(                                                   \
         q, k_new, v_new, cache, scales, scales_new, slot_mapping, block_tables, seq_lens,    \
         query_start_loc, num_seqs, alibi, out, ws_o, ws_ml, num_tokens, num_seq_slots,       \
         num_q_heads, num_kv_heads, head_dim, max_pages, block_size, num_slots, splits,       \
         min_tiles, scale, window, soft_cap, stream);                                         \
   }                                                                                          \
   extern "C" int atoma_fused_split_blocks_per_sm##SUFFIX(int head_dim, int group) {          \
-    return atoma::fused_split_blocks_per_sm_entry<C>(head_dim, group);                       \
+    return atoma::fused_split_blocks_per_sm_entry<Q, C>(head_dim, group);                    \
   }

@@ -1,6 +1,6 @@
 // KV-cache element types: widening a cache element to f32, and storing a
 // new K/V value into the cache, for every cache the port takes:
-//   * float / __nv_bfloat16: the model's own dtype, stored as is;
+//   * float / __nv_bfloat16 / __half: the model's own dtype, stored as is;
 //   * int8_t: symmetric absmax INT8 with one bf16 scale per (slot, K/V);
 //   * __nv_fp8_e4m3: e4m3 (OCP "fn", no infinities), scale-free.
 //
@@ -30,6 +30,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 __device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
   return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
@@ -48,6 +49,10 @@ __device__ __forceinline__ float encode<float>(float x, float) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 encode<__nv_bfloat16>(float x, float) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half encode<__half>(float x, float) {
+  return __float2half_rn(x);
 }
 template <>
 __device__ __forceinline__ int8_t encode<int8_t>(float x, float inv) {

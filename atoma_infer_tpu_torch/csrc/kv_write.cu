@@ -12,7 +12,8 @@
 // vectors (narrower only when a head's row is not 16-byte aligned), neighbouring
 // threads on neighbouring addresses. The TPU kernel's page read-modify-write
 // (it could only DMA whole pages) is not needed: a GPU stores rows directly.
-// A pure copy, so the result is bit-identical to the plain version.
+// A pure copy, so the result is bit-identical to the plain version, for a
+// bf16, fp16 or f32 cache alike.
 //
 // The same scatter into a 1-byte cache (kv_write_fp8 / kv_write_int8 below)
 // converts on the way: e4m3 clipped to +-448 (TPU kernel C on e4m3 bytes,
@@ -155,6 +156,8 @@ int launch_convert(int dtype, const void* k, const void* v, const void* slots,
     ATOMA_CONVERT(float);
   } else if (dtype == 1) {
     ATOMA_CONVERT(__nv_bfloat16);
+  } else if (dtype == 2) {
+    ATOMA_CONVERT(__half);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -164,7 +167,7 @@ int launch_convert(int dtype, const void* k, const void* v, const void* slots,
 
 }  // namespace
 
-// dtype of k_new/v_new: 0 = float32, 1 = bfloat16. cache: [num_slots,
+// dtype of k_new/v_new: 0 = float32, 1 = bfloat16, 2 = float16. cache: [num_slots,
 // 2*Hk*D] float8_e4m3fn.
 extern "C" int atoma_kv_write_fp8(int dtype, const void* k_new, const void* v_new,
                                   const void* slot_mapping, void* cache,

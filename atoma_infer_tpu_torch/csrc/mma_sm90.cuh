@@ -3,11 +3,17 @@
 // cp.async copies into shared memory, ldmatrix and 32-bit shared loads for
 // the fragments, the byte transpose and the int8 -> bf16 widening that turn
 // a raw [K, N] weight tile into B fragments, and warp-level mma.sync.
+// The 16-bit operand type Q of a kernel's activations, bf16 or fp16, picks
+// the mma (mma16<Q>), the widening of int8 pairs (widen_pair_t<Q>) and the
+// packing of two f32 values (pack2<Q>); the fragment layouts are the same.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -111,6 +117,71 @@ __device__ __forceinline__ void mma_bf16_fresh(float (&c)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
       : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// Byte j of `lo` and byte j of `hi` as an fp16 pair, exactly: widen_pair's
+// construction under fp16 1024's exponent (0x6400, 10 mantissa bits: 1024 +
+// (v & 127) minus 1024 + (v & 128)), subtracted by one f16x2 fma.
+__device__ __forceinline__ uint32_t widen_pair_f16(uint32_t lo, uint32_t hi, int j) {
+  const uint32_t p = __byte_perm(lo, hi, pair_selector(j));
+  const uint32_t pos = (p & 0x007F007Fu) | 0x64006400u;
+  const uint32_t neg = (p & 0x00800080u) | 0x64006400u;
+  uint32_t d;
+  asm("fma.rn.f16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(neg), "r"(0xBC00BC00u), "r"(pos));
+  return d;
+}
+
+// mma_bf16's layout on fp16 operands.
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_f16_fresh(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// The same, chosen by the operand type Q (__nv_bfloat16 or __half).
+template <typename Q>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (std::is_same<Q, __half>::value)
+    mma_f16(c, a, b0, b1);
+  else
+    mma_bf16(c, a, b0, b1);
+}
+template <typename Q>
+__device__ __forceinline__ void mma16_fresh(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  if constexpr (std::is_same<Q, __half>::value)
+    mma_f16_fresh(c, a, b0, b1);
+  else
+    mma_bf16_fresh(c, a, b0, b1);
+}
+template <typename Q>
+__device__ __forceinline__ uint32_t widen_pair_t(uint32_t lo, uint32_t hi, int j) {
+  if constexpr (std::is_same<Q, __half>::value)
+    return widen_pair_f16(lo, hi, j);
+  else
+    return widen_pair(lo, hi, j);
+}
+// Two f32 values as a Q pair, lo in the low half, rounded to nearest.
+template <typename Q>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<Q, __half>::value) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&b);
+  }
 }
 
 }  // namespace

@@ -9,5 +9,5 @@
 #include "paged_attention_mma.cuh"
 
 ATOMA_PAGED_ATTENTION_ENTRIES(, atoma::SameCache)
-ATOMA_RPA_MMA_ENTRIES(, __nv_bfloat16)
-ATOMA_SPLIT_COMBINE_ENTRY
+ATOMA_RPA_MMA_ENTRIES(, __nv_bfloat16, __nv_bfloat16)
+ATOMA_SPLIT_COMBINE_ENTRY(, __nv_bfloat16)

@@ -69,6 +69,10 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // Elements in one 16-byte vector.
 template <typename T>

@@ -10,4 +10,4 @@
 #include "paged_attention_mma.cuh"
 
 ATOMA_PAGED_ATTENTION_ENTRIES(_int8, atoma::Int8Cache)
-ATOMA_RPA_MMA_ENTRIES(_int8, int8_t)
+ATOMA_RPA_MMA_ENTRIES(_int8, __nv_bfloat16, int8_t)

@@ -1,5 +1,6 @@
-// Kernels A, D and E for bf16 queries on the tensor cores: ragged paged
-// attention over a bf16, INT8 (+ per-slot scales) or e4m3 cache, the same
+// Kernels A, D and E for bf16 and fp16 queries on the tensor cores: ragged
+// paged attention over a cache in the queries' dtype, INT8 (+ per-slot
+// scales) or e4m3, the same
 // function as rpa_kernel (paged_attention.cuh) and as the plain version
 // (ops/paged_attention.py: ragged_paged_attention_paged_plain).
 //
@@ -57,8 +58,14 @@
 //    key gives 0. No host sync: the launch is CUDA-graph capturable.
 // Score order, as rpa_kernel's: dot (× the INT8 key scale) × scale, soft
 // cap, ALiBi slope × (kpos − qpos), then the causal / sliding-window mask.
+// fp16 queries (the template's Q = __half; bf16 is Q = __nv_bfloat16) run
+// the same kernel with mma.sync's f16 form: Q·Kᵀ and P·V on fp16 operands
+// with f32 sums, 1-byte caches widened to fp16 (exact: int8 by widen_pair's
+// construction under fp16 1024, e4m3 by the card's e4m3x2 → f16x2), P and
+// the output rounded to fp16. Everything else, scales included (bf16), is
+// the bf16 kernel's.
 // Head dims 32, 64 and 128 over every cache kind; 96 (Phi-3-mini) and 256
-// (Gemma-2) over a bf16 cache. At D = 96 a key's K|V slice is 24 16-byte
+// (Gemma-2) over a cache in the queries' dtype. At D = 96 a key's K|V slice is 24 16-byte
 // pieces, which do not divide the block's threads, so the copies walk the
 // tile's pieces key-major; 208-byte rows keep ldmatrix free of bank
 // conflicts. At D = 256 the ring is 3 × 66 KB (one block an SM), and a
@@ -87,26 +94,26 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
                : "r"(addr));
 }
 
-// Bytes j and j + 1 (j = 0 or 2) of a word as a bf16 pair, byte j in the
-// low half.
-template <typename C>
-__device__ __forceinline__ uint32_t widen2(uint32_t w, int j);
-
-// int8: widen_pair on byte j of w and of w >> 8 (exact).
-template <>
-__device__ __forceinline__ uint32_t widen2<int8_t>(uint32_t w, int j) {
-  return widen_pair(w, w >> 8, j);
-}
-
-// e4m3: the card's e4m3x2 → f16x2, then each half to bf16 (exact: every
-// e4m3 value is a bf16 value).
-template <>
-__device__ __forceinline__ uint32_t widen2<__nv_fp8_e4m3>(uint32_t w, int j) {
-  const __nv_fp8x2_storage_t two = (__nv_fp8x2_storage_t)(w >> (8 * j));
-  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3);
-  const float2 f = __half22float2(__half2(h));
-  const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
-  return *reinterpret_cast<const uint32_t*>(&b);
+// Bytes j and j + 1 (j = 0 or 2) of a word of a 1-byte cache C as a Q pair
+// (bf16 or fp16), byte j in the low half; exact for both.
+template <typename C, typename Q>
+__device__ __forceinline__ uint32_t widen2(uint32_t w, int j) {
+  if constexpr (kScaled<C>) {
+    // int8: widen_pair on byte j of w and of w >> 8.
+    return widen_pair_t<Q>(w, w >> 8, j);
+  } else {
+    // e4m3: the card's e4m3x2 → f16x2 (every e4m3 value is an fp16 value),
+    // then, for bf16, each half to bf16 (every e4m3 value is a bf16 value).
+    const __nv_fp8x2_storage_t two = (__nv_fp8x2_storage_t)(w >> (8 * j));
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3);
+    if constexpr (std::is_same<Q, __half>::value) {
+      return (uint32_t)h.x | ((uint32_t)h.y << 16);
+    } else {
+      const float2 f = __half22float2(__half2(h));
+      const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+      return *reinterpret_cast<const uint32_t*>(&b);
+    }
+  }
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -122,11 +129,6 @@ __device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b, ui
                                        uint32_t d) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c),
                "r"(d));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&b);
 }
 
 // The key tiles a query tile sees: [t_lo, t_lo + n_tiles), from the
@@ -158,11 +160,11 @@ struct RpaTile {
       kRpaStages * kStageBytes + kWideBytes + kScaleBytes + (kRpaStages + 1) * kRpaKT * 4;
 };
 
-// One warp's work on a key tile: kRpaKT keys whose bf16 K and V rows start
+// One warp's work on a key tile: kRpaKT keys whose Q-typed K and V rows start
 // at shared addresses ks and vs, rows row_bytes apart, the first at position
 // kpos0; their INT8 scale pairs at sc. Updates the warp's running (m, l, O)
 // for its two rows a lane.
-template <int D, bool SCALED>
+template <typename Q, int D, bool SCALED>
 __device__ __forceinline__ void rpa_warp_step(
     const uint32_t (&qf)[D / 16][4], uint32_t ks, uint32_t vs, int row_bytes, uint32_t sc,
     int kpos0, const int (&qpos)[2], const float (&slope)[2], bool alibi, bool masked,
@@ -181,11 +183,11 @@ __device__ __forceinline__ void rpa_warp_step(
       ldmatrix_x4(b, ks + (16 * p + (lane / 16) * 8 + lane % 8) * row_bytes +
                          (kk * 16 + ((lane / 8) % 2) * 8) * 2);
       if (kk == 0) {
-        mma_bf16_fresh(s[2 * p], qf[kk], b[0], b[1]);
-        mma_bf16_fresh(s[2 * p + 1], qf[kk], b[2], b[3]);
+        mma16_fresh<Q>(s[2 * p], qf[kk], b[0], b[1]);
+        mma16_fresh<Q>(s[2 * p + 1], qf[kk], b[2], b[3]);
       } else {
-        mma_bf16(s[2 * p], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * p + 1], qf[kk], b[2], b[3]);
+        mma16<Q>(s[2 * p], qf[kk], b[0], b[1]);
+        mma16<Q>(s[2 * p + 1], qf[kk], b[2], b[3]);
       }
     }
   }
@@ -257,31 +259,31 @@ __device__ __forceinline__ void rpa_warp_step(
     m[rr] = m_new;
   }
   // O += P·V, k step qq covering keys 16qq .. 16qq+15; P's A fragments are
-  // the score accumulators of n tiles 2qq and 2qq+1, rounded to bf16.
+  // the score accumulators of n tiles 2qq and 2qq+1, rounded to Q.
 #pragma unroll
   for (int qq = 0; qq < NK / 16; ++qq) {
-    const uint32_t a[4] = {pack_bf16(s[2 * qq][0], s[2 * qq][1]),
-                           pack_bf16(s[2 * qq][2], s[2 * qq][3]),
-                           pack_bf16(s[2 * qq + 1][0], s[2 * qq + 1][1]),
-                           pack_bf16(s[2 * qq + 1][2], s[2 * qq + 1][3])};
+    const uint32_t a[4] = {pack2<Q>(s[2 * qq][0], s[2 * qq][1]),
+                           pack2<Q>(s[2 * qq][2], s[2 * qq][3]),
+                           pack2<Q>(s[2 * qq + 1][0], s[2 * qq + 1][1]),
+                           pack2<Q>(s[2 * qq + 1][2], s[2 * qq + 1][3])};
 #pragma unroll
     for (int mm = 0; mm < D / 16; ++mm) {
       uint32_t b[4];
       ldmatrix_x4_trans(b, vs + (16 * qq + ((lane / 8) % 2) * 8 + lane % 8) * row_bytes +
                                (16 * mm + (lane / 16) * 8) * 2);
-      mma_bf16(o[2 * mm], a, b[0], b[1]);
-      mma_bf16(o[2 * mm + 1], a, b[2], b[3]);
+      mma16<Q>(o[2 * mm], a, b[0], b[1]);
+      mma16<Q>(o[2 * mm + 1], a, b[2], b[3]);
     }
   }
 }
 
-template <typename C, int D, int NW>
+template <typename Q, typename C, int D, int NW>
 __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const C* __restrict__ cache,
+    const Q* __restrict__ q, const C* __restrict__ cache,
     const __nv_bfloat16* __restrict__ scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, const int* __restrict__ query_start_loc,
     const int* __restrict__ num_seqs, const float* __restrict__ alibi,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
+    Q* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
     int num_tokens, int num_q_heads, int num_kv_heads, int max_pages, int block_size,
     int group, int splits, int min_tiles, float scale, int window, float soft_cap) {
   using L = RpaTile<C, D, NW>;
@@ -401,7 +403,7 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
   for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
-      const __nv_bfloat16* qr = q + orow[rr] * D + kk * 16;
+      const Q* qr = q + orow[rr] * D + kk * 16;
       qf[kk][rr] = rvalid[rr] ? *reinterpret_cast<const uint32_t*>(qr + 2 * c4) : 0u;
       qf[kk][2 + rr] = rvalid[rr] ? *reinterpret_cast<const uint32_t*>(qr + 8 + 2 * c4) : 0u;
     }
@@ -442,15 +444,16 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
     uint32_t kv = ring + stage * L::kStageBytes;
     int row_bytes = L::kRawRow;
     if constexpr (L::kBytes) {
-      // Widen the tile's raw K and V rows to bf16 once, all threads: int8
-      // and e4m3 are exact in bf16.
+      // Widen the tile's raw K and V rows to Q once, all threads: int8 and
+      // e4m3 are exact in bf16 and in fp16.
       for (int c = tid; c < 2 * KT * L::kChunks; c += NT) {
         const int r = c / L::kChunks, piece = c - r * L::kChunks;
         const uint4 w = lds128(kv + r * L::kRawRow + piece * 16);
         const uint32_t dst = wide + r * L::kRow + piece * 32;
-        sts128(dst, widen2<C>(w.x, 0), widen2<C>(w.x, 2), widen2<C>(w.y, 0), widen2<C>(w.y, 2));
-        sts128(dst + 16, widen2<C>(w.z, 0), widen2<C>(w.z, 2), widen2<C>(w.w, 0),
-               widen2<C>(w.w, 2));
+        sts128(dst, widen2<C, Q>(w.x, 0), widen2<C, Q>(w.x, 2), widen2<C, Q>(w.y, 0),
+               widen2<C, Q>(w.y, 2));
+        sts128(dst + 16, widen2<C, Q>(w.z, 0), widen2<C, Q>(w.z, 2), widen2<C, Q>(w.w, 0),
+               widen2<C, Q>(w.w, 2));
       }
       __syncthreads();
       kv = wide;
@@ -463,7 +466,7 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
         !(kbase + KT - 1 <= first_pos && (window <= 0 || kbase > last_pos - window));
     const uint32_t sc = sc_base + stage * KT * 4;
     if (warp_active)
-      rpa_warp_step<D, kScaled<C>>(qf, kv, kv + KT * row_bytes, row_bytes, sc, kbase, qpos, slope,
+      rpa_warp_step<Q, D, kScaled<C>>(qf, kv, kv + KT * row_bytes, row_bytes, sc, kbase, qpos, slope,
                                    alibi != nullptr, masked, scale, window, soft_cap, o, m, l);
   }
   cp_async_wait<0>();
@@ -481,7 +484,7 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(out + orow[rr] * D + 8 * n + 2 * c4) =
-            pack_bf16(o[n][2 * rr] * inv, o[n][2 * rr + 1] * inv);
+            pack2<Q>(o[n][2 * rr] * inv, o[n][2 * rr + 1] * inv);
     } else {  // unnormalized, with (m, l), for rpa_combine_kernel
       const long long wrow = (long long)split * num_tokens * num_q_heads + orow[rr];
 #pragma unroll
@@ -500,10 +503,10 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
 // block per (token, kv head), its G·D outputs. Each split's weight is
 // exp(m_i − max m) (0 for a split in which the row saw no key); splits are
 // summed in order.
-template <int D>
+template <typename Q, int D>
 __global__ void __launch_bounds__(128) rpa_combine_kernel(
     const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
-    __nv_bfloat16* __restrict__ out, const int* __restrict__ seq_lens,
+    Q* __restrict__ out, const int* __restrict__ seq_lens,
     const int* __restrict__ query_start_loc, const int* __restrict__ num_seqs,
     int num_tokens, int num_q_heads, int group, int bq, int splits, int min_tiles,
     int window) {
@@ -542,41 +545,41 @@ __global__ void __launch_bounds__(128) rpa_combine_kernel(
       sum += w * ws_ml[2 * wrow + 1];
       acc += w * ws_o[wrow * D + d];
     }
-    out[row * D + d] = __float2bfloat16_rn(sum > 0.f ? acc / sum : 0.f);
+    out[row * D + d] = from_float<Q>(sum > 0.f ? acc / sum : 0.f);
   }
 }
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, once on each
 // device it runs on.
-template <typename C, int D, int NW>
+template <typename Q, typename C, int D, int NW>
 cudaError_t rpa_mma_attributes() {
   static atoma::PerDevice state;
   return atoma::once_per_device(state, [] {
-    return cudaFuncSetAttribute(rpa_mma_kernel<C, D, NW>,
+    return cudaFuncSetAttribute(rpa_mma_kernel<Q, C, D, NW>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 RpaTile<C, D, NW>::kSmem);
   });
 }
 
-template <typename C, int D, int NW>
+template <typename Q, typename C, int D, int NW>
 int rpa_mma_blocks_per_sm() {
   using L = RpaTile<C, D, NW>;
-  if (rpa_mma_attributes<C, D, NW>() != cudaSuccess) return -1;
+  if (rpa_mma_attributes<Q, C, D, NW>() != cudaSuccess) return -1;
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rpa_mma_kernel<C, D, NW>, L::kThreads,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rpa_mma_kernel<Q, C, D, NW>, L::kThreads,
                                                     L::kSmem) != cudaSuccess)
     return -1;
   return n;
 }
 
-template <typename C, int D, int NW>
+template <typename Q, typename C, int D, int NW>
 int launch_rpa_mma(const void* q, const void* cache, const void* scales, const int* bt,
                    const int* sl, const int* qsl, const int* ns, const float* alibi, void* out,
                    void* ws_o, void* ws_ml, int num_tokens, int num_seq_slots, int hq, int hk,
                    int max_pages, int block_size, int splits, int min_tiles, float scale,
                    int window, float soft_cap, cudaStream_t stream) {
   using L = RpaTile<C, D, NW>;
-  const cudaError_t opt_in = rpa_mma_attributes<C, D, NW>();
+  const cudaError_t opt_in = rpa_mma_attributes<Q, C, D, NW>();
   if (opt_in != cudaSuccess) return (int)opt_in;
   const int group = hq / hk;
   const int bq = NW * 16 / group;
@@ -584,16 +587,18 @@ int launch_rpa_mma(const void* q, const void* cache, const void* scales, const i
       (splits > 1 && (ws_o == nullptr || ws_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(num_tokens / bq + num_seq_slots, hk, splits);
-  rpa_mma_kernel<C, D, NW><<<grid, L::kThreads, L::kSmem, stream>>>(
-      (const __nv_bfloat16*)q, (const C*)cache, (const __nv_bfloat16*)scales, bt, sl, qsl, ns,
-      alibi, (__nv_bfloat16*)out, (float*)ws_o, (float*)ws_ml, num_tokens, hq, hk, max_pages,
+  rpa_mma_kernel<Q, C, D, NW><<<grid, L::kThreads, L::kSmem, stream>>>(
+      (const Q*)q, (const C*)cache, (const __nv_bfloat16*)scales, bt, sl, qsl, ns,
+      alibi, (Q*)out, (float*)ws_o, (float*)ws_ml, num_tokens, hq, hk, max_pages,
       block_size, group, splits, min_tiles, scale, window, soft_cap);
   return (int)cudaGetLastError();
 }
 
 // The merge of split rows (rpa_combine_kernel), launched after a split
-// attention kernel (this file's, or fused_split_kernel with bq = 1).
-inline int rpa_combine_entry(const void* ws_o, const void* ws_ml, void* out, const void* seq_lens,
+// attention kernel (this file's, or fused_split_kernel with bq = 1); out
+// of the queries' type Q.
+template <typename Q>
+int rpa_combine_entry(const void* ws_o, const void* ws_ml, void* out, const void* seq_lens,
                              const void* query_start_loc, const void* num_seqs, int num_tokens,
                              int num_q_heads, int num_kv_heads, int head_dim, int bq, int splits,
                              int min_tiles, int window, void* stream) {
@@ -606,8 +611,8 @@ inline int rpa_combine_entry(const void* ws_o, const void* ws_ml, void* out, con
   cudaStream_t st = (cudaStream_t)stream;
 #define ATOMA_COMBINE(D)                                                                      \
   if (head_dim == D) {                                                                        \
-    rpa_combine_kernel<D><<<grid, 128, 0, st>>>(                                              \
-        (const float*)ws_o, (const float*)ws_ml, (__nv_bfloat16*)out, (const int*)seq_lens,  \
+    rpa_combine_kernel<Q, D><<<grid, 128, 0, st>>>(                                           \
+        (const float*)ws_o, (const float*)ws_ml, (Q*)out, (const int*)seq_lens,              \
         (const int*)query_start_loc, (const int*)num_seqs, num_tokens, num_q_heads, group,   \
         bq, splits, min_tiles, window);                                                       \
     return (int)cudaGetLastError();                                                           \
@@ -621,7 +626,7 @@ inline int rpa_combine_entry(const void* ws_o, const void* ws_ml, void* out, con
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename C>
+template <typename Q, typename C>
 int rpa_mma_entry(const void* q, const void* cache, const void* scales, const void* block_tables,
                   const void* seq_lens, const void* query_start_loc, const void* num_seqs,
                   const void* alibi, void* out, void* ws_o, void* ws_ml, int num_tokens,
@@ -637,7 +642,7 @@ int rpa_mma_entry(const void* q, const void* cache, const void* scales, const vo
   cudaStream_t st = (cudaStream_t)stream;
 #define ATOMA_RPA_MMA(D, NW)                                                                  \
   if (head_dim == D && warps == NW)                                                           \
-  return launch_rpa_mma<C, D, NW>(q, cache, scales, bt, sl, qsl, ns, al, out, ws_o, ws_ml,    \
+  return launch_rpa_mma<Q, C, D, NW>(q, cache, scales, bt, sl, qsl, ns, al, out, ws_o, ws_ml,    \
                                   num_tokens, num_seq_slots, num_q_heads, num_kv_heads,       \
                                   max_pages, block_size, splits, min_tiles, scale, window,    \
                                   soft_cap, st)
@@ -647,7 +652,7 @@ int rpa_mma_entry(const void* q, const void* cache, const void* scales, const vo
   ATOMA_RPA_MMA(32, 8);
   ATOMA_RPA_MMA(64, 8);
   ATOMA_RPA_MMA(128, 8);
-  // Phi-3 (96) and Gemma-2 (256) over a bf16 cache only.
+  // Phi-3 (96) and Gemma-2 (256) over a cache in the queries' dtype only.
   if constexpr (sizeof(C) == 2) {
     ATOMA_RPA_MMA(96, 4);
     ATOMA_RPA_MMA(256, 4);
@@ -658,10 +663,10 @@ int rpa_mma_entry(const void* q, const void* cache, const void* scales, const vo
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename C>
+template <typename Q, typename C>
 int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
 #define ATOMA_RPA_OCC(D, NW) \
-  if (head_dim == D && warps == NW) return rpa_mma_blocks_per_sm<C, D, NW>()
+  if (head_dim == D && warps == NW) return rpa_mma_blocks_per_sm<Q, C, D, NW>()
   ATOMA_RPA_OCC(32, 4);
   ATOMA_RPA_OCC(64, 4);
   ATOMA_RPA_OCC(128, 4);
@@ -681,26 +686,27 @@ int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
 }  // namespace atoma
 
 // The merge of a split attention launch's rows: ws_o f32 [splits, T, Hq, D],
-// ws_ml f32 [splits, T, Hq, 2] (splits > 1), out bf16 [T, Hq, D]; bq the
+// ws_ml f32 [splits, T, Hq, 2] (splits > 1), out Q [T, Hq, D]; bq the
 // query tokens a tile (1 for the fused decode kernel), min_tiles and window
-// as the attention launch's. One library defines it (paged_attention.cu).
-#define ATOMA_SPLIT_COMBINE_ENTRY                                                             \
-  extern "C" int atoma_paged_attention_split_combine(                                         \
+// as the attention launch's. One library defines each (paged_attention.cu:
+// bf16; paged_attention_f16.cu: SUFFIX _f16, fp16).
+#define ATOMA_SPLIT_COMBINE_ENTRY(SUFFIX, Q)                                                  \
+  extern "C" int atoma_paged_attention_split_combine##SUFFIX(                                 \
       const void* ws_o, const void* ws_ml, void* out, const void* seq_lens,                   \
       const void* query_start_loc, const void* num_seqs, int num_tokens, int num_q_heads,     \
       int num_kv_heads, int head_dim, int bq, int splits, int min_tiles, int window,          \
       void* stream) {                                                                         \
-    return atoma::rpa_combine_entry(ws_o, ws_ml, out, seq_lens, query_start_loc, num_seqs,    \
+    return atoma::rpa_combine_entry<Q>(ws_o, ws_ml, out, seq_lens, query_start_loc, num_seqs, \
                                     num_tokens, num_q_heads, num_kv_heads, head_dim, bq,      \
                                     splits, min_tiles, window, stream);                       \
   }
 
-// The tensor-core entry points of one cache kind (C its element type):
-// q and out bf16 [T, Hq, D]; cache, scales, block tables and lengths as the
+// The tensor-core entry points of one (query type Q, cache kind C) pair:
+// q and out Q [T, Hq, D]; cache, scales, block tables and lengths as the
 // ragged entry's; ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq,
 // 2] when splits > 1 (else null); warps 4 or 8 (64 or 128 rows a tile). A
 // launch with splits > 1 is followed by atoma_paged_attention_split_combine.
-#define ATOMA_RPA_MMA_ENTRIES(SUFFIX, C)                                                      \
+#define ATOMA_RPA_MMA_ENTRIES(SUFFIX, Q, C)                                                   \
   extern "C" int atoma_ragged_paged_attention_mma##SUFFIX(                                    \
       const void* q, const void* cache, const void* scales, const void* block_tables,        \
       const void* seq_lens, const void* query_start_loc, const void* num_seqs,               \
@@ -708,12 +714,12 @@ int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
       int num_seq_slots, int num_q_heads, int num_kv_heads, int head_dim, int max_pages,     \
       int block_size, int warps, int splits, int min_tiles, float scale, int window,         \
       float soft_cap, void* stream) {                                                        \
-    return atoma::rpa_mma_entry<C>(q, cache, scales, block_tables, seq_lens,                 \
+    return atoma::rpa_mma_entry<Q, C>(q, cache, scales, block_tables, seq_lens,              \
                                    query_start_loc, num_seqs, alibi, out, ws_o, ws_ml,       \
                                    num_tokens, num_seq_slots, num_q_heads, num_kv_heads,     \
                                    head_dim, max_pages, block_size, warps, splits,           \
                                    min_tiles, scale, window, soft_cap, stream);              \
   }                                                                                          \
   extern "C" int atoma_rpa_mma_blocks_per_sm##SUFFIX(int head_dim, int warps) {              \
-    return atoma::rpa_mma_blocks_per_sm_entry<C>(head_dim, warps);                          \
+    return atoma::rpa_mma_blocks_per_sm_entry<Q, C>(head_dim, warps);                       \
   }

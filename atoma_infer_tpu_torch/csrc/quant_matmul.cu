@@ -82,6 +82,15 @@
 // chunk far more (PERF.md). Kernel H's tensor-core route (qmm_w8a8_mma_kernel,
 // below qmm_mma_kernel) reuses MmaTile's tile, ring and K splits with int8
 // x and exact int32 group dots.
+//
+// fp16 activations (float16 models) take the tensor-core route of F and G
+// with the template's X = __half: mma.sync's f16 form, the weights widened
+// to fp16 (exact: int8 and int4 values are fp16 values), the output rounded
+// to fp16; kernel H writes fp16 output (OutT = __half). The TPU kernels
+// round activations to bf16 before the dot (quant_kernels.py:287) because
+// the MXU takes bf16; the card takes fp16 operands as they are, so they are
+// not rounded. fp16 activations never take the CUDA-core route: a shape it
+// does not admit raises in the wrapper.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,6 +117,10 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // VEC consecutive weight bytes of one row as 32-bit words: VEC = 8 is one
@@ -509,9 +522,23 @@ __device__ __forceinline__ uint32_t widen_nibbles(uint32_t lo, uint32_t hi, int 
   return d;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
+// The same as an fp16 pair: under fp16 1024's exponent (0x6400) a nibble n
+// is 1024 + n, and one f16x2 fma subtracts 1032.
+__device__ __forceinline__ uint32_t widen_nibbles_f16(uint32_t lo, uint32_t hi, int j, int high) {
+  uint32_t p = __byte_perm(lo, hi, pair_selector(j));
+  if (high) p >>= 4;
+  const uint32_t v = (p & 0x000F000Fu) | 0x64006400u;
+  uint32_t d;
+  asm("fma.rn.f16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(v), "r"(0x3C003C00u), "r"(0xE408E408u));
+  return d;
+}
+
+template <typename X>
+__device__ __forceinline__ uint32_t widen_nibbles_t(uint32_t lo, uint32_t hi, int j, int high) {
+  if constexpr (std::is_same<X, __half>::value)
+    return widen_nibbles_f16(lo, hi, j, high);
+  else
+    return widen_nibbles(lo, hi, j, high);
 }
 
 // One mma pass's operands: A fragments of the warp's m16 tiles, B fragments
@@ -524,14 +551,14 @@ struct MmaFrags {
   uint4 sc;
 };
 
-// x: bf16 [M, K]; q: int8 [K, N] or packed int4 [K/2, N]; scales: bf16
-// [K/G, N]; out: bf16 [M, N]; ws: f32 [splits, M, N] or null (one split).
-// All 16-byte aligned, N % 16 == 0, G % 16 == 0 (int8) or G % 32 == 0
-// (int4): the wrapper and the entry point check.
-template <int BITS, int MT, int WM>
+// x: X [M, K] (bf16 or fp16); q: int8 [K, N] or packed int4 [K/2, N];
+// scales: bf16 [K/G, N]; out: X [M, N]; ws: f32 [splits, M, N] or null (one
+// split). All 16-byte aligned, N % 16 == 0, G % 16 == 0 (int8) or G % 32 ==
+// 0 (int4): the wrapper and the entry point check.
+template <int BITS, int MT, int WM, typename X = __nv_bfloat16>
 __global__ void __launch_bounds__(128 * WM)
-    qmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ scales, __nv_bfloat16* __restrict__ out,
+    qmm_mma_kernel(const X* __restrict__ x, const int8_t* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ scales, X* __restrict__ out,
                    float* __restrict__ ws, int M, int N, int K, int G, int gps) {
   using T = MmaTile<BITS, MT, WM>;
   constexpr int kStages = T::kStages;
@@ -567,7 +594,7 @@ __global__ void __launch_bounds__(128 * WM)
   const long long wstep = (long long)T::kRowStep * N;
   const uint32_t wdst = T::kXTile + cr * 128 + ((cc ^ (((cr >> 1) & 3) << 1)) << 4);
   const bool wcol_ok = n0 + 16 * cc < N;
-  const __nv_bfloat16* xsrc = x + (long long)(m0 + cr) * K + 16 * xp + 8 * (cc & 1);
+  const X* xsrc = x + (long long)(m0 + cr) * K + 16 * xp + 8 * (cc & 1);
   const long long xstep = (long long)T::kRowStep * K;
   const uint32_t xdst = cr * 128 + ((cc ^ (cr & 7)) << 4);
   uint32_t xrows_ok = 0;
@@ -681,11 +708,11 @@ __global__ void __launch_bounds__(128 * WM)
       continue;
 #endif
       if constexpr (BITS == 8) {
-        b[j][0] = widen_pair(bw[0], bw[1], j);
-        b[j][1] = widen_pair(bw[2], bw[3], j);
+        b[j][0] = widen_pair_t<X>(bw[0], bw[1], j);
+        b[j][1] = widen_pair_t<X>(bw[2], bw[3], j);
       } else {
-        b[j][0] = widen_nibbles(bw[0], bw[1], j, u & 1);
-        b[j][1] = widen_nibbles(bw[2], bw[3], j, u & 1);
+        b[j][0] = widen_nibbles_t<X>(bw[0], bw[1], j, u & 1);
+        b[j][1] = widen_nibbles_t<X>(bw[2], bw[3], j, u & 1);
       }
     }
   };
@@ -764,9 +791,9 @@ __global__ void __launch_bounds__(128 * WM)
                          "r"(cur.a[mi][3]), "r"(cur.b[j][0]), "r"(cur.b[j][1]));
 #else
             if (fresh)
-              mma_bf16_fresh(acc[mi][j], cur.a[mi], cur.b[j][0], cur.b[j][1]);
+              mma16_fresh<X>(acc[mi][j], cur.a[mi], cur.b[j][0], cur.b[j][1]);
             else
-              mma_bf16(acc[mi][j], cur.a[mi], cur.b[j][0], cur.b[j][1]);
+              mma16<X>(acc[mi][j], cur.a[mi], cur.b[j][0], cur.b[j][1]);
 #endif
           }
       }
@@ -814,8 +841,8 @@ __global__ void __launch_bounds__(128 * WM)
         dst[1] = make_float4(v[4], v[5], v[6], v[7]);
       } else {
         *reinterpret_cast<uint4*>(out + (long long)row * N + col) =
-            make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
-                       pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+            make_uint4(pack2<X>(v[0], v[1]), pack2<X>(v[2], v[3]), pack2<X>(v[4], v[5]),
+                       pack2<X>(v[6], v[7]));
       }
     }
 }
@@ -1163,8 +1190,8 @@ __global__ void __launch_bounds__(128 * WM)
       for (int c = 0; c < 8; ++c) v[c] *= a;
       if constexpr (sizeof(OutT) == 2) {
         *reinterpret_cast<uint4*>(out + (long long)row * N + col) =
-            make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
-                       pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+            make_uint4(pack2<OutT>(v[0], v[1]), pack2<OutT>(v[2], v[3]),
+                       pack2<OutT>(v[4], v[5]), pack2<OutT>(v[6], v[7]));
       } else {
         float4* dst = reinterpret_cast<float4*>(out + (long long)row * N + col);
         dst[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -1293,11 +1320,11 @@ int qmm_float_entry(const void* x, const void* q, const void* scales, void* out,
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, once on each
 // device it runs on.
-template <int BITS, int MT, int WM>
+template <int BITS, int MT, int WM, typename X = __nv_bfloat16>
 cudaError_t mma_attributes() {
   static atoma::PerDevice state;
   return atoma::once_per_device(state, [] {
-    return cudaFuncSetAttribute(qmm_mma_kernel<BITS, MT, WM>,
+    return cudaFuncSetAttribute(qmm_mma_kernel<BITS, MT, WM, X>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 MmaTile<BITS, MT, WM>::kSmem);
   });
@@ -1314,26 +1341,25 @@ int mma_blocks_per_sm() {
   return n;
 }
 
-template <int BITS, int MT, int WM>
+template <int BITS, int MT, int WM, typename X>
 int launch_mma(const void* x, const void* q, const void* scales, void* out, void* ws, int M,
                int N, int K, int G, int gps, int splits, cudaStream_t stream) {
   using T = MmaTile<BITS, MT, WM>;
-  const cudaError_t opt_in = mma_attributes<BITS, MT, WM>();
+  const cudaError_t opt_in = mma_attributes<BITS, MT, WM, X>();
   if (opt_in != cudaSuccess) return (int)opt_in;
   float* w = splits > 1 ? (float*)ws : nullptr;
   const dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + T::kBM - 1) / T::kBM, splits);
-  qmm_mma_kernel<BITS, MT, WM><<<grid, T::kThreads, T::kSmem, stream>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)q, (const __nv_bfloat16*)scales,
-      (__nv_bfloat16*)out, w, M, N, K, G, gps);
+  qmm_mma_kernel<BITS, MT, WM, X><<<grid, T::kThreads, T::kSmem, stream>>>(
+      (const X*)x, (const int8_t*)q, (const __nv_bfloat16*)scales, (X*)out, w, M, N, K, G, gps);
   if (splits > 1) {
     const long long mn = (long long)M * N;
-    split_reduce_kernel<__nv_bfloat16><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-        w, nullptr, (__nv_bfloat16*)out, M, N, splits);
+    split_reduce_kernel<X><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
+        w, nullptr, (X*)out, M, N, splits);
   }
   return (int)cudaGetLastError();
 }
 
-template <int BITS>
+template <int BITS, typename X>
 int qmm_mma_entry(const void* x, const void* q, const void* scales, void* out, void* ws,
                   int M, int N, int K, int G, int block_rows, int gps, void* stream) {
   if (M < 1 || N < 16 || N % 16 != 0 || G <= 0 || K < G || K % G != 0 ||
@@ -1345,10 +1371,10 @@ int qmm_mma_entry(const void* x, const void* q, const void* scales, void* out, v
   if (splits > 1 && (ws == nullptr || (uintptr_t)ws % 16 != 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (block_rows) {
-    case 16: return launch_mma<BITS, 1, 1>(x, q, scales, out, ws, M, N, K, G, gps, splits, st);
-    case 32: return launch_mma<BITS, 2, 1>(x, q, scales, out, ws, M, N, K, G, gps, splits, st);
-    case 64: return launch_mma<BITS, 4, 1>(x, q, scales, out, ws, M, N, K, G, gps, splits, st);
-    case 128: return launch_mma<BITS, 4, 2>(x, q, scales, out, ws, M, N, K, G, gps, splits, st);
+    case 16: return launch_mma<BITS, 1, 1, X>(x, q, scales, out, ws, M, N, K, G, gps, splits, st);
+    case 32: return launch_mma<BITS, 2, 1, X>(x, q, scales, out, ws, M, N, K, G, gps, splits, st);
+    case 64: return launch_mma<BITS, 4, 1, X>(x, q, scales, out, ws, M, N, K, G, gps, splits, st);
+    case 128: return launch_mma<BITS, 4, 2, X>(x, q, scales, out, ws, M, N, K, G, gps, splits, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1483,23 +1509,38 @@ extern "C" int atoma_qmm_w8a8(const void* xq, const void* q, const void* scales,
 extern "C" int atoma_qmm_i8_mma(const void* x, const void* q, const void* scales, void* out,
                                 void* ws, int M, int N, int K, int G, int block_rows, int gps,
                                 void* stream) {
-  return qmm_mma_entry<8>(x, q, scales, out, ws, M, N, K, G, block_rows, gps, stream);
+  return qmm_mma_entry<8, __nv_bfloat16>(x, q, scales, out, ws, M, N, K, G, block_rows, gps,
+                                         stream);
 }
 
 extern "C" int atoma_qmm_i4_mma(const void* x, const void* q, const void* scales, void* out,
                                 void* ws, int M, int N, int K, int G, int block_rows, int gps,
                                 void* stream) {
-  return qmm_mma_entry<4>(x, q, scales, out, ws, M, N, K, G, block_rows, gps, stream);
+  return qmm_mma_entry<4, __nv_bfloat16>(x, q, scales, out, ws, M, N, K, G, block_rows, gps,
+                                         stream);
+}
+
+// The same for fp16 activations: x and out fp16 [M, N].
+extern "C" int atoma_qmm_i8_mma_f16(const void* x, const void* q, const void* scales, void* out,
+                                    void* ws, int M, int N, int K, int G, int block_rows, int gps,
+                                    void* stream) {
+  return qmm_mma_entry<8, __half>(x, q, scales, out, ws, M, N, K, G, block_rows, gps, stream);
+}
+
+extern "C" int atoma_qmm_i4_mma_f16(const void* x, const void* q, const void* scales, void* out,
+                                    void* ws, int M, int N, int K, int G, int block_rows, int gps,
+                                    void* stream) {
+  return qmm_mma_entry<4, __half>(x, q, scales, out, ws, M, N, K, G, block_rows, gps, stream);
 }
 
 // Kernel H on the int8 tensor cores. xq: int8 [M, K]; q: int8 [K, N] (bits
 // 8, G % 32 == 0) or int4-packed [K/2, N] (bits 4, G % 64 == 0), G at most
-// 2^17; scales: bf16 [K/G, N]; act: f32 [M]; out: [M, N] bf16 (out_is_bf16
-// = 1) or f32; xq, q, scales and out contiguous and 16-byte aligned, N % 16
-// == 0. block_rows, gps and ws as for atoma_qmm_i8_mma.
+// 2^17; scales: bf16 [K/G, N]; act: f32 [M]; out: [M, N] of out_dtype (0
+// f32, 1 bf16, 2 fp16); xq, q, scales and out contiguous and 16-byte
+// aligned, N % 16 == 0. block_rows, gps and ws as for atoma_qmm_i8_mma.
 extern "C" int atoma_qmm_w8a8_mma(const void* xq, const void* q, const void* scales,
                                   const void* act, void* out, void* ws, int M, int N, int K,
-                                  int G, int bits, int out_is_bf16, int block_rows, int gps,
+                                  int G, int bits, int out_dtype, int block_rows, int gps,
                                   void* stream) {
   if (M < 1 || N < 16 || N % 16 != 0 || G <= 0 || G > kW8a8MaxGroup || K < G || K % G != 0 ||
       (bits != 8 && bits != 4) || G % (bits == 8 ? 32 : 64) != 0 || gps < 1 || act == nullptr)
@@ -1509,15 +1550,20 @@ extern "C" int atoma_qmm_w8a8_mma(const void* xq, const void* q, const void* sca
   const int splits = (K / G + gps - 1) / gps;
   if (splits > 1 && (ws == nullptr || (uintptr_t)ws % 16 != 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (bits == 8)
-    return out_is_bf16 ? w8a8_mma_rows<8, __nv_bfloat16>(xq, q, scales, act, out, ws, M, N, K, G,
-                                                         block_rows, gps, splits, st)
-                       : w8a8_mma_rows<8, float>(xq, q, scales, act, out, ws, M, N, K, G,
-                                                 block_rows, gps, splits, st);
-  return out_is_bf16 ? w8a8_mma_rows<4, __nv_bfloat16>(xq, q, scales, act, out, ws, M, N, K, G,
-                                                       block_rows, gps, splits, st)
-                     : w8a8_mma_rows<4, float>(xq, q, scales, act, out, ws, M, N, K, G,
-                                               block_rows, gps, splits, st);
+#define ATOMA_W8A8_ROWS(B, OUT)                                                      \
+  return w8a8_mma_rows<B, OUT>(xq, q, scales, act, out, ws, M, N, K, G, block_rows, gps, \
+                               splits, st)
+  if (bits == 8) {
+    if (out_dtype == 0) ATOMA_W8A8_ROWS(8, float);
+    if (out_dtype == 1) ATOMA_W8A8_ROWS(8, __nv_bfloat16);
+    if (out_dtype == 2) ATOMA_W8A8_ROWS(8, __half);
+  } else {
+    if (out_dtype == 0) ATOMA_W8A8_ROWS(4, float);
+    if (out_dtype == 1) ATOMA_W8A8_ROWS(4, __nv_bfloat16);
+    if (out_dtype == 2) ATOMA_W8A8_ROWS(4, __half);
+  }
+#undef ATOMA_W8A8_ROWS
+  return (int)cudaErrorInvalidValue;
 }
 
 // Resident blocks an SM of one kernel H tensor-core instantiation (bits 8

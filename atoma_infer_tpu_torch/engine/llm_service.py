@@ -17,11 +17,14 @@ the ranks spread over hosts. Pipeline parallelism
 (``pipeline_parallel_size`` > 1, :meth:`LlmService._start_pipelined`) splits
 the layers into stages, each with its cache engine and device, served by
 one scheduler a cohort over one block pool; under tensor parallelism each
-rank holds its shard of every stage. Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP.md item): prefix caching,
-float16 (no kernel takes fp16 yet), CUDA graphs of tensor-parallel steps
-(``warmup`` under TP), and the native (C++) block manager — the port
-always uses the Python one. Async scheduling (``async_scheduling``,
+rank holds its shard of every stage. The block manager is the native (C++)
+core when ``use_native_core`` is set (the default; ``native/``), else the
+Python one, and the Python one under speculative decoding, as the JAX
+service chooses (:meth:`LlmService._build_block_manager`); prefix caching
+(``enable_prefix_caching``) runs over either, and float16 (``dtype``) on
+the kernels' fp16 instantiations. Not ported yet (raises
+``NotImplementedError`` naming its ROADMAP.md item): CUDA graphs of
+tensor-parallel steps (``warmup`` under TP). Async scheduling (``async_scheduling``,
 ``async_depth``) is ported, and so is ``warmup``, which on the card captures
 the decode and verify steps' CUDA graphs of the buckets it reaches before
 traffic (``engine/cuda_graphs.py``). So is speculative decoding
@@ -75,7 +78,7 @@ logger = logging.getLogger(__name__)
 _SEQ_COUNTER = itertools.count()
 
 # The dtypes the port's kernels take.
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 # KV-cache dtypes by ``kv_cache_dtype``; None keeps the model's dtype.
 _KV_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
@@ -84,20 +87,6 @@ def _load_tokenizer(model_dir: str):
     from tokenizers import Tokenizer
 
     return Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
-
-
-def _reject_unported(config: EngineConfig) -> None:
-    """Raise for every configured feature the port does not have yet."""
-    m, c = config.model, config.cache
-    unported = [
-        (c.enable_prefix_caching, "prefix caching", "prefix caching"),
-        (m.dtype == "float16", "float16", "float16 instantiations of A–H"),
-    ]
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue 1: {item})"
-            )
 
 
 def check_kernel_shapes(model_config, config: EngineConfig) -> None:
@@ -280,7 +269,6 @@ class LlmService:
         ``TpGroup``; a rank's own start passes it, callers do not.
         """
         t0 = time.monotonic()
-        _reject_unported(config)
         tp = config.model.tensor_parallel_size
         if tp > 1 and group is None:
             if model is not None or params is not None:
@@ -352,7 +340,8 @@ class LlmService:
         )
         worker = ModelWorker(model, params, cache_engine, config.scheduler, config.cache,
                              cuda_graphs=graphs)
-        scheduler = Scheduler(config.scheduler, config.cache)
+        scheduler = Scheduler(config.scheduler, config.cache,
+                              block_manager=cls._build_block_manager(config))
         tokenizer_pool = TokenizerPool(tokenizer, config.model.num_tokenizer_workers)
         validation = Validation(config.validation, tokenizer_pool)
         engine = LlmEngine(
@@ -431,7 +420,10 @@ class LlmService:
         ]
         worker = PipelinedModelWorker(stage_models, stage_params, cache_engines, bounds,
                                       config.scheduler, config.cache)
-        first = Scheduler(config.scheduler, config.cache)
+        # One pool for every cohort, native or Python (JAX shares the native
+        # one only: its Python path builds a pool a cohort, ROADMAP.md Queue 3).
+        first = Scheduler(config.scheduler, config.cache,
+                          block_manager=cls._build_block_manager(config))
         others = [Scheduler(config.scheduler, config.cache, block_manager=first.block_manager)
                   for _ in range(pp - 1)]
         tokenizer_pool = TokenizerPool(tokenizer, config.model.num_tokenizer_workers)
@@ -447,6 +439,51 @@ class LlmService:
         )
         return cls(config, engine, Validation(config.validation, tokenizer_pool),
                    tokenizer_pool, config.cache.block_size, cfg.eos_token_ids, group=group)
+
+    @staticmethod
+    def _build_block_manager(config: EngineConfig):
+        """The native (C++) block manager when ``use_native_core`` is set
+        and the core builds, else None, from which the ``Scheduler`` builds
+        the Python manager (JAX ``engine/llm_service.py:372-403``). Under
+        speculative decoding the Python one: lookahead slots spanning a
+        shared block need its multi-block copy-on-write. Where the library
+        cannot be built the reference falls back to the Python manager with
+        a warning, and so does the port (:attr:`native_core` tells them
+        apart)."""
+        if not config.scheduler.use_native_core:
+            return None
+        if config.scheduler.num_speculative_tokens:
+            logger.info("speculative decoding enabled — using the Python block manager "
+                        "(lookahead slots spanning shared blocks need its multi-block "
+                        "copy-on-write)")
+            return None
+        try:
+            from ..native.block_manager import NativeBlockSpaceManager
+
+            manager = NativeBlockSpaceManager(
+                block_size=config.cache.block_size,
+                num_device_blocks=config.cache.num_device_blocks or 0,
+                num_host_blocks=config.cache.num_host_blocks or 0,
+                sliding_window=config.cache.sliding_window,
+                enable_prefix_caching=config.cache.enable_prefix_caching,
+            )
+            logger.info("using native (C++) block-manager core")
+            return manager
+        except Exception as e:
+            logger.warning("native core unavailable (%s); using Python block manager", e)
+            return None
+
+    @property
+    def block_manager(self):
+        """The block manager the scheduler (every cohort's, under PP) uses."""
+        return self.engine.scheduler.block_manager
+
+    @property
+    def native_core(self) -> bool:
+        """Whether this service runs on the native (C++) block manager."""
+        from ..native.block_manager import NativeBlockSpaceManager
+
+        return isinstance(self.block_manager, NativeBlockSpaceManager)
 
     @staticmethod
     def _profile_kv(config: EngineConfig, model, kv_dtype, devices, group, graphs: bool,

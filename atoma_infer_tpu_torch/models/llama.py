@@ -125,9 +125,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 def matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with an f32 result, the JAX ``preferred_element_type=f32``
-    dot: bf16 operands on the card accumulate and return in f32 (no bf16
-    rounding of the logits)."""
-    if x.is_cuda and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
+    dot: bf16 or fp16 operands on the card accumulate and return in f32 (no
+    16-bit rounding of the logits)."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype:
         return torch.mm(x, w, out_dtype=torch.float32)
     return torch.matmul(x.float(), w.float())
 

@@ -18,6 +18,11 @@ into ``cache[slot // bs, slot % bs]``, one block per token:
   ``ops/attention.py:377-400``), the quantized row and the scale pair
   stored in its slot. One launch instead of some eight eager ops per layer.
 
+fp16 rows (float16 models) take the same kernels: the copy is a copy of
+bytes, the converting kernels widen fp16 exactly (``kv_write.cu``'s dtype
+2). Each has its own launch counter (``*_f16``) over the same C entry, so
+that a run shows its fp16 launches apart.
+
 All are bound by bytes moved (K and V in, one cache row out per token, at
 3.35 TB/s). Dispatch: a CUDA cache launches the kernel of its dtype (or
 raises); a CPU cache takes the plain version. Both write in place, and give
@@ -35,7 +40,7 @@ from .cuda_lib import INT, LONG, PTR
 from .kv_cache import kv_quant_scales, kv_rows, quantize_kv_rows
 
 # dtype codes of k_new/v_new for the converting kernels.
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 KV_WRITE = cuda_lib.register(
     cuda_lib.CudaKernel(
@@ -70,6 +75,22 @@ KV_WRITE_INT8 = cuda_lib.register(
         ),
     )
 )
+
+# The same C entries counted apart for fp16 rows.
+KV_WRITE_F16, KV_WRITE_FP8_F16, KV_WRITE_INT8_F16 = (
+    cuda_lib.register(cuda_lib.CudaKernel(
+        name=f"{k.name}_f16", source=k.source, symbol=k.symbol, argtypes=k.argtypes,
+        replaces=k.replaces))
+    for k in (KV_WRITE, KV_WRITE_FP8, KV_WRITE_INT8)
+)
+
+
+def _by_rows(kernel, rows: torch.Tensor):
+    """``kernel``, or its fp16 counter for fp16 rows."""
+    if rows.dtype != torch.float16:
+        return kernel
+    return {KV_WRITE: KV_WRITE_F16, KV_WRITE_FP8: KV_WRITE_FP8_F16,
+            KV_WRITE_INT8: KV_WRITE_INT8_F16}[kernel]
 
 
 def _keep(slot_mapping: torch.Tensor, num_slots: int):
@@ -143,7 +164,7 @@ def write_kv_cache_cuda(
     v_new: torch.Tensor,
     slot_mapping: torch.Tensor,
 ) -> None:
-    """Launch ``reshape_and_cache`` (bf16/f32 cache) or
+    """Launch ``reshape_and_cache`` (bf16/fp16/f32 cache) or
     ``reshape_and_cache_fp8`` (e4m3 cache) on the current stream, in place.
     An INT8 cache takes :func:`write_kv_cache_quant_cuda`."""
     _check(kv_cache, k_new, v_new, slot_mapping)
@@ -153,8 +174,9 @@ def write_kv_cache_cuda(
     stream = cuda_lib.current_stream_handle(dev)
     if kv_cache.dtype == torch.float8_e4m3fn:
         if k_new.dtype not in _DTYPES or v_new.dtype != k_new.dtype:
-            raise ValueError("reshape_and_cache_fp8: k_new/v_new must be bfloat16 or float32")
-        KV_WRITE_FP8(
+            raise ValueError("reshape_and_cache_fp8: k_new/v_new must be bfloat16, float16 or "
+                             "float32")
+        _by_rows(KV_WRITE_FP8, k_new)(
             _DTYPES[k_new.dtype], k_new.data_ptr(), v_new.data_ptr(),
             slot_mapping.data_ptr(), kv_cache.data_ptr(), T, hk, d, num_pages * bs, stream,
             device=dev,
@@ -164,7 +186,7 @@ def write_kv_cache_cuda(
         raise ValueError(f"reshape_and_cache: unsupported cache dtype {kv_cache.dtype}")
     if k_new.dtype != kv_cache.dtype or v_new.dtype != kv_cache.dtype:
         raise ValueError("reshape_and_cache: k_new/v_new must have the cache's dtype")
-    KV_WRITE(
+    _by_rows(KV_WRITE, k_new)(
         k_new.data_ptr(), v_new.data_ptr(), slot_mapping.data_ptr(), kv_cache.data_ptr(),
         T, hk, d * kv_cache.element_size(), num_pages * bs, stream, device=dev,
     )
@@ -191,9 +213,10 @@ def write_kv_cache_quant_cuda(
     if kv_scales.dtype != torch.bfloat16 or kv_scales.shape != (num_pages, bs, 2):
         raise ValueError("reshape_and_cache_int8: kv_scales must be bfloat16 [pages, block_size, 2]")
     if k_new.dtype not in _DTYPES or v_new.dtype != k_new.dtype:
-        raise ValueError("reshape_and_cache_int8: k_new/v_new must be bfloat16 or float32")
+        raise ValueError("reshape_and_cache_int8: k_new/v_new must be bfloat16, float16 or "
+                         "float32")
     dev = cuda_lib.launch_device(kv_cache, kv_scales, scales_new, k_new, v_new, slot_mapping)
-    KV_WRITE_INT8(
+    _by_rows(KV_WRITE_INT8, k_new)(
         _DTYPES[k_new.dtype], k_new.data_ptr(), v_new.data_ptr(), slot_mapping.data_ptr(),
         kv_cache.data_ptr(), kv_scales.data_ptr(),
         None if scales_new is None else scales_new.data_ptr(), T, hk, d, num_pages * bs,

@@ -4,7 +4,7 @@ Replaces the TPU kernel ``atoma_infer_tpu/ops/paged_attention.py:_kernel``:
 
 * **A** ``ragged_paged_attention`` ← ``ragged_paged_attention_pallas`` (:1058,
   ``fuse_write=False``), two routes by the queries' dtype:
-  - bf16 queries: the tensor cores (``*_mma``, ``csrc/paged_attention_mma.cuh``):
+  - bf16 and fp16 queries: the tensor cores (``*_mma``, ``csrc/paged_attention_mma.cuh``):
     ``mma.sync`` bf16 Q·Kᵀ and P·V with f32 sums, query tiles of 64 or 128
     (token, q head) rows laid end to end over the batch, 64-key tiles
     gathered across pages through a 3-stage ``cp.async`` ring, KV split
@@ -20,7 +20,7 @@ Replaces the TPU kernel ``atoma_infer_tpu/ops/paged_attention.py:_kernel``:
   slice of the new K/V row into the slot, then attends over the cache, the
   new position read back from it. Two routes by the queries' dtype, each
   instantiated for 1 to 8 query heads per kv head:
-  - bf16 queries (``*_split``, ``csrc/fused_decode_split.cuh``): blocks of
+  - bf16 and fp16 queries (``*_split``, ``csrc/fused_decode_split.cuh``): blocks of
     (kv head, sequence, KV split), the splits from shapes alone
     (:func:`fused_split_plan`), only the split holding the new key writing
     it; K through a ``cp.async`` ring, Q·Kᵀ and P·V on ``mma.sync``; split
@@ -53,6 +53,14 @@ Dispatch: CUDA tensors launch the kernels of their cache's dtype and their
 queries' route (or raise: an int8 or e4m3 cache never takes a bf16 kernel
 or a plain version); the plain versions below are what CPU tensors take,
 and what the kernels are held against.
+
+fp16 queries (``dtype = "float16"``) launch the tensor-core kernels'
+fp16 instantiations (``*_f16``: the same kernels on ``mma.sync``'s f16
+form, ``paged_attention{,_int8,_fp8}_f16.cu`` and
+``fused_decode_split{,_int8,_fp8}_f16.cu``), at the bf16 head dims. JAX
+serves fp16 attention through XLA, not Pallas (``ops/attention.py:100-119``
+admits bf16, f32, int8 and e4m3 caches only): the oracle of these kernels
+is its XLA branch and ``ops/reference.py``.
 """
 
 from __future__ import annotations
@@ -75,11 +83,16 @@ from .kv_write import (
 )
 from .reference import ragged_paged_attention_plain
 
+# dtype codes of the CUDA-core kernels (f32 queries; bf16 has a code there
+# too, though bf16 queries take the tensor cores).
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Head dims the kernels are instantiated for, by route: bf16 queries over a
-# bf16 cache (the tensor-core ragged kernel, the split fused kernel, the
-# merge) also take Phi-3-mini's 96 and Gemma-2's 256; f32 queries and 1-byte
-# caches 32, 64 and 128.
+# The queries' dtypes the kernels take, and those of the tensor-core route.
+Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+TC_DTYPES = (torch.bfloat16, torch.float16)
+# Head dims the kernels are instantiated for, by route: bf16 or fp16
+# queries over a cache of their own dtype (the tensor-core ragged kernel,
+# the split fused kernel, the merge) also take Phi-3-mini's 96 and
+# Gemma-2's 256; f32 queries and 1-byte caches 32, 64 and 128.
 HEAD_DIMS_BF16 = (32, 64, 96, 128, 256)
 HEAD_DIMS = (32, 64, 128)
 MAX_FUSED_GROUP = 8  # fused_decode_kernel is instantiated for G = 1..8
@@ -125,32 +138,53 @@ FUSED_DECODE = {
         f"{_B} on e4m3 -> _kernel :139, fuse_write=True, fp8=True)"),
 }
 
-# The tensor-core ragged kernel (bf16 queries), by cache kind.
+_KIND_SUFFIXES = ((None, ""), (torch.int8, "_int8"), (torch.float8_e4m3fn, "_fp8"))
+# The tensor-core ragged kernel, by cache kind: bf16 queries, and their
+# fp16 instantiations (``*_f16``, each its own source).
 _MMA_ARGS = [PTR] * 11 + [INT] * 10 + [FLOAT, INT, FLOAT, PTR]
 RAGGED_ATTENTION_MMA = {
     kind: _register(
         f"{RAGGED_ATTENTION[kind].name}_mma", RAGGED_ATTENTION[kind].source,
         f"atoma_ragged_paged_attention_mma{suffix}", _MMA_ARGS,
         RAGGED_ATTENTION[kind].replaces)
-    for kind, suffix in ((None, ""), (torch.int8, "_int8"), (torch.float8_e4m3fn, "_fp8"))
+    for kind, suffix in _KIND_SUFFIXES
+}
+RAGGED_ATTENTION_MMA_F16 = {
+    kind: _register(
+        f"{RAGGED_ATTENTION[kind].name}_mma_f16", f"paged_attention{suffix}_f16.cu",
+        f"atoma_ragged_paged_attention_mma{suffix}_f16", _MMA_ARGS,
+        RAGGED_ATTENTION[kind].replaces)
+    for kind, suffix in _KIND_SUFFIXES
 }
 
 # The fused decode kernel for bf16 queries, split across blocks
-# (csrc/fused_decode_split.cuh), by cache kind.
+# (csrc/fused_decode_split.cuh), by cache kind; and for fp16 queries.
 _SPLIT_ARGS = [PTR] * 15 + [INT] * 7 + [LONG, INT, INT, FLOAT, INT, FLOAT, PTR]
 FUSED_DECODE_SPLIT = {
     kind: _register(
         f"{FUSED_DECODE[kind].name}_split", f"fused_decode_split{suffix}.cu",
         f"atoma_fused_decode_attention_split{suffix}", _SPLIT_ARGS, FUSED_DECODE[kind].replaces)
-    for kind, suffix in ((None, ""), (torch.int8, "_int8"), (torch.float8_e4m3fn, "_fp8"))
+    for kind, suffix in _KIND_SUFFIXES
+}
+FUSED_DECODE_SPLIT_F16 = {
+    kind: _register(
+        f"{FUSED_DECODE[kind].name}_split_f16", f"fused_decode_split{suffix}_f16.cu",
+        f"atoma_fused_decode_attention_split{suffix}_f16", _SPLIT_ARGS,
+        FUSED_DECODE[kind].replaces)
+    for kind, suffix in _KIND_SUFFIXES
 }
 # The merge of split rows (rpa_combine_kernel), after a split ragged or
-# fused launch: the online softmax's merge, across blocks.
+# fused launch: the online softmax's merge, across blocks; by the output's
+# dtype.
+_COMBINE_ARGS = [PTR] * 6 + [INT] * 8 + [PTR]
+_COMBINE_REPLACES = ("atoma_infer_tpu/ops/paged_attention.py:139 (_kernel: the online softmax "
+                     "over a row's key blocks, merged across the blocks of a KV split)")
 SPLIT_COMBINE = _register(
     "paged_attention_split_combine", "paged_attention.cu", "atoma_paged_attention_split_combine",
-    [PTR] * 6 + [INT] * 8 + [PTR],
-    "atoma_infer_tpu/ops/paged_attention.py:139 (_kernel: the online softmax over a row's "
-    "key blocks, merged across the blocks of a KV split)")
+    _COMBINE_ARGS, _COMBINE_REPLACES)
+SPLIT_COMBINE_F16 = _register(
+    "paged_attention_split_combine_f16", "paged_attention_f16.cu",
+    "atoma_paged_attention_split_combine_f16", _COMBINE_ARGS, _COMBINE_REPLACES)
 
 # The tensor-core kernel's geometry, mirrored from csrc/paged_attention_mma.cuh:
 # keys a tile (kRpaKT) and the rows of a warp's m16 tile.
@@ -238,7 +272,10 @@ def rpa_mma_plan(*, num_seq_slots: int, num_tokens: int, max_q_len: int, max_key
 @functools.lru_cache(maxsize=None)
 def _rpa_slots(kind, head_dim: int, warps: int, device: int) -> int:
     """The blocks of one tensor-core instantiation the card holds at once:
-    the occupancy calculator's blocks an SM times the card's SMs."""
+    the occupancy calculator's blocks an SM times the card's SMs. The bf16
+    instantiation's answer serves the fp16 one too, the same code on
+    another ``mma`` form with the same shared memory (``chip_smoke.py``
+    checks that the card gives both the same)."""
     kernel = RAGGED_ATTENTION_MMA[kind]
     suffix = kernel.symbol[len("atoma_ragged_paged_attention_mma"):]
     fn = getattr(cuda_lib.load(kernel.source), f"atoma_rpa_mma_blocks_per_sm{suffix}")
@@ -251,7 +288,7 @@ def _rpa_slots(kind, head_dim: int, warps: int, device: int) -> int:
 
 
 def rpa_plan_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> RpaPlan:
-    """The plan a bf16 call of :func:`ragged_paged_attention_cuda` launches
+    """The plan a bf16 or fp16 call of :func:`ragged_paged_attention_cuda` launches
     with: :func:`rpa_mma_plan` on the call's shapes and this card's
     occupancy."""
     T, Hq, D = q.shape
@@ -294,7 +331,8 @@ def fused_split_plan(*, num_seq_slots: int, max_keys: int, num_kv_heads: int,
 
 @functools.lru_cache(maxsize=None)
 def _fused_slots(kind, head_dim: int, group: int, device: int) -> int:
-    """The blocks of one split fused instantiation the card holds at once."""
+    """The blocks of one split fused instantiation the card holds at once
+    (the bf16 one's, for fp16 too: see :func:`_rpa_slots`)."""
     kernel = FUSED_DECODE_SPLIT[kind]
     suffix = kernel.symbol[len("atoma_fused_decode_attention_split"):]
     fn = getattr(cuda_lib.load(kernel.source), f"atoma_fused_split_blocks_per_sm{suffix}")
@@ -306,7 +344,7 @@ def _fused_slots(kind, head_dim: int, group: int, device: int) -> int:
 
 
 def fused_splits_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> int:
-    """The splits a bf16 call of :func:`ragged_paged_attention_fused_cuda`
+    """The splits a bf16 or fp16 call of :func:`ragged_paged_attention_fused_cuda`
     launches with: :func:`fused_split_plan` on the call's shapes and this
     card's occupancy."""
     T, Hq, D = q.shape
@@ -318,16 +356,27 @@ def fused_splits_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> int:
 
 def fused_route(q: torch.Tensor, kind) -> cuda_lib.CudaKernel:
     """The fused decode kernel a CUDA call takes: bf16 queries the split
-    kernel (``*_split``) over every cache kind; f32 queries
-    ``fused_decode_kernel``, the f32 test-size services' traffic."""
+    kernel (``*_split``) over every cache kind, fp16 queries its fp16
+    instantiation (``*_split_f16``); f32 queries ``fused_decode_kernel``,
+    the f32 test-size services' traffic."""
+    if q.dtype == torch.float16:
+        return FUSED_DECODE_SPLIT_F16[kind]
     return FUSED_DECODE_SPLIT[kind] if q.dtype == torch.bfloat16 else FUSED_DECODE[kind]
 
 
 def ragged_route(q: torch.Tensor, kind) -> cuda_lib.CudaKernel:
     """The ragged kernel a CUDA call takes: bf16 queries the tensor cores
-    (``*_mma``) over every cache kind; f32 queries the CUDA cores
-    (``rpa_kernel``), whose f32 sums a bf16 ``mma`` would round."""
+    (``*_mma``) over every cache kind, fp16 queries their fp16
+    instantiation (``*_mma_f16``); f32 queries the CUDA cores
+    (``rpa_kernel``), whose f32 sums a 16-bit ``mma`` would round."""
+    if q.dtype == torch.float16:
+        return RAGGED_ATTENTION_MMA_F16[kind]
     return RAGGED_ATTENTION_MMA[kind] if q.dtype == torch.bfloat16 else RAGGED_ATTENTION[kind]
+
+
+def combine_route(out: torch.Tensor) -> cuda_lib.CudaKernel:
+    """The merge of split rows for an output of ``out``'s dtype."""
+    return SPLIT_COMBINE_F16 if out.dtype == torch.float16 else SPLIT_COMBINE
 
 
 # ------------------------------------------------------------ plain versions
@@ -397,16 +446,16 @@ def split_combine_plain(ws_o, ws_ml, out, meta, *, bq, splits, min_tiles,
 def check_kernel_shape(*, head_dim: int, dtype: torch.dtype, kind, group: int,
                        block_size: int, fused: bool) -> None:
     """Raise ``ValueError`` for a shape no kernel takes, naming the ROADMAP.md
-    item that would add it: ``head_dim`` for queries of ``dtype`` (bf16 or
-    f32) over a cache of ``kind`` (None: the queries' own dtype; or int8,
-    float8_e4m3fn): bf16 over bf16 takes ``HEAD_DIMS_BF16``, the rest
-    ``HEAD_DIMS``; the ragged kernel (A, D, E) takes any block size that is
+    item that would add it: ``head_dim`` for queries of ``dtype`` (bf16,
+    fp16 or f32) over a cache of ``kind`` (None: the queries' own dtype; or
+    int8, float8_e4m3fn): bf16 or fp16 over its own dtype takes
+    ``HEAD_DIMS_BF16``, the rest ``HEAD_DIMS``; the ragged kernel (A, D, E) takes any block size that is
     a multiple of 8, as the configuration does; the fused decode kernel (B
     and D's and E's fused variants) also takes 1 to ``MAX_FUSED_GROUP``
     query heads per kv head. The wrappers and ``LlmService.start`` call it."""
-    if dtype not in _DTYPES:
-        raise ValueError(f"paged attention: q {dtype} must be bfloat16 or float32")
-    dims = HEAD_DIMS_BF16 if dtype == torch.bfloat16 and kind is None else HEAD_DIMS
+    if dtype not in Q_DTYPES:
+        raise ValueError(f"paged attention: q {dtype} must be bfloat16, float16 or float32")
+    dims = HEAD_DIMS_BF16 if dtype in TC_DTYPES and kind is None else HEAD_DIMS
     if head_dim not in dims:
         item = ""
         if head_dim in HEAD_DIMS_BF16:  # another route has it
@@ -431,8 +480,8 @@ def _check(q, kv_cache, meta, alibi_slopes, kv_scales, *, fused, extra=()) -> tu
     ``fused``); return (Hk, D, S, P, cache kind)."""
     T, Hq, D = q.shape
     num_pages, bs, row = kv_cache.shape
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"paged attention: q {q.dtype} must be bfloat16 or float32")
+    if q.dtype not in Q_DTYPES:
+        raise ValueError(f"paged attention: q {q.dtype} must be bfloat16, float16 or float32")
     if kv_cache.dtype == q.dtype:
         kind = None
     elif kv_cache.dtype in (torch.int8, torch.float8_e4m3fn):
@@ -499,12 +548,13 @@ def ragged_paged_attention_cuda(
     kv_scales: Optional[torch.Tensor] = None,  # [num_pages, bs, 2] bf16 (int8 cache)
 ) -> torch.Tensor:
     """Kernel A (D on an int8 cache, E on an e4m3 one) → [T, Hq, D]: bf16
-    queries on the tensor cores, f32 on the CUDA cores (:func:`ragged_route`).
+    and fp16 queries on the tensor cores, f32 on the CUDA cores
+    (:func:`ragged_route`).
     Rows past ``query_start_loc[num_seqs]`` are padding and left
     unwritten."""
     Hk, D, S, P, kind = _check(q, kv_cache, meta, alibi_slopes, kv_scales, fused=False)
     out = torch.empty_like(q)
-    if ragged_route(q, kind) is RAGGED_ATTENTION_MMA[kind]:
+    if q.dtype in TC_DTYPES:
         return ragged_paged_attention_mma_launch(
             q, kv_cache, meta, rpa_plan_for(q, meta, Hk, kind), out, kind=kind, scale=scale,
             sliding_window=sliding_window, soft_cap=soft_cap, alibi_slopes=alibi_slopes,
@@ -531,8 +581,9 @@ def ragged_paged_attention_mma_launch(
     q, kv_cache, meta, plan: RpaPlan, out, *, kind, scale, sliding_window=None,
     soft_cap=None, alibi_slopes=None, kv_scales=None,
 ) -> torch.Tensor:
-    """Launch the tensor-core ragged kernel of ``kind`` with ``plan`` (inputs
-    already checked): the f32 split workspace comes from PyTorch's caching
+    """Launch the tensor-core ragged kernel of ``kind`` and of q's dtype
+    (bf16 or fp16) with ``plan`` (inputs already checked): the f32 split
+    workspace comes from PyTorch's caching
     allocator per call, so the launch needs no host sync and is
     CUDA-graph capturable."""
     T, Hq, D = q.shape
@@ -545,7 +596,7 @@ def ragged_paged_attention_mma_launch(
     dev = cuda_lib.launch_device(q, kv_cache, kv_scales, meta.block_tables, meta.seq_lens,
                                  meta.query_start_loc, meta.num_seqs, alibi_slopes, out, ws_o,
                                  ws_ml)
-    RAGGED_ATTENTION_MMA[kind](
+    ragged_route(q, kind)(
         q.data_ptr(), kv_cache.data_ptr(),
         None if kv_scales is None else kv_scales.data_ptr(),
         meta.block_tables.data_ptr(), meta.seq_lens.data_ptr(),
@@ -571,7 +622,7 @@ def split_combine(ws_o, ws_ml, out, meta, *, num_kv_heads, bq, splits, min_tiles
     T, Hq, D = out.shape
     dev = cuda_lib.launch_device(ws_o, ws_ml, out, meta.seq_lens, meta.query_start_loc,
                                  meta.num_seqs)
-    SPLIT_COMBINE(
+    combine_route(out)(
         ws_o.data_ptr(), ws_ml.data_ptr(), out.data_ptr(), meta.seq_lens.data_ptr(),
         meta.query_start_loc.data_ptr(), meta.num_seqs.data_ptr(),
         T, Hq, num_kv_heads, D, bq, splits, min_tiles, _window(window),
@@ -596,9 +647,9 @@ def ragged_paged_attention_fused_cuda(
     """Kernel B (D's fused variant on an int8 cache, E's on an e4m3 one;
     pure-decode batch: one query token per active sequence) → [T, Hq, D];
     the new K/V rows (and an int8 cache's scales) land in the cache as the
-    matching ``reshape_and_cache`` kernel would write them. bf16 queries
-    take the split kernel (:func:`fused_route`, :func:`fused_splits_for`),
-    f32 queries ``fused_decode_kernel``. ``scales_new`` (an int8 cache
+    matching ``reshape_and_cache`` kernel would write them. bf16 and fp16
+    queries take the split kernel (:func:`fused_route`,
+    :func:`fused_splits_for`), f32 queries ``fused_decode_kernel``. ``scales_new`` (an int8 cache
     only) gives the new tokens' scales: the split kernel stores them; f32
     queries, whose unsplit kernel takes the rows' own absmax, run the INT8
     write with them and then the ragged kernel (D) instead."""
@@ -619,7 +670,7 @@ def ragged_paged_attention_fused_cuda(
         raise ValueError("fused_decode_attention: slot_mapping must be int32 [T] on the device")
     num_pages, bs, _ = kv_cache.shape
     out = torch.empty_like(q)
-    if fused_route(q, kind) is FUSED_DECODE_SPLIT[kind]:
+    if q.dtype in TC_DTYPES:
         return fused_split_launch(
             q, kv_cache, k_new, v_new, meta, fused_splits_for(q, meta, Hk, kind), out,
             kind=kind, scale=scale, sliding_window=sliding_window, soft_cap=soft_cap,
@@ -654,7 +705,8 @@ def fused_split_launch(
     soft_cap=None, alibi_slopes=None, kv_scales=None, min_tiles: int = FUSED_MIN_TILES,
     scales_new=None,
 ) -> torch.Tensor:
-    """Launch the split fused kernel of ``kind`` with at most ``splits``
+    """Launch the split fused kernel of ``kind`` and of q's dtype (bf16 or
+    fp16) with at most ``splits``
     splits a row of at least ``min_tiles`` key tiles each (inputs already
     checked), then the merge of split rows: the f32 workspace comes from
     PyTorch's caching allocator per call, so the launch needs no host sync
@@ -671,7 +723,7 @@ def fused_split_launch(
                                  meta.slot_mapping, meta.block_tables, meta.seq_lens,
                                  meta.query_start_loc, meta.num_seqs, alibi_slopes, out, ws_o,
                                  ws_ml)
-    FUSED_DECODE_SPLIT[kind](
+    fused_route(q, kind)(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kv_cache.data_ptr(),
         None if kv_scales is None else kv_scales.data_ptr(),
         None if scales_new is None else scales_new.data_ptr(),

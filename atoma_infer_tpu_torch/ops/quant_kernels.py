@@ -17,6 +17,14 @@ likewise: the int8 tensor cores (``quantized_matmul_w8a8_mma``) at the
 shapes :func:`w8a8_mma_takes` admits, the CUDA cores
 (``quantized_matmul_w8a8``) for the rest (:func:`w8a8_launch`).
 
+fp16 activations (float16 models) take the tensor-core routes only, through
+their fp16 instantiations (``*_mma_f16``; H's ``quantized_matmul_w8a8_mma_f16``
+writes fp16 output), fed fp16 operands as they are: the TPU kernels round
+activations to bf16 before the dot (``quant_kernels.py:287``) because the
+MXU takes bf16, and the JAX package's CPU path computes in f32
+(``ops/quant.py:189``), as the plain versions here do. A CUDA fp16 call at a
+shape the tensor cores do not take raises.
+
 Dispatch: CUDA tensors launch the kernels (or raise); CPU tensors take the
 plain versions, which follow the XLA branch of
 ``atoma_infer_tpu/ops/quant.py:quantized_matmul`` (f32 operands, one einsum
@@ -85,6 +93,12 @@ QMM_I4_MMA = cuda_lib.register(
         replaces=f"{_REPLACES} -> _kernel_i4 :112",
     )
 )
+QMM_I8_MMA_F16, QMM_I4_MMA_F16 = (
+    cuda_lib.register(cuda_lib.CudaKernel(
+        name=f"{k.name}_f16", source=k.source, symbol=f"{k.symbol}_f16", argtypes=_MMA_ARGS,
+        replaces=k.replaces))
+    for k in (QMM_I8_MMA, QMM_I4_MMA)
+)
 _W8A8_REPLACES = f"{_REPLACES} with ATOMA_W8A8 :35 -> _scaled_dot integer branch :65-76"
 QMM_W8A8 = cuda_lib.register(
     cuda_lib.CudaKernel(
@@ -104,6 +118,18 @@ QMM_W8A8_MMA = cuda_lib.register(
         replaces=_W8A8_REPLACES,
     )
 )
+# Kernel H's fp16 output: the same C entry (out_dtype 2), counted apart.
+QMM_W8A8_MMA_F16 = cuda_lib.register(
+    cuda_lib.CudaKernel(
+        name="quantized_matmul_w8a8_mma_f16",
+        source=QMM_W8A8_MMA.source,
+        symbol=QMM_W8A8_MMA.symbol,
+        argtypes=QMM_W8A8_MMA.argtypes,
+        replaces=_W8A8_REPLACES,
+    )
+)
+# Output dtype codes of kernel H's entries (the CUDA-core one takes 0 and 1).
+_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The int32 group dots are exact up to this many rows a group: 127 · 127 · 2^17
 # < 2^31 (both routes of kernel H).
 W8A8_MAX_GROUP = 1 << 17
@@ -173,13 +199,13 @@ def _mma_slots(bits: int, block_rows: int, device: int) -> int:
 
 def mma_route_takes(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, *,
                     bits: int, group_size: int) -> bool:
-    """Whether the tensor-core route takes a call: bf16 activations, N a
+    """Whether the tensor-core route takes a call: bf16 or fp16 activations, N a
     multiple of 16, whole k16 steps in a group (``group_size`` a multiple of
     16 for int8 and of 32 for int4, whose packed rows hold half a group's),
     and x, the weight and the scales 16-byte aligned (``cp.async``; a layer
     of stacked weights is a view at an offset)."""
     return (
-        x.dtype == torch.bfloat16
+        x.dtype in (torch.bfloat16, torch.float16)
         and qweight.shape[-1] % 16 == 0
         and group_size % (16 if bits == 8 else 32) == 0
         and all(t.data_ptr() % 16 == 0 for t in (x, qweight, scales))
@@ -227,15 +253,23 @@ def qmm_launch(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, *, 
                group_size: int) -> QmmLaunch:
     """The route and launch plan of ``x @ dequant(q)`` (shapes already
     checked): the tensor cores where :func:`mma_route_takes` admits the
-    call, else the CUDA cores."""
+    call (fp16 activations: the fp16 instantiation), else the CUDA cores,
+    which take no fp16 (raises)."""
     M, K = x.shape
     N = qweight.shape[1]
     groups = K // group_size
     if mma_route_takes(x, qweight, scales, bits=bits, group_size=group_size):
         slots = _mma_slots(bits, mma_block_rows(M), x.device.index or 0)
         block_rows, gps, splits = mma_plan(M, N, groups, slots)
-        return QmmLaunch(QMM_I8_MMA if bits == 8 else QMM_I4_MMA, (block_rows, gps),
+        kernels = (QMM_I8_MMA_F16, QMM_I4_MMA_F16) if x.dtype == torch.float16 else (
+            QMM_I8_MMA, QMM_I4_MMA)
+        return QmmLaunch(kernels[0] if bits == 8 else kernels[1], (block_rows, gps),
                          (splits, M, N) if splits > 1 else None)
+    if x.dtype == torch.float16:
+        raise ValueError(
+            f"quantized_matmul: fp16 activations take the tensor cores only, which do not "
+            f"take this call (N={N}, group {group_size}, {bits}-bit, or an operand not "
+            "16-byte aligned)")
     vec, ks, rsplit, gps, splits = _cuda_core_geometry(M, N, groups, qweight)
     return QmmLaunch(QMM_I8 if bits == 8 else QMM_I4,
                      (int(x.dtype == torch.bfloat16), vec, ks, rsplit, gps),
@@ -243,18 +277,25 @@ def qmm_launch(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, *, 
 
 
 def w8a8_launch(xq: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, *, bits: int,
-                group_size: int) -> QmmLaunch:
+                group_size: int, out_dtype: torch.dtype = torch.bfloat16) -> QmmLaunch:
     """The route and launch plan of one kernel H call (shapes already
     checked): the int8 tensor cores where :func:`w8a8_mma_takes` admits it,
-    with F and G's plan (:func:`mma_plan`) against H's own occupancy; else
-    the CUDA cores (``__dp4a``). A route by shape: both are kernels."""
+    with F and G's plan (:func:`mma_plan`) against H's own occupancy (an
+    fp16 output: ``QMM_W8A8_MMA_F16``); else the CUDA cores (``__dp4a``),
+    which write no fp16 (raises). A route by shape: both are kernels."""
     M, K = xq.shape
     N = qweight.shape[1]
     groups = K // group_size
     if w8a8_mma_takes(xq, qweight, scales, bits=bits, group_size=group_size):
         slots = _w8a8_mma_slots(bits, mma_block_rows(M), xq.device.index or 0)
         block_rows, gps, splits = mma_plan(M, N, groups, slots)
-        return QmmLaunch(QMM_W8A8_MMA, (block_rows, gps), (splits, M, N) if splits > 1 else None)
+        kernel = QMM_W8A8_MMA_F16 if out_dtype == torch.float16 else QMM_W8A8_MMA
+        return QmmLaunch(kernel, (block_rows, gps), (splits, M, N) if splits > 1 else None)
+    if out_dtype == torch.float16:
+        raise ValueError(
+            f"w8a8_matmul: an fp16 output takes the int8 tensor cores only, which do not take "
+            f"this call (N={N}, group {group_size}, {bits}-bit, or an operand not 16-byte "
+            "aligned)")
     vec, ks, rsplit, gps, splits = _cuda_core_geometry(M, N, groups, qweight)
     return QmmLaunch(QMM_W8A8, (vec, ks, rsplit, gps), (splits, M, N) if splits > 1 else None)
 
@@ -300,7 +341,7 @@ def _workspace(shape, device):
 
 
 def quantized_matmul_cuda(
-    x: torch.Tensor,        # [M, K] bf16/f32, contiguous
+    x: torch.Tensor,        # [M, K] bf16/fp16/f32, contiguous
     qweight: torch.Tensor,  # int8 [K, N] | int4-packed [K/2, N]
     scales: torch.Tensor,   # bf16 [K/group_size, N]
     *,
@@ -309,15 +350,15 @@ def quantized_matmul_cuda(
 ) -> torch.Tensor:
     """Launch kernel F (``bits=8``) or G (``bits=4``); output in x's dtype.
 
-    bf16 activations take the tensor cores where :func:`mma_route_takes`
-    admits the shape. f32 activations, and the shapes it does not admit,
+    bf16 and fp16 activations take the tensor cores where
+    :func:`mma_route_takes` admits the shape (fp16 nowhere else). f32 activations, and the shapes it does not admit,
     take the CUDA-core kernel (``qmm_float_kernel``): on the tensor cores an
     f32 activation would be rounded to bf16, while the CUDA-core kernel's
     f32 instantiation is the exact f32 function. Both routes are kernels;
     nothing here falls back to the plain version."""
     name = "quantized_matmul"
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"{name}: x must be bfloat16 or float32, not {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"{name}: x must be bfloat16, float16 or float32, not {x.dtype}")
     if x.dim() != 2:
         raise ValueError(f"{name}: x must be an [M, K] matrix")
     if bits == 4 and group_size % 2:
@@ -353,8 +394,9 @@ def w8a8_matmul_cuda(
     name = "w8a8_matmul"
     if xq.dtype != torch.int8 or xq.dim() != 2:
         raise ValueError(f"{name}: xq must be an int8 [M, K] matrix")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"{name}: out_dtype must be bfloat16 or float32, not {out_dtype}")
+    if out_dtype not in _OUT_CODES:
+        raise ValueError(f"{name}: out_dtype must be bfloat16, float16 or float32, not "
+                         f"{out_dtype}")
     if group_size % (4 if bits == 8 else 8):
         raise ValueError(
             f"{name}: the integer dots take 4 rows at a time: group size {group_size} "
@@ -370,13 +412,14 @@ def w8a8_matmul_cuda(
     N = _check(name, (xq, qweight, scales, act), qweight, scales, bits=bits,
                group_size=group_size, M=M, K=K)
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    launch = w8a8_launch(xq, qweight, scales, bits=bits, group_size=group_size)
+    launch = w8a8_launch(xq, qweight, scales, bits=bits, group_size=group_size,
+                         out_dtype=out_dtype)
     ws = _workspace(launch.workspace, xq.device)
     dev = cuda_lib.launch_device(xq, qweight, scales, act, out, ws)
     launch.kernel(
         xq.data_ptr(), qweight.data_ptr(), scales.data_ptr(), act.data_ptr(),
         out.data_ptr(), ws.data_ptr() if ws is not None else None,
-        M, N, K, group_size, bits, int(out_dtype == torch.bfloat16), *launch.geometry,
+        M, N, K, group_size, bits, _OUT_CODES[out_dtype], *launch.geometry,
         cuda_lib.current_stream_handle(dev), device=dev,
     )
     return out

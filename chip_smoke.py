@@ -64,7 +64,16 @@ raises on failure; nothing is caught):
    (the scales of the model's kv heads, not the rank's), caches and scales
    bit-exact; F at 70B's per-rank projections at tp = 8 (M = 8); then C
    alone at 8,192 rows, timed against its bytes bound; a one-rank NCCL
-   group built on the card, its collectives run. Times
+   group built on the card, its collectives run. float16 (the ``*_f16``
+   instantiations of A–H): every attention instantiation at small sizes
+   (head dims 32-256 over an fp16 cache, 32-128 over INT8 and e4m3, blocks
+   of 16 and 64, groups 1, 3, 8; writes and fused caches bit-exact), their
+   occupancy equal to the bf16 ones' (the plans read the bf16 answer), then
+   the bf16 rows' shapes: C, A (window, soft cap, ALiBi) and B at the 1B
+   shapes, the merge after A's split 8B prefill chunk, the INT8 and e4m3
+   writes, D and E at the 8B shapes, F, G and H at the 8B gate projection
+   (M = 8 and 256) beside ``torch.mm`` in fp16, each on its route by the
+   launch counters, within ``ATTN_TOL``/``QMM_TOL["float16"]``. Times
    with CUDA events: kernel, plain version and, where one PyTorch call
    computes the same function, that call.
 3. The port's ``Llama`` with 2 layers at full width: Llama-3.2-1B and
@@ -157,7 +166,27 @@ raises on failure; nothing is caught):
    the 8 requests at 128 tokens against the same service at tp = 1 (eager)
    under the near-tie rule; the backend, the ranks' devices, the KV blocks,
    collectives a step, the period and tokens/s printed; a follower that
-   fails or does not exit fails the run.
+   fails or does not exit fails the run. Then pipeline and context
+   parallelism (``run_pp_services``, ``run_cp_layer``). float16
+   (``run_fp16_services``): the 1B model in fp16 at 16 layers, its steps'
+   logits through the kernels against the plain attention on the card
+   within ``FP16_MODEL_TOL``, then its service eager and synchronous with
+   graphs; the 8B widths at ``FP16_8B_LAYERS`` layers with INT8 weights
+   over an INT8 KV cache, eager and with graphs; eager, INT4 weights over
+   an e4m3 cache and INT8 weights under W8A8: tokens identical eager and
+   with graphs, every launch an fp16 kernel's. Prefix caching
+   (``run_prefix_cache``): the 1B bf16 service and the 8B INT8 + INT8 KV
+   one (``PREFIX_LAYERS_8B`` layers), with caching and without, on 16
+   requests sharing a 1,536-byte prefix (the second 8 admitted once the
+   first 8 have their first token) and the prefix alone: tokens within the
+   near-tie rule, fewer prefill tokens with caching; the prefill tokens,
+   the second wave's time to first token, the mixed-step wall, and the
+   bytes of the shared block the whole-prefix request rewrote (max |Δ| of
+   K/V and of the INT8 scales; non-zero is a finding). The host ms of one
+   ``schedule()`` on each block manager at 64 and 256 sequences
+   (``time_schedulers``). Every service the smoke starts reports its block
+   manager (``track_block_managers``): one that did not ask for the Python
+   manager (speculative decoding does) must run on the native core.
 5. The quantization decision tools (``atoma_infer_tpu_torch/tools``): the
    W8A8 rate probe's ``main()`` (its path through kernel I, both forms
    launched, int8 exact), then the W8A8 and INT8-KV gates at their card
@@ -166,7 +195,8 @@ raises on failure; nothing is caught):
    each tool's kernels launched in its own run (F and H; D; A to H).
 6. The smoke's wall, then a ``{"kernels": [...]}`` JSON line (each
    kernel's launches from its own path's run in (b), graph replays
-   counted; A, B and the merge at head dims 96 and 256 as rows of their
+   counted; the fp16 instantiations' launches from the fp16 services; A, B
+   and the merge at head dims 96 and 256 as rows of their
    own, their launches from the Phi-3-mini and Gemma-2-9B services; C, A,
    the INT8 write, D, F and the merge on verify rows as rows of their own,
    their launches from the spec services' runs with graphs; the
@@ -194,20 +224,22 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # Tolerances of the kernels against their plain versions, by dtype. bf16:
 # inputs and outputs are bf16 (one rounding of the output, 2^-8 relative)
 # and both sides accumulate in f32 in different orders; f32: summation
-# order only.
-ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# order only; fp16: as bf16 with 3 more mantissa bits (P and the output
+# rounded to 2^-11 relative, against the plain version's f32 P), so 4× under
+# bf16's.
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4, "float16": 5e-3}
 # Model check: f32 weights on both sides; logits differ by summation order
 # through 2 layers and a 2048- or 4096-wide LM head.
 MODEL_TOL = 1e-3
 # Quantized matmuls against their plain versions: max |err| over the
 # output's largest magnitude. bf16: one rounding of the output to bf16 on
 # both sides (half an ulp each, up to 2^-8 of a value) after f32 sums in
-# another order; f32: summation order only.
-QMM_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+# another order; f32: summation order only; fp16: one rounding to 2^-11.
+QMM_TOL = {"bfloat16": 1e-2, "float32": 1e-5, "float16": 2e-3}
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the roofline bounds.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # Llama-3.2-1B (the configuration bench.py runs), attention shapes.
 HQ, HK, D, BS = 32, 8, 64, 16
@@ -519,6 +551,8 @@ def cuda_core_attention(q, cache, meta, *, scale, kv_scales=None):
     from atoma_infer_tpu_torch.ops import cuda_lib
     from atoma_infer_tpu_torch.ops import paged_attention as pa
 
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"rpa_kernel takes bf16 or f32 queries, not {q.dtype}")
     T, Hq, D = q.shape
     S, P = meta.block_tables.shape
     out = torch.empty_like(q)
@@ -1069,7 +1103,7 @@ def check_split_combine(torch):
 
 
 def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, decode=False,
-                      splits=None, specs=None, T=None):
+                      splits=None, specs=None, T=None, dtype=None):
     """A split attention launch by a direct call, for its workspace, then
     the merge against its plain version on it, timed in a CUDA graph: the
     ragged kernel on a 256-query prefill chunk at positions 1,792-2,047 (or
@@ -1078,7 +1112,8 @@ def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, de
     (bf16 cache, block 16), with the route's plan, which must split, or with
     ``splits`` where the plan takes none at this shape. Returns its kernels
     line row; the bound counts the split rows' partials read once and their
-    outputs written once."""
+    outputs written once. ``dtype``: the queries', cache's and output's
+    (bf16 by default; fp16 runs the fp16 instantiations)."""
     import numpy as np
 
     from atoma_infer_tpu_torch.ops import cuda_lib
@@ -1088,7 +1123,9 @@ def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, de
     rng = np.random.default_rng(9)
     specs = specs or ([(1, int(k)) for k in rng.integers(1800, 2048, size=8)] if decode
                       else [(256, 2048)])
-    b = make_batch(rng, specs, hq=hq, hk=hk, d=d, bs=16, dtype=torch.bfloat16,
+    dtype = dtype or torch.bfloat16
+    dtype_name = str(dtype).split(".")[1]
+    b = make_batch(rng, specs, hq=hq, hk=hk, d=d, bs=16, dtype=dtype,
                    num_blocks=max(256, variant_blocks(specs, 16)), decode_only=decode, device=dev,
                    T=T)
     q, m, cache = b["q"], b["meta"], b["cache"]
@@ -1117,13 +1154,13 @@ def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, de
     common = (m.block_tables.data_ptr(), m.seq_lens.data_ptr(), m.query_start_loc.data_ptr(),
               m.num_seqs.data_ptr(), None, out.data_ptr(), ws_o.data_ptr(), ws_ml.data_ptr())
     if decode:
-        pa.FUSED_DECODE_SPLIT[None](
+        pa.fused_route(q, None)(
             q.data_ptr(), b["k"].data_ptr(), b["v"].data_ptr(), cache.data_ptr(), None, None,
             m.slot_mapping.data_ptr(), *common, T, S, Hq, Hk, D, P, m.block_size,
             cache.shape[0] * m.block_size, splits, min_tiles, D ** -0.5, window or 0,
             soft_cap or 0.0, stream, device=dev)
     else:
-        pa.RAGGED_ATTENTION_MMA[None](
+        pa.ragged_route(q, None)(
             q.data_ptr(), cache.data_ptr(), None, *common, T, S, Hq, Hk, D, P, m.block_size,
             plan.warps, splits, min_tiles, D ** -0.5, window or 0, soft_cap or 0.0, stream,
             device=dev)
@@ -1140,9 +1177,9 @@ def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, de
     want = plain()
     n = b["rows"]
     err = (out[:n].float() - want[:n].float()).abs().max().item()
-    tol = ATTN_TOL["bfloat16"]
+    tol = ATTN_TOL[dtype_name]
     if not torch.allclose(out[:n].float(), want[:n].float(), atol=tol, rtol=tol):
-        raise AssertionError(f"paged_attention_split_combine {label} disagrees: max |err| "
+        raise AssertionError(f"{pa.combine_route(out).name} {label} disagrees: max |err| "
                              f"{err:.3e}")
     # The query tiles' split counts, as the kernels cut them: each
     # sequence's query rows in tiles of bq.
@@ -1155,16 +1192,325 @@ def split_combine_row(torch, label, *, hq, hk, d, window=None, soft_cap=None, de
         k = max(1, min(splits, -(-n_tiles // min_tiles)))
         if k > 1:
             merged += k
-            nbytes += k * ntok * Hq * (D + 2) * 4 + ntok * Hq * D * 2
+            nbytes += k * ntok * Hq * (D + 2) * 4 + ntok * Hq * D * out.element_size()
     ms = graph_ms(torch, run)
     plain_ms = cuda_ms(plain, iters=2, warmup=1)
     bound_ms, by = bound(nbytes, 0, "float32")
-    log(f"paged_attention_split_combine {label} (D={D}, {what}, {merged} partial tiles): "
+    log(f"{pa.combine_route(out).name} {label} (D={D}, {what}, {merged} partial tiles): "
         f"{ms:.4f} ms in a CUDA graph (plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms by "
         f"{by}, max |err| {err:.3e}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                 bound_by=by)
 
+
+# ------------------------------------------------ phase 2: float16 (A–H)
+# The fp16 variant grid: every head dim over a cache in the queries' dtype,
+# 32/64/128 over the 1-byte caches, block sizes of one and of several pages
+# a key tile, GQA groups 1, 3 and 8.
+FP16_VARIANT_BLOCK_SIZES = (16, 64)
+FP16_VARIANT_GROUPS = (1, 3, 8)
+
+
+def check_fp16_occupancy(torch):
+    """The plans read the bf16 instantiations' occupancy for fp16 calls too
+    (``ops/paged_attention.py`` ``_rpa_slots``, ``_fused_slots``): the card's
+    occupancy calculator must give the fp16 ones the same blocks an SM."""
+    import ctypes
+
+    from atoma_infer_tpu_torch.ops import cuda_lib
+
+    checked = 0
+    for suffix in ("", "_int8", "_fp8"):
+        for stem, entry, args in (
+                ("paged_attention", "atoma_rpa_mma_blocks_per_sm", [(d, w) for d in (64, 128)
+                                                                   for w in (4, 8)]),
+                ("fused_decode_split", "atoma_fused_split_blocks_per_sm",
+                 [(d, g) for d in (64, 128) for g in (1, 4, 8)])):
+            bf = getattr(cuda_lib.load(f"{stem}{suffix}.cu"), f"{entry}{suffix}")
+            hf = getattr(cuda_lib.load(f"{stem}{suffix}_f16.cu"), f"{entry}{suffix}_f16")
+            for fn in (bf, hf):
+                fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+            for a, b in args:
+                if bf(a, b) != hf(a, b) or bf(a, b) < 1:
+                    raise AssertionError(f"{entry}{suffix}({a}, {b}): bf16 {bf(a, b)} blocks an "
+                                         f"SM, fp16 {hf(a, b)}")
+                checked += 1
+    log(f"fp16 occupancy: {checked} instantiations hold as many blocks an SM as their bf16 ones")
+
+
+def check_fp16_variants(torch):
+    """Every fp16 attention instantiation at small sizes against its plain
+    version (``FP16_VARIANT_*``): A, B and C over an fp16 cache at head dims
+    32/64/96/128/256, D and E (and their writes) at 32/64/128, on a mixed
+    batch with a row cut into KV splits and on a pure-decode batch; writes
+    and fused caches bit-exact."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15)
+    tol = ATTN_TOL["float16"]
+    worst, cases = 0.0, 0
+    for kv in (None,) + KV8_DTYPES:
+        for d in (32, 64, 96, 128, 256) if kv is None else (32, 64, 128):
+            for bs in FP16_VARIANT_BLOCK_SIZES:
+                for group in FP16_VARIANT_GROUPS:
+                    shape = dict(hq=2 * group, hk=2, d=d, bs=bs, dtype=torch.float16,
+                                 num_blocks=variant_blocks(VARIANT_MIXED + VARIANT_DECODE, bs),
+                                 device=dev)
+                    label = f"float16 {kv or 'fp16'} cache D={d} bs={bs} G={group}"
+                    for decode, specs in ((False, VARIANT_MIXED), (True, VARIANT_DECODE)):
+                        b = make_batch(rng, specs, decode_only=decode, **shape)
+                        if kv is not None:
+                            err, _, _ = check_kv8(torch, b, kv, label, tol, decode=decode)
+                        else:
+                            err = check_fp16_attention(torch, b, label, tol, decode=decode)
+                        worst = max(worst, err)
+                    cases += 1
+    log(f"fp16 variants: {cases} shapes × 3 kernels agree (C, A, B over fp16, INT8 and e4m3 "
+        f"caches), writes and fused caches bit-exact, max |err| {worst:.3e} (tol {tol})")
+
+
+def check_fp16_attention(torch, b, label, tol, *, decode, **kw):
+    """One fp16 batch over an fp16 cache: mixed, the write C bit-exact then
+    A on the written cache; decode, B with its cache bit-exact. Returns the
+    max |err| against the plain version."""
+    from atoma_infer_tpu_torch.ops import kv_write
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    m, n, d = b["meta"], b["rows"], b["q"].shape[2]
+    scale = d ** -0.5
+    got_c, want_c = b["cache"].clone(), b["cache"].clone()
+    if decode:
+        out = pa.ragged_paged_attention_fused_cuda(b["q"], got_c, b["k"], b["v"], m, scale=scale,
+                                                   **kw)
+        ref = pa.fused_decode_attention_plain(b["q"], want_c, b["k"], b["v"], m, scale=scale, **kw)
+        what = "fused_decode_attention_split_f16"
+    else:
+        kv_write.write_kv_cache_cuda(got_c, b["k"], b["v"], m.slot_mapping)
+        kv_write.write_kv_cache_plain(want_c, b["k"], b["v"], m.slot_mapping)
+        what = "reshape_and_cache_f16"
+    if not same_bytes(torch, got_c, want_c):
+        raise AssertionError(f"{what} {label}: cache not bit-exact")
+    if not decode:
+        out = pa.ragged_paged_attention_cuda(b["q"], got_c, m, scale=scale, **kw)
+        ref = pa.ragged_paged_attention_paged_plain(b["q"], got_c, m, scale=scale, **kw)
+        what = "ragged_paged_attention_mma_f16"
+    err = (out[:n].float() - ref[:n].float()).abs().max().item()
+    if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{what} {label} disagrees: max |err| {err:.3e}")
+    return err
+
+
+def check_fp16_kernels(torch):
+    """Every fp16 instantiation of A–H against its plain version at the
+    bf16 rows' shapes, then timed: C, A (and its window, soft-cap and ALiBi
+    cases) and B at the Llama-3.2-1B attention shapes (514-row mixed batch,
+    64 decode rows), the merge after A's split prefill chunk at the 8B
+    shapes; the INT8 and e4m3 writes, D and E (ragged and split fused) at
+    the Llama-3.1-8B shapes; F, G and H at the 8B gate projection (M = 8,
+    the kernels line's row, and M = 256), beside ``torch.mm`` in fp16. Each
+    call's route is checked by the launch counters. Returns the kernels
+    line's rows."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import cuda_lib, kv_write, quant
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+    from atoma_infer_tpu_torch.ops import quant_kernels as qk
+    from atoma_infer_tpu_torch.ops.attention import alibi_slopes
+
+    dev = torch.device("cuda")
+    f16 = torch.float16
+    tol = ATTN_TOL["float16"]
+    check_fp16_occupancy(torch)
+    rows = {}
+
+    def launched(name, fn):
+        before = cuda_lib.KERNELS[name].launches
+        out = fn()
+        if cuda_lib.KERNELS[name].launches <= before:
+            raise AssertionError(f"{name} was not launched: another route ran")
+        return out
+
+    # The 1B shapes: the same batches as check_kernels' (its seed).
+    rng = np.random.default_rng(0)
+    mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
+        (1, int(k)) for k in rng.integers(16, 2048, size=29)]
+    decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    mixed = make_batch(rng, mixed_specs, dtype=f16, num_blocks=4096, decode_only=False,
+                       device=dev)
+    decode = make_batch(rng, decode_specs, dtype=f16, num_blocks=8192, decode_only=True,
+                        device=dev)
+    m, dm, n, scale = mixed["meta"], decode["meta"], mixed["rows"], D ** -0.5
+    launched("reshape_and_cache_f16", lambda: check_fp16_attention(
+        torch, mixed, "1B mixed", tol, decode=False))
+    cache = mixed["cache"]
+    kv_write.write_kv_cache_cuda(cache, mixed["k"], mixed["v"], m.slot_mapping)
+    valid = m.slot_mapping >= 0
+    slots = m.slot_mapping[valid].long()
+    fused_rows = torch.stack([mixed["k"], mixed["v"]], 2).reshape(mixed["k"].shape[0], -1)[valid]
+    flat = cache.view(-1, cache.shape[-1])
+    rows["reshape_and_cache_f16"] = dict(
+        max_abs_err=0.0,
+        ms=graph_ms(torch, lambda: kv_write.write_kv_cache_cuda(cache, mixed["k"], mixed["v"],
+                                                                m.slot_mapping)),
+        plain_ms=cuda_ms(lambda: kv_write.write_kv_cache_plain(cache, mixed["k"], mixed["v"],
+                                                               m.slot_mapping)),
+        library_ms=graph_ms(torch, lambda: flat.index_copy_(0, slots, fused_rows)),
+        bytes=n * 2 * (2 * HK * D * 2) + m.slot_mapping.numel() * 4, flops=0)
+    for label, kw in (("base", {}), ("sliding_window", dict(sliding_window=256)),
+                      ("soft_cap", dict(soft_cap=30.0)),
+                      ("alibi", dict(alibi_slopes=alibi_slopes(HQ, device=dev)))):
+        out = launched("ragged_paged_attention_mma_f16", lambda: pa.ragged_paged_attention_cuda(
+            mixed["q"], cache, m, scale=scale, **kw))
+        ref = pa.ragged_paged_attention_paged_plain(mixed["q"], cache, m, scale=scale, **kw)
+        a_err = (out[:n].float() - ref[:n].float()).abs().max().item()
+        if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
+            raise AssertionError(f"ragged_paged_attention_mma_f16 1B {label}: {a_err:.3e}")
+        b_err = launched("fused_decode_attention_split_f16", lambda: check_fp16_attention(
+            torch, decode, f"1B decode {label}", tol, decode=True, **kw))
+        log(f"float16 1B {label}: ragged_paged_attention_mma_f16 max |err| {a_err:.3e}, "
+            f"fused_decode_attention_split_f16 max |err| {b_err:.3e} (cache bit-exact), tol {tol}")
+        if label == "base":
+            nbytes, flops = attention_work(mixed_specs, None, 2, fused=False)
+            rows["ragged_paged_attention_mma_f16"] = dict(
+                max_abs_err=a_err,
+                ms=cuda_ms(lambda: pa.ragged_paged_attention_cuda(mixed["q"], cache, m,
+                                                                  scale=scale)),
+                plain_ms=cuda_ms(lambda: pa.ragged_paged_attention_paged_plain(
+                    mixed["q"], cache, m, scale=scale), iters=5, warmup=1),
+                library_ms=None, bytes=nbytes, flops=flops)
+            dcache = decode["cache"].clone()
+            nbytes, flops = attention_work(decode_specs, None, 2, fused=True)
+            rows["fused_decode_attention_split_f16"] = dict(
+                max_abs_err=b_err,
+                ms=cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+                    decode["q"], dcache, decode["k"], decode["v"], dm, scale=scale)),
+                plain_ms=cuda_ms(lambda: pa.fused_decode_attention_plain(
+                    decode["q"], dcache, decode["k"], decode["v"], dm, scale=scale),
+                    iters=5, warmup=1),
+                library_ms=None, bytes=nbytes, flops=flops)
+    del mixed, decode, cache, dcache, flat, fused_rows
+    torch.cuda.empty_cache()
+    combine = split_combine_row(torch, "8B fp16", hq=32, hk=8, d=128, dtype=f16)
+
+    # The 8B shapes: the INT8 and e4m3 writes, D and E (check_kv8_kernels'
+    # batches).
+    rng = np.random.default_rng(1)
+    mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
+        (1, int(k)) for k in rng.integers(16, 2048, size=29)]
+    decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    shape = dict(hq=32, hk=8, d=128, bs=16, dtype=f16, device=dev)
+    mixed = make_batch(rng, mixed_specs, num_blocks=4096, decode_only=False, **shape)
+    decode = make_batch(rng, decode_specs, num_blocks=8192, decode_only=True, **shape)
+    m, dm, n, scale = mixed["meta"], decode["meta"], mixed["rows"], 128 ** -0.5
+    for kv in KV8_DTYPES:
+        extra = 4 if kv == "int8" else 0
+        work = dict(kv_elt=1, slot_extra=extra, hq=32, hk=8, d=128)
+        err, c, sc = launched(f"reshape_and_cache_{kv}_f16", lambda: launched(
+            f"ragged_paged_attention_{kv}_mma_f16",
+            lambda: check_kv8(torch, mixed, kv, "8B mixed fp16", tol, decode=False)))
+        derr, dc, dsc = launched(f"fused_decode_attention_{kv}_split_f16", lambda: check_kv8(
+            torch, decode, kv, "8B decode fp16", tol, decode=True))
+        log(f"float16 8B {kv} KV: reshape_and_cache_{kv}_f16 bit-exact on {n} rows, "
+            f"ragged_paged_attention_{kv}_mma_f16 max |err| {err:.3e}, "
+            f"fused_decode_attention_{kv}_split_f16 max |err| {derr:.3e} (cache and scales "
+            f"bit-exact), tol {tol}")
+
+        def write(c=c, sc=sc):
+            kv8_write(c, sc, mixed["k"], mixed["v"], m.slot_mapping, cuda=True)
+
+        rows[f"reshape_and_cache_{kv}_f16"] = dict(
+            max_abs_err=0.0, ms=graph_ms(torch, write),
+            plain_ms=cuda_ms(lambda: kv8_write(c, sc, mixed["k"], mixed["v"], m.slot_mapping,
+                                               cuda=False)),
+            library_ms=None,
+            bytes=n * (2 * 8 * 128 * 2 + 2 * 8 * 128 + extra) + m.slot_mapping.numel() * 4,
+            flops=0)
+        nbytes, flops = attention_work(mixed_specs, None, 2, fused=False, **work)
+        rows[f"ragged_paged_attention_{kv}_mma_f16"] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: pa.ragged_paged_attention_cuda(mixed["q"], c, m, scale=scale,
+                                                              kv_scales=sc)),
+            plain_ms=cuda_ms(lambda: pa.ragged_paged_attention_paged_plain(
+                mixed["q"], c, m, scale=scale, kv_scales=sc), iters=5, warmup=1),
+            library_ms=None, bytes=nbytes, flops=flops)
+        nbytes, flops = attention_work(decode_specs, None, 2, fused=True, **work)
+        rows[f"fused_decode_attention_{kv}_split_f16"] = dict(
+            max_abs_err=derr,
+            ms=cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+                decode["q"], dc, decode["k"], decode["v"], dm, scale=scale, kv_scales=dsc)),
+            plain_ms=cuda_ms(lambda: pa.fused_decode_attention_plain(
+                decode["q"], dc, decode["k"], decode["v"], dm, scale=scale, kv_scales=dsc),
+                iters=5, warmup=1),
+            library_ms=None, bytes=nbytes, flops=flops)
+        del c, sc, dc, dsc
+    del mixed, decode
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"), "float16")
+    rows["paged_attention_split_combine_f16"] = combine
+
+    # F, G and H at the 8B gate projection, fp16 activations.
+    K, N, group = QMM_SHAPES[QMM_LINE_SHAPE]
+    gen = torch.Generator(device=dev).manual_seed(15)
+    w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+    for bits in (8, 4):
+        qt = quant.quantize_weight(w, bits, group)
+        w_bytes = qt.qweight.numel() + qt.scales.numel() * 2
+        copies = [qt] + [quant.QuantizedTensor(qt.qweight.clone(), qt.scales.clone(), bits, group)
+                         for _ in range(-(-128_000_000 // w_bytes) - 1)]
+        dense = [quant.dequantize_weight(c, f16) for c in copies]
+        iters = max(2, 20 // len(copies))
+        kinds = [(f"quantized_matmul_int{bits}_mma_f16", False)]
+        if bits == 8:
+            kinds.append(("quantized_matmul_w8a8_mma_f16", True))
+        for M in (QMM_LINE_M, 256):
+            x = torch.randn(M, K, generator=gen, device=dev).to(f16)
+            xq, act = qk.quantize_activations(x)
+            library_ms = graph_ms(torch, lambda x=x: [torch.mm(x, d) for d in dense],
+                                  iters=iters) / len(copies)
+            for name, w8a8 in kinds:
+                if w8a8:
+                    def run(c, xq=xq, act=act):
+                        return qk.w8a8_matmul_cuda(xq, c.qweight, c.scales, act, bits=bits,
+                                                   group_size=group, out_dtype=f16)
+
+                    def plain(xq=xq, act=act):
+                        return qk.w8a8_matmul_plain(xq, qt.qweight, qt.scales, act, bits=bits,
+                                                    group_size=group, out_dtype=f16)
+                else:
+                    def run(c, x=x):
+                        return qk.quantized_matmul_cuda(x, c.qweight, c.scales, bits=bits,
+                                                        group_size=group)
+
+                    def plain(x=x):
+                        return qk.quantized_matmul_plain(x, qt.qweight, qt.scales, bits=bits,
+                                                         group_size=group)
+                got = launched(name, lambda: run(qt))
+                if got.dtype != f16:
+                    raise AssertionError(f"{name}: output {got.dtype}")
+                rel, err = rel_err(got, plain())
+                if not rel <= QMM_TOL["float16"]:
+                    raise AssertionError(f"{name} M={M}: rel err {rel:.3e}")
+                ms = graph_ms(torch, lambda: [run(c) for c in copies], iters=iters) / len(copies)
+                plain_ms = graph_ms(torch, plain, iters=2)
+                nbytes, flops = qmm_work(M, K, N, group, bits=bits, x_bytes=1 if w8a8 else 2,
+                                         w8a8=w8a8)
+                bound_ms, bound_by = bound(nbytes, flops, "int8" if w8a8 else "float16")
+                log(f"{name} {bits}-bit {QMM_LINE_SHAPE} K={K} N={N} M={M}: {ms:.4f} ms (plain "
+                    f"{plain_ms:.4f} ms, torch.mm fp16 {library_ms:.4f} ms), bound "
+                    f"{bound_ms:.4f} ms by {bound_by}, max |err| {err:.3e} (rel {rel:.2e}, tol "
+                    f"{QMM_TOL['float16']})")
+                if M == QMM_LINE_M:
+                    rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                      library_ms=library_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by)
+        del copies, dense
+        torch.cuda.empty_cache()
+    for name, r in rows.items():
+        log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']}), bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    return rows
 
 # The attention shapes of the families whose head dims only the bf16 route
 # takes, from their public config.json: (label, Hq, Hk, D, the score
@@ -3359,13 +3705,15 @@ def report_profiled_steps(torch, label, profiled, ragged, ragged_calls):
             f"H {h_ms:.3f} ms; top device time (ms): {top}")
         # The same calls again, each through the route and through the
         # CUDA-core kernel by a direct launch (device time in CUDA graphs,
-        # summed), where it has the head dim (not Phi-3's or Gemma-2's).
+        # summed), where it has the head dim (not Phi-3's or Gemma-2's) and
+        # the queries' dtype (not fp16).
         from atoma_infer_tpu_torch.ops.paged_attention import HEAD_DIMS
 
         new_ms = sum(graph_ms(torch, lambda c=c: ragged(c[0], c[1], c[2], **c[3]))
                      for c in ragged_calls)
         old = "no CUDA-core kernel at this head dim"
-        if all(c[0].shape[2] in HEAD_DIMS for c in ragged_calls):
+        if all(c[0].shape[2] in HEAD_DIMS and c[0].dtype == torch.bfloat16
+               for c in ragged_calls):
             old_ms = sum(graph_ms(torch, lambda c=c: cuda_core_attention(
                 c[0], c[1], c[2], scale=c[3]["scale"], kv_scales=c[3].get("kv_scales")))
                 for c in ragged_calls)
@@ -3404,8 +3752,8 @@ def serve_both(torch, label, model, params, make_config, path, mode,
 
 
 def bf16_config(name, block_size, async_scheduling=False, max_model_len=2048,
-                max_num_sequences=64, num_speculative_tokens=0):
-    """A bf16 service's configuration: KV pool sized from
+                max_num_sequences=64, num_speculative_tokens=0, dtype="bfloat16"):
+    """A bf16 (or ``dtype``) service's configuration: KV pool sized from
     ``torch.cuda.mem_get_info``, chunked prefill with a 256-token budget
     (prompts arriving while others decode share steps with them, so mixed
     prefill+decode steps run), prompts of up to ``max_model_len`` − 1,024
@@ -3415,7 +3763,7 @@ def bf16_config(name, block_size, async_scheduling=False, max_model_len=2048,
     )
 
     return EngineConfig(
-        model=ModelConfig(model_name=name, dtype="bfloat16"),
+        model=ModelConfig(model_name=name, dtype=dtype),
         cache=CacheConfig(block_size=block_size, hbm_memory_utilization=0.5,
                           num_host_blocks_override=64),
         scheduler=SchedulerConfig(
@@ -3429,8 +3777,9 @@ def bf16_config(name, block_size, async_scheduling=False, max_model_len=2048,
     )
 
 
-def llama_1b_model(torch):
-    """Llama-3.2-1B at full width, 16 layers, random bf16 weights."""
+def llama_1b_model(torch, dtype=None):
+    """Llama-3.2-1B at full width, 16 layers, random bf16 (or ``dtype``)
+    weights."""
     from atoma_infer_tpu_torch.models.llama import Llama, LlamaConfig
 
     cfg = LlamaConfig(
@@ -3438,7 +3787,7 @@ def llama_1b_model(torch):
         num_attention_heads=HQ, num_key_value_heads=HK, head_dim=D,
         max_position_embeddings=4096, tie_word_embeddings=True,
     )
-    model = Llama(cfg, dtype=torch.bfloat16, device="cuda")
+    model = Llama(cfg, dtype=dtype or torch.bfloat16, device="cuda")
     return model, model.init_params(torch.Generator(device=model.device).manual_seed(0))
 
 
@@ -3730,7 +4079,7 @@ def run_quant_services(torch):
 
 
 def llama_8b_service_config(quantization, kv_cache_dtype=None, async_scheduling=False,
-                            max_seqs=64, spec=0, **cache):
+                            max_seqs=64, spec=0, dtype="bfloat16", **cache):
     """A Llama-3.1-8B service's configuration: ``quantization`` on load,
     the KV cache's dtype, blocks of 16 (2,048 of them unless ``cache`` says
     otherwise), chunked prefill with a 256-token budget, ``max_seqs``
@@ -3741,7 +4090,7 @@ def llama_8b_service_config(quantization, kv_cache_dtype=None, async_scheduling=
 
     cache = cache or dict(num_device_blocks_override=2048)
     return EngineConfig(
-        model=ModelConfig(model_name="llama-3.1-8b-random", dtype="bfloat16",
+        model=ModelConfig(model_name="llama-3.1-8b-random", dtype=dtype,
                           quantization=quantization, kv_cache_dtype=kv_cache_dtype),
         cache=CacheConfig(block_size=BS, num_host_blocks_override=64, **cache),
         scheduler=SchedulerConfig(
@@ -4845,6 +5194,468 @@ def run_pp_services(torch):
     return launches
 
 
+# ------------------------------------------------- phase 4: float16 services
+# The fp16 services' kernels by path: every launch of an fp16 service is an
+# fp16 instantiation's (``check_fp16_route``).
+FP16_PATH = ("reshape_and_cache_f16", "ragged_paged_attention_mma_f16",
+             "fused_decode_attention_split_f16", "paged_attention_split_combine_f16")
+# The 1B fp16 model's logits (16 layers) through the kernels against the same
+# model attending through the plain versions on the card: max |Δ| over the
+# largest logit. fp16 rounds each attention output 8× finer than bf16
+# (2^-11 against 2^-8), over 16 layers where the families' bf16 check has 2.
+FP16_MODEL_TOL = 2e-2
+# Layers of the 8B-width fp16 services (of 32; the widths are the model's).
+FP16_8B_LAYERS = 8
+FP16_TOKENS = 64
+
+
+def llama_8b_layers(torch, dtype, num_layers, seed=8):
+    """Llama-3.1-8B's widths at ``num_layers`` layers on the card, random
+    ``dtype`` weights drawn as run_quant_services draws them, quantized to
+    INT8 and INT4 on the card. Returns (model, {"int8": ..., "int4": ...})."""
+    from atoma_infer_tpu_torch.models.llama import Llama
+    from atoma_infer_tpu_torch.models.weights import quantize_params
+
+    model = Llama(llama_8b_config(num_layers), dtype=dtype, device="cuda")
+    dense = model.init_params(torch.Generator(device=model.device).manual_seed(seed))
+    params = {q: quantize_params(dense, q) for q in ("int8", "int4")}
+    del dense
+    torch.cuda.empty_cache()
+    return model, params
+
+
+def check_fp16_route(label, launches):
+    """Every kernel launch of an fp16 service is an fp16 instantiation's: no
+    bf16 or f32 kernel took its fp16 tensors."""
+    wrong = {k: n for k, n in launches.items() if n and not k.endswith("_f16")}
+    if wrong:
+        raise AssertionError(f"service {label}: launches off the fp16 kernels: {wrong}")
+
+
+def check_fp16_logits(torch, model, params):
+    """The 1B fp16 model's steps of ``two_sequence_steps`` (a prefill, then
+    decode steps) through the kernels against the same model attending
+    through the plain versions on the card: logits finite, within
+    FP16_MODEL_TOL of the largest."""
+    caches = {mode: model.alloc_kv_cache(64, BS) for mode in ("kernels", "plain")}
+    worst = 0.0
+    for step, decode, batch in two_sequence_steps():
+        got = step_logits(torch, model, params, batch, caches["kernels"])
+        with plain_attention():
+            want = step_logits(torch, model, params, batch, caches["plain"])
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"1B fp16 step {step}: logits not finite")
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        worst = max(worst, err)
+        if err > FP16_MODEL_TOL:
+            raise AssertionError(f"1B fp16 step {step}: logits differ by {err:.3e} of their "
+                                 f"largest (tol {FP16_MODEL_TOL})")
+    log(f"model 1B fp16 (16 layers): kernels against the plain attention on the card, max "
+        f"|Δ logit| {worst:.3e} of the largest (tol {FP16_MODEL_TOL}), the first step a "
+        "prefill")
+    del caches
+    torch.cuda.empty_cache()
+
+
+def run_fp16_services(torch):
+    """float16 services through ``LlmService.start`` (``dtype`` float16):
+    Llama-3.2-1B at full width, 16 layers (its first steps' logits against
+    the plain attention on the card first), eager then synchronous with
+    graphs; Llama-3.1-8B's widths at FP16_8B_LAYERS layers with INT8
+    weights over an INT8 KV cache, eager then with graphs; then, eager, the
+    same with INT4 weights over an e4m3 cache and with INT8 weights under
+    W8A8 (G, E and H on fp16). Tokens identical eager and with graphs, every
+    launch an fp16 kernel's. Returns each fp16 kernel's launches from its
+    path's run."""
+    from atoma_infer_tpu_torch.ops import quant_kernels
+
+    launches = {}
+    model, params = llama_1b_model(torch, torch.float16)
+    check_fp16_logits(torch, model, params)
+    counts = serve_both(
+        torch, "1B fp16", model, params,
+        lambda a: bf16_config("llama-3.2-1b-random", BS, async_scheduling=a, dtype="float16"),
+        FP16_PATH, "graphs", FP16_TOKENS)
+    check_fp16_route("1B fp16", counts)
+    launches.update({k: counts[k] for k in FP16_PATH})
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, params = llama_8b_layers(torch, torch.float16, FP16_8B_LAYERS)
+
+    def config(q, kv, a=False):
+        return llama_8b_service_config(q, kv, async_scheduling=a, dtype="float16")
+
+    label = f"8B INT8 + INT8 KV fp16 ({FP16_8B_LAYERS} of 32 layers)"
+    path = ("reshape_and_cache_int8_f16", "ragged_paged_attention_int8_mma_f16",
+            "fused_decode_attention_int8_split_f16", "quantized_matmul_int8_mma_f16",
+            "paged_attention_split_combine_f16")
+    counts = serve_both(torch, label, model, params["int8"], lambda a: config("int8", "int8", a),
+                        path, "graphs", FP16_TOKENS)
+    check_fp16_route(label, counts)
+    launches.update({k: counts[k] for k in path[:4]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Eager, the paths of G and E, and of H, on fp16.
+    for label, q, kv, w8a8, path in (
+            ("8B INT4 + FP8 KV fp16", "int4", "fp8", False,
+             ("reshape_and_cache_fp8_f16", "ragged_paged_attention_fp8_mma_f16",
+              "fused_decode_attention_fp8_split_f16", "quantized_matmul_int4_mma_f16")),
+            ("8B INT8 W8A8 fp16", "int8", None, True, ("quantized_matmul_w8a8_mma_f16",))):
+        saved = quant_kernels._W8A8
+        quant_kernels._W8A8 = w8a8
+        try:
+            counts, _ = serve(torch, f"{label} ({FP16_8B_LAYERS} of 32 layers)", model,
+                              params[q], config(q, kv), path, new_tokens=FP16_TOKENS)
+        finally:
+            quant_kernels._W8A8 = saved
+        check_fp16_route(label, counts)
+        launches.update({k: counts[k] for k in path})
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------- phase 4: prefix caching
+# 16 requests sharing a 1,536-byte prefix (96 blocks of 16), each with 32-128
+# bytes of its own, 64 new tokens; the second 8 admitted once the first 8 have
+# finished their prefill; and in the second wave the prefix alone, whose
+# whole prompt is cached: its last token is recomputed and written again
+# into the prefix's last block, which the other sequences share.
+PREFIX_BYTES, PREFIX_WAVE, PREFIX_TOKENS = 1536, 8, 64
+PREFIX_LAYERS_8B = 8
+
+
+def prefix_prompts():
+    import numpy as np
+
+    rng = np.random.default_rng(15)
+
+    def text(n):
+        return bytes(rng.integers(32, 127, size=n, dtype=np.uint8)).decode("latin-1")
+
+    prefix = text(PREFIX_BYTES)
+    prompts = [prefix + text(int(rng.integers(32, 129))) for _ in range(2 * PREFIX_WAVE)]
+    return prompts[:PREFIX_WAVE], prompts[PREFIX_WAVE:] + [prefix]
+
+
+def prefix_config(name, caching, quantization=None, kv=None, pp=1):
+    from atoma_infer_tpu_torch.config import (
+        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
+    )
+
+    return EngineConfig(
+        model=ModelConfig(model_name=name, dtype="bfloat16", quantization=quantization,
+                          kv_cache_dtype=kv, pipeline_parallel_size=pp),
+        cache=CacheConfig(block_size=BS, hbm_memory_utilization=0.5, num_host_blocks_override=64,
+                          enable_prefix_caching=caching),
+        scheduler=SchedulerConfig(max_num_batched_tokens=256, max_num_sequences=64,
+                                  max_model_len=2048, enable_chunked_prefill=True),
+        validation=ValidationConfig(max_input_tokens=1800, max_total_tokens=2048),
+    )
+
+
+def drive_prefix(torch, label, service, waves, new_tokens):
+    """Serve two waves of greedy requests (top 2 logprobs asked) on a
+    started synchronous service: the second admitted once every request of
+    the first has its first token. Returns (tokens, top logprobs, figures:
+    prefill tokens computed, tokens computed at each request's admission,
+    the second wave's times to first token, the mixed steps' walls, the
+    prefix's last block before and after the second wave's whole-prefix
+    request rewrote its last token, the launches)."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
+
+    engine, worker = service.engine, service.engine.worker
+    # One cache engine, or (pipeline stages) none to snapshot.
+    ce = getattr(worker, "cache_engine", None)
+    figures = dict(prefill=0, admitted={}, ttft=[], mixed_ms=[])
+    inner_execute, inner_step = worker.execute_model, engine.step
+
+    def spy(inner):
+        def schedule():
+            metadata, outputs = inner()
+            for m in metadata:
+                if m.is_prompt:
+                    figures["prefill"] += m.token_chunk_size
+                    figures["admitted"].setdefault(
+                        m.request_id, next(iter(m.seq_data.values())).get_num_computed_tokens())
+            return metadata, outputs
+        return schedule
+
+    def execute(request):
+        metas = request.sequence_groups_metadata
+        t0 = time.monotonic()
+        out = inner_execute(request)
+        if any(m.is_prompt for m in metas) and not all(m.is_prompt for m in metas):
+            figures["mixed_ms"].append((time.monotonic() - t0) * 1e3)
+        return out
+
+    held, state = [], dict(released=None, first={})
+
+    def snapshot(block):
+        return ([c[block].clone() for c in ce.kv_cache],
+                [s[block].clone() for s in ce.kv_scales] if ce.kv_scales is not None else None)
+
+    def step():
+        wave1, wave2 = held[:len(waves[0])], held[len(waves[0]):]
+        groups = wave1 + (wave2 if state["released"] is not None else [])
+        now = time.monotonic()
+        for g, *_ in groups:
+            if g.request_id not in state["first"] and g.get_first_seq().get_output_len() >= 1:
+                state["first"][g.request_id] = now
+        if state["released"] is None and all(g.request_id in state["first"] for g, *_ in wave1):
+            if ce is not None:
+                seq = wave1[0][0].get_first_seq()
+                block = service.block_manager.get_block_table_ids(seq.seq_id)[
+                    PREFIX_BYTES // BS - 1]
+                figures["block"], figures["before"] = block, snapshot(block)
+            state["released"] = time.monotonic()
+            for args in wave2:
+                engine.add_request(*args)
+        probe = wave2[-1][0].request_id if wave2 else None
+        if ce is not None and probe in state["first"] and "after" not in figures:
+            torch.cuda.synchronize()
+            figures["after"] = snapshot(figures["block"])
+        return inner_step()
+
+    def request(i, prompt):
+        return GenerateRequest(request_id=f"{label}-{i}", inputs=prompt,
+                               parameters=GenerateParameters(max_new_tokens=new_tokens,
+                                                             do_sample=False, top_n_tokens=2))
+
+    async def run():
+        task = asyncio.create_task(engine.run())
+        engine.add_request = lambda *args: held.append(args)
+        futs = [await service.handle_request(request(i, p))
+                for i, p in enumerate(waves[0] + waves[1])]
+        del engine.add_request
+        for scheduler in engine.schedulers:
+            scheduler.schedule = spy(scheduler.schedule)
+        worker.execute_model, engine.step = execute, step
+        for k in cuda_lib.KERNELS.values():
+            k.launches = 0
+        t0 = time.monotonic()
+        for args in held[:len(waves[0])]:
+            engine.add_request(*args)
+        results = await asyncio.wait_for(asyncio.gather(*futs), timeout=600)
+        torch.cuda.synchronize()
+        figures["seconds"] = time.monotonic() - t0
+        figures["launches"] = {n: k.launches for n, k in cuda_lib.KERNELS.items()}
+        service.stop()
+        task.cancel()
+        return results
+
+    results = asyncio.run(run())
+    wave2 = {args[0].request_id for args in held[len(waves[0]):]}
+    figures["ttft"] = [(state["first"][r] - state["released"]) * 1e3 for r in wave2
+                       if r in state["first"]]
+    for r in results:
+        if len(r.outputs[0].token_ids) != new_tokens:
+            raise AssertionError(f"{label} {r.request_id}: {len(r.outputs[0].token_ids)} tokens")
+    pool = service.config.cache.num_device_blocks
+    if service.block_manager.get_num_free_device_blocks() != pool:
+        raise AssertionError(f"service {label}: KV blocks leaked")
+    return ([tuple(r.outputs[0].token_ids) for r in results],
+            [r.outputs[0].top_logprobs for r in results], figures)
+
+
+def near_tie_compare(label, got, want, top):
+    """Greedy tokens of one run against a reference's: identical up to a
+    first difference where the reference's top two logprobs are closer than
+    SPEC_TIE_TOL. Returns each request's common prefix."""
+    prefixes = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        n = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+        if n < min(len(g), len(w)):
+            alts = top[i][n]
+            gap = alts[0][1] - alts[1][1]
+            if not gap < SPEC_TIE_TOL:
+                raise AssertionError(f"{label}: request {i} differs at token {n} ({g[n]} against "
+                                     f"{w[n]}), top two logprobs {gap:.4f} apart (near-tie tol "
+                                     f"{SPEC_TIE_TOL})")
+        prefixes.append(n)
+    return prefixes
+
+
+def prefix_service(torch, label, model, params, make_config, path, pp=False):
+    """One model served with prefix caching and without (the reference):
+    tokens within the near-tie rule, fewer prefill tokens with caching;
+    prints the prefill tokens computed, the second wave's time to first
+    token (p50), the mixed-step wall (p50) of each run, and the rewrite of
+    the shared block's last slot. With ``pp``, caching again at
+    PP_STAGES stages (both on this card, each with its stream; one pool
+    for the cohorts): the same rule against the reference."""
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+
+    waves = prefix_prompts()
+    runs = {}
+    for caching in (False, True) + (("pp",) if pp else ()):
+        config = make_config(caching) if caching != "pp" else make_config(True, PP_STAGES)
+        service = LlmService.start(config, model=model, params=params,
+                                   tokenizer=ByteTokenizer(model.config.vocab_size),
+                                   device=model.device)
+        if not service.native_core:
+            raise AssertionError(f"service {label}: not on the native block manager")
+        runs[caching] = drive_prefix(torch, f"{label} caching={caching}", service, waves,
+                                     PREFIX_TOKENS)
+        for name in path:
+            if not runs[caching][2]["launches"][name]:
+                raise AssertionError(f"{label}: {name} was not launched")
+        del service
+        gc.collect()
+        torch.cuda.empty_cache()
+    (got, _, fig), (want, top, ref) = runs[True], runs[False]
+    prefixes = near_tie_compare(f"service {label} with prefix caching", got, want, top)
+    names = {False: "off", True: "on", "pp": f"on, pp={PP_STAGES}"}
+    for caching, (_, _, f) in runs.items():
+        mixed = (f"mixed-step wall p50 {percentile(f['mixed_ms'], 0.5):.2f} ms over "
+                 f"{len(f['mixed_ms'])} steps" if f["mixed_ms"] else "mixed-step wall not measured")
+        log(f"service {label} prefix caching {names[caching]}: prefill tokens "
+            f"computed {f['prefill']}, second wave's time to first token p50 "
+            f"{percentile(f['ttft'], 0.5):.1f} ms, {mixed}, {f['seconds']:.3f} s in all")
+    if pp:
+        staged = near_tie_compare(f"service {label} with prefix caching at pp={PP_STAGES}",
+                                  runs["pp"][0], want, top)
+        log(f"service {label} with prefix caching at pp={PP_STAGES}: common prefix with the "
+            f"run without caching at pp=1, by request: {staged} of {PREFIX_TOKENS}; tokens "
+            f"computed at admission {sorted(runs['pp'][2]['admitted'].values())}")
+    cached = {r.split("-")[-1]: n for r, n in fig["admitted"].items()}
+    log(f"service {label}: tokens computed at admission with caching, by request: {cached}; "
+        f"common prefix with the run without caching, by request: {prefixes} of "
+        f"{PREFIX_TOKENS} (a difference only where the reference's top two logprobs are "
+        f"within {SPEC_TIE_TOL})")
+    if not fig["prefill"] < ref["prefill"] - PREFIX_BYTES:
+        raise AssertionError(f"{label}: caching computed {fig['prefill']} prefill tokens against "
+                             f"{ref['prefill']}")
+    (k0, s0), (k1, s1) = fig["before"], fig["after"]
+    dk = max((a.float() - b.float()).abs().max().item() for a, b in zip(k0, k1))
+    ds = (max((a.float() - b.float()).abs().max().item() for a, b in zip(s0, s1))
+          if s0 is not None else None)
+    changed = sum(int(not torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+                  for a, b in zip(k0, k1))
+    log(f"service {label}: the whole-prefix request's rewrite of the shared block {fig['block']}'s "
+        f"last slot: K/V max |Δ| {dk:.3e} over {len(k0)} layers ({changed} layers' bytes "
+        f"changed)" + ("" if ds is None else f", INT8 scales max |Δ| {ds:.3e}"))
+
+
+def run_prefix_cache(torch):
+    """Prefix caching on the card: the 1B bf16 service (16 layers; also at
+    PP_STAGES stages with caching), then the 8B INT8 + INT8 KV one
+    (PREFIX_LAYERS_8B of 32 layers), each with caching and without, on the
+    native block manager (``prefix_service``)."""
+    model, params = llama_1b_model(torch)
+    prefix_service(torch, "1B bf16", model, params,
+                   lambda c, pp=1: prefix_config("llama-3.2-1b-random", c, pp=pp), SERVICE_PATH,
+                   pp=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = llama_8b_layers(torch, torch.bfloat16, PREFIX_LAYERS_8B)
+    prefix_service(torch, f"8B INT8 + INT8 KV ({PREFIX_LAYERS_8B} of 32 layers)", model,
+                   params["int8"], lambda c: prefix_config("llama-3.1-8b-random", c, "int8",
+                                                           "int8"),
+                   kv8_path("int8") + ("quantized_matmul_int8_mma",))
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------- the block managers' host time
+SCHEDULE_SEQS = (64, 256)
+
+
+def schedule_host_ms(native, num_seqs, iters=50):
+    """Host ms of one ``Scheduler.schedule()`` in steady decode over
+    ``num_seqs`` sequences (64-token prompts prefilled first, a token
+    appended to each after every pass), on the native or the Python block
+    manager."""
+    from atoma_infer_tpu_torch.config import CacheConfig, SchedulerConfig
+    from atoma_infer_tpu_torch.core.scheduler import Scheduler
+    from atoma_infer_tpu_torch.native.block_manager import NativeBlockSpaceManager
+    from atoma_infer_tpu_torch.sampling_params import (
+        NextTokenChooserParameters, StoppingCriteriaParameters,
+    )
+    from atoma_infer_tpu_torch.sequence import Sequence, SequenceGroup
+
+    blocks = num_seqs * 16
+    cache = CacheConfig.new_from_blocks(BS, blocks, 0)
+    sched = Scheduler(
+        SchedulerConfig(max_num_batched_tokens=4096, max_num_sequences=num_seqs,
+                        max_model_len=2048, enable_chunked_prefill=True),
+        cache, block_manager=NativeBlockSpaceManager(BS, blocks, 0) if native else None)
+    groups = {}
+    for i in range(num_seqs):
+        g = SequenceGroup(request_id=f"r{i}", sequences=[Sequence(i, "", [5] * 64, BS)],
+                          next_token_chooser_params=NextTokenChooserParameters(),
+                          stopping_criteria=StoppingCriteriaParameters(max_new_tokens=10**6))
+        groups[g.request_id] = g
+        sched.add_sequence_group(g)
+    times = []
+    for it in range(iters + 8):
+        t0 = time.perf_counter()
+        metadata, _ = sched.schedule()
+        dt = time.perf_counter() - t0
+        decode = all(not m.is_prompt for m in metadata) and len(metadata) == num_seqs
+        for m in metadata:
+            g = groups[m.request_id]
+            g.update_num_computed_tokens(m.token_chunk_size)
+            if m.do_sample:
+                g.get_first_seq().append_token_id(7, 0.0)
+        if decode:
+            times.append(dt * 1e3)
+    times = times[-iters:]
+    return percentile(times, 0.5), len(times)
+
+
+def time_schedulers(torch):
+    """The host ms of ``schedule()`` per block manager at SCHEDULE_SEQS
+    sequences, on this machine's host."""
+    for n in SCHEDULE_SEQS:
+        figures = {kind: schedule_host_ms(kind == "native", n) for kind in ("native", "python")}
+        log(f"scheduler host time at {n} sequences in steady decode: " + ", ".join(
+            f"{kind} block manager {ms:.3f} ms p50 over {k} passes"
+            for kind, (ms, k) in figures.items()))
+
+
+def track_block_managers():
+    """Wrap ``LlmService.start`` so that every service the smoke starts (in
+    this process) reports its block manager: the run fails when a service
+    that did not ask for the Python one (``use_native_core`` off, or
+    speculative decoding, which needs it) runs without the native core.
+    Returns the list the services are recorded in."""
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+
+    start = LlmService.start.__func__
+    seen = []
+
+    def checked(cls, config, **kw):
+        service = start(cls, config, **kw)
+        s = config.scheduler
+        wants_native = s.use_native_core and not s.num_speculative_tokens
+        kind = "native" if service.native_core else "python"
+        seen.append((config.model.model_name, config.model.dtype, kind, wants_native))
+        if wants_native and not service.native_core:
+            raise AssertionError(f"service {config.model.model_name} ({config.model.dtype}) runs "
+                                 "without the native block manager")
+        return service
+
+    LlmService.start = classmethod(checked)
+    return seen
+
+
+def report_block_managers(seen):
+    native = sum(kind == "native" for _, _, kind, _ in seen)
+    asked = sorted({f"{name} {dtype}" for name, dtype, kind, _ in seen if kind == "python"})
+    log(f"block managers: {len(seen)} services started in this process, {native} on the native "
+        f"core, {len(seen) - native} on the Python one, each of those asking for it "
+        f"(speculative decoding): {asked}")
+
 CP_RANKS = 2
 # Llama-3.1-8B's attention layer: 32 q heads over 8 kv heads of 128, bf16,
 # blocks of 32; 4 decode rows of 4,096-8,192 keys, their pages shuffled over
@@ -5023,6 +5834,7 @@ def main() -> int:
 
     t_start = time.monotonic()
     log(card_line())
+    managers = track_block_managers()
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on "
         f"{torch.cuda.get_device_name(0)}")
     # Every kernel module registers its kernels on import.
@@ -5043,6 +5855,8 @@ def main() -> int:
     rows.update(phase(check_quant_kernels))
     phase(check_kv8_variants)
     rows.update(phase(check_kv8_kernels))
+    phase(check_fp16_variants)
+    rows.update(phase(check_fp16_kernels))
     phase(check_prefill_chunk)
     phase(check_gqa_block_kernels)
     wide_rows = phase(check_wide_head_kernels)
@@ -5098,6 +5912,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase(run_cp_layer)
+    launches.update(phase(run_fp16_services))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(run_prefix_cache)
+    phase(time_schedulers)
+    report_block_managers(managers)
     launches.update(phase(run_probe))
     launches.update(launches_cuda_cores)
     # The verify rows' launches: the 1B and the 8B spec services' runs with

@@ -415,16 +415,19 @@ def test_service_greedy_tokens_match_jax(name):
     ({"inference": {"pipeline_parallel_size": 2}}, None),
     ({"inference": {"num_hosts": 2, "tensor_parallel_size": 2, "pipeline_parallel_size": 2}},
      None),
-    ({"cache": {"enable_prefix_caching": True}}, "prefix caching"),
-    # No kernel takes fp16: refused at start, not a KeyError in the loader.
-    ({"inference": {"dtype": "float16"}}, "float16 instantiations of A–H"),
+    # Prefix caching and float16, refused here until they were ported,
+    # start and serve too (tiny-random is an f32 model whatever the dtype,
+    # in both packages; fp16 serving itself: tests/test_torch_float16.py).
+    ({"cache": {"enable_prefix_caching": True}}, None),
+    ({"inference": {"dtype": "float16"}}, None),
 ], ids=["tp", "pp", "multihost", "prefix_caching", "float16"])
 def test_service_rejects_unported_features(raw, item, tmp_path):
     """A feature the port lacks is refused at start, naming its Queue 1
-    item. Pipeline parallelism, refused here until it was ported, starts:
-    its stages cover the layers, and it serves ``tiny-random``'s greedy
-    tokens of the service at pp = 1, tp = 1 (over two hosts, each a spawned
-    process started from its configuration alone)."""
+    item. Pipeline parallelism, prefix caching and float16, refused here
+    until they were ported, start: pipeline stages cover the layers, and
+    each case serves ``tiny-random``'s greedy tokens of the service at
+    pp = 1, tp = 1 (over two hosts, each a spawned process started from its
+    configuration alone)."""
     import torch_parity as tpar
     from atoma_infer_tpu_torch.config import EngineConfig
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
@@ -446,7 +449,9 @@ def test_service_rejects_unported_features(raw, item, tmp_path):
         if m.get("tensor_parallel_size", 1) > 1:
             m["coordinator_address"] = tpar.rendezvous_file(tmp_path)
         service = LlmService.start(EngineConfig.from_dict(raw), device="cpu")
-        stages = [ce.num_layers for ce in service.engine.worker.cache_engines]
+        workers = getattr(service.engine.worker, "cache_engines", None)
+        stages = [1, 1] if workers is None else [ce.num_layers for ce in workers]
+        assert service.config.cache.enable_prefix_caching == bool(raw.get("cache"))
         got = tpar.generate(service, prompts)
     one = {"inference": {"model_name": "tiny-random"}, "scheduler": {"max_model_len": 2048}}
     assert stages == [1, 1]
@@ -512,15 +517,25 @@ def test_async_service_with_speculation_serves_like_jax():
 
 
 def test_float16_model_directory_is_refused_before_loading():
-    """A float16 service from a model directory (the loader's path, where
-    the dtype table has no fp16 entry) raises NotImplementedError naming
-    the ROADMAP item before any weight is read."""
+    """A float16 service from a model directory (the loader's path), once
+    refused before any weight was read, loads the weights in fp16 over an
+    fp16 KV cache and serves: its greedy tokens those of the same service
+    in f32 up to fp16 rounding (the first token identical; the comparison
+    with JAX's fp16 service is ``tests/test_torch_float16.py``)."""
     from atoma_infer_tpu_torch.config import EngineConfig
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
 
-    config = EngineConfig.from_dict({
-        "inference": {"model_name": FIXTURE, "dtype": "float16"},
-        "scheduler": {"max_model_len": 256},
-    })
-    with pytest.raises(NotImplementedError, match="float16 instantiations of A–H"):
-        LlmService.start(config, model_dir=FIXTURE, device="cpu")
+    import torch_parity as tpar
+
+    out = {}
+    for dtype in ("float16", "float32"):
+        config = EngineConfig.from_dict({
+            "inference": {"model_name": FIXTURE, "dtype": dtype},
+            "scheduler": {"max_model_len": 256},
+        })
+        service = LlmService.start(config, model_dir=FIXTURE, device="cpu")
+        assert service.engine.worker.model.dtype == getattr(torch, dtype)
+        assert service.engine.worker.cache_engine.kv_cache[0].dtype == getattr(torch, dtype)
+        out[dtype] = tpar.generate(service, PROMPTS[:2], max_new_tokens=8)
+    assert all(len(t) == 8 for t in out["float16"].values())
+    assert [t[0] for t in out["float16"].values()] == [t[0] for t in out["float32"].values()]

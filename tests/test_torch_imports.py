@@ -82,6 +82,32 @@ def test_the_parallel_subpackage_is_walked():
     assert os.path.join("engine", "multihost.py") in walked
 
 
+def test_the_native_core_and_debug_modules_are_walked():
+    """``native/`` (the block-manager core's bindings) and ``utils/debug.py``
+    are scanned like every other port file, and import on their own in a
+    process without JAX (the native manager built and used there)."""
+    walked = {os.path.relpath(p, PORT_DIR) for p in _port_files()}
+    assert {os.path.join("native", "__init__.py"), os.path.join("native", "block_manager.py"),
+            os.path.join("utils", "debug.py")} <= walked
+    code = (
+        "import sys\n"
+        "from atoma_infer_tpu_torch import native\n"
+        "from atoma_infer_tpu_torch.native.block_manager import NativeBlockSpaceManager\n"
+        "from atoma_infer_tpu_torch.utils.debug import print_tensor\n"
+        "import torch\n"
+        "assert native.available()\n"
+        "assert NativeBlockSpaceManager(16, 8, 0).get_num_free_device_blocks() == 8\n"
+        "print_tensor('x', torch.ones(2, dtype=torch.bfloat16))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "x: shape=(2,)" in proc.stdout
+
+
 def test_importing_every_module_leaves_jax_out():
     modules = []
     for path in _port_files():

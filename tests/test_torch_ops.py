@@ -232,7 +232,7 @@ def _bad_inputs(change):
     t = {k: torch.from_numpy(case[k]) for k in ("q", "kv_cache", "k_new", "v_new")}
     meta = torch_meta(case)
     if change == "dtype":
-        t["q"] = t["q"].half()
+        t["q"] = t["q"].double()
     elif change == "head_dim":
         t["q"] = t["q"][:, :, :16].contiguous()
     elif change == "block_size":
@@ -245,7 +245,7 @@ def _bad_inputs(change):
 @pytest.mark.parametrize(
     "change, message",
     [
-        ("dtype", "bfloat16 or float32"),
+        ("dtype", "bfloat16, float16 or float32"),
         ("head_dim", "unsupported head_dim"),
         ("block_size", "block size"),
         ("metadata_dtype", "int32"),

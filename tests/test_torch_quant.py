@@ -197,7 +197,7 @@ def test_w8a8_plain_group_dots_are_exact():
 @pytest.mark.parametrize(
     "change, message",
     [
-        ("x_dtype", "bfloat16 or float32"),
+        ("x_dtype", "bfloat16, float16 or float32"),
         ("q_dtype", "int8"),
         ("group", "does not fit"),
         ("scales", "scales"),
@@ -215,7 +215,7 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(change, message):
     x, xq, act = torch.zeros(4, 256), torch.zeros(4, 256, dtype=torch.int8), torch.ones(4, 1)
     q, s = pq.qweight, pq.scales
     if change == "x_dtype":
-        x = x.half()
+        x = x.double()
     elif change == "q_dtype":
         q = q.to(torch.int16)
     elif change == "group":

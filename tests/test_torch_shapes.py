@@ -208,8 +208,8 @@ def test_kernel_shape_check_refuses_other_dims_and_dtypes():
     with pytest.raises(ValueError, match="unsupported head_dim 80"):
         check_kernel_shape(head_dim=80, dtype=torch.bfloat16, kind=None, group=1,
                            block_size=16, fused=False)
-    with pytest.raises(ValueError, match="must be bfloat16 or float32"):
-        check_kernel_shape(head_dim=128, dtype=torch.float16, kind=None, group=1,
+    with pytest.raises(ValueError, match="must be bfloat16, float16 or float32"):
+        check_kernel_shape(head_dim=128, dtype=torch.float64, kind=None, group=1,
                            block_size=16, fused=False)
 
 
