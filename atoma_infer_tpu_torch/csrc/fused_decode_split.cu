@@ -4,4 +4,4 @@
 
 #include "fused_decode_split.cuh"
 
-ATOMA_FUSED_SPLIT_ENTRIES(, __nv_bfloat16, __nv_bfloat16)
+ATOMA_FUSED_SPLIT_ENTRIES(, __nv_bfloat16, __nv_bfloat16, atoma::kAllDims)

@@ -69,15 +69,21 @@
 // fp16 queries (Q = __half; bf16 is Q = __nv_bfloat16) run the same kernel
 // on mma.sync's f16 form: q, k_new, v_new and out fp16, the 1-byte caches
 // widened to fp16 (exact), P rounded to fp16; INT8 scales stay bf16.
-// Head dims 32, 64 and 128 over every cache kind; 96 (Phi-3-mini) and 256
-// (Gemma-2) over a cache in the queries' dtype. At D = 96 a K row is 12 16-byte pieces,
-// which do not divide a warp's 32 lanes, so the ring's copies walk the
-// round's pieces key-major; its 192-byte rows already start 64 bytes apart
-// modulo 128, so a load phase's two keys meet no bank conflict unpadded;
-// and a lane's V run of 12 dims (24 bytes, 8-byte aligned) is read 8
-// bytes at a time. At D = 256 the ring is 144 KB a block (one block an SM)
-// and O takes 128 registers a thread, so V's runs of 32 dims are read in two
-// halves; what does not fit spills (the build log counts it).
+// Head dims 32, 64, 96 (Phi-3-mini), 128 and 256 (Gemma-2) over every cache
+// kind; a source instantiates the narrow dims (32, 64, 128), the wide ones
+// (96, 256) or both (HeadDimSet). At D = 96 a K row is 12 16-byte pieces
+// in the queries' dtype and 6 in a 1-byte cache, neither of which divides a
+// warp's 32 lanes, so the ring's copies walk the round's pieces key-major.
+// A 192-byte row already starts 64 bytes from the next modulo 128, so a
+// load phase's two keys meet no bank conflict unpadded, and a lane's V run
+// of 12 dims (24 bytes, 8-byte aligned) is read 8 bytes at a time. A
+// 96-byte row is no multiple of 64 bytes, so Q·Kᵀ reads it in 8-byte pieces
+// (three rounds of 32 bytes; four keys a load phase, 32 bytes apart modulo
+// 128 unpadded), and its V run of 12 bytes is read 4 bytes at a time. At D =
+// 256 O takes 128 registers a thread, so V's runs of 32 dims are read in two
+// halves; the ring is 144 KB a block in the queries' dtype (one block an SM)
+// and 80 KB in a 1-byte cache (two); what does not fit spills (the build log
+// counts it).
 //
 // Measurement hooks, all off in the build the port uses (ops/cuda_lib.py);
 // tools/rpa_ablation.py --mode fused builds and times them:
@@ -94,23 +100,26 @@ namespace atoma {
 constexpr int kFsWarps = 4;   // warps a block; a warp takes 32 keys a round
 // Resident blocks an SM the compiler must leave room for: 3 for 1-byte
 // caches (at most 170 registers a thread; uncapped, INT8 at D = 128 fits 2
-// blocks an SM and runs 11% slower on an H100: tools/rpa_ablation.py),
-// none for bf16, whose ring already holds a D = 128 block to 3.
+// blocks an SM and runs 11% slower on an H100: tools/rpa_ablation.py) up to
+// D = 128, 2 at D = 256, where shared memory holds no third block and O
+// alone takes 128 registers; none for bf16, whose ring already holds a D =
+// 128 block to 3.
 #ifdef ATOMA_FS_MINB
-template <typename C>
+template <typename C, int D>
 constexpr int kFsMinBlocks = ATOMA_FS_MINB;
 #else
-template <typename C>
-constexpr int kFsMinBlocks = sizeof(C) == 1 ? 3 : 1;
+template <typename C, int D>
+constexpr int kFsMinBlocks = sizeof(C) == 1 ? (D > 128 ? 2 : 3) : 1;
 #endif
 
 template <typename C, int D>
 struct FsTile {
   static constexpr int kChunks = D * (int)sizeof(C) / 16;  // 16-byte pieces of a K row
   static constexpr int kBytes = D * (int)sizeof(C);
-  // Bytes a lane reads from its key's row for one Q·Kᵀ piece: 16, or 8 for
-  // rows of 32 bytes (1-byte caches at D = 32), four lanes a row.
-  static constexpr int kPiece = kBytes >= 64 ? 16 : kBytes / 4;
+  // Bytes a lane reads from its key's row for one Q·Kᵀ piece, four lanes a
+  // row: 16 where the row is a multiple of 64 bytes, else 8 (1-byte caches
+  // at D = 32 and 96).
+  static constexpr int kPiece = kBytes % 64 == 0 ? 16 : 8;
   // A K row in the ring, padded so that the rows one shared load phase
   // reads (2 keys of 16-byte pieces, or 4 keys of 8-byte ones) start 16 or
   // 8 banks apart: no bank conflict.
@@ -143,7 +152,7 @@ struct VRun {
 
 // Runs of a multiple of 16 bytes are read 16 bytes at a time; of 8 bytes
 // (24 at D = 96 in bf16: a run starts 24 gid bytes into its row, so only 8
-// are aligned), 8 at a time.
+// are aligned), 8 at a time; else 4 (12 at D = 96 in a 1-byte cache).
 template <typename C, int N>
 __device__ __forceinline__ VRun<C, N> load_run(const C* p, bool valid) {
   VRun<C, N> r;
@@ -163,7 +172,9 @@ __device__ __forceinline__ VRun<C, N> load_run(const C* p, bool valid) {
       r.w[i] = v.x, r.w[i + 1] = v.y;
     }
   } else {
-    r.w[0] = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int i = 0; i < VRun<C, N>::kWords; ++i)
+      r.w[i] = *reinterpret_cast<const uint32_t*>(reinterpret_cast<const char*>(p) + 4 * i);
   }
   return r;
 }
@@ -189,7 +200,7 @@ __device__ __forceinline__ uint32_t key_pair(const uint32_t* lo, const uint32_t*
 // when splits > 1. Grid (Hk, sequence slots, splits), kFsWarps * 32 threads,
 // fs_smem_bytes<C, D, G>() bytes of dynamic shared memory.
 template <typename Q, typename C, int D, int G>
-__global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_kernel(
+__global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split_kernel(
     const Q* __restrict__ q, const Q* __restrict__ k_new,
     const Q* __restrict__ v_new, C* cache, __nv_bfloat16* scales,
     const float* __restrict__ scales_new, const int* __restrict__ slot_mapping,
@@ -323,8 +334,9 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C>) fused_split_ke
   // The warp's ring: copy c of a round is chunk lane % kChunks of key
   // c * (32 / kChunks) + lane / kChunks, whose slot comes from that key's
   // lane. Keys past the range are zero-filled. At D = 96 a row's 12 chunks
-  // do not divide the lanes: there copy c is piece p = 32 c + lane of the
-  // round's key-major pieces, chunk p % kChunks of key p / kChunks (kWalk).
+  // (6 in a 1-byte cache) do not divide the lanes: there copy c is piece p
+  // = 32 c + lane of the round's key-major pieces, chunk p % kChunks of key
+  // p / kChunks (kWalk).
   constexpr bool kWalk = 32 % L::kChunks != 0;
   const uint32_t ring = smem_addr(fs_ring) + warp * L::kRing;
   const char* kbytes =
@@ -545,7 +557,7 @@ int fused_split_blocks_per_sm() {
   return n;
 }
 
-template <typename Q, typename C>
+template <typename Q, typename C, int DIMS>
 int fused_split_entry(const void* q, const void* k_new, const void* v_new, void* cache,
                       void* scales, const void* scales_new, const void* slot_mapping,
                       const void* block_tables, const void* seq_lens,
@@ -587,11 +599,12 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
 #define ATOMA_FS_D(D) \
   ATOMA_FS(D, 1) ATOMA_FS(D, 2) ATOMA_FS(D, 3) ATOMA_FS(D, 4) ATOMA_FS(D, 5) ATOMA_FS(D, 6) \
   ATOMA_FS(D, 7) ATOMA_FS(D, 8)
-  ATOMA_FS_D(32)
-  ATOMA_FS_D(64)
-  ATOMA_FS_D(128)
-  // Phi-3 (96) and Gemma-2 (256) over a cache in the queries' dtype only.
-  if constexpr (sizeof(C) == 2) {
+  if constexpr ((DIMS & kNarrowDims) != 0) {
+    ATOMA_FS_D(32)
+    ATOMA_FS_D(64)
+    ATOMA_FS_D(128)
+  }
+  if constexpr ((DIMS & kWideDims) != 0) {
     ATOMA_FS_D(96)
     ATOMA_FS_D(256)
   }
@@ -601,7 +614,7 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename Q, typename C>
+template <typename Q, typename C, int DIMS>
 int fused_split_blocks_per_sm_entry(int head_dim, int group) {
 #ifdef ATOMA_FS_SHAPES_D128_G4
   if ((head_dim == 64 || head_dim == 128) && group == 4)
@@ -623,10 +636,12 @@ int fused_split_blocks_per_sm_entry(int head_dim, int group) {
       default: return -1;                                            \
     }                                                                \
   }
-  ATOMA_FS_OCC(32)
-  ATOMA_FS_OCC(64)
-  ATOMA_FS_OCC(128)
-  if constexpr (sizeof(C) == 2) {
+  if constexpr ((DIMS & kNarrowDims) != 0) {
+    ATOMA_FS_OCC(32)
+    ATOMA_FS_OCC(64)
+    ATOMA_FS_OCC(128)
+  }
+  if constexpr ((DIMS & kWideDims) != 0) {
     ATOMA_FS_OCC(96)
     ATOMA_FS_OCC(256)
   }
@@ -637,14 +652,14 @@ int fused_split_blocks_per_sm_entry(int head_dim, int group) {
 }  // namespace atoma
 
 // The split fused-decode entry points of one (query type Q, cache kind C)
-// pair: q, k_new, v_new and out Q; scales_new f32 [T, 2] or null (INT8:
+// pair at the head dims of DIMS (a HeadDimSet): q, k_new, v_new and out Q; scales_new f32 [T, 2] or null (INT8:
 // the new tokens' scales, else taken from their rows); the rest as the fused
 // entry's, plus
 // ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq, 2] when splits
 // > 1 (else null), the most splits a row takes and the fewest 64-key tiles
 // a split holds. The merge of split rows is a separate launch
 // (atoma_paged_attention_split_combine).
-#define ATOMA_FUSED_SPLIT_ENTRIES(SUFFIX, Q, C)                                               \
+#define ATOMA_FUSED_SPLIT_ENTRIES(SUFFIX, Q, C, DIMS)                                         \
   extern "C" int atoma_fused_decode_attention_split##SUFFIX(                                  \
       const void* q, const void* k_new, const void* v_new, void* cache, void* scales,        \
       const void* scales_new, const void* slot_mapping, const void* block_tables,            \
@@ -653,12 +668,12 @@ int fused_split_blocks_per_sm_entry(int head_dim, int group) {
       void* ws_o, void* ws_ml, int num_tokens, int num_seq_slots, int num_q_heads,           \
       int num_kv_heads, int head_dim, int max_pages, int block_size, long long num_slots,    \
       int splits, int min_tiles, float scale, int window, float soft_cap, void* stream) {    \
-    return atoma::fused_split_entry<Q, C>(                                                   \
+    return atoma::fused_split_entry<Q, C, DIMS>(                                             \
         q, k_new, v_new, cache, scales, scales_new, slot_mapping, block_tables, seq_lens,    \
         query_start_loc, num_seqs, alibi, out, ws_o, ws_ml, num_tokens, num_seq_slots,       \
         num_q_heads, num_kv_heads, head_dim, max_pages, block_size, num_slots, splits,       \
         min_tiles, scale, window, soft_cap, stream);                                         \
   }                                                                                          \
   extern "C" int atoma_fused_split_blocks_per_sm##SUFFIX(int head_dim, int group) {          \
-    return atoma::fused_split_blocks_per_sm_entry<Q, C>(head_dim, group);                    \
+    return atoma::fused_split_blocks_per_sm_entry<Q, C, DIMS>(head_dim, group);              \
   }

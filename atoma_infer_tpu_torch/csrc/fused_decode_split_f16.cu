@@ -4,4 +4,4 @@
 
 #include "fused_decode_split.cuh"
 
-ATOMA_FUSED_SPLIT_ENTRIES(_f16, __half, __half)
+ATOMA_FUSED_SPLIT_ENTRIES(_f16, __half, __half, atoma::kAllDims)

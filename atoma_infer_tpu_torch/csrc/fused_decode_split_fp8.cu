@@ -4,4 +4,4 @@
 
 #include "fused_decode_split.cuh"
 
-ATOMA_FUSED_SPLIT_ENTRIES(_fp8, __nv_bfloat16, __nv_fp8_e4m3)
+ATOMA_FUSED_SPLIT_ENTRIES(_fp8, __nv_bfloat16, __nv_fp8_e4m3, atoma::kNarrowDims)

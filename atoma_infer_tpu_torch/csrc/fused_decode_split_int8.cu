@@ -4,4 +4,4 @@
 
 #include "fused_decode_split.cuh"
 
-ATOMA_FUSED_SPLIT_ENTRIES(_int8, __nv_bfloat16, int8_t)
+ATOMA_FUSED_SPLIT_ENTRIES(_int8, __nv_bfloat16, int8_t, atoma::kNarrowDims)

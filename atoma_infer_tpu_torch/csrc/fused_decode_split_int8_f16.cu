@@ -5,4 +5,4 @@
 
 #include "fused_decode_split.cuh"
 
-ATOMA_FUSED_SPLIT_ENTRIES(_int8_f16, __half, int8_t)
+ATOMA_FUSED_SPLIT_ENTRIES(_int8_f16, __half, int8_t, atoma::kNarrowDims)

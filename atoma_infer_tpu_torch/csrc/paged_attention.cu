@@ -8,6 +8,6 @@
 #include "paged_attention.cuh"
 #include "paged_attention_mma.cuh"
 
-ATOMA_PAGED_ATTENTION_ENTRIES(, atoma::SameCache)
-ATOMA_RPA_MMA_ENTRIES(, __nv_bfloat16, __nv_bfloat16)
+ATOMA_PAGED_ATTENTION_ENTRIES(, atoma::SameCache, atoma::kNarrowDims)
+ATOMA_RPA_MMA_ENTRIES(, __nv_bfloat16, __nv_bfloat16, atoma::kAllDims)
 ATOMA_SPLIT_COMBINE_ENTRY(, __nv_bfloat16)

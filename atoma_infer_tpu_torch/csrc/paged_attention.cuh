@@ -10,8 +10,9 @@
 // fused_decode_kernel); with quant=True (INT8 + scales: kernel D) and
 // fp8=True (e4m3: kernel E) the same two kernels run on a 1-byte cache.
 // Each instantiating source (paged_attention.cu: C = T;
-// paged_attention_int8.cu; paged_attention_fp8.cu) is its own library, so
-// the three build in parallel.
+// paged_attention_int8.cu; paged_attention_fp8.cu; and at head dims 96 and
+// 256 paged_attention{,_int8,_fp8}_wide.cu) is its own library, so they
+// build in parallel.
 //
 // Cache: [num_pages, block_size, 2*Hk*D], each slot's row laid out as
 // [K_h0 | V_h0 | K_h1 | V_h1 | ...]; INT8 scales: [num_pages, block_size, 2]
@@ -29,8 +30,9 @@
 // take the tensor-core ragged kernel of paged_attention_mma.cuh (mma.sync,
 // a cp.async page ring, split-KV across blocks); rpa_kernel here is the f32
 // queries' route. What the designs here do:
-//  * A stages a tile of gcd(block_size, 32) keys of one page, its kv head's
-//    K and V, in shared memory (widened to f32 once; INT8 multiplied by its
+//  * A stages a tile of gcd(block_size, 32) keys (16 at D = 256) of one
+//    page, its kv head's K and V, in shared memory (widened to f32 once;
+//    INT8 multiplied by its
 //    slot's scale there, which is exact and is the plain version's
 //    dequantization) and reuses it for every query of its tile and all G
 //    query heads of the group (GQA), so each page is read from device
@@ -60,6 +62,12 @@
 namespace atoma {
 
 constexpr float kNegInf = -INFINITY;
+
+// The head dims a source instantiates: the narrow ones (32, 64, 128), the
+// wide ones (96 for Phi-3-mini, 256 for Gemma-2), or both; the wide ones of
+// the slower builds sit in sources of their own (*_wide.cu), which build in
+// parallel with the rest.
+enum HeadDimSet { kNarrowDims = 1, kWideDims = 2, kAllDims = 3 };
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -112,12 +120,19 @@ __device__ __forceinline__ float slot_scale(const __nv_bfloat16* scales,
 
 // ---------------------------------------------------------------------------
 // Kernel A: one block per (query tile of block_q tokens, sequence, kv head).
-// Thread layout: TPR = D/32 consecutive threads own one query row (token,
-// q head of the group), 32 dims each; rows are token-major within the tile.
-// Keys are staged KT at a time, KT = gcd(block_size, 32): a key tile never
-// straddles a page, any block size that is a multiple of 8 runs, and shared
-// memory stays at the KT = 32 figure (2 * 32 * (D/32) * 33 floats).
+// Thread layout: TPR consecutive threads own one query row (token, q head of
+// the group), DPT = D / TPR consecutive dims each; rows are token-major
+// within the tile. TPR is a power of two (1, 2, 4 or 8), so a row's threads
+// sit in one warp, aligned, and the xor butterfly over them stays inside the
+// row: D / 32 threads of 32 dims, except at D = 96, where 3 threads a row
+// would straddle warps and pair across rows, so 4 threads take 24 dims each.
+// Keys are staged KT at a time, KT = gcd(block_size, 32) (16 at D = 256,
+// whose 32-key tile would take 66 KB of static shared memory): a key tile
+// never straddles a page, any block size that is a multiple of 8 runs, and
+// shared memory stays at 2 KT TPR (DPT + 1) floats.
 // ---------------------------------------------------------------------------
+__host__ __device__ constexpr int rpa_threads_per_row(int d) { return d == 96 ? 4 : d / 32; }
+
 template <typename T, typename C, int D, int KT>
 __global__ void __launch_bounds__(256) rpa_kernel(
     const T* __restrict__ q, const C* __restrict__ cache,
@@ -127,8 +142,9 @@ __global__ void __launch_bounds__(256) rpa_kernel(
     const float* __restrict__ alibi, T* __restrict__ out, int num_q_heads,
     int num_kv_heads, int max_pages, int block_size, int group, int block_q,
     float scale, int window, float soft_cap) {
-  constexpr int TPR = D / 32;
-  constexpr int KS = TPR * 33;  // smem floats per key row; +1 pad per 32 dims
+  constexpr int TPR = rpa_threads_per_row(D);
+  constexpr int DPT = D / TPR;         // dims a thread
+  constexpr int KS = TPR * (DPT + 1);  // smem floats per key row; +1 pad per thread's dims
   constexpr int VN = Vec<C>::N;
   constexpr int CHUNKS = KT * 2 * D / VN;  // 16-byte vectors in one key tile (K|V)
   constexpr int QN = Vec<T>::N;
@@ -157,18 +173,18 @@ __global__ void __launch_bounds__(256) rpa_kernel(
   const float slope = alibi != nullptr ? alibi[hq] : 0.f;
   const long long q_row = (long long)(q_start + tok0 + ti) * num_q_heads + hq;
 
-  float qr[32], acc[32];
+  float qr[DPT], acc[DPT];
 #pragma unroll
-  for (int i = 0; i < 32; i += QN) {
+  for (int i = 0; i < DPT; i += QN) {
     if (active) {
-      load16(q + q_row * D + part * 32 + i, qr + i);
+      load16(q + q_row * D + part * DPT + i, qr + i);
     } else {
 #pragma unroll
       for (int k = 0; k < QN; ++k) qr[i + k] = 0.f;
     }
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
   float m = kNegInf, l = 0.f;
 
   const int last_pos = ctx0 + tok0 + ntok - 1;
@@ -195,9 +211,9 @@ __global__ void __launch_bounds__(256) rpa_kernel(
         for (int k = 0; k < VN; ++k) tmp[k] *= sc;
       }
       const int dcol = is_v ? col - D : col;
-      float* dst = (is_v ? vs : ks) + r * KS + (dcol / 32) * 33 + (dcol % 32);
+      float* dst = (is_v ? vs : ks) + r * KS;
 #pragma unroll
-      for (int k = 0; k < VN; ++k) dst[k] = tmp[k];
+      for (int k = 0; k < VN; ++k) dst[(dcol + k) / DPT * (DPT + 1) + (dcol + k) % DPT] = tmp[k];
     }
     __syncthreads();
 
@@ -205,10 +221,10 @@ __global__ void __launch_bounds__(256) rpa_kernel(
     float mx = kNegInf;
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
-      const float* kr = ks + j * KS + part * 33;
+      const float* kr = ks + j * KS + part * (DPT + 1);
       float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dot = fmaf(qr[i], kr[i], dot);
+      for (int i = 0; i < DPT; ++i) dot = fmaf(qr[i], kr[i], dot);
 #pragma unroll
       for (int o = 1; o < TPR; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
       const int kpos = t * KT + j;
@@ -221,14 +237,14 @@ __global__ void __launch_bounds__(256) rpa_kernel(
       const float alpha = expf(m - m_new);
       l *= alpha;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= alpha;
+      for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
 #pragma unroll
       for (int j = 0; j < KT; ++j) {
         const float pj = expf(sc[j] - m_new);
         l += pj;
-        const float* vr = vs + j * KS + part * 33;
+        const float* vr = vs + j * KS + part * (DPT + 1);
 #pragma unroll
-        for (int i = 0; i < 32; ++i) acc[i] = fmaf(pj, vr[i], acc[i]);
+        for (int i = 0; i < DPT; ++i) acc[i] = fmaf(pj, vr[i], acc[i]);
       }
       m = m_new;
     }
@@ -236,9 +252,9 @@ __global__ void __launch_bounds__(256) rpa_kernel(
 
   if (active) {
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* op = out + q_row * D + part * 32;
+    T* op = out + q_row * D + part * DPT;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) op[i] = from_float<T>(acc[i] * inv);
+    for (int i = 0; i < DPT; ++i) op[i] = from_float<T>(acc[i] * inv);
   }
 }
 
@@ -443,10 +459,10 @@ int launch_rpa(int block_size, dim3 grid, int threads, cudaStream_t stream,
       (const T*)q, (const C*)cache, (const __nv_bfloat16*)scales, bt, sl, qsl, \
       ns, alibi, (T*)out, hq, hk, max_pages, block_size, group, block_q,       \
       scale, window, soft_cap)
-  // The key tile: gcd(block_size, 32).
+  // The key tile: gcd(block_size, 32), or gcd(block_size, 16) at D = 256.
   if (block_size <= 0 || block_size % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (block_size % 32 == 0) {
-    ATOMA_RPA(32);
+  if (D <= 128 && block_size % 32 == 0) {
+    if constexpr (D <= 128) ATOMA_RPA(32);
   } else if (block_size % 16 == 0) {
     ATOMA_RPA(16);
   } else {
@@ -497,12 +513,15 @@ struct Fp8Cache {
   using type = __nv_fp8_e4m3;
 };
 
-// dtype (of q, k_new/v_new and out): 0 = float32, 1 = bfloat16. Pointers:
+// dtype (of q, k_new/v_new and out): 0 = float32 (head dims 32, 64 and 128
+// of kNarrowDims, 96 and 256 of kWideDims), 1 = bfloat16 (32, 64, 128; bf16
+// queries take the tensor cores, and chip_smoke.py times this route beside
+// them). Pointers:
 // q [T, Hq, D], cache [pages, block_size, 2*Hk*D], scales [pages,
 // block_size, 2] bf16 (INT8 caches; else null), block_tables [S, max_pages],
 // seq_lens [S], query_start_loc [S+1], num_seqs [1] (all int32), alibi [Hq]
 // f32 or null, out [T, Hq, D]. window <= 0 and soft_cap <= 0 mean "off".
-template <template <typename> class CacheOf>
+template <template <typename> class CacheOf, int DIMS>
 int ragged_paged_attention_entry(
     int dtype, const void* q, const void* cache, const void* scales,
     const void* block_tables, const void* seq_lens, const void* query_start_loc,
@@ -512,7 +531,7 @@ int ragged_paged_attention_entry(
     void* stream) {
   if (max_q_len <= 0 || num_seq_slots <= 0) return 0;
   const int group = num_q_heads / num_kv_heads;
-  const int tpr = head_dim / 32;
+  const int tpr = rpa_threads_per_row(head_dim);
   int block_q = 256 / (group * tpr);
   block_q = block_q < 1 ? 1 : (block_q > 16 ? 16 : block_q);
   const int threads = (block_q * group * tpr + 31) / 32 * 32;
@@ -529,14 +548,22 @@ int ragged_paged_attention_entry(
       block_size, grid, threads, st, q, cache, scales, bt, sl, qsl, ns, al,    \
       out, num_q_heads, num_kv_heads, max_pages, group, block_q, scale,        \
       window, soft_cap)
-  if (dtype == 0) {
-    if (head_dim == 32) ATOMA_RPA_D(float, 32);
-    if (head_dim == 64) ATOMA_RPA_D(float, 64);
-    if (head_dim == 128) ATOMA_RPA_D(float, 128);
-  } else if (dtype == 1) {
-    if (head_dim == 32) ATOMA_RPA_D(__nv_bfloat16, 32);
-    if (head_dim == 64) ATOMA_RPA_D(__nv_bfloat16, 64);
-    if (head_dim == 128) ATOMA_RPA_D(__nv_bfloat16, 128);
+  if constexpr ((DIMS & kNarrowDims) != 0) {
+    if (dtype == 0) {
+      if (head_dim == 32) ATOMA_RPA_D(float, 32);
+      if (head_dim == 64) ATOMA_RPA_D(float, 64);
+      if (head_dim == 128) ATOMA_RPA_D(float, 128);
+    } else if (dtype == 1) {
+      if (head_dim == 32) ATOMA_RPA_D(__nv_bfloat16, 32);
+      if (head_dim == 64) ATOMA_RPA_D(__nv_bfloat16, 64);
+      if (head_dim == 128) ATOMA_RPA_D(__nv_bfloat16, 128);
+    }
+  }
+  if constexpr ((DIMS & kWideDims) != 0) {
+    if (dtype == 0) {
+      if (head_dim == 96) ATOMA_RPA_D(float, 96);
+      if (head_dim == 256) ATOMA_RPA_D(float, 256);
+    }
   }
 #undef ATOMA_RPA_D
   return (int)cudaErrorInvalidValue;
@@ -545,7 +572,7 @@ int ragged_paged_attention_entry(
 // As above, plus k_new/v_new [T, Hk, D] and slot_mapping [T] int32; the cache
 // (and an INT8 cache's scales) is written in place. Every active sequence
 // must have exactly one query token.
-template <template <typename> class CacheOf>
+template <template <typename> class CacheOf, int DIMS>
 int fused_decode_attention_entry(
     int dtype, const void* q, const void* k_new, const void* v_new, void* cache,
     void* scales, const void* slot_mapping, const void* block_tables,
@@ -568,14 +595,22 @@ int fused_decode_attention_entry(
       group, grid, st, q, k_new, v_new, cache, scales, slots, bt, sl, qsl, ns, \
       al, out, num_kv_heads, max_pages, block_size, num_slots, scale, window,  \
       soft_cap)
-  if (dtype == 0) {
-    if (head_dim == 32) ATOMA_FUSED_D(float, 32);
-    if (head_dim == 64) ATOMA_FUSED_D(float, 64);
-    if (head_dim == 128) ATOMA_FUSED_D(float, 128);
-  } else if (dtype == 1) {
-    if (head_dim == 32) ATOMA_FUSED_D(__nv_bfloat16, 32);
-    if (head_dim == 64) ATOMA_FUSED_D(__nv_bfloat16, 64);
-    if (head_dim == 128) ATOMA_FUSED_D(__nv_bfloat16, 128);
+  if constexpr ((DIMS & kNarrowDims) != 0) {
+    if (dtype == 0) {
+      if (head_dim == 32) ATOMA_FUSED_D(float, 32);
+      if (head_dim == 64) ATOMA_FUSED_D(float, 64);
+      if (head_dim == 128) ATOMA_FUSED_D(float, 128);
+    } else if (dtype == 1) {
+      if (head_dim == 32) ATOMA_FUSED_D(__nv_bfloat16, 32);
+      if (head_dim == 64) ATOMA_FUSED_D(__nv_bfloat16, 64);
+      if (head_dim == 128) ATOMA_FUSED_D(__nv_bfloat16, 128);
+    }
+  }
+  if constexpr ((DIMS & kWideDims) != 0) {
+    if (dtype == 0) {
+      if (head_dim == 96) ATOMA_FUSED_D(float, 96);
+      if (head_dim == 256) ATOMA_FUSED_D(float, 256);
+    }
   }
 #undef ATOMA_FUSED_D
   return (int)cudaErrorInvalidValue;
@@ -583,9 +618,9 @@ int fused_decode_attention_entry(
 
 }  // namespace atoma
 
-// The C entry points of one cache kind: SUFFIX names them, CACHE_OF picks
-// the cache element type.
-#define ATOMA_PAGED_ATTENTION_ENTRIES(SUFFIX, CACHE_OF)                        \
+// The C entry points of one cache kind at the head dims of DIMS (a
+// HeadDimSet): SUFFIX names them, CACHE_OF picks the cache element type.
+#define ATOMA_PAGED_ATTENTION_ENTRIES(SUFFIX, CACHE_OF, DIMS)                  \
   extern "C" int atoma_ragged_paged_attention##SUFFIX(                         \
       int dtype, const void* q, const void* cache, const void* scales,         \
       const void* block_tables, const void* seq_lens,                          \
@@ -593,7 +628,7 @@ int fused_decode_attention_entry(
       void* out, int num_seq_slots, int num_q_heads, int num_kv_heads,         \
       int head_dim, int max_pages, int block_size, int max_q_len, float scale, \
       int window, float soft_cap, void* stream) {                              \
-    return atoma::ragged_paged_attention_entry<CACHE_OF>(                      \
+    return atoma::ragged_paged_attention_entry<CACHE_OF, DIMS>(                \
         dtype, q, cache, scales, block_tables, seq_lens, query_start_loc,      \
         num_seqs, alibi, out, num_seq_slots, num_q_heads, num_kv_heads,        \
         head_dim, max_pages, block_size, max_q_len, scale, window, soft_cap,   \
@@ -607,7 +642,7 @@ int fused_decode_attention_entry(
       void* out, int num_seq_slots, int num_q_heads, int num_kv_heads,         \
       int head_dim, int max_pages, int block_size, long long num_slots,        \
       float scale, int window, float soft_cap, void* stream) {                 \
-    return atoma::fused_decode_attention_entry<CACHE_OF>(                      \
+    return atoma::fused_decode_attention_entry<CACHE_OF, DIMS>(                \
         dtype, q, k_new, v_new, cache, scales, slot_mapping, block_tables,     \
         seq_lens, query_start_loc, num_seqs, alibi, out, num_seq_slots,        \
         num_q_heads, num_kv_heads, head_dim, max_pages, block_size, num_slots, \

@@ -6,5 +6,5 @@
 #include "paged_attention.cuh"
 #include "paged_attention_mma.cuh"
 
-ATOMA_RPA_MMA_ENTRIES(_f16, __half, __half)
+ATOMA_RPA_MMA_ENTRIES(_f16, __half, __half, atoma::kAllDims)
 ATOMA_SPLIT_COMBINE_ENTRY(_f16, __half)

@@ -9,5 +9,5 @@
 #include "paged_attention.cuh"
 #include "paged_attention_mma.cuh"
 
-ATOMA_PAGED_ATTENTION_ENTRIES(_fp8, atoma::Fp8Cache)
-ATOMA_RPA_MMA_ENTRIES(_fp8, __nv_bfloat16, __nv_fp8_e4m3)
+ATOMA_PAGED_ATTENTION_ENTRIES(_fp8, atoma::Fp8Cache, atoma::kNarrowDims)
+ATOMA_RPA_MMA_ENTRIES(_fp8, __nv_bfloat16, __nv_fp8_e4m3, atoma::kNarrowDims)

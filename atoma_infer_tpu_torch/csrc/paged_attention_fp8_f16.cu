@@ -6,4 +6,4 @@
 #include "paged_attention.cuh"
 #include "paged_attention_mma.cuh"
 
-ATOMA_RPA_MMA_ENTRIES(_fp8_f16, __half, __nv_fp8_e4m3)
+ATOMA_RPA_MMA_ENTRIES(_fp8_f16, __half, __nv_fp8_e4m3, atoma::kNarrowDims)

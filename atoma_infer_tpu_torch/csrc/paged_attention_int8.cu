@@ -9,5 +9,5 @@
 #include "paged_attention.cuh"
 #include "paged_attention_mma.cuh"
 
-ATOMA_PAGED_ATTENTION_ENTRIES(_int8, atoma::Int8Cache)
-ATOMA_RPA_MMA_ENTRIES(_int8, __nv_bfloat16, int8_t)
+ATOMA_PAGED_ATTENTION_ENTRIES(_int8, atoma::Int8Cache, atoma::kNarrowDims)
+ATOMA_RPA_MMA_ENTRIES(_int8, __nv_bfloat16, int8_t, atoma::kNarrowDims)

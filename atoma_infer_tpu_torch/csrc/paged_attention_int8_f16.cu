@@ -6,4 +6,4 @@
 #include "paged_attention.cuh"
 #include "paged_attention_mma.cuh"
 
-ATOMA_RPA_MMA_ENTRIES(_int8_f16, __half, int8_t)
+ATOMA_RPA_MMA_ENTRIES(_int8_f16, __half, int8_t, atoma::kNarrowDims)

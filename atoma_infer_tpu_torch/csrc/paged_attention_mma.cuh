@@ -64,13 +64,18 @@
 // construction under fp16 1024, e4m3 by the card's e4m3x2 → f16x2), P and
 // the output rounded to fp16. Everything else, scales included (bf16), is
 // the bf16 kernel's.
-// Head dims 32, 64 and 128 over every cache kind; 96 (Phi-3-mini) and 256
-// (Gemma-2) over a cache in the queries' dtype. At D = 96 a key's K|V slice is 24 16-byte
-// pieces, which do not divide the block's threads, so the copies walk the
-// tile's pieces key-major; 208-byte rows keep ldmatrix free of bank
-// conflicts. At D = 256 the ring is 3 × 66 KB (one block an SM), and a
-// thread holds Q's fragments (64 registers) and O (128) through the key
-// loop: what does not fit spills (the build log counts it).
+// Head dims 32, 64, 96 (Phi-3-mini), 128 and 256 (Gemma-2) over every cache
+// kind; a source instantiates the narrow dims (32, 64, 128), the wide ones
+// (96, 256) or both (HeadDimSet), so that the 1-byte caches' wide
+// instantiations build in sources of their own, in parallel. At D = 96 a
+// key's K|V slice is 24 16-byte pieces in the queries' dtype and 12 in a
+// 1-byte cache, neither of which divides the block's threads, so the copies
+// walk the tile's pieces key-major; 208-byte widened rows keep ldmatrix free
+// of bank conflicts, and the widening pass takes 6 pieces a raw row. At D =
+// 256 the ring is 3 × 66 KB in the queries' dtype and 3 × 34 KB of raw bytes
+// plus a 66 KB widened tile in a 1-byte cache (one block an SM either way),
+// and a thread holds Q's fragments (64 registers) and O (128) through the
+// key loop: what does not fit spills (the build log counts it).
 
 #pragma once
 
@@ -626,7 +631,7 @@ int rpa_combine_entry(const void* ws_o, const void* ws_ml, void* out, const void
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename Q, typename C>
+template <typename Q, typename C, int DIMS>
 int rpa_mma_entry(const void* q, const void* cache, const void* scales, const void* block_tables,
                   const void* seq_lens, const void* query_start_loc, const void* num_seqs,
                   const void* alibi, void* out, void* ws_o, void* ws_ml, int num_tokens,
@@ -646,14 +651,15 @@ int rpa_mma_entry(const void* q, const void* cache, const void* scales, const vo
                                   num_tokens, num_seq_slots, num_q_heads, num_kv_heads,       \
                                   max_pages, block_size, splits, min_tiles, scale, window,    \
                                   soft_cap, st)
-  ATOMA_RPA_MMA(32, 4);
-  ATOMA_RPA_MMA(64, 4);
-  ATOMA_RPA_MMA(128, 4);
-  ATOMA_RPA_MMA(32, 8);
-  ATOMA_RPA_MMA(64, 8);
-  ATOMA_RPA_MMA(128, 8);
-  // Phi-3 (96) and Gemma-2 (256) over a cache in the queries' dtype only.
-  if constexpr (sizeof(C) == 2) {
+  if constexpr ((DIMS & kNarrowDims) != 0) {
+    ATOMA_RPA_MMA(32, 4);
+    ATOMA_RPA_MMA(64, 4);
+    ATOMA_RPA_MMA(128, 4);
+    ATOMA_RPA_MMA(32, 8);
+    ATOMA_RPA_MMA(64, 8);
+    ATOMA_RPA_MMA(128, 8);
+  }
+  if constexpr ((DIMS & kWideDims) != 0) {
     ATOMA_RPA_MMA(96, 4);
     ATOMA_RPA_MMA(256, 4);
     ATOMA_RPA_MMA(96, 8);
@@ -663,17 +669,19 @@ int rpa_mma_entry(const void* q, const void* cache, const void* scales, const vo
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename Q, typename C>
+template <typename Q, typename C, int DIMS>
 int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
 #define ATOMA_RPA_OCC(D, NW) \
   if (head_dim == D && warps == NW) return rpa_mma_blocks_per_sm<Q, C, D, NW>()
-  ATOMA_RPA_OCC(32, 4);
-  ATOMA_RPA_OCC(64, 4);
-  ATOMA_RPA_OCC(128, 4);
-  ATOMA_RPA_OCC(32, 8);
-  ATOMA_RPA_OCC(64, 8);
-  ATOMA_RPA_OCC(128, 8);
-  if constexpr (sizeof(C) == 2) {
+  if constexpr ((DIMS & kNarrowDims) != 0) {
+    ATOMA_RPA_OCC(32, 4);
+    ATOMA_RPA_OCC(64, 4);
+    ATOMA_RPA_OCC(128, 4);
+    ATOMA_RPA_OCC(32, 8);
+    ATOMA_RPA_OCC(64, 8);
+    ATOMA_RPA_OCC(128, 8);
+  }
+  if constexpr ((DIMS & kWideDims) != 0) {
     ATOMA_RPA_OCC(96, 4);
     ATOMA_RPA_OCC(256, 4);
     ATOMA_RPA_OCC(96, 8);
@@ -701,12 +709,13 @@ int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
                                     splits, min_tiles, window, stream);                       \
   }
 
-// The tensor-core entry points of one (query type Q, cache kind C) pair:
+// The tensor-core entry points of one (query type Q, cache kind C) pair at
+// the head dims of DIMS (a HeadDimSet):
 // q and out Q [T, Hq, D]; cache, scales, block tables and lengths as the
 // ragged entry's; ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq,
 // 2] when splits > 1 (else null); warps 4 or 8 (64 or 128 rows a tile). A
 // launch with splits > 1 is followed by atoma_paged_attention_split_combine.
-#define ATOMA_RPA_MMA_ENTRIES(SUFFIX, Q, C)                                                   \
+#define ATOMA_RPA_MMA_ENTRIES(SUFFIX, Q, C, DIMS)                                             \
   extern "C" int atoma_ragged_paged_attention_mma##SUFFIX(                                    \
       const void* q, const void* cache, const void* scales, const void* block_tables,        \
       const void* seq_lens, const void* query_start_loc, const void* num_seqs,               \
@@ -714,12 +723,12 @@ int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
       int num_seq_slots, int num_q_heads, int num_kv_heads, int head_dim, int max_pages,     \
       int block_size, int warps, int splits, int min_tiles, float scale, int window,         \
       float soft_cap, void* stream) {                                                        \
-    return atoma::rpa_mma_entry<Q, C>(q, cache, scales, block_tables, seq_lens,              \
+    return atoma::rpa_mma_entry<Q, C, DIMS>(q, cache, scales, block_tables, seq_lens,              \
                                    query_start_loc, num_seqs, alibi, out, ws_o, ws_ml,       \
                                    num_tokens, num_seq_slots, num_q_heads, num_kv_heads,     \
                                    head_dim, max_pages, block_size, warps, splits,           \
                                    min_tiles, scale, window, soft_cap, stream);              \
   }                                                                                          \
   extern "C" int atoma_rpa_mma_blocks_per_sm##SUFFIX(int head_dim, int warps) {              \
-    return atoma::rpa_mma_blocks_per_sm_entry<Q, C>(head_dim, warps);                       \
+    return atoma::rpa_mma_blocks_per_sm_entry<Q, C, DIMS>(head_dim, warps);                 \
   }

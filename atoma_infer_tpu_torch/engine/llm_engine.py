@@ -162,6 +162,9 @@ class LlmEngine:
         # (metadata, PendingStep, rows) with rows mapping
         # seq_id → (group, seq, sampled-row, output-index of placeholder).
         self._async_queue: List[tuple] = []
+        # While _complete_pending runs: the finished groups' posts, held
+        # until their cohort's remove_finished_sequences().
+        self._deferred_posts: Optional[List] = None
     # -------------------------------------------------------------- admission
     def add_request(
         self,
@@ -458,8 +461,18 @@ class LlmEngine:
         scheduler = self.schedulers[cohort]
         # The cohorts share one block manager, so the finished sequences'
         # blocks return to the one pool whichever scheduler frees them.
-        finished = self._process_outputs(metadata, pending.complete())
-        scheduler.remove_finished_sequences()
+        # A finished group's future resolves only once its cohort has
+        # dropped it: an awaiter resumed earlier could add its next request
+        # while the group still counts, and add_request would pick that
+        # request's cohort from the stale count.
+        self._deferred_posts = []
+        try:
+            finished = self._process_outputs(metadata, pending.complete())
+            scheduler.remove_finished_sequences()
+        finally:
+            posts, self._deferred_posts = self._deferred_posts, None
+            for post in posts:
+                post()
         return finished
 
     # ------------------------------------------------------- async scheduling
@@ -802,13 +815,21 @@ class LlmEngine:
         self._groups.pop(group.request_id, None)
         fut = self._response_futures.pop(group.request_id, None)
         if fut is not None and not fut.done():
-            fut.get_loop().call_soon_threadsafe(
-                lambda f=fut, r=result: f.done() or f.set_result(r)
-            )
+            self._post(lambda f=fut, r=result: f.get_loop().call_soon_threadsafe(
+                lambda: f.done() or f.set_result(r)))
         queue = self._stream_queues.pop(group.request_id, None)
         if queue is not None:
-            self._put_threadsafe(queue, None)  # stream terminator
+            self._post(lambda q=queue: self._put_threadsafe(q, None))  # stream terminator
         return result
+
+    def _post(self, post) -> None:
+        """Run ``post`` (a finished group's future or stream terminator)
+        now, or after the cohort's removal when :meth:`_complete_pending`
+        defers it."""
+        if self._deferred_posts is None:
+            post()
+        else:
+            self._deferred_posts.append(post)
 
     def _put_threadsafe(self, queue: asyncio.Queue, item) -> None:
         if self._loop is not None and self._loop.is_running():

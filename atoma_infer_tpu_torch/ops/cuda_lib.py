@@ -30,6 +30,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -100,13 +102,21 @@ def _finish_build(proc: subprocess.Popen) -> str:
 def build_all(sources: Optional[Sequence[str]] = None) -> Dict[str, str]:
     """Build every kernel source (default: all of ``csrc/*.cu``) with one
     ``nvcc`` process per source, all started together. Returns each built
-    source's compiler log (``-Xptxas -v``: registers, shared memory, spills);
-    sources already built are skipped."""
+    source's compiler log (``-Xptxas -v``: registers, shared memory, spills),
+    its first line the source's wall from the start of the build ("built in
+    N s"); sources already built are skipped."""
     if sources is None:
         sources = sorted(p.name for p in CSRC_DIR.glob("*.cu"))
     with _lock:
+        t0 = time.monotonic()
         procs = [p for p in (_start_build(s) for s in sources) if p is not None]
-        return {p.source: _finish_build(p) for p in procs}
+
+        def finish(proc) -> str:
+            log = _finish_build(proc)
+            return f"built in {time.monotonic() - t0:.1f} s\n{log}"
+
+        with ThreadPoolExecutor(max(1, len(procs))) as pool:
+            return dict(zip((p.source for p in procs), pool.map(finish, procs)))
 
 
 def load(source: str) -> ctypes.CDLL:

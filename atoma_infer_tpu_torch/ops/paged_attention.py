@@ -49,6 +49,13 @@ the ``*_mma`` kernels run on. Sources and notes: ``csrc/paged_attention.cuh``
 and ``csrc/paged_attention_mma.cuh``, instantiated by
 ``paged_attention{,_int8,_fp8}.cu``.
 
+Every route takes head dims 32, 64, 96 (Phi-3-mini), 128 and 256
+(Gemma-2). The 1-byte caches' tensor-core kernels and the f32 queries'
+CUDA-core kernels at 96 and 256 are instantiations of their own (``*_wide``,
+in ``paged_attention{,_int8,_fp8}_wide*.cu`` and
+``fused_decode_split{_int8,_fp8}_wide*.cu``), so that the sources build in
+parallel.
+
 Dispatch: CUDA tensors launch the kernels of their cache's dtype and their
 queries' route (or raise: an int8 or e4m3 cache never takes a bf16 kernel
 or a plain version); the plain versions below are what CPU tensors take,
@@ -57,7 +64,7 @@ and what the kernels are held against.
 fp16 queries (``dtype = "float16"``) launch the tensor-core kernels'
 fp16 instantiations (``*_f16``: the same kernels on ``mma.sync``'s f16
 form, ``paged_attention{,_int8,_fp8}_f16.cu`` and
-``fused_decode_split{,_int8,_fp8}_f16.cu``), at the bf16 head dims. JAX
+``fused_decode_split{,_int8,_fp8}_f16.cu``). JAX
 serves fp16 attention through XLA, not Pallas (``ops/attention.py:100-119``
 admits bf16, f32, int8 and e4m3 caches only): the oracle of these kernels
 is its XLA branch and ``ops/reference.py``.
@@ -89,12 +96,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The queries' dtypes the kernels take, and those of the tensor-core route.
 Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 TC_DTYPES = (torch.bfloat16, torch.float16)
-# Head dims the kernels are instantiated for, by route: bf16 or fp16
-# queries over a cache of their own dtype (the tensor-core ragged kernel,
-# the split fused kernel, the merge) also take Phi-3-mini's 96 and
-# Gemma-2's 256; f32 queries and 1-byte caches 32, 64 and 128.
-HEAD_DIMS_BF16 = (32, 64, 96, 128, 256)
-HEAD_DIMS = (32, 64, 128)
+# Head dims every route's kernels are instantiated for; the wide ones are
+# Phi-3-mini's and Gemma-2's.
+HEAD_DIMS = (32, 64, 96, 128, 256)
+WIDE_HEAD_DIMS = (96, 256)
 MAX_FUSED_GROUP = 8  # fused_decode_kernel is instantiated for G = 1..8
 _RAGGED_ARGS = [INT] + [PTR] * 9 + [INT] * 7 + [FLOAT, INT, FLOAT, PTR]
 _FUSED_ARGS = [INT] + [PTR] * 12 + [INT] * 6 + [LONG, FLOAT, INT, FLOAT, PTR]
@@ -139,6 +144,19 @@ FUSED_DECODE = {
 }
 
 _KIND_SUFFIXES = ((None, ""), (torch.int8, "_int8"), (torch.float8_e4m3fn, "_fp8"))
+# The CUDA-core kernels (f32 queries) at WIDE_HEAD_DIMS, by cache kind.
+RAGGED_ATTENTION_WIDE = {
+    kind: _register(
+        f"{RAGGED_ATTENTION[kind].name}_wide", f"paged_attention{suffix}_wide.cu",
+        f"{RAGGED_ATTENTION[kind].symbol}_wide", _RAGGED_ARGS, RAGGED_ATTENTION[kind].replaces)
+    for kind, suffix in _KIND_SUFFIXES
+}
+FUSED_DECODE_WIDE = {
+    kind: _register(
+        f"{FUSED_DECODE[kind].name}_wide", f"paged_attention{suffix}_wide.cu",
+        f"{FUSED_DECODE[kind].symbol}_wide", _FUSED_ARGS, FUSED_DECODE[kind].replaces)
+    for kind, suffix in _KIND_SUFFIXES
+}
 # The tensor-core ragged kernel, by cache kind: bf16 queries, and their
 # fp16 instantiations (``*_f16``, each its own source).
 _MMA_ARGS = [PTR] * 11 + [INT] * 10 + [FLOAT, INT, FLOAT, PTR]
@@ -173,6 +191,58 @@ FUSED_DECODE_SPLIT_F16 = {
         FUSED_DECODE[kind].replaces)
     for kind, suffix in _KIND_SUFFIXES
 }
+# The 1-byte caches' tensor-core kernels at WIDE_HEAD_DIMS, by cache kind
+# and queries' dtype: the same kernels, instantiated in sources of their own
+# (``*_wide``) so that they build in parallel with the narrow dims' (the
+# 2-byte caches' wide instantiations build fast enough beside the narrow
+# ones).
+_WIDE_SUFFIXES = _KIND_SUFFIXES[1:]
+RAGGED_ATTENTION_MMA_WIDE = {
+    kind: _register(
+        f"{RAGGED_ATTENTION[kind].name}_mma_wide", f"paged_attention{suffix}_wide.cu",
+        f"atoma_ragged_paged_attention_mma{suffix}_wide", _MMA_ARGS,
+        RAGGED_ATTENTION[kind].replaces)
+    for kind, suffix in _WIDE_SUFFIXES
+}
+RAGGED_ATTENTION_MMA_WIDE_F16 = {
+    kind: _register(
+        f"{RAGGED_ATTENTION[kind].name}_mma_wide_f16", f"paged_attention{suffix}_wide_f16.cu",
+        f"atoma_ragged_paged_attention_mma{suffix}_wide_f16", _MMA_ARGS,
+        RAGGED_ATTENTION[kind].replaces)
+    for kind, suffix in _WIDE_SUFFIXES
+}
+FUSED_DECODE_SPLIT_WIDE = {
+    kind: _register(
+        f"{FUSED_DECODE[kind].name}_split_wide", f"fused_decode_split{suffix}_wide.cu",
+        f"atoma_fused_decode_attention_split{suffix}_wide", _SPLIT_ARGS,
+        FUSED_DECODE[kind].replaces)
+    for kind, suffix in _WIDE_SUFFIXES
+}
+FUSED_DECODE_SPLIT_WIDE_F16 = {
+    kind: _register(
+        f"{FUSED_DECODE[kind].name}_split_wide_f16", f"fused_decode_split{suffix}_wide_f16.cu",
+        f"atoma_fused_decode_attention_split{suffix}_wide_f16", _SPLIT_ARGS,
+        FUSED_DECODE[kind].replaces)
+    for kind, suffix in _WIDE_SUFFIXES
+}
+# The tensor-core tables by (queries' dtype, wide): see _tc_kernel.
+_RAGGED_TC = {(torch.bfloat16, False): RAGGED_ATTENTION_MMA,
+              (torch.float16, False): RAGGED_ATTENTION_MMA_F16,
+              (torch.bfloat16, True): RAGGED_ATTENTION_MMA_WIDE,
+              (torch.float16, True): RAGGED_ATTENTION_MMA_WIDE_F16}
+_FUSED_TC = {(torch.bfloat16, False): FUSED_DECODE_SPLIT,
+             (torch.float16, False): FUSED_DECODE_SPLIT_F16,
+             (torch.bfloat16, True): FUSED_DECODE_SPLIT_WIDE,
+             (torch.float16, True): FUSED_DECODE_SPLIT_WIDE_F16}
+
+
+def _tc_kernel(tables, dtype, kind, head_dim) -> cuda_lib.CudaKernel:
+    """The tensor-core kernel of ``tables`` for queries of ``dtype`` (bf16
+    or fp16) over a cache of ``kind`` at ``head_dim``: a 1-byte cache's
+    instantiation at a wide head dim lives in a ``*_wide`` source."""
+    return tables[(dtype, kind is not None and head_dim in WIDE_HEAD_DIMS)][kind]
+
+
 # The merge of split rows (rpa_combine_kernel), after a split ragged or
 # fused launch: the online softmax's merge, across blocks; by the output's
 # dtype.
@@ -276,7 +346,7 @@ def _rpa_slots(kind, head_dim: int, warps: int, device: int) -> int:
     instantiation's answer serves the fp16 one too, the same code on
     another ``mma`` form with the same shared memory (``chip_smoke.py``
     checks that the card gives both the same)."""
-    kernel = RAGGED_ATTENTION_MMA[kind]
+    kernel = _tc_kernel(_RAGGED_TC, torch.bfloat16, kind, head_dim)
     suffix = kernel.symbol[len("atoma_ragged_paged_attention_mma"):]
     fn = getattr(cuda_lib.load(kernel.source), f"atoma_rpa_mma_blocks_per_sm{suffix}")
     fn.argtypes, fn.restype = [INT, INT], INT
@@ -333,7 +403,7 @@ def fused_split_plan(*, num_seq_slots: int, max_keys: int, num_kv_heads: int,
 def _fused_slots(kind, head_dim: int, group: int, device: int) -> int:
     """The blocks of one split fused instantiation the card holds at once
     (the bf16 one's, for fp16 too: see :func:`_rpa_slots`)."""
-    kernel = FUSED_DECODE_SPLIT[kind]
+    kernel = _tc_kernel(_FUSED_TC, torch.bfloat16, kind, head_dim)
     suffix = kernel.symbol[len("atoma_fused_decode_attention_split"):]
     fn = getattr(cuda_lib.load(kernel.source), f"atoma_fused_split_blocks_per_sm{suffix}")
     fn.argtypes, fn.restype = [INT, INT], INT
@@ -357,21 +427,25 @@ def fused_splits_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> int:
 def fused_route(q: torch.Tensor, kind) -> cuda_lib.CudaKernel:
     """The fused decode kernel a CUDA call takes: bf16 queries the split
     kernel (``*_split``) over every cache kind, fp16 queries its fp16
-    instantiation (``*_split_f16``); f32 queries ``fused_decode_kernel``,
-    the f32 test-size services' traffic."""
-    if q.dtype == torch.float16:
-        return FUSED_DECODE_SPLIT_F16[kind]
-    return FUSED_DECODE_SPLIT[kind] if q.dtype == torch.bfloat16 else FUSED_DECODE[kind]
+    instantiation (``*_split_f16``), a 1-byte cache at a wide head dim
+    their ``*_wide`` instantiations; f32 queries ``fused_decode_kernel``
+    (at a wide head dim its ``*_wide`` instantiation), the f32 test-size
+    services' traffic."""
+    if q.dtype in TC_DTYPES:
+        return _tc_kernel(_FUSED_TC, q.dtype, kind, q.shape[2])
+    return (FUSED_DECODE_WIDE if q.shape[2] in WIDE_HEAD_DIMS else FUSED_DECODE)[kind]
 
 
 def ragged_route(q: torch.Tensor, kind) -> cuda_lib.CudaKernel:
     """The ragged kernel a CUDA call takes: bf16 queries the tensor cores
     (``*_mma``) over every cache kind, fp16 queries their fp16
-    instantiation (``*_mma_f16``); f32 queries the CUDA cores
-    (``rpa_kernel``), whose f32 sums a 16-bit ``mma`` would round."""
-    if q.dtype == torch.float16:
-        return RAGGED_ATTENTION_MMA_F16[kind]
-    return RAGGED_ATTENTION_MMA[kind] if q.dtype == torch.bfloat16 else RAGGED_ATTENTION[kind]
+    instantiation (``*_mma_f16``), a 1-byte cache at a wide head dim their
+    ``*_wide`` instantiations; f32 queries the CUDA cores (``rpa_kernel``,
+    at a wide head dim its ``*_wide`` instantiation), whose f32 sums a
+    16-bit ``mma`` would round."""
+    if q.dtype in TC_DTYPES:
+        return _tc_kernel(_RAGGED_TC, q.dtype, kind, q.shape[2])
+    return (RAGGED_ATTENTION_WIDE if q.shape[2] in WIDE_HEAD_DIMS else RAGGED_ATTENTION)[kind]
 
 
 def combine_route(out: torch.Tensor) -> cuda_lib.CudaKernel:
@@ -445,25 +519,20 @@ def split_combine_plain(ws_o, ws_ml, out, meta, *, bq, splits, min_tiles,
 # ------------------------------------------------------------------ wrappers
 def check_kernel_shape(*, head_dim: int, dtype: torch.dtype, kind, group: int,
                        block_size: int, fused: bool) -> None:
-    """Raise ``ValueError`` for a shape no kernel takes, naming the ROADMAP.md
-    item that would add it: ``head_dim`` for queries of ``dtype`` (bf16,
-    fp16 or f32) over a cache of ``kind`` (None: the queries' own dtype; or
-    int8, float8_e4m3fn): bf16 or fp16 over its own dtype takes
-    ``HEAD_DIMS_BF16``, the rest ``HEAD_DIMS``; the ragged kernel (A, D, E) takes any block size that is
-    a multiple of 8, as the configuration does; the fused decode kernel (B
-    and D's and E's fused variants) also takes 1 to ``MAX_FUSED_GROUP``
-    query heads per kv head. The wrappers and ``LlmService.start`` call it."""
+    """Raise ``ValueError`` for a shape no kernel takes: ``head_dim`` for
+    queries of ``dtype`` (bf16, fp16 or f32) over a cache of ``kind`` (None:
+    the queries' own dtype; or int8, float8_e4m3fn) must be one of
+    ``HEAD_DIMS`` on every route; the ragged kernel (A, D, E) takes any
+    block size that is a multiple of 8, as the configuration does; the fused
+    decode kernel (B and D's and E's fused variants) also takes 1 to
+    ``MAX_FUSED_GROUP`` query heads per kv head, and names the ROADMAP.md
+    item that would add more. The wrappers and ``LlmService.start`` call
+    it."""
     if dtype not in Q_DTYPES:
         raise ValueError(f"paged attention: q {dtype} must be bfloat16, float16 or float32")
-    dims = HEAD_DIMS_BF16 if dtype in TC_DTYPES and kind is None else HEAD_DIMS
-    if head_dim not in dims:
-        item = ""
-        if head_dim in HEAD_DIMS_BF16:  # another route has it
-            item = ("; waits for ROADMAP.md, Queue 1: "
-                    f"{'f32 attention' if kind is None else 'kernels D and E'} at head dims "
-                    "96 and 256")
+    if head_dim not in HEAD_DIMS:
         raise ValueError(f"paged attention: unsupported head_dim {head_dim} for {dtype} queries "
-                         f"over a {kind or dtype} cache (head dims {dims}){item}")
+                         f"over a {kind or dtype} cache (head dims {HEAD_DIMS})")
     if block_size <= 0 or block_size % 8:
         raise ValueError(f"paged attention: block_size {block_size} is not a positive "
                          "multiple of 8")
@@ -561,7 +630,7 @@ def ragged_paged_attention_cuda(
             kv_scales=kv_scales)
     dev = cuda_lib.launch_device(q, kv_cache, kv_scales, meta.block_tables, meta.seq_lens,
                                  meta.query_start_loc, meta.num_seqs, alibi_slopes, out)
-    RAGGED_ATTENTION[kind](
+    ragged_route(q, kind)(
         _DTYPES[q.dtype],
         q.data_ptr(), kv_cache.data_ptr(),
         None if kv_scales is None else kv_scales.data_ptr(),
@@ -684,7 +753,7 @@ def ragged_paged_attention_fused_cuda(
     dev = cuda_lib.launch_device(q, k_new, v_new, kv_cache, kv_scales, meta.slot_mapping,
                                  meta.block_tables, meta.seq_lens, meta.query_start_loc,
                                  meta.num_seqs, alibi_slopes, out)
-    FUSED_DECODE[kind](
+    fused_route(q, kind)(
         _DTYPES[q.dtype],
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kv_cache.data_ptr(),
         None if kv_scales is None else kv_scales.data_ptr(),

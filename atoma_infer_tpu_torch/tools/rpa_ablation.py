@@ -257,9 +257,9 @@ FS_VARIANTS = {
     "seq_major": ("-DATOMA_FS_SEQ_MAJOR",),
 }
 FS_ENTRIES = """#include "fused_decode_split.cuh"
-ATOMA_FUSED_SPLIT_ENTRIES(, __nv_bfloat16, __nv_bfloat16)
-ATOMA_FUSED_SPLIT_ENTRIES(_int8, __nv_bfloat16, int8_t)
-ATOMA_FUSED_SPLIT_ENTRIES(_fp8, __nv_bfloat16, __nv_fp8_e4m3)
+ATOMA_FUSED_SPLIT_ENTRIES(, __nv_bfloat16, __nv_bfloat16, atoma::kNarrowDims)
+ATOMA_FUSED_SPLIT_ENTRIES(_int8, __nv_bfloat16, int8_t, atoma::kNarrowDims)
+ATOMA_FUSED_SPLIT_ENTRIES(_fp8, __nv_bfloat16, __nv_fp8_e4m3, atoma::kNarrowDims)
 """
 
 

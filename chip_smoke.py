@@ -357,11 +357,26 @@ def build_kernels() -> float:
     t0 = time.monotonic()
     logs = cuda_lib.build_all()
     seconds = time.monotonic() - t0
-    for source, text in logs.items():
+    # Slowest first: the first sets the build's wall.
+    walls = {source: float(re.match(r"built in (\S+) s", text).group(1))
+             for source, text in logs.items()}
+    for source in sorted(logs, key=lambda src: -walls[src]):
+        text = logs[source]
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", text))
-        log(f"built {source}: {len(regs)} kernels, max {max(regs, default=0)} "
-            f"registers, {spills} bytes of spill stores")
+        log(f"built {source} at {walls[source]:.1f} s: {len(regs)} kernels, max "
+            f"{max(regs, default=0)} registers, {spills} bytes of spill stores")
+        if "_wide" in source:
+            # The 1-byte caches' wide instantiations, kernel by kernel: their
+            # registers and spills under __launch_bounds__ (PERF.md).
+            for entry in re.split(r"Compiling entry function", text)[1:]:
+                name = re.match(r"\s*'_ZN5atoma\d*(\w+?)I", entry)
+                used = re.search(r"Used (\d+) registers", entry)
+                spill = re.search(r"(\d+) bytes spill stores", entry)
+                if name and used:
+                    args = ",".join(re.findall(r"Li(\d+)E", entry.split("'")[1]))
+                    log(f"  {source} {name.group(1)}<{args}>: {used.group(1)} registers, "
+                        f"{spill.group(1) if spill else 0} bytes of spill stores")
     log(f"kernel build: {seconds:.1f} s")
     return seconds
 
@@ -425,8 +440,14 @@ def make_batch(rng, specs, *, dtype, num_blocks, decode_only, device,
 # pages) and GQA groups (the fused kernel is instantiated for 1 to 8).
 VARIANT_BLOCK_SIZES = (8, 16, 32, 48, 64, 128)
 VARIANT_GROUPS = tuple(range(1, 9))
-# The head dims of Phi-3-mini (96) and Gemma-2 (256): the bf16 route only.
+# The head dims of Phi-3-mini (96) and Gemma-2 (256), which every route
+# takes; the 1-byte caches' tensor-core kernels there are their own
+# instantiations (``*_wide``).
 WIDE_HEAD_DIMS = (96, 256)
+ALL_HEAD_DIMS = (32, 64, 96, 128, 256)
+# The CUDA-core ragged kernel's bf16 form (dtype 1, timed beside the tensor
+# cores, never routed) is instantiated at these head dims only.
+CUDA_CORE_BF16_DIMS = (32, 64, 128)
 # The ragged batches of the grids: chunks, decode rows, and one decode row of
 # 1,600 keys, which the tensor-core route cuts into several KV splits while
 # the short rows leave splits empty.
@@ -583,11 +604,11 @@ def old_vs_new(torch, label, new_ms, old_fn, ref, n):
 
 def check_kernel_variants(torch):
     """Every compiled instantiation against its plain version at small
-    sizes: head_dim 32/64/128 × block size 8/16/32/48/64/128 × 1 to 8 query
-    heads per kv head, bf16 (the ragged kernel on the tensor cores) and f32
-    (on the CUDA cores), with a 1,600-key decode row that the tensor-core
-    route cuts into several KV splits (the main-path shapes are checked at
-    full size in :func:`check_kernels`)."""
+    sizes: head_dim 32/64/96/128/256 × block size 8/16/32/48/64/128 × 1 to
+    8 query heads per kv head, bf16 (the ragged kernel on the tensor cores)
+    and f32 (on the CUDA cores), with a 1,600-key decode row that the
+    tensor-core route cuts into several KV splits (the main-path shapes are
+    checked at full size in :func:`check_kernels`)."""
     import numpy as np
 
     from atoma_infer_tpu_torch.ops import kv_write, paged_attention
@@ -600,8 +621,7 @@ def check_kernel_variants(torch):
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         tol = ATTN_TOL[dtype_name]
         worst, cases = 0.0, 0
-        # Phi-3-mini's 96 and Gemma-2's 256 on the bf16 route only.
-        dims = (32, 64, 128) + (WIDE_HEAD_DIMS if dtype_name == "bfloat16" else ())
+        dims = ALL_HEAD_DIMS
         for d in dims:
             for bs in VARIANT_BLOCK_SIZES:
                 for group in VARIANT_GROUPS:
@@ -877,13 +897,13 @@ def clone(t):
     return None if t is None else t.clone()
 
 
-def check_kv8(torch, b, kv, label, tol, *, decode):
+def check_kv8(torch, b, kv, label, tol, *, decode, **mods):
     """One batch through the kernels of a 1-byte cache against their plain
-    versions. Mixed: the write kernel (cache and scales bit-exact), then
-    ragged attention over the written cache. Decode: the fused kernel (cache
-    and scales bit-exact with write-then-plain-attention, so the current
-    token is attended in the cache's type). Returns (max |err|, the
-    post-write cache and scales)."""
+    versions, with the score modifiers ``mods``. Mixed: the write kernel
+    (cache and scales bit-exact), then ragged attention over the written
+    cache. Decode: the fused kernel (cache and scales bit-exact with
+    write-then-plain-attention, so the current token is attended in the
+    cache's type). Returns (max |err|, the post-write cache and scales)."""
     from atoma_infer_tpu_torch.ops import paged_attention as pa
 
     m, n, d = b["meta"], b["rows"], b["q"].shape[2]
@@ -892,9 +912,9 @@ def check_kv8(torch, b, kv, label, tol, *, decode):
     got_c, got_s, want_c, want_s = cache, scales, clone(cache), clone(scales)
     if decode:
         out = pa.ragged_paged_attention_fused_cuda(
-            b["q"], got_c, b["k"], b["v"], m, scale=scale, kv_scales=got_s)
+            b["q"], got_c, b["k"], b["v"], m, scale=scale, kv_scales=got_s, **mods)
         ref = pa.fused_decode_attention_plain(
-            b["q"], want_c, b["k"], b["v"], m, scale=scale, kv_scales=want_s)
+            b["q"], want_c, b["k"], b["v"], m, scale=scale, kv_scales=want_s, **mods)
         what = f"fused_decode_attention_{kv}"
     else:
         kv8_write(got_c, got_s, b["k"], b["v"], m.slot_mapping, cuda=True)
@@ -904,8 +924,10 @@ def check_kv8(torch, b, kv, label, tol, *, decode):
             scales is not None and not same_bytes(torch, got_s, want_s)):
         raise AssertionError(f"{what} {label}: cache or scales not bit-exact")
     if not decode:
-        out = pa.ragged_paged_attention_cuda(b["q"], got_c, m, scale=scale, kv_scales=got_s)
-        ref = pa.ragged_paged_attention_paged_plain(b["q"], got_c, m, scale=scale, kv_scales=got_s)
+        out = pa.ragged_paged_attention_cuda(b["q"], got_c, m, scale=scale, kv_scales=got_s,
+                                             **mods)
+        ref = pa.ragged_paged_attention_paged_plain(b["q"], got_c, m, scale=scale,
+                                                    kv_scales=got_s, **mods)
         what = f"ragged_paged_attention_{kv}"
     err = (out[:n].float() - ref[:n].float()).abs().max().item()
     if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
@@ -915,10 +937,12 @@ def check_kv8(torch, b, kv, label, tol, *, decode):
 
 def check_kv8_variants(torch):
     """Every compiled INT8/e4m3 instantiation against its plain version at
-    small sizes: head_dim 32/64/128 × block size 8/16/32/48/64/128 × 1 to 8
-    query heads per kv head × bf16 (tensor cores) / f32 (CUDA cores)
-    queries, on a mixed batch with a row cut into several KV splits and on a
-    pure-decode batch."""
+    small sizes: head_dim 32/64/96/128/256 × block size 8/16/32/48/64/128 ×
+    1 to 8 query heads per kv head × bf16 (tensor cores; the ``*_wide``
+    instantiations at 96 and 256) / f32 (CUDA cores) queries, on a mixed
+    batch with a row cut into several KV splits and on a pure-decode batch;
+    at the wide head dims also a window and a soft-cap case (Phi-3's and
+    Gemma-2's score modifiers)."""
     import numpy as np
 
     dev = torch.device("cuda")
@@ -926,25 +950,37 @@ def check_kv8_variants(torch):
     mixed_specs, decode_specs = VARIANT_MIXED, VARIANT_DECODE
     for kv in KV8_DTYPES:
         splits, fused_splits = SplitCount(), FusedSplitCount()
+        wide_splits, wide_fused_splits = SplitCount(), FusedSplitCount()
         for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             tol = ATTN_TOL[dtype_name]
             worst, cases = 0.0, 0
-            for d in (32, 64, 128):
+            for d in ALL_HEAD_DIMS:
+                wide = d in WIDE_HEAD_DIMS
                 for bs in VARIANT_BLOCK_SIZES:
                     for group in VARIANT_GROUPS:
                         shape = dict(hq=2 * group, hk=2, d=d, bs=bs, dtype=dtype,
                                      num_blocks=variant_blocks(mixed_specs + decode_specs, bs), device=dev)
                         label = f"{dtype_name} D={d} bs={bs} G={group}"
+                        mods = [{}]
+                        if wide and bs == 16 and group == 2:
+                            mods += [dict(sliding_window=40), dict(soft_cap=50.0)]
                         for decode, specs in ((False, mixed_specs), (True, decode_specs)):
                             b = make_batch(rng, specs, decode_only=decode, **shape)
-                            err, cache, _ = check_kv8(torch, b, kv, label, tol, decode=decode)
-                            (fused_splits if decode else splits).add(dict(b, cache=cache))
-                            worst = max(worst, err)
+                            for kw in mods:
+                                err, cache, _ = check_kv8(torch, b, kv, f"{label} {kw}", tol,
+                                                          decode=decode, **kw)
+                                worst = max(worst, err)
+                            counts = ((wide_fused_splits if decode else wide_splits) if wide
+                                      else (fused_splits if decode else splits))
+                            counts.add(dict(b, cache=cache))
                         cases += 1
-            log(f"{kv} KV variants {dtype_name}: {cases} shapes × 3 kernels agree, writes "
-                f"and fused caches bit-exact, max |err| {worst:.3e} (tol {tol})")
+            log(f"{kv} KV variants {dtype_name}: {cases} shapes (head dims {ALL_HEAD_DIMS}) × "
+                f"3 kernels agree, writes and fused caches bit-exact, max |err| {worst:.3e} "
+                f"(tol {tol})")
         splits.check(f"{kv} KV variants, tensor-core route")
         fused_splits.check(f"{kv} KV variants, split fused route")
+        wide_splits.check(f"{kv} KV variants at D={WIDE_HEAD_DIMS}, tensor-core route")
+        wide_fused_splits.check(f"{kv} KV variants at D={WIDE_HEAD_DIMS}, split fused route")
 
 
 def check_kv8_kernels(torch):
@@ -1220,12 +1256,13 @@ def check_fp16_occupancy(torch):
     from atoma_infer_tpu_torch.ops import cuda_lib
 
     checked = 0
-    for suffix in ("", "_int8", "_fp8"):
+    for suffix, dims in (("", (64, 96, 128, 256)), ("_int8", (64, 128)), ("_fp8", (64, 128)),
+                         ("_int8_wide", WIDE_HEAD_DIMS), ("_fp8_wide", WIDE_HEAD_DIMS)):
         for stem, entry, args in (
-                ("paged_attention", "atoma_rpa_mma_blocks_per_sm", [(d, w) for d in (64, 128)
+                ("paged_attention", "atoma_rpa_mma_blocks_per_sm", [(d, w) for d in dims
                                                                    for w in (4, 8)]),
                 ("fused_decode_split", "atoma_fused_split_blocks_per_sm",
-                 [(d, g) for d in (64, 128) for g in (1, 4, 8)])):
+                 [(d, g) for d in dims for g in (1, 4, 8)])):
             bf = getattr(cuda_lib.load(f"{stem}{suffix}.cu"), f"{entry}{suffix}")
             hf = getattr(cuda_lib.load(f"{stem}{suffix}_f16.cu"), f"{entry}{suffix}_f16")
             for fn in (bf, hf):
@@ -1240,10 +1277,10 @@ def check_fp16_occupancy(torch):
 
 def check_fp16_variants(torch):
     """Every fp16 attention instantiation at small sizes against its plain
-    version (``FP16_VARIANT_*``): A, B and C over an fp16 cache at head dims
-    32/64/96/128/256, D and E (and their writes) at 32/64/128, on a mixed
-    batch with a row cut into KV splits and on a pure-decode batch; writes
-    and fused caches bit-exact."""
+    version (``FP16_VARIANT_*``): A, B and C over an fp16 cache, D and E
+    (and their writes) over INT8 and e4m3 caches, at head dims
+    32/64/96/128/256, on a mixed batch with a row cut into KV splits and on
+    a pure-decode batch; writes and fused caches bit-exact."""
     import numpy as np
 
     dev = torch.device("cuda")
@@ -1251,7 +1288,7 @@ def check_fp16_variants(torch):
     tol = ATTN_TOL["float16"]
     worst, cases = 0.0, 0
     for kv in (None,) + KV8_DTYPES:
-        for d in (32, 64, 96, 128, 256) if kv is None else (32, 64, 128):
+        for d in ALL_HEAD_DIMS:
             for bs in FP16_VARIANT_BLOCK_SIZES:
                 for group in FP16_VARIANT_GROUPS:
                     shape = dict(hq=2 * group, hk=2, d=d, bs=bs, dtype=torch.float16,
@@ -1528,7 +1565,9 @@ WIDE_HEAD_SHAPES = (
 def check_wide_head_kernels(torch):
     """A, B, C and the merge at the attention shapes of Phi-3-mini (D = 96,
     32 kv heads, window 2,047) and Gemma-2-9B (D = 256, 2 q heads per kv
-    head, soft cap 50), bf16 over a bf16 cache, block 16: the write
+    head, soft cap 50), bf16 over a bf16 cache, block 16 (then D, E, the
+    1-byte writes and the f32 queries' kernels at the same shapes:
+    :func:`wide_head_other_rows`): the write
     bit-exact on a mixed batch (3 chunks and 29 decode rows of 16-1,023
     keys: the plain version gathers every row's whole context in f32, which
     2,048 keys of 32 heads of 96 would take past 50 GB for); the ragged
@@ -1613,12 +1652,139 @@ def check_wide_head_kernels(torch):
         log(f"fused_decode_attention_split {label} 64 decode rows (D={d}, {mods}, up to "
             f"{splits} splits): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms), bound "
             f"{bound_ms:.4f} ms by {by}, max |err| {err:.3e} (tol {tol}), cache bit-exact")
-        del mixed, decode, cache, got
+        del got
+        rows.update(wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
+                                         mods, work))
+        del mixed, decode, cache
         torch.cuda.empty_cache()
         rows[f"paged_attention_split_combine@{d}"] = split_combine_row(
             torch, label, hq=hq, hk=hk, d=d, window=window, soft_cap=mods.get("soft_cap"),
             **merge)
         torch.cuda.empty_cache()
+    return rows
+
+
+# The fp16 queries' wide 1-byte kernels are timed at the head dim where
+# services of theirs launch them (run_fp16_services): Phi-3-mini over an
+# INT8 and an e4m3 cache. (Gemma-2's activations overflow fp16; its head
+# dim is checked in the fp16 variants.)
+FP16_WIDE_FAMILY = "Phi-3-mini-4k-instruct"
+FP16_WIDE_DIM = 96
+
+
+def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs, mods, work):
+    """At one wide family's shapes (``WIDE_HEAD_SHAPES``, the batches of
+    :func:`check_wide_head_kernels`): D and E, ragged and fused, with bf16
+    queries (the ``*_wide`` tensor-core kernels), with fp16 queries over the
+    at ``FP16_WIDE_DIM``, and with f32 queries (the CUDA-core
+    kernels), over INT8 and e4m3 caches made from the batches' bf16 ones;
+    the 1-byte writes; A and B with f32 queries over an f32 cache. Each
+    against its plain version (writes, fused caches and INT8 scales
+    bit-exact; attention within ``ATTN_TOL``), then timed with CUDA events
+    (the writes in a CUDA graph) beside its bound. Returns rows keyed
+    ``kernel@D``."""
+    from atoma_infer_tpu_torch.ops import kv_write
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    d = mixed["q"].shape[2]
+    window = mods.get("sliding_window")
+    m, n, dm, dn = mixed["meta"], mixed["rows"], decode["meta"], decode["rows"]
+    scale = d ** -0.5
+    rows = {}
+
+    def time_row(key, err, fn, plain, specs, elt, dtype_name, fused, **kvw):
+        nbytes, flops = attention_work(specs, window, elt, fused=fused, **work, **kvw)
+        bound_ms, by = bound(nbytes, flops, dtype_name)
+        rows[key] = r = dict(max_abs_err=err, ms=cuda_ms(fn),
+                             plain_ms=cuda_ms(plain, iters=2, warmup=1), library_ms=None,
+                             bound_ms=bound_ms, bound_by=by)
+        log(f"{key} {label} ({dtype_name} queries, {mods}): {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f} ms), bound {bound_ms:.4f} ms by {by}, max |err| {err:.3e} "
+            f"(tol {ATTN_TOL[dtype_name]})")
+
+    def as_dtype(b, dtype):
+        return dict(b, q=b["q"].to(dtype), k=b["k"].to(dtype), v=b["v"].to(dtype))
+
+    queries = (("bfloat16", torch.bfloat16, 2, "_mma_wide", "_split_wide"),
+               ("float16", torch.float16, 2, "_mma_wide_f16", "_split_wide_f16"),
+               ("float32", torch.float32, 4, "_wide", "_wide"))
+    for kv in KV8_DTYPES:
+        kvw = dict(kv_elt=1, slot_extra=4 if kv == "int8" else 0)
+        for dtype_name, dtype, elt, ragged_suffix, fused_suffix in queries:
+            if dtype_name == "float16" and d != FP16_WIDE_DIM:
+                continue
+            tol = ATTN_TOL[dtype_name]
+            b = as_dtype(mixed, dtype)
+            err, cache, scales = check_kv8(torch, b, kv, f"{label} mixed", tol, decode=False,
+                                           **mods)
+            if dtype_name == "bfloat16":
+                row_in, row_out = 2 * work["hk"] * d * 2, 2 * work["hk"] * d + kvw["slot_extra"]
+                rows[f"reshape_and_cache_{kv}@{d}"] = r = dict(
+                    max_abs_err=0.0,
+                    ms=graph_ms(torch, lambda: kv8_write(cache, scales, b["k"], b["v"],
+                                                         m.slot_mapping, cuda=True)),
+                    plain_ms=cuda_ms(lambda: kv8_write(cache, scales, b["k"], b["v"],
+                                                       m.slot_mapping, cuda=False)),
+                    library_ms=None)
+                r["bound_ms"], r["bound_by"] = bound(
+                    n * (row_in + row_out) + m.slot_mapping.numel() * 4, 0, "bfloat16")
+                log(f"reshape_and_cache_{kv}@{d} {label}: bit-exact on {n} rows, {r['ms']:.4f} "
+                    f"ms in a graph (plain {r['plain_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms")
+            time_row(f"ragged_paged_attention_{kv}{ragged_suffix}@{d}", err,
+                     lambda: pa.ragged_paged_attention_cuda(b["q"], cache, m, scale=scale,
+                                                            kv_scales=scales, **mods),
+                     lambda: pa.ragged_paged_attention_paged_plain(b["q"], cache, m, scale=scale,
+                                                                   kv_scales=scales, **mods),
+                     mixed_specs, elt, dtype_name, False, **kvw)
+            del cache, scales
+            bd = as_dtype(decode, dtype)
+            err, dcache, dscales = check_kv8(torch, bd, kv, f"{label} decode", tol, decode=True,
+                                             **mods)
+            time_row(f"fused_decode_attention_{kv}{fused_suffix}@{d}", err,
+                     lambda: pa.ragged_paged_attention_fused_cuda(
+                         bd["q"], dcache, bd["k"], bd["v"], dm, scale=scale, kv_scales=dscales,
+                         **mods),
+                     lambda: pa.fused_decode_attention_plain(
+                         bd["q"], dcache, bd["k"], bd["v"], dm, scale=scale, kv_scales=dscales,
+                         **mods),
+                     decode_specs, elt, dtype_name, True, **kvw)
+            del dcache, dscales, b, bd
+            torch.cuda.empty_cache()
+    # f32 queries over an f32 cache: A and B on the CUDA cores.
+    tol = ATTN_TOL["float32"]
+    b = as_dtype(mixed, torch.float32)
+    cache = mixed["cache"].float()
+    kv_write.write_kv_cache_cuda(cache, b["k"], b["v"], m.slot_mapping)
+    out = pa.ragged_paged_attention_cuda(b["q"], cache, m, scale=scale, **mods)
+    ref = pa.ragged_paged_attention_paged_plain(b["q"], cache, m, scale=scale, **mods)
+    err = (out[:n] - ref[:n]).abs().max().item()
+    if not torch.allclose(out[:n], ref[:n], atol=tol, rtol=tol):
+        raise AssertionError(f"ragged_paged_attention {label} f32 D={d} disagrees: {err:.3e}")
+    del out, ref
+    time_row(f"ragged_paged_attention_wide@{d}", err,
+             lambda: pa.ragged_paged_attention_cuda(b["q"], cache, m, scale=scale, **mods),
+             lambda: pa.ragged_paged_attention_paged_plain(b["q"], cache, m, scale=scale, **mods),
+             mixed_specs, 4, "float32", False)
+    del b, cache
+    bd = as_dtype(decode, torch.float32)
+    got, want = decode["cache"].float(), decode["cache"].float()
+    out = pa.ragged_paged_attention_fused_cuda(bd["q"], got, bd["k"], bd["v"], dm, scale=scale,
+                                               **mods)
+    ref = pa.fused_decode_attention_plain(bd["q"], want, bd["k"], bd["v"], dm, scale=scale,
+                                          **mods)
+    err = (out[:dn] - ref[:dn]).abs().max().item()
+    if not (torch.equal(got, want) and torch.allclose(out[:dn], ref[:dn], atol=tol, rtol=tol)):
+        raise AssertionError(f"fused_decode_attention {label} f32 D={d} disagrees: {err:.3e}, "
+                             f"cache bit-exact {torch.equal(got, want)}")
+    del out, ref, want
+    time_row(f"fused_decode_attention_wide@{d}", err,
+             lambda: pa.ragged_paged_attention_fused_cuda(bd["q"], got, bd["k"], bd["v"], dm,
+                                                          scale=scale, **mods),
+             lambda: pa.fused_decode_attention_plain(bd["q"], got, bd["k"], bd["v"], dm,
+                                                     scale=scale, **mods),
+             decode_specs, 4, "float32", True)
+    del bd, got
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2135,7 +2301,10 @@ def check_quant_kernels(torch):
                                   iters=iters) / len(copies)
                     plain_ms = graph_ms(torch, plain, iters=2)
                     w8a8 = route.startswith("w8a8")
-                    lib = library_ms if not w8a8 else None
+                    # One torch.mm on the dequantized bf16 weight computes
+                    # the same product for every route, H's too (its
+                    # activations quantized).
+                    lib = library_ms
                     nbytes, flops = qmm_work(M, K, N, group, bits=bits,
                                              x_bytes=1 if w8a8 else 2, w8a8=w8a8)
                     bound_ms, bound_by = bound(nbytes, flops, "int8" if w8a8 else "bfloat16")
@@ -2671,15 +2840,16 @@ FAMILIES = {
 FAMILY_MODEL_TOL = 3e-2
 
 
-def family_model(torch, name, num_layers):
+def family_model(torch, name, num_layers, dtype=None):
     """The family's model on the card at its published widths and
-    ``num_layers`` layers, bf16, with random weights from a seed."""
+    ``num_layers`` layers, bf16 (or ``dtype``), with random weights from a
+    seed."""
     from atoma_infer_tpu_torch.models.registry import get_model_cls
     from atoma_infer_tpu_torch.models.weights import config_from_hf_dict
 
     spec, _ = FAMILIES[name]
     cfg = config_from_hf_dict(dict(spec, num_hidden_layers=num_layers))
-    model = get_model_cls(cfg.architecture)(cfg, dtype=torch.bfloat16, device="cuda")
+    model = get_model_cls(cfg.architecture)(cfg, dtype=dtype or torch.bfloat16, device="cuda")
     seed = sorted(FAMILIES).index(name)
     return model, model.init_params(torch.Generator(device=model.device).manual_seed(seed))
 
@@ -2928,14 +3098,18 @@ def kv8_path(kv, *, mma=True):
 
 # The ragged kernels by route: bf16 queries must never launch the CUDA-core
 # kernels, nor f32 queries the tensor-core ones.
-CUDA_CORE_RAGGED = ("ragged_paged_attention", "ragged_paged_attention_int8",
-                    "ragged_paged_attention_fp8")
-TENSOR_CORE_RAGGED = tuple(f"{k}_mma" for k in CUDA_CORE_RAGGED)
+# (The wide head dims' instantiations of each have names of their own.)
+_KV_SUFFIXES = ("", "_int8", "_fp8")
+CUDA_CORE_RAGGED = tuple(f"ragged_paged_attention{s}{w}" for s in _KV_SUFFIXES
+                         for w in ("", "_wide"))
+TENSOR_CORE_RAGGED = tuple(f"ragged_paged_attention{s}_mma{w}" for s in _KV_SUFFIXES
+                           for w in ("", "_wide") if s or not w)
 # Likewise the fused decode kernels: bf16 queries the split kernel, f32
 # queries the unsplit one.
-UNSPLIT_FUSED = ("fused_decode_attention", "fused_decode_attention_int8",
-                 "fused_decode_attention_fp8")
-SPLIT_FUSED = tuple(f"{k}_split" for k in UNSPLIT_FUSED)
+UNSPLIT_FUSED = tuple(f"fused_decode_attention{s}{w}" for s in _KV_SUFFIXES
+                      for w in ("", "_wide"))
+SPLIT_FUSED = tuple(f"fused_decode_attention{s}_split{w}" for s in _KV_SUFFIXES
+                    for w in ("", "_wide") if s or not w)
 
 
 def check_route(label, launches, *, bf16):
@@ -3038,6 +3212,111 @@ def check_kv8_service_parity(torch):
             f"{len(prompts)} requests × 2 sequences, {n} greedy tokens identical on the "
             f"card and the CPU, with swaps on both; f32 queries: the CUDA-core ragged "
             f"kernel launched {launches[f'ragged_paged_attention_{kv}']} times")
+    return launches
+
+
+# Test-size f32 models shaped as Phi-3 (head dim 96, a window) and Gemma-2
+# (head dim 256, soft caps, a local and a global layer): the CUDA-core
+# kernels' traffic at the wide head dims.
+WIDE_F32_MODELS = {
+    96: dict(model_type="phi3", vocab_size=512, hidden_size=192, intermediate_size=256,
+             num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=2,
+             max_position_embeddings=512, rope_theta=10000.0, rms_norm_eps=1e-5,
+             sliding_window=24, tie_word_embeddings=False, bos_token_id=1, eos_token_id=2),
+    256: dict(model_type="gemma2", vocab_size=512, hidden_size=64, intermediate_size=128,
+              num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1, head_dim=256,
+              max_position_embeddings=512, rope_theta=10000.0, rms_norm_eps=1e-6,
+              query_pre_attn_scalar=256, sliding_window=16, attn_logit_softcapping=50.0,
+              final_logit_softcapping=30.0, hidden_activation="gelu_pytorch_tanh",
+              tie_word_embeddings=True, bos_token_id=2, eos_token_id=1),
+}
+
+
+def check_wide_f32_service_parity(torch):
+    """The f32 test-size services at head dims 96 and 256
+    (``WIDE_F32_MODELS``, weights drawn once on the CPU) over an f32, an
+    INT8 and an e4m3 cache, on the card (the CUDA-core ragged and unsplit
+    fused kernels) against the CPU (plain versions): greedy tokens
+    identical, every block back, and on the card every attention launch on
+    the f32 route. Returns the CUDA-core kernels' launches (their ``*_wide``
+    instantiations) keyed ``kernel@D``, each from its own card run (counts
+    set to 0 just before it)."""
+    from atoma_infer_tpu_torch.config import (
+        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
+    )
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+    from atoma_infer_tpu_torch.models.registry import get_model_cls
+    from atoma_infer_tpu_torch.models.weights import config_from_hf_dict
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
+
+    prompts = [f"wide prompt {i}, " * (1 + 3 * (i % 3)) for i in range(6)]
+    blocks = 64
+    launches = {}
+    for d, spec in WIDE_F32_MODELS.items():
+        cfg = config_from_hf_dict(spec)
+        cls = get_model_cls(cfg.architecture)
+        cpu_model = cls(cfg, dtype=torch.float32, device="cpu")
+        cpu_params = cpu_model.init_params(torch.Generator().manual_seed(d))
+        gpu_model = cls(cfg, dtype=torch.float32, device="cuda")
+        gpu_params = params_to(cpu_params, gpu_model.device)
+        for kv, suffix in ((None, ""), ("int8", "_int8"), ("fp8", "_fp8")):
+            runs = {}
+            for device, model, params in (("cpu", cpu_model, cpu_params),
+                                          ("cuda", gpu_model, gpu_params)):
+                config = EngineConfig(
+                    model=ModelConfig(model_name=f"tiny-{spec['model_type']}-d{d}",
+                                      dtype="float32", kv_cache_dtype=kv),
+                    cache=CacheConfig(block_size=BS, num_device_blocks_override=blocks,
+                                      num_host_blocks_override=16),
+                    scheduler=SchedulerConfig(max_num_batched_tokens=64, max_num_sequences=8,
+                                              max_model_len=256, enable_chunked_prefill=True),
+                    validation=ValidationConfig(max_input_tokens=128, max_total_tokens=256),
+                )
+                service = LlmService.start(config, model=model, params=params,
+                                           tokenizer=ByteTokenizer(cfg.vocab_size),
+                                           device=model.device)
+                if device == "cuda":
+                    for k in cuda_lib.KERNELS.values():
+                        k.launches = 0
+
+                async def drive(service=service):
+                    task = asyncio.create_task(service.engine.run())
+                    futs = [await service.handle_request(GenerateRequest(
+                        request_id=f"wide-{i}", inputs=prompt,
+                        parameters=GenerateParameters(max_new_tokens=16)))
+                        for i, prompt in enumerate(prompts)]
+                    results = await asyncio.wait_for(asyncio.gather(*futs), timeout=300)
+                    service.stop()
+                    task.cancel()
+                    return results
+
+                results = asyncio.run(drive())
+                label = f"f32 D={d} {kv or 'f32'} KV service parity ({device})"
+                free = service.engine.scheduler.block_manager.get_num_free_device_blocks()
+                if free != blocks:
+                    raise AssertionError(f"{label}: {blocks - free} blocks leaked")
+                runs[device] = [tuple(r.outputs[0].token_ids) for r in results]
+                if device == "cuda":
+                    counts = {k: c.launches for k, c in cuda_lib.KERNELS.items()}
+                    check_route(label, counts, bf16=False)
+                    for k in (f"ragged_paged_attention{suffix}_wide",
+                              f"fused_decode_attention{suffix}_wide"):
+                        if not counts[k]:
+                            raise AssertionError(f"{label}: {k} was not launched")
+                        launches[f"{k}@{d}"] = counts[k]
+            if runs["cuda"] != runs["cpu"]:
+                raise AssertionError(f"f32 D={d} {kv or 'f32'} KV service parity: greedy tokens "
+                                     "differ between card and CPU")
+            log(f"f32 D={d} ({spec['model_type']}) {kv or 'f32'} KV service parity: "
+                f"{len(prompts)} requests, {sum(map(len, runs['cuda']))} greedy tokens identical "
+                f"on the card and the CPU; CUDA-core ragged kernel launched "
+                f"{launches[f'ragged_paged_attention{suffix}_wide@{d}']} times, unsplit fused "
+                f"{launches[f'fused_decode_attention{suffix}_wide@{d}']}")
+        del cpu_model, cpu_params, gpu_model, gpu_params
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -3705,14 +3984,12 @@ def report_profiled_steps(torch, label, profiled, ragged, ragged_calls):
             f"H {h_ms:.3f} ms; top device time (ms): {top}")
         # The same calls again, each through the route and through the
         # CUDA-core kernel by a direct launch (device time in CUDA graphs,
-        # summed), where it has the head dim (not Phi-3's or Gemma-2's) and
-        # the queries' dtype (not fp16).
-        from atoma_infer_tpu_torch.ops.paged_attention import HEAD_DIMS
-
+        # summed), where its bf16 form has the head dim (not Phi-3's or
+        # Gemma-2's) and the queries' dtype (not fp16).
         new_ms = sum(graph_ms(torch, lambda c=c: ragged(c[0], c[1], c[2], **c[3]))
                      for c in ragged_calls)
         old = "no CUDA-core kernel at this head dim"
-        if all(c[0].shape[2] in HEAD_DIMS and c[0].dtype == torch.bfloat16
+        if all(c[0].shape[2] in CUDA_CORE_BF16_DIMS and c[0].dtype == torch.bfloat16
                for c in ragged_calls):
             old_ms = sum(graph_ms(torch, lambda c=c: cuda_core_attention(
                 c[0], c[1], c[2], scale=c[3]["scale"], kv_scales=c[3].get("kv_scales")))
@@ -3752,8 +4029,10 @@ def serve_both(torch, label, model, params, make_config, path, mode,
 
 
 def bf16_config(name, block_size, async_scheduling=False, max_model_len=2048,
-                max_num_sequences=64, num_speculative_tokens=0, dtype="bfloat16"):
-    """A bf16 (or ``dtype``) service's configuration: KV pool sized from
+                max_num_sequences=64, num_speculative_tokens=0, dtype="bfloat16",
+                kv_cache_dtype=None):
+    """A bf16 (or ``dtype``) service's configuration over a KV cache of
+    ``kv_cache_dtype`` (None: the model's dtype): KV pool sized from
     ``torch.cuda.mem_get_info``, chunked prefill with a 256-token budget
     (prompts arriving while others decode share steps with them, so mixed
     prefill+decode steps run), prompts of up to ``max_model_len`` − 1,024
@@ -3763,7 +4042,7 @@ def bf16_config(name, block_size, async_scheduling=False, max_model_len=2048,
     )
 
     return EngineConfig(
-        model=ModelConfig(model_name=name, dtype=dtype),
+        model=ModelConfig(model_name=name, dtype=dtype, kv_cache_dtype=kv_cache_dtype),
         cache=CacheConfig(block_size=block_size, hbm_memory_utilization=0.5,
                           num_host_blocks_override=64),
         scheduler=SchedulerConfig(
@@ -3962,31 +4241,90 @@ def run_shape_services(torch):
 PHI3_PROMPT_LENGTHS = (16, 2100, 45, 120, 200, 77, 250, 33)
 
 
+# The families over 1-byte KV caches (bf16 weights and queries): at full
+# depth over the cache their model is served with first, the crossed pair at
+# 8 layers, which keeps the smoke within its time limit. (family, cache,
+# layers).
+WIDE_KV8_SERVICES = (
+    ("Phi-3-mini-4k-instruct", "int8", 32),
+    ("Gemma-2-9B", "fp8", 42),
+    ("Phi-3-mini-4k-instruct", "fp8", 8),
+    ("Gemma-2-9B", "int8", 8),
+)
+WIDE_KV8_TOKENS = 64
+
+
+def wide_kv8_path(name, kv):
+    """A wide family's path over a 1-byte cache: the write, the ``*_wide``
+    tensor-core ragged and split fused kernels, and (not Phi-3-mini, whose
+    plans never split) the merge."""
+    path = (f"reshape_and_cache_{kv}", f"ragged_paged_attention_{kv}_mma_wide",
+            f"fused_decode_attention_{kv}_split_wide")
+    return path if name.startswith("Phi-3") else path + ("paged_attention_split_combine",)
+
+
+def family_config(name, kv=None, dtype="bfloat16"):
+    """A family service's configuration maker (``make_config(async)``) over
+    a KV cache of ``kv``: Phi-3-mini's 4,096 positions, the others' 2,048."""
+    max_len = 4096 if name.startswith("Phi-3") else 2048
+    return lambda a: bf16_config(f"{name.lower()}-random", BS, async_scheduling=a,
+                                 max_model_len=max_len, dtype=dtype, kv_cache_dtype=kv)
+
+
+def serve_wide_kv8(torch, name, kv, model, params, layers):
+    """One family over a 1-byte cache (``WIDE_KV8_SERVICES``): eager, then
+    synchronous with graphs, tokens identical; every attention launch of the
+    graphs' run a D or E ``*_wide`` kernel's (no CUDA-core, narrow or plain
+    route). Returns its path's launches keyed ``kernel@D``."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+
+    d = model.config.head_dim
+    label = f"{name} {kv.upper()} KV ({layers} of {FAMILIES[name][1]} layers)"
+    path = wide_kv8_path(name, kv)
+    lengths = PHI3_PROMPT_LENGTHS if name.startswith("Phi-3") else PROMPT_LENGTHS
+    counts = serve_both(torch, label, model, params, family_config(name, kv), path, "graphs",
+                        WIDE_KV8_TOKENS, prompt_lengths=lengths)
+    off = {k: n for k, n in counts.items() if n and k not in path and k in cuda_lib.KERNELS
+           and k.startswith(("ragged_paged_attention", "fused_decode_attention", "reshape_and"))}
+    if off:
+        raise AssertionError(f"service {label}: attention launches off its D={d} path: {off}")
+    return {f"{k}@{d}": counts[k] for k in path if k != "paged_attention_split_combine"}
+
+
 def run_family_services(torch):
     """One service per family at its published widths (``FAMILIES``; 8 of
     Mixtral-8x7B's 32 layers, the rest at full depth), bf16 with random
     weights from a seed: eager, then synchronous with its decode graphs,
     tokens identical, every attention kernel of the path launched, the
-    graphs' memory held to the KV pool's reserve. Returns the D = 96 and 256
-    services' launch counts, keyed ``kernel@D``."""
+    graphs' memory held to the KV pool's reserve. Then Phi-3-mini and
+    Gemma-2-9B over 1-byte caches (``WIDE_KV8_SERVICES``, the full-depth
+    ones on the same weights). Returns the D = 96 and 256 services' launch
+    counts, keyed ``kernel@D``."""
     launches = {}
     for name, (spec, layers) in FAMILIES.items():
         model, params = family_model(torch, name, layers)
-        max_len = 4096 if name.startswith("Phi-3") else 2048
         lengths = PHI3_PROMPT_LENGTHS if name.startswith("Phi-3") else PROMPT_LENGTHS
         log(f"service {name}: {layers} of {spec['num_hidden_layers']} layers, "
             f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB of weights")
         # Phi-3-mini's 32 kv heads fill the card unsplit: no merge on its
         # path (WIDE_HEAD_SHAPES).
         path = ATTENTION_PATH if name.startswith("Phi-3") else SERVICE_PATH
-        counts = serve_both(
-            torch, name, model, params,
-            lambda a, n=name, m=max_len: bf16_config(f"{n.lower()}-random", BS,
-                                                     async_scheduling=a, max_model_len=m),
-            path, "graphs", prompt_lengths=lengths)
+        counts = serve_both(torch, name, model, params, family_config(name), path, "graphs",
+                            prompt_lengths=lengths)
         d = model.config.head_dim
         if d in WIDE_HEAD_DIMS:
             launches.update({f"{k}@{d}": counts[k] for k in SERVICE_PATH})
+        for kv_name, kv, kv_layers in WIDE_KV8_SERVICES:
+            if kv_name == name and kv_layers == layers:
+                launches.update(serve_wide_kv8(torch, name, kv, model, params, layers))
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, kv, layers in WIDE_KV8_SERVICES:
+        if layers == FAMILIES[name][1]:
+            continue
+        model, params = family_model(torch, name, layers)
+        launches.update(serve_wide_kv8(torch, name, kv, model, params, layers))
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5264,9 +5602,11 @@ def run_fp16_services(torch):
     graphs; Llama-3.1-8B's widths at FP16_8B_LAYERS layers with INT8
     weights over an INT8 KV cache, eager then with graphs; then, eager, the
     same with INT4 weights over an e4m3 cache and with INT8 weights under
-    W8A8 (G, E and H on fp16). Tokens identical eager and with graphs, every
-    launch an fp16 kernel's. Returns each fp16 kernel's launches from its
-    path's run."""
+    W8A8 (G, E and H on fp16), and Phi-3-mini at ``FP16_8B_LAYERS`` layers
+    over an INT8 and an e4m3 cache (D and E's wide fp16 kernels). Tokens
+    identical eager and with graphs, every launch an fp16 kernel's. Returns
+    each fp16 kernel's launches from its path's run (the wide ones keyed
+    ``kernel@D``)."""
     from atoma_infer_tpu_torch.ops import quant_kernels
 
     launches = {}
@@ -5312,6 +5652,22 @@ def run_fp16_services(torch):
             quant_kernels._W8A8 = saved
         check_fp16_route(label, counts)
         launches.update({k: counts[k] for k in path})
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Eager, the fp16 instantiations of D and E at a wide head dim: Phi-3-mini
+    # over an INT8 and an e4m3 cache, on the same weights.
+    name = FP16_WIDE_FAMILY
+    model, params = family_model(torch, name, FP16_8B_LAYERS, torch.float16)
+    for kv in KV8_DTYPES:
+        path = tuple(f"{k}_f16" for k in wide_kv8_path(name, kv))
+        label = f"{name} {kv.upper()} KV fp16 ({FP16_8B_LAYERS} of {FAMILIES[name][1]} layers)"
+        counts, _ = serve(torch, label, model, params, family_config(name, kv, "float16")(False),
+                          path, new_tokens=FP16_TOKENS, prompt_lengths=PHI3_PROMPT_LENGTHS)
+        check_fp16_route(label, counts)
+        launches.update({f"{k}@{FP16_WIDE_DIM}": counts[k] for k in path[1:3]})
         gc.collect()
         torch.cuda.empty_cache()
     del model, params
@@ -5874,6 +6230,7 @@ def main() -> int:
     launches_cuda_cores = phase(check_service_parity)
     launches_cuda_cores.update(phase(check_quant_service_parity))
     launches_cuda_cores.update(phase(check_kv8_service_parity))
+    launches_cuda_cores.update(phase(check_wide_f32_service_parity))
     phase(check_ladder_parity)
     phase(check_spec_service_parity)
     # The profiler's first start sets up device tracing, which takes
@@ -5930,12 +6287,23 @@ def main() -> int:
     phase(run_tools)
 
     line = []
-    # Every kernel at its main path's shapes; then A, B and the merge at
-    # Phi-3-mini's and Gemma-2-9B's head dims, their launches from those
-    # families' services.
-    named = [(name, name, rows[name]) for name in cuda_lib.KERNELS]
+    # Every kernel at its main path's shapes; then A, B, C, D, E and the
+    # merge at Phi-3-mini's and Gemma-2-9B's head dims, their launches from
+    # those families' services (the f32 kernels' from the f32 test-size
+    # services); the 1-byte caches' wide kernels have only these rows.
+    named = [(name, name, rows[name]) for name in cuda_lib.KERNELS if name in rows]
     named += [(key, f"{key.split('@')[0]} (D={key.split('@')[1]})", r)
               for key, r in wide_rows.items()]
+    rowless = [k for k in cuda_lib.KERNELS if k not in rows
+               and not any(key.split("@")[0] == k for key in wide_rows)]
+    if rowless:
+        raise AssertionError(f"kernels without a row in the kernels line: {rowless}")
+    # Every wide row's kernel ran on its head dim's service; Phi-3-mini's
+    # plans never split, so its merge has no launch there (WIDE_HEAD_SHAPES).
+    for key in wide_rows:
+        if not launches.get(key) and key != "paged_attention_split_combine@96":
+            raise AssertionError(f"{key.split('@')[0]} was not launched on a D="
+                                 f"{key.split('@')[1]} service")
     named += [(key, f"{key.split('@')[0]} (verify rows)", r) for key, r in verify_rows.items()]
     named += [(key, f"{key.split('@')[0]} ({key.split('@tp ')[1]} per-rank shapes"
                + (", scales_new)" if "int8" in key and "matmul" not in key else ")"), r)

@@ -342,16 +342,18 @@ def test_mixtral_mix_is_the_top_k_experts(checkpoints):
 
 
 # -------------------------------------------------------------- the services
-def _serve_dir(pkg, model_dir, prompts):
+def _serve_dir(pkg, model_dir, prompts, kv_cache_dtype=None):
     """Greedy tokens of ``pkg``'s ``LlmService`` loading ``model_dir`` in f32
-    on the CPU (the JAX service's platform here), 16 new tokens a prompt."""
+    on the CPU (the JAX service's platform here), 16 new tokens a prompt,
+    over a KV cache of ``kv_cache_dtype`` (None: f32; "int8" or "fp8")."""
     import importlib
 
     cfg = importlib.import_module(f"{pkg}.config")
     service_mod = importlib.import_module(f"{pkg}.engine.llm_service")
     types = importlib.import_module(f"{pkg}.types")
     config = cfg.EngineConfig(
-        model=cfg.ModelConfig(model_name=model_dir, dtype="float32"),
+        model=cfg.ModelConfig(model_name=model_dir, dtype="float32",
+                              kv_cache_dtype=kv_cache_dtype),
         cache=cfg.CacheConfig(block_size=BLOCK_SIZE, num_device_blocks_override=96,
                               num_host_blocks_override=16),
         scheduler=cfg.SchedulerConfig(max_num_batched_tokens=64, max_num_sequences=8,
@@ -389,5 +391,18 @@ def test_service_greedy_tokens_match_jax(name, checkpoints):
     model_dir, _ = checkpoints(name)
     want = _serve_dir("atoma_infer_tpu", model_dir, SERVICE_PROMPTS)
     got = _serve_dir("atoma_infer_tpu_torch", model_dir, SERVICE_PROMPTS)
+    assert got == want
+    assert all(len(t) == 16 or t[-1] == 1 for t in got)
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("name", ["phi3-d96", "gemma2-d256"])
+def test_service_greedy_tokens_match_jax_over_1byte_caches(name, kv, checkpoints):
+    """Phi-3-mini's head dim (96) and Gemma-2's (256) over an INT8 and an
+    e4m3 KV cache, the shapes the card's kernels D and E now take: both
+    services from the same directory give identical greedy tokens."""
+    model_dir, _ = checkpoints(name)
+    want = _serve_dir("atoma_infer_tpu", model_dir, SERVICE_PROMPTS, kv)
+    got = _serve_dir("atoma_infer_tpu_torch", model_dir, SERVICE_PROMPTS, kv)
     assert got == want
     assert all(len(t) == 16 or t[-1] == 1 for t in got)

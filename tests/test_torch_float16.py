@@ -366,15 +366,17 @@ def _q(dtype, d=64, hq=4):
                                                                              "fp8"])
 def test_fp16_kernel_shapes_are_the_bf16_routes(kind, head_dim):
     """fp16 queries take the bf16 route's head dims: every family's over an
-    fp16 cache, 32/64/128 over a 1-byte cache (96 and 256 refused, naming
-    the ROADMAP item, as for bf16)."""
+    fp16, an INT8 and an e4m3 cache; a 1-byte cache at 96 and 256 through
+    the fp16 ``*_wide`` instantiations, as bf16 through its own."""
     shape = dict(head_dim=head_dim, dtype=torch.float16, kind=kind, group=2, block_size=16)
     for fused in (False, True):
-        if kind is None or head_dim in (32, 64, 128):
-            pa.check_kernel_shape(fused=fused, **shape)
-        else:
-            with pytest.raises(ValueError, match="kernels D and E at head dims 96 and 256"):
-                pa.check_kernel_shape(fused=fused, **shape)
+        pa.check_kernel_shape(fused=fused, **shape)
+    q16 = _q(torch.float16, d=head_dim)
+    wide = kind is not None and head_dim in pa.WIDE_HEAD_DIMS
+    assert pa.ragged_route(q16, kind) is (pa.RAGGED_ATTENTION_MMA_WIDE_F16 if wide
+                                          else pa.RAGGED_ATTENTION_MMA_F16)[kind]
+    assert pa.fused_route(q16, kind) is (pa.FUSED_DECODE_SPLIT_WIDE_F16 if wide
+                                         else pa.FUSED_DECODE_SPLIT_F16)[kind]
 
 
 @pytest.mark.parametrize("kind", [None, torch.int8, torch.float8_e4m3fn])

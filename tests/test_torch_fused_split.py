@@ -304,32 +304,43 @@ def test_model_matches_plain_and_jax_fused(kind, D, group, mod):
         np.testing.assert_array_equal(_bytes(sc), _bytes(sc_j))
 
 
+def _wide_cases(shapes):
+    """(D, group, kind) cases: each shape over a bf16 cache (its first
+    cases, ids as they were), then over INT8 and e4m3 caches."""
+    return ([pytest.param(D, g, "bf16", id=f"{D}-{g}") for D, g in shapes]
+            + [pytest.param(D, g, kind, id=f"{D}-{g}-{kind}") for kind in ("int8", "fp8")
+               for D, g in shapes])
+
+
 @pytest.mark.parametrize("block_size", [16, 64])
-@pytest.mark.parametrize("D, group", [(96, 1), (256, 2), (96, 8), (256, 8)])
-def test_model_matches_plain_wide_heads(block_size, D, group):
+@pytest.mark.parametrize("D, group, kind", _wide_cases([(96, 1), (256, 2), (96, 8), (256, 8)]))
+def test_model_matches_plain_wide_heads(block_size, D, group, kind):
     """The same at Phi-3-mini's (96) and Gemma-2's (256) head dims over a
-    bf16 cache, the only cache the kernel takes there."""
-    test_model_matches_plain("bf16", block_size, D, group)
+    bf16, an INT8 and an e4m3 cache."""
+    test_model_matches_plain(kind, block_size, D, group)
 
 
-@pytest.mark.parametrize("D, group", [(96, 1), (256, 2)])
+@pytest.mark.parametrize("D, group, kind", _wide_cases([(96, 1), (256, 2)]))
 @pytest.mark.parametrize("mod", ["none", "window", "soft_cap", "alibi"])
-def test_model_matches_plain_and_jax_fused_wide_heads(D, group, mod):
-    """The same at Phi-3-mini's and Gemma-2's shapes (group 1 and 2)."""
-    test_model_matches_plain_and_jax_fused("bf16", D, group, mod)
+def test_model_matches_plain_and_jax_fused_wide_heads(D, group, kind, mod):
+    """The same at Phi-3-mini's and Gemma-2's shapes (group 1 and 2), over
+    each cache kind."""
+    test_model_matches_plain_and_jax_fused(kind, D, group, mod)
 
 
 # ------------------------------------------------- the kernel's geometry
 def fs_tile(D, elt):
-    """``FsTile``: (16-byte pieces of a K row, a lane's piece in bytes, the
-    ring's padded row in bytes)."""
+    """``FsTile``: (16-byte pieces of a K row, a lane's piece in bytes: 16
+    where the row is a multiple of 64 bytes, else 8; the ring's padded row
+    in bytes)."""
     nbytes = D * elt
-    piece = 16 if nbytes >= 64 else nbytes // 4
+    piece = 16 if nbytes % 64 == 0 else 8
     row = (nbytes + 64 + 127) // 128 * 128 - 64 if piece == 16 else nbytes
     return nbytes // 16, piece, row
 
 
-GEOMETRIES = [(32, 2), (64, 2), (96, 2), (128, 2), (256, 2), (32, 1), (64, 1), (128, 1)]
+GEOMETRIES = [(32, 2), (64, 2), (96, 2), (128, 2), (256, 2), (32, 1), (64, 1), (128, 1),
+              (96, 1), (256, 1)]
 
 
 @pytest.mark.parametrize("D, elt", GEOMETRIES)
@@ -337,13 +348,14 @@ def test_ring_copies_and_loads(D, elt):
     """A warp's ring copies each of the round's 32 K rows whole and once:
     copy c of lane l is chunk l % kChunks of key c (32 / kChunks) + l /
     kChunks where the chunks divide the lanes, else (12 chunks a row at D =
-    96, ``kWalk``) piece 32 c + l of the round's key-major pieces. Q·Kᵀ's
+    96, 6 in a 1-byte cache: ``kWalk``) piece 32 c + l of the round's
+    key-major pieces. Q·Kᵀ's
     reads, lane (gid, tig) kPiece bytes at 4 kPiece c + kPiece tig of key
     8 j + gid's row: within the row, and a load phase (2 keys of 16-byte
     pieces, or 4 of 8-byte ones) on disjoint banks."""
     chunks, piece, row = fs_tile(D, elt)
     walk = 32 % chunks != 0
-    assert walk == (D * elt == 192)
+    assert walk == (D == 96)
     seen = {}
     for c in range(chunks):
         for lane in range(32):
@@ -388,8 +400,9 @@ def test_v_runs_are_read_in_aligned_pieces(D, elt, num_kv_heads):
     read VC dims at a time (the whole run, or 16 dims at D = 256) in
     ``load_run``'s pieces (16 bytes where a piece's words are a multiple of
     4, else 8, else 4): the pieces tile the run exactly, never past it (at D
-    = 96 a run is 24 bytes: three 8-byte pieces, not two 16-byte ones), and
-    each is aligned to its size at every kv head, lane and cache row."""
+    = 96 a run is 24 bytes: three 8-byte pieces, not two 16-byte ones; in a
+    1-byte cache 12 bytes: three 4-byte pieces), and each is aligned to its
+    size at every kv head, lane and cache row."""
     NT = D // 8
     VC = 16 if NT > 16 else NT
     words = VC * elt // 4

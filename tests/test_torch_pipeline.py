@@ -18,6 +18,7 @@ cohort's step is in flight, the step metrics under PP; and
 """
 
 import asyncio
+import time
 
 import jax
 import jax.numpy as jnp
@@ -435,6 +436,48 @@ def test_cohorts_share_one_pool_without_leaks(tmp_path):
     assert not engine._pending
     bm = engine.schedulers[0].block_manager
     assert bm.get_num_free_device_blocks() == service.config.cache.num_device_blocks
+
+
+def test_request_added_when_the_last_resolves_joins_cohort_zero(tmp_path, monkeypatch):
+    """A request added as soon as the one before it resolves (nothing else
+    in flight) joins cohort 0: the finished group's future resolves only
+    after its cohort's scheduler has dropped it, so ``add_request`` never
+    counts a finished group. The removal is slowed down, which used to let
+    the awaiter add its next request first and send it to cohort 1."""
+    from atoma_infer_tpu_torch.core.scheduler import Scheduler
+    from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
+
+    remove = Scheduler.remove_finished_sequences
+
+    def slow_remove(self):
+        if any(g.is_finished() for g in self.running):
+            time.sleep(0.2)
+        return remove(self)
+
+    monkeypatch.setattr(Scheduler, "remove_finished_sequences", slow_remove)
+    service = _pp_service(tmp_path)
+    engine = service.engine
+    cohorts = []
+    add = engine.add_request
+
+    def spy(group, *args):
+        add(group, *args)
+        cohorts.append(group.cohort)
+
+    engine.add_request = spy
+
+    async def run():
+        task = asyncio.create_task(engine.run())
+        for i in range(3):
+            fut = await service.handle_request(GenerateRequest(
+                request_id=f"one-{i}", inputs=PROMPTS[i % len(PROMPTS)],
+                parameters=GenerateParameters(max_new_tokens=3, do_sample=False)))
+            await asyncio.wait_for(fut, timeout=60)
+        service.stop()
+        task.cancel()
+
+    asyncio.run(run())
+    assert cohorts == [0, 0, 0]
 
 
 def test_abort_while_its_cohorts_step_is_in_flight(tmp_path):

@@ -221,8 +221,11 @@ def serve_waves(pkg, service, waves, *, max_new=12):
     """Greedy ``waves`` of prompts through a running-loop service of package
     ``pkg``: each wave's requests reach the engine together (held until the
     whole wave is validated, so that no scheduling pass sees part of a
-    wave), once the wave before it has finished. Returns {request id: token
-    ids} and stops the service."""
+    wave), once the wave before it has finished and every scheduler of the
+    service has dropped it (JAX's engine resolves a finished request before
+    its cohort's scheduler drops it, so at pp 2 a wave released at once
+    could see a stale count and join another cohort). Returns {request id:
+    token ids} and stops the service."""
     types = importlib.import_module(f"{pkg}.types")
     engine = service.engine
     add, held = engine.add_request, []
@@ -236,6 +239,10 @@ def serve_waves(pkg, service, waves, *, max_new=12):
                 request_id=f"w{w}-{i}", inputs=p,
                 parameters=types.GenerateParameters(max_new_tokens=max_new, do_sample=False)))
                 for i, p in enumerate(prompts)]
+            deadline = asyncio.get_running_loop().time() + 60
+            while any(s.get_num_unfinished_seq_groups() for s in engine.schedulers):
+                assert asyncio.get_running_loop().time() < deadline, "a wave never drained"
+                await asyncio.sleep(0.001)
             for args in held:
                 add(*args)
             held.clear()

@@ -262,11 +262,20 @@ def test_fragments_assemble_qk_and_pv(kind, D):
     np.testing.assert_allclose(O, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("D", [96, 256])
-def test_fragments_assemble_qk_and_pv_wide_heads(D):
+def _by_kind(cases):
+    """Each case over a bf16 cache (ids as they were), then over INT8 and
+    e4m3 caches (ids ending in the kind)."""
+    return ([pytest.param(*c, "bf16", id="-".join(map(str, c))) for c in cases]
+            + [pytest.param(*c, kind, id="-".join(map(str, c + (kind,))))
+               for kind in ("int8", "fp8") for c in cases])
+
+
+@pytest.mark.parametrize("D, kind", _by_kind([(96,), (256,)]))
+def test_fragments_assemble_qk_and_pv_wide_heads(D, kind):
     """The same at Phi-3-mini's and Gemma-2's head dims (6 and 16 k16
-    steps, 12 and 32 n8 tiles of O), bf16: the kernel's only cache there."""
-    test_fragments_assemble_qk_and_pv("bf16", D)
+    steps, 12 and 32 n8 tiles of O), over each cache kind (a 1-byte tile
+    through the widening pass: 6 and 16 pieces a row)."""
+    test_fragments_assemble_qk_and_pv(kind, D)
 
 
 def rpa_tile_geometry(D, elt=2):
@@ -276,7 +285,7 @@ def rpa_tile_geometry(D, elt=2):
 
 
 @pytest.mark.parametrize("D, elt", [(32, 2), (64, 2), (96, 2), (128, 2), (256, 2),
-                                    (32, 1), (64, 1), (128, 1)])
+                                    (32, 1), (64, 1), (128, 1), (96, 1), (256, 1)])
 @pytest.mark.parametrize("warps", [4, 8])
 def test_tile_copies_cover_each_piece_once(D, elt, warps):
     """The tile's copies take every (key, 16-byte piece) of a 64-key tile's
@@ -284,7 +293,8 @@ def test_tile_copies_cover_each_piece_once(D, elt, warps):
     thread tid copies piece tid % kPieces of every (NT / kPieces)-th key
     from key tid / kPieces; else (24 pieces a key at D = 96, ``kWalk``)
     pass i's thread tid copies piece c = i·NT + tid of the tile's
-    key-major pieces."""
+    key-major pieces (24 pieces a key at D = 96, 12 in a 1-byte cache: the
+    walk either way)."""
     NT = warps * 32
     _, chunks = rpa_tile_geometry(D, elt)
     pieces = 2 * chunks
@@ -505,12 +515,13 @@ def test_model_matches_plain_and_pallas(kind, D, group, mod):
     np.testing.assert_allclose(got[:n], pallas[:n], atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("D, group", [(96, 1), (96, 2), (256, 2)])
+@pytest.mark.parametrize("D, group, kind", _by_kind([(96, 1), (96, 2), (256, 2)]))
 @pytest.mark.parametrize("mod", ["none", "window", "soft_cap", "alibi"])
-def test_model_matches_plain_and_pallas_wide_heads(D, group, mod):
+def test_model_matches_plain_and_pallas_wide_heads(D, group, kind, mod):
     """The same at Phi-3-mini's head dim (group 1, as Phi-3-mini) and
-    Gemma-2's (group 2, as Gemma-2-9B), over a bf16 cache."""
-    test_model_matches_plain_and_pallas("bf16", D, group, mod)
+    Gemma-2's (group 2, as Gemma-2-9B), over a bf16, an INT8 and an e4m3
+    cache."""
+    test_model_matches_plain_and_pallas(kind, D, group, mod)
 
 
 # ------------------------------------------------------ the host's split plan

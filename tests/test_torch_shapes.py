@@ -1,8 +1,11 @@
 """The attention shapes the port's CUDA kernels first refused, against the
 JAX package on identical numpy inputs: GQA groups the fused decode kernel
 took no instance of (3, 5, 6, 7 query heads per kv head: Llama-3.2-3B,
-Qwen2.5-14B, Qwen2-1.5B, Qwen2-7B) and block sizes past 32 (48, 64, 128),
-which the ragged kernel now stages in key tiles of gcd(block_size, 32).
+Qwen2.5-14B, Qwen2-1.5B, Qwen2-7B), block sizes past 32 (48, 64, 128),
+which the ragged kernel now stages in key tiles of gcd(block_size, 32),
+and f32 queries at Phi-3-mini's and Gemma-2's head dims (96, 256) over
+f32, INT8 and e4m3 caches, with a numpy model of the CUDA-core ragged
+kernel's thread map there.
 
 On the CPU the port runs the kernels' plain versions, which take any shape;
 what these tests hold is that those plain versions, the ones the kernels
@@ -31,9 +34,11 @@ from atoma_infer_tpu.ops.kv_cache import scales_flat as jax_scales_flat
 from atoma_infer_tpu.ops.kv_cache import write_kv_cache as jax_write_kv_cache
 from atoma_infer_tpu.ops.paged_attention import (
     ragged_paged_attention_fused,
+    ragged_paged_attention_fused_quant,
     ragged_paged_attention_pallas,
 )
 from atoma_infer_tpu.ops.reference import ragged_paged_attention_xla
+from atoma_infer_tpu_torch.ops import paged_attention as pa
 from atoma_infer_tpu_torch.ops.paged_attention import (
     MAX_FUSED_GROUP,
     check_kernel_shape,
@@ -152,6 +157,99 @@ def test_ragged_plain_vs_jax_at_block_size(block_size, dtype):
         np.testing.assert_allclose(got[:n], pallas[:n], atol=ATOL, rtol=ATOL)
 
 
+# ------------------------------------- f32 queries at head dims 96 and 256
+@pytest.mark.parametrize("kv", ["float32", "int8", "fp8"])
+@pytest.mark.parametrize("D, num_kv_heads, group", [(96, 2, 2), (256, 1, 2)])
+def test_f32_wide_heads_plain_vs_pallas(D, num_kv_heads, group, kv):
+    """f32 queries at Phi-3-mini's head dim (96) and Gemma-2's (256) over
+    an f32, an INT8 and an e4m3 cache (blocks of 32, which JAX's kernels
+    take for 1-byte caches): the ragged plain version against JAX's Pallas
+    kernel in interpret mode on a mixed batch, and the fused one (write,
+    then attend) against JAX's fused kernel on a decode batch, caches and
+    scales byte for byte. Tolerance ATOL: the same f32 arithmetic in
+    another order (the 1-byte values are exact in f32)."""
+    rng = np.random.default_rng(D + len(kv))
+    kw = dict(num_q_heads=group * num_kv_heads, num_kv_heads=num_kv_heads, head_dim=D,
+              block_size=32, num_blocks=24, pad_seqs_to=8)
+    scale = D**-0.5
+    for decode, specs in ((False, [(40, 40), (1, 90), (9, 70), (1, 1)]),
+                          (True, [(1, kv_len) for kv_len in (1, 33, 90, 200)])):
+        case = ragged_case(rng, specs, **kw) if kv == "float32" else quantized_case(
+            rng, specs, kv, **kw)
+        n = valid_rows(case)
+        scales = case.get("kv_scales")
+        jscales = None if scales is None else jnp.asarray(jax_scale_pages(scales))
+        cache_t = to_torch(case["kv_cache"]).clone()
+        sc_t = None if scales is None else to_torch(scales).clone()
+        meta_t = torch_meta(case)
+        args = (jnp.asarray(case["q"]), jnp.asarray(case["kv_cache"]))
+        if decode:
+            got = fused_decode_attention_plain(
+                to_torch(case["q"]), cache_t, to_torch(case["k_new"]), to_torch(case["v_new"]),
+                meta_t, scale=scale, kv_scales=sc_t).numpy()
+            meta = dataclasses.replace(jax_meta(case), decode_only=True)
+            new = (jnp.asarray(case["k_new"]), jnp.asarray(case["v_new"]), meta)
+            if kv == "int8":
+                want, cache_j, sc_j = ragged_paged_attention_fused_quant(
+                    *args, jscales, *new, scale=scale, interpret=True)
+                np.testing.assert_array_equal(
+                    sc_t.view(torch.int16).numpy(),
+                    np.asarray(sc_j)[..., :2].view(np.int16))
+            else:
+                want, cache_j = ragged_paged_attention_fused(*args, *new, scale=scale,
+                                                             interpret=True)
+            np.testing.assert_array_equal(cache_t.view(torch.uint8).numpy(),
+                                          np.asarray(cache_j).view(np.uint8))
+        else:
+            got = ragged_paged_attention_paged_plain(
+                to_torch(case["q"]), cache_t, meta_t, scale=scale, kv_scales=sc_t).numpy()
+            want = ragged_paged_attention_pallas(*args, jax_meta(case), scale=scale,
+                                                 interpret=True, kv_scales=jscales)
+        np.testing.assert_allclose(got[:n], np.asarray(want)[:n], atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("group", [1, 3, 8])
+def test_cuda_core_ragged_thread_map_sums_each_dim_once(D, group):
+    """A numpy model of ``rpa_kernel``'s thread map (``csrc/paged_attention.cuh``):
+    TPR = ``rpa_threads_per_row`` threads a row (4 at D = 96, D / 32
+    otherwise), DPT = D / TPR dims each, the block's rows token-major in
+    threads rounded up to whole warps. Each thread's dims and its shared
+    memory reads (row j at j KS + part (DPT + 1) + i, KS = TPR (DPT + 1),
+    where the staging loop stored dim d at d / DPT (DPT + 1) + d % DPT) are
+    its own dims; the xor butterfly (offsets 1, 2, .. < TPR, within the
+    warp) sums a row's TPR partial dots and nothing else, so every lane of
+    a row ends with the row's full dot, each dim summed once."""
+    tpr = 4 if D == 96 else D // 32
+    dpt = D // tpr
+    assert tpr & (tpr - 1) == 0 and 32 % tpr == 0 and dpt * tpr == D
+    block_q = min(16, max(1, 256 // (group * tpr)))
+    threads = -(-block_q * group * tpr // 32) * 32
+    assert threads <= 256
+    ks = tpr * (dpt + 1)
+    # Where the staging loop stores each dim of a key row, and what each
+    # thread reads back: its own DPT dims, each slot once.
+    stored = {d // dpt * (dpt + 1) + d % dpt: d for d in range(D)}
+    assert len(stored) == D and max(stored) < ks
+    rng = np.random.default_rng(D + group)
+    q = rng.integers(-4, 5, size=(threads // tpr, D)).astype(np.int64)
+    k = rng.integers(-4, 5, size=D).astype(np.int64)
+    partial = np.zeros(threads, np.int64)
+    for tid in range(threads):
+        row, part = tid // tpr, tid % tpr
+        dims = [stored[part * (dpt + 1) + i] for i in range(dpt)]
+        assert dims == list(range(part * dpt, (part + 1) * dpt))
+        partial[tid] = sum(q[row, d] * k[d] for d in dims)
+    dot = partial.copy()
+    o = 1
+    while o < tpr:  # __shfl_xor_sync over each warp's 32 lanes
+        dot = np.array([dot[(tid // 32) * 32 + ((tid % 32) ^ o)] + dot[tid]
+                        for tid in range(threads)])
+        o <<= 1
+    for tid in range(threads):
+        assert dot[tid] == q[tid // tpr] @ k
+
+
 # ------------------------------------------------- the wrappers' own checks
 # The shape check's other arguments where a test varies one: Llama-3.1-8B's
 # head dim, bf16 queries over a bf16 cache.
@@ -188,20 +286,17 @@ KINDS = {"bf16": (torch.bfloat16, None), "f32": (torch.float32, None),
 @pytest.mark.parametrize("route", sorted(KINDS))
 @pytest.mark.parametrize("head_dim", [32, 64, 96, 128, 256])
 def test_kernel_shape_check_head_dims_by_route(route, head_dim):
-    """bf16 queries over a bf16 cache take every family's head dim (Phi-3's
-    96 and Gemma-2's 256 too); f32 queries and 1-byte caches 32, 64 and 128,
-    and refuse 96 and 256 naming the ROADMAP item that would add them."""
+    """Every route takes every family's head dim, Phi-3's 96 and Gemma-2's
+    256 too: bf16 queries over a bf16 cache, f32 queries (the CUDA-core
+    kernels) and bf16 queries over an INT8 or e4m3 cache (D and E), ragged
+    and fused, and each CUDA route names a kernel registered for it."""
     dtype, kind = KINDS[route]
     shape = dict(head_dim=head_dim, dtype=dtype, kind=kind, group=2, block_size=16)
-    if route == "bf16" or head_dim in (32, 64, 128):
-        for fused in (False, True):
-            check_kernel_shape(fused=fused, **shape)
-        return
-    item = ("f32 attention at head dims 96 and 256" if route == "f32"
-            else "kernels D and E at head dims 96 and 256")
     for fused in (False, True):
-        with pytest.raises(ValueError, match=f"head_dim {head_dim} .*Queue 1: {item}"):
-            check_kernel_shape(fused=fused, **shape)
+        check_kernel_shape(fused=fused, **shape)
+    q = torch.empty((2, 4, head_dim), dtype=dtype)
+    for route_fn in (pa.ragged_route, pa.fused_route):
+        assert pa.cuda_lib.KERNELS[route_fn(q, kind).name] is route_fn(q, kind)
 
 
 def test_kernel_shape_check_refuses_other_dims_and_dtypes():
@@ -236,20 +331,15 @@ FAMILY_SHAPES = {
                                        ("bfloat16", "int8"), ("bfloat16", "fp8")])
 def test_service_shape_check(family, dtype, kv):
     """``check_kernel_shapes`` (what ``LlmService.start`` runs on the card
-    before loading): every family in bf16 over a bf16 cache; f32 and 1-byte
-    caches at head dims 128 only, Phi-3-mini's and Gemma-2-9B's refused with
-    the ROADMAP item named."""
+    before loading) takes every family in bf16 over a bf16, an INT8 and an
+    e4m3 cache and in f32: Phi-3-mini and Gemma-2-9B over 1-byte caches
+    too."""
     from atoma_infer_tpu_torch.engine.llm_service import check_kernel_shapes
     from atoma_infer_tpu_torch.models.llama import LlamaConfig
 
     D, hq, hk = FAMILY_SHAPES[family]
     cfg = LlamaConfig(head_dim=D, num_attention_heads=hq, num_key_value_heads=hk)
-    config = _engine_config(dtype, kv)
-    if D == 128 or (dtype, kv) == ("bfloat16", None):
-        check_kernel_shapes(cfg, config)
-    else:
-        with pytest.raises(ValueError, match="ROADMAP.md, Queue 1: .* head dims 96 and 256"):
-            check_kernel_shapes(cfg, config)
+    check_kernel_shapes(cfg, _engine_config(dtype, kv))
 
 
 def test_service_shape_check_refuses_a_group_the_fused_kernel_lacks():
@@ -267,22 +357,26 @@ def test_service_shape_check_refuses_a_group_the_fused_kernel_lacks():
 ])
 def test_cuda_service_refuses_before_loading(dtype, kv, item, tmp_path, monkeypatch):
     """``LlmService.start`` on the card, from a directory holding only a
-    Phi-3-mini-shaped ``config.json`` (no weights, no tokenizer): the
-    refusal comes from the config alone, before anything is read or
-    allocated."""
+    ``config.json`` of Phi-3-mini's head dim on a route that used to refuse
+    it (``item``) and 10 q heads per kv head, a group the fused kernel still
+    lacks (no weights, no tokenizer): the refusal comes from the config
+    alone, before anything is read or allocated, and names the group's
+    ROADMAP item, not the head dim's."""
     import json
 
     from atoma_infer_tpu_torch.config import EngineConfig
     from atoma_infer_tpu_torch.engine import llm_service
 
     (tmp_path / "config.json").write_text(json.dumps(dict(
-        model_type="phi3", vocab_size=64, hidden_size=192, intermediate_size=256,
-        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=2, sliding_window=2047,
+        model_type="phi3", vocab_size=64, hidden_size=1920, intermediate_size=256,
+        num_hidden_layers=1, num_attention_heads=20, num_key_value_heads=2, sliding_window=2047,
     )))
     monkeypatch.setattr(llm_service, "resolve_device", lambda device: torch.device("cuda"))
     config = EngineConfig.from_dict({
         "inference": {"model_name": str(tmp_path), "dtype": dtype, "kv_cache_dtype": kv},
         "scheduler": {"max_model_len": 2048},
     })
-    with pytest.raises(ValueError, match=f"head_dim 96 .*ROADMAP.md, Queue 1: {item}"):
+    with pytest.raises(ValueError, match="10 q heads per kv head unsupported .*ROADMAP.md, "
+                       "Queue 1: fused decode at more than 8 q heads per kv head") as refused:
         llm_service.LlmService.start(config, model_dir=str(tmp_path))
+    assert item not in str(refused.value)
