@@ -1,50 +1,63 @@
-"""Pure-decode and verify steps captured in CUDA graphs and replayed.
+"""Every single-stage step captured in a CUDA graph and replayed.
 
 The port's counterpart of the JAX worker's one compiled program per bucket
-(``atoma_infer_tpu/engine/worker.py:207-222``). An eager decode step
-launches a few hundred kernels from Python; a replay launches them all with
-one call. A step replays a graph on a CUDA device when it needs no
-penalties and its rows are all decode rows (one query token a sequence) or
-decode and speculative verify rows (1+k query tokens a drafted sequence);
-steps with a prefill chunk, penalty batches and every CPU step run eagerly.
+(``atoma_infer_tpu/engine/worker.py:207-222``). An eager step launches a few
+hundred kernels from Python; a replay launches them all with one call. On a
+CUDA worker (one rank, one stage) every step replays a graph of its key:
+pure-decode, verify, prefill, mixed prefill + decode and penalty steps. CPU
+workers, tensor-parallel ranks (no collective is captured) and pipeline
+stages step eagerly.
 
-The graph key is the JAX step's static arguments. A pure-decode step's is
-``(T, S, P, needs_sampling, needs_typical, top_n, feed)``, ``decode_only``
-true. A verify step's is ``(T, S, P, 1+K, needs_sampling, needs_typical,
-top_n, True)``: T is S·(1+K) or a smaller power of two when the drafts fill
-less than half of it, ``max_q_len`` is 1+K (``input_prep``), and it has no
-feed, since a step with drafts runs synchronously.
+The graph key is the JAX step's static arguments, ``(T, S, P, decode_only,
+needs_sampling, needs_penalties, needs_typical, top_n, spec, feed)``, and
+``max_q_len``, which sizes the ragged kernels' grid and plan. Two kinds
+keep their shorter keys, so that their graphs are those measured before
+the other steps had any: a pure-decode step without penalties,
+:class:`DecodeKey` ``(T, S, P, needs_sampling, needs_typical, top_n,
+feed)``, and a verify step (decode and drafted rows, no penalties),
+:class:`VerifyKey` ``(T, S, P, 1+K, needs_sampling, needs_typical, top_n,
+True)``, T being S·(1+K) or a smaller power of two when the drafts fill
+less than half of it; a verify step has no feed, since a step with drafts
+runs synchronously. Every other step has a :class:`StepKey`: its
+``max_q_len`` is 1 (penalty decode), 1+K (penalty verify) or the bucket of
+its longest prefill chunk (``input_prep``), and ``spec`` is the verify
+rows' width 1+K, or 0.
 Everything else a step reads is the same tensors (weights, the KV caches,
 updated in place) or is copied into the static inputs before each replay,
 on the stream the replay runs on:
 - the packed metadata (token ids, positions, slots, block tables, lengths,
   the selected or verify rows, the feed's ``prev_map``);
-- the sampling tensors, when the worker's sampling version changed;
+- the sampling tensors, when the worker's sampling version changed (every
+  step of a penalty batch, whose recent-token window moves);
 - the Gumbel noise ``[S, V]``, made eagerly (a ``torch.Generator`` per row,
   reseeded from host integers, cannot be captured);
 - the async feed's previous tokens.
 
 The static inputs are ONE set for every key, each sized for the largest
-bucket: a graph reads the leading rows of each (its S rows, its packed
-length). So their memory does not grow with the number of keys. That is
-safe because graphs replay one at a time on one stream: each fill is
-enqueued after the previous replay's reads.
+step the scheduler can make: the widest token bucket (its token budget,
+``max_num_batched_tokens``, or S·(1+K) on a verify step), the largest
+sequence and page buckets. A graph reads the leading rows of each (its S
+rows, its packed length), so their memory does not grow with the number of
+keys. That is safe because graphs replay one at a time on one stream: each
+fill is enqueued after the previous replay's reads.
 
 A key's first step runs eagerly, which also loads every kernel and library
-handle it needs, and the capture follows it; later steps of the key replay.
-Every graph is captured into one memory pool, so the pool holds one step's
-workspaces whatever the number of keys; what stays allocated per key is its
+handle and fills every lookup cache it needs (kernel plans, occupancy), and
+the capture follows it: nothing happens for the first time inside a
+capture. Later steps of the key replay. Every graph is captured into one
+memory pool, so the pool holds one step's workspaces whatever the number of
+keys (the widest of them: a mixed step's activations at its T, or the LM
+head and sampler at the largest S); what stays allocated per key is its
 outputs. A graph's outputs are read only by work enqueued before the next
 replay (the host copy of the step's tokens, the next step's feed copy), so
-the next graph may reuse their memory. Each instantiated graph also holds
-device memory of the driver's, 2–3 MiB at 16–32 layers (measured on an H100
-by ``chip_smoke.py``), and the keys a deployment can reach number in the
-hundreds (sequence buckets × page buckets × sampling flags × top-n × feed:
-720 for 64 sequences of up to 2,048 tokens in blocks of 16, twice that with
-async scheduling): at most ``MAX_GRAPHS`` graphs live, and capturing one
-more drops the least recently used, whose key is captured again at its next
-step. A capture or replay that fails raises; nothing falls back to the eager
-step.
+the next graph may reuse their memory, whatever its kind. Each instantiated
+graph also holds device memory outside PyTorch's allocator, 2–3 MiB at 16–32 layers
+(measured on an H100 by ``chip_smoke.py``), and the keys a deployment can
+reach number in the thousands (token, sequence and page buckets ×
+``max_q_len`` buckets × sampling flags × top-n × feed): at most
+``MAX_GRAPHS`` graphs live, and capturing one more drops the least recently
+used, whose key is captured again at its next step. A capture or replay
+that fails raises; nothing falls back to the eager step.
 """
 
 from __future__ import annotations
@@ -52,53 +65,108 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Union
 
 import torch
 
 from ..ops import cuda_lib
+from .input_prep import bucket
 
 
 # The most graphs a worker keeps: the KV pool leaves their memory free
-# (``llm_service.decode_graph_bytes``). Steady traffic reaches far fewer keys
-# (the smoke's services 3–9, warmup included).
+# (``llm_service.graph_reserve_bytes``). Steady traffic reaches far fewer
+# keys (the smoke's services 6–11 in their traffic, 29 with warmup and the
+# widest keys; PERF.md).
 MAX_GRAPHS = 64
 
 
-def decode_graph_key(model_input, sampling, feed: bool) -> Optional[tuple]:
-    """The graph a step replays, or None for a step that runs eagerly: one
-    with a prefill chunk, or with penalties (their recent-token window moves
-    every step). A verify step (decode rows and drafted rows only) has a key
-    of its own, with ``max_q_len`` = 1+K."""
-    if model_input.num_prefills or sampling.needs_penalties:
-        return None
+class DecodeKey(NamedTuple):
+    """A pure-decode step without penalties."""
+
+    T: int
+    S: int
+    P: int
+    needs_sampling: bool
+    needs_typical: bool
+    top_n: int
+    feed: bool
+
+
+class VerifyKey(NamedTuple):
+    """A verify step: decode and drafted rows, no penalties."""
+
+    T: int
+    S: int
+    P: int
+    max_q_len: int
+    needs_sampling: bool
+    needs_typical: bool
+    top_n: int
+    verify: bool
+
+
+class StepKey(NamedTuple):
+    """Any other step: a prefill chunk, or penalties. The JAX step's static
+    arguments, and ``max_q_len``."""
+
+    T: int
+    S: int
+    P: int
+    decode_only: bool
+    needs_sampling: bool
+    needs_penalties: bool
+    needs_typical: bool
+    top_n: int
+    spec: int          # the verify rows' width 1+K, or 0
+    feed: bool
+    max_q_len: int
+
+
+GraphKey = Union[DecodeKey, VerifyKey, StepKey]
+
+
+def step_graph_key(model_input, sampling, feed: bool) -> GraphKey:
+    """The graph a step replays on the card: every step has one."""
     T = model_input.token_ids.shape[0]
     S, P = model_input.block_tables.shape
-    if model_input.spec_rows is not None:
-        if feed:
-            raise ValueError("a verify step runs synchronously: it takes no feed")
-        return (T, S, P, model_input.max_q_len, sampling.needs_sampling,
-                sampling.needs_typical, sampling.top_n, True)
-    return (T, S, P, sampling.needs_sampling, sampling.needs_typical, sampling.top_n, feed)
+    spec = 0 if model_input.spec_rows is None else model_input.spec_rows.shape[1]
+    if spec and feed:
+        raise ValueError("a verify step runs synchronously: it takes no feed")
+    if not model_input.num_prefills and not sampling.needs_penalties:
+        if spec:
+            return VerifyKey(T, S, P, model_input.max_q_len, sampling.needs_sampling,
+                             sampling.needs_typical, sampling.top_n, True)
+        return DecodeKey(T, S, P, sampling.needs_sampling, sampling.needs_typical,
+                         sampling.top_n, feed)
+    return StepKey(T, S, P, model_input.decode_only, sampling.needs_sampling,
+                   sampling.needs_penalties, sampling.needs_typical, sampling.top_n, spec,
+                   feed, model_input.max_q_len)
 
 
 def page_capacity(max_model_len: int, block_size: int) -> int:
-    """The widest block-table bucket a decode step can have: the pages of
+    """The widest block-table bucket a step can have: the pages of
     ``max_model_len`` tokens, and at least ``input_prep.bucket``'s smallest
     (8)."""
     return max(8, -(-max_model_len // block_size))
 
 
-def packed_capacity(max_rows: int, max_pages: int, num_spec_tokens: int = 0) -> int:
-    """The longest packed metadata of a step with a graph (``worker._invoke``
-    ``parts``) at ``max_rows`` sequences of ``max_pages`` pages: token ids,
-    positions, slots and ``prev_map`` (T rows each: S for a pure-decode
-    step, at most S·(1+K) for a verify step with K = ``num_spec_tokens``),
-    the block tables, the lengths, the query starts (S + 1), the sampling
-    steps, the sequence count and the selected rows (S, or the S·(1+K)
-    verify rows)."""
+def token_capacity(max_num_batched_tokens: int) -> int:
+    """The widest token bucket a step can have: the scheduler never
+    schedules more than its budget of ``max_num_batched_tokens`` tokens
+    (drafts included), and ``input_prep`` rounds up on the sparse ladder."""
+    return bucket(max_num_batched_tokens)
+
+
+def packed_capacity(max_rows: int, max_pages: int, max_tokens: int,
+                    num_spec_tokens: int = 0) -> int:
+    """The longest packed metadata of a step (``worker._invoke`` ``parts``)
+    at ``max_rows`` sequences of ``max_pages`` pages and ``max_tokens``
+    tokens (:func:`token_capacity`): token ids, positions, slots and
+    ``prev_map`` (T rows each), the block tables, the lengths, the query
+    starts (S + 1), the sampling steps, the sequence count and the selected
+    rows (S, or the S·(1+K) verify rows with K = ``num_spec_tokens``)."""
     rows = max_rows * (1 + num_spec_tokens)
-    return 4 * rows + max_rows * max_pages + 3 * max_rows + rows + 2
+    return 4 * max_tokens + max_rows * max_pages + 3 * max_rows + rows + 2
 
 
 @dataclasses.dataclass
@@ -109,18 +177,20 @@ class _Graph:
     launches: Dict[str, int]   # each kernel's launches in one replay
 
 
-class DecodeGraphs:
-    """The captured decode and verify graphs of one worker, by key, and the
-    static inputs they share."""
+class StepGraphs:
+    """The captured step graphs of one worker, by key, and the static inputs
+    they share."""
 
-    def __init__(self, max_rows: int, max_pages: int, num_spec_tokens: int = 0):
-        # The largest sequence bucket a step can have, the largest page
-        # bucket and the most drafts a sequence carries: every static input
-        # is sized for them.
+    def __init__(self, max_rows: int, max_pages: int, max_tokens: int,
+                 num_spec_tokens: int = 0):
+        # The largest sequence bucket a step can have, the largest page and
+        # token buckets and the most drafts a sequence carries: every static
+        # input is sized for them.
         self.max_rows = max_rows
-        self.packed_capacity = packed_capacity(max_rows, max_pages, num_spec_tokens)
+        self.packed_capacity = packed_capacity(max_rows, max_pages, max_tokens,
+                                               num_spec_tokens)
         # By last use, the most recent last.
-        self.graphs: "collections.OrderedDict[tuple, _Graph]" = collections.OrderedDict()
+        self.graphs: "collections.OrderedDict[GraphKey, _Graph]" = collections.OrderedDict()
         self.capture_seconds = 0.0
         self.replays = 0
         self.evictions = 0
@@ -137,7 +207,7 @@ class DecodeGraphs:
     def static_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self._static.values())
 
-    def run(self, key: tuple, step: Callable, packed, sampling, sampling_version, gumbel,
+    def run(self, key: GraphKey, step: Callable, packed, sampling, sampling_version, gumbel,
             prev_tokens) -> tuple:
         """One step of ``key``: ``step(packed, sampling, gumbel,
         prev_tokens)`` eagerly and then captured at the key's first use, a

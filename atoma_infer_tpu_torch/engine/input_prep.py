@@ -12,17 +12,20 @@ worker.rs:688-698).
 Every array is padded to the JAX package's **bucket shapes** (powers of two
 for the token axis, the sequence axis and the block-table width), so a step
 here compares one to one with a JAX worker step. The port adds
-``max_q_len``: the longest query chunk, which sizes the attention kernel's
-grid without a device read. Speculative decoding's verify rows
-(``engine/spec_decode.py``) ride the same layout: a drafted sequence's
-decode row becomes a 1+k token chunk, and ``spec_rows`` names the [S, K+1]
-rows the sampler reads; on such a step ``max_q_len`` is 1+K whatever the
-drafts' lengths, so the ragged kernel's plan depends on the step's key only.
+``max_q_len``: a bound on the longest query chunk, which sizes the
+attention kernel's grid without a device read. A CUDA graph freezes it, so
+it is a bucket: 1 on a pure-decode step; on a step with a prefill chunk the
+longest chunk rounded up on the sparse ``bucket`` ladder and capped at T.
+Speculative decoding's verify rows (``engine/spec_decode.py``) ride the
+same layout: a drafted sequence's decode row becomes a 1+k token chunk, and
+``spec_rows`` names the [S, K+1] rows the sampler reads; on such a step
+``max_q_len`` is 1+K whatever the drafts' lengths (or the chunk's bucket,
+when a prefill chunk rides beside them), so the ragged kernel's plan
+depends on the step's key only.
 
 ``SHAPE_COUNTS`` counts the distinct ``(kind, T, S, P)`` step shapes a
 process dispatches, as the JAX package counts its compiled programs: on the
-card each distinct pure-decode shape is one captured CUDA graph
-(``engine/cuda_graphs.py``).
+card every step replays a CUDA graph of its key (``engine/cuda_graphs.py``).
 """
 
 from __future__ import annotations
@@ -324,6 +327,11 @@ def prepare_model_input(
         # The ragged kernel's plan reads max_q_len: fixed at 1+K on a verify
         # step, so it does not vary with the longest draft.
         max_q_len = max(max_q_len, 1 + K)
+    if num_prefills:
+        # A graph freezes max_q_len (the ragged kernels' grid and plan): a
+        # prefill chunk's length is bucketed, so that steps of one key
+        # share it. A larger value only adds query tiles that store nothing.
+        max_q_len = bucket(max_q_len, maximum=T)
 
     return ModelInput(
         token_ids=tok,

@@ -26,8 +26,9 @@ the kernels' fp16 instantiations. Not ported yet (raises
 ``NotImplementedError`` naming its ROADMAP.md item): CUDA graphs of
 tensor-parallel steps (``warmup`` under TP). Async scheduling (``async_scheduling``,
 ``async_depth``) is ported, and so is ``warmup``, which on the card captures
-the decode and verify steps' CUDA graphs of the buckets it reaches before
-traffic (``engine/cuda_graphs.py``). So is speculative decoding
+the CUDA graphs of every step it reaches before traffic, prefill and mixed
+steps at the token budget and long contexts' page buckets included
+(``engine/cuda_graphs.py``). So is speculative decoding
 (``num_speculative_tokens``: n-gram drafts verified in the same forward,
 greedy acceptance; a step with drafts runs synchronously). Weight quantization
 (``quantization`` "int8" or "int4", and W8A8 under ``ATOMA_W8A8=1``) is
@@ -65,7 +66,7 @@ from ..types import GenerateParameters, GenerateRequest
 from ..utils.device import resolve_device
 from ..utils.tracing import instrument
 from .cache_engine import CacheEngine
-from .cuda_graphs import MAX_GRAPHS, packed_capacity, page_capacity
+from .cuda_graphs import MAX_GRAPHS, packed_capacity, page_capacity, token_capacity
 from .input_prep import bucket
 from .llm_engine import LlmEngine
 from .tokenizer import TokenizerPool
@@ -173,37 +174,103 @@ def _follower_main(config: EngineConfig, rank: int, local_ranks: int, local_devi
     service.tokenizer_pool.shutdown()
 
 
-# The pool of the decode graphs, in [S, V] f32 buffers at the largest
-# sequence bucket S: what one step's sampler and LM head leave allocated at
-# once at the widest key (every sampling option and the most top-n
-# alternatives). Measured on an H100 (chip_smoke.py, V = 128256, S = 64):
-# 572–614 MiB, 18.3–19.6 such buffers, for 1B-, 3B- and 8B-width models.
+# The step graphs' pool, in [R, V] f32 buffers at the largest sequence
+# bucket S (R = S, or S·(1+K) verify rows): what one step's sampler and LM
+# head leave allocated at once at the widest key (every sampling option and
+# the most top-n alternatives). Measured on an H100 (chip_smoke.py,
+# V = 128256, S = 64): 572–614 MiB, 18.3–19.6 such buffers, for 1B-, 3B-
+# and 8B-width models.
 GRAPH_POOL_ROWS = 24
-# Device bytes the driver holds for one instantiated decode graph, per
-# model layer (its kernel nodes). Measured likewise: 96–154 KiB.
+# What a penalty step's sampler adds (``sampler.apply_penalties``): its
+# [S, V+1] counts, the penalized logits and the two selects' results.
+PENALTY_POOL_ROWS = 4
+# Device bytes CUDA holds outside PyTorch's allocator for one instantiated
+# graph, per model layer (its kernel nodes). Measured likewise: 96–154 KiB.
 GRAPH_BYTES_PER_LAYER = 256 * 1024
+# The K splits' f32 partial sums of one quantized matmul, in elements, less
+# its own M·N: a split plan keeps splits·M·N within slots·128·128 + M·N on
+# the tensor-core route (``quant_kernels.mma_plan``: blocks of up to 128 ×
+# 128, as many splits as fill the card's slots; taken at 8 blocks an SM of
+# an H100's 132), and within 264·4·2,048 + M·N on the CUDA cores.
+QMM_SPLIT_ELEMENTS = 8 * 132 * 128 * 128
 
 
-def decode_graph_bytes(max_num_sequences: int, vocab_size: int, max_pages: int,
-                       num_layers: int, num_spec_tokens: int = 0) -> int:
-    """Device memory the decode and verify CUDA graphs take, which the KV
-    pool must leave free: their static inputs (``engine/cuda_graphs.py``:
-    one set for every graph, at the largest sequence bucket S — the Gumbel
-    noise, the packed metadata of S rows of ``max_pages`` pages, the
-    sampling tensors, the feed), their pool, which holds one step's
-    temporaries whatever the number of graphs (``GRAPH_POOL_ROWS``), and
-    the driver's share of each graph, ``MAX_GRAPHS`` of them and the one
-    being captured. The LM head and the sampler run over R rows: S, or
-    S·(1+K) with K = ``num_spec_tokens`` drafts a sequence, so the noise
-    (repeated over the verify rows) and every pool buffer are [R, V] f32."""
-    S = bucket(max_num_sequences)
-    R = S * (1 + num_spec_tokens)
-    static = (R * vocab_size + packed_capacity(S, max_pages, num_spec_tokens)
-              + S * (8 + PENALTY_WINDOW))
-    return (
-        4 * (static + GRAPH_POOL_ROWS * R * vocab_size)
-        + (MAX_GRAPHS + 1) * GRAPH_BYTES_PER_LAYER * num_layers
-    )
+def activation_bytes(num_tokens: int, model_config) -> int:
+    """One step's forward at T = ``num_tokens`` tokens: what one layer holds
+    at once, the hidden state and its residual sum, the norm's f32 copy,
+    q/k/v and rope's copies, the attention's output, the MLP's gate, up and
+    product (on every expert of a dense MoE), each counted at 4 bytes an
+    element."""
+    c = model_config
+    qkv = (c.num_attention_heads + 2 * c.num_kv_heads) * c.head_dim
+    experts = getattr(c, "num_local_experts", 1)
+    per_token = (4 * c.hidden_size + 2 * qkv + c.num_attention_heads * c.head_dim
+                 + 3 * experts * c.intermediate_size)
+    return 4 * num_tokens * per_token
+
+
+def quantized_bytes(num_tokens: int, model_config) -> int:
+    """A quantized linear's temporaries at T tokens: W8A8's per-token
+    quantization (three f32 copies of the activations, at the widest K) and
+    the K splits' partial sums (:data:`QMM_SPLIT_ELEMENTS` and one M·N, at
+    the widest N but the LM head's, which never splits)."""
+    wide = max(model_config.hidden_size, model_config.intermediate_size)
+    return 4 * (3 * num_tokens * wide + QMM_SPLIT_ELEMENTS + num_tokens * wide)
+
+
+def split_workspace_bytes(num_tokens: int, model_config, max_pages: int,
+                          block_size: int) -> int:
+    """The ragged kernel's split workspace at T tokens (allocated in the
+    capture, ``ops/paged_attention.py`` ``ragged_paged_attention_mma_launch``):
+    splits · T · Hq · (D + 2) f32, at the most splits any plan takes over
+    ``max_pages`` pages (``rpa_mma_plan``: at most ``RPA_MAX_SPLITS``, and
+    at most one a ``RPA_MIN_TILES`` key tiles)."""
+    from ..ops.paged_attention import RPA_KEY_TILE, RPA_MAX_SPLITS, RPA_MIN_TILES
+
+    key_tiles = -(-max_pages * block_size // RPA_KEY_TILE)
+    splits = min(RPA_MAX_SPLITS, -(-key_tiles // RPA_MIN_TILES))
+    c = model_config
+    return 4 * splits * num_tokens * c.num_attention_heads * (c.head_dim + 2)
+
+
+def graph_pool_bytes(model_config, scheduler_config, block_size: int, *,
+                     quantized: bool = False) -> int:
+    """The step graphs' pool, which holds one step's temporaries whatever
+    the number of graphs: the LM head and the sampler over R rows (S, or
+    S·(1+K) with K drafts a sequence: ``GRAPH_POOL_ROWS`` [R, V] f32
+    buffers, and a penalty step's ``PENALTY_POOL_ROWS``), and a step's
+    forward at its T (:func:`activation_bytes`, :func:`quantized_bytes`
+    with ``quantized`` weights, :func:`split_workspace_bytes`), taken at the
+    widest T bucket, where each is largest: the split workspace's bound
+    does not fall with T (the plans' splits do)."""
+    R = bucket(scheduler_config.max_num_sequences) * (1 + scheduler_config.num_speculative_tokens)
+    T = token_capacity(scheduler_config.max_num_batched_tokens)
+    P = page_capacity(scheduler_config.max_model_len, block_size)
+    forward = activation_bytes(T, model_config) + split_workspace_bytes(
+        T, model_config, P, block_size)
+    if quantized:
+        forward += quantized_bytes(T, model_config)
+    return 4 * (GRAPH_POOL_ROWS + PENALTY_POOL_ROWS) * R * model_config.vocab_size + forward
+
+
+def graph_reserve_bytes(model_config, scheduler_config, block_size: int, *,
+                        quantized: bool = False) -> int:
+    """Device memory the step graphs take, which the KV pool must leave
+    free, from the model's config and the scheduler's limits: their static
+    inputs (``engine/cuda_graphs.py``: one set for every graph, at the
+    largest sequence, page and token buckets — the Gumbel noise over R
+    rows, the packed metadata, the sampling tensors, the feed), their pool
+    (:func:`graph_pool_bytes`) and each instantiated graph's own memory,
+    ``MAX_GRAPHS`` of them and the one being captured."""
+    S = bucket(scheduler_config.max_num_sequences)
+    K = scheduler_config.num_speculative_tokens
+    T = token_capacity(scheduler_config.max_num_batched_tokens)
+    P = page_capacity(scheduler_config.max_model_len, block_size)
+    static = 4 * (S * (1 + K) * model_config.vocab_size + packed_capacity(S, P, T, K)
+                  + S * (8 + PENALTY_WINDOW))
+    return (static
+            + graph_pool_bytes(model_config, scheduler_config, block_size, quantized=quantized)
+            + (MAX_GRAPHS + 1) * GRAPH_BYTES_PER_LAYER * model_config.num_layers)
 
 
 def resolve_model_dir(config) -> str:
@@ -492,7 +559,7 @@ class LlmService:
         config.rs:624-625): the least free memory over ``devices`` ÷ bytes
         per block of ``num_layers`` layers (default: the model's; a
         pipeline's most crowded device's), an INT8 cache's scales counted,
-        less the decode graphs' reserve. Under tensor parallelism the
+        less the step graphs' reserve. Under tensor parallelism the
         replicated schedulers need identical pools: every rank takes the
         least of the ranks' counts. Ranks that share a card profile one
         after another, each holding its pool's bytes while the next
@@ -503,10 +570,8 @@ class LlmService:
             devices=list(devices),
             scale_pages=kv_dtype == torch.int8,
             reserve_bytes=(
-                decode_graph_bytes(config.scheduler.max_num_sequences, cfg.vocab_size,
-                                   page_capacity(config.scheduler.max_model_len,
-                                                 config.cache.block_size),
-                                   cfg.num_layers, config.scheduler.num_speculative_tokens)
+                graph_reserve_bytes(cfg, config.scheduler, config.cache.block_size,
+                                    quantized=config.model.quantization is not None)
                 if graphs else 0
             ),
         )
@@ -666,10 +731,16 @@ class LlmService:
         one program per bucket there). Drives ``waves`` synthetic request
         waves through the FULL engine at the configured steady-state
         shapes: the max-batch prefill and decode buckets, a block-boundary
-        table refresh, sampling and detokenize. On the card those waves'
-        pure-decode steps capture the CUDA graphs of the buckets they reach
-        (``engine/cuda_graphs.py``), so traffic at those buckets replays
-        them from its first step.
+        table refresh, sampling and detokenize. The last wave's first
+        prompt is the longest validation admits beside ``max_new`` tokens,
+        so that its chunks fill the scheduler's token budget (the mixed
+        steps' widest keys) and its context crosses the page buckets of long
+        contexts. Before the waves, one prompt alone at each token bucket up
+        to the budget, one new token each: a lone request's prefill step,
+        which is what an idle server's next request runs. On the card every
+        step of these captures the CUDA graph of its key
+        (``engine/cuda_graphs.py``), so traffic at those keys replays them
+        from its first step.
 
         Call with the engine loop running (``asyncio.create_task(
         service.engine.run())``). Returns the wall seconds spent. Under
@@ -684,14 +755,30 @@ class LlmService:
         # Cross at least one block boundary, as the JAX warmup does, so
         # decode steps that take a new block run before traffic too.
         N = max_new or (self.block_size + 2)
+        # The longest prompt admitted beside N new tokens: a character is at
+        # least one token, and one more may be a BOS.
+        limits = self.config.validation
+        long_len = min(limits.max_input_tokens, limits.max_total_tokens - N,
+                       self.config.scheduler.max_model_len - N) - 1
         rng = np.random.default_rng(0)
+
+        def text(n):
+            return bytes(rng.integers(32, 127, size=n, dtype=np.uint8)).decode("latin-1")
+
         t0 = time.monotonic()
+        T = 8
+        while T <= min(token_capacity(self.config.scheduler.max_num_batched_tokens),
+                       long_len + 1):
+            # T − 1 characters: at most T tokens with a BOS, so the T bucket.
+            await (await self.handle_request(GenerateRequest(
+                request_id=f"_warmup-alone-{T}", inputs=text(T - 1),
+                parameters=GenerateParameters(max_new_tokens=1))))
+            T *= 2
         for wave in range(waves):
             futs = []
             for i in range(S):
-                body = bytes(
-                    rng.integers(32, 127, size=prompt_len, dtype=np.uint8)
-                ).decode("latin-1")
+                n = long_len if wave == waves - 1 and i == 0 else prompt_len
+                body = text(max(n, prompt_len))
                 futs.append(
                     await self.handle_request(
                         GenerateRequest(
@@ -703,7 +790,8 @@ class LlmService:
                 )
             await asyncio.gather(*futs)
         dt = time.monotonic() - t0
-        logger.info("warmup: %d waves x %d seqs x %d tokens in %.1fs", waves, S, N, dt)
+        logger.info("warmup: %d waves x %d seqs x %d tokens (one prompt of %d) in %.1fs",
+                    waves, S, N, max(long_len, prompt_len), dt)
         return dt
 
     # ---------------------------------------------------------------- shutdown

@@ -5,9 +5,10 @@ Counterpart of ``atoma_infer_tpu/engine/worker.py`` (ref:
 backends/vllm/src/worker.rs:111-191), run eagerly: the JAX ``jit`` with
 donated caches becomes a plain method whose kernels update the per-layer
 caches in place, and the JAX step's one compiled program per bucket becomes,
-for pure-decode steps on the card, one CUDA graph per bucket
-(``engine/cuda_graphs.py``), verify steps included. Per step the host sends ONE packed int32
-metadata buffer (the JAX worker's layout) and receives ONE packed buffer of
+on the card, one CUDA graph per bucket (``engine/cuda_graphs.py``): every
+step replays one, prefill, mixed, verify and penalty steps included. Per
+step the host sends ONE packed int32 metadata buffer (the JAX worker's
+layout) and receives ONE packed buffer of
 sampled tokens and logprob bits, copied into pinned host memory without
 blocking; a CUDA event marks when it has landed, and
 ``PendingStep.complete()`` waits on it. ``dispatch(request, feed=…)`` takes
@@ -36,7 +37,7 @@ from ..sequence import ExecuteModelRequest, SequenceGroupOutput, SequenceOutput
 from ..server import metrics
 from ..utils.tracing import instrument, span
 from .cache_engine import CacheEngine
-from .cuda_graphs import DecodeGraphs, decode_graph_key, page_capacity
+from .cuda_graphs import StepGraphs, page_capacity, step_graph_key, token_capacity
 from .input_prep import ModelInput, bucket, prepare_model_input
 from .sampler import PENALTY_WINDOW, SamplingTensors, gumbel_noise, sample
 
@@ -200,14 +201,15 @@ class ModelWorker:
         # The null feed: async decode with nothing in flight reads no
         # previous token, but keeps the key of steady async decode.
         self._null_feed = torch.zeros(max_rows, dtype=torch.int32, device=self.device)
-        # Pure-decode and verify steps on the card replay CUDA graphs; the CUDA graph
-        # API has no CPU counterpart, so a CPU worker steps eagerly, and so
-        # does a tensor-parallel rank (``cuda_graphs=False``: no collective
-        # is captured).
+        # Every step on the card replays a CUDA graph; the CUDA graph API has
+        # no CPU counterpart, so a CPU worker steps eagerly, and so do a
+        # tensor-parallel rank and a pipeline stage (``cuda_graphs=False``:
+        # no collective is captured, and stages have no graphs yet).
         self.graphs = (
-            DecodeGraphs(
+            StepGraphs(
                 max_rows,
                 page_capacity(scheduler_config.max_model_len, cache_config.block_size),
+                token_capacity(scheduler_config.max_num_batched_tokens),
                 scheduler_config.num_speculative_tokens,
             )
             if self.device.type == "cuda" and cuda_graphs else None
@@ -477,9 +479,9 @@ class ModelWorker:
     def _invoke(self, model_input: ModelInput, sampling_arrays, sample_steps, sampling,
                 prev=None):
         """Send the packed metadata (one host→device copy, from pinned
-        memory on CUDA), run the step — a graph replay for a pure-decode or
-        verify step on the card — and return device (tokens, logprobs,
-        packed outputs, top-n)."""
+        memory on CUDA), run the step — a graph replay of its key on the
+        card — and return device (tokens, logprobs, packed outputs,
+        top-n)."""
         T = model_input.token_ids.shape[0]
         S, P = model_input.block_tables.shape
         spec_rows = model_input.spec_rows
@@ -510,14 +512,11 @@ class ModelWorker:
                 spec_width=spec_width,
             )
 
-        key = (
-            decode_graph_key(model_input, sampling, feed=prev is not None)
-            if self.graphs is not None else None
-        )
         with span("worker.step_call"):
-            if key is None:
+            if self.graphs is None:
                 return step(packed, sampling_arrays, gumbel, prev_tokens)
-            return self.graphs.run(key, step, packed, sampling_arrays, self._sampling_version,
+            return self.graphs.run(step_graph_key(model_input, sampling, feed=prev is not None),
+                                   step, packed, sampling_arrays, self._sampling_version,
                                    gumbel, prev_tokens)
 
 

@@ -124,20 +124,30 @@ raises on failure; nothing is caught):
    times and one pure-decode and one mixed step's device time by kernel
    (``torch.profiler``), the decode step's fused attention and H time, the
    mixed step's ragged attention and H share; then (b) on its real card
-   path, its pure-decode steps replaying CUDA graphs: the 1B bf16 and the
-   8B INT8 services with async scheduling (depth 2) after ``warmup()``,
-   the others synchronous as ``LlmService.start`` gives them, each graph
-   captured at its key's first step. (b)'s greedy and seeded tokens must be
-   identical to (a)'s, its launches are counted through the replays, and
-   it prints the number of graphs, ``SHAPE_COUNTS``, the capture seconds
-   and the graphs' memory (static inputs, pool, outputs, driver) against
-   the reserve the KV pool left them, which it must not pass. In (b) the
-   widest key a user can reach (every row sampled with every option and
-   the most top-n alternatives) is captured and replayed, and must give
-   its eager step's outputs. Both modes print the steady-decode period
-   p50/p99 (wall between successive pure-decode dispatches), the tokens/s
-   over the whole traffic window, and the device idle share over a window
-   of 8 pure-decode steps (``torch.profiler``).
+   path, every step replaying a CUDA graph of its key (pure-decode,
+   prefill, mixed and penalty steps; verify steps with drafts): the 1B
+   bf16 and the 8B INT8 services with async scheduling (depth 2) after
+   ``warmup()``, the others synchronous as ``LlmService.start`` gives them,
+   each graph captured at its key's first step; the 1B service's eighth
+   request asks repetition and frequency penalties for its 32 tokens. (b)'s
+   greedy and seeded tokens must be identical to (a)'s, its launches are
+   counted through the replays, no step may run eagerly after its key's
+   capture, and it prints the number of graphs, ``SHAPE_COUNTS``, the
+   replays and first captures by step kind, the captures and evictions
+   inside the traffic's window, the capture seconds and the graphs' memory
+   (static inputs, pool, outputs, instantiated graphs) against the reserve
+   the KV pool left them, which it must not pass. In (b) the widest keys a user can
+   reach are captured and replayed, each giving its eager step's outputs:
+   the widest pure-decode key (every row sampled with every option and the
+   most top-n alternatives), the widest mixed key (a chunk filling the
+   token budget beside the other rows, penalties too; the pool after it
+   held to the pool the reserve counts) and a prefill key (one chunk of the
+   budget ending at ``max_model_len``). Both modes print the steady-decode
+   period p50/p99 (wall between successive pure-decode dispatches), the
+   steps with a prefill chunk p50/p99 (each such dispatch to the next,
+   first captures apart), the warmup's seconds, the tokens/s over the whole
+   traffic window, and the device idle share over a window of 8
+   pure-decode steps (``torch.profiler``).
    After the 1B services, the port's HTTP server: ``build_app(service,
    warmup=True)`` over the 1B service with async scheduling, on
    127.0.0.1, answers one plain and one streamed (SSE)
@@ -152,9 +162,11 @@ raises on failure; nothing is caught):
    services the INT8 + INT8 KV one synchronous with graphs, each against
    the same service without drafts whose requests ask the top 2 logprobs:
    every greedy request identical up to a position where those are closer
-   than ``SPEC_TIE_TOL``, the seeded one identical; drafts proposed and
-   accepted, the verify steps' wall (a) and replay time beside a decode
-   replay at the same S (b), no verify step eager after its key's capture,
+   than ``SPEC_TIE_TOL``, the seeded one identical, and the 1B one also
+   synchronous with graphs, its tokens identical to (a)'s; drafts proposed
+   and accepted, the verify steps' wall (a) and replay time beside a decode
+   replay at the same S (b), every verify step (beside a prefill chunk
+   too) through a graph, none eager after its key's capture,
    keys first captured in the traffic listed, the widest verify key's
    replay identical to its eager step, graph memory under the reserve.
    Tensor parallelism (``run_tp_services``): ``LlmService.start`` with
@@ -179,7 +191,8 @@ raises on failure; nothing is caught):
    one (``PREFIX_LAYERS_8B`` layers), with caching and without, on 16
    requests sharing a 1,536-byte prefix (the second 8 admitted once the
    first 8 have their first token) and the prefix alone: tokens within the
-   near-tie rule, fewer prefill tokens with caching; the prefill tokens,
+   near-tie rule, fewer prefill tokens with caching, and with caching
+   identical eager and with graphs (both waves); the prefill tokens,
    the second wave's time to first token, the mixed-step wall, and the
    bytes of the shared block the whole-prefix request rewrote (max |Δ| of
    K/V and of the INT8 scales; non-zero is a finding). The host ms of one
@@ -3358,6 +3371,50 @@ def percentile(values, q):
     return values[min(len(values) - 1, int(q * len(values)))]
 
 
+# The 1B bf16 service's penalty request (a greedy request of the second
+# wave): its options and its tokens, few enough that the service's steady
+# decode, which a penalty batch runs synchronously, is measured after it.
+PENALTY_REQUEST, PENALTY_TOKENS = 7, 32
+PENALTY_OPTIONS = dict(repetition_penalty=1.2, frequency_penalty=0.5)
+
+
+def step_kind(prefills, decodes):
+    """A step's kind by its groups: prefill only, mixed or decode."""
+    return "decode" if not prefills else "mixed" if decodes else "prefill"
+
+
+def graph_kind(key, kind):
+    """A graph run's kind: its step's (``step_kind``), verify steps apart
+    (beside a prefill chunk or not), penalties marked."""
+    from atoma_infer_tpu_torch.engine.cuda_graphs import StepKey, VerifyKey
+
+    if isinstance(key, VerifyKey):
+        return "verify"
+    if isinstance(key, StepKey):
+        if key.spec:
+            kind = "verify" if kind == "decode" else "verify+prefill"
+        if key.needs_penalties:
+            kind = f"penalty {kind}"
+    return kind
+
+
+def report_graph_runs(label, run, graph_runs):
+    """Print the traffic's graph runs by step kind, replays and first
+    captures, and the captures and evictions inside the traffic's window;
+    raise when a step ran eagerly after its key's capture."""
+    eager = sorted({key for key, seen, replayed, _ in graph_runs if seen and not replayed})
+    if eager:
+        raise AssertionError(f"service {label}: steps ran eagerly after their key's capture: "
+                             f"{eager}")
+    by = {}
+    for _, _, replayed, kind in graph_runs:
+        by.setdefault(kind, [0, 0])[0 if replayed else 1] += 1
+    captures = sum(c for _, c in by.values())
+    log(f"service {label}: graph runs in the traffic by step kind (replays / first captures): "
+        + ", ".join(f"{k} {r} / {c}" for k, (r, c) in sorted(by.items()))
+        + f"; {captures} captures and {run['evictions']} evictions inside the traffic's window")
+
+
 # The modes a service runs in: synchronous with its CUDA graphs taken away
 # (the eager baseline), synchronous with them (``LlmService.start`` as a
 # user gets it: each graph captured at its key's first step in traffic),
@@ -3367,7 +3424,7 @@ MODES = ("eager", "graphs", "async+graphs")
 
 def serve(torch, label, model, params, config, path, *, mode="eager",
           new_tokens=NEW_TOKENS, prompt_lengths=PROMPT_LENGTHS, prompts=None, top_n=0,
-          stats=None):
+          stats=None, penalty=False):
     """Drive one service: 8 requests of ``new_tokens`` tokens (prompts of
     ``prompt_lengths`` bytes, or ``prompts``; each asking ``top_n``
     alternatives) with chunked prefill in two waves (the second admitted before engine step
@@ -3380,9 +3437,15 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
     drafts proposed and accepted and the verify steps: eager (a)'s step
     wall, and in (b) each verify key's first capture and replays, none
     eager after it. Every request must finish, every block return, and
-    every kernel of ``path`` launch. Returns (the launch counts of the
-    traffic's run, all set to 0 just before it; each request's tokens);
-    fills ``stats`` with the run's figures."""
+    every kernel of ``path`` launch. With ``penalty``, request
+    ``PENALTY_REQUEST`` asks repetition and frequency penalties
+    (``PENALTY_OPTIONS``) for its ``PENALTY_TOKENS`` tokens. With graphs:
+    every step whose key was captured before must replay (nothing runs
+    eagerly after a capture); the replays by step kind, the captures and
+    evictions inside the traffic's window, and the mixed steps' walls
+    (each mixed dispatch to the next dispatch) are printed. Returns (the
+    launch counts of the traffic's run, all set to 0 just before it; each
+    request's tokens); fills ``stats`` with the run's figures."""
     from concurrent.futures import ThreadPoolExecutor
 
     from atoma_infer_tpu_torch.engine import input_prep
@@ -3485,6 +3548,7 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
     dispatches = []
     window = {}
     dispatch = worker.dispatch
+    current = {}  # the running dispatch's step kind, for its graph run
 
     def timed_dispatch(request, feed=None):
         metas = request.sequence_groups_metadata
@@ -3511,10 +3575,13 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
             profiled_here = True
         graphs_before = len(worker.graphs.graphs) if worker.graphs is not None else 0
         in_flight = len(engine._async_queue)
+        prompts_here = sum(m.is_prompt for m in metas)
+        current["kind"] = step_kind(prompts_here, len(metas) - prompts_here)
         t = time.monotonic()
         out = dispatch(request, feed=feed)
         captured = worker.graphs is not None and len(worker.graphs.graphs) > graphs_before
-        dispatches.append(dict(t=t, pure=pure, rows=sum(len(m.seq_data) for m in metas),
+        dispatches.append(dict(t=t, pure=pure, kind=current["kind"],
+                               rows=sum(len(m.seq_data) for m in metas),
                                captured=captured, traced=profiled_here or "prof" in window,
                                in_flight=in_flight,
                                verify=any(m.spec_token_ids for m in metas),
@@ -3522,8 +3589,9 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
         return out
 
     # With graphs, every run of a key in the traffic: (key, captured
-    # before, replayed); with drafts, each replay's device time too (CUDA
-    # events around the replay alone, after its inputs' copies).
+    # before, replayed, the step's kind); with drafts, each replay's device
+    # time too (CUDA events around the replay alone, after its inputs'
+    # copies).
     graph_runs = []
     replay_events = {}
     if mode != "eager":
@@ -3532,7 +3600,8 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
         def recorded_run(key, *args):
             seen, replays = key in worker.graphs.graphs, worker.graphs.replays
             out = graph_run(key, *args)
-            graph_runs.append((key, seen, worker.graphs.replays > replays))
+            graph_runs.append((key, seen, worker.graphs.replays > replays,
+                               graph_kind(key, current["kind"])))
             if spec_k and not seen and key in worker.graphs.graphs:
                 entry = worker.graphs.graphs[key]
                 entry.graph = TimedReplay(torch, entry.graph,
@@ -3545,12 +3614,14 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
 
     def request(i):
         sampled = i == SEEDED_REQUEST
+        penalized = penalty and i == PENALTY_REQUEST
         return GenerateRequest(
             request_id=f"smoke-{i}",
             inputs=prompts[i],
             parameters=GenerateParameters(
-                max_new_tokens=new_tokens, do_sample=sampled, top_n_tokens=top_n or None,
-                **(SEEDED_OPTIONS if sampled else {}),
+                max_new_tokens=PENALTY_TOKENS if penalized else new_tokens, do_sample=sampled,
+                top_n_tokens=top_n or None, **(SEEDED_OPTIONS if sampled else {}),
+                **(PENALTY_OPTIONS if penalized else {}),
             ),
         )
 
@@ -3597,6 +3668,8 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
             kernel.launches = 0
         replays0 = worker.graphs.replays if worker.graphs is not None else 0
         keys0 = set(worker.graphs.graphs) if worker.graphs is not None else set()
+        if worker.graphs is not None:
+            run["evictions0"] = worker.graphs.evictions
         run["spec0"] = (metrics.SPEC_PROPOSED.value, metrics.SPEC_ACCEPTED.value)
         # The port's host spans (utils/tracing) time the engine's and the
         # worker's host work through the traffic.
@@ -3616,6 +3689,8 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
         run["replays"] = (worker.graphs.replays if worker.graphs is not None else 0) - replays0
         run["new_keys"] = sorted(set(worker.graphs.graphs) - keys0) \
             if worker.graphs is not None else []
+        if worker.graphs is not None:
+            run["evictions"] = worker.graphs.evictions - run["evictions0"]
         run["spec"] = (metrics.SPEC_PROPOSED.value - run["spec0"][0],
                        metrics.SPEC_ACCEPTED.value - run["spec0"][1])
         chunks = []
@@ -3640,10 +3715,11 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
 
     eos = set(cfg.eos_token_ids)
     generated = 0
-    for r in results:
+    for i, r in enumerate(results):
         out = r.outputs[0]
         generated += len(out.token_ids)
-        at_length = len(out.token_ids) == new_tokens and out.finish_reason == "length_capped"
+        length = PENALTY_TOKENS if penalty and i == PENALTY_REQUEST else new_tokens
+        at_length = len(out.token_ids) == length and out.finish_reason == "length_capped"
         at_eos = out.finish_reason == "stopped" and out.token_ids[-1] in eos
         if not (at_length or at_eos):
             raise AssertionError(
@@ -3680,6 +3756,7 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
             f"graph keys {sorted(graphs.graphs)}")
         if run["replays"] == 0:
             raise AssertionError(f"service {label}: no pure-decode step replayed a graph")
+        report_graph_runs(label, run, graph_runs)
         # A decode step's device time: the traffic's last graph replayed
         # alone, CUDA events around the replays. Its static inputs still
         # hold its last step (every graph shares them, and each replay's
@@ -3687,7 +3764,7 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
         # K/V bytes into the same slots.
         last = next(reversed(graphs.graphs))
         replay_ms = cuda_ms(graphs.graphs[last].graph.replay)
-        check_widest_graph(label, worker, config)
+        check_widest_graph(label, worker, config, cfg)
         report_graph_memory(label, graphs, config, cfg)
     # Host spans: the median step is a pure-decode one (most steps are).
     spans = []
@@ -3715,6 +3792,20 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
             rows += a["rows"]
     captures = [(b["t"] - a["t"]) * 1e3
                 for a, b in zip(dispatches, dispatches[1:]) if a["captured"]]
+    # The mixed steps' walls: each dispatch with a prefill chunk to the
+    # next dispatch (synchronous: its tokens fetched; async: the next step
+    # scheduled), those under a profiler left out; with graphs, captures
+    # and replays apart.
+    mixed_walls = {}
+    for a, b in zip(dispatches, dispatches[1:]):
+        if a["kind"] != "decode" and not a["traced"]:
+            mixed_walls.setdefault("capture" if a["captured"] else "run", []).append(
+                (b["t"] - a["t"]) * 1e3)
+    for part, ms in sorted(mixed_walls.items()):
+        name = "first captures" if part == "capture" else "eager" if mode == "eager" else "replays"
+        log(f"service {label}: steps with a prefill chunk ({name}), dispatch to the next "
+            f"dispatch: p50 {percentile(ms, 0.5):.3f} ms, p99 {percentile(ms, 0.99):.3f} ms over "
+            f"{len(ms)}")
     summary = {}
     if periods:
         summary = dict(p50=percentile(periods, 0.5), p99=percentile(periods, 0.99),
@@ -3763,7 +3854,8 @@ def serve(torch, label, model, params, config, path, *, mode="eager",
             raise AssertionError(f"kernel {name} was not launched on the {label} path")
     check_route(f"service {label}", launches, bf16=True)
     stats.update(
-        tok_s=generated / seconds, period=summary,
+        tok_s=generated / seconds, period=summary, mixed=mixed_walls,
+        warmup_s=run.get("seconds"),
         top=[r.outputs[0].top_logprobs for r in results] if top_n else None)
     return launches, [tuple(r.outputs[0].token_ids) for r in results]
 
@@ -3793,6 +3885,8 @@ def report_spec_steps(label, run, dispatches, verify_walls, graph_runs, replay_e
     capture (else it raises), each replay's device time beside the
     pure-decode replays at the same S, and every key first captured inside
     the timed window."""
+    from atoma_infer_tpu_torch.engine.cuda_graphs import DecodeKey, VerifyKey
+
     proposed, accepted = run["spec"]
     verify = [d for d in dispatches if d["verify"]]
     rows = sum(d["rows"] for d in verify)
@@ -3810,63 +3904,37 @@ def report_spec_steps(label, run, dispatches, verify_walls, graph_runs, replay_e
             f"{walls[len(walls) // 2]:.2f} ms, max {walls[-1]:.2f} ms over {len(walls)} steps")
     if not graph_runs:
         return
-    keyed = [r for r in graph_runs if len(r[0]) == 8]
-    eager = [key for key, seen, replayed in keyed if seen and not replayed]
-    if eager:
-        raise AssertionError(f"service {label}: {len(eager)} verify steps ran eagerly after "
-                             f"their key's capture: {sorted(set(eager))}")
-    captured = sorted({key for key, seen, _ in keyed if not seen})
-    replays = sum(1 for _, _, replayed in keyed if replayed)
-    log(f"service {label}: verify steps with a graph key {len(keyed)}: {replays} replays, "
-        f"{len(captured)} first captures {captured}, 0 eager after a capture; "
-        f"{len(verify) - len(keyed)} verify steps beside a prefill chunk ran eagerly (no key); "
-        f"keys first captured inside the timed window: {run['new_keys']}")
+    keyed = [r for r in graph_runs if r[3] in ("verify", "verify+prefill")]
+    captured = sorted({key for key, seen, _, _ in keyed if not seen})
+    replays = sum(1 for _, _, replayed, _ in keyed if replayed)
+    beside = sum(1 for r in keyed if r[3] == "verify+prefill")
+    log(f"service {label}: verify steps with a graph key {len(keyed)} ({beside} beside a "
+        f"prefill chunk): {replays} replays, {len(captured)} first captures {captured}, 0 eager "
+        f"after a capture; keys first captured inside the timed window: {run['new_keys']}")
+    if len(keyed) != len(verify):
+        raise AssertionError(f"service {label}: {len(verify) - len(keyed)} verify steps ran "
+                             "without a graph")
     # Each key's replays but its first (CUDA events; the device time of the
     # replay alone, its inputs' copies enqueued before it).
     times = {key: sorted(a.elapsed_time(b) for a, b in events[1:])
              for key, events in replay_events.items() if len(events) > 1}
-    for key in sorted((k for k in times if len(k) == 8), key=lambda k: -len(times[k])):
+    for key in sorted((k for k in times if isinstance(k, VerifyKey)), key=lambda k: -len(times[k])):
         v = times[key]
-        d = sorted(t for k, ts in times.items() if len(k) == 7 and k[1] == key[1] for t in ts)
+        d = sorted(t for k, ts in times.items() if isinstance(k, DecodeKey) and k.S == key.S
+                   for t in ts)
         beside = (f"pure-decode replays at S = {key[1]}: p50 {d[len(d) // 2]:.3f} ms over "
                   f"{len(d)}" if d else f"no pure-decode replay at S = {key[1]}")
         log(f"service {label}: verify key {key}: replay p50 {v[len(v) // 2]:.3f} ms over "
             f"{len(v)} (CUDA events); {beside}")
 
 
-def check_widest_graph(label, worker, config):
-    """The widest graph key a user can reach, which the traffic does not:
-    ``max_num_sequences`` decode rows, each seeded and sampling with top-k,
-    top-p and typical-p and asking the most top-n alternatives, over
-    contexts as long as the KV pool holds for all of them. Stepped twice on
-    the same inputs, the key's first step (eager, then captured) and a
-    replay must give the same tokens, logprobs and alternatives. Its capture
-    is counted in the graphs' memory."""
-    from atoma_infer_tpu_torch.sampling_params import (
-        NextTokenChooserParameters, StoppingCriteriaParameters,
-    )
-    from atoma_infer_tpu_torch.sequence import (
-        ExecuteModelRequest, SequenceData, SequenceGroupMetadata,
-    )
+def step_twice(label, worker, metas, what):
+    """Step ``metas`` twice on the same inputs: the key's first step (eager,
+    then captured) and a replay must give the same tokens, logprobs,
+    alternatives and accepted drafts. Returns (the key, what its capture
+    took of the graphs' memory)."""
+    from atoma_infer_tpu_torch.sequence import ExecuteModelRequest
 
-    rows = config.scheduler.max_num_sequences
-    bs = config.cache.block_size
-    pages = min(config.cache.num_device_blocks // rows,
-                -(-(config.scheduler.max_model_len - 1) // bs))
-    context = pages * bs
-    metas = []
-    for i in range(rows):
-        data = SequenceData([(7 * i + j) % 1000 + 3 for j in range(context)])
-        data.update_num_computed_tokens(context - 1)
-        metas.append(SequenceGroupMetadata(
-            request_id=f"wide-{i}", is_prompt=False, seq_data={i: data},
-            next_token_chooser_params=NextTokenChooserParameters(
-                temperature=0.8, top_k=50, top_p=0.9, typical_p=0.95, do_sample=True,
-                seed=11 + i),
-            block_tables={i: list(range(i * pages, (i + 1) * pages))},
-            stopping_criteria=StoppingCriteriaParameters(), do_sample=True,
-            token_chunk_size=1, top_n_tokens=config.validation.max_top_n_tokens,
-        ))
     graphs = worker.graphs
     before, replays = set(graphs.graphs), graphs.replays
     took = dict(graphs.captured_bytes)
@@ -3874,27 +3942,119 @@ def check_widest_graph(label, worker, config):
     first = worker.execute_model(request)
     second = worker.execute_model(request)
     took = {k: graphs.captured_bytes[k] - took[k] for k in took}
-    (key,) = set(graphs.graphs) - before
-    if graphs.replays != replays + 1:
-        raise AssertionError(f"service {label}: the widest key {key} did not replay")
+    new = set(graphs.graphs) - before
+    if len(new) != 1 or graphs.replays != replays + 1:
+        raise AssertionError(f"service {label}: the {what} key {sorted(new)} was not captured "
+                             "once and replayed")
 
     def flat(out):
-        return [(o.output_token, o.logprob, o.top_tokens)
+        return [(o.output_token, o.logprob, o.top_tokens, o.extra_tokens)
                 for g in sorted(out) for o in out[g].outputs.values()]
 
+    (key,) = new
     if flat(first) != flat(second):
-        raise AssertionError(f"service {label}: the widest key {key}'s replay differs from "
-                             "its eager step")
+        raise AssertionError(f"service {label}: the {what} key {key}'s replay differs from its "
+                             "eager step")
+    return key, took
+
+
+def widest_metas(config, rows, name, *, chunk=0, penalties=False, greedy=False, pages=None):
+    """``rows`` sequences named ``name`` (the worker reuses a request's
+    sampling tensors while its batch holds the same requests, whose
+    parameters are fixed at admission: each set of options is a request of
+    its own) as the widest keys take them, over contexts as
+    long as the KV pool holds for all of them (``pages`` each, at most
+    ``max_model_len`` − 1 tokens): decode rows, each seeded and sampling
+    with top-k, top-p and typical-p (with ``penalties`` repetition and
+    frequency too) and asking the most top-n alternatives; ``greedy`` rows
+    only the alternatives (which no request of the traffic asks: each key
+    is new when it is stepped twice). With ``chunk``, the first row is a
+    prompt's last chunk of ``chunk`` tokens instead."""
+    from atoma_infer_tpu_torch.sampling_params import (
+        NextTokenChooserParameters, StoppingCriteriaParameters,
+    )
+    from atoma_infer_tpu_torch.sequence import SequenceData, SequenceGroupMetadata
+
+    bs = config.cache.block_size
+    pages = pages or min(config.cache.num_device_blocks // rows,
+                         -(-(config.scheduler.max_model_len - 1) // bs))
+    context = pages * bs
+    options = {} if greedy else dict(temperature=0.8, top_k=50, top_p=0.9, typical_p=0.95,
+                                     do_sample=True)
+    if penalties:
+        options.update(PENALTY_OPTIONS)
+    metas = []
+    for i in range(rows):
+        prompt = i == 0 and chunk
+        data = SequenceData([(7 * i + j) % 1000 + 3 for j in range(context)])
+        data.update_num_computed_tokens(context - (chunk if prompt else 1))
+        metas.append(SequenceGroupMetadata(
+            request_id=f"{name}-{i}", is_prompt=bool(prompt), seq_data={i: data},
+            next_token_chooser_params=NextTokenChooserParameters(
+                **options, **({} if greedy else dict(seed=11 + i))),
+            block_tables={i: list(range(i * pages, (i + 1) * pages))},
+            stopping_criteria=StoppingCriteriaParameters(), do_sample=True,
+            token_chunk_size=chunk if prompt else 1,
+            top_n_tokens=config.validation.max_top_n_tokens,
+        ))
+    return metas, context
+
+
+def check_widest_graph(label, worker, config, model_config):
+    """The widest graph keys a user can reach, which the traffic does not,
+    each stepped twice on the same inputs (``step_twice``), its capture
+    counted in the graphs' memory:
+    - the widest pure-decode key: ``max_num_sequences`` decode rows, each
+      seeded and sampling with every option (top-k, top-p, typical-p) and
+      asking the most top-n alternatives;
+    - the widest mixed key: a prompt chunk filling the token budget beside
+      the other rows, every row with every option and penalties too; the
+      pool measured after it against the pool the reserve counts;
+    - a prefill step: one greedy chunk of the whole budget over the longest
+      context, alone, asking the most top-n alternatives;
+    - with speculative decoding, the widest verify key."""
+    from atoma_infer_tpu_torch.engine.llm_service import graph_pool_bytes
+
+    rows = config.scheduler.max_num_sequences
+    budget = config.scheduler.max_num_batched_tokens
+    metas, context = widest_metas(config, rows, "wide")
+    key, took = step_twice(label, worker, metas, "widest")
     log(f"service {label}: widest key {key} ({rows} sampled rows of {context} tokens, top-n "
         f"{config.validation.max_top_n_tokens}): replay identical to the eager step; its "
         f"capture grew the pool by {took['pool'] / 2**20:.2f} MiB, the driver took "
         f"{took['driver'] / 2**20:.2f} MiB")
+    chunk = min(budget - (rows - 1), context)
+    mixed, _ = widest_metas(config, rows, "wide-mixed", chunk=chunk, penalties=True)
+    key, took = step_twice(label, worker, mixed, "widest mixed")
+    pool = worker.graphs.captured_bytes["pool"]
+    reserve = graph_pool_bytes(model_config, config.scheduler, config.cache.block_size,
+                               quantized=config.model.quantization is not None)
+    log(f"service {label}: widest mixed key {key} (a {chunk}-token chunk and {rows - 1} decode "
+        f"rows of {context} tokens, every row sampled with penalties, top-n "
+        f"{config.validation.max_top_n_tokens}): replay identical to the eager step; its "
+        f"capture grew the pool by {took['pool'] / 2**20:.2f} MiB; the pool "
+        f"{pool / 2**20:.2f} MiB against the "
+        f"reserve's {reserve / 2**20:.2f} MiB")
+    if pool > reserve:
+        raise AssertionError(f"service {label}: the graphs' pool {pool} bytes is over the "
+                             f"{reserve} the reserve counts")
+    pages = min(config.cache.num_device_blocks,
+                -(-(config.scheduler.max_model_len - 1) // config.cache.block_size))
+    prefill, long_context = widest_metas(config, 1, "wide-prefill", chunk=budget, greedy=True,
+                                         pages=pages)
+    key, took = step_twice(label, worker, prefill, "prefill")
+    log(f"service {label}: prefill key {key} (one {budget}-token chunk ending at token "
+        f"{long_context}): replay identical to the eager step; its capture grew the pool by "
+        f"{took['pool'] / 2**20:.2f} MiB")
     K = config.scheduler.num_speculative_tokens
     if not K:
         return
     # The widest verify key: every row drafted K tokens (greedy, as drafted
     # sequences are), T = S·(1+K), over contexts that leave room for the
     # drafts' slots.
+    from atoma_infer_tpu_torch.sampling_params import NextTokenChooserParameters
+    from atoma_infer_tpu_torch.sequence import SequenceData
+
     for i, meta in enumerate(metas):
         data = SequenceData([(7 * i + j) % 1000 + 3 for j in range(context - K)])
         data.update_num_computed_tokens(context - K - 1)
@@ -3902,41 +4062,26 @@ def check_widest_graph(label, worker, config):
         meta.next_token_chooser_params = NextTokenChooserParameters()
         meta.top_n_tokens = 0
         meta.spec_token_ids = [(5 * i + j) % 1000 + 3 for j in range(K)]
-    before, replays = set(graphs.graphs), graphs.replays
-    took = dict(graphs.captured_bytes)
-    first = worker.execute_model(request)
-    second = worker.execute_model(request)
-    took = {k: graphs.captured_bytes[k] - took[k] for k in took}
-    new = set(graphs.graphs) - before
-    if graphs.replays != replays + 1 or not all(len(k) == 8 for k in new):
-        raise AssertionError(f"service {label}: the widest verify key {new} did not replay")
-    if flat(first) != flat(second) or [o.extra_tokens for g in sorted(first)
-                                       for o in first[g].outputs.values()] != \
-            [o.extra_tokens for g in sorted(second) for o in second[g].outputs.values()]:
-        raise AssertionError(f"service {label}: the widest verify key's replay differs from "
-                             "its eager step")
-    log(f"service {label}: widest verify key {sorted(new)} ({rows} rows of {K} drafts): replay "
+    key, took = step_twice(label, worker, metas, "widest verify")
+    log(f"service {label}: widest verify key {key} ({rows} rows of {K} drafts): replay "
         f"identical to the eager step; its capture grew the pool by "
         f"{took['pool'] / 2**20:.2f} MiB, the driver took {took['driver'] / 2**20:.2f} MiB")
 
 
 def report_graph_memory(label, graphs, config, model_config):
     """Print what the service's graphs hold on the card beside the reserve
-    the KV pool left them (``decode_graph_bytes``): the static inputs, one
+    the KV pool left them (``graph_reserve_bytes``): the static inputs, one
     set for every key; the pool's growth over all captures; what stays
     allocated in it (the graphs' outputs) and what the driver took for the
     instantiated graphs, each per graph."""
-    from atoma_infer_tpu_torch.engine.cuda_graphs import MAX_GRAPHS, page_capacity
-    from atoma_infer_tpu_torch.engine.llm_service import decode_graph_bytes
+    from atoma_infer_tpu_torch.engine.cuda_graphs import MAX_GRAPHS
+    from atoma_infer_tpu_torch.engine.llm_service import graph_reserve_bytes
 
     n = graphs.evictions + len(graphs.graphs)  # captures
     took = graphs.captured_bytes
     total = graphs.static_bytes + took["pool"] + took["held"] + took["driver"]
-    reserve = decode_graph_bytes(config.scheduler.max_num_sequences, model_config.vocab_size,
-                                 page_capacity(config.scheduler.max_model_len,
-                                               config.cache.block_size),
-                                 model_config.num_layers,
-                                 config.scheduler.num_speculative_tokens)
+    reserve = graph_reserve_bytes(model_config, config.scheduler, config.cache.block_size,
+                                  quantized=config.model.quantization is not None)
     log(f"service {label}: graph memory: static inputs {graphs.static_bytes / 2**20:.2f} MiB "
         f"(one set), pool growth {took['pool'] / 2**20:.2f} MiB over {n} captures, held in it "
         f"{took['held'] / 2**10:.1f} KiB ({took['held'] / max(n, 1) / 2**10:.1f} KiB a graph), "
@@ -4009,13 +4154,14 @@ def serve_both(torch, label, model, params, make_config, path, mode,
     greedy and seeded tokens identical. ``make_config(async_scheduling)``
     makes each run's configuration. Returns (b)'s launch counts, the
     service's own path's."""
+    stats_a, stats_b = {}, {}
     counts_a, tokens_a = serve(torch, label, model, params, make_config(False), path,
-                               new_tokens=new_tokens, **kw)
+                               new_tokens=new_tokens, stats=stats_a, **kw)
     gc.collect()
     torch.cuda.empty_cache()
     counts_b, tokens_b = serve(torch, label, model, params,
                                make_config(mode == "async+graphs"), path, mode=mode,
-                               new_tokens=new_tokens, **kw)
+                               new_tokens=new_tokens, stats=stats_b, **kw)
     gc.collect()
     torch.cuda.empty_cache()
     for i, (a, b) in enumerate(zip(tokens_a, tokens_b)):
@@ -4025,7 +4171,31 @@ def serve_both(torch, label, model, params, make_config, path, mode,
     log(f"service {label}: tokens identical in the eager and {mode} runs "
         f"({len(tokens_a)} requests, request 3 seeded sampling); launches eager → {mode}: "
         + ", ".join(f"{k} {counts_a[k]} → {counts_b[k]}" for k in path))
+    log(f"service {label}: eager → {mode}: " + compare_stats(stats_a, stats_b))
     return counts_b
+
+
+def compare_stats(a, b):
+    """One line of two runs' figures: the steps with a prefill chunk
+    (dispatch to the next dispatch, p50 / p99 ms; with graphs, replays and
+    first captures apart), the steady-decode period p50 / p99 ms, the
+    warmup's seconds."""
+    def walls(st):
+        parts = []
+        for part, ms in sorted(st.get("mixed", {}).items()):
+            name = "first captures " if part == "capture" else ""
+            parts.append(f"{name}{percentile(ms, 0.5):.3f} / {percentile(ms, 0.99):.3f} "
+                         f"({len(ms)})")
+        return ", ".join(parts) or "none"
+
+    def period(st):
+        p = st.get("period") or {}
+        return f"{p['p50']:.3f} / {p['p99']:.3f}" if p else "not measured"
+
+    warm = b.get("warmup_s")
+    return (f"steps with a prefill chunk {walls(a)} → {walls(b)} ms; period {period(a)} → "
+            f"{period(b)} ms; warmup "
+            + (f"{warm:.2f} s" if warm is not None else "none (synchronous, no warmup)"))
 
 
 def bf16_config(name, block_size, async_scheduling=False, max_model_len=2048,
@@ -4100,13 +4270,14 @@ def device_guard_cost_us(torch, n: int = 20000) -> float:
 
 
 def run_service(torch):
-    """The bf16 Llama-3.2-1B service (16 layers), blocks of 16: eager, then
-    async with graphs (whose launches it returns)."""
+    """The bf16 Llama-3.2-1B service (16 layers), blocks of 16, one of its
+    requests with penalties: eager, then async with graphs (whose launches
+    it returns)."""
     log(f"tracing: an enabled span costs {span_cost_us():.2f} µs on this host")
     model, params = llama_1b_model(torch)
     return serve_both(torch, "1B bf16", model, params,
                       lambda a: bf16_config("llama-3.2-1b-random", BS, async_scheduling=a),
-                      SERVICE_PATH, "async+graphs", NEW_TOKENS)
+                      SERVICE_PATH, "async+graphs", NEW_TOKENS, penalty=True)
 
 
 def run_http_server(torch):
@@ -4849,21 +5020,30 @@ def serve_spec(torch, label, model, params, make_config, path, ref_path, modes, 
     service without drafts in ``reference`` mode, its requests asking the
     top 2 logprobs; then in each of ``modes`` with drafts, held to it by
     :func:`compare_to_reference`, its period and tokens/s printed beside the
-    reference's. ``make_config(async_scheduling, k)``. Returns the launch
-    counts of the last mode's run."""
+    reference's; the synchronous eager and graph modes' tokens identical.
+    ``make_config(async_scheduling, k)``. Returns the launch counts of the
+    last mode's run."""
     ref = {}
     _, want = serve(torch, f"{label} without drafts", model, params,
                     make_config(reference == "async+graphs", 0), ref_path, mode=reference,
                     new_tokens=new_tokens, prompts=SPEC_PROMPTS, top_n=2, stats=ref)
     gc.collect()
     torch.cuda.empty_cache()
+    tokens = {}
     for mode in modes:
         st = {}
         counts, got = serve(torch, label, model, params,
                             make_config(mode == "async+graphs", SPEC_K), path, mode=mode,
                             new_tokens=new_tokens, prompts=SPEC_PROMPTS, stats=st)
+        tokens[mode] = got
         gc.collect()
         torch.cuda.empty_cache()
+        if mode == "graphs" and "eager" in tokens:
+            if tokens["eager"] != got:
+                raise AssertionError(f"service {label}: tokens differ between the eager and the "
+                                     "graphs runs")
+            log(f"service {label}: tokens identical in the eager and graphs runs (synchronous, "
+                f"{len(got)} requests)")
         compare_to_reference(
             f"{label} [{mode}]", got, want, ref["top"],
             lambda j, a, b: seeded_score_gap(torch, model, params,
@@ -4879,16 +5059,16 @@ def serve_spec(torch, label, model, params, make_config, path, ref_path, modes, 
 
 def run_spec_service(torch):
     """The bf16 Llama-3.2-1B service (16 layers) with SPEC_K drafts, 8
-    sequences: (a) eager and synchronous, (b) async with graphs after
-    ``warmup()``, each against the same service without drafts (async with
-    graphs). Returns (b)'s launches of the verify path, keyed
-    ``kernel@verify``."""
+    sequences: (a) eager and synchronous, then synchronous with graphs
+    (tokens identical to (a)), (b) async with graphs after ``warmup()``,
+    each against the same service without drafts (async with graphs).
+    Returns (b)'s launches of the verify path, keyed ``kernel@verify``."""
     model, params = llama_1b_model(torch)
     counts = serve_spec(
         torch, "1B bf16 spec", model, params,
         lambda a, k: bf16_config("llama-3.2-1b-random", BS, async_scheduling=a,
                                  max_num_sequences=8, num_speculative_tokens=k),
-        SPEC_PATH, SERVICE_PATH, ("eager", "async+graphs"), "async+graphs")
+        SPEC_PATH, SERVICE_PATH, ("eager", "graphs", "async+graphs"), "async+graphs")
     return {f"{k}@verify": counts[k] for k in SPEC_PATH}
 
 
@@ -5851,15 +6031,24 @@ def prefix_service(torch, label, model, params, make_config, path, pp=False):
 
     waves = prefix_prompts()
     runs = {}
-    for caching in (False, True) + (("pp",) if pp else ()):
-        config = make_config(caching) if caching != "pp" else make_config(True, PP_STAGES)
+    for caching in (False, True, "eager") + (("pp",) if pp else ()):
+        config = make_config(caching is not False) if caching != "pp" \
+            else make_config(True, PP_STAGES)
         service = LlmService.start(config, model=model, params=params,
                                    tokenizer=ByteTokenizer(model.config.vocab_size),
                                    device=model.device)
         if not service.native_core:
             raise AssertionError(f"service {label}: not on the native block manager")
+        worker = service.engine.worker
+        if caching == "eager":
+            worker.graphs = None  # the same service with every step eager
+        elif caching is True:
+            replays = worker.graphs.replays
         runs[caching] = drive_prefix(torch, f"{label} caching={caching}", service, waves,
                                      PREFIX_TOKENS)
+        if caching is True:
+            runs[caching][2]["replays"] = worker.graphs.replays - replays
+            runs[caching][2]["graphs"] = len(worker.graphs.graphs)
         for name in path:
             if not runs[caching][2]["launches"][name]:
                 raise AssertionError(f"{label}: {name} was not launched")
@@ -5868,10 +6057,16 @@ def prefix_service(torch, label, model, params, make_config, path, pp=False):
         torch.cuda.empty_cache()
     (got, _, fig), (want, top, ref) = runs[True], runs[False]
     prefixes = near_tie_compare(f"service {label} with prefix caching", got, want, top)
-    names = {False: "off", True: "on", "pp": f"on, pp={PP_STAGES}"}
+    if runs["eager"][0] != got:
+        raise AssertionError(f"service {label}: with prefix caching, tokens differ between the "
+                             "eager run and the run with graphs")
+    log(f"service {label} with prefix caching: tokens identical eager and with graphs (every "
+        f"request, both waves); {fig['replays']} replays of {fig['graphs']} graphs")
+    names = {False: "off", True: "on", "eager": "on, eager", "pp": f"on, pp={PP_STAGES}"}
     for caching, (_, _, f) in runs.items():
-        mixed = (f"mixed-step wall p50 {percentile(f['mixed_ms'], 0.5):.2f} ms over "
-                 f"{len(f['mixed_ms'])} steps" if f["mixed_ms"] else "mixed-step wall not measured")
+        mixed = (f"mixed-step wall p50 {percentile(f['mixed_ms'], 0.5):.2f} ms, p99 "
+                 f"{percentile(f['mixed_ms'], 0.99):.2f} ms over {len(f['mixed_ms'])} steps"
+                 if f["mixed_ms"] else "mixed-step wall not measured")
         log(f"service {label} prefix caching {names[caching]}: prefill tokens "
             f"computed {f['prefill']}, second wave's time to first token p50 "
             f"{percentile(f['ttft'], 0.5):.1f} ms, {mixed}, {f['seconds']:.3f} s in all")

@@ -1,4 +1,4 @@
-"""The host side of the port's pure-decode CUDA graphs
+"""The host side of the port's step CUDA graphs
 (``atoma_infer_tpu_torch/engine/cuda_graphs.py``), on the CPU.
 
 A CPU worker never captures: the CUDA graph API needs a CUDA device, so
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from atoma_infer_tpu_torch.engine.cuda_graphs import (
-    DecodeGraphs, decode_graph_key, packed_capacity, page_capacity,
+    StepGraphs, StepKey, packed_capacity, page_capacity, step_graph_key, token_capacity,
 )
 from atoma_infer_tpu_torch.engine.input_prep import prepare_model_input
 from atoma_infer_tpu_torch.engine.sampler import SamplingTensors
@@ -60,7 +60,7 @@ def _key(metas, feed=False, top_n=0):
     sampling = SamplingTensors.build(
         params, [[] for _ in params], model_input.seq_lens.shape[0], [top_n] * len(params)
     )
-    return decode_graph_key(model_input, sampling, feed)
+    return step_graph_key(model_input, sampling, feed)
 
 
 def test_graph_key_is_the_jax_steps_static_arguments():
@@ -75,14 +75,24 @@ def test_graph_key_is_the_jax_steps_static_arguments():
     assert _key(typical) == (8, 8, 8, True, True, 0, False)
 
 
-@pytest.mark.parametrize("metas", [
-    _metadata(prompt_chunks=(12,)),               # mixed prefill + decode
-    _metadata(prompt_chunks=(12, 5), decodes=0),  # prefill only
-    _metadata(repetition_penalty=1.2),            # penalties: the window moves
-    _metadata(frequency_penalty=0.5),
+@pytest.mark.parametrize("metas, key", [
+    # Mixed prefill + decode: 15 tokens (T 16), the 12-token chunk's
+    # max_q_len bucket 16, capped at T.
+    (_metadata(prompt_chunks=(12,)),
+     StepKey(16, 8, 8, False, False, False, False, 0, 0, False, 16)),
+    # Prefill only: 17 tokens (T 32), the longest chunk 12 → 16.
+    (_metadata(prompt_chunks=(12, 5), decodes=0),
+     StepKey(32, 8, 8, False, False, False, False, 0, 0, False, 16)),
+    # Penalties (the window moves): a decode step, max_q_len 1.
+    (_metadata(repetition_penalty=1.2),
+     StepKey(8, 8, 8, True, False, True, False, 0, 0, False, 1)),
+    (_metadata(frequency_penalty=0.5),
+     StepKey(8, 8, 8, True, False, True, False, 0, 0, False, 1)),
 ], ids=["mixed", "prefill", "repetition_penalty", "frequency_penalty"])
-def test_steps_without_a_graph(metas):
-    assert _key(metas) is None
+def test_steps_without_a_graph(metas, key):
+    """The steps that ran eagerly before every step had a graph: each now
+    has a key of the JAX step's static arguments and its max_q_len."""
+    assert _key(metas) == key and type(_key(metas)) is StepKey
 
 
 def test_cpu_worker_steps_eagerly():
@@ -124,7 +134,7 @@ def _step_inputs(S=4, n_packed=6, n_prev=3, V=5, seed=0):
 
 
 def test_static_fill_copies_each_input_in_place():
-    graphs = DecodeGraphs(max_rows=8, max_pages=8)
+    graphs = StepGraphs(max_rows=8, max_pages=8, max_tokens=8)
     packed, sampling, gumbel, prev = _step_inputs()
     views = graphs._views(packed, sampling, gumbel, prev)
     ptrs = [v.data_ptr() for v in (views[0], views[2], views[3])]
@@ -141,7 +151,7 @@ def test_static_fill_copies_each_input_in_place():
 
 
 def test_static_fill_copies_sampling_only_when_it_changed():
-    graphs = DecodeGraphs(max_rows=8, max_pages=8)
+    graphs = StepGraphs(max_rows=8, max_pages=8, max_tokens=8)
     packed, sampling, gumbel, prev = _step_inputs()
     views = graphs._views(packed, sampling, gumbel, prev)
     graphs._fill(views, packed, sampling, 1, gumbel, prev)
@@ -157,7 +167,7 @@ def test_static_fill_copies_sampling_only_when_it_changed():
 def test_static_inputs_are_shared_by_every_key():
     """One set of static inputs at the largest bucket: a key reads its
     leading rows, so their memory does not grow with the number of keys."""
-    graphs = DecodeGraphs(max_rows=16, max_pages=8)
+    graphs = StepGraphs(max_rows=16, max_pages=8, max_tokens=16)
     small = graphs._views(*_step_inputs(S=8, n_packed=20, n_prev=8))
     nbytes = graphs.static_bytes
     # packed [8·16 + 16·8 + 2] i32, sampling [16] f32 + [16] i32 + [16, 3]
@@ -174,7 +184,7 @@ def test_static_inputs_are_shared_by_every_key():
 @pytest.mark.parametrize("S, n_packed, n_prev", [(16, 6, 3), (4, 300, 3), (4, 6, 17)],
                          ids=["rows", "packed", "feed"])
 def test_static_fill_refuses_a_feed_wider_than_its_buffer(S, n_packed, n_prev):
-    graphs = DecodeGraphs(max_rows=8, max_pages=8)
+    graphs = StepGraphs(max_rows=8, max_pages=8, max_tokens=8)
     with pytest.raises(ValueError, match="does not fit"):
         graphs._views(*_step_inputs(S=S, n_packed=n_packed, n_prev=n_prev))
 
@@ -287,7 +297,7 @@ def test_replays_count_the_captured_launches(stub_kernels, monkeypatch):
             torch.from_numpy(rng.integers(0, 50, n_prev).astype(np.int32)),
         )
 
-    graphs = DecodeGraphs(max_rows=8, max_pages=8)
+    graphs = StepGraphs(max_rows=8, max_pages=8, max_tokens=8)
     key = (8, 8, 8, True, False, 0, True)
     first = inputs(4)
     out = graphs.run(key, step, first[0], first[1], 1, first[2], first[3])  # eager, captured
@@ -332,7 +342,7 @@ def test_the_least_recently_used_graph_makes_room(monkeypatch):
             _StubGraph.capturing[-1].recompute = lambda: None
         return (packed[:1].clone(),)
 
-    graphs = DecodeGraphs(max_rows=8, max_pages=8)
+    graphs = StepGraphs(max_rows=8, max_pages=8, max_tokens=8)
     packed, sampling, gumbel, _ = _step_inputs()
 
     def run(k):
@@ -352,24 +362,36 @@ def test_decode_graph_bytes_are_left_out_of_the_kv_pool(monkeypatch):
     from atoma_infer_tpu_torch import config as config_mod
     from atoma_infer_tpu_torch.engine.cuda_graphs import MAX_GRAPHS
     from atoma_infer_tpu_torch.engine.llm_service import (
-        GRAPH_BYTES_PER_LAYER, GRAPH_POOL_ROWS, decode_graph_bytes,
+        GRAPH_BYTES_PER_LAYER, GRAPH_POOL_ROWS, PENALTY_POOL_ROWS, activation_bytes,
+        graph_reserve_bytes, split_workspace_bytes,
     )
     from atoma_infer_tpu_torch.engine.sampler import PENALTY_WINDOW
+    from atoma_infer_tpu_torch.models.llama import LlamaConfig
 
-    # The static inputs at the largest sequence bucket (48 → 64), the
-    # pool's GRAPH_POOL_ROWS [S, V] f32 buffers, and the driver's share of
-    # MAX_GRAPHS graphs and the one being captured.
+    # The static inputs at the largest sequence bucket (48 → 64) and token
+    # bucket (the budget 200 → 256), the pool's GRAPH_POOL_ROWS and
+    # PENALTY_POOL_ROWS [S, V] f32 buffers and one step's forward at the
+    # widest T, and the instantiated graphs' own memory, MAX_GRAPHS and the one
+    # being captured.
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=64, intermediate_size=128,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                      head_dim=16)
     for seqs, S in ((64, 64), (48, 64)):
-        static = S * 1000 + packed_capacity(S, 128) + S * (8 + PENALTY_WINDOW)
-        assert decode_graph_bytes(seqs, 1000, 128, 2) == (
-            4 * (static + GRAPH_POOL_ROWS * S * 1000)
+        sched = config_mod.SchedulerConfig(max_num_batched_tokens=200, max_num_sequences=seqs,
+                                           max_model_len=2048, enable_chunked_prefill=True)
+        static = S * 1000 + packed_capacity(S, 128, 256) + S * (8 + PENALTY_WINDOW)
+        forward = activation_bytes(256, cfg) + split_workspace_bytes(256, cfg, 128, 16)
+        assert graph_reserve_bytes(cfg, sched, 16) == (
+            4 * (static + (GRAPH_POOL_ROWS + PENALTY_POOL_ROWS) * S * 1000) + forward
             + (MAX_GRAPHS + 1) * 2 * GRAPH_BYTES_PER_LAYER)
-    # The widest page bucket: max_model_len's pages, at least the smallest.
+    # The widest page bucket: max_model_len's pages, at least the smallest;
+    # the widest token bucket: the budget's.
     assert (page_capacity(2048, 16), page_capacity(2048, 64), page_capacity(40, 16)) == (
         128, 32, 8)
-    # A DecodeGraphs of the same bucket holds no more static bytes.
-    graphs = DecodeGraphs(max_rows=64, max_pages=128)
-    packed = torch.zeros(packed_capacity(64, 128), dtype=torch.int32)
+    assert (token_capacity(256), token_capacity(200), token_capacity(2)) == (256, 256, 8)
+    # A StepGraphs of the same buckets holds no more static bytes.
+    graphs = StepGraphs(max_rows=64, max_pages=128, max_tokens=256)
+    packed = torch.zeros(packed_capacity(64, 128, 256), dtype=torch.int32)
     sampling = {name: torch.zeros(64, dtype=dt) for name, dt in (
         ("temperature", torch.float32), ("top_k", torch.int32), ("top_p", torch.float32),
         ("typical_p", torch.float32), ("do_sample", torch.bool),
@@ -377,7 +399,7 @@ def test_decode_graph_bytes_are_left_out_of_the_kv_pool(monkeypatch):
     sampling["recent_tokens"] = torch.zeros(64, PENALTY_WINDOW, dtype=torch.int32)
     graphs._views(packed, sampling, torch.zeros(64, 1000), torch.zeros(64, dtype=torch.int32))
     assert graphs.static_bytes <= 4 * (
-        64 * 1000 + packed_capacity(64, 128) + 64 * (8 + PENALTY_WINDOW))
+        64 * 1000 + packed_capacity(64, 128, 256) + 64 * (8 + PENALTY_WINDOW))
     monkeypatch.setattr(config_mod, "_min_free_device_memory", lambda devices: 10_000_000)
     cache = config_mod.CacheConfig(block_size=16, hbm_memory_utilization=0.5,
                                    num_host_blocks_override=0)

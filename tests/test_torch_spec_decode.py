@@ -159,9 +159,13 @@ def test_prepare_model_input_with_drafts_matches_jax(name):
     assert pprep.decode_only == jprep.attention_metadata(16).decode_only
     assert pprep.spec_rows.shape == (pprep.block_tables.shape[0], K + 1)
     # The ragged kernel's plan is the key's: max_q_len is 1+K on a verify
-    # step, however long its drafts (or the prefill chunk beside them).
+    # step, however long its drafts; beside a prefill chunk, the chunk's
+    # bucket (at least 1+K), capped at T.
     q_lens = np.diff(pprep.query_start_loc)
-    assert pprep.max_q_len == max(1 + K, int(q_lens.max()))
+    want = max(1 + K, int(q_lens.max()))
+    if pprep.num_prefills:
+        want = mod(PORT, "engine.input_prep").bucket(want, maximum=pprep.token_ids.shape[0])
+    assert pprep.max_q_len == want
 
 
 def test_verify_bucket_is_exact_and_undrafted_steps_keep_the_fast_path():
@@ -575,7 +579,7 @@ def test_spec_refused_with_sliding_window_and_pipeline_parallelism():
 
 # ------------------------------------------------------- CUDA-graph keys
 def _key(groups, *, k=4, feed=False, top_n=0, **params):
-    from atoma_infer_tpu_torch.engine.cuda_graphs import decode_graph_key
+    from atoma_infer_tpu_torch.engine.cuda_graphs import step_graph_key
     from atoma_infer_tpu_torch.engine.sampler import SamplingTensors
 
     metas = _metadata(PORT, groups, **params)
@@ -584,7 +588,7 @@ def _key(groups, *, k=4, feed=False, top_n=0, **params):
     ps = [m.next_token_chooser_params for m in metas]
     sampling = SamplingTensors.build(ps, [[] for _ in ps], model_input.seq_lens.shape[0],
                                      [top_n] * len(ps))
-    return decode_graph_key(model_input, sampling, feed)
+    return step_graph_key(model_input, sampling, feed)
 
 
 def test_verify_steps_have_keys_of_their_own():
@@ -603,14 +607,24 @@ def test_verify_steps_have_keys_of_their_own():
         (8, 8, 8, False, False, 0, False)
 
 
-@pytest.mark.parametrize("groups, params", [
+@pytest.mark.parametrize("groups, params, key", [
+    # A 37-token prefill chunk beside: 37 + 3 tokens, T = S·(1+K) = 40;
+    # max_q_len the chunk's bucket 64 capped at T, not 1+K.
     ([(10, list(range(3, 40)), 0, range(20, 23), 37, [])]
-     + [_decode(0, 20, [5, 6], 0)], {}),                          # a prefill chunk beside
-    ([_decode(0, 20, [5, 6], 0)], dict(repetition_penalty=1.2)),   # penalties
-    ([_decode(0, 20, [5, 6], 0)], dict(frequency_penalty=0.5)),
+     + [_decode(0, 20, [5, 6], 0)], {}, (40, 8, 8, False, False, False, False, 0, 5, False, 40)),
+    # Penalties: the verify layout, max_q_len 1+K.
+    ([_decode(0, 20, [5, 6], 0)], dict(repetition_penalty=1.2),
+     (8, 8, 8, False, False, True, False, 0, 5, False, 5)),
+    ([_decode(0, 20, [5, 6], 0)], dict(frequency_penalty=0.5),
+     (8, 8, 8, False, False, True, False, 0, 5, False, 5)),
 ], ids=["mixed", "repetition_penalty", "frequency_penalty"])
-def test_verify_steps_without_a_graph(groups, params):
-    assert _key(groups, **params) is None
+def test_verify_steps_without_a_graph(groups, params, key):
+    """The verify steps that ran eagerly before every step had a graph:
+    each now has a general key, with the verify rows' width 1+K."""
+    from atoma_infer_tpu_torch.engine.cuda_graphs import StepKey
+
+    got = _key(groups, **params)
+    assert got == key and type(got) is StepKey
 
 
 def test_verify_step_with_a_feed_is_refused():
@@ -619,33 +633,46 @@ def test_verify_step_with_a_feed_is_refused():
 
 
 def test_static_inputs_and_reserve_fit_the_widest_verify_key():
+    from atoma_infer_tpu_torch.config import SchedulerConfig
     from atoma_infer_tpu_torch.engine.cuda_graphs import (
-        MAX_GRAPHS, DecodeGraphs, packed_capacity,
+        MAX_GRAPHS, StepGraphs, packed_capacity, token_capacity,
     )
     from atoma_infer_tpu_torch.engine.llm_service import (
-        GRAPH_BYTES_PER_LAYER, GRAPH_POOL_ROWS, decode_graph_bytes,
+        GRAPH_BYTES_PER_LAYER, GRAPH_POOL_ROWS, PENALTY_POOL_ROWS, activation_bytes,
+        graph_reserve_bytes, split_workspace_bytes,
     )
     from atoma_infer_tpu_torch.engine.sampler import PENALTY_WINDOW
+    from atoma_infer_tpu_torch.models.llama import LlamaConfig
 
     # K = 0 keeps the pure-decode sizes.
-    assert packed_capacity(64, 128, 0) == packed_capacity(64, 128) == 8 * 64 + 64 * 128 + 2
+    assert packed_capacity(64, 128, 64, 0) == packed_capacity(64, 128, 64) == \
+        8 * 64 + 64 * 128 + 2
     for S, P, K in ((8, 128, 4), (64, 128, 3), (16, 8, 1)):
         rows = S * (1 + K)
-        # A verify step at T = S·(1+K): tokens, positions, slots, tables,
-        # lengths, query starts, sampling steps, the count, the verify rows.
+        # A verify step at T = S·(1+K), within the budget's bucket: tokens,
+        # positions, slots, tables, lengths, query starts, sampling steps,
+        # the count, the verify rows.
         verify = 3 * rows + S * P + S + (S + 1) + S + 1 + rows
-        assert verify <= packed_capacity(S, P, K)
+        assert verify <= packed_capacity(S, P, token_capacity(rows), K)
         # A decode step with the feed fits too.
-        assert 4 * S + S * P + 4 * S + 2 <= packed_capacity(S, P, K)
+        assert 4 * S + S * P + 4 * S + 2 <= packed_capacity(S, P, token_capacity(rows), K)
     # The reserve: R = S·(1+K) rows of noise and of every pool buffer.
     S, K, V = 8, 4, 128256
-    static = 40 * V + packed_capacity(8, 128, 4) + 8 * (8 + PENALTY_WINDOW)
-    assert decode_graph_bytes(8, V, 128, 16, 4) == (
-        4 * (static + GRAPH_POOL_ROWS * 40 * V) + (MAX_GRAPHS + 1) * 16 * GRAPH_BYTES_PER_LAYER)
-    assert decode_graph_bytes(8, V, 128, 16, 4) > decode_graph_bytes(8, V, 128, 16)
-    assert decode_graph_bytes(8, V, 128, 16, 0) == decode_graph_bytes(8, V, 128, 16)
-    graphs = DecodeGraphs(max_rows=8, max_pages=128, num_spec_tokens=4)
-    assert graphs.packed_capacity == packed_capacity(8, 128, 4)
+    cfg = LlamaConfig(vocab_size=V, num_hidden_layers=16)
+
+    def sched(k):
+        return SchedulerConfig(max_num_batched_tokens=256, max_num_sequences=S,
+                               max_model_len=2048, enable_chunked_prefill=True,
+                               num_speculative_tokens=k)
+
+    static = 40 * V + packed_capacity(8, 128, 256, 4) + 8 * (8 + PENALTY_WINDOW)
+    forward = activation_bytes(256, cfg) + split_workspace_bytes(256, cfg, 128, 16)
+    assert graph_reserve_bytes(cfg, sched(4), 16) == (
+        4 * (static + (GRAPH_POOL_ROWS + PENALTY_POOL_ROWS) * 40 * V) + forward
+        + (MAX_GRAPHS + 1) * 16 * GRAPH_BYTES_PER_LAYER)
+    assert graph_reserve_bytes(cfg, sched(4), 16) > graph_reserve_bytes(cfg, sched(0), 16)
+    graphs = StepGraphs(max_rows=8, max_pages=128, max_tokens=256, num_spec_tokens=4)
+    assert graphs.packed_capacity == packed_capacity(8, 128, 256, 4)
 
 
 def test_service_with_stub_graphs_replays_verify_steps(monkeypatch):
@@ -672,7 +699,7 @@ def test_service_with_stub_graphs_replays_verify_steps(monkeypatch):
         outputs = step(*views)
         return cuda_graphs._Graph(Replay(step, views, outputs), views, outputs, {})
 
-    monkeypatch.setattr(cuda_graphs.DecodeGraphs, "_capture", capture)
+    monkeypatch.setattr(cuda_graphs.StepGraphs, "_capture", capture)
     # On the CPU the host copy is the tensor itself, which a later replay of
     # the same graph overwrites; the card copies to pinned memory.
     monkeypatch.setattr(worker_mod, "_to_host", lambda t: (t.clone(), None))
@@ -681,13 +708,14 @@ def test_service_with_stub_graphs_replays_verify_steps(monkeypatch):
     def watch(service):
         worker = service.engine.worker
         cfg = service.config
-        worker.graphs = cuda_graphs.DecodeGraphs(
+        worker.graphs = cuda_graphs.StepGraphs(
             8, cuda_graphs.page_capacity(cfg.scheduler.max_model_len, cfg.cache.block_size),
+            cuda_graphs.token_capacity(cfg.scheduler.max_num_batched_tokens),
             cfg.scheduler.num_speculative_tokens)
         run = worker.graphs.run
 
         def spy(key, *args):
-            if len(key) == 8:  # a verify step's
+            if isinstance(key, cuda_graphs.VerifyKey):
                 verify_keys.append((key, key in worker.graphs.graphs))
             return run(key, *args)
 
