@@ -47,8 +47,16 @@
 //    rounds ahead.
 //  * Q·Kᵀ and P·V on the tensor cores (mma.sync m16n8k16 bf16, f32 sums),
 //    the G query heads as rows of an m16 tile (the rest zero), 32 keys a
-//    round. Q·Kᵀ: each lane reads its B fragments straight from its key's
-//    ring row, 16 bytes at a time, with the dims taken in the order of those
+//    round. Groups of 1 to 8 fill rows 0..G-1 and are instantiated one by
+//    one; groups of 9 to 16 (Mistral-Large-2's 12, Llama-3.1-405B's 16)
+//    fill both halves, heads 0-7 in rows 0-7 and 8..G-1 in rows 8-15, in
+//    one instantiation (G = kFsTwoHalves) that takes the group at run
+//    time. A lane then holds two score rows (heads gid and gid + 8), each
+//    with its own online-softmax state and its own rescale of O; O costs
+//    no register more (the m16n8 accumulator holds rows gid + 8 anyway),
+//    Q's A fragments and the score state twice as many. Q·Kᵀ: each lane
+//    reads its B fragments straight from its key's ring row, 16 bytes at a
+//    time, with the dims taken in the order of those
 //    reads (Q's A fragments follow the same order, built once); rows are
 //    padded so that the reads meet no bank conflict. P·V: P's A fragments
 //    are the score accumulators (rounded to bf16 after INT8's V scale, as
@@ -83,7 +91,9 @@
 // 256 O takes 128 registers a thread, so V's runs of 32 dims are read in two
 // halves; the ring is 144 KB a block in the queries' dtype (one block an SM)
 // and 80 KB in a 1-byte cache (two); what does not fit spills (the build log
-// counts it).
+// counts it). The two-half instantiation spills at D = 256, and in a 1-byte
+// cache, held to three blocks an SM, at D = 128 too (60-76 bytes on an H100
+// build).
 //
 // Measurement hooks, all off in the build the port uses (ops/cuda_lib.py);
 // tools/rpa_ablation.py --mode fused builds and times them:
@@ -98,6 +108,9 @@
 namespace atoma {
 
 constexpr int kFsWarps = 4;   // warps a block; a warp takes 32 keys a round
+// The G of the instantiation that fills both halves of the m16 tile, for
+// groups of 9 to 16 passed at run time.
+constexpr int kFsTwoHalves = 16;
 // Resident blocks an SM the compiler must leave room for: 3 for 1-byte
 // caches (at most 170 registers a thread; uncapped, INT8 at D = 128 fits 2
 // blocks an SM and runs 11% slower on an H100: tools/rpa_ablation.py) up to
@@ -197,8 +210,9 @@ __device__ __forceinline__ uint32_t key_pair(const uint32_t* lo, const uint32_t*
 // 2 Hk D] of C; scales: bf16 [pages, block_size, 2] (INT8) or null;
 // scales_new: f32 [T, 2] (INT8, the new tokens' scales) or null; out Q
 // [T, Hq, D]; ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq, 2]
-// when splits > 1. Grid (Hk, sequence slots, splits), kFsWarps * 32 threads,
-// fs_smem_bytes<C, D, G>() bytes of dynamic shared memory.
+// when splits > 1; group: the query heads a kv head (G, or 9 to 16 when G
+// is kFsTwoHalves). Grid (Hk, sequence slots, splits), kFsWarps * 32
+// threads, fs_smem_bytes<C, D, G>() bytes of dynamic shared memory.
 template <typename Q, typename C, int D, int G>
 __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split_kernel(
     const Q* __restrict__ q, const Q* __restrict__ k_new,
@@ -209,9 +223,12 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
     const int* __restrict__ num_seqs, const float* __restrict__ alibi,
     Q* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
     int num_tokens, int num_kv_heads, int max_pages, int block_size, long long num_slots,
-    int splits, int min_tiles, float scale, int window, float soft_cap) {
+    int splits, int min_tiles, float scale, int window, float soft_cap, int group) {
+  static_assert(G <= 8 || G == kFsTwoHalves, "one half of the tile, or both");
   using L = FsTile<C, D>;
   constexpr int NW = kFsWarps;
+  constexpr int NH = G == kFsTwoHalves ? 2 : 1;  // halves of the m16 tile the heads fill
+  const int ng = NH == 2 ? group : G;            // query heads a kv head
   constexpr int NT = D / 8;  // P·V's n8 tiles; a lane's V run is NT dims
   constexpr int VC = NT > 16 ? 16 : NT;  // dims of a run loaded at once
   constexpr int EPL = L::kPiece / (int)sizeof(C);  // K elements a lane's piece
@@ -246,11 +263,11 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
       min(seq_len, (t_lo + (int)((long long)n_tiles * (split + 1) / nsplit)) * kRpaKT);
   const bool last = split == nsplit - 1;  // the split that holds pos
 
-  const int num_q_heads = num_kv_heads * G;
+  const int num_q_heads = num_kv_heads * ng;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long row_stride = 2LL * num_kv_heads * D;
-  const long long q_base = ((long long)t * num_q_heads + (long long)h * G) * D;
-  for (int i = tid; i < G * D; i += NW * 32) q_s[i] = to_float(q[q_base + i]);
+  const long long q_base = ((long long)t * num_q_heads + (long long)h * ng) * D;
+  for (int i = tid; i < ng * D; i += NW * 32) q_s[i] = to_float(q[q_base + i]);
 
   const long long slot = slot_mapping[t];
   const bool write = last && slot >= 0 && slot < num_slots;
@@ -289,25 +306,35 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
   __syncthreads();  // q_s staged; the new slice stored (last split)
 
   // Q·Kᵀ on the tensor cores (mma.sync m16n8k16 on Q, f32 sums): A holds
-  // the G query heads as rows 0..G-1 of an m16 tile (the rest zero), B a
-  // key's K row as a column. k runs over the dims in the order the K
+  // the query heads as rows 0..G-1 of an m16 tile (two halves: heads 0-7
+  // in rows 0-7, 8..group-1 in rows 8-15; the rest zero), B a key's K row
+  // as a column. k runs over the dims in the order the K
   // fragments read them: lane (gid, tig) reads kPiece bytes of its key's
   // row at byte 4 kPiece c + kPiece tig, EPL elements feeding SPC k16 steps
   // (step c SPC + i: dims d = 4 EPL c + EPL tig + 4 i, b0 = (d, d + 1), b1 =
   // (d + 2, d + 3), 1-byte values widened to Q exactly by widen2);
   // A's k index follows the same lanes, so the sum is the dot product. The
-  // lane's row of the score tile is head gid: its online-softmax state (m,
-  // l) is the row's, l a partial sum over the lane's keys.
+  // lane's rows of the score tile are head gid (half r = 0) and, with two
+  // halves, head gid + 8 (r = 1): each row's online-softmax state (m, l) is
+  // the lane's, l a partial sum over the lane's keys.
   const int gid = lane >> 2, tig = lane & 3;
-  uint32_t qf[D / 16][2];  // a0 and a2 of each k16 step (a1 = a3 = 0: rows 8-15)
+  // A's registers of each k16 step by half: (a0, a2) for row gid, (a1, a3)
+  // for row gid + 8 (zero with one half: rows 8-15 then hold no head).
+  uint32_t qf[D / 16][2 * NH];
+  float slope[NH], m_row[NH], l_row[NH];
 #pragma unroll
-  for (int st = 0; st < D / 16; ++st) {
-    const int d = (st / SPC) * 4 * EPL + tig * EPL + 4 * (st % SPC);
-    qf[st][0] = gid < G ? pack2<Q>(q_s[gid * D + d], q_s[gid * D + d + 1]) : 0u;
-    qf[st][1] = gid < G ? pack2<Q>(q_s[gid * D + d + 2], q_s[gid * D + d + 3]) : 0u;
+  for (int r = 0; r < NH; ++r) {
+    const int g = gid + 8 * r;
+#pragma unroll
+    for (int st = 0; st < D / 16; ++st) {
+      const int d = (st / SPC) * 4 * EPL + tig * EPL + 4 * (st % SPC);
+      qf[st][2 * r] = g < ng ? pack2<Q>(q_s[g * D + d], q_s[g * D + d + 1]) : 0u;
+      qf[st][2 * r + 1] = g < ng ? pack2<Q>(q_s[g * D + d + 2], q_s[g * D + d + 3]) : 0u;
+    }
+    slope[r] = alibi != nullptr && g < ng ? alibi[h * ng + g] : 0.f;
+    m_row[r] = kNegInf;
+    l_row[r] = 0.f;
   }
-  const float slope = alibi != nullptr && gid < G ? alibi[h * G + gid] : 0.f;
-  float m_row = kNegInf, l_row = 0.f;
   // P·V on the tensor cores too: O (rows the heads) += P (A: the score
   // accumulators, rounded to Q after INT8's V scale) · V (B: keys x
   // dims). Output column n of n8 tile m is dim NT n + m, so the B column a
@@ -390,7 +417,8 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
     __syncwarp();  // the round's K rows (and INT8 scales) are in shared memory
 
     // S = Q·Kᵀ for the round's 32 keys: n8 tile j is keys 8 j .. 8 j + 7;
-    // the lane holds head gid's scores of keys 8 j + 2 tig + {0, 1}.
+    // the lane holds head gid's scores of keys 8 j + 2 tig + {0, 1} in
+    // sc[j][0..1], and head gid + 8's in sc[j][2..3].
     float sc[4][4];
     const uint32_t stage = ring + (it & 1) * L::kStage;
 #pragma unroll
@@ -417,7 +445,8 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
             b0 = widen2<C, Q>(w[i], 0);
             b1 = widen2<C, Q>(w[i], 2);
           }
-          const uint32_t a[4] = {qf[st][0], 0u, qf[st][1], 0u};
+          uint32_t a[4] = {qf[st][0], 0u, qf[st][1], 0u};
+          if constexpr (NH == 2) a[1] = qf[st][2], a[3] = qf[st][3];
           if (st == 0)
             mma16_fresh<Q>(sc[j], a, b0, b1);
           else
@@ -425,9 +454,12 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
         }
       }
     }
-    // Scores in the plain version's order, then the row's online softmax
-    // over the lane quad (the row's 32 keys: 8 a lane).
-    float mx = kNegInf;
+    // Scores in the plain version's order, then each row's online softmax
+    // over the lane quad (the row's 32 keys: 8 a lane). Half r's scores are
+    // sc[j][2 r + e].
+    float mx[NH], alpha[NH];
+#pragma unroll
+    for (int r = 0; r < NH; ++r) mx[r] = kNegInf;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -435,33 +467,47 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
         const int key = 8 * j + 2 * tig + e;
         float ks = 1.f;
         if constexpr (kScaled<C>) ks = kv_s[warp][key].x;
-        sc[j][e] = base + key < key_hi
-                       ? score_mod(sc[j][e] * ks, scale, soft_cap, slope, base + key, pos)
-                       : kNegInf;
-        mx = fmaxf(mx, sc[j][e]);
-      }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_row, mx);  // finite: the round's first key is valid
-    const float alpha = expf(m_row - m_new);
-    l_row *= alpha;
-    uint32_t pa[2][2];  // P's A registers (a0, a2) of the round's two k16 steps
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float pv[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = expf(sc[j][e] - m_new);
-        l_row += p;
-        float vs = 1.f;
-        if constexpr (kScaled<C>) vs = kv_s[warp][8 * j + 2 * tig + e].y;
-        pv[e] = p * vs;  // INT8: V's scale folds into p
+        for (int r = 0; r < NH; ++r) {
+          float& v = sc[j][2 * r + e];
+          v = base + key < key_hi
+                  ? score_mod(v * ks, scale, soft_cap, slope[r], base + key, pos)
+                  : kNegInf;
+          mx[r] = fmaxf(mx[r], v);
+        }
       }
-      pa[j >> 1][j & 1] = pack2<Q>(pv[0], pv[1]);
+#pragma unroll
+    for (int r = 0; r < NH; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_row[r], mx[r]);  // finite: the round's first key is valid
+      alpha[r] = expf(m_row[r] - m_new);
+      l_row[r] *= alpha[r];
+      m_row[r] = m_new;
     }
-    m_row = m_new;
+    // P's A registers of the round's two k16 steps by half: (a0, a2), and
+    // (a1, a3) for rows 8-15.
+    uint32_t pa[NH][2][2];
 #pragma unroll
-    for (int mt = 0; mt < NT; ++mt) o[mt][0] *= alpha, o[mt][1] *= alpha;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < NH; ++r) {
+        float pv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(sc[j][2 * r + e] - m_row[r]);
+          l_row[r] += p;
+          float vs = 1.f;
+          if constexpr (kScaled<C>) vs = kv_s[warp][8 * j + 2 * tig + e].y;
+          pv[e] = p * vs;  // INT8: V's scale folds into p
+        }
+        pa[r][j >> 1][j & 1] = pack2<Q>(pv[0], pv[1]);
+      }
+#pragma unroll
+    for (int mt = 0; mt < NT; ++mt) {
+      o[mt][0] *= alpha[0], o[mt][1] *= alpha[0];
+      if constexpr (NH == 2) o[mt][2] *= alpha[1], o[mt][3] *= alpha[1];
+    }
     // P·V, k16 step q: keys 16 q + 2 tig + {0, 1} (b0) and + {8, 9} (b1);
     // at D = 256 the runs in two halves of VC = 16 dims, so that the four
     // keys' pieces take 32 registers beside O's 128.
@@ -476,7 +522,8 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
           const long long vs = __shfl_sync(0xffffffffu, kslot, key);
           v[i] = load_run<C, VC>(vrun + vs * row_stride + c0, base + key < key_hi);
         }
-        const uint32_t a[4] = {pa[q][0], 0u, pa[q][1], 0u};
+        uint32_t a[4] = {pa[0][q][0], 0u, pa[0][q][1], 0u};
+        if constexpr (NH == 2) a[1] = pa[1][q][0], a[3] = pa[1][q][1];
 #pragma unroll
         for (int mt = 0; mt < VC; ++mt)
           mma16<Q>(o[c0 + mt], a, key_pair<C, Q>(v[0].w, v[1].w, mt),
@@ -487,26 +534,34 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
     kslot = next_slot;
   }
   cp_async_wait<0>();
-  l_row += __shfl_xor_sync(0xffffffffu, l_row, 1);
-  l_row += __shfl_xor_sync(0xffffffffu, l_row, 2);
+#pragma unroll
+  for (int r = 0; r < NH; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+  }
 
   // Merge the warps' (m, l, O) states; O goes through the rings' shared
   // memory, free now.
   float* acc_s = reinterpret_cast<float*>(fs_ring);
   __syncthreads();  // every warp is done with its ring
-  if (gid < G) {
-    if (tig == 0) {
-      m_s[warp][gid] = m_row;
-      l_s[warp][gid] = l_row;
+#pragma unroll
+  for (int r = 0; r < NH; ++r) {
+    const int g = gid + 8 * r;
+    if (g < ng) {
+      if (tig == 0) {
+        m_s[warp][g] = m_row[r];
+        l_s[warp][g] = l_row[r];
+      }
+#pragma unroll
+      for (int mt = 0; mt < NT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          acc_s[(warp * ng + g) * D + NT * (2 * tig + e) + mt] = o[mt][2 * r + e];
     }
-#pragma unroll
-    for (int mt = 0; mt < NT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) acc_s[(warp * G + gid) * D + NT * (2 * tig + e) + mt] = o[mt][e];
   }
   __syncthreads();
-  const long long row0 = (long long)t * num_q_heads + (long long)h * G;
-  for (int i = tid; i < G * D; i += NW * 32) {
+  const long long row0 = (long long)t * num_q_heads + (long long)h * ng;
+  for (int i = tid; i < ng * D; i += NW * 32) {
     const int g = i / D, d = i - g * D;
     float mx = kNegInf;
 #pragma unroll
@@ -516,7 +571,7 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
     for (int w = 0; w < NW; ++w) {
       const float c = m_s[w][g] == kNegInf ? 0.f : expf(m_s[w][g] - mx);
       sum += l_s[w][g] * c;
-      ov += acc_s[(w * G + g) * D + d] * c;
+      ov += acc_s[(w * ng + g) * D + d] * c;
     }
     if (nsplit == 1) {
       out[q_base + i] = from_float<Q>(sum > 0.f ? ov / sum : 0.f);
@@ -572,6 +627,9 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
       (splits > 1 && (ws_o == nullptr || ws_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int group = num_q_heads / num_kv_heads;
+  // The instantiation: the group itself up to 8, both halves of the tile
+  // from 9 to 16.
+  const int inst = group <= 8 ? group : (group <= kFsTwoHalves ? kFsTwoHalves : 0);
 #ifdef ATOMA_FS_SEQ_MAJOR
   const dim3 grid(num_seq_slots, num_kv_heads, splits);
 #else
@@ -579,7 +637,7 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
 #endif
   cudaStream_t st = (cudaStream_t)stream;
 #define ATOMA_FS(D, G)                                                                         \
-  if (head_dim == D && group == G) {                                                           \
+  if (head_dim == D && inst == G) {                                                            \
     const cudaError_t opt_in = fused_split_attributes<Q, C, D, G>();                           \
     if (opt_in != cudaSuccess) return (int)opt_in;                                             \
     fused_split_kernel<Q, C, D, G><<<grid, kFsWarps * 32, fs_smem_bytes<C, D, G>(), st>>>(    \
@@ -589,7 +647,7 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
         (const int*)seq_lens, (const int*)query_start_loc, (const int*)num_seqs,               \
         (const float*)alibi, (Q*)out, (float*)ws_o, (float*)ws_ml, num_tokens,                \
         num_kv_heads, max_pages, block_size, num_slots, splits, min_tiles, scale, window,      \
-        soft_cap);                                                                             \
+        soft_cap, group);                                                                      \
     return (int)cudaGetLastError();                                                            \
   }
 #ifdef ATOMA_FS_SHAPES_D128_G4
@@ -598,7 +656,7 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
 #else
 #define ATOMA_FS_D(D) \
   ATOMA_FS(D, 1) ATOMA_FS(D, 2) ATOMA_FS(D, 3) ATOMA_FS(D, 4) ATOMA_FS(D, 5) ATOMA_FS(D, 6) \
-  ATOMA_FS(D, 7) ATOMA_FS(D, 8)
+  ATOMA_FS(D, 7) ATOMA_FS(D, 8) ATOMA_FS(D, kFsTwoHalves)
   if constexpr ((DIMS & kNarrowDims) != 0) {
     ATOMA_FS_D(32)
     ATOMA_FS_D(64)
@@ -633,7 +691,10 @@ int fused_split_blocks_per_sm_entry(int head_dim, int group) {
       case 6: return fused_split_blocks_per_sm<Q, C, D, 6>();        \
       case 7: return fused_split_blocks_per_sm<Q, C, D, 7>();        \
       case 8: return fused_split_blocks_per_sm<Q, C, D, 8>();        \
-      default: return -1;                                            \
+      default:                                                       \
+        return group > 8 && group <= kFsTwoHalves                    \
+                   ? fused_split_blocks_per_sm<Q, C, D, kFsTwoHalves>() \
+                   : -1;                                             \
     }                                                                \
   }
   if constexpr ((DIMS & kNarrowDims) != 0) {

@@ -38,7 +38,9 @@
 //    query heads of the group (GQA), so each page is read from device
 //    memory once per (tile, kv head) instead of once per query row. Any
 //    block size that is a multiple of 8 runs.
-//  * B is instantiated for G = 1 to 8 query heads per kv head.
+//  * B is instantiated for G = 1 to 8 query heads per kv head, and once
+//    more for groups of 9 to 16 (G = kFusedWideGroup, the group passed at
+//    run time; f32 queries only, the route that reaches it).
 //  * B splits one (sequence, kv head)'s keys over 4 warps, one key per lane,
 //    so a decode token's G query heads share every K/V load, and combines
 //    the warps' partial softmax states at the end (split-KV inside a block).
@@ -272,6 +274,8 @@ __global__ void __launch_bounds__(256) rpa_kernel(
 // ---------------------------------------------------------------------------
 constexpr int kDecodeWarps = 4;
 constexpr int kPvUnroll = 8;  // V rows loaded ahead of their FMAs
+// The G of the instantiation for groups of 9 to 16, passed at run time.
+constexpr int kFusedWideGroup = 16;
 
 template <typename T, typename C, int D, int G>
 __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
@@ -281,21 +285,28 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
     const int* __restrict__ seq_lens, const int* __restrict__ query_start_loc,
     const int* __restrict__ num_seqs, const float* __restrict__ alibi,
     T* __restrict__ out, int num_kv_heads, int max_pages, int block_size,
-    long long num_slots, float scale, int window, float soft_cap) {
+    long long num_slots, float scale, int window, float soft_cap, int group) {
+  static_assert(G <= 8 || G == kFusedWideGroup, "groups 1 to 8, or 9 to 16 at run time");
   constexpr int NW = kDecodeWarps;
   constexpr int DPL = D / 32;  // output dims per lane
   constexpr int VN = Vec<C>::N;
+  // Query heads a kv head: G, or the run-time group (9 to 16). Per-head
+  // loops run to G and skip heads past ng (a block-uniform test).
+  const int ng = G == kFusedWideGroup ? group : G;
   __shared__ float q_s[G * D];
   __shared__ float m_s[NW][G];
   __shared__ float l_s[NW][G];
-  __shared__ float acc_s[NW][G][D];
+  // One [G][D] sum that the warps add their weighted partials into in turn:
+  // at G = 16 and D = 256 all four partials would pass the 48 KB of static
+  // shared memory.
+  __shared__ float acc_s[G][D];
   __shared__ float red_s[2 * NW];
 
   const int s = blockIdx.x, h = blockIdx.y;
   if (s >= num_seqs[0]) return;
   const int t = query_start_loc[s];
   if (query_start_loc[s + 1] - t != 1) return;  // decode: one query token
-  const int num_q_heads = num_kv_heads * G;
+  const int num_q_heads = num_kv_heads * ng;
   const int seq_len = seq_lens[s];
   const int pos = seq_len - 1;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -304,9 +315,9 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
   const T* vn_row = v_new + (long long)t * num_kv_heads * D;
   const T* kn = kn_row + (long long)h * D;
   const T* vn = vn_row + (long long)h * D;
-  const long long q_base = ((long long)t * num_q_heads + (long long)h * G) * D;
+  const long long q_base = ((long long)t * num_q_heads + (long long)h * ng) * D;
 
-  for (int i = tid; i < G * D; i += blockDim.x) q_s[i] = to_float(q[q_base + i]);
+  for (int i = tid; i < ng * D; i += blockDim.x) q_s[i] = to_float(q[q_base + i]);
   const long long slot = slot_mapping[t];
   const bool write = slot >= 0 && slot < num_slots;
   float k_sc = 1.f, v_sc = 1.f, inv_k = 1.f, inv_v = 1.f;
@@ -336,7 +347,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
   for (int g = 0; g < G; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
-    slope[g] = alibi != nullptr ? alibi[h * G + g] : 0.f;
+    slope[g] = alibi != nullptr && g < ng ? alibi[h * ng + g] : 0.f;
 #pragma unroll
     for (int dd = 0; dd < DPL; ++dd) acc[g][dd] = 0.f;
   }
@@ -374,14 +385,19 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
         load16(kr + d0, kv);
 #pragma unroll
         for (int g = 0; g < G; ++g)
+          if (g < ng)
 #pragma unroll
-          for (int i = 0; i < VN; ++i)
-            dot[g] = fmaf(q_s[g * D + d0 + i], kv[i], dot[g]);
+            for (int i = 0; i < VN; ++i)
+              dot[g] = fmaf(q_s[g * D + d0 + i], kv[i], dot[g]);
       }
     }
     float p[G], pv[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
+      if (g >= ng) {
+        pv[g] = 0.f;
+        continue;
+      }
       const float sv = valid ? score_mod(dot[g] * ksc, scale, soft_cap, slope[g],
                                          kpos, pos)
                              : kNegInf;
@@ -412,6 +428,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
       for (int u = 0; u < kPvUnroll; ++u) {
 #pragma unroll
         for (int g = 0; g < G; ++g) {
+          if (g >= ng) continue;
           const float pj = __shfl_sync(0xffffffffu, pv[g], j0 + u);
 #pragma unroll
           for (int dd = 0; dd < DPL; ++dd) acc[g][dd] = fmaf(pj, v[u][dd], acc[g][dd]);
@@ -420,30 +437,52 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
     }
   }
 
-  // Combine the warps' partial (max, sum, accumulator) states.
+  // Combine the warps' partial (max, sum, accumulator) states: each warp's
+  // weight exp(m_w - max) from the maxima in shared memory, then the warps
+  // add their weighted accumulators into acc_s in warp order.
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
+    if (g < ng && lane == 0) {
       m_s[warp][g] = m[g];
       l_s[warp][g] = l[g];
     }
-#pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) acc_s[warp][g][lane + dd * 32] = acc[g][dd];
   }
   __syncthreads();
-  for (int i = tid; i < G * D; i += blockDim.x) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (g >= ng) continue;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, m_s[w][g]);
+    const float c = m[g] == kNegInf ? 0.f : expf(m[g] - mx);
+#pragma unroll
+    for (int dd = 0; dd < DPL; ++dd) acc[g][dd] *= c;
+  }
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g >= ng) continue;
+#pragma unroll
+        for (int dd = 0; dd < DPL; ++dd) {
+          float& a = acc_s[g][lane + dd * 32];
+          a = w == 0 ? acc[g][dd] : a + acc[g][dd];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < ng * D; i += blockDim.x) {
     const int g = i / D, d = i - g * D;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < NW; ++w) mx = fmaxf(mx, m_s[w][g]);
-    float sum = 0.f, o = 0.f;
+    float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float c = m_s[w][g] == kNegInf ? 0.f : expf(m_s[w][g] - mx);
-      sum += l_s[w][g] * c;
-      o += acc_s[w][g][d] * c;
-    }
-    out[q_base + i] = from_float<T>(sum > 0.f ? o / sum : 0.f);
+    for (int w = 0; w < NW; ++w)
+      sum += m_s[w][g] == kNegInf ? 0.f : l_s[w][g] * expf(m_s[w][g] - mx);
+    out[q_base + i] = from_float<T>(sum > 0.f ? acc_s[g][d] / sum : 0.f);
   }
 }
 
@@ -483,7 +522,7 @@ int launch_fused(int group, dim3 grid, cudaStream_t stream, const void* q,
   fused_decode_kernel<T, C, D, G><<<grid, kDecodeWarps * 32, 0, stream>>>(    \
       (const T*)q, (const T*)k_new, (const T*)v_new, (C*)cache,               \
       (__nv_bfloat16*)scales, slots, bt, sl, qsl, ns, alibi, (T*)out, hk,     \
-      max_pages, block_size, num_slots, scale, window, soft_cap)
+      max_pages, block_size, num_slots, scale, window, soft_cap, group)
   switch (group) {
     case 1: ATOMA_FUSED(1); break;
     case 2: ATOMA_FUSED(2); break;
@@ -493,7 +532,16 @@ int launch_fused(int group, dim3 grid, cudaStream_t stream, const void* q,
     case 6: ATOMA_FUSED(6); break;
     case 7: ATOMA_FUSED(7); break;
     case 8: ATOMA_FUSED(8); break;
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      // Groups of 9 to 16: f32 queries only (bf16 ones take the split
+      // kernel; this kernel's bf16 form is only timed beside it).
+      if constexpr (sizeof(T) == 4) {
+        if (group > 8 && group <= kFusedWideGroup) {
+          ATOMA_FUSED(kFusedWideGroup);
+          break;
+        }
+      }
+      return (int)cudaErrorInvalidValue;
   }
 #undef ATOMA_FUSED
   return (int)cudaGetLastError();

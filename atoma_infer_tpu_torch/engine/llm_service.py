@@ -22,13 +22,13 @@ core when ``use_native_core`` is set (the default; ``native/``), else the
 Python one, and the Python one under speculative decoding, as the JAX
 service chooses (:meth:`LlmService._build_block_manager`); prefix caching
 (``enable_prefix_caching``) runs over either, and float16 (``dtype``) on
-the kernels' fp16 instantiations. Not ported yet (raises
-``NotImplementedError`` naming its ROADMAP.md item): CUDA graphs of
-tensor-parallel steps (``warmup`` under TP). Async scheduling (``async_scheduling``,
+the kernels' fp16 instantiations. Async scheduling (``async_scheduling``,
 ``async_depth``) is ported, and so is ``warmup``, which on the card captures
 the CUDA graphs of every step it reaches before traffic, prefill and mixed
 steps at the token budget and long contexts' page buckets included
-(``engine/cuda_graphs.py``). So is speculative decoding
+(``engine/cuda_graphs.py``); under tensor parallelism it runs the same waves
+eagerly, as the ranks step (no graph of a TP step is captured yet:
+ROADMAP.md, Queue 1: CUDA graphs of TP steps over NCCL). So is speculative decoding
 (``num_speculative_tokens``: n-gram drafts verified in the same forward,
 greedy acceptance; a step with drafts runs synchronously). Weight quantization
 (``quantization`` "int8" or "int4", and W8A8 under ``ATOMA_W8A8=1``) is
@@ -742,15 +742,16 @@ class LlmService:
         (``engine/cuda_graphs.py``), so traffic at those keys replays them
         from its first step.
 
+        Under tensor parallelism the same waves run eagerly, as the ranks
+        step (no graph of a TP step is captured yet: ROADMAP.md, Queue 1:
+        CUDA graphs of TP steps over NCCL): rank 0's lockstep carries the
+        warmup requests to the followers like any other admission, and
+        every rank's kernels load and its plan and occupancy caches fill
+        before traffic.
+
         Call with the engine loop running (``asyncio.create_task(
-        service.engine.run())``). Returns the wall seconds spent. Under
-        tensor parallelism it raises: no CUDA graph of a TP step is
-        captured yet.
+        service.engine.run())``). Returns the wall seconds spent.
         """
-        if self.config.model.tensor_parallel_size > 1:
-            raise NotImplementedError(
-                "warmup captures CUDA graphs, and graphs of tensor-parallel steps are not "
-                "ported yet (ROADMAP.md, Queue 1: CUDA graphs of TP steps over NCCL)")
         S = num_seqs or self.config.scheduler.max_num_sequences
         # Cross at least one block boundary, as the JAX warmup does, so
         # decode steps that take a new block run before traffic too.

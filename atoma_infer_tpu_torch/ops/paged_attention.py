@@ -19,13 +19,16 @@ Replaces the TPU kernel ``atoma_infer_tpu/ops/paged_attention.py:_kernel``:
   ``fuse_write=True``) for a pure-decode batch: each row writes its head's
   slice of the new K/V row into the slot, then attends over the cache, the
   new position read back from it. Two routes by the queries' dtype, each
-  instantiated for 1 to 8 query heads per kv head:
+  instantiated for 1 to 8 query heads per kv head one by one and for 9 to
+  16 in one instantiation that takes the group at run time
+  (Mistral-Large-2's 12, Llama-3.1-405B's 16):
   - bf16 and fp16 queries (``*_split``, ``csrc/fused_decode_split.cuh``): blocks of
     (kv head, sequence, KV split), the splits from shapes alone
     (:func:`fused_split_plan`), only the split holding the new key writing
-    it; K through a ``cp.async`` ring, Q·Kᵀ and P·V on ``mma.sync``; split
-    rows merged by ``paged_attention_split_combine`` (the ragged kernel's
-    log-sum-exp merge, its own launch);
+    it; K through a ``cp.async`` ring, Q·Kᵀ and P·V on ``mma.sync``
+    (groups of 9 to 16 in both halves of its m16 tile); split rows merged
+    by ``paged_attention_split_combine`` (the ragged kernel's log-sum-exp
+    merge, its own launch);
   - f32 queries (``fused_decode_kernel``, ``csrc/paged_attention.cuh``): one
     block per (sequence, kv head), its 4 warps splitting the keys.
 * **D** ``*_int8``: A and B over an INT8 cache with one bf16 scale per
@@ -100,7 +103,9 @@ TC_DTYPES = (torch.bfloat16, torch.float16)
 # Phi-3-mini's and Gemma-2's.
 HEAD_DIMS = (32, 64, 96, 128, 256)
 WIDE_HEAD_DIMS = (96, 256)
-MAX_FUSED_GROUP = 8  # fused_decode_kernel is instantiated for G = 1..8
+# The fused decode kernels take up to 16 q heads per kv head: one m16 tile
+# of Q·Kᵀ a kv head.
+MAX_FUSED_GROUP = 16
 _RAGGED_ARGS = [INT] + [PTR] * 9 + [INT] * 7 + [FLOAT, INT, FLOAT, PTR]
 _FUSED_ARGS = [INT] + [PTR] * 12 + [INT] * 6 + [LONG, FLOAT, INT, FLOAT, PTR]
 _A = "atoma_infer_tpu/ops/paged_attention.py:1058 (ragged_paged_attention_pallas"
@@ -540,7 +545,7 @@ def check_kernel_shape(*, head_dim: int, dtype: torch.dtype, kind, group: int,
         raise ValueError(
             f"fused_decode_attention: {group} q heads per kv head unsupported (1 to "
             f"{MAX_FUSED_GROUP}; larger groups wait for ROADMAP.md, Queue 1: fused decode at "
-            "more than 8 q heads per kv head)"
+            "more than 16 q heads per kv head, two m16 tiles a kv head)"
         )
 
 

@@ -38,7 +38,8 @@ def main() -> None:
         "--warmup", action="store_true",
         help="run synthetic request waves at the configured bucket shapes "
         "before binding the listener: on the card they capture the "
-        "pure-decode steps' CUDA graphs (LlmService.warmup)",
+        "steps' CUDA graphs; under tensor parallelism they run eagerly "
+        "(LlmService.warmup)",
     )
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args()

@@ -73,9 +73,17 @@ raises on failure; nothing is caught):
    shapes, the merge after A's split 8B prefill chunk, the INT8 and e4m3
    writes, D and E at the 8B shapes, F, G and H at the 8B gate projection
    (M = 8 and 256) beside ``torch.mm`` in fp16, each on its route by the
-   launch counters, within ``ATTN_TOL``/``QMM_TOL["float16"]``. Times
-   with CUDA events: kernel, plain version and, where one PyTorch call
-   computes the same function, that call.
+   launch counters, within ``ATTN_TOL``/``QMM_TOL["float16"]``. Groups of
+   9 to 16 q heads per kv head (``check_group_variants``,
+   ``check_group_kernels``): the fused kernels (the split kernel's two-half
+   tile for bf16 and fp16 queries, the unsplit f32 one) and the ragged ones
+   at G 9, 12, 16 × D 64, 96, 128, 256 over every cache kind, writes and
+   scales bit-exact (a window, a soft cap and ALiBi at two shapes); then B
+   at Mistral-Large-2's shape (96 q heads over 8) and D (with
+   ``scales_new``) and E at Llama-3.1-405B's per-rank shape at tp = 8 (16
+   over 1) on 64 decode rows, and A, D, E on a mixed batch there, timed
+   beside their bounds. Times with CUDA events: kernel, plain version and,
+   where one PyTorch call computes the same function, that call.
 3. The port's ``Llama`` with 2 layers at full width: Llama-3.2-1B and
    Llama-3.2-3B dense, and
    Llama-3.1-8B quantized (INT8, INT4, and INT8 over an INT8 and an e4m3
@@ -153,10 +161,18 @@ raises on failure; nothing is caught):
    127.0.0.1, answers one plain and one streamed (SSE)
    ``POST /v1/chat/completions``; both bodies checked, each request's time
    to first token and total printed. Last, one bf16 service per model
-   family at its published widths (``FAMILIES``: full depth but
-   Mixtral-8x7B's 8 of 32 layers, which is all that fits the card), eager
+   family at its published widths (``FAMILIES``: half depth, for the
+   smoke's time limit, and Mixtral-8x7B's 8 of 32 layers, which is all
+   that fits the card), eager
    and then synchronous with graphs, the same checks; Phi-3-mini's second
-   prompt passes its 2,047-key window. Speculative decoding (K = 4, 8
+   prompt passes its 2,047-key window. Then the published checkpoints with
+   9 to 16 q heads per kv head (``run_group_services``,
+   ``GROUP_FAMILIES``): Mistral-Large-Instruct-2407 at 8 of 88 layers in
+   bf16 and Llama-3.1-405B at 4 of 126 with INT8 weights over an INT8 and
+   an e4m3 cache, each with the plain attention, eager and with graphs:
+   tokens identical eager and with graphs, within the near-tie rule of the
+   plain attention's, every pure-decode step on the split fused kernel
+   and no decode step on the ragged one. Speculative decoding (K = 4, 8
    sequences, prompts echoing their first half): the 1B bf16 service (a)
    eager and (b) async with graphs after ``warmup()``, and after the 8B
    services the INT8 + INT8 KV one synchronous with graphs, each against
@@ -214,7 +230,8 @@ raises on failure; nothing is caught):
    the INT8 write, D, F and the merge on verify rows as rows of their own,
    their launches from the spec services' runs with graphs; the
    tensor-parallel shapes' rows, their launches from the 8B tp = 2
-   service's rank 0), then
+   service's rank 0; the group rows, their launches from the group
+   services' runs with graphs), then
    as the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
@@ -379,15 +396,17 @@ def build_kernels() -> float:
         spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", text))
         log(f"built {source} at {walls[source]:.1f} s: {len(regs)} kernels, max "
             f"{max(regs, default=0)} registers, {spills} bytes of spill stores")
-        if "_wide" in source:
-            # The 1-byte caches' wide instantiations, kernel by kernel: their
-            # registers and spills under __launch_bounds__ (PERF.md).
-            for entry in re.split(r"Compiling entry function", text)[1:]:
-                name = re.match(r"\s*'_ZN5atoma\d*(\w+?)I", entry)
-                used = re.search(r"Used (\d+) registers", entry)
-                spill = re.search(r"(\d+) bytes spill stores", entry)
-                if name and used:
-                    args = ",".join(re.findall(r"Li(\d+)E", entry.split("'")[1]))
+        # Kernel by kernel, their registers and spills under __launch_bounds__
+        # (PERF.md): the 1-byte caches' wide instantiations, and in every
+        # source the fused kernels' instantiation for groups of 9 to 16.
+        for entry in re.split(r"Compiling entry function", text)[1:]:
+            name = re.match(r"\s*'_ZN5atoma\d*(\w+?)I", entry)
+            used = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores", entry)
+            if name and used:
+                args = ",".join(re.findall(r"Li(\d+)E", entry.split("'")[1]))
+                wide_group = name.group(1).startswith("fused_") and args.endswith(",16")
+                if "_wide" in source or wide_group:
                     log(f"  {source} {name.group(1)}<{args}>: {used.group(1)} registers, "
                         f"{spill.group(1) if spill else 0} bytes of spill stores")
     log(f"kernel build: {seconds:.1f} s")
@@ -1275,7 +1294,7 @@ def check_fp16_occupancy(torch):
                 ("paged_attention", "atoma_rpa_mma_blocks_per_sm", [(d, w) for d in dims
                                                                    for w in (4, 8)]),
                 ("fused_decode_split", "atoma_fused_split_blocks_per_sm",
-                 [(d, g) for d in dims for g in (1, 4, 8)])):
+                 [(d, g) for d in dims for g in (1, 4, 8, 12, 16)])):
             bf = getattr(cuda_lib.load(f"{stem}{suffix}.cu"), f"{entry}{suffix}")
             hf = getattr(cuda_lib.load(f"{stem}{suffix}_f16.cu"), f"{entry}{suffix}_f16")
             for fn in (bf, hf):
@@ -1313,17 +1332,18 @@ def check_fp16_variants(torch):
                         if kv is not None:
                             err, _, _ = check_kv8(torch, b, kv, label, tol, decode=decode)
                         else:
-                            err = check_fp16_attention(torch, b, label, tol, decode=decode)
+                            err = check_same_cache_attention(torch, b, label, tol, decode=decode)
                         worst = max(worst, err)
                     cases += 1
     log(f"fp16 variants: {cases} shapes × 3 kernels agree (C, A, B over fp16, INT8 and e4m3 "
         f"caches), writes and fused caches bit-exact, max |err| {worst:.3e} (tol {tol})")
 
 
-def check_fp16_attention(torch, b, label, tol, *, decode, **kw):
-    """One fp16 batch over an fp16 cache: mixed, the write C bit-exact then
-    A on the written cache; decode, B with its cache bit-exact. Returns the
-    max |err| against the plain version."""
+def check_same_cache_attention(torch, b, label, tol, *, decode, **kw):
+    """One batch over a cache of its queries' dtype: mixed, the write C
+    bit-exact then the ragged kernel on the written cache; decode, the
+    fused kernel with its cache bit-exact. Returns the max |err| against the
+    plain version."""
     from atoma_infer_tpu_torch.ops import kv_write
     from atoma_infer_tpu_torch.ops import paged_attention as pa
 
@@ -1334,17 +1354,17 @@ def check_fp16_attention(torch, b, label, tol, *, decode, **kw):
         out = pa.ragged_paged_attention_fused_cuda(b["q"], got_c, b["k"], b["v"], m, scale=scale,
                                                    **kw)
         ref = pa.fused_decode_attention_plain(b["q"], want_c, b["k"], b["v"], m, scale=scale, **kw)
-        what = "fused_decode_attention_split_f16"
+        what = pa.fused_route(b["q"], None).name
     else:
         kv_write.write_kv_cache_cuda(got_c, b["k"], b["v"], m.slot_mapping)
         kv_write.write_kv_cache_plain(want_c, b["k"], b["v"], m.slot_mapping)
-        what = "reshape_and_cache_f16"
+        what = "the KV write"
     if not same_bytes(torch, got_c, want_c):
         raise AssertionError(f"{what} {label}: cache not bit-exact")
     if not decode:
         out = pa.ragged_paged_attention_cuda(b["q"], got_c, m, scale=scale, **kw)
         ref = pa.ragged_paged_attention_paged_plain(b["q"], got_c, m, scale=scale, **kw)
-        what = "ragged_paged_attention_mma_f16"
+        what = pa.ragged_route(b["q"], None).name
     err = (out[:n].float() - ref[:n].float()).abs().max().item()
     if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
         raise AssertionError(f"{what} {label} disagrees: max |err| {err:.3e}")
@@ -1391,7 +1411,7 @@ def check_fp16_kernels(torch):
     decode = make_batch(rng, decode_specs, dtype=f16, num_blocks=8192, decode_only=True,
                         device=dev)
     m, dm, n, scale = mixed["meta"], decode["meta"], mixed["rows"], D ** -0.5
-    launched("reshape_and_cache_f16", lambda: check_fp16_attention(
+    launched("reshape_and_cache_f16", lambda: check_same_cache_attention(
         torch, mixed, "1B mixed", tol, decode=False))
     cache = mixed["cache"]
     kv_write.write_kv_cache_cuda(cache, mixed["k"], mixed["v"], m.slot_mapping)
@@ -1416,7 +1436,7 @@ def check_fp16_kernels(torch):
         a_err = (out[:n].float() - ref[:n].float()).abs().max().item()
         if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
             raise AssertionError(f"ragged_paged_attention_mma_f16 1B {label}: {a_err:.3e}")
-        b_err = launched("fused_decode_attention_split_f16", lambda: check_fp16_attention(
+        b_err = launched("fused_decode_attention_split_f16", lambda: check_same_cache_attention(
             torch, decode, f"1B decode {label}", tol, decode=True, **kw))
         log(f"float16 1B {label}: ragged_paged_attention_mma_f16 max |err| {a_err:.3e}, "
             f"fused_decode_attention_split_f16 max |err| {b_err:.3e} (cache bit-exact), tol {tol}")
@@ -1954,6 +1974,189 @@ def check_gqa_block_kernels(torch):
                 f"by {by}, max |err| {err:.3e} (tol {tol}), cache bit-exact")
         del mixed, decode, cache, scales
         torch.cuda.empty_cache()
+
+
+# Groups of 9 to 16 q heads per kv head, which the fused kernels take in
+# both halves of their m16 tile (one instantiation, the group at run time):
+# the variant grid's groups and head dims (64, 128 and 256, and Phi-3-mini's
+# 96 for a wide dim), at blocks of 16.
+GROUP_VARIANT_GROUPS = (9, 12, 16)
+GROUP_VARIANT_DIMS = (64, 96, 128, 256)
+# The timed rows' shapes at 64 decode rows (and a mixed batch for the ragged
+# kernels): Mistral-Large-Instruct-2407's attention (96 q heads over 8 kv
+# heads, D = 128) over a bf16 cache, and Llama-3.1-405B's per-rank shape at
+# tp = 8 (16 q heads over 1 kv head of its 8) over INT8 and e4m3 caches.
+# label -> (Hq, Hk, the model's Hk, caches).
+GROUP_ATTENTION_SHAPES = {
+    "Mistral-Large-2 G=12": (96, 8, 8, (None,)),
+    "Llama-3.1-405B tp=8 G=16": (16, 1, 8, KV8_DTYPES),
+}
+
+
+def check_group_variants(torch):
+    """The attention instantiations at 9, 12 and 16 q heads per kv head
+    (``GROUP_VARIANT_*``) against their plain versions: bf16 and fp16
+    queries (the split fused kernels, both halves of the tile, and the
+    tensor-core ragged ones) and f32 queries (the CUDA-core kernels) over
+    a cache of the queries' dtype, an INT8 one and an e4m3 one, at head dims
+    64, 96, 128 and 256, on a mixed batch (the write, then the ragged
+    kernel) and a decode batch with a 1,600-key row cut into KV splits (the
+    fused kernel); at two shapes also a window, a soft cap and ALiBi.
+    Writes, fused caches and INT8 scales bit-exact; each call on its route
+    by the launch counters."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+    from atoma_infer_tpu_torch.ops.attention import alibi_slopes
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(18)
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float16", torch.float16),
+                              ("float32", torch.float32)):
+        tol = ATTN_TOL[dtype_name]
+        for kv in (None,) + KV8_DTYPES:
+            kind = {None: None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}[kv]
+            worst, cases = 0.0, 0
+            fused_splits = FusedSplitCount()
+            for d in GROUP_VARIANT_DIMS:
+                for group in GROUP_VARIANT_GROUPS:
+                    hq = 2 * group
+                    shape = dict(hq=hq, hk=2, d=d, bs=BS, dtype=dtype, device=dev,
+                                 num_blocks=variant_blocks(VARIANT_MIXED + VARIANT_DECODE, BS))
+                    label = f"{dtype_name} {kv or dtype_name} cache D={d} G={group}"
+                    mods = [{}]
+                    if (d, group) in ((128, 12), (64, 16)):
+                        mods += [dict(sliding_window=40), dict(soft_cap=50.0),
+                                 dict(alibi_slopes=alibi_slopes(hq, device=dev))]
+                    for decode, specs in ((False, VARIANT_MIXED), (True, VARIANT_DECODE)):
+                        b = make_batch(rng, specs, decode_only=decode, **shape)
+                        route = (pa.fused_route if decode else pa.ragged_route)(b["q"], kind)
+                        for kw in mods:
+                            before = route.launches
+                            if kv:
+                                err, cache, _ = check_kv8(torch, b, kv, f"{label} {kw}", tol,
+                                                          decode=decode, **kw)
+                            else:
+                                cache = b["cache"]
+                                err = check_same_cache_attention(torch, b, f"{label} {kw}", tol,
+                                                                 decode=decode, **kw)
+                            if route.launches != before + 1:
+                                raise AssertionError(f"{label} {kw}: {route.name} not launched")
+                            worst = max(worst, err)
+                        if decode:
+                            fused_splits.add(dict(b, cache=cache))
+                    cases += 1
+            log(f"group variants {dtype_name} over {kv or dtype_name} caches: {cases} shapes "
+                f"(G {GROUP_VARIANT_GROUPS} × D {GROUP_VARIANT_DIMS}) × 3 kernels agree, writes "
+                f"and fused caches bit-exact, max |err| {worst:.3e} (tol {tol})")
+            if dtype != torch.float32:
+                fused_splits.check(f"group variants {dtype_name} over {kv or dtype_name} caches, "
+                                   "split fused route")
+
+
+def check_group_kernels(torch):
+    """The fused decode kernels and the ragged ones at the group shapes
+    the services of ``run_group_services`` run (``GROUP_ATTENTION_SHAPES``),
+    bf16 queries, blocks of 16: B at Mistral-Large-2's shape over a bf16
+    cache, D (with ``scales_new`` of the model's 8 kv heads) and E at
+    Llama-3.1-405B's per-rank shape at tp = 8, each on 64 decode rows
+    against its plain version (caches and scales bit-exact); A, D and E on
+    a mixed batch at the same shapes after their writes. Each timed with
+    CUDA events beside its plain version and its bound. Returns the kernels
+    line's rows, keyed ``kernel@group <shape>``."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import kv_write
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
+        (1, int(k)) for k in rng.integers(16, 2048, size=29)]
+    decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    tol, scale, rows = ATTN_TOL["bfloat16"], 128 ** -0.5, {}
+    for label, (hq, hk, hk_total, kvs) in GROUP_ATTENTION_SHAPES.items():
+        shape = dict(hq=hq, hk=hk, d=128, bs=BS, dtype=torch.bfloat16, device=dev)
+        mixed = make_batch(rng, mixed_specs, num_blocks=65536 // hk, decode_only=False, **shape)
+        decode = make_batch(rng, decode_specs, num_blocks=131072 // hk, decode_only=True, **shape)
+        m, n = mixed["meta"], mixed["rows"]
+        dm, dn = decode["meta"], decode["rows"]
+        for kv in kvs:
+            kind = {None: None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}[kv]
+            extra = 4 if kv == "int8" else 0
+            work = dict(kv_elt=1 if kv else 2, slot_extra=extra, hq=hq, hk=hk, d=128)
+            # The ragged kernel on the mixed batch, after its write.
+            if kv:
+                _, cache, scales = check_kv8(torch, mixed, kv, label, tol, decode=False)
+            else:
+                check_same_cache_attention(torch, mixed, label, tol, decode=False)
+                cache, scales = mixed["cache"].clone(), None
+                kv_write.write_kv_cache_plain(cache, mixed["k"], mixed["v"], m.slot_mapping)
+            ragged = pa.ragged_route(mixed["q"], kind)
+            out = pa.ragged_paged_attention_cuda(mixed["q"], cache, m, scale=scale,
+                                                 kv_scales=scales)
+            ref = pa.ragged_paged_attention_paged_plain(mixed["q"], cache, m, scale=scale,
+                                                        kv_scales=scales)
+            err = (out[:n].float() - ref[:n].float()).abs().max().item()
+            nbytes, flops = attention_work(mixed_specs, None, 2, fused=False, **work)
+            rows[f"{ragged.name}@group {label}"] = dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: pa.ragged_paged_attention_cuda(
+                    mixed["q"], cache, m, scale=scale, kv_scales=scales)),
+                plain_ms=cuda_ms(lambda: pa.ragged_paged_attention_paged_plain(
+                    mixed["q"], cache, m, scale=scale, kv_scales=scales), iters=5, warmup=1),
+                library_ms=None, bytes=nbytes, flops=flops)
+            # The fused kernel on 64 decode rows (INT8: the scales of the
+            # model's kv heads, as a tensor-parallel rank passes them).
+            sn = (rank_scales(torch, decode["k"], decode["v"], hk_total, gen)
+                  if kv == "int8" else None)
+            if kv:
+                dcache, dscales = kv8_cache(torch, decode["cache"], kv, 128)
+            else:
+                dcache, dscales = decode["cache"].clone(), None
+            fused = pa.fused_route(decode["q"], kind)
+            got_c, got_s, want_c, want_s = (clone(dcache), clone(dscales), clone(dcache),
+                                            clone(dscales))
+            before = fused.launches
+            out = pa.ragged_paged_attention_fused_cuda(
+                decode["q"], got_c, decode["k"], decode["v"], dm, scale=scale, kv_scales=got_s,
+                scales_new=sn)
+            if fused.launches != before + 1:
+                raise AssertionError(f"{fused.name} {label}: not the split kernel")
+            ref = pa.fused_decode_attention_plain(
+                decode["q"], want_c, decode["k"], decode["v"], dm, scale=scale, kv_scales=want_s,
+                scales_new=sn)
+            err = (out[:dn].float() - ref[:dn].float()).abs().max().item()
+            if not (same_bytes(torch, got_c, want_c)
+                    and (dscales is None or same_bytes(torch, got_s, want_s))
+                    and torch.allclose(out[:dn].float(), ref[:dn].float(), atol=tol, rtol=tol)):
+                raise AssertionError(f"{fused.name} {label}: max |err| {err:.3e}, cache or "
+                                     "scales not bit-exact")
+            nbytes, flops = attention_work(decode_specs, None, 2, fused=True, **work)
+            rows[f"{fused.name}@group {label}"] = dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+                    decode["q"], dcache, decode["k"], decode["v"], dm, scale=scale,
+                    kv_scales=dscales, scales_new=sn)),
+                plain_ms=cuda_ms(lambda: pa.fused_decode_attention_plain(
+                    decode["q"], dcache, decode["k"], decode["v"], dm, scale=scale,
+                    kv_scales=dscales, scales_new=sn), iters=5, warmup=1),
+                library_ms=None, bytes=nbytes + (8 * dn if sn is not None else 0), flops=flops)
+            log(f"{fused.name} {label} (Hq={hq}, Hk={hk}"
+                + (", scales_new of 8 kv heads" if sn is not None else "")
+                + f"): 64 decode rows, max |err| {err:.3e} (tol {tol}), cache"
+                + (" and scales" if dscales is not None else "") + " bit-exact")
+        del mixed, decode
+        torch.cuda.empty_cache()
+    card = card_line()
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"), "bfloat16")
+        log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library none: no "
+            f"PyTorch call attends through block tables), bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, max |err| {r['max_abs_err']:.3e} [{card}]")
+    return rows
+
 
 
 # ----------------------------------------------- phase 2: quantized matmuls
@@ -2809,39 +3012,63 @@ def check_kv8_model(torch):
 
 # The families' configurations, from their public config.json (the
 # Hugging Face model repositories of the names): random bf16 weights from a
-# seed at these widths. The services run each at its published depth but
-# Mixtral-8x7B's: 8 of its 32 layers (23.7 GB in bf16; all 32 take about
-# 93 GB, past the card's 80).
+# seed at these widths. The services run each at half its published depth
+# (the smoke's time limit) and Mixtral-8x7B at 8 of its 32 layers (23.7 GB
+# in bf16; all 32 take about 93 GB, past the card's 80).
 FAMILIES = {
     "Mistral-7B-v0.1": (dict(
         model_type="mistral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
         num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
         max_position_embeddings=32768, rope_theta=10000.0, rms_norm_eps=1e-5,
-        sliding_window=4096, tie_word_embeddings=False, bos_token_id=1, eos_token_id=2), 32),
+        sliding_window=4096, tie_word_embeddings=False, bos_token_id=1, eos_token_id=2), 16),
     "Qwen2-7B": (dict(
         model_type="qwen2", vocab_size=152064, hidden_size=3584, intermediate_size=18944,
         num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
         max_position_embeddings=131072, rope_theta=1000000.0, rms_norm_eps=1e-6,
         sliding_window=131072, use_sliding_window=False, tie_word_embeddings=False,
-        bos_token_id=151643, eos_token_id=151643), 28),
+        bos_token_id=151643, eos_token_id=151643), 14),
     "Phi-3-mini-4k-instruct": (dict(
         model_type="phi3", vocab_size=32064, hidden_size=3072, intermediate_size=8192,
         num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
         max_position_embeddings=4096, rope_theta=10000.0, rms_norm_eps=1e-5,
-        sliding_window=2047, tie_word_embeddings=False, bos_token_id=1, eos_token_id=32000), 32),
+        sliding_window=2047, tie_word_embeddings=False, bos_token_id=1, eos_token_id=32000), 16),
     "Gemma-2-9B": (dict(
         model_type="gemma2", vocab_size=256000, hidden_size=3584, intermediate_size=14336,
         num_hidden_layers=42, num_attention_heads=16, num_key_value_heads=8, head_dim=256,
         max_position_embeddings=8192, rope_theta=10000.0, rms_norm_eps=1e-6,
         query_pre_attn_scalar=256, sliding_window=4096, attn_logit_softcapping=50.0,
         final_logit_softcapping=30.0, hidden_activation="gelu_pytorch_tanh",
-        tie_word_embeddings=True, bos_token_id=2, eos_token_id=1), 42),
+        tie_word_embeddings=True, bos_token_id=2, eos_token_id=1), 21),
     "Mixtral-8x7B-v0.1": (dict(
         model_type="mixtral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
         num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
         max_position_embeddings=32768, rope_theta=1000000.0, rms_norm_eps=1e-5,
         sliding_window=None, num_local_experts=8, num_experts_per_tok=2,
         tie_word_embeddings=False, bos_token_id=1, eos_token_id=2), 8),
+}
+# The published checkpoints that need 9 to 16 q heads per kv head (the
+# public config.json of each Hugging Face model repository), served at a
+# cut depth with random weights from a seed: (config, layers, weight
+# quantization, KV caches). Mistral-Large-Instruct-2407 at 8 of its 88
+# layers in bf16 over a bf16 cache (24 GB of weights); Llama-3.1-405B at 4
+# of its 126 layers with INT8 weights over an INT8 cache, then an e4m3 one
+# (21 GB). All their layers would take 245 GB and 410 GB, past the card's
+# 80.
+GROUP_FAMILIES = {
+    "Mistral-Large-Instruct-2407": (dict(
+        model_type="mistral", vocab_size=32768, hidden_size=12288, intermediate_size=28672,
+        num_hidden_layers=88, num_attention_heads=96, num_key_value_heads=8, head_dim=128,
+        max_position_embeddings=131072, rope_theta=1000000.0, rms_norm_eps=1e-5,
+        sliding_window=None, tie_word_embeddings=False, bos_token_id=1, eos_token_id=2),
+        8, None, (None,)),
+    "Llama-3.1-405B": (dict(
+        model_type="llama", vocab_size=128256, hidden_size=16384, intermediate_size=53248,
+        num_hidden_layers=126, num_attention_heads=128, num_key_value_heads=8,
+        max_position_embeddings=131072, rope_theta=500000.0,
+        rope_scaling=dict(rope_type="llama3", factor=8.0, low_freq_factor=1.0,
+                          high_freq_factor=4.0, original_max_position_embeddings=8192),
+        rms_norm_eps=1e-5, tie_word_embeddings=False, bos_token_id=128000,
+        eos_token_id=128001), 4, "int8", KV8_DTYPES),
 }
 # The family models' logits with the attention kernels against the same
 # bf16 model with the plain attention on the card: max |Δ| over the logits'
@@ -2854,16 +3081,18 @@ FAMILY_MODEL_TOL = 3e-2
 
 
 def family_model(torch, name, num_layers, dtype=None):
-    """The family's model on the card at its published widths and
-    ``num_layers`` layers, bf16 (or ``dtype``), with random weights from a
-    seed."""
+    """The family's model (``FAMILIES`` or ``GROUP_FAMILIES``) on the card
+    at its published widths and ``num_layers`` layers, bf16 (or
+    ``dtype``), with random weights from a seed."""
     from atoma_infer_tpu_torch.models.registry import get_model_cls
     from atoma_infer_tpu_torch.models.weights import config_from_hf_dict
 
-    spec, _ = FAMILIES[name]
+    if name in FAMILIES:
+        spec, seed = FAMILIES[name][0], sorted(FAMILIES).index(name)
+    else:
+        spec, seed = GROUP_FAMILIES[name][0], len(FAMILIES) + sorted(GROUP_FAMILIES).index(name)
     cfg = config_from_hf_dict(dict(spec, num_hidden_layers=num_layers))
     model = get_model_cls(cfg.architecture)(cfg, dtype=dtype or torch.bfloat16, device="cuda")
-    seed = sorted(FAMILIES).index(name)
     return model, model.init_params(torch.Generator(device=model.device).manual_seed(seed))
 
 
@@ -4412,13 +4641,13 @@ def run_shape_services(torch):
 PHI3_PROMPT_LENGTHS = (16, 2100, 45, 120, 200, 77, 250, 33)
 
 
-# The families over 1-byte KV caches (bf16 weights and queries): at full
-# depth over the cache their model is served with first, the crossed pair at
-# 8 layers, which keeps the smoke within its time limit. (family, cache,
-# layers).
+# The families over 1-byte KV caches (bf16 weights and queries): at the
+# family service's depth over the cache their model is served with first,
+# the crossed pair at 8 layers, which keeps the smoke within its time limit.
+# (family, cache, layers).
 WIDE_KV8_SERVICES = (
-    ("Phi-3-mini-4k-instruct", "int8", 32),
-    ("Gemma-2-9B", "fp8", 42),
+    ("Phi-3-mini-4k-instruct", "int8", 16),
+    ("Gemma-2-9B", "fp8", 21),
     ("Phi-3-mini-4k-instruct", "fp8", 8),
     ("Gemma-2-9B", "int8", 8),
 )
@@ -4450,7 +4679,7 @@ def serve_wide_kv8(torch, name, kv, model, params, layers):
     from atoma_infer_tpu_torch.ops import cuda_lib
 
     d = model.config.head_dim
-    label = f"{name} {kv.upper()} KV ({layers} of {FAMILIES[name][1]} layers)"
+    label = f"{name} {kv.upper()} KV ({layers} of {FAMILIES[name][0]['num_hidden_layers']} layers)"
     path = wide_kv8_path(name, kv)
     lengths = PHI3_PROMPT_LENGTHS if name.startswith("Phi-3") else PROMPT_LENGTHS
     counts = serve_both(torch, label, model, params, family_config(name, kv), path, "graphs",
@@ -4464,12 +4693,12 @@ def serve_wide_kv8(torch, name, kv, model, params, layers):
 
 def run_family_services(torch):
     """One service per family at its published widths (``FAMILIES``; 8 of
-    Mixtral-8x7B's 32 layers, the rest at full depth), bf16 with random
+    Mixtral-8x7B's 32 layers, the rest at half depth), bf16 with random
     weights from a seed: eager, then synchronous with its decode graphs,
     tokens identical, every attention kernel of the path launched, the
     graphs' memory held to the KV pool's reserve. Then Phi-3-mini and
-    Gemma-2-9B over 1-byte caches (``WIDE_KV8_SERVICES``, the full-depth
-    ones on the same weights). Returns the D = 96 and 256 services' launch
+    Gemma-2-9B over 1-byte caches (``WIDE_KV8_SERVICES``, those at the
+    family service's depth on the same weights). Returns the D = 96 and 256 services' launch
     counts, keyed ``kernel@D``."""
     launches = {}
     for name, (spec, layers) in FAMILIES.items():
@@ -4496,6 +4725,137 @@ def run_family_services(torch):
             continue
         model, params = family_model(torch, name, layers)
         launches.update(serve_wide_kv8(torch, name, kv, model, params, layers))
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+GROUP_TOKENS = 64
+
+
+def group_path(kv):
+    """The fused and ragged kernels of a bf16 service over a cache of
+    ``kv`` (None: bf16)."""
+    s = f"_{kv}" if kv else ""
+    return f"fused_decode_attention{s}_split", f"ragged_paged_attention{s}_mma"
+
+
+def check_step_routes(label, figures, layers, kv):
+    """Every pure-decode step of a ``drive`` run launched the split fused
+    kernel once a layer, and only the steps with a prefill chunk launched
+    the ragged kernel (once a layer): no decode step took the ragged
+    route."""
+    fused, ragged = group_path(kv)
+    decode = sum(1 for _, pure, rows in figures["dispatches"] if pure and rows)
+    other = sum(1 for _, pure, rows in figures["dispatches"] if not pure and rows)
+    got = figures["launches"]
+    if not decode or got[fused] != decode * layers or got[ragged] != other * layers:
+        raise AssertionError(f"service {label}: {decode} pure-decode steps and {other} with a "
+                             f"prefill chunk over {layers} layers, but {got[fused]} {fused} and "
+                             f"{got[ragged]} {ragged} launches")
+    log(f"service {label}: {decode} pure-decode steps launched {fused} {got[fused]} times "
+        f"({layers} a step), {other} steps with a prefill chunk {ragged} {got[ragged]} times: "
+        "no decode step on the ragged route")
+
+
+def group_family_model(torch, name, layers, quantization):
+    """The family's model (``GROUP_FAMILIES``) and its weights drawn on the
+    card, each projection stack and the LM head quantized to
+    ``quantization`` (or left bf16) as soon as drawn: at Llama-3.1-405B's
+    widths the dense and the quantized copies of every stack do not fit on
+    the card beside each other."""
+    from atoma_infer_tpu_torch.models.weights import quantize_params
+
+    model, params = family_model(torch, name, layers)
+    if quantization:
+        for key in [k for k in params["layers"] if k.endswith("_proj")]:
+            one = {"layers": {key: params["layers"].pop(key)}}
+            params["layers"][key] = quantize_params(one, quantization)["layers"][key]
+            del one
+            torch.cuda.empty_cache()
+        if "lm_head" in params:
+            one = {"layers": {}, "lm_head": params.pop("lm_head")}
+            params["lm_head"] = quantize_params(one, quantization)["lm_head"]
+            del one
+            torch.cuda.empty_cache()
+    return model, params
+
+
+def run_group_services(torch):
+    """Services at 9 to 16 q heads per kv head through ``LlmService.start``
+    (``GROUP_FAMILIES``, the 8 requests of ``PROMPT_LENGTHS`` at
+    GROUP_TOKENS tokens, one seeded): each (a) eager with the plain
+    attention on the card (the wrappers' CUDA entries swapped for their
+    plain versions, ``plain_attention``; top 2 logprobs asked), (b) eager
+    with the kernels, (c) synchronous with every step replaying its CUDA
+    graph. (b) is held to (a) under the near-tie rule, (c) to (b) token for
+    token; in (b) and (c) every pure-decode step launched the split fused
+    kernel and no decode step the ragged one (``check_step_routes``).
+    Returns (c)'s launches of each service's fused and ragged kernels,
+    keyed as ``check_group_kernels``' rows."""
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+
+    text = "The quick brown fox jumps over the lazy dog. " * (-(-max(PROMPT_LENGTHS) // 45))
+    prompts = [text[:n] for n in PROMPT_LENGTHS]
+    launches = {}
+    for name, (spec, layers, quantization, kvs) in GROUP_FAMILIES.items():
+        t0 = time.monotonic()
+        model, params = group_family_model(torch, name, layers, quantization)
+        torch.cuda.synchronize()
+        cfg = model.config
+        group = cfg.num_attention_heads // cfg.num_kv_heads
+        log(f"service {name}: {layers} of {spec['num_hidden_layers']} layers, "
+            f"{quantization or 'bf16'} weights drawn on the card in "
+            f"{time.monotonic() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+            f"allocated; {cfg.num_attention_heads} q heads over {cfg.num_kv_heads} kv heads (G="
+            f"{group}), D={cfg.head_dim}")
+        for kv in kvs:
+            label = f"{name} {quantization or 'bf16'} + {kv or 'bf16'} KV (G={group})"
+            runs = {}
+            for mode in ("plain", "eager", "graphs"):
+                t_run = time.monotonic()
+                config = dataclass_replace(
+                    bf16_config(f"{name.lower()}-random", BS, kv_cache_dtype=kv),
+                    quantization=quantization)
+                service = LlmService.start(config, model=model, params=params,
+                                           tokenizer=ByteTokenizer(cfg.vocab_size),
+                                           device=model.device)
+                if mode != "graphs":
+                    service.engine.worker.graphs = None
+                if mode == "plain":
+                    with plain_attention():
+                        runs[mode] = drive(torch, f"{label} [plain attention]", service,
+                                           prompts, GROUP_TOKENS, top_n=2)
+                else:
+                    runs[mode] = drive(torch, f"{label} [{mode}]", service, prompts,
+                                       GROUP_TOKENS)
+                    check_step_routes(f"{label} [{mode}]", runs[mode][2], layers, kv)
+                    check_route(f"service {label} [{mode}]", runs[mode][2]["launches"],
+                                bf16=True)
+                log(f"service {label} [{mode}]: KV pool {service.config.cache.num_device_blocks}"
+                    f" blocks; {steady_decode(runs[mode][2])}; start and traffic "
+                    f"{time.monotonic() - t_run:.1f} s [{card_line()}]")
+                del service
+                gc.collect()
+                torch.cuda.empty_cache()
+            want, top, _ = runs["plain"]
+            compare_to_reference(
+                label, runs["eager"][0], want, top,
+                lambda j, a, b: seeded_score_gap(torch, model, params, prompts[SEEDED_REQUEST],
+                                                 want[SEEDED_REQUEST], j, a, b),
+                reference="the same service with the plain attention")
+            if runs["graphs"][0] != runs["eager"][0]:
+                first = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                         for a, b in zip(runs["graphs"][0], runs["eager"][0])]
+                raise AssertionError(f"service {label}: tokens with graphs differ from eager; "
+                                     f"first difference by request: {first}")
+            log(f"service {label}: tokens identical eager and with graphs "
+                f"({sum(len(t) for t in runs['eager'][0])} tokens, the seeded request's too)")
+            shape = next(s for s in GROUP_ATTENTION_SHAPES if s.endswith(f"G={group}"))
+            for kernel in group_path(kv):
+                launches[f"{kernel}@group {shape}"] = runs["graphs"][2]["launches"][kernel]
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5843,7 +6203,8 @@ def run_fp16_services(torch):
     model, params = family_model(torch, name, FP16_8B_LAYERS, torch.float16)
     for kv in KV8_DTYPES:
         path = tuple(f"{k}_f16" for k in wide_kv8_path(name, kv))
-        label = f"{name} {kv.upper()} KV fp16 ({FP16_8B_LAYERS} of {FAMILIES[name][1]} layers)"
+        label = (f"{name} {kv.upper()} KV fp16 ({FP16_8B_LAYERS} of "
+                 f"{FAMILIES[name][0]['num_hidden_layers']} layers)")
         counts, _ = serve(torch, label, model, params, family_config(name, kv, "float16")(False),
                           path, new_tokens=FP16_TOKENS, prompt_lengths=PHI3_PROMPT_LENGTHS)
         check_fp16_route(label, counts)
@@ -6410,6 +6771,8 @@ def main() -> int:
     rows.update(phase(check_fp16_kernels))
     phase(check_prefill_chunk)
     phase(check_gqa_block_kernels)
+    phase(check_group_variants)
+    group_rows = phase(check_group_kernels)
     wide_rows = phase(check_wide_head_kernels)
     verify_rows = phase(check_verify_kernels)
     tp_rows = phase(check_tp_kernels)
@@ -6447,6 +6810,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase(run_family_services))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The group rows' launches: Mistral-Large-2's and Llama-3.1-405B's
+    # services with graphs.
+    launches.update(phase(run_group_services))
+    for key in group_rows:
+        if not launches.get(key):
+            raise AssertionError(f"{key.split('@')[0]} was not launched on its group's service")
     gc.collect()
     torch.cuda.empty_cache()
     # The TP rows' launches: the 8B INT8 + INT8 KV service at tp = 2.
@@ -6500,6 +6871,8 @@ def main() -> int:
             raise AssertionError(f"{key.split('@')[0]} was not launched on a D="
                                  f"{key.split('@')[1]} service")
     named += [(key, f"{key.split('@')[0]} (verify rows)", r) for key, r in verify_rows.items()]
+    named += [(key, f"{key.split('@group ')[0]} ({key.split('@group ')[1]} shapes)", r)
+              for key, r in group_rows.items()]
     named += [(key, f"{key.split('@')[0]} ({key.split('@tp ')[1]} per-rank shapes"
                + (", scales_new)" if "int8" in key and "matmul" not in key else ")"), r)
               for key, r in tp_rows.items()]

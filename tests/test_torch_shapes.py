@@ -269,7 +269,7 @@ def test_kernel_shape_check_admits_every_multiple_of_8(block_size):
 
 
 @pytest.mark.parametrize("group, block_size, fused, message", [
-    (9, 16, True, "9 q heads per kv head unsupported .*more than 8 q heads per kv head"),
+    (17, 16, True, "17 q heads per kv head unsupported .*more than 16 q heads per kv head"),
     (4, 12, False, "block_size 12"),
     (4, 12, True, "block_size 12"),
     (4, 0, False, "block_size 0"),
@@ -346,8 +346,8 @@ def test_service_shape_check_refuses_a_group_the_fused_kernel_lacks():
     from atoma_infer_tpu_torch.engine.llm_service import check_kernel_shapes
     from atoma_infer_tpu_torch.models.llama import LlamaConfig
 
-    cfg = LlamaConfig(head_dim=128, num_attention_heads=40, num_key_value_heads=4)
-    with pytest.raises(ValueError, match="10 q heads per kv head unsupported"):
+    cfg = LlamaConfig(head_dim=128, num_attention_heads=68, num_key_value_heads=4)
+    with pytest.raises(ValueError, match="17 q heads per kv head unsupported"):
         check_kernel_shapes(cfg, _engine_config("bfloat16"))
 
 
@@ -358,7 +358,7 @@ def test_service_shape_check_refuses_a_group_the_fused_kernel_lacks():
 def test_cuda_service_refuses_before_loading(dtype, kv, item, tmp_path, monkeypatch):
     """``LlmService.start`` on the card, from a directory holding only a
     ``config.json`` of Phi-3-mini's head dim on a route that used to refuse
-    it (``item``) and 10 q heads per kv head, a group the fused kernel still
+    it (``item``) and 17 q heads per kv head, a group the fused kernel still
     lacks (no weights, no tokenizer): the refusal comes from the config
     alone, before anything is read or allocated, and names the group's
     ROADMAP item, not the head dim's."""
@@ -368,15 +368,15 @@ def test_cuda_service_refuses_before_loading(dtype, kv, item, tmp_path, monkeypa
     from atoma_infer_tpu_torch.engine import llm_service
 
     (tmp_path / "config.json").write_text(json.dumps(dict(
-        model_type="phi3", vocab_size=64, hidden_size=1920, intermediate_size=256,
-        num_hidden_layers=1, num_attention_heads=20, num_key_value_heads=2, sliding_window=2047,
+        model_type="phi3", vocab_size=64, hidden_size=3264, intermediate_size=256,
+        num_hidden_layers=1, num_attention_heads=34, num_key_value_heads=2, sliding_window=2047,
     )))
     monkeypatch.setattr(llm_service, "resolve_device", lambda device: torch.device("cuda"))
     config = EngineConfig.from_dict({
         "inference": {"model_name": str(tmp_path), "dtype": dtype, "kv_cache_dtype": kv},
         "scheduler": {"max_model_len": 2048},
     })
-    with pytest.raises(ValueError, match="10 q heads per kv head unsupported .*ROADMAP.md, "
-                       "Queue 1: fused decode at more than 8 q heads per kv head") as refused:
+    with pytest.raises(ValueError, match="17 q heads per kv head unsupported .*ROADMAP.md, "
+                       "Queue 1: fused decode at more than 16 q heads per kv head") as refused:
         llm_service.LlmService.start(config, model_dir=str(tmp_path))
     assert item not in str(refused.value)

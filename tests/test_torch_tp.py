@@ -12,9 +12,10 @@ an INT8 cache each rank's cache equals the JAX sharded cache's shard within
 one INT8 step and its scales bit for bit. Mixtral at tp = 2, with expert
 parallelism (4 experts) and without it (3 experts: the intermediate dim is
 split), serves the port's tp = 1 tokens. A follower that fails while it
-builds its service fails rank 0's start. Bad head divisibility and
-``warmup`` under TP are refused (pipeline parallelism beside TP:
-``tests/test_torch_pipeline.py``).
+builds its service fails rank 0's start. Bad head divisibility is
+refused. ``warmup`` under TP runs its waves eagerly, and the service then
+serves JAX's tokens (``tiny_trained`` from its directory, sync and async;
+pipeline parallelism beside TP: ``tests/test_torch_pipeline.py``).
 """
 
 import asyncio
@@ -218,15 +219,78 @@ def test_mixtral_tp2_serves_the_tp1_tokens(experts, tmp_path):
     assert tpar.generate(service, PROMPTS) == one
 
 
+def warm_then_generate(service, prompts, **warm):
+    """``service.warmup(**warm)`` with the engine loop running, then greedy
+    ``prompts`` through the same loop → (warmup seconds, warmup groups left
+    in the engine, free device blocks after warmup, {request id: token
+    ids}); the service is stopped."""
+    from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
+
+    async def run():
+        task = asyncio.create_task(service.engine.run())
+        try:
+            dt = await asyncio.wait_for(service.warmup(**warm), timeout=tpar.RANK_TIMEOUT_S)
+            left = [rid for rid in service.engine._groups if rid.startswith("_warmup")]
+            free = service.engine.scheduler.block_manager.get_num_free_device_blocks()
+            futs = [await service.handle_request(GenerateRequest(
+                request_id=f"req-{i}", inputs=p,
+                parameters=GenerateParameters(max_new_tokens=12, do_sample=False)))
+                for i, p in enumerate(prompts)]
+            results = await asyncio.wait_for(asyncio.gather(*futs), timeout=tpar.RANK_TIMEOUT_S)
+        finally:
+            service.stop()
+            task.cancel()
+        return dt, left, free, {r.request_id: list(r.outputs[0].token_ids) for r in results}
+
+    return asyncio.run(run())
+
+
 def test_warmup_under_tp_names_its_queue_item(tmp_path):
-    """CUDA graphs capture no collective: ``warmup`` under TP raises, naming
-    the Queue 1 item, and the ranks step eagerly (no graphs)."""
-    service = port_service(2, tmp_path, port_factory(tmp_path, WIDTHS))
-    try:
-        assert service.engine.worker.graphs is None
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, Queue 1: CUDA graphs of TP steps over NCCL"):
-            asyncio.run(service.warmup())
-    finally:
-        service.stop()
+    """``warmup`` under TP runs its waves eagerly, as the ranks step (no
+    CUDA graph of a TP step is captured: ROADMAP.md, Queue 1, CUDA graphs of
+    TP steps over NCCL): it completes, leaves no warmup group and every
+    block free, the followers exit cleanly, and the service then serves the
+    port's tp = 1 tokens."""
+    factory = port_factory(tmp_path, WIDTHS)
+    want = tpar.generate(port_service(1, tmp_path, factory), PROMPTS)
+    service = port_service(2, tmp_path, factory)
+    followers = list(service.followers)
+    assert service.engine.worker.graphs is None
+    dt, left, free, got = warm_then_generate(service, PROMPTS, num_seqs=4, prompt_len=16)
+    assert dt > 0 and not left and free == 128
+    assert got == want
     assert not service.followers
+    assert [p.exitcode for p in followers] == [0]
+
+
+@pytest.mark.parametrize("async_scheduling", [False, True], ids=["sync", "async"])
+def test_warmup_under_tp_then_serves_jax_tokens(async_scheduling, tmp_path):
+    """``tiny_trained`` from its directory at tp = 2 over gloo, each rank
+    loading its shard: ``warmup()`` completes, and the requests after it
+    get the greedy tokens of JAX's ``LlmService`` at tp = 2 on the same
+    directory."""
+    from atoma_infer_tpu.config import (
+        CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
+    )
+    from atoma_infer_tpu.engine.llm_service import LlmService as JaxService
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+
+    sched = dict(async_scheduling=async_scheduling)
+    jconfig = EngineConfig(
+        model=ModelConfig(model_name=tpar.FIXTURE_TINY_TRAINED, dtype="float32",
+                          tensor_parallel_size=2),
+        cache=CacheConfig(block_size=16, num_device_blocks_override=128,
+                          num_host_blocks_override=32),
+        scheduler=SchedulerConfig(max_num_batched_tokens=512, max_num_sequences=16,
+                                  max_model_len=512, enable_chunked_prefill=False,
+                                  use_native_core=False, **sched),
+        validation=ValidationConfig(max_input_tokens=256, max_total_tokens=512),
+    )
+    want = jax_generate(JaxService.start(jconfig, model_dir=tpar.FIXTURE_TINY_TRAINED), PROMPTS)
+    config = tpar.tp_engine_config(2, coordinator_address=tpar.rendezvous_file(tmp_path),
+                                   **sched)
+    config.model.model_name = tpar.FIXTURE_TINY_TRAINED
+    service = LlmService.start(config, device="cpu")
+    dt, left, free, got = warm_then_generate(service, PROMPTS, num_seqs=4, prompt_len=16)
+    assert dt > 0 and not left and free == 128
+    assert got == want
