@@ -1,12 +1,16 @@
-"""Every single-stage step captured in a CUDA graph and replayed.
+"""Every step captured in a CUDA graph and replayed: a single-stage
+worker's, and each pipeline stage's.
 
 The port's counterpart of the JAX worker's one compiled program per bucket
-(``atoma_infer_tpu/engine/worker.py:207-222``). An eager step launches a few
-hundred kernels from Python; a replay launches them all with one call. On a
-CUDA worker (one rank, one stage) every step replays a graph of its key:
-pure-decode, verify, prefill, mixed prefill + decode and penalty steps. CPU
-workers, tensor-parallel ranks (no collective is captured) and pipeline
-stages step eagerly.
+(``atoma_infer_tpu/engine/worker.py:207-222``) and of the pipelined
+worker's one jitted program a stage (``atoma_infer_tpu/engine/pp_worker.py:90-187``).
+An eager step launches a few hundred kernels from Python; a replay launches
+them all with one call. On a CUDA worker at tp 1 every step replays a graph
+of its key: pure-decode, verify, prefill, mixed prefill + decode and
+penalty steps; under pipeline parallelism each stage replays a graph of its
+own, from a ``StepGraphs`` of its own on its device. CPU workers and
+tensor-parallel ranks, pipelined or not, step eagerly (no collective is
+captured).
 
 The graph key is the JAX step's static arguments, ``(T, S, P, decode_only,
 needs_sampling, needs_penalties, needs_typical, top_n, spec, feed)``, and
@@ -58,6 +62,25 @@ reach number in the thousands (token, sequence and page buckets ×
 ``MAX_GRAPHS`` graphs live, and capturing one more drops the least recently
 used, whose key is captured again at its next step. A capture or replay
 that fails raises; nothing falls back to the eager step.
+
+A pipeline stage (``engine/pp_worker.py``) keys its graphs so:
+- the last stage, which runs its layers, the LM head and the sampler, by
+  :func:`step_graph_key`, as a single-stage step (there is no feed under
+  PP);
+- a stage before it by :class:`StageKey` ``(T, S, P, decode_only,
+  max_q_len)``, the static arguments of its forward alone: like JAX's
+  non-last stage programs it samples nothing, so two steps that differ only
+  in their sampling flags replay one graph.
+A stage after the first reads one more static input, the hidden state
+``[token_capacity, H]`` in the model's dtype, filled by a ``copy_`` from
+the previous stage's output (across devices when the stages are on two).
+Stages that share a device share one memory pool (``pools``, one
+``graph_pool_handle`` a device): every replay on a device runs on its one
+current stream, whatever the stage, and each graph's outputs are held by
+its ``_Graph`` and read (the next stage's fill, the host copy of the
+tokens) by work enqueued before the next replay on that stream, so the
+argument above holds across stages as it does across keys, and the pool
+holds the widest stage's step once rather than once a stage.
 """
 
 from __future__ import annotations
@@ -65,7 +88,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Callable, Dict, NamedTuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import torch
 
@@ -122,7 +145,18 @@ class StepKey(NamedTuple):
     max_q_len: int
 
 
-GraphKey = Union[DecodeKey, VerifyKey, StepKey]
+class StageKey(NamedTuple):
+    """A step of a pipeline stage before the last: its forward's static
+    arguments (the stage samples nothing)."""
+
+    T: int
+    S: int
+    P: int
+    decode_only: bool
+    max_q_len: int
+
+
+GraphKey = Union[DecodeKey, VerifyKey, StepKey, StageKey]
 
 
 def step_graph_key(model_input, sampling, feed: bool) -> GraphKey:
@@ -141,6 +175,17 @@ def step_graph_key(model_input, sampling, feed: bool) -> GraphKey:
     return StepKey(T, S, P, model_input.decode_only, sampling.needs_sampling,
                    sampling.needs_penalties, sampling.needs_typical, sampling.top_n, spec,
                    feed, model_input.max_q_len)
+
+
+def stage_graph_key(model_input, sampling, *, last: bool) -> GraphKey:
+    """The graph a pipeline stage's step replays on the card: the last
+    stage's is the single-stage step's key (no feed under PP), any other
+    stage's a :class:`StageKey`."""
+    if last:
+        return step_graph_key(model_input, sampling, feed=False)
+    T = model_input.token_ids.shape[0]
+    S, P = model_input.block_tables.shape
+    return StageKey(T, S, P, model_input.decode_only, model_input.max_q_len)
 
 
 def page_capacity(max_model_len: int, block_size: int) -> int:
@@ -172,21 +217,24 @@ def packed_capacity(max_rows: int, max_pages: int, max_tokens: int,
 @dataclasses.dataclass
 class _Graph:
     graph: object
-    inputs: tuple          # (packed, sampling, noise, feed): views of the static inputs
+    inputs: tuple          # (packed, sampling, noise, feed[, hidden]): static inputs' views
     outputs: tuple
     launches: Dict[str, int]   # each kernel's launches in one replay
 
 
 class StepGraphs:
-    """The captured step graphs of one worker, by key, and the static inputs
-    they share."""
+    """The captured step graphs of one worker or pipeline stage, by key,
+    and the static inputs they share. ``pools`` maps a device to the memory
+    pool its graphs are captured into: the stages of a pipeline pass one
+    dict, so that stages on one device share one pool."""
 
     def __init__(self, max_rows: int, max_pages: int, max_tokens: int,
-                 num_spec_tokens: int = 0):
+                 num_spec_tokens: int = 0, pools: Optional[dict] = None):
         # The largest sequence bucket a step can have, the largest page and
         # token buckets and the most drafts a sequence carries: every static
         # input is sized for them.
         self.max_rows = max_rows
+        self.max_tokens = max_tokens
         self.packed_capacity = packed_capacity(max_rows, max_pages, max_tokens,
                                                num_spec_tokens)
         # By last use, the most recent last.
@@ -201,25 +249,28 @@ class StepGraphs:
         self.captured_bytes = {"pool": 0, "held": 0, "driver": 0}
         self._static: Dict[str, torch.Tensor] = {}
         self._sampling_version = None
-        self._pool = None
+        self._pools = {} if pools is None else pools
 
     @property
     def static_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self._static.values())
 
     def run(self, key: GraphKey, step: Callable, packed, sampling, sampling_version, gumbel,
-            prev_tokens) -> tuple:
+            prev_tokens, hidden=None) -> tuple:
         """One step of ``key``: ``step(packed, sampling, gumbel,
-        prev_tokens)`` eagerly and then captured at the key's first use, a
-        replay after. ``sampling_version`` changes whenever the worker's
-        sampling tensors do: while it holds, they are not copied again."""
+        prev_tokens)`` — ``step(…, hidden)`` for a pipeline stage after the
+        first, ``hidden`` the previous stage's output — eagerly and then
+        captured at the key's first use, a replay after.
+        ``sampling_version`` changes whenever the worker's sampling tensors
+        do: while it holds, they are not copied again."""
         entry = self.graphs.get(key)
+        inputs = (packed, sampling, gumbel, prev_tokens) + (() if hidden is None else (hidden,))
         if entry is None:
-            outputs = step(packed, sampling, gumbel, prev_tokens)
-            views = self._views(packed, sampling, gumbel, prev_tokens)
+            outputs = step(*inputs)
+            views = self._views(*inputs)
             # The static inputs always hold the latest graph step's inputs,
             # so the newest graph replays right even before its next fill.
-            self._fill(views, packed, sampling, sampling_version, gumbel, prev_tokens)
+            self._fill(views, packed, sampling, sampling_version, gumbel, prev_tokens, hidden)
             self.graphs[key] = self._capture(step, views)
             if len(self.graphs) > MAX_GRAPHS:
                 # The capture synchronized the device, so no replay of the
@@ -229,19 +280,24 @@ class StepGraphs:
                 self.evictions += 1
             return outputs
         self.graphs.move_to_end(key)
-        self._fill(entry.inputs, packed, sampling, sampling_version, gumbel, prev_tokens)
+        self._fill(entry.inputs, packed, sampling, sampling_version, gumbel, prev_tokens, hidden)
         entry.graph.replay()
         cuda_lib.count_replay(entry.launches)
         self.replays += 1
         return entry.outputs
 
-    def _fill(self, views, packed, sampling, sampling_version, gumbel, prev_tokens) -> None:
+    def _fill(self, views, packed, sampling, sampling_version, gumbel, prev_tokens,
+              hidden=None) -> None:
         """Copy one step's inputs into a graph's views, device to device on
         the current stream, so each copy lands after the previous replay's
         reads. The previous tokens may be the same graph's output buffer,
         which the replay overwrites: the copy is enqueued before the replay,
-        so it reads them first."""
-        static_packed, static_sampling, noise, feed = views
+        so it reads them first. The hidden state is likewise the previous
+        stage's output, which that stage's next replay overwrites: its copy
+        is enqueued first (across devices, PyTorch orders the copy after
+        both devices' current streams' work, and their later work after
+        it)."""
+        static_packed, static_sampling, noise, feed = views[:4]
         static_packed.copy_(packed)
         if sampling_version != self._sampling_version:
             for name, t in sampling.items():
@@ -251,13 +307,17 @@ class StepGraphs:
             noise.copy_(gumbel)
         if feed is not None:
             feed[: prev_tokens.shape[0]].copy_(prev_tokens)
+        if hidden is not None:
+            views[4].copy_(hidden)
 
-    def _buffer(self, name: str, like: torch.Tensor, rows: int) -> torch.Tensor:
+    def _buffer(self, name: str, like: torch.Tensor, rows: int, device=None) -> torch.Tensor:
         """The static input ``name``: ``rows`` rows shaped like ``like``'s,
-        allocated at its first use; ``like`` must fit in its leading rows."""
+        allocated at its first use on ``device`` (default: ``like``'s);
+        ``like`` must fit in its leading rows."""
         buf = self._static.get(name)
         if buf is None:
-            buf = torch.zeros((rows, *like.shape[1:]), dtype=like.dtype, device=like.device)
+            buf = torch.zeros((rows, *like.shape[1:]), dtype=like.dtype,
+                              device=like.device if device is None else device)
             self._static[name] = buf
         if like.shape[0] > buf.shape[0] or like.shape[1:] != buf.shape[1:] \
                 or like.dtype != buf.dtype:
@@ -265,8 +325,9 @@ class StepGraphs:
                              f"does not fit the {tuple(buf.shape)} {buf.dtype} buffer")
         return buf
 
-    def _views(self, packed, sampling, gumbel, prev_tokens) -> tuple:
-        """A graph's inputs: the leading rows of each static input."""
+    def _views(self, packed, sampling, gumbel, prev_tokens, hidden=None) -> tuple:
+        """A graph's inputs: the leading rows of each static input; a
+        stage's hidden state at its T rows of ``max_tokens``."""
         static_packed = self._buffer("packed", packed, self.packed_capacity)[: packed.shape[0]]
         static_sampling = {
             name: self._buffer(f"sampling.{name}", t, self.max_rows)[: t.shape[0]]
@@ -278,27 +339,32 @@ class StepGraphs:
         # The feed is the whole buffer: prev_map's rows index the previous
         # step's tokens, whatever its bucket.
         feed = None if prev_tokens is None else self._buffer("feed", prev_tokens, self.max_rows)
-        return static_packed, static_sampling, noise, feed
+        if hidden is None:
+            return static_packed, static_sampling, noise, feed
+        # On this stage's device, whichever device the previous stage is on.
+        static_hidden = self._buffer("hidden", hidden, self.max_tokens, packed.device)
+        return static_packed, static_sampling, noise, feed, static_hidden[: hidden.shape[0]]
 
     def _capture(self, step, views) -> _Graph:
         t0 = time.monotonic()
         device = views[0].device
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        pool = self._pools.get(device)
+        if pool is None:
+            pool = self._pools[device] = torch.cuda.graph_pool_handle()
         reserved0 = torch.cuda.memory_reserved(device)
         free0 = torch.cuda.mem_get_info(device)[0]
         graph = torch.cuda.CUDAGraph()
         # thread_local: the engine steps on an executor thread; what other
         # threads do meanwhile cannot invalidate this capture.
         with cuda_lib.recording_launches() as launches, torch.cuda.graph(
-            graph, pool=self._pool, capture_error_mode="thread_local"
+            graph, pool=pool, capture_error_mode="thread_local"
         ):
             # Entering the capture empties the allocator's cache: the pool's
             # growth is counted from here (allocator statistics, no CUDA
             # call inside the capture).
             reserved1 = torch.cuda.memory_reserved(device)
             allocated1 = torch.cuda.memory_allocated(device)
-            outputs = step(views[0], views[1], views[2], views[3])
+            outputs = step(*views)
         reserved2 = torch.cuda.memory_reserved(device)
         self.captured_bytes["pool"] += reserved2 - reserved1
         self.captured_bytes["held"] += torch.cuda.memory_allocated(device) - allocated1

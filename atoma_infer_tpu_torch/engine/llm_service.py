@@ -26,9 +26,10 @@ the kernels' fp16 instantiations. Async scheduling (``async_scheduling``,
 ``async_depth``) is ported, and so is ``warmup``, which on the card captures
 the CUDA graphs of every step it reaches before traffic, prefill and mixed
 steps at the token budget and long contexts' page buckets included
-(``engine/cuda_graphs.py``); under tensor parallelism it runs the same waves
-eagerly, as the ranks step (no graph of a TP step is captured yet:
-ROADMAP.md, Queue 1: CUDA graphs of TP steps over NCCL). So is speculative decoding
+(``engine/cuda_graphs.py``), under pipeline parallelism each stage's own;
+under tensor parallelism, pipelined or not, it runs the same waves eagerly,
+as the ranks step (no graph of a TP step is captured yet: ROADMAP.md, Queue
+1: CUDA graphs of TP steps over NCCL). So is speculative decoding
 (``num_speculative_tokens``: n-gram drafts verified in the same forward,
 greedy acceptance; a step with drafts runs synchronously). Weight quantization
 (``quantization`` "int8" or "int4", and W8A8 under ``ATOMA_W8A8=1``) is
@@ -234,11 +235,12 @@ def split_workspace_bytes(num_tokens: int, model_config, max_pages: int,
 
 
 def graph_pool_bytes(model_config, scheduler_config, block_size: int, *,
-                     quantized: bool = False) -> int:
+                     quantized: bool = False, sampler: bool = True) -> int:
     """The step graphs' pool, which holds one step's temporaries whatever
     the number of graphs: the LM head and the sampler over R rows (S, or
     S·(1+K) with K drafts a sequence: ``GRAPH_POOL_ROWS`` [R, V] f32
-    buffers, and a penalty step's ``PENALTY_POOL_ROWS``), and a step's
+    buffers, and a penalty step's ``PENALTY_POOL_ROWS``; without
+    ``sampler``, a pipeline stage before the last, none), and a step's
     forward at its T (:func:`activation_bytes`, :func:`quantized_bytes`
     with ``quantized`` weights, :func:`split_workspace_bytes`), taken at the
     widest T bucket, where each is largest: the split workspace's bound
@@ -250,27 +252,63 @@ def graph_pool_bytes(model_config, scheduler_config, block_size: int, *,
         T, model_config, P, block_size)
     if quantized:
         forward += quantized_bytes(T, model_config)
+    if not sampler:
+        return forward
     return 4 * (GRAPH_POOL_ROWS + PENALTY_POOL_ROWS) * R * model_config.vocab_size + forward
 
 
 def graph_reserve_bytes(model_config, scheduler_config, block_size: int, *,
                         quantized: bool = False) -> int:
-    """Device memory the step graphs take, which the KV pool must leave
-    free, from the model's config and the scheduler's limits: their static
-    inputs (``engine/cuda_graphs.py``: one set for every graph, at the
-    largest sequence, page and token buckets — the Gumbel noise over R
-    rows, the packed metadata, the sampling tensors, the feed), their pool
-    (:func:`graph_pool_bytes`) and each instantiated graph's own memory,
-    ``MAX_GRAPHS`` of them and the one being captured."""
+    """Device memory a single-stage worker's step graphs take, which the KV
+    pool must leave free, from the model's config and the scheduler's
+    limits: their static inputs (``engine/cuda_graphs.py``: one set for
+    every graph, at the largest sequence, page and token buckets — the
+    Gumbel noise over R rows, the packed metadata, the sampling tensors, the
+    feed), their pool (:func:`graph_pool_bytes`) and each instantiated
+    graph's own memory, ``MAX_GRAPHS`` of them and the one being captured:
+    :func:`stage_graph_reserve_bytes` of one stage."""
+    (reserve,) = stage_graph_reserve_bytes(
+        model_config, scheduler_config, block_size, [(0, model_config.num_layers)], [None],
+        hidden_bytes=0, quantized=quantized).values()
+    return reserve
+
+
+def stage_graph_reserve_bytes(model_config, scheduler_config, block_size: int, bounds,
+                              devices, *, hidden_bytes: int, quantized: bool = False) -> dict:
+    """Device memory the pipeline stages' step graphs take on each device
+    (``engine/pp_worker.py``: a ``StepGraphs`` a stage, stages on one device
+    sharing its pool), by device: the sum over the stages it holds of
+    - the static inputs: the packed metadata on every stage; the hidden
+      state ``[token_capacity, H]`` at ``hidden_bytes`` an element on a
+      stage after the first; the Gumbel noise and the sampling tensors on
+      the last stage only;
+    - the hidden state each graph of a stage before the last keeps as its
+      output, at the widest T, ``MAX_GRAPHS`` of them and the one being
+      captured;
+    - each instantiated graph's own memory at the stage's layers,
+      ``(MAX_GRAPHS + 1) × GRAPH_BYTES_PER_LAYER`` a layer;
+    and the device's pool once: the largest of its stages' pools
+    (:func:`graph_pool_bytes`, the LM head and sampler rows on the last
+    stage only, a step's forward at the widest T on every stage)."""
     S = bucket(scheduler_config.max_num_sequences)
     K = scheduler_config.num_speculative_tokens
     T = token_capacity(scheduler_config.max_num_batched_tokens)
     P = page_capacity(scheduler_config.max_model_len, block_size)
-    static = 4 * (S * (1 + K) * model_config.vocab_size + packed_capacity(S, P, T, K)
-                  + S * (8 + PENALTY_WINDOW))
-    return (static
-            + graph_pool_bytes(model_config, scheduler_config, block_size, quantized=quantized)
-            + (MAX_GRAPHS + 1) * GRAPH_BYTES_PER_LAYER * model_config.num_layers)
+    packed = 4 * packed_capacity(S, P, T, K)
+    sampler = 4 * (S * (1 + K) * model_config.vocab_size + S * (8 + PENALTY_WINDOW))
+    hidden = T * model_config.hidden_size * hidden_bytes
+    last = len(bounds) - 1
+    reserve: dict = {}
+    pools: dict = {}
+    for s, ((lo, hi), device) in enumerate(zip(bounds, devices)):
+        reserve[device] = (reserve.get(device, 0) + packed
+                           + (hidden if s else 0)
+                           + (sampler if s == last else (MAX_GRAPHS + 1) * hidden)
+                           + (MAX_GRAPHS + 1) * GRAPH_BYTES_PER_LAYER * (hi - lo))
+        pools[device] = max(pools.get(device, 0), graph_pool_bytes(
+            model_config, scheduler_config, block_size, quantized=quantized,
+            sampler=s == last))
+    return {device: reserve[device] + pools[device] for device in reserve}
 
 
 def resolve_model_dir(config) -> str:
@@ -394,7 +432,10 @@ class LlmService:
         # CUDA graphs capture no collective (ROADMAP.md, Queue 1: CUDA graphs
         # of TP steps over NCCL): a tensor-parallel rank steps eagerly.
         graphs = device.type == "cuda" and model.tp == 1
-        cls._profile_kv(config, model, kv_dtype, [device], group, graphs)
+        reserve = graph_reserve_bytes(cfg, config.scheduler, config.cache.block_size,
+                                      quantized=config.model.quantization is not None) \
+            if graphs else 0
+        cls._profile_kv(config, model, kv_dtype, [device], group, reserve)
         cache_engine = CacheEngine(
             num_layers=cfg.num_layers,
             num_kv_heads=model.local_kv_heads,
@@ -439,9 +480,12 @@ class LlmService:
         device (``parallel/pipeline.py`` ``stage_devices``), its cache engine
         over its layers and, under TP, its group; one scheduler a cohort,
         all over one block pool (block ids are global over the layers). The
-        pool is sized by the layers on the most crowded device: stages that
-        share a card share its memory. A stage steps eagerly: no CUDA graph
-        (ROADMAP.md, Queue 1: per-stage CUDA graphs of PP decode steps)."""
+        pool is sized by the layers on the most crowded device, less the
+        largest device's reserve for its stages' CUDA graphs
+        (:func:`stage_graph_reserve_bytes`): stages that share a card share
+        its memory. On the card at tp 1 each stage replays graphs of its
+        own (``engine/pp_worker.py``); under tensor parallelism every stage
+        steps eagerly."""
         from ..parallel.pipeline import (
             log_layout, place_stage_params, split_params, stage_devices,
         )
@@ -470,7 +514,13 @@ class LlmService:
         layers_on: dict = {}
         for (lo, hi), d in zip(bounds, devices):
             layers_on[d] = layers_on.get(d, 0) + hi - lo
-        cls._profile_kv(config, model, kv_dtype, list(layers_on), group, False,
+        # A graph set a stage at tp 1 (no collective is captured).
+        graphs = device.type == "cuda" and tp == 1
+        reserve = max(stage_graph_reserve_bytes(
+            cfg, config.scheduler, config.cache.block_size, bounds, devices,
+            hidden_bytes=model.dtype.itemsize,
+            quantized=config.model.quantization is not None).values()) if graphs else 0
+        cls._profile_kv(config, model, kv_dtype, list(layers_on), group, reserve,
                         num_layers=max(layers_on.values()))
         cache_engines = [
             CacheEngine(
@@ -486,7 +536,7 @@ class LlmService:
             for (lo, hi), d in zip(bounds, devices)
         ]
         worker = PipelinedModelWorker(stage_models, stage_params, cache_engines, bounds,
-                                      config.scheduler, config.cache)
+                                      config.scheduler, config.cache, cuda_graphs=graphs)
         # One pool for every cohort, native or Python (JAX shares the native
         # one only: its Python path builds a pool a cohort, ROADMAP.md Queue 3).
         first = Scheduler(config.scheduler, config.cache,
@@ -553,14 +603,14 @@ class LlmService:
         return isinstance(self.block_manager, NativeBlockSpaceManager)
 
     @staticmethod
-    def _profile_kv(config: EngineConfig, model, kv_dtype, devices, group, graphs: bool,
+    def _profile_kv(config: EngineConfig, model, kv_dtype, devices, group, reserve_bytes: int,
                     num_layers: Optional[int] = None) -> None:
         """Size the KV pools AFTER the weights are resident (ref:
         config.rs:624-625): the least free memory over ``devices`` ÷ bytes
         per block of ``num_layers`` layers (default: the model's; a
         pipeline's most crowded device's), an INT8 cache's scales counted,
-        less the step graphs' reserve. Under tensor parallelism the
-        replicated schedulers need identical pools: every rank takes the
+        less ``reserve_bytes`` (the step graphs'). Under tensor parallelism
+        the replicated schedulers need identical pools: every rank takes the
         least of the ranks' counts. Ranks that share a card profile one
         after another, each holding its pool's bytes while the next
         measures, and each takes its share of what it finds free, so that no
@@ -569,11 +619,7 @@ class LlmService:
         kw = dict(
             devices=list(devices),
             scale_pages=kv_dtype == torch.int8,
-            reserve_bytes=(
-                graph_reserve_bytes(cfg, config.scheduler, config.cache.block_size,
-                                    quantized=config.model.quantization is not None)
-                if graphs else 0
-            ),
+            reserve_bytes=reserve_bytes,
         )
         shape = (num_layers or cfg.num_layers, model.local_kv_heads, cfg.head_dim,
                  config.model.kv_dtype_size)
@@ -740,14 +786,18 @@ class LlmService:
         which is what an idle server's next request runs. On the card every
         step of these captures the CUDA graph of its key
         (``engine/cuda_graphs.py``), so traffic at those keys replays them
-        from its first step.
+        from its first step. Under pipeline parallelism each stage captures
+        its own graph of the step, the last by the step's key, the others by
+        their forward's alone: a stage before the last reaches the traffic's
+        keys whatever their sampling options (top-n, sampled rows,
+        penalties), which warmup's greedy requests do not ask for.
 
-        Under tensor parallelism the same waves run eagerly, as the ranks
-        step (no graph of a TP step is captured yet: ROADMAP.md, Queue 1:
-        CUDA graphs of TP steps over NCCL): rank 0's lockstep carries the
-        warmup requests to the followers like any other admission, and
-        every rank's kernels load and its plan and occupancy caches fill
-        before traffic.
+        Under tensor parallelism, pipelined or not, the same waves run
+        eagerly, as the ranks step (no graph of a TP step is captured yet:
+        ROADMAP.md, Queue 1: CUDA graphs of TP steps over NCCL): rank 0's
+        lockstep carries the warmup requests to the followers like any
+        other admission, and every rank's kernels load and its plan and
+        occupancy caches fill before traffic.
 
         Call with the engine loop running (``asyncio.create_task(
         service.engine.run())``). Returns the wall seconds spent.

@@ -202,9 +202,10 @@ class ModelWorker:
         # previous token, but keeps the key of steady async decode.
         self._null_feed = torch.zeros(max_rows, dtype=torch.int32, device=self.device)
         # Every step on the card replays a CUDA graph; the CUDA graph API has
-        # no CPU counterpart, so a CPU worker steps eagerly, and so do a
-        # tensor-parallel rank and a pipeline stage (``cuda_graphs=False``:
-        # no collective is captured, and stages have no graphs yet).
+        # no CPU counterpart, so a CPU worker steps eagerly, and so does a
+        # tensor-parallel rank (``cuda_graphs=False``: no collective is
+        # captured). A pipelined worker keeps a graph set a stage instead
+        # (``engine/pp_worker.py``).
         self.graphs = (
             StepGraphs(
                 max_rows,

@@ -5702,14 +5702,19 @@ def build_8b_int8(device, num_layers):
     return model, params, ByteTokenizer(model.config.vocab_size)
 
 
-def drive(torch, label, service, prompts, new_tokens, *, top_n=0, waves=True):
+def drive(torch, label, service, prompts, new_tokens, *, top_n=0, waves=True, warmup=False,
+          on_traffic=None):
     """Serve ``prompts`` (the fourth seeded and sampled, the rest greedy,
     ``top_n`` alternatives asked) through a started service, in two waves
     as ``serve`` admits them (the second before engine step
-    SECOND_WAVE_STEP) when ``waves``. Every request must finish and every
-    block return. Returns (tokens, top logprobs, figures: the traffic's
-    seconds, engine steps, pure-decode dispatch times, generated tokens,
-    the launches of the run, all set to 0 just before it)."""
+    SECOND_WAVE_STEP) when ``waves``; after ``service.warmup()`` when
+    ``warmup`` (the cohorts' rotation then starts the traffic from cohort
+    0, as a service without warmup does, so that both schedule alike), and
+    ``on_traffic()`` called just before the traffic. Every request must
+    finish and every block return. Returns (tokens, top logprobs, figures:
+    the traffic's seconds, engine steps, pure-decode dispatch times,
+    generated tokens, the launches of the run, all set to 0 just before
+    it, and the warmup's seconds)."""
     from atoma_infer_tpu_torch.ops import cuda_lib
     from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
 
@@ -5732,8 +5737,15 @@ def drive(torch, label, service, prompts, new_tokens, *, top_n=0, waves=True):
                                           top_n_tokens=top_n or None,
                                           **(SEEDED_OPTIONS if sampled else {})))
 
+    warm = [None]
+
     async def run():
         task = asyncio.create_task(engine.run())
+        if warmup:
+            warm[0] = await service.warmup()
+            while engine._has_unfinished():  # the warmup's last in-flight steps
+                await asyncio.sleep(0.01)
+            engine._next_cohort = 0
         held = []
         engine.add_request = lambda *args: held.append(args)
         futs = [await service.handle_request(request(i)) for i in range(len(prompts))]
@@ -5749,6 +5761,8 @@ def drive(torch, label, service, prompts, new_tokens, *, top_n=0, waves=True):
 
         engine.step = counted_step
         worker.dispatch = timed_dispatch
+        if on_traffic is not None:
+            on_traffic()
         for k in cuda_lib.KERNELS.values():
             k.launches = 0
         t0 = time.monotonic()
@@ -5777,7 +5791,7 @@ def drive(torch, label, service, prompts, new_tokens, *, top_n=0, waves=True):
             [r.outputs[0].top_logprobs for r in results] if top_n else None,
             dict(seconds=seconds, steps=steps[0], dispatches=dispatches,
                  generated=sum(len(r.outputs[0].token_ids) for r in results),
-                 launches=launches))
+                 launches=launches, warmup_s=warm[0]))
 
 
 def steady_decode(figures) -> str:
@@ -5935,30 +5949,175 @@ def report_pp(label, service, ref_blocks, figures):
     bounds = [(s.layer_offset, s.layer_offset + s.cache_engine.num_layers) for s in stages]
     log(f"service {label}: stages' layer bounds {bounds} on {[str(s.device) for s in stages]}; "
         f"KV blocks {service.config.cache.num_device_blocks} a stage (pp=1: {ref_blocks}; "
-        "the pool is sized by the layers on the most crowded card, here all of them)")
+        "the pool is sized by the layers on the most crowded card, here all of them, less "
+        "the stages' graph reserve)")
     log(f"service {label}: launches {({k: n for k, n in figures['launches'].items() if n})}")
     log(f"service {label} ({PP_LABEL}): {steady_decode(figures)}")
+
+
+def eager_stages(service):
+    """The same PP service with every stage eager: its stages' graphs taken
+    away (in a function of its own, so that no loop variable keeps a stage,
+    and its KV cache, alive after the service)."""
+    for stage in service.engine.worker.stages:
+        stage.graphs = None
+
+
+def split_pools(service):
+    """Give each stage of a PP service a graph memory pool of its own (the
+    default shares one a device)."""
+    for stage in service.engine.worker.stages:
+        stage.graphs._pools = {}
+
+
+def watch_stage_graphs(service):
+    """Record every stage's graph runs: (stage, key, captured before,
+    replayed, the step's kind). Returns (the runs, a callback marking the
+    traffic's start: the index of its first run and each stage's evictions
+    before it)."""
+    worker = service.engine.worker
+    runs, kind, mark = [], [None], {}
+    for s, stage in enumerate(worker.stages):
+        graphs = stage.graphs
+        if graphs is None:
+            raise AssertionError(f"stage {s} of a pp service at tp 1 on the card has no graphs")
+        run = graphs.run
+
+        def recorded(key, *args, s=s, graphs=graphs, run=run):
+            seen, replays = key in graphs.graphs, graphs.replays
+            out = run(key, *args)
+            runs.append((s, key, seen, graphs.replays > replays, kind[0]))
+            return out
+
+        graphs.run = recorded
+    dispatch = worker.dispatch
+
+    def kinded(request, feed=None):
+        metas = request.sequence_groups_metadata
+        prompts = sum(m.is_prompt for m in metas)
+        kind[0] = step_kind(prompts, len(metas) - prompts)
+        return dispatch(request, feed=feed)
+
+    worker.dispatch = kinded
+
+    def on_traffic():
+        mark["first"] = len(runs)
+        mark["evictions"] = [st.graphs.evictions for st in worker.stages]
+
+    return runs, mark, on_traffic
+
+
+def report_stage_graphs(torch, label, service, runs, mark, figures, layers):
+    """The stage graphs of a pp run: replays and first captures by stage
+    and step kind in the traffic, captures and evictions inside its window,
+    each stage's last graph replayed alone (CUDA events), and the graphs'
+    memory on each device against the KV pool's reserve for them
+    (``stage_graph_reserve_bytes``), which it must not pass. Every
+    pure-decode step must run the split fused D once a layer: in a stage
+    graph (its capture's launches) or in the eager step before a key's
+    capture. Returns each device's pool growth."""
+    from atoma_infer_tpu_torch.engine.cuda_graphs import DecodeKey, StageKey, StepKey
+
+    worker = service.engine.worker
+    stages = worker.stages
+    traffic = runs[mark["first"]:]
+    eager = sorted({(s, key) for s, key, seen, replayed, _ in traffic if seen and not replayed})
+    if eager:
+        raise AssertionError(f"service {label}: stage steps ran eagerly after their key's "
+                             f"capture: {eager}")
+    by = {}
+    for s, key, _, replayed, kind in traffic:
+        by.setdefault((s, kind), [0, 0])[0 if replayed else 1] += 1
+    evictions = [st.graphs.evictions - e for st, e in zip(stages, mark["evictions"])]
+    log(f"service {label}: stage graph runs in the traffic by stage and step kind (replays / "
+        "first captures): " + ", ".join(f"stage {s} {k} {r} / {c}"
+                                        for (s, k), (r, c) in sorted(by.items()))
+        + f"; {sum(c for _, c in by.values())} captures and {sum(evictions)} evictions "
+        f"inside the traffic's window; warmup {figures['warmup_s']:.2f} s")
+    warm = runs[: mark["first"]]
+    log(f"service {label}: warmup captured {sum(1 for _, _, seen, _, _ in warm if not seen)} "
+        f"stage graphs ({[len(st.graphs.graphs) for st in stages]} a stage after the traffic); "
+        "the traffic's first captures, keys warmup did not reach: "
+        + "; ".join(f"stage {s} {key}" for s, key, seen, _, _ in traffic if not seen))
+    # Every pure-decode step: the split fused D once a layer of each stage.
+    fused = "fused_decode_attention_int8_split"
+    decodes = sum(1 for _, pure, _ in figures["dispatches"] if pure)
+    if figures["launches"][fused] != sum(layers) * decodes:
+        raise AssertionError(f"service {label}: {figures['launches'][fused]} launches of {fused} "
+                             f"over {decodes} pure-decode steps of {sum(layers)} layers")
+    for s, (st, n) in enumerate(zip(stages, layers)):
+        for key, entry in st.graphs.graphs.items():
+            decode = (isinstance(key, DecodeKey) or isinstance(key, (StageKey, StepKey))
+                      and key.decode_only)
+            if decode and entry.launches.get(fused) != n:
+                raise AssertionError(f"service {label}: stage {s}'s graph {key} launches {fused} "
+                                     f"{entry.launches.get(fused)} times, not once a layer ({n})")
+    log(f"service {label}: {decodes} pure-decode steps, each {sum(layers)} launches of {fused} "
+        f"(one a layer: {layers} by stage), in stage graphs but each key's first step")
+    for s, st in enumerate(stages):
+        key = next(reversed(st.graphs.graphs))
+        log(f"service {label}: stage {s}'s last graph {key} replayed alone: "
+            f"{cuda_ms(st.graphs.graphs[key].graph.replay):.3f} ms (CUDA events)")
+    return report_stage_graph_memory(label, service)
+
+
+def report_stage_graph_memory(label, service):
+    """Print the stage graphs' memory on each device — static inputs, the
+    pool's growth (by stage), what stays allocated in it and the CUDA driver's —
+    against the KV pool's reserve for them (``stage_graph_reserve_bytes``),
+    which it must not pass. Returns each device's pool growth."""
+    from atoma_infer_tpu_torch.engine.llm_service import stage_graph_reserve_bytes
+
+    worker = service.engine.worker
+    stages = worker.stages
+    cfg, config = worker.model.config, service.config
+    bounds = [(st.layer_offset, st.layer_offset + st.cache_engine.num_layers) for st in stages]
+    reserve = stage_graph_reserve_bytes(
+        cfg, config.scheduler, config.cache.block_size, bounds, [st.device for st in stages],
+        hidden_bytes=worker.model.dtype.itemsize, quantized=config.model.quantization is not None)
+    pools = {}
+    for device, limit in reserve.items():
+        held = [st.graphs for st in stages if st.device == device]
+        parts = {name: sum(g.captured_bytes[name] for g in held)
+                 for name in ("pool", "held", "driver")}
+        static = sum(g.static_bytes for g in held)
+        total = static + sum(parts.values())
+        shared = len({id(g._pools) for g in held}) == 1
+        log(f"service {label}: graph memory on {device} ({len(held)} stages, "
+            f"{'one pool' if shared else 'a pool a stage'}): static inputs "
+            f"{static / 2**20:.2f} MiB, pool growth {parts['pool'] / 2**20:.2f} MiB (by stage "
+            f"{[round(g.captured_bytes['pool'] / 2**20, 2) for g in held]} MiB), held "
+            f"{parts['held'] / 2**20:.2f} MiB, driver {parts['driver'] / 2**20:.2f} MiB; "
+            f"{total / 2**20:.2f} MiB in all against a reserve of {limit / 2**20:.2f} MiB")
+        if total > limit:
+            raise AssertionError(f"service {label}: the stage graphs hold {total} bytes on "
+                                 f"{device}, more than the {limit} the KV pool left them")
+        pools[device] = parts["pool"]
+    return pools
 
 
 def run_pp_services(torch):
     """Pipeline parallelism through ``LlmService.start`` with
     ``pipeline_parallel_size`` PP_STAGES, both stages on this card: (i)
     Llama-3.1-8B at full width, 32 layers, INT8 weights over an INT8 KV
-    cache, the services' 8 requests at OTHER_SERVICES_TOKENS (one seeded),
-    against the same service at pp = 1 (eager, as a stage steps) under the
-    near-tie rule; (ii) Gemma-2-9B at PP_GEMMA_LAYERS layers, bf16 over bf16
-    KV, one prompt of PP_GEMMA_PROMPT tokens, identical to pp = 1; (iii)
-    ``tiny_trained`` f32 at pp = 2 × tp = TP_RANKS, the ranks spawned on
-    this card (gloo), identical to pp = 1, tp = 1 on the card and, greedy,
-    to the CPU. Returns (i)'s launches (counts set to 0 just before its
-    traffic)."""
+    cache, the services' 8 requests at OTHER_SERVICES_TOKENS (one seeded):
+    pp = 1 with graphs, the reference; pp = 2 eager; pp = 2 replaying one
+    graph set a stage after ``warmup()``, its tokens identical to the eager
+    run's and, under the near-tie rule, pp = 1's; (ii) Gemma-2-9B at
+    PP_GEMMA_LAYERS layers, bf16 over bf16 KV, one prompt of
+    PP_GEMMA_PROMPT tokens, pp = 2 with stage graphs identical to pp = 1
+    with graphs; (iii) ``tiny_trained`` f32 at pp = 2 × tp = TP_RANKS, the
+    ranks spawned on this card (gloo), eager, identical to pp = 1, tp = 1
+    on the card and, greedy, to the CPU. Returns (i)'s launches with stage
+    graphs (counts set to 0 just before its traffic)."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
     from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
 
-    # (i) Llama-3.1-8B, INT8 weights + INT8 KV, pp = 1 then pp = 2.
+    # (i) Llama-3.1-8B, INT8 weights + INT8 KV: pp = 1, then pp = 2 eager
+    # and with stage graphs.
     model, params, tokenizer = build_8b_int8("cuda", 32)
     text = "The quick brown fox jumps over the lazy dog. " * (-(-max(PROMPT_LENGTHS) // 45))
     prompts = [text[:n] for n in PROMPT_LENGTHS]
@@ -5969,7 +6128,6 @@ def run_pp_services(torch):
             pipeline_parallel_size=pp)
 
     ref = LlmService.start(config(1), model=model, params=params, tokenizer=tokenizer)
-    ref.engine.worker.graphs = None  # eager, as every stage steps
     ref_blocks = ref.config.cache.num_device_blocks
     want, top, ref_fig = drive(torch, "8B INT8 + INT8 KV pp=1", ref, prompts,
                                OTHER_SERVICES_TOKENS, top_n=2)
@@ -5979,25 +6137,62 @@ def run_pp_services(torch):
     label = f"8B INT8 + INT8 KV pp={PP_STAGES}"
     service = LlmService.start(config(PP_STAGES), model=model, params=params,
                                tokenizer=tokenizer)
-    got, _, fig = drive(torch, label, service, prompts, OTHER_SERVICES_TOKENS, top_n=2)
+    eager_blocks = service.config.cache.num_device_blocks
+    eager_stages(service)
+    eager, _, eager_fig = drive(torch, f"{label} eager", service, prompts,
+                                OTHER_SERVICES_TOKENS, top_n=2)
+    del service
+    gc.collect()
+    torch.cuda.empty_cache()
+    service = LlmService.start(config(PP_STAGES), model=model, params=params,
+                               tokenizer=tokenizer)
+    runs, mark, on_traffic = watch_stage_graphs(service)
+    got, _, fig = drive(torch, label, service, prompts, OTHER_SERVICES_TOKENS, top_n=2,
+                        warmup=True, on_traffic=on_traffic)
     report_pp(label, service, ref_blocks, fig)
     launches = fig["launches"]
     for name in PP_PATH:
         if not launches[name]:
             raise AssertionError(f"kernel {name} was not launched on the {label} path")
     check_route(f"service {label}", launches, bf16=True)
+    if got != eager:
+        raise AssertionError(f"service {label}: tokens differ between the eager stages and the "
+                             "stage graphs")
     compare_to_reference(
         label, got, want, top,
         lambda j, a, b: seeded_score_gap(torch, model, params, prompts[SEEDED_REQUEST],
                                          want[SEEDED_REQUEST], j, a, b),
-        reference="the same service at pp=1")
-    log(f"service {label}: pp=1 eager {steady_decode(ref_fig)}; launches "
+        reference="the same service at pp=1 with graphs")
+    layers = [st.cache_engine.num_layers for st in service.engine.worker.stages]
+    shared = report_stage_graphs(torch, label, service, runs, mark, fig, layers)
+    log(f"service {label}: tokens identical eager and with stage graphs; KV blocks "
+        f"{service.config.cache.num_device_blocks} with the stages' graph reserve, "
+        f"{eager_blocks} in the eager run's start (the same reserve), {ref_blocks} at pp=1")
+    del service, on_traffic  # on_traffic holds the worker
+    gc.collect()
+    torch.cuda.empty_cache()
+    # One pool a device against a pool a stage: the same run with each
+    # stage capturing into a pool of its own.
+    service = LlmService.start(config(PP_STAGES), model=model, params=params,
+                               tokenizer=tokenizer)
+    split_pools(service)
+    apart, _, _ = drive(torch, f"{label}, a pool a stage", service, prompts,
+                        OTHER_SERVICES_TOKENS, top_n=2, warmup=True)
+    if apart != got:
+        raise AssertionError(f"service {label}: tokens differ with a graph pool a stage")
+    own = report_stage_graph_memory(f"{label}, a pool a stage", service)
+    log(f"service {label}: pool growth on the card with one pool for both stages "
+        f"{sum(shared.values()) / 2**20:.2f} MiB, with a pool a stage "
+        f"{sum(own.values()) / 2**20:.2f} MiB (the same traffic after warmup, tokens identical)")
+    log(f"service {label}: eager {steady_decode(eager_fig)}")
+    per_step = sum(eager_fig["launches"].values()) / max(1, eager_fig["steps"])
+    guard = device_guard_cost_us(torch)
+    log(f"a launch's device check and guard: {guard:.2f} µs on this host; the pp={PP_STAGES} "
+        f"eager run launched {per_step:.0f} kernels an engine step, "
+        f"{guard * per_step / 1e3:.3f} ms a step")
+    log(f"service {label}: pp=1 with graphs {steady_decode(ref_fig)}; launches "
         f"{({k: ref_fig['launches'][k] for k in PP_PATH})} over {ref_fig['steps']} engine "
         f"steps (pp={PP_STAGES}: {fig['steps']})")
-    per_step = sum(ref_fig["launches"].values()) / max(1, ref_fig["steps"])
-    guard = device_guard_cost_us(torch)
-    log(f"a launch's device check and guard: {guard:.2f} µs on this host; the pp=1 eager run "
-        f"launched {per_step:.0f} kernels an engine step, {guard * per_step / 1e3:.3f} ms a step")
     del service, model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -6012,7 +6207,10 @@ def run_pp_services(torch):
                                 pipeline_parallel_size=pp)
         service = LlmService.start(cfg, model=model, params=params,
                                    tokenizer=ByteTokenizer(model.config.vocab_size))
-        service.engine.worker.graphs = None  # eager at pp = 1 too: the same kernels
+        worker = service.engine.worker
+        graphs = [st.graphs for st in worker.stages] if pp > 1 else [worker.graphs]
+        if any(g is None for g in graphs):
+            raise AssertionError(f"{name} pp={pp}: a stage without graphs")
         blocks = service.config.cache.num_device_blocks
         runs[pp], _, fig = drive(torch, f"{name} pp={pp}", service, prompt, PP_GEMMA_TOKENS,
                                  waves=False)
@@ -6021,19 +6219,22 @@ def run_pp_services(torch):
             for kernel in ("ragged_paged_attention_mma", "fused_decode_attention_split"):
                 if not fig["launches"][kernel]:
                     raise AssertionError(f"kernel {kernel} (D=256) was not launched at pp={pp}")
+            log(f"{name} pp={pp}: {[g.replays for g in graphs]} replays by stage, "
+                f"{[len(g.graphs) for g in graphs]} graphs")
         ref_blocks = blocks
-        del service
+        del service, worker, graphs
         gc.collect()
     if runs[PP_STAGES] != runs[1]:
         raise AssertionError(f"{name} pp={PP_STAGES}: tokens differ from pp=1 "
                              f"({runs[PP_STAGES]} against {runs[1]})")
-    log(f"{name} pp={PP_STAGES} (layers 0-2 and 3-5, a {PP_GEMMA_PROMPT}-token prompt past the "
-        f"4,096-key window): {len(runs[1][0])} tokens identical to pp=1")
+    log(f"{name} pp={PP_STAGES} with stage graphs (layers 0-2 and 3-5, a {PP_GEMMA_PROMPT}-token "
+        f"prompt past the 4,096-key window): {len(runs[1][0])} tokens identical to pp=1 with "
+        "graphs")
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (iii) tiny_trained, f32, pp = 2 × tp = 2.
+    # (iii) tiny_trained, f32, pp = 2 × tp = 2: every stage eager.
     fixture = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
     prompts = [f"prompt number {i} " * (1 + i % 4) for i in range(8)]
 
@@ -6054,12 +6255,14 @@ def run_pp_services(torch):
                                   None)):
         service = LlmService.start(tiny(pp, tp), device=device)
         group = service.group
+        if pp > 1 and any(st.graphs is not None for st in service.engine.worker.stages):
+            raise AssertionError(f"tiny_trained pp={pp} tp={tp}: a stage has graphs under TP")
         c0 = group.collectives if group else 0
         runs[name], _, fig = drive(torch, f"tiny_trained {name}", service, prompts, 24,
                                    waves=False)
         if group:
             log(f"tiny_trained f32 pp={pp} tp={tp}: {group.collectives - c0} collectives over "
-                f"{fig['steps']} engine steps on rank 0 ({TP_LABEL})")
+                f"{fig['steps']} engine steps on rank 0, every stage eager ({TP_LABEL})")
     greedy = [i for i in range(len(prompts)) if i != SEEDED_REQUEST]
     both = runs[f"cuda pp={PP_STAGES} tp={TP_RANKS}"]
     if both != runs["cuda"] or any(runs["cuda"][i] != runs["cpu"][i] for i in greedy):

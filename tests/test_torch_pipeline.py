@@ -530,8 +530,9 @@ def test_step_metrics_are_counted_under_pp(tmp_path):
 
 
 def test_warmup_under_pp_runs_its_waves(tmp_path):
-    """``warmup`` at pp = 2, tp = 1: nothing to capture (a stage steps
-    eagerly), the waves run through the cohorts and leave the pool whole."""
+    """``warmup`` at pp = 2, tp = 1: nothing to capture on the CPU (a CPU
+    stage steps eagerly), the waves run through the cohorts and leave the
+    pool whole."""
     service = _pp_service(tmp_path)
 
     async def run():
