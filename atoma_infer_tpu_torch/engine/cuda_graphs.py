@@ -1,16 +1,17 @@
 """Every step captured in a CUDA graph and replayed: a single-stage
-worker's, and each pipeline stage's.
+worker's, each pipeline stage's, and a tensor-parallel rank's in segments
+between its collectives.
 
 The port's counterpart of the JAX worker's one compiled program per bucket
-(``atoma_infer_tpu/engine/worker.py:207-222``) and of the pipelined
-worker's one jitted program a stage (``atoma_infer_tpu/engine/pp_worker.py:90-187``).
-An eager step launches a few hundred kernels from Python; a replay launches
-them all with one call. On a CUDA worker at tp 1 every step replays a graph
+(``atoma_infer_tpu/engine/worker.py:207-222``), of the pipelined worker's
+one jitted program a stage (``atoma_infer_tpu/engine/pp_worker.py:90-187``)
+and of the one SPMD program a tensor-parallel step is there, whose psums XLA
+inserts. An eager step launches a few hundred kernels from Python; a replay
+launches them all with one call. On a CUDA worker every step replays a graph
 of its key: pure-decode, verify, prefill, mixed prefill + decode and
 penalty steps; under pipeline parallelism each stage replays a graph of its
-own, from a ``StepGraphs`` of its own on its device. CPU workers and
-tensor-parallel ranks, pipelined or not, step eagerly (no collective is
-captured).
+own, from a ``StepGraphs`` of its own on its device. CPU workers step
+eagerly.
 
 The graph key is the JAX step's static arguments, ``(T, S, P, decode_only,
 needs_sampling, needs_penalties, needs_typical, top_n, spec, feed)``, and
@@ -63,6 +64,32 @@ reach number in the thousands (token, sequence and page buckets ×
 used, whose key is captured again at its next step. A capture or replay
 that fails raises; nothing falls back to the eager step.
 
+A tensor-parallel rank (``StepGraphs(group=…)``, its model's ``TpGroup`` at
+tp > 1) captures a key as an ordered list of segments, the graphs between
+its collectives: ``graph_0, collective_0, graph_1, …, graph_n`` — 3·L + 2
+graphs a step over an INT8 cache (the layer's two row-parallel sums and its
+scales' max, then the logits' gather), 2·L + 2 otherwise. While the step is
+captured, ``TpGroup.segmented`` hands each collective to the capture: it
+ends the running graph, records the operation and the tensor it works on,
+and begins the next graph on the same capture stream and in the same pool
+(the gather with a static output ``[…, tp·n]`` allocated in that next
+graph, which reads it). A capture issues no collective and counts none;
+every rank captures the same key at the same step, after the key's eager
+first step (whose collectives are real), because the keys come from the
+lockstep's replicated schedule. A replay runs the segments in order on the
+current stream and the real collective after each but the last: in place
+for the two all-reduces, into the static output for the gather; it counts
+every segment's kernel launches and exactly the eager step's collectives.
+The tensors a collective works on are the pool's, like any workspace of a
+graph, and no key keeps them: a segment holds a view that does not own its
+memory (the graphs' replays in capture order write and read it, as they do
+every other workspace), so a key costs its outputs and what its
+instantiated segments hold outside PyTorch's allocator, as at tp 1. A
+collective between two replays is gloo through pinned host memory when
+ranks share a card (it cannot be captured), NCCL on the rank's current
+stream with a card a rank: that route has not been run yet (ROADMAP.md,
+items 13 and 19).
+
 A pipeline stage (``engine/pp_worker.py``) keys its graphs so:
 - the last stage, which runs its layers, the LM head and the sampler, by
   :func:`step_graph_key`, as a single-stage step (there is no feed under
@@ -86,9 +113,10 @@ holds the widest stage's step once rather than once a stage.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
-from typing import Callable, Dict, NamedTuple, Optional, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Union
 
 import torch
 
@@ -214,22 +242,53 @@ def packed_capacity(max_rows: int, max_pages: int, max_tokens: int,
     return 4 * max_tokens + max_rows * max_pages + 3 * max_rows + rows + 2
 
 
+def _alias(x: torch.Tensor) -> torch.Tensor:
+    """A tensor over ``x``'s memory that does not keep it allocated, on the
+    card: what a segment keeps of a capture's workspace (the graph pool
+    holds the memory while a graph captured into it lives). On the CPU,
+    where the allocator hands memory back, ``x`` itself."""
+    if x.device.type != "cuda":
+        return x
+    return _view_of(x)
+
+
+def _view_of(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous ``x`` over a storage that does not own its memory."""
+    storage = torch._C._construct_storage_from_data_pointer(
+        x.data_ptr(), x.device, x.numel() * x.element_size())
+    return torch.empty(0, dtype=x.dtype, device=x.device).set_(
+        storage, 0, x.shape, x.stride())
+
+
+@dataclasses.dataclass
+class _Segment:
+    """A graph of a tensor-parallel step and the collective after it."""
+
+    graph: object
+    op: Optional[str]      # "sum", "max", "gather"; None after the last
+    tensor: Optional[torch.Tensor] = None   # what the collective works on
+    out: Optional[torch.Tensor] = None      # the gather's static output
+
+
 @dataclasses.dataclass
 class _Graph:
-    graph: object
+    graph: object          # the step's graph; a tensor-parallel step's first segment
     inputs: tuple          # (packed, sampling, noise, feed[, hidden]): static inputs' views
     outputs: tuple
-    launches: Dict[str, int]   # each kernel's launches in one replay
+    launches: Dict[str, int]   # each kernel's launches in one replay (every segment's)
+    segments: List[_Segment] = dataclasses.field(default_factory=list)  # under TP
 
 
 class StepGraphs:
     """The captured step graphs of one worker or pipeline stage, by key,
     and the static inputs they share. ``pools`` maps a device to the memory
     pool its graphs are captured into: the stages of a pipeline pass one
-    dict, so that stages on one device share one pool."""
+    dict, so that stages on one device share one pool. ``group``: the
+    model's tensor-parallel group, whose steps are captured in segments
+    between its collectives (None: one graph a step)."""
 
     def __init__(self, max_rows: int, max_pages: int, max_tokens: int,
-                 num_spec_tokens: int = 0, pools: Optional[dict] = None):
+                 num_spec_tokens: int = 0, pools: Optional[dict] = None, group=None):
         # The largest sequence bucket a step can have, the largest page and
         # token buckets and the most drafts a sequence carries: every static
         # input is sized for them.
@@ -250,6 +309,7 @@ class StepGraphs:
         self._static: Dict[str, torch.Tensor] = {}
         self._sampling_version = None
         self._pools = {} if pools is None else pools
+        self.group = group if group is not None and group.tp > 1 else None
 
     @property
     def static_bytes(self) -> int:
@@ -281,10 +341,28 @@ class StepGraphs:
             return outputs
         self.graphs.move_to_end(key)
         self._fill(entry.inputs, packed, sampling, sampling_version, gumbel, prev_tokens, hidden)
-        entry.graph.replay()
+        self._replay(entry)
         cuda_lib.count_replay(entry.launches)
         self.replays += 1
         return entry.outputs
+
+    def _replay(self, entry: _Graph) -> None:
+        """Replay ``entry`` on the current stream: its graph, or each
+        segment's in order with the group's real collective after it."""
+        if not entry.segments:
+            entry.graph.replay()
+            return
+        group = self.group
+        # The recorded tensors are the capture's, made in inference mode.
+        with torch.inference_mode():
+            for seg in entry.segments:
+                seg.graph.replay()
+                if seg.op == "sum":
+                    group.all_reduce_sum(seg.tensor)
+                elif seg.op == "max":
+                    group.all_reduce_max(seg.tensor)
+                elif seg.op == "gather":
+                    group.all_gather_last(seg.tensor, out=seg.out)
 
     def _fill(self, views, packed, sampling, sampling_version, gumbel, prev_tokens,
               hidden=None) -> None:
@@ -345,6 +423,15 @@ class StepGraphs:
         static_hidden = self._buffer("hidden", hidden, self.max_tokens, packed.device)
         return static_packed, static_sampling, noise, feed, static_hidden[: hidden.shape[0]]
 
+    def _new_graph(self):
+        return torch.cuda.CUDAGraph()
+
+    def _graph_capture(self, graph, pool):
+        """The context capturing ``graph`` into ``pool``. thread_local: the
+        engine steps on an executor thread; what other threads do
+        meanwhile cannot invalidate this capture."""
+        return torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local")
+
     def _capture(self, step, views) -> _Graph:
         t0 = time.monotonic()
         device = views[0].device
@@ -353,23 +440,71 @@ class StepGraphs:
             pool = self._pools[device] = torch.cuda.graph_pool_handle()
         reserved0 = torch.cuda.memory_reserved(device)
         free0 = torch.cuda.mem_get_info(device)[0]
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: the engine steps on an executor thread; what other
-        # threads do meanwhile cannot invalidate this capture.
-        with cuda_lib.recording_launches() as launches, torch.cuda.graph(
-            graph, pool=pool, capture_error_mode="thread_local"
-        ):
+        start = {}
+
+        def begun():
             # Entering the capture empties the allocator's cache: the pool's
             # growth is counted from here (allocator statistics, no CUDA
             # call inside the capture).
-            reserved1 = torch.cuda.memory_reserved(device)
-            allocated1 = torch.cuda.memory_allocated(device)
-            outputs = step(*views)
+            start.update(reserved=torch.cuda.memory_reserved(device),
+                         allocated=torch.cuda.memory_allocated(device))
+
+        entry = self._record(step, views, pool, begun)
         reserved2 = torch.cuda.memory_reserved(device)
-        self.captured_bytes["pool"] += reserved2 - reserved1
-        self.captured_bytes["held"] += torch.cuda.memory_allocated(device) - allocated1
+        self.captured_bytes["pool"] += reserved2 - start["reserved"]
+        self.captured_bytes["held"] += torch.cuda.memory_allocated(device) - start["allocated"]
         self.captured_bytes["driver"] += (
             free0 - torch.cuda.mem_get_info(device)[0] - (reserved2 - reserved0)
         )
         self.capture_seconds += time.monotonic() - t0
-        return _Graph(graph, views, outputs, dict(launches))
+        return entry
+
+    def _record(self, step, views, pool, begun: Optional[Callable] = None) -> _Graph:
+        """Capture ``step(*views)``: one graph, or under a group a segment
+        between each two of its collectives (the module docstring).
+        ``begun()`` is called once the first graph's capture has begun."""
+        group = self.group
+        segments: List[_Segment] = []
+        running = {}
+
+        def begin():
+            graph = self._new_graph()
+            ctx = self._graph_capture(graph, pool)
+            ctx.__enter__()
+            running.update(graph=graph, ctx=ctx)
+
+        def end(*exc):
+            running.pop("ctx").__exit__(*(exc or (None, None, None)))
+
+        def cut(op: str, x: torch.Tensor) -> torch.Tensor:
+            x = x.contiguous()   # in the running graph: the collective's operand
+            end()
+            seg = _Segment(running["graph"], op, _alias(x))
+            segments.append(seg)
+            begin()
+            if op != "gather":
+                return x
+            out = torch.empty((*x.shape[:-1], group.tp * x.shape[-1]), dtype=x.dtype,
+                              device=x.device)
+            seg.out = _alias(out)
+            return out
+
+        with cuda_lib.recording_launches() as launches:
+            begin()
+            if begun is not None:
+                begun()
+            try:
+                with group.segmented(cut) if group is not None else contextlib.nullcontext():
+                    outputs = step(*views)
+            except BaseException as e:
+                # End the running capture so that the stream leaves capture
+                # mode; the step's own error is the one raised.
+                if "ctx" in running:
+                    with contextlib.suppress(Exception):
+                        end(type(e), e, e.__traceback__)
+                raise
+            end()
+        if group is None:
+            return _Graph(running["graph"], views, outputs, dict(launches))
+        segments.append(_Segment(running["graph"], None))
+        return _Graph(segments[0].graph, views, outputs, dict(launches), segments)

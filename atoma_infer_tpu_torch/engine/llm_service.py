@@ -26,10 +26,9 @@ the kernels' fp16 instantiations. Async scheduling (``async_scheduling``,
 ``async_depth``) is ported, and so is ``warmup``, which on the card captures
 the CUDA graphs of every step it reaches before traffic, prefill and mixed
 steps at the token budget and long contexts' page buckets included
-(``engine/cuda_graphs.py``), under pipeline parallelism each stage's own;
-under tensor parallelism, pipelined or not, it runs the same waves eagerly,
-as the ranks step (no graph of a TP step is captured yet: ROADMAP.md, Queue
-1: CUDA graphs of TP steps over NCCL). So is speculative decoding
+(``engine/cuda_graphs.py``), under pipeline parallelism each stage's own,
+and under tensor parallelism, pipelined or not, every rank's, in segments
+between the collectives. So is speculative decoding
 (``num_speculative_tokens``: n-gram drafts verified in the same forward,
 greedy acceptance; a step with drafts runs synchronously). Weight quantization
 (``quantization`` "int8" or "int4", and W8A8 under ``ATOMA_W8A8=1``) is
@@ -119,12 +118,16 @@ class ModelFactory:
     itself: ``build(device, *args)`` → (model, params, tokenizer) with the
     full, unsharded parameters (the service cuts the rank's shard), and the
     model's ``config``, which ``LlmService.start`` checks before it starts
-    any rank. ``build`` and ``args`` travel to the spawned ranks by pickle
-    (``build`` by import path)."""
+    any rank. ``build``, ``args`` and ``step_graphs`` travel to the spawned
+    ranks by pickle (``build`` and ``step_graphs`` by import path).
+    ``step_graphs``: the ``engine/cuda_graphs.py`` ``StepGraphs`` class every
+    rank's workers keep, on any device (None: ``StepGraphs`` on the card,
+    none on the CPU); tests give one whose graphs replay by recomputing."""
 
     config: Any
     build: Callable
     args: Tuple = ()
+    step_graphs: Optional[type] = None
 
     def __call__(self, device):
         return self.build(device, *self.args)
@@ -188,6 +191,12 @@ PENALTY_POOL_ROWS = 4
 # Device bytes CUDA holds outside PyTorch's allocator for one instantiated
 # graph, per model layer (its kernel nodes). Measured likewise: 96–154 KiB.
 GRAPH_BYTES_PER_LAYER = 256 * 1024
+# What each segment of a tensor-parallel step's capture holds there besides
+# its layers' kernel nodes (an instantiated graph of its own). Measured on an
+# H100 (chip_smoke.py, 8B INT8 + INT8 KV at tp 2, ranks capturing one after
+# another): 16.3–20.0 MiB a key of 98 segments at 32 layers, 170–209 KiB a
+# segment with the layers' share; the reserve counts 26.2 MiB a key.
+GRAPH_BYTES_PER_SEGMENT = 192 * 1024
 # The K splits' f32 partial sums of one quantized matmul, in elements, less
 # its own M·N: a split plan keeps splits·M·N within slots·128·128 + M·N on
 # the tensor-core route (``quant_kernels.mma_plan``: blocks of up to 128 ×
@@ -196,88 +205,111 @@ GRAPH_BYTES_PER_LAYER = 256 * 1024
 QMM_SPLIT_ELEMENTS = 8 * 132 * 128 * 128
 
 
-def activation_bytes(num_tokens: int, model_config) -> int:
-    """One step's forward at T = ``num_tokens`` tokens: what one layer holds
-    at once, the hidden state and its residual sum, the norm's f32 copy,
-    q/k/v and rope's copies, the attention's output, the MLP's gate, up and
-    product (on every expert of a dense MoE), each counted at 4 bytes an
-    element."""
+def _rank_widths(model_config, tp: int):
+    """A rank's (q heads, kv heads, intermediate size) at ``tp``: its
+    shard's (``parallel/sharding.py``; kv heads copied when tp is wider,
+    each rank's experts' intermediate summed under expert parallelism)."""
     c = model_config
-    qkv = (c.num_attention_heads + 2 * c.num_kv_heads) * c.head_dim
     experts = getattr(c, "num_local_experts", 1)
-    per_token = (4 * c.hidden_size + 2 * qkv + c.num_attention_heads * c.head_dim
-                 + 3 * experts * c.intermediate_size)
+    kv = c.num_kv_heads * kv_repeat(tp, c.num_kv_heads)
+    return c.num_attention_heads // tp, kv // tp, experts * c.intermediate_size // tp
+
+
+def activation_bytes(num_tokens: int, model_config, tp: int = 1) -> int:
+    """One step's forward at T = ``num_tokens`` tokens on a rank of ``tp``:
+    what one layer holds at once, the hidden state and its residual sum, the
+    norm's f32 copy, the rank's q/k/v and rope's copies, its attention's
+    output, its MLP's gate, up and product (on every expert of a dense MoE),
+    each counted at 4 bytes an element."""
+    c = model_config
+    hq, hk, inter = _rank_widths(c, tp)
+    qkv = (hq + 2 * hk) * c.head_dim
+    per_token = 4 * c.hidden_size + 2 * qkv + hq * c.head_dim + 3 * inter
     return 4 * num_tokens * per_token
 
 
-def quantized_bytes(num_tokens: int, model_config) -> int:
+def quantized_bytes(num_tokens: int, model_config, tp: int = 1) -> int:
     """A quantized linear's temporaries at T tokens: W8A8's per-token
     quantization (three f32 copies of the activations, at the widest K) and
     the K splits' partial sums (:data:`QMM_SPLIT_ELEMENTS` and one M·N, at
-    the widest N but the LM head's, which never splits)."""
-    wide = max(model_config.hidden_size, model_config.intermediate_size)
+    the widest N but the LM head's, which never splits); a rank's widths."""
+    c = model_config
+    wide = max(c.hidden_size, c.intermediate_size // tp)
     return 4 * (3 * num_tokens * wide + QMM_SPLIT_ELEMENTS + num_tokens * wide)
 
 
 def split_workspace_bytes(num_tokens: int, model_config, max_pages: int,
-                          block_size: int) -> int:
+                          block_size: int, tp: int = 1) -> int:
     """The ragged kernel's split workspace at T tokens (allocated in the
     capture, ``ops/paged_attention.py`` ``ragged_paged_attention_mma_launch``):
-    splits · T · Hq · (D + 2) f32, at the most splits any plan takes over
-    ``max_pages`` pages (``rpa_mma_plan``: at most ``RPA_MAX_SPLITS``, and
-    at most one a ``RPA_MIN_TILES`` key tiles)."""
+    splits · T · Hq · (D + 2) f32 (Hq the rank's), at the most splits any
+    plan takes over ``max_pages`` pages (``rpa_mma_plan``: at most
+    ``RPA_MAX_SPLITS``, and at most one a ``RPA_MIN_TILES`` key tiles)."""
     from ..ops.paged_attention import RPA_KEY_TILE, RPA_MAX_SPLITS, RPA_MIN_TILES
 
     key_tiles = -(-max_pages * block_size // RPA_KEY_TILE)
     splits = min(RPA_MAX_SPLITS, -(-key_tiles // RPA_MIN_TILES))
     c = model_config
-    return 4 * splits * num_tokens * c.num_attention_heads * (c.head_dim + 2)
+    return 4 * splits * num_tokens * (c.num_attention_heads // tp) * (c.head_dim + 2)
 
 
 def graph_pool_bytes(model_config, scheduler_config, block_size: int, *,
-                     quantized: bool = False, sampler: bool = True) -> int:
+                     quantized: bool = False, sampler: bool = True, tp: int = 1) -> int:
     """The step graphs' pool, which holds one step's temporaries whatever
     the number of graphs: the LM head and the sampler over R rows (S, or
     S·(1+K) with K drafts a sequence: ``GRAPH_POOL_ROWS`` [R, V] f32
-    buffers, and a penalty step's ``PENALTY_POOL_ROWS``; without
+    buffers, and a penalty step's ``PENALTY_POOL_ROWS``; under tensor
+    parallelism one more, the logits' gather's static output; without
     ``sampler``, a pipeline stage before the last, none), and a step's
-    forward at its T (:func:`activation_bytes`, :func:`quantized_bytes`
-    with ``quantized`` weights, :func:`split_workspace_bytes`), taken at the
-    widest T bucket, where each is largest: the split workspace's bound
-    does not fall with T (the plans' splits do)."""
+    forward at its T on a rank of ``tp`` (:func:`activation_bytes`,
+    :func:`quantized_bytes` with ``quantized`` weights,
+    :func:`split_workspace_bytes`), taken at the widest T bucket, where each
+    is largest: the split workspace's bound does not fall with T (the plans'
+    splits do)."""
     R = bucket(scheduler_config.max_num_sequences) * (1 + scheduler_config.num_speculative_tokens)
     T = token_capacity(scheduler_config.max_num_batched_tokens)
     P = page_capacity(scheduler_config.max_model_len, block_size)
-    forward = activation_bytes(T, model_config) + split_workspace_bytes(
-        T, model_config, P, block_size)
+    forward = activation_bytes(T, model_config, tp) + split_workspace_bytes(
+        T, model_config, P, block_size, tp)
     if quantized:
-        forward += quantized_bytes(T, model_config)
+        forward += quantized_bytes(T, model_config, tp)
     if not sampler:
         return forward
-    return 4 * (GRAPH_POOL_ROWS + PENALTY_POOL_ROWS) * R * model_config.vocab_size + forward
+    rows = GRAPH_POOL_ROWS + PENALTY_POOL_ROWS + (tp > 1)
+    return 4 * rows * R * model_config.vocab_size + forward
 
 
 def graph_reserve_bytes(model_config, scheduler_config, block_size: int, *,
-                        quantized: bool = False) -> int:
+                        quantized: bool = False, tp: int = 1) -> int:
     """Device memory a single-stage worker's step graphs take, which the KV
     pool must leave free, from the model's config and the scheduler's
     limits: their static inputs (``engine/cuda_graphs.py``: one set for
     every graph, at the largest sequence, page and token buckets — the
     Gumbel noise over R rows, the packed metadata, the sampling tensors, the
     feed), their pool (:func:`graph_pool_bytes`) and each instantiated
-    graph's own memory, ``MAX_GRAPHS`` of them and the one being captured:
+    graph's own memory, ``MAX_GRAPHS`` of them and the one being captured,
+    on a rank of ``tp`` (its segments counted):
     :func:`stage_graph_reserve_bytes` of one stage."""
     (reserve,) = stage_graph_reserve_bytes(
         model_config, scheduler_config, block_size, [(0, model_config.num_layers)], [None],
-        hidden_bytes=0, quantized=quantized).values()
+        hidden_bytes=0, quantized=quantized, tp=tp).values()
     return reserve
 
 
+def graph_segments(num_layers: int, tp: int) -> int:
+    """The most graphs one key's capture makes on a rank of ``tp``: one at
+    tp 1; else a segment after each collective and one more, 3·L + 2 with
+    an INT8 cache's scales (2·L + 2 without)."""
+    return 1 if tp == 1 else 3 * num_layers + 2
+
+
 def stage_graph_reserve_bytes(model_config, scheduler_config, block_size: int, bounds,
-                              devices, *, hidden_bytes: int, quantized: bool = False) -> dict:
+                              devices, *, hidden_bytes: int, quantized: bool = False,
+                              tp: int = 1) -> dict:
     """Device memory the pipeline stages' step graphs take on each device
     (``engine/pp_worker.py``: a ``StepGraphs`` a stage, stages on one device
-    sharing its pool), by device: the sum over the stages it holds of
+    sharing its pool), by device, on a rank of ``tp``: the sum over the
+    stages it holds of
     - the static inputs: the packed metadata on every stage; the hidden
       state ``[token_capacity, H]`` at ``hidden_bytes`` an element on a
       stage after the first; the Gumbel noise and the sampling tensors on
@@ -286,10 +318,13 @@ def stage_graph_reserve_bytes(model_config, scheduler_config, block_size: int, b
       output, at the widest T, ``MAX_GRAPHS`` of them and the one being
       captured;
     - each instantiated graph's own memory at the stage's layers,
-      ``(MAX_GRAPHS + 1) × GRAPH_BYTES_PER_LAYER`` a layer;
+      ``(MAX_GRAPHS + 1) × GRAPH_BYTES_PER_LAYER`` a layer, and under tensor
+      parallelism ``GRAPH_BYTES_PER_SEGMENT`` for each of a key's
+      :func:`graph_segments`;
     and the device's pool once: the largest of its stages' pools
-    (:func:`graph_pool_bytes`, the LM head and sampler rows on the last
-    stage only, a step's forward at the widest T on every stage)."""
+    (:func:`graph_pool_bytes` at the rank's widths, the LM head and sampler
+    rows, the gather's output under TP, on the last stage only, a step's
+    forward at the widest T on every stage)."""
     S = bucket(scheduler_config.max_num_sequences)
     K = scheduler_config.num_speculative_tokens
     T = token_capacity(scheduler_config.max_num_batched_tokens)
@@ -304,10 +339,12 @@ def stage_graph_reserve_bytes(model_config, scheduler_config, block_size: int, b
         reserve[device] = (reserve.get(device, 0) + packed
                            + (hidden if s else 0)
                            + (sampler if s == last else (MAX_GRAPHS + 1) * hidden)
-                           + (MAX_GRAPHS + 1) * GRAPH_BYTES_PER_LAYER * (hi - lo))
+                           + (MAX_GRAPHS + 1) * GRAPH_BYTES_PER_LAYER * (hi - lo)
+                           + (MAX_GRAPHS + 1) * GRAPH_BYTES_PER_SEGMENT
+                           * (graph_segments(hi - lo, tp) - 1))
         pools[device] = max(pools.get(device, 0), graph_pool_bytes(
             model_config, scheduler_config, block_size, quantized=quantized,
-            sampler=s == last))
+            sampler=s == last, tp=tp))
     return {device: reserve[device] + pools[device] for device in reserve}
 
 
@@ -412,9 +449,10 @@ class LlmService:
             logger.info("model loaded in %.1fs", time.monotonic() - t0)
         if model.device != device:
             raise ValueError(f"model is on {model.device}, service on {device}")
+        step_graphs = getattr(model_factory, "step_graphs", None)
         if config.model.pipeline_parallel_size > 1:
             return cls._start_pipelined(config, model, params, tokenizer, device, group,
-                                        sharded)
+                                        sharded, step_graphs)
 
         cfg = model.config
         if group is not None and group.tp > 1:
@@ -429,12 +467,13 @@ class LlmService:
         # The KV cache's dtype, as the JAX service picks it: int8 (with
         # scales), e4m3, or the model's own.
         kv_dtype = _KV_DTYPES.get(config.model.kv_cache_dtype, model.dtype)
-        # CUDA graphs capture no collective (ROADMAP.md, Queue 1: CUDA graphs
-        # of TP steps over NCCL): a tensor-parallel rank steps eagerly.
-        graphs = device.type == "cuda" and model.tp == 1
+        # Every worker on the card replays CUDA graphs, a tensor-parallel
+        # rank's in segments between its collectives; the CPU steps eagerly
+        # unless the factory gives its own ``step_graphs``.
+        graphs = device.type == "cuda" or step_graphs is not None
         reserve = graph_reserve_bytes(cfg, config.scheduler, config.cache.block_size,
-                                      quantized=config.model.quantization is not None) \
-            if graphs else 0
+                                      quantized=config.model.quantization is not None,
+                                      tp=model.tp) if graphs else 0
         cls._profile_kv(config, model, kv_dtype, [device], group, reserve)
         cache_engine = CacheEngine(
             num_layers=cfg.num_layers,
@@ -447,7 +486,7 @@ class LlmService:
             device=device,
         )
         worker = ModelWorker(model, params, cache_engine, config.scheduler, config.cache,
-                             cuda_graphs=graphs)
+                             cuda_graphs=graphs, step_graphs=step_graphs)
         scheduler = Scheduler(config.scheduler, config.cache,
                               block_manager=cls._build_block_manager(config))
         tokenizer_pool = TokenizerPool(tokenizer, config.model.num_tokenizer_workers)
@@ -473,7 +512,7 @@ class LlmService:
 
     @classmethod
     def _start_pipelined(cls, config: EngineConfig, model, params, tokenizer, device, group,
-                         sharded: bool) -> "LlmService":
+                         sharded: bool, step_graphs=None) -> "LlmService":
         """Pipeline-parallel start (JAX ``engine/llm_service.py:259-369``):
         the layers split into ``pipeline_parallel_size`` stages, each with
         its parameters (this rank's shard under tensor parallelism), its
@@ -483,9 +522,9 @@ class LlmService:
         pool is sized by the layers on the most crowded device, less the
         largest device's reserve for its stages' CUDA graphs
         (:func:`stage_graph_reserve_bytes`): stages that share a card share
-        its memory. On the card at tp 1 each stage replays graphs of its
-        own (``engine/pp_worker.py``); under tensor parallelism every stage
-        steps eagerly."""
+        its memory. On the card each stage replays graphs of its own
+        (``engine/pp_worker.py``), under tensor parallelism in segments
+        between the collectives of its stage's group."""
         from ..parallel.pipeline import (
             log_layout, place_stage_params, split_params, stage_devices,
         )
@@ -514,12 +553,13 @@ class LlmService:
         layers_on: dict = {}
         for (lo, hi), d in zip(bounds, devices):
             layers_on[d] = layers_on.get(d, 0) + hi - lo
-        # A graph set a stage at tp 1 (no collective is captured).
-        graphs = device.type == "cuda" and tp == 1
+        # A graph set a stage, on the card or with the factory's own
+        # ``step_graphs``.
+        graphs = device.type == "cuda" or step_graphs is not None
         reserve = max(stage_graph_reserve_bytes(
             cfg, config.scheduler, config.cache.block_size, bounds, devices,
             hidden_bytes=model.dtype.itemsize,
-            quantized=config.model.quantization is not None).values()) if graphs else 0
+            quantized=config.model.quantization is not None, tp=tp).values()) if graphs else 0
         cls._profile_kv(config, model, kv_dtype, list(layers_on), group, reserve,
                         num_layers=max(layers_on.values()))
         cache_engines = [
@@ -536,7 +576,8 @@ class LlmService:
             for (lo, hi), d in zip(bounds, devices)
         ]
         worker = PipelinedModelWorker(stage_models, stage_params, cache_engines, bounds,
-                                      config.scheduler, config.cache, cuda_graphs=graphs)
+                                      config.scheduler, config.cache, cuda_graphs=graphs,
+                                      step_graphs=step_graphs)
         # One pool for every cohort, native or Python (JAX shares the native
         # one only: its Python path builds a pool a cohort, ROADMAP.md Queue 3).
         first = Scheduler(config.scheduler, config.cache,
@@ -792,12 +833,11 @@ class LlmService:
         keys whatever their sampling options (top-n, sampled rows,
         penalties), which warmup's greedy requests do not ask for.
 
-        Under tensor parallelism, pipelined or not, the same waves run
-        eagerly, as the ranks step (no graph of a TP step is captured yet:
-        ROADMAP.md, Queue 1: CUDA graphs of TP steps over NCCL): rank 0's
-        lockstep carries the warmup requests to the followers like any
-        other admission, and every rank's kernels load and its plan and
-        occupancy caches fill before traffic.
+        Under tensor parallelism, pipelined or not, rank 0's lockstep
+        carries the warmup requests to the followers like any other
+        admission, so every rank steps the same keys and, on the card,
+        captures each in segments between the collectives at the same step
+        (its eager first step's collectives are real; a capture makes none).
 
         Call with the engine loop running (``asyncio.create_task(
         service.engine.run())``). Returns the wall seconds spent.

@@ -10,12 +10,12 @@ Where JAX jits one program a stage, a stage here has one step function, made
 of the single-stage worker's pieces (``ModelWorker._unpack``, the model's
 ``embed_tokens`` and ``forward_hidden``, ``ModelWorker._tail``): stage 0
 embeds and runs its layers, a middle stage runs its layers, the last runs
-its layers and the tail. On CUDA at tp 1 each stage replays CUDA graphs of
-its step, from a ``StepGraphs`` of its own (``engine/cuda_graphs.py``:
-the last stage keyed as a single-stage step, the others by ``StageKey``;
-stages on one device share its memory pool). On the CPU, and under tensor
-parallelism (gloo collectives cannot be captured), every stage steps
-eagerly.
+its layers and the tail. On CUDA each stage replays CUDA graphs of its
+step, from a ``StepGraphs`` of its own (``engine/cuda_graphs.py``: the
+last stage keyed as a single-stage step, the others by ``StageKey``;
+stages on one device share its memory pool); under tensor parallelism a
+stage captures in segments between the collectives of its own group
+(``TpGroup.for_stage``). On the CPU every stage steps eagerly.
 
 Stage ``s`` runs with its device current, on that device's current stream,
 and receives the packed metadata there and the hidden state [T, H]: eagerly
@@ -45,7 +45,7 @@ from ..utils.tracing import span
 from .cache_engine import CacheEngine
 from .cuda_graphs import StepGraphs, page_capacity, stage_graph_key, token_capacity
 from .input_prep import ModelInput, bucket
-from .worker import ModelWorker
+from .worker import ModelWorker, graphs_class
 
 
 @dataclasses.dataclass
@@ -82,6 +82,7 @@ class PipelinedModelWorker(ModelWorker):
         scheduler_config: SchedulerConfig,
         cache_config: CacheConfig,
         cuda_graphs: bool = True,
+        step_graphs: Optional[type] = None,
     ):
         if not len(stage_models) == len(stage_params) == len(cache_engines) == len(bounds):
             raise ValueError("one model, parameter dict, cache engine and bound a stage")
@@ -93,17 +94,17 @@ class PipelinedModelWorker(ModelWorker):
         # it samples, so the sampling tensors and the noise live there.
         super().__init__(stage_models[-1], stage_params[-1], cache_engines[-1],
                          scheduler_config, cache_config, cuda_graphs=False)
-        # A graph set a stage when every stage is on the card and the rank
-        # has no tensor-parallel group (no collective is captured).
-        if cuda_graphs and all(st.device.type == "cuda" for st in self.stages) \
-                and all(getattr(m, "tp", 1) == 1 for m in stage_models):
+        # A graph set a stage when every stage is on the card (or the caller
+        # gives ``step_graphs``), each captured in segments between the
+        # collectives of the stage's group under tensor parallelism.
+        if cuda_graphs and all(graphs_class(st.device, step_graphs) for st in self.stages):
             pools: dict = {}
             for stage in self.stages:
-                stage.graphs = StepGraphs(
+                stage.graphs = graphs_class(stage.device, step_graphs)(
                     bucket(scheduler_config.max_num_sequences),
                     page_capacity(scheduler_config.max_model_len, cache_config.block_size),
                     token_capacity(scheduler_config.max_num_batched_tokens),
-                    pools=pools)
+                    pools=pools, group=getattr(stage.model, "group", None))
 
     @property
     def cache_engines(self) -> List[CacheEngine]:

@@ -6,7 +6,8 @@ backends/vllm/src/worker.rs:111-191), run eagerly: the JAX ``jit`` with
 donated caches becomes a plain method whose kernels update the per-layer
 caches in place, and the JAX step's one compiled program per bucket becomes,
 on the card, one CUDA graph per bucket (``engine/cuda_graphs.py``): every
-step replays one, prefill, mixed, verify and penalty steps included. Per
+step replays one, prefill, mixed, verify and penalty steps included, and a
+tensor-parallel rank's in segments between its collectives. Per
 step the host sends ONE packed int32 metadata buffer (the JAX worker's
 layout) and receives ONE packed buffer of
 sampled tokens and logprob bits, copied into pinned host memory without
@@ -179,6 +180,7 @@ class ModelWorker:
         scheduler_config: SchedulerConfig,
         cache_config: CacheConfig,
         cuda_graphs: bool = True,
+        step_graphs: Optional[type] = None,
     ):
         self.model = model
         self.params = params
@@ -201,19 +203,19 @@ class ModelWorker:
         # The null feed: async decode with nothing in flight reads no
         # previous token, but keeps the key of steady async decode.
         self._null_feed = torch.zeros(max_rows, dtype=torch.int32, device=self.device)
-        # Every step on the card replays a CUDA graph; the CUDA graph API has
-        # no CPU counterpart, so a CPU worker steps eagerly, and so does a
-        # tensor-parallel rank (``cuda_graphs=False``: no collective is
-        # captured). A pipelined worker keeps a graph set a stage instead
-        # (``engine/pp_worker.py``).
-        self.graphs = (
-            StepGraphs(
-                max_rows,
-                page_capacity(scheduler_config.max_model_len, cache_config.block_size),
-                token_capacity(scheduler_config.max_num_batched_tokens),
-                scheduler_config.num_speculative_tokens,
-            )
-            if self.device.type == "cuda" and cuda_graphs else None
+        # Every step on the card replays a CUDA graph, a tensor-parallel
+        # rank's in segments between its collectives; the CUDA graph API has
+        # no CPU counterpart, so a CPU worker steps eagerly unless it is
+        # given ``step_graphs``, a ``StepGraphs`` class of its own (a test's
+        # graphs that replay by recomputing). A pipelined worker keeps a
+        # graph set a stage instead (``engine/pp_worker.py``).
+        graphs_cls = graphs_class(self.device, step_graphs) if cuda_graphs else None
+        self.graphs = None if graphs_cls is None else graphs_cls(
+            max_rows,
+            page_capacity(scheduler_config.max_model_len, cache_config.block_size),
+            token_capacity(scheduler_config.max_num_batched_tokens),
+            scheduler_config.num_speculative_tokens,
+            group=getattr(model, "group", None),
         )
 
     # ------------------------------------------------------------------ step
@@ -519,6 +521,15 @@ class ModelWorker:
             return self.graphs.run(step_graph_key(model_input, sampling, feed=prev is not None),
                                    step, packed, sampling_arrays, self._sampling_version,
                                    gumbel, prev_tokens)
+
+
+def graphs_class(device: torch.device, step_graphs: Optional[type] = None) -> Optional[type]:
+    """The ``StepGraphs`` class a worker or stage on ``device`` keeps:
+    ``step_graphs`` when given, ``StepGraphs`` on the card, else None (the
+    CPU steps eagerly)."""
+    if step_graphs is not None:
+        return step_graphs
+    return StepGraphs if device.type == "cuda" else None
 
 
 def feed_map(model_input: ModelInput, rows_by_seq: Dict[int, int]) -> np.ndarray:

@@ -32,13 +32,27 @@ Under pipeline parallelism a rank holds every stage, each on its own device
 ranks' tensors sit on that stage's cards; with gloo the rank's one group,
 which stages any device's tensors through host memory. The payload group
 and the collectives count stay one.
+
+A CUDA graph cannot hold a gloo collective, so a rank's step is captured in
+segments (``engine/cuda_graphs.py``): while a capture runs,
+:meth:`TpGroup.segmented` hands the three tensor collectives of the
+capturing thread to the capture's stand-in, which ends the running graph at
+each one, records it, and begins the next; nothing is reduced and nothing
+is counted. A replay then runs the real collective between two segments'
+replays: in place for the two all-reduces, into the static output the
+capture allocated for the gather (``all_gather_last(x, out=…)``). With a
+card a rank the same segments run and the collective between them is NCCL
+on the rank's current stream; that route has not been run yet (ROADMAP.md,
+items 13 and 19).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import datetime
 import logging
+import threading
 import time
 from typing import Callable, Optional, Tuple
 
@@ -135,6 +149,9 @@ class TpGroup:
         # Collectives this rank has issued (tensor and payload), shared
         # with its stage groups: the smoke reads it per engine step.
         self._count = [0]
+        # The capture's stand-in for this group's tensor collectives, per
+        # thread (:meth:`segmented`).
+        self._local = threading.local()
 
     @property
     def collectives(self) -> int:
@@ -155,6 +172,7 @@ class TpGroup:
             return self
         group = copy.copy(self)
         group.device = device
+        group._local = threading.local()
         if self.backend == "nccl":
             import torch.distributed as dist
 
@@ -204,6 +222,26 @@ class TpGroup:
     def is_primary(self) -> bool:
         return self.rank == 0
 
+    # ------------------------------------------------------------- capture
+    @contextlib.contextmanager
+    def segmented(self, cut: Callable[[str, torch.Tensor], torch.Tensor]):
+        """While a CUDA graph of a step is captured on this thread: each of
+        this group's tensor collectives is ``cut(op, x)`` instead — ``op``
+        "sum", "max" or "gather", ``x`` the tensor it works on — which
+        returns the tensor the model reads on (``x`` for the all-reduces,
+        ``[…, tp·n]`` for the gather). No collective is issued or counted.
+        Other threads' collectives stay real."""
+        if self._cut() is not None:
+            raise RuntimeError("a capture is already cutting this group's collectives")
+        self._local.cut = cut
+        try:
+            yield
+        finally:
+            self._local.cut = None
+
+    def _cut(self):
+        return getattr(self._local, "cut", None)
+
     # ------------------------------------------------------------- tensors
     def _staged(self, x: torch.Tensor) -> bool:
         return self.stage_on_host and x.is_cuda
@@ -233,24 +271,37 @@ class TpGroup:
         in place, when it is contiguous). Every rank gets the same bits."""
         import torch.distributed as dist
 
+        cut = self._cut()
+        if cut is not None:
+            return cut("sum", x)
         return self._all_reduce(x, dist.ReduceOp.SUM)
 
     def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise max of ``x`` over the ranks (as :meth:`all_reduce_sum`)."""
         import torch.distributed as dist
 
+        cut = self._cut()
+        if cut is not None:
+            return cut("max", x)
         return self._all_reduce(x, dist.ReduceOp.MAX)
 
-    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
+    def all_gather_last(self, x: torch.Tensor, out: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
         """Every rank's ``x`` [..., n] concatenated on the last dim in rank
-        order → [..., tp·n]."""
+        order → [..., tp·n]; written into ``out`` when it is given (a
+        segmented graph's static output)."""
+        cut = self._cut()
+        if cut is not None:
+            return cut("gather", x)
         self.collectives += 1
         staged = self._staged(x)
         src = self._to_host(x) if staged else x.contiguous()
         parts = [torch.empty_like(src) for _ in range(self.tp)]
         self._tensor_pg.allgather([parts], [src]).wait()
-        out = torch.cat(parts, dim=-1)
-        return out.to(x.device) if staged else out
+        gathered = torch.cat(parts, dim=-1)
+        if out is not None:
+            return out.copy_(gathered)
+        return gathered.to(x.device) if staged else gathered
 
     # ------------------------------------------------------------ host data
     def broadcast_bytes(self, buf: Optional[np.ndarray], size: int, src: int = 0) -> np.ndarray:

@@ -38,7 +38,7 @@ def main() -> None:
         "--warmup", action="store_true",
         help="run synthetic request waves at the configured bucket shapes "
         "before binding the listener: on the card they capture the "
-        "steps' CUDA graphs; under tensor parallelism they run eagerly "
+        "steps' CUDA graphs, every rank's under tensor parallelism "
         "(LlmService.warmup)",
     )
     parser.add_argument("-v", "--verbose", action="store_true")

@@ -62,9 +62,12 @@ raises on failure; nothing is caught):
    shapes (``TP_ATTENTION_SHAPES``: Llama-3.1-8B at tp = 2, Llama-3.1-70B
    at tp = 8): the INT8 write and the split fused D with ``scales_new``
    (the scales of the model's kv heads, not the rank's), caches and scales
-   bit-exact; F at 70B's per-rank projections at tp = 8 (M = 8); then C
-   alone at 8,192 rows, timed against its bytes bound; a one-rank NCCL
-   group built on the card, its collectives run. float16 (the ``*_f16``
+   bit-exact; at 8B tp = 2 also E (an e4m3 cache: its write, ragged and
+   split fused kernels) and H at the row-parallel K (o_proj 2,048,
+   down_proj 7,168; M = 8, beside torch.mm); F at 70B's per-rank
+   projections at tp = 8 (M = 8); then C alone at 8,192 rows, timed
+   against its bytes bound; a one-rank NCCL group built on the card, its
+   collectives run. float16 (the ``*_f16``
    instantiations of A–H): every attention instantiation at small sizes
    (head dims 32-256 over an fp16 cache, 32-128 over INT8 and e4m3, blocks
    of 16 and 64, groups 1, 3, 8; writes and fused caches bit-exact), their
@@ -187,15 +190,25 @@ raises on failure; nothing is caught):
    replay identical to its eager step, graph memory under the reserve.
    Tensor parallelism (``run_tp_services``): ``LlmService.start`` with
    ``tensor_parallel_size`` 2, the second rank spawned on this card (gloo,
-   collectives through pinned host memory: not a TP speed): ``tiny_trained``
-   f32 from its directory, each rank loading its shard, tokens identical to
-   tp = 1 on the card and, greedy, on the CPU; then Llama-3.1-8B INT8 + INT8
-   KV at full width and depth, every rank drawing the same seeded weights,
-   the 8 requests at 128 tokens against the same service at tp = 1 (eager)
-   under the near-tie rule; the backend, the ranks' devices, the KV blocks,
-   collectives a step, the period and tokens/s printed; a follower that
-   fails or does not exit fails the run. Then pipeline and context
-   parallelism (``run_pp_services``, ``run_cp_layer``). float16
+   collectives through pinned host memory: not a TP speed), every rank
+   replaying its steps as CUDA graphs captured in segments between the
+   collectives: ``tiny_trained`` f32 from its directory, each rank loading
+   its shard, tokens identical to tp = 1 on the card and, greedy, on the
+   CPU; then Llama-3.1-8B INT8 + INT8 KV at full width and depth, every
+   rank drawing the same seeded weights, the 8 requests at 64 tokens,
+   every rank eager and then with graphs after ``warmup()`` (tokens
+   identical), against the same service at tp = 1 with graphs under the
+   near-tie rule; the backend, the ranks' devices, the KV blocks,
+   collectives a step, the period and tokens/s of both runs, replays and
+   first captures by step kind, segments a graph, collectives and kernel
+   launches a pure-decode step eager and replayed (equal), a decode key's
+   segments replayed alone and the idle share, and each rank's graph
+   memory against the reserve printed; then at 8 layers INT8 weights over
+   an e4m3 cache (E) and under W8A8 (H), with graphs, against tp = 1 under
+   the near-tie rule; a follower that fails or does not exit fails the
+   run. Then pipeline and context parallelism (``run_pp_services``, its
+   pp = 2 × tp = 2 run with segmented stage graphs against every stage
+   eager; ``run_cp_layer``). float16
    (``run_fp16_services``): the 1B model in fp16 at 16 layers, its steps'
    logits through the kernels against the plain attention on the card
    within ``FP16_MODEL_TOL``, then its service eager and synchronous with
@@ -230,7 +243,7 @@ raises on failure; nothing is caught):
    the INT8 write, D, F and the merge on verify rows as rows of their own,
    their launches from the spec services' runs with graphs; the
    tensor-parallel shapes' rows, their launches from the 8B tp = 2
-   service's rank 0; the group rows, their launches from the group
+   services' rank 0 (E's and H's from the e4m3 and W8A8 runs); the group rows, their launches from the group
    services' runs with graphs), then
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -245,11 +258,56 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+try:
+    from atoma_infer_tpu_torch.engine.cuda_graphs import StepGraphs as _StepGraphs
+except ImportError:  # outside the repository: main() refuses to run
+    _StepGraphs = object
+
+
+class EagerStepGraphs(_StepGraphs):
+    """Step graphs that never capture: every step of every rank eager. A
+    tensor-parallel service's eager baseline, handed to every rank through
+    its ``ModelFactory`` (``step_graphs``)."""
+
+    def run(self, key, step, packed, sampling, sampling_version, gumbel, prev_tokens,
+            hidden=None):
+        return step(packed, sampling, gumbel, prev_tokens,
+                    *(() if hidden is None else (hidden,)))
+
+
+class SerialStepGraphs(_StepGraphs):
+    """The port's step graphs, whose captures the ranks that share this card
+    take one after another (a barrier on the payload group before each
+    rank's turn), so that each rank's measure of its capture's memory
+    (``captured_bytes``, from the device's free memory) holds no other
+    rank's; after each capture the rank writes its graphs' figures to
+    ``$SMOKE_GRAPH_STATS/rank<r>.json``. Handed to every rank through the
+    service's ``ModelFactory``."""
+
+    def _capture(self, step, views):
+        group = self.group
+        for turn in range(group.tp):
+            group.barrier()
+            if turn == group.rank:
+                entry = super()._capture(step, views)
+        group.barrier()
+        out = os.environ.get("SMOKE_GRAPH_STATS")
+        if out:
+            stats = dict(captured_bytes=self.captured_bytes, static_bytes=self.static_bytes,
+                         captures=self.evictions + len(self.graphs) + 1,
+                         evictions=self.evictions, capture_seconds=self.capture_seconds,
+                         segments=max(len(e.segments) for e in
+                                      [entry, *self.graphs.values()]))
+            with open(os.path.join(out, f"rank{group.rank}.json"), "w") as f:
+                json.dump(stats, f)
+        return entry
 
 # Tolerances of the kernels against their plain versions, by dtype. bf16:
 # inputs and outputs are bf16 (one rounding of the output, 2^-8 relative)
@@ -5554,6 +5612,8 @@ def check_tp_kernels(torch):
             f"max |err| {err:.3e} (tol {tol}), cache and scales bit-exact")
         if label == "8B tp=2":
             check_f32_scales_new(torch, decode, dcache, dscales, dsn)
+            rows.update(check_tp_e4m3(torch, label, mixed, decode, mixed_specs, decode_specs,
+                                      hq, hk))
         del mixed, decode, cache, scales, dcache, dscales, got_c, got_s, want_c, want_s
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"), "bfloat16")
@@ -5591,11 +5651,105 @@ def check_tp_kernels(torch):
             bound_ms=bound_ms, bound_by=bound_by)
         del copies, dense, w
         torch.cuda.empty_cache()
+    rows.update(check_tp_w8a8(torch, gen))
     for name, r in rows.items():
         lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
         log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library {lib}), bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}, max |err| {r['max_abs_err']:.3e}")
     check_c_at_its_bound(torch, rng)
+    return rows
+
+
+def check_tp_e4m3(torch, label, mixed, decode, mixed_specs, decode_specs, hq, hk):
+    """E at a rank's shapes (an e4m3 cache has no scales, so no
+    ``scales_new``): the e4m3 write and the tensor-core ragged E on the
+    mixed batch, the split fused E on the 64 decode rows, each against its
+    plain version (caches bit-exact), then timed. Returns their rows (bytes
+    and operations for the bound), keyed ``kernel@tp <label>``."""
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    tol, scale, rows = ATTN_TOL["bfloat16"], 128 ** -0.5, {}
+    work = dict(kv_elt=1, slot_extra=0, hq=hq, hk=hk, d=128)
+    err, cache, _ = check_kv8(torch, mixed, "fp8", f"{label} mixed", tol, decode=False)
+    m = mixed["meta"]
+    nbytes, flops = attention_work(mixed_specs, None, 2, fused=False, **work)
+    rows[f"ragged_paged_attention_fp8_mma@tp {label}"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: pa.ragged_paged_attention_cuda(mixed["q"], cache, m, scale=scale)),
+        plain_ms=cuda_ms(lambda: pa.ragged_paged_attention_paged_plain(
+            mixed["q"], cache, m, scale=scale), iters=5, warmup=1),
+        library_ms=None, bytes=nbytes, flops=flops)
+    derr, dcache, _ = check_kv8(torch, decode, "fp8", f"{label} decode", tol, decode=True)
+    dm = decode["meta"]
+    split = pa.FUSED_DECODE_SPLIT[torch.float8_e4m3fn]
+    before = split.launches
+    pa.ragged_paged_attention_fused_cuda(decode["q"], dcache, decode["k"], decode["v"], dm,
+                                         scale=scale)
+    if split.launches != before + 1:
+        raise AssertionError(f"fused E {label}: not the split kernel")
+    nbytes, flops = attention_work(decode_specs, None, 2, fused=True, **work)
+    rows[f"fused_decode_attention_fp8_split@tp {label}"] = dict(
+        max_abs_err=derr,
+        ms=cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+            decode["q"], dcache, decode["k"], decode["v"], dm, scale=scale)),
+        plain_ms=cuda_ms(lambda: pa.fused_decode_attention_plain(
+            decode["q"], dcache, decode["k"], decode["v"], dm, scale=scale), iters=5, warmup=1),
+        library_ms=None, bytes=nbytes, flops=flops)
+    log(f"E at {label} (Hq={hq}, Hk={hk}, e4m3): the write bit-exact, ragged max |err| "
+        f"{err:.3e}, split fused max |err| {derr:.3e} (tol {tol})")
+    return rows
+
+
+# H at Llama-3.1-8B's per-rank row-parallel shapes at tp = 2 (K halved):
+# name -> (K, N), groups of 128.
+TP_W8A8_SHAPES = {"o_proj": (2048, 4096), "down_proj": (7168, 4096)}
+
+
+def check_tp_w8a8(torch, gen):
+    """H (W8A8, the int8 tensor cores) at TP_W8A8_SHAPES, M = 8, against
+    its plain version, timed in CUDA graphs beside torch.mm on the
+    dequantized weight (over enough weight copies that none sits in L2).
+    Returns the rows, keyed ``quantized_matmul_w8a8_mma@tp 8B tp=2 <name>``."""
+    from atoma_infer_tpu_torch.ops import quant
+    from atoma_infer_tpu_torch.ops import quant_kernels as qk
+
+    M, group, rows, name = 8, 128, {}, "quantized_matmul_w8a8_mma"
+    for shape, (K, N) in TP_W8A8_SHAPES.items():
+        w = torch.randn(K, N, generator=gen, device="cuda") * 0.02
+        qt = quant.quantize_weight(w, 8, group)
+        w_bytes = qt.qweight.numel() + qt.scales.numel() * 2
+        copies = [qt] + [quant.QuantizedTensor(qt.qweight.clone(), qt.scales.clone(), 8, group)
+                         for _ in range(-(-128_000_000 // w_bytes) - 1)]
+        dense = [quant.dequantize_weight(c, torch.bfloat16) for c in copies]
+        iters = max(2, 20 // len(copies))
+        x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+        xq, act = qk.quantize_activations(x)
+
+        def run(c):
+            return qk.w8a8_matmul_cuda(xq, c.qweight, c.scales, act, bits=8, group_size=group,
+                                       out_dtype=torch.bfloat16)
+
+        def plain():
+            return qk.w8a8_matmul_plain(xq, qt.qweight, qt.scales, act, bits=8,
+                                        group_size=group, out_dtype=torch.bfloat16)
+
+        got, kernel = routed(8, lambda: run(qt), w8a8=True)
+        if kernel != name:
+            raise AssertionError(f"H 8B tp=2 {shape}: {kernel} ran")
+        rel, err = rel_err(got, plain())
+        if not rel <= QMM_TOL["bfloat16"]:
+            raise AssertionError(f"H 8B tp=2 {shape}: rel err {rel:.3e}")
+        bound_ms, bound_by = bound(*qmm_work(M, K, N, group, bits=8, x_bytes=1, w8a8=True),
+                                   "int8")
+        rows[f"{name}@tp 8B tp=2 {shape}"] = dict(
+            max_abs_err=err,
+            ms=graph_ms(torch, lambda: [run(c) for c in copies], iters=iters) / len(copies),
+            plain_ms=graph_ms(torch, plain, iters=2),
+            library_ms=graph_ms(torch, lambda: [torch.mm(x, d) for d in dense],
+                                iters=iters) / len(copies),
+            bound_ms=bound_ms, bound_by=bound_by)
+        del copies, dense, w
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -5826,24 +5980,194 @@ def report_tp(label, service, figures, collectives):
     log(f"service {label} ({TP_LABEL}): {steady_decode(figures)}")
 
 
+# The 8B tensor-parallel services' new tokens a request (the services'
+# OTHER_SERVICES_TOKENS halved: every eager tp = 2 step waits on its
+# collectives through host memory, 190–320 ms a step on an H100).
+TP_TOKENS = 64
+# Layers of the item-14 runs (E over an e4m3 cache, H under W8A8) at tp = 2,
+# of Llama-3.1-8B's 32; the widths are the model's.
+TP_KERNEL_LAYERS = 8
+# The kernels of the 8B INT8 + INT8 KV service at tp = 2: C's INT8 write with
+# scales_new, D ragged (prefill), D split fused (decode), F.
+TP_PATH = ("reshape_and_cache_int8", "ragged_paged_attention_int8_mma",
+           "fused_decode_attention_int8_split", "quantized_matmul_int8_mma")
+# Item 14's kernels at tp = 2: E's (e4m3 write, ragged, split fused) and H.
+TP_E4M3_PATH = kv8_path("fp8")
+TP_W8A8_PATH = ("quantized_matmul_w8a8_mma",)
+
+
+def build_tiny_trained(device):
+    """``tiny_trained`` from its directory through the port's loader (f32):
+    a ``ModelFactory`` build, picklable by import path."""
+    import torch
+
+    from atoma_infer_tpu_torch.engine.llm_service import _load_tokenizer
+    from atoma_infer_tpu_torch.models.registry import get_model_cls
+    from atoma_infer_tpu_torch.models.weights import load_hf_config, load_llama_params
+
+    path = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
+    cfg = load_hf_config(path)
+    model = get_model_cls(cfg.architecture or "llama")(cfg, dtype=torch.float32, device=device)
+    params = load_llama_params(path, cfg, dtype=torch.float32, device=device)
+    return model, params, _load_tokenizer(path)
+
+
+def watch_graphs(service):
+    """Record rank 0's graph runs: (key, captured before, replayed, the
+    step's kind, its kernel launches, its collectives). Returns (the runs,
+    a callback marking the traffic's start: the index of its first run, the
+    evictions and the collectives before it)."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+
+    worker, group = service.engine.worker, service.group
+    graphs, runs, kind, mark = service.engine.worker.graphs, [], [None], {}
+    run = graphs.run
+
+    def recorded(key, *args):
+        seen, replays = key in graphs.graphs, graphs.replays
+        k0 = {name: k.launches for name, k in cuda_lib.KERNELS.items()}
+        c0 = group.collectives
+        out = run(key, *args)
+        launched = {name: k.launches - k0[name] for name, k in cuda_lib.KERNELS.items()
+                    if k.launches != k0[name]}
+        runs.append((key, seen, graphs.replays > replays, kind[0], launched,
+                     group.collectives - c0))
+        return out
+
+    graphs.run = recorded
+    dispatch = worker.dispatch
+
+    def kinded(request, feed=None):
+        metas = request.sequence_groups_metadata
+        prompts = sum(m.is_prompt for m in metas)
+        kind[0] = step_kind(prompts, len(metas) - prompts)
+        return dispatch(request, feed=feed)
+
+    worker.dispatch = kinded
+
+    def on_traffic():
+        mark["first"] = len(runs)
+        mark["evictions"] = graphs.evictions
+        mark["collectives"] = group.collectives
+
+    return runs, mark, on_traffic
+
+
+def report_tp_graphs(torch, label, service, runs, mark, figures, eager_runs, stats_dir):
+    """The segmented graphs of a tp run (rank 0's runs, both ranks' memory):
+    replays and first captures by step kind in the traffic, captures and
+    evictions inside its window (0 evictions), segments a graph, collectives
+    and each kernel's launches a pure-decode step, eager and replayed (equal;
+    32 split fused D), one decode key's segments replayed alone (CUDA
+    events, no collective) and the idle share, capture and warmup seconds,
+    and each rank's graph memory against ``graph_reserve_bytes`` (raises
+    past it)."""
+    from atoma_infer_tpu_torch.engine.cuda_graphs import DecodeKey
+    from atoma_infer_tpu_torch.engine.llm_service import graph_reserve_bytes, graph_segments
+
+    graphs = service.engine.worker.graphs
+    traffic = runs[mark["first"]:]
+    report_graph_runs(label, dict(evictions=graphs.evictions - mark["evictions"]),
+                      [(key, seen, replayed, kind) for key, seen, replayed, kind, _, _ in traffic])
+    if graphs.evictions != mark["evictions"]:
+        raise AssertionError(f"service {label}: {graphs.evictions - mark['evictions']} "
+                             "evictions inside the traffic's window")
+    warm = runs[: mark["first"]]
+    log(f"service {label}: warmup captured {sum(1 for r in warm if not r[1])} keys in "
+        f"{figures['warmup_s']:.2f} s; the traffic's first captures (keys warmup did not "
+        "reach): " + "; ".join(str(r[0]) for r in traffic if not r[1]))
+    cfg, config = service.engine.worker.model.config, service.config
+    segments = {len(e.segments) for e in graphs.graphs.values()}
+    most = graph_segments(cfg.num_layers, service.group.tp)
+    if max(segments) > most:
+        raise AssertionError(f"service {label}: {max(segments)} segments a graph, past {most}")
+    # Collectives and launches of pure-decode steps: eager (the eager run,
+    # and each key's first step here) against replays, key by key.
+    fused = "fused_decode_attention_int8_split"
+    by_key = {}
+    for key, seen, replayed, kind, launched, collectives in eager_runs + runs:
+        if isinstance(key, DecodeKey):
+            by_key.setdefault(key, {"eager": set(), "replay": set()})[
+                "replay" if replayed else "eager"].add(
+                    (tuple(sorted(launched.items())), collectives))
+    checked = 0
+    for key, seen in by_key.items():
+        if len(seen["eager"]) > 1 or len(seen["replay"]) > 1 or (
+                seen["eager"] and seen["replay"] and seen["eager"] != seen["replay"]):
+            raise AssertionError(f"service {label}: pure-decode key {key}: eager "
+                                 f"{seen['eager']} against replayed {seen['replay']}")
+        for launched, collectives in seen["eager"] | seen["replay"]:
+            if dict(launched).get(fused) != cfg.num_layers:
+                raise AssertionError(f"service {label}: {key} launches {fused} "
+                                     f"{dict(launched).get(fused)} times a step")
+        checked += bool(seen["eager"] and seen["replay"])
+    if not checked:
+        raise AssertionError(f"service {label}: no pure-decode key both eager and replayed")
+    key = next(k for k in reversed(graphs.graphs) if isinstance(k, DecodeKey))
+    entry = graphs.graphs[key]
+    (launched, collectives), = by_key[key]["replay"] or by_key[key]["eager"]
+    log(f"service {label}: {sorted(segments)} segments a graph (at most {most}); a pure-decode "
+        f"step {collectives} collectives and launches {dict(launched)}, eager and replayed alike "
+        f"({checked} keys both ways)")
+    replay_ms = cuda_ms(lambda: [seg.graph.replay() for seg in entry.segments])
+    d = figures["dispatches"]
+    periods = [(b[0] - a[0]) * 1e3 for a, b in zip(d, d[1:]) if a[1] and b[1]]
+    p50 = percentile(periods, 0.5)
+    log(f"service {label}: decode key {key}'s {len(entry.segments)} segments replayed alone "
+        f"(no collective): {replay_ms:.3f} ms (CUDA events); idle {1 - replay_ms / p50:.1%} "
+        f"of the {p50:.3f} ms period; capture {graphs.capture_seconds:.2f} s over "
+        f"{graphs.evictions + len(graphs.graphs)} captures")
+    reserve = graph_reserve_bytes(cfg, config.scheduler, config.cache.block_size,
+                                  quantized=config.model.quantization is not None,
+                                  tp=service.group.tp)
+    for rank in range(service.group.tp):
+        with open(os.path.join(stats_dir, f"rank{rank}.json")) as f:
+            st = json.load(f)
+        took = st["captured_bytes"]
+        total = st["static_bytes"] + took["pool"] + took["held"] + took["driver"]
+        n = st["captures"]
+        log(f"service {label}: rank {rank} graph memory: static inputs "
+            f"{st['static_bytes'] / 2**20:.2f} MiB, pool growth {took['pool'] / 2**20:.2f} MiB "
+            f"over {n} captures, held {took['held'] / 2**10:.1f} KiB, driver "
+            f"{took['driver'] / 2**20:.2f} MiB ({took['driver'] / n / 2**20:.3f} MiB a key of "
+            f"up to {st['segments']} segments, {took['driver'] / n / st['segments'] / 2**10:.1f} "
+            f"KiB a segment); {total / 2**20:.2f} MiB in all against a reserve of "
+            f"{reserve / 2**20:.2f} MiB")
+        if total > reserve:
+            raise AssertionError(f"service {label}: rank {rank}'s graphs hold {total} bytes, more "
+                                 f"than the {reserve} the KV pool left them")
+
+
 def run_tp_services(torch):
     """Tensor parallelism through ``LlmService.start`` with
-    ``tensor_parallel_size`` TP_RANKS, the ranks spawned on this card
-    (gloo, collectives through pinned host memory): (i) ``tiny_trained``
-    from its directory, f32, each rank loading its shard: tokens identical
-    to the same service at tp = 1 on the card, and the greedy ones to the
-    CPU's (the seeded request's noise comes from the device's generator);
-    (ii) Llama-3.1-8B at full width, 32 layers, INT8 weights over an INT8
-    KV cache (pool from free memory), random weights from a seeded
-    generator built on every rank (``build_8b_int8``), the services' 8
-    requests at OTHER_SERVICES_TOKENS tokens, against the same service at
-    tp = 1 (eager) under the near-tie rule of the spec services. Returns
-    (ii)'s launches (counts set to 0 just before its traffic)."""
+    ``tensor_parallel_size`` TP_RANKS, the ranks spawned on this card (gloo,
+    collectives through pinned host memory), every rank replaying its steps
+    in CUDA graph segments between the collectives: (i) ``tiny_trained``
+    from its directory, f32, each rank loading its shard, with graphs:
+    tokens identical to the same service at tp = 1 on the card (graphs too),
+    and the greedy ones to the CPU's (the seeded request's noise comes from
+    the device's generator); (ii) Llama-3.1-8B at full width, 32 layers,
+    INT8 weights over an INT8 KV cache (pool from free memory), random
+    weights from a seeded generator built on every rank
+    (``build_8b_int8``), the services' 8 requests at TP_TOKENS tokens:
+    every rank eager (``EagerStepGraphs``), then with segmented graphs after
+    ``warmup()`` (``SerialStepGraphs``: the ranks' captures one after
+    another), tokens identical, and against tp = 1 with graphs under the
+    near-tie rule (:func:`report_tp_graphs` for the rest); (iii) item 14 at
+    TP_KERNEL_LAYERS layers with graphs: INT8 weights over an e4m3 cache
+    (E's kernels) and under W8A8 (H, ``ATOMA_W8A8=1`` for the spawned
+    ranks), each against tp = 1 with graphs under the near-tie rule.
+    Returns (ii)'s launches (counts set to 0 just before its traffic), E's
+    and H's from (iii)."""
+    import tempfile
+
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
     from atoma_infer_tpu_torch.engine.llm_service import LlmService, ModelFactory
+    from atoma_infer_tpu_torch.ops import quant_kernels
 
+    t_phase = time.monotonic()
     # (i) tiny_trained, f32.
     fixture = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
     prompts = [f"prompt number {i} " * (1 + i % 4) for i in range(8)]
@@ -5861,14 +6185,20 @@ def run_tp_services(torch):
     runs = {}
     for name, tp, device in (("cpu", 1, "cpu"), ("cuda", 1, None), ("cuda tp=2", TP_RANKS, None)):
         service = LlmService.start(tiny(tp), device=device)
-        group = service.group
+        group, graphs = service.group, service.engine.worker.graphs
+        if (graphs is None) != (device == "cpu") or (
+                group is not None and graphs.group is not group):
+            raise AssertionError(f"tiny_trained {name}: graphs {graphs}")
         c0 = group.collectives if group else 0
         runs[name], _, fig = drive(torch, f"tiny_trained {name}", service, prompts, 24,
                                    waves=False)
         if group:
             report_tp(f"tiny_trained f32 tp={tp}", service, fig, group.collectives - c0)
-    # The seeded request's noise comes from the device's generator: it is
-    # held to the card's tp = 1 run, the greedy ones to the CPU's too.
+            log(f"tiny_trained f32 tp={tp}: rank 0 {graphs.replays} replays of "
+                f"{len(graphs.graphs)} graphs, {sorted({len(e.segments) for e in graphs.graphs.values()})} "
+                "segments a graph")
+            if not graphs.replays:
+                raise AssertionError(f"tiny_trained tp={tp}: no step replayed")
     greedy = [i for i in range(len(prompts)) if i != SEEDED_REQUEST]
     if runs["cuda tp=2"] != runs["cuda"] or any(
             runs["cuda"][i] != runs["cpu"][i] for i in greedy):
@@ -5876,54 +6206,128 @@ def run_tp_services(torch):
                         for a, b in zip(runs[name], runs["cuda"])] for name in runs}
         raise AssertionError(f"tiny_trained tp=2: tokens differ from tp=1 (card or CPU); "
                              f"first difference from the card's tp=1, by request: {first}")
-    log(f"tiny_trained f32 tp={TP_RANKS}: {sum(len(t) for t in runs['cpu'])} tokens identical "
-        "to tp=1 on the card (the seeded request's too) and, greedy, on the CPU")
+    log(f"tiny_trained f32 tp={TP_RANKS} with segmented graphs: "
+        f"{sum(len(t) for t in runs['cpu'])} tokens identical to tp=1 with graphs on the card "
+        "(the seeded request's too) and, greedy, on the CPU")
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[tp phase {time.monotonic() - t_phase:.0f} s] (i) done")
 
-    # (ii) Llama-3.1-8B, INT8 weights + INT8 KV, tp = 2 then tp = 1.
-    factory = ModelFactory(config=llama_8b_config(32), build=build_8b_int8, args=(32,))
+    # (ii) Llama-3.1-8B, INT8 weights + INT8 KV, tp = 2 eager then with
+    # segmented graphs, then tp = 1 with graphs.
     text = "The quick brown fox jumps over the lazy dog. " * (-(-max(PROMPT_LENGTHS) // 45))
     prompts = [text[:n] for n in PROMPT_LENGTHS]
 
-    def config(tp):
+    def config(tp, kv="int8"):
         return dataclass_replace(
-            llama_8b_service_config("int8", "int8", max_seqs=8, hbm_memory_utilization=0.5),
+            llama_8b_service_config("int8", kv, max_seqs=8, hbm_memory_utilization=0.5),
             tensor_parallel_size=tp)
 
     label = f"8B INT8 + INT8 KV tp={TP_RANKS}"
     t0 = time.monotonic()
-    service = LlmService.start(config(TP_RANKS), model_factory=factory)
-    log(f"service {label}: started in {time.monotonic() - t0:.1f} s ({TP_RANKS} ranks, each "
-        "drawing, quantizing and cutting its shard)")
+    service = LlmService.start(config(TP_RANKS), model_factory=ModelFactory(
+        config=llama_8b_config(32), build=build_8b_int8, args=(32,),
+        step_graphs=EagerStepGraphs))
+    log(f"service {label} eager: started in {time.monotonic() - t0:.1f} s ({TP_RANKS} ranks, "
+        "each drawing, quantizing and cutting its shard)")
+    eager_runs, _, _ = watch_graphs(service)
     c0 = service.group.collectives
-    got, _, fig = drive(torch, label, service, prompts, OTHER_SERVICES_TOKENS, top_n=2)
-    report_tp(label, service, fig, service.group.collectives - c0)
-    launches = fig["launches"]
-    path = ("reshape_and_cache_int8", "ragged_paged_attention_int8_mma",
-            "fused_decode_attention_int8_split", "quantized_matmul_int8_mma")
-    for name in path:
-        if not launches[name]:
-            raise AssertionError(f"kernel {name} was not launched on the {label} path")
-    check_route(f"service {label}", launches, bf16=True)
+    eager, _, eager_fig = drive(torch, f"{label} eager", service, prompts, TP_TOKENS, top_n=2)
+    report_tp(f"{label} eager", service, eager_fig, service.group.collectives - c0)
     del service
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[tp phase {time.monotonic() - t_phase:.0f} s] (ii) eager done")
+    stats_dir = tempfile.mkdtemp(prefix="smoke-graphs-")
+    os.environ["SMOKE_GRAPH_STATS"] = stats_dir  # every rank's, spawned ones too
+    try:
+        service = LlmService.start(config(TP_RANKS), model_factory=ModelFactory(
+            config=llama_8b_config(32), build=build_8b_int8, args=(32,),
+            step_graphs=SerialStepGraphs))
+        graph_runs, mark, on_traffic = watch_graphs(service)
+        got, _, fig = drive(torch, label, service, prompts, TP_TOKENS, top_n=2, warmup=True,
+                            on_traffic=on_traffic)
+    finally:
+        del os.environ["SMOKE_GRAPH_STATS"]
+    report_tp(label, service, fig, service.group.collectives - mark["collectives"])
+    launches = fig["launches"]
+    for name in TP_PATH:
+        if not launches[name]:
+            raise AssertionError(f"kernel {name} was not launched on the {label} path")
+    check_route(f"service {label}", launches, bf16=True)
+    if got != eager:
+        raise AssertionError(f"service {label}: tokens differ between the eager ranks and the "
+                             "segmented graphs")
+    report_tp_graphs(torch, label, service, graph_runs, mark, fig, eager_runs, stats_dir)
+    shutil.rmtree(stats_dir)
+    log(f"service {label}: tokens identical eager and with segmented graphs; eager "
+        f"{steady_decode(eager_fig)}; with graphs {steady_decode(fig)} ({TP_LABEL})")
+    del service, on_traffic
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[tp phase {time.monotonic() - t_phase:.0f} s] (ii) graphs done")
     model, params, tokenizer = build_8b_int8("cuda", 32)
     ref_service = LlmService.start(config(1), model=model, params=params, tokenizer=tokenizer)
-    ref_service.engine.worker.graphs = None  # eager, as every TP rank steps
     want, top, ref_fig = drive(torch, "8B INT8 + INT8 KV tp=1", ref_service, prompts,
-                               OTHER_SERVICES_TOKENS, top_n=2)
+                               TP_TOKENS, top_n=2)
     compare_to_reference(
         label, got, want, top,
         lambda j, a, b: seeded_score_gap(torch, model, params, prompts[SEEDED_REQUEST],
                                          want[SEEDED_REQUEST], j, a, b),
-        reference="the same service at tp=1")
-    log(f"service {label}: {fig['generated'] / fig['seconds']:.1f} tokens/s over the window "
-        f"({TP_LABEL}) against {ref_fig['generated'] / ref_fig['seconds']:.1f} at tp=1, eager")
+        reference="the same service at tp=1 with graphs")
+    log(f"service {label}: tp=1 with graphs {steady_decode(ref_fig)}")
     del ref_service, model, params
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[tp phase {time.monotonic() - t_phase:.0f} s] (ii) tp=1 done")
+
+    # (iii) Item 14: E (e4m3 cache) and H (W8A8) at a rank's shapes, with
+    # segmented graphs, against tp = 1 with graphs.
+    layers = TP_KERNEL_LAYERS
+    for kv, w8a8, path in (("fp8", False, TP_E4M3_PATH), ("int8", True, TP_W8A8_PATH)):
+        what = f"8B INT8 {'W8A8 + INT8 KV' if w8a8 else '+ e4m3 KV'}, {layers} layers"
+        saved = quant_kernels._W8A8
+        quant_kernels._W8A8 = w8a8
+        if w8a8:
+            os.environ["ATOMA_W8A8"] = "1"
+        try:
+            factory = ModelFactory(config=llama_8b_config(layers), build=build_8b_int8,
+                                   args=(layers,))
+            service = LlmService.start(config(TP_RANKS, kv=kv), model_factory=factory)
+            got, _, fig = drive(torch, f"{what} tp={TP_RANKS}", service, prompts, TP_TOKENS,
+                                top_n=2)
+            counts = fig["launches"]
+            replays = service.engine.worker.graphs.replays
+            del service
+            gc.collect()
+            torch.cuda.empty_cache()
+            model, params, tokenizer = build_8b_int8("cuda", layers)
+            ref_service = LlmService.start(config(1, kv=kv), model=model, params=params,
+                                           tokenizer=tokenizer)
+            want, top, ref_fig = drive(torch, f"{what} tp=1", ref_service, prompts, TP_TOKENS,
+                                       top_n=2)
+            compare_to_reference(
+                f"{what} tp={TP_RANKS}", got, want, top,
+                lambda j, a, b: seeded_score_gap(torch, model, params, prompts[SEEDED_REQUEST],
+                                                 want[SEEDED_REQUEST], j, a, b),
+                reference="the same service at tp=1 with graphs")
+            del ref_service, model, params
+        finally:
+            quant_kernels._W8A8 = saved
+            os.environ.pop("ATOMA_W8A8", None)
+        for name in path:
+            if not counts[name]:
+                raise AssertionError(f"kernel {name} was not launched at tp={TP_RANKS} ({what})")
+            launches[name] = counts[name]
+        if w8a8 and counts["quantized_matmul_w8a8"]:
+            raise AssertionError(f"{what}: H launched on the CUDA cores")
+        check_route(f"service {what} tp={TP_RANKS}", counts, bf16=True)
+        log(f"service {what} tp={TP_RANKS} with segmented graphs ({replays} replays on rank 0): "
+            f"launches {({k: counts[k] for k in path})}; {steady_decode(fig)}; tp=1 with "
+            f"graphs {steady_decode(ref_fig)} ({TP_LABEL})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[tp phase {time.monotonic() - t_phase:.0f} s] (iii) done")
     return launches
 
 
@@ -6107,14 +6511,17 @@ def run_pp_services(torch):
     PP_GEMMA_LAYERS layers, bf16 over bf16 KV, one prompt of
     PP_GEMMA_PROMPT tokens, pp = 2 with stage graphs identical to pp = 1
     with graphs; (iii) ``tiny_trained`` f32 at pp = 2 × tp = TP_RANKS, the
-    ranks spawned on this card (gloo), eager, identical to pp = 1, tp = 1
-    on the card and, greedy, to the CPU. Returns (i)'s launches with stage
+    ranks spawned on this card (gloo), every stage replaying graphs in
+    segments between its stage group's collectives, identical to every
+    stage eager (``EagerStepGraphs`` on every rank), to pp = 1, tp = 1 on
+    the card and, greedy, to the CPU. Returns (i)'s launches with stage
     graphs (counts set to 0 just before its traffic)."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
-    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService, ModelFactory
     from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+    from atoma_infer_tpu_torch.models.weights import load_hf_config
 
     # (i) Llama-3.1-8B, INT8 weights + INT8 KV: pp = 1, then pp = 2 eager
     # and with stage graphs.
@@ -6234,7 +6641,9 @@ def run_pp_services(torch):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (iii) tiny_trained, f32, pp = 2 × tp = 2: every stage eager.
+    # (iii) tiny_trained, f32, pp = 2 × tp = 2: every stage's graphs in
+    # segments between the collectives of its stage's group, against every
+    # stage eager.
     fixture = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
     prompts = [f"prompt number {i} " * (1 + i % 4) for i in range(8)]
 
@@ -6249,27 +6658,43 @@ def run_pp_services(torch):
             validation=ValidationConfig(max_input_tokens=128, max_total_tokens=256),
         )
 
+    both = f"cuda pp={PP_STAGES} tp={TP_RANKS}"
+    eager_factory = ModelFactory(config=load_hf_config(fixture), build=build_tiny_trained,
+                                 step_graphs=EagerStepGraphs)
     runs = {}
-    for name, pp, tp, device in (("cpu", 1, 1, "cpu"), ("cuda", 1, 1, None),
-                                 (f"cuda pp={PP_STAGES} tp={TP_RANKS}", PP_STAGES, TP_RANKS,
-                                  None)):
-        service = LlmService.start(tiny(pp, tp), device=device)
+    for name, pp, tp, device, factory in (
+            ("cpu", 1, 1, "cpu", None), ("cuda", 1, 1, None, None),
+            (f"{both} eager", PP_STAGES, TP_RANKS, None, eager_factory),
+            (both, PP_STAGES, TP_RANKS, None, None)):
+        service = LlmService.start(tiny(pp, tp), device=device, model_factory=factory)
         group = service.group
-        if pp > 1 and any(st.graphs is not None for st in service.engine.worker.stages):
-            raise AssertionError(f"tiny_trained pp={pp} tp={tp}: a stage has graphs under TP")
+        stages = [st.graphs for st in service.engine.worker.stages] if pp > 1 else []
+        if name == both and any(g is None or g.group is not st.model.group for g, st in
+                                zip(stages, service.engine.worker.stages)):
+            raise AssertionError(f"tiny_trained {name}: a stage without segmented graphs")
         c0 = group.collectives if group else 0
         runs[name], _, fig = drive(torch, f"tiny_trained {name}", service, prompts, 24,
                                    waves=False)
         if group:
-            log(f"tiny_trained f32 pp={pp} tp={tp}: {group.collectives - c0} collectives over "
-                f"{fig['steps']} engine steps on rank 0, every stage eager ({TP_LABEL})")
+            log(f"tiny_trained f32 {name}: {group.collectives - c0} collectives over "
+                f"{fig['steps']} engine steps on rank 0 ({TP_LABEL})")
+        if name == both:
+            log(f"tiny_trained f32 {name}: rank 0's stage graphs {[g.replays for g in stages]} "
+                f"replays, {[len(g.graphs) for g in stages]} graphs, segments a graph "
+                f"{[sorted({len(e.segments) for e in g.graphs.values()}) for g in stages]}")
+            if not all(g.replays for g in stages):
+                raise AssertionError(f"tiny_trained {name}: a stage replayed nothing")
+        del service, stages
+        gc.collect()
     greedy = [i for i in range(len(prompts)) if i != SEEDED_REQUEST]
-    both = runs[f"cuda pp={PP_STAGES} tp={TP_RANKS}"]
-    if both != runs["cuda"] or any(runs["cuda"][i] != runs["cpu"][i] for i in greedy):
-        raise AssertionError(f"tiny_trained pp={PP_STAGES} tp={TP_RANKS}: tokens differ from "
-                             "pp=1 tp=1 on the card or, greedy, on the CPU")
-    log(f"tiny_trained f32 pp={PP_STAGES} tp={TP_RANKS}: {sum(len(t) for t in both)} tokens "
-        "identical to pp=1 tp=1 on the card (the seeded request's too) and, greedy, on the CPU")
+    if runs[both] != runs[f"{both} eager"] or runs[both] != runs["cuda"] or any(
+            runs["cuda"][i] != runs["cpu"][i] for i in greedy):
+        raise AssertionError(f"tiny_trained pp={PP_STAGES} tp={TP_RANKS}: tokens with stage "
+                             "graphs differ from every stage eager, pp=1 tp=1 on the card or, "
+                             "greedy, the CPU")
+    log(f"tiny_trained f32 pp={PP_STAGES} tp={TP_RANKS} with segmented stage graphs: "
+        f"{sum(len(t) for t in runs[both])} tokens identical to every stage eager, to pp=1 "
+        "tp=1 on the card (the seeded request's too) and, greedy, to the CPU")
     gc.collect()
     torch.cuda.empty_cache()
     return launches

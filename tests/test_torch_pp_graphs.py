@@ -17,7 +17,8 @@
 - The graph reserve a device: both stages, the LM head and sampler once and
   each stage's layers on one device; each device its own stages' share
   when spread.
-- Which workers have stage graphs: CUDA stages at tp 1 only.
+- Which workers have stage graphs: CUDA stages at any tp (PP × TP: in
+  segments between the stage group's collectives), never CPU stages.
 - ``warmup`` at pp 2 captures stage graphs, and the traffic after it
   replays them.
 
@@ -521,23 +522,31 @@ class _StubCache:
         self.device = torch.device(device)
 
 
+class _StubGroup:
+    def __init__(self, tp):
+        self.tp = tp
+
+
 class _StubModel:
     def __init__(self, tp):
         self.tp = tp
+        self.group = _StubGroup(tp) if tp > 1 else None
 
 
 @pytest.mark.parametrize("devices, tp, flag, want", [
     (("cuda:0", "cuda:0"), 1, True, True),
     (("cuda:0", "cuda:1"), 1, True, True),
     (("cuda:0", "cuda:0", "cuda:0"), 1, True, True),
-    (("cuda:0", "cuda:0"), 2, True, False),     # PP x TP: gloo cannot be captured
+    (("cuda:0", "cuda:0"), 2, True, True),      # PP x TP: segments between the collectives
     (("cuda:0", "cuda:0"), 1, False, False),    # the caller asked for none
     (("cpu", "cpu"), 1, True, False),           # no CUDA graph on the CPU
-], ids=["one-card", "two-cards", "pp3", "pp-x-tp", "off", "cpu"])
+    (("cpu", "cpu"), 2, True, False),
+], ids=["one-card", "two-cards", "pp3", "pp-x-tp", "off", "cpu", "cpu-pp-x-tp"])
 def test_stage_graphs_only_on_cuda_at_tp1(devices, tp, flag, want, monkeypatch):
     """A graph set a stage, sharing one pool dict, when every stage is on
-    the card and the rank has no TP group; else every stage steps eagerly.
-    The single-stage ``graphs`` is None either way."""
+    the card, whatever the rank's tp (under TP each stage's graphs cut at
+    the collectives of its own group); on the CPU every stage steps
+    eagerly. The single-stage ``graphs`` is None either way."""
     from atoma_infer_tpu_torch.config import CacheConfig, SchedulerConfig
     from atoma_infer_tpu_torch.engine.pp_worker import PipelinedModelWorker
 
@@ -561,6 +570,7 @@ def test_stage_graphs_only_on_cuda_at_tp1(devices, tp, flag, want, monkeypatch):
     assert len({id(g) for g in graphs}) == n
     assert all(g._pools is graphs[0]._pools for g in graphs)
     assert all(g.max_tokens == 64 and g.max_rows == 8 for g in graphs)
+    assert [g.group for g in graphs] == [st.model.group for st in worker.stages]
 
 
 def test_cpu_pp2_service_has_no_stage_graphs():

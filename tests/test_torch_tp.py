@@ -13,8 +13,8 @@ one INT8 step and its scales bit for bit. Mixtral at tp = 2, with expert
 parallelism (4 experts) and without it (3 experts: the intermediate dim is
 split), serves the port's tp = 1 tokens. A follower that fails while it
 builds its service fails rank 0's start. Bad head divisibility is
-refused. ``warmup`` under TP runs its waves eagerly, and the service then
-serves JAX's tokens (``tiny_trained`` from its directory, sync and async;
+refused. ``warmup`` under TP runs its waves (eagerly on the CPU, through
+stub step graphs from the factory), and the service then serves JAX's tokens (``tiny_trained`` from its directory, sync and async;
 pipeline parallelism beside TP: ``tests/test_torch_pipeline.py``).
 """
 
@@ -245,20 +245,29 @@ def warm_then_generate(service, prompts, **warm):
     return asyncio.run(run())
 
 
-def test_warmup_under_tp_names_its_queue_item(tmp_path):
-    """``warmup`` under TP runs its waves eagerly, as the ranks step (no
-    CUDA graph of a TP step is captured: ROADMAP.md, Queue 1, CUDA graphs of
-    TP steps over NCCL): it completes, leaves no warmup group and every
-    block free, the followers exit cleanly, and the service then serves the
-    port's tp = 1 tokens."""
+@pytest.mark.parametrize("graphs", [False, True], ids=["cpu-eager", "stub-graphs"])
+def test_warmup_under_tp_names_its_queue_item(graphs, tmp_path):
+    """``warmup`` under TP: a CPU rank steps its waves eagerly (no CUDA
+    graph on the CPU; on the card every rank captures in segments); with a
+    factory's own step graphs (``torch_parity.StubStepGraphs``, replaying by
+    recomputing) every step is captured or replayed. Either way it
+    completes, leaves no warmup group and every block free, the followers
+    exit cleanly, and the service then serves the port's tp = 1 tokens."""
     factory = port_factory(tmp_path, WIDTHS)
     want = tpar.generate(port_service(1, tmp_path, factory), PROMPTS)
+    if graphs:
+        factory = tpar.npz_factory(factory.args[0], "llama", WIDTHS,
+                                   step_graphs=tpar.StubStepGraphs)
     service = port_service(2, tmp_path, factory)
     followers = list(service.followers)
-    assert service.engine.worker.graphs is None
+    step_graphs = service.engine.worker.graphs
+    assert (step_graphs is not None) == graphs
     dt, left, free, got = warm_then_generate(service, PROMPTS, num_seqs=4, prompt_len=16)
     assert dt > 0 and not left and free == 128
     assert got == want
+    if graphs:
+        assert step_graphs.graphs and step_graphs.replays
+        assert step_graphs.group is service.group
     assert not service.followers
     assert [p.exitcode for p in followers] == [0]
 

@@ -12,6 +12,7 @@ import ml_dtypes
 import numpy as np
 import torch
 
+from atoma_infer_tpu_torch.engine.cuda_graphs import StepGraphs
 from atoma_infer_tpu_torch.ops.attention import AttentionMetadata as TorchMeta
 
 
@@ -222,11 +223,11 @@ def save_params(path, params) -> str:
     return str(path)
 
 
-def npz_model(device, path, family, widths):
+def npz_model(device, path, family, widths, dtype=torch.float32):
     """(model, params, tokenizer) of the port: ``family`` ("llama" or
-    "mixtral") at ``widths`` (config fields), f32, the parameters of the
-    ``.npz`` at ``path``. A ``ModelFactory`` build: picklable by import
-    path, so that spawned ranks run it."""
+    "mixtral") at ``widths`` (config fields), in ``dtype`` (f32 by default),
+    the parameters of the ``.npz`` at ``path``. A ``ModelFactory`` build:
+    picklable by import path, so that spawned ranks run it."""
     from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
     from atoma_infer_tpu_torch.models.weights import params_from_numpy
 
@@ -243,18 +244,201 @@ def npz_model(device, path, family, widths):
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
     cfg = cfg_cls(**widths)
-    model = cls(cfg, dtype=torch.float32, device=device)
-    return model, params_from_numpy(tree, torch.float32, device), ByteTokenizer(cfg.vocab_size)
+    model = cls(cfg, dtype=dtype, device=device)
+    return model, params_from_numpy(tree, dtype, device), ByteTokenizer(cfg.vocab_size)
 
 
-def npz_factory(path, family, widths):
-    """The ``ModelFactory`` of :func:`npz_model`."""
+def npz_factory(path, family, widths, step_graphs=None):
+    """The ``ModelFactory`` of :func:`npz_model`; ``step_graphs``: the
+    ``StepGraphs`` class every rank's workers keep (e.g.
+    :class:`StubStepGraphs`)."""
     from atoma_infer_tpu_torch.engine.llm_service import ModelFactory
     from atoma_infer_tpu_torch.models.llama import LlamaConfig
     from atoma_infer_tpu_torch.models.mixtral import MixtralConfig
 
     cfg = (MixtralConfig if family == "mixtral" else LlamaConfig)(**widths)
-    return ModelFactory(config=cfg, build=npz_model, args=(str(path), family, dict(widths)))
+    return ModelFactory(config=cfg, build=npz_model, args=(str(path), family, dict(widths)),
+                        step_graphs=step_graphs)
+
+
+# ------------------------------------------------------- stub step graphs
+def clone_tree(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, (tuple, list)):
+        return type(out)(clone_tree(o) for o in out)
+    return out
+
+
+def copy_into(old, new):
+    if isinstance(old, torch.Tensor):
+        if old is not new:
+            old.copy_(new)
+    elif old is not None:
+        for o, n in zip(old, new):
+            copy_into(o, n)
+
+
+class _SegmentRunner:
+    """Replays a segmented capture on the CPU by recomputing: each replay
+    runs the captured step on a thread of its own, which stops at each of
+    the model's collectives — it writes the collective's operand into the
+    tensor the capture recorded, and waits while the replay runs the real
+    collective on it — and reads on from that tensor (the gather's from its
+    static output), as the next segment's graph reads the same memory on
+    the card. The last segment's replay ends the step, copies its outputs
+    into the captured ones and joins the thread. The step and the group are
+    the graphs' (held weakly: no reference cycle keeps a rank's process
+    groups alive until its interpreter exits)."""
+
+    def __init__(self, graphs, views, entry):
+        import threading
+        import weakref
+
+        self.graphs, self.views, self.entry = weakref.ref(graphs), views, entry
+        self.reached = threading.Semaphore(0)
+        self.resume = threading.Semaphore(0)
+        self.thread = None
+        self.done = False
+        self.k = 0
+        self.error = None
+
+    def _pause(self, op, x):
+        seg = self.entry.segments[self.k]
+        if seg.op != op or tuple(seg.tensor.shape) != tuple(x.shape):
+            raise AssertionError(f"collective {self.k}: {op} {tuple(x.shape)}, captured "
+                                 f"{seg.op} {tuple(seg.tensor.shape)}")
+        seg.tensor.copy_(x)
+        self.k += 1
+        self.reached.release()
+        self.resume.acquire()
+        return seg.out if op == "gather" else seg.tensor
+
+    def _body(self, step, group):
+        try:
+            with torch.inference_mode(), group.segmented(self._pause):
+                out = step(*self.views)
+                if self.k != len(self.entry.segments) - 1:
+                    raise AssertionError(f"{self.k} collectives replayed, "
+                                         f"{len(self.entry.segments) - 1} captured")
+                copy_into(self.entry.outputs, out)
+        except BaseException as e:  # handed to the replaying thread
+            self.error = e
+        finally:
+            self.done = True
+            self.reached.release()
+
+    def advance(self):
+        """Run the step up to its next collective, or to its end (then the
+        thread is joined)."""
+        import threading
+
+        if self.thread is None:
+            graphs = self.graphs()
+            self.k, self.done = 0, False
+            self.thread = threading.Thread(target=self._body, args=(graphs.step, graphs.group),
+                                           daemon=True)
+            self.thread.start()
+        else:
+            self.resume.release()
+        self.reached.acquire()
+        if self.done:
+            self.thread.join(RANK_TIMEOUT_S)
+            if self.thread.is_alive():
+                raise AssertionError("a replay's thread did not end")
+            self.thread = None
+        if self.error is not None:
+            error, self.error = self.error, None
+            raise error
+
+
+class _Rerun:
+    """A tp 1 stub graph's replay: the step again, into its outputs."""
+
+    def __init__(self, graphs, views, entry):
+        import weakref
+
+        self.graphs, self.views, self.entry = weakref.ref(graphs), views, entry
+
+    @torch.inference_mode()
+    def advance(self):
+        copy_into(self.entry.outputs, self.graphs().step(*self.views))
+
+
+class _StubSegment:
+    def __init__(self):
+        self.runner = None
+
+    def replay(self):
+        self.runner.advance()
+
+
+class StubStepGraphs(StepGraphs):
+    """``StepGraphs`` on the CPU: the capture is the port's own
+    (``_record``, segments cut at the group's collectives) with graphs that
+    record nothing, and a replay recomputes (:class:`_SegmentRunner`, or
+    the step itself at tp 1) with the step function of the run in progress
+    (``step``, set only while one runs). On the CPU the capture's run
+    computes — with no collective, so a rank's partial sums — and writes its
+    step's K/V slots, which the card's capture does not; a replay right
+    after the capture writes them again with the real collectives. Each run
+    is logged in ``events``: (run, key, captured, evicted keys, the group's
+    collectives in the run, less the capture's own replay's), and each
+    capture's collectives in ``capture_collectives`` (0). A step's outputs
+    are handed out as copies: on the card the host copy of the tokens is
+    enqueued before the next replay overwrites them."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.events = []
+        self.capture_collectives = []
+        self.step = None
+        self._fixup = 0
+
+    def _new_graph(self):
+        return _StubSegment()
+
+    def _graph_capture(self, graph, pool):
+        import contextlib
+
+        return contextlib.nullcontext()
+
+    def _count(self):
+        return 0 if self.group is None else self.group.collectives
+
+    def _capture(self, step, views):
+        c0 = self._count()
+        entry = self._record(step, views, None)
+        self.capture_collectives.append(self._count() - c0)
+        runner = (_Rerun if self.group is None else _SegmentRunner)(self, views, entry)
+        for graph in [seg.graph for seg in entry.segments] or [entry.graph]:
+            graph.runner = runner
+        c1, self.step = self._count(), step
+        try:
+            self._replay(entry)
+        finally:
+            self.step = None
+        self._fixup = self._count() - c1
+        return entry
+
+    def run(self, key, step, *args, **kw):
+        before, c0 = list(self.graphs), self._count()
+        captured = key not in self.graphs
+        self._fixup = 0
+        self.step = step
+        try:
+            out = super().run(key, step, *args, **kw)
+        finally:
+            self.step = None
+        evicted = [_key_name(k) for k in before if k not in self.graphs]
+        self.events.append((len(self.events), _key_name(key), captured, evicted,
+                            self._count() - c0 - self._fixup))
+        return clone_tree(out)
+
+
+def _key_name(key):
+    return (type(key).__name__, tuple(key))
+
 
 
 def rendezvous_file(tmp_path, name="rdzv") -> str:
@@ -526,3 +710,115 @@ def npz_model_failing_on_followers(device, path, family, widths):
     if torch.multiprocessing.current_process().name.startswith("atoma-tp-rank"):
         raise RuntimeError("a follower rank fails to build its model")
     return npz_model(device, path, family, widths)
+
+
+def segments_rank(rank, tp, init, path, family, widths, dtype_name, kv_cache_dtype, steps,
+                  stream, tables):
+    """One rank of a tensor-parallel model run by hand over ``steps``
+    ((seq_lens, q_lens) each, ``model_step``'s) on a cache engine of its
+    own (``kv_cache_dtype``: None or "int8"): each step eagerly, its
+    collectives recorded (op, operand shape); then captured through
+    :class:`StubStepGraphs` (``_record``: the port's segmenter) and
+    replayed (``_replay``). Returns, by step, the eager and the captured collectives, the
+    collectives the capture and the replay issued, the eager and the
+    replayed outputs (the logits and their argmax, computed in the last
+    segment) and the gather's static outputs after the replay (an untied LM
+    head's logits are vocab-sharded and gathered; a tied head's are whole
+    on every rank)."""
+    from atoma_infer_tpu_torch.engine.cache_engine import CacheEngine
+    from atoma_infer_tpu_torch.parallel.distributed import init_distributed
+    from atoma_infer_tpu_torch.parallel.sharding import shard_params
+
+    dtype = getattr(torch, dtype_name)
+    group = init_distributed(init, tp, rank, device=torch.device("cpu"), local_ranks=tp,
+                             local_devices=1)
+    model, params, _ = npz_model("cpu", path, family, widths, dtype)
+    model.group = group
+    params = shard_params(params, group, model.config.num_kv_heads)
+    ce = CacheEngine(num_layers=model.config.num_layers, num_kv_heads=model.local_kv_heads,
+                     head_dim=model.config.head_dim, block_size=16, num_device_blocks=16,
+                     num_host_blocks=0, device="cpu",
+                     dtype=torch.int8 if kv_cache_dtype == "int8" else dtype)
+    eager_ops = []
+
+    class Recording:
+        """The group's collectives, each recorded as the eager step calls it."""
+
+        def __init__(self, op, fn):
+            self.op, self.fn = op, fn
+
+        def __call__(self, x, *a, **kw):
+            eager_ops.append((self.op, tuple(x.shape)))
+            return self.fn(x, *a, **kw)
+
+    out = []
+    for seq_lens, q_lens in steps:
+        case, positions, toks = model_step(seq_lens, q_lens, tables[: len(seq_lens)], stream)
+        meta = torch_meta(case)
+
+        @torch.inference_mode()
+        def step(tokens, pos):
+            hidden = model.forward(params, tokens, pos, ce.kv_cache, meta,
+                                   kv_scales=ce.kv_scales)
+            logits = model.compute_logits(params, hidden)
+            return logits * 1, logits.argmax(dim=-1)
+
+        views = (torch.from_numpy(toks), torch.from_numpy(positions))
+        eager_ops.clear()
+        for op, name in (("sum", "all_reduce_sum"), ("max", "all_reduce_max"),
+                         ("gather", "all_gather_last")):
+            setattr(group, name, Recording(op, getattr(group, name)))
+        c0 = group.collectives
+        eager = step(*views)
+        eager_collectives = group.collectives - c0
+        for name in ("all_reduce_sum", "all_reduce_max", "all_gather_last"):
+            delattr(group, name)
+        graphs = StubStepGraphs(8, 8, 64, group=group)
+        entry = graphs._capture(step, views)   # the segmenter, then one replay
+        (capture_collectives,), replay_collectives = graphs.capture_collectives, graphs._fixup
+        gathers = [seg for seg in entry.segments if seg.op == "gather"]
+        out.append(dict(
+            eager_ops=list(eager_ops),
+            captured=[(seg.op, None if seg.tensor is None else tuple(seg.tensor.shape))
+                      for seg in entry.segments],
+            gather_out=[tuple(seg.out.shape) for seg in gathers],
+            eager_collectives=eager_collectives, capture_collectives=capture_collectives,
+            replay_collectives=replay_collectives,
+            eager=[t.float().numpy().copy() for t in eager],
+            replayed=[t.float().numpy().copy() for t in entry.outputs],
+            gathered=[seg.out.float().numpy().copy() for seg in gathers],
+        ))
+    return out
+
+
+def graphs_lockstep_rank(rank, tp, init, path, widths, prompts, sched, kv_cache_dtype,
+                         pipeline_parallel_size=1):
+    """One rank of a tensor-parallel service started by hand (as
+    :func:`lockstep_rank`), whose workers keep :class:`StubStepGraphs`
+    through its factory, at most one graph each (this rank's process keeps
+    ``MAX_GRAPHS`` at 1: a step of another key evicts): rank 0 serves
+    ``prompts``, the others follow. Returns the rank's outputs, and its
+    graphs' ``events`` and capture collectives (every stage's under PP)."""
+    from atoma_infer_tpu_torch.engine import cuda_graphs, multihost
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.parallel.distributed import init_distributed
+
+    cuda_graphs.MAX_GRAPHS = 1
+
+    group = init_distributed(init, tp, rank, device=torch.device("cpu"), local_ranks=tp,
+                             local_devices=1)
+    config = tp_engine_config(tp, kv_cache_dtype=kv_cache_dtype,
+                              pipeline_parallel_size=pipeline_parallel_size, **sched)
+    factory = npz_factory(path, "llama", widths, step_graphs=StubStepGraphs)
+    service = LlmService.start(config, model_factory=factory, group=group)
+    worker = service.engine.worker
+    graphs = [st.graphs for st in worker.stages] if pipeline_parallel_size > 1 \
+        else [worker.graphs]
+    if rank == 0:
+        service.lockstep = multihost.attach_primary(service)
+        outputs = generate(service, prompts)
+    else:
+        outputs = {r.request_id: list(r.outputs[0].token_ids)
+                   for r in multihost.follower_loop(service)}
+    return dict(outputs=outputs, events=[g.events for g in graphs],
+                capture_collectives=[g.capture_collectives for g in graphs])
