@@ -121,9 +121,15 @@ __device__ __forceinline__ float slot_scale(const __nv_bfloat16* scales,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel A: one block per (query tile of block_q tokens, sequence, kv head).
+// Kernel A: one block per (query tile of block_q tokens, sequence, kv head,
+// slice of the group). A slice is group_rows of the group's q heads: the
+// whole group while a token's group_rows · TPR threads fit a block of 256;
+// past that (33+ q heads per kv head at D = 256, 65+ at 96 and 128) the
+// group is cut into ceil(group · TPR / 256) slices of near-equal size, each
+// a block of its own that stages the same keys (every row's sums are the
+// same as in one block: a row's arithmetic never crosses rows).
 // Thread layout: TPR consecutive threads own one query row (token, q head of
-// the group), DPT = D / TPR consecutive dims each; rows are token-major
+// the slice), DPT = D / TPR consecutive dims each; rows are token-major
 // within the tile. TPR is a power of two (1, 2, 4 or 8), so a row's threads
 // sit in one warp, aligned, and the xor butterfly over them stays inside the
 // row: D / 32 threads of 32 dims, except at D = 96, where 3 threads a row
@@ -142,8 +148,8 @@ __global__ void __launch_bounds__(256) rpa_kernel(
     const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
     const int* __restrict__ query_start_loc, const int* __restrict__ num_seqs,
     const float* __restrict__ alibi, T* __restrict__ out, int num_q_heads,
-    int num_kv_heads, int max_pages, int block_size, int group, int block_q,
-    float scale, int window, float soft_cap) {
+    int num_kv_heads, int max_pages, int block_size, int group, int group_rows,
+    int block_q, float scale, int window, float soft_cap) {
   constexpr int TPR = rpa_threads_per_row(D);
   constexpr int DPT = D / TPR;         // dims a thread
   constexpr int KS = TPR * (DPT + 1);  // smem floats per key row; +1 pad per thread's dims
@@ -159,20 +165,22 @@ __global__ void __launch_bounds__(256) rpa_kernel(
   const int q_len = query_start_loc[s + 1] - q_start;
   const int tok0 = blockIdx.x * block_q;
   if (tok0 >= q_len) return;
-  const int h = blockIdx.z;
+  const int slices = (group + group_rows - 1) / group_rows;
+  const int h = blockIdx.z / slices;
+  const int g0 = (blockIdx.z - h * slices) * group_rows;
   const int seq_len = seq_lens[s];
   const int ntok = min(block_q, q_len - tok0);
   const int ctx0 = seq_len - q_len;  // absolute position of the chunk's first query
 
   const int tid = threadIdx.x;
   const int row = tid / TPR, part = tid % TPR;
-  const int ti = row / group, g = row - ti * group;
-  // Rows past the tile compute on zeros (they join the block's barriers and
-  // shuffles) but never store.
-  const bool active = ti < ntok;
+  const int ti = row / group_rows, g = g0 + row - ti * group_rows;
+  // Rows past the tile or the group compute on zeros (they join the block's
+  // barriers and shuffles) but never store.
+  const bool active = ti < ntok && g < group;
   const int qpos = ctx0 + tok0 + ti;
   const int hq = h * group + g;
-  const float slope = alibi != nullptr ? alibi[hq] : 0.f;
+  const float slope = alibi != nullptr && active ? alibi[hq] : 0.f;
   const long long q_row = (long long)(q_start + tok0 + ti) * num_q_heads + hq;
 
   float qr[DPT], acc[DPT];
@@ -492,12 +500,13 @@ int launch_rpa(int block_size, dim3 grid, int threads, cudaStream_t stream,
                const void* q, const void* cache, const void* scales,
                const int* bt, const int* sl, const int* qsl, const int* ns,
                const float* alibi, void* out, int hq, int hk, int max_pages,
-               int group, int block_q, float scale, int window, float soft_cap) {
+               int group, int group_rows, int block_q, float scale, int window,
+               float soft_cap) {
 #define ATOMA_RPA(KT)                                                          \
   rpa_kernel<T, C, D, KT><<<grid, threads, 0, stream>>>(                       \
       (const T*)q, (const C*)cache, (const __nv_bfloat16*)scales, bt, sl, qsl, \
-      ns, alibi, (T*)out, hq, hk, max_pages, block_size, group, block_q,       \
-      scale, window, soft_cap)
+      ns, alibi, (T*)out, hq, hk, max_pages, block_size, group, group_rows,    \
+      block_q, scale, window, soft_cap)
   // The key tile: gcd(block_size, 32), or gcd(block_size, 16) at D = 256.
   if (block_size <= 0 || block_size % 8 != 0) return (int)cudaErrorInvalidValue;
   if (D <= 128 && block_size % 32 == 0) {
@@ -578,13 +587,19 @@ int ragged_paged_attention_entry(
     int block_size, int max_q_len, float scale, int window, float soft_cap,
     void* stream) {
   if (max_q_len <= 0 || num_seq_slots <= 0) return 0;
+  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return (int)cudaErrorInvalidValue;
   const int group = num_q_heads / num_kv_heads;
   const int tpr = rpa_threads_per_row(head_dim);
-  int block_q = 256 / (group * tpr);
+  // A block takes a slice of group_rows q heads: the whole group while one
+  // token's rows fit 256 threads, else the fewest near-equal slices that do.
+  const int cut = (group * tpr + 255) / 256;
+  const int group_rows = (group + cut - 1) / cut;
+  const int slices = (group + group_rows - 1) / group_rows;  // as the kernel counts them
+  int block_q = 256 / (group_rows * tpr);
   block_q = block_q < 1 ? 1 : (block_q > 16 ? 16 : block_q);
-  const int threads = (block_q * group * tpr + 31) / 32 * 32;
+  const int threads = (block_q * group_rows * tpr + 31) / 32 * 32;
   if (threads > 256) return (int)cudaErrorInvalidValue;
-  const dim3 grid((max_q_len + block_q - 1) / block_q, num_seq_slots, num_kv_heads);
+  const dim3 grid((max_q_len + block_q - 1) / block_q, num_seq_slots, num_kv_heads * slices);
   cudaStream_t st = (cudaStream_t)stream;
   const int* bt = (const int*)block_tables;
   const int* sl = (const int*)seq_lens;
@@ -594,8 +609,8 @@ int ragged_paged_attention_entry(
 #define ATOMA_RPA_D(T, D)                                                      \
   return launch_rpa<T, typename CacheOf<T>::type, D>(                          \
       block_size, grid, threads, st, q, cache, scales, bt, sl, qsl, ns, al,    \
-      out, num_q_heads, num_kv_heads, max_pages, group, block_q, scale,        \
-      window, soft_cap)
+      out, num_q_heads, num_kv_heads, max_pages, group, group_rows, block_q,   \
+      scale, window, soft_cap)
   if constexpr ((DIMS & kNarrowDims) != 0) {
     if (dtype == 0) {
       if (head_dim == 32) ATOMA_RPA_D(float, 32);

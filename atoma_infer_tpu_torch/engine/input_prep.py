@@ -99,9 +99,11 @@ class ModelInput:
 
     @property
     def decode_only(self) -> bool:
-        """Pure decode step: one query token per sequence (fused kernel).
-        A verify step carries 1+k token chunks, so it takes the ragged
-        kernel."""
+        """Pure decode step: one query token per sequence (on the card the
+        fused kernel, or the write and the ragged kernel past
+        ``MAX_FUSED_GROUP`` q heads per kv head: ``ops/paged_attention.py``
+        ``decode_route``). A verify step carries 1+k token chunks, so it
+        takes the ragged kernel."""
         return self.num_prefills == 0 and self.spec_rows is None
 
 

@@ -97,19 +97,21 @@ def check_kernel_shapes(model_config, config: EngineConfig) -> None:
     copies of a kv head counted when ``tensor_parallel_size`` is wider than
     the kv heads), the activations' dtype and the KV cache's
     (``ops/paged_attention.py`` ``check_kernel_shape``, which the kernels'
-    wrappers call too), for prefill and mixed steps (the ragged kernel) and
-    for pure-decode steps (the fused one). ``LlmService.start`` calls it on
-    the card before anything is loaded or allocated."""
-    from ..ops.paged_attention import check_kernel_shape
+    wrappers call too): the ragged kernel's, which every step runs (up to
+    ``MAX_RAGGED_GROUP`` q heads per kv head), and the fused kernel's where
+    ``decode_route`` sends pure-decode steps to it (up to
+    ``MAX_FUSED_GROUP``; past that they take the write and the ragged
+    kernel). ``LlmService.start`` calls it on the card before anything is
+    loaded or allocated."""
+    from ..ops.paged_attention import check_kernel_shape, decode_route
 
     hq, hk = model_config.num_attention_heads, model_config.num_key_value_heads
     hk *= kv_repeat(config.model.tensor_parallel_size, hk)
-    for fused in (False, True):
-        check_kernel_shape(
-            head_dim=model_config.head_dim, dtype=_DTYPES[config.model.dtype],
-            kind=_KV_DTYPES.get(config.model.kv_cache_dtype),
-            group=hq // hk, block_size=config.cache.block_size, fused=fused,
-        )
+    check_kernel_shape(
+        head_dim=model_config.head_dim, dtype=_DTYPES[config.model.dtype],
+        kind=_KV_DTYPES.get(config.model.kv_cache_dtype), group=hq // hk,
+        block_size=config.cache.block_size, fused=decode_route(hq, hk) == "fused",
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,10 +10,12 @@ sequence's paged cache prefix.
 Dispatch is by device, with no gates: a CPU tensor takes the plain version
 (``reference.py``); a CUDA tensor takes the kernels of its cache's dtype
 (bf16/f32, INT8 with ``kv_scales``, or e4m3) — the fused decode write+attend
-kernel when ``meta.decode_only``, else the matching ``reshape_and_cache``
-write followed by the ragged kernel. A kernel that cannot take its inputs
-raises; nothing falls back. The TPU package's Mosaic alignment gates have no
-counterpart here.
+kernel when ``meta.decode_only`` and the rank's group is at most
+``MAX_FUSED_GROUP`` q heads per kv head (``ops/paged_attention.py``
+``decode_route``), else the matching ``reshape_and_cache`` write followed by
+the ragged kernel, as JAX serves a decode step its fused kernel does not
+take. A kernel that cannot take its inputs raises; nothing falls back. The
+TPU package's Mosaic alignment gates have no counterpart here.
 """
 
 from __future__ import annotations
@@ -123,9 +125,13 @@ def paged_attention_layer(
     ``ops/attention.py:377-400``). None: the rows' own.
 
     On CUDA a pure-decode step runs ONE fused kernel that writes and
-    attends; every other step runs the write kernel, then the ragged kernel.
+    attends, up to ``MAX_FUSED_GROUP`` q heads per kv head of this rank's
+    ``q`` and ``k_new`` (``decode_route``); every other step, and a decode
+    step of a wider group, runs the write kernel, then the ragged kernel.
     """
-    if q.is_cuda and meta.decode_only:
+    from .paged_attention import decode_route
+
+    if q.is_cuda and meta.decode_only and decode_route(q.shape[1], k_new.shape[1]) == "fused":
         from .paged_attention import ragged_paged_attention_fused_cuda
 
         return ragged_paged_attention_fused_cuda(

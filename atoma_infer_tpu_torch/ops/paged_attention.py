@@ -106,6 +106,10 @@ WIDE_HEAD_DIMS = (96, 256)
 # The fused decode kernels take up to 16 q heads per kv head: one m16 tile
 # of Q·Kᵀ a kv head.
 MAX_FUSED_GROUP = 16
+# The ragged kernels take up to 128: one token's group in one query tile of
+# the tensor-core kernel (8 warps of 16 rows, ``rpa_warps``); the CUDA-core
+# kernel cuts a wider group over blocks.
+MAX_RAGGED_GROUP = 128
 _RAGGED_ARGS = [INT] + [PTR] * 9 + [INT] * 7 + [FLOAT, INT, FLOAT, PTR]
 _FUSED_ARGS = [INT] + [PTR] * 12 + [INT] * 6 + [LONG, FLOAT, INT, FLOAT, PTR]
 _A = "atoma_infer_tpu/ops/paged_attention.py:1058 (ragged_paged_attention_pallas"
@@ -317,9 +321,8 @@ def rpa_warps(group: int, max_q_len: int, num_seq_slots: int) -> int:
     (64 rows). With many sequences most tiles hold one decode row, which a
     128-row tile leaves 7 of 8 warps idle over (measured on an H100:
     ``tools/rpa_ablation.py``, PERF.md)."""
-    if group > 8 * RPA_WARP_ROWS:
-        raise ValueError(f"ragged_paged_attention: {group} q heads per kv head exceed one "
-                         f"tile of {8 * RPA_WARP_ROWS} rows")
+    if group > MAX_RAGGED_GROUP:
+        raise ValueError(_group_refusal(group))
     long_chunk = max_q_len * group >= 4 * 8 * RPA_WARP_ROWS
     return 8 if group > 4 * RPA_WARP_ROWS or (long_chunk and num_seq_slots <= RPA_FEW_SEQS) else 4
 
@@ -522,17 +525,34 @@ def split_combine_plain(ws_o, ws_ml, out, meta, *, bq, splits, min_tiles,
 
 
 # ------------------------------------------------------------------ wrappers
+def decode_route(num_q_heads: int, num_kv_heads: int) -> str:
+    """How a pure-decode step attends on the card, from a rank's heads:
+    ``"fused"`` (B, or D's and E's fused variants: write and attend in one
+    launch) up to ``MAX_FUSED_GROUP`` q heads per kv head; past it
+    ``"ragged"``, the write (C, the INT8 or the e4m3 write) and then the
+    ragged kernel (A, D or E, and its merge when the plan splits), as JAX
+    serves a decode step its fused kernel does not take
+    (``atoma_infer_tpu/ops/attention.py`` ``_fused_supported``)."""
+    return "fused" if num_q_heads // num_kv_heads <= MAX_FUSED_GROUP else "ragged"
+
+
+def _group_refusal(group: int) -> str:
+    return (f"paged attention: {group} q heads per kv head unsupported (1 to "
+            f"{MAX_RAGGED_GROUP}; larger groups wait for ROADMAP.md, Queue 1 item 21: "
+            "attention past 128 q heads per kv head)")
+
+
 def check_kernel_shape(*, head_dim: int, dtype: torch.dtype, kind, group: int,
                        block_size: int, fused: bool) -> None:
     """Raise ``ValueError`` for a shape no kernel takes: ``head_dim`` for
     queries of ``dtype`` (bf16, fp16 or f32) over a cache of ``kind`` (None:
     the queries' own dtype; or int8, float8_e4m3fn) must be one of
     ``HEAD_DIMS`` on every route; the ragged kernel (A, D, E) takes any
-    block size that is a multiple of 8, as the configuration does; the fused
-    decode kernel (B and D's and E's fused variants) also takes 1 to
-    ``MAX_FUSED_GROUP`` query heads per kv head, and names the ROADMAP.md
-    item that would add more. The wrappers and ``LlmService.start`` call
-    it."""
+    block size that is a multiple of 8, as the configuration does, and 1 to
+    ``MAX_RAGGED_GROUP`` query heads per kv head; the fused decode kernel (B
+    and D's and E's fused variants) 1 to ``MAX_FUSED_GROUP``. Each refusal
+    of a group names the ROADMAP.md item that would add more. The wrappers
+    and ``LlmService.start`` call it."""
     if dtype not in Q_DTYPES:
         raise ValueError(f"paged attention: q {dtype} must be bfloat16, float16 or float32")
     if head_dim not in HEAD_DIMS:
@@ -541,7 +561,9 @@ def check_kernel_shape(*, head_dim: int, dtype: torch.dtype, kind, group: int,
     if block_size <= 0 or block_size % 8:
         raise ValueError(f"paged attention: block_size {block_size} is not a positive "
                          "multiple of 8")
-    if fused and not 1 <= group <= MAX_FUSED_GROUP:
+    if not 1 <= group <= MAX_RAGGED_GROUP:
+        raise ValueError(_group_refusal(group))
+    if fused and group > MAX_FUSED_GROUP:
         raise ValueError(
             f"fused_decode_attention: {group} q heads per kv head unsupported (1 to "
             f"{MAX_FUSED_GROUP}; larger groups wait for ROADMAP.md, Queue 1: fused decode at "

@@ -14,8 +14,8 @@ hand-written kernels of ``ops/quant_kernels.py`` (F, G, or H under
 Not ported: the JAX ``layer`` field. XLA copies a sliced int8 array before a
 custom call, so JAX keeps stacked weights whole and lets the kernel pick the
 layer; here ``qweight[i]`` is a view, so a layer's weights are plain slices
-(:meth:`QuantizedTensor.layer`). The KV-cache half waits for the KV-dtype
-slice (ROADMAP.md, Queue 1: KV-cache dtypes).
+(:meth:`QuantizedTensor.layer`). The KV-cache half (INT8 with scales,
+e4m3) is ``ops/kv_cache.py``.
 """
 
 from __future__ import annotations

@@ -77,15 +77,20 @@ raises on failure; nothing is caught):
    writes, D and E at the 8B shapes, F, G and H at the 8B gate projection
    (M = 8 and 256) beside ``torch.mm`` in fp16, each on its route by the
    launch counters, within ``ATTN_TOL``/``QMM_TOL["float16"]``. Groups of
-   9 to 16 q heads per kv head (``check_group_variants``,
+   9 to 128 q heads per kv head (``check_group_variants``,
    ``check_group_kernels``): the fused kernels (the split kernel's two-half
-   tile for bf16 and fp16 queries, the unsplit f32 one) and the ragged ones
-   at G 9, 12, 16 × D 64, 96, 128, 256 over every cache kind, writes and
-   scales bit-exact (a window, a soft cap and ALiBi at two shapes); then B
-   at Mistral-Large-2's shape (96 q heads over 8) and D (with
+   tile for bf16 and fp16 queries, the unsplit f32 one) up to 16 and the
+   ragged ones (the tensor-core kernels and their merge; the f32
+   ``rpa_kernel``, a token's group cut over blocks past 256 threads) at G
+   9, 12, 16, 17, 32, 128 × D 64, 96, 128, 256 over every cache kind, a
+   decode batch past 16 on the write and the ragged kernel, writes and
+   scales bit-exact (a window, a soft cap and ALiBi at three shapes); then
+   B at Mistral-Large-2's shape (96 q heads over 8) and D (with
    ``scales_new``) and E at Llama-3.1-405B's per-rank shape at tp = 8 (16
-   over 1) on 64 decode rows, and A, D, E on a mixed batch there, timed
-   beside their bounds. Times with CUDA events: kernel, plain version and,
+   over 1) on 64 decode rows, and A, D, E on a mixed batch there; the write
+   and A and D at Llama-3.1-8B's widths with one kv head (G = 32) on 64
+   decode rows; the f32 ``rpa_kernel`` at G 17 and 32; timed beside their
+   bounds. Times with CUDA events: kernel, plain version and,
    where one PyTorch call computes the same function, that call.
 3. The port's ``Llama`` with 2 layers at full width: Llama-3.2-1B and
    Llama-3.2-3B dense, and
@@ -120,7 +125,8 @@ raises on failure; nothing is caught):
    layers, 3 query heads per kv head) and the 1B again with blocks of 64,
    then the full-width Llama-3.1-8B (32
    layers, bf16 activations, llama3 rope scaling, untied per-channel INT8
-   LM head) with INT8 weights, INT4 weights and INT8 weights under W8A8
+   LM head) with INT8 weights, then at 16 of its layers
+   (``QUANT_HALF_LAYERS``) with INT4 weights and INT8 weights under W8A8
    over a bf16 KV cache, and INT8 weights over an INT8 KV cache (pool sized
    from free memory) and an e4m3 one; random weights from a
    ``torch.Generator``, quantized with the port's ``quantize_weight``.
@@ -170,12 +176,15 @@ raises on failure; nothing is caught):
    and then synchronous with graphs, the same checks; Phi-3-mini's second
    prompt passes its 2,047-key window. Then the published checkpoints with
    9 to 16 q heads per kv head (``run_group_services``,
-   ``GROUP_FAMILIES``): Mistral-Large-Instruct-2407 at 8 of 88 layers in
+   ``GROUP_FAMILIES``): Mistral-Large-Instruct-2407 at 4 of 88 layers in
    bf16 and Llama-3.1-405B at 4 of 126 with INT8 weights over an INT8 and
-   an e4m3 cache, each with the plain attention, eager and with graphs:
-   tokens identical eager and with graphs, within the near-tie rule of the
-   plain attention's, every pure-decode step on the split fused kernel
-   and no decode step on the ragged one. Speculative decoding (K = 4, 8
+   an e4m3 cache; and Llama-3.1-8B's widths with its 32 q heads over one kv
+   head (G = 32) at 8 of 32 layers over a bf16 and an INT8 cache; each with
+   the plain attention, eager and with graphs: tokens identical eager and
+   with graphs, within the near-tie rule of the plain attention's, every
+   pure-decode step on the split fused kernel and no decode step on the
+   ragged one, or at G = 32 every step on the write and the ragged kernel
+   and none on the fused one; the graphs' memory within the reserve. Speculative decoding (K = 4, 8
    sequences, prompts echoing their first half): the 1B bf16 service (a)
    eager and (b) async with graphs after ``warmup()``, and after the 8B
    services the INT8 + INT8 KV one synchronous with graphs, each against
@@ -234,7 +243,11 @@ raises on failure; nothing is caught):
    launched, int8 exact), then the W8A8 and INT8-KV gates at their card
    defaults and the quality ladder on ``tiny_trained`` in bf16, each
    printing its JSON; every number finite, every agreement in [0, 1], and
-   each tool's kernels launched in its own run (F and H; D; A to H).
+   each tool's kernels launched in its own run (F and H; D; A to H). Then
+   ``tools/real_model_check.py``'s path on ``tiny_trained``
+   (``run_real_model_check``): f32 on the card token for token the CPU's,
+   bf16 within the near-tie rule, and the n-gram drafts' acceptance on both
+   prompt sets (f32 equal to the CPU's; bf16) beside JAX's.
 6. The smoke's wall, then a ``{"kernels": [...]}`` JSON line (each
    kernel's launches from its own path's run in (b), graph replays
    counted; the fp16 instantiations' launches from the fp16 services; A, B
@@ -2035,33 +2048,45 @@ def check_gqa_block_kernels(torch):
 
 
 # Groups of 9 to 16 q heads per kv head, which the fused kernels take in
-# both halves of their m16 tile (one instantiation, the group at run time):
-# the variant grid's groups and head dims (64, 128 and 256, and Phi-3-mini's
-# 96 for a wide dim), at blocks of 16.
-GROUP_VARIANT_GROUPS = (9, 12, 16)
+# both halves of their m16 tile (one instantiation, the group at run time),
+# and past 16, whose decode steps take the write and the ragged kernel (17,
+# 32; and 128, the ragged kernels' limit, where the CUDA-core kernel cuts a
+# token's group over 2 to 4 blocks): the variant grid's groups and head
+# dims (64, 128 and 256, and Phi-3-mini's 96 for a wide dim), at blocks of
+# 16.
+GROUP_VARIANT_GROUPS = (9, 12, 16, 17, 32, 128)
 GROUP_VARIANT_DIMS = (64, 96, 128, 256)
 # The timed rows' shapes at 64 decode rows (and a mixed batch for the ragged
 # kernels): Mistral-Large-Instruct-2407's attention (96 q heads over 8 kv
-# heads, D = 128) over a bf16 cache, and Llama-3.1-405B's per-rank shape at
-# tp = 8 (16 q heads over 1 kv head of its 8) over INT8 and e4m3 caches.
-# label -> (Hq, Hk, the model's Hk, caches).
+# heads, D = 128) over a bf16 cache, Llama-3.1-405B's per-rank shape at
+# tp = 8 (16 q heads over 1 kv head of its 8) over INT8 and e4m3 caches,
+# and Llama-3.1-8B's widths with its 32 q heads over one kv head (G = 32,
+# whose decode rows take the write and the ragged kernel) over bf16 and
+# INT8 caches. label -> (Hq, Hk, the model's Hk, caches).
 GROUP_ATTENTION_SHAPES = {
     "Mistral-Large-2 G=12": (96, 8, 8, (None,)),
     "Llama-3.1-405B tp=8 G=16": (16, 1, 8, KV8_DTYPES),
+    "Llama-3.1-8B MQA G=32": (32, 1, 1, (None, "int8")),
 }
+# The f32 queries' CUDA-core ragged kernel (rpa_kernel) timed on 64 decode
+# rows at these groups (q heads over one kv head, D = 128): the f32
+# test-size services' route past 16.
+F32_GROUP_ROWS = (17, 32)
 
 
 def check_group_variants(torch):
-    """The attention instantiations at 9, 12 and 16 q heads per kv head
+    """The attention instantiations at 9 to 128 q heads per kv head
     (``GROUP_VARIANT_*``) against their plain versions: bf16 and fp16
-    queries (the split fused kernels, both halves of the tile, and the
-    tensor-core ragged ones) and f32 queries (the CUDA-core kernels) over
-    a cache of the queries' dtype, an INT8 one and an e4m3 one, at head dims
-    64, 96, 128 and 256, on a mixed batch (the write, then the ragged
-    kernel) and a decode batch with a 1,600-key row cut into KV splits (the
-    fused kernel); at two shapes also a window, a soft cap and ALiBi.
-    Writes, fused caches and INT8 scales bit-exact; each call on its route
-    by the launch counters."""
+    queries (the split fused kernels, both halves of the tile, the
+    tensor-core ragged ones and their merge) and f32 queries (the CUDA-core
+    kernels) over a cache of the queries' dtype, an INT8 one and an e4m3
+    one, at head dims 64, 96, 128 and 256, on a mixed batch (the write, then
+    the ragged kernel) and a decode batch with a 1,600-key row cut into KV
+    splits (the fused kernel up to 16, past it the write and the ragged
+    kernel, as ``decode_route`` sends a decode step); at three shapes also
+    a window, a soft cap and ALiBi. Writes, fused caches and INT8 scales
+    bit-exact; each call on its route by the launch counters, the merge
+    launched on the decode batches past 16."""
     import numpy as np
 
     from atoma_infer_tpu_torch.ops import paged_attention as pa
@@ -2074,8 +2099,8 @@ def check_group_variants(torch):
         tol = ATTN_TOL[dtype_name]
         for kv in (None,) + KV8_DTYPES:
             kind = {None: None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}[kv]
-            worst, cases = 0.0, 0
-            fused_splits = FusedSplitCount()
+            worst, cases, merges = 0.0, 0, 0
+            fused_splits, ragged_splits = FusedSplitCount(), SplitCount()
             for d in GROUP_VARIANT_DIMS:
                 for group in GROUP_VARIANT_GROUPS:
                     hq = 2 * group
@@ -2083,33 +2108,49 @@ def check_group_variants(torch):
                                  num_blocks=variant_blocks(VARIANT_MIXED + VARIANT_DECODE, BS))
                     label = f"{dtype_name} {kv or dtype_name} cache D={d} G={group}"
                     mods = [{}]
-                    if (d, group) in ((128, 12), (64, 16)):
+                    if (d, group) in ((128, 12), (64, 16), (128, 32)):
                         mods += [dict(sliding_window=40), dict(soft_cap=50.0),
                                  dict(alibi_slopes=alibi_slopes(hq, device=dev))]
                     for decode, specs in ((False, VARIANT_MIXED), (True, VARIANT_DECODE)):
                         b = make_batch(rng, specs, decode_only=decode, **shape)
-                        route = (pa.fused_route if decode else pa.ragged_route)(b["q"], kind)
+                        # A decode step's route: fused up to 16, else the
+                        # write and the ragged kernel.
+                        fused = decode and pa.decode_route(hq, 2) == "fused"
+                        route = (pa.fused_route if fused else pa.ragged_route)(b["q"], kind)
+                        merge = pa.combine_route(b["q"])
                         for kw in mods:
-                            before = route.launches
+                            before, merged = route.launches, merge.launches
                             if kv:
                                 err, cache, _ = check_kv8(torch, b, kv, f"{label} {kw}", tol,
-                                                          decode=decode, **kw)
+                                                          decode=fused, **kw)
                             else:
                                 cache = b["cache"]
                                 err = check_same_cache_attention(torch, b, f"{label} {kw}", tol,
-                                                                 decode=decode, **kw)
+                                                                 decode=fused, **kw)
                             if route.launches != before + 1:
                                 raise AssertionError(f"{label} {kw}: {route.name} not launched")
+                            if decode and not fused:
+                                merges += merge.launches - merged
                             worst = max(worst, err)
-                        if decode:
+                        if fused:
                             fused_splits.add(dict(b, cache=cache))
+                        elif decode:
+                            ragged_splits.add(dict(b, cache=cache))
                     cases += 1
             log(f"group variants {dtype_name} over {kv or dtype_name} caches: {cases} shapes "
                 f"(G {GROUP_VARIANT_GROUPS} × D {GROUP_VARIANT_DIMS}) × 3 kernels agree, writes "
-                f"and fused caches bit-exact, max |err| {worst:.3e} (tol {tol})")
+                f"and fused caches bit-exact, max |err| {worst:.3e} (tol {tol}); decode batches "
+                f"past {pa.MAX_FUSED_GROUP} on the write and {pa.ragged_route(b['q'], kind).name}"
+                f", the merge launched {merges} times there")
             if dtype != torch.float32:
                 fused_splits.check(f"group variants {dtype_name} over {kv or dtype_name} caches, "
                                    "split fused route")
+                ragged_splits.check(f"group variants {dtype_name} over {kv or dtype_name} "
+                                    f"caches, decode rows past {pa.MAX_FUSED_GROUP} on the "
+                                    "ragged route")
+                if not merges:
+                    raise AssertionError(f"group variants {dtype_name} over {kv or dtype_name} "
+                                         "caches: no merge of split decode rows past 16")
 
 
 def check_group_kernels(torch):
@@ -2119,9 +2160,12 @@ def check_group_kernels(torch):
     cache, D (with ``scales_new`` of the model's 8 kv heads) and E at
     Llama-3.1-405B's per-rank shape at tp = 8, each on 64 decode rows
     against its plain version (caches and scales bit-exact); A, D and E on
-    a mixed batch at the same shapes after their writes. Each timed with
-    CUDA events beside its plain version and its bound. Returns the kernels
-    line's rows, keyed ``kernel@group <shape>``."""
+    a mixed batch at the same shapes after their writes. At a shape whose
+    decode steps take the ragged route (G = 32), the write and then A or D
+    on the 64 decode rows instead (:func:`group_decode_ragged_rows`). Each
+    timed with CUDA events beside its plain version and its bound; then the
+    f32 queries' ``rpa_kernel`` at ``F32_GROUP_ROWS`` (logged). Returns the
+    kernels line's rows, keyed ``kernel@group <shape>``."""
     import numpy as np
 
     from atoma_infer_tpu_torch.ops import kv_write
@@ -2144,6 +2188,10 @@ def check_group_kernels(torch):
             kind = {None: None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}[kv]
             extra = 4 if kv == "int8" else 0
             work = dict(kv_elt=1 if kv else 2, slot_extra=extra, hq=hq, hk=hk, d=128)
+            if pa.decode_route(hq, hk) == "ragged":
+                rows.update(group_decode_ragged_rows(torch, label, decode, decode_specs, kv,
+                                                     kind, work))
+                continue
             # The ragged kernel on the mixed batch, after its write.
             if kv:
                 _, cache, scales = check_kv8(torch, mixed, kv, label, tol, decode=False)
@@ -2210,10 +2258,123 @@ def check_group_kernels(torch):
     card = card_line()
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"), "bfloat16")
-        log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library none: no "
-            f"PyTorch call attends through block tables), bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}, max |err| {r['max_abs_err']:.3e} [{card}]")
+        if r["library_ms"] is not None:
+            library = f"index_copy_ {r['library_ms']:.4f} ms"
+        elif name.startswith("reshape_and_cache"):
+            library = "library none: no PyTorch call quantizes rows into the cache"
+        else:
+            library = "library none: no PyTorch call attends through block tables"
+        log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, {library}), bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, max |err| {r['max_abs_err']:.3e} "
+            f"[{card}]")
+    time_f32_group_rows(torch, rng, decode_specs)
     return rows
+
+
+def group_decode_ragged_rows(torch, label, decode, specs, kv, kind, work):
+    """A decode batch at a group past 16 on its route: the write (C, or
+    the INT8 write) bit-exact with its plain version, then the ragged kernel
+    (A or D, and its merge where the plan splits) on the written cache
+    within tolerance. Both timed with CUDA events beside their plain
+    versions (the write in a CUDA graph, as a step replays it). Returns
+    their rows, keyed ``kernel@group <label>``."""
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    tol, scale = ATTN_TOL["bfloat16"], 128 ** -0.5
+    m, n, hk = decode["meta"], decode["rows"], work["hk"]
+    if kv:
+        cache, scales = kv8_cache(torch, decode["cache"], kv, 128)
+    else:
+        cache, scales = decode["cache"].clone(), None
+    got_c, got_s, want_c, want_s = clone(cache), clone(scales), clone(cache), clone(scales)
+    kv8_write(got_c, got_s, decode["k"], decode["v"], m.slot_mapping, cuda=True)
+    kv8_write(want_c, want_s, decode["k"], decode["v"], m.slot_mapping, cuda=False)
+    if not same_bytes(torch, got_c, want_c) or (
+            scales is not None and not same_bytes(torch, got_s, want_s)):
+        raise AssertionError(f"the write {label} {kv or 'bf16'}: cache or scales not bit-exact")
+    write = f"reshape_and_cache{'_' + kv if kv else ''}"
+    ragged = pa.ragged_route(decode["q"], kind)
+    merge = pa.combine_route(decode["q"])
+    before = merge.launches
+    out = pa.ragged_paged_attention_cuda(decode["q"], got_c, m, scale=scale, kv_scales=got_s)
+    ref = pa.ragged_paged_attention_paged_plain(decode["q"], got_c, m, scale=scale,
+                                                kv_scales=got_s)
+    err = (out[:n].float() - ref[:n].float()).abs().max().item()
+    if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{ragged.name} {label} decode rows disagree: {err:.3e}")
+    plan = pa.rpa_plan_for(decode["q"], m, hk, kind)
+    elt = work["kv_elt"]
+    row_bytes = 2 * hk * 128
+    library_ms = None
+    if not kv:
+        # The library call: index_copy_ of the rows, K and V side by side,
+        # into the flattened slots, in a CUDA graph (as phase 2 times C's).
+        # No PyTorch call quantizes rows into an INT8 cache.
+        valid = m.slot_mapping >= 0
+        slots = m.slot_mapping[valid].long()
+        fused_rows = torch.stack([decode["k"], decode["v"]], 2).reshape(
+            decode["k"].shape[0], -1)[valid]
+        flat = got_c.view(-1, got_c.shape[-1])
+        library_ms = graph_ms(torch, lambda: flat.index_copy_(0, slots, fused_rows))
+    rows = {
+        f"{write}@group {label}": dict(
+            max_abs_err=0.0,
+            ms=graph_ms(torch, lambda: kv8_write(got_c, got_s, decode["k"], decode["v"],
+                                                 m.slot_mapping, cuda=True)),
+            plain_ms=cuda_ms(lambda: kv8_write(got_c, got_s, decode["k"], decode["v"],
+                                               m.slot_mapping, cuda=False)),
+            library_ms=library_ms, bytes=n * (row_bytes * 2 + row_bytes * elt + work["slot_extra"])
+            + decode["q"].shape[0] * 4, flops=0),
+        f"{ragged.name}@group {label}": dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: pa.ragged_paged_attention_cuda(
+                decode["q"], got_c, m, scale=scale, kv_scales=got_s)),
+            plain_ms=cuda_ms(lambda: pa.ragged_paged_attention_paged_plain(
+                decode["q"], got_c, m, scale=scale, kv_scales=got_s), iters=5, warmup=1),
+            library_ms=None,
+            **dict(zip(("bytes", "flops"), attention_work(specs, None, 2, fused=False,
+                                                          **work)))),
+    }
+    log(f"{label} {kv or 'bf16'} KV: 64 decode rows on the ragged route, {write} bit-exact, "
+        f"{ragged.name} max |err| {err:.3e} (tol {tol}); plan {plan.warps} warps, "
+        f"{plan.tokens} decode rows a {plan.warps * pa.RPA_WARP_ROWS}-row tile, {plan.splits} "
+        f"splits at most, the merge launched {merge.launches - before} time(s)")
+    return rows
+
+
+def time_f32_group_rows(torch, rng, specs):
+    """The f32 queries' CUDA-core ragged kernel (``rpa_kernel``) on 64
+    decode rows at ``F32_GROUP_ROWS`` q heads over one kv head (D = 128, an
+    f32 cache): the f32 route's decode steps past 16. Checked against its
+    plain version and timed beside it and its bound (logged; the card's f32
+    services have smaller groups, so these shapes launch it on no
+    service)."""
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    tol, scale, card = ATTN_TOL["float32"], 128 ** -0.5, card_line()
+    for group in F32_GROUP_ROWS:
+        b = make_batch(rng, specs, num_blocks=131072, decode_only=True, hq=group, hk=1, d=128,
+                       bs=BS, dtype=torch.float32, device=torch.device("cuda"))
+        m, n = b["meta"], b["rows"]
+        kernel = pa.ragged_route(b["q"], None)
+        before = kernel.launches
+        out = pa.ragged_paged_attention_cuda(b["q"], b["cache"], m, scale=scale)
+        if kernel.launches != before + 1:
+            raise AssertionError(f"{kernel.name} f32 G={group}: not launched")
+        ref = pa.ragged_paged_attention_paged_plain(b["q"], b["cache"], m, scale=scale)
+        err = (out[:n] - ref[:n]).abs().max().item()
+        if not torch.allclose(out[:n], ref[:n], atol=tol, rtol=tol):
+            raise AssertionError(f"{kernel.name} f32 G={group} disagrees: {err:.3e}")
+        ms = cuda_ms(lambda: pa.ragged_paged_attention_cuda(b["q"], b["cache"], m, scale=scale))
+        plain_ms = cuda_ms(lambda: pa.ragged_paged_attention_paged_plain(
+            b["q"], b["cache"], m, scale=scale), iters=5, warmup=1)
+        bound_ms, by = bound(*attention_work(specs, None, 4, fused=False, hq=group, hk=1,
+                                             d=128), "float32")
+        log(f"{kernel.name} (rpa_kernel, f32) G={group}, 64 decode rows, D=128: {ms:.4f} ms "
+            f"(plain {plain_ms:.4f} ms, library none), bound {bound_ms:.4f} ms by {by}, max "
+            f"|err| {err:.3e} (tol {tol}) [{card}]")
+        del b
+    torch.cuda.empty_cache()
 
 
 
@@ -2818,6 +2979,88 @@ def run_tools(torch):
         torch.cuda.empty_cache()
 
 
+# The port's tools/real_model_check.py on the in-repo trained checkpoint,
+# its new tokens a request (the root tool's default), and JAX's n-gram
+# acceptance on it (BASELINE.md row 5a: the root tool with --spec, on short
+# natural prompts and on repetitive ones; a TPU run, not the port's).
+REAL_MODEL_DIR = os.path.join(REPO, "tests", "fixtures", "tiny_trained")
+REAL_MODEL_TOKENS = 48
+JAX_SPEC_ACCEPTANCE = (0.164, 0.212)
+
+
+def run_real_model_check(torch):
+    """The port's ``tools/real_model_check.py`` path (``build_service``,
+    ``generate``) on ``tiny_trained``: on the card in f32 (the CUDA-core
+    attention kernels) token for token the same tool's tokens on the CPU
+    (PERF.md §2's f32 rule); in bf16 (the tensor cores) within the near-tie
+    rule of the CPU's f32 tokens (their top 2 logprobs asked); each run's
+    attention on its dtype's route by the launch counters. Then ``--spec``'s
+    measurement (4 n-gram drafts, both prompt sets) in f32 on the card,
+    which must equal the CPU's, and in bf16, printed beside JAX's."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.tools import real_model_check as rmc
+
+    def acceptance(dtype, device=None):
+        figures = []
+        for prompts in (rmc.PROMPTS, rmc.REPETITIVE_PROMPTS):
+            service, _, _ = rmc.build_service(REAL_MODEL_DIR, spec_tokens=rmc.SPEC_TOKENS,
+                                              dtype=dtype, device=device)
+            figures.append(rmc.generate_counting_drafts(service, prompts,
+                                                        REAL_MODEL_TOKENS)[1:])
+            del service
+            gc.collect()
+            torch.cuda.empty_cache()
+        return figures
+
+    t0 = time.monotonic()
+    cpu, _, _ = rmc.build_service(REAL_MODEL_DIR, dtype=torch.float32, device="cpu")
+    ref = rmc.generate(cpu, rmc.PROMPTS, REAL_MODEL_TOKENS, top_n=2)
+    want = [tuple(r.outputs[0].token_ids) for r in ref]
+    top = [r.outputs[0].top_logprobs for r in ref]
+    cpu_spec = acceptance(torch.float32, "cpu")
+    del cpu
+    for dtype_name, path in (("float32", ("fused_decode_attention", "ragged_paged_attention")),
+                             ("bfloat16", ("fused_decode_attention_split",
+                                           "ragged_paged_attention_mma"))):
+        label = f"real_model_check tiny_trained {dtype_name}"
+        service, _, _ = rmc.build_service(REAL_MODEL_DIR, dtype=getattr(torch, dtype_name))
+        for kernel in cuda_lib.KERNELS.values():
+            kernel.launches = 0
+        results = rmc.generate(service, rmc.PROMPTS, REAL_MODEL_TOKENS)
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in cuda_lib.KERNELS.items()}
+        check_route(label, launches, bf16=dtype_name == "bfloat16")
+        if not all(launches[name] for name in path):
+            raise AssertionError(f"{label}: {path} not launched: "
+                                 f"{ {name: launches[name] for name in path} }")
+        got = [tuple(r.outputs[0].token_ids) for r in results]
+        if dtype_name == "float32":
+            if got != want:
+                raise AssertionError(f"{label}: tokens differ from the CPU's: {got} against "
+                                     f"{want}")
+            log(f"{label}: {sum(map(len, got))} tokens identical to the same tool on the CPU; "
+                f"first completion {results[0].outputs[0].output_text[:40]!r}")
+        else:
+            prefixes = near_tie_compare(label, got, want, top)
+            log(f"{label}: common prefix with the CPU's f32 tokens by request {prefixes} "
+                f"(of {REAL_MODEL_TOKENS}; past it a near-tie of the reference's top two)")
+        log(f"{label}: launches {{{', '.join(f'{n}: {launches[n]}' for n in path)}}}")
+        del service
+        gc.collect()
+        torch.cuda.empty_cache()
+    card_spec = acceptance(torch.float32)
+    if [a for a, _ in card_spec] != [a for a, _ in cpu_spec]:
+        raise AssertionError(f"real_model_check --spec f32: the card's acceptance {card_spec} "
+                             f"differs from the CPU's {cpu_spec}")
+    bf16_spec = acceptance(torch.bfloat16)
+    for (name, figures) in (("f32, card and CPU", card_spec), ("bf16, card", bf16_spec)):
+        log(f"real_model_check --spec tiny_trained {name}: acceptance "
+            f"{figures[0][0]} on the natural prompts ({figures[0][1]:.0f} drafts proposed), "
+            f"{figures[1][0]} on the repetitive ones ({figures[1][1]:.0f}); JAX's (BASELINE.md "
+            f"row 5a, a TPU run) {JAX_SPEC_ACCEPTANCE[0]} and {JAX_SPEC_ACCEPTANCE[1]}")
+    log(f"real_model_check phase: {time.monotonic() - t0:.1f} s [{card_line()}]")
+
+
 # The ladder in f32, card (kernels) against CPU (plain versions): the sums
 # differ in the last bits, and where a KV value or a W8A8 activation lies
 # that close to an int8 step or e4m3 code it lands on the neighbouring one
@@ -3107,18 +3350,23 @@ FAMILIES = {
 # The published checkpoints that need 9 to 16 q heads per kv head (the
 # public config.json of each Hugging Face model repository), served at a
 # cut depth with random weights from a seed: (config, layers, weight
-# quantization, KV caches). Mistral-Large-Instruct-2407 at 8 of its 88
-# layers in bf16 over a bf16 cache (24 GB of weights); Llama-3.1-405B at 4
+# quantization, KV caches). Mistral-Large-Instruct-2407 at 4 of its 88
+# layers in bf16 over a bf16 cache (15 GB of weights); Llama-3.1-405B at 4
 # of its 126 layers with INT8 weights over an INT8 cache, then an e4m3 one
 # (21 GB). All their layers would take 245 GB and 410 GB, past the card's
-# 80.
+# 80. No published checkpoint of the registries' families has more than
+# 16 q heads per kv head: the third takes Llama-3.1-8B's published widths
+# and rope and lets its 32 q heads share one kv head (G = 32, as an MQA
+# checkpoint of the Llama architecture would), at 8 of its 32 layers in
+# bf16 over a bf16 cache and then an INT8 one; its decode steps take the
+# write and the ragged kernel.
 GROUP_FAMILIES = {
     "Mistral-Large-Instruct-2407": (dict(
         model_type="mistral", vocab_size=32768, hidden_size=12288, intermediate_size=28672,
         num_hidden_layers=88, num_attention_heads=96, num_key_value_heads=8, head_dim=128,
         max_position_embeddings=131072, rope_theta=1000000.0, rms_norm_eps=1e-5,
         sliding_window=None, tie_word_embeddings=False, bos_token_id=1, eos_token_id=2),
-        8, None, (None,)),
+        4, None, (None,)),
     "Llama-3.1-405B": (dict(
         model_type="llama", vocab_size=128256, hidden_size=16384, intermediate_size=53248,
         num_hidden_layers=126, num_attention_heads=128, num_key_value_heads=8,
@@ -3127,6 +3375,14 @@ GROUP_FAMILIES = {
                           high_freq_factor=4.0, original_max_position_embeddings=8192),
         rms_norm_eps=1e-5, tie_word_embeddings=False, bos_token_id=128000,
         eos_token_id=128001), 4, "int8", KV8_DTYPES),
+    "Llama-3.1-8B MQA": (dict(
+        model_type="llama", vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=1,
+        max_position_embeddings=131072, rope_theta=500000.0,
+        rope_scaling=dict(rope_type="llama3", factor=8.0, low_freq_factor=1.0,
+                          high_freq_factor=4.0, original_max_position_embeddings=8192),
+        rms_norm_eps=1e-5, tie_word_embeddings=False, bos_token_id=128000,
+        eos_token_id=128001), 8, None, (None, "int8")),
 }
 # The family models' logits with the attention kernels against the same
 # bf16 model with the plain attention on the card: max |Δ| over the logits'
@@ -3645,6 +3901,10 @@ IDLE_WINDOW_START, IDLE_WINDOW_STEPS = 16, 8
 # the slowest interval. The others half as many, which keeps the smoke
 # inside half its time limit on a slow host.
 NEW_TOKENS, OTHER_SERVICES_TOKENS = 256, 128
+# The depth of the 8B services held only eager against graphs (INT4, W8A8,
+# INT8 and e4m3 KV): half of Llama-3.1-8B's 32 layers, as the families run
+# at half of theirs, so that the smoke stays inside its time limit.
+QUANT_HALF_LAYERS = 16
 
 
 # The bytes of the services' 8 prompts (one token a byte).
@@ -4793,28 +5053,44 @@ GROUP_TOKENS = 64
 
 
 def group_path(kv):
-    """The fused and ragged kernels of a bf16 service over a cache of
-    ``kv`` (None: bf16)."""
+    """The fused kernel, the ragged kernel and the write of a bf16 service
+    over a cache of ``kv`` (None: bf16)."""
     s = f"_{kv}" if kv else ""
-    return f"fused_decode_attention{s}_split", f"ragged_paged_attention{s}_mma"
+    return (f"fused_decode_attention{s}_split", f"ragged_paged_attention{s}_mma",
+            f"reshape_and_cache{s}")
 
 
-def check_step_routes(label, figures, layers, kv):
-    """Every pure-decode step of a ``drive`` run launched the split fused
-    kernel once a layer, and only the steps with a prefill chunk launched
-    the ragged kernel (once a layer): no decode step took the ragged
-    route."""
-    fused, ragged = group_path(kv)
+def check_step_routes(label, figures, layers, kv, route="fused"):
+    """The attention kernels of a ``drive`` run by step. ``route``
+    "fused": every pure-decode step launched the split fused kernel once a
+    layer, and only the steps with a prefill chunk launched the ragged
+    kernel (once a layer): no decode step took the ragged route. "ragged"
+    (past 16 q heads per kv head): every step, pure-decode ones included,
+    launched the write and then the ragged kernel once a layer, and no step
+    the fused kernel."""
+    fused, ragged, write = group_path(kv)
     decode = sum(1 for _, pure, rows in figures["dispatches"] if pure and rows)
     other = sum(1 for _, pure, rows in figures["dispatches"] if not pure and rows)
     got = figures["launches"]
-    if not decode or got[fused] != decode * layers or got[ragged] != other * layers:
+    if route == "fused":
+        ok = decode and got[fused] == decode * layers and got[ragged] == other * layers
+    else:
+        steps = (decode + other) * layers
+        ok = decode and got[fused] == 0 and got[ragged] == steps and got[write] == steps
+    if not ok:
         raise AssertionError(f"service {label}: {decode} pure-decode steps and {other} with a "
-                             f"prefill chunk over {layers} layers, but {got[fused]} {fused} and "
-                             f"{got[ragged]} {ragged} launches")
-    log(f"service {label}: {decode} pure-decode steps launched {fused} {got[fused]} times "
-        f"({layers} a step), {other} steps with a prefill chunk {ragged} {got[ragged]} times: "
-        "no decode step on the ragged route")
+                             f"prefill chunk over {layers} layers on the {route} route, but "
+                             f"{got[fused]} {fused}, {got[ragged]} {ragged} and {got[write]} "
+                             f"{write} launches")
+    if route == "fused":
+        log(f"service {label}: {decode} pure-decode steps launched {fused} {got[fused]} times "
+            f"({layers} a step), {other} steps with a prefill chunk {ragged} {got[ragged]} "
+            "times: no decode step on the ragged route")
+    else:
+        log(f"service {label}: {decode} pure-decode steps and {other} with a prefill chunk "
+            f"launched {write} {got[write]} and {ragged} {got[ragged]} times ({layers} a step "
+            f"each), {fused} {got[fused]} times; the merge of split rows "
+            f"{got['paged_attention_split_combine']} times")
 
 
 def group_family_model(torch, name, layers, quantization):
@@ -4841,17 +5117,21 @@ def group_family_model(torch, name, layers, quantization):
 
 
 def run_group_services(torch):
-    """Services at 9 to 16 q heads per kv head through ``LlmService.start``
-    (``GROUP_FAMILIES``, the 8 requests of ``PROMPT_LENGTHS`` at
-    GROUP_TOKENS tokens, one seeded): each (a) eager with the plain
-    attention on the card (the wrappers' CUDA entries swapped for their
-    plain versions, ``plain_attention``; top 2 logprobs asked), (b) eager
-    with the kernels, (c) synchronous with every step replaying its CUDA
-    graph. (b) is held to (a) under the near-tie rule, (c) to (b) token for
-    token; in (b) and (c) every pure-decode step launched the split fused
-    kernel and no decode step the ragged one (``check_step_routes``).
-    Returns (c)'s launches of each service's fused and ragged kernels,
-    keyed as ``check_group_kernels``' rows."""
+    """Services at 9 to 16 q heads per kv head, and at 32, through
+    ``LlmService.start`` (``GROUP_FAMILIES``, the 8 requests of
+    ``PROMPT_LENGTHS`` at GROUP_TOKENS tokens, one seeded): each (a) eager
+    with the plain attention on the card (the wrappers' CUDA entries
+    swapped for their plain versions, ``plain_attention``; top 2 logprobs
+    asked), (b) eager with the kernels, (c) synchronous with every step
+    replaying its CUDA graph. (b) is held to (a) under the near-tie rule,
+    (c) to (b) token for token; in (b) and (c) every pure-decode step
+    launched the split fused kernel and no decode step the ragged one, or
+    past 16 the write and the ragged kernel and never the fused one
+    (``check_step_routes``); (c)'s graph memory is held to the reserve.
+    Returns (c)'s launches of each service's kernels, keyed as
+    ``check_group_kernels``' rows."""
+    from atoma_infer_tpu_torch.ops.paged_attention import decode_route
+
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
     from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
 
@@ -4864,6 +5144,7 @@ def run_group_services(torch):
         torch.cuda.synchronize()
         cfg = model.config
         group = cfg.num_attention_heads // cfg.num_kv_heads
+        route = decode_route(cfg.num_attention_heads, cfg.num_kv_heads)
         log(f"service {name}: {layers} of {spec['num_hidden_layers']} layers, "
             f"{quantization or 'bf16'} weights drawn on the card in "
             f"{time.monotonic() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
@@ -4889,9 +5170,12 @@ def run_group_services(torch):
                 else:
                     runs[mode] = drive(torch, f"{label} [{mode}]", service, prompts,
                                        GROUP_TOKENS)
-                    check_step_routes(f"{label} [{mode}]", runs[mode][2], layers, kv)
+                    check_step_routes(f"{label} [{mode}]", runs[mode][2], layers, kv, route)
                     check_route(f"service {label} [{mode}]", runs[mode][2]["launches"],
                                 bf16=True)
+                if mode == "graphs":
+                    report_graph_memory(f"{label} [graphs]", service.engine.worker.graphs,
+                                        service.config, cfg)
                 log(f"service {label} [{mode}]: KV pool {service.config.cache.num_device_blocks}"
                     f" blocks; {steady_decode(runs[mode][2])}; start and traffic "
                     f"{time.monotonic() - t_run:.1f} s [{card_line()}]")
@@ -4921,47 +5205,35 @@ def run_group_services(torch):
 
 
 def run_quant_services(torch):
-    """Llama-3.1-8B at full width (32 layers) with INT8 weights, INT4
-    weights, and INT8 weights under W8A8, then INT8 weights over an INT8
-    and an e4m3 KV cache: random bf16 weights from a seeded generator,
-    quantized on the card with the port's quantize_weight (an untied
-    per-channel INT8 LM head in all). Returns each quantized and 1-byte-KV
-    kernel's launches from its own path's service, and with drafts (the
-    INT8 KV service again) its verify path's."""
-    from atoma_infer_tpu_torch.models.llama import Llama
-    from atoma_infer_tpu_torch.models.weights import quantize_params
+    """Llama-3.1-8B at full width and depth (32 layers) with INT8 weights,
+    then with INT8 weights over an INT8 KV cache and drafts; then at
+    ``QUANT_HALF_LAYERS`` of its layers with INT4 weights, with INT8
+    weights under W8A8, and with INT8 weights over an INT8 and an e4m3 KV
+    cache: random bf16 weights from a seeded generator, quantized on the
+    card with the port's quantize_weight (an untied per-channel INT8 LM
+    head in all). Returns each quantized and 1-byte-KV kernel's launches
+    from its own path's service, and with drafts its verify path's."""
     from atoma_infer_tpu_torch.ops import quant_kernels
 
-    model = Llama(llama_8b_config(32), dtype=torch.bfloat16, device="cuda")
     t0 = time.monotonic()
-    dense = model.init_params(torch.Generator(device=model.device).manual_seed(8))
-    params = {q: quantize_params(dense, q) for q in ("int8", "int4")}
-    del dense
+    model, params = llama_8b_layers(torch, torch.bfloat16, 32)
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     log(f"8B weights: drawn and quantized on the card in {time.monotonic() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
 
     config = llama_8b_service_config
     launches = {}
-    # bf16 activations at these shapes take F and G's tensor-core route.
-    runs = (
-        ("8B INT8", "int8", False, "quantized_matmul_int8_mma"),
-        ("8B INT4", "int4", False, "quantized_matmul_int4_mma"),
-        ("8B INT8 W8A8", "int8", True, "quantized_matmul_w8a8_mma"),
-    )
-    for label, quantization, w8a8, kernel in runs:
+
+    def serve_quantized(label, quantization, w8a8, kernel, *mode):
+        # bf16 activations at these shapes take F and G's tensor-core
+        # route. The LM head is INT8 per channel and weight-only in all.
         saved = quant_kernels._W8A8
         quant_kernels._W8A8 = w8a8
         try:
-            # The LM head is INT8 per channel and weight-only in all three.
-            path = SERVICE_PATH + (kernel, "quantized_matmul_int8_mma")
-            # Eager, then with graphs (whose launches count): async after
-            # warmup for INT8, synchronous for the others.
             counts = serve_both(
                 torch, label, model, params[quantization],
-                lambda a, q=quantization: config(q, async_scheduling=a), path,
-                *(("async+graphs", NEW_TOKENS) if label == "8B INT8" else ("graphs",)))
+                lambda a: config(quantization, async_scheduling=a),
+                SERVICE_PATH + (kernel, "quantized_matmul_int8_mma"), *mode)
         finally:
             quant_kernels._W8A8 = saved
         launches[kernel] = counts[kernel]
@@ -4975,6 +5247,22 @@ def run_quant_services(torch):
         gc.collect()
         torch.cuda.empty_cache()
 
+    # Eager, then with graphs (whose launches count): async after warmup.
+    serve_quantized("8B INT8", "int8", False, "quantized_matmul_int8_mma", "async+graphs",
+                    NEW_TOKENS)
+    launches.update(run_spec_service_8b(torch, model, params["int8"]))
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The services held only eager against graphs (synchronous), at half
+    # depth: each layer is the full one's, and the requests reach the same
+    # contexts, pages and splits.
+    model, params = llama_8b_layers(torch, torch.bfloat16, QUANT_HALF_LAYERS)
+    depth = f"({QUANT_HALF_LAYERS} of 32 layers)"
+    serve_quantized(f"8B INT4 {depth}", "int4", False, "quantized_matmul_int4_mma", "graphs")
+    serve_quantized(f"8B INT8 W8A8 {depth}", "int8", True, "quantized_matmul_w8a8_mma",
+                    "graphs")
     # INT8 weights over an INT8 KV cache (BASELINE config #3; the pool sized
     # from free memory, so the scales' bytes per block are exercised), then
     # over an e4m3 cache.
@@ -4986,7 +5274,7 @@ def run_quant_services(torch):
             made.append(config("int8", kv, async_scheduling=a, **cache))
             return made[-1]
 
-        label = f"8B INT8 + {kv.upper()} KV"
+        label = f"8B INT8 + {kv.upper()} KV {depth}"
         path = kv8_path(kv) + ("quantized_matmul_int8_mma", "paged_attention_split_combine")
         counts = serve_both(torch, label, model, params["int8"], make, path, "graphs")
         cfg = made[-1]
@@ -4998,8 +5286,7 @@ def run_quant_services(torch):
         launches.update({k: counts[k] for k in kv8_path(kv)})
         gc.collect()
         torch.cuda.empty_cache()
-
-    launches.update(run_spec_service_8b(torch, model, params["int8"]))
+    del model, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -7479,6 +7766,7 @@ def main() -> int:
         if not launches.get(key):
             raise AssertionError(f"{key.split('@')[0]} was not launched on a spec service")
     phase(run_tools)
+    phase(run_real_model_check)
 
     line = []
     # Every kernel at its main path's shapes; then A, B, C, D, E and the

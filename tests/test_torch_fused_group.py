@@ -21,13 +21,15 @@ the card. What is checked here:
   bf16), written caches and scales byte for byte JAX's;
 - the plain version against JAX's fused kernels at every group from 9 to
   16 (drawn by hypothesis), with a window, a soft cap or ALiBi;
-- a tiny Llama with 16 and with 12 q heads over one kv head served through
-  the port's and JAX's ``LlmService``, sync and async: greedy tokens
-  identical;
+- a tiny Llama with 16, 12, 17 and 32 q heads over one kv head served
+  through the port's and JAX's ``LlmService``, sync and async (17 and 32
+  also over a bf16, an INT8 and an e4m3 cache; past 16 a pure-decode step
+  takes the write and the ragged kernel on the card), and 34 q heads over
+  2 kv heads at tp 2 (a rank's group of 17): greedy tokens identical;
 - ``check_kernel_shapes`` (what ``LlmService.start`` runs on the card
   before loading) takes both published configs at tp 1 and tp 8 over every
-  cache kind, and refuses 17 q heads per kv head naming the ROADMAP.md item
-  that would add them.
+  cache kind, and groups of 17 to 128 at tp 1 and 2; it refuses 129,
+  naming the ROADMAP.md item that would add more.
 """
 
 import asyncio
@@ -252,10 +254,10 @@ def test_route_and_plan_at_groups_9_to_16(monkeypatch):
 
 
 # ------------------------------------------------------------- the services
-def _widths(hq):
+def _widths(hq, hk=1):
     return dict(
         vocab_size=512, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
-        num_attention_heads=hq, num_key_value_heads=1, head_dim=16,
+        num_attention_heads=hq, num_key_value_heads=hk, head_dim=16,
         max_position_embeddings=2048, rope_theta=10000.0, rope_scaling=None,
         tie_word_embeddings=True, eos_token_ids=(1,), bos_token_id=0,
     )
@@ -268,7 +270,18 @@ PROMPTS = [
 ]
 
 
-def _jax_tokens(widths, async_scheduling):
+def _jax_params(widths):
+    """The JAX Llama's f32 parameters at ``widths``, from a fixed key."""
+    from atoma_infer_tpu.models.llama import Llama, LlamaConfig
+
+    return Llama(LlamaConfig(**widths), dtype=jnp.float32).init_params(jax.random.PRNGKey(0))
+
+
+def _jax_tokens(widths, async_scheduling, *, dtype="float32", kv_cache_dtype=None, tp=1):
+    """JAX's greedy tokens on ``PROMPTS`` by request: the model
+    in ``dtype`` (its f32 parameters rounded to it), over a cache of
+    ``kv_cache_dtype`` (None: the model's dtype), at ``tp`` (a mesh of the
+    conftest's virtual CPU devices)."""
     from atoma_infer_tpu.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
@@ -277,10 +290,13 @@ def _jax_tokens(widths, async_scheduling):
     from atoma_infer_tpu.models.llama import Llama, LlamaConfig
     from atoma_infer_tpu.types import GenerateParameters, GenerateRequest
 
-    model = Llama(LlamaConfig(**widths), dtype=jnp.float32)
-    params = model.init_params(jax.random.PRNGKey(0))
+    params = _jax_params(widths)
+    jdtype = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    model = Llama(LlamaConfig(**widths), dtype=jdtype)
+    served = jax.tree_util.tree_map(lambda a: a.astype(jdtype), params)
     config = EngineConfig(
-        model=ModelConfig(model_name="tiny-random", dtype="float32"),
+        model=ModelConfig(model_name="tiny-random", dtype=dtype, kv_cache_dtype=kv_cache_dtype,
+                          tensor_parallel_size=tp),
         cache=CacheConfig(block_size=16, num_device_blocks_override=128,
                           num_host_blocks_override=32),
         scheduler=SchedulerConfig(max_num_batched_tokens=512, max_num_sequences=16,
@@ -288,7 +304,7 @@ def _jax_tokens(widths, async_scheduling):
                                   use_native_core=False, async_scheduling=async_scheduling),
         validation=ValidationConfig(max_input_tokens=256, max_total_tokens=512),
     )
-    service = LlmService.start(config, model=model, params=params,
+    service = LlmService.start(config, model=model, params=served,
                                tokenizer=ByteTokenizer(widths["vocab_size"]))
 
     async def run():
@@ -302,26 +318,67 @@ def _jax_tokens(widths, async_scheduling):
         task.cancel()
         return {r.request_id: list(r.outputs[0].token_ids) for r in results}
 
-    return asyncio.run(run()), params
+    return asyncio.run(run())
 
 
-@pytest.mark.parametrize("hq", [16, 12])
+@pytest.mark.parametrize("hq", [16, 12, 17, 32])
 @pytest.mark.parametrize("async_scheduling", [False, True], ids=["sync", "async"])
 def test_service_at_large_groups_matches_jax(hq, async_scheduling, tmp_path):
     """A 2-layer Llama with ``hq`` q heads over one kv head (the group of
-    Llama-3.1-405B's rank at tp 8, and of Mistral-Large-2's) through the
-    port's ``LlmService`` and JAX's on the same weights: greedy tokens
-    identical."""
-    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    Llama-3.1-405B's rank at tp 8, and of Mistral-Large-2's; past 16 a
+    group the fused kernel lacks, whose decode steps take the write and the
+    ragged kernel on the card) through the port's ``LlmService`` and JAX's
+    on the same weights: greedy tokens identical."""
+    assert _port_tokens(tmp_path, hq, async_scheduling) == _jax_tokens(
+        _widths(hq), async_scheduling)
 
-    widths = _widths(hq)
-    want, params = _jax_tokens(widths, async_scheduling)
-    factory = tpar.npz_factory(tpar.save_params(tmp_path / "llama.npz", params), "llama",
-                               widths)
-    config = tpar.tp_engine_config(1, async_scheduling=async_scheduling)
+
+def _port_tokens(tmp_path, hq, async_scheduling, *, dtype="float32", kv_cache_dtype=None,
+                 tp=1, hk=1, step_graphs=None):
+    """The port's greedy tokens on ``PROMPTS`` with JAX's f32 parameters
+    (rounded to ``dtype``), served as :func:`_jax_tokens` serves them; every
+    rank's workers keeping ``step_graphs`` (None: eager on the CPU)."""
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService, ModelFactory
+    from atoma_infer_tpu_torch.models.llama import LlamaConfig
+
+    widths = _widths(hq, hk)
+    path = tpar.save_params(tmp_path / "llama.npz", _jax_params(widths))
+    factory = ModelFactory(config=LlamaConfig(**widths), build=tpar.npz_model,
+                           args=(path, "llama", widths, getattr(torch, dtype)),
+                           step_graphs=step_graphs)
+    config = tpar.tp_engine_config(
+        tp, kv_cache_dtype=kv_cache_dtype, async_scheduling=async_scheduling,
+        coordinator_address=tpar.rendezvous_file(tmp_path) if tp > 1 else None)
+    config.model.dtype = dtype
     service = LlmService.start(config, model_factory=factory, device="cpu")
-    assert service.engine.worker.model.local_q_heads == hq
-    assert tpar.generate(service, PROMPTS) == want
+    if tp == 1:
+        assert service.engine.worker.model.local_q_heads == hq
+    return tpar.generate(service, PROMPTS)
+
+
+@pytest.mark.parametrize("hq", [17, 32])
+@pytest.mark.parametrize("dtype, kv", [("bfloat16", None), ("float32", "int8"),
+                                       ("float32", "fp8")], ids=["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("async_scheduling", [False, True], ids=["sync", "async"])
+def test_service_past_16_over_each_cache_matches_jax(hq, dtype, kv, async_scheduling, tmp_path):
+    """Groups of 17 and 32 q heads over one kv head, whose pure-decode steps
+    take the write and the ragged kernel on the card, over a bf16 cache (a
+    bf16 model) and INT8 and e4m3 caches: the port's greedy tokens are
+    JAX's, sync and async."""
+    want = _jax_tokens(_widths(hq), async_scheduling, dtype=dtype, kv_cache_dtype=kv)
+    assert _port_tokens(tmp_path, hq, async_scheduling, dtype=dtype,
+                        kv_cache_dtype=kv) == want
+
+
+@pytest.mark.parametrize("step_graphs", [None, tpar.StubStepGraphs], ids=["eager", "stub-graphs"])
+def test_service_at_a_rank_group_of_17_matches_jax_at_tp2(step_graphs, tmp_path):
+    """34 q heads over 2 kv heads at tp 2, each rank's group 17 (one kv
+    head, 17 q heads: the write and the ragged kernel on the card), two
+    ranks on gloo, eager and through stub graphs captured in segments
+    between the collectives, against JAX's service at tp 2: greedy tokens
+    identical."""
+    want = _jax_tokens(_widths(34, 2), False, tp=2)
+    assert _port_tokens(tmp_path, 34, False, tp=2, hk=2, step_graphs=step_graphs) == want
 
 
 # --------------------------------------------------- the service's shape check
@@ -360,13 +417,21 @@ def test_service_shape_check_takes_published_groups(name, tp, dtype, kv):
     check_kernel_shapes(cfg, _engine_config(dtype, kv, tp))
 
 
+@pytest.mark.parametrize("group", [17, 32, 128, 129])
 @pytest.mark.parametrize("tp", [1, 2])
-def test_service_shape_check_refuses_17_naming_the_item(tp):
+def test_service_shape_check_refuses_17_naming_the_item(tp, group):
+    """A rank's group past 16 over 8 kv heads, at tp 1 and tp 2 (the
+    rank's group unchanged): up to 128 the check passes and a pure-decode
+    step takes the write and the ragged kernel (``decode_route``); at 129
+    it refuses, naming ROADMAP.md's item for groups past 128."""
     from atoma_infer_tpu_torch.engine.llm_service import check_kernel_shapes
     from atoma_infer_tpu_torch.models.llama import LlamaConfig
 
-    cfg = LlamaConfig(head_dim=128, num_attention_heads=136, num_key_value_heads=8)
-    with pytest.raises(ValueError, match="17 q heads per kv head unsupported .*ROADMAP.md, "
-                       "Queue 1: fused decode at more than 16 q heads per kv head, two m16 "
-                       "tiles a kv head"):
+    cfg = LlamaConfig(head_dim=128, num_attention_heads=8 * group, num_key_value_heads=8)
+    assert pa.decode_route(8 * group // tp, 8 // tp) == "ragged"
+    if group <= pa.MAX_RAGGED_GROUP:
+        check_kernel_shapes(cfg, _engine_config("bfloat16", None, tp))
+        return
+    with pytest.raises(ValueError, match="129 q heads per kv head unsupported .*ROADMAP.md, "
+                       "Queue 1 item 21: attention past 128 q heads per kv head"):
         check_kernel_shapes(cfg, _engine_config("bfloat16", None, tp))

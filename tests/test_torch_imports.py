@@ -62,7 +62,7 @@ def test_the_tools_subpackage_is_walked():
     walked = {os.path.relpath(p, PORT_DIR) for p in _port_files()}
     tools = {os.path.join("tools", f"{name}.py") for name in (
         "__init__", "w8a8_probe", "w8a8_gate", "kv_quant_gate", "quality_ladder",
-        "tiny_corpus", "decode_harness")}
+        "tiny_corpus", "decode_harness", "real_model_check")}
     assert tools <= walked
 
 

@@ -209,23 +209,38 @@ def test_f32_wide_heads_plain_vs_pallas(D, num_kv_heads, group, kv):
 
 
 @pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
-@pytest.mark.parametrize("group", [1, 3, 8])
+@pytest.mark.parametrize("group", [1, 3, 8, 17, 32, 33, 65, 128])
 def test_cuda_core_ragged_thread_map_sums_each_dim_once(D, group):
     """A numpy model of ``rpa_kernel``'s thread map (``csrc/paged_attention.cuh``):
     TPR = ``rpa_threads_per_row`` threads a row (4 at D = 96, D / 32
     otherwise), DPT = D / TPR dims each, the block's rows token-major in
-    threads rounded up to whole warps. Each thread's dims and its shared
-    memory reads (row j at j KS + part (DPT + 1) + i, KS = TPR (DPT + 1),
-    where the staging loop stored dim d at d / DPT (DPT + 1) + d % DPT) are
-    its own dims; the xor butterfly (offsets 1, 2, .. < TPR, within the
-    warp) sums a row's TPR partial dots and nothing else, so every lane of
-    a row ends with the row's full dot, each dim summed once."""
+    threads rounded up to whole warps. A group whose token takes more than
+    256 threads is cut into slices of ``group_rows`` q heads, a block each
+    (``ragged_paged_attention_entry``, the kernel's ``g0``): every (token,
+    q head) of a tile is one active row of one slice. Each thread's dims
+    and its shared memory reads (row j at j KS + part (DPT + 1) + i, KS =
+    TPR (DPT + 1), where the staging loop stored dim d at d / DPT (DPT + 1)
+    + d % DPT) are its own dims; the xor butterfly (offsets 1, 2, .. < TPR,
+    within the warp) sums a row's TPR partial dots and nothing else, so
+    every lane of a row ends with the row's full dot, each dim summed
+    once."""
     tpr = 4 if D == 96 else D // 32
     dpt = D // tpr
     assert tpr & (tpr - 1) == 0 and 32 % tpr == 0 and dpt * tpr == D
-    block_q = min(16, max(1, 256 // (group * tpr)))
-    threads = -(-block_q * group * tpr // 32) * 32
-    assert threads <= 256
+    cut = -(-group * tpr // 256)
+    group_rows = -(-group // cut)
+    slices = -(-group // group_rows)
+    block_q = min(16, max(1, 256 // (group_rows * tpr)))
+    threads = -(-block_q * group_rows * tpr // 32) * 32
+    assert threads <= 256 and slices <= cut
+    rows = []
+    for z in range(slices):
+        g0 = z * group_rows
+        for row in range(threads // tpr):
+            ti, g = row // group_rows, g0 + row % group_rows
+            if ti < block_q and g < group:
+                rows.append((ti, g))
+    assert sorted(rows) == [(ti, g) for ti in range(block_q) for g in range(group)]
     ks = tpr * (dpt + 1)
     # Where the staging loop stores each dim of a key row, and what each
     # thread reads back: its own DPT dims, each slot once.
@@ -270,6 +285,8 @@ def test_kernel_shape_check_admits_every_multiple_of_8(block_size):
 
 @pytest.mark.parametrize("group, block_size, fused, message", [
     (17, 16, True, "17 q heads per kv head unsupported .*more than 16 q heads per kv head"),
+    (129, 16, False, "129 q heads per kv head unsupported .*Queue 1 item 21"),
+    (0, 16, False, "0 q heads per kv head unsupported"),
     (4, 12, False, "block_size 12"),
     (4, 12, True, "block_size 12"),
     (4, 0, False, "block_size 0"),
@@ -342,41 +359,82 @@ def test_service_shape_check(family, dtype, kv):
     check_kernel_shapes(cfg, _engine_config(dtype, kv))
 
 
-def test_service_shape_check_refuses_a_group_the_fused_kernel_lacks():
+ITEM_21 = ("q heads per kv head unsupported .*ROADMAP.md, Queue 1 item 21: attention past "
+           "128 q heads per kv head")
+
+
+@pytest.mark.parametrize("group", [17, 32, 128, 129])
+@pytest.mark.parametrize("dtype, kv", [("bfloat16", None), ("float32", None),
+                                       ("bfloat16", "int8"), ("bfloat16", "fp8")])
+def test_service_shape_check_refuses_a_group_the_fused_kernel_lacks(group, dtype, kv):
+    """A group the fused kernel lacks (past 16 q heads per kv head): up to
+    128 the service check passes it, since its pure-decode steps take the
+    write and the ragged kernel (``decode_route``), over every cache kind
+    and in f32 (the CUDA-core kernel cuts a wide group over blocks); at 129
+    it refuses, naming ROADMAP.md's item."""
     from atoma_infer_tpu_torch.engine.llm_service import check_kernel_shapes
     from atoma_infer_tpu_torch.models.llama import LlamaConfig
 
-    cfg = LlamaConfig(head_dim=128, num_attention_heads=68, num_key_value_heads=4)
-    with pytest.raises(ValueError, match="17 q heads per kv head unsupported"):
-        check_kernel_shapes(cfg, _engine_config("bfloat16"))
+    cfg = LlamaConfig(head_dim=128, num_attention_heads=4 * group, num_key_value_heads=4)
+    assert pa.decode_route(4 * group, 4) == "ragged"
+    if group > pa.MAX_RAGGED_GROUP:
+        with pytest.raises(ValueError, match=f"{group} {ITEM_21}"):
+            check_kernel_shapes(cfg, _engine_config(dtype, kv))
+    else:
+        check_kernel_shapes(cfg, _engine_config(dtype, kv))
 
 
+@pytest.mark.parametrize("hq, hk, route", [(1, 1, "fused"), (16, 1, "fused"), (32, 2, "fused"),
+                                           (17, 1, "ragged"), (34, 2, "ragged"),
+                                           (128, 1, "ragged"), (256, 2, "ragged")])
+def test_decode_route_by_group(hq, hk, route):
+    """The fused kernel up to MAX_FUSED_GROUP q heads per kv head, the
+    write and the ragged kernel past it."""
+    assert pa.decode_route(hq, hk) == route
+
+
+class _Loading(Exception):
+    """Raised in place of building the model: the start got past its check."""
+
+
+@pytest.mark.parametrize("hq", [34, 258], ids=["group-17", "group-129"])
 @pytest.mark.parametrize("dtype, kv, item", [
     ("float32", None, "f32 attention at head dims 96 and 256"),
     ("bfloat16", "int8", "kernels D and E at head dims 96 and 256"),
 ])
-def test_cuda_service_refuses_before_loading(dtype, kv, item, tmp_path, monkeypatch):
+def test_cuda_service_refuses_before_loading(hq, dtype, kv, item, tmp_path, monkeypatch):
     """``LlmService.start`` on the card, from a directory holding only a
     ``config.json`` of Phi-3-mini's head dim on a route that used to refuse
-    it (``item``) and 17 q heads per kv head, a group the fused kernel still
-    lacks (no weights, no tokenizer): the refusal comes from the config
+    it (``item``) and ``hq`` q heads over 2 kv heads (no weights, no
+    tokenizer). At 17 q heads per kv head, which the fused kernel lacks and
+    the write and the ragged kernel serve, the check passes and the start
+    goes on to build the model; at 129 the refusal comes from the config
     alone, before anything is read or allocated, and names the group's
     ROADMAP item, not the head dim's."""
     import json
 
     from atoma_infer_tpu_torch.config import EngineConfig
     from atoma_infer_tpu_torch.engine import llm_service
+    from atoma_infer_tpu_torch.models import registry
 
     (tmp_path / "config.json").write_text(json.dumps(dict(
-        model_type="phi3", vocab_size=64, hidden_size=3264, intermediate_size=256,
-        num_hidden_layers=1, num_attention_heads=34, num_key_value_heads=2, sliding_window=2047,
+        model_type="phi3", vocab_size=64, hidden_size=96 * hq, intermediate_size=256,
+        num_hidden_layers=1, num_attention_heads=hq, num_key_value_heads=2, sliding_window=2047,
     )))
     monkeypatch.setattr(llm_service, "resolve_device", lambda device: torch.device("cuda"))
+
+    def loading(*args, **kw):
+        raise _Loading
+
+    monkeypatch.setattr(registry, "get_model_cls", loading)
     config = EngineConfig.from_dict({
         "inference": {"model_name": str(tmp_path), "dtype": dtype, "kv_cache_dtype": kv},
         "scheduler": {"max_model_len": 2048},
     })
-    with pytest.raises(ValueError, match="17 q heads per kv head unsupported .*ROADMAP.md, "
-                       "Queue 1: fused decode at more than 16 q heads per kv head") as refused:
+    if hq // 2 <= pa.MAX_RAGGED_GROUP:
+        with pytest.raises(_Loading):
+            llm_service.LlmService.start(config, model_dir=str(tmp_path))
+        return
+    with pytest.raises(ValueError, match=f"129 {ITEM_21}") as refused:
         llm_service.LlmService.start(config, model_dir=str(tmp_path))
     assert item not in str(refused.value)
