@@ -77,9 +77,18 @@
 // fp16 queries (Q = __half; bf16 is Q = __nv_bfloat16) run the same kernel
 // on mma.sync's f16 form: q, k_new, v_new and out fp16, the 1-byte caches
 // widened to fp16 (exact), P rounded to fp16; INT8 scales stay bf16.
-// Head dims 32, 64, 96 (Phi-3-mini), 128 and 256 (Gemma-2) over every cache
-// kind; a source instantiates the narrow dims (32, 64, 128), the wide ones
-// (96, 256) or both (HeadDimSet). At D = 96 a K row is 12 16-byte pieces
+// Any even head dim from 8 to 256 over every cache kind, at the
+// instantiation width D (32, 64, 96, 128 or 256; instance_dim) with the head
+// dim passed at run time, as paged_attention_mma.cuh takes it. A head dim
+// below its width runs the PAD instantiation, one a width, G =
+// kFsTwoHalves (any group of 1 to 16 at run time): the ring's K columns and
+// q_s's from head_dim to D are zero (cp.async's source size of 0), a V
+// run's elements past head_dim are 0 and never read (load_run_padded), the
+// output columns past head_dim are never stored, and a head of no multiple
+// of 16 bytes is copied and read in narrower pieces; the other
+// instantiations run the code they ran before. A source instantiates the
+// narrow widths (32, 64, 128), the wide ones (96, 256) or both
+// (HeadDimSet). At D = 96 a K row is 12 16-byte pieces
 // in the queries' dtype and 6 in a 1-byte cache, neither of which divides a
 // warp's 32 lanes, so the ring's copies walk the round's pieces key-major.
 // A 192-byte row already starts 64 bytes from the next modulo 128, so a
@@ -192,6 +201,56 @@ __device__ __forceinline__ VRun<C, N> load_run(const C* p, bool valid) {
   return r;
 }
 
+// load_run's piece: 16, 8 or 4 bytes.
+template <typename C, int N>
+struct RunPiece {
+  static constexpr int kBytes =
+      VRun<C, N>::kWords % 4 == 0 ? 16 : VRun<C, N>::kWords % 2 == 0 ? 8 : 4;
+};
+
+// load_run at a padded head dim: the run's first nbytes (those inside the
+// head), the rest 0. Where the head's copy width cw is at least load_run's
+// piece, in those pieces; else (the run then starts only cw aligned) in
+// 4-byte reads, or 2-byte ones at a copy width of 2.
+template <typename C, int N>
+__device__ __forceinline__ VRun<C, N> load_run_padded(const C* p, bool valid, int nbytes,
+                                                      int cw) {
+  constexpr int kWords = VRun<C, N>::kWords, kPiece = RunPiece<C, N>::kBytes;
+  VRun<C, N> r;
+  const char* b = reinterpret_cast<const char*>(p);
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) r.w[i] = 0u;
+  if (!valid) return r;
+  if (cw >= kPiece) {
+#pragma unroll
+    for (int i = 0; i < kWords; i += kPiece / 4) {
+      if (4 * i >= nbytes) continue;
+      if constexpr (kPiece == 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(b + 4 * i);
+        r.w[i] = v.x, r.w[i + 1] = v.y, r.w[i + 2] = v.z, r.w[i + 3] = v.w;
+      } else if constexpr (kPiece == 8) {
+        const uint2 v = *reinterpret_cast<const uint2*>(b + 4 * i);
+        r.w[i] = v.x, r.w[i + 1] = v.y;
+      } else {
+        r.w[i] = *reinterpret_cast<const uint32_t*>(b + 4 * i);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      if (4 * i >= nbytes) continue;
+      if (cw >= 4) {
+        r.w[i] = *reinterpret_cast<const uint32_t*>(b + 4 * i);
+      } else {
+        const uint32_t hi =
+            4 * i + 2 < nbytes ? *reinterpret_cast<const uint16_t*>(b + 4 * i + 2) : 0u;
+        r.w[i] = *reinterpret_cast<const uint16_t*>(b + 4 * i) | hi << 16;
+      }
+    }
+  }
+  return r;
+}
+
 // Element m of two runs (two keys' values of one dim) as a Q pair, lo in
 // the low half: the B register of P·V's mma (exact for every cache kind).
 template <typename C, typename Q>
@@ -206,14 +265,15 @@ __device__ __forceinline__ uint32_t key_pair(const uint32_t* lo, const uint32_t*
   }
 }
 
-// q, k_new, v_new: Q [T, H, D] (H = Hq or Hk); cache [pages, block_size,
-// 2 Hk D] of C; scales: bf16 [pages, block_size, 2] (INT8) or null;
-// scales_new: f32 [T, 2] (INT8, the new tokens' scales) or null; out Q
-// [T, Hq, D]; ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq, 2]
-// when splits > 1; group: the query heads a kv head (G, or 9 to 16 when G
-// is kFsTwoHalves). Grid (Hk, sequence slots, splits), kFsWarps * 32
-// threads, fs_smem_bytes<C, D, G>() bytes of dynamic shared memory.
-template <typename Q, typename C, int D, int G>
+// q, k_new, v_new: Q [T, H, head_dim] (H = Hq or Hk); cache [pages,
+// block_size, 2 Hk head_dim] of C; scales: bf16 [pages, block_size, 2]
+// (INT8) or null; scales_new: f32 [T, 2] (INT8, the new tokens' scales) or
+// null; out Q [T, Hq, head_dim]; ws_o f32 [splits, T, Hq, head_dim] and
+// ws_ml f32 [splits, T, Hq, 2] when splits > 1; group: the query heads a kv
+// head (G, or 9 to 16 when G is kFsTwoHalves); head_dim at most D, even.
+// Grid (Hk, sequence slots, splits), kFsWarps * 32 threads,
+// fs_smem_bytes<C, D, G>() bytes of dynamic shared memory.
+template <typename Q, typename C, int D, int G, bool PAD = false>
 __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split_kernel(
     const Q* __restrict__ q, const Q* __restrict__ k_new,
     const Q* __restrict__ v_new, C* cache, __nv_bfloat16* scales,
@@ -222,8 +282,9 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
     const int* __restrict__ query_start_loc,
     const int* __restrict__ num_seqs, const float* __restrict__ alibi,
     Q* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
-    int num_tokens, int num_kv_heads, int max_pages, int block_size, long long num_slots,
-    int splits, int min_tiles, float scale, int window, float soft_cap, int group) {
+    int num_tokens, int num_kv_heads, int head_dim, int max_pages, int block_size,
+    long long num_slots, int splits, int min_tiles, float scale, int window, float soft_cap,
+    int group) {
   static_assert(G <= 8 || G == kFsTwoHalves, "one half of the tile, or both");
   using L = FsTile<C, D>;
   constexpr int NW = kFsWarps;
@@ -265,9 +326,17 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
 
   const int num_q_heads = num_kv_heads * ng;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long row_stride = 2LL * num_kv_heads * D;
-  const long long q_base = ((long long)t * num_q_heads + (long long)h * ng) * D;
-  for (int i = tid; i < ng * D; i += NW * 32) q_s[i] = to_float(q[q_base + i]);
+  const int hd = PAD ? head_dim : D;  // D itself but at a padded head dim
+  const long long row_stride = 2LL * num_kv_heads * hd;
+  const long long q_base = ((long long)t * num_q_heads + (long long)h * ng) * hd;
+  for (int i = tid; i < ng * D; i += NW * 32) {
+    if constexpr (PAD) {  // q_s is D wide, 0 past head_dim
+      const int g = i / D, d = i - g * D;
+      q_s[i] = d < hd ? to_float(q[q_base + g * hd + d]) : 0.f;
+    } else {
+      q_s[i] = to_float(q[q_base + i]);
+    }
+  }
 
   const long long slot = slot_mapping[t];
   const bool write = last && slot >= 0 && slot < num_slots;
@@ -279,10 +348,10 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
         bk = __float2bfloat16_rn(scales_new[2 * t]);
         bv = __float2bfloat16_rn(scales_new[2 * t + 1]);
       } else {
-        const Q* kn_row = k_new + (long long)t * num_kv_heads * D;
-        const Q* vn_row = v_new + (long long)t * num_kv_heads * D;
+        const Q* kn_row = k_new + (long long)t * num_kv_heads * hd;
+        const Q* vn_row = v_new + (long long)t * num_kv_heads * hd;
         float mk, mv;
-        row_absmax(kn_row, vn_row, num_kv_heads * D, red_s, mk, mv);
+        row_absmax(kn_row, vn_row, num_kv_heads * hd, red_s, mk, mv);
         bk = kv_scale(mk);
         bv = kv_scale(mv);
       }
@@ -297,11 +366,11 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
     }
   }
   if (write) {
-    const Q* kn = k_new + ((long long)t * num_kv_heads + h) * D;
-    const Q* vn = v_new + ((long long)t * num_kv_heads + h) * D;
-    C* dst = cache + slot * row_stride + (long long)h * 2 * D;
-    for (int i = tid; i < 2 * D; i += NW * 32)
-      dst[i] = i < D ? encode<C>(to_float(kn[i]), inv_k) : encode<C>(to_float(vn[i - D]), inv_v);
+    const Q* kn = k_new + ((long long)t * num_kv_heads + h) * hd;
+    const Q* vn = v_new + ((long long)t * num_kv_heads + h) * hd;
+    C* dst = cache + slot * row_stride + (long long)h * 2 * hd;
+    for (int i = tid; i < 2 * hd; i += NW * 32)
+      dst[i] = i < hd ? encode<C>(to_float(kn[i]), inv_k) : encode<C>(to_float(vn[i - hd]), inv_v);
   }
   __syncthreads();  // q_s staged; the new slice stored (last split)
 
@@ -347,8 +416,16 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
   const int* bt = block_tables + (long long)s * max_pages;
-  const C* kbase = cache + (long long)h * 2 * D;
-  const C* vrun = kbase + D + NT * gid;
+  const C* kbase = cache + (long long)h * 2 * hd;
+  const C* vrun = kbase + hd + NT * gid;
+  // At a padded head dim (PAD): a K row's bytes and copy width, and how
+  // much of each of the lane's V runs lies inside the head.
+  const int head_bytes = hd * (int)sizeof(C);
+  const int cw = copy_width(head_bytes);
+  int run_bytes[NT / VC];  // a V run's bytes inside the head, by c0
+#pragma unroll
+  for (int c0 = 0; c0 < NT; c0 += VC)
+    run_bytes[c0 / VC] = min(VC, max(0, hd - NT * gid - c0)) * (int)sizeof(C);
 
   // A lane's key of the round starting at `base` is base + lane; its slot
   // (an int: the entry point takes caches of fewer than 2^31 slots).
@@ -366,21 +443,46 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
   // p / kChunks (kWalk).
   constexpr bool kWalk = 32 % L::kChunks != 0;
   const uint32_t ring = smem_addr(fs_ring) + warp * L::kRing;
-  const char* kbytes =
-      reinterpret_cast<const char*>(kbase) + (kWalk ? 0 : (lane % L::kChunks) * 16);
+  // At a padded head dim (PAD) a chunk past head_dim is zero-filled and
+  // reads nothing, and a head of no multiple of 16 bytes is copied in
+  // copy_width pieces (cp_async_part) by a loop of its own.
+  const int lane_bytes = PAD && !kWalk ? piece_bytes(lane % L::kChunks, head_bytes) : 16;
+  const char* kbytes = reinterpret_cast<const char*>(kbase) +
+                       (kWalk || lane_bytes == 0 ? 0 : (lane % L::kChunks) * 16);
   auto issue = [&](int base, int kslot, int stage) {
+    if constexpr (PAD) {
+      if (cw != 16) {
+#pragma unroll 1
+        for (int c = 0; c < L::kChunks; ++c) {
+          int key, chunk;
+          if constexpr (!kWalk) {
+            key = c * (32 / L::kChunks) + lane / L::kChunks, chunk = lane % L::kChunks;
+          } else {
+            key = (32 * c + lane) / L::kChunks, chunk = (32 * c + lane) % L::kChunks;
+          }
+          const long long ks = __shfl_sync(0xffffffffu, kslot, key);
+          const int n = base + key < key_hi ? piece_bytes(chunk, head_bytes) : 0;
+          cp_async_part(ring + stage * L::kStage + key * L::kRow + chunk * 16,
+                        n > 0 ? reinterpret_cast<const char*>(kbase) + chunk * 16 +
+                                    ks * row_stride * (long long)sizeof(C)
+                              : reinterpret_cast<const char*>(kbase),
+                        n, cw);
+        }
+        return;
+      }
+    }
 #pragma unroll
     for (int c = 0; c < L::kChunks; ++c) {
       if constexpr (!kWalk) {
         const int key = c * (32 / L::kChunks) + lane / L::kChunks;
         const long long ks = __shfl_sync(0xffffffffu, kslot, key);
-        const bool ok = base + key < key_hi;
+        const bool ok = base + key < key_hi && (!PAD || lane_bytes > 0);
         cp_async16(ring + stage * L::kStage + key * L::kRow + (lane % L::kChunks) * 16,
                    ok ? kbytes + ks * row_stride * (long long)sizeof(C) : kbytes, ok);
       } else {
         const int p = 32 * c + lane, key = p / L::kChunks, chunk = p % L::kChunks;
         const long long ks = __shfl_sync(0xffffffffu, kslot, key);
-        const bool ok = base + key < key_hi;
+        const bool ok = base + key < key_hi && (!PAD || 16 * chunk < head_bytes);
         cp_async16(ring + stage * L::kStage + key * L::kRow + chunk * 16,
                    ok ? kbytes + chunk * 16 + ks * row_stride * (long long)sizeof(C) : kbytes,
                    ok);
@@ -520,7 +622,12 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
         for (int i = 0; i < 4; ++i) {
           const int key = 16 * q + 2 * tig + (i & 1) + 8 * (i >> 1);
           const long long vs = __shfl_sync(0xffffffffu, kslot, key);
-          v[i] = load_run<C, VC>(vrun + vs * row_stride + c0, base + key < key_hi);
+          if constexpr (PAD) {
+            v[i] = load_run_padded<C, VC>(vrun + vs * row_stride + c0, base + key < key_hi,
+                                          run_bytes[c0 / VC], cw);
+          } else {
+            v[i] = load_run<C, VC>(vrun + vs * row_stride + c0, base + key < key_hi);
+          }
         }
         uint32_t a[4] = {pa[0][q][0], 0u, pa[0][q][1], 0u};
         if constexpr (NH == 2) a[1] = pa[1][q][0], a[3] = pa[1][q][1];
@@ -561,28 +668,38 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
   }
   __syncthreads();
   const long long row0 = (long long)t * num_q_heads + (long long)h * ng;
-  for (int i = tid; i < ng * D; i += NW * 32) {
-    const int g = i / D, d = i - g * D;
-    float mx = kNegInf;
+  // The output's W = head_dim dims a head (the constant D but at PAD);
+  // acc_s is D wide.
+  auto store = [&](auto width) {
+    const int W = width;
+    for (int i = tid; i < ng * W; i += NW * 32) {
+      const int g = i / W, d = i - g * W;
+      float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, m_s[w][g]);
-    float sum = 0.f, ov = 0.f;
+      for (int w = 0; w < NW; ++w) mx = fmaxf(mx, m_s[w][g]);
+      float sum = 0.f, ov = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float c = m_s[w][g] == kNegInf ? 0.f : expf(m_s[w][g] - mx);
-      sum += l_s[w][g] * c;
-      ov += acc_s[(w * ng + g) * D + d] * c;
-    }
-    if (nsplit == 1) {
-      out[q_base + i] = from_float<Q>(sum > 0.f ? ov / sum : 0.f);
-    } else {  // unnormalized, with (m, l), for rpa_combine_kernel
-      const long long wrow = (long long)split * num_tokens * num_q_heads + row0 + g;
-      ws_o[wrow * D + d] = ov;
-      if (d == 0) {
-        ws_ml[2 * wrow] = mx;
-        ws_ml[2 * wrow + 1] = sum;
+      for (int w = 0; w < NW; ++w) {
+        const float c = m_s[w][g] == kNegInf ? 0.f : expf(m_s[w][g] - mx);
+        sum += l_s[w][g] * c;
+        ov += acc_s[(w * ng + g) * D + d] * c;
+      }
+      if (nsplit == 1) {
+        out[q_base + i] = from_float<Q>(sum > 0.f ? ov / sum : 0.f);
+      } else {  // unnormalized, with (m, l), for rpa_combine_kernel
+        const long long wrow = (long long)split * num_tokens * num_q_heads + row0 + g;
+        ws_o[wrow * W + d] = ov;
+        if (d == 0) {
+          ws_ml[2 * wrow] = mx;
+          ws_ml[2 * wrow + 1] = sum;
+        }
       }
     }
+  };
+  if constexpr (PAD) {
+    store(hd);
+  } else {
+    store(FixedDim<D>{});
   }
 }
 
@@ -590,22 +707,22 @@ __global__ void __launch_bounds__(kFsWarps * 32, kFsMinBlocks<C, D>) fused_split
 // device and library: internal linkage, so that another library built from
 // this header (the measurement tools' variants) keeps its own flags.
 namespace {
-template <typename Q, typename C, int D, int G>
+template <typename Q, typename C, int D, int G, bool PAD = false>
 cudaError_t fused_split_attributes() {
   static atoma::PerDevice state;
   return atoma::once_per_device(state, [] {
-    return cudaFuncSetAttribute(fused_split_kernel<Q, C, D, G>,
+    return cudaFuncSetAttribute(fused_split_kernel<Q, C, D, G, PAD>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 fs_smem_bytes<C, D, G>());
   });
 }
 }  // namespace
 
-template <typename Q, typename C, int D, int G>
+template <typename Q, typename C, int D, int G, bool PAD = false>
 int fused_split_blocks_per_sm() {
-  if (fused_split_attributes<Q, C, D, G>() != cudaSuccess) return -1;
+  if (fused_split_attributes<Q, C, D, G, PAD>() != cudaSuccess) return -1;
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_split_kernel<Q, C, D, G>,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_split_kernel<Q, C, D, G, PAD>,
                                                     kFsWarps * 32,
                                                     fs_smem_bytes<C, D, G>()) != cudaSuccess)
     return -1;
@@ -628,35 +745,39 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
     return (int)cudaErrorInvalidValue;
   const int group = num_q_heads / num_kv_heads;
   // The instantiation: the group itself up to 8, both halves of the tile
-  // from 9 to 16.
+  // from 9 to 16; the width that holds the head dim, and below it the PAD
+  // instantiation of both halves, which takes any group to 16.
   const int inst = group <= 8 ? group : (group <= kFsTwoHalves ? kFsTwoHalves : 0);
+  const int dp = instance_dim(head_dim);
+  const bool pad = head_dim != dp;
 #ifdef ATOMA_FS_SEQ_MAJOR
   const dim3 grid(num_seq_slots, num_kv_heads, splits);
 #else
   const dim3 grid(num_kv_heads, num_seq_slots, splits);
 #endif
   cudaStream_t st = (cudaStream_t)stream;
-#define ATOMA_FS(D, G)                                                                         \
-  if (head_dim == D && inst == G) {                                                            \
-    const cudaError_t opt_in = fused_split_attributes<Q, C, D, G>();                           \
+#define ATOMA_FS_P(D, G, P)                                                                    \
+  if (dp == D && (P ? pad && inst != 0 : !pad && inst == G)) {                                 \
+    const cudaError_t opt_in = fused_split_attributes<Q, C, D, G, P>();                        \
     if (opt_in != cudaSuccess) return (int)opt_in;                                             \
-    fused_split_kernel<Q, C, D, G><<<grid, kFsWarps * 32, fs_smem_bytes<C, D, G>(), st>>>(    \
+    fused_split_kernel<Q, C, D, G, P><<<grid, kFsWarps * 32, fs_smem_bytes<C, D, G>(), st>>>( \
         (const Q*)q, (const Q*)k_new, (const Q*)v_new,                                         \
         (C*)cache, (__nv_bfloat16*)scales, (const float*)scales_new, (const int*)slot_mapping,  \
         (const int*)block_tables,                                                              \
         (const int*)seq_lens, (const int*)query_start_loc, (const int*)num_seqs,               \
         (const float*)alibi, (Q*)out, (float*)ws_o, (float*)ws_ml, num_tokens,                \
-        num_kv_heads, max_pages, block_size, num_slots, splits, min_tiles, scale, window,      \
-        soft_cap, group);                                                                      \
+        num_kv_heads, head_dim, max_pages, block_size, num_slots, splits, min_tiles, scale,    \
+        window, soft_cap, group);                                                              \
     return (int)cudaGetLastError();                                                            \
   }
+#define ATOMA_FS(D, G) ATOMA_FS_P(D, G, false)
 #ifdef ATOMA_FS_SHAPES_D128_G4
   ATOMA_FS(64, 4)
   ATOMA_FS(128, 4)
 #else
 #define ATOMA_FS_D(D) \
   ATOMA_FS(D, 1) ATOMA_FS(D, 2) ATOMA_FS(D, 3) ATOMA_FS(D, 4) ATOMA_FS(D, 5) ATOMA_FS(D, 6) \
-  ATOMA_FS(D, 7) ATOMA_FS(D, 8) ATOMA_FS(D, kFsTwoHalves)
+  ATOMA_FS(D, 7) ATOMA_FS(D, 8) ATOMA_FS(D, kFsTwoHalves) ATOMA_FS_P(D, kFsTwoHalves, true)
   if constexpr ((DIMS & kNarrowDims) != 0) {
     ATOMA_FS_D(32)
     ATOMA_FS_D(64)
@@ -669,19 +790,25 @@ int fused_split_entry(const void* q, const void* k_new, const void* v_new, void*
 #undef ATOMA_FS_D
 #endif
 #undef ATOMA_FS
+#undef ATOMA_FS_P
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename Q, typename C, int DIMS>
 int fused_split_blocks_per_sm_entry(int head_dim, int group) {
+  const int dp = instance_dim(head_dim);
 #ifdef ATOMA_FS_SHAPES_D128_G4
-  if ((head_dim == 64 || head_dim == 128) && group == 4)
-    return head_dim == 64 ? fused_split_blocks_per_sm<Q, C, 64, 4>()
+  if ((dp == 64 || dp == 128) && group == 4)
+    return dp == 64 ? fused_split_blocks_per_sm<Q, C, 64, 4>()
                           : fused_split_blocks_per_sm<Q, C, 128, 4>();
   return -1;
 #endif
 #define ATOMA_FS_OCC(D)                                              \
-  if (head_dim == D) {                                               \
+  if (dp == D && head_dim != dp)                                     \
+    return group >= 1 && group <= kFsTwoHalves                       \
+               ? fused_split_blocks_per_sm<Q, C, D, kFsTwoHalves, true>() \
+               : -1;                                                 \
+  if (dp == D) {                                                     \
     switch (group) {                                                 \
       case 1: return fused_split_blocks_per_sm<Q, C, D, 1>();        \
       case 2: return fused_split_blocks_per_sm<Q, C, D, 2>();        \
@@ -713,10 +840,11 @@ int fused_split_blocks_per_sm_entry(int head_dim, int group) {
 }  // namespace atoma
 
 // The split fused-decode entry points of one (query type Q, cache kind C)
-// pair at the head dims of DIMS (a HeadDimSet): q, k_new, v_new and out Q; scales_new f32 [T, 2] or null (INT8:
-// the new tokens' scales, else taken from their rows); the rest as the fused
-// entry's, plus
-// ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq, 2] when splits
+// pair at the widths of DIMS (a HeadDimSet), for every head_dim whose
+// instance_dim is one of them: q, k_new, v_new and out Q; scales_new f32
+// [T, 2] or null (INT8: the new tokens' scales, else taken from their
+// rows); the rest as the fused entry's, plus
+// ws_o f32 [splits, T, Hq, head_dim] and ws_ml f32 [splits, T, Hq, 2] when splits
 // > 1 (else null), the most splits a row takes and the fewest 64-key tiles
 // a split holds. The merge of split rows is a separate launch
 // (atoma_paged_attention_split_combine).

@@ -2,12 +2,9 @@
 // KV write fused in) over a cache in the model's own dtype (bf16 or f32).
 // The kernels and their notes are in paged_attention.cuh; for bf16
 // queries the ragged kernel is the tensor-core one of paged_attention_mma.cuh
-// and the fused one the split kernel of fused_decode_split.cuh
-// (built from fused_decode_split*.cu).
+// (built from paged_attention_mma.cu) and the fused one the split kernel of
+// fused_decode_split.cuh (built from fused_decode_split*.cu).
 
 #include "paged_attention.cuh"
-#include "paged_attention_mma.cuh"
 
 ATOMA_PAGED_ATTENTION_ENTRIES(, atoma::SameCache, atoma::kNarrowDims)
-ATOMA_RPA_MMA_ENTRIES(, __nv_bfloat16, __nv_bfloat16, atoma::kAllDims)
-ATOMA_SPLIT_COMBINE_ENTRY(, __nv_bfloat16)

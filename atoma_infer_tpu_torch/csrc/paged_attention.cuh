@@ -10,7 +10,7 @@
 // fused_decode_kernel); with quant=True (INT8 + scales: kernel D) and
 // fp8=True (e4m3: kernel E) the same two kernels run on a 1-byte cache.
 // Each instantiating source (paged_attention.cu: C = T;
-// paged_attention_int8.cu; paged_attention_fp8.cu; and at head dims 96 and
+// paged_attention_int8.cu; paged_attention_fp8.cu; and at widths 96 and
 // 256 paged_attention{,_int8,_fp8}_wide.cu) is its own library, so they
 // build in parallel.
 //
@@ -52,6 +52,19 @@
 // hold garbage past a sequence's length. B here is the f32 queries' route:
 // bf16 queries take fused_split_kernel (fused_decode_split.cuh: split-KV
 // across blocks, Q·Kᵀ and P·V on the tensor cores).
+//
+// Head dims. Every kernel takes any even head dim from 8 to 256 at run time
+// (head_dim), as FlashAttention-2 does: a kernel is instantiated at a width D
+// of 32, 64, 96, 128 or 256 (instance_dim: the smallest that holds the head
+// dim). A head dim below its width runs the kernel's PAD instantiation, one
+// a width (here: key tiles of 8, and the fused kernel's run-time group),
+// strided by head_dim: what it stages (Q, K, V) has the columns from
+// head_dim to D zero-filled, so the padded columns add nothing to Q·Kᵀ, and
+// the padded output columns are computed and never stored; its copies are
+// as wide as a head's bytes allow (copy_width: 16, 8, 4 or 2 bytes; every
+// head's K and V start at a multiple of its bytes from the 16-byte aligned
+// cache). The other instantiations run the code they ran before, with D
+// for head_dim.
 
 #pragma once
 
@@ -65,11 +78,38 @@ namespace atoma {
 
 constexpr float kNegInf = -INFINITY;
 
-// The head dims a source instantiates: the narrow ones (32, 64, 128), the
-// wide ones (96 for Phi-3-mini, 256 for Gemma-2), or both; the wide ones of
+// The widths a source instantiates: the narrow ones (32, 64, 128: head
+// dims 8 to 64 and 98 to 128), the wide ones (96 and 256: head dims 66 to
+// 96, Phi-3-mini's, and 130 to 256, Gemma-2's), or both; the wide ones of
 // the slower builds sit in sources of their own (*_wide.cu), which build in
 // parallel with the rest.
 enum HeadDimSet { kNarrowDims = 1, kWideDims = 2, kAllDims = 3 };
+
+// The instantiation width of a head dim: the smallest width a kernel is
+// built at (32, 64, 96, 128 or 256) that holds it; 0 for a head dim no
+// kernel takes (odd, under 8 or past 256).
+__host__ __device__ constexpr int instance_dim(int head_dim) {
+  return head_dim < 8 || head_dim > 256 || head_dim % 2 != 0 ? 0
+         : head_dim <= 32                                    ? 32
+         : head_dim <= 64                                    ? 64
+         : head_dim <= 96                                    ? 96
+         : head_dim <= 128                                   ? 128
+                                                             : 256;
+}
+
+// A head dim known when compiling, converting to int on the device, for
+// code written once for it and for the head dim of a run (an int).
+template <int D>
+struct FixedDim {
+  __host__ __device__ constexpr operator int() const { return D; }
+};
+
+// The widest copy (16, 8, 4 or 2 bytes) that divides a head's bytes: the
+// alignment of every head's K, V, Q and output row in tensors whose base is
+// 16-byte aligned.
+__host__ __device__ constexpr int copy_width(int head_bytes) {
+  return head_bytes % 16 == 0 ? 16 : head_bytes % 8 == 0 ? 8 : head_bytes % 4 == 0 ? 4 : 2;
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -95,6 +135,41 @@ template <typename T>
 __device__ __forceinline__ void load16(const T* p, float* out) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
   const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::N; ++i) out[i] = to_float(e[i]);
+}
+
+// load16 at a padded head dim: the first n elements (0 to Vec<T>::N) read
+// in pieces of w bytes (w divides their bytes and p's alignment), the rest
+// 0. Nothing is read when n is 0.
+template <typename T>
+__device__ __forceinline__ void load16_padded(const T* p, float* out, int n, int w) {
+  uint32_t raw[4] = {0u, 0u, 0u, 0u};
+  const char* b = reinterpret_cast<const char*>(p);
+  const int nbytes = n * (int)sizeof(T);
+  if (w == 16) {
+    if (nbytes > 0) {
+      const uint4 v = *reinterpret_cast<const uint4*>(b);
+      raw[0] = v.x, raw[1] = v.y, raw[2] = v.z, raw[3] = v.w;
+    }
+  } else if (w == 8) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (8 * i < nbytes) {
+        const uint2 v = *reinterpret_cast<const uint2*>(b + 8 * i);
+        raw[2 * i] = v.x, raw[2 * i + 1] = v.y;
+      }
+  } else if (w == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * i < nbytes) raw[i] = *reinterpret_cast<const uint32_t*>(b + 4 * i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (2 * i < nbytes)
+        raw[i / 2] |= (uint32_t)*reinterpret_cast<const uint16_t*>(b + 2 * i) << (16 * (i % 2));
+  }
+  const T* e = reinterpret_cast<const T*>(raw);
 #pragma unroll
   for (int i = 0; i < Vec<T>::N; ++i) out[i] = to_float(e[i]);
 }
@@ -141,14 +216,14 @@ __device__ __forceinline__ float slot_scale(const __nv_bfloat16* scales,
 // ---------------------------------------------------------------------------
 __host__ __device__ constexpr int rpa_threads_per_row(int d) { return d == 96 ? 4 : d / 32; }
 
-template <typename T, typename C, int D, int KT>
+template <typename T, typename C, int D, int KT, bool PAD = false>
 __global__ void __launch_bounds__(256) rpa_kernel(
     const T* __restrict__ q, const C* __restrict__ cache,
     const __nv_bfloat16* __restrict__ scales,
     const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
     const int* __restrict__ query_start_loc, const int* __restrict__ num_seqs,
     const float* __restrict__ alibi, T* __restrict__ out, int num_q_heads,
-    int num_kv_heads, int max_pages, int block_size, int group, int group_rows,
+    int num_kv_heads, int head_dim, int max_pages, int block_size, int group, int group_rows,
     int block_q, float scale, int window, float soft_cap) {
   constexpr int TPR = rpa_threads_per_row(D);
   constexpr int DPT = D / TPR;         // dims a thread
@@ -182,11 +257,21 @@ __global__ void __launch_bounds__(256) rpa_kernel(
   const int hq = h * group + g;
   const float slope = alibi != nullptr && active ? alibi[hq] : 0.f;
   const long long q_row = (long long)(q_start + tok0 + ti) * num_q_heads + hq;
+  // PAD, a padded head dim (head_dim < D): dims past head_dim staged as 0,
+  // copies as wide as a head's bytes allow.
+  const int hd = PAD ? head_dim : D;
+  const int cw = copy_width(hd * (int)sizeof(C));
 
   float qr[DPT], acc[DPT];
 #pragma unroll
   for (int i = 0; i < DPT; i += QN) {
-    if (active) {
+    if constexpr (PAD) {  // once a block: element by element, 0 past hd
+#pragma unroll
+      for (int k = 0; k < QN; ++k) {
+        const int d = part * DPT + i + k;
+        qr[i + k] = active && d < hd ? to_float(q[q_row * hd + d]) : 0.f;
+      }
+    } else if (active) {
       load16(q + q_row * D + part * DPT + i, qr + i);
     } else {
 #pragma unroll
@@ -201,26 +286,33 @@ __global__ void __launch_bounds__(256) rpa_kernel(
   const int kv_begin = window > 0 ? max(0, ctx0 + tok0 - window + 1) : 0;
   const int tiles_per_page = block_size / KT;
   const int t_end = min((last_pos + KT) / KT, max_pages * tiles_per_page);
-  const long long row_stride = 2LL * num_kv_heads * D;
+  const long long row_stride = 2LL * num_kv_heads * hd;
 
   for (int t = kv_begin / KT; t < t_end; ++t) {
     const int p = t / tiles_per_page;
     const long long slot0 = (long long)block_tables[(long long)s * max_pages + p] * block_size +
                             (t - p * tiles_per_page) * KT;
-    const C* base = cache + slot0 * row_stride + (long long)h * 2 * D;
+    const C* base = cache + slot0 * row_stride + (long long)h * 2 * hd;
     __syncthreads();  // the previous key tile is fully consumed
     for (int c = tid; c < CHUNKS; c += blockDim.x) {
       const int e = c * VN;
       const int r = e / (2 * D), col = e - r * 2 * D;
-      float tmp[VN];
-      load16(base + r * row_stride + col, tmp);
       const bool is_v = col >= D;
+      const int dcol = is_v ? col - D : col;
+      float tmp[VN];
+      if constexpr (PAD) {
+        // The head's dims from its K or V row (V starting hd elements after
+        // K), 0 past hd.
+        load16_padded(base + r * row_stride + (is_v ? hd : 0) + dcol, tmp,
+                      min(VN, max(0, hd - dcol)), cw);
+      } else {
+        load16(base + r * row_stride + col, tmp);
+      }
       if constexpr (kScaled<C>) {
         const float sc = slot_scale(scales, slot0 + r, is_v);
 #pragma unroll
         for (int k = 0; k < VN; ++k) tmp[k] *= sc;
       }
-      const int dcol = is_v ? col - D : col;
       float* dst = (is_v ? vs : ks) + r * KS;
 #pragma unroll
       for (int k = 0; k < VN; ++k) dst[(dcol + k) / DPT * (DPT + 1) + (dcol + k) % DPT] = tmp[k];
@@ -262,9 +354,10 @@ __global__ void __launch_bounds__(256) rpa_kernel(
 
   if (active) {
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* op = out + q_row * D + part * DPT;
+    T* op = out + q_row * hd + part * DPT;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) op[i] = from_float<T>(acc[i] * inv);
+    for (int i = 0; i < DPT; ++i)
+      if (!PAD || part * DPT + i < hd) op[i] = from_float<T>(acc[i] * inv);
   }
 }
 
@@ -285,14 +378,14 @@ constexpr int kPvUnroll = 8;  // V rows loaded ahead of their FMAs
 // The G of the instantiation for groups of 9 to 16, passed at run time.
 constexpr int kFusedWideGroup = 16;
 
-template <typename T, typename C, int D, int G>
+template <typename T, typename C, int D, int G, bool PAD = false>
 __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_new,
     const T* __restrict__ v_new, C* cache, __nv_bfloat16* scales,
     const int* __restrict__ slot_mapping, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, const int* __restrict__ query_start_loc,
     const int* __restrict__ num_seqs, const float* __restrict__ alibi,
-    T* __restrict__ out, int num_kv_heads, int max_pages, int block_size,
+    T* __restrict__ out, int num_kv_heads, int head_dim, int max_pages, int block_size,
     long long num_slots, float scale, int window, float soft_cap, int group) {
   static_assert(G <= 8 || G == kFusedWideGroup, "groups 1 to 8, or 9 to 16 at run time");
   constexpr int NW = kDecodeWarps;
@@ -301,6 +394,10 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
   // Query heads a kv head: G, or the run-time group (9 to 16). Per-head
   // loops run to G and skip heads past ng (a block-uniform test).
   const int ng = G == kFusedWideGroup ? group : G;
+  // Loops over the heads unroll, their states in registers; the padded
+  // instantiation (PAD, f32 queries' test-size route) keeps them rolled,
+  // its states in local memory, to stay small to build.
+  constexpr int GU = PAD ? 1 : G;
   __shared__ float q_s[G * D];
   __shared__ float m_s[NW][G];
   __shared__ float l_s[NW][G];
@@ -318,20 +415,31 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
   const int seq_len = seq_lens[s];
   const int pos = seq_len - 1;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long row_stride = 2LL * num_kv_heads * D;
-  const T* kn_row = k_new + (long long)t * num_kv_heads * D;
-  const T* vn_row = v_new + (long long)t * num_kv_heads * D;
-  const T* kn = kn_row + (long long)h * D;
-  const T* vn = vn_row + (long long)h * D;
-  const long long q_base = ((long long)t * num_q_heads + (long long)h * ng) * D;
+  // PAD, a padded head dim (head_dim < D): q_s holds 0 past head_dim and
+  // the K and V rows are read only up to it.
+  const int hd = PAD ? head_dim : D;
+  const int cw = copy_width(hd * (int)sizeof(C));
+  const long long row_stride = 2LL * num_kv_heads * hd;
+  const T* kn_row = k_new + (long long)t * num_kv_heads * hd;
+  const T* vn_row = v_new + (long long)t * num_kv_heads * hd;
+  const T* kn = kn_row + (long long)h * hd;
+  const T* vn = vn_row + (long long)h * hd;
+  const long long q_base = ((long long)t * num_q_heads + (long long)h * ng) * hd;
 
-  for (int i = tid; i < ng * D; i += blockDim.x) q_s[i] = to_float(q[q_base + i]);
+  for (int i = tid; i < ng * D; i += blockDim.x) {
+    if constexpr (PAD) {
+      const int g = i / D, d = i - g * D;
+      q_s[i] = d < hd ? to_float(q[q_base + g * hd + d]) : 0.f;
+    } else {
+      q_s[i] = to_float(q[q_base + i]);
+    }
+  }
   const long long slot = slot_mapping[t];
   const bool write = slot >= 0 && slot < num_slots;
   float k_sc = 1.f, v_sc = 1.f, inv_k = 1.f, inv_v = 1.f;
   if constexpr (kScaled<C>) {
     float mk, mv;
-    row_absmax(kn_row, vn_row, num_kv_heads * D, red_s, mk, mv);
+    row_absmax(kn_row, vn_row, num_kv_heads * hd, red_s, mk, mv);
     const __nv_bfloat16 bk = kv_scale(mk), bv = kv_scale(mv);
     k_sc = __bfloat162float(bk);
     v_sc = __bfloat162float(bv);
@@ -343,15 +451,15 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
     }
   }
   if (write) {
-    C* dst = cache + slot * row_stride + (long long)h * 2 * D;
-    for (int i = tid; i < 2 * D; i += blockDim.x)
-      dst[i] = i < D ? encode<C>(to_float(kn[i]), inv_k)
-                     : encode<C>(to_float(vn[i - D]), inv_v);
+    C* dst = cache + slot * row_stride + (long long)h * 2 * hd;
+    for (int i = tid; i < 2 * hd; i += blockDim.x)
+      dst[i] = i < hd ? encode<C>(to_float(kn[i]), inv_k)
+                      : encode<C>(to_float(vn[i - hd]), inv_v);
   }
   __syncthreads();  // q_s staged; this head's slice of the new row stored
 
   float m[G], l[G], slope[G], acc[G][DPL];
-#pragma unroll
+#pragma unroll (GU)
   for (int g = 0; g < G; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
@@ -371,7 +479,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
       const long long kslot =
           (long long)block_tables[(long long)s * max_pages + kpos / block_size] *
               block_size + kpos % block_size;
-      kr = cache + kslot * row_stride + (long long)h * 2 * D;
+      kr = cache + kslot * row_stride + (long long)h * 2 * hd;
       if constexpr (kScaled<C>) {
         ksc = kpos == pos ? k_sc : slot_scale(scales, kslot, 0);
         vsc = kpos == pos ? v_sc : slot_scale(scales, kslot, 1);
@@ -380,18 +488,32 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
     // The same key's V row follows the K half of the head's slice. Lanes
     // past the sequence take lane 0's row (lane 0's key is always valid,
     // so the row holds finite values) and carry p = 0.
-    unsigned long long vaddr = reinterpret_cast<unsigned long long>(kr + D);
+    unsigned long long vaddr = reinterpret_cast<unsigned long long>(kr + hd);
     const unsigned long long v0 = __shfl_sync(0xffffffffu, vaddr, 0);
     if (!valid) vaddr = v0;
     float dot[G];
-#pragma unroll
+#pragma unroll (GU)
     for (int g = 0; g < G; ++g) dot[g] = 0.f;
-    if (valid) {
+    if constexpr (!PAD) {
+      if (valid) {
 #pragma unroll
-      for (int d0 = 0; d0 < D; d0 += VN) {
+        for (int d0 = 0; d0 < D; d0 += VN) {
+          float kv[VN];
+          load16(kr + d0, kv);
+#pragma unroll (GU)
+          for (int g = 0; g < G; ++g)
+            if (g < ng)
+#pragma unroll
+              for (int i = 0; i < VN; ++i)
+                dot[g] = fmaf(q_s[g * D + d0 + i], kv[i], dot[g]);
+        }
+      }
+    } else if (valid) {  // the head's vectors only, a loop of its own
+#pragma unroll 1
+      for (int d0 = 0; d0 < hd; d0 += VN) {
         float kv[VN];
-        load16(kr + d0, kv);
-#pragma unroll
+        load16_padded(kr + d0, kv, min(VN, hd - d0), cw);
+#pragma unroll (GU)
         for (int g = 0; g < G; ++g)
           if (g < ng)
 #pragma unroll
@@ -400,7 +522,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
       }
     }
     float p[G], pv[G];
-#pragma unroll
+#pragma unroll (GU)
     for (int g = 0; g < G; ++g) {
       if (g >= ng) {
         pv[g] = 0.f;
@@ -423,18 +545,20 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
     // order, taking each key's V row pointer from its lane by a shuffle, and
     // issues kPvUnroll rows' loads before their FMAs so that many loads are
     // in flight (one key at a time leaves the warp waiting on each load).
-#pragma unroll
+    // The padded instantiation keeps the loop rolled, to stay small.
+#pragma unroll (PAD ? 1 : 32 / kPvUnroll)
     for (int j0 = 0; j0 < 32; j0 += kPvUnroll) {
       float v[kPvUnroll][DPL];
 #pragma unroll
       for (int u = 0; u < kPvUnroll; ++u) {
         const C* vr = reinterpret_cast<const C*>(__shfl_sync(0xffffffffu, vaddr, j0 + u));
 #pragma unroll
-        for (int dd = 0; dd < DPL; ++dd) v[u][dd] = to_float(vr[lane + dd * 32]);
+        for (int dd = 0; dd < DPL; ++dd)
+          v[u][dd] = !PAD || lane + dd * 32 < hd ? to_float(vr[lane + dd * 32]) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kPvUnroll; ++u) {
-#pragma unroll
+#pragma unroll (GU)
         for (int g = 0; g < G; ++g) {
           if (g >= ng) continue;
           const float pj = __shfl_sync(0xffffffffu, pv[g], j0 + u);
@@ -448,7 +572,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
   // Combine the warps' partial (max, sum, accumulator) states: each warp's
   // weight exp(m_w - max) from the maxima in shared memory, then the warps
   // add their weighted accumulators into acc_s in warp order.
-#pragma unroll
+#pragma unroll (GU)
   for (int g = 0; g < G; ++g) {
     if (g < ng && lane == 0) {
       m_s[warp][g] = m[g];
@@ -456,7 +580,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
     }
   }
   __syncthreads();
-#pragma unroll
+#pragma unroll (GU)
   for (int g = 0; g < G; ++g) {
     if (g >= ng) continue;
     float mx = kNegInf;
@@ -469,7 +593,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
 #pragma unroll
   for (int w = 0; w < NW; ++w) {
     if (warp == w) {
-#pragma unroll
+#pragma unroll (GU)
       for (int g = 0; g < G; ++g) {
         if (g >= ng) continue;
 #pragma unroll
@@ -481,35 +605,47 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
     }
     __syncthreads();
   }
-  for (int i = tid; i < ng * D; i += blockDim.x) {
-    const int g = i / D, d = i - g * D;
-    float mx = kNegInf;
+  // The output, head_dim dims a head (the constant D but at PAD).
+  auto store = [&](auto width) {
+    const int W = width;
+    for (int i = tid; i < ng * W; i += blockDim.x) {
+      const int g = i / W, d = i - g * W;
+      float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, m_s[w][g]);
-    float sum = 0.f;
+      for (int w = 0; w < NW; ++w) mx = fmaxf(mx, m_s[w][g]);
+      float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w)
-      sum += m_s[w][g] == kNegInf ? 0.f : l_s[w][g] * expf(m_s[w][g] - mx);
-    out[q_base + i] = from_float<T>(sum > 0.f ? acc_s[g][d] / sum : 0.f);
+      for (int w = 0; w < NW; ++w)
+        sum += m_s[w][g] == kNegInf ? 0.f : l_s[w][g] * expf(m_s[w][g] - mx);
+      out[q_base + i] = from_float<T>(sum > 0.f ? acc_s[g][d] / sum : 0.f);
+    }
+  };
+  if constexpr (PAD) {
+    store(hd);
+  } else {
+    store(FixedDim<D>{});
   }
 }
 
 // --------------------------------------------------------------- dispatch
-template <typename T, typename C, int D>
+template <typename T, typename C, int D, bool PAD>
 int launch_rpa(int block_size, dim3 grid, int threads, cudaStream_t stream,
                const void* q, const void* cache, const void* scales,
                const int* bt, const int* sl, const int* qsl, const int* ns,
-               const float* alibi, void* out, int hq, int hk, int max_pages,
+               const float* alibi, void* out, int hq, int hk, int head_dim, int max_pages,
                int group, int group_rows, int block_q, float scale, int window,
                float soft_cap) {
 #define ATOMA_RPA(KT)                                                          \
-  rpa_kernel<T, C, D, KT><<<grid, threads, 0, stream>>>(                       \
+  rpa_kernel<T, C, D, KT, PAD><<<grid, threads, 0, stream>>>(                  \
       (const T*)q, (const C*)cache, (const __nv_bfloat16*)scales, bt, sl, qsl, \
-      ns, alibi, (T*)out, hq, hk, max_pages, block_size, group, group_rows,    \
-      block_q, scale, window, soft_cap)
-  // The key tile: gcd(block_size, 32), or gcd(block_size, 16) at D = 256.
+      ns, alibi, (T*)out, hq, hk, head_dim, max_pages, block_size, group,      \
+      group_rows, block_q, scale, window, soft_cap)
+  // The key tile: gcd(block_size, 32), or gcd(block_size, 16) at D = 256;
+  // at a padded head dim 8, one instantiation for every block size.
   if (block_size <= 0 || block_size % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (D <= 128 && block_size % 32 == 0) {
+  if constexpr (PAD) {
+    ATOMA_RPA(8);
+  } else if (D <= 128 && block_size % 32 == 0) {
     if constexpr (D <= 128) ATOMA_RPA(32);
   } else if (block_size % 16 == 0) {
     ATOMA_RPA(16);
@@ -520,37 +656,44 @@ int launch_rpa(int block_size, dim3 grid, int threads, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename C, int D>
+template <typename T, typename C, int D, bool PAD>
 int launch_fused(int group, dim3 grid, cudaStream_t stream, const void* q,
                  const void* k_new, const void* v_new, void* cache, void* scales,
                  const int* slots, const int* bt, const int* sl, const int* qsl,
-                 const int* ns, const float* alibi, void* out, int hk,
+                 const int* ns, const float* alibi, void* out, int hk, int head_dim,
                  int max_pages, int block_size, long long num_slots,
                  float scale, int window, float soft_cap) {
 #define ATOMA_FUSED(G)                                                        \
-  fused_decode_kernel<T, C, D, G><<<grid, kDecodeWarps * 32, 0, stream>>>(    \
+  fused_decode_kernel<T, C, D, G, PAD><<<grid, kDecodeWarps * 32, 0, stream>>>( \
       (const T*)q, (const T*)k_new, (const T*)v_new, (C*)cache,               \
       (__nv_bfloat16*)scales, slots, bt, sl, qsl, ns, alibi, (T*)out, hk,     \
-      max_pages, block_size, num_slots, scale, window, soft_cap, group)
-  switch (group) {
-    case 1: ATOMA_FUSED(1); break;
-    case 2: ATOMA_FUSED(2); break;
-    case 3: ATOMA_FUSED(3); break;
-    case 4: ATOMA_FUSED(4); break;
-    case 5: ATOMA_FUSED(5); break;
-    case 6: ATOMA_FUSED(6); break;
-    case 7: ATOMA_FUSED(7); break;
-    case 8: ATOMA_FUSED(8); break;
-    default:
-      // Groups of 9 to 16: f32 queries only (bf16 ones take the split
-      // kernel; this kernel's bf16 form is only timed beside it).
-      if constexpr (sizeof(T) == 4) {
-        if (group > 8 && group <= kFusedWideGroup) {
-          ATOMA_FUSED(kFusedWideGroup);
-          break;
+      head_dim, max_pages, block_size, num_slots, scale, window, soft_cap, group)
+  if constexpr (PAD) {
+    // A padded head dim: the instantiation that takes the group (1 to 16)
+    // at run time.
+    if (group < 1 || group > kFusedWideGroup) return (int)cudaErrorInvalidValue;
+    ATOMA_FUSED(kFusedWideGroup);
+  } else {
+    switch (group) {
+      case 1: ATOMA_FUSED(1); break;
+      case 2: ATOMA_FUSED(2); break;
+      case 3: ATOMA_FUSED(3); break;
+      case 4: ATOMA_FUSED(4); break;
+      case 5: ATOMA_FUSED(5); break;
+      case 6: ATOMA_FUSED(6); break;
+      case 7: ATOMA_FUSED(7); break;
+      case 8: ATOMA_FUSED(8); break;
+      default:
+        // Groups of 9 to 16: f32 queries only (bf16 ones take the split
+        // kernel; this kernel's bf16 form is only timed beside it).
+        if constexpr (sizeof(T) == 4) {
+          if (group > 8 && group <= kFusedWideGroup) {
+            ATOMA_FUSED(kFusedWideGroup);
+            break;
+          }
         }
-      }
-      return (int)cudaErrorInvalidValue;
+        return (int)cudaErrorInvalidValue;
+    }
   }
 #undef ATOMA_FUSED
   return (int)cudaGetLastError();
@@ -570,10 +713,11 @@ struct Fp8Cache {
   using type = __nv_fp8_e4m3;
 };
 
-// dtype (of q, k_new/v_new and out): 0 = float32 (head dims 32, 64 and 128
-// of kNarrowDims, 96 and 256 of kWideDims), 1 = bfloat16 (32, 64, 128; bf16
-// queries take the tensor cores, and chip_smoke.py times this route beside
-// them). Pointers:
+// dtype (of q, k_new/v_new and out): 0 = float32 (head dims 8 to 128 at
+// widths 32, 64 and 128 of kNarrowDims, at 96 and 256 of kWideDims), 1 =
+// bfloat16 (widths 32, 64, 128; bf16 queries take the tensor cores, and
+// chip_smoke.py times this route beside them). Any even head_dim from 8 to
+// 256 runs on the width instance_dim(head_dim). Pointers:
 // q [T, Hq, D], cache [pages, block_size, 2*Hk*D], scales [pages,
 // block_size, 2] bf16 (INT8 caches; else null), block_tables [S, max_pages],
 // seq_lens [S], query_start_loc [S+1], num_seqs [1] (all int32), alibi [Hq]
@@ -589,7 +733,9 @@ int ragged_paged_attention_entry(
   if (max_q_len <= 0 || num_seq_slots <= 0) return 0;
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0) return (int)cudaErrorInvalidValue;
   const int group = num_q_heads / num_kv_heads;
-  const int tpr = rpa_threads_per_row(head_dim);
+  const int dp = instance_dim(head_dim);
+  if (dp == 0) return (int)cudaErrorInvalidValue;
+  const int tpr = rpa_threads_per_row(dp);
   // A block takes a slice of group_rows q heads: the whole group while one
   // token's rows fit 256 threads, else the fewest near-equal slices that do.
   const int cut = (group * tpr + 255) / 256;
@@ -606,29 +752,42 @@ int ragged_paged_attention_entry(
   const int* qsl = (const int*)query_start_loc;
   const int* ns = (const int*)num_seqs;
   const float* al = (const float*)alibi;
+  const bool pad = head_dim != dp;  // f32 queries only (bf16 take the tensor cores)
 #define ATOMA_RPA_D(T, D)                                                      \
-  return launch_rpa<T, typename CacheOf<T>::type, D>(                          \
+  return pad ? launch_rpa<T, typename CacheOf<T>::type, D, true>(              \
       block_size, grid, threads, st, q, cache, scales, bt, sl, qsl, ns, al,    \
-      out, num_q_heads, num_kv_heads, max_pages, group, group_rows, block_q,   \
-      scale, window, soft_cap)
+      out, num_q_heads, num_kv_heads, head_dim, max_pages, group, group_rows,  \
+      block_q, scale, window, soft_cap)                                        \
+             : launch_rpa<T, typename CacheOf<T>::type, D, false>(             \
+      block_size, grid, threads, st, q, cache, scales, bt, sl, qsl, ns, al,    \
+      out, num_q_heads, num_kv_heads, head_dim, max_pages, group, group_rows,  \
+      block_q, scale, window, soft_cap)
+  // bf16 queries on the CUDA cores (timed beside the tensor cores, never
+  // routed) at the widths' own head dims only.
+#define ATOMA_RPA_BF16(D)                                                      \
+  return launch_rpa<__nv_bfloat16, typename CacheOf<__nv_bfloat16>::type, D, false>( \
+      block_size, grid, threads, st, q, cache, scales, bt, sl, qsl, ns, al,    \
+      out, num_q_heads, num_kv_heads, head_dim, max_pages, group, group_rows,  \
+      block_q, scale, window, soft_cap)
   if constexpr ((DIMS & kNarrowDims) != 0) {
     if (dtype == 0) {
-      if (head_dim == 32) ATOMA_RPA_D(float, 32);
-      if (head_dim == 64) ATOMA_RPA_D(float, 64);
-      if (head_dim == 128) ATOMA_RPA_D(float, 128);
-    } else if (dtype == 1) {
-      if (head_dim == 32) ATOMA_RPA_D(__nv_bfloat16, 32);
-      if (head_dim == 64) ATOMA_RPA_D(__nv_bfloat16, 64);
-      if (head_dim == 128) ATOMA_RPA_D(__nv_bfloat16, 128);
+      if (dp == 32) ATOMA_RPA_D(float, 32);
+      if (dp == 64) ATOMA_RPA_D(float, 64);
+      if (dp == 128) ATOMA_RPA_D(float, 128);
+    } else if (dtype == 1 && !pad) {
+      if (dp == 32) ATOMA_RPA_BF16(32);
+      if (dp == 64) ATOMA_RPA_BF16(64);
+      if (dp == 128) ATOMA_RPA_BF16(128);
     }
   }
   if constexpr ((DIMS & kWideDims) != 0) {
     if (dtype == 0) {
-      if (head_dim == 96) ATOMA_RPA_D(float, 96);
-      if (head_dim == 256) ATOMA_RPA_D(float, 256);
+      if (dp == 96) ATOMA_RPA_D(float, 96);
+      if (dp == 256) ATOMA_RPA_D(float, 256);
     }
   }
 #undef ATOMA_RPA_D
+#undef ATOMA_RPA_BF16
   return (int)cudaErrorInvalidValue;
 }
 
@@ -645,6 +804,7 @@ int fused_decode_attention_entry(
     long long num_slots, float scale, int window, float soft_cap, void* stream) {
   if (num_seq_slots <= 0) return 0;
   const int group = num_q_heads / num_kv_heads;
+  const int dp = instance_dim(head_dim);
   const dim3 grid(num_seq_slots, num_kv_heads);
   cudaStream_t st = (cudaStream_t)stream;
   const int* slots = (const int*)slot_mapping;
@@ -653,29 +813,40 @@ int fused_decode_attention_entry(
   const int* qsl = (const int*)query_start_loc;
   const int* ns = (const int*)num_seqs;
   const float* al = (const float*)alibi;
+  const bool pad = head_dim != dp;  // f32 queries only (bf16 take the split kernel)
 #define ATOMA_FUSED_D(T, D)                                                    \
-  return launch_fused<T, typename CacheOf<T>::type, D>(                        \
+  return pad ? launch_fused<T, typename CacheOf<T>::type, D, true>(            \
       group, grid, st, q, k_new, v_new, cache, scales, slots, bt, sl, qsl, ns, \
-      al, out, num_kv_heads, max_pages, block_size, num_slots, scale, window,  \
-      soft_cap)
+      al, out, num_kv_heads, head_dim, max_pages, block_size, num_slots,       \
+      scale, window, soft_cap)                                                 \
+             : launch_fused<T, typename CacheOf<T>::type, D, false>(           \
+      group, grid, st, q, k_new, v_new, cache, scales, slots, bt, sl, qsl, ns, \
+      al, out, num_kv_heads, head_dim, max_pages, block_size, num_slots,       \
+      scale, window, soft_cap)
+#define ATOMA_FUSED_BF16(D)                                                    \
+  return launch_fused<__nv_bfloat16, typename CacheOf<__nv_bfloat16>::type, D, false>( \
+      group, grid, st, q, k_new, v_new, cache, scales, slots, bt, sl, qsl, ns, \
+      al, out, num_kv_heads, head_dim, max_pages, block_size, num_slots,       \
+      scale, window, soft_cap)
   if constexpr ((DIMS & kNarrowDims) != 0) {
     if (dtype == 0) {
-      if (head_dim == 32) ATOMA_FUSED_D(float, 32);
-      if (head_dim == 64) ATOMA_FUSED_D(float, 64);
-      if (head_dim == 128) ATOMA_FUSED_D(float, 128);
-    } else if (dtype == 1) {
-      if (head_dim == 32) ATOMA_FUSED_D(__nv_bfloat16, 32);
-      if (head_dim == 64) ATOMA_FUSED_D(__nv_bfloat16, 64);
-      if (head_dim == 128) ATOMA_FUSED_D(__nv_bfloat16, 128);
+      if (dp == 32) ATOMA_FUSED_D(float, 32);
+      if (dp == 64) ATOMA_FUSED_D(float, 64);
+      if (dp == 128) ATOMA_FUSED_D(float, 128);
+    } else if (dtype == 1 && !pad) {
+      if (dp == 32) ATOMA_FUSED_BF16(32);
+      if (dp == 64) ATOMA_FUSED_BF16(64);
+      if (dp == 128) ATOMA_FUSED_BF16(128);
     }
   }
   if constexpr ((DIMS & kWideDims) != 0) {
     if (dtype == 0) {
-      if (head_dim == 96) ATOMA_FUSED_D(float, 96);
-      if (head_dim == 256) ATOMA_FUSED_D(float, 256);
+      if (dp == 96) ATOMA_FUSED_D(float, 96);
+      if (dp == 256) ATOMA_FUSED_D(float, 256);
     }
   }
 #undef ATOMA_FUSED_D
+#undef ATOMA_FUSED_BF16
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,11 +3,10 @@
 // ragged_paged_attention_fused_quant, atoma_infer_tpu/ops/paged_attention.py
 // :1058,1132). The kernels and their notes are in paged_attention.cuh; for
 // bf16 queries the ragged kernel is the tensor-core one of
-// paged_attention_mma.cuh and the fused one the split kernel of
-// fused_decode_split.cuh (built from fused_decode_split*.cu).
+// paged_attention_mma.cuh (built from paged_attention_int8_mma.cu) and the
+// fused one the split kernel of fused_decode_split.cuh (built from
+// fused_decode_split*.cu).
 
 #include "paged_attention.cuh"
-#include "paged_attention_mma.cuh"
 
 ATOMA_PAGED_ATTENTION_ENTRIES(_int8, atoma::Int8Cache, atoma::kNarrowDims)
-ATOMA_RPA_MMA_ENTRIES(_int8, __nv_bfloat16, int8_t, atoma::kNarrowDims)

@@ -64,9 +64,23 @@
 // construction under fp16 1024, e4m3 by the card's e4m3x2 → f16x2), P and
 // the output rounded to fp16. Everything else, scales included (bf16), is
 // the bf16 kernel's.
-// Head dims 32, 64, 96 (Phi-3-mini), 128 and 256 (Gemma-2) over every cache
-// kind; a source instantiates the narrow dims (32, 64, 128), the wide ones
-// (96, 256) or both (HeadDimSet), so that the 1-byte caches' wide
+// Groups past 128 q heads per kv head: a token's group is cut into
+// ceil(G / 128) slices of near-equal size (group_rows rows, at most 8 warps
+// of 16), one block per (query tile, kv head, slice), each staging the same
+// keys, as rpa_kernel cuts a group over blocks; a tile then holds one
+// token. A row's arithmetic never crosses rows, so the sums are those of one
+// block.
+// Any even head dim from 8 to 256 over every cache kind, at the
+// instantiation width D (32, 64, 96, 128 or 256; instance_dim in
+// paged_attention.cuh) with the head dim passed at run time. A head dim
+// below its width runs the PAD instantiation (8 warps, one a width): the
+// ring's columns from head_dim to D are zero-filled (cp.async's source size
+// of 0), Q's fragments there are 0, and the output columns there are never
+// stored; a head's K and V rows are copied in the widest pieces its bytes
+// allow (cp_async_part, a loop of its own where they are no multiple of 16
+// bytes). The other instantiations run the code they ran before. A source
+// instantiates the narrow widths (32, 64, 128), the wide ones (96, 256) or
+// both (HeadDimSet), so that the 1-byte caches' wide
 // instantiations build in sources of their own, in parallel. At D = 96 a
 // key's K|V slice is 24 16-byte pieces in the queries' dtype and 12 in a
 // 1-byte cache, neither of which divides the block's threads, so the copies
@@ -91,6 +105,45 @@ constexpr int kRpaStages = 3;  // tiles in the cp.async ring
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 8 : 0));
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v));
+}
+
+// One 16-byte piece of a ring row at a head dim whose bytes are no
+// multiple of 16: its first n bytes (0 to 16, a multiple of w) from src in
+// copies of w bytes (8, 4 or 2: w divides the head's bytes, so no copy
+// crosses the head's end), the rest zero-filled: 8 and 4 by cp.async (a
+// source size of 0 fills zeros), 2 by a load and a store, since cp.async
+// has no 2-byte size. src must be readable where n is 0 (nothing is read
+// then).
+__device__ __forceinline__ void cp_async_part(uint32_t dst, const char* src, int n, int w) {
+  if (w == 8) {
+#pragma unroll
+    for (int o = 0; o < 16; o += 8) cp_async8(dst + o, o < n ? src + o : src, o < n);
+  } else if (w == 4) {
+#pragma unroll
+    for (int o = 0; o < 16; o += 4) cp_async4(dst + o, o < n ? src + o : src, o < n);
+  } else {
+#pragma unroll
+    for (int o = 0; o < 16; o += 4) {
+      const uint32_t lo = o < n ? *reinterpret_cast<const uint16_t*>(src + o) : 0u;
+      const uint32_t hi = o + 2 < n ? *reinterpret_cast<const uint16_t*>(src + o + 2) : 0u;
+      sts32(dst + o, lo | hi << 16);
+    }
+  }
+}
+
+// The bytes of 16-byte piece p of a head's K (or V) row that lie inside a
+// head of head_bytes bytes: 16, a multiple of its copy width, or 0.
+__device__ __forceinline__ int piece_bytes(int p, int head_bytes) {
+  return min(16, max(0, head_bytes - 16 * p));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
@@ -282,15 +335,16 @@ __device__ __forceinline__ void rpa_warp_step(
   }
 }
 
-template <typename Q, typename C, int D, int NW>
+template <typename Q, typename C, int D, int NW, bool PAD = false>
 __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
     const Q* __restrict__ q, const C* __restrict__ cache,
     const __nv_bfloat16* __restrict__ scales, const int* __restrict__ block_tables,
     const int* __restrict__ seq_lens, const int* __restrict__ query_start_loc,
     const int* __restrict__ num_seqs, const float* __restrict__ alibi,
     Q* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
-    int num_tokens, int num_q_heads, int num_kv_heads, int max_pages, int block_size,
-    int group, int splits, int min_tiles, float scale, int window, float soft_cap) {
+    int num_tokens, int num_q_heads, int num_kv_heads, int head_dim, int max_pages,
+    int block_size, int group, int group_rows, int splits, int min_tiles, float scale,
+    int window, float soft_cap) {
   using L = RpaTile<C, D, NW>;
   constexpr int KT = kRpaKT, ST = kRpaStages, NT = L::kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -303,8 +357,13 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g8 = lane / 4, c4 = lane % 4;
-  const int bq = NW * 16 / group;  // tokens a tile
-  const int x = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+  // A tile's rows: group_rows q heads (the whole group, or a slice of it
+  // past 16 NW) of bq tokens; grid y is (kv head, slice).
+  const int slices = (group + group_rows - 1) / group_rows;
+  const int bq = NW * 16 / group_rows;  // tokens a tile
+  const int x = blockIdx.x, h = blockIdx.y / slices, split = blockIdx.z;
+  const int g0 = (blockIdx.y - h * slices) * group_rows;
+  const int hd = PAD ? head_dim : D;  // D itself but at a padded head dim
 
   // Which sequence's query tile this block is.
   if (tid == 0) seq_s = -1;
@@ -331,7 +390,7 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
   const int tb = t_lo + (int)((long long)n_tiles * split / nsplit);
   const int te = t_lo + (int)((long long)n_tiles * (split + 1) / nsplit);
   const int key_lo = window > 0 ? max(0, first_pos - window + 1) : 0;
-  const long long row_stride = 2LL * num_kv_heads * D;
+  const long long row_stride = 2LL * num_kv_heads * hd;
   const int* bt = block_tables + (long long)s * max_pages;
 
   auto slot_of = [&](int t) {
@@ -342,7 +401,12 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
   // Each thread copies one 16-byte piece of a (slot, kv head) K|V slice
   // for every kPass-th key of a tile. At D = 96 a slice's 24 pieces do not
   // divide the threads: there pass i's thread tid copies piece c = i NT +
-  // tid of the tile's key-major pieces instead (kWalk).
+  // tid of the tile's key-major pieces instead (kWalk). At a padded head dim
+  // (PAD), piece p of a slice is piece p % kChunks of its K row (p <
+  // kChunks) or of its V row, which starts head_dim elements after K's; a
+  // piece past head_dim is zero-filled and reads nothing (its source is the
+  // slice's start), and where the head is no multiple of 16 bytes its pieces
+  // are copied in copy_width pieces by a loop of their own.
   constexpr int kPieces = 2 * L::kChunks;
   constexpr bool kWalk = NT % kPieces != 0;
   static_assert(KT * kPieces % NT == 0, "a tile's pieces split evenly over the threads");
@@ -351,28 +415,76 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
       (part < L::kChunks ? part * 16 : KT * L::kRawRow + (part - L::kChunks) * 16) +
       key0 * L::kRawRow;
   const char* src0 = reinterpret_cast<const char*>(cache + (long long)h * 2 * D) + part * 16;
+  const int head_bytes = hd * (int)sizeof(C);
+  const int cw = copy_width(head_bytes);
+  const char* slice0 = reinterpret_cast<const char*>(cache) + (long long)h * 2 * head_bytes;
+  // Piece p's offset in a padded slice (0 for a piece past the head).
+  auto piece_src = [&](int p) {
+    const int c = p % L::kChunks;
+    return piece_bytes(c, head_bytes) > 0 ? (p < L::kChunks ? 0 : head_bytes) + 16 * c : 0;
+  };
+  const long long slot_bytes = row_stride * (long long)sizeof(C);
   auto issue = [&](int t, int stage) {
     const int* slots = slot_ring + ((t - tb) % (ST + 1)) * KT;
-    if constexpr (!kWalk) {
-      constexpr int kPass = NT / kPieces;
+    if constexpr (!PAD) {
+      if constexpr (!kWalk) {
+        constexpr int kPass = NT / kPieces;
 #pragma unroll
-      for (int i = 0; i < KT / kPass; ++i) {
-        const int slot = slots[key0 + i * kPass];
-        cp_async16(ring + stage * L::kStageBytes + dst0 + i * kPass * L::kRawRow,
-                   src0 + (long long)max(slot, 0) * row_stride * (long long)sizeof(C), slot >= 0);
+        for (int i = 0; i < KT / kPass; ++i) {
+          const int slot = slots[key0 + i * kPass];
+          cp_async16(ring + stage * L::kStageBytes + dst0 + i * kPass * L::kRawRow,
+                     src0 + (long long)max(slot, 0) * slot_bytes, slot >= 0);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < KT * kPieces / NT; ++i) {
+          const int c = i * NT + tid, key = c / kPieces, piece = c % kPieces;
+          const int slot = slots[key];
+          const uint32_t dst =
+              (piece < L::kChunks ? piece * 16 : KT * L::kRawRow + (piece - L::kChunks) * 16) +
+              key * L::kRawRow;
+          cp_async16(ring + stage * L::kStageBytes + dst,
+                     src0 + (piece - part) * 16 + (long long)max(slot, 0) * slot_bytes,
+                     slot >= 0);
+        }
       }
     } else {
+      constexpr int kCopies = kWalk ? KT * kPieces / NT : KT / (NT / kPieces);
+      // Copy i's key and piece: every kPass-th key's piece part, or the walk.
+      auto copy_at = [&](int i, int& key, int& piece) {
+        if constexpr (!kWalk) {
+          key = key0 + i * (NT / kPieces), piece = part;
+        } else {
+          const int c = i * NT + tid;
+          key = c / kPieces, piece = c % kPieces;
+        }
+      };
+      if (cw == 16) {
 #pragma unroll
-      for (int i = 0; i < KT * kPieces / NT; ++i) {
-        const int c = i * NT + tid, key = c / kPieces, piece = c % kPieces;
-        const int slot = slots[key];
-        const uint32_t dst =
-            (piece < L::kChunks ? piece * 16 : KT * L::kRawRow + (piece - L::kChunks) * 16) +
-            key * L::kRawRow;
-        cp_async16(ring + stage * L::kStageBytes + dst,
-                   src0 + (piece - part) * 16 +
-                       (long long)max(slot, 0) * row_stride * (long long)sizeof(C),
-                   slot >= 0);
+        for (int i = 0; i < kCopies; ++i) {
+          int key, piece;
+          copy_at(i, key, piece);
+          const int slot = slots[key];
+          const uint32_t dst =
+              (piece < L::kChunks ? piece * 16 : KT * L::kRawRow + (piece - L::kChunks) * 16) +
+              key * L::kRawRow;
+          cp_async16(ring + stage * L::kStageBytes + dst,
+                     slice0 + piece_src(piece) + (long long)max(slot, 0) * slot_bytes,
+                     slot >= 0 && piece_bytes(piece % L::kChunks, head_bytes) > 0);
+        }
+      } else {
+#pragma unroll 1
+        for (int i = 0; i < kCopies; ++i) {
+          int key, piece;
+          copy_at(i, key, piece);
+          const int slot = slots[key];
+          const uint32_t dst =
+              (piece < L::kChunks ? piece * 16 : KT * L::kRawRow + (piece - L::kChunks) * 16) +
+              key * L::kRawRow;
+          cp_async_part(ring + stage * L::kStageBytes + dst,
+                        slice0 + piece_src(piece) + (long long)max(slot, 0) * slot_bytes,
+                        slot >= 0 ? piece_bytes(piece % L::kChunks, head_bytes) : 0, cw);
+        }
       }
     }
     if constexpr (kScaled<C>) {
@@ -386,7 +498,7 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
 
   // This lane's two rows, g8 and g8 + 8 of its warp's m16 tile; a warp with
   // no real row only copies.
-  const int nrows = ntok * group;
+  const int nrows = ntok * group_rows;
   const int row0 = warp * 16;
   const bool warp_active = row0 < nrows;
   int qpos[2];
@@ -396,21 +508,24 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int r = row0 + g8 + rr * 8;
-    const int ti = r / group, gg = r - ti * group;
-    rvalid[rr] = r < nrows;
+    const int ti = r / group_rows, gg = g0 + r - ti * group_rows;
+    rvalid[rr] = r < nrows && gg < group;
     qpos[rr] = first_pos + ti;
     slope[rr] = (alibi != nullptr && rvalid[rr]) ? alibi[h * group + gg] : 0.f;
     orow[rr] = (long long)(q_start + tok0 + ti) * num_q_heads + h * group + gg;
   }
-  // Q's A fragments, in registers for the whole key loop.
+  // Q's A fragments, in registers for the whole key loop; 0 past head_dim
+  // (a pair (d, d + 1) is whole on one side: head_dim is even).
   uint32_t qf[D / 16][4];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
-      const Q* qr = q + orow[rr] * D + kk * 16;
-      qf[kk][rr] = rvalid[rr] ? *reinterpret_cast<const uint32_t*>(qr + 2 * c4) : 0u;
-      qf[kk][2 + rr] = rvalid[rr] ? *reinterpret_cast<const uint32_t*>(qr + 8 + 2 * c4) : 0u;
+      const int d = kk * 16 + 2 * c4;
+      const Q* qr = q + orow[rr] * hd + d;
+      qf[kk][rr] = rvalid[rr] && (!PAD || d < hd) ? *reinterpret_cast<const uint32_t*>(qr) : 0u;
+      qf[kk][2 + rr] =
+          rvalid[rr] && (!PAD || d + 8 < hd) ? *reinterpret_cast<const uint32_t*>(qr + 8) : 0u;
     }
   }
 
@@ -484,18 +599,21 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     if (!rvalid[rr]) continue;
+    // Output columns past head_dim are computed and never stored.
     if (nsplit == 1) {
       const float inv = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(out + orow[rr] * D + 8 * n + 2 * c4) =
-            pack2<Q>(o[n][2 * rr] * inv, o[n][2 * rr + 1] * inv);
+        if (!PAD || 8 * n + 2 * c4 < hd)
+          *reinterpret_cast<uint32_t*>(out + orow[rr] * hd + 8 * n + 2 * c4) =
+              pack2<Q>(o[n][2 * rr] * inv, o[n][2 * rr + 1] * inv);
     } else {  // unnormalized, with (m, l), for rpa_combine_kernel
       const long long wrow = (long long)split * num_tokens * num_q_heads + orow[rr];
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(ws_o + wrow * D + 8 * n + 2 * c4) =
-            make_float2(o[n][2 * rr], o[n][2 * rr + 1]);
+        if (!PAD || 8 * n + 2 * c4 < hd)
+          *reinterpret_cast<float2*>(ws_o + wrow * hd + 8 * n + 2 * c4) =
+              make_float2(o[n][2 * rr], o[n][2 * rr + 1]);
       if (c4 == 0) {
         ws_ml[2 * wrow] = m[rr];
         ws_ml[2 * wrow + 1] = l[rr];
@@ -505,16 +623,18 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
 }
 
 // Merges the splits of the rows whose query tile took more than one: one
-// block per (token, kv head), its G·D outputs. Each split's weight is
-// exp(m_i − max m) (0 for a split in which the row saw no key); splits are
-// summed in order.
-template <typename Q, int D>
+// block per (token, kv head), its G·D outputs (any group). D is the head
+// dim: a width's own (DIM), or, where DIM is 0, head_dim at run time (a
+// head dim below its width). Each split's weight is exp(m_i − max m) (0 for
+// a split in which the row saw no key); splits are summed in order.
+template <typename Q, int DIM>
 __global__ void __launch_bounds__(128) rpa_combine_kernel(
     const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
     Q* __restrict__ out, const int* __restrict__ seq_lens,
     const int* __restrict__ query_start_loc, const int* __restrict__ num_seqs,
-    int num_tokens, int num_q_heads, int group, int bq, int splits, int min_tiles,
-    int window) {
+    int num_tokens, int num_q_heads, int head_dim, int group, int bq, int splits,
+    int min_tiles, int window) {
+  const int D = DIM ? DIM : head_dim;
   const int t = blockIdx.x, h = blockIdx.y;
   const int n = num_seqs[0];
   if (t >= query_start_loc[n]) return;
@@ -556,46 +676,54 @@ __global__ void __launch_bounds__(128) rpa_combine_kernel(
 
 // Above 48 KB of dynamic shared memory a kernel must opt in, once on each
 // device it runs on.
-template <typename Q, typename C, int D, int NW>
+template <typename Q, typename C, int D, int NW, bool PAD>
 cudaError_t rpa_mma_attributes() {
   static atoma::PerDevice state;
   return atoma::once_per_device(state, [] {
-    return cudaFuncSetAttribute(rpa_mma_kernel<Q, C, D, NW>,
+    return cudaFuncSetAttribute(rpa_mma_kernel<Q, C, D, NW, PAD>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 RpaTile<C, D, NW>::kSmem);
   });
 }
 
-template <typename Q, typename C, int D, int NW>
+template <typename Q, typename C, int D, int NW, bool PAD>
 int rpa_mma_blocks_per_sm() {
   using L = RpaTile<C, D, NW>;
-  if (rpa_mma_attributes<Q, C, D, NW>() != cudaSuccess) return -1;
+  if (rpa_mma_attributes<Q, C, D, NW, PAD>() != cudaSuccess) return -1;
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rpa_mma_kernel<Q, C, D, NW>, L::kThreads,
-                                                    L::kSmem) != cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rpa_mma_kernel<Q, C, D, NW, PAD>,
+                                                    L::kThreads, L::kSmem) != cudaSuccess)
     return -1;
   return n;
 }
 
-template <typename Q, typename C, int D, int NW>
+// The slices a token's group is cut into for a tile of NW warps (one while
+// it fits the tile's 16 NW rows), and the rows of a slice.
+__host__ __device__ constexpr int rpa_group_slices(int group, int warps) {
+  return (group + 16 * warps - 1) / (16 * warps);
+}
+
+template <typename Q, typename C, int D, int NW, bool PAD>
 int launch_rpa_mma(const void* q, const void* cache, const void* scales, const int* bt,
                    const int* sl, const int* qsl, const int* ns, const float* alibi, void* out,
                    void* ws_o, void* ws_ml, int num_tokens, int num_seq_slots, int hq, int hk,
-                   int max_pages, int block_size, int splits, int min_tiles, float scale,
-                   int window, float soft_cap, cudaStream_t stream) {
+                   int head_dim, int max_pages, int block_size, int splits, int min_tiles,
+                   float scale, int window, float soft_cap, cudaStream_t stream) {
   using L = RpaTile<C, D, NW>;
-  const cudaError_t opt_in = rpa_mma_attributes<Q, C, D, NW>();
+  const cudaError_t opt_in = rpa_mma_attributes<Q, C, D, NW, PAD>();
   if (opt_in != cudaSuccess) return (int)opt_in;
   const int group = hq / hk;
-  const int bq = NW * 16 / group;
+  const int slices = rpa_group_slices(group, NW);
+  const int group_rows = (group + slices - 1) / slices;
+  const int bq = NW * 16 / group_rows;
   if (bq < 1 || block_size <= 0 || block_size % 8 != 0 || splits < 1 || min_tiles < 1 ||
       (splits > 1 && (ws_o == nullptr || ws_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(num_tokens / bq + num_seq_slots, hk, splits);
-  rpa_mma_kernel<Q, C, D, NW><<<grid, L::kThreads, L::kSmem, stream>>>(
+  const dim3 grid(num_tokens / bq + num_seq_slots, hk * slices, splits);
+  rpa_mma_kernel<Q, C, D, NW, PAD><<<grid, L::kThreads, L::kSmem, stream>>>(
       (const Q*)q, (const C*)cache, (const __nv_bfloat16*)scales, bt, sl, qsl, ns,
-      alibi, (Q*)out, (float*)ws_o, (float*)ws_ml, num_tokens, hq, hk, max_pages,
-      block_size, group, splits, min_tiles, scale, window, soft_cap);
+      alibi, (Q*)out, (float*)ws_o, (float*)ws_ml, num_tokens, hq, hk, head_dim, max_pages,
+      block_size, group, group_rows, splits, min_tiles, scale, window, soft_cap);
   return (int)cudaGetLastError();
 }
 
@@ -609,26 +737,26 @@ int rpa_combine_entry(const void* ws_o, const void* ws_ml, void* out, const void
                              int min_tiles, int window, void* stream) {
   if (num_tokens <= 0) return 0;
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads != 0 || bq < 1 || splits < 2 ||
-      min_tiles < 1 || ws_o == nullptr || ws_ml == nullptr)
+      min_tiles < 1 || ws_o == nullptr || ws_ml == nullptr || instance_dim(head_dim) == 0)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(num_tokens, num_kv_heads);
   const int group = num_q_heads / num_kv_heads;
   cudaStream_t st = (cudaStream_t)stream;
-#define ATOMA_COMBINE(D)                                                                      \
-  if (head_dim == D) {                                                                        \
-    rpa_combine_kernel<Q, D><<<grid, 128, 0, st>>>(                                           \
-        (const float*)ws_o, (const float*)ws_ml, (Q*)out, (const int*)seq_lens,              \
-        (const int*)query_start_loc, (const int*)num_seqs, num_tokens, num_q_heads, group,   \
-        bq, splits, min_tiles, window);                                                       \
-    return (int)cudaGetLastError();                                                           \
+#define ATOMA_COMBINE(DIM)                                                                    \
+  rpa_combine_kernel<Q, DIM><<<grid, 128, 0, st>>>(                                           \
+      (const float*)ws_o, (const float*)ws_ml, (Q*)out, (const int*)seq_lens,                \
+      (const int*)query_start_loc, (const int*)num_seqs, num_tokens, num_q_heads, head_dim,  \
+      group, bq, splits, min_tiles, window)
+  switch (head_dim) {
+    case 32: ATOMA_COMBINE(32); break;
+    case 64: ATOMA_COMBINE(64); break;
+    case 96: ATOMA_COMBINE(96); break;
+    case 128: ATOMA_COMBINE(128); break;
+    case 256: ATOMA_COMBINE(256); break;
+    default: ATOMA_COMBINE(0);
   }
-  ATOMA_COMBINE(32)
-  ATOMA_COMBINE(64)
-  ATOMA_COMBINE(96)
-  ATOMA_COMBINE(128)
-  ATOMA_COMBINE(256)
 #undef ATOMA_COMBINE
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 template <typename Q, typename C, int DIMS>
@@ -645,25 +773,34 @@ int rpa_mma_entry(const void* q, const void* cache, const void* scales, const vo
   const int* ns = (const int*)num_seqs;
   const float* al = (const float*)alibi;
   cudaStream_t st = (cudaStream_t)stream;
-#define ATOMA_RPA_MMA(D, NW)                                                                  \
-  if (head_dim == D && warps == NW)                                                           \
-  return launch_rpa_mma<Q, C, D, NW>(q, cache, scales, bt, sl, qsl, ns, al, out, ws_o, ws_ml,    \
-                                  num_tokens, num_seq_slots, num_q_heads, num_kv_heads,       \
-                                  max_pages, block_size, splits, min_tiles, scale, window,    \
-                                  soft_cap, st)
+  // A padded head dim (head_dim < its width) takes the PAD instantiation,
+  // 8 warps only (the plan asks for 8: rpa_warps).
+  const int dp = instance_dim(head_dim);
+  const bool pad = head_dim != dp;
+#define ATOMA_RPA_MMA(D, NW, P)                                                               \
+  if (dp == D && warps == NW && pad == P)                                                     \
+  return launch_rpa_mma<Q, C, D, NW, P>(q, cache, scales, bt, sl, qsl, ns, al, out, ws_o,     \
+                                        ws_ml, num_tokens, num_seq_slots, num_q_heads,        \
+                                        num_kv_heads, head_dim, max_pages, block_size,        \
+                                        splits, min_tiles, scale, window, soft_cap, st)
   if constexpr ((DIMS & kNarrowDims) != 0) {
-    ATOMA_RPA_MMA(32, 4);
-    ATOMA_RPA_MMA(64, 4);
-    ATOMA_RPA_MMA(128, 4);
-    ATOMA_RPA_MMA(32, 8);
-    ATOMA_RPA_MMA(64, 8);
-    ATOMA_RPA_MMA(128, 8);
+    ATOMA_RPA_MMA(32, 4, false);
+    ATOMA_RPA_MMA(64, 4, false);
+    ATOMA_RPA_MMA(128, 4, false);
+    ATOMA_RPA_MMA(32, 8, false);
+    ATOMA_RPA_MMA(64, 8, false);
+    ATOMA_RPA_MMA(128, 8, false);
+    ATOMA_RPA_MMA(32, 8, true);
+    ATOMA_RPA_MMA(64, 8, true);
+    ATOMA_RPA_MMA(128, 8, true);
   }
   if constexpr ((DIMS & kWideDims) != 0) {
-    ATOMA_RPA_MMA(96, 4);
-    ATOMA_RPA_MMA(256, 4);
-    ATOMA_RPA_MMA(96, 8);
-    ATOMA_RPA_MMA(256, 8);
+    ATOMA_RPA_MMA(96, 4, false);
+    ATOMA_RPA_MMA(256, 4, false);
+    ATOMA_RPA_MMA(96, 8, false);
+    ATOMA_RPA_MMA(256, 8, false);
+    ATOMA_RPA_MMA(96, 8, true);
+    ATOMA_RPA_MMA(256, 8, true);
   }
 #undef ATOMA_RPA_MMA
   return (int)cudaErrorInvalidValue;
@@ -671,21 +808,28 @@ int rpa_mma_entry(const void* q, const void* cache, const void* scales, const vo
 
 template <typename Q, typename C, int DIMS>
 int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
-#define ATOMA_RPA_OCC(D, NW) \
-  if (head_dim == D && warps == NW) return rpa_mma_blocks_per_sm<Q, C, D, NW>()
+  const int dp = instance_dim(head_dim);
+  const bool pad = head_dim != dp;
+#define ATOMA_RPA_OCC(D, NW, P) \
+  if (dp == D && warps == NW && pad == P) return rpa_mma_blocks_per_sm<Q, C, D, NW, P>()
   if constexpr ((DIMS & kNarrowDims) != 0) {
-    ATOMA_RPA_OCC(32, 4);
-    ATOMA_RPA_OCC(64, 4);
-    ATOMA_RPA_OCC(128, 4);
-    ATOMA_RPA_OCC(32, 8);
-    ATOMA_RPA_OCC(64, 8);
-    ATOMA_RPA_OCC(128, 8);
+    ATOMA_RPA_OCC(32, 4, false);
+    ATOMA_RPA_OCC(64, 4, false);
+    ATOMA_RPA_OCC(128, 4, false);
+    ATOMA_RPA_OCC(32, 8, false);
+    ATOMA_RPA_OCC(64, 8, false);
+    ATOMA_RPA_OCC(128, 8, false);
+    ATOMA_RPA_OCC(32, 8, true);
+    ATOMA_RPA_OCC(64, 8, true);
+    ATOMA_RPA_OCC(128, 8, true);
   }
   if constexpr ((DIMS & kWideDims) != 0) {
-    ATOMA_RPA_OCC(96, 4);
-    ATOMA_RPA_OCC(256, 4);
-    ATOMA_RPA_OCC(96, 8);
-    ATOMA_RPA_OCC(256, 8);
+    ATOMA_RPA_OCC(96, 4, false);
+    ATOMA_RPA_OCC(256, 4, false);
+    ATOMA_RPA_OCC(96, 8, false);
+    ATOMA_RPA_OCC(256, 8, false);
+    ATOMA_RPA_OCC(96, 8, true);
+    ATOMA_RPA_OCC(256, 8, true);
   }
 #undef ATOMA_RPA_OCC
   return -1;
@@ -693,8 +837,9 @@ int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
 
 }  // namespace atoma
 
-// The merge of a split attention launch's rows: ws_o f32 [splits, T, Hq, D],
-// ws_ml f32 [splits, T, Hq, 2] (splits > 1), out Q [T, Hq, D]; bq the
+// The merge of a split attention launch's rows: ws_o f32 [splits, T, Hq,
+// head_dim], ws_ml f32 [splits, T, Hq, 2] (splits > 1), out Q [T, Hq,
+// head_dim]; bq the
 // query tokens a tile (1 for the fused decode kernel), min_tiles and window
 // as the attention launch's. One library defines each (paged_attention.cu:
 // bf16; paged_attention_f16.cu: SUFFIX _f16, fp16).
@@ -710,11 +855,13 @@ int rpa_mma_blocks_per_sm_entry(int head_dim, int warps) {
   }
 
 // The tensor-core entry points of one (query type Q, cache kind C) pair at
-// the head dims of DIMS (a HeadDimSet):
-// q and out Q [T, Hq, D]; cache, scales, block tables and lengths as the
-// ragged entry's; ws_o f32 [splits, T, Hq, D] and ws_ml f32 [splits, T, Hq,
-// 2] when splits > 1 (else null); warps 4 or 8 (64 or 128 rows a tile). A
-// launch with splits > 1 is followed by atoma_paged_attention_split_combine.
+// the widths of DIMS (a HeadDimSet), for every head_dim whose instance_dim
+// is one of them: q and out Q [T, Hq, head_dim]; cache, scales, block
+// tables and lengths as the ragged entry's; ws_o f32 [splits, T, Hq,
+// head_dim] and ws_ml f32 [splits, T, Hq, 2] when splits > 1 (else null);
+// warps 4 or 8 (64 or 128 rows a tile; a group past 16 warps is cut into
+// rpa_group_slices slices). A launch with splits > 1 is followed by
+// atoma_paged_attention_split_combine.
 #define ATOMA_RPA_MMA_ENTRIES(SUFFIX, Q, C, DIMS)                                             \
   extern "C" int atoma_ragged_paged_attention_mma##SUFFIX(                                    \
       const void* q, const void* cache, const void* scales, const void* block_tables,        \

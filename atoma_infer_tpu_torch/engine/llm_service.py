@@ -46,6 +46,7 @@ import asyncio
 import dataclasses
 import itertools
 import logging
+import math
 import os
 import shutil
 import socket
@@ -97,8 +98,8 @@ def check_kernel_shapes(model_config, config: EngineConfig) -> None:
     copies of a kv head counted when ``tensor_parallel_size`` is wider than
     the kv heads), the activations' dtype and the KV cache's
     (``ops/paged_attention.py`` ``check_kernel_shape``, which the kernels'
-    wrappers call too): the ragged kernel's, which every step runs (up to
-    ``MAX_RAGGED_GROUP`` q heads per kv head), and the fused kernel's where
+    wrappers call too): the ragged kernel's, which every step runs (any
+    group; an even head dim from 8 to 256), and the fused kernel's where
     ``decode_route`` sends pure-decode steps to it (up to
     ``MAX_FUSED_GROUP``; past that they take the write and the ragged
     kernel). ``LlmService.start`` calls it on the card before anything is
@@ -243,16 +244,21 @@ def quantized_bytes(num_tokens: int, model_config, tp: int = 1) -> int:
 def split_workspace_bytes(num_tokens: int, model_config, max_pages: int,
                           block_size: int, tp: int = 1) -> int:
     """The ragged kernel's split workspace at T tokens (allocated in the
-    capture, ``ops/paged_attention.py`` ``ragged_paged_attention_mma_launch``):
-    splits · T · Hq · (D + 2) f32 (Hq the rank's), at the most splits any
-    plan takes over ``max_pages`` pages (``rpa_mma_plan``: at most
+    capture, ``ops/paged_attention.py`` ``ragged_paged_attention_mma_launch``,
+    shapes from ``split_workspace_shapes``): splits · T · Hq · (D + 2) f32
+    (Hq the rank's, D the model's head dim, which the kernels stride the
+    workspace by at every instantiation width), at the most splits any plan
+    takes over ``max_pages`` pages (``rpa_mma_plan``: at most
     ``RPA_MAX_SPLITS``, and at most one a ``RPA_MIN_TILES`` key tiles)."""
-    from ..ops.paged_attention import RPA_KEY_TILE, RPA_MAX_SPLITS, RPA_MIN_TILES
+    from ..ops.paged_attention import (
+        RPA_KEY_TILE, RPA_MAX_SPLITS, RPA_MIN_TILES, split_workspace_shapes,
+    )
 
     key_tiles = -(-max_pages * block_size // RPA_KEY_TILE)
     splits = min(RPA_MAX_SPLITS, -(-key_tiles // RPA_MIN_TILES))
     c = model_config
-    return 4 * splits * num_tokens * (c.num_attention_heads // tp) * (c.head_dim + 2)
+    shapes = split_workspace_shapes(splits, num_tokens, c.num_attention_heads // tp, c.head_dim)
+    return 4 * sum(math.prod(shape) for shape in shapes)
 
 
 def graph_pool_bytes(model_config, scheduler_config, block_size: int, *,

@@ -50,14 +50,26 @@ fused kernels and a decode-heavy ragged batch are bound by the K/V bytes
 for a whole query tile and is bound by the tensor cores' operations, which
 the ``*_mma`` kernels run on. Sources and notes: ``csrc/paged_attention.cuh``
 and ``csrc/paged_attention_mma.cuh``, instantiated by
-``paged_attention{,_int8,_fp8}.cu``.
+``paged_attention{,_int8,_fp8}.cu`` and ``paged_attention{,_int8,_fp8}_mma.cu``.
 
-Every route takes head dims 32, 64, 96 (Phi-3-mini), 128 and 256
-(Gemma-2). The 1-byte caches' tensor-core kernels and the f32 queries'
-CUDA-core kernels at 96 and 256 are instantiations of their own (``*_wide``,
-in ``paged_attention{,_int8,_fp8}_wide*.cu`` and
+Every route takes any even head dim from 8 to 256, as JAX takes the head
+dim from the config: each kernel is instantiated at the widths 32, 64, 96,
+128 and 256 (``INSTANCE_DIMS``) and runs a head dim on the smallest that
+holds it (:func:`instance_dim`), the head dim passed at run time. A head dim
+below its width takes a padded instantiation of its own (one a width: the
+tensor-core ragged kernel at 8 warps, the split fused kernel at both
+halves of its tile, the CUDA-core kernels at key tiles of 8 and at the
+run-time group), its padded columns staged as zeros and never stored
+(h2o-danube-1.8b's 80 runs at 96, OpenLLaMA-3B's 100 and h2o-danube3-4b's
+120 at 128); the widths' own head dims run the code they ran before. The 1-byte
+caches' tensor-core kernels and the f32 queries' CUDA-core kernels at the
+widths 96 and 256 are instantiations of their own (``*_wide``, in
+``paged_attention{,_int8,_fp8}_wide*.cu`` and
 ``fused_decode_split{_int8,_fp8}_wide*.cu``), so that the sources build in
-parallel.
+parallel. The ragged kernels take any group: the tensor-core kernel cuts a
+token's group past 128 q heads per kv head into slices of at most 128
+rows, a block each (:func:`rpa_mma_plan`), as the CUDA-core kernel cuts a
+wide group over blocks.
 
 Dispatch: CUDA tensors launch the kernels of their cache's dtype and their
 queries' route (or raise: an int8 or e4m3 cache never takes a bf16 kernel
@@ -99,17 +111,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The queries' dtypes the kernels take, and those of the tensor-core route.
 Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 TC_DTYPES = (torch.bfloat16, torch.float16)
-# Head dims every route's kernels are instantiated for; the wide ones are
-# Phi-3-mini's and Gemma-2's.
-HEAD_DIMS = (32, 64, 96, 128, 256)
+# The widths every route's kernels are instantiated at; the wide ones are
+# Phi-3-mini's and Gemma-2's head dims, and those of their own sources. A
+# head dim runs at the smallest width that holds it (instance_dim).
+INSTANCE_DIMS = (32, 64, 96, 128, 256)
 WIDE_HEAD_DIMS = (96, 256)
+MIN_HEAD_DIM, MAX_HEAD_DIM = 8, 256
 # The fused decode kernels take up to 16 q heads per kv head: one m16 tile
 # of Q·Kᵀ a kv head.
 MAX_FUSED_GROUP = 16
-# The ragged kernels take up to 128: one token's group in one query tile of
-# the tensor-core kernel (8 warps of 16 rows, ``rpa_warps``); the CUDA-core
-# kernel cuts a wider group over blocks.
-MAX_RAGGED_GROUP = 128
 _RAGGED_ARGS = [INT] + [PTR] * 9 + [INT] * 7 + [FLOAT, INT, FLOAT, PTR]
 _FUSED_ARGS = [INT] + [PTR] * 12 + [INT] * 6 + [LONG, FLOAT, INT, FLOAT, PTR]
 _A = "atoma_infer_tpu/ops/paged_attention.py:1058 (ragged_paged_attention_pallas"
@@ -166,12 +176,14 @@ FUSED_DECODE_WIDE = {
         f"{FUSED_DECODE[kind].symbol}_wide", _FUSED_ARGS, FUSED_DECODE[kind].replaces)
     for kind, suffix in _KIND_SUFFIXES
 }
-# The tensor-core ragged kernel, by cache kind: bf16 queries, and their
-# fp16 instantiations (``*_f16``, each its own source).
+# The tensor-core ragged kernel, by cache kind: bf16 queries
+# (``paged_attention{,_int8,_fp8}_mma.cu``, apart from the CUDA-core
+# kernels' sources so that they build in parallel), and their fp16
+# instantiations (``*_f16``, each its own source).
 _MMA_ARGS = [PTR] * 11 + [INT] * 10 + [FLOAT, INT, FLOAT, PTR]
 RAGGED_ATTENTION_MMA = {
     kind: _register(
-        f"{RAGGED_ATTENTION[kind].name}_mma", RAGGED_ATTENTION[kind].source,
+        f"{RAGGED_ATTENTION[kind].name}_mma", f"paged_attention{suffix}_mma.cu",
         f"atoma_ragged_paged_attention_mma{suffix}", _MMA_ARGS,
         RAGGED_ATTENTION[kind].replaces)
     for kind, suffix in _KIND_SUFFIXES
@@ -245,11 +257,19 @@ _FUSED_TC = {(torch.bfloat16, False): FUSED_DECODE_SPLIT,
              (torch.float16, True): FUSED_DECODE_SPLIT_WIDE_F16}
 
 
+def instance_dim(head_dim: int) -> int:
+    """The width a head dim runs at: the smallest of ``INSTANCE_DIMS`` that
+    holds it (the kernels' ``instance_dim``, ``csrc/paged_attention.cuh``).
+    ``head_dim`` is an even head dim from 8 to 256 (:func:`check_kernel_shape`)."""
+    return next(d for d in INSTANCE_DIMS if d >= head_dim)
+
+
 def _tc_kernel(tables, dtype, kind, head_dim) -> cuda_lib.CudaKernel:
     """The tensor-core kernel of ``tables`` for queries of ``dtype`` (bf16
     or fp16) over a cache of ``kind`` at ``head_dim``: a 1-byte cache's
-    instantiation at a wide head dim lives in a ``*_wide`` source."""
-    return tables[(dtype, kind is not None and head_dim in WIDE_HEAD_DIMS)][kind]
+    instantiation at a wide width lives in a ``*_wide`` source."""
+    wide = kind is not None and instance_dim(head_dim) in WIDE_HEAD_DIMS
+    return tables[(dtype, wide)][kind]
 
 
 # The merge of split rows (rpa_combine_kernel), after a split ragged or
@@ -259,8 +279,8 @@ _COMBINE_ARGS = [PTR] * 6 + [INT] * 8 + [PTR]
 _COMBINE_REPLACES = ("atoma_infer_tpu/ops/paged_attention.py:139 (_kernel: the online softmax "
                      "over a row's key blocks, merged across the blocks of a KV split)")
 SPLIT_COMBINE = _register(
-    "paged_attention_split_combine", "paged_attention.cu", "atoma_paged_attention_split_combine",
-    _COMBINE_ARGS, _COMBINE_REPLACES)
+    "paged_attention_split_combine", "paged_attention_mma.cu",
+    "atoma_paged_attention_split_combine", _COMBINE_ARGS, _COMBINE_REPLACES)
 SPLIT_COMBINE_F16 = _register(
     "paged_attention_split_combine_f16", "paged_attention_f16.cu",
     "atoma_paged_attention_split_combine_f16", _COMBINE_ARGS, _COMBINE_REPLACES)
@@ -303,11 +323,14 @@ def num_splits_heuristic(blocks: int, slots: int, n_blocks: int, max_splits: int
 @dataclasses.dataclass(frozen=True)
 class RpaPlan:
     """How one tensor-core ragged call launches: warps a block (4 or 8, 16
-    rows each), query tokens a tile, and the most KV splits a row takes."""
+    rows each), query tokens a tile, the most KV splits a row takes, and the
+    slices a token's group is cut into (past 128 q heads per kv head; the
+    kernel's ``rpa_group_slices``), each a block of its own."""
 
     warps: int
     tokens: int
     splits: int
+    slices: int = 1
 
 
 # Up to this many sequence slots (the engine's smallest bucket), a step
@@ -315,45 +338,59 @@ class RpaPlan:
 RPA_FEW_SEQS = 8
 
 
-def rpa_warps(group: int, max_q_len: int, num_seq_slots: int) -> int:
-    """Warps a block: 8 (128 rows) when a GQA group needs them, or when a
-    query chunk fills several such tiles in a step of few sequences; else 4
-    (64 rows). With many sequences most tiles hold one decode row, which a
-    128-row tile leaves 7 of 8 warps idle over (measured on an H100:
+def rpa_warps(group: int, max_q_len: int, num_seq_slots: int, padded: bool = False) -> int:
+    """Warps a block: 8 (128 rows) when a GQA group needs them (past 64 q
+    heads per kv head; past 128 a token's group is cut into slices of at
+    most 128 rows), or when a query chunk fills several such tiles in a step
+    of few sequences, or at a ``padded`` head dim (one below its width,
+    whose instantiation is built at 8 warps only); else 4 (64 rows). With
+    many sequences most tiles hold one decode row, which a 128-row tile
+    leaves 7 of 8 warps idle over (measured on an H100:
     ``tools/rpa_ablation.py``, PERF.md)."""
-    if group > MAX_RAGGED_GROUP:
-        raise ValueError(_group_refusal(group))
     long_chunk = max_q_len * group >= 4 * 8 * RPA_WARP_ROWS
-    return 8 if group > 4 * RPA_WARP_ROWS or (long_chunk and num_seq_slots <= RPA_FEW_SEQS) else 4
+    wide = group > 4 * RPA_WARP_ROWS or (long_chunk and num_seq_slots <= RPA_FEW_SEQS)
+    return 8 if wide or padded else 4
+
+
+def rpa_group_slices(group: int, warps: int) -> int:
+    """The slices a token's group is cut into in a tile of ``warps`` warps
+    (the kernel's ``rpa_group_slices``): one while the group fits the
+    tile's rows, else ceil(group / rows), each of ceil(group / slices) q
+    heads."""
+    return -(-group // (warps * RPA_WARP_ROWS))
 
 
 def rpa_mma_plan(*, num_seq_slots: int, num_tokens: int, max_q_len: int, max_keys: int,
-                 group: int, num_kv_heads: int, slots: int) -> RpaPlan:
+                 group: int, num_kv_heads: int, slots: int, padded: bool = False) -> RpaPlan:
     """The launch plan from what the host knows: S sequence slots, T query
     rows, the longest chunk, the block table's width in keys (P × block
     size), the GQA group and kv heads, and ``slots``, the blocks of this
     instantiation the card holds at once (:func:`_rpa_slots`). Never the
     device's ``seq_lens``. The query tiles that hold a token number about
     max(ceil(T / tokens), min(S, T)): the tokens packed, or one tile a
-    sequence; with one block per (tile, kv head) that is the grid FA2's
-    heuristic sizes against the card, with the key tiles counted in whole
-    splits of ``RPA_MIN_TILES``."""
-    warps = rpa_warps(group, max_q_len, num_seq_slots)
-    tokens = warps * RPA_WARP_ROWS // group
+    sequence (one token a tile past 128 q heads per kv head, its group cut
+    into slices); with one block per (tile, kv head, slice) that is the grid
+    FA2's heuristic sizes against the card, with the key tiles counted in
+    whole splits of ``RPA_MIN_TILES``. ``padded``: the head dim is below its
+    width (:func:`rpa_warps`)."""
+    warps = rpa_warps(group, max_q_len, num_seq_slots, padded)
+    slices = rpa_group_slices(group, warps)
+    tokens = warps * RPA_WARP_ROWS // -(-group // slices)
     tiles = max(-(-num_tokens // tokens), min(num_seq_slots, num_tokens))
     key_tiles = -(-max_keys // RPA_KEY_TILE)
-    splits = num_splits_heuristic(tiles * num_kv_heads, slots,
+    splits = num_splits_heuristic(tiles * num_kv_heads * slices, slots,
                                   -(-key_tiles // RPA_MIN_TILES), RPA_MAX_SPLITS)
-    return RpaPlan(warps, tokens, splits)
+    return RpaPlan(warps, tokens, splits, slices)
 
 
 @functools.lru_cache(maxsize=None)
 def _rpa_slots(kind, head_dim: int, warps: int, device: int) -> int:
     """The blocks of one tensor-core instantiation the card holds at once:
-    the occupancy calculator's blocks an SM times the card's SMs. The bf16
-    instantiation's answer serves the fp16 one too, the same code on
-    another ``mma`` form with the same shared memory (``chip_smoke.py``
-    checks that the card gives both the same)."""
+    the occupancy calculator's blocks an SM times the card's SMs, for the
+    instantiation that runs ``head_dim`` (its width's, or below the width
+    its padded one's). The bf16 instantiation's answer serves the fp16 one
+    too, the same code on another ``mma`` form with the same shared memory
+    (``chip_smoke.py`` checks that the card gives both the same)."""
     kernel = _tc_kernel(_RAGGED_TC, torch.bfloat16, kind, head_dim)
     suffix = kernel.symbol[len("atoma_ragged_paged_attention_mma"):]
     fn = getattr(cuda_lib.load(kernel.source), f"atoma_rpa_mma_blocks_per_sm{suffix}")
@@ -373,10 +410,11 @@ def rpa_plan_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> RpaPlan:
     S, P = meta.block_tables.shape
     group = Hq // num_kv_heads
     max_q_len = int(meta.max_q_len)
+    padded = instance_dim(D) != D
     return rpa_mma_plan(
         num_seq_slots=S, num_tokens=T, max_q_len=max_q_len, max_keys=P * meta.block_size,
-        group=group, num_kv_heads=num_kv_heads,
-        slots=_rpa_slots(kind, D, rpa_warps(group, max_q_len, S), q.device.index or 0))
+        group=group, num_kv_heads=num_kv_heads, padded=padded,
+        slots=_rpa_slots(kind, D, rpa_warps(group, max_q_len, S, padded), q.device.index or 0))
 
 
 def split_key_ranges(pos: int, window: Optional[int], splits: int, min_tiles: int):
@@ -410,7 +448,8 @@ def fused_split_plan(*, num_seq_slots: int, max_keys: int, num_kv_heads: int,
 @functools.lru_cache(maxsize=None)
 def _fused_slots(kind, head_dim: int, group: int, device: int) -> int:
     """The blocks of one split fused instantiation the card holds at once
-    (the bf16 one's, for fp16 too: see :func:`_rpa_slots`)."""
+    (the bf16 one's, for fp16 too; at a head dim below its width the padded
+    instantiation's: see :func:`_rpa_slots`)."""
     kernel = _tc_kernel(_FUSED_TC, torch.bfloat16, kind, head_dim)
     suffix = kernel.symbol[len("atoma_fused_decode_attention_split"):]
     fn = getattr(cuda_lib.load(kernel.source), f"atoma_fused_split_blocks_per_sm{suffix}")
@@ -435,25 +474,27 @@ def fused_splits_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> int:
 def fused_route(q: torch.Tensor, kind) -> cuda_lib.CudaKernel:
     """The fused decode kernel a CUDA call takes: bf16 queries the split
     kernel (``*_split``) over every cache kind, fp16 queries its fp16
-    instantiation (``*_split_f16``), a 1-byte cache at a wide head dim
-    their ``*_wide`` instantiations; f32 queries ``fused_decode_kernel``
-    (at a wide head dim its ``*_wide`` instantiation), the f32 test-size
-    services' traffic."""
+    instantiation (``*_split_f16``), a 1-byte cache at a wide width
+    (:func:`instance_dim`) their ``*_wide`` instantiations; f32 queries
+    ``fused_decode_kernel`` (at a wide width its ``*_wide``
+    instantiation), the f32 test-size services' traffic."""
     if q.dtype in TC_DTYPES:
         return _tc_kernel(_FUSED_TC, q.dtype, kind, q.shape[2])
-    return (FUSED_DECODE_WIDE if q.shape[2] in WIDE_HEAD_DIMS else FUSED_DECODE)[kind]
+    wide = instance_dim(q.shape[2]) in WIDE_HEAD_DIMS
+    return (FUSED_DECODE_WIDE if wide else FUSED_DECODE)[kind]
 
 
 def ragged_route(q: torch.Tensor, kind) -> cuda_lib.CudaKernel:
     """The ragged kernel a CUDA call takes: bf16 queries the tensor cores
     (``*_mma``) over every cache kind, fp16 queries their fp16
-    instantiation (``*_mma_f16``), a 1-byte cache at a wide head dim their
-    ``*_wide`` instantiations; f32 queries the CUDA cores (``rpa_kernel``,
-    at a wide head dim its ``*_wide`` instantiation), whose f32 sums a
-    16-bit ``mma`` would round."""
+    instantiation (``*_mma_f16``), a 1-byte cache at a wide width
+    (:func:`instance_dim`) their ``*_wide`` instantiations; f32 queries the
+    CUDA cores (``rpa_kernel``, at a wide width its ``*_wide``
+    instantiation), whose f32 sums a 16-bit ``mma`` would round."""
     if q.dtype in TC_DTYPES:
         return _tc_kernel(_RAGGED_TC, q.dtype, kind, q.shape[2])
-    return (RAGGED_ATTENTION_WIDE if q.shape[2] in WIDE_HEAD_DIMS else RAGGED_ATTENTION)[kind]
+    wide = instance_dim(q.shape[2]) in WIDE_HEAD_DIMS
+    return (RAGGED_ATTENTION_WIDE if wide else RAGGED_ATTENTION)[kind]
 
 
 def combine_route(out: torch.Tensor) -> cuda_lib.CudaKernel:
@@ -536,33 +577,30 @@ def decode_route(num_q_heads: int, num_kv_heads: int) -> str:
     return "fused" if num_q_heads // num_kv_heads <= MAX_FUSED_GROUP else "ragged"
 
 
-def _group_refusal(group: int) -> str:
-    return (f"paged attention: {group} q heads per kv head unsupported (1 to "
-            f"{MAX_RAGGED_GROUP}; larger groups wait for ROADMAP.md, Queue 1 item 21: "
-            "attention past 128 q heads per kv head)")
-
-
 def check_kernel_shape(*, head_dim: int, dtype: torch.dtype, kind, group: int,
                        block_size: int, fused: bool) -> None:
     """Raise ``ValueError`` for a shape no kernel takes: ``head_dim`` for
     queries of ``dtype`` (bf16, fp16 or f32) over a cache of ``kind`` (None:
-    the queries' own dtype; or int8, float8_e4m3fn) must be one of
-    ``HEAD_DIMS`` on every route; the ragged kernel (A, D, E) takes any
-    block size that is a multiple of 8, as the configuration does, and 1 to
-    ``MAX_RAGGED_GROUP`` query heads per kv head; the fused decode kernel (B
-    and D's and E's fused variants) 1 to ``MAX_FUSED_GROUP``. Each refusal
-    of a group names the ROADMAP.md item that would add more. The wrappers
-    and ``LlmService.start`` call it."""
+    the queries' own dtype; or int8, float8_e4m3fn) must be even, from
+    ``MIN_HEAD_DIM`` to ``MAX_HEAD_DIM``, on every route (a refusal names
+    the ROADMAP.md item that would add more); the ragged kernel (A, D, E)
+    takes any block size that is a multiple of 8, as the configuration
+    does, and any number of query heads per kv head; the fused decode kernel
+    (B and D's and E's fused variants) 1 to ``MAX_FUSED_GROUP``, its
+    refusal naming the item. The wrappers and ``LlmService.start`` call
+    it."""
     if dtype not in Q_DTYPES:
         raise ValueError(f"paged attention: q {dtype} must be bfloat16, float16 or float32")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"paged attention: unsupported head_dim {head_dim} for {dtype} queries "
-                         f"over a {kind or dtype} cache (head dims {HEAD_DIMS})")
+    if head_dim % 2 or not MIN_HEAD_DIM <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"paged attention: unsupported head_dim {head_dim} for {dtype} queries over a "
+            f"{kind or dtype} cache (even head dims {MIN_HEAD_DIM} to {MAX_HEAD_DIM}; others "
+            "wait for ROADMAP.md, Queue 1 item 22: attention at head dims past 256 or odd)")
     if block_size <= 0 or block_size % 8:
         raise ValueError(f"paged attention: block_size {block_size} is not a positive "
                          "multiple of 8")
-    if not 1 <= group <= MAX_RAGGED_GROUP:
-        raise ValueError(_group_refusal(group))
+    if group < 1:
+        raise ValueError(f"paged attention: {group} q heads per kv head unsupported")
     if fused and group > MAX_FUSED_GROUP:
         raise ValueError(
             f"fused_decode_attention: {group} q heads per kv head unsupported (1 to "
@@ -673,6 +711,22 @@ def ragged_paged_attention_cuda(
     return out
 
 
+def split_workspace_shapes(splits: int, num_tokens: int, num_q_heads: int, head_dim: int):
+    """The f32 workspace of a launch cut into ``splits`` (> 1): each
+    split's unnormalized output, strided by the head dim the kernels write
+    (``[splits, T, Hq, head_dim]``, not the instantiation width), and its
+    (m, l) pair (``[splits, T, Hq, 2]``)."""
+    return (splits, num_tokens, num_q_heads, head_dim), (splits, num_tokens, num_q_heads, 2)
+
+
+def _split_workspace(splits: int, q: torch.Tensor):
+    if splits <= 1:
+        return None, None
+    o_shape, ml_shape = split_workspace_shapes(splits, *q.shape)
+    return (torch.empty(o_shape, dtype=torch.float32, device=q.device),
+            torch.empty(ml_shape, dtype=torch.float32, device=q.device))
+
+
 def ragged_paged_attention_mma_launch(
     q, kv_cache, meta, plan: RpaPlan, out, *, kind, scale, sliding_window=None,
     soft_cap=None, alibi_slopes=None, kv_scales=None,
@@ -685,10 +739,7 @@ def ragged_paged_attention_mma_launch(
     T, Hq, D = q.shape
     S, P = meta.block_tables.shape
     Hk = kv_cache.shape[2] // (2 * D)
-    ws_o = ws_ml = None
-    if plan.splits > 1:
-        ws_o = torch.empty((plan.splits, T, Hq, D), dtype=torch.float32, device=q.device)
-        ws_ml = torch.empty((plan.splits, T, Hq, 2), dtype=torch.float32, device=q.device)
+    ws_o, ws_ml = _split_workspace(plan.splits, q)
     dev = cuda_lib.launch_device(q, kv_cache, kv_scales, meta.block_tables, meta.seq_lens,
                                  meta.query_start_loc, meta.num_seqs, alibi_slopes, out, ws_o,
                                  ws_ml)
@@ -811,10 +862,7 @@ def fused_split_launch(
     S, P = meta.block_tables.shape
     num_pages, bs, row = kv_cache.shape
     Hk = row // (2 * D)
-    ws_o = ws_ml = None
-    if splits > 1:
-        ws_o = torch.empty((splits, T, Hq, D), dtype=torch.float32, device=q.device)
-        ws_ml = torch.empty((splits, T, Hq, 2), dtype=torch.float32, device=q.device)
+    ws_o, ws_ml = _split_workspace(splits, q)
     dev = cuda_lib.launch_device(q, k_new, v_new, kv_cache, kv_scales, scales_new,
                                  meta.slot_mapping, meta.block_tables, meta.seq_lens,
                                  meta.query_start_loc, meta.num_seqs, alibi_slopes, out, ws_o,

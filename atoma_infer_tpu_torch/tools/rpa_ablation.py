@@ -46,7 +46,8 @@ from ..ops.cuda_lib import INT as ctypes_int
 from ..ops.attention import AttentionMetadata
 from ..ops.kv_cache import FP8_MAX, kv_quant_scales, quantize_kv_rows
 
-SOURCES = ("paged_attention.cu", "paged_attention_int8.cu", "paged_attention_fp8.cu")
+SOURCES = ("paged_attention.cu", "paged_attention_int8.cu", "paged_attention_fp8.cu",
+           "paged_attention_mma.cu", "paged_attention_int8_mma.cu", "paged_attention_fp8_mma.cu")
 FUSED_SOURCES = ("fused_decode_split.cu", "fused_decode_split_int8.cu",
                  "fused_decode_split_fp8.cu")
 TOL = 2e-2
@@ -220,7 +221,9 @@ def timed_rows(device):
             row["route_ms"] = graph_ms(lambda: pa.ragged_paged_attention_cuda(
                 b["q"], b["cache"], m, scale=D ** -0.5, kv_scales=b["scales"]))
             row["cuda_cores_ms"] = graph_ms(lambda: run_cuda_cores(b))
-            row["occupancy"] = {w: pa._rpa_slots(kind, D, w, 0) for w in (4, 8)}
+            # A head dim below its width has an 8-warp instantiation only.
+            warps = (4, 8) if pa.instance_dim(D) == D else (8,)
+            row["occupancy"] = {w: pa._rpa_slots(kind, D, w, 0) for w in warps}
             print(json.dumps(row), flush=True)
 
 

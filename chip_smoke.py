@@ -51,7 +51,15 @@ raises on failure; nothing is caught):
    Phi-3-mini (D = 96, 32 kv heads, window 2,047) and Gemma-2-9B (D = 256,
    soft cap 50) attention shapes: the write bit-exact, A on a mixed batch
    and B on 64 decode rows against their plain versions, each timed beside
-   its bound, and the merge after a split launch. Kernel I (the W8A8 rate probe's
+   its bound, and the merge after a split launch. Head dims at a padded
+   width (``check_head_dim_variants``): A, B, D, E and the merge at head
+   dims 80, 100, 112, 120, 160, 192, 8, 50 and 248 (groups 1, 4, 12, 20)
+   and at 144 and 256 q heads per kv head (head dims 32, 80, 128), bf16,
+   fp16 and f32 queries over every cache kind, mixed and decode batches,
+   each call's route read from the launch counters; then A, B and the
+   1-byte caches' D or E at h2o-danube-1.8b's, OpenLLaMA-3B's and
+   h2o-danube3-4b's attention shapes (``HEAD_DIM_SHAPES``), timed beside
+   their bounds, and the merge where those shapes' plans split. Kernel I (the W8A8 rate probe's
    matmul, both forms) at small shapes (M = 1 to 400) and at the probe's
    (184 × 4096 × 14336): int8 bit-exact, mixed within its tolerance. The
    kernels of a speculative verify step on a 64-sequence verify batch (K =
@@ -125,7 +133,7 @@ raises on failure; nothing is caught):
    layers, 3 query heads per kv head) and the 1B again with blocks of 64,
    then the full-width Llama-3.1-8B (32
    layers, bf16 activations, llama3 rope scaling, untied per-channel INT8
-   LM head) with INT8 weights, then at 16 of its layers
+   LM head) with INT8 weights, then at 8 of its layers
    (``QUANT_HALF_LAYERS``) with INT4 weights and INT8 weights under W8A8
    over a bf16 KV cache, and INT8 weights over an INT8 KV cache (pool sized
    from free memory) and an e4m3 one; random weights from a
@@ -170,9 +178,8 @@ raises on failure; nothing is caught):
    127.0.0.1, answers one plain and one streamed (SSE)
    ``POST /v1/chat/completions``; both bodies checked, each request's time
    to first token and total printed. Last, one bf16 service per model
-   family at its published widths (``FAMILIES``: half depth, for the
-   smoke's time limit, and Mixtral-8x7B's 8 of 32 layers, which is all
-   that fits the card), eager
+   family at its published widths (``FAMILIES``: 4 layers each, for the
+   smoke's time limit), eager
    and then synchronous with graphs, the same checks; Phi-3-mini's second
    prompt passes its 2,047-key window. Then the published checkpoints with
    9 to 16 q heads per kv head (``run_group_services``,
@@ -184,7 +191,15 @@ raises on failure; nothing is caught):
    with graphs, within the near-tie rule of the plain attention's, every
    pure-decode step on the split fused kernel and no decode step on the
    ragged one, or at G = 32 every step on the write and the ragged kernel
-   and none on the fused one; the graphs' memory within the reserve. Speculative decoding (K = 4, 8
+   and none on the fused one; the graphs' memory within the reserve. Then
+   the published checkpoints whose head dims run at a padded width
+   (``run_head_dim_services``, ``HEAD_DIM_FAMILIES``, 4 layers each):
+   h2o-danube-1.8b (D = 80, window 4,096) over a bf16 and an INT8 cache,
+   OpenLLaMA-3B (D = 100) over a bf16 and an e4m3 cache, h2o-danube3-4b
+   (D = 120) over a bf16 cache, and Llama-3.1-70B's widths with head dim
+   32 and its 256 q heads over one kv head (G = 256), the same three runs
+   and checks, every ragged call of the G = 256 service planned in two
+   slices a token. Speculative decoding (K = 4, 8
    sequences, prompts echoing their first half): the 1B bf16 service (a)
    eager and (b) async with graphs after ``warmup()``, and after the 8B
    services the INT8 + INT8 KV one synchronous with graphs, each against
@@ -1366,7 +1381,11 @@ def check_fp16_occupancy(torch):
                                                                    for w in (4, 8)]),
                 ("fused_decode_split", "atoma_fused_split_blocks_per_sm",
                  [(d, g) for d in dims for g in (1, 4, 8, 12, 16)])):
-            bf = getattr(cuda_lib.load(f"{stem}{suffix}.cu"), f"{entry}{suffix}")
+            # The bf16 tensor-core ragged kernels at the narrow widths build
+            # in sources of their own (``paged_attention{,_int8,_fp8}_mma.cu``).
+            own = stem == "paged_attention" and "wide" not in suffix
+            bf = getattr(cuda_lib.load(f"{stem}{suffix}{'_mma' if own else ''}.cu"),
+                         f"{entry}{suffix}")
             hf = getattr(cuda_lib.load(f"{stem}{suffix}_f16.cu"), f"{entry}{suffix}_f16")
             for fn in (bf, hf):
                 fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
@@ -2377,6 +2396,259 @@ def time_f32_group_rows(torch, rng, specs):
     torch.cuda.empty_cache()
 
 
+# ------------------------------- phase 2: head dims at a padded width (A–E)
+# The head dims the attention kernels run at a padded width (instance_dim):
+# the published ones of HEAD_DIM_SHAPES (80 at 96, 100 and 120 at 128), 112,
+# 160 and 192 (at 128 and 256), and 8, 50 and 248, whose heads take the
+# narrowest copies (50 over a 1-byte cache: 2-byte pieces, 4-byte in bf16;
+# 8 and 248 over one: 8-byte).
+HEAD_DIM_VARIANT_DIMS = (80, 100, 112, 120, 160, 192, 8, 50, 248)
+# Groups there: one half of the fused kernel's tile, both halves, and past
+# 16 the write and the ragged kernel (two kv heads each).
+HEAD_DIM_VARIANT_GROUPS = (1, 4, 12, 20)
+# Groups past 128 q heads per kv head (one kv head), which the tensor-core
+# ragged kernel cuts into two slices a token, at these head dims.
+LARGE_GROUPS = (144, 256)
+LARGE_GROUP_DIMS = (32, 80, 128)
+_KINDS = {None: None, "int8": "int8", "fp8": "float8_e4m3fn"}
+
+
+def check_head_dim_variants(torch):
+    """A, B, D, E and the merge at head dims that run at a padded width
+    (``HEAD_DIM_VARIANT_DIMS`` × ``HEAD_DIM_VARIANT_GROUPS``, two kv heads)
+    and at groups past 128 (``LARGE_GROUPS`` × ``LARGE_GROUP_DIMS``, one kv
+    head) against their plain versions: bf16, fp16 and f32 queries over a
+    cache of their dtype, an INT8 one and an e4m3 one, on a mixed batch (the
+    write, then the ragged kernel) and a decode batch with a 1,600-key row
+    (the fused kernel up to 16 q heads per kv head, past it the write and
+    the ragged kernel, as ``decode_route`` sends a decode step); at three
+    shapes also a window, a soft cap and ALiBi. Writes, fused caches and
+    INT8 scales bit-exact, attention within ``ATTN_TOL``; each call on its
+    route by the launch counters, the merge launched on split rows, and
+    every tensor-core ragged call past 128 planned in two slices."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+    from atoma_infer_tpu_torch.ops.attention import alibi_slopes
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(22)
+    shapes = [(d, g, 2) for d in HEAD_DIM_VARIANT_DIMS for g in HEAD_DIM_VARIANT_GROUPS]
+    shapes += [(d, g, 1) for d in LARGE_GROUP_DIMS for g in LARGE_GROUPS]
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float16", torch.float16),
+                              ("float32", torch.float32)):
+        tol = ATTN_TOL[dtype_name]
+        for kv in (None,) + KV8_DTYPES:
+            kind = _KINDS[kv] and getattr(torch, _KINDS[kv])
+            worst, calls, merges, sliced = 0.0, 0, 0, 0
+            fused_splits, ragged_splits = FusedSplitCount(), SplitCount()
+            for d, group, hk in shapes:
+                hq = hk * group
+                shape = dict(hq=hq, hk=hk, d=d, bs=BS, dtype=dtype, device=dev,
+                             num_blocks=variant_blocks(VARIANT_MIXED + VARIANT_DECODE, BS))
+                label = f"{dtype_name} {kv or dtype_name} cache D={d} G={group}"
+                mods = [{}]
+                if (d, group) in ((80, 4), (100, 12), (120, 20)):
+                    mods += [dict(sliding_window=40), dict(soft_cap=50.0),
+                             dict(alibi_slopes=alibi_slopes(hq, device=dev))]
+                for decode, specs in ((False, VARIANT_MIXED), (True, VARIANT_DECODE)):
+                    b = make_batch(rng, specs, decode_only=decode, **shape)
+                    fused = decode and pa.decode_route(hq, hk) == "fused"
+                    route = (pa.fused_route if fused else pa.ragged_route)(b["q"], kind)
+                    merge = pa.combine_route(b["q"])
+                    for kw in mods:
+                        before, merged = route.launches, merge.launches
+                        if kv:
+                            err, cache, _ = check_kv8(torch, b, kv, f"{label} {kw}", tol,
+                                                      decode=fused, **kw)
+                        else:
+                            cache = b["cache"]
+                            err = check_same_cache_attention(torch, b, f"{label} {kw}", tol,
+                                                             decode=fused, **kw)
+                        if route.launches != before + 1:
+                            raise AssertionError(f"{label} {kw}: {route.name} not launched")
+                        merges += merge.launches - merged
+                        worst = max(worst, err)
+                        calls += 1
+                    if dtype == torch.float32:
+                        continue
+                    if fused:
+                        fused_splits.add(dict(b, cache=cache))
+                    else:
+                        plan = pa.rpa_plan_for(b["q"], b["meta"], hk, kind)
+                        if plan.slices != pa.rpa_group_slices(group, plan.warps) or (
+                                group > 128 and plan.slices != 2):
+                            raise AssertionError(f"{label}: plan {plan} for G={group}")
+                        sliced += plan.slices > 1
+                        if decode:
+                            ragged_splits.add(dict(b, cache=cache))
+            log(f"head-dim variants {dtype_name} over {kv or dtype_name} caches: {calls} calls "
+                f"(D {HEAD_DIM_VARIANT_DIMS} × G {HEAD_DIM_VARIANT_GROUPS}, and G "
+                f"{LARGE_GROUPS} × D {LARGE_GROUP_DIMS}) agree, writes and fused caches "
+                f"bit-exact, max |err| {worst:.3e} (tol {tol}); the merge launched {merges} "
+                f"times; {sliced} tensor-core ragged calls planned in 2 slices a token")
+            if dtype != torch.float32:
+                fused_splits.check(f"head-dim variants {dtype_name} over {kv or dtype_name} "
+                                   "caches, split fused route")
+                ragged_splits.check(f"head-dim variants {dtype_name} over {kv or dtype_name} "
+                                    "caches, decode rows on the ragged route")
+                if not merges or sliced != 2 * len(LARGE_GROUPS) * len(LARGE_GROUP_DIMS):
+                    raise AssertionError(f"head-dim variants {dtype_name} over "
+                                         f"{kv or dtype_name} caches: {merges} merges, "
+                                         f"{sliced} sliced calls")
+
+
+# The published checkpoints whose head dims run at a padded width (the
+# public config.json of each Hugging Face model repository): (label, Hq, Hk,
+# head dim, score modifiers, the 1-byte caches their services take).
+# h2o-danube-1.8b (Mistral, window 4,096) at width 96, OpenLLaMA-3B and
+# h2o-danube3-4b at 128.
+HEAD_DIM_SHAPES = (
+    ("h2o-danube-1.8b", 32, 8, 80, dict(sliding_window=4096), ("int8",)),
+    ("OpenLLaMA-3B", 32, 32, 100, {}, ("fp8",)),
+    ("h2o-danube3-4b", 32, 8, 120, {}, ()),
+)
+
+
+def check_head_dim_kernels(torch):
+    """A, B and the 1-byte caches' D or E (ragged and fused) at the attention
+    shapes of ``HEAD_DIM_SHAPES``, bf16 queries, block 16: the ragged
+    kernels on a mixed batch (3 chunks and 29 decode rows of 16-1,023
+    keys) after their writes, the fused kernels on 64 decode rows of
+    16-2,047 keys (caches and scales bit-exact), each against its plain
+    version within ``ATTN_TOL`` and timed with CUDA events beside its
+    bound (``attention_work`` at the head dim: the padded columns are no
+    work) and its plain version; then the merge after a fused launch on 8
+    long decode rows where that shape's plan splits them. Returns the
+    kernels line's rows, keyed ``kernel@hd <label>``."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    rows, card = {}, card_line()
+    for label, hq, hk, d, mods, kvs in HEAD_DIM_SHAPES:
+        rng = np.random.default_rng(d)
+        mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
+            (1, int(k)) for k in rng.integers(16, 1024, size=29)]
+        decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+        shape = dict(hq=hq, hk=hk, d=d, bs=BS, dtype=torch.bfloat16, device=dev)
+        mixed = make_batch(rng, mixed_specs, num_blocks=4096, decode_only=False, **shape)
+        decode = make_batch(rng, decode_specs, num_blocks=8192, decode_only=True, **shape)
+        m, dm, scale = mixed["meta"], decode["meta"], d ** -0.5
+        window = mods.get("sliding_window")
+        for kv in (None,) + kvs:
+            kind = _KINDS[kv] and getattr(torch, _KINDS[kv])
+            tol = ATTN_TOL["bfloat16"]
+            kvw = dict(kv_elt=1, slot_extra=4 if kv == "int8" else 0) if kv else {}
+            if kv:
+                err, cache, scales = check_kv8(torch, mixed, kv, label, tol, decode=False, **mods)
+            else:
+                err = check_same_cache_attention(torch, mixed, label, tol, decode=False, **mods)
+                cache, scales = mixed["cache"].clone(), None
+                kv8_write(cache, None, mixed["k"], mixed["v"], m.slot_mapping, cuda=False)
+            ragged = pa.ragged_route(mixed["q"], kind)
+            plan = pa.rpa_plan_for(mixed["q"], m, hk, kind)
+            nbytes, flops = attention_work(mixed_specs, window, 2, fused=False, hq=hq, hk=hk,
+                                           d=d, **kvw)
+            rows[f"{ragged.name}@hd {label}"] = dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: pa.ragged_paged_attention_cuda(
+                    mixed["q"], cache, m, scale=scale, kv_scales=scales, **mods)),
+                plain_ms=cuda_ms(lambda: pa.ragged_paged_attention_paged_plain(
+                    mixed["q"], cache, m, scale=scale, kv_scales=scales, **mods),
+                    iters=2, warmup=1),
+                library_ms=None, bytes=nbytes, flops=flops,
+                what=f"mixed batch, plan {plan.warps} warps, {plan.splits} splits at most")
+            del cache, scales
+            if kv:
+                err, dcache, dscales = check_kv8(torch, decode, kv, label, tol, decode=True,
+                                                 **mods)
+            else:
+                err = check_same_cache_attention(torch, decode, label, tol, decode=True, **mods)
+                dcache, dscales = decode["cache"].clone(), None
+            fused = pa.fused_route(decode["q"], kind)
+            splits = pa.fused_splits_for(decode["q"], dm, hk, kind)
+            nbytes, flops = attention_work(decode_specs, window, 2, fused=True, hq=hq, hk=hk,
+                                           d=d, **kvw)
+            rows[f"{fused.name}@hd {label}"] = dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+                    decode["q"], dcache, decode["k"], decode["v"], dm, scale=scale,
+                    kv_scales=dscales, **mods)),
+                plain_ms=cuda_ms(lambda: pa.fused_decode_attention_plain(
+                    decode["q"], dcache, decode["k"], decode["v"], dm, scale=scale,
+                    kv_scales=dscales, **mods), iters=2, warmup=1),
+                library_ms=None, bytes=nbytes, flops=flops,
+                what=f"64 decode rows, up to {splits} splits")
+            del dcache, dscales
+            torch.cuda.empty_cache()
+        del mixed, decode
+        torch.cuda.empty_cache()
+        # The merge, where the fused plan splits the services' 8 long decode
+        # rows at this shape (P = 128 pages of 16 keys).
+        planned = pa.fused_split_plan(
+            num_seq_slots=8, max_keys=128 * BS, num_kv_heads=hk,
+            slots=pa._fused_slots(None, d, hq // hk, 0))
+        if planned > 1:
+            rows[f"paged_attention_split_combine@hd {label}"] = split_combine_row(
+                torch, label, hq=hq, hk=hk, d=d, window=window, decode=True)
+        else:
+            log(f"paged_attention_split_combine {label}: the fused plan takes no split on 8 "
+                "decode rows at this shape; no merge row")
+    for name, r in rows.items():
+        if "bytes" in r:
+            r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"), "bfloat16")
+            log(f"{name} ({r.pop('what')}): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+                f"library none: no PyTorch call attends through block tables), bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']}, max |err| {r['max_abs_err']:.3e} "
+                f"[{card}]")
+    time_padding(torch)
+    return rows
+
+
+# What a padded width costs: A and B at head dims below a width beside the
+# width's own head dim, at one shape each (Hq, Hk), bf16 over a bf16 cache.
+PADDING_SHAPES = (((80, 96), 32, 8), ((100, 120, 128), 32, 8), ((160, 192, 256), 16, 8))
+
+
+def time_padding(torch):
+    """A on the mixed batch and B on 64 decode rows (as
+    ``check_head_dim_kernels``' batches) at each head dim of
+    ``PADDING_SHAPES``, timed with CUDA events beside their bounds at the
+    head dim (logged): the last head dim of each shape is the width's own,
+    the others run its padded instantiation."""
+    import numpy as np
+
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    dev, card = torch.device("cuda"), card_line()
+    for dims, hq, hk in PADDING_SHAPES:
+        for d in dims:
+            rng = np.random.default_rng(7)
+            mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
+                (1, int(k)) for k in rng.integers(16, 1024, size=29)]
+            decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+            shape = dict(hq=hq, hk=hk, d=d, bs=BS, dtype=torch.bfloat16, device=dev)
+            mixed = make_batch(rng, mixed_specs, num_blocks=4096, decode_only=False, **shape)
+            decode = make_batch(rng, decode_specs, num_blocks=8192, decode_only=True, **shape)
+            scale = d ** -0.5
+            a_ms = cuda_ms(lambda: pa.ragged_paged_attention_cuda(
+                mixed["q"], mixed["cache"], mixed["meta"], scale=scale))
+            b_ms = cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
+                decode["q"], decode["cache"], decode["k"], decode["v"], decode["meta"],
+                scale=scale))
+            work = dict(hq=hq, hk=hk, d=d)
+            a_bound, a_by = bound(*attention_work(mixed_specs, None, 2, fused=False, **work),
+                                  "bfloat16")
+            b_bound, b_by = bound(*attention_work(decode_specs, None, 2, fused=True, **work),
+                                  "bfloat16")
+            log(f"padding: D={d} at width {pa.instance_dim(d)} (Hq={hq}, Hk={hk}): A "
+                f"{a_ms:.4f} ms (bound {a_bound:.4f} by {a_by}), B {b_ms:.4f} ms (bound "
+                f"{b_bound:.4f} by {b_by}) [{card}]")
+            del mixed, decode
+        torch.cuda.empty_cache()
+
 
 # ----------------------------------------------- phase 2: quantized matmuls
 def rel_err(got, want):
@@ -3313,39 +3585,39 @@ def check_kv8_model(torch):
 
 # The families' configurations, from their public config.json (the
 # Hugging Face model repositories of the names): random bf16 weights from a
-# seed at these widths. The services run each at half its published depth
-# (the smoke's time limit) and Mixtral-8x7B at 8 of its 32 layers (23.7 GB
-# in bf16; all 32 take about 93 GB, past the card's 80).
+# seed at these widths. The services run each at 4 of its layers (the
+# smoke's time limit, with the head dims' and groups' services beside them;
+# Mixtral-8x7B's 32 take about 93 GB in bf16, past the card's 80).
 FAMILIES = {
     "Mistral-7B-v0.1": (dict(
         model_type="mistral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
         num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
         max_position_embeddings=32768, rope_theta=10000.0, rms_norm_eps=1e-5,
-        sliding_window=4096, tie_word_embeddings=False, bos_token_id=1, eos_token_id=2), 16),
+        sliding_window=4096, tie_word_embeddings=False, bos_token_id=1, eos_token_id=2), 4),
     "Qwen2-7B": (dict(
         model_type="qwen2", vocab_size=152064, hidden_size=3584, intermediate_size=18944,
         num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
         max_position_embeddings=131072, rope_theta=1000000.0, rms_norm_eps=1e-6,
         sliding_window=131072, use_sliding_window=False, tie_word_embeddings=False,
-        bos_token_id=151643, eos_token_id=151643), 14),
+        bos_token_id=151643, eos_token_id=151643), 4),
     "Phi-3-mini-4k-instruct": (dict(
         model_type="phi3", vocab_size=32064, hidden_size=3072, intermediate_size=8192,
         num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
         max_position_embeddings=4096, rope_theta=10000.0, rms_norm_eps=1e-5,
-        sliding_window=2047, tie_word_embeddings=False, bos_token_id=1, eos_token_id=32000), 16),
+        sliding_window=2047, tie_word_embeddings=False, bos_token_id=1, eos_token_id=32000), 4),
     "Gemma-2-9B": (dict(
         model_type="gemma2", vocab_size=256000, hidden_size=3584, intermediate_size=14336,
         num_hidden_layers=42, num_attention_heads=16, num_key_value_heads=8, head_dim=256,
         max_position_embeddings=8192, rope_theta=10000.0, rms_norm_eps=1e-6,
         query_pre_attn_scalar=256, sliding_window=4096, attn_logit_softcapping=50.0,
         final_logit_softcapping=30.0, hidden_activation="gelu_pytorch_tanh",
-        tie_word_embeddings=True, bos_token_id=2, eos_token_id=1), 21),
+        tie_word_embeddings=True, bos_token_id=2, eos_token_id=1), 4),
     "Mixtral-8x7B-v0.1": (dict(
         model_type="mixtral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
         num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
         max_position_embeddings=32768, rope_theta=1000000.0, rms_norm_eps=1e-5,
         sliding_window=None, num_local_experts=8, num_experts_per_tok=2,
-        tie_word_embeddings=False, bos_token_id=1, eos_token_id=2), 8),
+        tie_word_embeddings=False, bos_token_id=1, eos_token_id=2), 4),
 }
 # The published checkpoints that need 9 to 16 q heads per kv head (the
 # public config.json of each Hugging Face model repository), served at a
@@ -3384,6 +3656,43 @@ GROUP_FAMILIES = {
         rms_norm_eps=1e-5, tie_word_embeddings=False, bos_token_id=128000,
         eos_token_id=128001), 8, None, (None, "int8")),
 }
+# The published checkpoints whose head dims the kernels run at a padded
+# width (the public config.json of each Hugging Face model repository),
+# served at 4 layers with random weights from a seed over the caches listed:
+# h2o-danube-1.8b (Mistral: 32 q / 8 kv heads of 80, window 4,096; at width
+# 96) over a bf16 and an INT8 cache, OpenLLaMA-3B (Llama: 32 / 32 of 100; at
+# 128) over a bf16 and an e4m3 one, h2o-danube3-4b (Llama: 32 / 8 of 120; at
+# 128) over a bf16 one. (config, layers, KV caches.)
+HEAD_DIM_FAMILIES = {
+    "h2o-danube-1.8b": (dict(
+        model_type="mistral", vocab_size=32000, hidden_size=2560, intermediate_size=6912,
+        num_hidden_layers=24, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=16384, rope_theta=10000.0, rms_norm_eps=1e-5,
+        sliding_window=4096, tie_word_embeddings=False, bos_token_id=1, eos_token_id=2),
+        4, (None, "int8")),
+    "OpenLLaMA-3B": (dict(
+        model_type="llama", vocab_size=32000, hidden_size=3200, intermediate_size=8640,
+        num_hidden_layers=26, num_attention_heads=32, num_key_value_heads=32,
+        max_position_embeddings=2048, rope_theta=10000.0, rms_norm_eps=1e-6,
+        tie_word_embeddings=False, bos_token_id=1, eos_token_id=2), 4, (None, "fp8")),
+    "h2o-danube3-4b": (dict(
+        model_type="llama", vocab_size=32000, hidden_size=3840, intermediate_size=10240,
+        num_hidden_layers=24, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=8192, rope_theta=100000.0, rms_norm_eps=1e-5,
+        tie_word_embeddings=False, bos_token_id=1, eos_token_id=2), 4, (None,)),
+    # No published checkpoint has more than 128 q heads per kv head: this
+    # takes Llama-3.1-70B's published widths and rope with head dim 32, so
+    # that its 8,192 hidden make 256 q heads, over one kv head (G = 256,
+    # two slices a token in the tensor-core ragged kernel).
+    "Llama-3.1-70B G=256": (dict(
+        model_type="llama", vocab_size=128256, hidden_size=8192, intermediate_size=28672,
+        num_hidden_layers=80, num_attention_heads=256, num_key_value_heads=1, head_dim=32,
+        max_position_embeddings=131072, rope_theta=500000.0,
+        rope_scaling=dict(rope_type="llama3", factor=8.0, low_freq_factor=1.0,
+                          high_freq_factor=4.0, original_max_position_embeddings=8192),
+        rms_norm_eps=1e-5, tie_word_embeddings=False, bos_token_id=128000,
+        eos_token_id=128001), 4, (None,)),
+}
 # The family models' logits with the attention kernels against the same
 # bf16 model with the plain attention on the card: max |Δ| over the logits'
 # largest magnitude. The two round each attention output to bf16 from f32
@@ -3395,7 +3704,8 @@ FAMILY_MODEL_TOL = 3e-2
 
 
 def family_model(torch, name, num_layers, dtype=None):
-    """The family's model (``FAMILIES`` or ``GROUP_FAMILIES``) on the card
+    """The family's model (``FAMILIES``, ``GROUP_FAMILIES`` or
+    ``HEAD_DIM_FAMILIES``) on the card
     at its published widths and ``num_layers`` layers, bf16 (or
     ``dtype``), with random weights from a seed."""
     from atoma_infer_tpu_torch.models.registry import get_model_cls
@@ -3403,8 +3713,11 @@ def family_model(torch, name, num_layers, dtype=None):
 
     if name in FAMILIES:
         spec, seed = FAMILIES[name][0], sorted(FAMILIES).index(name)
-    else:
+    elif name in GROUP_FAMILIES:
         spec, seed = GROUP_FAMILIES[name][0], len(FAMILIES) + sorted(GROUP_FAMILIES).index(name)
+    else:
+        spec = HEAD_DIM_FAMILIES[name][0]
+        seed = len(FAMILIES) + len(GROUP_FAMILIES) + sorted(HEAD_DIM_FAMILIES).index(name)
     cfg = config_from_hf_dict(dict(spec, num_hidden_layers=num_layers))
     model = get_model_cls(cfg.architecture)(cfg, dtype=dtype or torch.bfloat16, device="cuda")
     return model, model.init_params(torch.Generator(device=model.device).manual_seed(seed))
@@ -3902,9 +4215,9 @@ IDLE_WINDOW_START, IDLE_WINDOW_STEPS = 16, 8
 # inside half its time limit on a slow host.
 NEW_TOKENS, OTHER_SERVICES_TOKENS = 256, 128
 # The depth of the 8B services held only eager against graphs (INT4, W8A8,
-# INT8 and e4m3 KV): half of Llama-3.1-8B's 32 layers, as the families run
-# at half of theirs, so that the smoke stays inside its time limit.
-QUANT_HALF_LAYERS = 16
+# INT8 and e4m3 KV): a quarter of Llama-3.1-8B's 32 layers, as the families
+# run at 4 of theirs, so that the smoke stays inside its time limit.
+QUANT_HALF_LAYERS = 8
 
 
 # The bytes of the services' 8 prompts (one token a byte).
@@ -4959,15 +5272,13 @@ def run_shape_services(torch):
 PHI3_PROMPT_LENGTHS = (16, 2100, 45, 120, 200, 77, 250, 33)
 
 
-# The families over 1-byte KV caches (bf16 weights and queries): at the
-# family service's depth over the cache their model is served with first,
-# the crossed pair at 8 layers, which keeps the smoke within its time limit.
-# (family, cache, layers).
+# The families over 1-byte KV caches (bf16 weights and queries), at the
+# family service's depth, on its weights. (family, cache, layers).
 WIDE_KV8_SERVICES = (
-    ("Phi-3-mini-4k-instruct", "int8", 16),
-    ("Gemma-2-9B", "fp8", 21),
-    ("Phi-3-mini-4k-instruct", "fp8", 8),
-    ("Gemma-2-9B", "int8", 8),
+    ("Phi-3-mini-4k-instruct", "int8", 4),
+    ("Gemma-2-9B", "fp8", 4),
+    ("Phi-3-mini-4k-instruct", "fp8", 4),
+    ("Gemma-2-9B", "int8", 4),
 )
 WIDE_KV8_TOKENS = 64
 
@@ -5010,8 +5321,8 @@ def serve_wide_kv8(torch, name, kv, model, params, layers):
 
 
 def run_family_services(torch):
-    """One service per family at its published widths (``FAMILIES``; 8 of
-    Mixtral-8x7B's 32 layers, the rest at half depth), bf16 with random
+    """One service per family at its published widths (``FAMILIES``; 4
+    layers each), bf16 with random
     weights from a seed: eager, then synchronous with its decode graphs,
     tokens identical, every attention kernel of the path launched, the
     graphs' memory held to the KV pool's reserve. Then Phi-3-mini and
@@ -5060,15 +5371,16 @@ def group_path(kv):
             f"reshape_and_cache{s}")
 
 
-def check_step_routes(label, figures, layers, kv, route="fused"):
+def check_step_routes(label, figures, layers, kv, route="fused", path=None):
     """The attention kernels of a ``drive`` run by step. ``route``
     "fused": every pure-decode step launched the split fused kernel once a
     layer, and only the steps with a prefill chunk launched the ragged
     kernel (once a layer): no decode step took the ragged route. "ragged"
     (past 16 q heads per kv head): every step, pure-decode ones included,
     launched the write and then the ragged kernel once a layer, and no step
-    the fused kernel."""
-    fused, ragged, write = group_path(kv)
+    the fused kernel. ``path``: the (fused, ragged, write) kernels, by
+    default :func:`group_path`'s."""
+    fused, ragged, write = path or group_path(kv)
     decode = sum(1 for _, pure, rows in figures["dispatches"] if pure and rows)
     other = sum(1 for _, pure, rows in figures["dispatches"] if not pure and rows)
     got = figures["launches"]
@@ -5186,7 +5498,7 @@ def run_group_services(torch):
             compare_to_reference(
                 label, runs["eager"][0], want, top,
                 lambda j, a, b: seeded_score_gap(torch, model, params, prompts[SEEDED_REQUEST],
-                                                 want[SEEDED_REQUEST], j, a, b),
+                                                 want[SEEDED_REQUEST], j, a, b, kv),
                 reference="the same service with the plain attention")
             if runs["graphs"][0] != runs["eager"][0]:
                 first = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
@@ -5198,6 +5510,138 @@ def run_group_services(torch):
             shape = next(s for s in GROUP_ATTENTION_SHAPES if s.endswith(f"G={group}"))
             for kernel in group_path(kv):
                 launches[f"{kernel}@group {shape}"] = runs["graphs"][2]["launches"][kernel]
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def head_dim_path(d, kv):
+    """The fused kernel, the ragged kernel and the write of a bf16 service
+    at head dim ``d`` over a cache of ``kv`` (None: bf16): the ``*_wide``
+    instantiations where a 1-byte cache's width is 96 or 256."""
+    import torch
+
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    q = torch.empty((1, 1, d), dtype=torch.bfloat16)
+    kind = _KINDS[kv] and getattr(torch, _KINDS[kv])
+    return (pa.fused_route(q, kind).name, pa.ragged_route(q, kind).name,
+            f"reshape_and_cache{'_' + kv if kv else ''}")
+
+
+class recording_plans:
+    """While open: every tensor-core ragged call's plan
+    (``rpa_plan_for``), recorded in ``plans``."""
+
+    def __enter__(self):
+        from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+        self.saved, self.plans = pa.rpa_plan_for, []
+
+        def planned(*args, **kw):
+            plan = self.saved(*args, **kw)
+            self.plans.append(plan)
+            return plan
+
+        pa.rpa_plan_for = planned
+        return self
+
+    def __exit__(self, *exc):
+        from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+        pa.rpa_plan_for = self.saved
+
+
+def run_head_dim_services(torch):
+    """The services of ``HEAD_DIM_FAMILIES`` through ``LlmService.start``
+    (4 layers each, bf16, the 8 requests of ``PROMPT_LENGTHS`` at
+    GROUP_TOKENS tokens, one seeded), over each of their caches: (a) eager
+    with the plain attention on the card (top 2 logprobs asked), (b) eager
+    with the kernels, (c) synchronous with every step replaying its CUDA
+    graph. (b) is held to (a) under the near-tie rule, (c) to (b) token for
+    token; every pure-decode step launched the fused kernel of its head
+    dim's width (or, at G = 256, the write and the ragged kernel, every
+    ragged call of (b) and of (c)'s captures planned in two slices a
+    token); (c)'s graph memory is held to the reserve. Returns (c)'s
+    launches of each service's kernels, keyed as ``check_head_dim_kernels``'
+    rows (the G = 256 service's ``kernel@G=256``)."""
+    from atoma_infer_tpu_torch.engine.llm_service import LlmService
+    from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+    from atoma_infer_tpu_torch.ops.paged_attention import decode_route
+
+    text = "The quick brown fox jumps over the lazy dog. " * (-(-max(PROMPT_LENGTHS) // 45))
+    prompts = [text[:n] for n in PROMPT_LENGTHS]
+    launches = {}
+    for name, (spec, layers, kvs) in HEAD_DIM_FAMILIES.items():
+        t0 = time.monotonic()
+        model, params = family_model(torch, name, layers)
+        cfg = model.config
+        d, group = cfg.head_dim, cfg.num_attention_heads // cfg.num_kv_heads
+        route = decode_route(cfg.num_attention_heads, cfg.num_kv_heads)
+        log(f"service {name}: {layers} of {spec['num_hidden_layers']} layers, bf16 weights "
+            f"drawn on the card in {time.monotonic() - t0:.1f} s; {cfg.num_attention_heads} q "
+            f"heads over {cfg.num_kv_heads} kv heads (G={group}), D={d}")
+        for kv in kvs:
+            label = f"{name} bf16 + {kv or 'bf16'} KV (D={d}, G={group})"
+            path = head_dim_path(d, kv)
+            runs = {}
+            for mode in ("plain", "eager", "graphs"):
+                t_run = time.monotonic()
+                max_len = min(2048, spec["max_position_embeddings"])
+                service = LlmService.start(
+                    bf16_config(f"{name.lower()}-random", BS, kv_cache_dtype=kv,
+                                max_model_len=max_len),
+                    model=model, params=params, tokenizer=ByteTokenizer(cfg.vocab_size),
+                    device=model.device)
+                if mode != "graphs":
+                    service.engine.worker.graphs = None
+                if mode == "plain":
+                    with plain_attention():
+                        runs[mode] = drive(torch, f"{label} [plain attention]", service,
+                                           prompts, GROUP_TOKENS, top_n=2)
+                else:
+                    with recording_plans() as rec:
+                        runs[mode] = drive(torch, f"{label} [{mode}]", service, prompts,
+                                           GROUP_TOKENS)
+                    check_step_routes(f"{label} [{mode}]", runs[mode][2], layers, kv, route,
+                                      path=path)
+                    check_route(f"service {label} [{mode}]", runs[mode][2]["launches"],
+                                bf16=True)
+                    if group > 128:
+                        slices = sorted({p.slices for p in rec.plans})
+                        if not rec.plans or slices != [2]:
+                            raise AssertionError(f"service {label} [{mode}]: ragged plans' "
+                                                 f"slices {slices} ({len(rec.plans)} plans)")
+                        log(f"service {label} [{mode}]: {len(rec.plans)} ragged calls planned "
+                            f"({'every eager step' if mode == 'eager' else 'the captures'}), "
+                            f"every one in 2 slices a token; "
+                            f"{runs[mode][2]['launches'][path[1]]} launches of {path[1]}")
+                if mode == "graphs":
+                    report_graph_memory(f"{label} [graphs]", service.engine.worker.graphs,
+                                        service.config, cfg)
+                log(f"service {label} [{mode}]: KV pool {service.config.cache.num_device_blocks}"
+                    f" blocks; {steady_decode(runs[mode][2])}; start and traffic "
+                    f"{time.monotonic() - t_run:.1f} s [{card_line()}]")
+                del service
+                gc.collect()
+                torch.cuda.empty_cache()
+            want, top, _ = runs["plain"]
+            compare_to_reference(
+                label, runs["eager"][0], want, top,
+                lambda j, a, b: seeded_score_gap(torch, model, params, prompts[SEEDED_REQUEST],
+                                                 want[SEEDED_REQUEST], j, a, b, kv),
+                reference="the same service with the plain attention")
+            if runs["graphs"][0] != runs["eager"][0]:
+                first = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                         for a, b in zip(runs["graphs"][0], runs["eager"][0])]
+                raise AssertionError(f"service {label}: tokens with graphs differ from eager; "
+                                     f"first difference by request: {first}")
+            log(f"service {label}: tokens identical eager and with graphs "
+                f"({sum(len(t) for t in runs['eager'][0])} tokens, the seeded request's too)")
+            key, got = f"hd {name}", runs["graphs"][2]["launches"]
+            for kernel in path + ("paged_attention_split_combine",):
+                launches[f"{kernel}@{key}"] = got[kernel]
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5255,9 +5699,9 @@ def run_quant_services(torch):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # The services held only eager against graphs (synchronous), at half
-    # depth: each layer is the full one's, and the requests reach the same
-    # contexts, pages and splits.
+    # The services held only eager against graphs (synchronous), at a
+    # quarter of the depth: each layer is the full one's, and the requests
+    # reach the same contexts, pages and splits.
     model, params = llama_8b_layers(torch, torch.bfloat16, QUANT_HALF_LAYERS)
     depth = f"({QUANT_HALF_LAYERS} of 32 layers)"
     serve_quantized(f"8B INT4 {depth}", "int4", False, "quantized_matmul_int4_mma", "graphs")
@@ -5358,11 +5802,12 @@ SPEC_PATH_8B = ("reshape_and_cache_int8", "ragged_paged_attention_int8_mma",
                 "quantized_matmul_int8_mma", "paged_attention_split_combine")
 
 
-def spec_step_logits(torch, model, params, caches, groups, tables):
+def spec_step_logits(torch, model, params, caches, groups, tables, kv_scales=None):
     """One step of ``groups`` — (token ids, computed count, drafts or None,
     prefill) a sequence, on ``tables`` — through the port's input prep and
-    ``model`` on the card: the logits [rows, V] f32 of each sequence's
-    sampled rows (the verify rows of a verify step, the last row else)."""
+    ``model`` on the card (an INT8 cache's scales in ``kv_scales``): the
+    logits [rows, V] f32 of each sequence's sampled rows (the verify rows of
+    a verify step, the last row else)."""
     import numpy as np
 
     from atoma_infer_tpu_torch.engine.input_prep import prepare_model_input
@@ -5394,7 +5839,8 @@ def spec_step_logits(torch, model, params, caches, groups, tables):
     n = len(groups)
     rows = mi.spec_rows[:n].ravel() if mi.spec_rows is not None else mi.selected_token_indices[:n]
     with torch.inference_mode():
-        hidden = model.forward(params, ints(mi.token_ids), ints(mi.positions), caches, meta)
+        hidden = model.forward(params, ints(mi.token_ids), ints(mi.positions), caches, meta,
+                               kv_scales=kv_scales)
         return model.compute_logits(params, hidden[ints(rows).long()]).float()
 
 
@@ -5662,28 +6108,56 @@ def check_spec_service_parity(torch):
         f"{drafts['cpu', SPEC_K][1]:.0f} of {drafts['cpu', SPEC_K][0]:.0f})")
 
 
-def seeded_score_gap(torch, model, params, prompt, tokens, j, a, b):
-    """How far apart tokens ``a`` and ``b`` are in the seeded request's
-    sampling at output position ``j`` (the scores it takes the argmax of:
-    logits over the temperature, top-p masked, plus the Gumbel noise of
-    (seed, step j)), the logits recomputed by one prefill of the prompt and
-    ``tokens[:j]`` on the card. Infinite where top-p masks either."""
+def seeded_score_gap(torch, model, params, prompt, tokens, j, a, b, kv=None):
+    """How near tokens ``a`` and ``b`` come to trading places in the seeded
+    request's sampling at output position ``j``, the logits recomputed by
+    one prefill of the prompt and ``tokens[:j]`` on the card, over a KV
+    cache of the service's ``kv_cache_dtype`` ``kv``. Its scores
+    are the logits over the temperature, top-p masked, plus the Gumbel
+    noise of (seed, step j), and it takes their argmax. Two ways, on the
+    one scale of logits over the temperature: the two tokens' score gap
+    (infinite where top-p masks either), or either token's distance from
+    the top-p cut, the shift of its own logit that would move it across
+    the cut (to below the first token the cut masks, or above the last it
+    keeps). Returns (the nearer, a phrase giving both)."""
+    import math
+
     import numpy as np
 
+    from atoma_infer_tpu_torch.engine.llm_service import _KV_DTYPES as KV_DTYPES
     from atoma_infer_tpu_torch.engine.sampler import _top_p_mask, gumbel_noise
     from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
+    from atoma_infer_tpu_torch.ops.kv_cache import alloc_kv_scales
 
-    V = model.config.vocab_size
+    V, top_p = model.config.vocab_size, SEEDED_OPTIONS["top_p"]
     ids = ByteTokenizer(V).encode(prompt).ids + list(tokens[:j])
     pages = -(-len(ids) // BS)
-    caches = model.alloc_kv_cache(pages, BS)
+    caches = model.alloc_kv_cache(pages, BS, KV_DTYPES.get(kv))
+    scales = ([alloc_kv_scales(pages, BS, model.device) for _ in caches] if kv == "int8"
+              else None)
     logits = spec_step_logits(torch, model, params, caches, [(ids, 0, None, True)],
-                              [list(range(pages))])
-    scores = _top_p_mask(logits / SEEDED_OPTIONS["temperature"],
-                         torch.tensor([SEEDED_OPTIONS["top_p"]], device=logits.device))[0]
+                              [list(range(pages))], kv_scales=scales)
+    scaled = logits / SEEDED_OPTIONS["temperature"]
+    scores = _top_p_mask(scaled, torch.tensor([top_p], device=logits.device))[0]
     scores = scores + gumbel_noise(np.array([SEEDED_OPTIONS["seed"]], np.uint32),
                                    np.array([j], np.int32), np.array([0]), V, logits.device)[0]
-    return (scores[a] - scores[b]).abs().item()
+    score_gap = (scores[a] - scores[b]).abs().item()
+    score_gap = score_gap if score_gap < math.inf else math.inf  # both masked: nan
+    # The cut as _top_p_mask makes it: the sorted tokens whose exclusive
+    # cumulative mass is under top_p are kept.
+    ranked = torch.sort(scaled[0], descending=True).values
+    probs = torch.softmax(ranked, dim=-1)
+    kept = int(((torch.cumsum(probs, dim=-1) - probs) < top_p).sum())
+    cut = math.inf
+    if kept < V:
+        last_kept, first_masked = ranked[kept - 1].item(), ranked[kept].item()
+        for x in (a, b):
+            sx = scaled[0, x].item()
+            if sx != ranked[0].item():  # the argmax is always kept
+                cut = min(cut, sx - first_masked if sx >= last_kept else last_kept - sx)
+    return min(score_gap, cut), (
+        f"sampling scores {score_gap:.4f} apart, the top-p cut {cut:.4f} from the nearer "
+        f"(it keeps {kept} of {V} tokens)")
 
 
 def compare_to_reference(label, got, want, top, seeded_gap, reference="the run without drafts"):
@@ -5691,8 +6165,9 @@ def compare_to_reference(label, got, want, top, seeded_gap, reference="the run w
     each greedy request token for token up to its first difference, which
     must sit where the reference's top two logprobs are closer than
     SPEC_TIE_TOL (compared no further). The seeded sampled request likewise:
-    identical up to a first difference where its two tokens' sampling
-    scores (``seeded_gap(j, a, b)``) are closer than SPEC_TIE_TOL over the
+    identical up to a first difference where its two tokens come nearer to
+    trading places (``seeded_gap(j, a, b)``: their sampling scores, or
+    either's distance from the top-p cut) than SPEC_TIE_TOL over the
     temperature, twice (the recomputed logits are a third rounding path).
     Prints each request's common prefix."""
     prefixes = []
@@ -5703,18 +6178,18 @@ def compare_to_reference(label, got, want, top, seeded_gap, reference="the run w
             prefixes.append(f"{i}: {n}{seeded} (identical)")
             continue
         if i == SEEDED_REQUEST:
-            gap, tol = seeded_gap(n, g[n], w[n]), 2 * SPEC_TIE_TOL / SEEDED_OPTIONS["temperature"]
-            what = "sampling scores"
+            gap, what = seeded_gap(n, g[n], w[n])
+            tol = 2 * SPEC_TIE_TOL / SEEDED_OPTIONS["temperature"]
         else:
             alts = top[i][n]
             gap, tol = alts[0][1] - alts[1][1], SPEC_TIE_TOL
-            what = "top two logprobs"
+            what = f"top two logprobs {gap:.4f} apart"
         if not gap < tol:
             raise AssertionError(
                 f"service {label}: request {i}{seeded} differs from {reference} at "
-                f"token {n} ({g[n]} against {w[n]}), where the reference's {what} are "
-                f"{gap:.4f} apart (near-tie tol {tol:.4f})")
-        prefixes.append(f"{i}: {n}{seeded} (then a near-tie of its {what}, gap {gap:.4f})")
+                f"token {n} ({g[n]} against {w[n]}), where the reference's {what} "
+                f"(near-tie tol {tol:.4f})")
+        prefixes.append(f"{i}: {n}{seeded} (then a near-tie, the reference's {what})")
     log(f"service {label}: common prefix with {reference}, by request: "
         + "; ".join(prefixes))
 
@@ -5729,6 +6204,7 @@ def serve_spec(torch, label, model, params, make_config, path, ref_path, modes, 
     ``make_config(async_scheduling, k)``. Returns the launch counts of the
     last mode's run."""
     ref = {}
+    kv = make_config(False, 0).model.kv_cache_dtype
     _, want = serve(torch, f"{label} without drafts", model, params,
                     make_config(reference == "async+graphs", 0), ref_path, mode=reference,
                     new_tokens=new_tokens, prompts=SPEC_PROMPTS, top_n=2, stats=ref)
@@ -5753,7 +6229,7 @@ def serve_spec(torch, label, model, params, make_config, path, ref_path, modes, 
             f"{label} [{mode}]", got, want, ref["top"],
             lambda j, a, b: seeded_score_gap(torch, model, params,
                                              SPEC_PROMPTS[SEEDED_REQUEST], want[SEEDED_REQUEST],
-                                             j, a, b))
+                                             j, a, b, kv))
         p, rp = st["period"], ref["period"]
         period = (f"steady period p50/p99 {p['p50']:.3f}/{p['p99']:.3f} ms against "
                   f"{rp['p50']:.3f}/{rp['p99']:.3f} ms" if p and rp else "no steady period")
@@ -6271,6 +6747,10 @@ def report_tp(label, service, figures, collectives):
 # OTHER_SERVICES_TOKENS halved: every eager tp = 2 step waits on its
 # collectives through host memory, 190–320 ms a step on an H100).
 TP_TOKENS = 64
+# Layers of the 8B INT8 + INT8 KV service at tp = 2, of Llama-3.1-8B's 32:
+# half, to keep the smoke's wall inside its limit on a slow host (each
+# layer is 3 host round trips a step on one card).
+TP_LAYERS = 16
 # Layers of the item-14 runs (E over an e4m3 cache, H under W8A8) at tp = 2,
 # of Llama-3.1-8B's 32; the widths are the model's.
 TP_KERNEL_LAYERS = 8
@@ -6433,8 +6913,8 @@ def run_tp_services(torch):
     from its directory, f32, each rank loading its shard, with graphs:
     tokens identical to the same service at tp = 1 on the card (graphs too),
     and the greedy ones to the CPU's (the seeded request's noise comes from
-    the device's generator); (ii) Llama-3.1-8B at full width, 32 layers,
-    INT8 weights over an INT8 KV cache (pool from free memory), random
+    the device's generator); (ii) Llama-3.1-8B at full width, TP_LAYERS
+    layers, INT8 weights over an INT8 KV cache (pool from free memory), random
     weights from a seeded generator built on every rank
     (``build_8b_int8``), the services' 8 requests at TP_TOKENS tokens:
     every rank eager (``EagerStepGraphs``), then with segmented graphs after
@@ -6510,10 +6990,10 @@ def run_tp_services(torch):
             llama_8b_service_config("int8", kv, max_seqs=8, hbm_memory_utilization=0.5),
             tensor_parallel_size=tp)
 
-    label = f"8B INT8 + INT8 KV tp={TP_RANKS}"
+    label = f"8B INT8 + INT8 KV, {TP_LAYERS} layers tp={TP_RANKS}"
     t0 = time.monotonic()
     service = LlmService.start(config(TP_RANKS), model_factory=ModelFactory(
-        config=llama_8b_config(32), build=build_8b_int8, args=(32,),
+        config=llama_8b_config(TP_LAYERS), build=build_8b_int8, args=(TP_LAYERS,),
         step_graphs=EagerStepGraphs))
     log(f"service {label} eager: started in {time.monotonic() - t0:.1f} s ({TP_RANKS} ranks, "
         "each drawing, quantizing and cutting its shard)")
@@ -6529,7 +7009,7 @@ def run_tp_services(torch):
     os.environ["SMOKE_GRAPH_STATS"] = stats_dir  # every rank's, spawned ones too
     try:
         service = LlmService.start(config(TP_RANKS), model_factory=ModelFactory(
-            config=llama_8b_config(32), build=build_8b_int8, args=(32,),
+            config=llama_8b_config(TP_LAYERS), build=build_8b_int8, args=(TP_LAYERS,),
             step_graphs=SerialStepGraphs))
         graph_runs, mark, on_traffic = watch_graphs(service)
         got, _, fig = drive(torch, label, service, prompts, TP_TOKENS, top_n=2, warmup=True,
@@ -6553,14 +7033,14 @@ def run_tp_services(torch):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[tp phase {time.monotonic() - t_phase:.0f} s] (ii) graphs done")
-    model, params, tokenizer = build_8b_int8("cuda", 32)
+    model, params, tokenizer = build_8b_int8("cuda", TP_LAYERS)
     ref_service = LlmService.start(config(1), model=model, params=params, tokenizer=tokenizer)
-    want, top, ref_fig = drive(torch, "8B INT8 + INT8 KV tp=1", ref_service, prompts,
-                               TP_TOKENS, top_n=2)
+    want, top, ref_fig = drive(torch, f"8B INT8 + INT8 KV, {TP_LAYERS} layers tp=1",
+                               ref_service, prompts, TP_TOKENS, top_n=2)
     compare_to_reference(
         label, got, want, top,
         lambda j, a, b: seeded_score_gap(torch, model, params, prompts[SEEDED_REQUEST],
-                                         want[SEEDED_REQUEST], j, a, b),
+                                         want[SEEDED_REQUEST], j, a, b, "int8"),
         reference="the same service at tp=1 with graphs")
     log(f"service {label}: tp=1 with graphs {steady_decode(ref_fig)}")
     del ref_service, model, params
@@ -6596,7 +7076,7 @@ def run_tp_services(torch):
             compare_to_reference(
                 f"{what} tp={TP_RANKS}", got, want, top,
                 lambda j, a, b: seeded_score_gap(torch, model, params, prompts[SEEDED_REQUEST],
-                                                 want[SEEDED_REQUEST], j, a, b),
+                                                 want[SEEDED_REQUEST], j, a, b, kv),
                 reference="the same service at tp=1 with graphs")
             del ref_service, model, params
         finally:
@@ -6620,6 +7100,9 @@ def run_tp_services(torch):
 
 PP_STAGES = 2
 PP_LABEL = "two stages on one card: not a PP speed"
+# Layers of the 8B INT8 + INT8 KV service at pp = 2, of Llama-3.1-8B's 32
+# (8 a stage): half, to keep the smoke's wall inside its limit.
+PP_LAYERS = 16
 # The kernels of the 8B INT8 + INT8 KV service at pp = 2: C's INT8 write,
 # D ragged (prefill), D split fused (decode), the merge, F.
 PP_PATH = ("reshape_and_cache_int8", "ragged_paged_attention_int8_mma",
@@ -6790,8 +7273,8 @@ def report_stage_graph_memory(label, service):
 def run_pp_services(torch):
     """Pipeline parallelism through ``LlmService.start`` with
     ``pipeline_parallel_size`` PP_STAGES, both stages on this card: (i)
-    Llama-3.1-8B at full width, 32 layers, INT8 weights over an INT8 KV
-    cache, the services' 8 requests at OTHER_SERVICES_TOKENS (one seeded):
+    Llama-3.1-8B at full width, PP_LAYERS layers, INT8 weights over an INT8
+    KV cache, the services' 8 requests at OTHER_SERVICES_TOKENS (one seeded):
     pp = 1 with graphs, the reference; pp = 2 eager; pp = 2 replaying one
     graph set a stage after ``warmup()``, its tokens identical to the eager
     run's and, under the near-tie rule, pp = 1's; (ii) Gemma-2-9B at
@@ -6812,7 +7295,7 @@ def run_pp_services(torch):
 
     # (i) Llama-3.1-8B, INT8 weights + INT8 KV: pp = 1, then pp = 2 eager
     # and with stage graphs.
-    model, params, tokenizer = build_8b_int8("cuda", 32)
+    model, params, tokenizer = build_8b_int8("cuda", PP_LAYERS)
     text = "The quick brown fox jumps over the lazy dog. " * (-(-max(PROMPT_LENGTHS) // 45))
     prompts = [text[:n] for n in PROMPT_LENGTHS]
 
@@ -6823,12 +7306,12 @@ def run_pp_services(torch):
 
     ref = LlmService.start(config(1), model=model, params=params, tokenizer=tokenizer)
     ref_blocks = ref.config.cache.num_device_blocks
-    want, top, ref_fig = drive(torch, "8B INT8 + INT8 KV pp=1", ref, prompts,
-                               OTHER_SERVICES_TOKENS, top_n=2)
+    want, top, ref_fig = drive(torch, f"8B INT8 + INT8 KV, {PP_LAYERS} layers pp=1", ref,
+                               prompts, OTHER_SERVICES_TOKENS, top_n=2)
     del ref
     gc.collect()
     torch.cuda.empty_cache()
-    label = f"8B INT8 + INT8 KV pp={PP_STAGES}"
+    label = f"8B INT8 + INT8 KV, {PP_LAYERS} layers pp={PP_STAGES}"
     service = LlmService.start(config(PP_STAGES), model=model, params=params,
                                tokenizer=tokenizer)
     eager_blocks = service.config.cache.num_device_blocks
@@ -6855,7 +7338,7 @@ def run_pp_services(torch):
     compare_to_reference(
         label, got, want, top,
         lambda j, a, b: seeded_score_gap(torch, model, params, prompts[SEEDED_REQUEST],
-                                         want[SEEDED_REQUEST], j, a, b),
+                                         want[SEEDED_REQUEST], j, a, b, "int8"),
         reference="the same service at pp=1 with graphs")
     layers = [st.cache_engine.num_layers for st in service.engine.worker.stages]
     shared = report_stage_graphs(torch, label, service, runs, mark, fig, layers)
@@ -7689,6 +8172,8 @@ def main() -> int:
     phase(check_group_variants)
     group_rows = phase(check_group_kernels)
     wide_rows = phase(check_wide_head_kernels)
+    phase(check_head_dim_variants)
+    head_dim_rows = phase(check_head_dim_kernels)
     verify_rows = phase(check_verify_kernels)
     tp_rows = phase(check_tp_kernels)
     phase(check_nccl_group)
@@ -7733,6 +8218,16 @@ def main() -> int:
     for key in group_rows:
         if not launches.get(key):
             raise AssertionError(f"{key.split('@')[0]} was not launched on its group's service")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The head-dim rows' launches: the services at h2o-danube-1.8b's,
+    # OpenLLaMA-3B's and h2o-danube3-4b's head dims with graphs (the merge
+    # where their plans split), and the G = 256 service.
+    launches.update(phase(run_head_dim_services))
+    for key in head_dim_rows:
+        if not launches.get(key) and not key.startswith("paged_attention_split_combine"):
+            raise AssertionError(f"{key.split('@')[0]} was not launched on the "
+                                 f"{key.split('@hd ')[1]} service")
     gc.collect()
     torch.cuda.empty_cache()
     # The TP rows' launches: the 8B INT8 + INT8 KV service at tp = 2.
@@ -7789,12 +8284,15 @@ def main() -> int:
     named += [(key, f"{key.split('@')[0]} (verify rows)", r) for key, r in verify_rows.items()]
     named += [(key, f"{key.split('@group ')[0]} ({key.split('@group ')[1]} shapes)", r)
               for key, r in group_rows.items()]
+    named += [(key, f"{key.split('@hd ')[0]} ({key.split('@hd ')[1]} shapes, D="
+               f"{next(s[3] for s in HEAD_DIM_SHAPES if s[0] == key.split('@hd ')[1])})", r)
+              for key, r in head_dim_rows.items()]
     named += [(key, f"{key.split('@')[0]} ({key.split('@tp ')[1]} per-rank shapes"
                + (", scales_new)" if "int8" in key and "matmul" not in key else ")"), r)
               for key, r in tp_rows.items()]
     # The PP path's launches beside the times of each kernel's own row.
-    named += [(f"{name}@pp", f"{name} (8B INT8 + INT8 KV pp={PP_STAGES} path; timed as its "
-               "row)", rows[name]) for name in PP_PATH]
+    named += [(f"{name}@pp", f"{name} (8B INT8 + INT8 KV, {PP_LAYERS} layers pp={PP_STAGES} "
+               "path; timed as its row)", rows[name]) for name in PP_PATH]
     for key, name, r in named:
         kernel = cuda_lib.KERNELS[key.split("@")[0]]
         line.append(dict(

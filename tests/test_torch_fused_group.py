@@ -28,8 +28,7 @@ the card. What is checked here:
   2 kv heads at tp 2 (a rank's group of 17): greedy tokens identical;
 - ``check_kernel_shapes`` (what ``LlmService.start`` runs on the card
   before loading) takes both published configs at tp 1 and tp 8 over every
-  cache kind, and groups of 17 to 128 at tp 1 and 2; it refuses 129,
-  naming the ROADMAP.md item that would add more.
+  cache kind, and groups of 17 to 129 at tp 1 and 2.
 """
 
 import asyncio
@@ -421,17 +420,12 @@ def test_service_shape_check_takes_published_groups(name, tp, dtype, kv):
 @pytest.mark.parametrize("tp", [1, 2])
 def test_service_shape_check_refuses_17_naming_the_item(tp, group):
     """A rank's group past 16 over 8 kv heads, at tp 1 and tp 2 (the
-    rank's group unchanged): up to 128 the check passes and a pure-decode
-    step takes the write and the ragged kernel (``decode_route``); at 129
-    it refuses, naming ROADMAP.md's item for groups past 128."""
+    rank's group unchanged): the check passes and a pure-decode step takes
+    the write and the ragged kernel (``decode_route``), 129 too (the
+    tensor-core ragged kernel cuts a token's group past 128 into slices)."""
     from atoma_infer_tpu_torch.engine.llm_service import check_kernel_shapes
     from atoma_infer_tpu_torch.models.llama import LlamaConfig
 
     cfg = LlamaConfig(head_dim=128, num_attention_heads=8 * group, num_key_value_heads=8)
     assert pa.decode_route(8 * group // tp, 8 // tp) == "ragged"
-    if group <= pa.MAX_RAGGED_GROUP:
-        check_kernel_shapes(cfg, _engine_config("bfloat16", None, tp))
-        return
-    with pytest.raises(ValueError, match="129 q heads per kv head unsupported .*ROADMAP.md, "
-                       "Queue 1 item 21: attention past 128 q heads per kv head"):
-        check_kernel_shapes(cfg, _engine_config("bfloat16", None, tp))
+    check_kernel_shapes(cfg, _engine_config("bfloat16", None, tp))

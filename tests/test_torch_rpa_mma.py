@@ -526,10 +526,11 @@ def test_model_matches_plain_and_pallas_wide_heads(D, group, kind, mod):
 
 # ------------------------------------------------------ the host's split plan
 def test_plan_takes_shapes_only():
-    """``rpa_mma_plan`` sees host integers, never a tensor (no device read)."""
+    """``rpa_mma_plan`` sees host integers (and whether the head dim is
+    below its width, a host bool), never a tensor (no device read)."""
     params = inspect.signature(pa.rpa_mma_plan).parameters
     assert set(params) == {"num_seq_slots", "num_tokens", "max_q_len", "max_keys", "group",
-                           "num_kv_heads", "slots"}
+                           "num_kv_heads", "slots", "padded"}
     assert all(p.kind == p.KEYWORD_ONLY for p in params.values())
 
 
@@ -594,7 +595,8 @@ def test_route_bf16_to_tensor_cores_f32_to_cuda_cores(kind):
     assert pa.ragged_route(q16, kind) is pa.RAGGED_ATTENTION_MMA[kind]
     assert pa.ragged_route(q16.float(), kind) is pa.RAGGED_ATTENTION[kind]
     assert pa.RAGGED_ATTENTION_MMA[kind].name.endswith("_mma")
-    assert pa.RAGGED_ATTENTION_MMA[kind].source == pa.RAGGED_ATTENTION[kind].source
+    assert pa.RAGGED_ATTENTION_MMA[kind].source == (
+        pa.RAGGED_ATTENTION[kind].source.replace(".cu", "_mma.cu"))
 
 
 @pytest.mark.parametrize("group, max_q_len, seqs, warps", [
@@ -608,5 +610,11 @@ def test_rpa_warps(group, max_q_len, seqs, warps):
 
 
 def test_rpa_warps_refuses_a_group_past_one_tile():
-    with pytest.raises(ValueError, match="129 q heads per kv head"):
-        pa.rpa_warps(129, 1, 8)
+    """A group past one tile's 128 rows is no longer refused: it takes 8
+    warps, and the plan cuts a token's group into two slices of 65 and 64
+    q heads, one token a tile."""
+    assert pa.rpa_warps(129, 1, 8) == 8
+    assert pa.rpa_group_slices(129, 8) == 2
+    plan = pa.rpa_mma_plan(num_seq_slots=8, num_tokens=8, max_q_len=1, max_keys=2048,
+                           group=129, num_kv_heads=1, slots=264)
+    assert (plan.warps, plan.tokens, plan.slices) == (8, 1, 2)
