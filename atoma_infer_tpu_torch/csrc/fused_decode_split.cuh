@@ -77,16 +77,19 @@
 // fp16 queries (Q = __half; bf16 is Q = __nv_bfloat16) run the same kernel
 // on mma.sync's f16 form: q, k_new, v_new and out fp16, the 1-byte caches
 // widened to fp16 (exact), P rounded to fp16; INT8 scales stay bf16.
-// Any even head dim from 8 to 256 over every cache kind, at the
-// instantiation width D (32, 64, 96, 128 or 256; instance_dim) with the head
-// dim passed at run time, as paged_attention_mma.cuh takes it. A head dim
-// below its width runs the PAD instantiation, one a width, G =
-// kFsTwoHalves (any group of 1 to 16 at run time): the ring's K columns and
-// q_s's from head_dim to D are zero (cp.async's source size of 0), a V
-// run's elements past head_dim are 0 and never read (load_run_padded), the
-// output columns past head_dim are never stored, and a head of no multiple
-// of 16 bytes is copied and read in narrower pieces; the other
-// instantiations run the code they ran before. A source instantiates the
+// Any head dim from 1 to 256 over every cache kind, at the instantiation
+// width D (32, 64, 96, 128 or 256; instance_dim) with the head dim passed at
+// run time, as paged_attention_mma.cuh takes it (257 to 512:
+// paged_attention_w512.cuh). A head dim below its width runs the PAD
+// instantiation, one a width, G = kFsTwoHalves (any group of 1 to 16 at run
+// time): the ring's K columns and q_s's from head_dim to D are zero
+// (cp.async's source size of 0), a V run's elements past head_dim are 0 and
+// never read (load_run_padded), the output columns past head_dim are never
+// stored, and a head of no multiple of 16 bytes is copied and read in
+// narrower pieces (down to single bytes for an odd head of a 1-byte cache;
+// q_s, the write and the output go element by element, so odd head dims
+// need nothing more); the other instantiations run the code they ran
+// before. A source instantiates the
 // narrow widths (32, 64, 128), the wide ones (96, 256) or both
 // (HeadDimSet). At D = 96 a K row is 12 16-byte pieces
 // in the queries' dtype and 6 in a 1-byte cache, neither of which divides a
@@ -211,7 +214,7 @@ struct RunPiece {
 // load_run at a padded head dim: the run's first nbytes (those inside the
 // head), the rest 0. Where the head's copy width cw is at least load_run's
 // piece, in those pieces; else (the run then starts only cw aligned) in
-// 4-byte reads, or 2-byte ones at a copy width of 2.
+// 4-byte reads, or 2-byte ones at a copy width of 2, or 1-byte ones at 1.
 template <typename C, int N>
 __device__ __forceinline__ VRun<C, N> load_run_padded(const C* p, bool valid, int nbytes,
                                                       int cw) {
@@ -241,10 +244,16 @@ __device__ __forceinline__ VRun<C, N> load_run_padded(const C* p, bool valid, in
       if (4 * i >= nbytes) continue;
       if (cw >= 4) {
         r.w[i] = *reinterpret_cast<const uint32_t*>(b + 4 * i);
-      } else {
+      } else if (cw == 2) {
         const uint32_t hi =
             4 * i + 2 < nbytes ? *reinterpret_cast<const uint16_t*>(b + 4 * i + 2) : 0u;
         r.w[i] = *reinterpret_cast<const uint16_t*>(b + 4 * i) | hi << 16;
+      } else {  // an odd head of a 1-byte cache
+        uint32_t w = 0u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (4 * i + k < nbytes) w |= (uint32_t)(uint8_t)b[4 * i + k] << (8 * k);
+        r.w[i] = w;
       }
     }
   }
@@ -270,7 +279,7 @@ __device__ __forceinline__ uint32_t key_pair(const uint32_t* lo, const uint32_t*
 // (INT8) or null; scales_new: f32 [T, 2] (INT8, the new tokens' scales) or
 // null; out Q [T, Hq, head_dim]; ws_o f32 [splits, T, Hq, head_dim] and
 // ws_ml f32 [splits, T, Hq, 2] when splits > 1; group: the query heads a kv
-// head (G, or 9 to 16 when G is kFsTwoHalves); head_dim at most D, even.
+// head (G, or 9 to 16 when G is kFsTwoHalves); head_dim at most D.
 // Grid (Hk, sequence slots, splits), kFsWarps * 32 threads,
 // fs_smem_bytes<C, D, G>() bytes of dynamic shared memory.
 template <typename Q, typename C, int D, int G, bool PAD = false>

@@ -9,9 +9,10 @@
 // Bound: bytes. Each valid token reads its K and V rows and writes one cache
 // row (2*Hk*D elements each way); at 3.35 TB/s that is the whole cost. The
 // kernel does no arithmetic: one block per token, its threads copy 16-byte
-// vectors (narrower only when a head's row is not 16-byte aligned), neighbouring
-// threads on neighbouring addresses. The TPU kernel's page read-modify-write
-// (it could only DMA whole pages) is not needed: a GPU stores rows directly.
+// vectors (narrower only when a head's row is not 16-byte aligned: 4 bytes,
+// 2 for an odd head dim in 16 bits, else 1), neighbouring threads on
+// neighbouring addresses. The TPU kernel's page read-modify-write (it could
+// only DMA whole pages) is not needed: a GPU stores rows directly.
 // A pure copy, so the result is bit-identical to the plain version, for a
 // bf16, fp16 or f32 cache alike.
 //
@@ -80,6 +81,9 @@ extern "C" int atoma_kv_write(const void* k_new, const void* v_new,
                   head_bytes, num_slots, s);
   } else if (head_bytes % 4 == 0 && addr % 4 == 0) {
     launch<uint32_t>(k_new, v_new, slots, cache, num_tokens, num_kv_heads,
+                     head_bytes, num_slots, s);
+  } else if (head_bytes % 2 == 0 && addr % 2 == 0) {  // an odd head dim in 16 bits
+    launch<uint16_t>(k_new, v_new, slots, cache, num_tokens, num_kv_heads,
                      head_bytes, num_slots, s);
   } else {
     launch<uint8_t>(k_new, v_new, slots, cache, num_tokens, num_kv_heads,

@@ -10,9 +10,10 @@
 // fused_decode_kernel); with quant=True (INT8 + scales: kernel D) and
 // fp8=True (e4m3: kernel E) the same two kernels run on a 1-byte cache.
 // Each instantiating source (paged_attention.cu: C = T;
-// paged_attention_int8.cu; paged_attention_fp8.cu; and at widths 96 and
-// 256 paged_attention{,_int8,_fp8}_wide.cu) is its own library, so they
-// build in parallel.
+// paged_attention_int8.cu; paged_attention_fp8.cu; at widths 96 and 256
+// paged_attention{,_int8,_fp8}_wide.cu; at 512 *_w512.cu) is its own
+// library, so they build in parallel; the fused kernel's entry of the
+// narrow and wide ones is a source of its own (*_fused.cu).
 //
 // Cache: [num_pages, block_size, 2*Hk*D], each slot's row laid out as
 // [K_h0 | V_h0 | K_h1 | V_h1 | ...]; INT8 scales: [num_pages, block_size, 2]
@@ -53,18 +54,20 @@
 // bf16 queries take fused_split_kernel (fused_decode_split.cuh: split-KV
 // across blocks, Q·Kᵀ and P·V on the tensor cores).
 //
-// Head dims. Every kernel takes any even head dim from 8 to 256 at run time
-// (head_dim), as FlashAttention-2 does: a kernel is instantiated at a width D
-// of 32, 64, 96, 128 or 256 (instance_dim: the smallest that holds the head
-// dim). A head dim below its width runs the kernel's PAD instantiation, one
-// a width (here: key tiles of 8, and the fused kernel's run-time group),
-// strided by head_dim: what it stages (Q, K, V) has the columns from
-// head_dim to D zero-filled, so the padded columns add nothing to Q·Kᵀ, and
-// the padded output columns are computed and never stored; its copies are
-// as wide as a head's bytes allow (copy_width: 16, 8, 4 or 2 bytes; every
-// head's K and V start at a multiple of its bytes from the 16-byte aligned
-// cache). The other instantiations run the code they ran before, with D
-// for head_dim.
+// Head dims. Every kernel takes any head dim from 1 to 512 at run time
+// (head_dim), as FlashAttention-2 takes its own: a kernel is instantiated at
+// a width D of 32, 64, 96, 128, 256 or 512 (instance_dim: the smallest that
+// holds the head dim). A head dim below its width runs the kernel's PAD
+// instantiation, one a width (here: key tiles of 8, and the fused kernel's
+// run-time group; at 512 only the PAD one), strided by head_dim: what it
+// stages (Q, K, V) has the columns from head_dim to D zero-filled, so the
+// padded columns add nothing to Q·Kᵀ, and the padded output columns are
+// computed and never stored; its copies are as wide as a head's bytes allow
+// (copy_width: 16, 8, 4, 2 or 1 bytes; every head's K and V start at a
+// multiple of its bytes from the 16-byte aligned cache, so an odd head dim
+// of a 1-byte cache is copied byte by byte). Q and the output are read and
+// written element by element there. The other instantiations run the code
+// they ran before, with D for head_dim.
 
 #pragma once
 
@@ -79,22 +82,24 @@ namespace atoma {
 constexpr float kNegInf = -INFINITY;
 
 // The widths a source instantiates: the narrow ones (32, 64, 128: head
-// dims 8 to 64 and 98 to 128), the wide ones (96 and 256: head dims 66 to
-// 96, Phi-3-mini's, and 130 to 256, Gemma-2's), or both; the wide ones of
-// the slower builds sit in sources of their own (*_wide.cu), which build in
+// dims 1 to 64 and 97 to 128), the wide ones (96 and 256: head dims 65 to
+// 96, Phi-3-mini's, and 129 to 256, Gemma-2's), both, or the width 512
+// (head dims 257 to 512); the wide ones of the slower builds and the width
+// 512 sit in sources of their own (*_wide.cu, *_w512*.cu), which build in
 // parallel with the rest.
-enum HeadDimSet { kNarrowDims = 1, kWideDims = 2, kAllDims = 3 };
+enum HeadDimSet { kNarrowDims = 1, kWideDims = 2, kAllDims = 3, kW512Dims = 4 };
 
 // The instantiation width of a head dim: the smallest width a kernel is
-// built at (32, 64, 96, 128 or 256) that holds it; 0 for a head dim no
-// kernel takes (odd, under 8 or past 256).
+// built at (32, 64, 96, 128, 256 or 512) that holds it; 0 for a head dim no
+// kernel takes (under 1 or past 512).
 __host__ __device__ constexpr int instance_dim(int head_dim) {
-  return head_dim < 8 || head_dim > 256 || head_dim % 2 != 0 ? 0
-         : head_dim <= 32                                    ? 32
-         : head_dim <= 64                                    ? 64
-         : head_dim <= 96                                    ? 96
-         : head_dim <= 128                                   ? 128
-                                                             : 256;
+  return head_dim < 1 || head_dim > 512 ? 0
+         : head_dim <= 32              ? 32
+         : head_dim <= 64              ? 64
+         : head_dim <= 96              ? 96
+         : head_dim <= 128             ? 128
+         : head_dim <= 256             ? 256
+                                       : 512;
 }
 
 // A head dim known when compiling, converting to int on the device, for
@@ -104,11 +109,15 @@ struct FixedDim {
   __host__ __device__ constexpr operator int() const { return D; }
 };
 
-// The widest copy (16, 8, 4 or 2 bytes) that divides a head's bytes: the
+// The widest copy (16, 8, 4, 2 or 1 bytes) that divides a head's bytes: the
 // alignment of every head's K, V, Q and output row in tensors whose base is
 // 16-byte aligned.
 __host__ __device__ constexpr int copy_width(int head_bytes) {
-  return head_bytes % 16 == 0 ? 16 : head_bytes % 8 == 0 ? 8 : head_bytes % 4 == 0 ? 4 : 2;
+  return head_bytes % 16 == 0 ? 16
+         : head_bytes % 8 == 0 ? 8
+         : head_bytes % 4 == 0 ? 4
+         : head_bytes % 2 == 0 ? 2
+                               : 1;
 }
 
 template <typename T>
@@ -140,8 +149,8 @@ __device__ __forceinline__ void load16(const T* p, float* out) {
 }
 
 // load16 at a padded head dim: the first n elements (0 to Vec<T>::N) read
-// in pieces of w bytes (w divides their bytes and p's alignment), the rest
-// 0. Nothing is read when n is 0.
+// in pieces of w bytes (16, 8, 4, 2 or 1: w divides their bytes and p's
+// alignment), the rest 0. Nothing is read when n is 0.
 template <typename T>
 __device__ __forceinline__ void load16_padded(const T* p, float* out, int n, int w) {
   uint32_t raw[4] = {0u, 0u, 0u, 0u};
@@ -163,11 +172,15 @@ __device__ __forceinline__ void load16_padded(const T* p, float* out, int n, int
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       if (4 * i < nbytes) raw[i] = *reinterpret_cast<const uint32_t*>(b + 4 * i);
-  } else {
+  } else if (w == 2) {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       if (2 * i < nbytes)
         raw[i / 2] |= (uint32_t)*reinterpret_cast<const uint16_t*>(b + 2 * i) << (16 * (i % 2));
+  } else {  // an odd head of a 1-byte cache
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (i < nbytes) raw[i / 4] |= (uint32_t)(uint8_t)b[i] << (8 * (i % 4));
   }
   const T* e = reinterpret_cast<const T*>(raw);
 #pragma unroll
@@ -210,9 +223,10 @@ __device__ __forceinline__ float slot_scale(const __nv_bfloat16* scales,
 // row: D / 32 threads of 32 dims, except at D = 96, where 3 threads a row
 // would straddle warps and pair across rows, so 4 threads take 24 dims each.
 // Keys are staged KT at a time, KT = gcd(block_size, 32) (16 at D = 256,
-// whose 32-key tile would take 66 KB of static shared memory): a key tile
-// never straddles a page, any block size that is a multiple of 8 runs, and
-// shared memory stays at 2 KT TPR (DPT + 1) floats.
+// whose 32-key tile would take 66 KB of static shared memory; 8 at a padded
+// head dim, and so at D = 512, 16 threads of 32 dims a row, 33 KB): a key
+// tile never straddles a page, any block size that is a multiple of 8 runs,
+// and shared memory stays at 2 KT TPR (DPT + 1) floats.
 // ---------------------------------------------------------------------------
 __host__ __device__ constexpr int rpa_threads_per_row(int d) { return d == 96 ? 4 : d / 32; }
 
@@ -403,8 +417,11 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
   __shared__ float l_s[NW][G];
   // One [G][D] sum that the warps add their weighted partials into in turn:
   // at G = 16 and D = 256 all four partials would pass the 48 KB of static
-  // shared memory.
-  __shared__ float acc_s[G][D];
+  // shared memory. At D = 512 it is q_s itself, which the key loop is done
+  // with by then (the two apart would pass it too).
+  constexpr bool kAccInQ = D > 256;
+  __shared__ float acc_own[kAccInQ ? 1 : G * D];
+  float* const acc_s = kAccInQ ? q_s : acc_own;  // [G][D]
   __shared__ float red_s[2 * NW];
 
   const int s = blockIdx.x, h = blockIdx.y;
@@ -598,7 +615,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
         if (g >= ng) continue;
 #pragma unroll
         for (int dd = 0; dd < DPL; ++dd) {
-          float& a = acc_s[g][lane + dd * 32];
+          float& a = acc_s[g * D + lane + dd * 32];
           a = w == 0 ? acc[g][dd] : a + acc[g][dd];
         }
       }
@@ -617,7 +634,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
 #pragma unroll
       for (int w = 0; w < NW; ++w)
         sum += m_s[w][g] == kNegInf ? 0.f : l_s[w][g] * expf(m_s[w][g] - mx);
-      out[q_base + i] = from_float<T>(sum > 0.f ? acc_s[g][d] / sum : 0.f);
+      out[q_base + i] = from_float<T>(sum > 0.f ? acc_s[g * D + d] / sum : 0.f);
     }
   };
   if constexpr (PAD) {
@@ -713,11 +730,11 @@ struct Fp8Cache {
   using type = __nv_fp8_e4m3;
 };
 
-// dtype (of q, k_new/v_new and out): 0 = float32 (head dims 8 to 128 at
-// widths 32, 64 and 128 of kNarrowDims, at 96 and 256 of kWideDims), 1 =
-// bfloat16 (widths 32, 64, 128; bf16 queries take the tensor cores, and
-// chip_smoke.py times this route beside them). Any even head_dim from 8 to
-// 256 runs on the width instance_dim(head_dim). Pointers:
+// dtype (of q, k_new/v_new and out): 0 = float32 (head dims at widths 32,
+// 64 and 128 of kNarrowDims, at 96 and 256 of kWideDims, at 512 of
+// kW512Dims), 1 = bfloat16 (widths 32, 64, 128; bf16 queries take the
+// tensor cores, and chip_smoke.py times this route beside them). Any
+// head_dim from 1 to 512 runs on the width instance_dim(head_dim). Pointers:
 // q [T, Hq, D], cache [pages, block_size, 2*Hk*D], scales [pages,
 // block_size, 2] bf16 (INT8 caches; else null), block_tables [S, max_pages],
 // seq_lens [S], query_start_loc [S+1], num_seqs [1] (all int32), alibi [Hq]
@@ -786,6 +803,14 @@ int ragged_paged_attention_entry(
       if (dp == 256) ATOMA_RPA_D(float, 256);
     }
   }
+  if constexpr ((DIMS & kW512Dims) != 0) {
+    // The width 512: its PAD instantiation only, for every head dim it holds.
+    if (dtype == 0 && dp == 512)
+      return launch_rpa<float, typename CacheOf<float>::type, 512, true>(
+          block_size, grid, threads, st, q, cache, scales, bt, sl, qsl, ns, al, out,
+          num_q_heads, num_kv_heads, head_dim, max_pages, group, group_rows, block_q, scale,
+          window, soft_cap);
+  }
 #undef ATOMA_RPA_D
 #undef ATOMA_RPA_BF16
   return (int)cudaErrorInvalidValue;
@@ -845,6 +870,12 @@ int fused_decode_attention_entry(
       if (dp == 256) ATOMA_FUSED_D(float, 256);
     }
   }
+  if constexpr ((DIMS & kW512Dims) != 0) {
+    if (dtype == 0 && dp == 512)
+      return launch_fused<float, typename CacheOf<float>::type, 512, true>(
+          group, grid, st, q, k_new, v_new, cache, scales, slots, bt, sl, qsl, ns, al, out,
+          num_kv_heads, head_dim, max_pages, block_size, num_slots, scale, window, soft_cap);
+  }
 #undef ATOMA_FUSED_D
 #undef ATOMA_FUSED_BF16
   return (int)cudaErrorInvalidValue;
@@ -853,8 +884,11 @@ int fused_decode_attention_entry(
 }  // namespace atoma
 
 // The C entry points of one cache kind at the head dims of DIMS (a
-// HeadDimSet): SUFFIX names them, CACHE_OF picks the cache element type.
-#define ATOMA_PAGED_ATTENTION_ENTRIES(SUFFIX, CACHE_OF, DIMS)                  \
+// HeadDimSet): SUFFIX names them, CACHE_OF picks the cache element type. The
+// ragged (A) and the fused decode (B) entry each have a macro of their own,
+// so that the slowest sources' two halves build in parallel
+// (paged_attention{,_int8,_fp8}{,_wide}.cu and their *_fused.cu).
+#define ATOMA_RAGGED_ATTENTION_ENTRY(SUFFIX, CACHE_OF, DIMS)                   \
   extern "C" int atoma_ragged_paged_attention##SUFFIX(                         \
       int dtype, const void* q, const void* cache, const void* scales,         \
       const void* block_tables, const void* seq_lens,                          \
@@ -867,7 +901,9 @@ int fused_decode_attention_entry(
         num_seqs, alibi, out, num_seq_slots, num_q_heads, num_kv_heads,        \
         head_dim, max_pages, block_size, max_q_len, scale, window, soft_cap,   \
         stream);                                                               \
-  }                                                                            \
+  }
+
+#define ATOMA_FUSED_DECODE_ENTRY(SUFFIX, CACHE_OF, DIMS)                       \
   extern "C" int atoma_fused_decode_attention##SUFFIX(                         \
       int dtype, const void* q, const void* k_new, const void* v_new,          \
       void* cache, void* scales, const void* slot_mapping,                     \
@@ -882,3 +918,7 @@ int fused_decode_attention_entry(
         num_q_heads, num_kv_heads, head_dim, max_pages, block_size, num_slots, \
         scale, window, soft_cap, stream);                                      \
   }
+
+#define ATOMA_PAGED_ATTENTION_ENTRIES(SUFFIX, CACHE_OF, DIMS) \
+  ATOMA_RAGGED_ATTENTION_ENTRY(SUFFIX, CACHE_OF, DIMS)        \
+  ATOMA_FUSED_DECODE_ENTRY(SUFFIX, CACHE_OF, DIMS)

@@ -70,15 +70,18 @@
 // keys, as rpa_kernel cuts a group over blocks; a tile then holds one
 // token. A row's arithmetic never crosses rows, so the sums are those of one
 // block.
-// Any even head dim from 8 to 256 over every cache kind, at the
-// instantiation width D (32, 64, 96, 128 or 256; instance_dim in
-// paged_attention.cuh) with the head dim passed at run time. A head dim
-// below its width runs the PAD instantiation (8 warps, one a width): the
-// ring's columns from head_dim to D are zero-filled (cp.async's source size
-// of 0), Q's fragments there are 0, and the output columns there are never
-// stored; a head's K and V rows are copied in the widest pieces its bytes
-// allow (cp_async_part, a loop of its own where they are no multiple of 16
-// bytes). The other instantiations run the code they ran before. A source
+// Any head dim from 1 to 256 over every cache kind, at the instantiation
+// width D (32, 64, 96, 128 or 256; instance_dim in paged_attention.cuh)
+// with the head dim passed at run time (257 to 512: paged_attention_w512.cuh).
+// A head dim below its width runs the PAD instantiation (8 warps, one a
+// width): the ring's columns from head_dim to D are zero-filled (cp.async's
+// source size of 0), Q's fragments there are 0, and the output columns
+// there are never stored; a head's K and V rows are copied in the widest
+// pieces its bytes allow (cp_async_part, a loop of its own where they are
+// no multiple of 16 bytes: 1-byte copies for an odd head of a 1-byte
+// cache), and at an odd head dim Q and the output, whose rows then start at
+// odd elements, a half of a pair at a time. The other instantiations run
+// the code they ran before. A source
 // instantiates the narrow widths (32, 64, 128), the wide ones (96, 256) or
 // both (HeadDimSet), so that the 1-byte caches' wide
 // instantiations build in sources of their own, in parallel. At D = 96 a
@@ -118,11 +121,11 @@ __device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
 
 // One 16-byte piece of a ring row at a head dim whose bytes are no
 // multiple of 16: its first n bytes (0 to 16, a multiple of w) from src in
-// copies of w bytes (8, 4 or 2: w divides the head's bytes, so no copy
+// copies of w bytes (8, 4, 2 or 1: w divides the head's bytes, so no copy
 // crosses the head's end), the rest zero-filled: 8 and 4 by cp.async (a
-// source size of 0 fills zeros), 2 by a load and a store, since cp.async
-// has no 2-byte size. src must be readable where n is 0 (nothing is read
-// then).
+// source size of 0 fills zeros), 2 and 1 (an odd head of a 1-byte cache) by
+// loads and a store, since cp.async has no smaller size. src must be
+// readable where n is 0 (nothing is read then).
 __device__ __forceinline__ void cp_async_part(uint32_t dst, const char* src, int n, int w) {
   if (w == 8) {
 #pragma unroll
@@ -130,14 +133,57 @@ __device__ __forceinline__ void cp_async_part(uint32_t dst, const char* src, int
   } else if (w == 4) {
 #pragma unroll
     for (int o = 0; o < 16; o += 4) cp_async4(dst + o, o < n ? src + o : src, o < n);
-  } else {
+  } else if (w == 2) {
 #pragma unroll
     for (int o = 0; o < 16; o += 4) {
       const uint32_t lo = o < n ? *reinterpret_cast<const uint16_t*>(src + o) : 0u;
       const uint32_t hi = o + 2 < n ? *reinterpret_cast<const uint16_t*>(src + o + 2) : 0u;
       sts32(dst + o, lo | hi << 16);
     }
+  } else {
+#pragma unroll
+    for (int o = 0; o < 16; o += 4) {
+      uint32_t v = 0u;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (o + b < n) v |= (uint32_t)(uint8_t)src[o + b] << (8 * b);
+      sts32(dst + o, v);
+    }
   }
+}
+
+// Elements d and d + 1 of a row of 16-bit values (p points at element d)
+// as a pair, the low half first, 0 past the head dim hd: one 32-bit load
+// where hd is even (the pair is then whole and 4-byte aligned), else two
+// 16-bit ones (an odd row starts at an odd element).
+__device__ __forceinline__ uint32_t load_pair(const void* p, int d, int hd) {
+  if (hd % 2 == 0) return d < hd ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+  const uint16_t* h = reinterpret_cast<const uint16_t*>(p);
+  const uint32_t lo = d < hd ? h[0] : 0u;
+  const uint32_t hi = d + 1 < hd ? h[1] : 0u;
+  return lo | hi << 16;
+}
+
+// The pair v at elements d and d + 1 of a row of 16-bit values, nothing
+// past the head dim hd (load_pair's alignment).
+__device__ __forceinline__ void store_pair(void* p, int d, int hd, uint32_t v) {
+  if (hd % 2 == 0) {
+    if (d < hd) *reinterpret_cast<uint32_t*>(p) = v;
+    return;
+  }
+  uint16_t* h = reinterpret_cast<uint16_t*>(p);
+  if (d < hd) h[0] = (uint16_t)v;
+  if (d + 1 < hd) h[1] = (uint16_t)(v >> 16);
+}
+
+// The same for a row of floats (the split workspace).
+__device__ __forceinline__ void store_pair_f32(float* p, int d, int hd, float a, float b) {
+  if (hd % 2 == 0) {
+    if (d < hd) *reinterpret_cast<float2*>(p) = make_float2(a, b);
+    return;
+  }
+  if (d < hd) p[0] = a;
+  if (d + 1 < hd) p[1] = b;
 }
 
 // The bytes of 16-byte piece p of a head's K (or V) row that lie inside a
@@ -218,37 +264,19 @@ struct RpaTile {
       kRpaStages * kStageBytes + kWideBytes + kScaleBytes + (kRpaStages + 1) * kRpaKT * 4;
 };
 
-// One warp's work on a key tile: kRpaKT keys whose Q-typed K and V rows start
-// at shared addresses ks and vs, rows row_bytes apart, the first at position
-// kpos0; their INT8 scale pairs at sc. Updates the warp's running (m, l, O)
-// for its two rows a lane.
-template <typename Q, int D, bool SCALED>
-__device__ __forceinline__ void rpa_warp_step(
-    const uint32_t (&qf)[D / 16][4], uint32_t ks, uint32_t vs, int row_bytes, uint32_t sc,
-    int kpos0, const int (&qpos)[2], const float (&slope)[2], bool alibi, bool masked,
-    float scale, int window, float soft_cap, float (&o)[D / 8][4], float (&m)[2],
-    float (&l)[2]) {
-  constexpr int NK = kRpaKT;
-  const int lane = threadIdx.x % 32, c4 = lane % 4;
-  // S = Q·Kᵀ: n tile j holds keys 8j .. 8j+7; lane (g8, c4) holds keys
-  // 8j + 2c4 + {0, 1} of rows g8 (e = 0, 1) and g8 + 8 (e = 2, 3).
-  float s[NK / 8][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int p = 0; p < NK / 16; ++p) {
-      uint32_t b[4];
-      ldmatrix_x4(b, ks + (16 * p + (lane / 16) * 8 + lane % 8) * row_bytes +
-                         (kk * 16 + ((lane / 8) % 2) * 8) * 2);
-      if (kk == 0) {
-        mma16_fresh<Q>(s[2 * p], qf[kk], b[0], b[1]);
-        mma16_fresh<Q>(s[2 * p + 1], qf[kk], b[2], b[3]);
-      } else {
-        mma16<Q>(s[2 * p], qf[kk], b[0], b[1]);
-        mma16<Q>(s[2 * p + 1], qf[kk], b[2], b[3]);
-      }
-    }
-  }
+// A warp's S fragments of a tile of NK keys (lane (g8, c4) holds keys
+// 8j + 2c4 + {0, 1} of rows g8 (e = 0, 1) and g8 + 8 (e = 2, 3) in s[j])
+// through the score modifiers in the plain version's order (the INT8 key
+// scale of the pairs at sc, scale, soft cap, ALiBi slope × (kpos − qpos),
+// the causal / window mask when masked), then the online softmax of the
+// lane's two rows: s becomes P (× INT8's V scale), (m, l) move on and the
+// NO n8 tiles of O are rescaled.
+template <int NK, int NO, bool SCALED>
+__device__ __forceinline__ void rpa_tile_softmax(
+    float (&s)[NK / 8][4], uint32_t sc, int kpos0, const int (&qpos)[2],
+    const float (&slope)[2], bool alibi, bool masked, float scale, int window, float soft_cap,
+    float (&o)[NO][4], float (&m)[2], float (&l)[2]) {
+  const int c4 = threadIdx.x % 4;
   // Scores in the plain version's order, each modifier a uniform pass.
   float vsc[NK / 8][2];
 #pragma unroll
@@ -310,12 +338,47 @@ __device__ __forceinline__ void rpa_warp_step(
       }
     l[rr] = l[rr] * alpha + sum;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < NO; ++n) {
       o[n][2 * rr] *= alpha;
       o[n][2 * rr + 1] *= alpha;
     }
     m[rr] = m_new;
   }
+}
+
+// One warp's work on a key tile: kRpaKT keys whose Q-typed K and V rows start
+// at shared addresses ks and vs, rows row_bytes apart, the first at position
+// kpos0; their INT8 scale pairs at sc. Updates the warp's running (m, l, O)
+// for its two rows a lane.
+template <typename Q, int D, bool SCALED>
+__device__ __forceinline__ void rpa_warp_step(
+    const uint32_t (&qf)[D / 16][4], uint32_t ks, uint32_t vs, int row_bytes, uint32_t sc,
+    int kpos0, const int (&qpos)[2], const float (&slope)[2], bool alibi, bool masked,
+    float scale, int window, float soft_cap, float (&o)[D / 8][4], float (&m)[2],
+    float (&l)[2]) {
+  constexpr int NK = kRpaKT;
+  const int lane = threadIdx.x % 32;
+  // S = Q·Kᵀ: n tile j holds keys 8j .. 8j+7; lane (g8, c4) holds keys
+  // 8j + 2c4 + {0, 1} of rows g8 (e = 0, 1) and g8 + 8 (e = 2, 3).
+  float s[NK / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int p = 0; p < NK / 16; ++p) {
+      uint32_t b[4];
+      ldmatrix_x4(b, ks + (16 * p + (lane / 16) * 8 + lane % 8) * row_bytes +
+                         (kk * 16 + ((lane / 8) % 2) * 8) * 2);
+      if (kk == 0) {
+        mma16_fresh<Q>(s[2 * p], qf[kk], b[0], b[1]);
+        mma16_fresh<Q>(s[2 * p + 1], qf[kk], b[2], b[3]);
+      } else {
+        mma16<Q>(s[2 * p], qf[kk], b[0], b[1]);
+        mma16<Q>(s[2 * p + 1], qf[kk], b[2], b[3]);
+      }
+    }
+  }
+  rpa_tile_softmax<NK, D / 8, SCALED>(s, sc, kpos0, qpos, slope, alibi, masked, scale, window,
+                                      soft_cap, o, m, l);
   // O += P·V, k step qq covering keys 16qq .. 16qq+15; P's A fragments are
   // the score accumulators of n tiles 2qq and 2qq+1, rounded to Q.
 #pragma unroll
@@ -515,7 +578,7 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
     orow[rr] = (long long)(q_start + tok0 + ti) * num_q_heads + h * group + gg;
   }
   // Q's A fragments, in registers for the whole key loop; 0 past head_dim
-  // (a pair (d, d + 1) is whole on one side: head_dim is even).
+  // (PAD: load_pair, whose odd head dims are read a half at a time).
   uint32_t qf[D / 16][4];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -523,9 +586,13 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
     for (int rr = 0; rr < 2; ++rr) {
       const int d = kk * 16 + 2 * c4;
       const Q* qr = q + orow[rr] * hd + d;
-      qf[kk][rr] = rvalid[rr] && (!PAD || d < hd) ? *reinterpret_cast<const uint32_t*>(qr) : 0u;
-      qf[kk][2 + rr] =
-          rvalid[rr] && (!PAD || d + 8 < hd) ? *reinterpret_cast<const uint32_t*>(qr + 8) : 0u;
+      if constexpr (PAD) {
+        qf[kk][rr] = rvalid[rr] ? load_pair(qr, d, hd) : 0u;
+        qf[kk][2 + rr] = rvalid[rr] ? load_pair(qr + 8, d + 8, hd) : 0u;
+      } else {
+        qf[kk][rr] = rvalid[rr] ? *reinterpret_cast<const uint32_t*>(qr) : 0u;
+        qf[kk][2 + rr] = rvalid[rr] ? *reinterpret_cast<const uint32_t*>(qr + 8) : 0u;
+      }
     }
   }
 
@@ -599,21 +666,30 @@ __global__ void __launch_bounds__(NW * 32) rpa_mma_kernel(
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     if (!rvalid[rr]) continue;
-    // Output columns past head_dim are computed and never stored.
+    // Output columns past head_dim are computed and never stored (PAD:
+    // store_pair, whose odd head dims are written a half at a time).
     if (nsplit == 1) {
       const float inv = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        if (!PAD || 8 * n + 2 * c4 < hd)
-          *reinterpret_cast<uint32_t*>(out + orow[rr] * hd + 8 * n + 2 * c4) =
-              pack2<Q>(o[n][2 * rr] * inv, o[n][2 * rr + 1] * inv);
+      for (int n = 0; n < D / 8; ++n) {
+        const int d = 8 * n + 2 * c4;
+        const uint32_t v = pack2<Q>(o[n][2 * rr] * inv, o[n][2 * rr + 1] * inv);
+        if constexpr (PAD)
+          store_pair(out + orow[rr] * hd + d, d, hd, v);
+        else
+          *reinterpret_cast<uint32_t*>(out + orow[rr] * hd + d) = v;
+      }
     } else {  // unnormalized, with (m, l), for rpa_combine_kernel
       const long long wrow = (long long)split * num_tokens * num_q_heads + orow[rr];
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        if (!PAD || 8 * n + 2 * c4 < hd)
-          *reinterpret_cast<float2*>(ws_o + wrow * hd + 8 * n + 2 * c4) =
+      for (int n = 0; n < D / 8; ++n) {
+        const int d = 8 * n + 2 * c4;
+        if constexpr (PAD)
+          store_pair_f32(ws_o + wrow * hd + d, d, hd, o[n][2 * rr], o[n][2 * rr + 1]);
+        else
+          *reinterpret_cast<float2*>(ws_o + wrow * hd + d) =
               make_float2(o[n][2 * rr], o[n][2 * rr + 1]);
+      }
       if (c4 == 0) {
         ws_ml[2 * wrow] = m[rr];
         ws_ml[2 * wrow + 1] = l[rr];

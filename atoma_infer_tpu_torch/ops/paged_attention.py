@@ -50,26 +50,37 @@ fused kernels and a decode-heavy ragged batch are bound by the K/V bytes
 for a whole query tile and is bound by the tensor cores' operations, which
 the ``*_mma`` kernels run on. Sources and notes: ``csrc/paged_attention.cuh``
 and ``csrc/paged_attention_mma.cuh``, instantiated by
-``paged_attention{,_int8,_fp8}.cu`` and ``paged_attention{,_int8,_fp8}_mma.cu``.
+``paged_attention{,_int8,_fp8}.cu`` (the CUDA-core fused kernels by
+``paged_attention{,_int8,_fp8}_fused.cu``) and
+``paged_attention{,_int8,_fp8}_mma.cu``.
 
-Every route takes any even head dim from 8 to 256, as JAX takes the head
-dim from the config: each kernel is instantiated at the widths 32, 64, 96,
-128 and 256 (``INSTANCE_DIMS``) and runs a head dim on the smallest that
+Every route takes any head dim from 1 to 512, as JAX takes the head dim
+from the config: each kernel is instantiated at the widths 32, 64, 96, 128,
+256 and 512 (``INSTANCE_DIMS``) and runs a head dim on the smallest that
 holds it (:func:`instance_dim`), the head dim passed at run time. A head dim
 below its width takes a padded instantiation of its own (one a width: the
 tensor-core ragged kernel at 8 warps, the split fused kernel at both
 halves of its tile, the CUDA-core kernels at key tiles of 8 and at the
 run-time group), its padded columns staged as zeros and never stored
 (h2o-danube-1.8b's 80 runs at 96, OpenLLaMA-3B's 100 and h2o-danube3-4b's
-120 at 128); the widths' own head dims run the code they ran before. The 1-byte
-caches' tensor-core kernels and the f32 queries' CUDA-core kernels at the
-widths 96 and 256 are instantiations of their own (``*_wide``, in
-``paged_attention{,_int8,_fp8}_wide*.cu`` and
+120 at 128); odd head dims there are read and written a half of a pair at a
+time (ALiBi models: RoPE takes even ones), an odd head of a 1-byte cache
+copied byte by byte. The widths' own head dims run the code they ran before.
+The 1-byte caches' tensor-core kernels and the f32 queries' CUDA-core
+kernels at the widths 96 and 256 are instantiations of their own
+(``*_wide``, in ``paged_attention{,_int8,_fp8}_wide*.cu`` and
 ``fused_decode_split{_int8,_fp8}_wide*.cu``), so that the sources build in
-parallel. The ragged kernels take any group: the tensor-core kernel cuts a
-token's group past 128 q heads per kv head into slices of at most 128
-rows, a block each (:func:`rpa_mma_plan`), as the CUDA-core kernel cuts a
-wide group over blocks.
+parallel. The width 512 (head dims 257 to 512) has only its padded
+instantiation, of every kernel, in sources of its own
+(``paged_attention{,_int8,_fp8}_w512{,_f16}.cu``): on the tensor cores one
+kernel for A, D, E and the fused B, D, E (``csrc/paged_attention_w512.cuh``:
+one 16-row tile a block, its 4 warps splitting O's columns, Q's fragments
+from shared memory, 32-key ring stages; :func:`rpa_mma_plan` with
+``split_cols``), on the CUDA cores ``rpa_kernel`` and ``fused_decode_kernel``
+at the width 512. The ragged kernels take any group: the tensor-core kernel
+cuts a token's group past 128 q heads per kv head (past 16 at the width 512)
+into slices, a block each (:func:`rpa_mma_plan`), as the CUDA-core kernel
+cuts a wide group over blocks.
 
 Dispatch: CUDA tensors launch the kernels of their cache's dtype and their
 queries' route (or raise: an int8 or e4m3 cache never takes a bf16 kernel
@@ -112,11 +123,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 TC_DTYPES = (torch.bfloat16, torch.float16)
 # The widths every route's kernels are instantiated at; the wide ones are
-# Phi-3-mini's and Gemma-2's head dims, and those of their own sources. A
-# head dim runs at the smallest width that holds it (instance_dim).
-INSTANCE_DIMS = (32, 64, 96, 128, 256)
+# Phi-3-mini's and Gemma-2's head dims, and those of their own sources; the
+# width 512 has sources of its own for every kernel (W512). A head dim runs
+# at the smallest width that holds it (instance_dim).
+INSTANCE_DIMS = (32, 64, 96, 128, 256, 512)
 WIDE_HEAD_DIMS = (96, 256)
-MIN_HEAD_DIM, MAX_HEAD_DIM = 8, 256
+W512 = 512
+MIN_HEAD_DIM, MAX_HEAD_DIM = 1, 512
 # The fused decode kernels take up to 16 q heads per kv head: one m16 tile
 # of Q·Kᵀ a kv head.
 MAX_FUSED_GROUP = 16
@@ -147,17 +160,20 @@ RAGGED_ATTENTION = {
         "atoma_ragged_paged_attention_fp8", _RAGGED_ARGS,
         f"{_A} on e4m3 -> _kernel :139, fp8=True; _e4m3_decode :66-85)"),
 }
+# The CUDA-core fused kernels are built from sources of their own
+# (``*_fused.cu``), apart from the ragged ones', so that the two halves of
+# the slowest sources build in parallel.
 FUSED_DECODE = {
     None: _register(
-        "fused_decode_attention", "paged_attention.cu", "atoma_fused_decode_attention",
+        "fused_decode_attention", "paged_attention_fused.cu", "atoma_fused_decode_attention",
         _FUSED_ARGS, f"{_B} -> _kernel :139, fuse_write=True)"),
     torch.int8: _register(
-        "fused_decode_attention_int8", "paged_attention_int8.cu",
+        "fused_decode_attention_int8", "paged_attention_int8_fused.cu",
         "atoma_fused_decode_attention_int8", _FUSED_ARGS,
         "atoma_infer_tpu/ops/paged_attention.py:1132 (ragged_paged_attention_fused_quant "
         "-> _kernel :139, quant=True; attend_chunk_fused :435-508)"),
     torch.float8_e4m3fn: _register(
-        "fused_decode_attention_fp8", "paged_attention_fp8.cu",
+        "fused_decode_attention_fp8", "paged_attention_fp8_fused.cu",
         "atoma_fused_decode_attention_fp8", _FUSED_ARGS,
         f"{_B} on e4m3 -> _kernel :139, fuse_write=True, fp8=True)"),
 }
@@ -172,7 +188,7 @@ RAGGED_ATTENTION_WIDE = {
 }
 FUSED_DECODE_WIDE = {
     kind: _register(
-        f"{FUSED_DECODE[kind].name}_wide", f"paged_attention{suffix}_wide.cu",
+        f"{FUSED_DECODE[kind].name}_wide", f"paged_attention{suffix}_wide_fused.cu",
         f"{FUSED_DECODE[kind].symbol}_wide", _FUSED_ARGS, FUSED_DECODE[kind].replaces)
     for kind, suffix in _KIND_SUFFIXES
 }
@@ -246,30 +262,74 @@ FUSED_DECODE_SPLIT_WIDE_F16 = {
         FUSED_DECODE[kind].replaces)
     for kind, suffix in _WIDE_SUFFIXES
 }
-# The tensor-core tables by (queries' dtype, wide): see _tc_kernel.
-_RAGGED_TC = {(torch.bfloat16, False): RAGGED_ATTENTION_MMA,
-              (torch.float16, False): RAGGED_ATTENTION_MMA_F16,
-              (torch.bfloat16, True): RAGGED_ATTENTION_MMA_WIDE,
-              (torch.float16, True): RAGGED_ATTENTION_MMA_WIDE_F16}
-_FUSED_TC = {(torch.bfloat16, False): FUSED_DECODE_SPLIT,
-             (torch.float16, False): FUSED_DECODE_SPLIT_F16,
-             (torch.bfloat16, True): FUSED_DECODE_SPLIT_WIDE,
-             (torch.float16, True): FUSED_DECODE_SPLIT_WIDE_F16}
+# Every kernel at the width 512, by cache kind (and for the tensor cores by
+# queries' dtype): one source a (cache kind, queries' dtype), the f32
+# queries' CUDA-core kernels in the bf16 queries' source
+# (``paged_attention{,_int8,_fp8}_w512.cu``, ``..._w512_f16.cu``). The
+# tensor-core ragged and fused entries are one kernel's
+# (``csrc/paged_attention_w512.cuh``), with the narrower widths' signatures.
+RAGGED_ATTENTION_W512 = {
+    kind: _register(
+        f"{RAGGED_ATTENTION[kind].name}_w512", f"paged_attention{suffix}_w512.cu",
+        f"{RAGGED_ATTENTION[kind].symbol}_w512", _RAGGED_ARGS, RAGGED_ATTENTION[kind].replaces)
+    for kind, suffix in _KIND_SUFFIXES
+}
+FUSED_DECODE_W512 = {
+    kind: _register(
+        f"{FUSED_DECODE[kind].name}_w512", f"paged_attention{suffix}_w512.cu",
+        f"{FUSED_DECODE[kind].symbol}_w512", _FUSED_ARGS, FUSED_DECODE[kind].replaces)
+    for kind, suffix in _KIND_SUFFIXES
+}
+RAGGED_ATTENTION_MMA_W512, RAGGED_ATTENTION_MMA_W512_F16 = (
+    {kind: _register(
+        f"{RAGGED_ATTENTION[kind].name}_mma_w512{q}", f"paged_attention{suffix}_w512{q}.cu",
+        f"atoma_ragged_paged_attention_mma{suffix}_w512{q}", _MMA_ARGS,
+        RAGGED_ATTENTION[kind].replaces)
+     for kind, suffix in _KIND_SUFFIXES}
+    for q in ("", "_f16"))
+FUSED_DECODE_SPLIT_W512, FUSED_DECODE_SPLIT_W512_F16 = (
+    {kind: _register(
+        f"{FUSED_DECODE[kind].name}_split_w512{q}", f"paged_attention{suffix}_w512{q}.cu",
+        f"atoma_fused_decode_attention_split{suffix}_w512{q}", _SPLIT_ARGS,
+        FUSED_DECODE[kind].replaces)
+     for kind, suffix in _KIND_SUFFIXES}
+    for q in ("", "_f16"))
+# The tensor-core tables by (queries' dtype, tier): see _tc_kernel.
+_RAGGED_TC = {(torch.bfloat16, "narrow"): RAGGED_ATTENTION_MMA,
+              (torch.float16, "narrow"): RAGGED_ATTENTION_MMA_F16,
+              (torch.bfloat16, "wide"): RAGGED_ATTENTION_MMA_WIDE,
+              (torch.float16, "wide"): RAGGED_ATTENTION_MMA_WIDE_F16,
+              (torch.bfloat16, "w512"): RAGGED_ATTENTION_MMA_W512,
+              (torch.float16, "w512"): RAGGED_ATTENTION_MMA_W512_F16}
+_FUSED_TC = {(torch.bfloat16, "narrow"): FUSED_DECODE_SPLIT,
+             (torch.float16, "narrow"): FUSED_DECODE_SPLIT_F16,
+             (torch.bfloat16, "wide"): FUSED_DECODE_SPLIT_WIDE,
+             (torch.float16, "wide"): FUSED_DECODE_SPLIT_WIDE_F16,
+             (torch.bfloat16, "w512"): FUSED_DECODE_SPLIT_W512,
+             (torch.float16, "w512"): FUSED_DECODE_SPLIT_W512_F16}
 
 
 def instance_dim(head_dim: int) -> int:
     """The width a head dim runs at: the smallest of ``INSTANCE_DIMS`` that
     holds it (the kernels' ``instance_dim``, ``csrc/paged_attention.cuh``).
-    ``head_dim`` is an even head dim from 8 to 256 (:func:`check_kernel_shape`)."""
+    ``head_dim`` is a head dim from 1 to 512 (:func:`check_kernel_shape`)."""
     return next(d for d in INSTANCE_DIMS if d >= head_dim)
+
+
+def _tier(kind, head_dim) -> str:
+    """Which sources hold a cache of ``kind``'s kernels at ``head_dim``:
+    ``"w512"`` at the width 512 (every cache kind), ``"wide"`` for a 1-byte
+    cache at the widths 96 and 256, else ``"narrow"``."""
+    width = instance_dim(head_dim)
+    if width == W512:
+        return "w512"
+    return "wide" if kind is not None and width in WIDE_HEAD_DIMS else "narrow"
 
 
 def _tc_kernel(tables, dtype, kind, head_dim) -> cuda_lib.CudaKernel:
     """The tensor-core kernel of ``tables`` for queries of ``dtype`` (bf16
-    or fp16) over a cache of ``kind`` at ``head_dim``: a 1-byte cache's
-    instantiation at a wide width lives in a ``*_wide`` source."""
-    wide = kind is not None and instance_dim(head_dim) in WIDE_HEAD_DIMS
-    return tables[(dtype, wide)][kind]
+    or fp16) over a cache of ``kind`` at ``head_dim`` (:func:`_tier`)."""
+    return tables[(dtype, _tier(kind, head_dim))][kind]
 
 
 # The merge of split rows (rpa_combine_kernel), after a split ragged or
@@ -323,9 +383,10 @@ def num_splits_heuristic(blocks: int, slots: int, n_blocks: int, max_splits: int
 @dataclasses.dataclass(frozen=True)
 class RpaPlan:
     """How one tensor-core ragged call launches: warps a block (4 or 8, 16
-    rows each), query tokens a tile, the most KV splits a row takes, and the
-    slices a token's group is cut into (past 128 q heads per kv head; the
-    kernel's ``rpa_group_slices``), each a block of its own."""
+    rows each; at the width 512 4 warps over one 16-row tile, each a
+    quarter of the columns), query tokens a tile, the most KV splits a row
+    takes, and the slices a token's group is cut into (past the tile's rows;
+    the kernel's ``rpa_group_slices``), each a block of its own."""
 
     warps: int
     tokens: int
@@ -360,8 +421,13 @@ def rpa_group_slices(group: int, warps: int) -> int:
     return -(-group // (warps * RPA_WARP_ROWS))
 
 
+# The width-512 kernel's block: 4 warps sharing one 16-row tile.
+W512_WARPS = 4
+
+
 def rpa_mma_plan(*, num_seq_slots: int, num_tokens: int, max_q_len: int, max_keys: int,
-                 group: int, num_kv_heads: int, slots: int, padded: bool = False) -> RpaPlan:
+                 group: int, num_kv_heads: int, slots: int, padded: bool = False,
+                 split_cols: bool = False) -> RpaPlan:
     """The launch plan from what the host knows: S sequence slots, T query
     rows, the longest chunk, the block table's width in keys (P × block
     size), the GQA group and kv heads, and ``slots``, the blocks of this
@@ -372,10 +438,12 @@ def rpa_mma_plan(*, num_seq_slots: int, num_tokens: int, max_q_len: int, max_key
     into slices); with one block per (tile, kv head, slice) that is the grid
     FA2's heuristic sizes against the card, with the key tiles counted in
     whole splits of ``RPA_MIN_TILES``. ``padded``: the head dim is below its
-    width (:func:`rpa_warps`)."""
-    warps = rpa_warps(group, max_q_len, num_seq_slots, padded)
-    slices = rpa_group_slices(group, warps)
-    tokens = warps * RPA_WARP_ROWS // -(-group // slices)
+    width (:func:`rpa_warps`); ``split_cols``: its width is 512, whose
+    kernel's 4 warps share one 16-row tile (``W512_WARPS``)."""
+    warps = W512_WARPS if split_cols else rpa_warps(group, max_q_len, num_seq_slots, padded)
+    row_tiles = 1 if split_cols else warps
+    slices = rpa_group_slices(group, row_tiles)
+    tokens = row_tiles * RPA_WARP_ROWS // -(-group // slices)
     tiles = max(-(-num_tokens // tokens), min(num_seq_slots, num_tokens))
     key_tiles = -(-max_keys // RPA_KEY_TILE)
     splits = num_splits_heuristic(tiles * num_kv_heads * slices, slots,
@@ -410,11 +478,12 @@ def rpa_plan_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> RpaPlan:
     S, P = meta.block_tables.shape
     group = Hq // num_kv_heads
     max_q_len = int(meta.max_q_len)
-    padded = instance_dim(D) != D
+    padded, split_cols = instance_dim(D) != D, instance_dim(D) == W512
+    warps = W512_WARPS if split_cols else rpa_warps(group, max_q_len, S, padded)
     return rpa_mma_plan(
         num_seq_slots=S, num_tokens=T, max_q_len=max_q_len, max_keys=P * meta.block_size,
-        group=group, num_kv_heads=num_kv_heads, padded=padded,
-        slots=_rpa_slots(kind, D, rpa_warps(group, max_q_len, S, padded), q.device.index or 0))
+        group=group, num_kv_heads=num_kv_heads, padded=padded, split_cols=split_cols,
+        slots=_rpa_slots(kind, D, warps, q.device.index or 0))
 
 
 def split_key_ranges(pos: int, window: Optional[int], splits: int, min_tiles: int):
@@ -471,30 +540,38 @@ def fused_splits_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> int:
         slots=_fused_slots(kind, D, Hq // num_kv_heads, q.device.index or 0))
 
 
+def _f32_kernel(tables, kind, head_dim) -> cuda_lib.CudaKernel:
+    """The CUDA-core kernel of ``tables`` (narrow, wide, width 512) for f32
+    queries over a cache of ``kind`` at ``head_dim``."""
+    width = instance_dim(head_dim)
+    return tables[2 if width == W512 else 1 if width in WIDE_HEAD_DIMS else 0][kind]
+
+
 def fused_route(q: torch.Tensor, kind) -> cuda_lib.CudaKernel:
     """The fused decode kernel a CUDA call takes: bf16 queries the split
     kernel (``*_split``) over every cache kind, fp16 queries its fp16
     instantiation (``*_split_f16``), a 1-byte cache at a wide width
-    (:func:`instance_dim`) their ``*_wide`` instantiations; f32 queries
-    ``fused_decode_kernel`` (at a wide width its ``*_wide``
-    instantiation), the f32 test-size services' traffic."""
+    (:func:`instance_dim`) their ``*_wide`` instantiations, every cache at
+    the width 512 the ``*_w512`` ones; f32 queries ``fused_decode_kernel``
+    (at a wide width its ``*_wide`` instantiation, at 512 its ``*_w512``
+    one), the f32 test-size services' traffic."""
     if q.dtype in TC_DTYPES:
         return _tc_kernel(_FUSED_TC, q.dtype, kind, q.shape[2])
-    wide = instance_dim(q.shape[2]) in WIDE_HEAD_DIMS
-    return (FUSED_DECODE_WIDE if wide else FUSED_DECODE)[kind]
+    return _f32_kernel((FUSED_DECODE, FUSED_DECODE_WIDE, FUSED_DECODE_W512), kind, q.shape[2])
 
 
 def ragged_route(q: torch.Tensor, kind) -> cuda_lib.CudaKernel:
     """The ragged kernel a CUDA call takes: bf16 queries the tensor cores
     (``*_mma``) over every cache kind, fp16 queries their fp16
     instantiation (``*_mma_f16``), a 1-byte cache at a wide width
-    (:func:`instance_dim`) their ``*_wide`` instantiations; f32 queries the
-    CUDA cores (``rpa_kernel``, at a wide width its ``*_wide``
-    instantiation), whose f32 sums a 16-bit ``mma`` would round."""
+    (:func:`instance_dim`) their ``*_wide`` instantiations, every cache at
+    the width 512 the ``*_w512`` ones; f32 queries the CUDA cores
+    (``rpa_kernel``, at a wide width its ``*_wide`` instantiation, at 512
+    its ``*_w512`` one), whose f32 sums a 16-bit ``mma`` would round."""
     if q.dtype in TC_DTYPES:
         return _tc_kernel(_RAGGED_TC, q.dtype, kind, q.shape[2])
-    wide = instance_dim(q.shape[2]) in WIDE_HEAD_DIMS
-    return (RAGGED_ATTENTION_WIDE if wide else RAGGED_ATTENTION)[kind]
+    return _f32_kernel((RAGGED_ATTENTION, RAGGED_ATTENTION_WIDE, RAGGED_ATTENTION_W512), kind,
+                       q.shape[2])
 
 
 def combine_route(out: torch.Tensor) -> cuda_lib.CudaKernel:
@@ -581,7 +658,7 @@ def check_kernel_shape(*, head_dim: int, dtype: torch.dtype, kind, group: int,
                        block_size: int, fused: bool) -> None:
     """Raise ``ValueError`` for a shape no kernel takes: ``head_dim`` for
     queries of ``dtype`` (bf16, fp16 or f32) over a cache of ``kind`` (None:
-    the queries' own dtype; or int8, float8_e4m3fn) must be even, from
+    the queries' own dtype; or int8, float8_e4m3fn) must be from
     ``MIN_HEAD_DIM`` to ``MAX_HEAD_DIM``, on every route (a refusal names
     the ROADMAP.md item that would add more); the ragged kernel (A, D, E)
     takes any block size that is a multiple of 8, as the configuration
@@ -591,11 +668,11 @@ def check_kernel_shape(*, head_dim: int, dtype: torch.dtype, kind, group: int,
     it."""
     if dtype not in Q_DTYPES:
         raise ValueError(f"paged attention: q {dtype} must be bfloat16, float16 or float32")
-    if head_dim % 2 or not MIN_HEAD_DIM <= head_dim <= MAX_HEAD_DIM:
+    if not MIN_HEAD_DIM <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(
             f"paged attention: unsupported head_dim {head_dim} for {dtype} queries over a "
-            f"{kind or dtype} cache (even head dims {MIN_HEAD_DIM} to {MAX_HEAD_DIM}; others "
-            "wait for ROADMAP.md, Queue 1 item 22: attention at head dims past 256 or odd)")
+            f"{kind or dtype} cache (head dims {MIN_HEAD_DIM} to {MAX_HEAD_DIM}; larger ones "
+            "wait for ROADMAP.md, Queue 1 item 22: attention at head dims past 512)")
     if block_size <= 0 or block_size % 8:
         raise ValueError(f"paged attention: block_size {block_size} is not a positive "
                          "multiple of 8")

@@ -29,6 +29,16 @@ sequence-major order), each a
 small build of the split kernel alone at D = 64 and 128, G = 4, timed on
 the 64-row batch at the 8B and 1B shapes beside the same build without
 hooks, in turns.
+
+``--mode w512`` times the width 512's tensor-core kernel (A over a bf16
+cache, ``csrc/paged_attention_w512.cuh``) at Gemma-2-9B's widths with heads
+of 512 (8 q heads over 4 kv heads, soft cap 50, blocks of 16): after a
+check against the plain version, ``chip_smoke.py``'s mixed batch at that
+shape (decode rows of 16-1,023 keys), its decode and prefill rows apart,
+and one 8-token tile (a block's whole query tile at G = 2) and one decode
+row over 64 and over 1,024 keys (a block's latency a 64-key tile), each
+under 1, 2, 4, 8 and 16 splits beside the route's plan, in CUDA graphs of 20
+launches. One JSON line per batch.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ SOURCES = ("paged_attention.cu", "paged_attention_int8.cu", "paged_attention_fp8
            "paged_attention_mma.cu", "paged_attention_int8_mma.cu", "paged_attention_fp8_mma.cu")
 FUSED_SOURCES = ("fused_decode_split.cu", "fused_decode_split_int8.cu",
                  "fused_decode_split_fp8.cu")
+W512_SOURCES = ("paged_attention_w512.cu", "paged_attention_mma.cu")
 TOL = 2e-2
 KINDS = (None, torch.int8, torch.float8_e4m3fn)
 
@@ -401,20 +412,53 @@ def fused_rows(device):
                 print(json.dumps(row), flush=True)
 
 
+def w512_rows(device):
+    """The width 512's kernel on the mixed batch, its parts and single
+    tiles, under each split count and the route's plan (see the module's
+    docstring)."""
+    rng = np.random.default_rng(512)
+    mixed = [(300, 300), (128, 700), (57, 57)] + [
+        (1, int(k)) for k in rng.integers(16, 1024, size=29)]
+    batches = {
+        "mixed": mixed, "mixed decode rows": mixed[3:], "mixed prefill rows": mixed[:3],
+        "1 row, 64 keys": [(1, 64)], "1 row, 1024 keys": [(1, 1024)],
+        "8 tokens, 64 keys": [(8, 64)], "8 tokens, 1024 keys": [(8, 1024)],
+    }
+    hq, hk, d, cap = 8, 4, 512, 50.0
+    tokens = pa.RPA_WARP_ROWS // (hq // hk)
+    for label, specs in batches.items():
+        b = make_batch(rng, specs, hq=hq, hk=hk, d=d, bs=16, kind=None, device=device)
+        ref = plain(b, soft_cap=cap)[:b["rows"]].float()
+        row = dict(batch=label, kernel=pa.ragged_route(b["q"], None).name)
+        for splits in (1, 2, 4, 8, 16):
+            plan = pa.RpaPlan(pa.W512_WARPS, tokens, splits)
+            err = (run_plan(b, plan, soft_cap=cap)[:b["rows"]].float() - ref).abs().max().item()
+            if err > TOL * (1 + ref.abs().max().item()):
+                raise AssertionError(f"{row['kernel']} {label} {plan}: max |err| {err:.3e}")
+            row[f"s{splits}"] = graph_ms(lambda: run_plan(b, plan, soft_cap=cap))
+        route = pa.rpa_plan_for(b["q"], b["meta"], hk, None)
+        row["route_plan"] = [route.warps, route.tokens, route.splits]
+        row["route_ms"] = graph_ms(lambda: pa.ragged_paged_attention_cuda(
+            b["q"], b["cache"], b["meta"], scale=d ** -0.5, soft_cap=cap))
+        print(json.dumps(row), flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--mode", choices=("ragged", "fused"), default="ragged",
+    parser.add_argument("--mode", choices=("ragged", "fused", "w512"), default="ragged",
                         help="ragged: the tensor-core ragged kernel's plans (default); fused: "
-                             "the split fused decode kernel's split counts")
+                             "the split fused decode kernel's split counts; w512: the width "
+                             "512's kernel's split counts and tiles")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("rpa_ablation needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    pattern = "rpa_" if args.mode == "ragged" else "fused_split"
-    for source, log in cuda_lib.build_all(
-            SOURCES + (FUSED_SOURCES if args.mode == "fused" else ())).items():
+    pattern = {"ragged": "rpa_", "fused": "fused_split", "w512": "rpa_w512"}[args.mode]
+    sources = {"ragged": SOURCES, "fused": SOURCES + FUSED_SOURCES,
+               "w512": W512_SOURCES}[args.mode]
+    for source, log in cuda_lib.build_all(sources).items():
         for kernel, spill, regs in re.findall(
                 r"Compiling entry function '(\w*" + pattern + r"\w*)'.*?(\d+) bytes spill "
                 r"stores.*?Used (\d+) registers", log, re.S):
@@ -423,6 +467,9 @@ def main(argv=None) -> int:
     if args.mode == "fused":
         fused_rows(device)
         fused_variants(device)
+        return 0
+    if args.mode == "w512":
+        w512_rows(device)
         return 0
     print(f"small shapes agree, max |err| {check_small(device):.3e} (tol {TOL})", flush=True)
     timed_rows(device)

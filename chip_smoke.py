@@ -49,17 +49,23 @@ raises on failure; nothing is caught):
    Llama-3.2-3B attention shapes (3 query heads per kv head), the ragged
    kernels at blocks of 16 and of 64. A, B, C and the merge at the
    Phi-3-mini (D = 96, 32 kv heads, window 2,047) and Gemma-2-9B (D = 256,
-   soft cap 50) attention shapes: the write bit-exact, A on a mixed batch
+   soft cap 50) attention shapes, and at Gemma-2-9B's widths with heads
+   of 512 (every ``*_w512`` kernel, bf16, fp16 and f32 queries, and C):
+   the write bit-exact, A on a mixed batch
    and B on 64 decode rows against their plain versions, each timed beside
    its bound, and the merge after a split launch. Head dims at a padded
    width (``check_head_dim_variants``): A, B, D, E and the merge at head
-   dims 80, 100, 112, 120, 160, 192, 8, 50 and 248 (groups 1, 4, 12, 20)
+   dims 80, 100, 112, 120, 160, 192, 8, 50 and 248 (groups 1, 4, 12, 20),
+   at odd ones and those of the width 512 (3, 9, 63, 127, 255, 257, 320,
+   384, 511, 512; groups 4 and 12, and 20 at 63, 320 and 512)
    and at 144 and 256 q heads per kv head (head dims 32, 80, 128), bf16,
    fp16 and f32 queries over every cache kind, mixed and decode batches,
    each call's route read from the launch counters; then A, B and the
-   1-byte caches' D or E at h2o-danube-1.8b's, OpenLLaMA-3B's and
-   h2o-danube3-4b's attention shapes (``HEAD_DIM_SHAPES``), timed beside
-   their bounds, and the merge where those shapes' plans split. Kernel I (the W8A8 rate probe's
+   1-byte caches' D or E at h2o-danube-1.8b's, OpenLLaMA-3B's,
+   h2o-danube3-4b's and an ALiBi Llama-3.2-1B's at head dim 63 attention
+   shapes (``HEAD_DIM_SHAPES``), timed beside their bounds, the merge
+   where those shapes' plans split, and A and B at head dims below their
+   width beside the width's own (``time_padding``). Kernel I (the W8A8 rate probe's
    matmul, both forms) at small shapes (M = 1 to 400) and at the probe's
    (184 × 4096 × 14336): int8 bit-exact, mixed within its tolerance. The
    kernels of a speculative verify step on a 64-sequence verify batch (K =
@@ -131,9 +137,9 @@ raises on failure; nothing is caught):
    the full-width bf16 Llama-3.2-1B (16 layers, KV pool sized from
    ``torch.cuda.mem_get_info``), the full-width bf16 Llama-3.2-3B (28
    layers, 3 query heads per kv head) and the 1B again with blocks of 64,
-   then the full-width Llama-3.1-8B (32
-   layers, bf16 activations, llama3 rope scaling, untied per-channel INT8
-   LM head) with INT8 weights, then at 8 of its layers
+   then the full-width Llama-3.1-8B (16 of its 32 layers,
+   ``QUANT_MAIN_LAYERS``, bf16 activations, llama3 rope scaling, untied
+   per-channel INT8 LM head) with INT8 weights, then at 8 of its layers
    (``QUANT_HALF_LAYERS``) with INT4 weights and INT8 weights under W8A8
    over a bf16 KV cache, and INT8 weights over an INT8 KV cache (pool sized
    from free memory) and an e4m3 one; random weights from a
@@ -197,9 +203,12 @@ raises on failure; nothing is caught):
    h2o-danube-1.8b (D = 80, window 4,096) over a bf16 and an INT8 cache,
    OpenLLaMA-3B (D = 100) over a bf16 and an e4m3 cache, h2o-danube3-4b
    (D = 120) over a bf16 cache, and Llama-3.1-70B's widths with head dim
-   32 and its 256 q heads over one kv head (G = 256), the same three runs
-   and checks, every ragged call of the G = 256 service planned in two
-   slices a token. Speculative decoding (K = 4, 8
+   32 and its 256 q heads over one kv head (G = 256); then widths with
+   heads no published checkpoint has: Gemma-2-9B's with heads of 512 over
+   a bf16 and an INT8 cache, Llama-3.1-8B's with heads of 512 over an
+   e4m3 cache, and Llama-3.2-1B's with ALiBi and heads of 63 over a bf16
+   and an INT8 cache; the same three runs and checks, every ragged call of
+   the G = 256 service planned in two slices a token. Speculative decoding (K = 4, 8
    sequences, prompts echoing their first half): the 1B bf16 service (a)
    eager and (b) async with graphs after ``warmup()``, and after the 8B
    services the INT8 + INT8 KV one synchronous with graphs, each against
@@ -218,7 +227,8 @@ raises on failure; nothing is caught):
    replaying its steps as CUDA graphs captured in segments between the
    collectives: ``tiny_trained`` f32 from its directory, each rank loading
    its shard, tokens identical to tp = 1 on the card and, greedy, on the
-   CPU; then Llama-3.1-8B INT8 + INT8 KV at full width and depth, every
+   CPU; then Llama-3.1-8B INT8 + INT8 KV at full width and ``TP_LAYERS``
+   of its 32 layers, every
    rank drawing the same seeded weights, the 8 requests at 64 tokens,
    every rank eager and then with graphs after ``warmup()`` (tokens
    identical), against the same service at tp = 1 with graphs under the
@@ -483,18 +493,21 @@ def build_kernels() -> float:
         log(f"built {source} at {walls[source]:.1f} s: {len(regs)} kernels, max "
             f"{max(regs, default=0)} registers, {spills} bytes of spill stores")
         # Kernel by kernel, their registers and spills under __launch_bounds__
-        # (PERF.md): the 1-byte caches' wide instantiations, and in every
-        # source the fused kernels' instantiation for groups of 9 to 16.
+        # (PERF.md): the 1-byte caches' wide instantiations, the width 512's,
+        # and in every source the fused kernels' instantiation for groups of
+        # 9 to 16.
         for entry in re.split(r"Compiling entry function", text)[1:]:
             name = re.match(r"\s*'_ZN5atoma\d*(\w+?)I", entry)
             used = re.search(r"Used (\d+) registers", entry)
             spill = re.search(r"(\d+) bytes spill stores", entry)
+            smem = re.search(r"(\d+) bytes smem", entry)
             if name and used:
                 args = ",".join(re.findall(r"Li(\d+)E", entry.split("'")[1]))
                 wide_group = name.group(1).startswith("fused_") and args.endswith(",16")
-                if "_wide" in source or wide_group:
+                if "_wide" in source or "_w512" in source or wide_group:
                     log(f"  {source} {name.group(1)}<{args}>: {used.group(1)} registers, "
-                        f"{spill.group(1) if spill else 0} bytes of spill stores")
+                        f"{spill.group(1) if spill else 0} bytes of spill stores, "
+                        f"{smem.group(1) if smem else 0} bytes of static shared memory")
     log(f"kernel build: {seconds:.1f} s")
     return seconds
 
@@ -552,6 +565,16 @@ def make_batch(rng, specs, *, dtype, num_blocks, decode_only, device,
     )
 
 
+def kernel_line_specs(rng, max_keys: int = 2048):
+    """The (q_len, kv_len) sequences of the kernels line's two batches: a
+    mixed step (prefill chunks of 300, 128 and 57 tokens and 29 decode rows
+    of 16 to ``max_keys`` − 1 keys) and 64 decode rows of 16 to 2,047 keys,
+    drawn from ``rng``."""
+    mixed = [(300, 300), (128, 700), (57, 57)] + [
+        (1, int(k)) for k in rng.integers(16, max_keys, size=29)]
+    return mixed, [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+
+
 # The attention kernels' shape grid at small sizes: block sizes (the
 # CUDA-core ragged kernel stages 8, 16, 32 a whole page and 48, 64, 128 in key
 # tiles of gcd(bs, 32); the tensor-core one gathers 64-key tiles across
@@ -563,6 +586,8 @@ VARIANT_GROUPS = tuple(range(1, 9))
 # instantiations (``*_wide``).
 WIDE_HEAD_DIMS = (96, 256)
 ALL_HEAD_DIMS = (32, 64, 96, 128, 256)
+# The widest width, whose kernels (``*_w512``) run head dims 257 to 512.
+W512 = 512
 # The CUDA-core ragged kernel's bf16 form (dtype 1, timed beside the tensor
 # cores, never routed) is instantiated at these head dims only.
 CUDA_CORE_BF16_DIMS = (32, 64, 128)
@@ -834,10 +859,7 @@ def check_kernels(torch):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
-        (1, int(k)) for k in rng.integers(16, 2048, size=29)
-    ]
-    decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    mixed_specs, decode_specs = kernel_line_specs(rng)
     rows = {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         tol = ATTN_TOL[dtype_name]
@@ -1114,10 +1136,7 @@ def check_kv8_kernels(torch):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
-    mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
-        (1, int(k)) for k in rng.integers(16, 2048, size=29)
-    ]
-    decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    mixed_specs, decode_specs = kernel_line_specs(rng)
     shape = dict(hq=32, hk=8, d=128, bs=16, dtype=torch.bfloat16, device=dev)
     mixed = make_batch(rng, mixed_specs, num_blocks=4096, decode_only=False, **shape)
     decode = make_batch(rng, decode_specs, num_blocks=8192, decode_only=True, **shape)
@@ -1373,7 +1392,7 @@ def check_fp16_occupancy(torch):
 
     from atoma_infer_tpu_torch.ops import cuda_lib
 
-    checked = 0
+    checked, pairs = 0, []
     for suffix, dims in (("", (64, 96, 128, 256)), ("_int8", (64, 128)), ("_fp8", (64, 128)),
                          ("_int8_wide", WIDE_HEAD_DIMS), ("_fp8_wide", WIDE_HEAD_DIMS)):
         for stem, entry, args in (
@@ -1384,16 +1403,28 @@ def check_fp16_occupancy(torch):
             # The bf16 tensor-core ragged kernels at the narrow widths build
             # in sources of their own (``paged_attention{,_int8,_fp8}_mma.cu``).
             own = stem == "paged_attention" and "wide" not in suffix
-            bf = getattr(cuda_lib.load(f"{stem}{suffix}{'_mma' if own else ''}.cu"),
-                         f"{entry}{suffix}")
-            hf = getattr(cuda_lib.load(f"{stem}{suffix}_f16.cu"), f"{entry}{suffix}_f16")
-            for fn in (bf, hf):
-                fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-            for a, b in args:
-                if bf(a, b) != hf(a, b) or bf(a, b) < 1:
-                    raise AssertionError(f"{entry}{suffix}({a}, {b}): bf16 {bf(a, b)} blocks an "
-                                         f"SM, fp16 {hf(a, b)}")
-                checked += 1
+            pairs.append((getattr(cuda_lib.load(f"{stem}{suffix}{'_mma' if own else ''}.cu"),
+                                  f"{entry}{suffix}"),
+                          getattr(cuda_lib.load(f"{stem}{suffix}_f16.cu"), f"{entry}{suffix}_f16"),
+                          f"{entry}{suffix}", args))
+    # The width 512: both entries in each (cache kind, queries' dtype) source.
+    for suffix in ("", "_int8", "_fp8"):
+        for entry, args in (("atoma_rpa_mma_blocks_per_sm", [(d, 4) for d in (320, 512)]),
+                            ("atoma_fused_split_blocks_per_sm",
+                             [(d, g) for d in (320, 512) for g in (1, 4, 16)])):
+            pairs.append((getattr(cuda_lib.load(f"paged_attention{suffix}_w512.cu"),
+                                  f"{entry}{suffix}_w512"),
+                          getattr(cuda_lib.load(f"paged_attention{suffix}_w512_f16.cu"),
+                                  f"{entry}{suffix}_w512_f16"),
+                          f"{entry}{suffix}_w512", args))
+    for bf, hf, name, args in pairs:
+        for fn in (bf, hf):
+            fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        for a, b in args:
+            if bf(a, b) != hf(a, b) or bf(a, b) < 1:
+                raise AssertionError(f"{name}({a}, {b}): bf16 {bf(a, b)} blocks an SM, fp16 "
+                                     f"{hf(a, b)}")
+            checked += 1
     log(f"fp16 occupancy: {checked} instantiations hold as many blocks an SM as their bf16 ones")
 
 
@@ -1493,9 +1524,7 @@ def check_fp16_kernels(torch):
 
     # The 1B shapes: the same batches as check_kernels' (its seed).
     rng = np.random.default_rng(0)
-    mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
-        (1, int(k)) for k in rng.integers(16, 2048, size=29)]
-    decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    mixed_specs, decode_specs = kernel_line_specs(rng)
     mixed = make_batch(rng, mixed_specs, dtype=f16, num_blocks=4096, decode_only=False,
                        device=dev)
     decode = make_batch(rng, decode_specs, dtype=f16, num_blocks=8192, decode_only=True,
@@ -1556,9 +1585,7 @@ def check_fp16_kernels(torch):
     # The 8B shapes: the INT8 and e4m3 writes, D and E (check_kv8_kernels'
     # batches).
     rng = np.random.default_rng(1)
-    mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
-        (1, int(k)) for k in rng.integers(16, 2048, size=29)]
-    decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    mixed_specs, decode_specs = kernel_line_specs(rng)
     shape = dict(hq=32, hk=8, d=128, bs=16, dtype=f16, device=dev)
     mixed = make_batch(rng, mixed_specs, num_blocks=4096, decode_only=False, **shape)
     decode = make_batch(rng, decode_specs, num_blocks=8192, decode_only=True, **shape)
@@ -1682,6 +1709,10 @@ def check_fp16_kernels(torch):
 WIDE_HEAD_SHAPES = (
     ("Phi-3-mini", 32, 32, 96, dict(sliding_window=2047), dict(decode=True, splits=4)),
     ("Gemma-2-9B", 16, 8, 256, dict(soft_cap=50.0), {}),
+    # Gemma-2-9B's widths at head dim 512 (HEAD_DIM_FAMILIES): 8 q heads
+    # over 4 kv heads; its prefill chunk fills the card unsplit, so the
+    # merge follows the fused kernel on 8 long decode rows, which splits.
+    ("Gemma-2-9B D=512", 8, 4, 512, dict(soft_cap=50.0), dict(decode=True)),
 )
 
 
@@ -1699,7 +1730,9 @@ def check_wide_head_kernels(torch):
     beside its bound and its plain version; the merge after a split prefill
     chunk (Gemma-2-9B) or after the fused kernel on 8 long decode rows
     launched with 4 splits (Phi-3-mini, whose plans never split:
-    ``WIDE_HEAD_SHAPES``). Returns kernels-line rows keyed ``kernel@D``."""
+    ``WIDE_HEAD_SHAPES``); at Gemma-2-9B's widths with head dim 512 (the
+    ``*_w512`` kernels) the write C timed too. Returns kernels-line rows
+    keyed ``kernel@D``."""
     import numpy as np
 
     from atoma_infer_tpu_torch.ops import kv_write
@@ -1710,9 +1743,7 @@ def check_wide_head_kernels(torch):
     rows = {}
     for label, hq, hk, d, mods, merge in WIDE_HEAD_SHAPES:
         rng = np.random.default_rng(d)
-        mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
-            (1, int(k)) for k in rng.integers(16, 1024, size=29)]
-        decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+        mixed_specs, decode_specs = kernel_line_specs(rng, max_keys=1024)
         shape = dict(hq=hq, hk=hk, d=d, bs=BS, dtype=torch.bfloat16, device=dev)
         mixed = make_batch(rng, mixed_specs, num_blocks=4096, decode_only=False, **shape)
         decode = make_batch(rng, decode_specs, num_blocks=8192, decode_only=True, **shape)
@@ -1726,6 +1757,31 @@ def check_wide_head_kernels(torch):
         if not torch.equal(got, want):
             raise AssertionError(f"reshape_and_cache {label} D={d} is not bit-exact")
         cache = got
+        if d == W512:
+            # C at the width 512, beside index_copy_ of the rows (K and V
+            # side by side) into the flattened slots, both in CUDA graphs.
+            row_bytes = 2 * hk * d * 2
+            valid = m.slot_mapping >= 0
+            slots = m.slot_mapping[valid].long()
+            fused_rows = torch.stack([mixed["k"], mixed["v"]], 2).reshape(
+                mixed["k"].shape[0], -1)[valid]
+            flat = want.view(-1, want.shape[-1])
+            rows[f"reshape_and_cache@{d}"] = r = dict(
+                max_abs_err=0.0,
+                ms=graph_ms(torch, lambda: kv_write.write_kv_cache_cuda(
+                    cache, mixed["k"], mixed["v"], m.slot_mapping)),
+                plain_ms=cuda_ms(lambda: kv_write.write_kv_cache_plain(
+                    want, mixed["k"], mixed["v"], m.slot_mapping)),
+                library_ms=graph_ms(torch, lambda: flat.index_copy_(0, slots, fused_rows)))
+            del fused_rows, flat
+            r["bound_ms"], r["bound_by"] = bound(
+                2 * n * row_bytes + m.slot_mapping.numel() * 4, 0, "bfloat16")
+            log(f"reshape_and_cache@{d} {label}: bit-exact on {n} rows, {r['ms']:.4f} ms in a "
+                f"graph (plain {r['plain_ms']:.4f}, index_copy_ {r['library_ms']:.4f} ms), "
+                f"bound {r['bound_ms']:.4f} ms")
+        del want
+        ragged_name = pa.ragged_route(mixed["q"], None).name
+        fused_name = pa.fused_route(decode["q"], None).name
 
         def ragged():
             return pa.ragged_paged_attention_cuda(mixed["q"], cache, m, scale=scale, **mods)
@@ -1742,10 +1798,10 @@ def check_wide_head_kernels(torch):
         del out, ref
         bound_ms, by = bound(*attention_work(mixed_specs, window, 2, fused=False, **work),
                              "bfloat16")
-        rows[f"ragged_paged_attention_mma@{d}"] = r = dict(
+        rows[f"{ragged_name}@{d}"] = r = dict(
             max_abs_err=err, ms=cuda_ms(ragged), plain_ms=cuda_ms(ragged_plain, iters=3, warmup=1),
             library_ms=None, bound_ms=bound_ms, bound_by=by)
-        log(f"ragged_paged_attention_mma {label} mixed (D={d}, {mods}): {r['ms']:.4f} ms "
+        log(f"{ragged_name} {label} mixed (D={d}, {mods}): {r['ms']:.4f} ms "
             f"(plain {r['plain_ms']:.4f} ms), bound {bound_ms:.4f} ms by {by}, max |err| "
             f"{err:.3e} (tol {tol}), write bit-exact")
 
@@ -1764,7 +1820,7 @@ def check_wide_head_kernels(torch):
         splits = pa.fused_splits_for(decode["q"], dm, hk, None)
         bound_ms, by = bound(*attention_work(decode_specs, window, 2, fused=True, **work),
                              "bfloat16")
-        rows[f"fused_decode_attention_split@{d}"] = r = dict(
+        rows[f"{fused_name}@{d}"] = r = dict(
             max_abs_err=err,
             ms=cuda_ms(lambda: pa.ragged_paged_attention_fused_cuda(
                 decode["q"], got, decode["k"], decode["v"], dm, scale=scale, **mods)),
@@ -1772,7 +1828,7 @@ def check_wide_head_kernels(torch):
                 decode["q"], got, decode["k"], decode["v"], dm, scale=scale, **mods),
                 iters=3, warmup=1),
             library_ms=None, bound_ms=bound_ms, bound_by=by)
-        log(f"fused_decode_attention_split {label} 64 decode rows (D={d}, {mods}, up to "
+        log(f"{fused_name} {label} 64 decode rows (D={d}, {mods}, up to "
             f"{splits} splits): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms), bound "
             f"{bound_ms:.4f} ms by {by}, max |err| {err:.3e} (tol {tol}), cache bit-exact")
         del got
@@ -1798,10 +1854,11 @@ FP16_WIDE_DIM = 96
 def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs, mods, work):
     """At one wide family's shapes (``WIDE_HEAD_SHAPES``, the batches of
     :func:`check_wide_head_kernels`): D and E, ragged and fused, with bf16
-    queries (the ``*_wide`` tensor-core kernels), with fp16 queries over the
-    at ``FP16_WIDE_DIM``, and with f32 queries (the CUDA-core
-    kernels), over INT8 and e4m3 caches made from the batches' bf16 ones;
-    the 1-byte writes; A and B with f32 queries over an f32 cache. Each
+    queries (the ``*_wide`` or ``*_w512`` tensor-core kernels), with fp16
+    queries at ``FP16_WIDE_DIM`` and 512, and with f32 queries (the
+    CUDA-core kernels), over INT8 and e4m3 caches made from the batches' bf16 ones;
+    the 1-byte writes; A and B with f32 queries over an f32 cache (at the
+    width 512 also with fp16 queries over an fp16 cache). Each
     against its plain version (writes, fused caches and INT8 scales
     bit-exact; attention within ``ATTN_TOL``), then timed with CUDA events
     (the writes in a CUDA graph) beside its bound. Returns rows keyed
@@ -1828,13 +1885,13 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
     def as_dtype(b, dtype):
         return dict(b, q=b["q"].to(dtype), k=b["k"].to(dtype), v=b["v"].to(dtype))
 
-    queries = (("bfloat16", torch.bfloat16, 2, "_mma_wide", "_split_wide"),
-               ("float16", torch.float16, 2, "_mma_wide_f16", "_split_wide_f16"),
-               ("float32", torch.float32, 4, "_wide", "_wide"))
+    queries = (("bfloat16", torch.bfloat16, 2), ("float16", torch.float16, 2),
+               ("float32", torch.float32, 4))
     for kv in KV8_DTYPES:
         kvw = dict(kv_elt=1, slot_extra=4 if kv == "int8" else 0)
-        for dtype_name, dtype, elt, ragged_suffix, fused_suffix in queries:
-            if dtype_name == "float16" and d != FP16_WIDE_DIM:
+        kind = getattr(torch, _KINDS[kv])
+        for dtype_name, dtype, elt in queries:
+            if dtype_name == "float16" and d not in (FP16_WIDE_DIM, W512):
                 continue
             tol = ATTN_TOL[dtype_name]
             b = as_dtype(mixed, dtype)
@@ -1853,7 +1910,7 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
                     n * (row_in + row_out) + m.slot_mapping.numel() * 4, 0, "bfloat16")
                 log(f"reshape_and_cache_{kv}@{d} {label}: bit-exact on {n} rows, {r['ms']:.4f} "
                     f"ms in a graph (plain {r['plain_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms")
-            time_row(f"ragged_paged_attention_{kv}{ragged_suffix}@{d}", err,
+            time_row(f"{pa.ragged_route(b['q'], kind).name}@{d}", err,
                      lambda: pa.ragged_paged_attention_cuda(b["q"], cache, m, scale=scale,
                                                             kv_scales=scales, **mods),
                      lambda: pa.ragged_paged_attention_paged_plain(b["q"], cache, m, scale=scale,
@@ -1863,7 +1920,7 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
             bd = as_dtype(decode, dtype)
             err, dcache, dscales = check_kv8(torch, bd, kv, f"{label} decode", tol, decode=True,
                                              **mods)
-            time_row(f"fused_decode_attention_{kv}{fused_suffix}@{d}", err,
+            time_row(f"{pa.fused_route(bd['q'], kind).name}@{d}", err,
                      lambda: pa.ragged_paged_attention_fused_cuda(
                          bd["q"], dcache, bd["k"], bd["v"], dm, scale=scale, kv_scales=dscales,
                          **mods),
@@ -1873,39 +1930,47 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
                      decode_specs, elt, dtype_name, True, **kvw)
             del dcache, dscales, b, bd
             torch.cuda.empty_cache()
-    # f32 queries over an f32 cache: A and B on the CUDA cores.
-    tol = ATTN_TOL["float32"]
-    b = as_dtype(mixed, torch.float32)
-    cache = mixed["cache"].float()
-    kv_write.write_kv_cache_cuda(cache, b["k"], b["v"], m.slot_mapping)
-    out = pa.ragged_paged_attention_cuda(b["q"], cache, m, scale=scale, **mods)
-    ref = pa.ragged_paged_attention_paged_plain(b["q"], cache, m, scale=scale, **mods)
-    err = (out[:n] - ref[:n]).abs().max().item()
-    if not torch.allclose(out[:n], ref[:n], atol=tol, rtol=tol):
-        raise AssertionError(f"ragged_paged_attention {label} f32 D={d} disagrees: {err:.3e}")
-    del out, ref
-    time_row(f"ragged_paged_attention_wide@{d}", err,
-             lambda: pa.ragged_paged_attention_cuda(b["q"], cache, m, scale=scale, **mods),
-             lambda: pa.ragged_paged_attention_paged_plain(b["q"], cache, m, scale=scale, **mods),
-             mixed_specs, 4, "float32", False)
-    del b, cache
-    bd = as_dtype(decode, torch.float32)
-    got, want = decode["cache"].float(), decode["cache"].float()
-    out = pa.ragged_paged_attention_fused_cuda(bd["q"], got, bd["k"], bd["v"], dm, scale=scale,
-                                               **mods)
-    ref = pa.fused_decode_attention_plain(bd["q"], want, bd["k"], bd["v"], dm, scale=scale,
-                                          **mods)
-    err = (out[:dn] - ref[:dn]).abs().max().item()
-    if not (torch.equal(got, want) and torch.allclose(out[:dn], ref[:dn], atol=tol, rtol=tol)):
-        raise AssertionError(f"fused_decode_attention {label} f32 D={d} disagrees: {err:.3e}, "
-                             f"cache bit-exact {torch.equal(got, want)}")
-    del out, ref, want
-    time_row(f"fused_decode_attention_wide@{d}", err,
-             lambda: pa.ragged_paged_attention_fused_cuda(bd["q"], got, bd["k"], bd["v"], dm,
-                                                          scale=scale, **mods),
-             lambda: pa.fused_decode_attention_plain(bd["q"], got, bd["k"], bd["v"], dm,
-                                                     scale=scale, **mods),
-             decode_specs, 4, "float32", True)
+    # f32 queries over an f32 cache: A and B on the CUDA cores; at the width
+    # 512 also fp16 queries over an fp16 cache (A and B's fp16 instantiations).
+    same = (("float32", torch.float32, 4),) + ((("float16", torch.float16, 2),)
+                                               if d == W512 else ())
+    for dtype_name, dtype, elt in same:
+        tol = ATTN_TOL[dtype_name]
+        b = as_dtype(mixed, dtype)
+        cache = mixed["cache"].to(dtype)
+        kv_write.write_kv_cache_cuda(cache, b["k"], b["v"], m.slot_mapping)
+        out = pa.ragged_paged_attention_cuda(b["q"], cache, m, scale=scale, **mods)
+        ref = pa.ragged_paged_attention_paged_plain(b["q"], cache, m, scale=scale, **mods)
+        err = (out[:n].float() - ref[:n].float()).abs().max().item()
+        if not torch.allclose(out[:n].float(), ref[:n].float(), atol=tol, rtol=tol):
+            raise AssertionError(f"ragged_paged_attention {label} {dtype_name} D={d} "
+                                 f"disagrees: {err:.3e}")
+        del out, ref
+        time_row(f"{pa.ragged_route(b['q'], None).name}@{d}", err,
+                 lambda: pa.ragged_paged_attention_cuda(b["q"], cache, m, scale=scale, **mods),
+                 lambda: pa.ragged_paged_attention_paged_plain(b["q"], cache, m, scale=scale,
+                                                               **mods),
+                 mixed_specs, elt, dtype_name, False)
+        del b, cache
+        bd = as_dtype(decode, dtype)
+        got, want = decode["cache"].to(dtype), decode["cache"].to(dtype)
+        out = pa.ragged_paged_attention_fused_cuda(bd["q"], got, bd["k"], bd["v"], dm,
+                                                   scale=scale, **mods)
+        ref = pa.fused_decode_attention_plain(bd["q"], want, bd["k"], bd["v"], dm, scale=scale,
+                                              **mods)
+        err = (out[:dn].float() - ref[:dn].float()).abs().max().item()
+        if not (torch.equal(got, want) and torch.allclose(out[:dn].float(), ref[:dn].float(),
+                                                          atol=tol, rtol=tol)):
+            raise AssertionError(f"fused_decode_attention {label} {dtype_name} D={d} "
+                                 f"disagrees: {err:.3e}, cache bit-exact "
+                                 f"{torch.equal(got, want)}")
+        del out, ref, want
+        time_row(f"{pa.fused_route(bd['q'], None).name}@{d}", err,
+                 lambda: pa.ragged_paged_attention_fused_cuda(bd["q"], got, bd["k"], bd["v"],
+                                                              dm, scale=scale, **mods),
+                 lambda: pa.fused_decode_attention_plain(bd["q"], got, bd["k"], bd["v"], dm,
+                                                         scale=scale, **mods),
+                 decode_specs, elt, dtype_name, True)
     del bd, got
     torch.cuda.empty_cache()
     return rows
@@ -2002,10 +2067,7 @@ def check_gqa_block_kernels(torch):
     tol, scale = ATTN_TOL["bfloat16"], 128 ** -0.5
     for bs in (16, 64):
         rng = np.random.default_rng(2)  # the same sequences at both block sizes
-        mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
-            (1, int(k)) for k in rng.integers(16, 2048, size=29)
-        ]
-        decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+        mixed_specs, decode_specs = kernel_line_specs(rng)
         shape = dict(LLAMA_3B_HEADS, bs=bs, dtype=torch.bfloat16, device=dev)
         mixed = make_batch(rng, mixed_specs, num_blocks=65536 // bs, decode_only=False, **shape)
         decode = make_batch(rng, decode_specs, num_blocks=131072 // bs, decode_only=True,
@@ -2193,9 +2255,7 @@ def check_group_kernels(torch):
     dev = torch.device("cuda")
     rng = np.random.default_rng(19)
     gen = torch.Generator(device=dev).manual_seed(19)
-    mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
-        (1, int(k)) for k in rng.integers(16, 2048, size=29)]
-    decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    mixed_specs, decode_specs = kernel_line_specs(rng)
     tol, scale, rows = ATTN_TOL["bfloat16"], 128 ** -0.5, {}
     for label, (hq, hk, hk_total, kvs) in GROUP_ATTENTION_SHAPES.items():
         shape = dict(hq=hq, hk=hk, d=128, bs=BS, dtype=torch.bfloat16, device=dev)
@@ -2410,13 +2470,30 @@ HEAD_DIM_VARIANT_GROUPS = (1, 4, 12, 20)
 # ragged kernel cuts into two slices a token, at these head dims.
 LARGE_GROUPS = (144, 256)
 LARGE_GROUP_DIMS = (32, 80, 128)
+# Odd head dims on every width (3, 9 at 32; 63 at 64; 127 at 128; 255 at
+# 256; 257 and 511 at 512) and 320, 384, 512 at the width 512, over one and
+# both halves of the fused kernel's tile; past 16 q heads per kv head (the
+# write and the ragged kernel; at 512 two 16-row slices a token) at three.
+W512_VARIANT_DIMS = (3, 9, 63, 127, 255, 257, 320, 384, 511, 512)
+W512_VARIANT_GROUPS = (4, 12)
+W512_PAST_16_DIMS = (63, 320, 512)
+# The shapes that also run with a window, a soft cap and ALiBi.
+MODIFIER_SHAPES = ((80, 4), (100, 12), (120, 20), (63, 4), (512, 12))
 _KINDS = {None: None, "int8": "int8", "fp8": "float8_e4m3fn"}
+
+
+def expected_slices(pa, d, group, warps):
+    """The slices a tensor-core ragged plan cuts a token's group into: at
+    the width 512 past one 16-row tile, else past the plan's warps' rows."""
+    return pa.rpa_group_slices(group, 1 if pa.instance_dim(d) == pa.W512 else warps)
 
 
 def check_head_dim_variants(torch):
     """A, B, D, E and the merge at head dims that run at a padded width
-    (``HEAD_DIM_VARIANT_DIMS`` × ``HEAD_DIM_VARIANT_GROUPS``, two kv heads)
-    and at groups past 128 (``LARGE_GROUPS`` × ``LARGE_GROUP_DIMS``, one kv
+    (``HEAD_DIM_VARIANT_DIMS`` × ``HEAD_DIM_VARIANT_GROUPS``, two kv heads;
+    the odd ones and those of the width 512, ``W512_VARIANT_DIMS`` ×
+    ``W512_VARIANT_GROUPS`` and G = 20 at ``W512_PAST_16_DIMS``) and at
+    groups past 128 (``LARGE_GROUPS`` × ``LARGE_GROUP_DIMS``, one kv
     head) against their plain versions: bf16, fp16 and f32 queries over a
     cache of their dtype, an INT8 one and an e4m3 one, on a mixed batch (the
     write, then the ragged kernel) and a decode batch with a 1,600-key row
@@ -2434,7 +2511,11 @@ def check_head_dim_variants(torch):
     dev = torch.device("cuda")
     rng = np.random.default_rng(22)
     shapes = [(d, g, 2) for d in HEAD_DIM_VARIANT_DIMS for g in HEAD_DIM_VARIANT_GROUPS]
+    shapes += [(d, g, 2) for d in W512_VARIANT_DIMS for g in W512_VARIANT_GROUPS]
+    shapes += [(d, 20, 2) for d in W512_PAST_16_DIMS]
     shapes += [(d, g, 1) for d in LARGE_GROUP_DIMS for g in LARGE_GROUPS]
+    # Ragged calls (a mixed and a decode batch a shape) planned in slices.
+    want_sliced = 2 * sum(expected_slices(pa, d, g, 8) > 1 for d, g, _ in shapes)
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float16", torch.float16),
                               ("float32", torch.float32)):
         tol = ATTN_TOL[dtype_name]
@@ -2448,7 +2529,7 @@ def check_head_dim_variants(torch):
                              num_blocks=variant_blocks(VARIANT_MIXED + VARIANT_DECODE, BS))
                 label = f"{dtype_name} {kv or dtype_name} cache D={d} G={group}"
                 mods = [{}]
-                if (d, group) in ((80, 4), (100, 12), (120, 20)):
+                if (d, group) in MODIFIER_SHAPES:
                     mods += [dict(sliding_window=40), dict(soft_cap=50.0),
                              dict(alibi_slopes=alibi_slopes(hq, device=dev))]
                 for decode, specs in ((False, VARIANT_MIXED), (True, VARIANT_DECODE)):
@@ -2476,23 +2557,25 @@ def check_head_dim_variants(torch):
                         fused_splits.add(dict(b, cache=cache))
                     else:
                         plan = pa.rpa_plan_for(b["q"], b["meta"], hk, kind)
-                        if plan.slices != pa.rpa_group_slices(group, plan.warps) or (
+                        if plan.slices != expected_slices(pa, d, group, plan.warps) or (
                                 group > 128 and plan.slices != 2):
                             raise AssertionError(f"{label}: plan {plan} for G={group}")
                         sliced += plan.slices > 1
                         if decode:
                             ragged_splits.add(dict(b, cache=cache))
             log(f"head-dim variants {dtype_name} over {kv or dtype_name} caches: {calls} calls "
-                f"(D {HEAD_DIM_VARIANT_DIMS} × G {HEAD_DIM_VARIANT_GROUPS}, and G "
-                f"{LARGE_GROUPS} × D {LARGE_GROUP_DIMS}) agree, writes and fused caches "
-                f"bit-exact, max |err| {worst:.3e} (tol {tol}); the merge launched {merges} "
-                f"times; {sliced} tensor-core ragged calls planned in 2 slices a token")
+                f"(D {HEAD_DIM_VARIANT_DIMS} × G {HEAD_DIM_VARIANT_GROUPS}, D "
+                f"{W512_VARIANT_DIMS} × G {W512_VARIANT_GROUPS}, G 20 at D "
+                f"{W512_PAST_16_DIMS}, and G {LARGE_GROUPS} × D {LARGE_GROUP_DIMS}) agree, "
+                f"writes and fused caches bit-exact, max |err| {worst:.3e} (tol {tol}); the "
+                f"merge launched {merges} times; {sliced} tensor-core ragged calls planned in 2 "
+                "slices a token")
             if dtype != torch.float32:
                 fused_splits.check(f"head-dim variants {dtype_name} over {kv or dtype_name} "
                                    "caches, split fused route")
                 ragged_splits.check(f"head-dim variants {dtype_name} over {kv or dtype_name} "
                                     "caches, decode rows on the ragged route")
-                if not merges or sliced != 2 * len(LARGE_GROUPS) * len(LARGE_GROUP_DIMS):
+                if not merges or sliced != want_sliced:
                     raise AssertionError(f"head-dim variants {dtype_name} over "
                                          f"{kv or dtype_name} caches: {merges} merges, "
                                          f"{sliced} sliced calls")
@@ -2507,6 +2590,9 @@ HEAD_DIM_SHAPES = (
     ("h2o-danube-1.8b", 32, 8, 80, dict(sliding_window=4096), ("int8",)),
     ("OpenLLaMA-3B", 32, 32, 100, {}, ("fp8",)),
     ("h2o-danube3-4b", 32, 8, 120, {}, ()),
+    # An odd head dim: Llama-3.2-1B's widths with ALiBi and heads of 63
+    # (HEAD_DIM_FAMILIES); the width 512's rows are check_wide_head_kernels'.
+    ("Llama-3.2-1B ALiBi D=63", 32, 8, 63, dict(alibi=True), ("int8",)),
 )
 
 
@@ -2524,14 +2610,15 @@ def check_head_dim_kernels(torch):
     import numpy as np
 
     from atoma_infer_tpu_torch.ops import paged_attention as pa
+    from atoma_infer_tpu_torch.ops.attention import alibi_slopes
 
     dev = torch.device("cuda")
     rows, card = {}, card_line()
     for label, hq, hk, d, mods, kvs in HEAD_DIM_SHAPES:
+        if mods.get("alibi"):
+            mods = dict(alibi_slopes=alibi_slopes(hq, device=dev))
         rng = np.random.default_rng(d)
-        mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
-            (1, int(k)) for k in rng.integers(16, 1024, size=29)]
-        decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+        mixed_specs, decode_specs = kernel_line_specs(rng, max_keys=1024)
         shape = dict(hq=hq, hk=hk, d=d, bs=BS, dtype=torch.bfloat16, device=dev)
         mixed = make_batch(rng, mixed_specs, num_blocks=4096, decode_only=False, **shape)
         decode = make_batch(rng, decode_specs, num_blocks=8192, decode_only=True, **shape)
@@ -2609,7 +2696,8 @@ def check_head_dim_kernels(torch):
 
 # What a padded width costs: A and B at head dims below a width beside the
 # width's own head dim, at one shape each (Hq, Hk), bf16 over a bf16 cache.
-PADDING_SHAPES = (((80, 96), 32, 8), ((100, 120, 128), 32, 8), ((160, 192, 256), 16, 8))
+PADDING_SHAPES = (((80, 96), 32, 8), ((100, 120, 128), 32, 8), ((160, 192, 256), 16, 8),
+                  ((63, 64), 32, 8), ((320, 384, 511, 512), 8, 4))
 
 
 def time_padding(torch):
@@ -2626,9 +2714,7 @@ def time_padding(torch):
     for dims, hq, hk in PADDING_SHAPES:
         for d in dims:
             rng = np.random.default_rng(7)
-            mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
-                (1, int(k)) for k in rng.integers(16, 1024, size=29)]
-            decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+            mixed_specs, decode_specs = kernel_line_specs(rng, max_keys=1024)
             shape = dict(hq=hq, hk=hk, d=d, bs=BS, dtype=torch.bfloat16, device=dev)
             mixed = make_batch(rng, mixed_specs, num_blocks=4096, decode_only=False, **shape)
             decode = make_batch(rng, decode_specs, num_blocks=8192, decode_only=True, **shape)
@@ -3692,7 +3778,44 @@ HEAD_DIM_FAMILIES = {
                           high_freq_factor=4.0, original_max_position_embeddings=8192),
         rms_norm_eps=1e-5, tie_word_embeddings=False, bos_token_id=128000,
         eos_token_id=128001), 4, (None,)),
+    # No published checkpoint of the registry's families has a head dim
+    # past 256 or an odd one; JAX serves both (its Pallas kernel caps no
+    # head dim; odd ones take its XLA path, with ALiBi, since RoPE halves
+    # the head dim). These take published widths with such heads:
+    # Gemma-2-9B with 8 q heads over 4 kv heads of 512 (q, k and v
+    # projections of the published 4,096, 2,048 and 2,048 columns; its soft
+    # caps, query_pre_attn_scalar and 4,096-key window on alternate layers)
+    # over a bf16 and an INT8 cache; Llama-3.1-8B with 8 q heads over 2 kv
+    # heads of 512 (4,096, 1,024 and 1,024 columns) over an e4m3 cache;
+    # Llama-3.2-1B with ALiBi in place of RoPE (models/llama.py use_alibi)
+    # and 32 q heads over 8 kv heads of 63 over a bf16 and an INT8 cache.
+    "Gemma-2-9B D=512": (dict(
+        model_type="gemma2", vocab_size=256000, hidden_size=3584, intermediate_size=14336,
+        num_hidden_layers=42, num_attention_heads=8, num_key_value_heads=4, head_dim=512,
+        max_position_embeddings=8192, rope_theta=10000.0, rms_norm_eps=1e-6,
+        query_pre_attn_scalar=256, sliding_window=4096, attn_logit_softcapping=50.0,
+        final_logit_softcapping=30.0, hidden_activation="gelu_pytorch_tanh",
+        tie_word_embeddings=True, bos_token_id=2, eos_token_id=1), 4, (None, "int8")),
+    "Llama-3.1-8B D=512": (dict(
+        model_type="llama", vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=8, num_key_value_heads=2, head_dim=512,
+        max_position_embeddings=131072, rope_theta=500000.0,
+        rope_scaling=dict(rope_type="llama3", factor=8.0, low_freq_factor=1.0,
+                          high_freq_factor=4.0, original_max_position_embeddings=8192),
+        rms_norm_eps=1e-5, tie_word_embeddings=False, bos_token_id=128000,
+        eos_token_id=128001), 4, ("fp8",)),
+    "Llama-3.2-1B ALiBi D=63": (dict(
+        model_type="llama", vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+        num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8, head_dim=63,
+        max_position_embeddings=131072, rope_theta=500000.0, alibi=True, rms_norm_eps=1e-5,
+        tie_word_embeddings=True, bos_token_id=128000, eos_token_id=128001), 4,
+        (None, "int8")),
 }
+# The head-dim families' weight seeds, in the order they joined: a family's
+# weights stay the same when another is added.
+HEAD_DIM_SEED_ORDER = ("Llama-3.1-70B G=256", "OpenLLaMA-3B", "h2o-danube-1.8b",
+                       "h2o-danube3-4b", "Gemma-2-9B D=512", "Llama-3.1-8B D=512",
+                       "Llama-3.2-1B ALiBi D=63")
 # The family models' logits with the attention kernels against the same
 # bf16 model with the plain attention on the card: max |Δ| over the logits'
 # largest magnitude. The two round each attention output to bf16 from f32
@@ -3717,7 +3840,7 @@ def family_model(torch, name, num_layers, dtype=None):
         spec, seed = GROUP_FAMILIES[name][0], len(FAMILIES) + sorted(GROUP_FAMILIES).index(name)
     else:
         spec = HEAD_DIM_FAMILIES[name][0]
-        seed = len(FAMILIES) + len(GROUP_FAMILIES) + sorted(HEAD_DIM_FAMILIES).index(name)
+        seed = len(FAMILIES) + len(GROUP_FAMILIES) + HEAD_DIM_SEED_ORDER.index(name)
     cfg = config_from_hf_dict(dict(spec, num_hidden_layers=num_layers))
     model = get_model_cls(cfg.architecture)(cfg, dtype=dtype or torch.bfloat16, device="cuda")
     return model, model.init_params(torch.Generator(device=model.device).manual_seed(seed))
@@ -3967,18 +4090,19 @@ def kv8_path(kv, *, mma=True):
 
 # The ragged kernels by route: bf16 queries must never launch the CUDA-core
 # kernels, nor f32 queries the tensor-core ones.
-# (The wide head dims' instantiations of each have names of their own.)
+# (The wide head dims' and the width 512's instantiations of each have
+# names of their own.)
 _KV_SUFFIXES = ("", "_int8", "_fp8")
 CUDA_CORE_RAGGED = tuple(f"ragged_paged_attention{s}{w}" for s in _KV_SUFFIXES
-                         for w in ("", "_wide"))
+                         for w in ("", "_wide", "_w512"))
 TENSOR_CORE_RAGGED = tuple(f"ragged_paged_attention{s}_mma{w}" for s in _KV_SUFFIXES
-                           for w in ("", "_wide") if s or not w)
+                           for w in ("", "_wide", "_w512") if s or w != "_wide")
 # Likewise the fused decode kernels: bf16 queries the split kernel, f32
 # queries the unsplit one.
 UNSPLIT_FUSED = tuple(f"fused_decode_attention{s}{w}" for s in _KV_SUFFIXES
-                      for w in ("", "_wide"))
+                      for w in ("", "_wide", "_w512"))
 SPLIT_FUSED = tuple(f"fused_decode_attention{s}_split{w}" for s in _KV_SUFFIXES
-                    for w in ("", "_wide") if s or not w)
+                    for w in ("", "_wide", "_w512") if s or w != "_wide")
 
 
 def check_route(label, launches, *, bf16):
@@ -4098,18 +4222,24 @@ WIDE_F32_MODELS = {
               query_pre_attn_scalar=256, sliding_window=16, attn_logit_softcapping=50.0,
               final_logit_softcapping=30.0, hidden_activation="gelu_pytorch_tanh",
               tie_word_embeddings=True, bos_token_id=2, eos_token_id=1),
+    512: dict(model_type="gemma2", vocab_size=512, hidden_size=64, intermediate_size=128,
+              num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1, head_dim=512,
+              max_position_embeddings=512, rope_theta=10000.0, rms_norm_eps=1e-6,
+              query_pre_attn_scalar=256, sliding_window=16, attn_logit_softcapping=50.0,
+              final_logit_softcapping=30.0, hidden_activation="gelu_pytorch_tanh",
+              tie_word_embeddings=True, bos_token_id=2, eos_token_id=1),
 }
 
 
 def check_wide_f32_service_parity(torch):
-    """The f32 test-size services at head dims 96 and 256
+    """The f32 test-size services at head dims 96, 256 and 512
     (``WIDE_F32_MODELS``, weights drawn once on the CPU) over an f32, an
     INT8 and an e4m3 cache, on the card (the CUDA-core ragged and unsplit
     fused kernels) against the CPU (plain versions): greedy tokens
     identical, every block back, and on the card every attention launch on
     the f32 route. Returns the CUDA-core kernels' launches (their ``*_wide``
-    instantiations) keyed ``kernel@D``, each from its own card run (counts
-    set to 0 just before it)."""
+    and ``*_w512`` instantiations) keyed ``kernel@D``, each from its own
+    card run (counts set to 0 just before it)."""
     from atoma_infer_tpu_torch.config import (
         CacheConfig, EngineConfig, ModelConfig, SchedulerConfig, ValidationConfig,
     )
@@ -4118,19 +4248,23 @@ def check_wide_f32_service_parity(torch):
     from atoma_infer_tpu_torch.models.registry import get_model_cls
     from atoma_infer_tpu_torch.models.weights import config_from_hf_dict
     from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
     from atoma_infer_tpu_torch.types import GenerateParameters, GenerateRequest
 
     prompts = [f"wide prompt {i}, " * (1 + 3 * (i % 3)) for i in range(6)]
     blocks = 64
     launches = {}
     for d, spec in WIDE_F32_MODELS.items():
+        q32 = torch.empty((1, 1, d))
         cfg = config_from_hf_dict(spec)
         cls = get_model_cls(cfg.architecture)
         cpu_model = cls(cfg, dtype=torch.float32, device="cpu")
         cpu_params = cpu_model.init_params(torch.Generator().manual_seed(d))
         gpu_model = cls(cfg, dtype=torch.float32, device="cuda")
         gpu_params = params_to(cpu_params, gpu_model.device)
-        for kv, suffix in ((None, ""), ("int8", "_int8"), ("fp8", "_fp8")):
+        for kv in (None, "int8", "fp8"):
+            kind = _KINDS[kv] and getattr(torch, _KINDS[kv])
+            names = (pa.ragged_route(q32, kind).name, pa.fused_route(q32, kind).name)
             runs = {}
             for device, model, params in (("cpu", cpu_model, cpu_params),
                                           ("cuda", gpu_model, gpu_params)):
@@ -4170,8 +4304,7 @@ def check_wide_f32_service_parity(torch):
                 if device == "cuda":
                     counts = {k: c.launches for k, c in cuda_lib.KERNELS.items()}
                     check_route(label, counts, bf16=False)
-                    for k in (f"ragged_paged_attention{suffix}_wide",
-                              f"fused_decode_attention{suffix}_wide"):
+                    for k in names:
                         if not counts[k]:
                             raise AssertionError(f"{label}: {k} was not launched")
                         launches[f"{k}@{d}"] = counts[k]
@@ -4180,9 +4313,9 @@ def check_wide_f32_service_parity(torch):
                                      "differ between card and CPU")
             log(f"f32 D={d} ({spec['model_type']}) {kv or 'f32'} KV service parity: "
                 f"{len(prompts)} requests, {sum(map(len, runs['cuda']))} greedy tokens identical "
-                f"on the card and the CPU; CUDA-core ragged kernel launched "
-                f"{launches[f'ragged_paged_attention{suffix}_wide@{d}']} times, unsplit fused "
-                f"{launches[f'fused_decode_attention{suffix}_wide@{d}']}")
+                f"on the card and the CPU; CUDA-core ragged kernel {names[0]} launched "
+                f"{launches[f'{names[0]}@{d}']} times, unsplit fused {names[1]} "
+                f"{launches[f'{names[1]}@{d}']}")
         del cpu_model, cpu_params, gpu_model, gpu_params
         gc.collect()
         torch.cuda.empty_cache()
@@ -4218,6 +4351,9 @@ NEW_TOKENS, OTHER_SERVICES_TOKENS = 256, 128
 # INT8 and e4m3 KV): a quarter of Llama-3.1-8B's 32 layers, as the families
 # run at 4 of theirs, so that the smoke stays inside its time limit.
 QUANT_HALF_LAYERS = 8
+# The depth of the 8B INT8 service (async with graphs after warmup) and its
+# INT8 KV spec service: half of the 32 layers, for the same limit.
+QUANT_MAIN_LAYERS = 16
 
 
 # The bytes of the services' 8 prompts (one token a byte).
@@ -5642,6 +5778,9 @@ def run_head_dim_services(torch):
             key, got = f"hd {name}", runs["graphs"][2]["launches"]
             for kernel in path + ("paged_attention_split_combine",):
                 launches[f"{kernel}@{key}"] = got[kernel]
+                if d > 256:  # the width 512's rows (check_wide_head_kernels)
+                    launches[f"{kernel}@{W512}"] = launches.get(f"{kernel}@{W512}", 0) + got[
+                        kernel]
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5649,8 +5788,9 @@ def run_head_dim_services(torch):
 
 
 def run_quant_services(torch):
-    """Llama-3.1-8B at full width and depth (32 layers) with INT8 weights,
-    then with INT8 weights over an INT8 KV cache and drafts; then at
+    """Llama-3.1-8B at full width and ``QUANT_MAIN_LAYERS`` of its 32
+    layers with INT8 weights, then with INT8 weights over an INT8 KV cache
+    and drafts; then at
     ``QUANT_HALF_LAYERS`` of its layers with INT4 weights, with INT8
     weights under W8A8, and with INT8 weights over an INT8 and an e4m3 KV
     cache: random bf16 weights from a seeded generator, quantized on the
@@ -5660,7 +5800,7 @@ def run_quant_services(torch):
     from atoma_infer_tpu_torch.ops import quant_kernels
 
     t0 = time.monotonic()
-    model, params = llama_8b_layers(torch, torch.bfloat16, 32)
+    model, params = llama_8b_layers(torch, torch.bfloat16, QUANT_MAIN_LAYERS)
     torch.cuda.synchronize()
     log(f"8B weights: drawn and quantized on the card in {time.monotonic() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
@@ -5692,8 +5832,8 @@ def run_quant_services(torch):
         torch.cuda.empty_cache()
 
     # Eager, then with graphs (whose launches count): async after warmup.
-    serve_quantized("8B INT8", "int8", False, "quantized_matmul_int8_mma", "async+graphs",
-                    NEW_TOKENS)
+    serve_quantized(f"8B INT8 ({QUANT_MAIN_LAYERS} of 32 layers)", "int8", False,
+                    "quantized_matmul_int8_mma", "async+graphs", NEW_TOKENS)
     launches.update(run_spec_service_8b(torch, model, params["int8"]))
     del model, params
     gc.collect()
@@ -6309,9 +6449,7 @@ def check_tp_kernels(torch):
     dev = torch.device("cuda")
     rng = np.random.default_rng(23)
     gen = torch.Generator(device=dev).manual_seed(23)
-    mixed_specs = [(300, 300), (128, 700), (57, 57)] + [
-        (1, int(k)) for k in rng.integers(16, 2048, size=29)]
-    decode_specs = [(1, int(k)) for k in rng.integers(16, 2048, size=64)]
+    mixed_specs, decode_specs = kernel_line_specs(rng)
     tol, rows = ATTN_TOL["bfloat16"], {}
     for label, (hq, hk, hk_total) in TP_ATTENTION_SHAPES.items():
         shape = dict(hq=hq, hk=hk, d=128, bs=16, dtype=torch.bfloat16, device=dev)
@@ -6748,9 +6886,9 @@ def report_tp(label, service, figures, collectives):
 # collectives through host memory, 190–320 ms a step on an H100).
 TP_TOKENS = 64
 # Layers of the 8B INT8 + INT8 KV service at tp = 2, of Llama-3.1-8B's 32:
-# half, to keep the smoke's wall inside its limit on a slow host (each
+# a quarter, to keep the smoke's wall inside its limit on a slow host (each
 # layer is 3 host round trips a step on one card).
-TP_LAYERS = 16
+TP_LAYERS = 8
 # Layers of the item-14 runs (E over an e4m3 cache, H under W8A8) at tp = 2,
 # of Llama-3.1-8B's 32; the widths are the model's.
 TP_KERNEL_LAYERS = 8
@@ -7101,8 +7239,8 @@ def run_tp_services(torch):
 PP_STAGES = 2
 PP_LABEL = "two stages on one card: not a PP speed"
 # Layers of the 8B INT8 + INT8 KV service at pp = 2, of Llama-3.1-8B's 32
-# (8 a stage): half, to keep the smoke's wall inside its limit.
-PP_LAYERS = 16
+# (4 a stage): a quarter, to keep the smoke's wall inside its limit.
+PP_LAYERS = 8
 # The kernels of the 8B INT8 + INT8 KV service at pp = 2: C's INT8 write,
 # D ragged (prefill), D split fused (decode), the merge, F.
 PP_PATH = ("reshape_and_cache_int8", "ragged_paged_attention_int8_mma",
@@ -7541,9 +7679,10 @@ def run_fp16_services(torch):
     weights over an INT8 KV cache, eager then with graphs; then, eager, the
     same with INT4 weights over an e4m3 cache and with INT8 weights under
     W8A8 (G, E and H on fp16), and Phi-3-mini at ``FP16_8B_LAYERS`` layers
-    over an INT8 and an e4m3 cache (D and E's wide fp16 kernels). Tokens
-    identical eager and with graphs, every launch an fp16 kernel's. Returns
-    each fp16 kernel's launches from its path's run (the wide ones keyed
+    over an INT8 and an e4m3 cache (D and E's wide fp16 kernels); then the
+    width 512's fp16 kernels (:func:`serve_fp16_w512`). Tokens identical
+    eager and with graphs, every launch an fp16 kernel's. Returns each fp16
+    kernel's launches from its path's run (the wide ones keyed
     ``kernel@D``)."""
     from atoma_infer_tpu_torch.ops import quant_kernels
 
@@ -7607,6 +7746,44 @@ def run_fp16_services(torch):
                           path, new_tokens=FP16_TOKENS, prompt_lengths=PHI3_PROMPT_LENGTHS)
         check_fp16_route(label, counts)
         launches.update({f"{k}@{FP16_WIDE_DIM}": counts[k] for k in path[1:3]})
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(serve_fp16_w512(torch))
+    return launches
+
+
+def serve_fp16_w512(torch):
+    """The fp16 instantiations at the width 512, eager then with graphs:
+    the test-size Gemma-2 at head dim 512 (``WIDE_F32_MODELS``, 2 q heads
+    over one kv head, a 16-key window on alternate layers, soft caps) in
+    fp16 over an fp16, an INT8 and an e4m3 cache, tokens identical, every
+    launch an fp16 kernel's. Returns the ragged and fused kernels' launches
+    with graphs, keyed ``kernel@512``."""
+    from atoma_infer_tpu_torch.models.registry import get_model_cls
+    from atoma_infer_tpu_torch.models.weights import config_from_hf_dict
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
+
+    # The traffic's widest keys take token ids up to 1,002 (widest_metas).
+    cfg = config_from_hf_dict(dict(WIDE_F32_MODELS[W512], vocab_size=2048,
+                                   max_position_embeddings=2048))
+    model = get_model_cls(cfg.architecture)(cfg, dtype=torch.float16, device="cuda")
+    params = model.init_params(torch.Generator(device=model.device).manual_seed(W512))
+    q16 = torch.empty((1, 1, W512), dtype=torch.float16)
+    launches = {}
+    for kv in (None,) + KV8_DTYPES:
+        kind = _KINDS[kv] and getattr(torch, _KINDS[kv])
+        path = (pa.ragged_route(q16, kind).name, pa.fused_route(q16, kind).name)
+        label = f"test-size Gemma-2 D=512 fp16 + {kv or 'fp16'} KV"
+        counts = serve_both(
+            torch, label, model, params,
+            lambda a, kv=kv: bf16_config("tiny-gemma2-d512", BS, async_scheduling=a,
+                                         dtype="float16", kv_cache_dtype=kv),
+            path, "graphs", FP16_TOKENS)
+        check_fp16_route(label, counts)
+        launches.update({f"{k}@{W512}": counts[k] for k in path})
         gc.collect()
         torch.cuda.empty_cache()
     del model, params
@@ -8222,7 +8399,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # The head-dim rows' launches: the services at h2o-danube-1.8b's,
     # OpenLLaMA-3B's and h2o-danube3-4b's head dims with graphs (the merge
-    # where their plans split), and the G = 256 service.
+    # where their plans split), the G = 256 service, the ALiBi service at
+    # head dim 63, and the width 512's (Gemma-2-9B's and Llama-3.1-8B's
+    # widths), whose launches are its wide rows'.
     launches.update(phase(run_head_dim_services))
     for key in head_dim_rows:
         if not launches.get(key) and not key.startswith("paged_attention_split_combine"):
@@ -8265,9 +8444,11 @@ def main() -> int:
 
     line = []
     # Every kernel at its main path's shapes; then A, B, C, D, E and the
-    # merge at Phi-3-mini's and Gemma-2-9B's head dims, their launches from
-    # those families' services (the f32 kernels' from the f32 test-size
-    # services); the 1-byte caches' wide kernels have only these rows.
+    # merge at Phi-3-mini's and Gemma-2-9B's head dims, and at Gemma-2-9B's
+    # widths with head dim 512, their launches from those families' services
+    # (the f32 kernels' from the f32 test-size services, the fp16 ones at
+    # 512 from the test-size fp16 service); the 1-byte caches' wide kernels
+    # and every width-512 kernel have only these rows.
     named = [(name, name, rows[name]) for name in cuda_lib.KERNELS if name in rows]
     named += [(key, f"{key.split('@')[0]} (D={key.split('@')[1]})", r)
               for key, r in wide_rows.items()]

@@ -130,8 +130,8 @@ def test_route(kind):
     assert pa.fused_route(q16, kind) is pa.FUSED_DECODE_SPLIT[kind]
     assert pa.fused_route(q32, kind) is pa.FUSED_DECODE[kind]
     assert pa.FUSED_DECODE_SPLIT[kind].name == pa.FUSED_DECODE[kind].name + "_split"
-    suffix = pa.FUSED_DECODE[kind].source[len("paged_attention"):]
-    assert pa.FUSED_DECODE_SPLIT[kind].source == "fused_decode_split" + suffix
+    suffix = pa.FUSED_DECODE[kind].source[len("paged_attention"):-len("_fused.cu")]
+    assert pa.FUSED_DECODE_SPLIT[kind].source == f"fused_decode_split{suffix}.cu"
 
 
 # ------------------------------------------------------ the kernel, in a model

@@ -1,16 +1,20 @@
 """Attention at every head dim and GQA group the JAX package serves, on the
-CPU: head dims that run at a padded width, and groups past 128 q heads per
-kv head.
+CPU: head dims that run at a padded width, odd ones, those past 256, and
+groups past 128 q heads per kv head.
 
 The port's attention kernels (A, B, D, E and the merge of split rows) are
-instantiated at the widths 32, 64, 96, 128 and 256 and run any even head dim
-from 8 to 256 on the smallest width that holds it, the head dim passed at
+instantiated at the widths 32, 64, 96, 128, 256 and 512 and run any head dim
+from 1 to 512 on the smallest width that holds it, the head dim passed at
 run time (``instance_dim``): Q, K and V are staged with their columns past
 the head dim zero-filled, the output columns there are never stored, and a
 head's K and V rows are copied in the widest pieces its bytes allow
-(16, 8, 4 or 2 bytes: ``copy_width``). The tensor-core ragged kernel cuts a
-token's group past 128 q heads per kv head into slices of at most 128 rows,
-a block each. The kernels run only on the card; what is checked here:
+(16, 8, 4, 2 or 1 bytes: ``copy_width``; an odd head dim's Q and output a
+half of a pair at a time). The tensor-core ragged kernel cuts a token's
+group past 128 q heads per kv head into slices of at most 128 rows, a block
+each; at the width 512 one kernel serves A, D, E and the fused B, D, E, a
+16-row tile a block whose 4 warps split O's columns (its numpy model:
+``test_torch_rpa_mma.py``), a group past 16 cut into slices of 16 rows. The
+kernels run only on the card; what is checked here:
 
 - the plain versions (what the kernels are held against on the card)
   against the JAX package's XLA branch (``ops/reference.py``, through its
@@ -18,10 +22,12 @@ a block each. The kernels run only on the card; what is checked here:
   its Pallas kernels in interpret mode where JAX's gates admit the shape:
   A, D and E on mixed batches, B and the fused D and E on decode batches
   (written caches and INT8 scales byte for byte), and the merge of split
-  rows, at head dims 8, 40, 80, 100, 112, 120, 160, 192 and 248, over a
-  cache of the queries' dtype, an INT8 one and an e4m3 one, groups 1, 4 and
-  8, with a sliding window and a soft cap; at groups 144 and 256 the ragged
-  plain version, with the plan's slices and grid;
+  rows, at head dims 8, 40, 80, 100, 112, 120, 160, 192 and 248, and at 1,
+  7, 63, 257, 320, 511 and 512 (odd ones and the width 512), over a cache of
+  the queries' dtype, an INT8 one and an e4m3 one, groups 1, 4 and 8, with a
+  sliding window and a soft cap (at 512 and 384 against the Pallas kernels
+  too); at groups 144 and 256 the ragged plain version, with the plan's
+  slices and grid;
 - numpy models of the kernels' padded staging: the ragged kernel's and the
   split fused kernel's copies (every byte of a head's K and V rows copied
   once, in aligned pieces that never cross the head's end, the columns past
@@ -30,14 +36,15 @@ a block each. The kernels run only on the card; what is checked here:
   and merge; the split fused kernel's splits and merge) against the plain
   version at the head dim; the CUDA-core ragged kernel's thread map
   (``test_torch_shapes.py``) at the new head dims too;
-- tiny services at head dims 80 (Mistral with a window), 100 and 120, and
-  at 144 q heads per kv head, through the port's and JAX's ``LlmService``:
+- tiny services at head dims 80 (Mistral with a window), 100, 120 and 63
+  (a Llama with ALiBi in place of RoPE), at 144 q heads per kv head, and a
+  Gemma-2 at head dim 512, through the port's and JAX's ``LlmService``:
   greedy tokens identical, sync and async, in f32, and at tp 2;
-- the shape check: every even head dim from 8 to 256 admitted on every
-  route and dtype, any group; odd head dims and head dims past 256 refused,
-  naming ROADMAP.md's item, by the wrappers and by ``LlmService.start``
-  before anything is loaded; the split workspace's reserve at head dim 100
-  covers what the kernels write.
+- the shape check: every head dim from 1 to 512 admitted on every route
+  and dtype, any group; head dims past 512 refused, naming ROADMAP.md's
+  item, by the wrappers and by ``LlmService.start`` before anything is
+  loaded; the split workspace's reserve at head dims 100 and 512 covers
+  what the kernels write.
 
 Tolerances (those of ``test_torch_fused_group.py`` and
 ``test_torch_shapes.py``):
@@ -84,6 +91,8 @@ KT = pa.RPA_KEY_TILE
 # ones (h2o-danube-1.8b's 80, OpenLLaMA-3B's 100, h2o-danube3-4b's 120),
 # and the smallest and largest.
 HEAD_DIMS = [8, 40, 80, 100, 112, 120, 160, 192, 248]
+# Odd head dims (on the widths 32, 64 and 512) and the width 512's.
+ODD_AND_W512_DIMS = [1, 7, 63, 257, 320, 511, 512]
 KINDS = ["f32", "bf16", "int8", "fp8"]
 MIXED = [(20, 45), (1, 30), (7, 7), (1, 1), (33, 140), (1, 300)]
 DECODE = [(1, kv) for kv in (1, 40, 64, 65, 300, 700)]
@@ -146,7 +155,8 @@ def _shapes():
     """(D, kind, group): every head dim over every cache kind, the groups
     1, 4 and 8 taken in turn."""
     return [pytest.param(D, kind, (1, 4, 8)[(i + j) % 3], id=f"{D}-{kind}")
-            for i, D in enumerate(HEAD_DIMS) for j, kind in enumerate(KINDS)]
+            for i, D in enumerate(HEAD_DIMS + ODD_AND_W512_DIMS)
+            for j, kind in enumerate(KINDS)]
 
 
 @pytest.mark.parametrize("D, kind, group", _shapes())
@@ -193,7 +203,8 @@ def test_fused_plain_matches_jax(D, kind, group):
 PALLAS_SHAPES = [(80, 4, 2, "f32"), (80, 4, 2, "int8"), (112, 4, 2, "bf16"),
                  (112, 4, 2, "fp8"), (120, 8, 2, "int8"), (120, 8, 2, "f32"),
                  (160, 2, 2, "fp8"), (160, 2, 2, "bf16"), (192, 2, 2, "bf16"),
-                 (192, 2, 2, "fp8")]
+                 (192, 2, 2, "fp8"), (512, 2, 2, "bf16"), (512, 2, 2, "int8"),
+                 (384, 2, 2, "fp8"), (384, 2, 2, "f32")]
 
 
 @pytest.mark.parametrize("D, Hk, group, kind", PALLAS_SHAPES)
@@ -262,9 +273,9 @@ def test_ragged_plain_matches_jax_past_128(group, D, kind):
 
 # ------------------------------------------------- the kernels' staging
 def copy_width(head_bytes):
-    """``copy_width``: the widest of 16, 8, 4, 2 bytes dividing a head's
+    """``copy_width``: the widest of 16, 8, 4, 2, 1 bytes dividing a head's
     bytes."""
-    return next(w for w in (16, 8, 4, 2) if head_bytes % w == 0)
+    return next(w for w in (16, 8, 4, 2, 1) if head_bytes % w == 0)
 
 
 def piece_copies(head_bytes, piece, width):
@@ -304,9 +315,17 @@ def test_staging_copies_each_byte_once_zero_past_the_head(head_dim, elt):
     that are aligned at every kv head and cache row (the cache's base
     16-byte aligned) and never cross the head's end; the ring rows hold the
     head's bytes, then zeros to the width."""
+    w = _check_staging(head_dim, elt)
+    assert w >= 2 * elt if elt < 4 else w >= 8
+
+
+def _check_staging(head_dim, elt):
+    """The staging of a head of ``head_dim`` elements of ``elt`` bytes at
+    its width, checked for 1, 2 and 8 kv heads; returns the copy width."""
     width = pa.instance_dim(head_dim)
     hb, wb = head_dim * elt, width * elt
     rng = np.random.default_rng(head_dim + elt)
+    w = copy_width(hb)
     for hk in (1, 2, 8):
         row = 2 * hk * hb
         for h in range(hk):
@@ -317,12 +336,25 @@ def test_staging_copies_each_byte_once_zero_past_the_head(head_dim, elt):
             assert not K[hb:].any() and not V[hb:].any()
             covered = sorted(b for at, size in reads for b in range(at, at + size))
             assert covered == list(range(2 * hb))
-            w = copy_width(hb)
-            assert w >= 2 * elt if elt < 4 else w >= 8
             for at, size in reads:
                 for slot in (0, 1, 7):
                     assert (slot * row + h * 2 * hb + at) % size == 0
                 assert at // hb == (at + size - 1) // hb  # within K or within V
+    return w
+
+
+@pytest.mark.parametrize("head_dim", ODD_AND_W512_DIMS + [3, 9, 127, 255])
+@pytest.mark.parametrize("elt", [1, 2, 4])
+def test_odd_and_w512_staging_copies_each_byte_once(head_dim, elt):
+    """The same staging at odd head dims and at the width 512: an odd head
+    of a 1-byte cache is copied byte by byte (``cp_async_part``'s and
+    ``load16_padded``'s 1-byte pieces: its K and V start at odd offsets),
+    in 16 bits 2 bytes at a time, in f32 4; the width 512's even heads as
+    wide as their bytes allow (512 and 320: whole 16-byte pieces)."""
+    w = _check_staging(head_dim, elt)
+    assert w == (elt if head_dim % 2 else min(16, copy_width(head_dim * elt)))
+    if head_dim in (320, 512):
+        assert w == 16
 
 
 def v_run_loads(head_dim, elt, gid, c0):
@@ -330,16 +362,16 @@ def v_run_loads(head_dim, elt, gid, c0):
     + VC − 1 of the width's NT = width / 8), read in ``load_run``'s pieces
     up to the run's bytes inside the head, or, where the head's copy width
     is below that piece (the run then starts only that aligned),
-    ``load_run_narrow``'s 4-byte reads (2-byte at a copy width of 2): (dim
-    offset, dims) of each read; dims at or past the head dim are 0 and
-    never read."""
+    ``load_run_padded``'s 4-byte reads (2-byte at a copy width of 2, 1-byte
+    at 1): (dim offset, dims) of each read; dims at or past the head dim are
+    0 and never read."""
     width = pa.instance_dim(head_dim)
     NT = width // 8
     VC = 16 if NT > 16 else NT
     words = VC * elt // 4
     run_piece = 16 if words % 4 == 0 else 8 if words % 2 == 0 else 4
     cw = copy_width(head_dim * elt)
-    w = run_piece if cw >= run_piece else 4 if cw >= 4 else 2
+    w = run_piece if cw >= run_piece else 4 if cw >= 4 else cw
     n = min(VC, max(0, head_dim - NT * gid - c0)) * elt
     return [(NT * gid + c0 + b // elt, w // elt) for b in range(0, VC * elt, w) if b < n], w
 
@@ -351,6 +383,10 @@ def test_v_runs_read_the_head_once_in_aligned_pieces(head_dim, elt):
     runs (gid 0 to 7, VC dims at a time) every dim of the head is read
     once, none past it, each read aligned to its size at every kv head and
     cache row."""
+    _check_v_runs(head_dim, elt)
+
+
+def _check_v_runs(head_dim, elt):
     width = pa.instance_dim(head_dim)
     NT = width // 8
     VC = 16 if NT > 16 else NT
@@ -367,6 +403,16 @@ def test_v_runs_read_the_head_once_in_aligned_pieces(head_dim, elt):
                         assert start % w == 0 and (start + row) % w == 0
                         dims += range(d, d + count)
             assert sorted(dims) == list(range(head_dim))
+
+
+@pytest.mark.parametrize("head_dim", [1, 3, 7, 9, 63, 127, 255])
+@pytest.mark.parametrize("elt", [1, 2])
+def test_v_runs_at_odd_head_dims(head_dim, elt):
+    """The split fused kernel's V runs at odd head dims (widths 32 to 256):
+    a 1-byte cache's runs read byte by byte, a 16-bit cache's 2 bytes at a
+    time, each dim of the head once and none past it."""
+    _check_v_runs(head_dim, elt)
+    assert v_run_loads(head_dim, elt, 0, 0)[1] == elt
 
 
 def stage_case(case, head_dim, width):
@@ -389,13 +435,15 @@ def stage_case(case, head_dim, width):
     return out
 
 
-def model_ragged(case, plan, head_dim, *, window=None):
+def model_ragged(case, plan, head_dim, *, window=None, key_tile=KT):
     """The tensor-core ragged kernel's arithmetic on a case staged at its
     width: query tiles of ``plan.tokens`` tokens laid end to end, a token's
     group cut into ``plan.slices`` slices of near-equal size (one block per
     tile, kv head and slice), 64-key tiles in KV splits merged by
-    log-sum-exp, P in bf16 after the V scale; scale head_dim^-0.5 and only
-    the head's dims stored. Returns [T, Hq, head_dim] rounded to bf16."""
+    log-sum-exp, each attended ``key_tile`` keys at a time (the width 512's
+    ring stages: 32), P in bf16 after the V scale; scale head_dim^-0.5 and
+    only the head's dims stored. Returns [T, Hq, head_dim] rounded to
+    bf16."""
     import test_torch_rpa_mma as rm
 
     q = np.asarray(case["q"], np.float32)
@@ -431,8 +479,8 @@ def model_ragged(case, plan, head_dim, *, window=None):
                     m = np.full(len(r), -np.inf, np.float32)
                     l = np.zeros(len(r), np.float32)
                     o = np.zeros((len(r), W), np.float32)
-                    for t in range(tb, te):
-                        keys = t * KT + np.arange(KT)
+                    for t in range(tb * KT // key_tile, te * KT // key_tile):
+                        keys = t * key_tile + np.arange(key_tile)
                         ok = (keys >= key_lo) & (keys <= last)
                         slots = np.where(ok, bt[s, np.minimum(keys // bs, bt.shape[1] - 1)] * bs
                                          + keys % bs, 0)
@@ -462,16 +510,20 @@ def model_ragged(case, plan, head_dim, *, window=None):
 
 @pytest.mark.parametrize("head_dim, kind, group", [
     (80, "bf16", 4), (100, "int8", 1), (120, "fp8", 8), (40, "bf16", 2), (192, "int8", 3),
-    (50, "fp8", 4), (112, "bf16", 144), (32, "int8", 256),
+    (50, "fp8", 4), (112, "bf16", 144), (32, "int8", 256), (63, "bf16", 4), (7, "int8", 2),
+    (320, "bf16", 4), (512, "int8", 2), (511, "fp8", 20), (257, "bf16", 1),
 ])
 def test_ragged_model_at_the_width_matches_plain(head_dim, kind, group):
     """The tensor-core ragged kernel's model on the case staged at its
-    width, with the plan's tiles, slices (two past 128 q heads per kv head)
+    width, with the plan's tiles, slices (two past 128 q heads per kv head;
+    at the width 512, whose tiles are 16 rows in 32-key stages, past 16)
     and up to 1, 4 and 16 KV splits, within TOL of the plain version at the
     head dim, with and without a window."""
     hk = 1 if group > 128 else 2
+    width = pa.instance_dim(head_dim)
+    split_cols = width == pa.W512
     case = _case(kind, head_dim, group, MIXED, seed=head_dim + group, num_kv_heads=hk)
-    staged = stage_case(case, head_dim, pa.instance_dim(head_dim))
+    staged = stage_case(case, head_dim, width)
     n = tpar.valid_rows(case)
     T, S = case["q"].shape[0], case["block_tables"].shape[0]
     for window in (None, 60):
@@ -479,10 +531,11 @@ def test_ragged_model_at_the_width_matches_plain(head_dim, kind, group):
         for splits in (1, 4, 16):
             plan = pa.rpa_mma_plan(num_seq_slots=S, num_tokens=T, max_q_len=case["max_q_len"],
                                    max_keys=4096, group=group, num_kv_heads=hk, slots=1 << 20,
-                                   padded=pa.instance_dim(head_dim) != head_dim)
+                                   padded=width != head_dim, split_cols=split_cols)
             plan = dataclasses.replace(plan, splits=splits)
-            assert plan.slices == (2 if group > 128 else 1)
-            got = model_ragged(staged, plan, head_dim, window=window)
+            assert plan.slices == (2 if group > (16 if split_cols else 128) else 1)
+            got = model_ragged(staged, plan, head_dim, window=window,
+                               key_tile=32 if split_cols else KT)
             np.testing.assert_allclose(got[:n], want[:n], atol=TOL, rtol=TOL)
 
 
@@ -542,7 +595,8 @@ def model_fused_at_width(case, kind, splits, head_dim):
 
 @pytest.mark.parametrize("head_dim, kind, group", [
     (80, "bf16", 4), (100, "int8", 1), (120, "fp8", 8), (8, "int8", 12), (160, "bf16", 2),
-    (50, "fp8", 16),
+    (50, "fp8", 16), (63, "int8", 4), (7, "bf16", 1), (257, "bf16", 2), (511, "fp8", 12),
+    (512, "int8", 16),
 ])
 def test_fused_model_at_the_width_matches_plain(head_dim, kind, group):
     """The split fused kernel's model on the case staged at its width, in
@@ -568,12 +622,13 @@ def test_fused_model_at_the_width_matches_plain(head_dim, kind, group):
             np.testing.assert_array_equal(fs._bytes(sc), fs._bytes(want_sc))
 
 
-@pytest.mark.parametrize("head_dim", HEAD_DIMS + [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("head_dim", HEAD_DIMS + [32, 64, 96, 128, 256] + ODD_AND_W512_DIMS)
 def test_instance_dim_and_routes(head_dim):
     """A head dim runs at the smallest width that holds it; the route's
     kernel of a 1-byte cache at the widths 96 and 256 is a ``*_wide``
-    instantiation, of every query dtype; the fused and ragged kernels'
-    occupancy is asked at the width."""
+    instantiation, of every query dtype; every route's kernel at the width
+    512 a ``*_w512`` one, from a ``*_w512*.cu`` source; the fused and ragged
+    kernels' occupancy is asked at the width."""
     width = pa.instance_dim(head_dim)
     assert width in pa.INSTANCE_DIMS and width >= head_dim
     assert all(w < head_dim for w in pa.INSTANCE_DIMS if w < width)
@@ -584,6 +639,9 @@ def test_instance_dim_and_routes(head_dim):
             for route in (pa.ragged_route(q, kind), pa.fused_route(q, kind)):
                 assert route.name.endswith("_wide") == wide or route.name.endswith(
                     "_wide_f16") == wide
+                w512 = route.name.endswith(("_w512", "_w512_f16"))
+                assert w512 == (width == pa.W512) and ("_w512" in route.source) == w512
+                assert route.name.endswith("_f16") == (dtype == torch.float16)
 
 
 def test_plans_ask_the_occupancy_of_the_padded_instantiation(monkeypatch):
@@ -599,34 +657,39 @@ def test_plans_ask_the_occupancy_of_the_padded_instantiation(monkeypatch):
         slot_mapping=np.zeros(8), block_tables=np.zeros((8, 128)), seq_lens=np.full(8, 2000),
         query_start_loc=np.arange(9), num_seqs=8, block_size=16, decode_only=True,
         max_q_len=1))
-    for head_dim, width in ((80, 96), (100, 128), (120, 128), (192, 256), (8, 32), (128, 128)):
+    for head_dim, width in ((80, 96), (100, 128), (120, 128), (192, 256), (8, 32), (128, 128),
+                            (63, 64), (7, 32), (320, 512), (511, 512), (512, 512)):
         q = torch.empty((8, 8, head_dim), dtype=torch.bfloat16)
         plan = pa.rpa_plan_for(q, meta, 2, None)
         pa.fused_splits_for(q, meta, 2, None)
         assert asked[-2:] == [head_dim, head_dim]
-        assert plan.warps == (4 if head_dim == width else 8)
+        # The width 512: 4 warps over one 16-row tile, 4 q heads a token.
+        assert plan.warps == (4 if head_dim == width or width == pa.W512 else 8)
+        assert plan.tokens == (4 if width == pa.W512 else plan.warps * 16 // 4)
         assert pa._tc_kernel(pa._RAGGED_TC, torch.bfloat16, torch.int8, head_dim).source == (
             pa._tc_kernel(pa._RAGGED_TC, torch.bfloat16, torch.int8, width).source)
 
 
 # ------------------------------------------------------------- the services
-def _widths(head_dim, hq, hk, window=None):
+def _widths(head_dim, hq, hk, window=None, alibi=False):
     """A 2-layer Llama at ``head_dim`` (with a sliding window: a Mistral,
-    whose embeddings are untied)."""
+    whose embeddings are untied; with ``alibi``, ALiBi in place of RoPE)."""
     return dict(
         vocab_size=512, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
         num_attention_heads=hq, num_key_value_heads=hk, head_dim=head_dim,
         max_position_embeddings=2048, rope_theta=10000.0, rope_scaling=None,
         tie_word_embeddings=window is None, sliding_window=window, eos_token_ids=(1,),
-        bos_token_id=0,
+        bos_token_id=0, use_alibi=alibi,
     )
 
 
-# (head dim, q heads, kv heads, window): h2o-danube-1.8b's head dim with a
-# window (Mistral), OpenLLaMA-3B's (as many kv heads as q heads),
-# h2o-danube3-4b's; and 144 q heads over one kv head.
+# (head dim, q heads, kv heads, window[, ALiBi]): h2o-danube-1.8b's head dim
+# with a window (Mistral), OpenLLaMA-3B's (as many kv heads as q heads),
+# h2o-danube3-4b's; 144 q heads over one kv head; an odd head dim, which
+# only ALiBi models have (RoPE halves the head dim).
 SERVICES = {"D80-mistral": (80, 4, 2, 24), "D100": (100, 2, 2, None),
-            "D120": (120, 4, 1, None), "G144": (8, 144, 1, None)}
+            "D120": (120, 4, 1, None), "G144": (8, 144, 1, None),
+            "D63-alibi": (63, 4, 2, None, True)}
 
 
 def _port_tokens(tmp_path, widths, async_scheduling, *, tp=1):
@@ -654,14 +717,32 @@ def _port_tokens(tmp_path, widths, async_scheduling, *, tp=1):
     for name in sorted(SERVICES) for a in ((False,) if name == "G144" else (False, True))])
 def test_service_matches_jax(name, async_scheduling, tmp_path):
     """Tiny services at head dims 80 (a Mistral with a 24-key window, which
-    the prompts pass), 100 and 120, sync and async, and at 144 q heads per
-    kv head, synchronous, through the port's ``LlmService`` and JAX's on
-    the same f32 weights: greedy tokens identical."""
+    the prompts pass), 100, 120 and 63 (with ALiBi), sync and async, and at
+    144 q heads per kv head, synchronous, through the port's ``LlmService``
+    and JAX's on the same f32 weights: greedy tokens identical."""
     import test_torch_fused_group as fg
 
     widths = _widths(*SERVICES[name])
     assert _port_tokens(tmp_path, widths, async_scheduling) == fg._jax_tokens(
         widths, async_scheduling)
+
+
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["f32", "int8"])
+def test_gemma2_service_at_head_dim_512_matches_jax(kv, tmp_path, monkeypatch):
+    """A 4-layer Gemma-2 with 2 q heads over one kv head of 512 (soft caps
+    50 and 30, query_pre_attn_scalar 256, a 16-key window on alternate
+    layers, which the prompts pass) from one checkpoint directory through
+    the port's and JAX's ``LlmService`` in f32, over an f32 and an INT8
+    cache: greedy tokens identical."""
+    import test_torch_families as tf
+
+    monkeypatch.setitem(tf.CASES, "gemma2-d512", (dict(
+        tf.CASES["gemma2-d256"][0], head_dim=512, num_hidden_layers=4), "Gemma2ForCausalLM"))
+    tf._build_checkpoint("gemma2-d512", str(tmp_path))
+    want = tf._serve_dir("atoma_infer_tpu", str(tmp_path), tf.SERVICE_PROMPTS, kv)
+    got = tf._serve_dir("atoma_infer_tpu_torch", str(tmp_path), tf.SERVICE_PROMPTS, kv)
+    assert got == want
+    assert all(len(t) == 16 or t[-1] == 1 for t in got)
 
 
 def test_service_at_head_dim_100_matches_jax_at_tp2(tmp_path):
@@ -679,10 +760,10 @@ def test_service_at_head_dim_100_matches_jax_at_tp2(tmp_path):
 @pytest.mark.parametrize("kind", [None, torch.int8, torch.float8_e4m3fn],
                          ids=["same", "int8", "fp8"])
 def test_shape_check_admits_every_even_head_dim(dtype, kind):
-    """Every even head dim from 8 to 256, ragged and fused, for bf16, fp16
-    and f32 queries over each cache kind, and any group on the ragged
-    kernel (the fused kernel up to 16)."""
-    for head_dim in range(8, 257, 2):
+    """Every head dim from 1 to 512 (the even ones from 8 to 256 among
+    them), ragged and fused, for bf16, fp16 and f32 queries over each cache
+    kind, and any group on the ragged kernel (the fused kernel up to 16)."""
+    for head_dim in range(1, 513):
         for fused in (False, True):
             pa.check_kernel_shape(head_dim=head_dim, dtype=dtype, kind=kind, group=4,
                                   block_size=16, fused=fused)
@@ -691,17 +772,22 @@ def test_shape_check_admits_every_even_head_dim(dtype, kind):
                               block_size=16, fused=False)
 
 
-ITEM_22 = "Queue 1 item 22: attention at head dims past 256 or odd"
+ITEM_22 = "Queue 1 item 22: attention at head dims past 512"
 
 
-@pytest.mark.parametrize("head_dim", [7, 81, 99, 255, 258, 512, 6, 0])
+@pytest.mark.parametrize("head_dim", [7, 81, 99, 255, 258, 512, 6, 0, 513, 1024, -1])
 def test_shape_check_refuses_odd_and_past_256(head_dim):
-    """Odd head dims, head dims past 256 and under 8 are refused on every
-    route, naming ROADMAP.md's item."""
+    """Odd head dims, head dims past 256 and under 8, once refused, are
+    admitted on every route up to 512; past 512 (and under 1) they are
+    refused, naming ROADMAP.md's item."""
     for fused in (False, True):
+        shape = dict(head_dim=head_dim, dtype=torch.bfloat16, kind=torch.int8, group=2,
+                     block_size=16, fused=fused)
+        if 1 <= head_dim <= 512:
+            pa.check_kernel_shape(**shape)
+            continue
         with pytest.raises(ValueError, match=f"unsupported head_dim {head_dim} .*{ITEM_22}"):
-            pa.check_kernel_shape(head_dim=head_dim, dtype=torch.bfloat16, kind=torch.int8,
-                                  group=2, block_size=16, fused=fused)
+            pa.check_kernel_shape(**shape)
 
 
 class _Loading(Exception):
@@ -709,16 +795,18 @@ class _Loading(Exception):
 
 
 @pytest.mark.parametrize("hidden, heads, refused", [
-    (2560, 32, False), (3200, 32, False), (3840, 32, False), (2592, 32, True),
-    (8320, 32, True)], ids=["80", "100", "120", "81", "260"])
+    (2560, 32, False), (3200, 32, False), (3840, 32, False), (2592, 32, False),
+    (8320, 32, False), (16384, 32, False), (16416, 32, True), (32768, 32, True)],
+    ids=["80", "100", "120", "81", "260", "512", "513", "1024"])
 def test_cuda_service_checks_the_head_dim_before_loading(hidden, heads, refused, tmp_path,
                                                          monkeypatch):
     """``LlmService.start`` on the card, from a directory holding only a
     ``config.json`` (no weights, no tokenizer): at h2o-danube-1.8b's,
     OpenLLaMA-3B's and h2o-danube3-4b's head dims (hidden over heads: 80,
-    100, 120) the check passes and the start goes on to build the model; at
-    81 and 260 the refusal comes from the config alone, before anything is
-    read or allocated, naming ROADMAP.md's item."""
+    100, 120), at 81, 260 and 512 the check passes and the start goes on to
+    build the model; at 513 and 1,024 the refusal comes from the config
+    alone, before anything is read or allocated, naming ROADMAP.md's
+    item."""
     import json
 
     from atoma_infer_tpu_torch.config import EngineConfig
@@ -769,3 +857,21 @@ def test_split_workspace_reserve_covers_the_kernels_at_head_dim_100():
     assert written <= reserve
     # The reserve's splits are the bound of every plan: up to RPA_MAX_SPLITS.
     assert reserve == 4 * pa.RPA_MAX_SPLITS * T * 32 * (100 + 2)
+
+
+def test_split_workspace_reserve_covers_the_kernels_at_head_dim_512():
+    """The same at the width 512 (Gemma-2-9B's widths with heads of 512: 8
+    q heads over 4 kv heads), whose ragged plans tile 16 rows a block: the
+    most splits any of its plans takes fits the reserve."""
+    from atoma_infer_tpu_torch.engine.llm_service import split_workspace_bytes
+    from atoma_infer_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(head_dim=512, num_attention_heads=8, num_key_value_heads=4,
+                      hidden_size=3584)
+    T, P, bs = 256, 128, 16
+    most = max(
+        pa.rpa_mma_plan(num_seq_slots=S, num_tokens=T, max_q_len=q, max_keys=P * bs, group=2,
+                        num_kv_heads=4, slots=s, split_cols=True).splits
+        for S in (1, 8, 64) for q in (1, 256) for s in (132, 264, 1 << 12))
+    o, ml = pa.split_workspace_shapes(most, T, 8, 512)
+    assert 4 * (math.prod(o) + math.prod(ml)) <= split_workspace_bytes(T, cfg, P, bs)

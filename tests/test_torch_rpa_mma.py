@@ -30,6 +30,11 @@ The CUDA kernel runs only on the card. What can be checked here:
 - the tile's geometry at every head dim: the copies cover each 16-byte
   piece of a key tile once (at D = 96 too, whose 24 pieces a key do not
   divide the threads), and ``ldmatrix``'s rows meet no bank conflict;
+- the width 512's kernel (``rpa_w512_kernel``, ``paged_attention_w512.cuh``):
+  Q's fragments from a Q tile in shared memory by ldmatrix equal the
+  register-built ones, the 4 warps' column slices of P·V tile the head once
+  beside the same S, the 32-key ring's copies, its shared memory, and its
+  plan (16-row tiles, groups past 16 in slices);
 - the route: bf16 queries take the ``*_mma`` kernels, f32 the CUDA cores.
 """
 
@@ -314,7 +319,7 @@ def test_tile_copies_cover_each_piece_once(D, elt, warps):
     assert seen == {(k, p): 1 for k in range(KT) for p in range(pieces)}
 
 
-@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256, 512])
 def test_ldmatrix_rows_meet_no_bank_conflict(D):
     """``ldmatrix``'s 8 rows of one matrix (16 bytes each, ``kRow`` apart:
     208 bytes at D = 96, 528 at 256) fall on 8 disjoint groups of 4 banks."""
@@ -322,6 +327,146 @@ def test_ldmatrix_rows_meet_no_bank_conflict(D):
     assert row % 16 == 0
     banks = [set(range((r * row // 4) % 32, (r * row // 4) % 32 + 4)) for r in range(8)]
     assert len(set().union(*banks)) == 32
+
+
+# ------------------- the width 512 (rpa_w512_kernel, paged_attention_w512.cuh)
+W512_KT, W512_WARPS, W512_COLS = 32, 4, 128
+
+
+def q_tile_fragments(Q, kk):
+    """Q's A fragments of k step ``kk`` as ``ldmatrix.x4`` reads them from
+    the Q tile in shared memory: lane l points at row l % 16, columns
+    16 kk + (l // 16)·8, so matrix i is the 8 rows lanes 8i .. 8i+7 point
+    at (rows 0-7 or 8-15, the k step's low or high 8 columns)."""
+    mats = []
+    for i in range(4):
+        lanes = np.arange(8 * i, 8 * i + 8)
+        mats.append(np.stack([Q[r, c:c + 8] for r, c in zip(lanes % 16,
+                                                            16 * kk + (lanes // 16) * 8)]))
+    return ldmatrix(mats)
+
+
+def warp_step_w512(Q, K, V, P, col0, hd):
+    """One warp of the width-512 kernel on a 32-key tile: S = Q·Kᵀ over the
+    k steps below ``hd`` (Q's fragments from the Q tile by ldmatrix), then
+    O += P·V on the warp's 128 columns from ``col0``, skipping those at or
+    past ``hd``. Returns (S [16, 32], O [16, 128])."""
+    keys = W512_KT
+    sc = np.zeros((keys // 8, 32, 4), np.float32)
+    for kk in range(-(-hd // 16)):
+        a = q_tile_fragments(Q, kk)
+        for p in range(keys // 16):
+            mats = [K[16 * p + (i // 2) * 8 + np.arange(8)][:, kk * 16 + (i % 2) * 8 + np.arange(8)]
+                    for i in range(4)]
+            b = ldmatrix(mats)
+            sc[2 * p] = mma(sc[2 * p], a, b[:, 0], b[:, 1])
+            sc[2 * p + 1] = mma(sc[2 * p + 1], a, b[:, 2], b[:, 3])
+    S = np.zeros((16, keys), np.float32)
+    for j in range(keys // 8):
+        for e in range(4):
+            S[G8 + 8 * (e >> 1), 8 * j + 2 * C4 + (e & 1)] = sc[j][:, e]
+    acc = np.zeros((keys // 8, 32, 4), np.float32)
+    for j in range(keys // 8):
+        for e in range(4):
+            acc[j][:, e] = P[G8 + 8 * (e >> 1), 8 * j + 2 * C4 + (e & 1)]
+    o = np.zeros((W512_COLS // 8, 32, 4), np.float32)
+    for qq in range(keys // 16):
+        a = np.stack([pack(acc[2 * qq][:, 0], acc[2 * qq][:, 1]),
+                      pack(acc[2 * qq][:, 2], acc[2 * qq][:, 3]),
+                      pack(acc[2 * qq + 1][:, 0], acc[2 * qq + 1][:, 1]),
+                      pack(acc[2 * qq + 1][:, 2], acc[2 * qq + 1][:, 3])], axis=1)
+        for mm in range(W512_COLS // 16):
+            if col0 + 16 * mm >= hd:
+                continue
+            mats = [V[16 * qq + (i % 2) * 8 + np.arange(8)][:, col0 + 16 * mm + (i // 2) * 8
+                                                            + np.arange(8)]
+                    for i in range(4)]
+            b = ldmatrix(mats, trans=True)
+            o[2 * mm] = mma(o[2 * mm], a, b[:, 0], b[:, 1])
+            o[2 * mm + 1] = mma(o[2 * mm + 1], a, b[:, 2], b[:, 3])
+    O = np.zeros((16, W512_COLS), np.float32)
+    for n in range(W512_COLS // 8):
+        for e in range(4):
+            O[G8 + 8 * (e >> 1), 8 * n + 2 * C4 + (e & 1)] = o[n][:, e]
+    return S, O
+
+
+@pytest.mark.parametrize("hd, kind", [(512, "bf16"), (320, "int8"), (257, "fp8"),
+                                      (511, "bf16")])
+def test_w512_fragments_q_from_shared_memory_and_column_slices(hd, kind):
+    """At the width 512: Q's A fragments read by ldmatrix from the Q tile
+    equal the fragments the narrower kernels build in registers; each of
+    the 4 warps computes the same S = Q·Kᵀ over the k steps below the head
+    dim (its columns of Q and K past it zero in the tiles), and O = P·V on
+    its own 128 columns: the 4 slices tile the head's columns once, equal
+    to the direct product (f32 sums of exact products, rtol 1e-5), and
+    nothing is computed past the head dim."""
+    rng = np.random.default_rng(hd + len(kind))
+    Q = rng.standard_normal((16, 512)).astype(ml_dtypes.bfloat16).astype(np.float32)
+    Q[:, hd:] = 0
+    K_tile, K = (x[:W512_KT] for x in tile_values(rng, kind, 512))
+    V_tile, V = (x[:W512_KT] for x in tile_values(rng, kind, 512))
+    for x in (K_tile, K, V_tile, V):
+        x[:, hd:] = 0
+    frags = q_fragments(Q)
+    for kk in range(512 // 16):
+        np.testing.assert_array_equal(q_tile_fragments(Q, kk), frags[kk])
+    P = np.exp(rng.standard_normal((16, W512_KT))).astype(np.float32)
+    want_s = Q.astype(np.float64) @ K.T.astype(np.float64)
+    want_o = P.astype(ml_dtypes.bfloat16).astype(np.float64) @ V.astype(np.float64)
+    O = np.zeros((16, 512), np.float32)
+    for w in range(W512_WARPS):
+        S, O_w = warp_step_w512(Q, K_tile, V_tile, P, W512_COLS * w, hd)
+        np.testing.assert_allclose(S, want_s, rtol=1e-5, atol=1e-5 * np.abs(want_s).max())
+        O[:, W512_COLS * w:W512_COLS * (w + 1)] = O_w
+    np.testing.assert_allclose(O[:, :hd], want_o[:, :hd], rtol=1e-5,
+                               atol=1e-5 * np.abs(want_o).max())
+    assert not O[:, -(-hd // 16) * 16:].any()
+
+
+@pytest.mark.parametrize("elt", [1, 2])
+def test_w512_tile_copies_cover_each_piece_once(elt):
+    """The width-512 ring's copies: 128 threads over a 32-key stage's K|V
+    slices of 2 × 512 elements; thread tid copies piece tid % kPieces of
+    every (128 / kPieces)-th key from key tid / kPieces (128 pieces a key
+    in 16 bits, one a thread; 64 in a 1-byte cache, two keys a pass):
+    every (key, 16-byte piece) once."""
+    chunks = 512 * elt // 16
+    pieces, threads = 2 * chunks, 128
+    assert threads % pieces == 0 and W512_KT * pieces % threads == 0
+    passes = threads // pieces
+    copies = sorted((tid // pieces + i * passes, tid % pieces)
+                    for i in range(W512_KT // passes) for tid in range(threads))
+    assert copies == [(k, p) for k in range(W512_KT) for p in range(pieces)]
+
+
+@pytest.mark.parametrize("elt, scaled", [(2, False), (1, True), (1, False)])
+def test_w512_shared_memory_fits_a_block(elt, scaled):
+    """``W512Tile``'s dynamic shared memory (3 stages of 32 keys' K and V
+    rows of 512 elements + 16 bytes, a 1-byte cache's widened tile, the
+    16-row Q tile, INT8 scales, the slot ring) fits a block's 232,448 bytes
+    with room for the static scratch; the narrower kernels' ring at this
+    width (3 stages of 64 keys) would not, nor their registers (Q's
+    fragments and O: 384 a thread, past 255), where this kernel keeps O's
+    128 columns a warp in 64."""
+    raw_row, row = 512 * elt + 16, 2 * 512 + 16
+    smem = (3 * 2 * W512_KT * raw_row + (2 * W512_KT * row if elt == 1 else 0) + 16 * row
+            + (3 * W512_KT * 4 if scaled else 0) + 4 * W512_KT * 4)
+    assert smem + 64 <= 232448
+    assert 3 * 2 * 64 * row > 232448 and 512 // 4 + 512 // 2 > 255
+    assert W512_COLS // 8 * 4 == 64
+
+
+def test_w512_plan_tiles_sixteen_rows():
+    """The width-512 plan: 4 warps over one 16-row tile, 16 / G tokens a
+    tile, a group past 16 in slices of at most 16 rows (the kernel's
+    ``rpa_group_slices`` at one row tile)."""
+    for group, tokens, slices in ((1, 16, 1), (2, 8, 1), (4, 4, 1), (12, 1, 1), (16, 1, 1),
+                                  (20, 1, 2), (33, 1, 3)):
+        plan = pa.rpa_mma_plan(num_seq_slots=8, num_tokens=64, max_q_len=8, max_keys=2048,
+                               group=group, num_kv_heads=2, slots=132, split_cols=True)
+        assert (plan.warps, plan.tokens, plan.slices) == (4, tokens, slices)
+        assert pa.rpa_group_slices(group, 1) == slices
 
 
 # ---------------------------------------- the kernel's arithmetic, by block
@@ -527,10 +672,11 @@ def test_model_matches_plain_and_pallas_wide_heads(D, group, kind, mod):
 # ------------------------------------------------------ the host's split plan
 def test_plan_takes_shapes_only():
     """``rpa_mma_plan`` sees host integers (and whether the head dim is
-    below its width, a host bool), never a tensor (no device read)."""
+    below its width and whether that width is 512, host bools), never a
+    tensor (no device read)."""
     params = inspect.signature(pa.rpa_mma_plan).parameters
     assert set(params) == {"num_seq_slots", "num_tokens", "max_q_len", "max_keys", "group",
-                           "num_kv_heads", "slots", "padded"}
+                           "num_kv_heads", "slots", "padded", "split_cols"}
     assert all(p.kind == p.KEYWORD_ONLY for p in params.values())
 
 

@@ -208,7 +208,8 @@ def test_f32_wide_heads_plain_vs_pallas(D, num_kv_heads, group, kv):
         np.testing.assert_allclose(got[:n], np.asarray(want)[:n], atol=ATOL, rtol=ATOL)
 
 
-@pytest.mark.parametrize("D", [32, 64, 96, 128, 256, 80, 100, 120, 8, 50, 248])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256, 80, 100, 120, 8, 50, 248, 1, 63, 257,
+                               512])
 @pytest.mark.parametrize("group", [1, 3, 8, 17, 32, 33, 65, 128])
 def test_cuda_core_ragged_thread_map_sums_each_dim_once(D, group):
     """A numpy model of ``rpa_kernel``'s thread map (``csrc/paged_attention.cuh``):
@@ -224,8 +225,9 @@ def test_cuda_core_ragged_thread_map_sums_each_dim_once(D, group):
     within the warp) sums a row's TPR partial dots and nothing else, so
     every lane of a row ends with the row's full dot, each dim summed
     once. A head dim D that is no width runs at the width W =
-    ``instance_dim(D)`` (80 at 96, 100 and 120 at 128), its q and key dims
-    from D to W staged as zeros: the same map at W sums the head's dims."""
+    ``instance_dim(D)`` (80 at 96, 100 and 120 at 128, 1 at 32, 63 at 64,
+    257 at 512: 16 threads of 32 dims a row), its q and key dims from D to
+    W staged as zeros: the same map at W sums the head's dims."""
     W = pa.instance_dim(D)
     tpr = 4 if W == 96 else W // 32
     dpt = W // tpr
@@ -323,14 +325,15 @@ def test_kernel_shape_check_head_dims_by_route(route, head_dim):
 
 
 def test_kernel_shape_check_refuses_other_dims_and_dtypes():
-    """Head dim 80 is taken (at the width 96); a head dim past 256 and an
-    odd one are refused, naming ROADMAP.md's item; so is a dtype no kernel
-    takes."""
-    check_kernel_shape(head_dim=80, dtype=torch.bfloat16, kind=None, group=1,
-                       block_size=16, fused=False)
-    for head_dim in (258, 81):
+    """Head dims 80 (at the width 96), 1, 81 (odd), 258 and 512 (at the
+    width 512) are taken; head dims past 512 are refused, naming ROADMAP.md's
+    item; so is a dtype no kernel takes."""
+    for head_dim in (80, 1, 81, 258, 512):
+        check_kernel_shape(head_dim=head_dim, dtype=torch.bfloat16, kind=None, group=1,
+                           block_size=16, fused=False)
+    for head_dim in (513, 1024):
         with pytest.raises(ValueError, match=f"unsupported head_dim {head_dim} .*Queue 1 item "
-                           "22: attention at head dims past 256 or odd"):
+                           "22: attention at head dims past 512"):
             check_kernel_shape(head_dim=head_dim, dtype=torch.bfloat16, kind=None, group=1,
                                block_size=16, fused=False)
     with pytest.raises(ValueError, match="must be bfloat16, float16 or float32"):
