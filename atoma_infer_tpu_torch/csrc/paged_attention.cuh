@@ -54,7 +54,7 @@
 // bf16 queries take fused_split_kernel (fused_decode_split.cuh: split-KV
 // across blocks, Q·Kᵀ and P·V on the tensor cores).
 //
-// Head dims. Every kernel takes any head dim from 1 to 512 at run time
+// Head dims. Every kernel takes any head dim from 1 up at run time
 // (head_dim), as FlashAttention-2 takes its own: a kernel is instantiated at
 // a width D of 32, 64, 96, 128, 256 or 512 (instance_dim: the smallest that
 // holds the head dim). A head dim below its width runs the kernel's PAD
@@ -67,7 +67,18 @@
 // multiple of its bytes from the 16-byte aligned cache, so an odd head dim
 // of a 1-byte cache is copied byte by byte). Q and the output are read and
 // written element by element there. The other instantiations run the code
-// they ran before, with D for head_dim.
+// they ran before, with D for head_dim. Past 512 the width 512's PAD
+// instantiations take column slices (column_slices: ceil(head_dim / 512),
+// one more grid index): a block owns 512 of the output's columns, takes each
+// key's whole Q·Kᵀ over the head dim (rpa_kernel stages K 512 columns at a
+// time, each chunk's Q read anew; fused_decode_kernel reads Q from device
+// memory, its shared q_s holding the slice's sums only), and
+// stages, reads and stores only its own columns of V and the output. Every
+// slice sums the same scores in the same order, so their softmax states
+// agree and nothing crosses slices. The fused kernel's slices store their
+// own columns of the new K and V rows; the new key's K, whose other columns
+// another block stores, comes from k_new encoded and decoded as the cache
+// holds it.
 
 #pragma once
 
@@ -84,22 +95,29 @@ constexpr float kNegInf = -INFINITY;
 // The widths a source instantiates: the narrow ones (32, 64, 128: head
 // dims 1 to 64 and 97 to 128), the wide ones (96 and 256: head dims 65 to
 // 96, Phi-3-mini's, and 129 to 256, Gemma-2's), both, or the width 512
-// (head dims 257 to 512); the wide ones of the slower builds and the width
+// (head dims past 256); the wide ones of the slower builds and the width
 // 512 sit in sources of their own (*_wide.cu, *_w512*.cu), which build in
 // parallel with the rest.
 enum HeadDimSet { kNarrowDims = 1, kWideDims = 2, kAllDims = 3, kW512Dims = 4 };
 
 // The instantiation width of a head dim: the smallest width a kernel is
-// built at (32, 64, 96, 128, 256 or 512) that holds it; 0 for a head dim no
-// kernel takes (under 1 or past 512).
+// built at (32, 64, 96, 128, 256 or 512) that holds it, and 512 past it
+// (the width-512 kernels then take column_slices of 512 columns); 0 for a
+// head dim no kernel takes (under 1).
 __host__ __device__ constexpr int instance_dim(int head_dim) {
-  return head_dim < 1 || head_dim > 512 ? 0
-         : head_dim <= 32              ? 32
-         : head_dim <= 64              ? 64
-         : head_dim <= 96              ? 96
-         : head_dim <= 128             ? 128
-         : head_dim <= 256             ? 256
-                                       : 512;
+  return head_dim < 1       ? 0
+         : head_dim <= 32  ? 32
+         : head_dim <= 64  ? 64
+         : head_dim <= 96  ? 96
+         : head_dim <= 128 ? 128
+         : head_dim <= 256 ? 256
+                           : 512;
+}
+
+// The column slices a width-512 kernel cuts a head dim into, a block each:
+// ceil(head_dim / 512), one up to 512.
+__host__ __device__ constexpr int column_slices(int head_dim) {
+  return head_dim <= 512 ? 1 : (head_dim + 511) / 512;
 }
 
 // A head dim known when compiling, converting to int on the device, for
@@ -243,7 +261,6 @@ __global__ void __launch_bounds__(256) rpa_kernel(
   constexpr int DPT = D / TPR;         // dims a thread
   constexpr int KS = TPR * (DPT + 1);  // smem floats per key row; +1 pad per thread's dims
   constexpr int VN = Vec<C>::N;
-  constexpr int CHUNKS = KT * 2 * D / VN;  // 16-byte vectors in one key tile (K|V)
   constexpr int QN = Vec<T>::N;
   __shared__ float ks[KT * KS];
   __shared__ float vs[KT * KS];
@@ -255,8 +272,14 @@ __global__ void __launch_bounds__(256) rpa_kernel(
   const int tok0 = blockIdx.x * block_q;
   if (tok0 >= q_len) return;
   const int slices = (group + group_rows - 1) / group_rows;
-  const int h = blockIdx.z / slices;
-  const int g0 = (blockIdx.z - h * slices) * group_rows;
+  // The width 512's PAD instantiation past 512: blockIdx.z also counts the
+  // column slice cs (the innermost), whose output columns cs·D .. cs·D + D
+  // the block owns.
+  constexpr bool kCols = PAD && D == 512;
+  const int ncs = kCols ? column_slices(head_dim) : 1;
+  const int zz = blockIdx.z / ncs, cs = blockIdx.z - zz * ncs;
+  const int h = zz / slices;
+  const int g0 = (zz - h * slices) * group_rows;
   const int seq_len = seq_lens[s];
   const int ntok = min(block_q, q_len - tok0);
   const int ctx0 = seq_len - q_len;  // absolute position of the chunk's first query
@@ -302,50 +325,20 @@ __global__ void __launch_bounds__(256) rpa_kernel(
   const int t_end = min((last_pos + KT) / KT, max_pages * tiles_per_page);
   const long long row_stride = 2LL * num_kv_heads * hd;
 
-  for (int t = kv_begin / KT; t < t_end; ++t) {
-    const int p = t / tiles_per_page;
-    const long long slot0 = (long long)block_tables[(long long)s * max_pages + p] * block_size +
-                            (t - p * tiles_per_page) * KT;
-    const C* base = cache + slot0 * row_stride + (long long)h * 2 * hd;
-    __syncthreads();  // the previous key tile is fully consumed
-    for (int c = tid; c < CHUNKS; c += blockDim.x) {
-      const int e = c * VN;
-      const int r = e / (2 * D), col = e - r * 2 * D;
-      const bool is_v = col >= D;
-      const int dcol = is_v ? col - D : col;
-      float tmp[VN];
-      if constexpr (PAD) {
-        // The head's dims from its K or V row (V starting hd elements after
-        // K), 0 past hd.
-        load16_padded(base + r * row_stride + (is_v ? hd : 0) + dcol, tmp,
-                      min(VN, max(0, hd - dcol)), cw);
-      } else {
-        load16(base + r * row_stride + col, tmp);
-      }
-      if constexpr (kScaled<C>) {
-        const float sc = slot_scale(scales, slot0 + r, is_v);
-#pragma unroll
-        for (int k = 0; k < VN; ++k) tmp[k] *= sc;
-      }
-      float* dst = (is_v ? vs : ks) + r * KS;
-#pragma unroll
-      for (int k = 0; k < VN; ++k) dst[(dcol + k) / DPT * (DPT + 1) + (dcol + k) % DPT] = tmp[k];
-    }
-    __syncthreads();
-
+  // A key tile's scores (dot[j]: this thread's part of key t·KT + j's
+  // Q·Kᵀ), summed over the row's threads, through the modifiers and the
+  // mask into the online softmax, then P·V from the V rows staged in vs.
+  auto absorb = [&](int t, const float (&dot)[KT]) {
     float sc[KT];
     float mx = kNegInf;
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
-      const float* kr = ks + j * KS + part * (DPT + 1);
-      float dot = 0.f;
+      float d = dot[j];
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) dot = fmaf(qr[i], kr[i], dot);
-#pragma unroll
-      for (int o = 1; o < TPR; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      for (int o = 1; o < TPR; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
       const int kpos = t * KT + j;
       const bool ok = kpos <= qpos && (window <= 0 || kpos > qpos - window);
-      sc[j] = ok ? score_mod(dot, scale, soft_cap, slope, kpos, qpos) : kNegInf;
+      sc[j] = ok ? score_mod(d, scale, soft_cap, slope, kpos, qpos) : kNegInf;
       mx = fmaxf(mx, sc[j]);
     }
     const float m_new = fmaxf(m, mx);
@@ -364,14 +357,73 @@ __global__ void __launch_bounds__(256) rpa_kernel(
       }
       m = m_new;
     }
+  };
+
+  // Each key tile: K in chunks of D columns (ncs of them in a column slice
+  // past 512, each chunk's Q dims read anew; one otherwise), the scores
+  // summed over the whole head, then V's columns cs·D .. cs·D + D (staged
+  // with the last K chunk) for P·V.
+  auto stage_half = [&](const C* base, long long slot0, int v, int col0, float* dst) {
+    for (int c = tid; c < KT * D / VN; c += blockDim.x) {
+      const int e = c * VN;
+      const int r = e / D, dcol = e - r * D;
+      const C* src = base + r * row_stride + v * hd + col0 + dcol;
+      float tmp[VN];
+      if constexpr (PAD) {
+        // The head's dims from its K or V row (V starting hd elements
+        // after K), 0 past hd.
+        load16_padded(src, tmp, min(VN, max(0, hd - col0 - dcol)), cw);
+      } else {
+        load16(src, tmp);
+      }
+      if constexpr (kScaled<C>) {
+        const float sc = slot_scale(scales, slot0 + r, v);
+#pragma unroll
+        for (int k = 0; k < VN; ++k) tmp[k] *= sc;
+      }
+#pragma unroll
+      for (int k = 0; k < VN; ++k)
+        dst[r * KS + (dcol + k) / DPT * (DPT + 1) + (dcol + k) % DPT] = tmp[k];
+    }
+  };
+  for (int t = kv_begin / KT; t < t_end; ++t) {
+    const int p = t / tiles_per_page;
+    const long long slot0 =
+        (long long)block_tables[(long long)s * max_pages + p] * block_size +
+        (t - p * tiles_per_page) * KT;
+    const C* base = cache + slot0 * row_stride + (long long)h * 2 * hd;
+    float dot[KT];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) dot[j] = 0.f;
+    for (int c = 0; c < ncs; ++c) {
+      __syncthreads();  // the previous chunk (and key tile) fully consumed
+      stage_half(base, slot0, 0, c * D, ks);
+      if (c == ncs - 1) stage_half(base, slot0, 1, cs * D, vs);
+      if (ncs > 1) {
+#pragma unroll
+        for (int i = 0; i < DPT; ++i) {
+          const int d = c * D + part * DPT + i;
+          qr[i] = active && d < hd ? to_float(q[q_row * hd + d]) : 0.f;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const float* kr = ks + j * KS + part * (DPT + 1);
+#pragma unroll
+        for (int i = 0; i < DPT; ++i) dot[j] = fmaf(qr[i], kr[i], dot[j]);
+      }
+    }
+    absorb(t, dot);
   }
 
   if (active) {
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* op = out + q_row * hd + part * DPT;
+    const int c0 = cs * D;  // the slice's first column (0 but past 512)
+    T* op = out + q_row * hd + c0 + part * DPT;
 #pragma unroll
     for (int i = 0; i < DPT; ++i)
-      if (!PAD || part * DPT + i < hd) op[i] = from_float<T>(acc[i] * inv);
+      if (!PAD || c0 + part * DPT + i < hd) op[i] = from_float<T>(acc[i] * inv);
   }
 }
 
@@ -424,7 +476,14 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
   float* const acc_s = kAccInQ ? q_s : acc_own;  // [G][D]
   __shared__ float red_s[2 * NW];
 
-  const int s = blockIdx.x, h = blockIdx.y;
+  // The width 512's PAD instantiation past 512: blockIdx.y also counts the
+  // column slice cs (the innermost), whose columns c0 .. c0 + D of V and
+  // of the output the block owns (c0 = cs·D); Q is then read from device
+  // memory, q_s holding the slice's sums only.
+  constexpr bool kCols = PAD && D == 512;
+  const int ncs = kCols ? column_slices(head_dim) : 1;
+  const int s = blockIdx.x, h = blockIdx.y / ncs, cs = blockIdx.y - h * ncs;
+  const int c0 = cs * D;
   if (s >= num_seqs[0]) return;
   const int t = query_start_loc[s];
   if (query_start_loc[s + 1] - t != 1) return;  // decode: one query token
@@ -435,6 +494,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
   // PAD, a padded head dim (head_dim < D): q_s holds 0 past head_dim and
   // the K and V rows are read only up to it.
   const int hd = PAD ? head_dim : D;
+  const bool sliced = kCols && hd > D;
   const int cw = copy_width(hd * (int)sizeof(C));
   const long long row_stride = 2LL * num_kv_heads * hd;
   const T* kn_row = k_new + (long long)t * num_kv_heads * hd;
@@ -443,12 +503,14 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
   const T* vn = vn_row + (long long)h * hd;
   const long long q_base = ((long long)t * num_q_heads + (long long)h * ng) * hd;
 
-  for (int i = tid; i < ng * D; i += blockDim.x) {
-    if constexpr (PAD) {
-      const int g = i / D, d = i - g * D;
-      q_s[i] = d < hd ? to_float(q[q_base + g * hd + d]) : 0.f;
-    } else {
-      q_s[i] = to_float(q[q_base + i]);
+  if (!sliced) {
+    for (int i = tid; i < ng * D; i += blockDim.x) {
+      if constexpr (PAD) {
+        const int g = i / D, d = i - g * D;
+        q_s[i] = d < hd ? to_float(q[q_base + g * hd + d]) : 0.f;
+      } else {
+        q_s[i] = to_float(q[q_base + i]);
+      }
     }
   }
   const long long slot = slot_mapping[t];
@@ -462,16 +524,22 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
     v_sc = __bfloat162float(bv);
     inv_k = 1.f / k_sc;
     inv_v = 1.f / v_sc;
-    if (write && h == 0 && tid == 0) {
+    if (write && h == 0 && cs == 0 && tid == 0) {
       scales[2 * slot] = bk;
       scales[2 * slot + 1] = bv;
     }
   }
   if (write) {
-    C* dst = cache + slot * row_stride + (long long)h * 2 * hd;
-    for (int i = tid; i < 2 * hd; i += blockDim.x)
-      dst[i] = i < hd ? encode<C>(to_float(kn[i]), inv_k)
-                      : encode<C>(to_float(vn[i - hd]), inv_v);
+    // This slice's columns of the head's new K and V (all of them but
+    // past 512).
+    const int w = min(D, hd - c0);
+    C* dst = cache + slot * row_stride + (long long)h * 2 * hd + c0;
+    for (int i = tid; i < 2 * w; i += blockDim.x) {
+      if (i < w)
+        dst[i] = encode<C>(to_float(kn[c0 + i]), inv_k);
+      else
+        dst[hd + i - w] = encode<C>(to_float(vn[c0 + i - w]), inv_v);
+    }
   }
   __syncthreads();  // q_s staged; this head's slice of the new row stored
 
@@ -525,17 +593,34 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
                 dot[g] = fmaf(q_s[g * D + d0 + i], kv[i], dot[g]);
         }
       }
-    } else if (valid) {  // the head's vectors only, a loop of its own
+    } else if (valid) {
+      // The head's vectors only, a loop of its own. A column slice past 512
+      // takes the whole head's Q·Kᵀ with Q from device memory (q_s holds
+      // the slice's sums only), and the new key's K from k_new, encoded and
+      // decoded as the cache holds it (other slices' blocks store its other
+      // columns).
+      const bool mine = sliced && write && kpos == pos;
 #pragma unroll 1
       for (int d0 = 0; d0 < hd; d0 += VN) {
         float kv[VN];
-        load16_padded(kr + d0, kv, min(VN, hd - d0), cw);
+        const int n = min(VN, hd - d0);
+        if (mine) {
+#pragma unroll
+          for (int i = 0; i < VN; ++i)
+            kv[i] = i < n ? to_float(encode<C>(to_float(kn[d0 + i]), inv_k)) : 0.f;
+        } else {
+          load16_padded(kr + d0, kv, n, cw);
+        }
 #pragma unroll (GU)
         for (int g = 0; g < G; ++g)
           if (g < ng)
 #pragma unroll
-            for (int i = 0; i < VN; ++i)
-              dot[g] = fmaf(q_s[g * D + d0 + i], kv[i], dot[g]);
+            for (int i = 0; i < VN; ++i) {
+              const float qv = !sliced ? q_s[g * D + d0 + i]
+                               : i < n  ? to_float(q[q_base + g * hd + d0 + i])
+                                        : 0.f;
+              dot[g] = fmaf(qv, kv[i], dot[g]);
+            }
       }
     }
     float p[G], pv[G];
@@ -570,8 +655,10 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
       for (int u = 0; u < kPvUnroll; ++u) {
         const C* vr = reinterpret_cast<const C*>(__shfl_sync(0xffffffffu, vaddr, j0 + u));
 #pragma unroll
-        for (int dd = 0; dd < DPL; ++dd)
-          v[u][dd] = !PAD || lane + dd * 32 < hd ? to_float(vr[lane + dd * 32]) : 0.f;
+        for (int dd = 0; dd < DPL; ++dd) {
+          const int col = c0 + lane + dd * 32;
+          v[u][dd] = !PAD || col < hd ? to_float(vr[col]) : 0.f;
+        }
       }
 #pragma unroll
       for (int u = 0; u < kPvUnroll; ++u) {
@@ -622,7 +709,8 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
     }
     __syncthreads();
   }
-  // The output, head_dim dims a head (the constant D but at PAD).
+  // The output, head_dim dims a head (the constant D but at PAD; a column
+  // slice's own columns past 512).
   auto store = [&](auto width) {
     const int W = width;
     for (int i = tid; i < ng * W; i += blockDim.x) {
@@ -634,11 +722,12 @@ __global__ void __launch_bounds__(kDecodeWarps * 32) fused_decode_kernel(
 #pragma unroll
       for (int w = 0; w < NW; ++w)
         sum += m_s[w][g] == kNegInf ? 0.f : l_s[w][g] * expf(m_s[w][g] - mx);
-      out[q_base + i] = from_float<T>(sum > 0.f ? acc_s[g * D + d] / sum : 0.f);
+      out[q_base + (long long)g * hd + c0 + d] =
+          from_float<T>(sum > 0.f ? acc_s[g * D + d] / sum : 0.f);
     }
   };
   if constexpr (PAD) {
-    store(hd);
+    store(min(D, hd - c0));
   } else {
     store(FixedDim<D>{});
   }
@@ -732,9 +821,10 @@ struct Fp8Cache {
 
 // dtype (of q, k_new/v_new and out): 0 = float32 (head dims at widths 32,
 // 64 and 128 of kNarrowDims, at 96 and 256 of kWideDims, at 512 of
-// kW512Dims), 1 = bfloat16 (widths 32, 64, 128; bf16 queries take the
-// tensor cores, and chip_smoke.py times this route beside them). Any
-// head_dim from 1 to 512 runs on the width instance_dim(head_dim). Pointers:
+// kW512Dims, and past 512 in column slices), 1 = bfloat16 (widths 32, 64,
+// 128; bf16 queries take the tensor cores, and chip_smoke.py times this
+// route beside them). Any head_dim from 1 up runs on the width
+// instance_dim(head_dim). Pointers:
 // q [T, Hq, D], cache [pages, block_size, 2*Hk*D], scales [pages,
 // block_size, 2] bf16 (INT8 caches; else null), block_tables [S, max_pages],
 // seq_lens [S], query_start_loc [S+1], num_seqs [1] (all int32), alibi [Hq]
@@ -762,7 +852,10 @@ int ragged_paged_attention_entry(
   block_q = block_q < 1 ? 1 : (block_q > 16 ? 16 : block_q);
   const int threads = (block_q * group_rows * tpr + 31) / 32 * 32;
   if (threads > 256) return (int)cudaErrorInvalidValue;
-  const dim3 grid((max_q_len + block_q - 1) / block_q, num_seq_slots, num_kv_heads * slices);
+  // Past 512 the width 512 also cuts the columns into column_slices, a
+  // block each (the innermost of grid.z).
+  const dim3 grid((max_q_len + block_q - 1) / block_q, num_seq_slots,
+                  num_kv_heads * slices * column_slices(head_dim));
   cudaStream_t st = (cudaStream_t)stream;
   const int* bt = (const int*)block_tables;
   const int* sl = (const int*)seq_lens;
@@ -830,7 +923,9 @@ int fused_decode_attention_entry(
   if (num_seq_slots <= 0) return 0;
   const int group = num_q_heads / num_kv_heads;
   const int dp = instance_dim(head_dim);
-  const dim3 grid(num_seq_slots, num_kv_heads);
+  // Past 512 the width 512 also cuts the columns into column_slices, a
+  // block each (the innermost of grid.y).
+  const dim3 grid(num_seq_slots, num_kv_heads * column_slices(head_dim));
   cudaStream_t st = (cudaStream_t)stream;
   const int* slots = (const int*)slot_mapping;
   const int* bt = (const int*)block_tables;

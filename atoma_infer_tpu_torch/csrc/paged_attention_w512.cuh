@@ -1,5 +1,5 @@
-// Kernels A, B, D and E at head dims 257 to 512 (the width 512) for bf16
-// and fp16 queries, on the tensor cores, over a cache in the queries'
+// Kernels A, B, D and E at head dims past 256 (the width 512, past 512 in
+// column slices of 512 columns) for bf16 and fp16 queries, on the tensor cores, over a cache in the queries'
 // dtype, INT8 (+ per-slot scales) or e4m3: the ragged attention (A, D, E;
 // the function of rpa_mma_kernel in paged_attention_mma.cuh) and the
 // pure-decode attention with the KV write fused in (B and D's and E's fused
@@ -44,8 +44,8 @@
 //    stage in the queries' dtype; a 1-byte cache stages raw rows of 528
 //    bytes and widens each landed tile once into a 66.5 KB tile), beside the
 //    16.6 KB Q tile: 217 KB, 186 KB for a 1-byte cache; one block an SM.
-//  * The head dim is passed at run time (every head dim from 257 to 512
-//    runs this one instantiation): the ring's and the Q tile's columns past
+//  * The head dim is passed at run time (every head dim past 256 runs this
+//    one instantiation): the ring's and the Q tile's columns past
 //    it are zero, the copies as wide as a head's bytes allow (copy_width,
 //    cp_async_part), S skips the k steps past it and a warp the columns past
 //    it (a warp with none only copies), and output columns past it are
@@ -57,6 +57,24 @@
 //    scales_new; its h = 0 block stores the scales), then reads it back
 //    through the ring after a barrier; the new key's INT8 scales are staged
 //    from the block's registers, since another kv head's block stores them.
+//  * Past 512, column slices (column_slices: ceil(head_dim / 512), the
+//    innermost of grid.z): a block owns 512 of O's columns, 128 a warp as
+//    above, and computes the tile's whole S over the head dim. Each key tile
+//    streams through the same ring as ncs + 1 units of a stage each: for
+//    every 512-column chunk u, K's chunk (the stage's K rows) with Q's chunk
+//    (its 16 rows, Q-typed, in the stage's V rows; Q is read again for every
+//    tile, from L2), S summed over the chunks in order; then V's columns of
+//    the slice (its V rows). Every slice sums the same S in the same order,
+//    so the slices' online-softmax states agree and nothing crosses them
+//    (only slice 0 writes (m, l) to the workspace). The cost: K read once a
+//    slice and S computed once a slice (at D = 1,024 a decode row reads
+//    1.5 times its least K/V bytes; at 4,096, 4.5 times). Head dims up to 512
+//    run one slice, the code above. Fused, past 512: each slice stores only
+//    its own columns of the new K and V rows (one block, cs = 0 of kv head 0,
+//    the INT8 scales), so no slice can read the new key's other K columns
+//    back: its K chunks come from k_new, encoded and decoded as the cache
+//    read would give them (INT8 with the token's scales, e4m3), in place of
+//    the row the ring copied; its V columns are the slice's own, read back.
 //  * KV splits, the f32 workspace and the merge (rpa_combine_kernel) as the
 //    narrower kernels'. Score order as theirs: dot (× the INT8 key scale) ×
 //    scale, soft cap, ALiBi slope × (kpos − qpos), then the causal / window
@@ -90,28 +108,17 @@ struct W512Tile {
                                (kW512Stages + 1) * kW512KT * 4;
 };
 
-// One warp's work on a key tile of kW512KT keys whose Q-typed K and V rows
-// start at shared addresses ks and vs, rows row_bytes apart, the first at
-// position kpos0; their INT8 scale pairs at sc. S over the tile's 16 rows
-// and nk16 k steps (Q's A fragments by ldmatrix from the Q tile at qs),
-// then O += P·V on the warp's columns col0 .. col0 + 127 below hd. Updates
-// the running (m, l, O) of the lane's two rows.
-template <typename Q, bool SCALED>
-__device__ __forceinline__ void w512_warp_step(
-    uint32_t qs, uint32_t ks, uint32_t vs, int row_bytes, uint32_t sc, int kpos0,
-    const int (&qpos)[2], const float (&slope)[2], bool alibi, bool masked, float scale,
-    int window, float soft_cap, int nk16, int col0, int hd, float (&o)[kW512Cols / 8][4],
-    float (&m)[2], float (&l)[2]) {
+// S += Q·Kᵀ over a key tile of kW512KT keys and nk16 k steps of 16
+// columns: Q's A fragments by ldmatrix from the 16 Q-typed rows at qs (rows
+// 2·kW512 + 16 bytes apart), K's rows at ks, row_bytes apart. n tile j of s
+// holds keys 8j .. 8j+7; lane (g8, c4) holds keys 8j + 2c4 + {0, 1} of rows
+// g8 (e = 0, 1) and g8 + 8 (e = 2, 3). Lane l points ldmatrix at Q row
+// l % 16, columns (l / 16)·8 of the k step.
+template <typename Q>
+__device__ __forceinline__ void w512_scores(uint32_t qs, uint32_t ks, int row_bytes, int nk16,
+                                            float (&s)[kW512KT / 8][4]) {
   constexpr int NK = kW512KT;
   const int lane = threadIdx.x % 32;
-  // S = Q·Kᵀ: n tile j holds keys 8j .. 8j+7; lane (g8, c4) holds keys
-  // 8j + 2c4 + {0, 1} of rows g8 (e = 0, 1) and g8 + 8 (e = 2, 3). Lane l
-  // points ldmatrix at Q row l % 16, columns (l / 16)·8 of the k step.
-  float s[NK / 8][4];
-#pragma unroll
-  for (int j = 0; j < NK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
   const uint32_t qa = qs + (lane % 16) * (2 * kW512 + 16) + (lane / 16) * 16;
   const uint32_t kb = ks + ((lane / 16) * 8 + lane % 8) * row_bytes + ((lane / 8) % 2) * 16;
 #pragma unroll 4
@@ -126,11 +133,18 @@ __device__ __forceinline__ void w512_warp_step(
       mma16<Q>(s[2 * p + 1], a, b[2], b[3]);
     }
   }
-  rpa_tile_softmax<NK, kW512Cols / 8, SCALED>(s, sc, kpos0, qpos, slope, alibi, masked, scale,
-                                              window, soft_cap, o, m, l);
-  // O += P·V on the warp's columns, k step qq covering keys 16qq .. 16qq+15;
-  // P's A fragments are the score accumulators of n tiles 2qq and 2qq+1,
-  // rounded to Q.
+}
+
+// O += P·V on the warp's columns col0 .. col0 + 127 of the V rows at vs
+// (row_bytes apart), those below hd, k step qq covering keys 16qq ..
+// 16qq+15; P's A fragments are the score accumulators of n tiles 2qq and
+// 2qq+1, rounded to Q.
+template <typename Q>
+__device__ __forceinline__ void w512_pv(const float (&s)[kW512KT / 8][4], uint32_t vs,
+                                        int row_bytes, int col0, int hd,
+                                        float (&o)[kW512Cols / 8][4]) {
+  constexpr int NK = kW512KT;
+  const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int qq = 0; qq < NK / 16; ++qq) {
     const uint32_t a[4] = {pack2<Q>(s[2 * qq][0], s[2 * qq][1]),
@@ -147,6 +161,29 @@ __device__ __forceinline__ void w512_warp_step(
       mma16<Q>(o[2 * mm + 1], a, b[2], b[3]);
     }
   }
+}
+
+// One warp's work on a key tile of kW512KT keys whose Q-typed K and V rows
+// start at shared addresses ks and vs, rows row_bytes apart, the first at
+// position kpos0; their INT8 scale pairs at sc. S over the tile's 16 rows
+// and nk16 k steps (Q from the Q tile at qs), then O += P·V on the warp's
+// columns col0 .. col0 + 127 below hd. Updates the running (m, l, O) of the
+// lane's two rows.
+template <typename Q, bool SCALED>
+__device__ __forceinline__ void w512_warp_step(
+    uint32_t qs, uint32_t ks, uint32_t vs, int row_bytes, uint32_t sc, int kpos0,
+    const int (&qpos)[2], const float (&slope)[2], bool alibi, bool masked, float scale,
+    int window, float soft_cap, int nk16, int col0, int hd, float (&o)[kW512Cols / 8][4],
+    float (&m)[2], float (&l)[2]) {
+  float s[kW512KT / 8][4];
+#pragma unroll
+  for (int j = 0; j < kW512KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  w512_scores<Q>(qs, ks, row_bytes, nk16, s);
+  rpa_tile_softmax<kW512KT, kW512Cols / 8, SCALED>(s, sc, kpos0, qpos, slope, alibi, masked,
+                                                   scale, window, soft_cap, o, m, l);
+  w512_pv<Q>(s, vs, row_bytes, col0, hd, o);
 }
 
 // q, out: Q [T, Hq, head_dim]; k_new, v_new: Q [T, Hk, head_dim] (FUSED);
@@ -182,7 +219,11 @@ __global__ void __launch_bounds__(kW512Warps * 32) rpa_w512_kernel(
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g8 = lane / 4, c4 = lane % 4;
-  const int hd = head_dim, split = blockIdx.z;
+  // blockIdx.z: the KV split, and within it the column slice cs, whose
+  // columns c0 .. c0 + 511 of V and of the output the block owns (one slice
+  // up to 512).
+  const int hd = head_dim, ncs = column_slices(hd);
+  const int split = blockIdx.z / ncs, cs = blockIdx.z - split * ncs, c0 = cs * kW512;
   int s, h, g0, tok0, ntok, q_start, q_len;
   if constexpr (FUSED) {
     h = blockIdx.x, s = blockIdx.y, g0 = 0, tok0 = 0, ntok = 1;
@@ -229,13 +270,15 @@ __global__ void __launch_bounds__(kW512Warps * 32) rpa_w512_kernel(
   const long long slot_bytes = row_stride * (long long)sizeof(C);
 
   // Fused: the last split stores the token's new K/V slice (and its INT8
-  // scales), read back through the ring after the prologue's barrier.
+  // scales), read back through the ring after the prologue's barrier; past
+  // 512 each column slice stores its own columns of K and V.
   uint32_t new_scales = 0u;  // the token's INT8 (K, V) scales, a bf16 pair
+  float inv_k = 1.f, inv_v = 1.f;
+  bool write = false;  // this block stores the new key's row
   if constexpr (FUSED) {
     const bool last = split == nsplit - 1;
     const long long slot = slot_mapping[q_start];
-    const bool write = last && slot >= 0 && slot < num_slots;
-    float inv_k = 1.f, inv_v = 1.f;
+    write = last && slot >= 0 && slot < num_slots;
     if constexpr (kScaled<C>) {
       if (last) {  // block-uniform: row_absmax holds a barrier
         __nv_bfloat16 bk, bv;
@@ -254,7 +297,7 @@ __global__ void __launch_bounds__(kW512Warps * 32) rpa_w512_kernel(
         inv_v = 1.f / __bfloat162float(bv);
         new_scales = (uint32_t)__bfloat16_as_ushort(bk) |
                      (uint32_t)__bfloat16_as_ushort(bv) << 16;
-        if (write && h == 0 && tid == 0) {
+        if (write && h == 0 && cs == 0 && tid == 0) {
           scales[2 * slot] = bk;
           scales[2 * slot + 1] = bv;
         }
@@ -263,10 +306,14 @@ __global__ void __launch_bounds__(kW512Warps * 32) rpa_w512_kernel(
     if (write) {
       const Q* kn = k_new + ((long long)q_start * num_kv_heads + h) * hd;
       const Q* vn = v_new + ((long long)q_start * num_kv_heads + h) * hd;
-      C* dst = cache + slot * row_stride + (long long)h * 2 * hd;
-      for (int i = tid; i < 2 * hd; i += NT)
-        dst[i] = i < hd ? encode<C>(to_float(kn[i]), inv_k)
-                        : encode<C>(to_float(vn[i - hd]), inv_v);
+      const int w = min(kW512, hd - c0);  // the slice's columns: all of hd up to 512
+      C* dst = cache + slot * row_stride + (long long)h * 2 * hd + c0;
+      for (int i = tid; i < 2 * w; i += NT) {
+        if (i < w)
+          dst[i] = encode<C>(to_float(kn[c0 + i]), inv_k);
+        else
+          dst[hd + i - w] = encode<C>(to_float(vn[c0 + i - w]), inv_v);
+      }
     }
   }
 
@@ -285,66 +332,22 @@ __global__ void __launch_bounds__(kW512Warps * 32) rpa_w512_kernel(
     slope[rr] = (alibi != nullptr && rvalid[rr]) ? alibi[h * group + gg] : 0.f;
     orow[rr] = (long long)(q_start + tok0 + ti) * num_q_heads + h * group + gg;
   }
-  // The Q tile: row r the tile's row r, 0 past head_dim and on rows past
-  // the tile or the group.
-  for (int i = tid; i < kW512Rows * (kW512 / 2); i += NT) {
-    const int r = i / (kW512 / 2), d = 2 * (i % (kW512 / 2));
-    const int ti = r / group_rows, gg = g0 + r - ti * group_rows;
-    uint32_t v = 0u;
-    if (r < nrows && gg < group && d < hd)
-      v = load_pair(q + ((long long)(q_start + tok0 + ti) * num_q_heads + h * group + gg) * hd +
-                        d,
-                    d, hd);
-    sts32(qs + r * L::kRow + 2 * d, v);
-  }
 
   auto slot_of = [&](int t) {
     const int key = t * KT + tid;
     if (key < key_lo || key > last_pos) return -1;
     return bt[key / block_size] * block_size + key % block_size;
   };
-  // Each thread copies one 16-byte piece of a (slot, kv head) K|V slice for
-  // every kPass-th key of a tile: piece p of a slice is piece p % kChunks of
-  // its K row (p < kChunks) or of its V row, which starts head_dim elements
-  // after K's; a piece past head_dim is zero-filled and reads nothing, and
-  // where the head is no multiple of 16 bytes its pieces are copied in
-  // copy_width pieces by a loop of their own.
-  constexpr int kPieces = 2 * L::kChunks;
-  static_assert(NT % kPieces == 0 && KT * kPieces % NT == 0, "pieces split evenly");
-  constexpr int kPass = NT / kPieces;
-  const int part = tid % kPieces, key0 = tid / kPieces;
-  const int pchunk = part % L::kChunks;
-  const int pbytes = piece_bytes(pchunk, head_bytes);
-  const char* src0 = reinterpret_cast<const char*>(cache) + (long long)h * 2 * head_bytes +
-                     (pbytes > 0 ? (part < L::kChunks ? 0 : head_bytes) + 16 * pchunk : 0);
-  const uint32_t dst0 =
-      (part < L::kChunks ? part * 16 : KT * L::kRawRow + (part - L::kChunks) * 16) +
-      key0 * L::kRawRow;
   const int cw = copy_width(head_bytes);
-  auto issue = [&](int t, int stage) {
-    const int* slots = slot_ring + ((t - tb) % (ST + 1)) * KT;
-    const uint32_t dst = ring + stage * L::kStageBytes + dst0;
-    if (cw == 16) {
-#pragma unroll
-      for (int i = 0; i < KT / kPass; ++i) {
-        const int slot = slots[key0 + i * kPass];
-        cp_async16(dst + i * kPass * L::kRawRow, src0 + (long long)max(slot, 0) * slot_bytes,
-                   slot >= 0 && pbytes > 0);
-      }
-    } else {
-#pragma unroll 1
-      for (int i = 0; i < KT / kPass; ++i) {
-        const int slot = slots[key0 + i * kPass];
-        cp_async_part(dst + i * kPass * L::kRawRow, src0 + (long long)max(slot, 0) * slot_bytes,
-                      slot >= 0 ? pbytes : 0, cw);
-      }
-    }
+  // The tile's INT8 scale pairs into the stage's slots (the new key's from
+  // the block's registers: another block stores them).
+  auto issue_scales = [&](int t, const int* slots, int stage) {
     if constexpr (kScaled<C>) {
       if (tid < KT) {
         const int slot = slots[tid];
         const uint32_t sdst = sc_base + (stage * KT + tid) * 4;
         if (FUSED && t * KT + tid == last_pos && split == nsplit - 1)
-          sts32(sdst, new_scales);  // the new key's: another block stores them
+          sts32(sdst, new_scales);
         else
           cp_async4(sdst, scales + 2LL * (slot >= 0 ? slot : 0), slot >= 0);
       }
@@ -352,8 +355,7 @@ __global__ void __launch_bounds__(kW512Warps * 32) rpa_w512_kernel(
   };
 
   const int col0 = warp * kW512Cols;
-  const bool warp_active = col0 < hd;
-  const int nk16 = (hd + 15) / 16;
+  const bool warp_active = c0 + col0 < hd;
   float o[kW512Cols / 8][4];
 #pragma unroll
   for (int n = 0; n < kW512Cols / 8; ++n)
@@ -361,60 +363,244 @@ __global__ void __launch_bounds__(kW512Warps * 32) rpa_w512_kernel(
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-  // Prologue: the slots of the first ST tiles, then ST - 1 tiles in flight.
-  // A tile's slots are read from the block table two iterations before its
-  // copies are issued. The barrier also orders the Q tile and the fused
-  // write before the ring's reads.
-  if (tid < KT) {
-#pragma unroll
-    for (int j = 0; j < ST; ++j)
-      if (tb + j < te) slot_ring[j * KT + tid] = slot_of(tb + j);
-  }
-  int pending = tid < KT && tb + ST < te ? slot_of(tb + ST) : -1;
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < ST - 1; ++j) {
-    if (tb + j < te) issue(tb + j, j);
-    cp_async_commit();
-  }
-
-  for (int t = tb; t < te; ++t) {
-    const int it = t - tb, stage = it % ST;
-    cp_async_wait<ST - 2>();
-    __syncthreads();  // tile t landed; every warp is done with tile t - 1
-    if (t + ST - 1 < te) issue(t + ST - 1, (it + ST - 1) % ST);
-    cp_async_commit();
-    if (tid < KT && t + ST < te) slot_ring[((it + ST) % (ST + 1)) * KT + tid] = pending;
-    pending = tid < KT && t + ST + 1 < te ? slot_of(t + ST + 1) : -1;
-
-    uint32_t kv = ring + stage * L::kStageBytes;
-    int row_bytes = L::kRawRow;
-    if constexpr (L::kBytes) {
-      // Widen the tile's raw K and V rows to Q once, all threads: int8 and
-      // e4m3 are exact in bf16 and in fp16.
-      for (int c = tid; c < 2 * KT * L::kChunks; c += NT) {
-        const int r = c / L::kChunks, piece = c - r * L::kChunks;
-        const uint4 w = lds128(kv + r * L::kRawRow + piece * 16);
-        const uint32_t dst = wide + r * L::kRow + piece * 32;
-        sts128(dst, widen2<C, Q>(w.x, 0), widen2<C, Q>(w.x, 2), widen2<C, Q>(w.y, 0),
-               widen2<C, Q>(w.y, 2));
-        sts128(dst + 16, widen2<C, Q>(w.z, 0), widen2<C, Q>(w.z, 2), widen2<C, Q>(w.w, 0),
-               widen2<C, Q>(w.w, 2));
-      }
-      __syncthreads();
-      kv = wide;
-      row_bytes = L::kRow;
+  if (ncs == 1) {
+    // The Q tile: row r the tile's row r, 0 past head_dim and on rows past
+    // the tile or the group.
+    for (int i = tid; i < kW512Rows * (kW512 / 2); i += NT) {
+      const int r = i / (kW512 / 2), d = 2 * (i % (kW512 / 2));
+      const int ti = r / group_rows, gg = g0 + r - ti * group_rows;
+      uint32_t v = 0u;
+      if (r < nrows && gg < group && d < hd)
+        v = load_pair(
+            q + ((long long)(q_start + tok0 + ti) * num_q_heads + h * group + gg) * hd + d, d,
+            hd);
+      sts32(qs + r * L::kRow + 2 * d, v);
     }
-    const int kbase = t * KT;
-    // A tile at or before the block's first query, and past its window, is
-    // visible to every row: no mask.
-    const bool masked =
-        !(kbase + KT - 1 <= first_pos && (window <= 0 || kbase > last_pos - window));
-    if (warp_active)
-      w512_warp_step<Q, kScaled<C>>(qs, kv, kv + KT * row_bytes, row_bytes,
-                                    sc_base + stage * KT * 4, kbase, qpos, slope,
-                                    alibi != nullptr, masked, scale, window, soft_cap, nk16,
-                                    col0, hd, o, m, l);
+    // Each thread copies one 16-byte piece of a (slot, kv head) K|V slice
+    // for every kPass-th key of a tile: piece p of a slice is piece p %
+    // kChunks of its K row (p < kChunks) or of its V row, which starts
+    // head_dim elements after K's; a piece past head_dim is zero-filled and
+    // reads nothing, and where the head is no multiple of 16 bytes its
+    // pieces are copied in copy_width pieces by a loop of their own.
+    constexpr int kPieces = 2 * L::kChunks;
+    static_assert(NT % kPieces == 0 && KT * kPieces % NT == 0, "pieces split evenly");
+    constexpr int kPass = NT / kPieces;
+    const int part = tid % kPieces, key0 = tid / kPieces;
+    const int pchunk = part % L::kChunks;
+    const int pbytes = piece_bytes(pchunk, head_bytes);
+    const char* src0 = reinterpret_cast<const char*>(cache) + (long long)h * 2 * head_bytes +
+                       (pbytes > 0 ? (part < L::kChunks ? 0 : head_bytes) + 16 * pchunk : 0);
+    const uint32_t dst0 =
+        (part < L::kChunks ? part * 16 : KT * L::kRawRow + (part - L::kChunks) * 16) +
+        key0 * L::kRawRow;
+    auto issue = [&](int t, int stage) {
+      const int* slots = slot_ring + ((t - tb) % (ST + 1)) * KT;
+      const uint32_t dst = ring + stage * L::kStageBytes + dst0;
+      if (cw == 16) {
+#pragma unroll
+        for (int i = 0; i < KT / kPass; ++i) {
+          const int slot = slots[key0 + i * kPass];
+          cp_async16(dst + i * kPass * L::kRawRow, src0 + (long long)max(slot, 0) * slot_bytes,
+                     slot >= 0 && pbytes > 0);
+        }
+      } else {
+#pragma unroll 1
+        for (int i = 0; i < KT / kPass; ++i) {
+          const int slot = slots[key0 + i * kPass];
+          cp_async_part(dst + i * kPass * L::kRawRow,
+                        src0 + (long long)max(slot, 0) * slot_bytes, slot >= 0 ? pbytes : 0, cw);
+        }
+      }
+      issue_scales(t, slots, stage);
+    };
+    const int nk16 = (hd + 15) / 16;
+
+    // Prologue: the slots of the first ST tiles, then ST - 1 tiles in
+    // flight. A tile's slots are read from the block table two iterations
+    // before its copies are issued. The barrier also orders the Q tile and
+    // the fused write before the ring's reads.
+    if (tid < KT) {
+#pragma unroll
+      for (int j = 0; j < ST; ++j)
+        if (tb + j < te) slot_ring[j * KT + tid] = slot_of(tb + j);
+    }
+    int pending = tid < KT && tb + ST < te ? slot_of(tb + ST) : -1;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < ST - 1; ++j) {
+      if (tb + j < te) issue(tb + j, j);
+      cp_async_commit();
+    }
+
+    for (int t = tb; t < te; ++t) {
+      const int it = t - tb, stage = it % ST;
+      cp_async_wait<ST - 2>();
+      __syncthreads();  // tile t landed; every warp is done with tile t - 1
+      if (t + ST - 1 < te) issue(t + ST - 1, (it + ST - 1) % ST);
+      cp_async_commit();
+      if (tid < KT && t + ST < te) slot_ring[((it + ST) % (ST + 1)) * KT + tid] = pending;
+      pending = tid < KT && t + ST + 1 < te ? slot_of(t + ST + 1) : -1;
+
+      uint32_t kv = ring + stage * L::kStageBytes;
+      int row_bytes = L::kRawRow;
+      if constexpr (L::kBytes) {
+        // Widen the tile's raw K and V rows to Q once, all threads: int8 and
+        // e4m3 are exact in bf16 and in fp16.
+        for (int c = tid; c < 2 * KT * L::kChunks; c += NT) {
+          const int r = c / L::kChunks, piece = c - r * L::kChunks;
+          const uint4 w = lds128(kv + r * L::kRawRow + piece * 16);
+          const uint32_t dst = wide + r * L::kRow + piece * 32;
+          sts128(dst, widen2<C, Q>(w.x, 0), widen2<C, Q>(w.x, 2), widen2<C, Q>(w.y, 0),
+                 widen2<C, Q>(w.y, 2));
+          sts128(dst + 16, widen2<C, Q>(w.z, 0), widen2<C, Q>(w.z, 2), widen2<C, Q>(w.w, 0),
+                 widen2<C, Q>(w.w, 2));
+        }
+        __syncthreads();
+        kv = wide;
+        row_bytes = L::kRow;
+      }
+      const int kbase = t * KT;
+      // A tile at or before the block's first query, and past its window,
+      // is visible to every row: no mask.
+      const bool masked =
+          !(kbase + KT - 1 <= first_pos && (window <= 0 || kbase > last_pos - window));
+      if (warp_active)
+        w512_warp_step<Q, kScaled<C>>(qs, kv, kv + KT * row_bytes, row_bytes,
+                                      sc_base + stage * KT * 4, kbase, qpos, slope,
+                                      alibi != nullptr, masked, scale, window, soft_cap, nk16,
+                                      col0, hd, o, m, l);
+    }
+  } else {
+    // Past 512, column slice cs of ncs: each key tile streams through the
+    // ring as ncs + 1 units of a stage each: for chunk u < ncs, K's columns
+    // 512u .. 512u + 511 (the stage's K rows) with Q's (16 Q-typed rows in
+    // its V rows), S summed over the chunks in order; then V's columns c0 ..
+    // c0 + 511 (its V rows). A tile's slots are read from the block table
+    // in the iteration before its first unit's copies are issued.
+    const int U = ncs + 1, n_units = (te - tb) * U;
+    const int cwq = copy_width(hd * 2);  // Q's rows: 16-bit values
+    constexpr int kQPieces = 2 * kW512 / 16;  // 16-byte pieces of a Q chunk's row
+    const Q* kn = FUSED ? k_new + ((long long)q_start * num_kv_heads + h) * hd : nullptr;
+    auto write_slots = [&](int t) {
+      if (tid < KT) slot_ring[((t - tb) % (ST + 1)) * KT + tid] = slot_of(t);
+    };
+    auto issue_unit = [&](int j, int stage) {
+      const int t = tb + j / U, u = j - (j / U) * U;
+      const int* slots = slot_ring + ((t - tb) % (ST + 1)) * KT;
+      const uint32_t base = ring + stage * L::kStageBytes;
+      // K's chunk u, or V's chunk cs: pieces 16 bytes wide, 0 past hd.
+      const int chunk = u < ncs ? u : cs;
+      const int half = u < ncs ? 0 : head_bytes;
+      const uint32_t rows = u < ncs ? base : base + KT * L::kRawRow;
+      for (int i = tid; i < KT * L::kChunks; i += NT) {
+        const int r = i / L::kChunks, p = i - r * L::kChunks;
+        const int pg = chunk * L::kChunks + p;
+        const int pb = piece_bytes(pg, head_bytes);
+        const int slot = slots[r];
+        const char* src = reinterpret_cast<const char*>(cache) +
+                          (long long)max(slot, 0) * slot_bytes + (long long)h * 2 * head_bytes +
+                          (pb > 0 ? half + 16 * pg : 0);
+        const uint32_t dst = rows + r * L::kRawRow + 16 * p;
+        if (cw == 16)
+          cp_async16(dst, src, slot >= 0 && pb > 0);
+        else
+          cp_async_part(dst, src, slot >= 0 ? pb : 0, cw);
+      }
+      if (u < ncs) {
+        // Q's chunk u: the tile's rows, 0 past hd and on rows past the tile
+        // or the group, in pieces as wide as Q's rows allow.
+        for (int i = tid; i < kW512Rows * kQPieces; i += NT) {
+          const int r = i / kQPieces, p = i - r * kQPieces;
+          const int ti = r / group_rows, gg = g0 + r - ti * group_rows;
+          const int e0 = u * kW512 + 8 * p;
+          const int nb = r < nrows && gg < group ? min(16, max(0, 2 * (hd - e0))) : 0;
+          const Q* src =
+              nb > 0
+                  ? q + ((long long)(q_start + tok0 + ti) * num_q_heads + h * group + gg) * hd +
+                        e0
+                  : q;
+          const uint32_t dst = base + KT * L::kRawRow + r * L::kRow + 16 * p;
+          if (cwq == 16)
+            cp_async16(dst, src, nb > 0);
+          else
+            cp_async_part(dst, reinterpret_cast<const char*>(src), nb, cwq);
+        }
+        if (u == ncs - 1) issue_scales(t, slots, stage);
+      }
+    };
+
+    write_slots(tb);
+    __syncthreads();  // the slots, and the fused write, before the ring's reads
+#pragma unroll
+    for (int j = 0; j < ST - 1; ++j) {
+      if (j < n_units) issue_unit(j, j);
+      cp_async_commit();
+    }
+    float sacc[KT / 8][4];
+    for (int it = 0; it < n_units; ++it) {
+      const int stage = it % ST, t = tb + it / U, u = it - (it / U) * U;
+      cp_async_wait<ST - 2>();
+      __syncthreads();  // unit it landed; every warp is done with unit it - 1
+      if (it + ST - 1 < n_units) issue_unit(it + ST - 1, (it + ST - 1) % ST);
+      cp_async_commit();
+      if ((it + ST) % U == 0 && it + ST < n_units) write_slots(tb + (it + ST) / U);
+
+      const uint32_t base = ring + stage * L::kStageBytes;
+      const bool k_unit = u < ncs;
+      uint32_t rows = k_unit ? base : base + KT * L::kRawRow;
+      int row_bytes = L::kRawRow;
+      // Fused: the new key (in the last split) takes K's chunk from k_new,
+      // encoded and decoded as the cache holds it: other slices' blocks
+      // store its other columns.
+      const int r_new = write && k_unit ? last_pos - t * KT : -1;
+      const bool new_here = r_new >= 0 && r_new < KT;
+      if constexpr (L::kBytes) {
+        // Widen the unit's raw rows to Q once (the new key's row apart).
+        const uint32_t dst_rows = k_unit ? wide : wide + KT * L::kRow;
+        for (int c = tid; c < KT * L::kChunks; c += NT) {
+          const int r = c / L::kChunks, piece = c - r * L::kChunks;
+          if (r == r_new) continue;
+          const uint4 w = lds128(rows + r * L::kRawRow + piece * 16);
+          const uint32_t dst = dst_rows + r * L::kRow + piece * 32;
+          sts128(dst, widen2<C, Q>(w.x, 0), widen2<C, Q>(w.x, 2), widen2<C, Q>(w.y, 0),
+                 widen2<C, Q>(w.y, 2));
+          sts128(dst + 16, widen2<C, Q>(w.z, 0), widen2<C, Q>(w.z, 2), widen2<C, Q>(w.w, 0),
+                 widen2<C, Q>(w.w, 2));
+        }
+        rows = dst_rows;
+        row_bytes = L::kRow;
+      }
+      if (new_here) {
+        for (int e = tid; e < kW512 / 2; e += NT) {
+          const int d = u * kW512 + 2 * e;
+          const float x = d < hd ? to_float(encode<C>(to_float(kn[d]), inv_k)) : 0.f;
+          const float y = d + 1 < hd ? to_float(encode<C>(to_float(kn[d + 1]), inv_k)) : 0.f;
+          sts32(rows + r_new * row_bytes + 4 * e, pack2<Q>(x, y));
+        }
+      }
+      if (L::kBytes || new_here) __syncthreads();
+      if (!warp_active) continue;
+      if (k_unit) {
+        if (u == 0) {
+#pragma unroll
+          for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
+        }
+        w512_scores<Q>(base + KT * L::kRawRow, rows, row_bytes,
+                       (min(kW512, hd - u * kW512) + 15) / 16, sacc);
+        if (u == ncs - 1) {
+          const int kbase = t * KT;
+          const bool masked =
+              !(kbase + KT - 1 <= first_pos && (window <= 0 || kbase > last_pos - window));
+          rpa_tile_softmax<KT, kW512Cols / 8, kScaled<C>>(
+              sacc, sc_base + stage * KT * 4, kbase, qpos, slope, alibi != nullptr, masked,
+              scale, window, soft_cap, o, m, l);
+        }
+      } else {
+        w512_pv<Q>(sacc, rows, row_bytes, col0, hd - c0, o);
+      }
+    }
   }
   cp_async_wait<0>();
   if (!warp_active) return;
@@ -430,7 +616,7 @@ __global__ void __launch_bounds__(kW512Warps * 32) rpa_w512_kernel(
       const float inv = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
 #pragma unroll
       for (int n = 0; n < kW512Cols / 8; ++n) {
-        const int d = col0 + 8 * n + 2 * c4;
+        const int d = c0 + col0 + 8 * n + 2 * c4;
         store_pair(out + orow[rr] * hd + d, d, hd,
                    pack2<Q>(o[n][2 * rr] * inv, o[n][2 * rr + 1] * inv));
       }
@@ -438,10 +624,10 @@ __global__ void __launch_bounds__(kW512Warps * 32) rpa_w512_kernel(
       const long long wrow = (long long)split * num_tokens * num_q_heads + orow[rr];
 #pragma unroll
       for (int n = 0; n < kW512Cols / 8; ++n) {
-        const int d = col0 + 8 * n + 2 * c4;
+        const int d = c0 + col0 + 8 * n + 2 * c4;
         store_pair_f32(ws_o + wrow * hd + d, d, hd, o[n][2 * rr], o[n][2 * rr + 1]);
       }
-      if (warp == 0 && c4 == 0) {
+      if (warp == 0 && c4 == 0 && cs == 0) {  // every slice's (m, l) are the same
         ws_ml[2 * wrow] = m[rr];
         ws_ml[2 * wrow + 1] = l[rr];
       }
@@ -492,7 +678,8 @@ int rpa_w512_entry(const void* q, const void* cache, const void* scales, const v
   const int slices = rpa_group_slices(group, 1);
   const int group_rows = (group + slices - 1) / slices;
   const int bq = kW512Rows / group_rows;
-  const dim3 grid(num_tokens / bq + num_seq_slots, num_kv_heads * slices, splits);
+  const dim3 grid(num_tokens / bq + num_seq_slots, num_kv_heads * slices,
+                  splits * column_slices(head_dim));
   rpa_w512_kernel<Q, C, false><<<grid, W512Tile<C>::kThreads, W512Tile<C>::kSmem,
                                  (cudaStream_t)stream>>>(
       (const Q*)q, nullptr, nullptr, (C*)cache, (__nv_bfloat16*)scales, nullptr, nullptr,
@@ -523,7 +710,7 @@ int fused_w512_entry(const void* q, const void* k_new, const void* v_new, void* 
   if (group < 1 || group > kW512Rows) return (int)cudaErrorInvalidValue;
   const cudaError_t opt_in = w512_attributes<Q, C, true>();
   if (opt_in != cudaSuccess) return (int)opt_in;
-  const dim3 grid(num_kv_heads, num_seq_slots, splits);
+  const dim3 grid(num_kv_heads, num_seq_slots, splits * column_slices(head_dim));
   rpa_w512_kernel<Q, C, true><<<grid, W512Tile<C>::kThreads, W512Tile<C>::kSmem,
                                 (cudaStream_t)stream>>>(
       (const Q*)q, (const Q*)k_new, (const Q*)v_new, (C*)cache, (__nv_bfloat16*)scales,

@@ -275,7 +275,7 @@ class _Graph:
     graph: object          # the step's graph; a tensor-parallel step's first segment
     inputs: tuple          # (packed, sampling, noise, feed[, hidden]): static inputs' views
     outputs: tuple
-    launches: Dict[str, int]   # each kernel's launches in one replay (every segment's)
+    launches: cuda_lib.LaunchTally  # each kernel's launches (and column slices) in one replay
     segments: List[_Segment] = dataclasses.field(default_factory=list)  # under TP
 
 
@@ -505,6 +505,6 @@ class StepGraphs:
                 raise
             end()
         if group is None:
-            return _Graph(running["graph"], views, outputs, dict(launches))
+            return _Graph(running["graph"], views, outputs, launches)
         segments.append(_Segment(running["graph"], None))
-        return _Graph(segments[0].graph, views, outputs, dict(launches), segments)
+        return _Graph(segments[0].graph, views, outputs, launches, segments)

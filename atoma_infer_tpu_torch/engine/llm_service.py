@@ -92,14 +92,14 @@ def _load_tokenizer(model_dir: str):
 
 
 def check_kernel_shapes(model_config, config: EngineConfig) -> None:
-    """Raise ``ValueError``, naming the ROADMAP.md item, when the card has
-    no attention kernel for the model's shapes served as ``config`` says:
-    its head dim and a rank's GQA group (its q heads over its kv heads,
-    copies of a kv head counted when ``tensor_parallel_size`` is wider than
-    the kv heads), the activations' dtype and the KV cache's
-    (``ops/paged_attention.py`` ``check_kernel_shape``, which the kernels'
-    wrappers call too): the ragged kernel's, which every step runs (any
-    group; an even head dim from 8 to 256), and the fused kernel's where
+    """Raise ``ValueError`` when the card has no attention kernel for the
+    model's shapes served as ``config`` says: its head dim and a rank's GQA
+    group (its q heads over its kv heads, copies of a kv head counted when
+    ``tensor_parallel_size`` is wider than the kv heads), the activations'
+    dtype and the KV cache's (``ops/paged_attention.py``
+    ``check_kernel_shape``, which the kernels' wrappers call too): the
+    ragged kernel's, which every step runs (any group; any head dim from 1
+    up, past 512 in column slices), and the fused kernel's where
     ``decode_route`` sends pure-decode steps to it (up to
     ``MAX_FUSED_GROUP``; past that they take the write and the ragged
     kernel). ``LlmService.start`` calls it on the card before anything is

@@ -18,7 +18,9 @@ device whatever the pointers, so a pipeline stage on ``cuda:1`` must launch
 there. A call made while a CUDA graph is captured launches
 nothing: it is recorded in the capture's tally (:func:`recording_launches`)
 instead, and every replay of that graph adds the tally
-(:func:`count_replay`).
+(:func:`count_replay`). A kernel whose grid has column slices (the width-512
+attention kernels past a head dim of 512) also counts the slices it
+launched, in ``columns``, beside ``launches``.
 """
 
 from __future__ import annotations
@@ -149,13 +151,14 @@ class CudaKernel:
         self.argtypes = argtypes
         self.replaces = replaces      # the TPU kernel it replaces (file:line)
         self.launches = 0
+        self.columns = 0              # column slices over the launches (1 each but past 512)
         self._fn = None
 
-    def __call__(self, *args, device) -> None:
+    def __call__(self, *args, device, columns: int = 1) -> None:
         """Launch on ``device`` (arguments already validated by the wrapper,
         ``device`` from :func:`launch_device`) with it current, and count
-        it; raises on a nonzero ``cudaGetLastError`` from the C entry
-        point."""
+        it and the ``columns`` slices its grid has; raises on a nonzero
+        ``cudaGetLastError`` from the C entry point."""
         if self._fn is None:
             fn = getattr(load(self.source), self.symbol)
             fn.argtypes = self.argtypes
@@ -170,8 +173,19 @@ class CudaKernel:
         tally = getattr(_capture, "tally", None)
         if tally is None:
             self.launches += 1
+            self.columns += columns
         else:
             tally[self.name] = tally.get(self.name, 0) + 1
+            tally.columns[self.name] = tally.columns.get(self.name, 0) + columns
+
+
+class LaunchTally(dict):
+    """A capture's kernels (name → calls) and, in ``columns``, the column
+    slices of those calls (name → slices)."""
+
+    def __init__(self):
+        super().__init__()
+        self.columns: Dict[str, int] = {}
 
 
 KERNELS: Dict[str, CudaKernel] = {}
@@ -189,18 +203,19 @@ def recording_launches():
     capture launches nothing."""
     if getattr(_capture, "tally", None) is not None:
         raise RuntimeError("a CUDA graph capture is already recording launches")
-    _capture.tally = tally = {}
+    _capture.tally = tally = LaunchTally()
     try:
         yield tally
     finally:
         _capture.tally = None
 
 
-def count_replay(tally: Dict[str, int]) -> None:
+def count_replay(tally: LaunchTally) -> None:
     """Count one replay of a captured graph: each of its kernels launched
-    as many times as the capture recorded."""
+    as many times, in as many column slices, as the capture recorded."""
     for name, calls in tally.items():
         KERNELS[name].launches += calls
+        KERNELS[name].columns += tally.columns[name]
 
 
 def launch_device(*tensors) -> torch.device:

@@ -54,33 +54,41 @@ and ``csrc/paged_attention_mma.cuh``, instantiated by
 ``paged_attention{,_int8,_fp8}_fused.cu``) and
 ``paged_attention{,_int8,_fp8}_mma.cu``.
 
-Every route takes any head dim from 1 to 512, as JAX takes the head dim
-from the config: each kernel is instantiated at the widths 32, 64, 96, 128,
-256 and 512 (``INSTANCE_DIMS``) and runs a head dim on the smallest that
-holds it (:func:`instance_dim`), the head dim passed at run time. A head dim
-below its width takes a padded instantiation of its own (one a width: the
-tensor-core ragged kernel at 8 warps, the split fused kernel at both
-halves of its tile, the CUDA-core kernels at key tiles of 8 and at the
-run-time group), its padded columns staged as zeros and never stored
-(h2o-danube-1.8b's 80 runs at 96, OpenLLaMA-3B's 100 and h2o-danube3-4b's
-120 at 128); odd head dims there are read and written a half of a pair at a
+Every route takes any head dim from 1 up, as JAX takes the head dim from
+the config: each kernel is instantiated at the widths 32, 64, 96, 128, 256
+and 512 (``INSTANCE_DIMS``) and runs a head dim on the smallest that holds
+it, past 512 on the width 512 (:func:`instance_dim`), the head dim passed at
+run time. A head dim below its width takes a padded instantiation of its
+own (one a width: the tensor-core ragged kernel at 8 warps, the split fused
+kernel at both halves of its tile, the CUDA-core kernels at key tiles of 8
+and at the run-time group), its padded columns staged as zeros and never
+stored (h2o-danube-1.8b's 80 runs at 96, OpenLLaMA-3B's 100 and
+h2o-danube3-4b's 120 at 128); odd head dims there are read and written a half of a pair at a
 time (ALiBi models: RoPE takes even ones), an odd head of a 1-byte cache
 copied byte by byte. The widths' own head dims run the code they ran before.
 The 1-byte caches' tensor-core kernels and the f32 queries' CUDA-core
 kernels at the widths 96 and 256 are instantiations of their own
 (``*_wide``, in ``paged_attention{,_int8,_fp8}_wide*.cu`` and
 ``fused_decode_split{_int8,_fp8}_wide*.cu``), so that the sources build in
-parallel. The width 512 (head dims 257 to 512) has only its padded
+parallel. The width 512 (head dims past 256) has only its padded
 instantiation, of every kernel, in sources of its own
 (``paged_attention{,_int8,_fp8}_w512{,_f16}.cu``): on the tensor cores one
 kernel for A, D, E and the fused B, D, E (``csrc/paged_attention_w512.cuh``:
 one 16-row tile a block, its 4 warps splitting O's columns, Q's fragments
 from shared memory, 32-key ring stages; :func:`rpa_mma_plan` with
 ``split_cols``), on the CUDA cores ``rpa_kernel`` and ``fused_decode_kernel``
-at the width 512. The ragged kernels take any group: the tensor-core kernel
-cuts a token's group past 128 q heads per kv head (past 16 at the width 512)
-into slices, a block each (:func:`rpa_mma_plan`), as the CUDA-core kernel
-cuts a wide group over blocks.
+at the width 512. Past 512 every width-512 kernel cuts the head's columns
+into :func:`column_slices` of 512, a block each (one more grid index): a
+block computes each key's whole Q·Kᵀ over the head dim and owns 512 of the
+output's columns, whose V it alone reads; the slices compute the same
+scores in the same order, so nothing crosses them, at the cost of K read
+once a slice (the plans count their blocks). The fused kernels' slices
+store their own columns of the new K and V; the new key's K comes from
+``k_new``, encoded and decoded as the cache holds it. The ragged kernels
+take any group: the tensor-core kernel cuts a token's group past 128 q heads
+per kv head (past 16 at the width 512) into slices, a block each
+(:func:`rpa_mma_plan`), as the CUDA-core kernel cuts a wide group over
+blocks.
 
 Dispatch: CUDA tensors launch the kernels of their cache's dtype and their
 queries' route (or raise: an int8 or e4m3 cache never takes a bf16 kernel
@@ -125,11 +133,14 @@ TC_DTYPES = (torch.bfloat16, torch.float16)
 # The widths every route's kernels are instantiated at; the wide ones are
 # Phi-3-mini's and Gemma-2's head dims, and those of their own sources; the
 # width 512 has sources of its own for every kernel (W512). A head dim runs
-# at the smallest width that holds it (instance_dim).
+# at the smallest width that holds it, past 512 at 512 in column slices
+# (instance_dim, column_slices). No head dim is too large: a slice's shared
+# memory and registers are those of 512, and its grid index counts the
+# slices.
 INSTANCE_DIMS = (32, 64, 96, 128, 256, 512)
 WIDE_HEAD_DIMS = (96, 256)
 W512 = 512
-MIN_HEAD_DIM, MAX_HEAD_DIM = 1, 512
+MIN_HEAD_DIM = 1
 # The fused decode kernels take up to 16 q heads per kv head: one m16 tile
 # of Q·Kᵀ a kv head.
 MAX_FUSED_GROUP = 16
@@ -311,15 +322,23 @@ _FUSED_TC = {(torch.bfloat16, "narrow"): FUSED_DECODE_SPLIT,
 
 def instance_dim(head_dim: int) -> int:
     """The width a head dim runs at: the smallest of ``INSTANCE_DIMS`` that
-    holds it (the kernels' ``instance_dim``, ``csrc/paged_attention.cuh``).
-    ``head_dim`` is a head dim from 1 to 512 (:func:`check_kernel_shape`)."""
-    return next(d for d in INSTANCE_DIMS if d >= head_dim)
+    holds it, 512 past it (the kernels' ``instance_dim``,
+    ``csrc/paged_attention.cuh``). ``head_dim`` is at least 1
+    (:func:`check_kernel_shape`)."""
+    return next((d for d in INSTANCE_DIMS if d >= head_dim), W512)
+
+
+def column_slices(head_dim: int) -> int:
+    """The column slices a width-512 kernel cuts a head dim into, a block
+    each (the kernels' ``column_slices``): ceil(head_dim / 512), one up to
+    512."""
+    return max(1, -(-head_dim // W512))
 
 
 def _tier(kind, head_dim) -> str:
     """Which sources hold a cache of ``kind``'s kernels at ``head_dim``:
-    ``"w512"`` at the width 512 (every cache kind), ``"wide"`` for a 1-byte
-    cache at the widths 96 and 256, else ``"narrow"``."""
+    ``"w512"`` at the width 512 and past it (every cache kind), ``"wide"``
+    for a 1-byte cache at the widths 96 and 256, else ``"narrow"``."""
     width = instance_dim(head_dim)
     if width == W512:
         return "w512"
@@ -386,7 +405,9 @@ class RpaPlan:
     rows each; at the width 512 4 warps over one 16-row tile, each a
     quarter of the columns), query tokens a tile, the most KV splits a row
     takes, and the slices a token's group is cut into (past the tile's rows;
-    the kernel's ``rpa_group_slices``), each a block of its own."""
+    the kernel's ``rpa_group_slices``), each a block of its own (past 512
+    each column slice too, :func:`column_slices`: the kernel's grid is (T /
+    tokens + S, Hk · slices, splits · column slices))."""
 
     warps: int
     tokens: int
@@ -427,7 +448,7 @@ W512_WARPS = 4
 
 def rpa_mma_plan(*, num_seq_slots: int, num_tokens: int, max_q_len: int, max_keys: int,
                  group: int, num_kv_heads: int, slots: int, padded: bool = False,
-                 split_cols: bool = False) -> RpaPlan:
+                 split_cols: bool = False, columns: int = 1) -> RpaPlan:
     """The launch plan from what the host knows: S sequence slots, T query
     rows, the longest chunk, the block table's width in keys (P × block
     size), the GQA group and kv heads, and ``slots``, the blocks of this
@@ -435,18 +456,19 @@ def rpa_mma_plan(*, num_seq_slots: int, num_tokens: int, max_q_len: int, max_key
     device's ``seq_lens``. The query tiles that hold a token number about
     max(ceil(T / tokens), min(S, T)): the tokens packed, or one tile a
     sequence (one token a tile past 128 q heads per kv head, its group cut
-    into slices); with one block per (tile, kv head, slice) that is the grid
-    FA2's heuristic sizes against the card, with the key tiles counted in
-    whole splits of ``RPA_MIN_TILES``. ``padded``: the head dim is below its
-    width (:func:`rpa_warps`); ``split_cols``: its width is 512, whose
-    kernel's 4 warps share one 16-row tile (``W512_WARPS``)."""
+    into slices); with one block per (tile, kv head, slice, column slice)
+    that is the grid FA2's heuristic sizes against the card, with the key
+    tiles counted in whole splits of ``RPA_MIN_TILES``. ``padded``: the head
+    dim is below its width (:func:`rpa_warps`); ``split_cols``: its width is
+    512, whose kernel's 4 warps share one 16-row tile (``W512_WARPS``);
+    ``columns``: its column slices past 512 (:func:`column_slices`)."""
     warps = W512_WARPS if split_cols else rpa_warps(group, max_q_len, num_seq_slots, padded)
     row_tiles = 1 if split_cols else warps
     slices = rpa_group_slices(group, row_tiles)
     tokens = row_tiles * RPA_WARP_ROWS // -(-group // slices)
     tiles = max(-(-num_tokens // tokens), min(num_seq_slots, num_tokens))
     key_tiles = -(-max_keys // RPA_KEY_TILE)
-    splits = num_splits_heuristic(tiles * num_kv_heads * slices, slots,
+    splits = num_splits_heuristic(tiles * num_kv_heads * slices * columns, slots,
                                   -(-key_tiles // RPA_MIN_TILES), RPA_MAX_SPLITS)
     return RpaPlan(warps, tokens, splits, slices)
 
@@ -483,7 +505,7 @@ def rpa_plan_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> RpaPlan:
     return rpa_mma_plan(
         num_seq_slots=S, num_tokens=T, max_q_len=max_q_len, max_keys=P * meta.block_size,
         group=group, num_kv_heads=num_kv_heads, padded=padded, split_cols=split_cols,
-        slots=_rpa_slots(kind, D, warps, q.device.index or 0))
+        columns=column_slices(D), slots=_rpa_slots(kind, D, warps, q.device.index or 0))
 
 
 def split_key_ranges(pos: int, window: Optional[int], splits: int, min_tiles: int):
@@ -503,14 +525,15 @@ def split_key_ranges(pos: int, window: Optional[int], splits: int, min_tiles: in
 
 @functools.lru_cache(maxsize=None)
 def fused_split_plan(*, num_seq_slots: int, max_keys: int, num_kv_heads: int,
-                     slots: int) -> int:
+                     slots: int, columns: int = 1) -> int:
     """The most KV splits a decode row of the split fused kernel takes,
     from shapes alone: FA2's heuristic on the grid of (kv head, sequence
-    slot) blocks against ``slots``, the blocks the card holds at once
-    (:func:`_fused_slots`), counting the block table's width (P × block
-    size) in splits of ``FUSED_MIN_TILES`` key tiles. Never ``seq_lens``."""
+    slot, column slice past 512) blocks against ``slots``, the blocks the
+    card holds at once (:func:`_fused_slots`), counting the block table's
+    width (P × block size) in splits of ``FUSED_MIN_TILES`` key tiles. Never
+    ``seq_lens``."""
     key_tiles = -(-max_keys // RPA_KEY_TILE)
-    return num_splits_heuristic(num_seq_slots * num_kv_heads, slots,
+    return num_splits_heuristic(num_seq_slots * num_kv_heads * columns, slots,
                                 -(-key_tiles // FUSED_MIN_TILES), RPA_MAX_SPLITS)
 
 
@@ -537,6 +560,7 @@ def fused_splits_for(q: torch.Tensor, meta, num_kv_heads: int, kind) -> int:
     S, P = meta.block_tables.shape
     return fused_split_plan(
         num_seq_slots=S, max_keys=P * meta.block_size, num_kv_heads=num_kv_heads,
+        columns=column_slices(D),
         slots=_fused_slots(kind, D, Hq // num_kv_heads, q.device.index or 0))
 
 
@@ -654,13 +678,20 @@ def decode_route(num_q_heads: int, num_kv_heads: int) -> str:
     return "fused" if num_q_heads // num_kv_heads <= MAX_FUSED_GROUP else "ragged"
 
 
+def _check_head_dim(head_dim: int, dtype: torch.dtype, kind) -> None:
+    if head_dim < MIN_HEAD_DIM:
+        raise ValueError(
+            f"paged attention: unsupported head_dim {head_dim} for {dtype} queries over a "
+            f"{kind or dtype} cache (head dims from {MIN_HEAD_DIM})")
+
+
 def check_kernel_shape(*, head_dim: int, dtype: torch.dtype, kind, group: int,
                        block_size: int, fused: bool) -> None:
     """Raise ``ValueError`` for a shape no kernel takes: ``head_dim`` for
     queries of ``dtype`` (bf16, fp16 or f32) over a cache of ``kind`` (None:
-    the queries' own dtype; or int8, float8_e4m3fn) must be from
-    ``MIN_HEAD_DIM`` to ``MAX_HEAD_DIM``, on every route (a refusal names
-    the ROADMAP.md item that would add more); the ragged kernel (A, D, E)
+    the queries' own dtype; or int8, float8_e4m3fn) must be at least
+    ``MIN_HEAD_DIM``, on every route, with no upper cap (past 512 the
+    width-512 kernels take column slices); the ragged kernel (A, D, E)
     takes any block size that is a multiple of 8, as the configuration
     does, and any number of query heads per kv head; the fused decode kernel
     (B and D's and E's fused variants) 1 to ``MAX_FUSED_GROUP``, its
@@ -668,11 +699,7 @@ def check_kernel_shape(*, head_dim: int, dtype: torch.dtype, kind, group: int,
     it."""
     if dtype not in Q_DTYPES:
         raise ValueError(f"paged attention: q {dtype} must be bfloat16, float16 or float32")
-    if not MIN_HEAD_DIM <= head_dim <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"paged attention: unsupported head_dim {head_dim} for {dtype} queries over a "
-            f"{kind or dtype} cache (head dims {MIN_HEAD_DIM} to {MAX_HEAD_DIM}; larger ones "
-            "wait for ROADMAP.md, Queue 1 item 22: attention at head dims past 512)")
+    _check_head_dim(head_dim, dtype, kind)
     if block_size <= 0 or block_size % 8:
         raise ValueError(f"paged attention: block_size {block_size} is not a positive "
                          "multiple of 8")
@@ -708,6 +735,7 @@ def _check(q, kv_cache, meta, alibi_slopes, kv_scales, *, fused, extra=()) -> tu
         if kv_scales.dtype != torch.bfloat16 or kv_scales.shape != (num_pages, bs, 2):
             raise ValueError("paged attention: kv_scales must be bfloat16 [pages, block_size, 2]")
         extra = tuple(extra) + (kv_scales,)
+    _check_head_dim(D, q.dtype, kind)  # before the cache row is divided by it
     if row % (2 * D) or Hq % (row // (2 * D)):
         raise ValueError(
             f"paged attention: cache row {row} holds no whole number of kv heads of "
@@ -783,7 +811,7 @@ def ragged_paged_attention_cuda(
         out.data_ptr(),
         S, q.shape[1], Hk, D, P, meta.block_size, int(meta.max_q_len),
         float(scale), _window(sliding_window), _cap(soft_cap),
-        cuda_lib.current_stream_handle(dev), device=dev,
+        cuda_lib.current_stream_handle(dev), device=dev, columns=column_slices(D),
     )
     return out
 
@@ -831,7 +859,7 @@ def ragged_paged_attention_mma_launch(
         None if ws_ml is None else ws_ml.data_ptr(),
         T, S, Hq, Hk, D, P, meta.block_size, plan.warps, plan.splits, RPA_MIN_TILES,
         float(scale), _window(sliding_window), _cap(soft_cap),
-        cuda_lib.current_stream_handle(dev), device=dev,
+        cuda_lib.current_stream_handle(dev), device=dev, columns=column_slices(D),
     )
     if plan.splits > 1:
         split_combine(ws_o, ws_ml, out, meta, num_kv_heads=Hk, bq=plan.tokens,
@@ -919,7 +947,7 @@ def ragged_paged_attention_fused_cuda(
         out.data_ptr(),
         S, Hq, Hk, D, P, bs, num_pages * bs,
         float(scale), _window(sliding_window), _cap(soft_cap),
-        cuda_lib.current_stream_handle(dev), device=dev,
+        cuda_lib.current_stream_handle(dev), device=dev, columns=column_slices(D),
     )
     return out
 
@@ -956,7 +984,7 @@ def fused_split_launch(
         None if ws_ml is None else ws_ml.data_ptr(),
         T, S, Hq, Hk, D, P, bs, num_pages * bs, splits, min_tiles,
         float(scale), _window(sliding_window), _cap(soft_cap),
-        cuda_lib.current_stream_handle(dev), device=dev,
+        cuda_lib.current_stream_handle(dev), device=dev, columns=column_slices(D),
     )
     if splits > 1:
         split_combine(ws_o, ws_ml, out, meta, num_kv_heads=Hk, bq=1, splits=splits,

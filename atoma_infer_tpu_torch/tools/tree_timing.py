@@ -14,13 +14,20 @@ checkout older than itself):
   every turn (one build a tree spreads by about 10%);
 * kernel A (bf16 queries over a bf16 cache) on the mixed batch and kernel B
   on the 64 decode rows of ``chip_smoke.py``'s kernels line at
-  Llama-3.2-1B's attention (32 q heads over 8 kv heads of 64), and D (INT8
+  Llama-3.2-1B's attention (32 q heads over 8 kv heads of 64), D (INT8
   cache) and E (e4m3 cache), ragged and fused, on its batches at
-  Llama-3.1-8B's (32 over 8 of 128): the sequences from this checkout's
-  ``chip_smoke.kernel_line_specs`` and the rest of the batch from the same
-  generator state as the kernels line, built by the tree's own
-  ``make_batch`` and ``kv8_cache`` and timed by its ``cuda_ms`` (50
-  launches after 5).
+  Llama-3.1-8B's (32 over 8 of 128), and A and B on the width 512's rows
+  (``check_wide_head_kernels``: Gemma-2-9B's widths with heads of 512, 8 q
+  heads over 4 kv heads, soft cap 50, keys up to 1,023 on the mixed
+  batch): the sequences from this checkout's ``chip_smoke.kernel_line_specs``
+  and the rest of the batch from the same generator state as the kernels
+  line, built by the tree's own ``make_batch`` and ``kv8_cache`` and timed
+  by its ``cuda_ms`` (50 launches after 5).
+
+Before the timed turns every tree runs one turn of its own, untimed (its
+numbers printed and left out of the means): a tree's first timed kernels
+read up to 22% slow on code that did not change, and the warm-up takes
+that turn.
 
 Usage (on the card, from the root of a checkout; the parent unpacked with
 ``git archive`` into a directory of the checkout that ``.gitignore``
@@ -32,9 +39,10 @@ lists)::
         --trees _chip_scratch/parent . . _chip_scratch/parent
 
 A tree must lie inside the working directory, since its build directory is
-deleted. Prints one line per run and a JSON summary (each kernel's time and
-the build by tree, the runs' means, and the change against the first tree
-in percent).
+deleted. Prints one line per run (the build, its five slowest sources and
+each kernel's time) and a JSON summary (each kernel's time and the build by
+tree, the runs' means, and the change against the first tree in
+percent).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -49,10 +58,13 @@ import time
 
 ITERS, WARMUP = 50, 5
 CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-# (label, kernels-line seed, q heads, kv heads, head dim, cache kinds): the
-# 1B's A and B rows (chip_smoke.py check_kernels) and the 8B's D and E rows
-# (check_kv8_kernels).
-SHAPES = (("1B", 0, 32, 8, 64, (None,)), ("8B", 1, 32, 8, 128, ("int8", "fp8")))
+# (label, kernels-line seed, q heads, kv heads, head dim, cache kinds, the
+# mixed batch's longest row, score modifiers): the 1B's A and B rows
+# (chip_smoke.py check_kernels), the 8B's D and E rows (check_kv8_kernels)
+# and the width 512's A and B rows (check_wide_head_kernels).
+SHAPES = (("1B", 0, 32, 8, 64, (None,), 2048, {}),
+          ("8B", 1, 32, 8, 128, ("int8", "fp8"), 2048, {}),
+          ("Gemma-2-9B D=512", 512, 8, 4, 512, (None,), 1024, dict(soft_cap=50.0)))
 
 
 def batch_specs() -> dict:
@@ -64,9 +76,9 @@ def batch_specs() -> dict:
     import chip_smoke
 
     specs = {}
-    for label, seed, *_ in SHAPES:
+    for label, seed, *_, max_keys, _ in SHAPES:
         rng = np.random.default_rng(seed)
-        mixed, decode = chip_smoke.kernel_line_specs(rng)
+        mixed, decode = chip_smoke.kernel_line_specs(rng, max_keys=max_keys)
         specs[label] = dict(mixed=mixed, decode=decode, rng=rng.bit_generator.state)
     return specs
 
@@ -87,11 +99,14 @@ def worker(tree: str, specs: dict) -> dict:
         assert module.__file__.startswith(os.path.abspath(tree)), module.__file__
     shutil.rmtree(cuda_lib.BUILD_DIR, ignore_errors=True)
     t0 = time.monotonic()
-    cuda_lib.build_all()
+    logs = cuda_lib.build_all()
     build_s = time.monotonic() - t0
+    # The sources that finished last, which set the build's wall.
+    slowest = sorted(((float(re.match(r"built in (\S+) s", text).group(1)), source)
+                      for source, text in logs.items()), reverse=True)[:5]
     ms = {}
     dev = torch.device("cuda")
-    for label, _, hq, hk, d, kinds in SHAPES:
+    for label, _, hq, hk, d, kinds, _, mods in SHAPES:
         rng = np.random.default_rng()
         rng.bit_generator.state = specs[label]["rng"]
         shape = dict(hq=hq, hk=hk, d=d, bs=16, dtype=torch.bfloat16, device=dev)
@@ -105,18 +120,18 @@ def worker(tree: str, specs: dict) -> dict:
                              else chip_smoke.kv8_cache(torch, mixed["cache"], kind, d))
             ms[f"{label} {name} ragged"] = chip_smoke.cuda_ms(
                 lambda: pa.ragged_paged_attention_cuda(
-                    mixed["q"], cache, mixed["meta"], scale=d ** -0.5, kv_scales=scales),
+                    mixed["q"], cache, mixed["meta"], scale=d ** -0.5, kv_scales=scales, **mods),
                 iters=ITERS, warmup=WARMUP)
             dcache, dscales = ((decode["cache"], None) if kind is None
                                else chip_smoke.kv8_cache(torch, decode["cache"], kind, d))
             ms[f"{label} {name} fused"] = chip_smoke.cuda_ms(
                 lambda: pa.ragged_paged_attention_fused_cuda(
                     decode["q"], dcache, decode["k"], decode["v"], decode["meta"],
-                    scale=d ** -0.5, kv_scales=dscales),
+                    scale=d ** -0.5, kv_scales=dscales, **mods),
                 iters=ITERS, warmup=WARMUP)
         del mixed, decode
         torch.cuda.empty_cache()
-    return dict(tree=tree, build_s=build_s, ms=ms)
+    return dict(tree=tree, build_s=build_s, slowest=slowest, ms=ms)
 
 
 def main(argv=None) -> int:
@@ -138,14 +153,20 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip(), flush=True)
     specs = json.dumps(batch_specs())
-    runs = []
-    for tree in args.trees:
+
+    def turn(tree):
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree,
                               "--specs", specs], capture_output=True, text=True)
         if out.returncode != 0:
             print(out.stdout, out.stderr, file=sys.stderr)
-            return out.returncode
-        run = json.loads(out.stdout.strip().splitlines()[-1])
+            raise SystemExit(out.returncode)
+        return json.loads(out.stdout.strip().splitlines()[-1])
+
+    for tree in dict.fromkeys(args.trees):  # each tree's warm-up turn, untimed
+        print(json.dumps(dict(turn(tree), warmup=True)), flush=True)
+    runs = []
+    for tree in args.trees:
+        run = turn(tree)
         runs.append(run)
         print(json.dumps(run), flush=True)
     by_tree = {}

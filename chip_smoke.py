@@ -137,9 +137,9 @@ raises on failure; nothing is caught):
    the full-width bf16 Llama-3.2-1B (16 layers, KV pool sized from
    ``torch.cuda.mem_get_info``), the full-width bf16 Llama-3.2-3B (28
    layers, 3 query heads per kv head) and the 1B again with blocks of 64,
-   then the full-width Llama-3.1-8B (16 of its 32 layers,
+   then the full-width Llama-3.1-8B (8 of its 32 layers,
    ``QUANT_MAIN_LAYERS``, bf16 activations, llama3 rope scaling, untied
-   per-channel INT8 LM head) with INT8 weights, then at 8 of its layers
+   per-channel INT8 LM head) with INT8 weights, then at 4 of its layers
    (``QUANT_HALF_LAYERS``) with INT4 weights and INT8 weights under W8A8
    over a bf16 KV cache, and INT8 weights over an INT8 KV cache (pool sized
    from free memory) and an e4m3 one; random weights from a
@@ -192,7 +192,7 @@ raises on failure; nothing is caught):
    ``GROUP_FAMILIES``): Mistral-Large-Instruct-2407 at 4 of 88 layers in
    bf16 and Llama-3.1-405B at 4 of 126 with INT8 weights over an INT8 and
    an e4m3 cache; and Llama-3.1-8B's widths with its 32 q heads over one kv
-   head (G = 32) at 8 of 32 layers over a bf16 and an INT8 cache; each with
+   head (G = 32) at 4 of 32 layers over a bf16 and an INT8 cache; each with
    the plain attention, eager and with graphs: tokens identical eager and
    with graphs, within the near-tie rule of the plain attention's, every
    pure-decode step on the split fused kernel and no decode step on the
@@ -237,7 +237,8 @@ raises on failure; nothing is caught):
    first captures by step kind, segments a graph, collectives and kernel
    launches a pure-decode step eager and replayed (equal), a decode key's
    segments replayed alone and the idle share, and each rank's graph
-   memory against the reserve printed; then at 8 layers INT8 weights over
+   memory against the reserve printed; then at ``TP_KERNEL_LAYERS`` layers
+   INT8 weights over
    an e4m3 cache (E) and under W8A8 (H), with graphs, against tp = 1 under
    the near-tie rule; a follower that fails or does not exit fails the
    run. Then pipeline and context parallelism (``run_pp_services``, its
@@ -292,6 +293,7 @@ repository.
 from __future__ import annotations
 
 import asyncio
+import functools
 import gc
 import json
 import os
@@ -1713,7 +1715,16 @@ WIDE_HEAD_SHAPES = (
     # over 4 kv heads; its prefill chunk fills the card unsplit, so the
     # merge follows the fused kernel on 8 long decode rows, which splits.
     ("Gemma-2-9B D=512", 8, 4, 512, dict(soft_cap=50.0), dict(decode=True)),
+    # Past 512, the width 512's column slices at Llama-3.1-8B's widths
+    # (HEAD_DIM_FAMILIES): 4 q heads of 1,024 over one kv head (two slices),
+    # and 2 of 2,048 (four; no service: its rows are logged, not in the
+    # kernels line).
+    ("Llama-3.1-8B D=1024", 4, 1, 1024, {}, dict(decode=True)),
+    ("Llama-3.1-8B D=2048", 2, 1, 2048, {}, dict(decode=True)),
 )
+# The head dim past 512 whose rows the kernels line lists, their launches
+# those of the services past 512 (every one in column slices).
+PAST_512_LINE_DIM = 1024
 
 
 def check_wide_head_kernels(torch):
@@ -1731,8 +1742,10 @@ def check_wide_head_kernels(torch):
     chunk (Gemma-2-9B) or after the fused kernel on 8 long decode rows
     launched with 4 splits (Phi-3-mini, whose plans never split:
     ``WIDE_HEAD_SHAPES``); at Gemma-2-9B's widths with head dim 512 (the
-    ``*_w512`` kernels) the write C timed too. Returns kernels-line rows
-    keyed ``kernel@D``."""
+    ``*_w512`` kernels) the write C timed too; past 512 (Llama-3.1-8B's
+    widths with heads of 1,024 and 2,048: the ``*_w512`` kernels in two and
+    four column slices) A, B, D, E and the merge with bf16 queries, the
+    services' route. Returns kernels-line rows keyed ``kernel@D``."""
     import numpy as np
 
     from atoma_infer_tpu_torch.ops import kv_write
@@ -1858,7 +1871,9 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
     queries at ``FP16_WIDE_DIM`` and 512, and with f32 queries (the
     CUDA-core kernels), over INT8 and e4m3 caches made from the batches' bf16 ones;
     the 1-byte writes; A and B with f32 queries over an f32 cache (at the
-    width 512 also with fp16 queries over an fp16 cache). Each
+    width 512 also with fp16 queries over an fp16 cache). Past 512 bf16
+    queries only, as the services there run (``check_head_dim_variants``
+    checks the other dtypes). Each
     against its plain version (writes, fused caches and INT8 scales
     bit-exact; attention within ``ATTN_TOL``), then timed with CUDA events
     (the writes in a CUDA graph) beside its bound. Returns rows keyed
@@ -1893,6 +1908,8 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
         for dtype_name, dtype, elt in queries:
             if dtype_name == "float16" and d not in (FP16_WIDE_DIM, W512):
                 continue
+            if dtype_name != "bfloat16" and d > W512:
+                continue  # past 512 only bf16 services: the grid checks the rest
             tol = ATTN_TOL[dtype_name]
             b = as_dtype(mixed, dtype)
             err, cache, scales = check_kv8(torch, b, kv, f"{label} mixed", tol, decode=False,
@@ -1934,7 +1951,7 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
     # 512 also fp16 queries over an fp16 cache (A and B's fp16 instantiations).
     same = (("float32", torch.float32, 4),) + ((("float16", torch.float16, 2),)
                                                if d == W512 else ())
-    for dtype_name, dtype, elt in same:
+    for dtype_name, dtype, elt in same if d <= W512 else ():
         tol = ATTN_TOL[dtype_name]
         b = as_dtype(mixed, dtype)
         cache = mixed["cache"].to(dtype)
@@ -1971,7 +1988,7 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
                  lambda: pa.fused_decode_attention_plain(bd["q"], got, bd["k"], bd["v"], dm,
                                                          scale=scale, **mods),
                  decode_specs, elt, dtype_name, True)
-    del bd, got
+        del bd, got
     torch.cuda.empty_cache()
     return rows
 
@@ -2477,8 +2494,15 @@ LARGE_GROUP_DIMS = (32, 80, 128)
 W512_VARIANT_DIMS = (3, 9, 63, 127, 255, 257, 320, 384, 511, 512)
 W512_VARIANT_GROUPS = (4, 12)
 W512_PAST_16_DIMS = (63, 320, 512)
+# Past 512, the width 512's column slices (two at 513-1,024: 513 and 767
+# odd, 640 a partial second slice), at one and both halves of the fused
+# kernel's tile and past 16 at 1,024; then one shape each at 1,025 (three
+# slices, the last one column), 2,048 (four) and 4,096 (eight).
+PAST_512_DIMS = (513, 640, 767, 1024)
+PAST_512_GROUPS = (4, 12)
+PAST_512_SHAPES = ((1024, 20), (1025, 4), (2048, 12), (4096, 2))
 # The shapes that also run with a window, a soft cap and ALiBi.
-MODIFIER_SHAPES = ((80, 4), (100, 12), (120, 20), (63, 4), (512, 12))
+MODIFIER_SHAPES = ((80, 4), (100, 12), (120, 20), (63, 4), (512, 12), (1024, 12))
 _KINDS = {None: None, "int8": "int8", "fp8": "float8_e4m3fn"}
 
 
@@ -2492,7 +2516,9 @@ def check_head_dim_variants(torch):
     """A, B, D, E and the merge at head dims that run at a padded width
     (``HEAD_DIM_VARIANT_DIMS`` × ``HEAD_DIM_VARIANT_GROUPS``, two kv heads;
     the odd ones and those of the width 512, ``W512_VARIANT_DIMS`` ×
-    ``W512_VARIANT_GROUPS`` and G = 20 at ``W512_PAST_16_DIMS``) and at
+    ``W512_VARIANT_GROUPS`` and G = 20 at ``W512_PAST_16_DIMS``; past 512 in
+    column slices, ``PAST_512_DIMS`` × ``PAST_512_GROUPS`` and
+    ``PAST_512_SHAPES``) and at
     groups past 128 (``LARGE_GROUPS`` × ``LARGE_GROUP_DIMS``, one kv
     head) against their plain versions: bf16, fp16 and f32 queries over a
     cache of their dtype, an INT8 one and an e4m3 one, on a mixed batch (the
@@ -2513,15 +2539,20 @@ def check_head_dim_variants(torch):
     shapes = [(d, g, 2) for d in HEAD_DIM_VARIANT_DIMS for g in HEAD_DIM_VARIANT_GROUPS]
     shapes += [(d, g, 2) for d in W512_VARIANT_DIMS for g in W512_VARIANT_GROUPS]
     shapes += [(d, 20, 2) for d in W512_PAST_16_DIMS]
+    shapes += [(d, g, 2) for d in PAST_512_DIMS for g in PAST_512_GROUPS]
+    shapes += [(d, g, 2) for d, g in PAST_512_SHAPES]
     shapes += [(d, g, 1) for d in LARGE_GROUP_DIMS for g in LARGE_GROUPS]
-    # Ragged calls (a mixed and a decode batch a shape) planned in slices.
+    # Ragged calls (a mixed and a decode batch a shape) planned in slices;
+    # calls past 512 (every route, in column slices).
     want_sliced = 2 * sum(expected_slices(pa, d, g, 8) > 1 for d, g, _ in shapes)
+    want_columns = sum(2 * (4 if (d, g) in MODIFIER_SHAPES else 1)
+                       for d, g, _ in shapes if d > W512)
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float16", torch.float16),
                               ("float32", torch.float32)):
         tol = ATTN_TOL[dtype_name]
         for kv in (None,) + KV8_DTYPES:
             kind = _KINDS[kv] and getattr(torch, _KINDS[kv])
-            worst, calls, merges, sliced = 0.0, 0, 0, 0
+            worst, calls, merges, sliced, columns, column_blocks = 0.0, 0, 0, 0, 0, 0
             fused_splits, ragged_splits = FusedSplitCount(), SplitCount()
             for d, group, hk in shapes:
                 hq = hk * group
@@ -2539,6 +2570,7 @@ def check_head_dim_variants(torch):
                     merge = pa.combine_route(b["q"])
                     for kw in mods:
                         before, merged = route.launches, merge.launches
+                        cols_before = route.columns
                         if kv:
                             err, cache, _ = check_kv8(torch, b, kv, f"{label} {kw}", tol,
                                                       decode=fused, **kw)
@@ -2548,9 +2580,17 @@ def check_head_dim_variants(torch):
                                                              decode=fused, **kw)
                         if route.launches != before + 1:
                             raise AssertionError(f"{label} {kw}: {route.name} not launched")
+                        # The column slices the launch's grid had, as its
+                        # wrapper counted them.
+                        cols = route.columns - cols_before
+                        if cols != pa.column_slices(d):
+                            raise AssertionError(f"{label} {kw}: {route.name} launched in "
+                                                 f"{cols} column slices")
                         merges += merge.launches - merged
                         worst = max(worst, err)
                         calls += 1
+                        columns += cols > 1
+                        column_blocks += cols if cols > 1 else 0
                     if dtype == torch.float32:
                         continue
                     if fused:
@@ -2566,10 +2606,12 @@ def check_head_dim_variants(torch):
             log(f"head-dim variants {dtype_name} over {kv or dtype_name} caches: {calls} calls "
                 f"(D {HEAD_DIM_VARIANT_DIMS} × G {HEAD_DIM_VARIANT_GROUPS}, D "
                 f"{W512_VARIANT_DIMS} × G {W512_VARIANT_GROUPS}, G 20 at D "
-                f"{W512_PAST_16_DIMS}, and G {LARGE_GROUPS} × D {LARGE_GROUP_DIMS}) agree, "
+                f"{W512_PAST_16_DIMS}, past 512 D {PAST_512_DIMS} × G {PAST_512_GROUPS} and "
+                f"(D, G) {PAST_512_SHAPES}, and G {LARGE_GROUPS} × D {LARGE_GROUP_DIMS}) agree, "
                 f"writes and fused caches bit-exact, max |err| {worst:.3e} (tol {tol}); the "
                 f"merge launched {merges} times; {sliced} tensor-core ragged calls planned in 2 "
-                "slices a token")
+                f"slices a token; {columns} launches in column slices, {column_blocks} "
+                "slices in all (2 to 8 a launch, as the wrappers counted them)")
             if dtype != torch.float32:
                 fused_splits.check(f"head-dim variants {dtype_name} over {kv or dtype_name} "
                                    "caches, split fused route")
@@ -2579,6 +2621,10 @@ def check_head_dim_variants(torch):
                     raise AssertionError(f"head-dim variants {dtype_name} over "
                                          f"{kv or dtype_name} caches: {merges} merges, "
                                          f"{sliced} sliced calls")
+            if columns != want_columns:
+                raise AssertionError(f"head-dim variants {dtype_name} over {kv or dtype_name} "
+                                     f"caches: {columns} launches in column slices, "
+                                     f"{want_columns} asked")
 
 
 # The published checkpoints whose head dims run at a padded width (the
@@ -3636,14 +3682,25 @@ def check_quant_model(torch):
     to the other int8 (the residual stream is small against the layers'
     outputs, so the next RMSNorm magnifies the change), and the card's and
     the CPU's f32 sums make such a rounding differ in some rows."""
+    from atoma_infer_tpu_torch.models.weights import quantize_params
+
+    cfg, dense, int8 = llama_8b_model_check_params(torch)
+    model_parity(torch, cfg, int8, "8B INT8", MODEL_TOL)
+    model_parity(torch, cfg, quantize_params(dense, "int4"), "8B INT4", MODEL_TOL)
+
+
+@functools.lru_cache(maxsize=1)
+def llama_8b_model_check_params(torch):
+    """The 2-layer full-width Llama-3.1-8B of ``check_quant_model`` and
+    ``check_kv8_model`` on the CPU: (config, its f32 weights from seed 2,
+    those quantized to INT8), drawn and quantized once for both."""
     from atoma_infer_tpu_torch.models.llama import Llama
     from atoma_infer_tpu_torch.models.weights import quantize_params
 
     cfg = llama_8b_config(2)
     dense = Llama(cfg, dtype=torch.float32, device="cpu").init_params(
         torch.Generator().manual_seed(2))
-    model_parity(torch, cfg, quantize_params(dense, "int8"), "8B INT8", MODEL_TOL)
-    model_parity(torch, cfg, quantize_params(dense, "int4"), "8B INT4", MODEL_TOL)
+    return cfg, dense, quantize_params(dense, "int8")
 
 
 # Logits over a 1-byte KV cache, card against CPU: a value that lands on the
@@ -3657,16 +3714,11 @@ def check_kv8_model(torch):
     """2-layer full-width Llama-3.1-8B with INT8 weights (quantized with the
     port's quantize_weight), f32 activations, over an INT8 KV cache and then
     an e4m3 one: card vs CPU."""
-    from atoma_infer_tpu_torch.models.llama import Llama
-    from atoma_infer_tpu_torch.models.weights import quantize_params
-
-    cfg = llama_8b_config(2)
-    dense = Llama(cfg, dtype=torch.float32, device="cpu").init_params(
-        torch.Generator().manual_seed(2))
-    params = quantize_params(dense, "int8")
+    cfg, _, params = llama_8b_model_check_params(torch)
     for kv in KV8_DTYPES:
         worst = model_parity(torch, cfg, params, f"8B INT8 + {kv} KV", KV8_MODEL_TOL[kv], kv)
         log(f"model 8B INT8 + {kv} KV: worst |logit err| {worst:.3e} (tol {KV8_MODEL_TOL[kv]})")
+    llama_8b_model_check_params.cache_clear()  # its 6 GB of CPU weights
 
 
 # The families' configurations, from their public config.json (the
@@ -3715,7 +3767,7 @@ FAMILIES = {
 # 80. No published checkpoint of the registries' families has more than
 # 16 q heads per kv head: the third takes Llama-3.1-8B's published widths
 # and rope and lets its 32 q heads share one kv head (G = 32, as an MQA
-# checkpoint of the Llama architecture would), at 8 of its 32 layers in
+# checkpoint of the Llama architecture would), at 4 of its 32 layers in
 # bf16 over a bf16 cache and then an INT8 one; its decode steps take the
 # write and the ragged kernel.
 GROUP_FAMILIES = {
@@ -3740,7 +3792,7 @@ GROUP_FAMILIES = {
         rope_scaling=dict(rope_type="llama3", factor=8.0, low_freq_factor=1.0,
                           high_freq_factor=4.0, original_max_position_embeddings=8192),
         rms_norm_eps=1e-5, tie_word_embeddings=False, bos_token_id=128000,
-        eos_token_id=128001), 8, None, (None, "int8")),
+        eos_token_id=128001), 4, None, (None, "int8")),
 }
 # The published checkpoints whose head dims the kernels run at a padded
 # width (the public config.json of each Hugging Face model repository),
@@ -3810,12 +3862,39 @@ HEAD_DIM_FAMILIES = {
         max_position_embeddings=131072, rope_theta=500000.0, alibi=True, rms_norm_eps=1e-5,
         tie_word_embeddings=True, bos_token_id=128000, eos_token_id=128001), 4,
         (None, "int8")),
+    # Past 512 (the width 512's column slices), the same published widths
+    # with wider heads: Llama-3.1-8B with 4 q heads over one kv head of 1,024
+    # (4,096 and 1,024 columns) over a bf16 and an e4m3 cache; Gemma-2-9B
+    # with 6 q heads over 3 kv heads of 768 (its G = 2; 4,608 and 2,304
+    # columns) over an INT8 cache; Llama-3.2-1B with ALiBi and 4 q heads over
+    # one kv head of 513 (2,052 and 513 columns) over a bf16 one.
+    "Llama-3.1-8B D=1024": (dict(
+        model_type="llama", vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=4, num_key_value_heads=1, head_dim=1024,
+        max_position_embeddings=131072, rope_theta=500000.0,
+        rope_scaling=dict(rope_type="llama3", factor=8.0, low_freq_factor=1.0,
+                          high_freq_factor=4.0, original_max_position_embeddings=8192),
+        rms_norm_eps=1e-5, tie_word_embeddings=False, bos_token_id=128000,
+        eos_token_id=128001), 4, (None, "fp8")),
+    "Gemma-2-9B D=768": (dict(
+        model_type="gemma2", vocab_size=256000, hidden_size=3584, intermediate_size=14336,
+        num_hidden_layers=42, num_attention_heads=6, num_key_value_heads=3, head_dim=768,
+        max_position_embeddings=8192, rope_theta=10000.0, rms_norm_eps=1e-6,
+        query_pre_attn_scalar=256, sliding_window=4096, attn_logit_softcapping=50.0,
+        final_logit_softcapping=30.0, hidden_activation="gelu_pytorch_tanh",
+        tie_word_embeddings=True, bos_token_id=2, eos_token_id=1), 4, ("int8",)),
+    "Llama-3.2-1B ALiBi D=513": (dict(
+        model_type="llama", vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+        num_hidden_layers=16, num_attention_heads=4, num_key_value_heads=1, head_dim=513,
+        max_position_embeddings=131072, rope_theta=500000.0, alibi=True, rms_norm_eps=1e-5,
+        tie_word_embeddings=True, bos_token_id=128000, eos_token_id=128001), 4, (None,)),
 }
 # The head-dim families' weight seeds, in the order they joined: a family's
 # weights stay the same when another is added.
 HEAD_DIM_SEED_ORDER = ("Llama-3.1-70B G=256", "OpenLLaMA-3B", "h2o-danube-1.8b",
                        "h2o-danube3-4b", "Gemma-2-9B D=512", "Llama-3.1-8B D=512",
-                       "Llama-3.2-1B ALiBi D=63")
+                       "Llama-3.2-1B ALiBi D=63", "Llama-3.1-8B D=1024", "Gemma-2-9B D=768",
+                       "Llama-3.2-1B ALiBi D=513")
 # The family models' logits with the attention kernels against the same
 # bf16 model with the plain attention on the card: max |Δ| over the logits'
 # largest magnitude. The two round each attention output to bf16 from f32
@@ -4348,12 +4427,12 @@ IDLE_WINDOW_START, IDLE_WINDOW_STEPS = 16, 8
 # inside half its time limit on a slow host.
 NEW_TOKENS, OTHER_SERVICES_TOKENS = 256, 128
 # The depth of the 8B services held only eager against graphs (INT4, W8A8,
-# INT8 and e4m3 KV): a quarter of Llama-3.1-8B's 32 layers, as the families
-# run at 4 of theirs, so that the smoke stays inside its time limit.
-QUANT_HALF_LAYERS = 8
+# INT8 and e4m3 KV): 4 of Llama-3.1-8B's 32 layers, as the families run at
+# 4 of theirs, so that the smoke stays inside its time limit.
+QUANT_HALF_LAYERS = 4
 # The depth of the 8B INT8 service (async with graphs after warmup) and its
-# INT8 KV spec service: half of the 32 layers, for the same limit.
-QUANT_MAIN_LAYERS = 16
+# INT8 KV spec service: a quarter of the 32 layers, for the same limit.
+QUANT_MAIN_LAYERS = 8
 
 
 # The bytes of the services' 8 prompts (one token a byte).
@@ -5704,7 +5783,7 @@ def run_head_dim_services(torch):
     rows (the G = 256 service's ``kernel@G=256``)."""
     from atoma_infer_tpu_torch.engine.llm_service import LlmService
     from atoma_infer_tpu_torch.entrypoints.offline import ByteTokenizer
-    from atoma_infer_tpu_torch.ops.paged_attention import decode_route
+    from atoma_infer_tpu_torch.ops import paged_attention as pa
 
     text = "The quick brown fox jumps over the lazy dog. " * (-(-max(PROMPT_LENGTHS) // 45))
     prompts = [text[:n] for n in PROMPT_LENGTHS]
@@ -5714,7 +5793,7 @@ def run_head_dim_services(torch):
         model, params = family_model(torch, name, layers)
         cfg = model.config
         d, group = cfg.head_dim, cfg.num_attention_heads // cfg.num_kv_heads
-        route = decode_route(cfg.num_attention_heads, cfg.num_kv_heads)
+        route = pa.decode_route(cfg.num_attention_heads, cfg.num_kv_heads)
         log(f"service {name}: {layers} of {spec['num_hidden_layers']} layers, bf16 weights "
             f"drawn on the card in {time.monotonic() - t0:.1f} s; {cfg.num_attention_heads} q "
             f"heads over {cfg.num_kv_heads} kv heads (G={group}), D={d}")
@@ -5776,10 +5855,26 @@ def run_head_dim_services(torch):
             log(f"service {label}: tokens identical eager and with graphs "
                 f"({sum(len(t) for t in runs['eager'][0])} tokens, the seeded request's too)")
             key, got = f"hd {name}", runs["graphs"][2]["launches"]
+            if d > W512:
+                # Every attention launch of this service ran in column slices,
+                # eager and replayed, as the wrappers counted them.
+                cols = pa.column_slices(d)
+                for mode in ("eager", "graphs"):
+                    n, got_cols = runs[mode][2]["launches"], runs[mode][2]["columns"]
+                    if cols < 2 or not all(n[k] and got_cols[k] == cols * n[k]
+                                           for k in path[:2]):
+                        raise AssertionError(
+                            f"service {label} [{mode}]: launches {[n[k] for k in path[:2]]} "
+                            f"in column slices {[got_cols[k] for k in path[:2]]}, {cols} "
+                            "a launch asked")
+                    log(f"service {label} [{mode}]: {n[path[0]]} launches of {path[0]} in "
+                        f"{got_cols[path[0]]} column slices and {n[path[1]]} of {path[1]} in "
+                        f"{got_cols[path[1]]}, {cols} a launch")
             for kernel in path + ("paged_attention_split_combine",):
                 launches[f"{kernel}@{key}"] = got[kernel]
                 if d > 256:  # the width 512's rows (check_wide_head_kernels)
-                    launches[f"{kernel}@{W512}"] = launches.get(f"{kernel}@{W512}", 0) + got[
+                    wide = W512 if d <= W512 else PAST_512_LINE_DIM
+                    launches[f"{kernel}@{wide}"] = launches.get(f"{kernel}@{wide}", 0) + got[
                         kernel]
         del model, params
         gc.collect()
@@ -6819,7 +6914,7 @@ def drive(torch, label, service, prompts, new_tokens, *, top_n=0, waves=True, wa
         if on_traffic is not None:
             on_traffic()
         for k in cuda_lib.KERNELS.values():
-            k.launches = 0
+            k.launches = k.columns = 0
         t0 = time.monotonic()
         for args in first:
             engine.add_request(*args)
@@ -6827,11 +6922,12 @@ def drive(torch, label, service, prompts, new_tokens, *, top_n=0, waves=True, wa
         torch.cuda.synchronize()
         seconds = time.monotonic() - t0
         launches = {name: k.launches for name, k in cuda_lib.KERNELS.items()}
+        columns = {name: k.columns for name, k in cuda_lib.KERNELS.items()}
         service.stop()
         task.cancel()
-        return results, seconds, launches
+        return results, seconds, launches, columns
 
-    results, seconds, launches = asyncio.run(run())
+    results, seconds, launches, columns = asyncio.run(run())
     eos = set(engine.eos_token_ids)
     for r in results:
         out = r.outputs[0]
@@ -6846,7 +6942,7 @@ def drive(torch, label, service, prompts, new_tokens, *, top_n=0, waves=True, wa
             [r.outputs[0].top_logprobs for r in results] if top_n else None,
             dict(seconds=seconds, steps=steps[0], dispatches=dispatches,
                  generated=sum(len(r.outputs[0].token_ids) for r in results),
-                 launches=launches, warmup_s=warm[0]))
+                 launches=launches, columns=columns, warmup_s=warm[0]))
 
 
 def steady_decode(figures) -> str:
@@ -6886,12 +6982,12 @@ def report_tp(label, service, figures, collectives):
 # collectives through host memory, 190–320 ms a step on an H100).
 TP_TOKENS = 64
 # Layers of the 8B INT8 + INT8 KV service at tp = 2, of Llama-3.1-8B's 32:
-# a quarter, to keep the smoke's wall inside its limit on a slow host (each
+# an eighth, to keep the smoke's wall inside its limit on a slow host (each
 # layer is 3 host round trips a step on one card).
-TP_LAYERS = 8
+TP_LAYERS = 4
 # Layers of the item-14 runs (E over an e4m3 cache, H under W8A8) at tp = 2,
 # of Llama-3.1-8B's 32; the widths are the model's.
-TP_KERNEL_LAYERS = 8
+TP_KERNEL_LAYERS = 4
 # The kernels of the 8B INT8 + INT8 KV service at tp = 2: C's INT8 write with
 # scales_new, D ragged (prefill), D split fused (decode), F.
 TP_PATH = ("reshape_and_cache_int8", "ragged_paged_attention_int8_mma",
@@ -7239,8 +7335,8 @@ def run_tp_services(torch):
 PP_STAGES = 2
 PP_LABEL = "two stages on one card: not a PP speed"
 # Layers of the 8B INT8 + INT8 KV service at pp = 2, of Llama-3.1-8B's 32
-# (4 a stage): a quarter, to keep the smoke's wall inside its limit.
-PP_LAYERS = 8
+# (2 a stage): an eighth, to keep the smoke's wall inside its limit.
+PP_LAYERS = 4
 # The kernels of the 8B INT8 + INT8 KV service at pp = 2: C's INT8 write,
 # D ragged (prefill), D split fused (decode), the merge, F.
 PP_PATH = ("reshape_and_cache_int8", "ragged_paged_attention_int8_mma",
@@ -7618,8 +7714,9 @@ FP16_PATH = ("reshape_and_cache_f16", "ragged_paged_attention_mma_f16",
 # largest logit. fp16 rounds each attention output 8× finer than bf16
 # (2^-11 against 2^-8), over 16 layers where the families' bf16 check has 2.
 FP16_MODEL_TOL = 2e-2
-# Layers of the 8B-width fp16 services (of 32; the widths are the model's).
-FP16_8B_LAYERS = 8
+# Layers of the 8B-width fp16 services (of 32; the widths are the model's;
+# 4, as the families run, for the smoke's wall).
+FP16_8B_LAYERS = 4
 FP16_TOKENS = 64
 
 
@@ -7799,7 +7896,7 @@ def serve_fp16_w512(torch):
 # whole prompt is cached: its last token is recomputed and written again
 # into the prefix's last block, which the other sequences share.
 PREFIX_BYTES, PREFIX_WAVE, PREFIX_TOKENS = 1536, 8, 64
-PREFIX_LAYERS_8B = 8
+PREFIX_LAYERS_8B = 4
 
 
 def prefix_prompts():
@@ -8450,6 +8547,9 @@ def main() -> int:
     # 512 from the test-size fp16 service); the 1-byte caches' wide kernels
     # and every width-512 kernel have only these rows.
     named = [(name, name, rows[name]) for name in cuda_lib.KERNELS if name in rows]
+    # The rows at 2,048 have no service (logged by check_wide_head_kernels).
+    wide_rows = {key: r for key, r in wide_rows.items()
+                 if int(key.split("@")[1]) in WIDE_HEAD_DIMS + (W512, PAST_512_LINE_DIM)}
     named += [(key, f"{key.split('@')[0]} (D={key.split('@')[1]})", r)
               for key, r in wide_rows.items()]
     rowless = [k for k in cuda_lib.KERNELS if k not in rows

@@ -91,7 +91,7 @@ def test_split_ranges_cover_every_key_once(window, splits, min_tiles):
 
 def test_plan_takes_shapes_only():
     params = inspect.signature(pa.fused_split_plan).parameters
-    assert set(params) == {"num_seq_slots", "max_keys", "num_kv_heads", "slots"}
+    assert set(params) == {"num_seq_slots", "max_keys", "num_kv_heads", "slots", "columns"}
     assert all(p.kind == p.KEYWORD_ONLY for p in params.values())
 
 

@@ -40,9 +40,10 @@ kernels run only on the card; what is checked here:
   (a Llama with ALiBi in place of RoPE), at 144 q heads per kv head, and a
   Gemma-2 at head dim 512, through the port's and JAX's ``LlmService``:
   greedy tokens identical, sync and async, in f32, and at tp 2;
-- the shape check: every head dim from 1 to 512 admitted on every route
-  and dtype, any group; head dims past 512 refused, naming ROADMAP.md's
-  item, by the wrappers and by ``LlmService.start`` before anything is
+- the shape check: every head dim from 1 up admitted on every route and
+  dtype (past 512 too, since the width-512 kernels take column slices:
+  ``test_torch_head_dims_past_512.py``), any group; head dims under 1
+  refused by the wrappers and by ``LlmService.start`` before anything is
   loaded; the split workspace's reserve at head dims 100 and 512 covers
   what the kernels write.
 
@@ -772,21 +773,19 @@ def test_shape_check_admits_every_even_head_dim(dtype, kind):
                               block_size=16, fused=False)
 
 
-ITEM_22 = "Queue 1 item 22: attention at head dims past 512"
-
-
 @pytest.mark.parametrize("head_dim", [7, 81, 99, 255, 258, 512, 6, 0, 513, 1024, -1])
 def test_shape_check_refuses_odd_and_past_256(head_dim):
     """Odd head dims, head dims past 256 and under 8, once refused, are
-    admitted on every route up to 512; past 512 (and under 1) they are
-    refused, naming ROADMAP.md's item."""
+    admitted on every route, and so, since the width-512 kernels take column
+    slices, are head dims past 512 (513 and 1,024, refused before); under 1
+    they are refused."""
     for fused in (False, True):
         shape = dict(head_dim=head_dim, dtype=torch.bfloat16, kind=torch.int8, group=2,
                      block_size=16, fused=fused)
-        if 1 <= head_dim <= 512:
+        if head_dim >= 1:
             pa.check_kernel_shape(**shape)
             continue
-        with pytest.raises(ValueError, match=f"unsupported head_dim {head_dim} .*{ITEM_22}"):
+        with pytest.raises(ValueError, match=f"unsupported head_dim {head_dim} .*head dims from 1"):
             pa.check_kernel_shape(**shape)
 
 
@@ -796,17 +795,18 @@ class _Loading(Exception):
 
 @pytest.mark.parametrize("hidden, heads, refused", [
     (2560, 32, False), (3200, 32, False), (3840, 32, False), (2592, 32, False),
-    (8320, 32, False), (16384, 32, False), (16416, 32, True), (32768, 32, True)],
-    ids=["80", "100", "120", "81", "260", "512", "513", "1024"])
+    (8320, 32, False), (16384, 32, False), (16416, 32, False), (32768, 32, False),
+    (16, 32, True)],
+    ids=["80", "100", "120", "81", "260", "512", "513", "1024", "0"])
 def test_cuda_service_checks_the_head_dim_before_loading(hidden, heads, refused, tmp_path,
                                                          monkeypatch):
     """``LlmService.start`` on the card, from a directory holding only a
     ``config.json`` (no weights, no tokenizer): at h2o-danube-1.8b's,
     OpenLLaMA-3B's and h2o-danube3-4b's head dims (hidden over heads: 80,
-    100, 120), at 81, 260 and 512 the check passes and the start goes on to
-    build the model; at 513 and 1,024 the refusal comes from the config
-    alone, before anything is read or allocated, naming ROADMAP.md's
-    item."""
+    100, 120), at 81, 260 and 512, and past 512 at 513 and 1,024 (refused
+    before the width-512 kernels took column slices), the check passes and
+    the start goes on to build the model; at a head dim of 0 the refusal
+    comes from the config alone, before anything is read or allocated."""
     import json
 
     from atoma_infer_tpu_torch.config import EngineConfig
@@ -827,7 +827,7 @@ def test_cuda_service_checks_the_head_dim_before_loading(hidden, heads, refused,
         "scheduler": {"max_model_len": 2048},
     })
     if refused:
-        with pytest.raises(ValueError, match=ITEM_22):
+        with pytest.raises(ValueError, match="unsupported head_dim 0"):
             llm_service.LlmService.start(config, model_dir=str(tmp_path))
     else:
         with pytest.raises(_Loading):

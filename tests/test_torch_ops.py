@@ -228,8 +228,9 @@ def test_rope_matches_jax(llama3):
 def _bad_inputs(change):
     """Valid decode-step inputs for the CUDA wrappers, with one thing
     changed; on the CPU the last check to fail is the device check. The
-    head dim changed is 514, past every width the kernels take."""
-    kw = dict(head_dim=514) if change == "head_dim" else {}
+    head dim changed is 0, the one size no kernel takes (past 512 the
+    width-512 kernels take column slices)."""
+    kw = dict(head_dim=0) if change == "head_dim" else {}
     case = ragged_case(np.random.default_rng(30), [(1, 20), (1, 9)], **kw)
     t = {k: torch.from_numpy(case[k]) for k in ("q", "kv_cache", "k_new", "v_new")}
     meta = torch_meta(case)

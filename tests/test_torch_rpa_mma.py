@@ -672,11 +672,11 @@ def test_model_matches_plain_and_pallas_wide_heads(D, group, kind, mod):
 # ------------------------------------------------------ the host's split plan
 def test_plan_takes_shapes_only():
     """``rpa_mma_plan`` sees host integers (and whether the head dim is
-    below its width and whether that width is 512, host bools), never a
-    tensor (no device read)."""
+    below its width and whether that width is 512, host bools; past 512 its
+    column slices, a host integer), never a tensor (no device read)."""
     params = inspect.signature(pa.rpa_mma_plan).parameters
     assert set(params) == {"num_seq_slots", "num_tokens", "max_q_len", "max_keys", "group",
-                           "num_kv_heads", "slots", "padded", "split_cols"}
+                           "num_kv_heads", "slots", "padded", "split_cols", "columns"}
     assert all(p.kind == p.KEYWORD_ONLY for p in params.values())
 
 

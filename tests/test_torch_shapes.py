@@ -326,14 +326,15 @@ def test_kernel_shape_check_head_dims_by_route(route, head_dim):
 
 def test_kernel_shape_check_refuses_other_dims_and_dtypes():
     """Head dims 80 (at the width 96), 1, 81 (odd), 258 and 512 (at the
-    width 512) are taken; head dims past 512 are refused, naming ROADMAP.md's
-    item; so is a dtype no kernel takes."""
-    for head_dim in (80, 1, 81, 258, 512):
+    width 512) are taken, and so are 513 and 1,024 (refused before the
+    width-512 kernels took column slices); head dims under 1 are refused;
+    so is a dtype no kernel takes."""
+    for head_dim in (80, 1, 81, 258, 512, 513, 1024):
         check_kernel_shape(head_dim=head_dim, dtype=torch.bfloat16, kind=None, group=1,
                            block_size=16, fused=False)
-    for head_dim in (513, 1024):
-        with pytest.raises(ValueError, match=f"unsupported head_dim {head_dim} .*Queue 1 item "
-                           "22: attention at head dims past 512"):
+    for head_dim in (0, -1):
+        with pytest.raises(ValueError, match=f"unsupported head_dim {head_dim} .*head dims "
+                           "from 1"):
             check_kernel_shape(head_dim=head_dim, dtype=torch.bfloat16, kind=None, group=1,
                                block_size=16, fused=False)
     with pytest.raises(ValueError, match="must be bfloat16, float16 or float32"):

@@ -200,6 +200,52 @@ def jax_scale_pages(kv_scales) -> np.ndarray:
     return pages
 
 
+# ------------------------------------------------ head dims past 512
+def bf16_round(x) -> np.ndarray:
+    """f32 values rounded to bf16 and back (round to nearest even)."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def column_slice_model(q, k, v, visible, *, scale, k_scale=None, v_scale=None, key_tile=32,
+                       width=512):
+    """A numpy model of the width-512 kernels' column slices on one block's
+    rows: ``q`` [R, D], ``k`` and ``v`` [N, D] f32 (a 1-byte cache's values
+    widened, their INT8 scales ``k_scale``, ``v_scale`` [N] apart),
+    ``visible`` [R, N]. Slice cs of ceil(D / width) sums each key tile's
+    scores over the whole head a ``width``-column chunk at a time, in chunk
+    order (× the key scale × ``scale``), runs the online softmax over tiles
+    of ``key_tile`` keys, rounds P to bf16 after the V scale and multiplies
+    it by V's columns of the slice only. Returns (out [R, D], each slice's
+    final (m, l))."""
+    R, D = q.shape
+    N = k.shape[0]
+    ones = np.ones(N, np.float32)
+    k_scale = ones if k_scale is None else np.asarray(k_scale, np.float32)
+    v_scale = ones if v_scale is None else np.asarray(v_scale, np.float32)
+    out, states = np.zeros((R, D), np.float32), []
+    for c0 in range(0, D, width):
+        cols = slice(c0, min(D, c0 + width))
+        m = np.full(R, -np.inf, np.float32)
+        l = np.zeros(R, np.float32)
+        o = np.zeros((R, cols.stop - c0), np.float32)
+        for t0 in range(0, N, key_tile):
+            keys = slice(t0, min(N, t0 + key_tile))
+            s = np.zeros((R, keys.stop - t0), np.float32)
+            for d0 in range(0, D, width):
+                chunk = slice(d0, min(D, d0 + width))
+                s += q[:, chunk] @ k[keys, chunk].T
+            s = np.where(visible[:, keys], s * k_scale[keys] * np.float32(scale), -np.inf)
+            m_new = np.maximum(m, s.max(axis=1))
+            m_use = np.where(np.isneginf(m_new), 0, m_new).astype(np.float32)
+            alpha, p = np.exp(m - m_use), np.exp(s - m_use[:, None])
+            l = l * alpha + p.sum(axis=1)
+            o = o * alpha[:, None] + bf16_round(p * v_scale[keys]) @ v[keys, cols]
+            m = m_new
+        out[:, cols] = np.where(l[:, None] > 0, o / np.where(l > 0, l, 1)[:, None], 0)
+        states.append((m, l))
+    return out, states
+
+
 # ------------------------------------------------- tensor parallelism (spawn)
 # Spawned ranks import this module (not the test files, which import JAX):
 # the functions they run live here.
