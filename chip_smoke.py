@@ -270,6 +270,14 @@ raises on failure; nothing is caught):
    defaults and the quality ladder on ``tiny_trained`` in bf16, each
    printing its JSON; every number finite, every agreement in [0, 1], and
    each tool's kernels launched in its own run (F and H; D; A to H). Then
+   ``tools/attn_bench.py`` at its card defaults over bf16, INT8 and e4m3
+   pools and over contiguous tables (``run_attn_bench``: the split fused
+   B, D, E at 512 to 32,640 keys, every share of 3.35 TB/s at 100% or
+   less, a step past 32,640 keys on the 64 sequences, on the timed rows'
+   plan, and one on 8, whose plan splits, against the plain version) and
+   ``tools/engine_step_probe.py`` at Llama-3.2-1B's widths, eager and with
+   graphs, tokens equal, the decode graph replayed alone at each fetched
+   step's inputs, its tokens (b)'s (``run_engine_step_probe``); then
    ``tools/real_model_check.py``'s path on ``tiny_trained``
    (``run_real_model_check``): f32 on the card token for token the CPU's,
    bf16 within the near-tie rule, and the n-gram drafts' acceptance on both
@@ -299,7 +307,6 @@ import json
 import os
 import re
 import shutil
-import subprocess
 import sys
 import time
 
@@ -307,6 +314,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 try:
     from atoma_infer_tpu_torch.engine.cuda_graphs import StepGraphs as _StepGraphs
+    from atoma_infer_tpu_torch.tools.roofline import attention_work, bound, card_line
 except ImportError:  # outside the repository: main() refuses to run
     _StepGraphs = object
 
@@ -364,10 +372,6 @@ MODEL_TOL = 1e-3
 # both sides (half an ulp each, up to 2^-8 of a value) after f32 sums in
 # another order; f32: summation order only; fp16: one rounding to 2^-11.
 QMM_TOL = {"bfloat16": 1e-2, "float32": 1e-5, "float16": 2e-3}
-
-# Published H100 SXM peaks (NVIDIA data sheet) for the roofline bounds.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # Llama-3.2-1B (the configuration bench.py runs), attention shapes.
 HQ, HK, D, BS = 32, 8, 64, 16
@@ -471,14 +475,6 @@ def profile_device(torch, fn):
 
 
 # --------------------------------------------------------------- phase 1
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
 def build_kernels() -> float:
     from atoma_infer_tpu_torch.ops import cuda_lib
 
@@ -821,34 +817,6 @@ def check_kernel_variants(torch):
     fused_splits.check("kernel variants, split fused route")
     wide_splits.check(f"kernel variants at D={WIDE_HEAD_DIMS}, tensor-core route")
     wide_fused_splits.check(f"kernel variants at D={WIDE_HEAD_DIMS}, split fused route")
-
-
-def attention_work(specs, window, elt, *, fused, kv_elt=None, slot_extra=0,
-                   hq=HQ, hk=HK, d=D):
-    """(bytes, flops) the attention needs for these sequences: each needed
-    K/V row read once (``kv_elt`` bytes an element, default ``elt``, plus
-    ``slot_extra`` bytes of scales a slot), q read and out written once
-    (``elt`` bytes an element); 4·D flops per (query head, key) pair.
-    ``fused`` adds the new rows' read and the cache row's write."""
-    row = 2 * hk * d * (kv_elt or elt) + slot_extra
-    nbytes = flops = 0
-    for q_len, kv in specs:
-        first = kv - q_len
-        lo = max(0, first - window + 1) if window else 0
-        kv_read = kv - lo - (1 if fused else 0)
-        nbytes += kv_read * row + 2 * q_len * hq * d * elt
-        if fused:
-            nbytes += 2 * hk * d * elt + row  # k_new/v_new in, the new row out
-        for pos in range(first, kv):
-            keys = min(pos + 1, window) if window else pos + 1
-            flops += keys * hq * 4 * d
-    return nbytes, flops
-
-
-def bound(nbytes, flops, dtype_name):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_kernels(torch):
@@ -1745,7 +1713,8 @@ def check_wide_head_kernels(torch):
     ``*_w512`` kernels) the write C timed too; past 512 (Llama-3.1-8B's
     widths with heads of 1,024 and 2,048: the ``*_w512`` kernels in two and
     four column slices) A, B, D, E and the merge with bf16 queries, the
-    services' route. Returns kernels-line rows keyed ``kernel@D``."""
+    services' route, and A, B, D, E with fp16 and f32 queries, logged
+    beside their bounds. Returns kernels-line rows keyed ``kernel@D``."""
     import numpy as np
 
     from atoma_infer_tpu_torch.ops import kv_write
@@ -1871,9 +1840,10 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
     queries at ``FP16_WIDE_DIM`` and 512, and with f32 queries (the
     CUDA-core kernels), over INT8 and e4m3 caches made from the batches' bf16 ones;
     the 1-byte writes; A and B with f32 queries over an f32 cache (at the
-    width 512 also with fp16 queries over an fp16 cache). Past 512 bf16
-    queries only, as the services there run (``check_head_dim_variants``
-    checks the other dtypes). Each
+    width 512 and past it also with fp16 queries over an fp16 cache). Past
+    512 the fp16 and f32 queries' rows are logged and not returned: no
+    service there runs them (``check_head_dim_variants`` checks them over
+    the grid). Each
     against its plain version (writes, fused caches and INT8 scales
     bit-exact; attention within ``ATTN_TOL``), then timed with CUDA events
     (the writes in a CUDA graph) beside its bound. Returns rows keyed
@@ -1890,12 +1860,13 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
     def time_row(key, err, fn, plain, specs, elt, dtype_name, fused, **kvw):
         nbytes, flops = attention_work(specs, window, elt, fused=fused, **work, **kvw)
         bound_ms, by = bound(nbytes, flops, dtype_name)
-        rows[key] = r = dict(max_abs_err=err, ms=cuda_ms(fn),
-                             plain_ms=cuda_ms(plain, iters=2, warmup=1), library_ms=None,
-                             bound_ms=bound_ms, bound_by=by)
+        r = dict(max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain, iters=2, warmup=1),
+                 library_ms=None, bound_ms=bound_ms, bound_by=by)
         log(f"{key} {label} ({dtype_name} queries, {mods}): {r['ms']:.4f} ms (plain "
             f"{r['plain_ms']:.4f} ms), bound {bound_ms:.4f} ms by {by}, max |err| {err:.3e} "
             f"(tol {ATTN_TOL[dtype_name]})")
+        if d <= W512 or dtype_name == "bfloat16":
+            rows[key] = r
 
     def as_dtype(b, dtype):
         return dict(b, q=b["q"].to(dtype), k=b["k"].to(dtype), v=b["v"].to(dtype))
@@ -1906,10 +1877,8 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
         kvw = dict(kv_elt=1, slot_extra=4 if kv == "int8" else 0)
         kind = getattr(torch, _KINDS[kv])
         for dtype_name, dtype, elt in queries:
-            if dtype_name == "float16" and d not in (FP16_WIDE_DIM, W512):
+            if dtype_name == "float16" and d != FP16_WIDE_DIM and d < W512:
                 continue
-            if dtype_name != "bfloat16" and d > W512:
-                continue  # past 512 only bf16 services: the grid checks the rest
             tol = ATTN_TOL[dtype_name]
             b = as_dtype(mixed, dtype)
             err, cache, scales = check_kv8(torch, b, kv, f"{label} mixed", tol, decode=False,
@@ -1948,10 +1917,11 @@ def wide_head_other_rows(torch, label, mixed, decode, mixed_specs, decode_specs,
             del dcache, dscales, b, bd
             torch.cuda.empty_cache()
     # f32 queries over an f32 cache: A and B on the CUDA cores; at the width
-    # 512 also fp16 queries over an fp16 cache (A and B's fp16 instantiations).
+    # 512 and past it also fp16 queries over an fp16 cache (A and B's fp16
+    # instantiations).
     same = (("float32", torch.float32, 4),) + ((("float16", torch.float16, 2),)
-                                               if d == W512 else ())
-    for dtype_name, dtype, elt in same if d <= W512 else ():
+                                               if d >= W512 else ())
+    for dtype_name, dtype, elt in same:
         tol = ATTN_TOL[dtype_name]
         b = as_dtype(mixed, dtype)
         cache = mixed["cache"].to(dtype)
@@ -3327,11 +3297,15 @@ def run_probe(torch):
 
 # ------------------------------------- the quantization gates and the ladder
 def finite_report(report, label):
-    """Every number in a tool's report finite, every agreement in [0, 1]."""
+    """Every number in a tool's report (its lists too) finite, every
+    agreement in [0, 1]."""
     def walk(obj, key=""):
         if isinstance(obj, dict):
             for k, v in obj.items():
                 walk(v, k)
+        elif isinstance(obj, (list, tuple)):
+            for v in obj:
+                walk(v, key)
         elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
             if obj != obj or obj in (float("inf"), float("-inf")):
                 raise AssertionError(f"{label}: {key} is {obj}")
@@ -3381,6 +3355,105 @@ def run_tools(torch):
                 raise AssertionError(f"kernel {kernel} was not launched in the {name} run")
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# attn_bench's runs at its card defaults (Llama-3.2-1B attention, 64
+# sequences, 512 to 32,640 keys, 8 rounds of 8 steps) and the split fused
+# kernel each must launch.
+ATTN_BENCH_RUNS = (
+    ("bf16", [], "fused_decode_attention_split"),
+    ("INT8", ["--int8"], "fused_decode_attention_int8_split"),
+    ("e4m3", ["--fp8"], "fused_decode_attention_fp8_split"),
+    ("bf16, contiguous tables", ["--contiguous"], "fused_decode_attention_split"),
+)
+
+
+def run_attn_bench(torch):
+    """The port's ``tools/attn_bench.py`` on the card, each of
+    ``ATTN_BENCH_RUNS``: every number finite, no row above 100% of 3.35
+    TB/s, the run's split fused kernel launched (and the merge where a row's
+    plan split), and the tool's two steps past 32,640 keys against the
+    plain version: over the 64 sequences on the timed rows' plan
+    (``plain_check``, its splits those of the 32,640-key row) and over 8,
+    whose plan splits (``merge_check``). Each holds the output within
+    ``attn_bench.PLAIN_TOL`` of the largest output, rejects the tool's two
+    planted faults at that limit, and has the rows it wrote byte for byte
+    (INT8 rows within one step, scales equal). Returns the phase's
+    seconds."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.tools import attn_bench
+
+    t_phase = time.monotonic()
+    for label, argv, kernel in ATTN_BENCH_RUNS:
+        for k in cuda_lib.KERNELS.values():
+            k.launches = 0
+        t0 = time.monotonic()
+        report = attn_bench.main(argv)
+        merge = "paged_attention_split_combine"
+        launches = {k: cuda_lib.KERNELS[k].launches for k in (kernel, merge)}
+        log(f"attn_bench {label}: {time.monotonic() - t0:.1f} s; launches {launches}")
+        finite_report(report, f"attn_bench {label}")
+        for row in report["results"]:
+            if not 0 < row["pct_hbm_peak"] <= 100:
+                raise AssertionError(f"attn_bench {label}: {row['pct_hbm_peak']}% of 3.35 TB/s "
+                                     f"at {row['ctx']} keys")
+        if launches[kernel] == 0:
+            raise AssertionError(f"attn_bench {label}: {kernel} was not launched")
+        if any(row["splits"] > 1 for row in report["results"]) and launches[merge] == 0:
+            raise AssertionError(f"attn_bench {label}: a plan split and {merge} never ran")
+        for name in ("plain_check", "merge_check"):
+            check = report[name]
+            log(f"attn_bench {label} {name}: {check}")
+            rows_ok = (check["rows_max_step"] <= 1 and check["scales_equal"] if "rows_max_step"
+                       in check else check["rows_equal"])
+            if not (check["within_tol"] and check["faults_caught"] and rows_ok):
+                raise AssertionError(f"attn_bench {label}: the step at {check['ctx']} keys "
+                                     f"disagrees with the plain version: {check}")
+        if report["plain_check"]["splits"] != report["results"][-1]["splits"]:
+            raise AssertionError(f"attn_bench {label}: the checked step's plan is not the timed "
+                                 f"rows': {report['plain_check']['splits']} splits")
+        if report["merge_check"]["splits"] < 2:
+            raise AssertionError(f"attn_bench {label}: the merge check's plan did not split")
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds = time.monotonic() - t_phase
+    log(f"attn_bench phase: {seconds:.1f} s")
+    return seconds
+
+
+def run_engine_step_probe(torch):
+    """The port's ``tools/engine_step_probe.py`` on the card at Llama-3.2-1B's
+    widths (256 sequences, 64 steps, random bf16 weights): eager and with
+    the worker's CUDA graphs, the tokens equal, every figure finite, the
+    split fused B launched. Returns the phase's seconds."""
+    from atoma_infer_tpu_torch.ops import cuda_lib
+    from atoma_infer_tpu_torch.tools import engine_step_probe
+
+    for k in cuda_lib.KERNELS.values():
+        k.launches = 0
+    t0 = time.monotonic()
+    report = engine_step_probe.main([])
+    launches = cuda_lib.KERNELS["fused_decode_attention_split"].launches
+    seconds = time.monotonic() - t0
+    log(f"engine_step_probe phase: {seconds:.1f} s; fused_decode_attention_split launches "
+        f"{launches}")
+    finite_report({k: v for k, v in report.items() if k != "tokens"}, "engine_step_probe")
+    if not report["tokens_equal"]:
+        raise AssertionError("engine_step_probe: the tokens with graphs differ from eager")
+    graphs = report["runs"]["graphs"]
+    if not (graphs["replays_timed"] == report["steps"] and graphs["replay_tokens_equal"]
+            and launches):
+        raise AssertionError("engine_step_probe: (c) did not replay the decode graph at each "
+                             f"of (b)'s steps with (b)'s tokens ({graphs}), or B never launched")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def run_bench_tools(torch):
+    """``run_attn_bench`` and ``run_engine_step_probe``, their seconds."""
+    seconds = run_attn_bench(torch) + run_engine_step_probe(torch)
+    log(f"attn_bench and engine_step_probe: {seconds:.1f} s together")
 
 
 # The port's tools/real_model_check.py on the in-repo trained checkpoint,
@@ -8537,6 +8610,7 @@ def main() -> int:
         if not launches.get(key):
             raise AssertionError(f"{key.split('@')[0]} was not launched on a spec service")
     phase(run_tools)
+    phase(run_bench_tools)
     phase(run_real_model_check)
 
     line = []

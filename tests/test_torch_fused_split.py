@@ -43,15 +43,12 @@ import numpy as np
 import pytest
 import torch
 
-from atoma_infer_tpu.ops.paged_attention import (
-    ragged_paged_attention_fused,
-    ragged_paged_attention_fused_quant,
-)
 from atoma_infer_tpu_torch.ops import paged_attention as pa
 from atoma_infer_tpu_torch.ops.attention import alibi_slopes
 from atoma_infer_tpu_torch.ops.kv_cache import kv_cache_view, scales_flat
 from atoma_infer_tpu_torch.ops.kv_write import write_kv_cache_plain, write_kv_cache_quant_plain
 
+from jax_compiled import ragged_paged_attention_fused, ragged_paged_attention_fused_quant
 from torch_parity import (
     jax_meta, jax_scale_pages, quantized_case, ragged_case, to_numpy, to_torch, torch_meta,
     valid_rows,

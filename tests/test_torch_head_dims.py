@@ -72,16 +72,16 @@ import torch
 import test_torch_fused_split as fs
 import torch_parity as tpar
 from atoma_infer_tpu.ops.attention import _pallas_supported
-from atoma_infer_tpu.ops.attention import paged_attention_layer as jax_attention_layer
-from atoma_infer_tpu.ops.attention import ragged_paged_attention as jax_ragged
-from atoma_infer_tpu.ops.paged_attention import (
+from atoma_infer_tpu_torch.ops import paged_attention as pa
+from atoma_infer_tpu_torch.ops.kv_cache import kv_cache_view, scales_flat
+from atoma_infer_tpu_torch.ops.kv_write import write_kv_cache_plain, write_kv_cache_quant_plain
+from jax_compiled import paged_attention_layer as jax_attention_layer
+from jax_compiled import ragged_paged_attention as jax_ragged
+from jax_compiled import (
     ragged_paged_attention_fused,
     ragged_paged_attention_fused_quant,
     ragged_paged_attention_pallas,
 )
-from atoma_infer_tpu_torch.ops import paged_attention as pa
-from atoma_infer_tpu_torch.ops.kv_cache import kv_cache_view, scales_flat
-from atoma_infer_tpu_torch.ops.kv_write import write_kv_cache_plain, write_kv_cache_quant_plain
 
 torch.set_num_threads(2)
 

@@ -51,11 +51,11 @@ import test_torch_launch_device as ld
 import torch_parity as tpar
 from test_torch_launch_device import launches  # noqa: F401  (a fixture)
 from atoma_infer_tpu.ops.attention import alibi_slopes as jax_alibi_slopes
-from atoma_infer_tpu.ops.attention import paged_attention_layer as jax_attention_layer
-from atoma_infer_tpu.ops.attention import ragged_paged_attention as jax_ragged
 from atoma_infer_tpu_torch.ops import paged_attention as pa
 from atoma_infer_tpu_torch.ops.kv_cache import kv_cache_view, scales_flat
 from atoma_infer_tpu_torch.ops.kv_write import write_kv_cache_plain, write_kv_cache_quant_plain
+from jax_compiled import paged_attention_layer as jax_attention_layer
+from jax_compiled import ragged_paged_attention as jax_ragged
 
 torch.set_num_threads(2)
 

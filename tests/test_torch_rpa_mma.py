@@ -46,10 +46,10 @@ import numpy as np
 import pytest
 import torch
 
-from atoma_infer_tpu.ops.paged_attention import ragged_paged_attention_pallas
 from atoma_infer_tpu_torch.ops import paged_attention as pa
 from atoma_infer_tpu_torch.ops.attention import alibi_slopes
 
+from jax_compiled import ragged_paged_attention_pallas
 from test_torch_quant_mma import bf16_bits_to_f32, f32_to_bf16_bits, widen_pair
 from torch_parity import (
     jax_meta, jax_scale_pages, quantized_case, ragged_case, to_torch, torch_meta, valid_rows,

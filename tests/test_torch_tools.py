@@ -32,7 +32,14 @@ from atoma_infer_tpu_torch.models.weights import params_from_numpy
 from atoma_infer_tpu_torch.ops import cuda_lib
 from atoma_infer_tpu_torch.ops.quant import quantize_weight
 from atoma_infer_tpu_torch.tools import decode_harness as dh
-from atoma_infer_tpu_torch.tools import kv_quant_gate, quality_ladder, tiny_corpus, w8a8_gate
+from atoma_infer_tpu_torch.tools import (
+    attn_bench,
+    engine_step_probe,
+    kv_quant_gate,
+    quality_ladder,
+    tiny_corpus,
+    w8a8_gate,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -251,7 +258,8 @@ def test_page_tables_are_the_jax_tools():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("tool", [w8a8_gate, kv_quant_gate, quality_ladder])
+@pytest.mark.parametrize("tool", [w8a8_gate, kv_quant_gate, quality_ladder, attn_bench,
+                                  engine_step_probe])
 def test_tools_default_to_the_card(tool):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
